@@ -22,7 +22,26 @@ Phases, one JSON line each on stdout:
            true residual <= 1e-7, and that every CG step went through the
            kernels; then times warm solves and repeats with -pc_type none;
   profile  one warm CG+Jacobi solve under torch.profiler: the card's busy
-           time, its share of the warm solve time, and time by kernel.
+           time, its share of the warm solve time, and time by kernel;
+  gather   the four gather kernels K5-K8 at the Pallas probes' shapes, f64
+           and f32, each equal to its plain version bit for bit, timed
+           beside the plain version and one PyTorch call (take_along_dim,
+           index_select, flat indexing, take); the bound counts the
+           indices, the output and the distinct input entries read;
+  aij      the assembled-matrix path: the same 128^3 box27 operator as COO
+           triplets in bench_kspsolve's order (diagonal first, then the 26
+           offsets), through MatAIJ setPreallocationCOO/setValuesCOO, then
+           CG+Jacobi to rtol 1e-8, with every launch count set to 0 just
+           before the assembly and read just after the solve; asserts kind
+           aij_csr, nnz 55,742,968, 184 iterations, CONVERGED_RTOL, relres
+           <= 1e-8, a true residual <= 1e-7, a residual history equal to
+           the stencil path's to 1e-6 relative, and launches of gather >= 2,
+           csr_spmv >= its, const_stencil == 0; times warm solves (jacobi
+           and none); then the CSR SpMV S2 alone at 128^3 against its plain
+           version (f64 1e-12, f32 1e-5), torch.sparse_csr_tensor and scipy
+           (the tests/data fixtures and 24^3, 1e-12); the host seconds of
+           the two assembly calls on a line of their own;
+  aij_profile  the profile phase for one warm CSR CG+Jacobi solve.
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. With
 no CUDA device, or without the package beside it, it exits non-zero and
@@ -37,6 +56,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # HBM3 bandwidth, and dense non-tensor-core rates for each type
@@ -44,7 +64,13 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 TOL = {"float64": 1e-12, "float32": 1e-5}
 N_MAIN = 128
+ITS_MAIN = 184                  # CG+Jacobi at 128^3 (BENCH_r05.json jacobi_its)
+NNZ_MAIN = 55_742_968           # box27 at 128^3
 REPS = 20
+PROBE_SHUFFLE = (1_048_576, 4096, 128)   # C, B, W of pallas_shuffle_probe.py probe_s1/s2/s3
+PROBE_GATHER = (524_288, 4_194_304)      # n, m of pallas_gather_probe.py probe_g1
+DATA = Path(__file__).resolve().parent / "tests" / "data"
+FIXTURES = ("LFAT5.mtx", "m_05_05_crk.mtx", "amesos2_test_mat0.mtx")
 
 
 def emit(obj):
@@ -226,8 +252,9 @@ def check_solve(pk, ksp, b, x):
     relres = ksp.getResidualNorm() / ksp._rnorm0
     Ax = pk.const_stencil_plain(x.array, (N_MAIN,) * 3, 26.0, -1.0, True)
     true_rel = float(torch.linalg.vector_norm(b.array - Ax) / torch.linalg.vector_norm(b.array))
-    if its != 184 or reason != "CONVERGED_RTOL" or not relres <= 1e-8 or not true_rel <= 1e-7:
-        raise AssertionError(f"128^3 CG: its {its} (want 184), {reason}, relres {relres}, "
+    if its != ITS_MAIN or reason != "CONVERGED_RTOL" or not relres <= 1e-8 \
+            or not true_rel <= 1e-7:
+        raise AssertionError(f"128^3 CG: its {its} (want {ITS_MAIN}), {reason}, relres {relres}, "
                              f"true relres {true_rel}")
     if not bool(torch.isfinite(x.array).all()):
         raise AssertionError("solution has non-finite entries")
@@ -277,6 +304,201 @@ def profile_solve(ksp, b, x, warm_ms_best):
             "by_kernel": [{"name": k[:90], "count": n, "ms": us / 1e3}
                           for k, (n, us) in top]}
 
+def distinct(flat_idx, n):
+    """How many distinct entries of an n-entry array flat_idx names."""
+    import torch
+    seen = torch.zeros(n, dtype=torch.bool, device=flat_idx.device)
+    seen[flat_idx.reshape(-1).long()] = True
+    return int(seen.sum())
+
+
+def phase_gather(gk, flush):
+    """K5-K8 at the Pallas probes' shapes (examples/pallas_shuffle_probe.py
+    probe_s1/s2/s3, examples/pallas_gather_probe.py probe_g1), each equal to
+    its plain version bit for bit. Returns (details, f64 rows by name)."""
+    import torch
+    dev = torch.device("cuda")
+    details, main = [], {}
+    C, B, W = PROBE_SHUFFLE
+    n8, m8 = PROBE_GATHER
+    for dtype in (torch.float64, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        isz = torch.empty((), dtype=dtype).element_size()
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def probe_values(count, period):
+            return (0.5 + (torch.arange(count, device=dev) % period) / period).to(dtype)
+
+        def ints(hi, shape):
+            return torch.randint(0, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+
+        def record(name, args, kern, plain, library, nbytes, elems):
+            k, p = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            if k.shape != p.shape or not torch.equal(k, p):
+                raise AssertionError(f"{name} {dn}: kernel differs from its plain version")
+            b_ms, b_by = bound(nbytes, 0, dn)
+            row = {"name": name, "dtype": dn, "elements": elems, "bit_equal": True,
+                   "max_abs_err": float((k.double() - p.double()).abs().max()),
+                   "ms": time_ms(lambda: kern(*args, check=False), flush),
+                   "plain_ms": time_ms(lambda: plain(*args), flush),
+                   "library_ms": time_ms(library, flush),
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+            row["Gelem_per_s"] = elems / row["ms"] / 1e6
+            details.append(row)
+            if dtype == torch.float64:
+                main[name] = row
+
+        # K5 lane shuffle: o[r, l] = V[r, s[r, l]]
+        V = probe_values(C * W, 997).view(C, W)
+        s = ints(W, (C, W))
+        s_l = s.long()
+        nd = distinct(torch.arange(C, device=dev)[:, None] * W + s, C * W)
+        record("lane_shuffle", (V, s), gk.lane_shuffle, gk.lane_shuffle_plain,
+               lambda: torch.take_along_dim(V, s_l, 1), C * W * (4 + isz) + nd * isz, C * W)
+        del V, s, s_l
+
+        # K6 row gather: o[c, :] = x2[q[c], :]
+        x2 = probe_values(B * W, 997).view(B, W)
+        q = ints(B, (C,))
+        nd = distinct(q, B) * W
+        record("row_gather", (x2, q), gk.row_gather, gk.row_gather_plain,
+               lambda: torch.index_select(x2, 0, q), C * 4 + C * W * isz + nd * isz, C * W)
+        del q
+
+        # K7 two-level gather: o[c, l] = x2.flat[128 q[c, l] + s[c, l]]
+        q = ints(B, (C, W))
+        s = ints(W, (C, W))
+        x2f = x2.view(-1)
+        nd = distinct(q * W + s, B * W)
+        record("gather2", (x2, q, s), gk.gather2, gk.gather2_plain,
+               lambda: x2f[128 * q + s], C * W * (8 + isz) + nd * isz, C * W)
+        del q, s, x2, x2f
+
+        # K8 flat gather: o = x[idx], idx viewed (m / 128, 128)
+        x = probe_values(n8, 1000)
+        idx = ints(n8, (m8 // 128, 128))
+        idx_l = idx.long()
+        nd = distinct(idx, n8)
+        record("gather", (x, idx), gk.gather, gk.gather_plain,
+               lambda: torch.take(x, idx_l), m8 * (4 + isz) + nd * isz, m8)
+        del x, idx, idx_l
+        torch.cuda.empty_cache()
+    return details, main
+
+
+def box27_coo(n):
+    """The box27 operator on an n^3 grid as COO triplets in the order of
+    examples/bench_kspsolve.py:23-42: the diagonal first, then the 26
+    offsets, each in row order (so the whole is not row-sorted)."""
+    import numpy as np
+    N = n ** 3
+    idx = np.arange(N, dtype=np.int64)
+    z, r = divmod(idx, n * n)
+    y, x = divmod(r, n)
+    rows, cols = [idx], [idx]
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if (dx, dy, dz) == (0, 0, 0):
+                    continue
+                xx, yy, zz = x + dx, y + dy, z + dz
+                ok = (xx >= 0) & (xx < n) & (yy >= 0) & (yy < n) & (zz >= 0) & (zz < n)
+                rows.append(idx[ok])
+                cols.append((zz * n * n + yy * n + xx)[ok])
+    i, j = np.concatenate(rows), np.concatenate(cols)
+    v = np.full(len(i), -1.0)
+    v[:N] = 26.0
+    return i, j, v
+
+
+def aij_solve(pt, A, pc_type):
+    ksp = pt.KSP().create()
+    ksp.setOperators(A)
+    ksp.setFromOptions()
+    ksp.getPC().setType(pc_type)
+    b = A.createVecLeft()
+    b.set(1.0)
+    x = A.createVecRight()
+    ksp.solve(b, x)
+    return ksp, b, x
+
+
+def check_aij_solve(pk, ksp, A, b, x, hist_stencil):
+    import numpy as np
+    import torch
+    its = ksp.getIterationNumber()
+    reason = ksp.getConvergedReason().name
+    relres = ksp.getResidualNorm() / ksp._rnorm0
+    d = A.device_data()
+    Ax = pk.csr_spmv_plain(d["indptr"], d["col"], d["vals"], x.array)
+    true_rel = float(torch.linalg.vector_norm(b.array - Ax) / torch.linalg.vector_norm(b.array))
+    hist = ksp.getConvergenceHistory()
+    hist_rel = (float(np.max(np.abs(hist - hist_stencil) / np.abs(hist_stencil)))
+                if hist.shape == hist_stencil.shape else math.inf)
+    if its != ITS_MAIN or reason != "CONVERGED_RTOL" or not relres <= 1e-8 \
+            or not true_rel <= 1e-7 or not hist_rel <= 1e-6:
+        raise AssertionError(f"128^3 CSR CG: its {its} (want {ITS_MAIN}), {reason}, relres {relres}, "
+                             f"true relres {true_rel}, history vs stencil {hist_rel}")
+    if not bool(torch.isfinite(x.array).all()):
+        raise AssertionError("CSR solution has non-finite entries")
+    return {"its": its, "reason": reason, "relres": relres, "true_relres": true_rel,
+            "history_rel_diff_vs_stencil": hist_rel}
+
+
+def phase_spmv(pt, pk, sb, A, flush):
+    """S2 alone: at 128^3 against its plain version (f64 and f32) and
+    torch.sparse_csr_tensor, and against scipy on the tests/data fixtures
+    and at 24^3. Returns (details, the f64 128^3 row)."""
+    import numpy as np
+    import torch
+    from petsc_tpu_torch.mat.mmio import load_matrix_market
+    dev = torch.device("cuda")
+    d = A.device_data()
+    ip, col, nnz, n = d["indptr"], d["col"], A.nnz(), A.getSize()[0]
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    details, main = [], None
+    for dtype in (torch.float64, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        isz = torch.empty((), dtype=dtype).element_size()
+        vals = d["vals"].to(dtype)
+        x = torch.rand(n, generator=gen, device=dev, dtype=dtype)
+        k = pk.csr_spmv(ip, col, vals, x)
+        p = pk.csr_spmv_plain(ip, col, vals, x)
+        err = rel_err(k, p)
+        if not err <= TOL[dn]:
+            raise AssertionError(f"csr_spmv {dn} at 128^3: rel err {err} > {TOL[dn]}")
+        A_lib = torch.sparse_csr_tensor(ip.int(), col, vals, size=(n, n))
+        nbytes = nnz * (isz + 4) + (n + 1) * 8 + 2 * n * isz
+        b_ms, b_by = bound(nbytes, 2 * nnz, dn)
+        row = {"name": "csr_spmv", "dtype": dn, "n": n, "nnz": nnz, "rel_err": err,
+               "tol": TOL[dn], "max_abs_err": float((k - p).abs().max()),
+               "ms": time_ms(lambda: pk.csr_spmv(ip, col, vals, x), flush),
+               "plain_ms": time_ms(lambda: pk.csr_spmv_plain(ip, col, vals, x), flush),
+               "library_ms": time_ms(lambda: A_lib @ x, flush),
+               "library_rel_err": rel_err(A_lib @ x, p),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+        row["Gnnz_per_s"] = nnz / row["ms"] / 1e6
+        row["bound_Gnnz_per_s"] = nnz / b_ms / 1e6
+        details.append(row)
+        if dtype == torch.float64:
+            main = row
+        del vals, x, k, p, A_lib
+    cases = [(f, load_matrix_market(DATA / f)) for f in FIXTURES]
+    cases.append(("box27_24", pt.MatAIJ.from_scipy(sb.poisson3d_27pt(24))))
+    for name, M in cases:
+        ref = M.to_scipy()
+        xs = np.random.default_rng(7).random(ref.shape[1])
+        dd = M.device_data()
+        y = pk.csr_spmv(dd["indptr"], dd["col"], dd["vals"], torch.as_tensor(xs, device=dev))
+        err = rel_err(y.cpu(), torch.as_tensor(ref @ xs))
+        if not err <= 1e-12:
+            raise AssertionError(f"csr_spmv vs scipy on {name}: rel err {err}")
+        details.append({"name": f"csr_spmv_vs_scipy_{name}", "shape": list(ref.shape),
+                        "nnz": int(ref.nnz), "rel_err": err})
+    return details, main
+
+
 
 def main():
     import torch
@@ -286,6 +508,7 @@ def main():
         return 2
     import petsc_tpu_torch as pt
     from petsc_tpu_torch.ops import cuda_build, stencil_build as sb
+    from petsc_tpu_torch.ops import gather_kernels as gk
     from petsc_tpu_torch.ops import pallas_kernels as pk
 
     t_start = time.perf_counter()
@@ -315,12 +538,14 @@ def main():
     # ---- the main path, with every launch count set to 0 just before ----
     torch.cuda.reset_peak_memory_stats()
     pk.reset_launches()
+    gk.reset_launches()
     t0 = time.perf_counter()
     ksp, A, b, x = solve_once(pt, sb, "jacobi")
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = dict(pk.LAUNCHES)
+    launches = {**pk.LAUNCHES, **gk.LAUNCHES}
     its, reason, relres, true_rel = check_solve(pk, ksp, b, x)
+    hist_stencil = ksp.getConvergenceHistory()
     need = {"probe": 1, "const_stencil": its, "triad": its, "axpy_normsq": its, "dot2": its}
     short = {k: (launches[k], v) for k, v in need.items() if launches[k] < v}
     if short:
@@ -331,6 +556,7 @@ def main():
 
     ksp_none, _, b2, x2 = solve_once(pt, sb, "none")
     none = check_solve(pk, ksp_none, b2, x2)
+    hist_stencil_none = ksp_none.getConvergenceHistory()
     none_ms = warm_ms(ksp_none, b2, x2)
     check_solve(pk, ksp_none, b2, x2)
     emit({"phase": "solve", "n": N_MAIN, "stencil": "box27", "dtype": "float64",
@@ -349,20 +575,102 @@ def main():
           **profile_solve(ksp, b, x, jac_ms)})
     check_solve(pk, ksp, b, x)
 
-    sources = {"probe": ("probe.cu", "petsc_tpu/ops/pallas_kernels.py:31"),
-               "triad": ("triad.cu", "petsc_tpu/ops/pallas_kernels.py:108"),
-               "axpy_normsq": ("axpy_normsq.cu", "petsc_tpu/ops/pallas_kernels.py:151"),
-               "dot2": ("dot2.cu", "petsc_tpu/ops/pallas_kernels.py:198"),
-               "const_stencil": ("const_stencil.cu", "petsc_tpu/mat/aij.py:1346")}
+    gdetails, gather_rows = phase_gather(gk, flush)
+    emit({"phase": "gather", "nvidia_smi": smi, "checks": gdetails,
+          "seconds_so_far": time.perf_counter() - t_start})
+
+    # ---- the assembled-matrix path, with every launch count set to 0 just before ----
+    t0 = time.perf_counter()
+    ci, cj, cv = box27_coo(N_MAIN)
+    coo_s = time.perf_counter() - t0
+    pt.init(args=["-ksp_type", "cg", "-pc_type", "jacobi", "-ksp_rtol", "1e-8",
+                  "-ksp_max_it", "3000"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pk.reset_launches()
+    gk.reset_launches()
+    t0 = time.perf_counter()
+    A_aij = pt.MatAIJ()
+    A_aij.setSizes(N_MAIN ** 3)
+    t1 = time.perf_counter()
+    A_aij.setPreallocationCOO(ci, cj)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    A_aij.setValuesCOO(cv)
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t1
+    ksp_a, b_a, x_a = aij_solve(pt, A_aij, "jacobi")
+    torch.cuda.synchronize()
+    aij_s = time.perf_counter() - t0
+    aij_launches = {**pk.LAUNCHES, **gk.LAUNCHES}
+    del ci, cj, cv
+    emit({"phase": "aij_host", "coo_generate_s": coo_s, "setPreallocationCOO_s": pre_s,
+          "setValuesCOO_s": val_s})
+    if A_aij.meta[0] != "aij_csr" or A_aij.nnz() != NNZ_MAIN:
+        raise AssertionError(f"assembled 128^3 box27: kind {A_aij.meta[0]}, nnz {A_aij.nnz()}")
+    jac_a = check_aij_solve(pk, ksp_a, A_aij, b_a, x_a, hist_stencil)
+    its_a = jac_a["its"]
+    need = {"gather": 2, "csr_spmv": its_a, "triad": its_a, "axpy_normsq": its_a,
+            "dot2": its_a}
+    short = {k: (aij_launches[k], v) for k, v in need.items() if aij_launches[k] < v}
+    if short or aij_launches["const_stencil"] != 0:
+        raise AssertionError(f"assembled path's launches (got, need): {short}; "
+                             f"const_stencil {aij_launches['const_stencil']} (need 0)")
+    peak_a = torch.cuda.max_memory_allocated() / 2 ** 20
+    jac_ms_a = warm_ms(ksp_a, b_a, x_a)
+    check_aij_solve(pk, ksp_a, A_aij, b_a, x_a, hist_stencil)
+    ksp_n, b_n, x_n = aij_solve(pt, A_aij, "none")
+    none_a = check_aij_solve(pk, ksp_n, A_aij, b_n, x_n, hist_stencil_none)
+    none_ms_a = warm_ms(ksp_n, b_n, x_n)
+    check_aij_solve(pk, ksp_n, A_aij, b_n, x_n, hist_stencil_none)
+    sdetails, spmv_row = phase_spmv(pt, pk, sb, A_aij, flush)
+    emit({"phase": "aij", "n": N_MAIN, "stencil": "box27", "assembly": "COO",
+          "kind": A_aij.meta[0], "nnz": A_aij.nnz(), "dtype": "float64", "rtol": 1e-8,
+          "nvidia_smi": smi,
+          "jacobi": {**jac_a, "first_assembly_and_solve_s": aij_s,
+                     "warm_ms_best_of_3": jac_ms_a, "ms_per_it": jac_ms_a / its_a,
+                     "launches": aij_launches,
+                     "launches_per_it": {k: v / its_a for k, v in aij_launches.items()},
+                     "peak_mem_MiB": peak_a},
+          "none": {**none_a, "warm_ms_best_of_3": none_ms_a,
+                   "ms_per_it": none_ms_a / none_a["its"]},
+          "spmv": sdetails, "seconds_so_far": time.perf_counter() - t_start})
+    emit({"phase": "aij_profile", "solve": "jacobi", "nvidia_smi": smi,
+          **profile_solve(ksp_a, b_a, x_a, jac_ms_a)})
+    check_aij_solve(pk, ksp_a, A_aij, b_a, x_a, hist_stencil)
+
+    # name: (source, replaces, measured row, launches on the path it belongs to)
+    rows = {
+        "probe": ("probe.cu", "petsc_tpu/ops/pallas_kernels.py:31", main_rows, launches),
+        "triad": ("triad.cu", "petsc_tpu/ops/pallas_kernels.py:108", main_rows, launches),
+        "axpy_normsq": ("axpy_normsq.cu", "petsc_tpu/ops/pallas_kernels.py:151", main_rows,
+                        launches),
+        "dot2": ("dot2.cu", "petsc_tpu/ops/pallas_kernels.py:198", main_rows, launches),
+        "const_stencil": ("const_stencil.cu", "petsc_tpu/mat/aij.py:1346", main_rows,
+                          launches),
+        "csr_spmv": ("csr_spmv.cu", "petsc_tpu/mat/aij.py:1554", {"csr_spmv": spmv_row},
+                     aij_launches),
+        "lane_shuffle": ("lane_shuffle.cu", "examples/pallas_shuffle_probe.py:60",
+                         gather_rows, aij_launches),
+        "row_gather": ("row_gather.cu", "examples/pallas_shuffle_probe.py:92",
+                       gather_rows, aij_launches),
+        "gather2": ("gather.cu", "examples/pallas_shuffle_probe.py:125", gather_rows,
+                    aij_launches),
+        "gather": ("gather.cu", "examples/pallas_gather_probe.py:50", gather_rows,
+                   aij_launches),
+    }
     table = []
-    for name, (src, replaces) in sources.items():
-        r = main_rows[name]
+    for name, (src, replaces, measured, counts) in rows.items():
+        r = measured[name]
         table.append({"name": name, "route": "cuda",
                       "source": f"petsc_tpu_torch/csrc/{src}", "replaces": replaces,
-                      "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                      "launches": counts[name], "max_abs_err": r["max_abs_err"],
                       "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                      "dtype": r["dtype"], "n": r["n"]})
+                      "dtype": r["dtype"],
+                      "launches_by_path": {"solve": launches[name],
+                                           "aij": aij_launches[name]}})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,7 +2,9 @@
 
 A second package beside ``petsc_tpu`` with the same public surface for
 what it ports so far: the options database, Vec, the stencil Mat of the
-3-D Poisson operator, PC none/jacobi and KSP cg/richardson/preonly. It
+3-D Poisson operator, the assembled MatAIJ (setValues, CSR and COO
+assembly, the host matrix operations), PC none/jacobi and KSP
+cg/richardson/preonly. It
 imports torch, numpy and scipy, never jax or petsc_tpu. Objects live on
 the device :func:`init` chooses: ``cuda`` unless ``device="cpu"`` is
 passed. The CG body runs on hand-written Hopper kernels
@@ -18,6 +20,10 @@ Quick start::
     ksp = pt.KSP().create(); ksp.setOperators(A); ksp.setFromOptions()
     b = A.createVecLeft(); b.set(1.0)
     x = ksp.solve(b)
+
+or, for an assembled matrix, ``A = pt.MatAIJ(); A.setSizes(N);
+A.setPreallocationCOO(i, j); A.setValuesCOO(v)`` (or ``setValues`` and
+``assemble()``) in place of the stencil Mat.
 """
 
 from . import config
@@ -28,7 +34,7 @@ from .parallel.layout import Layout
 from .parallel.mesh import Comm, comm_self
 from .vec.vec import Vec, NormType, InsertMode, fused_reductions
 from .mat.mat import Mat
-from .mat import aij as _aij  # noqa: F401  (registers the aij_dnd binder)
+from .mat.aij import MatAIJ  # also registers the aij_csr and aij_dnd binders
 from .pc.pc import PC
 from .ksp.ksp import KSP
 

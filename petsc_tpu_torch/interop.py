@@ -1,9 +1,10 @@
 """Carry the reference package's state into the port.
 
 The JAX package's operators are ``(meta, data)`` pairs of a plain tuple
-and a dict of arrays; given as numpy arrays, they become the port's
-objects on the device of ``config.init``. The parity tests use this so
-that both packages compute on the same operator and the same vectors.
+and a dict of arrays, and its MatAIJ gives its host CSR through
+``getValuesCSR()``; given as numpy arrays, they become the port's objects
+on the device of ``config.init``. The parity tests use this so that both
+packages compute on the same operator and the same vectors.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from . import config
+from .mat.aij import MatAIJ
 from .ops.stencil_build import as_mat
 from .vec.vec import Vec
 
@@ -25,10 +27,39 @@ def _plain(v):
     return v
 
 
+def mat_from_csr(indptr, indices, vals, shape):
+    """A port MatAIJ holding a CSR (the reference's ``getValuesCSR()``)."""
+    A = MatAIJ()
+    A.setSizes(tuple(int(s) for s in shape))
+    A.setValuesCSR(indptr, indices, vals)
+    return A.assemble()
+
+
+def _csr_of_device_layout(meta, data):
+    """The CSR triple of the reference's ``aij_csr`` or ``aij_ell`` data."""
+    if meta[0] == "aij_csr":
+        _, m, _ = meta
+        rows = np.asarray(data["row_ids"], dtype=np.int64)
+        cols, vals = np.asarray(data["col_idx"]), np.asarray(data["vals"])
+    else:
+        # ELL: ell_scatter holds each CSR entry's flat (row, slot) position,
+        # in CSR order, so padding slots are told apart from stored zeros
+        _, m, _, K = meta
+        pos = np.asarray(data["ell_scatter"], dtype=np.int64)
+        rows = pos // K
+        cols = np.asarray(data["idx"]).reshape(-1)[pos]
+        vals = np.asarray(data["data"]).reshape(-1)[pos]
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=m))])
+    return indptr, cols, vals
+
+
 def mat_from_meta_data(meta, data_np):
-    """A port Mat from the reference's ``aij_dnd`` (meta, data); the data
-    arrays keep their dtype."""
+    """A port Mat from the reference's ``aij_dnd``, ``aij_csr`` or
+    ``aij_ell`` (meta, data). The stencil's data arrays keep their dtype;
+    the assembled layouts become the port's CSR MatAIJ."""
     meta = _plain(meta)
+    if meta[0] in ("aij_csr", "aij_ell"):
+        return mat_from_csr(*_csr_of_device_layout(meta, data_np), shape=meta[1:3])
     if meta[0] != "aij_dnd":
         raise NotImplementedError(f"interop: operator kind '{meta[0]}' is not ported")
     data = {k: torch.tensor(np.asarray(v), device=config.device())

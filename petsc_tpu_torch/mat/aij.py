@@ -1,6 +1,26 @@
-"""The `aij_dnd` grid-stencil binder.
+"""MatAIJ, the assembled sparse matrix, and the `aij_csr` and `aij_dnd` binders.
 
-Counterpart of ``petsc_tpu/mat/aij.py:_bind_aij_dnd``, limited to its
+Counterpart of ``petsc_tpu/mat/aij.py`` (reference MATSEQAIJ,
+src/mat/impls/aij/seq/aij.c) for one device:
+
+* Host ("symbolic") state: a canonical CSR over the rows in numpy/scipy,
+  as in the reference: assembly from setValues, CSR or COO triplets, and
+  the host matrix operations.
+* Device ("numeric") state: CSR arrays (int64 row pointers, int32
+  columns, values, the diagonal and its positions). The product is the
+  hand kernel S2 (:func:`ops.pallas_kernels.csr_spmv`). The TPU package
+  chose among no-gather layouts (DIA, HYB, BDIA, RCM-permuted, ELL);
+  Hopper has a hardware gather, so every layout name it accepts gives
+  CSR here, with the same results.
+* COO assembly (gcreate.c:706): the pattern is sorted on the host once;
+  each ``setValuesCOO`` then runs on the device: the K8 gather ``v[perm]``
+  (:func:`ops.gather_kernels.gather`), a segmented sum only where the
+  pattern has duplicates, and the diagonal refreshed through K8.
+
+Every value change bumps the object state, so a cache keyed on it (the
+PC's setup) never applies stale values.
+
+The `aij_dnd` binder is the reference's ``_bind_aij_dnd`` limited to its
 separable branch (aij.py:1346-1379): a uniform-coefficient full box or
 star stencil, applied by the hand-written S1 kernel
 (:func:`ops.pallas_kernels.const_stencil`). The slab-blocked and generic
@@ -12,8 +32,450 @@ from __future__ import annotations
 
 from itertools import product
 
-from ..ops import operator
-from ..ops.pallas_kernels import const_stencil
+import numpy as np
+import torch
+
+from .. import config
+from ..ops import operator, spmv
+from ..ops.gather_kernels import gather
+from ..ops.pallas_kernels import const_stencil, csr_spmv
+from ..sys.error import Error
+from ..vec.vec import InsertMode, NormType
+from .mat import Mat
+
+# -mat_spmv_kind values: the TPU's no-gather layouts all give CSR here
+_CSR_KINDS = ("auto", "csr", "ell", "dia", "hyb", "bdia", "perm")
+_GAMG = "the GAMG slice (ROADMAP queue 1 item 5)"
+_BAIJ = "the BAIJ part of ROADMAP queue 1 item 7"
+_LATER_KINDS = {"dnd": _GAMG, "dndb": _BAIJ, "bell": _BAIJ}
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _sort_key(i, j, ncols):
+    """int64 key whose stable order is (row, column) order."""
+    return i * np.int64(max(ncols, 1)) + j
+
+
+def _row_of_entry(indptr):
+    return np.repeat(np.arange(len(indptr) - 1, dtype=np.int64), np.diff(indptr))
+
+
+class MatAIJ(Mat):
+    def __init__(self, comm=None, **kw):
+        super().__init__(comm, **kw)
+        # assembly staging (COO triplets, numpy)
+        self._sti: list = []
+        self._stj: list = []
+        self._stv: list = []
+        self._st_mode = None
+        # canonical host CSR
+        self._indptr = None   # (m+1,) int64
+        self._indices = None  # (nnz,) int64
+        self._vals = None     # (nnz,) float64; None while the device holds newer values
+        # device state
+        self._dev = None
+        self._meta = None
+        self._coo_plan = None
+        self._kind_opt = None
+        self._assembled = False
+
+    # ================= assembly =================
+
+    def setPreallocation(self, nz=None, nnz=None):
+        return self  # growth is dynamic on the host
+
+    def setValues(self, rows, cols, values, addv=InsertMode.INSERT_VALUES):
+        """Stage a dense len(rows) x len(cols) block (MatSetValues,
+        matrix.c:1568). Negative indices are skipped."""
+        rows = np.atleast_1d(np.asarray(rows, dtype=np.int64))
+        cols = np.atleast_1d(np.asarray(cols, dtype=np.int64))
+        values = np.asarray(values, dtype=np.float64).reshape(len(rows), len(cols))
+        ii = np.repeat(rows, len(cols))
+        jj = np.tile(cols, len(rows))
+        vv = values.reshape(-1)
+        keep = (ii >= 0) & (jj >= 0)
+        if self._st_mode is not None and self._st_mode != addv:
+            raise Error("cannot mix INSERT_VALUES and ADD_VALUES in one assembly")
+        self._st_mode = addv
+        self._sti.append(ii[keep])
+        self._stj.append(jj[keep])
+        self._stv.append(vv[keep])
+
+    def setValue(self, i, j, v, addv=InsertMode.INSERT_VALUES):
+        self.setValues([i], [j], [[v]], addv)
+
+    def setValuesCSR(self, indptr, indices, values):
+        """Take a CSR (copied); column indices are sorted within each row."""
+        self._indptr = np.array(indptr, dtype=np.int64)
+        self._indices = np.array(indices, dtype=np.int64)
+        self._vals = np.array(values, dtype=np.float64)
+        self._coo_plan = None
+        if len(self._indices):
+            dec = np.diff(self._indices) < 0
+            if dec.any():
+                rows = _row_of_entry(self._indptr)
+                if (dec & (np.diff(rows) == 0)).any():
+                    order = np.argsort(_sort_key(rows, self._indices, self.col_layout.N),
+                                       kind="stable")
+                    self._indices = self._indices[order]
+                    self._vals = self._vals[order]
+
+    def assemblyBegin(self, *a):
+        pass
+
+    def assemblyEnd(self, *a):
+        self.assemble()
+
+    def assemble(self, *a):
+        """Merge staged triplets into the canonical CSR and rebuild the
+        device arrays (MatAssemblyBegin/End, matrix.c:6255/6318)."""
+        if self._sti:
+            i = np.concatenate(self._sti)
+            j = np.concatenate(self._stj)
+            v = np.concatenate(self._stv)
+            if self._indptr is not None:
+                self._sync_host_vals()
+                i = np.concatenate([_row_of_entry(self._indptr), i])
+                j = np.concatenate([self._indices, j])
+                v = np.concatenate([self._vals, v])
+            if self._st_mode == InsertMode.INSERT_VALUES:
+                self._dedupe_last_wins(i, j, v)
+            else:
+                self._dedupe_sum(i, j, v)
+            self._sti, self._stj, self._stv, self._st_mode = [], [], [], None
+            self._coo_plan = None      # the pattern may have changed
+        if self._indptr is None:
+            self._indptr = np.zeros(self.row_layout.N + 1, dtype=np.int64)
+            self._indices = np.zeros(0, dtype=np.int64)
+            self._vals = np.zeros(0, dtype=np.float64)
+        self._build_device()
+        self._assembled = True
+        self.increase_state()
+        return self
+
+    def _check_bounds(self, i, j):
+        m, n = self.getSize()
+        if len(i) and (int(i.max()) >= m or int(j.max()) >= n):
+            raise Error(f"MatAIJ: entry ({int(i.max())}, {int(j.max())}) outside the "
+                        f"{m} x {n} matrix")
+
+    def _dedupe_sum(self, i, j, v):
+        """Canonical CSR from triplets, duplicates summed in their order."""
+        self._check_bounds(i, j)
+        order = np.argsort(_sort_key(i, j, self.col_layout.N), kind="stable")
+        i, j, v = i[order], j[order], v[order]
+        new = np.ones(len(i), dtype=bool)
+        new[1:] = (i[1:] != i[:-1]) | (j[1:] != j[:-1])
+        slots = np.cumsum(new) - 1
+        self._vals = np.bincount(slots, weights=v, minlength=int(new.sum())) \
+            if len(v) else np.zeros(0)
+        self._indptr = np.concatenate(
+            [[0], np.cumsum(np.bincount(i[new], minlength=self.row_layout.N))]).astype(np.int64)
+        self._indices = j[new]
+
+    def _dedupe_last_wins(self, i, j, v):
+        self._check_bounds(i, j)
+        order = np.argsort(_sort_key(i, j, self.col_layout.N), kind="stable")
+        i, j, v = i[order], j[order], v[order]
+        last = np.ones(len(i), dtype=bool)
+        last[:-1] = (i[1:] != i[:-1]) | (j[1:] != j[:-1])
+        self._dedupe_sum(i[last], j[last], v[last])
+
+    # -------- COO device-resident assembly (gcreate.c:706 model) --------
+
+    def setPreallocationCOO(self, coo_i, coo_j):
+        """Symbolic phase: fix the COO pattern (negative indices dropped)
+        and build the device plan. The dropped entries are folded into
+        the permutation, so ``setValuesCOO`` is one gather on the card."""
+        i = np.asarray(coo_i, dtype=np.int64).reshape(-1)
+        j = np.asarray(coo_j, dtype=np.int64).reshape(-1)
+        if len(i) != len(j):
+            raise Error(f"setPreallocationCOO: {len(i)} rows and {len(j)} columns")
+        n_user = len(i)
+        if n_user > _INT32_MAX:
+            raise Error("setPreallocationCOO: the device plan's int32 gather takes "
+                        "fewer than 2^31 entries")
+        keep = (i >= 0) & (j >= 0)
+        kept = None if keep.all() else np.nonzero(keep)[0]
+        if kept is not None:
+            i, j = i[kept], j[kept]
+        self._check_bounds(i, j)
+        # one stable sort of the int64 key i*ncols + j: the (row, col) order
+        order = np.argsort(_sort_key(i, j, self.col_layout.N), kind="stable")
+        si, sj = i[order], j[order]
+        new = np.ones(len(si), dtype=bool)
+        new[1:] = (si[1:] != si[:-1]) | (sj[1:] != sj[:-1])
+        self._indptr = np.concatenate(
+            [[0], np.cumsum(np.bincount(si[new], minlength=self.row_layout.N))]).astype(np.int64)
+        self._indices = sj[new]
+        self._vals = np.zeros(len(self._indices))
+        dev = config.device()
+        perm = order if kept is None else kept[order]
+        self._coo_plan = {
+            "perm": torch.as_tensor(perm.astype(np.int32), device=dev),
+            # CSR slot of each sorted entry; only needed where entries repeat
+            "seg": None if new.all() else
+            torch.as_tensor(np.cumsum(new) - 1, dtype=torch.int64, device=dev),
+            "n_user": n_user,
+            "nnz": len(self._indices),
+        }
+        self._build_device()
+        self._assembled = True
+        self.increase_state()
+        return self
+
+    def setValuesCOO(self, values):
+        """Numeric phase, on the device: csr_vals = segment sum of v[perm]."""
+        plan = self._coo_plan
+        if plan is None:
+            raise Error("call setPreallocationCOO first (a later assembly that "
+                        "changes the pattern drops the COO plan)")
+        v = torch.as_tensor(values, dtype=config.real_dtype(),
+                            device=config.device()).reshape(-1).contiguous()
+        if v.numel() != plan["n_user"]:
+            raise Error(f"setValuesCOO: {v.numel()} values for {plan['n_user']} entries")
+        csr_vals = gather(v, plan["perm"], check=False)
+        if plan["seg"] is not None:
+            csr_vals = torch.zeros(plan["nnz"], dtype=v.dtype, device=v.device) \
+                .index_add_(0, plan["seg"], csr_vals)
+        self._update_device_values(csr_vals)
+        self._vals = None      # the host copy is fetched when it is asked for
+        self._assembled = True
+        self.increase_state()
+        return self
+
+    # ================= host CSR access =================
+
+    def getValuesCSR(self):
+        self._sync_host_vals()
+        return self._indptr.copy(), self._indices.copy(), self._vals.copy()
+
+    def _sync_host_vals(self):
+        if self._vals is None:
+            self._vals = self._dev["vals"].cpu().numpy().astype(np.float64)
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+        self._sync_host_vals()
+        return sp.csr_matrix((self._vals, self._indices, self._indptr), shape=self.getSize())
+
+    @classmethod
+    def from_scipy(cls, A, comm=None):
+        A = A.tocsr()
+        M = cls(comm)
+        M.setSizes(A.shape)
+        M.setValuesCSR(A.indptr, A.indices, A.data)
+        return M.assemble()
+
+    def nnz(self):
+        return int(self._indptr[-1]) if self._indptr is not None else 0
+
+    def getRow(self, row):
+        self._sync_host_vals()
+        lo, hi = self._indptr[row], self._indptr[row + 1]
+        return self._indices[lo:hi].copy(), self._vals[lo:hi].copy()
+
+    def getInfo(self):
+        return {"nz_allocated": self.nnz(), "nz_used": self.nnz(),
+                "memory": self.nnz() * 12.0, "assemblies": 1}
+
+    # ================= device build =================
+
+    def _choose_kind(self):
+        """The GPU layout policy: CSR for every single-device matrix with
+        bs == 1 (the reference's -mat_spmv_kind choice, aij.py:307-355)."""
+        if self._kind_opt is None:
+            self._kind_opt = self.opt("get_string", "mat_spmv_kind", default="auto")
+        kind = self._kind_opt
+        if self.row_layout.bs > 1 or self.col_layout.bs > 1:
+            raise NotImplementedError(
+                f"MatAIJ: block size {self.row_layout.bs} > 1 (BAIJ layouts) comes "
+                f"with {_BAIJ}")
+        if kind in _LATER_KINDS:
+            raise NotImplementedError(
+                f"-mat_spmv_kind {kind} comes with {_LATER_KINDS[kind]}")
+        if kind not in _CSR_KINDS:
+            raise Error(f"unknown -mat_spmv_kind '{kind}'")
+        return "csr"
+
+    def _build_device(self):
+        m, n = self.getSize()
+        self._choose_kind()
+        indptr, indices = self._indptr, self._indices
+        self._sync_host_vals()
+        if len(indices) > _INT32_MAX:
+            raise Error("MatAIJ: the device CSR's int32 gathers take fewer than 2^31 "
+                        "stored entries")
+        rows = _row_of_entry(indptr)
+        hit = np.nonzero(indices == rows)[0]
+        dpos = np.full(m, -1, dtype=np.int32)
+        dpos[rows[hit]] = hit
+        diag = np.bincount(rows[hit], weights=self._vals[hit], minlength=m)
+        dev, rd = config.device(), config.real_dtype()
+        self._dev = {
+            "indptr": torch.as_tensor(indptr, dtype=torch.int64, device=dev),
+            "col": torch.as_tensor(indices.astype(np.int32), device=dev),
+            "vals": torch.as_tensor(self._vals, dtype=rd, device=dev),
+            # diagonal cached for PC jacobi, and its CSR positions so that the
+            # COO numeric path refreshes it on the device
+            "diag": torch.as_tensor(diag, dtype=rd, device=dev),
+            "diag_pos": torch.as_tensor(dpos, device=dev),
+        }
+        self._meta = ("aij_csr", m, n)
+
+    def _update_device_values(self, csr_vals):
+        """New CSR values for the same pattern, staying on the device."""
+        self._dev["vals"] = csr_vals
+        dpos = self._dev["diag_pos"]
+        if csr_vals.numel():
+            d = gather(csr_vals, dpos.clamp(min=0), check=False)
+            self._dev["diag"] = torch.where(dpos >= 0, d, torch.zeros((), dtype=d.dtype,
+                                                                      device=d.device))
+        else:
+            self._dev["diag"] = torch.zeros_like(self._dev["diag"])
+
+    @property
+    def meta(self):
+        return self._meta
+
+    def device_data(self):
+        return self._dev
+
+    # ================= algebra on the host CSR =================
+
+    def transpose(self):
+        return MatAIJ.from_scipy(self.to_scipy().T.tocsr(), comm=self.comm)
+
+    def duplicate(self, copy_values=True):
+        A = self.to_scipy().copy()
+        if not copy_values:
+            A.data[:] = 0.0
+        return MatAIJ.from_scipy(A, comm=self.comm)
+
+    def scale(self, alpha):
+        self._sync_host_vals()
+        self._vals = self._vals * alpha
+        self._build_device()
+        self.increase_state()
+        return self
+
+    def shift(self, alpha):
+        """A <- A + alpha I."""
+        import scipy.sparse as sp
+        m, n = self.getSize()
+        A = (self.to_scipy() + alpha * sp.eye(m, n, format="csr")).tocsr()
+        self.setValuesCSR(A.indptr, A.indices, A.data)
+        return self.assemble()
+
+    def axpy(self, alpha, X: "MatAIJ", structure=None):
+        A = (self.to_scipy() + alpha * X.to_scipy()).tocsr()
+        self.setValuesCSR(A.indptr, A.indices, A.data)
+        return self.assemble()
+
+    def diagonalScale(self, L=None, R=None):
+        import scipy.sparse as sp
+        A = self.to_scipy()
+        if L is not None:
+            A = sp.diags(np.asarray(L.getArray())) @ A
+        if R is not None:
+            A = A @ sp.diags(np.asarray(R.getArray()))
+        A = A.tocsr()
+        self.setValuesCSR(A.indptr, A.indices, A.data)
+        return self.assemble()
+
+    def zeroRows(self, rows, diag=1.0):
+        """MatZeroRows: zero the rows, put `diag` on their diagonal."""
+        self._sync_host_vals()
+        m = self.row_layout.N
+        rows = np.asarray(rows, dtype=np.int64)
+        mask = np.zeros(m, dtype=bool)
+        mask[rows] = True
+        rr = _row_of_entry(self._indptr)
+        on_diag = self._indices == rr
+        keep = ~mask[rr] | on_diag
+        vals = np.where(mask[rr] & on_diag, diag, self._vals)
+        has_diag = np.zeros(m, dtype=bool)
+        has_diag[rr[on_diag]] = True
+        missing = rows[~has_diag[rows]]
+        self._dedupe_sum(np.concatenate([rr[keep], missing]),
+                         np.concatenate([self._indices[keep], missing]),
+                         np.concatenate([vals[keep], np.full(len(missing), diag)]))
+        return self.assemble()
+
+    def zeroRowsColumns(self, rows, diag=1.0, x=None, b=None):
+        """MatZeroRowsColumns: zero the rows and columns, `diag` on their
+        diagonal; with x and b, move the known columns' contributions to b."""
+        import scipy.sparse as sp
+        rows = np.asarray(rows, dtype=np.int64)
+        A = self.to_scipy().tocsr()
+        if x is not None and b is not None:
+            xv = np.asarray(x.getArray())[: A.shape[1]]
+            mask = np.zeros(A.shape[1], dtype=bool)
+            mask[rows] = True
+            bv = np.asarray(b.getArray())[: A.shape[0]].copy()
+            bv -= A @ (xv * mask)
+            bv[rows] = diag * xv[rows]
+            b.setArray(bv)
+        A = A.tolil()
+        for r in rows:
+            A.rows[r] = [int(r)]
+            A.data[r] = [diag]
+        coo = A.tocsr().tocoo()
+        keep = ~np.isin(coo.col, rows) | (coo.row == coo.col)
+        A = sp.csr_matrix((coo.data[keep], (coo.row[keep], coo.col[keep])), shape=A.shape)
+        self.setValuesCSR(A.indptr, A.indices, A.data)
+        return self.assemble()
+
+    def norm(self, norm_type=NormType.NORM_FROBENIUS):
+        self._sync_host_vals()
+        if norm_type == NormType.NORM_FROBENIUS:
+            return float(np.linalg.norm(self._vals))
+        A = self.to_scipy()
+        if norm_type == NormType.NORM_1:
+            return float(np.abs(A).sum(axis=0).max())
+        if norm_type == NormType.NORM_INFINITY:
+            return float(np.abs(A).sum(axis=1).max())
+        raise ValueError(norm_type)
+
+    def convert(self, kind):
+        if kind == "dense":
+            raise NotImplementedError(
+                "MatAIJ.convert('dense'): MatDense comes with the MatShell/MatDense "
+                "part of ROADMAP queue 1 item 7")
+        raise ValueError(kind)
+
+    def _spgemm(self, name):
+        raise NotImplementedError(
+            f"MatAIJ.{name}: the host SpGEMM (petsc_tpu/native) comes with {_GAMG}")
+
+    def matMult(self, B, fill=None):
+        self._spgemm("matMult")
+
+    def transposeMatMult(self, B, fill=None):
+        self._spgemm("transposeMatMult")
+
+    def ptap(self, P, fill=None):
+        self._spgemm("ptap")
+
+    def rart(self, R, fill=None):
+        self._spgemm("rart")
+
+    def createSubMatrix(self, isrow, iscol=None):
+        raise NotImplementedError(f"MatAIJ.createSubMatrix comes with {_GAMG}")
+
+
+# ================= binders =================
+
+def _bind_aij_csr(meta, data):
+    _, m, n = meta
+    ip, col, vals = data["indptr"], data["col"], data["vals"]
+    return operator.Op(
+        mult=lambda x: csr_spmv(ip, col, vals, x),
+        # off the CG path, in library torch (index_add_), as the reference
+        # left it to XLA's scatter (spmv.py:50)
+        mult_t=lambda x: spmv.csr_spmv_t(ip, col, vals, x, n),
+        diag=lambda: data["diag"],
+    )
 
 
 def _bind_aij_dnd(meta, data):
@@ -49,4 +511,5 @@ def _bind_aij_dnd(meta, data):
     return operator.Op(mult=mult, mult_t=mult, diag=lambda: data["diag"])
 
 
+operator.register_binder("aij_csr", _bind_aij_csr)
 operator.register_binder("aij_dnd", _bind_aij_dnd)

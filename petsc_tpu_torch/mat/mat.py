@@ -1,9 +1,9 @@
 """Mat base class.
 
 Counterpart of the ``Mat`` base of ``petsc_tpu/mat/mat.py`` (reference
-src/mat/interface/matrix.c — MatMult :2696): sizes, the (meta, data)
-contract bound through ``ops.operator.bind``, mult, transpose mult,
-diagonal and vector creation.
+src/mat/interface/matrix.c — MatMult :2696): the petsc4py-style AIJ
+factories, sizes, the (meta, data) contract bound through
+``ops.operator.bind``, mult, transpose mult, diagonal and vector creation.
 """
 
 from __future__ import annotations
@@ -24,6 +24,29 @@ class Mat(PObject):
         self.comm = comm or comm_self()
         self.row_layout: Layout | None = None
         self.col_layout: Layout | None = None
+        self.symmetric = None
+
+    # ---------------- factories (petsc4py-style) ----------------
+
+    @staticmethod
+    def createAIJ(size, csr=None, coo=None, comm=None, bs=1):
+        """An assembled MatAIJ from a CSR triple (indptr, indices, values)
+        or COO triplets (i, j, v); without either, an empty one to fill."""
+        from .aij import MatAIJ
+        A = MatAIJ(comm)
+        A.setSizes(size, bs=bs)
+        if csr is not None:
+            A.setValuesCSR(*csr)
+            A.assemble()
+        elif coo is not None:
+            i, j, v = coo
+            A.setPreallocationCOO(i, j)
+            A.setValuesCOO(v)
+        return A
+
+    @staticmethod
+    def createAIJWithArrays(size, csr, comm=None):
+        return Mat.createAIJ(size, csr=csr, comm=comm)
 
     # ---------------- sizes ----------------
 
@@ -80,10 +103,9 @@ class Mat(PObject):
         if d is None:
             d = self.createVecLeft()
         dv = op.diag()
-        if dv.dim() == 0:
-            # constant-stencil operators carry a scalar diagonal
-            dv = dv.expand(d.array.shape[0]).clone()
-        d.array = dv
+        # constant-stencil operators carry a scalar diagonal; either way d
+        # gets its own copy, never the operator's cached tensor
+        d.array = dv.expand(d.array.shape[0]).clone()
         return d
 
     # ---------------- vectors ----------------
@@ -102,6 +124,10 @@ class Mat(PObject):
         v.setLayout(self.row_layout)
         v.setUp()
         return v
+
+    def setOption(self, name, flag=True):
+        if name in ("symmetric", "spd"):
+            self.symmetric = bool(flag)
 
     def view(self, viewer=None):
         m, n = self.getSize()

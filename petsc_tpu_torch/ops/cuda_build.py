@@ -19,12 +19,15 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 from ..sys.error import Error
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("probe.cu", "triad.cu", "axpy_normsq.cu", "dot2.cu", "const_stencil.cu")
+SOURCES = ("probe.cu", "triad.cu", "axpy_normsq.cu", "dot2.cu", "const_stencil.cu",
+           "csr_spmv.cu", "gather.cu", "row_gather.cu", "lane_shuffle.cu")
 HEADERS = ("common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,7 +45,18 @@ SIGNATURES = {
     "ptt_dot2_f32": (_vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),
     "ptt_const_stencil_f64": (_vp, _vp, _i32, _i32, _i32, _f64, _f64, _i32, _i32, _vp),
     "ptt_const_stencil_f32": (_vp, _vp, _i32, _i32, _i32, _f64, _f64, _i32, _i32, _vp),
+    "ptt_csr_spmv_f64": (_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),
+    "ptt_csr_spmv_f32": (_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),
+    "ptt_gather_f64": (_vp, _vp, _vp, _i64, _i32, _vp),
+    "ptt_gather_f32": (_vp, _vp, _vp, _i64, _i32, _vp),
+    "ptt_gather2_f64": (_vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),
+    "ptt_gather2_f32": (_vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),
+    "ptt_row_gather_f64": (_vp, _vp, _vp, _i64, _i32, _i32, _vp),
+    "ptt_row_gather_f32": (_vp, _vp, _vp, _i64, _i32, _i32, _vp),
+    "ptt_lane_shuffle_f64": (_vp, _vp, _vp, _i64, _i32, _vp),
+    "ptt_lane_shuffle_f32": (_vp, _vp, _vp, _i64, _i32, _vp),
 }
+_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 _lib = None
 build_seconds = None      # wall time of this process's build, None if loaded from disk
@@ -127,3 +141,13 @@ def check(name: str, rc: int):
     if rc != 0:
         msg = library().ptt_error_string(rc).decode()
         raise Error(f"{name}: CUDA error {rc} ({msg})")
+
+
+def launch(counts: dict, name: str, like, *args):
+    """Call entry point ``ptt_<name>_<f64|f32>`` (the dtype of tensor
+    `like`) on like's device and current stream, raise on a CUDA error, and
+    add one to ``counts[name]``."""
+    fn = getattr(library(), f"ptt_{name}_{_SUFFIX[like.dtype]}")
+    rc = fn(*args, like.get_device(), torch.cuda.current_stream(like.device).cuda_stream)
+    check(name, rc)
+    counts[name] += 1

@@ -12,6 +12,9 @@ and loaded by :mod:`.cuda_build`):
   axpy_normsq    K3  csrc/axpy_normsq.cu    pallas_kernels.py:151 axpy_normsq
   dot2           K4  csrc/dot2.cu           pallas_kernels.py:198 dot2
   const_stencil  S1  csrc/const_stencil.cu  mat/aij.py:1346-1379 (separable mult)
+  csr_spmv       S2  csrc/csr_spmv.cu       mat/aij.py:1554-1561 _bind_aij_csr mult
+
+(The four gather kernels K5-K8 are in :mod:`.gather_kernels`.)
 
 Every wrapper checks device, dtype (float64 or float32), shape and
 contiguity and raises on what its kernel does not take; allocates outputs
@@ -29,10 +32,11 @@ import torch
 import torch.nn.functional as F
 
 from ..sys.error import Error
-from . import cuda_build
+from . import cuda_build, spmv
 
 # launches of each kernel since the last reset_launches()
-LAUNCHES = {"probe": 0, "triad": 0, "axpy_normsq": 0, "dot2": 0, "const_stencil": 0}
+LAUNCHES = {"probe": 0, "triad": 0, "axpy_normsq": 0, "dot2": 0, "const_stencil": 0,
+            "csr_spmv": 0}
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 # scratch capacity for the per-block partial sums of the two-pass reductions
@@ -76,12 +80,7 @@ def _check_scalar(name, alpha, like):
 
 
 def _launch(name, like, *args):
-    """Call entry point ``ptt_<name>_<dtype>`` on like's device and stream."""
-    fn = getattr(cuda_build.library(), f"ptt_{name}_{_SUFFIX[like.dtype]}")
-    dev = like.get_device()
-    rc = fn(*args, dev, torch.cuda.current_stream(like.device).cuda_stream)
-    cuda_build.check(name, rc)
-    LAUNCHES[name] += 1
+    cuda_build.launch(LAUNCHES, name, like, *args)
 
 
 # ---------------------------------------------------------------------
@@ -255,6 +254,53 @@ def const_stencil(x, shape, cd, co, is_box):
     if n:
         _launch("const_stencil", x, y.data_ptr(), x.data_ptr(), n0, n1, n2,
                 float(c0), float(co), int(bool(is_box)))
+    return y
+
+
+# ---------------------------------------------------------------------
+# S2: general CSR SpMV (mat/aij.py _bind_aij_csr mult)
+# ---------------------------------------------------------------------
+
+csr_spmv_plain = spmv.csr_spmv
+
+
+def csr_width(m, nnz):
+    """Lanes per row of the S2 kernel: the power of two at or above the
+    mean row length, between 4 and 32."""
+    mean = nnz / m if m else 0.0
+    w = 4
+    while w < 32 and w < mean:
+        w *= 2
+    return w
+
+
+def csr_spmv(indptr, col, vals, x):
+    """y = A x for A in CSR form: int64 `indptr` (m + 1), int32 `col` and
+    `vals` (nnz), x of the columns' length. The columns are not checked
+    against len(x) here (that would read the card): the assembly that made
+    them checked them on the host."""
+    for t, dt, nm in ((indptr, torch.int64, "indptr"), (col, torch.int32, "col")):
+        if not isinstance(t, torch.Tensor) or t.dtype != dt or t.dim() != 1 \
+                or not t.is_contiguous():
+            raise TypeError(f"csr_spmv: {nm} must be a contiguous 1-D {dt} tensor")
+    _check_vectors("csr_spmv", x)
+    _check_vectors("csr_spmv", vals)
+    if vals.dtype != x.dtype:
+        raise TypeError(f"csr_spmv: vals are {vals.dtype}, x is {x.dtype}")
+    if not (indptr.device == col.device == vals.device == x.device):
+        raise ValueError("csr_spmv: the CSR arrays and x lie on different devices")
+    if indptr.numel() < 1 or col.numel() != vals.numel():
+        raise ValueError(f"csr_spmv: {indptr.numel()} row pointers, {col.numel()} "
+                         f"columns and {vals.numel()} values")
+    if x.numel() >= 2 ** 31:
+        raise ValueError("csr_spmv: the kernel's int32 columns take fewer than 2^31 columns")
+    if x.device.type == "cpu":
+        return csr_spmv_plain(indptr, col, vals, x)
+    m = indptr.numel() - 1
+    y = torch.empty(m, dtype=x.dtype, device=x.device)
+    if m:
+        _launch("csr_spmv", x, y.data_ptr(), indptr.data_ptr(), col.data_ptr(),
+                vals.data_ptr(), x.data_ptr(), m, csr_width(m, vals.numel()))
     return y
 
 

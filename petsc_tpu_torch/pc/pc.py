@@ -79,10 +79,11 @@ class PC(PObject):
         return self
 
     def default_type(self):
-        # PETSc's defaults (ilu, bjacobi) apply to assembled AIJ matrices,
-        # which this slice does not port; for a stencil Mat the reference
-        # also defaults to none
-        return "none"
+        # PETSc's default for an assembled AIJ matrix on one device is ilu
+        # (not ported yet: setType says so); for a stencil Mat the
+        # reference also defaults to none
+        from ..mat.aij import MatAIJ
+        return "ilu" if isinstance(self.pmat, MatAIJ) else "none"
 
     def setUp(self):
         """PCSetUp (precon.c:1095): rebuild only if the operator changed

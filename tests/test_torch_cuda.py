@@ -1,5 +1,6 @@
 """petsc_tpu_torch on a CUDA card: each hand kernel against its plain
-PyTorch version on the card, and a small CG solve through the kernels.
+PyTorch version on the card, COO assembly on the card against the CPU
+port, and small CG solves through the kernels (stencil and CSR).
 
 Every test is marked ``cuda`` and skips where there is no card. The file
 imports neither jax nor petsc_tpu, so it also runs on a machine without
@@ -8,15 +9,22 @@ them; there run it without the suite's conftest (which imports jax):
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerances: 1e-12 relative in float64, 1e-5 in float32 (the kernels sum
-in another order than PyTorch)."""
+in another order than PyTorch); the gathers are exact."""
+
+from pathlib import Path
 
 import numpy as np
 import pytest
+import scipy.io
+import scipy.sparse as sp
 import torch
 
 import petsc_tpu_torch as ptt
+from petsc_tpu_torch.ops import gather_kernels as gk
 from petsc_tpu_torch.ops import pallas_kernels as pk
 from petsc_tpu_torch.ops import stencil_build
+
+DATA = Path(__file__).resolve().parent / "data"
 
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 
@@ -55,7 +63,7 @@ def test_vector_kernels_match_plain(cuda_device, dtype, n):
     assert _rel(x, want) <= TOL[dtype]
     torch.cuda.synchronize()
     assert pk.LAUNCHES == {"probe": 0, "triad": 3, "axpy_normsq": 1, "dot2": 1,
-                           "const_stencil": 0}
+                           "const_stencil": 0, "csr_spmv": 0}
 
 
 @pytest.mark.cuda
@@ -97,3 +105,135 @@ def test_cg_runs_through_the_kernels(cuda_device):
     A_csr = stencil_build.poisson3d_27pt(16)
     r = np.ones(16 ** 3) - A_csr @ x.getArray()
     assert np.linalg.norm(r) <= 1e-7 * np.linalg.norm(np.ones(16 ** 3))
+
+
+def _csr_on(A, device, dtype):
+    A = A.tocsr()
+    return (torch.as_tensor(A.indptr.astype(np.int64), device=device),
+            torch.as_tensor(A.indices.astype(np.int32), device=device),
+            torch.as_tensor(A.data, dtype=dtype, device=device))
+
+
+def _csr_cases():
+    rng = np.random.default_rng(5)
+    cases = {f"rand_{m}x{n}_{d}": sp.random(m, n, density=d, format="csr", random_state=rng)
+             for m, n, d in ((7, 5, 0.3), (40, 60, 0.3), (60, 40, 0.3), (3000, 2000, 0.002),
+                             (500, 500, 0.05), (300, 4000, 0.02))}
+    # empty rows, one long row, an empty matrix
+    skew = sp.random(1000, 1000, density=0.003, format="lil", random_state=rng)
+    skew[17, :] = rng.random(1000)
+    skew[400:450, :] = 0
+    cases["skewed"] = skew.tocsr()
+    cases["empty"] = sp.csr_matrix((9, 4))
+    cases["box27_24"] = stencil_build.poisson3d_27pt(24)
+    for f in ("LFAT5.mtx", "m_05_05_crk.mtx", "amesos2_test_mat0.mtx"):
+        cases[f] = sp.csr_matrix(scipy.io.mmread(DATA / f))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_csr_spmv_matches_plain_and_scipy(cuda_device, dtype):
+    for name, A in _csr_cases().items():
+        ip, col, vals = _csr_on(A, cuda_device, dtype)
+        x_np = np.random.default_rng(1).random(A.shape[1])
+        x = torch.as_tensor(x_np, dtype=dtype, device=cuda_device)
+        pk.reset_launches()
+        k = pk.csr_spmv(ip, col, vals, x)
+        p = pk.csr_spmv_plain(ip, col, vals, x)
+        torch.cuda.synchronize()
+        assert pk.LAUNCHES["csr_spmv"] == (1 if A.shape[0] else 0), name
+        assert k.shape == (A.shape[0],) and k.dtype == dtype
+        if A.nnz == 0:
+            assert torch.count_nonzero(k) == 0
+            continue
+        assert _rel(k, p) <= TOL[dtype], name
+        ref = torch.as_tensor(A @ x_np)
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        assert _rel(k.double().cpu(), ref) <= tol, name
+        assert torch.equal(k, pk.csr_spmv(ip, col, vals, x))      # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_gather_kernels_match_plain(cuda_device, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    gk.reset_launches()
+    for n, m in ((1, 1), (1000, 4099), (524_288 // 64, 65_536 + 5)):
+        x = torch.rand(n, generator=g, device=cuda_device, dtype=dtype)
+        idx = torch.randint(0, n, (m,), generator=g, device=cuda_device, dtype=torch.int32)
+        assert torch.equal(gk.gather(x, idx), gk.gather_plain(x, idx))
+        assert torch.equal(gk.gather(x, idx.view(-1, 1)), gk.gather_plain(x, idx.view(-1, 1)))
+    for B, w, C in ((1, 128, 3), (64, 128, 1024 + 7), (5, 33, 77)):
+        x2 = torch.rand((B, w), generator=g, device=cuda_device, dtype=dtype)
+        q = torch.randint(0, B, (C,), generator=g, device=cuda_device, dtype=torch.int32)
+        assert torch.equal(gk.row_gather(x2, q), gk.row_gather_plain(x2, q))
+        q2 = torch.randint(0, B, (C, 3), generator=g, device=cuda_device, dtype=torch.int32)
+        s2 = torch.randint(0, w, (C, 3), generator=g, device=cuda_device, dtype=torch.int32)
+        assert torch.equal(gk.gather2(x2, q2, s2), gk.gather2_plain(x2, q2, s2))
+    for C in (1, 1024 + 3):
+        V = torch.rand((C, 128), generator=g, device=cuda_device, dtype=dtype)
+        s = torch.randint(0, 128, (C, 128), generator=g, device=cuda_device, dtype=torch.int32)
+        assert torch.equal(gk.lane_shuffle(V, s), gk.lane_shuffle_plain(V, s))
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES == {"gather": 6, "gather2": 3, "row_gather": 3, "lane_shuffle": 2}
+    with pytest.raises(IndexError):
+        gk.gather(x, torch.full((4,), n, dtype=torch.int32, device=cuda_device))
+    with pytest.raises(IndexError):
+        gk.lane_shuffle(V, torch.full_like(s, 128))
+
+
+def _box27_coo(n, seed):
+    """box27 triplets in shuffled order, each diagonal split into two halves."""
+    A = stencil_build.poisson3d_27pt(n).tocoo()
+    d = A.row == A.col
+    i = np.concatenate([A.row, A.row[d]])
+    j = np.concatenate([A.col, A.col[d]])
+    v = np.concatenate([np.where(d, 13.0, A.data), np.full(int(d.sum()), 13.0)])
+    p = np.random.default_rng(seed).permutation(len(i))
+    return i[p], j[p], v[p]
+
+
+@pytest.mark.cuda
+def test_coo_assembly_on_the_card_equals_the_cpu_port(cuda_device):
+    i, j, v = _box27_coo(12, 0)
+    i = i.copy()
+    i[::97] = -1                                    # dropped entries
+    mats = []
+    for dev in ("cpu", None):
+        ptt.init(device=dev)
+        A = ptt.MatAIJ()
+        A.setSizes(12 ** 3)
+        A.setPreallocationCOO(i, j)
+        gk.reset_launches()
+        A.setValuesCOO(v)
+        A.setValuesCOO(2 * v)
+        mats.append(A)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["gather"] == 4               # values and diagonal, twice
+    assert mats[1].device_data()["vals"].is_cuda
+    c, g = mats[0].to_scipy(), mats[1].to_scipy()
+    assert np.array_equal(c.indptr, g.indptr) and np.array_equal(c.indices, g.indices)
+    assert np.array_equal(c.data, g.data)           # at most two terms per slot
+    assert np.array_equal(mats[0].getDiagonal().getArray(), mats[1].getDiagonal().getArray())
+
+
+@pytest.mark.cuda
+def test_cg_on_the_csr_operator_runs_through_the_kernels(cuda_device):
+    ptt.init(args=["-ksp_type", "cg", "-pc_type", "jacobi", "-ksp_rtol", "1e-8"])
+    i, j, v = _box27_coo(32, 1)
+    pk.reset_launches()
+    gk.reset_launches()
+    A = ptt.Mat.createAIJ(32 ** 3, coo=(i, j, v))
+    ksp = ptt.KSP().create()
+    ksp.setOperators(A)
+    ksp.setFromOptions()
+    b = A.createVecLeft()
+    b.set(1.0)
+    x = ksp.solve(b)
+    its = ksp.getIterationNumber()
+    assert A.meta[0] == "aij_csr" and ksp.getConvergedReason().name == "CONVERGED_RTOL"
+    assert pk.LAUNCHES["csr_spmv"] == its and pk.LAUNCHES["const_stencil"] == 0
+    assert gk.LAUNCHES["gather"] == 2
+    r = np.ones(32 ** 3) - stencil_build.poisson3d_27pt(32) @ x.getArray()
+    assert np.linalg.norm(r) <= 1e-7 * np.linalg.norm(np.ones(32 ** 3))

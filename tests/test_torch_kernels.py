@@ -17,6 +17,7 @@ import torch
 
 from petsc_tpu.ops import pallas_kernels as pk_jax
 from petsc_tpu_torch.ops import cuda_build
+from petsc_tpu_torch.ops import gather_kernels as gk
 from petsc_tpu_torch.ops import pallas_kernels as pk
 from petsc_tpu_torch.sys.error import Error
 
@@ -138,8 +139,8 @@ def test_every_csrc_source_is_built():
     for src in cuda_build.SOURCES:
         defined |= set(re.findall(r'extern "C" int (ptt_\w+)\(', (csrc / src).read_text()))
     assert defined == set(cuda_build.SIGNATURES)
-    called = {"ptt_probe"} | {f"ptt_{k}_{s}" for k in pk.LAUNCHES if k != "probe"
-                              for s in ("f64", "f32")}
+    kernels = [k for k in (*pk.LAUNCHES, *gk.LAUNCHES) if k != "probe"]
+    called = {"ptt_probe"} | {f"ptt_{k}_{s}" for k in kernels for s in ("f64", "f32")}
     assert called == defined
 
 

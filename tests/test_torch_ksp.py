@@ -1,12 +1,15 @@
-"""The slice end to end: petsc_tpu_torch's KSP (cg, richardson, preonly)
+"""The slices end to end: petsc_tpu_torch's KSP (cg, richardson, preonly)
 with PC none/jacobi on the 27-point box operator, against petsc_tpu on
 the same operator (carried across with ``interop``) and the same
-right-hand side; plus the port's import and device rules.
+right-hand side; the same solves on the operator assembled as a general
+MatAIJ from COO triplets, and the ex1/ex2 tutorials' systems assembled
+with setValue(s), each driven through both packages' API in the same
+way; plus the port's import and device rules.
 
 Tolerances: iteration counts and reasons are equal; residual histories
-agree to 1e-6 relative and solutions to 1e-7 relative (f64 sums are
-taken in another order by the two packages, and CG amplifies the last
-bits over its iterations)."""
+agree to 1e-6 relative (1e-8 on the assembled operator) and solutions to
+1e-7 relative (f64 sums are taken in another order by the two packages,
+and CG amplifies the last bits over its iterations)."""
 
 import ast
 import os
@@ -21,6 +24,7 @@ import torch
 import petsc_tpu as pt_jax
 import petsc_tpu_torch as ptt
 from petsc_tpu.ops import stencil_build as sb_jax
+from petsc_tpu_torch.ops import gather_kernels as gk
 from petsc_tpu_torch import interop
 from petsc_tpu_torch.ops import pallas_kernels as pk
 from petsc_tpu_torch.ops import stencil_build
@@ -201,6 +205,162 @@ def test_jacobi_keeps_a_scalar_diagonal_and_unported_types_raise():
         ksp.setType("gmres")
     with pytest.raises(ptt.Error, match="gamg"):
         pc.setType("gamg")
+
+
+def _box27_coo(n, seed):
+    """box27 triplets in shuffled order, each diagonal entry split into two
+    duplicates of 13."""
+    A = stencil_build.poisson3d_27pt(n).tocoo()
+    d = A.row == A.col
+    i = np.concatenate([A.row, A.row[d]])
+    j = np.concatenate([A.col, A.col[d]])
+    v = np.concatenate([np.where(d, 13.0, A.data), np.full(int(d.sum()), 13.0)])
+    p = np.random.default_rng(seed).permutation(len(i))
+    return i[p], j[p], v[p]
+
+
+def _solve_assembled(pkg, n, pc, coo, device=None):
+    args = _args("cg", pc, ("-mat_spmv_kind", "csr"))
+    pkg.init(args=args) if device is None else pkg.init(args=args, device=device)
+    A = pkg.MatAIJ()
+    A.setSizes(n ** 3)
+    A.setPreallocationCOO(coo[0], coo[1])
+    A.setValuesCOO(coo[2])
+    ksp = pkg.KSP().create()
+    ksp.setOperators(A)
+    ksp.setFromOptions()
+    b = A.createVecLeft()
+    b.set(1.0)
+    x = A.createVecRight()
+    ksp.solve(b, x)
+    return ksp, np.asarray(x.getArray())[: n ** 3], A
+
+
+@pytest.mark.parametrize("pc", ("jacobi", "none"))
+@pytest.mark.parametrize("n", sorted(CONTRACT_ITS))
+def test_cg_on_the_assembled_box27_matches_jax(n, pc):
+    coo = _box27_coo(n, n)
+    kj, xj, _ = _solve_assembled(pt_jax, n, pc, coo)
+    gk.reset_launches()
+    kp, xp, A = _solve_assembled(ptt, n, pc, coo, device="cpu")
+    assert A.meta[0] == "aij_csr" and A.nnz() == stencil_build.nnz_of(
+        (n,) * 3, stencil_build.stencil_offsets(3, "box"))
+    assert kp.getIterationNumber() == kj.getIterationNumber() == CONTRACT_ITS[n]
+    assert kp.getConvergedReason().name == kj.getConvergedReason().name == "CONVERGED_RTOL"
+    hj, hp = kj.getConvergenceHistory(), kp.getConvergenceHistory()
+    assert hp.shape == hj.shape
+    np.testing.assert_allclose(hp, hj, rtol=1e-8, atol=0)
+    assert np.linalg.norm(xp - xj) <= 1e-7 * np.linalg.norm(xj)
+    # the stencil path gives the same history
+    ks, _, _, _ = _solve_jax(n, pc=pc)
+    np.testing.assert_allclose(hp, ks.getConvergenceHistory(), rtol=1e-8, atol=0)
+    assert all(v == 0 for v in gk.LAUNCHES.values())     # the CPU takes the plain path
+
+
+def _ex2_solve(pkg, m, n, device=None):
+    """examples/ex2.py's system and solve, with cg/jacobi from the options."""
+    args = ["-ksp_type", "cg", "-pc_type", "jacobi", "-ksp_rtol", "1e-10"]
+    pkg.init(args=args) if device is None else pkg.init(args=args, device=device)
+    A = pkg.MatAIJ()
+    A.setSizes((m * n, m * n))
+    ADD = pkg.InsertMode.ADD_VALUES
+    for Ii in range(m * n):
+        i, j = Ii // n, Ii % n
+        if i > 0:
+            A.setValue(Ii, Ii - n, -1.0, ADD)
+        if i < m - 1:
+            A.setValue(Ii, Ii + n, -1.0, ADD)
+        if j > 0:
+            A.setValue(Ii, Ii - 1, -1.0, ADD)
+        if j < n - 1:
+            A.setValue(Ii, Ii + 1, -1.0, ADD)
+        A.setValue(Ii, Ii, 4.0, ADD)
+    A.assemblyBegin()
+    A.assemblyEnd()
+    A.setOption("symmetric", True)
+    u = A.createVecRight()
+    u.set(1.0)
+    b = A.createVecLeft()
+    A.mult(u, b)
+    ksp = pkg.KSP().create()
+    ksp.setOperators(A)
+    ksp.setTolerances(rtol=1.e-2 / ((m + 1) * (n + 1)), atol=1.e-50)
+    ksp.setFromOptions()
+    x = A.createVecRight()
+    ksp.solve(b, x)
+    x.axpy(-1.0, u)
+    return ksp.getIterationNumber(), float(x.norm()), ksp.getConvergedReason().name
+
+
+def test_ex2_cg_jacobi_matches_jax():
+    its_j, err_j, reason_j = _ex2_solve(pt_jax, 9, 9)
+    its_p, err_p, reason_p = _ex2_solve(ptt, 9, 9, device="cpu")
+    assert its_p == its_j and reason_p == reason_j == "CONVERGED_RTOL"
+    # at rtol 1e-10 both errors are at the rounding level of the 81 unknowns,
+    # where no relative agreement is defined
+    assert abs(err_p - err_j) <= 1e-6 * err_j or max(err_p, err_j) <= 1e-12
+
+
+def _ex1_solve(pkg, n=10, device=None):
+    """examples/ex1.py's tridiagonal system (with cg: the port has no gmres
+    yet), then the re-solve after MatShift."""
+    args = ["-ksp_type", "cg"]
+    pkg.init(args=args) if device is None else pkg.init(args=args, device=device)
+    A = pkg.MatAIJ(None)
+    A.setSizes((n, n))
+    for i in range(1, n - 1):
+        A.setValues([i], [i - 1, i, i + 1], [[-1.0, 2.0, -1.0]])
+    A.setValues([0], [0, 1], [[2.0, -1.0]])
+    A.setValues([n - 1], [n - 2, n - 1], [[-1.0, 2.0]])
+    A.assemble()
+    u = pkg.Vec.from_array(np.ones(n))
+    b = A.createVecLeft()
+    A.mult(u, b)
+    ksp = pkg.KSP().create()
+    ksp.setOperators(A, A)
+    ksp.getPC().setType("jacobi")
+    ksp.setTolerances(rtol=1.e-5)
+    ksp.setFromOptions()
+    out = []
+    for shift in (None, 2.0):
+        if shift is not None:
+            A.shift(shift)           # new values must reach the PC (the state counter)
+        x = A.createVecRight()
+        ksp.solve(b, x)
+        x.axpy(-1.0, u)
+        out.append((ksp.getIterationNumber(), float(x.norm())))
+    return out
+
+
+def test_ex1_tridiagonal_and_shift_match_jax():
+    want = _ex1_solve(pt_jax)
+    got = _ex1_solve(ptt, device="cpu")
+    for (its_p, err_p), (its_j, err_j) in zip(got, want):
+        assert its_p == its_j
+        # CG solves the first system exactly; its errors are rounding
+        assert abs(err_p - err_j) <= 1e-6 * err_j or max(err_p, err_j) <= 1e-12
+    assert got[1][1] > 0.1        # the shifted system no longer has u = 1 as its solution
+
+
+def test_jacobi_takes_a_vector_diagonal_with_zero_entries():
+    """jacobi.c: zero (and missing) diagonal entries give 1.0; the same as
+    the reference's inverse."""
+    import scipy.sparse as sp
+    A = sp.csr_matrix(np.array([[4.0, 1.0, 0.0, 0.0],
+                                [1.0, 0.0, 2.0, 0.0],
+                                [0.0, 2.0, -5.0, 1.0],
+                                [0.0, 0.0, 1.0, 0.0]]))
+    A.eliminate_zeros()               # row 3 has no stored diagonal at all
+    invs = []
+    for pkg, kw in ((ptt, {"device": "cpu"}), (pt_jax, {})):
+        pkg.init(**kw)
+        M = pkg.MatAIJ.from_scipy(A)
+        pc = pkg.PC().create()
+        pc.setOperators(M)
+        pc.setType("jacobi")
+        invs.append(np.asarray(pc.device_data()["inv"]))
+    assert np.array_equal(invs[0], [0.25, 1.0, -0.2, 1.0])
+    assert np.array_equal(invs[0], invs[1])
 
 
 def test_init_without_cpu_raises_without_a_card():
