@@ -24,8 +24,9 @@ Phases, one JSON line each on stdout:
   profile  one warm CG+Jacobi solve under torch.profiler: the card's busy
            time, its share of the warm solve time, and time by kernel;
   gather   the four gather kernels K5-K8 at the Pallas probes' shapes, f64
-           and f32, each equal to its plain version bit for bit, timed
-           beside the plain version and one PyTorch call (take_along_dim,
+           and f32, each equal to its plain version bit for bit on values
+           unique per entry, timed on the probes' own values beside the
+           plain version and one PyTorch call (take_along_dim,
            index_select, flat indexing, take); the bound counts the
            indices, the output and the distinct input entries read;
   aij      the assembled-matrix path: the same 128^3 box27 operator as COO
@@ -37,7 +38,11 @@ Phases, one JSON line each on stdout:
            <= 1e-8, a true residual <= 1e-7, a residual history equal to
            the stencil path's to 1e-6 relative, and launches of gather >= 2,
            csr_spmv >= its, const_stencil == 0; times warm solves (jacobi
-           and none); then the CSR SpMV S2 alone at 128^3 against its plain
+           and none); holds the assembled values and diagonal against
+           v[perm] and csr_vals[diag_pos], and K8 against its plain version
+           bit for bit at those two shapes, timed there (K8's row in the
+           kernel table is the v[perm] shape's); then the CSR SpMV S2 alone
+           at 128^3 against its plain
            version (f64 1e-12, f32 1e-5), torch.sparse_csr_tensor and scipy
            (the tests/data fixtures and 24^3, 1e-12); the host seconds of
            the two assembly calls on a line of their own;
@@ -312,17 +317,49 @@ def distinct(flat_idx, n):
     return int(seen.sum())
 
 
+def unique_values(count, dtype, device):
+    """count entries of dtype with distinct bit patterns (an integer arange
+    viewed as dtype; no NaN or infinity below 2^31): a gather that reads a
+    wrong entry cannot compare equal."""
+    import torch
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    return torch.arange(count, dtype=bits, device=device).view(dtype)
+
+
+def gather_row(name, dtype, check_args, time_args, kern, plain, library, nbytes, elems,
+               flush):
+    """Holds gather kernel `kern` against its plain version bit for bit on
+    check_args (whose values are unique per entry), then times the kernel,
+    the plain version and the library call on time_args."""
+    import torch
+    dn = str(dtype).replace("torch.", "")
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    k, p = kern(*check_args), plain(*check_args)
+    torch.cuda.synchronize()
+    if k.shape != p.shape or not torch.equal(k.view(bits), p.view(bits)):
+        raise AssertionError(f"{name} {dn}: kernel differs from its plain version")
+    b_ms, b_by = bound(nbytes, 0, dn)
+    row = {"name": name, "dtype": dn, "elements": elems, "bit_equal": True,
+           "max_abs_err": float((k.double() - p.double()).abs().max()),
+           "ms": time_ms(lambda: kern(*time_args, check=False), flush),
+           "plain_ms": time_ms(lambda: plain(*time_args), flush),
+           "library_ms": time_ms(library, flush),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+    row["Gelem_per_s"] = elems / row["ms"] / 1e6
+    return row
+
+
 def phase_gather(gk, flush):
     """K5-K8 at the Pallas probes' shapes (examples/pallas_shuffle_probe.py
     probe_s1/s2/s3, examples/pallas_gather_probe.py probe_g1), each equal to
-    its plain version bit for bit. Returns (details, f64 rows by name)."""
+    its plain version bit for bit on values unique per entry, and timed on
+    the probes' own values. Returns (details, f64 rows by name)."""
     import torch
     dev = torch.device("cuda")
     details, main = [], {}
     C, B, W = PROBE_SHUFFLE
     n8, m8 = PROBE_GATHER
     for dtype in (torch.float64, torch.float32):
-        dn = str(dtype).replace("torch.", "")
         isz = torch.empty((), dtype=dtype).element_size()
         gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -332,37 +369,29 @@ def phase_gather(gk, flush):
         def ints(hi, shape):
             return torch.randint(0, hi, shape, generator=gen, device=dev, dtype=torch.int32)
 
-        def record(name, args, kern, plain, library, nbytes, elems):
-            k, p = kern(*args), plain(*args)
-            torch.cuda.synchronize()
-            if k.shape != p.shape or not torch.equal(k, p):
-                raise AssertionError(f"{name} {dn}: kernel differs from its plain version")
-            b_ms, b_by = bound(nbytes, 0, dn)
-            row = {"name": name, "dtype": dn, "elements": elems, "bit_equal": True,
-                   "max_abs_err": float((k.double() - p.double()).abs().max()),
-                   "ms": time_ms(lambda: kern(*args, check=False), flush),
-                   "plain_ms": time_ms(lambda: plain(*args), flush),
-                   "library_ms": time_ms(library, flush),
-                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
-            row["Gelem_per_s"] = elems / row["ms"] / 1e6
+        def record(name, check_args, time_args, kern, plain, library, nbytes, elems):
+            row = gather_row(name, dtype, check_args, time_args, kern, plain, library,
+                             nbytes, elems, flush)
             details.append(row)
             if dtype == torch.float64:
                 main[name] = row
 
         # K5 lane shuffle: o[r, l] = V[r, s[r, l]]
         V = probe_values(C * W, 997).view(C, W)
+        Vu = unique_values(C * W, dtype, dev).view(C, W)
         s = ints(W, (C, W))
         s_l = s.long()
         nd = distinct(torch.arange(C, device=dev)[:, None] * W + s, C * W)
-        record("lane_shuffle", (V, s), gk.lane_shuffle, gk.lane_shuffle_plain,
+        record("lane_shuffle", (Vu, s), (V, s), gk.lane_shuffle, gk.lane_shuffle_plain,
                lambda: torch.take_along_dim(V, s_l, 1), C * W * (4 + isz) + nd * isz, C * W)
-        del V, s, s_l
+        del V, Vu, s, s_l
 
         # K6 row gather: o[c, :] = x2[q[c], :]
         x2 = probe_values(B * W, 997).view(B, W)
+        x2u = unique_values(B * W, dtype, dev).view(B, W)
         q = ints(B, (C,))
         nd = distinct(q, B) * W
-        record("row_gather", (x2, q), gk.row_gather, gk.row_gather_plain,
+        record("row_gather", (x2u, q), (x2, q), gk.row_gather, gk.row_gather_plain,
                lambda: torch.index_select(x2, 0, q), C * 4 + C * W * isz + nd * isz, C * W)
         del q
 
@@ -371,20 +400,60 @@ def phase_gather(gk, flush):
         s = ints(W, (C, W))
         x2f = x2.view(-1)
         nd = distinct(q * W + s, B * W)
-        record("gather2", (x2, q, s), gk.gather2, gk.gather2_plain,
+        record("gather2", (x2u, q, s), (x2, q, s), gk.gather2, gk.gather2_plain,
                lambda: x2f[128 * q + s], C * W * (8 + isz) + nd * isz, C * W)
-        del q, s, x2, x2f
+        del q, s, x2, x2u, x2f
 
         # K8 flat gather: o = x[idx], idx viewed (m / 128, 128)
         x = probe_values(n8, 1000)
+        xu = unique_values(n8, dtype, dev)
         idx = ints(n8, (m8 // 128, 128))
         idx_l = idx.long()
         nd = distinct(idx, n8)
-        record("gather", (x, idx), gk.gather, gk.gather_plain,
+        record("gather", (xu, idx), (x, idx), gk.gather, gk.gather_plain,
                lambda: torch.take(x, idx_l), m8 * (4 + isz) + nd * isz, m8)
-        del x, idx, idx_l
+        del x, xu, idx, idx_l
         torch.cuda.empty_cache()
     return details, main
+
+
+def phase_coo_gather(gk, A, cv, flush):
+    """K8 at the two shapes the assembled path gives it, after
+    setValuesCOO: the CSR values must equal v[perm] (the box27 pattern has
+    no repeated entry, so no sum follows) and the diagonal csr_vals[diag_pos]
+    (0 where a row has none), and the kernel must equal its plain version
+    bit for bit at both shapes on values unique per entry; each is timed
+    on the path's own values. Returns (the v[perm] row, the diagonal row)."""
+    import torch
+    dev = torch.device("cuda")
+    plan, d = A._coo_plan, A.device_data()
+    perm, dpos = plan["perm"], d["diag_pos"]
+    v = torch.as_tensor(cv, device=dev)
+    if plan["seg"] is not None or not torch.equal(d["vals"], gk.gather_plain(v, perm)):
+        raise AssertionError("setValuesCOO: the CSR values differ from v[perm]")
+    dpos_c = dpos.clamp(min=0)
+    want = torch.where(dpos >= 0, gk.gather_plain(d["vals"], dpos_c),
+                       torch.zeros((), dtype=d["vals"].dtype, device=dev))
+    if not torch.equal(d["diag"], want) or not bool((d["diag"] == 26.0).all()):
+        raise AssertionError("setValuesCOO: the diagonal differs from csr_vals[diag_pos]")
+    isz = v.element_size()
+    m, nd = perm.numel(), distinct(perm, v.numel())
+    perm_l = perm.long()
+    vals_row = gather_row(
+        "gather", v.dtype, (unique_values(v.numel(), v.dtype, dev), perm), (v, perm),
+        gk.gather, gk.gather_plain, lambda: torch.take(v, perm_l),
+        m * (4 + isz) + nd * isz, m, flush)
+    del perm_l
+    vals, m, nd = d["vals"], dpos_c.numel(), distinct(dpos_c, d["vals"].numel())
+    dpos_l = dpos_c.long()
+    diag_row = gather_row(
+        "gather", vals.dtype, (unique_values(vals.numel(), vals.dtype, dev), dpos_c),
+        (vals, dpos_c), gk.gather, gk.gather_plain, lambda: torch.take(vals, dpos_l),
+        m * (4 + isz) + nd * isz, m, flush)
+    del v, dpos_l
+    torch.cuda.empty_cache()
+    return (dict(vals_row, shape="v[perm]: values (nnz,), perm (nnz,)"),
+            dict(diag_row, shape="csr_vals[diag_pos]: values (nnz,), diag_pos (N,)"))
 
 
 def box27_coo(n):
@@ -604,7 +673,7 @@ def main():
     torch.cuda.synchronize()
     aij_s = time.perf_counter() - t0
     aij_launches = {**pk.LAUNCHES, **gk.LAUNCHES}
-    del ci, cj, cv
+    del ci, cj
     emit({"phase": "aij_host", "coo_generate_s": coo_s, "setPreallocationCOO_s": pre_s,
           "setValuesCOO_s": val_s})
     if A_aij.meta[0] != "aij_csr" or A_aij.nnz() != NNZ_MAIN:
@@ -618,6 +687,8 @@ def main():
         raise AssertionError(f"assembled path's launches (got, need): {short}; "
                              f"const_stencil {aij_launches['const_stencil']} (need 0)")
     peak_a = torch.cuda.max_memory_allocated() / 2 ** 20
+    coo_rows = phase_coo_gather(gk, A_aij, cv, flush)
+    del cv
     jac_ms_a = warm_ms(ksp_a, b_a, x_a)
     check_aij_solve(pk, ksp_a, A_aij, b_a, x_a, hist_stencil)
     ksp_n, b_n, x_n = aij_solve(pt, A_aij, "none")
@@ -635,7 +706,8 @@ def main():
                      "peak_mem_MiB": peak_a},
           "none": {**none_a, "warm_ms_best_of_3": none_ms_a,
                    "ms_per_it": none_ms_a / none_a["its"]},
-          "spmv": sdetails, "seconds_so_far": time.perf_counter() - t_start})
+          "spmv": sdetails, "coo_gather": coo_rows,
+          "seconds_so_far": time.perf_counter() - t_start})
     emit({"phase": "aij_profile", "solve": "jacobi", "nvidia_smi": smi,
           **profile_solve(ksp_a, b_a, x_a, jac_ms_a)})
     check_aij_solve(pk, ksp_a, A_aij, b_a, x_a, hist_stencil)
@@ -657,8 +729,8 @@ def main():
                        gather_rows, aij_launches),
         "gather2": ("gather.cu", "examples/pallas_shuffle_probe.py:125", gather_rows,
                     aij_launches),
-        "gather": ("gather.cu", "examples/pallas_gather_probe.py:50", gather_rows,
-                   aij_launches),
+        "gather": ("gather.cu", "examples/pallas_gather_probe.py:50",
+                   {"gather": coo_rows[0]}, aij_launches),
     }
     table = []
     for name, (src, replaces, measured, counts) in rows.items():
@@ -671,6 +743,13 @@ def main():
                       "dtype": r["dtype"],
                       "launches_by_path": {"solve": launches[name],
                                            "aij": aij_launches[name]}})
+    # K8's row is timed at the path's v[perm] shape; the diagonal refresh's
+    # shape and the probe's stand beside it
+    k8 = next(r for r in table if r["name"] == "gather")
+    keep = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "elements")
+    k8["shape"] = coo_rows[0]["shape"]
+    k8["diag_refresh_shape"] = {k: coo_rows[1][k] for k in keep + ("shape",)}
+    k8["probe_shape"] = {k: gather_rows["gather"][k] for k in keep}
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,9 +10,9 @@
 // then every thread reads its s[r, l] (coalesced), picks V[r, s] from
 // shared memory and writes o[r, l] (coalesced): the unordered reads hit
 // shared memory, never device memory. The loop's trip count is uniform
-// across the block, so every thread reaches both barriers. A lane index is
-// taken modulo 128, so an index the wrapper did not check cannot read
-// outside the staged row.
+// across the block, so every thread reaches both barriers. Lane indices
+// are taken as given, as in the other gathers: the wrapper checks them
+// unless its caller vouches for them.
 #include "common.cuh"
 
 constexpr int kRow = 128;
@@ -31,7 +31,7 @@ lane_shuffle_kernel(T* __restrict__ o, const T* __restrict__ V, const int* __res
     const long long e = r * kRow + (t % kRow);
     if (r < C) rows[t] = V[e];
     __syncthreads();
-    if (r < C) o[e] = rows[r_in_step * kRow + (s[e] & (kRow - 1))];
+    if (r < C) o[e] = rows[r_in_step * kRow + s[e]];
     __syncthreads();
   }
 }

@@ -13,7 +13,8 @@ src/mat/impls/aij/seq/aij.c) for one device:
   Hopper has a hardware gather, so every layout name it accepts gives
   CSR here, with the same results.
 * COO assembly (gcreate.c:706): the pattern is sorted on the host once;
-  each ``setValuesCOO`` then runs on the device: the K8 gather ``v[perm]``
+  each ``setValuesCOO`` then runs on the device (:func:`ops.spmv.coo_scatter_csr`):
+  the K8 gather ``v[perm]``
   (:func:`ops.gather_kernels.gather`), a segmented sum only where the
   pattern has duplicates, and the diagonal refreshed through K8.
 
@@ -234,11 +235,8 @@ class MatAIJ(Mat):
                             device=config.device()).reshape(-1).contiguous()
         if v.numel() != plan["n_user"]:
             raise Error(f"setValuesCOO: {v.numel()} values for {plan['n_user']} entries")
-        csr_vals = gather(v, plan["perm"], check=False)
-        if plan["seg"] is not None:
-            csr_vals = torch.zeros(plan["nnz"], dtype=v.dtype, device=v.device) \
-                .index_add_(0, plan["seg"], csr_vals)
-        self._update_device_values(csr_vals)
+        self._update_device_values(
+            spmv.coo_scatter_csr(plan["perm"], plan["seg"], v, plan["nnz"], check=False))
         self._vals = None      # the host copy is fetched when it is asked for
         self._assembled = True
         self.increase_state()

@@ -18,7 +18,9 @@ indices), shape and contiguity, and that the gathered array holds fewer
 than 2^31 entries (the indices are int32); with ``check=True`` (the
 default) it also checks the indices' bounds, which reads two numbers
 back from the card. A caller that made the indices itself passes
-``check=False``. Outputs are allocated with ``torch.empty``; the kernel
+``check=False`` and vouches that they are in range: no kernel checks or
+wraps an index, so one out of range reads outside its array on the card
+(the plain version raises). Outputs are allocated with ``torch.empty``; the kernel
 launches on the current stream without synchronising and adds one to
 ``LAUNCHES[name]``. A tensor on the CPU takes the plain PyTorch version;
 a CUDA tensor launches the kernel or raises.

@@ -1,17 +1,22 @@
 """Sparse matrix-vector products and COO re-assembly in plain PyTorch.
 
-Counterpart of ``petsc_tpu/ops/spmv.py`` for the layouts the port keeps:
-CSR (the reference's CSR-segment form, ``csr_seg_spmv`` and ``_t``, with
-row pointers in place of per-entry row ids) and ELL, plus
-``coo_scatter_csr``. These are the plain versions: the CPU path and the
-oracles of the tests. On the card the product ``A x`` is the hand kernel
-S2 (:func:`.pallas_kernels.csr_spmv`); ``csr_spmv_t`` serves the
-transpose product on either device.
+Counterpart of ``petsc_tpu/ops/spmv.py`` for the layouts the port keeps.
+``csr_spmv`` and ``csr_spmv_t`` are the reference's CSR-segment form
+(``csr_seg_spmv`` and ``_t``, with row pointers in place of per-entry row
+ids): the CPU path of ``A x``, whose card path is the hand kernel S2
+(:func:`.pallas_kernels.csr_spmv`), and the transpose product on either
+device. ``ell_spmv`` and ``_t`` have no caller in the package: the port
+stores no ELL, and they serve the tests as oracles of the reference's ELL
+products. ``coo_scatter_csr`` is the COO numeric assembly of
+:meth:`petsc_tpu_torch.mat.aij.MatAIJ.setValuesCOO`, its gather through
+the K8 wrapper.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .gather_kernels import gather
 
 
 def row_ids(indptr):
@@ -47,8 +52,15 @@ def ell_spmv_t(data, idx, x, n):
     return y.index_add_(0, idx.reshape(-1).long(), (data * x[:, None]).reshape(-1))
 
 
-def coo_scatter_csr(perm, seg_ids, coo_vals, nnz):
+def coo_scatter_csr(perm, seg_ids, coo_vals, nnz, check=True):
     """Numeric COO re-assembly (spmv.py:212-216): user-order values into
-    CSR value order, duplicates summed: out[seg_ids[k]] += coo_vals[perm[k]]."""
-    out = torch.zeros(nnz, dtype=coo_vals.dtype, device=coo_vals.device)
-    return out.index_add_(0, seg_ids.long(), coo_vals[perm.long()])
+    CSR value order, duplicates summed: out[seg_ids[k]] += coo_vals[perm[k]].
+    The gather is K8 (int32 ``perm``; ``check`` as in
+    :func:`.gather_kernels.gather`). ``seg_ids`` None says that no two
+    entries share a slot, so the gathered values are the result and the
+    sum is skipped."""
+    out = gather(coo_vals, perm, check=check)
+    if seg_ids is None:
+        return out
+    return torch.zeros(nnz, dtype=coo_vals.dtype, device=coo_vals.device) \
+        .index_add_(0, seg_ids.long(), out)

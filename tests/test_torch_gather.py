@@ -108,6 +108,12 @@ def _bad_calls():
         "lane_shuffle_width": (ValueError, lambda: gk.lane_shuffle(x.view(4, 64), s.view(4, 64))),
         "lane_shuffle_shapes": (ValueError, lambda: gk.lane_shuffle(x2, s[:1])),
         "lane_shuffle_high": (IndexError, lambda: gk.lane_shuffle(x2, s + 128)),
+        # the plain versions raise on an index out of range, and so does an
+        # unchecked wrapper on the CPU, which runs its plain version
+        "lane_shuffle_plain_high": (RuntimeError, lambda: gk.lane_shuffle_plain(x2, s + 128)),
+        "lane_shuffle_unchecked_high": (RuntimeError,
+                                        lambda: gk.lane_shuffle(x2, s + 128, check=False)),
+        "gather_plain_high": (IndexError, lambda: gk.gather_plain(x, i + 256)),
     }
 
 
