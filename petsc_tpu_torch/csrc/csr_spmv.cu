@@ -6,76 +6,440 @@
 // csr_seg_spmv). The TPU has no hardware gather; Hopper has one, so the
 // product is one pass over the CSR arrays.
 //
-// Bound: the bytes, nnz * (itemsize + 4) for vals and col, plus indptr,
-// x read once and y written once, for 2 nnz flops: device-memory
-// bandwidth (x is read again for every entry that names it; those reads
-// mostly hit L2 for a banded pattern).
-// Design: one sub-warp of W lanes per row (W = 4, 8, 16 or 32, chosen by
-// the wrapper from the mean row length). The lanes stride the row, so a
-// row's vals and col are read coalesced; x is read through the read-only
-// path. Each lane sums its entries in order and the sub-warp is reduced
-// with shuffles in a fixed tree: no atomics, so a rerun gives the same
-// bits. indptr is int64 (rows of any length); col is int32, so the
-// wrapper takes at most 2^31 - 1 columns. The trip count of the row loop
-// is uniform across a warp, so every lane reaches the full-warp shuffles.
+// Bound: nnz * (itemsize + 4) + (m + 1) * 8 + 2 * m * itemsize bytes (vals
+// and col streamed once, indptr read once, x read once, y written once)
+// over 3.35 TB/s, for 2 nnz flops: device-memory bandwidth. On 128^3 box27
+// the matrix is 0.67 GB, 13 times the 50 MB L2, so every product streams
+// it from HBM; x (16.8 MB) is read again for each entry that names it and
+// those reads are served by L2.
+//
+// Design: tiles of kTile consecutive entries, not rows. A persistent grid
+// (the blocks that fit on the card at once) splits the tiles into equal
+// contiguous runs; a block owns every row whose first entry lies in its
+// run, found by two block-wide searches over indptr at the start, and
+// reads those rows to their ends, which may lie past the run. Each row has
+// one owner, so no atomics and no second pass. The block streams its
+// entries in chunks cut at the multiples of kTile: one thread copies each
+// chunk's vals and col into a two-stage shared-memory ring with the 1-D
+// bulk copy (cp.async.bulk, completed on an mbarrier, with an L2
+// evict-first policy: the matrix is read once), one chunk ahead of the one
+// being reduced. The copy takes 16-byte aligned windows, rounded out at
+// both ends, and the kernel indexes from the offset, so vals and col may
+// start at any element. All threads then multiply vals by x[col] (x through
+// the read-only path) in place, and groups of kGroup lanes reduce one row
+// each from shared memory: lane j sums the row's entries j, j + kGroup, ...
+// of the chunk in order, then a fixed shuffle tree. A row that runs past a
+// chunk carries its partial to the next chunk in shared memory (carry +
+// partial, in chunk order). Chunk edges sit at multiples of kTile whatever
+// the grid, so a rerun, or a card with another SM count, gives the same
+// bits. Each batch of kGroups rows stores its y entries to consecutive
+// addresses. A row longer than many tiles is right but summed by one
+// group of a single block: such a matrix is load-imbalanced.
+// indptr is int64 (rows of any length); col is int32, so the wrapper takes
+// at most 2^31 - 1 columns.
 #include "common.cuh"
 
-template <typename T, int W>
-__global__ void __launch_bounds__(ptt::kThreads)
-csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
-                const int* __restrict__ col, const T* __restrict__ vals,
-                const T* __restrict__ x, long long m) {
-  constexpr int kGroupsPerWarp = 32 / W;
-  const int lane = threadIdx.x & (W - 1);
-  const int group_in_warp = (threadIdx.x & 31) / W;
-  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const long long nwarps = ((long long)gridDim.x * blockDim.x) >> 5;
-  for (long long base = warp * kGroupsPerWarp; base < m; base += nwarps * kGroupsPerWarp) {
-    const long long row = base + group_in_warp;
-    T s = T(0);
-    if (row < m) {
-      const long long hi = indptr[row + 1];
-      for (long long k = indptr[row] + lane; k < hi; k += W) s += vals[k] * __ldg(x + col[k]);
-    }
-#pragma unroll
-    for (int off = W / 2; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off, W);
-    if (row < m && lane == 0) y[row] = s;
+namespace {
+
+constexpr int kGroup = 4;                         // lanes that reduce one row
+constexpr int kGroups = ptt::kThreads / kGroup;   // rows reduced per batch
+constexpr int kProbes = ptt::kThreads / 2;        // probes of each of the two searches
+
+// entries per tile and chunk, measured on the H100 (PERF.md, PR 3)
+template <typename T> struct Tile;
+template <> struct Tile<double> { static constexpr int kEntries = 1024; };
+template <> struct Tile<float> { static constexpr int kEntries = 1024; };
+
+constexpr bool kBulkCopy = true;      // the bulk-copy ring; false: 16-byte __ldcs loads
+constexpr int kRingStages = 4;        // chunks in the ring (kRingStages - 1 ahead of the reduction)
+constexpr int kMinBlocks = 1;         // __launch_bounds__ blocks per SM
+constexpr bool kPrefetch = false;     // prefetch the run's first chunks into L2 during the search
+constexpr bool kSeparateProducts = false;   // products in their own buffer, not in the ring
+constexpr int kWaves = 1;             // blocks in the grid, in units of the blocks resident at once
+constexpr bool kStreamHint = true;    // the matrix copies carry an L2 evict-first policy
+constexpr bool kStreamOnly = false;   // measurement only: move the chunks through the ring, no product
+constexpr bool kXEvictLast = false;   // x gathered with an L2 evict-last policy
+
+// one stage of the ring: a chunk's vals and col windows, 16 bytes of
+// slack for the rounding at each end
+template <typename T>
+struct Ring {
+  static constexpr int kVal = Tile<T>::kEntries * (int)sizeof(T) + 32;
+  static constexpr int kCol = Tile<T>::kEntries * 4 + 32;
+  static constexpr int kStages = kRingStages;
+  static constexpr int kProd = kSeparateProducts ? 2 * Tile<T>::kEntries * (int)sizeof(T) : 0;
+  static constexpr int kBytes = kStages * (kVal + kCol) + kProd;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      "WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ uint64_t l2_policy_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t l2_policy_evict_normal() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t l2_policy_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ T load_x(const T* p, uint64_t policy) {
+  if constexpr (!kXEvictLast) {
+    return __ldg(p);
+  } else if constexpr (sizeof(T) == 8) {
+    double v;
+    asm volatile("ld.global.nc.L2::cache_hint.f64 %0, [%1], %2;\n" : "=d"(v) : "l"(p), "l"(policy));
+    return v;
+  } else {
+    float v;
+    asm volatile("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;\n" : "=f"(v) : "l"(p), "l"(policy));
+    return v;
   }
 }
 
-template <typename T, int W>
-static void launch_w(T* y, const long long* indptr, const int* col, const T* vals, const T* x,
-                     long long m, int device, cudaStream_t stream) {
-  const int grid = ptt::grid_for(m * W, device, 1LL << 30);
-  csr_spmv_kernel<T, W><<<grid, ptt::kThreads, 0, stream>>>(y, indptr, col, vals, x, m);
+// The 16-byte aligned window of bytes that holds elements [a, b) of p:
+// its start, its length, and the element offset of p + a inside it.
+struct Window {
+  const void* src;
+  uint32_t bytes;
+  int off;
+};
+
+template <typename E>
+__device__ __forceinline__ Window window(const E* p, long long a, long long b) {
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(p + a), hi = reinterpret_cast<uintptr_t>(p + b);
+  const uintptr_t lo16 = lo & ~uintptr_t(15), hi16 = (hi + 15) & ~uintptr_t(15);
+  return {reinterpret_cast<const void*>(lo16), (uint32_t)(hi16 - lo16), (int)((lo - lo16) / sizeof(E))};
+}
+
+// The end of the chunk that starts at entry c0: the next multiple of the
+// tile, or the block's last entry.
+template <typename T>
+__device__ __forceinline__ long long chunk_end(long long c0, long long e_end) {
+  constexpr long long kT = Tile<T>::kEntries;
+  const long long b = (c0 / kT + 1) * kT;
+  return b < e_end ? b : e_end;
+}
+
+// First row r in [0, m] with indptr[r] >= key, for two keys at once: the
+// block's lower half searches key0, the upper half key1, each with
+// kProbes probes per step. The first step probes a window of kProbes rows,
+// m / 2^14 apart, centred on `guess`, so that uneven rows (a grid's
+// boundary planes) still fall in it; each later step is a kProbes-ary
+// search of what is left: two steps in all when the guess is near. The
+// loop is block-uniform.
+__device__ void find_rows(const long long* __restrict__ indptr, long long m, long long key0,
+                          long long key1, long long guess0, long long guess1, long long* r0,
+                          long long* r1) {
+  const int half = threadIdx.x / kProbes, i = threadIdx.x % kProbes;
+  const long long key = half ? key1 : key0, guess = half ? guess1 : guess0;
+  long long lo = 0, hi = m;  // the answer lies in [lo, hi]
+  for (bool first = true;; first = false) {
+    // this step probes [a, a + span), inside [lo, hi]
+    long long a = lo, span = hi - lo;
+    if (first) {
+      const long long w = (long long)kProbes * ((m >> 14) > 1 ? (m >> 14) : 1);
+      a = guess - w / 2;
+      a = a > m - w ? m - w : a;
+      a = a < 0 ? 0 : a;
+      span = a + w < m ? w : m - a;
+    }
+    const bool wide = span >= kProbes;
+    const long long np = wide ? kProbes : span;
+    auto probe = [&](long long j) { return wide ? a + span * j / kProbes : a + j; };
+    const bool pred = i < np && __ldg(indptr + probe(i)) < key;
+    const int c0 = __syncthreads_count(half == 0 && pred);
+    const int c1 = __syncthreads_count(half == 1 && pred);
+    const int c = half ? c1 : c0;
+    if (np > 0) {
+      if (c == 0) {
+        hi = probe(0);
+      } else {
+        lo = probe(c - 1) + 1;
+        if (c < np) hi = probe(c);
+      }
+    }
+    if (!__syncthreads_or(hi > lo)) break;
+  }
+  if (i == 0) *(half ? r1 : r0) = lo;
+  __syncthreads();
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ptt::kThreads, kMinBlocks)
+csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
+                const int* __restrict__ col, const T* __restrict__ vals,
+                const T* __restrict__ x, long long m, long long nnz) {
+  using R = Ring<T>;
+  constexpr long long kT = Tile<T>::kEntries;
+  constexpr int kPer = Tile<T>::kEntries / ptt::kThreads;   // entries per thread per chunk
+  static_assert(Tile<T>::kEntries % ptt::kThreads == 0, "a tile is whole rounds of the block");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[R::kStages];
+  __shared__ T carry[2];
+  __shared__ long long rows[2];
+
+  const int tid = threadIdx.x, lane = tid % kGroup, g = tid / kGroup;
+  // this block's run of tiles
+  const long long ntiles = nnz > 0 ? (nnz + kT - 1) / kT : 1;
+  const long long t0 = ntiles * blockIdx.x / gridDim.x;
+  const long long t1 = ntiles * (blockIdx.x + 1) / gridDim.x;
+  if (kPrefetch && tid == 0 && t0 * kT < nnz) {
+    // the run's first chunks start to come into L2 during the search
+    const long long b = (t0 + R::kStages) * kT < nnz ? (t0 + R::kStages) * kT : nnz;
+    const Window wv = window(vals, t0 * kT, b), wc = window(col, t0 * kT, b);
+    prefetch_l2(wv.src, wv.bytes);
+    prefetch_l2(wc.src, wc.bytes);
+  }
+  // the rows that start in the run; the guesses assume rows of even length
+  const double rows_per_entry = (double)m / (double)(ntiles * kT);
+  find_rows(indptr, m, t0 * kT, t1 * kT, (long long)(t0 * kT * rows_per_entry),
+            (long long)(t1 * kT * rows_per_entry), &rows[0], &rows[1]);
+  const long long r_lo = blockIdx.x == 0 ? 0 : rows[0];
+  const long long r_hi = blockIdx.x + 1 == gridDim.x ? m : rows[1];   // trailing empty rows too
+  const long long e_start = __ldg(indptr + r_lo), e_end = __ldg(indptr + r_hi);
+
+  // stage s: vals window at smem + s kVal, col window after all the vals windows
+  auto vstage = [&](long long j) { return (T*)(smem + (j % R::kStages) * R::kVal); };
+  auto cstage = [&](long long j) {
+    return (int*)(smem + R::kStages * R::kVal + (j % R::kStages) * R::kCol);
+  };
+  T* const prod = (T*)(smem + R::kStages * (R::kVal + R::kCol));   // kSeparateProducts
+  const uint64_t stream_policy = kStreamHint ? l2_policy_evict_first() : l2_policy_evict_normal();
+  const uint64_t x_policy = kXEvictLast ? l2_policy_evict_last() : 0;
+
+  // thread 0 copies the next chunk into stage j
+  long long next_copy = e_start;
+  auto copy_chunk = [&](long long j) {
+    const long long a = next_copy, b = chunk_end<T>(a, e_end);
+    next_copy = b;
+    const Window wv = window(vals, a, b), wc = window(col, a, b);
+    uint64_t* bar = &full[j % R::kStages];
+    mbar_expect_tx(bar, wv.bytes + wc.bytes);
+    bulk_load(vstage(j), wv.src, wv.bytes, bar, stream_policy);
+    bulk_load(cstage(j), wc.src, wc.bytes, bar, stream_policy);
+  };
+  if (tid == 0) {
+    if constexpr (kBulkCopy) {
+      for (int s = 0; s < R::kStages; ++s) mbar_init(&full[s]);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int s = 0; s < R::kStages && next_copy < e_end; ++s) copy_chunk(s);
+    }
+  }
+  __syncthreads();
+
+  // chunk j = [a, b): fetch() waits for its entries and starts the gathers
+  // of x[col] into registers; finish() stores vals * x[col] once they are
+  // back. Chunk j + 1 is fetched before chunk j is reduced and finished
+  // after, so the gathers' latency hides behind the reduction.
+  int ci[kPer];
+  T xv[kPer];
+  auto fetch = [&](long long j, long long a, long long b) {
+    const int n = (int)(b - a);
+    if (n > 0) {
+      if constexpr (kBulkCopy) {
+        mbar_wait(&full[j % R::kStages], (uint32_t)((j / R::kStages) & 1));
+      } else {
+        const Window wv = window(vals, a, b), wc = window(col, a, b);
+        for (int i = tid; i < (int)(wv.bytes / 16); i += ptt::kThreads)
+          ((int4*)vstage(j))[i] = __ldcs((const int4*)wv.src + i);
+        for (int i = tid; i < (int)(wc.bytes / 16); i += ptt::kThreads)
+          ((int4*)cstage(j))[i] = __ldcs((const int4*)wc.src + i);
+        __syncthreads();
+      }
+    }
+    const int* c = cstage(j) + window(col, a, b).off;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int k = tid + u * ptt::kThreads;
+      ci[u] = k < n ? c[k] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+      xv[u] = tid + u * ptt::kThreads < n ? load_x(x + ci[u], x_policy) : T(0);
+  };
+  auto products = [&](long long j, long long a, long long b) {
+    const T* v = vstage(j) + window(vals, a, b).off;
+    return kSeparateProducts ? prod + (j & 1) * Tile<T>::kEntries : (T*)v;
+  };
+  auto finish = [&](long long j, long long a, long long b) {
+    const int n = (int)(b - a);
+    const T* v = vstage(j) + window(vals, a, b).off;
+    T* pv = products(j, a, b);
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int k = tid + u * ptt::kThreads;
+      if (k < n) pv[k] = v[k] * xv[u];
+    }
+    if constexpr (kBulkCopy && !kSeparateProducts) {
+      // the products are the threads' writes; the copy that next fills this
+      // stage is the async proxy's, issued after a later barrier
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+  };
+  // row pointers a few batches ahead start to come into L2
+  auto prefetch_rows = [&](long long r) {
+    if (tid == 0 && r < m) {
+      const long long b = r + 4 * kGroups < m ? r + 4 * kGroups : m;
+      const Window w = window(indptr, r, b + 1);
+      prefetch_l2(w.src, w.bytes);
+    }
+  };
+
+  long long c0 = e_start, c1 = chunk_end<T>(e_start, e_end), rcur = r_lo;
+  if constexpr (kStreamOnly) {
+    for (long long j = 0;; ++j) {
+      if (c1 > c0) mbar_wait(&full[j % R::kStages], (uint32_t)((j / R::kStages) & 1));
+      __syncthreads();
+      if (c1 == e_end) break;
+      if (tid == 0 && next_copy < e_end) copy_chunk(j);
+      c0 = c1;
+      c1 = chunk_end<T>(c1, e_end);
+    }
+    for (long long i = r_lo + tid; i < r_hi; i += ptt::kThreads) y[i] = T(0);
+    return;
+  }
+  fetch(0, c0, c1);
+  finish(0, c0, c1);
+  // the first batch's row pointers
+  long long r = rcur + g, s0 = 0, s1 = 0;
+  if (r < r_hi) {
+    s0 = __ldg(indptr + r);
+    s1 = __ldg(indptr + r + 1);
+  }
+  __syncthreads();
+
+  for (long long j = 0;; ++j) {
+    const bool last = c1 == e_end;
+    const long long d1 = last ? c1 : chunk_end<T>(c1, e_end);   // chunk j + 1 is [c1, d1)
+    if (!last) fetch(j + 1, c1, d1);
+    prefetch_rows(rcur + kGroups);
+    const int cs = (int)(j & 1);
+    const T* pv = products(j, c0, c1);
+
+    // rows rcur, rcur + 1, ... in batches of kGroups, one group of lanes
+    // each. Chunk j + 1's products are stored before the first batch's
+    // barrier, which then also makes them visible for the next reduction.
+    bool first = true;
+    do {
+      if (!first) {
+        r = rcur + g;
+        s0 = s1 = 0;
+        if (r < r_hi) {
+          s0 = __ldg(indptr + r);
+          s1 = __ldg(indptr + r + 1);
+        }
+      }
+      const bool in = r < r_hi && (s0 < c1 || last);
+      T acc = T(0);
+      if (in) {
+        const int lo = (int)((s0 > c0 ? s0 : c0) - c0), hi = (int)((s1 < c1 ? s1 : c1) - c0);
+        for (int k = lo + lane; k < hi; k += kGroup) acc += pv[k];
+      }
+#pragma unroll
+      for (int off = kGroup / 2; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off, kGroup);
+      const bool done = in && s1 <= c1;
+      if (in && lane == 0) {
+        // a row that started in an earlier chunk carries its partial sum
+        if (first && g == 0 && s0 < c0) acc = carry[cs] + acc;
+        if (done) y[r] = acc;
+        else carry[cs ^ 1] = acc;
+      }
+      if (first && !last) finish(j + 1, c1, d1);
+      first = false;
+      const int finished = __syncthreads_count(done && lane == 0);
+      rcur += finished;
+      if (finished < kGroups) break;
+    } while (rcur < r_hi);
+    if (last) break;
+
+    // every read of chunk j's stage is behind the last barrier: chunk
+    // j + kStages may fill it
+    if (kBulkCopy && tid == 0 && next_copy < e_end) copy_chunk(j);
+    r = rcur + g;
+    s0 = s1 = 0;
+    if (r < r_hi) {
+      s0 = __ldg(indptr + r);
+      s1 = __ldg(indptr + r + 1);
+    }
+    c0 = c1;
+    c1 = d1;
+  }
 }
 
 template <typename T>
 static int launch_csr(void* y, const void* indptr, const void* col, const void* vals,
-                      const void* x, long long m, int width, int device, void* stream) {
+                      const void* x, long long m, long long nnz, int device, void* stream) {
+  static_assert(Ring<T>::kBytes <= 227 * 1024, "the ring must fit a block's shared memory");
   PTT_TRY(cudaSetDevice(device));
-  auto* yy = (T*)y;
-  auto* ip = (const long long*)indptr;
-  auto* cc = (const int*)col;
-  auto* vv = (const T*)vals;
-  auto* xx = (const T*)x;
-  auto st = (cudaStream_t)stream;
-  switch (width) {
-    case 4: launch_w<T, 4>(yy, ip, cc, vv, xx, m, device, st); break;
-    case 8: launch_w<T, 8>(yy, ip, cc, vv, xx, m, device, st); break;
-    case 16: launch_w<T, 16>(yy, ip, cc, vv, xx, m, device, st); break;
-    case 32: launch_w<T, 32>(yy, ip, cc, vv, xx, m, device, st); break;
-    default: return (int)cudaErrorInvalidValue;
+  if constexpr (Ring<T>::kBytes > 48 * 1024) {
+    PTT_TRY(cudaFuncSetAttribute(csr_spmv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 Ring<T>::kBytes));
   }
+  int sms = 0, per_sm = 0;
+  PTT_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+  PTT_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, csr_spmv_kernel<T>, ptt::kThreads,
+                                                        Ring<T>::kBytes));
+  constexpr long long kT = Tile<T>::kEntries;
+  const long long ntiles = nnz > 0 ? (nnz + kT - 1) / kT : 1;
+  long long grid = (long long)kWaves * sms * (per_sm > 0 ? per_sm : 1);
+  if (grid > ntiles) grid = ntiles;
+  csr_spmv_kernel<T><<<(int)grid, ptt::kThreads, Ring<T>::kBytes, (cudaStream_t)stream>>>(
+      (T*)y, (const long long*)indptr, (const int*)col, (const T*)vals, (const T*)x, m, nnz);
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
 extern "C" int ptt_csr_spmv_f64(void* y, const void* indptr, const void* col, const void* vals,
-                                const void* x, long long m, int width, int device, void* stream) {
-  return launch_csr<double>(y, indptr, col, vals, x, m, width, device, stream);
+                                const void* x, long long m, long long nnz, int device, void* stream) {
+  return launch_csr<double>(y, indptr, col, vals, x, m, nnz, device, stream);
 }
 
 extern "C" int ptt_csr_spmv_f32(void* y, const void* indptr, const void* col, const void* vals,
-                                const void* x, long long m, int width, int device, void* stream) {
-  return launch_csr<float>(y, indptr, col, vals, x, m, width, device, stream);
+                                const void* x, long long m, long long nnz, int device, void* stream) {
+  return launch_csr<float>(y, indptr, col, vals, x, m, nnz, device, stream);
 }

@@ -264,21 +264,14 @@ def const_stencil(x, shape, cd, co, is_box):
 csr_spmv_plain = spmv.csr_spmv
 
 
-def csr_width(m, nnz):
-    """Lanes per row of the S2 kernel: the power of two at or above the
-    mean row length, between 4 and 32."""
-    mean = nnz / m if m else 0.0
-    w = 4
-    while w < 32 and w < mean:
-        w *= 2
-    return w
-
-
 def csr_spmv(indptr, col, vals, x):
     """y = A x for A in CSR form: int64 `indptr` (m + 1), int32 `col` and
     `vals` (nnz), x of the columns' length. The columns are not checked
     against len(x) here (that would read the card): the assembly that made
-    them checked them on the host."""
+    them checked them on the host. indptr[0] is 0 and indptr[m] the
+    number of entries. The kernel copies 16-byte aligned windows around
+    vals and col, so views that start at any element (``vals[1:]``) are
+    taken as they are. Nothing is cached between calls."""
     for t, dt, nm in ((indptr, torch.int64, "indptr"), (col, torch.int32, "col")):
         if not isinstance(t, torch.Tensor) or t.dtype != dt or t.dim() != 1 \
                 or not t.is_contiguous():
@@ -300,7 +293,7 @@ def csr_spmv(indptr, col, vals, x):
     y = torch.empty(m, dtype=x.dtype, device=x.device)
     if m:
         _launch("csr_spmv", x, y.data_ptr(), indptr.data_ptr(), col.data_ptr(),
-                vals.data_ptr(), x.data_ptr(), m, csr_width(m, vals.numel()))
+                vals.data_ptr(), x.data_ptr(), m, vals.numel())
     return y
 
 

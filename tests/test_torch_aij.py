@@ -344,8 +344,11 @@ def test_s2_wrapper_on_the_cpu_is_its_plain_version():
     pk.reset_launches()
     assert torch.equal(pk.csr_spmv(ip, col, vals, x), pk.csr_spmv_plain(ip, col, vals, x))
     assert pk.LAUNCHES["csr_spmv"] == 0
-    assert [pk.csr_width(m, nnz) for m, nnz in ((10, 0), (10, 50), (10, 266), (1, 500))] \
-        == [4, 8, 32, 32]
+    # vals and col as views that start at an odd element are taken as they are
+    col1 = torch.cat([col[:1], col])[1:]
+    vals1 = torch.cat([vals[:1], vals])[1:]
+    assert vals1.storage_offset() == 1 and col1.storage_offset() == 1
+    assert torch.equal(pk.csr_spmv(ip, col1, vals1, x), pk.csr_spmv_plain(ip, col, vals, x))
     bad = {
         "indptr_int32": (ip.int(), col, vals, x),
         "col_int64": (ip, col.long(), vals, x),
