@@ -13,8 +13,9 @@ Phases, one JSON line each on stdout:
            scipy CSR product at 24^3; times each kernel, its plain version
            and, where one exists, the one PyTorch call that computes the
            same function (CUDA events, median of 20 launches, L2 flushed
-           before each); computes each bound from the bytes and flops the
-           function needs;
+           before each and the card held 0.1 ms so that the host's launch
+           stays outside the events); computes each bound from the bytes
+           and flops the function needs;
   solve    the main path: init(), build_dnd((128,)*3, "box"), as_mat and
            CG with -pc_type jacobi to rtol 1e-8 (b = 1, x = 0), with every
            kernel's launch count set to 0 just before and read just after;
@@ -42,10 +43,15 @@ Phases, one JSON line each on stdout:
            v[perm] and csr_vals[diag_pos], and K8 against its plain version
            bit for bit at those two shapes, timed there (K8's row in the
            kernel table is the v[perm] shape's); then the CSR SpMV S2 alone
-           at 128^3 against its plain
-           version (f64 1e-12, f32 1e-5), torch.sparse_csr_tensor and scipy
-           (the tests/data fixtures and 24^3, 1e-12); the host seconds of
-           the two assembly calls on a line of their own;
+           at 128^3 against its plain version (f64 1e-12, f32 1e-5) and
+           torch.sparse_csr_tensor, with its tile length, Gnnz/s and share
+           of the bound in each type, against scipy (the tests/data
+           fixtures and 24^3, 1e-12), and on rows cut around its tiles
+           (T - 1, T, T + 1 entries across tile edges, a row of 50 T, runs
+           of empty rows, entries that end on a tile edge, no entries, and
+           vals/col one element past a 16-byte edge) against its plain
+           version with equal bits on reruns; the host seconds of the two
+           assembly calls on a line of their own;
   aij_profile  the profile phase for one warm CSR CG+Jacobi solve.
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. With
@@ -72,6 +78,7 @@ N_MAIN = 128
 ITS_MAIN = 184                  # CG+Jacobi at 128^3 (BENCH_r05.json jacobi_its)
 NNZ_MAIN = 55_742_968           # box27 at 128^3
 REPS = 20
+SLEEP_CYCLES = 200_000          # about 0.1 ms of the card's clock, before each timed launch
 PROBE_SHUFFLE = (1_048_576, 4096, 128)   # C, B, W of pallas_shuffle_probe.py probe_s1/s2/s3
 PROBE_GATHER = (524_288, 4_194_304)      # n, m of pallas_gather_probe.py probe_g1
 DATA = Path(__file__).resolve().parent / "tests" / "data"
@@ -91,13 +98,16 @@ def rel_err(a, b):
 
 def time_ms(fn, flush, reps=REPS):
     """Median of `reps` launches of fn(), each timed with CUDA events after
-    the L2 cache was flushed by writing a buffer twice its size."""
+    the L2 cache was flushed by writing a buffer twice its size. The card
+    then spins for about 0.1 ms, so the host has queued fn() before the
+    first event is reached and its launch time stays out of the window."""
     import torch
     fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -515,10 +525,72 @@ def check_aij_solve(pk, ksp, A, b, x, hist_stencil):
             "history_rel_diff_vs_stencil": hist_rel}
 
 
+def csr_tiles():
+    """S2's entries per tile for float64 and float32, as csr_spmv.cu states them."""
+    import re
+    src = (Path(__file__).resolve().parent / "petsc_tpu_torch" / "csrc" / "csr_spmv.cu").read_text()
+    return {dt: int(t) for dt, t in re.findall(
+        r"struct Tile<(double|float)> \{ static constexpr int kEntries = (\d+);", src)}
+
+
+def tile_edge_cases(T):
+    """CSR row lengths cut around a tile of T entries: rows of T - 1, T and
+    T + 1 entries across tile edges, a row of 50 T (positive values, so
+    that a float32 sum does not cancel), runs of empty rows at the start,
+    middle and end, entries that end on a tile edge before empty rows, and
+    no entries at all in 5000 rows."""
+    return {f"tile{T}_edges": ([3, T - 1, T, T + 1, 1, T + 1, T, T - 1, 2 * T, 5, T - 1, T - 1,
+                                T + 1, T + 1], -0.5),
+            f"tile{T}_long_row": ([7, 50 * T, 13, 0, 2], 0.5),
+            f"tile{T}_empty_runs": ([0] * 300 + [27] * 200 + [0] * 400 + [T + 1] * 3 + [27] * 100
+                                    + [0] * 500, -0.5),
+            f"tile{T}_ends_on_an_edge": ([T // 2] * 8 + [0] * 50, -0.5),
+            "no_entries_5000_rows": ([0] * 5000, -0.5)}
+
+
+def phase_spmv_edges(pk):
+    """S2 on the tile-edge cases of each tile length, f64 and f32, against
+    its plain version (1e-12 / 1e-5 relative), for equal bits on a rerun,
+    and once more with vals and col one element past a 16-byte edge."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    out = []
+    for T in sorted(set(csr_tiles().values())):
+        for name, (lengths, low) in tile_edge_cases(T).items():
+            indptr = np.r_[0, np.cumsum(lengths)].astype(np.int64)
+            nnz, n = int(indptr[-1]), 3000
+            cols = rng.integers(0, n, nnz).astype(np.int32)
+            vals = rng.random(nnz) + low
+            xs = rng.random(n)
+            for dtype in (torch.float64, torch.float32):
+                dn = str(dtype).replace("torch.", "")
+                ip = torch.as_tensor(indptr, device=dev)
+                c = torch.as_tensor(cols, device=dev)
+                v = torch.as_tensor(vals, dtype=dtype, device=dev)
+                x = torch.as_tensor(xs, dtype=dtype, device=dev)
+                k = pk.csr_spmv(ip, c, v, x)
+                p = pk.csr_spmv_plain(ip, c, v, x)
+                c1 = torch.cat([c[:1], c])[1:]
+                v1 = torch.cat([v[:1], v])[1:]
+                torch.cuda.synchronize()
+                err = rel_err(k, p) if nnz else float(k.abs().max())
+                same = torch.equal(k, pk.csr_spmv(ip, c, v, x)) and \
+                    torch.equal(k, pk.csr_spmv(ip, c1, v1, x))
+                if not err <= TOL[dn] or not same:
+                    raise AssertionError(f"csr_spmv {name} {dn}: rel err {err} (tol {TOL[dn]}), "
+                                         f"equal bits on reruns {same}")
+                out.append({"name": f"csr_spmv_{name}", "dtype": dn, "rows": len(lengths),
+                            "nnz": nnz, "rel_err": err, "bit_equal_rerun_and_offset": same})
+    return out
+
+
 def phase_spmv(pt, pk, sb, A, flush):
     """S2 alone: at 128^3 against its plain version (f64 and f32) and
-    torch.sparse_csr_tensor, and against scipy on the tests/data fixtures
-    and at 24^3. Returns (details, the f64 128^3 row)."""
+    torch.sparse_csr_tensor, against scipy on the tests/data fixtures and
+    at 24^3, and on the tile-edge cases. Returns (details, the f64 128^3
+    row)."""
     import numpy as np
     import torch
     from petsc_tpu_torch.mat.mmio import load_matrix_market
@@ -549,6 +621,8 @@ def phase_spmv(pt, pk, sb, A, flush):
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
         row["Gnnz_per_s"] = nnz / row["ms"] / 1e6
         row["bound_Gnnz_per_s"] = nnz / b_ms / 1e6
+        row["share_of_bound"] = b_ms / row["ms"]
+        row["tile_entries"] = csr_tiles()["double" if dtype == torch.float64 else "float"]
         details.append(row)
         if dtype == torch.float64:
             main = row
@@ -565,6 +639,7 @@ def phase_spmv(pt, pk, sb, A, flush):
             raise AssertionError(f"csr_spmv vs scipy on {name}: rel err {err}")
         details.append({"name": f"csr_spmv_vs_scipy_{name}", "shape": list(ref.shape),
                         "nnz": int(ref.nnz), "rel_err": err})
+    details.extend(phase_spmv_edges(pk))
     return details, main
 
 
@@ -750,6 +825,14 @@ def main():
     k8["shape"] = coo_rows[0]["shape"]
     k8["diag_refresh_shape"] = {k: coo_rows[1][k] for k in keep + ("shape",)}
     k8["probe_shape"] = {k: gather_rows["gather"][k] for k in keep}
+    # S2's row is the f64 product at 128^3; the f32 one stands beside it
+    s2 = next(r for r in table if r["name"] == "csr_spmv")
+    s2_32 = next(r for r in sdetails if r.get("name") == "csr_spmv" and r["dtype"] == "float32")
+    s2.update(tile_entries=spmv_row["tile_entries"], Gnnz_per_s=spmv_row["Gnnz_per_s"],
+              share_of_bound=spmv_row["share_of_bound"],
+              float32={k: s2_32[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                             "max_abs_err", "Gnnz_per_s", "share_of_bound",
+                                             "tile_entries")})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,32 +11,38 @@
 // over 3.35 TB/s, for 2 nnz flops: device-memory bandwidth. On 128^3 box27
 // the matrix is 0.67 GB, 13 times the 50 MB L2, so every product streams
 // it from HBM; x (16.8 MB) is read again for each entry that names it and
-// those reads are served by L2.
+// those reads are served by L1 and L2.
 //
-// Design: tiles of kTile consecutive entries, not rows. A persistent grid
-// (the blocks that fit on the card at once) splits the tiles into equal
-// contiguous runs; a block owns every row whose first entry lies in its
-// run, found by two block-wide searches over indptr at the start, and
+// Design: tiles of kEntries consecutive entries, not rows. A persistent
+// grid (the blocks that fit on the card at once) splits the tiles into
+// equal contiguous runs; a block owns every row whose first entry lies in
+// its run, found by two block-wide searches over indptr at the start, and
 // reads those rows to their ends, which may lie past the run. Each row has
-// one owner, so no atomics and no second pass. The block streams its
-// entries in chunks cut at the multiples of kTile: one thread copies each
-// chunk's vals and col into a two-stage shared-memory ring with the 1-D
-// bulk copy (cp.async.bulk, completed on an mbarrier, with an L2
-// evict-first policy: the matrix is read once), one chunk ahead of the one
-// being reduced. The copy takes 16-byte aligned windows, rounded out at
-// both ends, and the kernel indexes from the offset, so vals and col may
-// start at any element. All threads then multiply vals by x[col] (x through
-// the read-only path) in place, and groups of kGroup lanes reduce one row
-// each from shared memory: lane j sums the row's entries j, j + kGroup, ...
-// of the chunk in order, then a fixed shuffle tree. A row that runs past a
-// chunk carries its partial to the next chunk in shared memory (carry +
-// partial, in chunk order). Chunk edges sit at multiples of kTile whatever
-// the grid, so a rerun, or a card with another SM count, gives the same
-// bits. Each batch of kGroups rows stores its y entries to consecutive
-// addresses. A row longer than many tiles is right but summed by one
-// group of a single block: such a matrix is load-imbalanced.
-// indptr is int64 (rows of any length); col is int32, so the wrapper takes
-// at most 2^31 - 1 columns.
+// one owner, so no atomics and no second pass.
+// - Stream: the block walks its entries in chunks cut at the multiples of
+//   kEntries. Thread 0 copies each chunk's vals and col into a ring of
+//   kStages shared-memory stages with the 1-D bulk copy (cp.async.bulk,
+//   completed on an mbarrier, with an L2 evict-first policy: the matrix is
+//   read once), kStages - 1 chunks ahead of the one being reduced. The copy
+//   takes 16-byte aligned windows, rounded out at both ends, and the kernel
+//   indexes from the offset, so vals and col may start at any element.
+// - Multiply: every thread gathers x[col] (read-only path) for its
+//   kEntries / kThreads entries of the next chunk before the current chunk
+//   is reduced, and stores vals * x[col] in place after, so the gathers'
+//   latency hides behind the reduction.
+// - Reduce: groups of kGroup lanes reduce one row each from shared memory:
+//   lane j sums the row's entries j, j + kGroup, ... of the chunk in order,
+//   then a fixed shuffle tree. A row that runs past a chunk carries its
+//   partial sum to the next chunk in shared memory (carry + partial, in
+//   chunk order). Chunk edges sit at multiples of kEntries whatever the
+//   grid, so a rerun, or a card with another SM count, gives the same bits.
+//   Each batch of kGroups rows stores its y entries to consecutive
+//   addresses. One block barrier per chunk (two when its rows need a
+//   second batch).
+// A row longer than many tiles is right but summed by one group of a
+// single block: such a matrix is load-imbalanced. indptr is int64 (rows of
+// any length); col is int32, so the wrapper takes at most 2^31 - 1 columns.
+// The constants were chosen with s2_sweep.py on the H100 (PERF.md, PR 3).
 #include "common.cuh"
 
 namespace {
@@ -44,31 +50,21 @@ namespace {
 constexpr int kGroup = 4;                         // lanes that reduce one row
 constexpr int kGroups = ptt::kThreads / kGroup;   // rows reduced per batch
 constexpr int kProbes = ptt::kThreads / 2;        // probes of each of the two searches
+constexpr int kRingStages = 4;                    // chunks in the ring
 
-// entries per tile and chunk, measured on the H100 (PERF.md, PR 3)
+// entries per tile and chunk
 template <typename T> struct Tile;
 template <> struct Tile<double> { static constexpr int kEntries = 1024; };
 template <> struct Tile<float> { static constexpr int kEntries = 1024; };
 
-constexpr bool kBulkCopy = true;      // the bulk-copy ring; false: 16-byte __ldcs loads
-constexpr int kRingStages = 4;        // chunks in the ring (kRingStages - 1 ahead of the reduction)
-constexpr int kMinBlocks = 1;         // __launch_bounds__ blocks per SM
-constexpr bool kPrefetch = false;     // prefetch the run's first chunks into L2 during the search
-constexpr bool kSeparateProducts = false;   // products in their own buffer, not in the ring
-constexpr int kWaves = 1;             // blocks in the grid, in units of the blocks resident at once
-constexpr bool kStreamHint = true;    // the matrix copies carry an L2 evict-first policy
-constexpr bool kStreamOnly = false;   // measurement only: move the chunks through the ring, no product
-constexpr bool kXEvictLast = false;   // x gathered with an L2 evict-last policy
-
-// one stage of the ring: a chunk's vals and col windows, 16 bytes of
-// slack for the rounding at each end
+// one stage of the ring holds a chunk's vals and col windows, with 16
+// bytes of slack for the rounding at each end
 template <typename T>
 struct Ring {
   static constexpr int kVal = Tile<T>::kEntries * (int)sizeof(T) + 32;
   static constexpr int kCol = Tile<T>::kEntries * 4 + 32;
   static constexpr int kStages = kRingStages;
-  static constexpr int kProd = kSeparateProducts ? 2 * Tile<T>::kEntries * (int)sizeof(T) : 0;
-  static constexpr int kBytes = kStages * (kVal + kCol) + kProd;
+  static constexpr int kBytes = kStages * (kVal + kCol);
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -100,18 +96,6 @@ __device__ __forceinline__ uint64_t l2_policy_evict_first() {
   return p;
 }
 
-__device__ __forceinline__ uint64_t l2_policy_evict_normal() {
-  uint64_t p;
-  asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n" : "=l"(p));
-  return p;
-}
-
-__device__ __forceinline__ uint64_t l2_policy_evict_last() {
-  uint64_t p;
-  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
-  return p;
-}
-
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar,
                                           uint64_t policy) {
   asm volatile(
@@ -121,19 +105,8 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-template <typename T>
-__device__ __forceinline__ T load_x(const T* p, uint64_t policy) {
-  if constexpr (!kXEvictLast) {
-    return __ldg(p);
-  } else if constexpr (sizeof(T) == 8) {
-    double v;
-    asm volatile("ld.global.nc.L2::cache_hint.f64 %0, [%1], %2;\n" : "=d"(v) : "l"(p), "l"(policy));
-    return v;
-  } else {
-    float v;
-    asm volatile("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;\n" : "=f"(v) : "l"(p), "l"(policy));
-    return v;
-  }
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
 }
 
 // The 16-byte aligned window of bytes that holds elements [a, b) of p:
@@ -204,12 +177,8 @@ __device__ void find_rows(const long long* __restrict__ indptr, long long m, lon
   __syncthreads();
 }
 
-__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
-}
-
 template <typename T>
-__global__ void __launch_bounds__(ptt::kThreads, kMinBlocks)
+__global__ void __launch_bounds__(ptt::kThreads)
 csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
                 const int* __restrict__ col, const T* __restrict__ vals,
                 const T* __restrict__ x, long long m, long long nnz) {
@@ -223,18 +192,11 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
   __shared__ long long rows[2];
 
   const int tid = threadIdx.x, lane = tid % kGroup, g = tid / kGroup;
-  // this block's run of tiles
+  // this block's run of tiles, and the rows that start in it; the search
+  // guesses assume rows of even length
   const long long ntiles = nnz > 0 ? (nnz + kT - 1) / kT : 1;
   const long long t0 = ntiles * blockIdx.x / gridDim.x;
   const long long t1 = ntiles * (blockIdx.x + 1) / gridDim.x;
-  if (kPrefetch && tid == 0 && t0 * kT < nnz) {
-    // the run's first chunks start to come into L2 during the search
-    const long long b = (t0 + R::kStages) * kT < nnz ? (t0 + R::kStages) * kT : nnz;
-    const Window wv = window(vals, t0 * kT, b), wc = window(col, t0 * kT, b);
-    prefetch_l2(wv.src, wv.bytes);
-    prefetch_l2(wc.src, wc.bytes);
-  }
-  // the rows that start in the run; the guesses assume rows of even length
   const double rows_per_entry = (double)m / (double)(ntiles * kT);
   find_rows(indptr, m, t0 * kT, t1 * kT, (long long)(t0 * kT * rows_per_entry),
             (long long)(t1 * kT * rows_per_entry), &rows[0], &rows[1]);
@@ -242,16 +204,15 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
   const long long r_hi = blockIdx.x + 1 == gridDim.x ? m : rows[1];   // trailing empty rows too
   const long long e_start = __ldg(indptr + r_lo), e_end = __ldg(indptr + r_hi);
 
-  // stage s: vals window at smem + s kVal, col window after all the vals windows
+  // stage of chunk j: vals window at smem + (j % kStages) kVal, col window
+  // after all the vals windows
   auto vstage = [&](long long j) { return (T*)(smem + (j % R::kStages) * R::kVal); };
   auto cstage = [&](long long j) {
     return (int*)(smem + R::kStages * R::kVal + (j % R::kStages) * R::kCol);
   };
-  T* const prod = (T*)(smem + R::kStages * (R::kVal + R::kCol));   // kSeparateProducts
-  const uint64_t stream_policy = kStreamHint ? l2_policy_evict_first() : l2_policy_evict_normal();
-  const uint64_t x_policy = kXEvictLast ? l2_policy_evict_last() : 0;
+  const uint64_t stream_policy = l2_policy_evict_first();
 
-  // thread 0 copies the next chunk into stage j
+  // thread 0 copies the next chunk into the stage of chunk j
   long long next_copy = e_start;
   auto copy_chunk = [&](long long j) {
     const long long a = next_copy, b = chunk_end<T>(a, e_end);
@@ -263,34 +224,20 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
     bulk_load(cstage(j), wc.src, wc.bytes, bar, stream_policy);
   };
   if (tid == 0) {
-    if constexpr (kBulkCopy) {
-      for (int s = 0; s < R::kStages; ++s) mbar_init(&full[s]);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      for (int s = 0; s < R::kStages && next_copy < e_end; ++s) copy_chunk(s);
-    }
+    for (int s = 0; s < R::kStages; ++s) mbar_init(&full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < R::kStages && next_copy < e_end; ++s) copy_chunk(s);
   }
   __syncthreads();
 
   // chunk j = [a, b): fetch() waits for its entries and starts the gathers
-  // of x[col] into registers; finish() stores vals * x[col] once they are
-  // back. Chunk j + 1 is fetched before chunk j is reduced and finished
-  // after, so the gathers' latency hides behind the reduction.
+  // of x[col] into registers; finish() stores vals * x[col] in place once
+  // they are back. Chunk j + 1 is fetched before chunk j is reduced.
   int ci[kPer];
   T xv[kPer];
   auto fetch = [&](long long j, long long a, long long b) {
     const int n = (int)(b - a);
-    if (n > 0) {
-      if constexpr (kBulkCopy) {
-        mbar_wait(&full[j % R::kStages], (uint32_t)((j / R::kStages) & 1));
-      } else {
-        const Window wv = window(vals, a, b), wc = window(col, a, b);
-        for (int i = tid; i < (int)(wv.bytes / 16); i += ptt::kThreads)
-          ((int4*)vstage(j))[i] = __ldcs((const int4*)wv.src + i);
-        for (int i = tid; i < (int)(wc.bytes / 16); i += ptt::kThreads)
-          ((int4*)cstage(j))[i] = __ldcs((const int4*)wc.src + i);
-        __syncthreads();
-      }
-    }
+    if (n > 0) mbar_wait(&full[j % R::kStages], (uint32_t)((j / R::kStages) & 1));
     const int* c = cstage(j) + window(col, a, b).off;
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
@@ -298,27 +245,22 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
       ci[u] = k < n ? c[k] : 0;
     }
 #pragma unroll
-    for (int u = 0; u < kPer; ++u)
-      xv[u] = tid + u * ptt::kThreads < n ? load_x(x + ci[u], x_policy) : T(0);
+    for (int u = 0; u < kPer; ++u) xv[u] = tid + u * ptt::kThreads < n ? __ldg(x + ci[u]) : T(0);
   };
   auto products = [&](long long j, long long a, long long b) {
-    const T* v = vstage(j) + window(vals, a, b).off;
-    return kSeparateProducts ? prod + (j & 1) * Tile<T>::kEntries : (T*)v;
+    return vstage(j) + window(vals, a, b).off;
   };
   auto finish = [&](long long j, long long a, long long b) {
     const int n = (int)(b - a);
-    const T* v = vstage(j) + window(vals, a, b).off;
-    T* pv = products(j, a, b);
+    T* v = products(j, a, b);
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
       const int k = tid + u * ptt::kThreads;
-      if (k < n) pv[k] = v[k] * xv[u];
+      if (k < n) v[k] *= xv[u];
     }
-    if constexpr (kBulkCopy && !kSeparateProducts) {
-      // the products are the threads' writes; the copy that next fills this
-      // stage is the async proxy's, issued after a later barrier
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    }
+    // the products are the threads' writes; the copy that next fills this
+    // stage is the async proxy's, issued after a later barrier
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   };
   // row pointers a few batches ahead start to come into L2
   auto prefetch_rows = [&](long long r) {
@@ -328,28 +270,19 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
       prefetch_l2(w.src, w.bytes);
     }
   };
+  auto row_bounds = [&](long long r, long long& s0, long long& s1) {
+    s0 = s1 = 0;
+    if (r < r_hi) {
+      s0 = __ldg(indptr + r);
+      s1 = __ldg(indptr + r + 1);
+    }
+  };
 
   long long c0 = e_start, c1 = chunk_end<T>(e_start, e_end), rcur = r_lo;
-  if constexpr (kStreamOnly) {
-    for (long long j = 0;; ++j) {
-      if (c1 > c0) mbar_wait(&full[j % R::kStages], (uint32_t)((j / R::kStages) & 1));
-      __syncthreads();
-      if (c1 == e_end) break;
-      if (tid == 0 && next_copy < e_end) copy_chunk(j);
-      c0 = c1;
-      c1 = chunk_end<T>(c1, e_end);
-    }
-    for (long long i = r_lo + tid; i < r_hi; i += ptt::kThreads) y[i] = T(0);
-    return;
-  }
   fetch(0, c0, c1);
   finish(0, c0, c1);
-  // the first batch's row pointers
-  long long r = rcur + g, s0 = 0, s1 = 0;
-  if (r < r_hi) {
-    s0 = __ldg(indptr + r);
-    s1 = __ldg(indptr + r + 1);
-  }
+  long long r = rcur + g, s0, s1;   // this group's row of the first batch
+  row_bounds(r, s0, s1);
   __syncthreads();
 
   for (long long j = 0;; ++j) {
@@ -367,11 +300,7 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
     do {
       if (!first) {
         r = rcur + g;
-        s0 = s1 = 0;
-        if (r < r_hi) {
-          s0 = __ldg(indptr + r);
-          s1 = __ldg(indptr + r + 1);
-        }
+        row_bounds(r, s0, s1);
       }
       const bool in = r < r_hi && (s0 < c1 || last);
       T acc = T(0);
@@ -398,13 +327,9 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
 
     // every read of chunk j's stage is behind the last barrier: chunk
     // j + kStages may fill it
-    if (kBulkCopy && tid == 0 && next_copy < e_end) copy_chunk(j);
+    if (tid == 0 && next_copy < e_end) copy_chunk(j);
     r = rcur + g;
-    s0 = s1 = 0;
-    if (r < r_hi) {
-      s0 = __ldg(indptr + r);
-      s1 = __ldg(indptr + r + 1);
-    }
+    row_bounds(r, s0, s1);
     c0 = c1;
     c1 = d1;
   }
@@ -425,7 +350,7 @@ static int launch_csr(void* y, const void* indptr, const void* col, const void* 
                                                         Ring<T>::kBytes));
   constexpr long long kT = Tile<T>::kEntries;
   const long long ntiles = nnz > 0 ? (nnz + kT - 1) / kT : 1;
-  long long grid = (long long)kWaves * sms * (per_sm > 0 ? per_sm : 1);
+  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
   if (grid > ntiles) grid = ntiles;
   csr_spmv_kernel<T><<<(int)grid, ptt::kThreads, Ring<T>::kBytes, (cudaStream_t)stream>>>(
       (T*)y, (const long long*)indptr, (const int*)col, (const T*)vals, (const T*)x, m, nnz);

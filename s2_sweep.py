@@ -1,12 +1,11 @@
 #!/usr/bin/env python3
-"""Choose the CSR SpMV S2's tile length and copy route on one NVIDIA GPU.
+"""Choose the CSR SpMV S2's tile length, ring depth and lanes per row on
+one NVIDIA GPU.
 
     python3 s2_sweep.py [--n 128] [--rounds 3]
 
 Compiles petsc_tpu_torch/csrc/csr_spmv.cu once per variant, with its
-constants (Tile<double>/Tile<float>::kEntries, kBulkCopy, kRingStages,
-kMinBlocks, kXEvictLast, kPrefetch, kSeparateProducts, kWaves, kStreamHint,
-kStreamOnly, kGroup)
+constants (Tile<double>/Tile<float>::kEntries, kRingStages, kGroup)
 replaced in a copy of the source, each by its own nvcc process (all
 started together), and loads each build with ctypes. Then, on the n^3
 27-point box operator in CSR form (built on the card; 55,742,968 entries at
@@ -32,49 +31,26 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# label -> constants of csr_spmv.cu: f64 tile, f32 tile, bulk copy, ring
-# stages, __launch_bounds__ blocks per SM, x evict-last, L2 prefetch of the
-# first chunks, products in their own buffer, grid size in waves, evict-first
-# hint on the matrix copies, and a stream-only build (no product: the ring's
-# own floor, checked for nothing but its launch), lanes per row
-BASE = {"t64": 1024, "t32": 1024, "bulk": True, "stages": 4, "min_blocks": 1, "xlast": False,
-        "prefetch": False, "separate": False, "waves": 1, "hint": True, "stream_only": False,
-        "group": 4}
+# label -> constants of csr_spmv.cu: entries per tile in f64 and f32,
+# stages of the ring, lanes per row. The first is the source's own.
+BASE = {"t64": 1024, "t32": 1024, "stages": 4, "group": 4}
 VARIANTS = {
-    "bulk_t1024_s4": {},
-    "bulk_t1024_s3": {"stages": 3},
-    "bulk_t1024_s4_g2": {"group": 2},
-    "bulk_t1024_s4_g8": {"group": 8},
-    "bulk_t2048_s4": {"t64": 2048, "t32": 2048},
-    "bulk_t2048_s3_g2": {"t64": 2048, "t32": 2048, "stages": 3, "group": 2},
-    "bulk_t2048_s2_g2": {"t64": 2048, "t32": 2048, "stages": 2, "group": 2},
-    "bulk_t1024_s3_mb6": {"stages": 3, "min_blocks": 6},
-    "bulk_t1024_s4_prefetch": {"prefetch": True},
-    "bulk_t1024_s4_xlast": {"xlast": True},
-    "bulk_t1024_s4_w2": {"waves": 2},
-    "bulk_t1024_s4_sep": {"separate": True},
-    "ldcs_t1024_s2": {"bulk": False, "stages": 2},
-    "stream_only_t1024_s4": {"stream_only": True},
-    "stream_only_t2048_s4": {"t64": 2048, "t32": 2048, "stream_only": True},
+    "t1024_s4_g4": {},
+    "t1024_s3_g4": {"stages": 3},
+    "t1024_s2_g4": {"stages": 2},
+    "t512_s4_g4": {"t64": 512, "t32": 512},
+    "t2048_s4_g4": {"t64": 2048, "t32": 2048},
+    "t2048_s3_g2": {"t64": 2048, "t32": 2048, "stages": 3, "group": 2},
+    "t1024_s4_g2": {"group": 2},
+    "t1024_s4_g8": {"group": 8},
 }
 PEAK_BYTES_PER_S = 3.35e12
 
 
-def variant_source(src, t64, t32, bulk, stages, min_blocks, xlast, prefetch, separate, waves,
-                   hint, stream_only, group):
+def variant_source(src, t64, t32, stages, group):
     subs = ((r"(struct Tile<double> \{ static constexpr int kEntries = )\d+", rf"\g<1>{t64}"),
             (r"(struct Tile<float> \{ static constexpr int kEntries = )\d+", rf"\g<1>{t32}"),
-            (r"(constexpr bool kBulkCopy = )\w+", rf"\g<1>{'true' if bulk else 'false'}"),
             (r"(constexpr int kRingStages = )\d+", rf"\g<1>{stages}"),
-            (r"(constexpr int kMinBlocks = )\d+", rf"\g<1>{min_blocks}"),
-            (r"(constexpr bool kXEvictLast = )\w+", rf"\g<1>{'true' if xlast else 'false'}"),
-            (r"(constexpr bool kPrefetch = )\w+", rf"\g<1>{'true' if prefetch else 'false'}"),
-            (r"(constexpr bool kSeparateProducts = )\w+",
-             rf"\g<1>{'true' if separate else 'false'}"),
-            (r"(constexpr int kWaves = )\d+", rf"\g<1>{waves}"),
-            (r"(constexpr bool kStreamHint = )\w+", rf"\g<1>{'true' if hint else 'false'}"),
-            (r"(constexpr bool kStreamOnly = )\w+",
-             rf"\g<1>{'true' if stream_only else 'false'}"),
             (r"(constexpr int kGroup = )\d+", rf"\g<1>{group}"))
     for pat, rep in subs:
         src, k = re.subn(pat, rep, src)
@@ -197,8 +173,7 @@ def main():
                 k2 = call(lib)
                 torch.cuda.synchronize()
                 err = float((k - p).abs().max() / p.abs().max())
-                if not VARIANTS[label].get("stream_only") \
-                        and not err <= (1e-12 if dtype == torch.float64 else 1e-5):
+                if not err <= (1e-12 if dtype == torch.float64 else 1e-5):
                     raise AssertionError(f"{label} {dn}: rel err {err}")
                 rows[label] = {"variant": label, **BASE, **VARIANTS[label], "dtype": dn,
                                "rel_err": err,

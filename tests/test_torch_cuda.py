@@ -11,7 +11,6 @@ them; there run it without the suite's conftest (which imports jax):
 Tolerances: 1e-12 relative in float64, 1e-5 in float32 (the kernels sum
 in another order than PyTorch); the gathers are exact."""
 
-import re
 from pathlib import Path
 
 import numpy as np
@@ -20,6 +19,7 @@ import scipy.io
 import scipy.sparse as sp
 import torch
 
+import chip_smoke
 import petsc_tpu_torch as ptt
 from petsc_tpu_torch.ops import gather_kernels as gk
 from petsc_tpu_torch.ops import pallas_kernels as pk
@@ -115,17 +115,7 @@ def _csr_on(A, device, dtype):
             torch.as_tensor(A.data, dtype=dtype, device=device))
 
 
-def _csr_tiles():
-    """The S2 kernel's tile length per dtype (``Tile<T>::kEntries`` in
-    csr_spmv.cu): the edge cases below are cut around both."""
-    src = (Path(pk.__file__).resolve().parent.parent / "csrc" / "csr_spmv.cu").read_text()
-    tiles = re.findall(r"struct Tile<(?:double|float)> \{ static constexpr int kEntries = (\d+);",
-                       src)
-    assert len(tiles) == 2
-    return sorted({int(t) for t in tiles})
-
-
-def _rows(lengths, n, rng, low=-0.5):
+def _rows(lengths, n, rng, low):
     """A CSR matrix with the given row lengths, random columns in [0, n)
     and values in [low, low + 1)."""
     indptr = np.r_[0, np.cumsum(lengths)].astype(np.int64)
@@ -139,30 +129,20 @@ def _csr_cases():
     cases = {f"rand_{m}x{n}_{d}": sp.random(m, n, density=d, format="csr", random_state=rng)
              for m, n, d in ((7, 5, 0.3), (40, 60, 0.3), (60, 40, 0.3), (3000, 2000, 0.002),
                              (500, 500, 0.05), (300, 4000, 0.02))}
-    # empty rows, one long row, empty matrices
+    # empty rows, one long row, an empty matrix
     skew = sp.random(1000, 1000, density=0.003, format="lil", random_state=rng)
     skew[17, :] = rng.random(1000)
     skew[400:450, :] = 0
     cases["skewed"] = skew.tocsr()
     cases["empty"] = sp.csr_matrix((9, 4))
-    cases["empty_5000_rows"] = sp.csr_matrix((5000, 10))
     cases["box27_24"] = stencil_build.poisson3d_27pt(24)
     cases["box27_48"] = stencil_build.poisson3d_27pt(48)     # many tiles per block
     for f in ("LFAT5.mtx", "m_05_05_crk.mtx", "amesos2_test_mat0.mtx"):
         cases[f] = sp.csr_matrix(scipy.io.mmread(DATA / f))
-    # rows cut around the kernel's tiles: T - 1, T and T + 1 entries
-    # across tile edges, a row of 50 T, runs of empty rows at the start,
-    # middle and end, and entries that end on a tile edge before empty rows
-    for T in _csr_tiles():
-        cases[f"tile{T}_edges"] = _rows(
-            [3, T - 1, T, T + 1, 1, T + 1, T, T - 1, 2 * T, 5, T - 1, T - 1, T + 1, T + 1],
-            3000, rng)
-        # positive values: a float32 sum of 50 T terms that cancel is
-        # compared with another order's to far fewer digits than 1e-5
-        cases[f"tile{T}_long_row"] = _rows([7, 50 * T, 13, 0, 2], 3000, rng, low=0.5)
-        cases[f"tile{T}_empty_runs"] = _rows(
-            [0] * 300 + [27] * 200 + [0] * 400 + [T + 1] * 3 + [27] * 100 + [0] * 500, 3000, rng)
-        cases[f"tile{T}_ends_on_an_edge"] = _rows([T // 2] * 8 + [0] * 50, 3000, rng)
+    # rows cut around the kernel's tiles (chip_smoke.py holds the same cases)
+    for T in sorted(set(chip_smoke.csr_tiles().values())):
+        for name, (lengths, low) in chip_smoke.tile_edge_cases(T).items():
+            cases[name] = _rows(lengths, 3000, rng, low)
     return cases
 
 
