@@ -47,10 +47,21 @@
 
 namespace {
 
+constexpr int kBlockThreads = 256;                // threads per block
 constexpr int kGroup = 4;                         // lanes that reduce one row
-constexpr int kGroups = ptt::kThreads / kGroup;   // rows reduced per batch
-constexpr int kProbes = ptt::kThreads / 2;        // probes of each of the two searches
+constexpr int kGroups = kBlockThreads / kGroup;   // rows reduced per batch
+constexpr int kProbes = kBlockThreads / 2;        // probes of each of the two searches
 constexpr int kRingStages = 4;                    // chunks in the ring
+constexpr bool kPrefetchRows = true;              // exploration: L2 prefetch of row pointers
+// exploration: stream the matrix through the ring in runs of kProbeRun
+// tiles dealt round-robin to the blocks (0: one contiguous run per block)
+constexpr int kStreamProbe = 0;       // 0 off; 1 on
+constexpr int kProbeRun = 0;
+constexpr bool kConsumeOnly = false;  // exploration: fill the ring once, never wait or refill
+constexpr bool kStageRows = false;    // exploration: row pointers loaded an iteration ahead into smem
+constexpr int kGatherAhead = 1;       // exploration: x gathers issued 1 or 2 chunks ahead
+constexpr bool kFused = false;        // exploration: the reducing lanes gather x and multiply
+constexpr int kUnroll = 8;            // exploration: entries per lane in flight (fused)
 
 // entries per tile and chunk
 template <typename T> struct Tile;
@@ -178,18 +189,19 @@ __device__ void find_rows(const long long* __restrict__ indptr, long long m, lon
 }
 
 template <typename T>
-__global__ void __launch_bounds__(ptt::kThreads)
+__global__ void __launch_bounds__(kBlockThreads)
 csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
                 const int* __restrict__ col, const T* __restrict__ vals,
                 const T* __restrict__ x, long long m, long long nnz) {
   using R = Ring<T>;
   constexpr long long kT = Tile<T>::kEntries;
-  constexpr int kPer = Tile<T>::kEntries / ptt::kThreads;   // entries per thread per chunk
-  static_assert(Tile<T>::kEntries % ptt::kThreads == 0, "a tile is whole rounds of the block");
+  constexpr int kPer = Tile<T>::kEntries / kBlockThreads;   // entries per thread per chunk
+  static_assert(Tile<T>::kEntries % kBlockThreads == 0, "a tile is whole rounds of the block");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[R::kStages];
   __shared__ T carry[2];
   __shared__ long long rows[2];
+  __shared__ long long rp[2][2 * kGroups + 1];   // indptr[base .. base + 2 kGroups]
 
   const int tid = threadIdx.x, lane = tid % kGroup, g = tid / kGroup;
   // this block's run of tiles, and the rows that start in it; the search
@@ -233,19 +245,22 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
   // chunk j = [a, b): fetch() waits for its entries and starts the gathers
   // of x[col] into registers; finish() stores vals * x[col] in place once
   // they are back. Chunk j + 1 is fetched before chunk j is reduced.
+  static_assert(kGatherAhead == 1 || R::kStages >= 3, "gathers two chunks ahead need 3 stages");
   int ci[kPer];
-  T xv[kPer];
-  auto fetch = [&](long long j, long long a, long long b) {
+  T xv[kPer], xf[kPer];
+  auto fetch = [&](long long j, long long a, long long b, T (&xo)[kPer]) {
     const int n = (int)(b - a);
-    if (n > 0) mbar_wait(&full[j % R::kStages], (uint32_t)((j / R::kStages) & 1));
+    if (n > 0 && (!kConsumeOnly || j < R::kStages))
+      mbar_wait(&full[j % R::kStages], (uint32_t)((j / R::kStages) & 1));
     const int* c = cstage(j) + window(col, a, b).off;
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
-      const int k = tid + u * ptt::kThreads;
+      const int k = tid + u * kBlockThreads;
       ci[u] = k < n ? c[k] : 0;
+      if (kConsumeOnly) ci[u] = ci[u] < 0 ? 0 : (ci[u] >= m ? (int)(m - 1) : ci[u]);
     }
 #pragma unroll
-    for (int u = 0; u < kPer; ++u) xv[u] = tid + u * ptt::kThreads < n ? __ldg(x + ci[u]) : T(0);
+    for (int u = 0; u < kPer; ++u) xo[u] = tid + u * kBlockThreads < n ? __ldg(x + ci[u]) : T(0);
   };
   auto products = [&](long long j, long long a, long long b) {
     return vstage(j) + window(vals, a, b).off;
@@ -255,7 +270,7 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
     T* v = products(j, a, b);
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
-      const int k = tid + u * ptt::kThreads;
+      const int k = tid + u * kBlockThreads;
       if (k < n) v[k] *= xv[u];
     }
     // the products are the threads' writes; the copy that next fills this
@@ -264,7 +279,7 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
   };
   // row pointers a few batches ahead start to come into L2
   auto prefetch_rows = [&](long long r) {
-    if (tid == 0 && r < m) {
+    if (kPrefetchRows && tid == 0 && r < m) {
       const long long b = r + 4 * kGroups < m ? r + 4 * kGroups : m;
       const Window w = window(indptr, r, b + 1);
       prefetch_l2(w.src, w.bytes);
@@ -279,8 +294,67 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
   };
 
   long long c0 = e_start, c1 = chunk_end<T>(e_start, e_end), rcur = r_lo;
-  fetch(0, c0, c1);
+  if constexpr (kFused) {
+    long long r = rcur + g, s0, s1;
+    row_bounds(r, s0, s1);
+    for (long long j = 0;; ++j) {
+      const bool last = c1 == e_end;
+      const int n = (int)(c1 - c0), cs = (int)(j & 1);
+      if (n > 0) mbar_wait(&full[j % R::kStages], (uint32_t)((j / R::kStages) & 1));
+      prefetch_rows(rcur + kGroups);
+      const T* v = vstage(j) + window(vals, c0, c1).off;
+      const int* c = cstage(j) + window(col, c0, c1).off;
+      bool first = true;
+      do {
+        if (!first) {
+          r = rcur + g;
+          row_bounds(r, s0, s1);
+        }
+        const bool in = r < r_hi && (s0 < c1 || last);
+        T acc = T(0);
+        if (in) {
+          const int lo = (int)((s0 > c0 ? s0 : c0) - c0), hi = (int)((s1 < c1 ? s1 : c1) - c0);
+          for (int k0 = lo + lane; k0 < hi; k0 += kGroup * kUnroll) {
+            int cc[kUnroll];
+            T vv[kUnroll], xx[kUnroll];
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+              const int k = k0 + u * kGroup;
+              cc[u] = k < hi ? c[k] : 0;
+              vv[u] = k < hi ? v[k] : T(0);
+            }
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) xx[u] = k0 + u * kGroup < hi ? __ldg(x + cc[u]) : T(0);
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u)
+              if (k0 + u * kGroup < hi) acc += vv[u] * xx[u];
+          }
+        }
+#pragma unroll
+        for (int off = kGroup / 2; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off, kGroup);
+        const bool done = in && s1 <= c1;
+        if (in && lane == 0) {
+          if (first && g == 0 && s0 < c0) acc = carry[cs] + acc;
+          if (done) y[r] = acc;
+          else carry[cs ^ 1] = acc;
+        }
+        first = false;
+        const int finished = __syncthreads_count(done && lane == 0);
+        rcur += finished;
+        if (finished < kGroups) break;
+      } while (rcur < r_hi);
+      if (last) break;
+      if (tid == 0 && next_copy < e_end) copy_chunk(j);
+      r = rcur + g;
+      row_bounds(r, s0, s1);
+      c0 = c1;
+      c1 = chunk_end<T>(c1, e_end);
+    }
+    return;
+  }
+  fetch(0, c0, c1, xv);
   finish(0, c0, c1);
+  if (kGatherAhead == 2 && c1 < e_end) fetch(1, c1, chunk_end<T>(c1, e_end), xv);
   long long r = rcur + g, s0, s1;   // this group's row of the first batch
   row_bounds(r, s0, s1);
   __syncthreads();
@@ -288,7 +362,13 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
   for (long long j = 0;; ++j) {
     const bool last = c1 == e_end;
     const long long d1 = last ? c1 : chunk_end<T>(c1, e_end);   // chunk j + 1 is [c1, d1)
-    if (!last) fetch(j + 1, c1, d1);
+    // the row pointers the next chunk's first batch will need, if it
+    // starts within kGroups rows of this one
+    const long long rp_base = rcur;
+    long long rp_v = 0;
+    if (kStageRows && tid <= 2 * kGroups) rp_v = __ldg(indptr + (rcur + tid < m ? rcur + tid : m));
+    if (kGatherAhead == 1 && !last) fetch(j + 1, c1, d1, xv);
+    if (kGatherAhead == 2 && !last && d1 < e_end) fetch(j + 2, d1, chunk_end<T>(d1, e_end), xf);
     prefetch_rows(rcur + kGroups);
     const int cs = (int)(j & 1);
     const T* pv = products(j, c0, c1);
@@ -317,7 +397,10 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
         if (done) y[r] = acc;
         else carry[cs ^ 1] = acc;
       }
-      if (first && !last) finish(j + 1, c1, d1);
+      if (first && !last) {
+        finish(j + 1, c1, d1);
+        if (kStageRows && tid <= 2 * kGroups) rp[j & 1][tid] = rp_v;
+      }
       first = false;
       const int finished = __syncthreads_count(done && lane == 0);
       rcur += finished;
@@ -327,12 +410,69 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
 
     // every read of chunk j's stage is behind the last barrier: chunk
     // j + kStages may fill it
-    if (tid == 0 && next_copy < e_end) copy_chunk(j);
+    if (!kConsumeOnly && tid == 0 && next_copy < e_end) copy_chunk(j);
     r = rcur + g;
-    row_bounds(r, s0, s1);
+    if (kStageRows && r < r_hi && r - rp_base + 1 <= 2 * kGroups) {
+      s0 = rp[j & 1][r - rp_base];
+      s1 = rp[j & 1][r - rp_base + 1];
+    } else {
+      row_bounds(r, s0, s1);
+    }
     c0 = c1;
     c1 = d1;
+    if (kGatherAhead == 2) {
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) xv[u] = xf[u];
+    }
   }
+}
+
+
+template <typename T>
+__global__ void __launch_bounds__(kBlockThreads)
+stream_probe_kernel(T* __restrict__ y, const int* __restrict__ col, const T* __restrict__ vals,
+                    long long nnz) {
+  using R = Ring<T>;
+  constexpr long long kT = Tile<T>::kEntries;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[R::kStages];
+  const long long ntiles = (nnz + kT - 1) / kT;
+  const long long G = gridDim.x;
+  // the block's tiles, in order: list of (tile) generated by index
+  const long long per = kProbeRun > 0 ? kProbeRun : (ntiles + G - 1) / G;
+  auto tile_of = [&](long long i) -> long long {   // i-th tile of this block, or -1
+    if (kProbeRun > 0) {
+      const long long q = blockIdx.x + (i / per) * G, t = q * per + i % per;
+      return t < ntiles ? t : -1;
+    }
+    const long long t0 = ntiles * blockIdx.x / G, t1 = ntiles * (blockIdx.x + 1) / G;
+    return t0 + i < t1 ? t0 + i : -1;
+  };
+  const uint64_t pol = l2_policy_evict_first();
+  long long issued = 0;
+  auto copy = [&](long long i) {
+    const long long t = tile_of(i);
+    const long long a = t * kT, b = (t + 1) * kT < nnz ? (t + 1) * kT : nnz;
+    const Window wv = window(vals, a, b), wc = window(col, a, b);
+    uint64_t* bar = &full[i % R::kStages];
+    mbar_expect_tx(bar, wv.bytes + wc.bytes);
+    bulk_load(smem + (i % R::kStages) * R::kVal, wv.src, wv.bytes, bar, pol);
+    bulk_load(smem + R::kStages * R::kVal + (i % R::kStages) * R::kCol, wc.src, wc.bytes, bar, pol);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::kStages; ++s) mbar_init(&full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (; issued < R::kStages && tile_of(issued) >= 0; ++issued) copy(issued);
+  }
+  __syncthreads();
+  T acc = T(0);
+  for (long long i = 0; tile_of(i) >= 0; ++i) {
+    mbar_wait(&full[i % R::kStages], (uint32_t)((i / R::kStages) & 1));
+    acc += ((const T*)(smem + (i % R::kStages) * R::kVal))[threadIdx.x];
+    __syncthreads();
+    if (threadIdx.x == 0 && tile_of(issued) >= 0) copy(issued++);
+  }
+  if (acc == T(12345)) y[0] = acc;
 }
 
 template <typename T>
@@ -346,13 +486,21 @@ static int launch_csr(void* y, const void* indptr, const void* col, const void* 
   }
   int sms = 0, per_sm = 0;
   PTT_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
-  PTT_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, csr_spmv_kernel<T>, ptt::kThreads,
+  PTT_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, csr_spmv_kernel<T>, kBlockThreads,
                                                         Ring<T>::kBytes));
   constexpr long long kT = Tile<T>::kEntries;
   const long long ntiles = nnz > 0 ? (nnz + kT - 1) / kT : 1;
   long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
   if (grid > ntiles) grid = ntiles;
-  csr_spmv_kernel<T><<<(int)grid, ptt::kThreads, Ring<T>::kBytes, (cudaStream_t)stream>>>(
+  if constexpr (kStreamProbe) {
+    PTT_TRY(cudaFuncSetAttribute(stream_probe_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 Ring<T>::kBytes));
+    if (nnz > 0)
+      stream_probe_kernel<T><<<(int)grid, kBlockThreads, Ring<T>::kBytes, (cudaStream_t)stream>>>(
+          (T*)y, (const int*)col, (const T*)vals, nnz);
+    return (int)cudaGetLastError();
+  }
+  csr_spmv_kernel<T><<<(int)grid, kBlockThreads, Ring<T>::kBytes, (cudaStream_t)stream>>>(
       (T*)y, (const long long*)indptr, (const int*)col, (const T*)vals, (const T*)x, m, nnz);
   return (int)cudaGetLastError();
 }
