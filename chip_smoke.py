@@ -525,12 +525,11 @@ def check_aij_solve(pk, ksp, A, b, x, hist_stencil):
             "history_rel_diff_vs_stencil": hist_rel}
 
 
-def csr_tiles():
-    """S2's entries per tile for float64 and float32, as csr_spmv.cu states them."""
+def csr_tile():
+    """S2's entries per tile (kTile in csr_spmv.cu, both types)."""
     import re
     src = (Path(__file__).resolve().parent / "petsc_tpu_torch" / "csrc" / "csr_spmv.cu").read_text()
-    return {dt: int(t) for dt, t in re.findall(
-        r"struct Tile<(double|float)> \{ static constexpr int kEntries = (\d+);", src)}
+    return int(re.search(r"constexpr int kTile = (\d+);", src).group(1))
 
 
 def tile_edge_cases(T):
@@ -549,7 +548,7 @@ def tile_edge_cases(T):
 
 
 def phase_spmv_edges(pk):
-    """S2 on the tile-edge cases of each tile length, f64 and f32, against
+    """S2 on the tile-edge cases of its tile length, f64 and f32, against
     its plain version (1e-12 / 1e-5 relative), for equal bits on a rerun,
     and once more with vals and col one element past a 16-byte edge."""
     import numpy as np
@@ -557,32 +556,31 @@ def phase_spmv_edges(pk):
     dev = torch.device("cuda")
     rng = np.random.default_rng(11)
     out = []
-    for T in sorted(set(csr_tiles().values())):
-        for name, (lengths, low) in tile_edge_cases(T).items():
-            indptr = np.r_[0, np.cumsum(lengths)].astype(np.int64)
-            nnz, n = int(indptr[-1]), 3000
-            cols = rng.integers(0, n, nnz).astype(np.int32)
-            vals = rng.random(nnz) + low
-            xs = rng.random(n)
-            for dtype in (torch.float64, torch.float32):
-                dn = str(dtype).replace("torch.", "")
-                ip = torch.as_tensor(indptr, device=dev)
-                c = torch.as_tensor(cols, device=dev)
-                v = torch.as_tensor(vals, dtype=dtype, device=dev)
-                x = torch.as_tensor(xs, dtype=dtype, device=dev)
-                k = pk.csr_spmv(ip, c, v, x)
-                p = pk.csr_spmv_plain(ip, c, v, x)
-                c1 = torch.cat([c[:1], c])[1:]
-                v1 = torch.cat([v[:1], v])[1:]
-                torch.cuda.synchronize()
-                err = rel_err(k, p) if nnz else float(k.abs().max())
-                same = torch.equal(k, pk.csr_spmv(ip, c, v, x)) and \
-                    torch.equal(k, pk.csr_spmv(ip, c1, v1, x))
-                if not err <= TOL[dn] or not same:
-                    raise AssertionError(f"csr_spmv {name} {dn}: rel err {err} (tol {TOL[dn]}), "
-                                         f"equal bits on reruns {same}")
-                out.append({"name": f"csr_spmv_{name}", "dtype": dn, "rows": len(lengths),
-                            "nnz": nnz, "rel_err": err, "bit_equal_rerun_and_offset": same})
+    for name, (lengths, low) in tile_edge_cases(csr_tile()).items():
+        indptr = np.r_[0, np.cumsum(lengths)].astype(np.int64)
+        nnz, n = int(indptr[-1]), 3000
+        cols = rng.integers(0, n, nnz).astype(np.int32)
+        vals = rng.random(nnz) + low
+        xs = rng.random(n)
+        for dtype in (torch.float64, torch.float32):
+            dn = str(dtype).replace("torch.", "")
+            ip = torch.as_tensor(indptr, device=dev)
+            c = torch.as_tensor(cols, device=dev)
+            v = torch.as_tensor(vals, dtype=dtype, device=dev)
+            x = torch.as_tensor(xs, dtype=dtype, device=dev)
+            k = pk.csr_spmv(ip, c, v, x)
+            p = pk.csr_spmv_plain(ip, c, v, x)
+            c1 = torch.cat([c[:1], c])[1:]
+            v1 = torch.cat([v[:1], v])[1:]
+            torch.cuda.synchronize()
+            err = rel_err(k, p) if nnz else float(k.abs().max())
+            same = torch.equal(k, pk.csr_spmv(ip, c, v, x)) and \
+                torch.equal(k, pk.csr_spmv(ip, c1, v1, x))
+            if not err <= TOL[dn] or not same:
+                raise AssertionError(f"csr_spmv {name} {dn}: rel err {err} (tol {TOL[dn]}), "
+                                     f"equal bits on reruns {same}")
+            out.append({"name": f"csr_spmv_{name}", "dtype": dn, "rows": len(lengths),
+                        "nnz": nnz, "rel_err": err, "bit_equal_rerun_and_offset": same})
     return out
 
 
@@ -622,7 +620,7 @@ def phase_spmv(pt, pk, sb, A, flush):
         row["Gnnz_per_s"] = nnz / row["ms"] / 1e6
         row["bound_Gnnz_per_s"] = nnz / b_ms / 1e6
         row["share_of_bound"] = b_ms / row["ms"]
-        row["tile_entries"] = csr_tiles()["double" if dtype == torch.float64 else "float"]
+        row["tile_entries"] = csr_tile()
         details.append(row)
         if dtype == torch.float64:
             main = row

@@ -13,69 +13,60 @@
 // it from HBM; x (16.8 MB) is read again for each entry that names it and
 // those reads are served by L1 and L2.
 //
-// Design: tiles of kEntries consecutive entries, not rows. A persistent
-// grid (the blocks that fit on the card at once) splits the tiles into
-// equal contiguous runs; a block owns every row whose first entry lies in
-// its run, found by two block-wide searches over indptr at the start, and
+// Design: tiles of kTile consecutive entries, not rows. A persistent grid
+// (the blocks that fit on the card at once) splits the tiles into equal
+// contiguous runs; a block owns every row whose first entry lies in its
+// run, found by two block-wide searches over indptr at the start, and
 // reads those rows to their ends, which may lie past the run. Each row has
 // one owner, so no atomics and no second pass.
 // - Stream: the block walks its entries in chunks cut at the multiples of
-//   kEntries. Thread 0 copies each chunk's vals and col into a ring of
-//   kStages shared-memory stages with the 1-D bulk copy (cp.async.bulk,
-//   completed on an mbarrier, with an L2 evict-first policy: the matrix is
-//   read once), kStages - 1 chunks ahead of the one being reduced. The copy
-//   takes 16-byte aligned windows, rounded out at both ends, and the kernel
-//   indexes from the offset, so vals and col may start at any element.
-// - Multiply: every thread gathers x[col] (read-only path) for its
-//   kEntries / kThreads entries of the next chunk before the current chunk
-//   is reduced, and stores vals * x[col] in place after, so the gathers'
-//   latency hides behind the reduction.
+//   kTile. Thread 0 copies each chunk's vals and col into a ring of
+//   kRingStages shared-memory stages with the 1-D bulk copy
+//   (cp.async.bulk, completed on an mbarrier, with an L2 evict-first
+//   policy: the matrix is read once), kRingStages - 1 chunks ahead of the
+//   one being reduced. The copy takes 16-byte aligned windows, rounded out
+//   at both ends, and the kernel indexes from the offset, so vals and col
+//   may start at any element.
+// - Multiply: every thread gathers x[col] (read-only path) for its kPer
+//   entries of the next chunk before the current chunk is reduced, and
+//   stores vals * x[col] in place after, so the gathers' latency hides
+//   behind the reduction.
 // - Reduce: groups of kGroup lanes reduce one row each from shared memory:
 //   lane j sums the row's entries j, j + kGroup, ... of the chunk in order,
 //   then a fixed shuffle tree. A row that runs past a chunk carries its
 //   partial sum to the next chunk in shared memory (carry + partial, in
-//   chunk order). Chunk edges sit at multiples of kEntries whatever the
-//   grid, so a rerun, or a card with another SM count, gives the same bits.
-//   Each batch of kGroups rows stores its y entries to consecutive
-//   addresses. One block barrier per chunk (two when its rows need a
-//   second batch).
+//   chunk order). Chunk edges sit at multiples of kTile whatever the grid,
+//   so a rerun, or a card with another SM count, gives the same bits. Each
+//   batch of kGroups rows stores its y entries to consecutive addresses.
+//   One block barrier per chunk (more when its rows need more batches).
+// What bounds it on the H100 (PERF.md, PR 3): the ring alone moves the
+// matrix at about 2.9 TB/s, and the multiply and reduce alone take about
+// nine tenths of that time, so the two overlap only in part; the
+// constants (512 threads, 2048-entry tiles, four stages, four lanes per
+// row) were chosen with s2_sweep.py.
 // A row longer than many tiles is right but summed by one group of a
 // single block: such a matrix is load-imbalanced. indptr is int64 (rows of
 // any length); col is int32, so the wrapper takes at most 2^31 - 1 columns.
-// The constants were chosen with s2_sweep.py on the H100 (PERF.md, PR 3).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBlockThreads = 256;                // threads per block
+constexpr int kBlockThreads = 512;                // threads per block
+constexpr int kTile = 2048;                       // entries per tile and chunk, f64 and f32
+constexpr int kRingStages = 4;                    // chunks in the ring
 constexpr int kGroup = 4;                         // lanes that reduce one row
 constexpr int kGroups = kBlockThreads / kGroup;   // rows reduced per batch
 constexpr int kProbes = kBlockThreads / 2;        // probes of each of the two searches
-constexpr int kRingStages = 4;                    // chunks in the ring
-constexpr bool kPrefetchRows = true;              // exploration: L2 prefetch of row pointers
-// exploration: stream the matrix through the ring in runs of kProbeRun
-// tiles dealt round-robin to the blocks (0: one contiguous run per block)
-constexpr int kStreamProbe = 0;       // 0 off; 1 on
-constexpr int kProbeRun = 0;
-constexpr bool kConsumeOnly = false;  // exploration: fill the ring once, never wait or refill
-constexpr bool kStageRows = false;    // exploration: row pointers loaded an iteration ahead into smem
-constexpr int kGatherAhead = 1;       // exploration: x gathers issued 1 or 2 chunks ahead
-constexpr bool kFused = false;        // exploration: the reducing lanes gather x and multiply
-constexpr int kUnroll = 8;            // exploration: entries per lane in flight (fused)
-
-// entries per tile and chunk
-template <typename T> struct Tile;
-template <> struct Tile<double> { static constexpr int kEntries = 1024; };
-template <> struct Tile<float> { static constexpr int kEntries = 1024; };
+constexpr int kPer = kTile / kBlockThreads;       // entries per thread per chunk
+static_assert(kTile % kBlockThreads == 0, "a tile is whole rounds of the block");
 
 // one stage of the ring holds a chunk's vals and col windows, with 16
 // bytes of slack for the rounding at each end
 template <typename T>
 struct Ring {
-  static constexpr int kVal = Tile<T>::kEntries * (int)sizeof(T) + 32;
-  static constexpr int kCol = Tile<T>::kEntries * 4 + 32;
-  static constexpr int kStages = kRingStages;
-  static constexpr int kBytes = kStages * (kVal + kCol);
+  static constexpr int kVal = kTile * (int)sizeof(T) + 32;
+  static constexpr int kCol = kTile * 4 + 32;
+  static constexpr int kBytes = kRingStages * (kVal + kCol);
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -137,10 +128,8 @@ __device__ __forceinline__ Window window(const E* p, long long a, long long b) {
 
 // The end of the chunk that starts at entry c0: the next multiple of the
 // tile, or the block's last entry.
-template <typename T>
 __device__ __forceinline__ long long chunk_end(long long c0, long long e_end) {
-  constexpr long long kT = Tile<T>::kEntries;
-  const long long b = (c0 / kT + 1) * kT;
+  const long long b = (c0 / kTile + 1) * kTile;
   return b < e_end ? b : e_end;
 }
 
@@ -194,73 +183,66 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
                 const int* __restrict__ col, const T* __restrict__ vals,
                 const T* __restrict__ x, long long m, long long nnz) {
   using R = Ring<T>;
-  constexpr long long kT = Tile<T>::kEntries;
-  constexpr int kPer = Tile<T>::kEntries / kBlockThreads;   // entries per thread per chunk
-  static_assert(Tile<T>::kEntries % kBlockThreads == 0, "a tile is whole rounds of the block");
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(8) uint64_t full[R::kStages];
+  __shared__ __align__(8) uint64_t full[kRingStages];
   __shared__ T carry[2];
   __shared__ long long rows[2];
-  __shared__ long long rp[2][2 * kGroups + 1];   // indptr[base .. base + 2 kGroups]
 
   const int tid = threadIdx.x, lane = tid % kGroup, g = tid / kGroup;
   // this block's run of tiles, and the rows that start in it; the search
   // guesses assume rows of even length
-  const long long ntiles = nnz > 0 ? (nnz + kT - 1) / kT : 1;
+  const long long ntiles = nnz > 0 ? (nnz + kTile - 1) / kTile : 1;
   const long long t0 = ntiles * blockIdx.x / gridDim.x;
   const long long t1 = ntiles * (blockIdx.x + 1) / gridDim.x;
-  const double rows_per_entry = (double)m / (double)(ntiles * kT);
-  find_rows(indptr, m, t0 * kT, t1 * kT, (long long)(t0 * kT * rows_per_entry),
-            (long long)(t1 * kT * rows_per_entry), &rows[0], &rows[1]);
+  const double rows_per_entry = (double)m / (double)(ntiles * kTile);
+  find_rows(indptr, m, t0 * kTile, t1 * kTile, (long long)(t0 * kTile * rows_per_entry),
+            (long long)(t1 * kTile * rows_per_entry), &rows[0], &rows[1]);
   const long long r_lo = blockIdx.x == 0 ? 0 : rows[0];
   const long long r_hi = blockIdx.x + 1 == gridDim.x ? m : rows[1];   // trailing empty rows too
   const long long e_start = __ldg(indptr + r_lo), e_end = __ldg(indptr + r_hi);
 
   // stage of chunk j: vals window at smem + (j % kStages) kVal, col window
   // after all the vals windows
-  auto vstage = [&](long long j) { return (T*)(smem + (j % R::kStages) * R::kVal); };
+  auto vstage = [&](long long j) { return (T*)(smem + (j % kRingStages) * R::kVal); };
   auto cstage = [&](long long j) {
-    return (int*)(smem + R::kStages * R::kVal + (j % R::kStages) * R::kCol);
+    return (int*)(smem + kRingStages * R::kVal + (j % kRingStages) * R::kCol);
   };
   const uint64_t stream_policy = l2_policy_evict_first();
 
   // thread 0 copies the next chunk into the stage of chunk j
   long long next_copy = e_start;
   auto copy_chunk = [&](long long j) {
-    const long long a = next_copy, b = chunk_end<T>(a, e_end);
+    const long long a = next_copy, b = chunk_end(a, e_end);
     next_copy = b;
     const Window wv = window(vals, a, b), wc = window(col, a, b);
-    uint64_t* bar = &full[j % R::kStages];
+    uint64_t* bar = &full[j % kRingStages];
     mbar_expect_tx(bar, wv.bytes + wc.bytes);
     bulk_load(vstage(j), wv.src, wv.bytes, bar, stream_policy);
     bulk_load(cstage(j), wc.src, wc.bytes, bar, stream_policy);
   };
   if (tid == 0) {
-    for (int s = 0; s < R::kStages; ++s) mbar_init(&full[s]);
+    for (int s = 0; s < kRingStages; ++s) mbar_init(&full[s]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int s = 0; s < R::kStages && next_copy < e_end; ++s) copy_chunk(s);
+    for (int s = 0; s < kRingStages && next_copy < e_end; ++s) copy_chunk(s);
   }
   __syncthreads();
 
   // chunk j = [a, b): fetch() waits for its entries and starts the gathers
   // of x[col] into registers; finish() stores vals * x[col] in place once
   // they are back. Chunk j + 1 is fetched before chunk j is reduced.
-  static_assert(kGatherAhead == 1 || R::kStages >= 3, "gathers two chunks ahead need 3 stages");
   int ci[kPer];
-  T xv[kPer], xf[kPer];
-  auto fetch = [&](long long j, long long a, long long b, T (&xo)[kPer]) {
+  T xv[kPer];
+  auto fetch = [&](long long j, long long a, long long b) {
     const int n = (int)(b - a);
-    if (n > 0 && (!kConsumeOnly || j < R::kStages))
-      mbar_wait(&full[j % R::kStages], (uint32_t)((j / R::kStages) & 1));
+    if (n > 0) mbar_wait(&full[j % kRingStages], (uint32_t)((j / kRingStages) & 1));
     const int* c = cstage(j) + window(col, a, b).off;
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
       const int k = tid + u * kBlockThreads;
       ci[u] = k < n ? c[k] : 0;
-      if (kConsumeOnly) ci[u] = ci[u] < 0 ? 0 : (ci[u] >= m ? (int)(m - 1) : ci[u]);
     }
 #pragma unroll
-    for (int u = 0; u < kPer; ++u) xo[u] = tid + u * kBlockThreads < n ? __ldg(x + ci[u]) : T(0);
+    for (int u = 0; u < kPer; ++u) xv[u] = tid + u * kBlockThreads < n ? __ldg(x + ci[u]) : T(0);
   };
   auto products = [&](long long j, long long a, long long b) {
     return vstage(j) + window(vals, a, b).off;
@@ -279,7 +261,7 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
   };
   // row pointers a few batches ahead start to come into L2
   auto prefetch_rows = [&](long long r) {
-    if (kPrefetchRows && tid == 0 && r < m) {
+    if (tid == 0 && r < m) {
       const long long b = r + 4 * kGroups < m ? r + 4 * kGroups : m;
       const Window w = window(indptr, r, b + 1);
       prefetch_l2(w.src, w.bytes);
@@ -293,82 +275,17 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
     }
   };
 
-  long long c0 = e_start, c1 = chunk_end<T>(e_start, e_end), rcur = r_lo;
-  if constexpr (kFused) {
-    long long r = rcur + g, s0, s1;
-    row_bounds(r, s0, s1);
-    for (long long j = 0;; ++j) {
-      const bool last = c1 == e_end;
-      const int n = (int)(c1 - c0), cs = (int)(j & 1);
-      if (n > 0) mbar_wait(&full[j % R::kStages], (uint32_t)((j / R::kStages) & 1));
-      prefetch_rows(rcur + kGroups);
-      const T* v = vstage(j) + window(vals, c0, c1).off;
-      const int* c = cstage(j) + window(col, c0, c1).off;
-      bool first = true;
-      do {
-        if (!first) {
-          r = rcur + g;
-          row_bounds(r, s0, s1);
-        }
-        const bool in = r < r_hi && (s0 < c1 || last);
-        T acc = T(0);
-        if (in) {
-          const int lo = (int)((s0 > c0 ? s0 : c0) - c0), hi = (int)((s1 < c1 ? s1 : c1) - c0);
-          for (int k0 = lo + lane; k0 < hi; k0 += kGroup * kUnroll) {
-            int cc[kUnroll];
-            T vv[kUnroll], xx[kUnroll];
-#pragma unroll
-            for (int u = 0; u < kUnroll; ++u) {
-              const int k = k0 + u * kGroup;
-              cc[u] = k < hi ? c[k] : 0;
-              vv[u] = k < hi ? v[k] : T(0);
-            }
-#pragma unroll
-            for (int u = 0; u < kUnroll; ++u) xx[u] = k0 + u * kGroup < hi ? __ldg(x + cc[u]) : T(0);
-#pragma unroll
-            for (int u = 0; u < kUnroll; ++u)
-              if (k0 + u * kGroup < hi) acc += vv[u] * xx[u];
-          }
-        }
-#pragma unroll
-        for (int off = kGroup / 2; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off, kGroup);
-        const bool done = in && s1 <= c1;
-        if (in && lane == 0) {
-          if (first && g == 0 && s0 < c0) acc = carry[cs] + acc;
-          if (done) y[r] = acc;
-          else carry[cs ^ 1] = acc;
-        }
-        first = false;
-        const int finished = __syncthreads_count(done && lane == 0);
-        rcur += finished;
-        if (finished < kGroups) break;
-      } while (rcur < r_hi);
-      if (last) break;
-      if (tid == 0 && next_copy < e_end) copy_chunk(j);
-      r = rcur + g;
-      row_bounds(r, s0, s1);
-      c0 = c1;
-      c1 = chunk_end<T>(c1, e_end);
-    }
-    return;
-  }
-  fetch(0, c0, c1, xv);
+  long long c0 = e_start, c1 = chunk_end(e_start, e_end), rcur = r_lo;
+  fetch(0, c0, c1);
   finish(0, c0, c1);
-  if (kGatherAhead == 2 && c1 < e_end) fetch(1, c1, chunk_end<T>(c1, e_end), xv);
   long long r = rcur + g, s0, s1;   // this group's row of the first batch
   row_bounds(r, s0, s1);
   __syncthreads();
 
   for (long long j = 0;; ++j) {
     const bool last = c1 == e_end;
-    const long long d1 = last ? c1 : chunk_end<T>(c1, e_end);   // chunk j + 1 is [c1, d1)
-    // the row pointers the next chunk's first batch will need, if it
-    // starts within kGroups rows of this one
-    const long long rp_base = rcur;
-    long long rp_v = 0;
-    if (kStageRows && tid <= 2 * kGroups) rp_v = __ldg(indptr + (rcur + tid < m ? rcur + tid : m));
-    if (kGatherAhead == 1 && !last) fetch(j + 1, c1, d1, xv);
-    if (kGatherAhead == 2 && !last && d1 < e_end) fetch(j + 2, d1, chunk_end<T>(d1, e_end), xf);
+    const long long d1 = last ? c1 : chunk_end(c1, e_end);   // chunk j + 1 is [c1, d1)
+    if (!last) fetch(j + 1, c1, d1);
     prefetch_rows(rcur + kGroups);
     const int cs = (int)(j & 1);
     const T* pv = products(j, c0, c1);
@@ -397,10 +314,7 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
         if (done) y[r] = acc;
         else carry[cs ^ 1] = acc;
       }
-      if (first && !last) {
-        finish(j + 1, c1, d1);
-        if (kStageRows && tid <= 2 * kGroups) rp[j & 1][tid] = rp_v;
-      }
+      if (first && !last) finish(j + 1, c1, d1);
       first = false;
       const int finished = __syncthreads_count(done && lane == 0);
       rcur += finished;
@@ -410,69 +324,12 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
 
     // every read of chunk j's stage is behind the last barrier: chunk
     // j + kStages may fill it
-    if (!kConsumeOnly && tid == 0 && next_copy < e_end) copy_chunk(j);
+    if (tid == 0 && next_copy < e_end) copy_chunk(j);
     r = rcur + g;
-    if (kStageRows && r < r_hi && r - rp_base + 1 <= 2 * kGroups) {
-      s0 = rp[j & 1][r - rp_base];
-      s1 = rp[j & 1][r - rp_base + 1];
-    } else {
-      row_bounds(r, s0, s1);
-    }
+    row_bounds(r, s0, s1);
     c0 = c1;
     c1 = d1;
-    if (kGatherAhead == 2) {
-#pragma unroll
-      for (int u = 0; u < kPer; ++u) xv[u] = xf[u];
-    }
   }
-}
-
-
-template <typename T>
-__global__ void __launch_bounds__(kBlockThreads)
-stream_probe_kernel(T* __restrict__ y, const int* __restrict__ col, const T* __restrict__ vals,
-                    long long nnz) {
-  using R = Ring<T>;
-  constexpr long long kT = Tile<T>::kEntries;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(8) uint64_t full[R::kStages];
-  const long long ntiles = (nnz + kT - 1) / kT;
-  const long long G = gridDim.x;
-  // the block's tiles, in order: list of (tile) generated by index
-  const long long per = kProbeRun > 0 ? kProbeRun : (ntiles + G - 1) / G;
-  auto tile_of = [&](long long i) -> long long {   // i-th tile of this block, or -1
-    if (kProbeRun > 0) {
-      const long long q = blockIdx.x + (i / per) * G, t = q * per + i % per;
-      return t < ntiles ? t : -1;
-    }
-    const long long t0 = ntiles * blockIdx.x / G, t1 = ntiles * (blockIdx.x + 1) / G;
-    return t0 + i < t1 ? t0 + i : -1;
-  };
-  const uint64_t pol = l2_policy_evict_first();
-  long long issued = 0;
-  auto copy = [&](long long i) {
-    const long long t = tile_of(i);
-    const long long a = t * kT, b = (t + 1) * kT < nnz ? (t + 1) * kT : nnz;
-    const Window wv = window(vals, a, b), wc = window(col, a, b);
-    uint64_t* bar = &full[i % R::kStages];
-    mbar_expect_tx(bar, wv.bytes + wc.bytes);
-    bulk_load(smem + (i % R::kStages) * R::kVal, wv.src, wv.bytes, bar, pol);
-    bulk_load(smem + R::kStages * R::kVal + (i % R::kStages) * R::kCol, wc.src, wc.bytes, bar, pol);
-  };
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < R::kStages; ++s) mbar_init(&full[s]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (; issued < R::kStages && tile_of(issued) >= 0; ++issued) copy(issued);
-  }
-  __syncthreads();
-  T acc = T(0);
-  for (long long i = 0; tile_of(i) >= 0; ++i) {
-    mbar_wait(&full[i % R::kStages], (uint32_t)((i / R::kStages) & 1));
-    acc += ((const T*)(smem + (i % R::kStages) * R::kVal))[threadIdx.x];
-    __syncthreads();
-    if (threadIdx.x == 0 && tile_of(issued) >= 0) copy(issued++);
-  }
-  if (acc == T(12345)) y[0] = acc;
 }
 
 template <typename T>
@@ -488,18 +345,9 @@ static int launch_csr(void* y, const void* indptr, const void* col, const void* 
   PTT_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
   PTT_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, csr_spmv_kernel<T>, kBlockThreads,
                                                         Ring<T>::kBytes));
-  constexpr long long kT = Tile<T>::kEntries;
-  const long long ntiles = nnz > 0 ? (nnz + kT - 1) / kT : 1;
+  const long long ntiles = nnz > 0 ? (nnz + kTile - 1) / kTile : 1;
   long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
   if (grid > ntiles) grid = ntiles;
-  if constexpr (kStreamProbe) {
-    PTT_TRY(cudaFuncSetAttribute(stream_probe_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 Ring<T>::kBytes));
-    if (nnz > 0)
-      stream_probe_kernel<T><<<(int)grid, kBlockThreads, Ring<T>::kBytes, (cudaStream_t)stream>>>(
-          (T*)y, (const int*)col, (const T*)vals, nnz);
-    return (int)cudaGetLastError();
-  }
   csr_spmv_kernel<T><<<(int)grid, kBlockThreads, Ring<T>::kBytes, (cudaStream_t)stream>>>(
       (T*)y, (const long long*)indptr, (const int*)col, (const T*)vals, (const T*)x, m, nnz);
   return (int)cudaGetLastError();

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Choose the CSR SpMV S2's tile length, ring depth and lanes per row on
-one NVIDIA GPU.
+"""Choose the CSR SpMV S2's block size, tile length, ring depth and lanes
+per row on one NVIDIA GPU.
 
     python3 s2_sweep.py [--n 128] [--rounds 3]
 
 Compiles petsc_tpu_torch/csrc/csr_spmv.cu once per variant, with its
-constants (Tile<double>/Tile<float>::kEntries, kRingStages, kGroup)
+constants (kBlockThreads, kTile, kRingStages, kGroup)
 replaced in a copy of the source, each by its own nvcc process (all
 started together), and loads each build with ctypes. Then, on the n^3
 27-point box operator in CSR form (built on the card; 55,742,968 entries at
@@ -31,47 +31,27 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# label -> constants of csr_spmv.cu: entries per tile in f64 and f32,
+# label -> constants of csr_spmv.cu: threads per block, entries per tile,
 # stages of the ring, lanes per row. The first is the source's own.
-BASE = {"t64": 1024, "t32": 1024, "stages": 4, "group": 4, "threads": 256, "pf_rows": True,
-        "probe": 0, "run": 0, "consume_only": False, "stage_rows": False, "ahead": 1,
-        "fused": False, "unroll": 8}
-B512 = {"threads": 512, "t64": 2048, "t32": 2048}
+BASE = {"threads": 512, "tile": 2048, "stages": 4, "group": 4}
 VARIANTS = {
-    "b256_t1024_s4": {},
-    "b256_t1024_s4_nopf": {"pf_rows": False},
-    "b512_t2048_s4": dict(B512),
-    "b512_t2048_s4_nopf": dict(B512, pf_rows=False),
-    "b512_t2048_s3": dict(B512, stages=3),
-    "b1024_t4096_s4": {"threads": 1024, "t64": 4096, "t32": 4096},
-    "b256_t1024_s4_rows": {"stage_rows": True},
-    "b256_t1024_s4_ahead2": {"ahead": 2},
-    "fused_b256_t1024_s4": {"fused": True},
-    "fused_b512_t2048_s4": dict(B512, fused=True),
-    "consume_b256_t1024_s4": {"consume_only": True},
-    "consume_b512_t2048_s4": dict(B512, consume_only=True),
-    "probe_b256_t1024_s4": {"probe": 1},
-    "probe_b256_t1024_s4_run4": {"probe": 1, "run": 4},
-    "probe_b512_t2048_s4": dict(B512, probe=1),
+    "b512_t2048_s4_g4": {},
+    "b512_t2048_s3_g4": {"stages": 3},
+    "b512_t2048_s2_g4": {"stages": 2},
+    "b512_t4096_s2_g4": {"tile": 4096, "stages": 2},
+    "b512_t2048_s4_g2": {"group": 2},
+    "b512_t2048_s4_g8": {"group": 8},
+    "b256_t1024_s4_g4": {"threads": 256, "tile": 1024},
+    "b1024_t4096_s4_g4": {"threads": 1024, "tile": 4096},
 }
 PEAK_BYTES_PER_S = 3.35e12
 
 
-def variant_source(src, t64, t32, stages, group, threads, pf_rows, probe, run, consume_only,
-                   stage_rows, ahead, fused, unroll):
-    subs = ((r"(struct Tile<double> \{ static constexpr int kEntries = )\d+", rf"\g<1>{t64}"),
-            (r"(struct Tile<float> \{ static constexpr int kEntries = )\d+", rf"\g<1>{t32}"),
+def variant_source(src, threads, tile, stages, group):
+    subs = ((r"(constexpr int kBlockThreads = )\d+", rf"\g<1>{threads}"),
+            (r"(constexpr int kTile = )\d+", rf"\g<1>{tile}"),
             (r"(constexpr int kRingStages = )\d+", rf"\g<1>{stages}"),
-            (r"(constexpr int kGroup = )\d+", rf"\g<1>{group}"),
-            (r"(constexpr int kBlockThreads = )\d+", rf"\g<1>{threads}"),
-            (r"(constexpr bool kPrefetchRows = )\w+", rf"\g<1>{'true' if pf_rows else 'false'}"),
-            (r"(constexpr int kStreamProbe = )\d+", rf"\g<1>{probe}"),
-            (r"(constexpr int kProbeRun = )\d+", rf"\g<1>{run}"),
-            (r"(constexpr bool kConsumeOnly = )\w+", rf"\g<1>{'true' if consume_only else 'false'}"),
-            (r"(constexpr bool kStageRows = )\w+", rf"\g<1>{'true' if stage_rows else 'false'}"),
-            (r"(constexpr int kGatherAhead = )\d+", rf"\g<1>{ahead}"),
-            (r"(constexpr bool kFused = )\w+", rf"\g<1>{'true' if fused else 'false'}"),
-            (r"(constexpr int kUnroll = )\d+", rf"\g<1>{unroll}"))
+            (r"(constexpr int kGroup = )\d+", rf"\g<1>{group}"))
     for pat, rep in subs:
         src, k = re.subn(pat, rep, src)
         if k != 1:
@@ -193,8 +173,7 @@ def main():
                 k2 = call(lib)
                 torch.cuda.synchronize()
                 err = float((k - p).abs().max() / p.abs().max())
-                if not (VARIANTS[label].get("probe") or VARIANTS[label].get("consume_only")) \
-                        and not err <= (1e-12 if dtype == torch.float64 else 1e-5):
+                if not err <= (1e-12 if dtype == torch.float64 else 1e-5):
                     raise AssertionError(f"{label} {dn}: rel err {err}")
                 rows[label] = {"variant": label, **BASE, **VARIANTS[label], "dtype": dn,
                                "rel_err": err,

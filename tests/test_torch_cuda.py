@@ -140,9 +140,8 @@ def _csr_cases():
     for f in ("LFAT5.mtx", "m_05_05_crk.mtx", "amesos2_test_mat0.mtx"):
         cases[f] = sp.csr_matrix(scipy.io.mmread(DATA / f))
     # rows cut around the kernel's tiles (chip_smoke.py holds the same cases)
-    for T in sorted(set(chip_smoke.csr_tiles().values())):
-        for name, (lengths, low) in chip_smoke.tile_edge_cases(T).items():
-            cases[name] = _rows(lengths, 3000, rng, low)
+    for name, (lengths, low) in chip_smoke.tile_edge_cases(chip_smoke.csr_tile()).items():
+        cases[name] = _rows(lengths, 3000, rng, low)
     return cases
 
 
