@@ -59,8 +59,6 @@ constexpr int kGroups = kBlockThreads / kGroup;   // rows reduced per batch
 constexpr int kProbes = kBlockThreads / 2;        // probes of each of the two searches
 constexpr int kPer = kTile / kBlockThreads;       // entries per thread per chunk
 static_assert(kTile % kBlockThreads == 0, "a tile is whole rounds of the block");
-constexpr bool kConsumeOnly = false;  // diagnosis: fill the ring once, never wait or refill
-constexpr int kAblate = 0;            // diagnosis: 1 no gathers, 2 no row sums, 3 no product stores
 
 // one stage of the ring holds a chunk's vals and col windows, with 16
 // bytes of slack for the rounding at each end
@@ -236,8 +234,7 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
   T xv[kPer];
   auto fetch = [&](long long j, long long a, long long b) {
     const int n = (int)(b - a);
-    if (n > 0 && (!kConsumeOnly || j < kRingStages))
-      mbar_wait(&full[j % kRingStages], (uint32_t)((j / kRingStages) & 1));
+    if (n > 0) mbar_wait(&full[j % kRingStages], (uint32_t)((j / kRingStages) & 1));
     const int* c = cstage(j) + window(col, a, b).off;
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
@@ -245,11 +242,7 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
       ci[u] = k < n ? c[k] : 0;
     }
 #pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      if (kConsumeOnly) ci[u] = ci[u] < 0 ? 0 : (ci[u] >= m ? (int)(m - 1) : ci[u]);
-      if (kAblate == 1) ci[u] = tid;
-      xv[u] = tid + u * kBlockThreads < n ? __ldg(x + ci[u]) : T(0);
-    }
+    for (int u = 0; u < kPer; ++u) xv[u] = tid + u * kBlockThreads < n ? __ldg(x + ci[u]) : T(0);
   };
   auto products = [&](long long j, long long a, long long b) {
     return vstage(j) + window(vals, a, b).off;
@@ -260,7 +253,7 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
 #pragma unroll
     for (int u = 0; u < kPer; ++u) {
       const int k = tid + u * kBlockThreads;
-      if (k < n && kAblate != 3) v[k] *= xv[u];
+      if (k < n) v[k] *= xv[u];
     }
     // the products are the threads' writes; the copy that next fills this
     // stage is the async proxy's, issued after a later barrier
@@ -310,8 +303,7 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
       T acc = T(0);
       if (in) {
         const int lo = (int)((s0 > c0 ? s0 : c0) - c0), hi = (int)((s1 < c1 ? s1 : c1) - c0);
-        if (kAblate != 2)
-          for (int k = lo + lane; k < hi; k += kGroup) acc += pv[k];
+        for (int k = lo + lane; k < hi; k += kGroup) acc += pv[k];
       }
 #pragma unroll
       for (int off = kGroup / 2; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off, kGroup);
@@ -332,7 +324,7 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
 
     // every read of chunk j's stage is behind the last barrier: chunk
     // j + kStages may fill it
-    if (!kConsumeOnly && tid == 0 && next_copy < e_end) copy_chunk(j);
+    if (tid == 0 && next_copy < e_end) copy_chunk(j);
     r = rcur + g;
     row_bounds(r, s0, s1);
     c0 = c1;

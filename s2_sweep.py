@@ -33,27 +33,25 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 # label -> constants of csr_spmv.cu: threads per block, entries per tile,
 # stages of the ring, lanes per row. The first is the source's own.
-BASE = {"threads": 512, "tile": 2048, "stages": 4, "group": 4, "consume": False, "ablate": 0}
+BASE = {"threads": 512, "tile": 2048, "stages": 4, "group": 4}
 VARIANTS = {
-    "full": {},
-    "full_nogather": {"ablate": 1},
-    "full_nosum": {"ablate": 2},
-    "full_nostore": {"ablate": 3},
-    "consume": {"consume": True},
-    "consume_nogather": {"consume": True, "ablate": 1},
-    "consume_nosum": {"consume": True, "ablate": 2},
-    "consume_nostore": {"consume": True, "ablate": 3},
+    "b512_t2048_s4_g4": {},
+    "b512_t2048_s3_g4": {"stages": 3},
+    "b512_t2048_s2_g4": {"stages": 2},
+    "b512_t4096_s2_g4": {"tile": 4096, "stages": 2},
+    "b512_t2048_s4_g2": {"group": 2},
+    "b512_t2048_s4_g8": {"group": 8},
+    "b256_t1024_s4_g4": {"threads": 256, "tile": 1024},
+    "b1024_t4096_s4_g4": {"threads": 1024, "tile": 4096},
 }
 PEAK_BYTES_PER_S = 3.35e12
 
 
-def variant_source(src, threads, tile, stages, group, consume, ablate):
+def variant_source(src, threads, tile, stages, group):
     subs = ((r"(constexpr int kBlockThreads = )\d+", rf"\g<1>{threads}"),
             (r"(constexpr int kTile = )\d+", rf"\g<1>{tile}"),
             (r"(constexpr int kRingStages = )\d+", rf"\g<1>{stages}"),
-            (r"(constexpr int kGroup = )\d+", rf"\g<1>{group}"),
-            (r"(constexpr bool kConsumeOnly = )\w+", rf"\g<1>{'true' if consume else 'false'}"),
-            (r"(constexpr int kAblate = )\d+", rf"\g<1>{ablate}"))
+            (r"(constexpr int kGroup = )\d+", rf"\g<1>{group}"))
     for pat, rep in subs:
         src, k = re.subn(pat, rep, src)
         if k != 1:
@@ -175,7 +173,7 @@ def main():
                 k2 = call(lib)
                 torch.cuda.synchronize()
                 err = float((k - p).abs().max() / p.abs().max())
-                if label == "full" and not err <= (1e-12 if dtype == torch.float64 else 1e-5):
+                if not err <= (1e-12 if dtype == torch.float64 else 1e-5):
                     raise AssertionError(f"{label} {dn}: rel err {err}")
                 rows[label] = {"variant": label, **BASE, **VARIANTS[label], "dtype": dn,
                                "rel_err": err,
