@@ -40,7 +40,7 @@
 //   batch of kGroups rows stores its y entries to consecutive addresses.
 //   One block barrier per chunk (more when its rows need more batches).
 // What bounds it on the H100 (PERF.md, PR 3): the ring alone moves the
-// matrix at about 2.9 TB/s, and the multiply and reduce alone take about
+// matrix at about 2.8 TB/s, and the multiply and reduce alone take about
 // nine tenths of that time, so the two overlap only in part; the
 // constants (512 threads, 2048-entry tiles, four stages, four lanes per
 // row) were chosen with s2_sweep.py.
