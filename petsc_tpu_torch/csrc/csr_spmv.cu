@@ -55,19 +55,10 @@ constexpr int kBlockThreads = 512;                // threads per block
 constexpr int kTile = 2048;                       // entries per tile and chunk, f64 and f32
 constexpr int kRingStages = 4;                    // chunks in the ring
 constexpr int kGroup = 4;                         // lanes that reduce one row
-constexpr int kSplit = 1;                         // exploration: 1 = multiply and sum warps
-constexpr int kMulWarps = 8;                      // exploration: warps that gather and multiply
-constexpr int kRunTiles = 0;                      // exploration: tiles per block (0: persistent grid)
 constexpr int kGroups = kBlockThreads / kGroup;   // rows reduced per batch
 constexpr int kProbes = kBlockThreads / 2;        // probes of each of the two searches
 constexpr int kPer = kTile / kBlockThreads;       // entries per thread per chunk
-static_assert(kSplit || kTile % kBlockThreads == 0, "a tile is whole rounds of the block");
-constexpr int kMulThreads = kMulWarps * 32;                 // threads that gather and multiply
-constexpr int kSumThreads = kBlockThreads - kMulThreads;    // threads that sum rows
-constexpr int kSumGroups = kSumThreads / kGroup;            // rows summed per batch
-constexpr int kMulPer = kTile / kMulThreads;                // entries per multiply thread per chunk
-static_assert(kTile % kMulThreads == 0 && kSumThreads % 32 == 0 && kSumThreads > 0,
-              "whole warps of each kind, a tile whole rounds of the multiply warps");
+static_assert(kTile % kBlockThreads == 0, "a tile is whole rounds of the block");
 
 // one stage of the ring holds a chunk's vals and col windows, with 16
 // bytes of slack for the rounding at each end
@@ -84,28 +75,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_count(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// barrier 1 over the sum warps only, with the count of threads whose
-// predicate is true
-__device__ __forceinline__ int sum_bar_count(bool pred) {
-  int c;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " setp.ne.u32 p, %1, 0;\n"
-      " bar.red.popc.u32 %0, 1, %2, p;\n}\n"
-      : "=r"(c)
-      : "r"((uint32_t)pred), "n"(kSumThreads)
-      : "memory");
-  return c;
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
@@ -363,173 +332,23 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
   }
 }
 
-// Exploration: the same tiles, ring and row ownership, with the work split
-// between two kinds of warps that meet only at per-stage mbarriers. The
-// first kMulWarps warps gather x[col] for a chunk as soon as its bytes land
-// and store vals * x[col] in place, then arrive on the stage's `ready`
-// barrier; the other warps sum the rows of each ready chunk, in the same
-// fixed order as above, and their first thread refills the stage. So the
-// multiply warps run up to the ring's depth ahead of the sums, and neither
-// waits for the other's latencies.
-template <typename T>
-__global__ void __launch_bounds__(kBlockThreads)
-csr_spmv_split_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
-                      const int* __restrict__ col, const T* __restrict__ vals,
-                      const T* __restrict__ x, long long m, long long nnz) {
-  using R = Ring<T>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(8) uint64_t full[kRingStages];
-  __shared__ __align__(8) uint64_t ready[kRingStages];
-  __shared__ T carry[2];
-  __shared__ long long rows[2];
-
-  const int tid = threadIdx.x;
-  const long long ntiles = nnz > 0 ? (nnz + kTile - 1) / kTile : 1;
-  const long long t0 = ntiles * blockIdx.x / gridDim.x;
-  const long long t1 = ntiles * (blockIdx.x + 1) / gridDim.x;
-  const double rows_per_entry = (double)m / (double)(ntiles * kTile);
-  find_rows(indptr, m, t0 * kTile, t1 * kTile, (long long)(t0 * kTile * rows_per_entry),
-            (long long)(t1 * kTile * rows_per_entry), &rows[0], &rows[1]);
-  const long long r_lo = blockIdx.x == 0 ? 0 : rows[0];
-  const long long r_hi = blockIdx.x + 1 == gridDim.x ? m : rows[1];
-  const long long e_start = __ldg(indptr + r_lo), e_end = __ldg(indptr + r_hi);
-
-  auto vstage = [&](long long j) { return (T*)(smem + (j % kRingStages) * R::kVal); };
-  auto cstage = [&](long long j) {
-    return (int*)(smem + kRingStages * R::kVal + (j % kRingStages) * R::kCol);
-  };
-  const bool producer = tid == kMulThreads;   // the first sum thread
-  const uint64_t stream_policy = l2_policy_evict_first();
-  long long next_copy = e_start;
-  auto copy_chunk = [&](long long j) {
-    const long long a = next_copy, b = chunk_end(a, e_end);
-    next_copy = b;
-    const Window wv = window(vals, a, b), wc = window(col, a, b);
-    uint64_t* bar = &full[j % kRingStages];
-    mbar_expect_tx(bar, wv.bytes + wc.bytes);
-    bulk_load(vstage(j), wv.src, wv.bytes, bar, stream_policy);
-    bulk_load(cstage(j), wc.src, wc.bytes, bar, stream_policy);
-  };
-  if (producer) {
-    for (int s = 0; s < kRingStages; ++s) {
-      mbar_init(&full[s]);
-      mbar_init_count(&ready[s], kMulThreads);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int s = 0; s < kRingStages && next_copy < e_end; ++s) copy_chunk(s);
-  }
-  __syncthreads();
-
-  if (tid < kMulThreads) {
-    // multiply warps: chunk j = [a, b)
-    long long a = e_start;
-    for (long long j = 0; a < e_end; ++j) {
-      const long long b = chunk_end(a, e_end);
-      const int n = (int)(b - a);
-      mbar_wait(&full[j % kRingStages], (uint32_t)((j / kRingStages) & 1));
-      const int* c = cstage(j) + window(col, a, b).off;
-      T* v = vstage(j) + window(vals, a, b).off;
-      int ci[kMulPer];
-      T xv[kMulPer];
-#pragma unroll
-      for (int u = 0; u < kMulPer; ++u) {
-        const int k = tid + u * kMulThreads;
-        ci[u] = k < n ? c[k] : 0;
-      }
-#pragma unroll
-      for (int u = 0; u < kMulPer; ++u) xv[u] = tid + u * kMulThreads < n ? __ldg(x + ci[u]) : T(0);
-#pragma unroll
-      for (int u = 0; u < kMulPer; ++u) {
-        const int k = tid + u * kMulThreads;
-        if (k < n) v[k] *= xv[u];
-      }
-      // the products are the threads' writes; the copy that next fills this
-      // stage is the async proxy's, issued after the sums have read them
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      mbar_arrive(&ready[j % kRingStages]);
-      a = b;
-    }
-    return;
-  }
-
-  // sum warps
-  const int st = tid - kMulThreads, lane = st % kGroup, g = st / kGroup;
-  auto prefetch_rows = [&](long long r) {
-    if (producer && r < m) {
-      const long long b = r + 4 * kSumGroups < m ? r + 4 * kSumGroups : m;
-      const Window w = window(indptr, r, b + 1);
-      prefetch_l2(w.src, w.bytes);
-    }
-  };
-  auto row_bounds = [&](long long r, long long& s0, long long& s1) {
-    s0 = s1 = 0;
-    if (r < r_hi) {
-      s0 = __ldg(indptr + r);
-      s1 = __ldg(indptr + r + 1);
-    }
-  };
-  long long c0 = e_start, c1 = chunk_end(e_start, e_end), rcur = r_lo;
-  long long r = rcur + g, s0, s1;
-  row_bounds(r, s0, s1);
-  for (long long j = 0;; ++j) {
-    const bool last = c1 == e_end;
-    prefetch_rows(rcur + kSumGroups);
-    if (c1 > c0) mbar_wait(&ready[j % kRingStages], (uint32_t)((j / kRingStages) & 1));
-    const int cs = (int)(j & 1);
-    const T* pv = vstage(j) + window(vals, c0, c1).off;
-    bool first = true;
-    do {
-      if (!first) {
-        r = rcur + g;
-        row_bounds(r, s0, s1);
-      }
-      const bool in = r < r_hi && (s0 < c1 || last);
-      T acc = T(0);
-      if (in) {
-        const int lo = (int)((s0 > c0 ? s0 : c0) - c0), hi = (int)((s1 < c1 ? s1 : c1) - c0);
-        for (int k = lo + lane; k < hi; k += kGroup) acc += pv[k];
-      }
-#pragma unroll
-      for (int off = kGroup / 2; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off, kGroup);
-      const bool done = in && s1 <= c1;
-      if (in && lane == 0) {
-        if (first && g == 0 && s0 < c0) acc = carry[cs] + acc;
-        if (done) y[r] = acc;
-        else carry[cs ^ 1] = acc;
-      }
-      first = false;
-      const int finished = sum_bar_count(done && lane == 0);
-      rcur += finished;
-      if (finished < kSumGroups) break;
-    } while (rcur < r_hi);
-    if (last) break;
-    // every sum of chunk j's stage is behind the last barrier: chunk
-    // j + kStages may fill it
-    if (producer && next_copy < e_end) copy_chunk(j);
-    r = rcur + g;
-    row_bounds(r, s0, s1);
-    c0 = c1;
-    c1 = chunk_end(c1, e_end);
-  }
-}
-
 template <typename T>
 static int launch_csr(void* y, const void* indptr, const void* col, const void* vals,
                       const void* x, long long m, long long nnz, int device, void* stream) {
   static_assert(Ring<T>::kBytes <= 227 * 1024, "the ring must fit a block's shared memory");
   PTT_TRY(cudaSetDevice(device));
-  auto kernel = kSplit ? csr_spmv_split_kernel<T> : csr_spmv_kernel<T>;
   if constexpr (Ring<T>::kBytes > 48 * 1024) {
-    PTT_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<T>::kBytes));
+    PTT_TRY(cudaFuncSetAttribute(csr_spmv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 Ring<T>::kBytes));
   }
   int sms = 0, per_sm = 0;
   PTT_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
-  PTT_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlockThreads, Ring<T>::kBytes));
+  PTT_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, csr_spmv_kernel<T>, kBlockThreads,
+                                                        Ring<T>::kBytes));
   const long long ntiles = nnz > 0 ? (nnz + kTile - 1) / kTile : 1;
-  long long grid = kRunTiles > 0 ? (ntiles + kRunTiles - 1) / kRunTiles
-                                 : (long long)sms * (per_sm > 0 ? per_sm : 1);
+  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
   if (grid > ntiles) grid = ntiles;
-  kernel<<<(int)grid, kBlockThreads, Ring<T>::kBytes, (cudaStream_t)stream>>>(
+  csr_spmv_kernel<T><<<(int)grid, kBlockThreads, Ring<T>::kBytes, (cudaStream_t)stream>>>(
       (T*)y, (const long long*)indptr, (const int*)col, (const T*)vals, (const T*)x, m, nnz);
   return (int)cudaGetLastError();
 }

@@ -33,25 +33,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 # label -> constants of csr_spmv.cu: threads per block, entries per tile,
 # stages of the ring, lanes per row. The first is the source's own.
-BASE = {"threads": 512, "tile": 2048, "stages": 4, "group": 4, "split": 1, "mul_warps": 8, "run": 0}
+BASE = {"threads": 512, "tile": 2048, "stages": 4, "group": 4}
 VARIANTS = {
-    "split_b512_m8_g2": {"group": 2},
-    "one_b512_g4": {"split": 0},
-    "one_b512_g4_run4": {"split": 0, "run": 4},
-    "one_b512_g4_run8": {"split": 0, "run": 8},
-    "one_b512_g4_run16": {"split": 0, "run": 16},
-    "one_b512_g4_run32": {"split": 0, "run": 32},
-    "split_b512_m8_g2_run8": {"group": 2, "run": 8},
-    "split_b512_m8_g2_run32": {"group": 2, "run": 32},
+    "b512_t2048_s4_g4": {},
+    "b512_t2048_s3_g4": {"stages": 3},
+    "b512_t2048_s2_g4": {"stages": 2},
+    "b512_t4096_s2_g4": {"tile": 4096, "stages": 2},
+    "b512_t2048_s4_g2": {"group": 2},
+    "b512_t2048_s4_g8": {"group": 8},
+    "b256_t1024_s4_g4": {"threads": 256, "tile": 1024},
+    "b1024_t4096_s4_g4": {"threads": 1024, "tile": 4096},
 }
 PEAK_BYTES_PER_S = 3.35e12
 
 
-def variant_source(src, threads, tile, stages, group, split, mul_warps, run):
+def variant_source(src, threads, tile, stages, group):
     subs = ((r"(constexpr int kBlockThreads = )\d+", rf"\g<1>{threads}"),
-            (r"(constexpr int kSplit = )\d+", rf"\g<1>{split}"),
-            (r"(constexpr int kMulWarps = )\d+", rf"\g<1>{mul_warps}"),
-            (r"(constexpr int kRunTiles = )\d+", rf"\g<1>{run}"),
             (r"(constexpr int kTile = )\d+", rf"\g<1>{tile}"),
             (r"(constexpr int kRingStages = )\d+", rf"\g<1>{stages}"),
             (r"(constexpr int kGroup = )\d+", rf"\g<1>{group}"))
