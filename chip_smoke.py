@@ -81,6 +81,10 @@ REPS = 20
 SLEEP_CYCLES = 200_000          # about 0.1 ms of the card's clock, before each timed launch
 PROBE_SHUFFLE = (1_048_576, 4096, 128)   # C, B, W of pallas_shuffle_probe.py probe_s1/s2/s3
 PROBE_GATHER = (524_288, 4_194_304)      # n, m of pallas_gather_probe.py probe_g1
+# kernel -> the part of its device function's name that the profiler shows
+IN_SOLVE = {"triad": "triad_kernel", "axpy_normsq": "axpy_normsq_kernel",
+            "dot2": "dot2_kernel", "sum_partials": "sum_partials",
+            "const_stencil": "const_stencil_kernel", "csr_spmv": "csr_spmv_kernel"}
 DATA = Path(__file__).resolve().parent / "tests" / "data"
 FIXTURES = ("LFAT5.mtx", "m_05_05_crk.mtx", "amesos2_test_mat0.mtx")
 
@@ -96,17 +100,38 @@ def rel_err(a, b):
     return float((a - b).abs().max()) / (den if den > 0 else 1.0)
 
 
+class L2Flush:
+    """Empties the 50 MB L2 before a timed launch. The clean flush (the
+    default) writes one buffer twice the L2's size and then reads a second
+    one, so the L2 holds only clean lines when the timed kernel starts and
+    its own reads evict nothing that must be written back. The dirty flush
+    (PRs 1-3) only writes, which leaves the L2 full of dirty lines whose
+    write-backs then fall inside the timed window."""
+
+    def __init__(self, clean=True):
+        import torch
+        n = 2 * 50 * 2 ** 20 // 4
+        self.clean = clean
+        self.wbuf = torch.empty(n, dtype=torch.float32, device="cuda")
+        self.rbuf = torch.zeros(n, dtype=torch.float32, device="cuda") if clean else None
+
+    def __call__(self):
+        self.wbuf.zero_()
+        if self.clean:
+            self.rbuf.sum()
+
+
 def time_ms(fn, flush, reps=REPS):
     """Median of `reps` launches of fn(), each timed with CUDA events after
-    the L2 cache was flushed by writing a buffer twice its size. The card
-    then spins for about 0.1 ms, so the host has queued fn() before the
-    first event is reached and its launch time stays out of the window."""
+    flush() emptied the L2. The card then spins for about 0.1 ms, so the
+    host has queued fn() before the first event is reached and its launch
+    time stays out of the window."""
     import torch
     fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
-        flush.zero_()
+        flush()
         torch.cuda._sleep(SLEEP_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -176,7 +201,8 @@ def phase_kernels(pk, sb, flush, triad_Bps):
                          3 * n * isz, 2 * n,
                          library_ms=time_ms(lambda: torch.add(b, c, alpha=af), flush))
             if is_main:
-                main["triad"] = dict(row, max_abs_err=float((k - p).abs().max()))
+                main["triad"] = dict(row, max_abs_err=float((k - p).abs().max()),
+                                     design="registers", launch=pk.launch_config("triad", dtype, n, dev))
 
             kv, kn = pk.axpy_normsq(alpha, b, c)
             pv, pn = pk.axpy_normsq_plain(alpha, b, c)
@@ -196,10 +222,13 @@ def phase_kernels(pk, sb, flush, triad_Bps):
             row = record("dot2", dtype, n, err,
                          time_ms(lambda: pk.dot2(b, c), flush),
                          time_ms(lambda: pk.dot2_plain(b, c), flush),
-                         2 * n * isz, 4 * n)
+                         2 * n * isz, 4 * n,
+                         same_bytes_ms=time_ms(lambda: torch.dot(b, c), flush),
+                         same_bytes_call="torch.dot(x, y): the same bytes, one of the two sums")
             if is_main:
                 main["dot2"] = dict(row, max_abs_err=max(
-                    float((k1 - p1).abs()), float((k2 - p2).abs())))
+                    float((k1 - p1).abs()), float((k2 - p2).abs())),
+                    design="registers", launch=pk.launch_config("dot2", dtype, n, dev))
             del b, c
 
     # S1 stencil at 128^3, box and star, with F.conv3d as the library yardstick
@@ -242,6 +271,93 @@ def phase_kernels(pk, sb, flush, triad_Bps):
         raise AssertionError(f"const_stencil vs scipy CSR at 24^3: rel err {err}")
     details.append({"name": "const_stencil_box_vs_scipy_csr", "n": 24 ** 3, "rel_err": err})
     return details, main
+
+
+def phase_flush(pk, flushes):
+    """K2, torch.add, K3, K4, torch.dot(x, y) and S1 (box) at 128^3 in f64
+    and f32, each timed under every flush of `flushes` (name -> L2Flush),
+    the flushes in turns for each function. torch.dot reads the same bytes
+    as K4 but computes one of its two sums: a yardstick for the bytes."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(99)
+    shape, n = (N_MAIN,) * 3, N_MAIN ** 3
+    out = []
+    for dtype in (torch.float64, torch.float32):
+        b = torch.rand(n, generator=gen, device=dev, dtype=dtype)
+        c = torch.rand(n, generator=gen, device=dev, dtype=dtype)
+        alpha = torch.tensor(-0.37, dtype=dtype, device=dev)
+        af = float(alpha)
+        fns = {"triad": lambda: pk.triad(b, c, alpha),
+               "torch.add": lambda: torch.add(b, c, alpha=af),
+               "axpy_normsq": lambda: pk.axpy_normsq(alpha, b, c),
+               "dot2": lambda: pk.dot2(b, c),
+               "torch.dot": lambda: torch.dot(b, c),
+               "const_stencil_box": lambda: pk.const_stencil(b, shape, 26.0, -1.0, True)}
+        for name, fn in fns.items():
+            out.append({"name": name, "dtype": str(dtype).replace("torch.", ""), "n": n,
+                        **{f"{fl}_ms": time_ms(fn, flush) for fl, flush in flushes.items()}})
+        del b, c
+    return out
+
+
+DESIGNS = {"registers_U4": 0, "registers_U2": 1, "registers_U8": 2, "bulk_ring": 3}
+
+
+def phase_designs(pk, flush, rounds=3):
+    """Exploration: K2 and K4 in each design (registers with 4, 2 or 8
+    packs per thread and round; the bulk-copy ring), each checked against
+    its plain version (K4 also for equal bits on a rerun), then timed in
+    turns with torch.add and torch.dot, `rounds` times (median of the
+    rounds' medians), at 128^3 and 2^24+37 in f64 and f32."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = []
+    for dtype in (torch.float64, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        for n in (N_MAIN ** 3, (1 << 24) + 37):
+            b = torch.rand(n, generator=gen, device=dev, dtype=dtype)
+            c = torch.rand(n, generator=gen, device=dev, dtype=dtype)
+            alpha = torch.tensor(-0.37, dtype=dtype, device=dev)
+            af = float(alpha)
+            pt_, pd = pk.triad_plain(b, c, alpha), pk.dot2_plain(b, c)
+            fns = {}
+            for label, d in DESIGNS.items():
+                pk._VARIANT.update(triad=d, dot2=d)
+                t_err = rel_err(pk.triad(b, c, alpha), pt_)
+                k1 = pk.dot2(b, c)
+                k2 = pk.dot2(b, c)
+                same = all(torch.equal(u, v) for u, v in zip(k1, k2))
+                d_err = max(rel_err(u, v) for u, v in zip(k1, pd))
+                if not (t_err <= TOL[dn] and d_err <= TOL[dn] and same):
+                    raise AssertionError(f"design {label} {dn} n={n}: triad {t_err}, dot2 {d_err}, "
+                                         f"equal bits {same}")
+
+                def tri(d=d):
+                    pk._VARIANT.update(triad=d)
+                    pk.triad(b, c, alpha)
+
+                def dot(d=d):
+                    pk._VARIANT.update(dot2=d)
+                    pk.dot2(b, c)
+                fns[f"triad_{label}"] = tri
+                fns[f"dot2_{label}"] = dot
+            fns["torch.add"] = lambda: torch.add(b, c, alpha=af)
+            fns["torch.dot"] = lambda: torch.dot(b, c)
+            times = {k: [] for k in fns}
+            for _ in range(rounds):
+                for k, fn in fns.items():
+                    times[k].append(time_ms(fn, flush))
+            pk._VARIANT.update(triad=0, dot2=0)
+            isz = b.element_size()
+            out.append({"dtype": dn, "n": n,
+                        "bound_triad_ms": bound(3 * n * isz, 2 * n, dn)[0],
+                        "bound_dot2_ms": bound(2 * n * isz, 4 * n, dn)[0],
+                        "ms": {k: statistics.median(v) for k, v in times.items()},
+                        "rounds": times})
+            del b, c
+    return out
 
 
 def solve_once(pt, sb, pc_type):
@@ -313,11 +429,41 @@ def profile_solve(ksp, b, x, warm_ms_best):
             by_name[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    in_solve = {}
+    for name, key in IN_SOLVE.items():
+        hits = [(n, us) for k, (n, us) in by_name.items() if key in k]
+        count = sum(n for n, _ in hits)
+        if count:
+            in_solve[name] = {"launches": count,
+                              "us_per_launch": sum(us for _, us in hits) / count}
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_share_of_warm": busy_ms / warm_ms_best if by_name else None,
             "device_events": sum(n for n, _ in by_name.values()),
+            "in_solve": in_solve,
             "by_kernel": [{"name": k[:90], "count": n, "ms": us / 1e3}
                           for k, (n, us) in top]}
+
+def in_solve_us(prof, name):
+    """µs per launch of kernel `name` in a profiled solve (None if it did
+    not run there). A second pass (sum_partials) beyond K3's own launches
+    belongs to K4 and is added to K4's time."""
+    row = prof["in_solve"].get(name)
+    if row is None:
+        return None
+    us = row["us_per_launch"]
+    sp, k3 = prof["in_solve"].get("sum_partials"), prof["in_solve"].get("axpy_normsq")
+    if name == "dot2" and sp and sp["launches"] > (k3["launches"] if k3 else 0):
+        us += sp["us_per_launch"]
+    return us
+
+
+def check_one_launch(prof, its):
+    """K4 is one launch: the only second passes (sum_partials) in a solve
+    are K3's, one per iteration."""
+    sp = prof["in_solve"].get("sum_partials", {}).get("launches", 0)
+    if sp != its:
+        raise AssertionError(f"the solve launched {sp} sum_partials, want {its} (K3's only)")
+
 
 def distinct(flat_idx, n):
     """How many distinct entries of an n-entry array flat_idx names."""
@@ -677,10 +823,14 @@ def main():
           "nvcc_seconds": cuda_build.build_seconds, "ptxas": ptxas})
 
     triad_Bps = pk.streams_triad_bandwidth(n=1 << 25, dtype=torch.float64, reps=20) * 1e9
-    flush = torch.empty(2 * 50 * 2 ** 20 // 4, dtype=torch.float32, device="cuda")
+    flush = L2Flush()
     details, main_rows = phase_kernels(pk, sb, flush, triad_Bps)
     emit({"phase": "kernels", "triad_GBs_f64": triad_Bps / 1e9, "nvidia_smi": smi,
-          "checks": details})
+          "flush": "clean", "checks": details})
+    dirty = L2Flush(clean=False)
+    emit({"phase": "flush", "nvidia_smi": smi,
+          "rows": phase_flush(pk, {"dirty": dirty, "clean": flush})})
+    del dirty
 
     # ---- the main path, with every launch count set to 0 just before ----
     torch.cuda.reset_peak_memory_stats()
@@ -718,9 +868,19 @@ def main():
                    "true_relres": none[3], "warm_ms_best_of_3": none_ms,
                    "ms_per_it": none_ms / none[0]},
           "seconds_so_far": time.perf_counter() - t_start})
-    emit({"phase": "profile", "solve": "jacobi", "nvidia_smi": smi,
-          **profile_solve(ksp, b, x, jac_ms)})
+    prof = profile_solve(ksp, b, x, jac_ms)
+    emit({"phase": "profile", "solve": "jacobi", "nvidia_smi": smi, **prof})
     check_solve(pk, ksp, b, x)
+    check_one_launch(prof, its)
+    # exploration: the evict-first hint on the x update, profiled in turns
+    evict = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        pk._VARIANT["x_evict"] = mode == "on"
+        evict[mode].append(profile_solve(ksp, b, x, jac_ms)["in_solve"])
+        check_solve(pk, ksp, b, x)
+    pk._VARIANT["x_evict"] = False
+    emit({"phase": "x_evict", "nvidia_smi": smi, "in_solve": evict})
+    emit({"phase": "designs", "nvidia_smi": smi, "rows": phase_designs(pk, flush)})
 
     gdetails, gather_rows = phase_gather(gk, flush)
     emit({"phase": "gather", "nvidia_smi": smi, "checks": gdetails,
@@ -786,9 +946,10 @@ def main():
                    "ms_per_it": none_ms_a / none_a["its"]},
           "spmv": sdetails, "coo_gather": coo_rows,
           "seconds_so_far": time.perf_counter() - t_start})
-    emit({"phase": "aij_profile", "solve": "jacobi", "nvidia_smi": smi,
-          **profile_solve(ksp_a, b_a, x_a, jac_ms_a)})
+    prof_a = profile_solve(ksp_a, b_a, x_a, jac_ms_a)
+    emit({"phase": "aij_profile", "solve": "jacobi", "nvidia_smi": smi, **prof_a})
     check_aij_solve(pk, ksp_a, A_aij, b_a, x_a, hist_stencil)
+    check_one_launch(prof_a, its_a)
 
     # name: (source, replaces, measured row, launches on the path it belongs to)
     rows = {
@@ -820,7 +981,17 @@ def main():
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                       "dtype": r["dtype"],
                       "launches_by_path": {"solve": launches[name],
-                                           "aij": aij_launches[name]}})
+                                           "aij": aij_launches[name]},
+                      "in_solve_us": {"solve": in_solve_us(prof, name),
+                                      "aij": in_solve_us(prof_a, name)}})
+    for r in table:
+        if r["name"] in ("triad", "dot2"):
+            r.update(design=main_rows[r["name"]]["design"],
+                     launch=main_rows[r["name"]]["launch"],
+                     share_of_bound=r["bound_ms"] / r["ms"])
+    k4 = next(r for r in table if r["name"] == "dot2")
+    k4.update(same_bytes_ms=main_rows["dot2"]["same_bytes_ms"],
+              same_bytes_call=main_rows["dot2"]["same_bytes_call"])
     # K8's row is timed at the path's v[perm] shape; the diagonal refresh's
     # shape and the probe's stand beside it
     k8 = next(r for r in table if r["name"] == "gather")

@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #define PTT_TRY(expr)                                 \
   do {                                                \
     cudaError_t ptt_err_ = (expr);                    \
@@ -21,6 +23,7 @@ namespace ptt {
 constexpr int kThreads = 256;      // threads per block of the streaming kernels
 constexpr int kBlocksPerSM = 8;    // 8 x 256 threads fill an SM's 2048 thread slots
 constexpr int kFinishThreads = 1024;
+constexpr int kMaxDevices = 64;    // devices whose launch shape is cached
 
 // 16 bytes of T: one 128-bit load or store per thread, neighbouring threads
 // on neighbouring addresses (2 doubles or 4 floats).
@@ -45,6 +48,69 @@ inline int grid_for(long long work, int device, long long cap) {
   return g < 1 ? 1 : (int)g;
 }
 
+// The launch shape of a one-wave kernel on one device: its SMs and the
+// blocks of kThreads threads that one SM holds at once.
+struct Wave {
+  int sms, per_sm;
+};
+
+// Wave of `kernel` (with `smem` bytes of dynamic shared memory) on
+// `device`, queried from the occupancy calculator once per device and
+// kept in `cache`, a static of the caller's, so that a launch pays no query.
+template <typename K>
+inline cudaError_t wave_of(K kernel, size_t smem, int device, std::atomic<int> (*cache)[2],
+                           Wave* w) {
+  const bool cached = device >= 0 && device < kMaxDevices;
+  if (cached) {
+    w->sms = cache[device][0].load(std::memory_order_relaxed);
+    w->per_sm = cache[device][1].load(std::memory_order_relaxed);
+    if (w->sms > 0) return cudaSuccess;
+  }
+  cudaError_t e = cudaDeviceGetAttribute(&w->sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&w->per_sm, kernel, kThreads, smem);
+  if (e != cudaSuccess) return e;
+  if (w->per_sm < 1) w->per_sm = 1;
+  if (cached) {
+    cache[device][1].store(w->per_sm, std::memory_order_relaxed);
+    cache[device][0].store(w->sms, std::memory_order_relaxed);
+  }
+  return cudaSuccess;
+}
+
+// Blocks of a one-wave launch over n elements that each block takes in
+// rounds of `per_round`: one wave, never more blocks than rounds, never
+// more than `cap`. It depends only on n and the card, so the order of a
+// reduction's sums, and its bits, do too.
+inline int wave_grid(const Wave& w, long long n, long long per_round, long long cap) {
+  long long g = (long long)w.sms * w.per_sm;
+  const long long rounds = (n + per_round - 1) / per_round;
+  if (g > rounds) g = rounds;
+  if (g > cap) g = cap;
+  return g < 1 ? 1 : (int)g;
+}
+
+// Elements of T before the first 16-byte edge that every pointer reaches
+// at the same element (x[1:], y[1:] of aligned tensors: one double or three
+// floats), at most n; -1 when the pointers are off 16 bytes by different
+// amounts, which only scalar loads can take.
+template <typename T>
+inline long long aligned_head(long long n, const void* a, const void* b, const void* c = nullptr) {
+  const uintptr_t off = reinterpret_cast<uintptr_t>(a) & 15u;
+  if ((reinterpret_cast<uintptr_t>(b) & 15u) != off) return -1;
+  if (c && (reinterpret_cast<uintptr_t>(c) & 15u) != off) return -1;
+  if (off % sizeof(T)) return -1;
+  const long long head = (long long)((16 - off) & 15u) / (long long)sizeof(T);
+  return head < n ? head : n;
+}
+
+// This block's slab of `count` items: [lo, hi), contiguous, the slabs of
+// all blocks in block order and within one item of each other in length.
+__device__ __forceinline__ void slab(long long count, long long* lo, long long* hi) {
+  *lo = count * blockIdx.x / gridDim.x;
+  *hi = count * (blockIdx.x + 1) / gridDim.x;
+}
+
 // Sum of one value per thread over the block in a fixed order (warp
 // shuffles, then one warp over the warp sums); the result is valid in
 // thread 0. blockDim.x must be a multiple of 32. `scratch` holds 32 values
@@ -64,6 +130,43 @@ __device__ __forceinline__ A block_sum(A v, A* scratch) {
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   }
   return v;
+}
+
+// The cross-block end of a one-launch reduction whose blocks each hold
+// kSums per-thread sums `v`. Each block reduces them (block_sum) and
+// thread 0 writes the block's partials, partial[k * gridDim.x + blockIdx.x],
+// makes them visible to the card (__threadfence) and draws a ticket from
+// `counter` (atomicAdd). The atomic only elects a block: the one that draws
+// the last ticket reads every partial from L2 (__ldcg, past its own L1),
+// sums each list in block order (thread t takes t, t + blockDim.x, ...,
+// then block_sum's fixed tree), hands sum k to store(k, s) in thread 0
+// and sets the counter back to 0 for the next launch on the stream. So
+// the order of every sum is fixed by the grid, and a rerun gives the same
+// bits. A grid of one block is its own last block.
+template <int kSums, typename Store>
+__device__ __forceinline__ void finish_sums(double (&v)[kSums], double* partial,
+                                            unsigned int* counter, double* scratch,
+                                            Store store) {
+  __shared__ bool last;
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) v[k] = block_sum(v[k], scratch);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) partial[(long long)k * gridDim.x + blockIdx.x] = v[k];
+    __threadfence();
+    last = atomicAdd(counter, 1u) == gridDim.x - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int k = 0; k < kSums; ++k) {
+    double s = 0.0;
+    for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x)
+      s += __ldcg(partial + (long long)k * gridDim.x + i);
+    s = block_sum(s, scratch);
+    if (threadIdx.x == 0) store(k, s);
+  }
+  if (threadIdx.x == 0) *counter = 0u;
 }
 
 // Pass 2 of the two-pass reductions: one block sums the `nparts` per-block

@@ -1,73 +1,265 @@
-// K4: the dot pair, (<x, y>, <y, y>) in one pass.
+// K4: the dot pair, (<x, y>, <y, y>) in one pass and one launch.
 //
 // Replaces petsc_tpu/ops/pallas_kernels.py:198 dot2 (_dot2 :205, kernel
 // _dot2_kernel :185). In the CG body it gives <w, p> for the step length
 // and (<r, z>, <z, z>) for beta and the preconditioned norm.
 //
-// Bound: 2 n itemsize bytes (x and y read once) for 4 n flops:
-// device-memory bandwidth.
-// Design: as axpy_normsq.cu. Pass 1 streams x and y with 16-byte loads in
-// a grid-stride loop, keeps two per-thread sums in double, reduces each
-// over the block and writes two partials per block (all <x, y> partials,
-// then all <y, y> partials). Pass 2 sums each list in a fixed order in
-// one block. No atomics: reruns give the same bits.
+// Bound: 2 n itemsize bytes (x and y read once) over 3.35 TB/s, for 4 n
+// flops: device-memory bandwidth. At 128^3 in f64 that is 33.5 MB, about
+// the L2's size, so the ramp of a wave and its tail are a large share.
+// Design for that bound:
+// - One wave: the grid is the blocks that the card holds at once (SMs
+//   times the occupancy calculator's blocks per SM, queried once per
+//   device), and each block owns one contiguous slab of x and y.
+// - Every load of a round in flight at once: a thread loads kU 16-byte
+//   packs of x and kU of y before its first multiply (kU = 4: 128 bytes in
+//   flight per thread); at 128^3 a block takes its slab in one or two rounds.
+// - One launch: each block reduces its two sums in double (f32 inputs
+//   too), and the block that draws the last ticket sums the per-block
+//   partials in block order (ptt::finish_sums). The ticket's counter is
+//   scratch that the wrapper owns per stream; the kernel leaves it at 0.
+//   The grid depends only on n and the card, so reruns give the same bits.
+// - Alignment: when x and y are off 16 bytes by the same amount (x[1:],
+//   y[1:]), a scalar head up to the first 16-byte edge is peeled and the
+//   rest is vectorised; only mixed alignment takes scalar loads throughout.
 #include "common.cuh"
+
+namespace {
+
+constexpr int kU = 4;   // 16-byte packs of x and of y a thread loads before it multiplies
+
+template <typename T>
+__device__ __forceinline__ void acc2(double (&s)[2], T x, T y) {
+  s[0] += (double)x * (double)y;
+  s[1] += (double)y * (double)y;
+}
+
+// Rounds over [lo, hi) of items E: in each, a thread loads V items of x
+// and V of y (item v at i0 + v kThreads) before it sums any. A full round
+// loads without conditions, so that the compiler issues every load first;
+// the last round of a slab zero-fills what lies past hi.
+template <int V, typename E, typename F>
+__device__ __forceinline__ void rounds(const E* __restrict__ x, const E* __restrict__ y,
+                                       long long lo, long long hi, F&& sum) {
+  for (long long i0 = lo + threadIdx.x; i0 < hi; i0 += (long long)V * ptt::kThreads) {
+    E xv[V], yv[V];
+    if (i0 + (long long)(V - 1) * ptt::kThreads < hi) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        xv[v] = x[i0 + (long long)v * ptt::kThreads];
+        yv[v] = y[i0 + (long long)v * ptt::kThreads];
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const long long i = i0 + (long long)v * ptt::kThreads;
+        xv[v] = i < hi ? x[i] : E{};
+        yv[v] = i < hi ? y[i] : E{};
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) sum(xv[v], yv[v]);
+  }
+}
+
+// head >= 0: elements before the first 16-byte edge of both x and y;
+// head < 0: mixed alignment.
+template <typename T, int U>
+__global__ void __launch_bounds__(ptt::kThreads)
+dot2_kernel(T* __restrict__ result, double* __restrict__ partial, unsigned int* __restrict__ counter,
+            const T* __restrict__ x, const T* __restrict__ y, long long n, long long head) {
+  __shared__ double scratch[32];
+  using P = ptt::Pack<T>;
+  constexpr int W = P::kWidth;
+  double s[2] = {0.0, 0.0};
+  long long lo, hi;
+  if (head >= 0) {
+    const long long nv = (n - head) / W;
+    ptt::slab(nv, &lo, &hi);
+    rounds<U>(reinterpret_cast<const P*>(x + head), reinterpret_cast<const P*>(y + head), lo, hi,
+              [&](const P& xv, const P& yv) {
+#pragma unroll
+                for (int k = 0; k < W; ++k) acc2(s, xv.v[k], yv.v[k]);
+              });
+    // the scalar ends, in block 0: the head and the tail past the last pack
+    const long long tail = head + nv * W;
+    if (blockIdx.x == 0) {
+      if (threadIdx.x < head) acc2(s, x[threadIdx.x], y[threadIdx.x]);
+      if (tail + threadIdx.x < n) acc2(s, x[tail + threadIdx.x], y[tail + threadIdx.x]);
+    }
+  } else {
+    ptt::slab(n, &lo, &hi);
+    rounds<U * W>(x, y, lo, hi, [&](T xv, T yv) { acc2(s, xv, yv); });
+  }
+  ptt::finish_sums<2>(s, partial, counter, scratch, [&](int k, double v) { result[k] = (T)v; });
+}
+
+// ---- exploration: the slab streamed through a cp.async.bulk ring ----
+
+constexpr int kStages = 4;
+constexpr int kChunk = 2 * ptt::kThreads;   // packs of each vector per stage
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      "WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 
 template <typename T>
 __global__ void __launch_bounds__(ptt::kThreads)
-dot2_kernel(double* partial, const T* x, const T* y, long long n, int vec) {
+dot2_bulk_kernel(T* __restrict__ result, double* __restrict__ partial,
+                 unsigned int* __restrict__ counter, const T* __restrict__ x,
+                 const T* __restrict__ y, long long n, long long head) {
+  using P = ptt::Pack<T>;
+  constexpr int W = P::kWidth;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kStages];
   __shared__ double scratch[32];
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  double sxy = 0.0, syy = 0.0;
-  long long head = 0;
-  if (vec) {
-    using P = ptt::Pack<T>;
-    const long long nv = n / P::kWidth;
-    const P* xp = reinterpret_cast<const P*>(x);
-    const P* yp = reinterpret_cast<const P*>(y);
-    for (long long i = tid; i < nv; i += stride) {
-      const P xv = xp[i], yv = yp[i];
+  P* xs = reinterpret_cast<P*>(smem);
+  P* ys = xs + kStages * kChunk;
+  const P* xp = reinterpret_cast<const P*>(x + head);
+  const P* yp = reinterpret_cast<const P*>(y + head);
+  const long long nv = (n - head) / W;
+  long long lo, hi;
+  ptt::slab(nv, &lo, &hi);
+  const long long nchunks = (hi - lo + kChunk - 1) / kChunk;
+  auto issue = [&](long long c) {
+    const long long a = lo + c * kChunk, b = a + kChunk < hi ? a + kChunk : hi;
+    const uint32_t bytes = (uint32_t)((b - a) * sizeof(P));
+    uint64_t* bar = &full[c % kStages];
+    mbar_expect_tx(bar, 2 * bytes);
+    bulk_load(xs + (c % kStages) * kChunk, xp + a, bytes, bar);
+    bulk_load(ys + (c % kStages) * kChunk, yp + a, bytes, bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(&full[st]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (long long c = 0; c < kStages && c < nchunks; ++c) issue(c);
+  }
+  __syncthreads();
+  double s[2] = {0.0, 0.0};
+  for (long long c = 0; c < nchunks; ++c) {
+    mbar_wait(&full[c % kStages], (uint32_t)((c / kStages) & 1));
+    const long long a = lo + c * kChunk, b = a + kChunk < hi ? a + kChunk : hi;
+    const P* xc = xs + (c % kStages) * kChunk;
+    const P* yc = ys + (c % kStages) * kChunk;
+    for (int j = threadIdx.x; j < (int)(b - a); j += ptt::kThreads) {
+      const P xv = xc[j], yv = yc[j];
 #pragma unroll
-      for (int k = 0; k < P::kWidth; ++k) {
-        sxy += (double)xv.v[k] * (double)yv.v[k];
-        syy += (double)yv.v[k] * (double)yv.v[k];
-      }
+      for (int k = 0; k < W; ++k) acc2(s, xv.v[k], yv.v[k]);
     }
-    head = nv * P::kWidth;
+    __syncthreads();
+    if (threadIdx.x == 0 && c + kStages < nchunks) issue(c + kStages);
   }
-  for (long long i = head + tid; i < n; i += stride) {
-    sxy += (double)x[i] * (double)y[i];
-    syy += (double)y[i] * (double)y[i];
+  const long long tail = head + nv * W;
+  if (blockIdx.x == 0) {
+    if (threadIdx.x < head) acc2(s, x[threadIdx.x], y[threadIdx.x]);
+    if (tail + threadIdx.x < n) acc2(s, x[tail + threadIdx.x], y[tail + threadIdx.x]);
   }
-  sxy = ptt::block_sum(sxy, scratch);
-  if (threadIdx.x == 0) partial[blockIdx.x] = sxy;
-  syy = ptt::block_sum(syy, scratch);
-  if (threadIdx.x == 0) partial[gridDim.x + blockIdx.x] = syy;
+  ptt::finish_sums<2>(s, partial, counter, scratch, [&](int k, double v) { result[k] = (T)v; });
 }
 
-// partial: 2 * nparts_cap doubles of scratch; result: two T.
-template <typename T>
-static int launch_dot2(void* partial, void* result, const void* x, const void* y, long long n,
-                       int nparts_cap, int device, void* stream) {
-  PTT_TRY(cudaSetDevice(device));
-  const int vec = ptt::aligned16(x) && ptt::aligned16(y);
-  const long long work = vec ? (n + ptt::Pack<T>::kWidth - 1) / ptt::Pack<T>::kWidth : n;
-  const int grid = ptt::grid_for(work, device, nparts_cap);
-  dot2_kernel<T><<<grid, ptt::kThreads, 0, (cudaStream_t)stream>>>(
-      (double*)partial, (const T*)x, (const T*)y, n, vec);
-  PTT_TRY(cudaGetLastError());
-  ptt::sum_partials<T><<<1, ptt::kFinishThreads, 0, (cudaStream_t)stream>>>(
-      (T*)result, (const double*)partial, grid, 2);
+template <typename T, int U>
+int launch_reg(void* result, void* partial, void* counter, const void* x, const void* y,
+               long long n, long long head, int cap, int device, cudaStream_t stream, int* cfg) {
+  static std::atomic<int> cache[ptt::kMaxDevices][2];
+  ptt::Wave w;
+  PTT_TRY(ptt::wave_of(dot2_kernel<T, U>, 0, device, cache, &w));
+  const int grid = ptt::wave_grid(w, n, (long long)U * ptt::Pack<T>::kWidth * ptt::kThreads, cap);
+  if (cfg) {
+    cfg[0] = grid, cfg[1] = ptt::kThreads, cfg[2] = U, cfg[3] = w.per_sm;
+    return 0;
+  }
+  dot2_kernel<T, U><<<grid, ptt::kThreads, 0, stream>>>(
+      (T*)result, (double*)partial, (unsigned int*)counter, (const T*)x, (const T*)y, n, head);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ptt_dot2_f64(void* partial, void* result, const void* x, const void* y, long long n,
-                            int nparts_cap, int device, void* stream) {
-  return launch_dot2<double>(partial, result, x, y, n, nparts_cap, device, stream);
+template <typename T>
+int launch_bulk(void* result, void* partial, void* counter, const void* x, const void* y,
+                long long n, long long head, int cap, int device, cudaStream_t stream) {
+  static std::atomic<int> cache[ptt::kMaxDevices][2];
+  constexpr size_t smem = 2 * kStages * kChunk * 16;
+  PTT_TRY(cudaFuncSetAttribute(dot2_bulk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem));
+  ptt::Wave w;
+  PTT_TRY(ptt::wave_of(dot2_bulk_kernel<T>, smem, device, cache, &w));
+  const int grid = ptt::wave_grid(w, n, (long long)kChunk * ptt::Pack<T>::kWidth, cap);
+  dot2_bulk_kernel<T><<<grid, ptt::kThreads, smem, stream>>>(
+      (T*)result, (double*)partial, (unsigned int*)counter, (const T*)x, (const T*)y, n, head);
+  return (int)cudaGetLastError();
 }
 
-extern "C" int ptt_dot2_f32(void* partial, void* result, const void* x, const void* y, long long n,
-                            int nparts_cap, int device, void* stream) {
-  return launch_dot2<float>(partial, result, x, y, n, nparts_cap, device, stream);
+// design: 0 registers, kU packs; 1 two packs; 2 eight packs; 3 the bulk ring
+template <typename T>
+int launch_dot2(void* result, void* partial, void* counter, const void* x, const void* y,
+                long long n, int cap, int design, int device, void* stream) {
+  PTT_TRY(cudaSetDevice(device));
+  const long long head = ptt::aligned_head<T>(n, x, y);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (design == 3 && head >= 0) return launch_bulk<T>(result, partial, counter, x, y, n, head, cap, device, s);
+  if (design == 1) return launch_reg<T, 2>(result, partial, counter, x, y, n, head, cap, device, s, nullptr);
+  if (design == 2) return launch_reg<T, 8>(result, partial, counter, x, y, n, head, cap, device, s, nullptr);
+  return launch_reg<T, kU>(result, partial, counter, x, y, n, head, cap, device, s, nullptr);
+}
+
+}  // namespace
+
+// partial: cap doubles per sum of scratch; counter: one 32-bit zero that
+// every launch leaves at zero; result: two T.
+extern "C" int ptt_dot2_f64(void* result, void* partial, void* counter, const void* x,
+                            const void* y, long long n, int cap, int device, void* stream) {
+  return launch_dot2<double>(result, partial, counter, x, y, n, cap, 0, device, stream);
+}
+
+extern "C" int ptt_dot2_f32(void* result, void* partial, void* counter, const void* x,
+                            const void* y, long long n, int cap, int device, void* stream) {
+  return launch_dot2<float>(result, partial, counter, x, y, n, cap, 0, device, stream);
+}
+
+extern "C" int ptt_dot2_variant_f64(void* result, void* partial, void* counter, const void* x,
+                                    const void* y, long long n, int cap, int design, int device,
+                                    void* stream) {
+  return launch_dot2<double>(result, partial, counter, x, y, n, cap, design, device, stream);
+}
+
+extern "C" int ptt_dot2_variant_f32(void* result, void* partial, void* counter, const void* x,
+                                    const void* y, long long n, int cap, int design, int device,
+                                    void* stream) {
+  return launch_dot2<float>(result, partial, counter, x, y, n, cap, design, device, stream);
+}
+
+// The launch shape for n elements on `device` and `cap` partials: cfg[0] blocks, cfg[1]
+// threads per block, cfg[2] packs per thread and round, cfg[3] blocks per SM.
+extern "C" int ptt_dot2_config(int f64, long long n, int cap, int device, int* cfg) {
+  PTT_TRY(cudaSetDevice(device));
+  return f64 ? launch_reg<double, kU>(nullptr, nullptr, nullptr, nullptr, nullptr, n, 0, cap,
+                                      device, nullptr, cfg)
+             : launch_reg<float, kU>(nullptr, nullptr, nullptr, nullptr, nullptr, n, 0, cap,
+                                     device, nullptr, cfg);
 }

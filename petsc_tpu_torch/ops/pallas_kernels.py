@@ -28,6 +28,8 @@ kernel or raises. There is no fallback from the kernel to the plain version.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -39,10 +41,17 @@ LAUNCHES = {"probe": 0, "triad": 0, "axpy_normsq": 0, "dot2": 0, "const_stencil"
             "csr_spmv": 0}
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
-# scratch capacity for the per-block partial sums of the two-pass reductions
-# (the kernels use at most 8 blocks per SM: 1056 on a 132-SM card)
+# scratch capacity for the per-block partial sums of the reductions (the
+# kernels use at most 8 blocks per SM: 1056 on a 132-SM card)
 _NPARTS = 4096
 _PROBE_SHAPE = (16, 128)
+# (device index, stream) -> dot2's scratch: _NPARTS partials for each of
+# its two sums, then the 32-bit counter of its last-block ticket, zeroed
+# once; every launch leaves the counter at 0, so no call needs a memset
+_WORKSPACE = {}
+# exploration: the variant of each kernel that the wrappers launch (0 is
+# the entry point's own), and the evict-first hint for the x update
+_VARIANT = {"triad": 0, "dot2": 0, "x_evict": False}
 
 
 def reset_launches():
@@ -137,8 +146,16 @@ def triad(b, c, alpha, out=None):
         return triad_plain(b, c, alpha, out)
     a = torch.empty_like(b) if out is None else out
     if b.numel():
-        _launch("triad", b, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                alpha.data_ptr(), b.numel())
+        design = _VARIANT["triad"] | (4 if _VARIANT["x_evict"] and out is b else 0)
+        if design:
+            fn = getattr(cuda_build.library(), f"ptt_triad_variant_{_SUFFIX[b.dtype]}")
+            cuda_build.check("triad", fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                         alpha.data_ptr(), b.numel(), design, b.get_device(),
+                                         torch.cuda.current_stream(b.device).cuda_stream))
+            LAUNCHES["triad"] += 1
+        else:
+            _launch("triad", b, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                    alpha.data_ptr(), b.numel())
     return a
 
 
@@ -188,10 +205,41 @@ def dot2(x, y):
     if not x.numel():
         res.zero_()
         return res[0], res[1]
-    partial = torch.empty(2 * _NPARTS, dtype=torch.float64, device=x.device)
-    _launch("dot2", x, partial.data_ptr(), res.data_ptr(), x.data_ptr(),
+    ws = _workspace(x.device)
+    args = (res.data_ptr(), ws.data_ptr(), ws.data_ptr() + 2 * _NPARTS * 8, x.data_ptr(),
             y.data_ptr(), x.numel(), _NPARTS)
+    if _VARIANT["dot2"]:
+        fn = getattr(cuda_build.library(), f"ptt_dot2_variant_{_SUFFIX[x.dtype]}")
+        cuda_build.check("dot2", fn(*args, _VARIANT["dot2"], x.get_device(),
+                                    torch.cuda.current_stream(x.device).cuda_stream))
+        LAUNCHES["dot2"] += 1
+    else:
+        _launch("dot2", x, *args)
     return res[0], res[1]
+
+
+def _workspace(dev):
+    """dot2's scratch on `dev` for the current stream, zeroed when first
+    made (a dict lookup after that: no launch, no allocation)."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        ws = _WORKSPACE[key] = torch.zeros(2 * _NPARTS + 1, dtype=torch.float64, device=dev)
+    return ws
+
+
+def launch_config(name, dtype, n, device):
+    """The launch shape that K2 ("triad") or K4 ("dot2") takes for n
+    elements of `dtype` on CUDA `device`: blocks, threads per block,
+    16-byte packs per thread and round, blocks per SM (from the occupancy
+    calculator)."""
+    dev = torch.device(device)
+    cfg = (ctypes.c_int * 4)()
+    args = (int(dtype == torch.float64), int(n)) + ((_NPARTS,) if name == "dot2" else ()) \
+        + (dev.index if dev.index is not None else torch.cuda.current_device(),
+           ctypes.addressof(cfg))
+    cuda_build.check(name, getattr(cuda_build.library(), f"ptt_{name}_config")(*args))
+    return dict(zip(("grid", "threads", "packs_per_thread", "blocks_per_sm"), cfg))
 
 
 # ---------------------------------------------------------------------

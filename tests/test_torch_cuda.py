@@ -56,7 +56,7 @@ def test_vector_kernels_match_plain(cuda_device, dtype, n):
     assert _rel(kv, pv) <= TOL[dtype] and _rel(kn, pn) <= TOL[dtype]
     for k, p in zip(pk.dot2(x, y), pk.dot2_plain(x, y)):
         assert _rel(k, p) <= TOL[dtype]
-    # unaligned views take the scalar path of each kernel
+    # views off 16 bytes by one element: a scalar head, then the packs
     assert _rel(pk.triad(x[1:], y[1:], a), pk.triad_plain(x[1:], y[1:], a)) <= TOL[dtype]
     # in place, as the CG body uses them
     want = pk.triad_plain(x, y, a)
@@ -65,6 +65,86 @@ def test_vector_kernels_match_plain(cuda_device, dtype, n):
     torch.cuda.synchronize()
     assert pk.LAUNCHES == {"probe": 0, "triad": 3, "axpy_normsq": 1, "dot2": 1,
                            "const_stencil": 0, "csr_spmv": 0}
+
+
+def _edge_lengths(dtype, device):
+    """1, 5, one 16-byte pack, one pack + 1, and the edge of each kernel's
+    full wave (SMs x blocks x threads x packs per thread x pack width) +- 1."""
+    w = 16 // torch.empty((), dtype=dtype).element_size()
+    ns = {1, 5, w, w + 1}
+    for name in ("triad", "dot2"):
+        c = pk.launch_config(name, dtype, 1 << 40, device)
+        edge = c["grid"] * c["threads"] * c["packs_per_thread"] * w
+        ns |= {edge - 1, edge, edge + 1}
+    return sorted(ns)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_triad_and_dot2_at_their_edges(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    a = torch.tensor(0.61, dtype=dtype, device=cuda_device)
+    pk.reset_launches()
+    launches = 0
+    for n in _edge_lengths(dtype, cuda_device):
+        x = torch.rand(n + 1, generator=gen, device=cuda_device, dtype=dtype)
+        y = torch.rand(n + 1, generator=gen, device=cuda_device, dtype=dtype)
+        # aligned; both off 16 bytes by one element; off by different amounts
+        for sx, sy in ((slice(0, n), slice(0, n)), (slice(1, None), slice(1, None)),
+                       (slice(1, None), slice(0, n))):
+            xv, yv = x[sx], y[sy]
+            want = pk.triad_plain(xv, yv, a)
+            assert _rel(pk.triad(xv, yv, a), want) <= TOL[dtype], n
+            for k, p in zip(pk.dot2(xv, yv), pk.dot2_plain(xv, yv)):
+                assert _rel(k, p) <= TOL[dtype], n
+            # in place over b, then over c (fresh copies keep the views' offsets)
+            for over_b in (True, False):
+                xc, yc = x.clone()[sx], y.clone()[sy]
+                got = pk.triad(xc, yc, a, out=xc if over_b else yc)
+                assert got is (xc if over_b else yc) and _rel(got, want) <= TOL[dtype], n
+            launches += 1
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["triad"] == 3 * launches and pk.LAUNCHES["dot2"] == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_dot2_gives_equal_bits_on_reruns(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.rand((1 << 21) + 3, generator=gen, device=cuda_device, dtype=dtype)
+    y = torch.rand((1 << 21) + 3, generator=gen, device=cuda_device, dtype=dtype)
+    p = pk.dot2_plain(x, y)
+    first = torch.stack(pk.dot2(x, y))
+    runs = [torch.stack(pk.dot2(x, y)) for _ in range(200)]
+    # calls on other lengths leave the ticket's counter at 0
+    for n in (5, 1000, 70001):
+        pk.dot2(x[:n], y[:n])
+    runs += [torch.stack(pk.dot2(x, y)) for _ in range(200)]
+    torch.cuda.synchronize()
+    assert all(_rel(k, q) <= TOL[dtype] for k, q in zip(first, p))
+    assert all(torch.equal(r, first) for r in runs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_dot2_on_two_streams_at_once(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    xs = [torch.rand(n, generator=gen, device=cuda_device, dtype=dtype) for n in (1 << 21, 70001)]
+    ys = [torch.rand(x.numel(), generator=gen, device=cuda_device, dtype=dtype) for x in xs]
+    want = [torch.stack(pk.dot2_plain(x, y)) for x, y in zip(xs, ys)]
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    got = ([], [])
+    for _ in range(50):
+        for s, x, y, g in zip(streams, xs, ys, got):
+            with torch.cuda.stream(s):
+                g.append(torch.stack(pk.dot2(x, y)))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _rel(g[0], w) <= TOL[dtype]
+        assert all(torch.equal(r, g[0]) for r in g)
+    keys = {(cuda_device.index or 0, s.cuda_stream) for s in streams}
+    assert keys <= set(pk._WORKSPACE)
 
 
 @pytest.mark.cuda

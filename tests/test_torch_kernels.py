@@ -140,7 +140,9 @@ def test_every_csrc_source_is_built():
         defined |= set(re.findall(r'extern "C" int (ptt_\w+)\(', (csrc / src).read_text()))
     assert defined == set(cuda_build.SIGNATURES)
     kernels = [k for k in (*pk.LAUNCHES, *gk.LAUNCHES) if k != "probe"]
-    called = {"ptt_probe"} | {f"ptt_{k}_{s}" for k in kernels for s in ("f64", "f32")}
+    called = {"ptt_probe", "ptt_triad_config", "ptt_dot2_config"} \
+        | {f"ptt_{k}{v}_{s}" for k in kernels for s in ("f64", "f32")
+           for v in ("", *(("_variant",) if k in ("triad", "dot2") else ()))}
     assert called == defined
 
 
