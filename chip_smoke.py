@@ -301,7 +301,8 @@ def phase_flush(pk, flushes):
     return out
 
 
-DESIGNS = {"registers_U4": 0, "registers_U2": 1, "registers_U8": 2, "bulk_ring": 3}
+DESIGNS = {"slab_U4": 0, "inter_U4": 1, "slab_U2": 2, "inter_U2": 3, "slab_U8": 4,
+           "inter_U8": 5, "slab_U2_8blk": 6, "inter_U2_8blk": 7}
 
 
 def phase_designs(pk, flush, rounds=3):
@@ -817,8 +818,9 @@ def main():
     pk.kernels_available("cuda")
     torch.cuda.synchronize()
     log = (cuda_build.library_path().parent / "nvcc.log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
+    ptxas = ([ln.strip() for ln in log.read_text().splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+             if log.exists() else [])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": cuda_build.build_seconds, "ptxas": ptxas})
 
@@ -872,14 +874,15 @@ def main():
     emit({"phase": "profile", "solve": "jacobi", "nvidia_smi": smi, **prof})
     check_solve(pk, ksp, b, x)
     check_one_launch(prof, its)
-    # exploration: the evict-first hint on the x update, profiled in turns
-    evict = {"off": [], "on": []}
-    for mode in ("off", "on", "on", "off"):
-        pk._VARIANT["x_evict"] = mode == "on"
-        evict[mode].append(profile_solve(ksp, b, x, jac_ms)["in_solve"])
-        check_solve(pk, ksp, b, x)
-    pk._VARIANT["x_evict"] = False
-    emit({"phase": "x_evict", "nvidia_smi": smi, "in_solve": evict})
+    # exploration: each design's time inside the solve, profiled in turns
+    insolve = {k: [] for k in DESIGNS}
+    for _ in range(2):
+        for label, d in DESIGNS.items():
+            pk._VARIANT.update(triad=d, dot2=d)
+            insolve[label].append(profile_solve(ksp, b, x, jac_ms)["in_solve"])
+            check_solve(pk, ksp, b, x)
+    pk._VARIANT.update(triad=0, dot2=0)
+    emit({"phase": "designs_in_solve", "nvidia_smi": smi, "in_solve": insolve})
     emit({"phase": "designs", "nvidia_smi": smi, "rows": phase_designs(pk, flush)})
 
     gdetails, gather_rows = phase_gather(gk, flush)

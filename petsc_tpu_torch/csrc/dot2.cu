@@ -34,16 +34,17 @@ __device__ __forceinline__ void acc2(double (&s)[2], T x, T y) {
   s[1] += (double)y * (double)y;
 }
 
-// Rounds over [lo, hi) of items E: in each, a thread loads V items of x
-// and V of y (item v at i0 + v kThreads) before it sums any. A full round
-// loads without conditions, so that the compiler issues every load first;
-// the last round of a slab zero-fills what lies past hi.
+// Rounds over items E: in each, a thread loads V items of x and V of y
+// (item v at i0 + v kThreads) before it sums any. The rounds of a block
+// start at `first` (plus the thread) and step by `step` up to `end`. A
+// full round loads without conditions, so that the compiler issues every
+// load first; a partial one zero-fills what lies past `end`.
 template <int V, typename E, typename F>
 __device__ __forceinline__ void rounds(const E* __restrict__ x, const E* __restrict__ y,
-                                       long long lo, long long hi, F&& sum) {
-  for (long long i0 = lo + threadIdx.x; i0 < hi; i0 += (long long)V * ptt::kThreads) {
+                                       long long first, long long step, long long end, F&& sum) {
+  for (long long i0 = first + threadIdx.x; i0 < end; i0 += step) {
     E xv[V], yv[V];
-    if (i0 + (long long)(V - 1) * ptt::kThreads < hi) {
+    if (i0 + (long long)(V - 1) * ptt::kThreads < end) {
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         xv[v] = x[i0 + (long long)v * ptt::kThreads];
@@ -53,8 +54,8 @@ __device__ __forceinline__ void rounds(const E* __restrict__ x, const E* __restr
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         const long long i = i0 + (long long)v * ptt::kThreads;
-        xv[v] = i < hi ? x[i] : E{};
-        yv[v] = i < hi ? y[i] : E{};
+        xv[v] = i < end ? x[i] : E{};
+        yv[v] = i < end ? y[i] : E{};
       }
     }
 #pragma unroll
@@ -62,25 +63,40 @@ __device__ __forceinline__ void rounds(const E* __restrict__ x, const E* __restr
   }
 }
 
+// The rounds of this block over `count` items, V per thread and round:
+// its contiguous slab, or (kInterleave) every gridDim.x-th round of the
+// whole range, so that the grid streams one window of memory at a time.
+template <int V, bool kInterleave, typename E, typename F>
+__device__ __forceinline__ void block_rounds(const E* __restrict__ x, const E* __restrict__ y,
+                                             long long count, F&& sum) {
+  const long long r = (long long)V * ptt::kThreads;
+  if (kInterleave) {
+    rounds<V>(x, y, blockIdx.x * r, gridDim.x * r, count, sum);
+  } else {
+    long long lo, hi;
+    ptt::slab(count, &lo, &hi);
+    rounds<V>(x, y, lo, r, hi, sum);
+  }
+}
+
 // head >= 0: elements before the first 16-byte edge of both x and y;
 // head < 0: mixed alignment.
-template <typename T, int U>
-__global__ void __launch_bounds__(ptt::kThreads)
+template <typename T, int U, bool kInterleave, int kMinBlocks>
+__global__ void __launch_bounds__(ptt::kThreads, kMinBlocks)
 dot2_kernel(T* __restrict__ result, double* __restrict__ partial, unsigned int* __restrict__ counter,
             const T* __restrict__ x, const T* __restrict__ y, long long n, long long head) {
   __shared__ double scratch[32];
   using P = ptt::Pack<T>;
   constexpr int W = P::kWidth;
   double s[2] = {0.0, 0.0};
-  long long lo, hi;
   if (head >= 0) {
     const long long nv = (n - head) / W;
-    ptt::slab(nv, &lo, &hi);
-    rounds<U>(reinterpret_cast<const P*>(x + head), reinterpret_cast<const P*>(y + head), lo, hi,
-              [&](const P& xv, const P& yv) {
+    block_rounds<U, kInterleave>(reinterpret_cast<const P*>(x + head),
+                                 reinterpret_cast<const P*>(y + head), nv,
+                                 [&](const P& xv, const P& yv) {
 #pragma unroll
-                for (int k = 0; k < W; ++k) acc2(s, xv.v[k], yv.v[k]);
-              });
+                                   for (int k = 0; k < W; ++k) acc2(s, xv.v[k], yv.v[k]);
+                                 });
     // the scalar ends, in block 0: the head and the tail past the last pack
     const long long tail = head + nv * W;
     if (blockIdx.x == 0) {
@@ -88,144 +104,47 @@ dot2_kernel(T* __restrict__ result, double* __restrict__ partial, unsigned int* 
       if (tail + threadIdx.x < n) acc2(s, x[tail + threadIdx.x], y[tail + threadIdx.x]);
     }
   } else {
-    ptt::slab(n, &lo, &hi);
-    rounds<U * W>(x, y, lo, hi, [&](T xv, T yv) { acc2(s, xv, yv); });
+    block_rounds<U * W, kInterleave>(x, y, n, [&](T xv, T yv) { acc2(s, xv, yv); });
   }
   ptt::finish_sums<2>(s, partial, counter, scratch, [&](int k, double v) { result[k] = (T)v; });
 }
 
-// ---- exploration: the slab streamed through a cp.async.bulk ring ----
-
-constexpr int kStages = 4;
-constexpr int kChunk = 2 * ptt::kThreads;   // packs of each vector per stage
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      "WAIT_%=:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @!p bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-template <typename T>
-__global__ void __launch_bounds__(ptt::kThreads)
-dot2_bulk_kernel(T* __restrict__ result, double* __restrict__ partial,
-                 unsigned int* __restrict__ counter, const T* __restrict__ x,
-                 const T* __restrict__ y, long long n, long long head) {
-  using P = ptt::Pack<T>;
-  constexpr int W = P::kWidth;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(8) uint64_t full[kStages];
-  __shared__ double scratch[32];
-  P* xs = reinterpret_cast<P*>(smem);
-  P* ys = xs + kStages * kChunk;
-  const P* xp = reinterpret_cast<const P*>(x + head);
-  const P* yp = reinterpret_cast<const P*>(y + head);
-  const long long nv = (n - head) / W;
-  long long lo, hi;
-  ptt::slab(nv, &lo, &hi);
-  const long long nchunks = (hi - lo + kChunk - 1) / kChunk;
-  auto issue = [&](long long c) {
-    const long long a = lo + c * kChunk, b = a + kChunk < hi ? a + kChunk : hi;
-    const uint32_t bytes = (uint32_t)((b - a) * sizeof(P));
-    uint64_t* bar = &full[c % kStages];
-    mbar_expect_tx(bar, 2 * bytes);
-    bulk_load(xs + (c % kStages) * kChunk, xp + a, bytes, bar);
-    bulk_load(ys + (c % kStages) * kChunk, yp + a, bytes, bar);
-  };
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) mbar_init(&full[st]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (long long c = 0; c < kStages && c < nchunks; ++c) issue(c);
-  }
-  __syncthreads();
-  double s[2] = {0.0, 0.0};
-  for (long long c = 0; c < nchunks; ++c) {
-    mbar_wait(&full[c % kStages], (uint32_t)((c / kStages) & 1));
-    const long long a = lo + c * kChunk, b = a + kChunk < hi ? a + kChunk : hi;
-    const P* xc = xs + (c % kStages) * kChunk;
-    const P* yc = ys + (c % kStages) * kChunk;
-    for (int j = threadIdx.x; j < (int)(b - a); j += ptt::kThreads) {
-      const P xv = xc[j], yv = yc[j];
-#pragma unroll
-      for (int k = 0; k < W; ++k) acc2(s, xv.v[k], yv.v[k]);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0 && c + kStages < nchunks) issue(c + kStages);
-  }
-  const long long tail = head + nv * W;
-  if (blockIdx.x == 0) {
-    if (threadIdx.x < head) acc2(s, x[threadIdx.x], y[threadIdx.x]);
-    if (tail + threadIdx.x < n) acc2(s, x[tail + threadIdx.x], y[tail + threadIdx.x]);
-  }
-  ptt::finish_sums<2>(s, partial, counter, scratch, [&](int k, double v) { result[k] = (T)v; });
-}
-
-template <typename T, int U>
+template <typename T, int U, bool kInterleave, int kMinBlocks>
 int launch_reg(void* result, void* partial, void* counter, const void* x, const void* y,
                long long n, long long head, int cap, int device, cudaStream_t stream, int* cfg) {
   static std::atomic<int> cache[ptt::kMaxDevices][2];
+  auto kernel = dot2_kernel<T, U, kInterleave, kMinBlocks>;
   ptt::Wave w;
-  PTT_TRY(ptt::wave_of(dot2_kernel<T, U>, 0, device, cache, &w));
+  PTT_TRY(ptt::wave_of(kernel, 0, device, cache, &w));
   const int grid = ptt::wave_grid(w, n, (long long)U * ptt::Pack<T>::kWidth * ptt::kThreads, cap);
   if (cfg) {
     cfg[0] = grid, cfg[1] = ptt::kThreads, cfg[2] = U, cfg[3] = w.per_sm;
     return 0;
   }
-  dot2_kernel<T, U><<<grid, ptt::kThreads, 0, stream>>>(
-      (T*)result, (double*)partial, (unsigned int*)counter, (const T*)x, (const T*)y, n, head);
+  kernel<<<grid, ptt::kThreads, 0, stream>>>((T*)result, (double*)partial, (unsigned int*)counter,
+                                             (const T*)x, (const T*)y, n, head);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bulk(void* result, void* partial, void* counter, const void* x, const void* y,
-                long long n, long long head, int cap, int device, cudaStream_t stream) {
-  static std::atomic<int> cache[ptt::kMaxDevices][2];
-  constexpr size_t smem = 2 * kStages * kChunk * 16;
-  PTT_TRY(cudaFuncSetAttribute(dot2_bulk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem));
-  ptt::Wave w;
-  PTT_TRY(ptt::wave_of(dot2_bulk_kernel<T>, smem, device, cache, &w));
-  const int grid = ptt::wave_grid(w, n, (long long)kChunk * ptt::Pack<T>::kWidth, cap);
-  dot2_bulk_kernel<T><<<grid, ptt::kThreads, smem, stream>>>(
-      (T*)result, (double*)partial, (unsigned int*)counter, (const T*)x, (const T*)y, n, head);
-  return (int)cudaGetLastError();
-}
-
-// design: 0 registers, kU packs; 1 two packs; 2 eight packs; 3 the bulk ring
+// design: 0 slab, kU packs; 1 interleaved, kU; 2 slab, 2 packs; 3
+// interleaved, 2; 4 slab, 8; 5 interleaved, 8; 6 slab, 2 packs, 8 blocks
+// per SM; 7 interleaved, 2 packs, 8 blocks per SM
 template <typename T>
 int launch_dot2(void* result, void* partial, void* counter, const void* x, const void* y,
-                long long n, int cap, int design, int device, void* stream) {
+                long long n, int cap, int design, int device, void* stream, int* cfg) {
   PTT_TRY(cudaSetDevice(device));
   const long long head = ptt::aligned_head<T>(n, x, y);
   cudaStream_t s = (cudaStream_t)stream;
-  if (design == 3 && head >= 0) return launch_bulk<T>(result, partial, counter, x, y, n, head, cap, device, s);
-  if (design == 1) return launch_reg<T, 2>(result, partial, counter, x, y, n, head, cap, device, s, nullptr);
-  if (design == 2) return launch_reg<T, 8>(result, partial, counter, x, y, n, head, cap, device, s, nullptr);
-  return launch_reg<T, kU>(result, partial, counter, x, y, n, head, cap, device, s, nullptr);
+  switch (design) {
+    case 1: return launch_reg<T, kU, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+    case 2: return launch_reg<T, 2, false, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+    case 3: return launch_reg<T, 2, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+    case 4: return launch_reg<T, 8, false, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+    case 5: return launch_reg<T, 8, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+    case 6: return launch_reg<T, 2, false, 8>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+    case 7: return launch_reg<T, 2, true, 8>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+  }
+  return launch_reg<T, kU, false, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
 }
 
 }  // namespace
@@ -234,32 +153,32 @@ int launch_dot2(void* result, void* partial, void* counter, const void* x, const
 // every launch leaves at zero; result: two T.
 extern "C" int ptt_dot2_f64(void* result, void* partial, void* counter, const void* x,
                             const void* y, long long n, int cap, int device, void* stream) {
-  return launch_dot2<double>(result, partial, counter, x, y, n, cap, 0, device, stream);
+  return launch_dot2<double>(result, partial, counter, x, y, n, cap, 0, device, stream, nullptr);
 }
 
 extern "C" int ptt_dot2_f32(void* result, void* partial, void* counter, const void* x,
                             const void* y, long long n, int cap, int device, void* stream) {
-  return launch_dot2<float>(result, partial, counter, x, y, n, cap, 0, device, stream);
+  return launch_dot2<float>(result, partial, counter, x, y, n, cap, 0, device, stream, nullptr);
 }
 
 extern "C" int ptt_dot2_variant_f64(void* result, void* partial, void* counter, const void* x,
                                     const void* y, long long n, int cap, int design, int device,
                                     void* stream) {
-  return launch_dot2<double>(result, partial, counter, x, y, n, cap, design, device, stream);
+  return launch_dot2<double>(result, partial, counter, x, y, n, cap, design, device, stream, nullptr);
 }
 
 extern "C" int ptt_dot2_variant_f32(void* result, void* partial, void* counter, const void* x,
                                     const void* y, long long n, int cap, int design, int device,
                                     void* stream) {
-  return launch_dot2<float>(result, partial, counter, x, y, n, cap, design, device, stream);
+  return launch_dot2<float>(result, partial, counter, x, y, n, cap, design, device, stream, nullptr);
 }
 
-// The launch shape for n elements on `device` and `cap` partials: cfg[0] blocks, cfg[1]
-// threads per block, cfg[2] packs per thread and round, cfg[3] blocks per SM.
+// The launch shape for n elements on `device` and `cap` partials: cfg[0]
+// blocks, cfg[1] threads per block, cfg[2] packs per thread and round,
+// cfg[3] blocks per SM.
 extern "C" int ptt_dot2_config(int f64, long long n, int cap, int device, int* cfg) {
-  PTT_TRY(cudaSetDevice(device));
-  return f64 ? launch_reg<double, kU>(nullptr, nullptr, nullptr, nullptr, nullptr, n, 0, cap,
-                                      device, nullptr, cfg)
-             : launch_reg<float, kU>(nullptr, nullptr, nullptr, nullptr, nullptr, n, 0, cap,
-                                     device, nullptr, cfg);
+  return f64 ? launch_dot2<double>(nullptr, nullptr, nullptr, nullptr, nullptr, n, cap, 0, device,
+                                   nullptr, cfg)
+             : launch_dot2<float>(nullptr, nullptr, nullptr, nullptr, nullptr, n, cap, 0, device,
+                                  nullptr, cfg);
 }

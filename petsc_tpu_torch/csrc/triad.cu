@@ -22,45 +22,11 @@
 // (the CG body updates x and p in place): each element is read and
 // written by the same thread, and all of a thread's loads in a round come
 // before its stores.
-#include <cstring>
-
 #include "common.cuh"
 
 namespace {
 
 constexpr int kU = 4;   // 16-byte packs of b and of c a thread loads before it computes
-
-// one 16-byte pack or one element, with the L2 evict-first hint (ld.global.cs) or without
-template <bool kCs, typename E>
-__device__ __forceinline__ E load(const E* p) {
-  if constexpr (kCs) {
-    if constexpr (sizeof(E) == 16) {
-      const double2 v = __ldcs(reinterpret_cast<const double2*>(p));
-      E e;
-      memcpy(&e, &v, 16);
-      return e;
-    } else {
-      return __ldcs(p);
-    }
-  } else {
-    return *p;
-  }
-}
-
-template <bool kCs, typename E>
-__device__ __forceinline__ void store(E* p, const E& e) {
-  if constexpr (kCs) {
-    if constexpr (sizeof(E) == 16) {
-      double2 v;
-      memcpy(&v, &e, 16);
-      __stcs(reinterpret_cast<double2*>(p), v);
-    } else {
-      __stcs(p, e);
-    }
-  } else {
-    *p = e;
-  }
-}
 
 template <typename T>
 __device__ __forceinline__ T fma_of(T b, T alpha, T c) { return b + alpha * c; }
@@ -73,57 +39,69 @@ __device__ __forceinline__ ptt::Pack<T> fma_of(const ptt::Pack<T>& b, T alpha, c
   return o;
 }
 
-// Rounds over [lo, hi) of items E: in each, a thread loads V items of b
-// and V of c (item v at i0 + v kThreads), then stores V items of a. A full
-// round loads without conditions, so that the compiler issues every load
-// first; the last round of a slab skips what lies past hi.
-// kCs: b's loads and a's stores carry the evict-first hint.
-template <int V, bool kCs, typename T, typename E>
-__device__ __forceinline__ void rounds(E* a, const E* b, const E* c, T alpha, long long lo,
-                                       long long hi) {
-  for (long long i0 = lo + threadIdx.x; i0 < hi; i0 += (long long)V * ptt::kThreads) {
+// Rounds over items E: in each, a thread loads V items of b and V of c
+// (item v at i0 + v kThreads), then stores V items of a. The rounds of a
+// block start at `first` (plus the thread) and step by `step` up to `end`.
+// A full round loads without conditions, so that the compiler issues
+// every load first; a partial one skips what lies past `end`.
+template <int V, typename T, typename E>
+__device__ __forceinline__ void rounds(E* a, const E* b, const E* c, T alpha, long long first,
+                                       long long step, long long end) {
+  for (long long i0 = first + threadIdx.x; i0 < end; i0 += step) {
     E bv[V], cv[V];
-    if (i0 + (long long)(V - 1) * ptt::kThreads < hi) {
+    if (i0 + (long long)(V - 1) * ptt::kThreads < end) {
 #pragma unroll
       for (int v = 0; v < V; ++v) {
-        bv[v] = load<kCs>(b + i0 + (long long)v * ptt::kThreads);
-        cv[v] = load<false>(c + i0 + (long long)v * ptt::kThreads);
+        bv[v] = b[i0 + (long long)v * ptt::kThreads];
+        cv[v] = c[i0 + (long long)v * ptt::kThreads];
       }
 #pragma unroll
-      for (int v = 0; v < V; ++v)
-        store<kCs>(a + i0 + (long long)v * ptt::kThreads, fma_of(bv[v], alpha, cv[v]));
+      for (int v = 0; v < V; ++v) a[i0 + (long long)v * ptt::kThreads] = fma_of(bv[v], alpha, cv[v]);
     } else {
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         const long long i = i0 + (long long)v * ptt::kThreads;
-        if (i < hi) {
-          bv[v] = load<kCs>(b + i);
-          cv[v] = load<false>(c + i);
+        if (i < end) {
+          bv[v] = b[i];
+          cv[v] = c[i];
         }
       }
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         const long long i = i0 + (long long)v * ptt::kThreads;
-        if (i < hi) store<kCs>(a + i, fma_of(bv[v], alpha, cv[v]));
+        if (i < end) a[i] = fma_of(bv[v], alpha, cv[v]);
       }
     }
   }
 }
 
+// The rounds of this block over `count` items, V per thread and round:
+// its contiguous slab, or (kInterleave) every gridDim.x-th round of the
+// whole range, so that the grid streams one window of memory at a time.
+template <int V, bool kInterleave, typename T, typename E>
+__device__ __forceinline__ void block_rounds(E* a, const E* b, const E* c, T alpha, long long count) {
+  const long long r = (long long)V * ptt::kThreads;
+  if (kInterleave) {
+    rounds<V>(a, b, c, alpha, blockIdx.x * r, gridDim.x * r, count);
+  } else {
+    long long lo, hi;
+    ptt::slab(count, &lo, &hi);
+    rounds<V>(a, b, c, alpha, lo, r, hi);
+  }
+}
+
 // head >= 0: elements before the first 16-byte edge of a, b and c;
 // head < 0: mixed alignment.
-template <typename T, int U, bool kCs>
-__global__ void __launch_bounds__(ptt::kThreads)
+template <typename T, int U, bool kInterleave, int kMinBlocks>
+__global__ void __launch_bounds__(ptt::kThreads, kMinBlocks)
 triad_kernel(T* a, const T* b, const T* c, const T* alpha_p, long long n, long long head) {
   using P = ptt::Pack<T>;
   constexpr int W = P::kWidth;
   const T alpha = *alpha_p;
-  long long lo, hi;
   if (head >= 0) {
     const long long nv = (n - head) / W;
-    ptt::slab(nv, &lo, &hi);
-    rounds<U, kCs>(reinterpret_cast<P*>(a + head), reinterpret_cast<const P*>(b + head),
-                   reinterpret_cast<const P*>(c + head), alpha, lo, hi);
+    block_rounds<U, kInterleave>(reinterpret_cast<P*>(a + head), reinterpret_cast<const P*>(b + head),
+                                 reinterpret_cast<const P*>(c + head), alpha, nv);
     // the scalar ends, in block 0: the head and the tail past the last pack
     const long long tail = head + nv * W;
     if (blockIdx.x == 0) {
@@ -134,204 +112,74 @@ triad_kernel(T* a, const T* b, const T* c, const T* alpha_p, long long n, long l
       }
     }
   } else {
-    ptt::slab(n, &lo, &hi);
-    rounds<U * W, kCs>(a, b, c, alpha, lo, hi);
+    block_rounds<U * W, kInterleave>(a, b, c, alpha, n);
   }
 }
 
-// ---- exploration: b and c streamed through a cp.async.bulk ring, a stored in bulk ----
-
-constexpr int kStages = 4;
-constexpr int kChunk = 2 * ptt::kThreads;   // packs of each vector per stage
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      "WAIT_%=:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @!p bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-               "r"(smem_u32(src)), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-template <typename T>
-__global__ void __launch_bounds__(ptt::kThreads)
-triad_bulk_kernel(T* a, const T* b, const T* c, const T* alpha_p, long long n, long long head) {
-  using P = ptt::Pack<T>;
-  constexpr int W = P::kWidth;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(8) uint64_t full[kStages];
-  const T alpha = *alpha_p;
-  P* bs = reinterpret_cast<P*>(smem);
-  P* cs = bs + kStages * kChunk;
-  P* ap = reinterpret_cast<P*>(a + head);
-  const P* bp = reinterpret_cast<const P*>(b + head);
-  const P* cp = reinterpret_cast<const P*>(c + head);
-  const long long nv = (n - head) / W;
-  long long lo, hi;
-  ptt::slab(nv, &lo, &hi);
-  const long long nchunks = (hi - lo + kChunk - 1) / kChunk;
-  auto bounds = [&](long long ch, long long* x0, long long* x1) {
-    *x0 = lo + ch * kChunk;
-    *x1 = *x0 + kChunk < hi ? *x0 + kChunk : hi;
-  };
-  auto issue = [&](long long ch) {
-    long long x0, x1;
-    bounds(ch, &x0, &x1);
-    const uint32_t bytes = (uint32_t)((x1 - x0) * sizeof(P));
-    uint64_t* bar = &full[ch % kStages];
-    mbar_expect_tx(bar, 2 * bytes);
-    bulk_load(bs + (ch % kStages) * kChunk, bp + x0, bytes, bar);
-    bulk_load(cs + (ch % kStages) * kChunk, cp + x0, bytes, bar);
-  };
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) mbar_init(&full[st]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (long long ch = 0; ch < kStages && ch < nchunks; ++ch) issue(ch);
-  }
-  __syncthreads();
-  for (long long ch = 0; ch < nchunks; ++ch) {
-    mbar_wait(&full[ch % kStages], (uint32_t)((ch / kStages) & 1));
-    long long x0, x1;
-    bounds(ch, &x0, &x1);
-    P* bc = bs + (ch % kStages) * kChunk;
-    const P* cc = cs + (ch % kStages) * kChunk;
-    for (int j = threadIdx.x; j < (int)(x1 - x0); j += ptt::kThreads) bc[j] = fma_of(bc[j], alpha, cc[j]);
-    // the results are the threads' writes; the bulk store reads them
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      bulk_store(ap + x0, bc, (uint32_t)((x1 - x0) * sizeof(P)));
-      if (ch + kStages < nchunks) {
-        // the stage is refilled only once the store has read it
-        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-        issue(ch + kStages);
-      }
-    }
-  }
-  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-  const long long tail = head + nv * W;
-  if (blockIdx.x == 0) {
-    if (threadIdx.x < head) a[threadIdx.x] = b[threadIdx.x] + alpha * c[threadIdx.x];
-    if (tail + threadIdx.x < n) {
-      const long long i = tail + threadIdx.x;
-      a[i] = b[i] + alpha * c[i];
-    }
-  }
-}
-
-template <typename T, int U, bool kCs>
+template <typename T, int U, bool kInterleave, int kMinBlocks>
 int launch_reg(void* a, const void* b, const void* c, const void* alpha, long long n,
                long long head, int device, cudaStream_t stream, int* cfg) {
   static std::atomic<int> cache[ptt::kMaxDevices][2];
+  auto kernel = triad_kernel<T, U, kInterleave, kMinBlocks>;
   ptt::Wave w;
-  PTT_TRY(ptt::wave_of(triad_kernel<T, U, kCs>, 0, device, cache, &w));
+  PTT_TRY(ptt::wave_of(kernel, 0, device, cache, &w));
   const int grid = ptt::wave_grid(w, n, (long long)U * ptt::Pack<T>::kWidth * ptt::kThreads,
                                   1LL << 30);
   if (cfg) {
     cfg[0] = grid, cfg[1] = ptt::kThreads, cfg[2] = U, cfg[3] = w.per_sm;
     return 0;
   }
-  triad_kernel<T, U, kCs><<<grid, ptt::kThreads, 0, stream>>>(
-      (T*)a, (const T*)b, (const T*)c, (const T*)alpha, n, head);
+  kernel<<<grid, ptt::kThreads, 0, stream>>>((T*)a, (const T*)b, (const T*)c, (const T*)alpha, n,
+                                             head);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bulk(void* a, const void* b, const void* c, const void* alpha, long long n,
-                long long head, int device, cudaStream_t stream) {
-  static std::atomic<int> cache[ptt::kMaxDevices][2];
-  constexpr size_t smem = 2 * kStages * kChunk * 16;
-  PTT_TRY(cudaFuncSetAttribute(triad_bulk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem));
-  ptt::Wave w;
-  PTT_TRY(ptt::wave_of(triad_bulk_kernel<T>, smem, device, cache, &w));
-  const int grid = ptt::wave_grid(w, n, (long long)kChunk * ptt::Pack<T>::kWidth, 1LL << 30);
-  triad_bulk_kernel<T><<<grid, ptt::kThreads, smem, stream>>>(
-      (T*)a, (const T*)b, (const T*)c, (const T*)alpha, n, head);
-  return (int)cudaGetLastError();
-}
-
-// design & 3: 0 registers, kU packs; 1 two packs; 2 eight packs; 3 the bulk
-// ring. design & 4: the evict-first hint on b's loads and a's stores.
+// design: 0 slab, kU packs; 1 interleaved, kU; 2 slab, 2 packs; 3
+// interleaved, 2; 4 slab, 8; 5 interleaved, 8; 6 slab, 2 packs, 8 blocks
+// per SM; 7 interleaved, 2 packs, 8 blocks per SM
 template <typename T>
 int launch_triad(void* a, const void* b, const void* c, const void* alpha, long long n,
-                 int design, int device, void* stream) {
+                 int design, int device, void* stream, int* cfg) {
   PTT_TRY(cudaSetDevice(device));
   const long long head = ptt::aligned_head<T>(n, a, b, c);
   cudaStream_t s = (cudaStream_t)stream;
-  const bool cs = design & 4;
-  switch (design & 3) {
-    case 3:
-      if (head >= 0 && !cs) return launch_bulk<T>(a, b, c, alpha, n, head, device, s);
-      break;
-    case 1:
-      return cs ? launch_reg<T, 2, true>(a, b, c, alpha, n, head, device, s, nullptr)
-                : launch_reg<T, 2, false>(a, b, c, alpha, n, head, device, s, nullptr);
-    case 2:
-      return cs ? launch_reg<T, 8, true>(a, b, c, alpha, n, head, device, s, nullptr)
-                : launch_reg<T, 8, false>(a, b, c, alpha, n, head, device, s, nullptr);
+  switch (design) {
+    case 1: return launch_reg<T, kU, true, 1>(a, b, c, alpha, n, head, device, s, cfg);
+    case 2: return launch_reg<T, 2, false, 1>(a, b, c, alpha, n, head, device, s, cfg);
+    case 3: return launch_reg<T, 2, true, 1>(a, b, c, alpha, n, head, device, s, cfg);
+    case 4: return launch_reg<T, 8, false, 1>(a, b, c, alpha, n, head, device, s, cfg);
+    case 5: return launch_reg<T, 8, true, 1>(a, b, c, alpha, n, head, device, s, cfg);
+    case 6: return launch_reg<T, 2, false, 8>(a, b, c, alpha, n, head, device, s, cfg);
+    case 7: return launch_reg<T, 2, true, 8>(a, b, c, alpha, n, head, device, s, cfg);
   }
-  return cs ? launch_reg<T, kU, true>(a, b, c, alpha, n, head, device, s, nullptr)
-            : launch_reg<T, kU, false>(a, b, c, alpha, n, head, device, s, nullptr);
+  return launch_reg<T, kU, false, 1>(a, b, c, alpha, n, head, device, s, cfg);
 }
 
 }  // namespace
 
 extern "C" int ptt_triad_f64(void* a, const void* b, const void* c, const void* alpha, long long n,
                              int device, void* stream) {
-  return launch_triad<double>(a, b, c, alpha, n, 0, device, stream);
+  return launch_triad<double>(a, b, c, alpha, n, 0, device, stream, nullptr);
 }
 
 extern "C" int ptt_triad_f32(void* a, const void* b, const void* c, const void* alpha, long long n,
                              int device, void* stream) {
-  return launch_triad<float>(a, b, c, alpha, n, 0, device, stream);
+  return launch_triad<float>(a, b, c, alpha, n, 0, device, stream, nullptr);
 }
 
 extern "C" int ptt_triad_variant_f64(void* a, const void* b, const void* c, const void* alpha,
                                      long long n, int design, int device, void* stream) {
-  return launch_triad<double>(a, b, c, alpha, n, design, device, stream);
+  return launch_triad<double>(a, b, c, alpha, n, design, device, stream, nullptr);
 }
 
 extern "C" int ptt_triad_variant_f32(void* a, const void* b, const void* c, const void* alpha,
                                      long long n, int design, int device, void* stream) {
-  return launch_triad<float>(a, b, c, alpha, n, design, device, stream);
+  return launch_triad<float>(a, b, c, alpha, n, design, device, stream, nullptr);
 }
 
 // The launch shape for n elements on `device`: cfg[0] blocks, cfg[1]
 // threads per block, cfg[2] packs per thread and round, cfg[3] blocks per SM.
 extern "C" int ptt_triad_config(int f64, long long n, int device, int* cfg) {
-  PTT_TRY(cudaSetDevice(device));
-  return f64 ? launch_reg<double, kU, false>(nullptr, nullptr, nullptr, nullptr, n, 0, device,
-                                             nullptr, cfg)
-             : launch_reg<float, kU, false>(nullptr, nullptr, nullptr, nullptr, n, 0, device,
-                                            nullptr, cfg);
+  return f64 ? launch_triad<double>(nullptr, nullptr, nullptr, nullptr, n, 0, device, nullptr, cfg)
+             : launch_triad<float>(nullptr, nullptr, nullptr, nullptr, n, 0, device, nullptr, cfg);
 }

@@ -50,8 +50,8 @@ _PROBE_SHAPE = (16, 128)
 # once; every launch leaves the counter at 0, so no call needs a memset
 _WORKSPACE = {}
 # exploration: the variant of each kernel that the wrappers launch (0 is
-# the entry point's own), and the evict-first hint for the x update
-_VARIANT = {"triad": 0, "dot2": 0, "x_evict": False}
+# the entry point's own)
+_VARIANT = {"triad": 0, "dot2": 0}
 
 
 def reset_launches():
@@ -146,7 +146,7 @@ def triad(b, c, alpha, out=None):
         return triad_plain(b, c, alpha, out)
     a = torch.empty_like(b) if out is None else out
     if b.numel():
-        design = _VARIANT["triad"] | (4 if _VARIANT["x_evict"] and out is b else 0)
+        design = _VARIANT["triad"]
         if design:
             fn = getattr(cuda_build.library(), f"ptt_triad_variant_{_SUFFIX[b.dtype]}")
             cuda_build.check("triad", fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
