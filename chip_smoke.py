@@ -301,8 +301,9 @@ def phase_flush(pk, flushes):
     return out
 
 
-DESIGNS = {"slab_U4": 0, "inter_U4": 1, "slab_U2": 2, "inter_U2": 3, "slab_U8": 4,
-           "inter_U8": 5, "slab_U2_8blk": 6, "inter_U2_8blk": 7}
+DESIGNS = {"triad": {"inter_U4": 0, "inter_U8": 1, "inter_U2": 2, "tiles_U4": 3, "tiles_U2": 4,
+                     "tiles_U8": 5},
+           "dot2": {"inter_U8": 0, "inter_U4": 1, "tiles_U8": 2, "tiles_U4": 3}}
 
 
 def phase_designs(pk, flush, rounds=3):
@@ -324,25 +325,28 @@ def phase_designs(pk, flush, rounds=3):
             af = float(alpha)
             pt_, pd = pk.triad_plain(b, c, alpha), pk.dot2_plain(b, c)
             fns = {}
-            for label, d in DESIGNS.items():
-                pk._VARIANT.update(triad=d, dot2=d)
+            for label, d in DESIGNS["triad"].items():
+                pk._VARIANT.update(triad=d)
                 t_err = rel_err(pk.triad(b, c, alpha), pt_)
-                k1 = pk.dot2(b, c)
-                k2 = pk.dot2(b, c)
-                same = all(torch.equal(u, v) for u, v in zip(k1, k2))
-                d_err = max(rel_err(u, v) for u, v in zip(k1, pd))
-                if not (t_err <= TOL[dn] and d_err <= TOL[dn] and same):
-                    raise AssertionError(f"design {label} {dn} n={n}: triad {t_err}, dot2 {d_err}, "
-                                         f"equal bits {same}")
+                if not t_err <= TOL[dn]:
+                    raise AssertionError(f"triad design {label} {dn} n={n}: {t_err}")
 
                 def tri(d=d):
                     pk._VARIANT.update(triad=d)
                     pk.triad(b, c, alpha)
+                fns[f"triad_{label}"] = tri
+            for label, d in DESIGNS["dot2"].items():
+                pk._VARIANT.update(dot2=d)
+                k1 = pk.dot2(b, c)
+                k2 = pk.dot2(b, c)
+                same = all(torch.equal(u, v) for u, v in zip(k1, k2))
+                d_err = max(rel_err(u, v) for u, v in zip(k1, pd))
+                if not (d_err <= TOL[dn] and same):
+                    raise AssertionError(f"dot2 design {label} {dn} n={n}: {d_err}, equal bits {same}")
 
                 def dot(d=d):
                     pk._VARIANT.update(dot2=d)
                     pk.dot2(b, c)
-                fns[f"triad_{label}"] = tri
                 fns[f"dot2_{label}"] = dot
             fns["torch.add"] = lambda: torch.add(b, c, alpha=af)
             fns["torch.dot"] = lambda: torch.dot(b, c)
@@ -875,10 +879,12 @@ def main():
     check_solve(pk, ksp, b, x)
     check_one_launch(prof, its)
     # exploration: each design's time inside the solve, profiled in turns
-    insolve = {k: [] for k in DESIGNS}
+    pairs = {**{f"triad_{k}": (d, 0) for k, d in DESIGNS["triad"].items()},
+             **{f"dot2_{k}": (0, d) for k, d in DESIGNS["dot2"].items() if d}}
+    insolve = {k: [] for k in pairs}
     for _ in range(2):
-        for label, d in DESIGNS.items():
-            pk._VARIANT.update(triad=d, dot2=d)
+        for label, (dt, dd) in pairs.items():
+            pk._VARIANT.update(triad=dt, dot2=dd)
             insolve[label].append(profile_solve(ksp, b, x, jac_ms)["in_solve"])
             check_solve(pk, ksp, b, x)
     pk._VARIANT.update(triad=0, dot2=0)

@@ -26,7 +26,7 @@
 
 namespace {
 
-constexpr int kU = 4;   // 16-byte packs of x and of y a thread loads before it multiplies
+constexpr int kU = 8;   // 16-byte packs of x and of y a thread loads before it multiplies
 
 template <typename T>
 __device__ __forceinline__ void acc2(double (&s)[2], T x, T y) {
@@ -82,7 +82,7 @@ __device__ __forceinline__ void block_rounds(const E* __restrict__ x, const E* _
 // head >= 0: elements before the first 16-byte edge of both x and y;
 // head < 0: mixed alignment.
 template <typename T, int U, bool kInterleave, int kMinBlocks>
-__global__ void __launch_bounds__(ptt::kThreads, kMinBlocks)
+__global__ void __launch_bounds__(ptt::kThreads)
 dot2_kernel(T* __restrict__ result, double* __restrict__ partial, unsigned int* __restrict__ counter,
             const T* __restrict__ x, const T* __restrict__ y, long long n, long long head) {
   __shared__ double scratch[32];
@@ -116,7 +116,7 @@ int launch_reg(void* result, void* partial, void* counter, const void* x, const 
   auto kernel = dot2_kernel<T, U, kInterleave, kMinBlocks>;
   ptt::Wave w;
   PTT_TRY(ptt::wave_of(kernel, 0, device, cache, &w));
-  const int grid = ptt::wave_grid(w, n, (long long)U * ptt::Pack<T>::kWidth * ptt::kThreads, cap);
+  const int grid = ptt::wave_grid(kMinBlocks == 2 ? ptt::Wave{1 << 20, 1} : w, n, (long long)U * ptt::Pack<T>::kWidth * ptt::kThreads, cap);
   if (cfg) {
     cfg[0] = grid, cfg[1] = ptt::kThreads, cfg[2] = U, cfg[3] = w.per_sm;
     return 0;
@@ -126,9 +126,7 @@ int launch_reg(void* result, void* partial, void* counter, const void* x, const 
   return (int)cudaGetLastError();
 }
 
-// design: 0 slab, kU packs; 1 interleaved, kU; 2 slab, 2 packs; 3
-// interleaved, 2; 4 slab, 8; 5 interleaved, 8; 6 slab, 2 packs, 8 blocks
-// per SM; 7 interleaved, 2 packs, 8 blocks per SM
+// design: 0 inter U8; 1 inter U4; 2 tiles U8; 3 tiles U4 (tiles: one round per block, not one wave)
 template <typename T>
 int launch_dot2(void* result, void* partial, void* counter, const void* x, const void* y,
                 long long n, int cap, int design, int device, void* stream, int* cfg) {
@@ -136,15 +134,12 @@ int launch_dot2(void* result, void* partial, void* counter, const void* x, const
   const long long head = ptt::aligned_head<T>(n, x, y);
   cudaStream_t s = (cudaStream_t)stream;
   switch (design) {
-    case 1: return launch_reg<T, kU, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
-    case 2: return launch_reg<T, 2, false, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
-    case 3: return launch_reg<T, 2, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
-    case 4: return launch_reg<T, 8, false, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
-    case 5: return launch_reg<T, 8, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
-    case 6: return launch_reg<T, 2, false, 8>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
-    case 7: return launch_reg<T, 2, true, 8>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+    case 0: return launch_reg<T, 8, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+    case 1: return launch_reg<T, 4, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+    case 2: return launch_reg<T, 8, true, 2>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+    case 3: return launch_reg<T, 4, true, 2>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
   }
-  return launch_reg<T, kU, false, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+  return launch_reg<T, kU, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
 }
 
 }  // namespace

@@ -93,7 +93,7 @@ __device__ __forceinline__ void block_rounds(E* a, const E* b, const E* c, T alp
 // head >= 0: elements before the first 16-byte edge of a, b and c;
 // head < 0: mixed alignment.
 template <typename T, int U, bool kInterleave, int kMinBlocks>
-__global__ void __launch_bounds__(ptt::kThreads, kMinBlocks)
+__global__ void __launch_bounds__(ptt::kThreads)
 triad_kernel(T* a, const T* b, const T* c, const T* alpha_p, long long n, long long head) {
   using P = ptt::Pack<T>;
   constexpr int W = P::kWidth;
@@ -123,7 +123,7 @@ int launch_reg(void* a, const void* b, const void* c, const void* alpha, long lo
   auto kernel = triad_kernel<T, U, kInterleave, kMinBlocks>;
   ptt::Wave w;
   PTT_TRY(ptt::wave_of(kernel, 0, device, cache, &w));
-  const int grid = ptt::wave_grid(w, n, (long long)U * ptt::Pack<T>::kWidth * ptt::kThreads,
+  const int grid = ptt::wave_grid(kMinBlocks == 2 ? ptt::Wave{1 << 20, 1} : w, n, (long long)U * ptt::Pack<T>::kWidth * ptt::kThreads,
                                   1LL << 30);
   if (cfg) {
     cfg[0] = grid, cfg[1] = ptt::kThreads, cfg[2] = U, cfg[3] = w.per_sm;
@@ -134,9 +134,7 @@ int launch_reg(void* a, const void* b, const void* c, const void* alpha, long lo
   return (int)cudaGetLastError();
 }
 
-// design: 0 slab, kU packs; 1 interleaved, kU; 2 slab, 2 packs; 3
-// interleaved, 2; 4 slab, 8; 5 interleaved, 8; 6 slab, 2 packs, 8 blocks
-// per SM; 7 interleaved, 2 packs, 8 blocks per SM
+// design: 0 inter U4; 1 inter U8; 2 inter U2; 3 tiles U4; 4 tiles U2; 5 tiles U8 (tiles: one round per block, not one wave)
 template <typename T>
 int launch_triad(void* a, const void* b, const void* c, const void* alpha, long long n,
                  int design, int device, void* stream, int* cfg) {
@@ -144,15 +142,14 @@ int launch_triad(void* a, const void* b, const void* c, const void* alpha, long 
   const long long head = ptt::aligned_head<T>(n, a, b, c);
   cudaStream_t s = (cudaStream_t)stream;
   switch (design) {
-    case 1: return launch_reg<T, kU, true, 1>(a, b, c, alpha, n, head, device, s, cfg);
-    case 2: return launch_reg<T, 2, false, 1>(a, b, c, alpha, n, head, device, s, cfg);
-    case 3: return launch_reg<T, 2, true, 1>(a, b, c, alpha, n, head, device, s, cfg);
-    case 4: return launch_reg<T, 8, false, 1>(a, b, c, alpha, n, head, device, s, cfg);
-    case 5: return launch_reg<T, 8, true, 1>(a, b, c, alpha, n, head, device, s, cfg);
-    case 6: return launch_reg<T, 2, false, 8>(a, b, c, alpha, n, head, device, s, cfg);
-    case 7: return launch_reg<T, 2, true, 8>(a, b, c, alpha, n, head, device, s, cfg);
+    case 0: return launch_reg<T, 4, true, 1>(a, b, c, alpha, n, head, device, s, cfg);
+    case 1: return launch_reg<T, 8, true, 1>(a, b, c, alpha, n, head, device, s, cfg);
+    case 2: return launch_reg<T, 2, true, 1>(a, b, c, alpha, n, head, device, s, cfg);
+    case 3: return launch_reg<T, 4, true, 2>(a, b, c, alpha, n, head, device, s, cfg);
+    case 4: return launch_reg<T, 2, true, 2>(a, b, c, alpha, n, head, device, s, cfg);
+    case 5: return launch_reg<T, 8, true, 2>(a, b, c, alpha, n, head, device, s, cfg);
   }
-  return launch_reg<T, kU, false, 1>(a, b, c, alpha, n, head, device, s, cfg);
+  return launch_reg<T, kU, true, 1>(a, b, c, alpha, n, head, device, s, cfg);
 }
 
 }  // namespace
