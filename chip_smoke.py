@@ -301,9 +301,8 @@ def phase_flush(pk, flushes):
     return out
 
 
-DESIGNS = {"triad": {"inter_U4": 0, "inter_U8": 1, "inter_U2": 2, "tiles_U4": 3, "tiles_U2": 4,
-                     "tiles_U8": 5},
-           "dot2": {"inter_U8": 0, "inter_U4": 1, "tiles_U8": 2, "tiles_U4": 3}}
+DESIGNS = {"triad": {"tiles_U2": 0, "tiles_U1": 1, "inter_U8": 2, "tiles_U4": 3},
+           "dot2": {"inter_U8": 0, "inter_U8_3blk": 1, "inter_U6": 2, "inter_U4": 3}}
 
 
 def phase_designs(pk, flush, rounds=3):

@@ -82,7 +82,7 @@ __device__ __forceinline__ void block_rounds(const E* __restrict__ x, const E* _
 // head >= 0: elements before the first 16-byte edge of both x and y;
 // head < 0: mixed alignment.
 template <typename T, int U, bool kInterleave, int kMinBlocks>
-__global__ void __launch_bounds__(ptt::kThreads)
+__global__ void __launch_bounds__(ptt::kThreads, kMinBlocks == 3 ? 3 : 1)
 dot2_kernel(T* __restrict__ result, double* __restrict__ partial, unsigned int* __restrict__ counter,
             const T* __restrict__ x, const T* __restrict__ y, long long n, long long head) {
   __shared__ double scratch[32];
@@ -126,7 +126,7 @@ int launch_reg(void* result, void* partial, void* counter, const void* x, const 
   return (int)cudaGetLastError();
 }
 
-// design: 0 inter U8; 1 inter U4; 2 tiles U8; 3 tiles U4 (tiles: one round per block, not one wave)
+// design: 0 inter U8; 1 inter U8, 3 blocks per SM; 2 inter U6; 3 inter U4 (tiles: one round per block, not one wave)
 template <typename T>
 int launch_dot2(void* result, void* partial, void* counter, const void* x, const void* y,
                 long long n, int cap, int design, int device, void* stream, int* cfg) {
@@ -135,11 +135,11 @@ int launch_dot2(void* result, void* partial, void* counter, const void* x, const
   cudaStream_t s = (cudaStream_t)stream;
   switch (design) {
     case 0: return launch_reg<T, 8, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
-    case 1: return launch_reg<T, 4, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
-    case 2: return launch_reg<T, 8, true, 2>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
-    case 3: return launch_reg<T, 4, true, 2>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+    case 1: return launch_reg<T, 8, true, 3>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+    case 2: return launch_reg<T, 6, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+    case 3: return launch_reg<T, 4, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
   }
-  return launch_reg<T, kU, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+  return launch_reg<T, 8, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
 }
 
 }  // namespace

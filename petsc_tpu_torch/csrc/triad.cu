@@ -93,7 +93,7 @@ __device__ __forceinline__ void block_rounds(E* a, const E* b, const E* c, T alp
 // head >= 0: elements before the first 16-byte edge of a, b and c;
 // head < 0: mixed alignment.
 template <typename T, int U, bool kInterleave, int kMinBlocks>
-__global__ void __launch_bounds__(ptt::kThreads)
+__global__ void __launch_bounds__(ptt::kThreads, kMinBlocks == 3 ? 3 : 1)
 triad_kernel(T* a, const T* b, const T* c, const T* alpha_p, long long n, long long head) {
   using P = ptt::Pack<T>;
   constexpr int W = P::kWidth;
@@ -134,7 +134,7 @@ int launch_reg(void* a, const void* b, const void* c, const void* alpha, long lo
   return (int)cudaGetLastError();
 }
 
-// design: 0 inter U4; 1 inter U8; 2 inter U2; 3 tiles U4; 4 tiles U2; 5 tiles U8 (tiles: one round per block, not one wave)
+// design: 0 tiles U2; 1 tiles U1; 2 inter U8; 3 tiles U4 (tiles: one round per block, not one wave)
 template <typename T>
 int launch_triad(void* a, const void* b, const void* c, const void* alpha, long long n,
                  int design, int device, void* stream, int* cfg) {
@@ -142,14 +142,12 @@ int launch_triad(void* a, const void* b, const void* c, const void* alpha, long 
   const long long head = ptt::aligned_head<T>(n, a, b, c);
   cudaStream_t s = (cudaStream_t)stream;
   switch (design) {
-    case 0: return launch_reg<T, 4, true, 1>(a, b, c, alpha, n, head, device, s, cfg);
-    case 1: return launch_reg<T, 8, true, 1>(a, b, c, alpha, n, head, device, s, cfg);
-    case 2: return launch_reg<T, 2, true, 1>(a, b, c, alpha, n, head, device, s, cfg);
+    case 0: return launch_reg<T, 2, true, 2>(a, b, c, alpha, n, head, device, s, cfg);
+    case 1: return launch_reg<T, 1, true, 2>(a, b, c, alpha, n, head, device, s, cfg);
+    case 2: return launch_reg<T, 8, true, 1>(a, b, c, alpha, n, head, device, s, cfg);
     case 3: return launch_reg<T, 4, true, 2>(a, b, c, alpha, n, head, device, s, cfg);
-    case 4: return launch_reg<T, 2, true, 2>(a, b, c, alpha, n, head, device, s, cfg);
-    case 5: return launch_reg<T, 8, true, 2>(a, b, c, alpha, n, head, device, s, cfg);
   }
-  return launch_reg<T, kU, true, 1>(a, b, c, alpha, n, head, device, s, cfg);
+  return launch_reg<T, 2, true, 2>(a, b, c, alpha, n, head, device, s, cfg);
 }
 
 }  // namespace
