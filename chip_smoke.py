@@ -12,10 +12,15 @@ Phases, one JSON line each on stdout:
            n = 128^3, the stencil at 128^3 box and star and against a
            scipy CSR product at 24^3; times each kernel, its plain version
            and, where one exists, the one PyTorch call that computes the
-           same function (CUDA events, median of 20 launches, L2 flushed
-           before each and the card held 0.1 ms so that the host's launch
-           stays outside the events); computes each bound from the bytes
-           and flops the function needs;
+           same function (CUDA events, median of 20 launches, each after
+           the clean L2 flush of L2Flush and with the card held 0.1 ms so
+           that the host's launch stays outside the events), and beside K4
+           torch.dot(x, y), which reads the same bytes (a yardstick for
+           the bytes, not the same function); computes each bound from the
+           bytes and flops the function needs;
+  flush    K2, torch.add, K3, K4, torch.dot and S1 (box) at 128^3 in f64
+           and f32, each timed after the clean flush and after the
+           write-only flush of PRs 1-3, in turns;
   solve    the main path: init(), build_dnd((128,)*3, "box"), as_mat and
            CG with -pc_type jacobi to rtol 1e-8 (b = 1, x = 0), with every
            kernel's launch count set to 0 just before and read just after;
@@ -23,7 +28,10 @@ Phases, one JSON line each on stdout:
            true residual <= 1e-7, and that every CG step went through the
            kernels; then times warm solves and repeats with -pc_type none;
   profile  one warm CG+Jacobi solve under torch.profiler: the card's busy
-           time, its share of the warm solve time, and time by kernel;
+           time, its share of the warm solve time, time by kernel, and the
+           µs per launch of K2, K3, K4, S1 and S2 inside the solve (vectors
+           warm in L2); asserts that the only second passes (sum_partials)
+           are K3's, one per iteration, so K4 is one launch;
   gather   the four gather kernels K5-K8 at the Pallas probes' shapes, f64
            and f32, each equal to its plain version bit for bit on values
            unique per entry, timed on the probes' own values beside the
@@ -53,7 +61,9 @@ Phases, one JSON line each on stdout:
            version with equal bits on reruns; the host seconds of the two
            assembly calls on a line of their own;
   aij_profile  the profile phase for one warm CSR CG+Jacobi solve.
-Then the kernel table as one JSON line, the nvidia-smi line, and last
+Then the kernel table as one JSON line (K2's and K4's rows also name their
+design, launch shape and share of the bound; every row of the path's
+kernels its µs per launch inside each solve), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. With
 no CUDA device, or without the package beside it, it exits non-zero and
 prints no result.
@@ -81,6 +91,11 @@ REPS = 20
 SLEEP_CYCLES = 200_000          # about 0.1 ms of the card's clock, before each timed launch
 PROBE_SHUFFLE = (1_048_576, 4096, 128)   # C, B, W of pallas_shuffle_probe.py probe_s1/s2/s3
 PROBE_GATHER = (524_288, 4_194_304)      # n, m of pallas_gather_probe.py probe_g1
+# the designs of K2 and K4 (triad.cu, dot2.cu; PERF.md, PR 4)
+DESIGN = {"triad": "registers: one tile of 16-byte packs per block, one pack of b and of c "
+                   "per thread, as many blocks as tiles",
+          "dot2": "registers: one wave, rounds of 8 packs of x and of y per thread "
+                  "interleaved across the grid, one launch (last-block sum)"}
 # kernel -> the part of its device function's name that the profiler shows
 IN_SOLVE = {"triad": "triad_kernel", "axpy_normsq": "axpy_normsq_kernel",
             "dot2": "dot2_kernel", "sum_partials": "sum_partials",
@@ -202,7 +217,8 @@ def phase_kernels(pk, sb, flush, triad_Bps):
                          library_ms=time_ms(lambda: torch.add(b, c, alpha=af), flush))
             if is_main:
                 main["triad"] = dict(row, max_abs_err=float((k - p).abs().max()),
-                                     design="registers", launch=pk.launch_config("triad", dtype, n, dev))
+                                     design=DESIGN["triad"],
+                                     launch=pk.launch_config("triad", dtype, n, dev))
 
             kv, kn = pk.axpy_normsq(alpha, b, c)
             pv, pn = pk.axpy_normsq_plain(alpha, b, c)
@@ -228,7 +244,7 @@ def phase_kernels(pk, sb, flush, triad_Bps):
             if is_main:
                 main["dot2"] = dict(row, max_abs_err=max(
                     float((k1 - p1).abs()), float((k2 - p2).abs())),
-                    design="registers", launch=pk.launch_config("dot2", dtype, n, dev))
+                    design=DESIGN["dot2"], launch=pk.launch_config("dot2", dtype, n, dev))
             del b, c
 
     # S1 stencil at 128^3, box and star, with F.conv3d as the library yardstick
@@ -298,69 +314,6 @@ def phase_flush(pk, flushes):
             out.append({"name": name, "dtype": str(dtype).replace("torch.", ""), "n": n,
                         **{f"{fl}_ms": time_ms(fn, flush) for fl, flush in flushes.items()}})
         del b, c
-    return out
-
-
-DESIGNS = {"triad": {"tiles_U2": 0, "tiles_U1": 1, "inter_U8": 2, "tiles_U4": 3},
-           "dot2": {"inter_U8": 0, "inter_U8_3blk": 1, "inter_U6": 2, "inter_U4": 3}}
-
-
-def phase_designs(pk, flush, rounds=3):
-    """Exploration: K2 and K4 in each design (registers with 4, 2 or 8
-    packs per thread and round; the bulk-copy ring), each checked against
-    its plain version (K4 also for equal bits on a rerun), then timed in
-    turns with torch.add and torch.dot, `rounds` times (median of the
-    rounds' medians), at 128^3 and 2^24+37 in f64 and f32."""
-    import torch
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(7)
-    out = []
-    for dtype in (torch.float64, torch.float32):
-        dn = str(dtype).replace("torch.", "")
-        for n in (N_MAIN ** 3, (1 << 24) + 37):
-            b = torch.rand(n, generator=gen, device=dev, dtype=dtype)
-            c = torch.rand(n, generator=gen, device=dev, dtype=dtype)
-            alpha = torch.tensor(-0.37, dtype=dtype, device=dev)
-            af = float(alpha)
-            pt_, pd = pk.triad_plain(b, c, alpha), pk.dot2_plain(b, c)
-            fns = {}
-            for label, d in DESIGNS["triad"].items():
-                pk._VARIANT.update(triad=d)
-                t_err = rel_err(pk.triad(b, c, alpha), pt_)
-                if not t_err <= TOL[dn]:
-                    raise AssertionError(f"triad design {label} {dn} n={n}: {t_err}")
-
-                def tri(d=d):
-                    pk._VARIANT.update(triad=d)
-                    pk.triad(b, c, alpha)
-                fns[f"triad_{label}"] = tri
-            for label, d in DESIGNS["dot2"].items():
-                pk._VARIANT.update(dot2=d)
-                k1 = pk.dot2(b, c)
-                k2 = pk.dot2(b, c)
-                same = all(torch.equal(u, v) for u, v in zip(k1, k2))
-                d_err = max(rel_err(u, v) for u, v in zip(k1, pd))
-                if not (d_err <= TOL[dn] and same):
-                    raise AssertionError(f"dot2 design {label} {dn} n={n}: {d_err}, equal bits {same}")
-
-                def dot(d=d):
-                    pk._VARIANT.update(dot2=d)
-                    pk.dot2(b, c)
-                fns[f"dot2_{label}"] = dot
-            fns["torch.add"] = lambda: torch.add(b, c, alpha=af)
-            fns["torch.dot"] = lambda: torch.dot(b, c)
-            times = {k: [] for k in fns}
-            for _ in range(rounds):
-                for k, fn in fns.items():
-                    times[k].append(time_ms(fn, flush))
-            pk._VARIANT.update(triad=0, dot2=0)
-            isz = b.element_size()
-            out.append({"dtype": dn, "n": n,
-                        "bound_triad_ms": bound(3 * n * isz, 2 * n, dn)[0],
-                        "bound_dot2_ms": bound(2 * n * isz, 4 * n, dn)[0],
-                        "ms": {k: statistics.median(v) for k, v in times.items()},
-                        "rounds": times})
-            del b, c
     return out
 
 
@@ -877,18 +830,6 @@ def main():
     emit({"phase": "profile", "solve": "jacobi", "nvidia_smi": smi, **prof})
     check_solve(pk, ksp, b, x)
     check_one_launch(prof, its)
-    # exploration: each design's time inside the solve, profiled in turns
-    pairs = {**{f"triad_{k}": (d, 0) for k, d in DESIGNS["triad"].items()},
-             **{f"dot2_{k}": (0, d) for k, d in DESIGNS["dot2"].items() if d}}
-    insolve = {k: [] for k in pairs}
-    for _ in range(2):
-        for label, (dt, dd) in pairs.items():
-            pk._VARIANT.update(triad=dt, dot2=dd)
-            insolve[label].append(profile_solve(ksp, b, x, jac_ms)["in_solve"])
-            check_solve(pk, ksp, b, x)
-    pk._VARIANT.update(triad=0, dot2=0)
-    emit({"phase": "designs_in_solve", "nvidia_smi": smi, "in_solve": insolve})
-    emit({"phase": "designs", "nvidia_smi": smi, "rows": phase_designs(pk, flush)})
 
     gdetails, gather_rows = phase_gather(gk, flush)
     emit({"phase": "gather", "nvidia_smi": smi, "checks": gdetails,

@@ -104,11 +104,15 @@ inline long long aligned_head(long long n, const void* a, const void* b, const v
   return head < n ? head : n;
 }
 
-// This block's slab of `count` items: [lo, hi), contiguous, the slabs of
-// all blocks in block order and within one item of each other in length.
-__device__ __forceinline__ void slab(long long count, long long* lo, long long* hi) {
-  *lo = count * blockIdx.x / gridDim.x;
-  *hi = count * (blockIdx.x + 1) / gridDim.x;
+// The launch shape that a kernel's config entry point reports: blocks,
+// threads per block, 16-byte packs per thread and round, blocks per SM, SMs.
+inline int write_config(int* cfg, int grid, int packs, const Wave& w) {
+  cfg[0] = grid;
+  cfg[1] = kThreads;
+  cfg[2] = packs;
+  cfg[3] = w.per_sm;
+  cfg[4] = w.sms;
+  return 0;
 }
 
 // Sum of one value per thread over the block in a fixed order (warp

@@ -6,19 +6,25 @@
 //
 // Bound: 2 n itemsize bytes (x and y read once) over 3.35 TB/s, for 4 n
 // flops: device-memory bandwidth. At 128^3 in f64 that is 33.5 MB, about
-// the L2's size, so the ramp of a wave and its tail are a large share.
+// the L2's size, so the ramp of the grid and its tail are a large share.
 // Design for that bound:
-// - One wave: the grid is the blocks that the card holds at once (SMs
-//   times the occupancy calculator's blocks per SM, queried once per
-//   device), and each block owns one contiguous slab of x and y.
-// - Every load of a round in flight at once: a thread loads kU 16-byte
-//   packs of x and kU of y before its first multiply (kU = 4: 128 bytes in
-//   flight per thread); at 128^3 a block takes its slab in one or two rounds.
 // - One launch: each block reduces its two sums in double (f32 inputs
 //   too), and the block that draws the last ticket sums the per-block
 //   partials in block order (ptt::finish_sums). The ticket's counter is
-//   scratch that the wrapper owns per stream; the kernel leaves it at 0.
-//   The grid depends only on n and the card, so reruns give the same bits.
+//   scratch that the wrapper owns per stream; the kernel leaves it at 0,
+//   so a call needs no memset.
+// - One wave: the grid is the blocks that the card holds at once (SMs
+//   times the occupancy calculator's blocks per SM, queried once per
+//   device), so that no block waits for a slot and the last block sums
+//   few partials.
+// - Every load of a round in flight at once: in each round a thread loads
+//   kU = 8 16-byte packs of x and 8 of y (256 bytes) before its first
+//   multiply. Block b takes rounds b, b + G, b + 2G, ... of the range, so
+//   the grid streams one window of memory at a time. On the H100 (PERF.md,
+//   PR 4) this beat a contiguous slab per block (6-7 % at 2^24 elements),
+//   2, 4 or 6 packs, a cp.async.bulk ring and one round per block.
+// - The grid depends only on n and the card, and so does the order of
+//   every sum: reruns give the same bits.
 // - Alignment: when x and y are off 16 bytes by the same amount (x[1:],
 //   y[1:]), a scalar head up to the first 16-byte edge is peeled and the
 //   rest is vectorised; only mixed alignment takes scalar loads throughout.
@@ -34,17 +40,20 @@ __device__ __forceinline__ void acc2(double (&s)[2], T x, T y) {
   s[1] += (double)y * (double)y;
 }
 
-// Rounds over items E: in each, a thread loads V items of x and V of y
-// (item v at i0 + v kThreads) before it sums any. The rounds of a block
-// start at `first` (plus the thread) and step by `step` up to `end`. A
-// full round loads without conditions, so that the compiler issues every
-// load first; a partial one zero-fills what lies past `end`.
+// This block's rounds over `count` items E: round r covers items
+// [r R, (r + 1) R), R = V kThreads, and block b takes rounds b, b + G, ...
+// In a round a thread loads V items of x and V of y (item v at its index
+// + v kThreads) before it sums any. A full round loads without
+// conditions, so that the compiler issues every load first; the last one
+// zero-fills what lies past `count`.
 template <int V, typename E, typename F>
 __device__ __forceinline__ void rounds(const E* __restrict__ x, const E* __restrict__ y,
-                                       long long first, long long step, long long end, F&& sum) {
-  for (long long i0 = first + threadIdx.x; i0 < end; i0 += step) {
+                                       long long count, F&& sum) {
+  const long long step = (long long)gridDim.x * V * ptt::kThreads;
+  for (long long i0 = (long long)blockIdx.x * V * ptt::kThreads + threadIdx.x; i0 < count;
+       i0 += step) {
     E xv[V], yv[V];
-    if (i0 + (long long)(V - 1) * ptt::kThreads < end) {
+    if (i0 + (long long)(V - 1) * ptt::kThreads < count) {
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         xv[v] = x[i0 + (long long)v * ptt::kThreads];
@@ -54,8 +63,8 @@ __device__ __forceinline__ void rounds(const E* __restrict__ x, const E* __restr
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         const long long i = i0 + (long long)v * ptt::kThreads;
-        xv[v] = i < end ? x[i] : E{};
-        yv[v] = i < end ? y[i] : E{};
+        xv[v] = i < count ? x[i] : E{};
+        yv[v] = i < count ? y[i] : E{};
       }
     }
 #pragma unroll
@@ -63,26 +72,10 @@ __device__ __forceinline__ void rounds(const E* __restrict__ x, const E* __restr
   }
 }
 
-// The rounds of this block over `count` items, V per thread and round:
-// its contiguous slab, or (kInterleave) every gridDim.x-th round of the
-// whole range, so that the grid streams one window of memory at a time.
-template <int V, bool kInterleave, typename E, typename F>
-__device__ __forceinline__ void block_rounds(const E* __restrict__ x, const E* __restrict__ y,
-                                             long long count, F&& sum) {
-  const long long r = (long long)V * ptt::kThreads;
-  if (kInterleave) {
-    rounds<V>(x, y, blockIdx.x * r, gridDim.x * r, count, sum);
-  } else {
-    long long lo, hi;
-    ptt::slab(count, &lo, &hi);
-    rounds<V>(x, y, lo, r, hi, sum);
-  }
-}
-
 // head >= 0: elements before the first 16-byte edge of both x and y;
 // head < 0: mixed alignment.
-template <typename T, int U, bool kInterleave, int kMinBlocks>
-__global__ void __launch_bounds__(ptt::kThreads, kMinBlocks == 3 ? 3 : 1)
+template <typename T>
+__global__ void __launch_bounds__(ptt::kThreads)
 dot2_kernel(T* __restrict__ result, double* __restrict__ partial, unsigned int* __restrict__ counter,
             const T* __restrict__ x, const T* __restrict__ y, long long n, long long head) {
   __shared__ double scratch[32];
@@ -91,12 +84,11 @@ dot2_kernel(T* __restrict__ result, double* __restrict__ partial, unsigned int* 
   double s[2] = {0.0, 0.0};
   if (head >= 0) {
     const long long nv = (n - head) / W;
-    block_rounds<U, kInterleave>(reinterpret_cast<const P*>(x + head),
-                                 reinterpret_cast<const P*>(y + head), nv,
-                                 [&](const P& xv, const P& yv) {
+    rounds<kU>(reinterpret_cast<const P*>(x + head), reinterpret_cast<const P*>(y + head), nv,
+               [&](const P& xv, const P& yv) {
 #pragma unroll
-                                   for (int k = 0; k < W; ++k) acc2(s, xv.v[k], yv.v[k]);
-                                 });
+                 for (int k = 0; k < W; ++k) acc2(s, xv.v[k], yv.v[k]);
+               });
     // the scalar ends, in block 0: the head and the tail past the last pack
     const long long tail = head + nv * W;
     if (blockIdx.x == 0) {
@@ -104,76 +96,47 @@ dot2_kernel(T* __restrict__ result, double* __restrict__ partial, unsigned int* 
       if (tail + threadIdx.x < n) acc2(s, x[tail + threadIdx.x], y[tail + threadIdx.x]);
     }
   } else {
-    block_rounds<U * W, kInterleave>(x, y, n, [&](T xv, T yv) { acc2(s, xv, yv); });
+    rounds<kU * W>(x, y, n, [&](T xv, T yv) { acc2(s, xv, yv); });
   }
   ptt::finish_sums<2>(s, partial, counter, scratch, [&](int k, double v) { result[k] = (T)v; });
 }
 
-template <typename T, int U, bool kInterleave, int kMinBlocks>
-int launch_reg(void* result, void* partial, void* counter, const void* x, const void* y,
-               long long n, long long head, int cap, int device, cudaStream_t stream, int* cfg) {
-  static std::atomic<int> cache[ptt::kMaxDevices][2];
-  auto kernel = dot2_kernel<T, U, kInterleave, kMinBlocks>;
-  ptt::Wave w;
-  PTT_TRY(ptt::wave_of(kernel, 0, device, cache, &w));
-  const int grid = ptt::wave_grid(kMinBlocks == 2 ? ptt::Wave{1 << 20, 1} : w, n, (long long)U * ptt::Pack<T>::kWidth * ptt::kThreads, cap);
-  if (cfg) {
-    cfg[0] = grid, cfg[1] = ptt::kThreads, cfg[2] = U, cfg[3] = w.per_sm;
-    return 0;
-  }
-  kernel<<<grid, ptt::kThreads, 0, stream>>>((T*)result, (double*)partial, (unsigned int*)counter,
-                                             (const T*)x, (const T*)y, n, head);
-  return (int)cudaGetLastError();
-}
-
-// design: 0 inter U8; 1 inter U8, 3 blocks per SM; 2 inter U6; 3 inter U4 (tiles: one round per block, not one wave)
+// With cfg, writes the launch shape there instead of launching.
 template <typename T>
 int launch_dot2(void* result, void* partial, void* counter, const void* x, const void* y,
-                long long n, int cap, int design, int device, void* stream, int* cfg) {
+                long long n, int cap, int device, void* stream, int* cfg) {
+  static std::atomic<int> cache[ptt::kMaxDevices][2];
   PTT_TRY(cudaSetDevice(device));
-  const long long head = ptt::aligned_head<T>(n, x, y);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (design) {
-    case 0: return launch_reg<T, 8, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
-    case 1: return launch_reg<T, 8, true, 3>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
-    case 2: return launch_reg<T, 6, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
-    case 3: return launch_reg<T, 4, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
-  }
-  return launch_reg<T, 8, true, 1>(result, partial, counter, x, y, n, head, cap, device, s, cfg);
+  ptt::Wave w;
+  PTT_TRY(ptt::wave_of(dot2_kernel<T>, 0, device, cache, &w));
+  const long long per_round = (long long)kU * ptt::Pack<T>::kWidth * ptt::kThreads;
+  const int grid = ptt::wave_grid(w, n, per_round, cap);
+  if (cfg) return ptt::write_config(cfg, grid, kU, w);
+  dot2_kernel<T><<<grid, ptt::kThreads, 0, (cudaStream_t)stream>>>(
+      (T*)result, (double*)partial, (unsigned int*)counter, (const T*)x, (const T*)y, n,
+      ptt::aligned_head<T>(n, x, y));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// partial: cap doubles per sum of scratch; counter: one 32-bit zero that
-// every launch leaves at zero; result: two T.
+// partial: `cap` doubles of scratch per sum; counter: one 32-bit zero that
+// every launch leaves at zero (both owned by the caller, one pair per
+// stream); result: two T.
 extern "C" int ptt_dot2_f64(void* result, void* partial, void* counter, const void* x,
                             const void* y, long long n, int cap, int device, void* stream) {
-  return launch_dot2<double>(result, partial, counter, x, y, n, cap, 0, device, stream, nullptr);
+  return launch_dot2<double>(result, partial, counter, x, y, n, cap, device, stream, nullptr);
 }
 
 extern "C" int ptt_dot2_f32(void* result, void* partial, void* counter, const void* x,
                             const void* y, long long n, int cap, int device, void* stream) {
-  return launch_dot2<float>(result, partial, counter, x, y, n, cap, 0, device, stream, nullptr);
+  return launch_dot2<float>(result, partial, counter, x, y, n, cap, device, stream, nullptr);
 }
 
-extern "C" int ptt_dot2_variant_f64(void* result, void* partial, void* counter, const void* x,
-                                    const void* y, long long n, int cap, int design, int device,
-                                    void* stream) {
-  return launch_dot2<double>(result, partial, counter, x, y, n, cap, design, device, stream, nullptr);
-}
-
-extern "C" int ptt_dot2_variant_f32(void* result, void* partial, void* counter, const void* x,
-                                    const void* y, long long n, int cap, int design, int device,
-                                    void* stream) {
-  return launch_dot2<float>(result, partial, counter, x, y, n, cap, design, device, stream, nullptr);
-}
-
-// The launch shape for n elements on `device` and `cap` partials: cfg[0]
-// blocks, cfg[1] threads per block, cfg[2] packs per thread and round,
-// cfg[3] blocks per SM.
+// The launch shape for n elements of f64 (or f32) with `cap` partials.
 extern "C" int ptt_dot2_config(int f64, long long n, int cap, int device, int* cfg) {
-  return f64 ? launch_dot2<double>(nullptr, nullptr, nullptr, nullptr, nullptr, n, cap, 0, device,
+  return f64 ? launch_dot2<double>(nullptr, nullptr, nullptr, nullptr, nullptr, n, cap, device,
                                    nullptr, cfg)
-             : launch_dot2<float>(nullptr, nullptr, nullptr, nullptr, nullptr, n, cap, 0, device,
+             : launch_dot2<float>(nullptr, nullptr, nullptr, nullptr, nullptr, n, cap, device,
                                   nullptr, cfg);
 }

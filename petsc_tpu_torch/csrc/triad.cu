@@ -6,27 +6,29 @@
 //
 // Bound: it moves 3 n itemsize bytes (b and c read once, a written once)
 // over 3.35 TB/s, for 2 n flops: device-memory bandwidth. At 128^3 in f64
-// that is 50.3 MB, about the L2's size, so the ramp of a wave and its tail
-// are a large share.
-// Design for that bound:
-// - One wave: the grid is the blocks that the card holds at once (SMs
-//   times the occupancy calculator's blocks per SM, queried once per
-//   device), and each block owns one contiguous slab of a, b and c.
-// - Every load of a round in flight at once: a thread loads kU 16-byte
-//   packs of b and kU of c before its first FMA, then stores kU packs of a.
-// - Alignment: when a, b and c are off 16 bytes by the same amount, a
-//   scalar head up to the first 16-byte edge is peeled and the rest is
-//   vectorised; only mixed alignment takes scalar loads throughout.
+// that is 50.3 MB, about the L2's size.
+// Design for that bound: one tile of kThreads 16-byte packs per block and
+// as many blocks as tiles (up to 2^30, past which each block loops), so
+// a thread issues its loads of b and c at once, stores one pack of a and
+// exits, and the card's block scheduler keeps every SM full of fresh
+// loads to the end. On the H100 (PERF.md, PR 4) this beat one wave of
+// persistent blocks with 2, 4 or 8 packs per thread in rounds, with
+// contiguous slabs or interleaved rounds, one-round blocks of 2 or 4
+// packs, and a cp.async.bulk ring with bulk stores; it was the only
+// design measured that was no slower than torch.add in f64 and f32, at
+// 128^3 and at 2^24 elements.
+// Alignment: when a, b and c are off 16 bytes by the same amount, a scalar
+// head up to the first 16-byte edge is peeled and the rest is vectorised;
+// only mixed alignment takes scalar loads throughout.
 // alpha is read on the card from a 0-d tensor, as the Pallas kernel reads
 // it from SMEM, so a launch needs no host round trip. a may alias b or c
 // (the CG body updates x and p in place): each element is read and
-// written by the same thread, and all of a thread's loads in a round come
-// before its stores.
+// written by the same thread, which loads before it stores.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kU = 4;   // 16-byte packs of b and of c a thread loads before it computes
+constexpr long long kMaxGrid = 1LL << 30;
 
 template <typename T>
 __device__ __forceinline__ T fma_of(T b, T alpha, T c) { return b + alpha * c; }
@@ -39,69 +41,28 @@ __device__ __forceinline__ ptt::Pack<T> fma_of(const ptt::Pack<T>& b, T alpha, c
   return o;
 }
 
-// Rounds over items E: in each, a thread loads V items of b and V of c
-// (item v at i0 + v kThreads), then stores V items of a. The rounds of a
-// block start at `first` (plus the thread) and step by `step` up to `end`.
-// A full round loads without conditions, so that the compiler issues
-// every load first; a partial one skips what lies past `end`.
-template <int V, typename T, typename E>
-__device__ __forceinline__ void rounds(E* a, const E* b, const E* c, T alpha, long long first,
-                                       long long step, long long end) {
-  for (long long i0 = first + threadIdx.x; i0 < end; i0 += step) {
-    E bv[V], cv[V];
-    if (i0 + (long long)(V - 1) * ptt::kThreads < end) {
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        bv[v] = b[i0 + (long long)v * ptt::kThreads];
-        cv[v] = c[i0 + (long long)v * ptt::kThreads];
-      }
-#pragma unroll
-      for (int v = 0; v < V; ++v) a[i0 + (long long)v * ptt::kThreads] = fma_of(bv[v], alpha, cv[v]);
-    } else {
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const long long i = i0 + (long long)v * ptt::kThreads;
-        if (i < end) {
-          bv[v] = b[i];
-          cv[v] = c[i];
-        }
-      }
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const long long i = i0 + (long long)v * ptt::kThreads;
-        if (i < end) a[i] = fma_of(bv[v], alpha, cv[v]);
-      }
-    }
-  }
-}
-
-// The rounds of this block over `count` items, V per thread and round:
-// its contiguous slab, or (kInterleave) every gridDim.x-th round of the
-// whole range, so that the grid streams one window of memory at a time.
-template <int V, bool kInterleave, typename T, typename E>
-__device__ __forceinline__ void block_rounds(E* a, const E* b, const E* c, T alpha, long long count) {
-  const long long r = (long long)V * ptt::kThreads;
-  if (kInterleave) {
-    rounds<V>(a, b, c, alpha, blockIdx.x * r, gridDim.x * r, count);
-  } else {
-    long long lo, hi;
-    ptt::slab(count, &lo, &hi);
-    rounds<V>(a, b, c, alpha, lo, r, hi);
+// a = b + alpha c over `count` items E, one item per thread and tile
+template <typename T, typename E>
+__device__ __forceinline__ void tiles(E* a, const E* b, const E* c, T alpha, long long count) {
+  const long long step = (long long)gridDim.x * ptt::kThreads;
+  for (long long i = (long long)blockIdx.x * ptt::kThreads + threadIdx.x; i < count; i += step) {
+    const E bv = b[i], cv = c[i];
+    a[i] = fma_of(bv, alpha, cv);
   }
 }
 
 // head >= 0: elements before the first 16-byte edge of a, b and c;
 // head < 0: mixed alignment.
-template <typename T, int U, bool kInterleave, int kMinBlocks>
-__global__ void __launch_bounds__(ptt::kThreads, kMinBlocks == 3 ? 3 : 1)
+template <typename T>
+__global__ void __launch_bounds__(ptt::kThreads)
 triad_kernel(T* a, const T* b, const T* c, const T* alpha_p, long long n, long long head) {
   using P = ptt::Pack<T>;
   constexpr int W = P::kWidth;
   const T alpha = *alpha_p;
   if (head >= 0) {
     const long long nv = (n - head) / W;
-    block_rounds<U, kInterleave>(reinterpret_cast<P*>(a + head), reinterpret_cast<const P*>(b + head),
-                                 reinterpret_cast<const P*>(c + head), alpha, nv);
+    tiles(reinterpret_cast<P*>(a + head), reinterpret_cast<const P*>(b + head),
+          reinterpret_cast<const P*>(c + head), alpha, nv);
     // the scalar ends, in block 0: the head and the tail past the last pack
     const long long tail = head + nv * W;
     if (blockIdx.x == 0) {
@@ -112,69 +73,44 @@ triad_kernel(T* a, const T* b, const T* c, const T* alpha_p, long long n, long l
       }
     }
   } else {
-    block_rounds<U * W, kInterleave>(a, b, c, alpha, n);
+    tiles(a, b, c, alpha, n);
   }
 }
 
-template <typename T, int U, bool kInterleave, int kMinBlocks>
-int launch_reg(void* a, const void* b, const void* c, const void* alpha, long long n,
-               long long head, int device, cudaStream_t stream, int* cfg) {
-  static std::atomic<int> cache[ptt::kMaxDevices][2];
-  auto kernel = triad_kernel<T, U, kInterleave, kMinBlocks>;
-  ptt::Wave w;
-  PTT_TRY(ptt::wave_of(kernel, 0, device, cache, &w));
-  const int grid = ptt::wave_grid(kMinBlocks == 2 ? ptt::Wave{1 << 20, 1} : w, n, (long long)U * ptt::Pack<T>::kWidth * ptt::kThreads,
-                                  1LL << 30);
-  if (cfg) {
-    cfg[0] = grid, cfg[1] = ptt::kThreads, cfg[2] = U, cfg[3] = w.per_sm;
-    return 0;
-  }
-  kernel<<<grid, ptt::kThreads, 0, stream>>>((T*)a, (const T*)b, (const T*)c, (const T*)alpha, n,
-                                             head);
-  return (int)cudaGetLastError();
-}
-
-// design: 0 tiles U2; 1 tiles U1; 2 inter U8; 3 tiles U4 (tiles: one round per block, not one wave)
+// With cfg, writes the launch shape there instead of launching.
 template <typename T>
 int launch_triad(void* a, const void* b, const void* c, const void* alpha, long long n,
-                 int design, int device, void* stream, int* cfg) {
+                 int device, void* stream, int* cfg) {
   PTT_TRY(cudaSetDevice(device));
-  const long long head = ptt::aligned_head<T>(n, a, b, c);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (design) {
-    case 0: return launch_reg<T, 2, true, 2>(a, b, c, alpha, n, head, device, s, cfg);
-    case 1: return launch_reg<T, 1, true, 2>(a, b, c, alpha, n, head, device, s, cfg);
-    case 2: return launch_reg<T, 8, true, 1>(a, b, c, alpha, n, head, device, s, cfg);
-    case 3: return launch_reg<T, 4, true, 2>(a, b, c, alpha, n, head, device, s, cfg);
+  // one tile of packs per block; the same grid takes the scalar path W
+  // elements per thread
+  long long grid = (n + ptt::Pack<T>::kWidth * ptt::kThreads - 1) / (ptt::Pack<T>::kWidth * ptt::kThreads);
+  grid = grid < 1 ? 1 : grid > kMaxGrid ? kMaxGrid : grid;
+  if (cfg) {
+    static std::atomic<int> cache[ptt::kMaxDevices][2];
+    ptt::Wave w;
+    PTT_TRY(ptt::wave_of(triad_kernel<T>, 0, device, cache, &w));
+    return ptt::write_config(cfg, (int)grid, 1, w);
   }
-  return launch_reg<T, 2, true, 2>(a, b, c, alpha, n, head, device, s, cfg);
+  triad_kernel<T><<<(unsigned int)grid, ptt::kThreads, 0, (cudaStream_t)stream>>>(
+      (T*)a, (const T*)b, (const T*)c, (const T*)alpha, n, ptt::aligned_head<T>(n, a, b, c));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int ptt_triad_f64(void* a, const void* b, const void* c, const void* alpha, long long n,
                              int device, void* stream) {
-  return launch_triad<double>(a, b, c, alpha, n, 0, device, stream, nullptr);
+  return launch_triad<double>(a, b, c, alpha, n, device, stream, nullptr);
 }
 
 extern "C" int ptt_triad_f32(void* a, const void* b, const void* c, const void* alpha, long long n,
                              int device, void* stream) {
-  return launch_triad<float>(a, b, c, alpha, n, 0, device, stream, nullptr);
+  return launch_triad<float>(a, b, c, alpha, n, device, stream, nullptr);
 }
 
-extern "C" int ptt_triad_variant_f64(void* a, const void* b, const void* c, const void* alpha,
-                                     long long n, int design, int device, void* stream) {
-  return launch_triad<double>(a, b, c, alpha, n, design, device, stream, nullptr);
-}
-
-extern "C" int ptt_triad_variant_f32(void* a, const void* b, const void* c, const void* alpha,
-                                     long long n, int design, int device, void* stream) {
-  return launch_triad<float>(a, b, c, alpha, n, design, device, stream, nullptr);
-}
-
-// The launch shape for n elements on `device`: cfg[0] blocks, cfg[1]
-// threads per block, cfg[2] packs per thread and round, cfg[3] blocks per SM.
+// The launch shape for n elements of f64 (or f32).
 extern "C" int ptt_triad_config(int f64, long long n, int device, int* cfg) {
-  return f64 ? launch_triad<double>(nullptr, nullptr, nullptr, nullptr, n, 0, device, nullptr, cfg)
-             : launch_triad<float>(nullptr, nullptr, nullptr, nullptr, n, 0, device, nullptr, cfg);
+  return f64 ? launch_triad<double>(nullptr, nullptr, nullptr, nullptr, n, device, nullptr, cfg)
+             : launch_triad<float>(nullptr, nullptr, nullptr, nullptr, n, device, nullptr, cfg);
 }

@@ -49,9 +49,6 @@ _PROBE_SHAPE = (16, 128)
 # its two sums, then the 32-bit counter of its last-block ticket, zeroed
 # once; every launch leaves the counter at 0, so no call needs a memset
 _WORKSPACE = {}
-# exploration: the variant of each kernel that the wrappers launch (0 is
-# the entry point's own)
-_VARIANT = {"triad": 0, "dot2": 0}
 
 
 def reset_launches():
@@ -146,16 +143,8 @@ def triad(b, c, alpha, out=None):
         return triad_plain(b, c, alpha, out)
     a = torch.empty_like(b) if out is None else out
     if b.numel():
-        design = _VARIANT["triad"]
-        if design:
-            fn = getattr(cuda_build.library(), f"ptt_triad_variant_{_SUFFIX[b.dtype]}")
-            cuda_build.check("triad", fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                                         alpha.data_ptr(), b.numel(), design, b.get_device(),
-                                         torch.cuda.current_stream(b.device).cuda_stream))
-            LAUNCHES["triad"] += 1
-        else:
-            _launch("triad", b, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                    alpha.data_ptr(), b.numel())
+        _launch("triad", b, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                alpha.data_ptr(), b.numel())
     return a
 
 
@@ -206,15 +195,8 @@ def dot2(x, y):
         res.zero_()
         return res[0], res[1]
     ws = _workspace(x.device)
-    args = (res.data_ptr(), ws.data_ptr(), ws.data_ptr() + 2 * _NPARTS * 8, x.data_ptr(),
-            y.data_ptr(), x.numel(), _NPARTS)
-    if _VARIANT["dot2"]:
-        fn = getattr(cuda_build.library(), f"ptt_dot2_variant_{_SUFFIX[x.dtype]}")
-        cuda_build.check("dot2", fn(*args, _VARIANT["dot2"], x.get_device(),
-                                    torch.cuda.current_stream(x.device).cuda_stream))
-        LAUNCHES["dot2"] += 1
-    else:
-        _launch("dot2", x, *args)
+    _launch("dot2", x, res.data_ptr(), ws.data_ptr(), ws.data_ptr() + 2 * _NPARTS * 8,
+            x.data_ptr(), y.data_ptr(), x.numel(), _NPARTS)
     return res[0], res[1]
 
 
@@ -232,14 +214,14 @@ def launch_config(name, dtype, n, device):
     """The launch shape that K2 ("triad") or K4 ("dot2") takes for n
     elements of `dtype` on CUDA `device`: blocks, threads per block,
     16-byte packs per thread and round, blocks per SM (from the occupancy
-    calculator)."""
+    calculator) and the card's SMs."""
     dev = torch.device(device)
-    cfg = (ctypes.c_int * 4)()
+    cfg = (ctypes.c_int * 5)()
     args = (int(dtype == torch.float64), int(n)) + ((_NPARTS,) if name == "dot2" else ()) \
         + (dev.index if dev.index is not None else torch.cuda.current_device(),
            ctypes.addressof(cfg))
     cuda_build.check(name, getattr(cuda_build.library(), f"ptt_{name}_config")(*args))
-    return dict(zip(("grid", "threads", "packs_per_thread", "blocks_per_sm"), cfg))
+    return dict(zip(("grid", "threads", "packs_per_thread", "blocks_per_sm", "sms"), cfg))
 
 
 # ---------------------------------------------------------------------

@@ -69,12 +69,13 @@ def test_vector_kernels_match_plain(cuda_device, dtype, n):
 
 def _edge_lengths(dtype, device):
     """1, 5, one 16-byte pack, one pack + 1, and the edge of each kernel's
-    full wave (SMs x blocks x threads x packs per thread x pack width) +- 1."""
+    full wave (SMs x blocks per SM x threads x packs per thread x pack
+    width) +- 1."""
     w = 16 // torch.empty((), dtype=dtype).element_size()
     ns = {1, 5, w, w + 1}
     for name in ("triad", "dot2"):
-        c = pk.launch_config(name, dtype, 1 << 40, device)
-        edge = c["grid"] * c["threads"] * c["packs_per_thread"] * w
+        c = pk.launch_config(name, dtype, 1 << 24, device)
+        edge = c["sms"] * c["blocks_per_sm"] * c["threads"] * c["packs_per_thread"] * w
         ns |= {edge - 1, edge, edge + 1}
     return sorted(ns)
 

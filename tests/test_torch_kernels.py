@@ -141,8 +141,7 @@ def test_every_csrc_source_is_built():
     assert defined == set(cuda_build.SIGNATURES)
     kernels = [k for k in (*pk.LAUNCHES, *gk.LAUNCHES) if k != "probe"]
     called = {"ptt_probe", "ptt_triad_config", "ptt_dot2_config"} \
-        | {f"ptt_{k}{v}_{s}" for k in kernels for s in ("f64", "f32")
-           for v in ("", *(("_variant",) if k in ("triad", "dot2") else ()))}
+        | {f"ptt_{k}_{s}" for k in kernels for s in ("f64", "f32")}
     assert called == defined
 
 
