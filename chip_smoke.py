@@ -317,6 +317,49 @@ def phase_flush(pk, flushes):
     return out
 
 
+TRIAD_BLOCKS = {"b256": 0, "b128": 1, "b512": 2, "b1024": 3}
+
+
+def phase_triad_blocks(pk, flush, rounds=3):
+    """Exploration: K2 with 256, 128, 512 or 1024 threads a block, each
+    checked against its plain version, then timed in turns with torch.add,
+    `rounds` times, at 128^3 and 2^24+37 in f64 and f32."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = []
+    for dtype in (torch.float64, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        for n in (N_MAIN ** 3, (1 << 24) + 37):
+            b = torch.rand(n, generator=gen, device=dev, dtype=dtype)
+            c = torch.rand(n, generator=gen, device=dev, dtype=dtype)
+            alpha = torch.tensor(-0.37, dtype=dtype, device=dev)
+            af = float(alpha)
+            want = pk.triad_plain(b, c, alpha)
+            fns = {}
+            for label, d in TRIAD_BLOCKS.items():
+                pk._VARIANT["triad"] = d
+                err = rel_err(pk.triad(b, c, alpha), want)
+                if not err <= TOL[dn]:
+                    raise AssertionError(f"triad {label} {dn} n={n}: {err}")
+
+                def tri(d=d):
+                    pk._VARIANT["triad"] = d
+                    pk.triad(b, c, alpha)
+                fns[label] = tri
+            fns["torch.add"] = lambda: torch.add(b, c, alpha=af)
+            times = {k: [] for k in fns}
+            for _ in range(rounds):
+                for k, fn in fns.items():
+                    times[k].append(time_ms(fn, flush))
+            pk._VARIANT["triad"] = 0
+            out.append({"dtype": dn, "n": n,
+                        "ms": {k: statistics.median(v) for k, v in times.items()},
+                        "rounds": times})
+            del b, c
+    return out
+
+
 def solve_once(pt, sb, pc_type):
     """The main path through the user's entry points: returns (ksp, A, b, x)."""
     pt.init(args=["-ksp_type", "cg", "-pc_type", pc_type, "-ksp_rtol", "1e-8",
@@ -792,6 +835,7 @@ def main():
 
     # ---- the main path, with every launch count set to 0 just before ----
     torch.cuda.reset_peak_memory_stats()
+    live0 = torch.cuda.memory_allocated()
     pk.reset_launches()
     gk.reset_launches()
     t0 = time.perf_counter()
@@ -806,6 +850,7 @@ def main():
     if short:
         raise AssertionError(f"main path launched too few kernels (got, need): {short}")
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    path_mb = (torch.cuda.max_memory_allocated() - live0) / 2 ** 20
     jac_ms = warm_ms(ksp, b, x)
     check_solve(pk, ksp, b, x)
 
@@ -821,7 +866,7 @@ def main():
                      "warm_ms_best_of_3": jac_ms, "ms_per_it": jac_ms / its,
                      "launches": launches,
                      "launches_per_it": {k: v / its for k, v in launches.items()},
-                     "peak_mem_MiB": peak_mb},
+                     "peak_mem_MiB": peak_mb, "path_peak_mem_MiB": path_mb},
           "none": {"its": none[0], "reason": none[1], "relres": none[2],
                    "true_relres": none[3], "warm_ms_best_of_3": none_ms,
                    "ms_per_it": none_ms / none[0]},
@@ -830,6 +875,16 @@ def main():
     emit({"phase": "profile", "solve": "jacobi", "nvidia_smi": smi, **prof})
     check_solve(pk, ksp, b, x)
     check_one_launch(prof, its)
+    # exploration: K2's block size inside the solve, profiled in turns
+    insolve = {k: [] for k in TRIAD_BLOCKS}
+    for _ in range(2):
+        for label, d in TRIAD_BLOCKS.items():
+            pk._VARIANT["triad"] = d
+            insolve[label].append(profile_solve(ksp, b, x, jac_ms)["in_solve"])
+            check_solve(pk, ksp, b, x)
+    pk._VARIANT["triad"] = 0
+    emit({"phase": "designs_in_solve", "nvidia_smi": smi, "in_solve": insolve})
+    emit({"phase": "designs", "nvidia_smi": smi, "rows": phase_triad_blocks(pk, flush)})
 
     gdetails, gather_rows = phase_gather(gk, flush)
     emit({"phase": "gather", "nvidia_smi": smi, "checks": gdetails,
@@ -843,6 +898,7 @@ def main():
                   "-ksp_max_it", "3000"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    live0 = torch.cuda.memory_allocated()
     pk.reset_launches()
     gk.reset_launches()
     t0 = time.perf_counter()
@@ -874,6 +930,7 @@ def main():
         raise AssertionError(f"assembled path's launches (got, need): {short}; "
                              f"const_stencil {aij_launches['const_stencil']} (need 0)")
     peak_a = torch.cuda.max_memory_allocated() / 2 ** 20
+    path_a = (torch.cuda.max_memory_allocated() - live0) / 2 ** 20
     coo_rows = phase_coo_gather(gk, A_aij, cv, flush)
     del cv
     jac_ms_a = warm_ms(ksp_a, b_a, x_a)
@@ -890,7 +947,7 @@ def main():
                      "warm_ms_best_of_3": jac_ms_a, "ms_per_it": jac_ms_a / its_a,
                      "launches": aij_launches,
                      "launches_per_it": {k: v / its_a for k, v in aij_launches.items()},
-                     "peak_mem_MiB": peak_a},
+                     "peak_mem_MiB": peak_a, "path_peak_mem_MiB": path_a},
           "none": {**none_a, "warm_ms_best_of_3": none_ms_a,
                    "ms_per_it": none_ms_a / none_a["its"]},
           "spmv": sdetails, "coo_gather": coo_rows,

@@ -49,6 +49,8 @@ _PROBE_SHAPE = (16, 128)
 # its two sums, then the 32-bit counter of its last-block ticket, zeroed
 # once; every launch leaves the counter at 0, so no call needs a memset
 _WORKSPACE = {}
+# exploration: the variant of K2 that the wrapper launches (0: the entry point's own)
+_VARIANT = {"triad": 0}
 
 
 def reset_launches():
@@ -143,8 +145,16 @@ def triad(b, c, alpha, out=None):
         return triad_plain(b, c, alpha, out)
     a = torch.empty_like(b) if out is None else out
     if b.numel():
-        _launch("triad", b, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                alpha.data_ptr(), b.numel())
+        if _VARIANT["triad"]:
+            fn = getattr(cuda_build.library(), f"ptt_triad_variant_{_SUFFIX[b.dtype]}")
+            cuda_build.check("triad", fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                         alpha.data_ptr(), b.numel(), _VARIANT["triad"],
+                                         b.get_device(),
+                                         torch.cuda.current_stream(b.device).cuda_stream))
+            LAUNCHES["triad"] += 1
+        else:
+            _launch("triad", b, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                    alpha.data_ptr(), b.numel())
     return a
 
 
