@@ -20,7 +20,7 @@ Phases, one JSON line each on stdout:
            bytes and flops the function needs;
   flush    K2, torch.add, K3, K4, torch.dot and S1 (box) at 128^3 in f64
            and f32, each timed after the clean flush and after the
-           write-only flush of PRs 1-3, in turns;
+           write-only flush that it replaced, in turns;
   solve    the main path: init(), build_dnd((128,)*3, "box"), as_mat and
            CG with -pc_type jacobi to rtol 1e-8 (b = 1, x = 0), with every
            kernel's launch count set to 0 just before and read just after;
@@ -91,7 +91,7 @@ REPS = 20
 SLEEP_CYCLES = 200_000          # about 0.1 ms of the card's clock, before each timed launch
 PROBE_SHUFFLE = (1_048_576, 4096, 128)   # C, B, W of pallas_shuffle_probe.py probe_s1/s2/s3
 PROBE_GATHER = (524_288, 4_194_304)      # n, m of pallas_gather_probe.py probe_g1
-# the designs of K2 and K4 (triad.cu, dot2.cu; PERF.md, PR 4)
+# the designs of K2 and K4 (triad.cu, dot2.cu; the measurements behind them are in PERF.md)
 DESIGN = {"triad": "registers: one tile of 16-byte packs per block, one pack of b and of c "
                    "per thread, as many blocks as tiles",
           "dot2": "registers: one wave, rounds of 8 packs of x and of y per thread "
@@ -120,8 +120,8 @@ class L2Flush:
     default) writes one buffer twice the L2's size and then reads a second
     one, so the L2 holds only clean lines when the timed kernel starts and
     its own reads evict nothing that must be written back. The dirty flush
-    (PRs 1-3) only writes, which leaves the L2 full of dirty lines whose
-    write-backs then fall inside the timed window."""
+    only writes, which leaves the L2 full of dirty lines whose write-backs
+    then fall inside the timed window (kept to compare the two)."""
 
     def __init__(self, clean=True):
         import torch
@@ -317,49 +317,6 @@ def phase_flush(pk, flushes):
     return out
 
 
-TRIAD_BLOCKS = {"b256": 0, "b128": 1, "b512": 2, "b1024": 3}
-
-
-def phase_triad_blocks(pk, flush, rounds=3):
-    """Exploration: K2 with 256, 128, 512 or 1024 threads a block, each
-    checked against its plain version, then timed in turns with torch.add,
-    `rounds` times, at 128^3 and 2^24+37 in f64 and f32."""
-    import torch
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(7)
-    out = []
-    for dtype in (torch.float64, torch.float32):
-        dn = str(dtype).replace("torch.", "")
-        for n in (N_MAIN ** 3, (1 << 24) + 37):
-            b = torch.rand(n, generator=gen, device=dev, dtype=dtype)
-            c = torch.rand(n, generator=gen, device=dev, dtype=dtype)
-            alpha = torch.tensor(-0.37, dtype=dtype, device=dev)
-            af = float(alpha)
-            want = pk.triad_plain(b, c, alpha)
-            fns = {}
-            for label, d in TRIAD_BLOCKS.items():
-                pk._VARIANT["triad"] = d
-                err = rel_err(pk.triad(b, c, alpha), want)
-                if not err <= TOL[dn]:
-                    raise AssertionError(f"triad {label} {dn} n={n}: {err}")
-
-                def tri(d=d):
-                    pk._VARIANT["triad"] = d
-                    pk.triad(b, c, alpha)
-                fns[label] = tri
-            fns["torch.add"] = lambda: torch.add(b, c, alpha=af)
-            times = {k: [] for k in fns}
-            for _ in range(rounds):
-                for k, fn in fns.items():
-                    times[k].append(time_ms(fn, flush))
-            pk._VARIANT["triad"] = 0
-            out.append({"dtype": dn, "n": n,
-                        "ms": {k: statistics.median(v) for k, v in times.items()},
-                        "rounds": times})
-            del b, c
-    return out
-
-
 def solve_once(pt, sb, pc_type):
     """The main path through the user's entry points: returns (ksp, A, b, x)."""
     pt.init(args=["-ksp_type", "cg", "-pc_type", pc_type, "-ksp_rtol", "1e-8",
@@ -442,19 +399,6 @@ def profile_solve(ksp, b, x, warm_ms_best):
             "in_solve": in_solve,
             "by_kernel": [{"name": k[:90], "count": n, "ms": us / 1e3}
                           for k, (n, us) in top]}
-
-def in_solve_us(prof, name):
-    """µs per launch of kernel `name` in a profiled solve (None if it did
-    not run there). A second pass (sum_partials) beyond K3's own launches
-    belongs to K4 and is added to K4's time."""
-    row = prof["in_solve"].get(name)
-    if row is None:
-        return None
-    us = row["us_per_launch"]
-    sp, k3 = prof["in_solve"].get("sum_partials"), prof["in_solve"].get("axpy_normsq")
-    if name == "dot2" and sp and sp["launches"] > (k3["launches"] if k3 else 0):
-        us += sp["us_per_launch"]
-    return us
 
 
 def check_one_launch(prof, its):
@@ -875,16 +819,6 @@ def main():
     emit({"phase": "profile", "solve": "jacobi", "nvidia_smi": smi, **prof})
     check_solve(pk, ksp, b, x)
     check_one_launch(prof, its)
-    # exploration: K2's block size inside the solve, profiled in turns
-    insolve = {k: [] for k in TRIAD_BLOCKS}
-    for _ in range(2):
-        for label, d in TRIAD_BLOCKS.items():
-            pk._VARIANT["triad"] = d
-            insolve[label].append(profile_solve(ksp, b, x, jac_ms)["in_solve"])
-            check_solve(pk, ksp, b, x)
-    pk._VARIANT["triad"] = 0
-    emit({"phase": "designs_in_solve", "nvidia_smi": smi, "in_solve": insolve})
-    emit({"phase": "designs", "nvidia_smi": smi, "rows": phase_triad_blocks(pk, flush)})
 
     gdetails, gather_rows = phase_gather(gk, flush)
     emit({"phase": "gather", "nvidia_smi": smi, "checks": gdetails,
@@ -988,8 +922,8 @@ def main():
                       "dtype": r["dtype"],
                       "launches_by_path": {"solve": launches[name],
                                            "aij": aij_launches[name]},
-                      "in_solve_us": {"solve": in_solve_us(prof, name),
-                                      "aij": in_solve_us(prof_a, name)}})
+                      "in_solve_us": {path: p["in_solve"].get(name, {}).get("us_per_launch")
+                                      for path, p in (("solve", prof), ("aij", prof_a))}})
     for r in table:
         if r["name"] in ("triad", "dot2"):
             r.update(design=main_rows[r["name"]]["design"],

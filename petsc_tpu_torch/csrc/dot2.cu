@@ -20,9 +20,9 @@
 // - Every load of a round in flight at once: in each round a thread loads
 //   kU = 8 16-byte packs of x and 8 of y (256 bytes) before its first
 //   multiply. Block b takes rounds b, b + G, b + 2G, ... of the range, so
-//   the grid streams one window of memory at a time. On the H100 (PERF.md,
-//   PR 4) this beat a contiguous slab per block (6-7 % at 2^24 elements),
-//   2, 4 or 6 packs, a cp.async.bulk ring and one round per block.
+//   the grid streams one window of memory at a time. On the H100 this beat
+//   a contiguous slab per block (5-7 % at 2^24 elements), 2, 4 or 6 packs,
+//   a cp.async.bulk ring and one round per block (PERF.md has the times).
 // - The grid depends only on n and the card, and so does the order of
 //   every sum: reruns give the same bits.
 // - Alignment: when x and y are off 16 bytes by the same amount (x[1:],

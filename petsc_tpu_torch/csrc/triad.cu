@@ -11,7 +11,7 @@
 // as many blocks as tiles (up to 2^30, past which each block loops), so
 // a thread issues its loads of b and c at once, stores one pack of a and
 // exits, and the card's block scheduler keeps every SM full of fresh
-// loads to the end. On the H100 (PERF.md, PR 4) this beat one wave of
+// loads to the end. On the H100 (times in PERF.md) this beat one wave of
 // persistent blocks with 2, 4 or 8 packs per thread in rounds, with
 // contiguous slabs or interleaved rounds, one-round blocks of 2 or 4
 // packs, and a cp.async.bulk ring with bulk stores; it was the only
@@ -44,8 +44,8 @@ __device__ __forceinline__ ptt::Pack<T> fma_of(const ptt::Pack<T>& b, T alpha, c
 // a = b + alpha c over `count` items E, one item per thread and tile
 template <typename T, typename E>
 __device__ __forceinline__ void tiles(E* a, const E* b, const E* c, T alpha, long long count) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < count; i += step) {
+  const long long step = (long long)gridDim.x * ptt::kThreads;
+  for (long long i = (long long)blockIdx.x * ptt::kThreads + threadIdx.x; i < count; i += step) {
     const E bv = b[i], cv = c[i];
     a[i] = fma_of(bv, alpha, cv);
   }
@@ -53,8 +53,8 @@ __device__ __forceinline__ void tiles(E* a, const E* b, const E* c, T alpha, lon
 
 // head >= 0: elements before the first 16-byte edge of a, b and c;
 // head < 0: mixed alignment.
-template <typename T, int kBlock>
-__global__ void __launch_bounds__(kBlock)
+template <typename T>
+__global__ void __launch_bounds__(ptt::kThreads)
 triad_kernel(T* a, const T* b, const T* c, const T* alpha_p, long long n, long long head) {
   using P = ptt::Pack<T>;
   constexpr int W = P::kWidth;
@@ -78,35 +78,23 @@ triad_kernel(T* a, const T* b, const T* c, const T* alpha_p, long long n, long l
 }
 
 // With cfg, writes the launch shape there instead of launching.
-template <typename T, int kBlock>
-int launch_block(void* a, const void* b, const void* c, const void* alpha, long long n,
+template <typename T>
+int launch_triad(void* a, const void* b, const void* c, const void* alpha, long long n,
                  int device, void* stream, int* cfg) {
   PTT_TRY(cudaSetDevice(device));
   // one tile of packs per block; the same grid takes the scalar path W
   // elements per thread
-  long long grid = (n + ptt::Pack<T>::kWidth * kBlock - 1) / (ptt::Pack<T>::kWidth * kBlock);
+  long long grid = (n + ptt::Pack<T>::kWidth * ptt::kThreads - 1) / (ptt::Pack<T>::kWidth * ptt::kThreads);
   grid = grid < 1 ? 1 : grid > kMaxGrid ? kMaxGrid : grid;
   if (cfg) {
     static std::atomic<int> cache[ptt::kMaxDevices][2];
     ptt::Wave w;
-    PTT_TRY(ptt::wave_of(triad_kernel<T, kBlock>, 0, device, cache, &w));
+    PTT_TRY(ptt::wave_of(triad_kernel<T>, 0, device, cache, &w));
     return ptt::write_config(cfg, (int)grid, 1, w);
   }
-  triad_kernel<T, kBlock><<<(unsigned int)grid, kBlock, 0, (cudaStream_t)stream>>>(
+  triad_kernel<T><<<(unsigned int)grid, ptt::kThreads, 0, (cudaStream_t)stream>>>(
       (T*)a, (const T*)b, (const T*)c, (const T*)alpha, n, ptt::aligned_head<T>(n, a, b, c));
   return (int)cudaGetLastError();
-}
-
-// exploration: design 0 256 threads a block, 1 128, 2 512, 3 1024
-template <typename T>
-int launch_triad(void* a, const void* b, const void* c, const void* alpha, long long n,
-                 int device, void* stream, int* cfg, int design = 0) {
-  switch (design) {
-    case 1: return launch_block<T, 128>(a, b, c, alpha, n, device, stream, cfg);
-    case 2: return launch_block<T, 512>(a, b, c, alpha, n, device, stream, cfg);
-    case 3: return launch_block<T, 1024>(a, b, c, alpha, n, device, stream, cfg);
-  }
-  return launch_block<T, 256>(a, b, c, alpha, n, device, stream, cfg);
 }
 
 }  // namespace
@@ -119,16 +107,6 @@ extern "C" int ptt_triad_f64(void* a, const void* b, const void* c, const void* 
 extern "C" int ptt_triad_f32(void* a, const void* b, const void* c, const void* alpha, long long n,
                              int device, void* stream) {
   return launch_triad<float>(a, b, c, alpha, n, device, stream, nullptr);
-}
-
-extern "C" int ptt_triad_variant_f64(void* a, const void* b, const void* c, const void* alpha,
-                                     long long n, int design, int device, void* stream) {
-  return launch_triad<double>(a, b, c, alpha, n, device, stream, nullptr, design);
-}
-
-extern "C" int ptt_triad_variant_f32(void* a, const void* b, const void* c, const void* alpha,
-                                     long long n, int design, int device, void* stream) {
-  return launch_triad<float>(a, b, c, alpha, n, device, stream, nullptr, design);
 }
 
 // The launch shape for n elements of f64 (or f32).

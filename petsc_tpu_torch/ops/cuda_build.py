@@ -39,8 +39,6 @@ SIGNATURES = {
     "ptt_probe": (_vp, _vp, _i32, _i32, _vp),
     "ptt_triad_f64": (_vp, _vp, _vp, _vp, _i64, _i32, _vp),
     "ptt_triad_f32": (_vp, _vp, _vp, _vp, _i64, _i32, _vp),
-    "ptt_triad_variant_f64": (_vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),
-    "ptt_triad_variant_f32": (_vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),
     "ptt_triad_config": (_i32, _i64, _i32, _vp),
     "ptt_axpy_normsq_f64": (_vp, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),
     "ptt_axpy_normsq_f32": (_vp, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),

@@ -18,7 +18,8 @@ and loaded by :mod:`.cuda_build`):
 
 Every wrapper checks device, dtype (float64 or float32), shape and
 contiguity and raises on what its kernel does not take; allocates outputs
-and scratch with ``torch.empty``; launches on the current stream without
+and scratch with ``torch.empty`` (dot2 keeps its scratch per stream, see
+``_WORKSPACE``); launches on the current stream without
 synchronising; takes its scalar as a 0-d tensor on the same device, which
 the kernel reads on the card; and adds one to ``LAUNCHES[name]`` for each
 launch. For a tensor on the CPU it runs the plain PyTorch version beside
@@ -49,8 +50,6 @@ _PROBE_SHAPE = (16, 128)
 # its two sums, then the 32-bit counter of its last-block ticket, zeroed
 # once; every launch leaves the counter at 0, so no call needs a memset
 _WORKSPACE = {}
-# exploration: the variant of K2 that the wrapper launches (0: the entry point's own)
-_VARIANT = {"triad": 0}
 
 
 def reset_launches():
@@ -145,16 +144,8 @@ def triad(b, c, alpha, out=None):
         return triad_plain(b, c, alpha, out)
     a = torch.empty_like(b) if out is None else out
     if b.numel():
-        if _VARIANT["triad"]:
-            fn = getattr(cuda_build.library(), f"ptt_triad_variant_{_SUFFIX[b.dtype]}")
-            cuda_build.check("triad", fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                                         alpha.data_ptr(), b.numel(), _VARIANT["triad"],
-                                         b.get_device(),
-                                         torch.cuda.current_stream(b.device).cuda_stream))
-            LAUNCHES["triad"] += 1
-        else:
-            _launch("triad", b, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                    alpha.data_ptr(), b.numel())
+        _launch("triad", b, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                alpha.data_ptr(), b.numel())
     return a
 
 
