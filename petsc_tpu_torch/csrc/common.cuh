@@ -7,8 +7,10 @@
 // refused launch is reported to the wrapper, which raises.
 #pragma once
 
+#include <cuda.h>   // CUtensorMap and its enums only: the driver is reached at run time
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <atomic>
 
@@ -171,6 +173,124 @@ __device__ __forceinline__ void finish_sums(double (&v)[kSums], double* partial,
     if (threadIdx.x == 0) store(k, s);
   }
   if (threadIdx.x == 0) *counter = 0u;
+}
+
+// ---- mbarriers: completion of asynchronous copies into shared memory ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// `count` arrivals complete a phase (1 for a barrier that one thread arms
+// with mbar_expect_tx; the block's threads for cp.async arrivals).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// The calling thread arrives and the phase also waits for `bytes` of
+// asynchronous copies (TMA or bulk) that name this barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes) : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      "WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// ---- cp.async: element copies that complete on an mbarrier ----
+
+// Copy one element of `bytes` (4 or 8) from global to shared memory; with
+// `in` false nothing is read and the element is filled with zeros.
+template <int kBytes>
+__device__ __forceinline__ void cp_async_elem(void* dst, const void* src, bool in) {
+  static_assert(kBytes == 4 || kBytes == 8, "cp.async.ca takes 4 or 8 bytes here");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "n"(kBytes), "r"(in ? kBytes : 0)
+               : "memory");
+}
+
+// The barrier's pending count falls by one when every cp.async this thread
+// issued so far has landed (noinc: the init count includes the arrival).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// ---- TMA: tiled copies of a box of a 3-D tensor ----
+
+// One box of the tensor map at element coordinates (c0, c1, c2), innermost
+// first, into shared memory (128-byte aligned), completing on `bar`.
+// Coordinates may be negative or past the edge: the elements outside the
+// tensor arrive as zeros, and the barrier still counts the whole box.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that no library links against libcuda; nullptr if the driver has none.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static std::atomic<void*> cached{nullptr};
+  void* fn = cached.load(std::memory_order_acquire);
+  if (fn) return reinterpret_cast<EncodeTiledFn>(fn);
+  cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+  const cudaError_t e =
+      cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
+#else
+  const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+#endif
+  if (e != cudaSuccess || q != cudaDriverEntryPointSuccess || !fn) return nullptr;
+  cached.store(fn, std::memory_order_release);
+  return reinterpret_cast<EncodeTiledFn>(fn);
+}
+
+// Encode into `out` (sizeof(CUtensorMap) bytes, any alignment) the map of a
+// C-order n0 x n1 x n2 tensor of `itemsize`-byte floats at `base`, whose
+// boxes are box2 x box1 x 1 elements (i2 x i1 x i0), out-of-bounds filled
+// with zeros. TMA needs a 16-byte aligned base, a row pitch n2 * itemsize
+// and a box row box2 * itemsize that are multiples of 16 bytes. Returns 0,
+// the driver's CUresult, or -1 when the driver has no encoder.
+inline int encode_tensor_map_3d(void* out, const void* base, int itemsize, long long n0,
+                                long long n1, long long n2, int box2, int box1) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (!fn) return -1;
+  const cuuint64_t dims[3] = {(cuuint64_t)n2, (cuuint64_t)n1, (cuuint64_t)n0};
+  const cuuint64_t strides[2] = {(cuuint64_t)(n2 * itemsize), (cuuint64_t)(n1 * n2 * itemsize)};
+  const cuuint32_t box[3] = {(cuuint32_t)box2, (cuuint32_t)box1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  alignas(64) CUtensorMap map;
+  const CUresult r = fn(&map,
+                        itemsize == 8 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
+                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                        3, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)r;
+  memcpy(out, &map, sizeof map);
+  return 0;
 }
 
 // Pass 2 of the two-pass reductions: one block sums the `nparts` per-block

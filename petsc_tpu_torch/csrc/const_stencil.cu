@@ -10,86 +10,292 @@
 //
 // Bound: 2 N itemsize bytes (x read once, y written once) for about 29
 // flops per point (box) or 11 (star): device-memory bandwidth.
-// Design for that bound: one 3-D output tile per block (32 along i2,
-// 8 along i1, 8 along i0) with 256 threads; the block loads its x tile
-// plus a 1-point halo (34 x 10 x 10 values, zeros outside the grid) into
-// shared memory once, then each thread walks 8 points along i0 and sums
-// the taps from shared memory. The halo makes each block read 1.66x its
-// own points; neighbouring blocks mostly find those in L2. The taps are
-// the direct sum over the tile in the order of the separable form (axis
-// 0 innermost, then 1, then 2), and the two products are rounded apart
-// (no fused multiply-add), so the result equals the plain PyTorch version
-// bit for bit on a 3-D grid.
+//
+// Design: a 2.5-D march. Each block owns an i1 x i2 tile of kTY x kTX
+// outputs and walks a chunk of consecutive i0 planes; the chunks cut i0
+// so that the grid fills the card (each chunk reads its two end planes a
+// second time). The planes of x, each the tile plus a 1-point i1/i2 halo,
+// arrive through a ring of kStages shared-memory slots that complete on
+// mbarriers, so the loads of later planes overlap the arithmetic on this
+// one. Two load paths fill the same ring; the wrapper picks one from the
+// shape and the alignment alone (pallas_kernels.const_stencil_plan):
+// - TMA: one thread copies each plane as one box of a 3-D tensor map
+//   (cp.async.bulk.tensor.3d). The box starts at (-1, -1) of the tile, and
+//   the TMA unit fills every element outside the grid with zeros: that
+//   zero fill is the Dirichlet truncation, planes -1 and n0 included. TMA
+//   needs a 16-byte aligned x and a row pitch n2 * itemsize that is a
+//   multiple of 16 bytes; the box row is rounded up to 16 bytes (34
+//   doubles, 36 floats).
+// - cp.async: every thread copies its share of the plane element by
+//   element (4 or 8 bytes; zero-filled outside the grid) and arrives on
+//   the plane's mbarrier when its copies land (cp.async.mbarrier.arrive).
+// The sums are split by axis in the order of the plain version, so the
+// result equals it bit for bit on a 3-D grid:
+// - i0: each thread keeps its footprint column's last three plane values
+//   (three rows: i1 - 1, i1, i1 + 1) in registers and reads one value per
+//   row from the ring per plane: a = (x[z-1] + x[z]) + x[z+1];
+// - i1: b = (a[-1] + a[0]) + a[+1] in registers (star: the centre x);
+// - i2: b goes to a shared plane (two of them, alternating, so one block
+//   barrier per plane suffices) and s = (b[-1] + b[0]) + b[+1]. A halo
+//   warp computes b for the tile's two halo columns.
+// - then y = mul_rn(c0, x) + mul_rn(co, s): no fused multiply-add; the
+//   star's s is (s0 + s1) + s2.
+// Shared-memory accesses per output point (kTX 32, kTY 8): 3.19 ring reads,
+// 1.06 plane writes and 2 plane reads, 6.25 in all (the old tile kernel
+// made 27 reads per point). The refill of a ring slot is issued after the
+// block barrier that follows every thread's last read of it.
 #include "common.cuh"
 
-constexpr int TX = 32, TY = 8, TZ = 8;
+namespace {
+
+// the launch geometry (ops/pallas_kernels.py S1_TILE, S1_STAGES hold the same)
+constexpr int kTileX = 32, kTileY = 8, kStages = 3;
 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 
-template <typename T>
-__global__ void __launch_bounds__(TX * TY)
-const_stencil_kernel(T* __restrict__ y, const T* __restrict__ x, int n0, int n1, int n2, T c0,
-                     T co, int is_box) {
-  __shared__ T t[TZ + 2][TY + 2][TX + 2];
-  const int o2 = blockIdx.x * TX, o1 = blockIdx.y * TY, o0 = blockIdx.z * TZ;
-  constexpr int SX = TX + 2, SY = TY + 2, SZ = TZ + 2;
-  for (int s = threadIdx.y * TX + threadIdx.x; s < SX * SY * SZ; s += TX * TY) {
-    const int lx = s % SX, q = s / SX, ly = q % SY, lz = q / SY;
-    const int g2 = o2 + lx - 1, g1 = o1 + ly - 1, g0 = o0 + lz - 1;
-    T v = T(0);
-    if (g0 >= 0 && g0 < n0 && g1 >= 0 && g1 < n1 && g2 >= 0 && g2 < n2)
-      v = x[((long long)g0 * n1 + g1) * n2 + g2];
-    t[lz][ly][lx] = v;
+// A launch geometry: kTY x kTX outputs per block, kStages ring slots, the
+// i2 pass from shared memory or by warp shuffles.
+template <typename T, int TX, int TY, int STAGES, bool SHFL>
+struct Design {
+  static constexpr int kTX = TX, kTY = TY, kStages = STAGES;
+  static constexpr bool kShfl = SHFL;
+  static constexpr int kFX = kTX + 2, kFY = kTY + 2;   // the footprint: tile + halo
+  // a ring row: the footprint's row rounded up to 16 bytes (TMA's box row)
+  static constexpr int kBoxX = (kFX * (int)sizeof(T) + 15) / 16 * 16 / (int)sizeof(T);
+  static constexpr int kMain = kTX * kTY;                // one thread per output column
+  static constexpr int kHalo = (2 * kTY + 31) / 32 * 32; // the halo columns' threads
+  static constexpr int kThreads = kMain + kHalo;
+  static constexpr uint32_t kBoxBytes = kFY * kBoxX * sizeof(T);
+  static constexpr int kSlotBytes = ((int)kBoxBytes + 127) / 128 * 128;  // TMA: 128-byte aligned
+  static_assert(kTX % 32 == 0, "whole warps along i2");
+  static_assert(kStages >= 2, "the prologue fills two slots before the march");
+};
+
+template <typename T, typename D, bool kBox, bool kTma>
+__global__ void __launch_bounds__(D::kThreads)
+const_stencil_kernel(T* __restrict__ y, const T* __restrict__ x,
+                     __grid_constant__ const CUtensorMap map, int n0, int n1, int n2, int chunk,
+                     T c0, T co) {
+  __shared__ __align__(128) unsigned char ring[D::kStages * D::kSlotBytes];
+  __shared__ T plane[2][D::kTY][D::kFX];
+  __shared__ __align__(8) uint64_t full[D::kStages];
+
+  const CUtensorMap* tmap = &map;
+  const int tid = threadIdx.x;
+  const int o2 = blockIdx.x * D::kTX, o1 = blockIdx.y * D::kTY, z0 = blockIdx.z * chunk;
+  const int z1 = min(z0 + chunk, n0);
+  const int nplanes = z1 - z0 + 2;   // planes z0 - 1 .. z1: plane k is z0 - 1 + k
+  // this thread's output row in the tile and footprint column: a main
+  // thread owns column tid % kTX + 1, a halo thread column 0 or kTX + 1
+  const bool main_thread = tid < D::kMain;
+  const int h = tid - D::kMain;
+  const bool active = main_thread || h < 2 * D::kTY;
+  const int row = main_thread ? tid / D::kTX : (h >> 1);
+  const int col = main_thread ? tid % D::kTX + 1 : ((h & 1) ? D::kTX + 1 : 0);
+
+  auto slot = [&](int k) { return reinterpret_cast<T*>(ring + (k % D::kStages) * D::kSlotBytes); };
+  // plane k into its slot: one TMA box, or the block's element copies
+  auto issue = [&](int k) {
+    uint64_t* bar = &full[k % D::kStages];
+    const int z = z0 - 1 + k;
+    if constexpr (kTma) {
+      if (tid == 0) {
+        ptt::mbar_expect_tx(bar, D::kBoxBytes);
+        ptt::tma_load_3d(slot(k), tmap, o2 - 1, o1 - 1, z, bar);
+      }
+    } else {
+      T* s = slot(k);
+      const bool zin = z >= 0 && z < n0;
+      for (int e = tid; e < D::kFX * D::kFY; e += D::kThreads) {
+        const int r = e / D::kFX, c = e - r * D::kFX;
+        const int g1 = o1 - 1 + r, g2 = o2 - 1 + c;
+        const bool in = zin && g1 >= 0 && g1 < n1 && g2 >= 0 && g2 < n2;
+        const T* src = in ? x + ((long long)z * n1 + g1) * n2 + g2 : x;
+        ptt::cp_async_elem<sizeof(T)>(s + r * D::kBoxX + c, src, in);
+      }
+      ptt::cp_async_arrive(bar);
+    }
+  };
+  // wait for plane k and read this thread's three footprint rows of it
+  auto take = [&](int k, T (&v)[3]) {
+    ptt::mbar_wait(&full[k % D::kStages], (uint32_t)((k / D::kStages) & 1));
+    const T* s = slot(k);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) v[d] = active ? s[(row + d) * D::kBoxX + col] : T(0);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < D::kStages; ++s) ptt::mbar_init(&full[s], kTma ? 1u : (uint32_t)D::kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if constexpr (kTma) ptt::tma_prefetch_map(tmap);
   }
   __syncthreads();
-  const int g2 = o2 + threadIdx.x, g1 = o1 + threadIdx.y;
-  if (g2 >= n2 || g1 >= n1) return;
-  const int lx = threadIdx.x + 1, ly = threadIdx.y + 1;
-  for (int z = 0; z < TZ; ++z) {
-    const int g0 = o0 + z;
-    if (g0 >= n0) break;
-    const int lz = z + 1;
-    T s;
-    if (is_box) {
-      T b[3];
-#pragma unroll
-      for (int dx = -1; dx <= 1; ++dx) {
-        T a[3];
-#pragma unroll
-        for (int dy = -1; dy <= 1; ++dy)
-          a[dy + 1] = (t[lz - 1][ly + dy][lx + dx] + t[lz][ly + dy][lx + dx]) + t[lz + 1][ly + dy][lx + dx];
-        b[dx + 1] = (a[0] + a[1]) + a[2];
-      }
-      s = (b[0] + b[1]) + b[2];
+  for (int k = 0; k < D::kStages && k < nplanes; ++k) issue(k);
+
+  T pm[3], pc[3], pn[3];   // planes z - 1, z, z + 1 of the three rows
+  take(0, pm);
+  take(1, pc);
+  __syncthreads();         // the slots of planes 0 and 1 are read
+  for (int k = D::kStages; k < D::kStages + 2 && k < nplanes; ++k) issue(k);
+
+  for (int k = 2; k < nplanes; ++k) {   // output plane z = z0 + k - 2
+    take(k, pn);
+    T v;
+    if constexpr (kBox) {
+      const T a0 = (pm[0] + pc[0]) + pn[0];
+      const T a1 = (pm[1] + pc[1]) + pn[1];
+      const T a2 = (pm[2] + pc[2]) + pn[2];
+      v = (a0 + a1) + a2;
     } else {
-      const T s0 = (t[lz - 1][ly][lx] + t[lz][ly][lx]) + t[lz + 1][ly][lx];
-      const T s1 = (t[lz][ly - 1][lx] + t[lz][ly][lx]) + t[lz][ly + 1][lx];
-      const T s2 = (t[lz][ly][lx - 1] + t[lz][ly][lx]) + t[lz][ly][lx + 1];
-      s = (s0 + s1) + s2;
+      v = pc[1];
     }
-    y[((long long)g0 * n1 + g1) * n2 + g2] = mul_rn(c0, t[lz][ly][lx]) + mul_rn(co, s);
+    T(*pl)[D::kFX] = plane[k & 1];
+    if (active) pl[row][col] = v;
+    __syncthreads();   // the plane is whole, and every read of plane k's slot is done
+    if (k + D::kStages < nplanes) issue(k + D::kStages);
+    if (main_thread) {
+      T left, right;
+      if constexpr (D::kShfl) {
+        const int lane = tid & 31;
+        left = __shfl_up_sync(0xffffffffu, v, 1);
+        right = __shfl_down_sync(0xffffffffu, v, 1);
+        if (lane == 0) left = pl[row][col - 1];
+        if (lane == 31) right = pl[row][col + 1];
+      } else {
+        left = pl[row][col - 1];
+        right = pl[row][col + 1];
+      }
+      T s = (left + v) + right;
+      if constexpr (!kBox) s = (((pm[1] + pc[1]) + pn[1]) + ((pc[0] + pc[1]) + pc[2])) + s;
+      const int g1 = o1 + row, g2 = o2 + col - 1;
+      if (g1 < n1 && g2 < n2)
+        y[((long long)(z0 + k - 2) * n1 + g1) * n2 + g2] = mul_rn(c0, pc[1]) + mul_rn(co, s);
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      pm[d] = pc[d];
+      pc[d] = pn[d];
+    }
   }
+}
+
+template <typename T, typename D>
+auto pick(int is_box, bool tma) {
+  return is_box ? (tma ? &const_stencil_kernel<T, D, true, true>
+                       : &const_stencil_kernel<T, D, true, false>)
+                : (tma ? &const_stencil_kernel<T, D, false, true>
+                       : &const_stencil_kernel<T, D, false, false>);
 }
 
 // c0 is the centre factor: cd - co for the box, cd - 3 co for the star.
-template <typename T>
-static int launch_stencil(void* y, const void* x, int n0, int n1, int n2, double c0, double co,
-                          int is_box, int device, void* stream) {
+// `map` is the host copy of x's tensor map (TMA path) or null (cp.async).
+template <typename T, typename D>
+int launch_stencil(void* y, const void* x, int n0, int n1, int n2, double c0, double co,
+                   int is_box, int chunk, const void* map, int device, void* stream) {
+  if (chunk < 1) return (int)cudaErrorInvalidValue;
   PTT_TRY(cudaSetDevice(device));
-  const dim3 block(TX, TY);
-  const dim3 grid((n2 + TX - 1) / TX, (n1 + TY - 1) / TY, (n0 + TZ - 1) / TZ);
-  const_stencil_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (T*)y, (const T*)x, n0, n1, n2, (T)c0, (T)co, is_box);
+  alignas(64) CUtensorMap m;
+  if (map)
+    memcpy(&m, map, sizeof m);
+  else
+    memset(&m, 0, sizeof m);
+  const dim3 grid((n2 + D::kTX - 1) / D::kTX, (n1 + D::kTY - 1) / D::kTY, (n0 + chunk - 1) / chunk);
+  const auto kernel = pick<T, D>(is_box, map != nullptr);
+  kernel<<<grid, D::kThreads, 0, (cudaStream_t)stream>>>((T*)y, (const T*)x, m, n0, n1, n2, chunk,
+                                                         (T)c0, (T)co);
   return (int)cudaGetLastError();
 }
 
+template <typename T, typename D>
+int encode_map(void* out, const void* x, int n0, int n1, int n2) {
+  return ptt::encode_tensor_map_3d(out, x, (int)sizeof(T), n0, n1, n2, D::kBoxX, D::kFY);
+}
+
+template <typename T, typename D>
+int config(int is_box, int tma, int device, int* cfg) {
+  const void* k = reinterpret_cast<const void*>(pick<T, D>(is_box, tma != 0));
+  cudaFuncAttributes a;
+  PTT_TRY(cudaFuncGetAttributes(&a, k));
+  int sms = 0, per_sm = 0;
+  PTT_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+  PTT_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, D::kThreads, 0));
+  cfg[0] = D::kThreads;
+  cfg[1] = per_sm;
+  cfg[2] = sms;
+  cfg[3] = a.numRegs;
+  cfg[4] = (int)a.sharedSizeBytes;
+  return 0;
+}
+
+// the designs measured by chip_smoke.explore_s1; variant 0 is the default
+template <typename T, typename F>
+int with_variant(int v, F f) {
+  switch (v) {
+    case 0: return f(Design<T, kTileX, kTileY, kStages, false>{});
+    case 1: return f(Design<T, 32, 4, 3, false>{});
+    case 2: return f(Design<T, 32, 16, 3, false>{});
+    case 3: return f(Design<T, 64, 8, 3, false>{});
+    case 4: return f(Design<T, 32, 8, 2, false>{});
+    case 5: return f(Design<T, 32, 8, 4, false>{});
+    case 6: return f(Design<T, 32, 8, 3, true>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int explore(int v, void* y, const void* x, int n0, int n1, int n2, double c0, double co, int is_box,
+            int chunk, const void* map, int device, void* stream) {
+  return with_variant<T>(v, [&](auto d) {
+    return launch_stencil<T, decltype(d)>(y, x, n0, n1, n2, c0, co, is_box, chunk, map, device,
+                                          stream);
+  });
+}
+
+}  // namespace
+
 extern "C" int ptt_const_stencil_f64(void* y, const void* x, int n0, int n1, int n2, double c0,
-                                     double co, int is_box, int device, void* stream) {
-  return launch_stencil<double>(y, x, n0, n1, n2, c0, co, is_box, device, stream);
+                                     double co, int is_box, int chunk, const void* map, int device,
+                                     void* stream) {
+  return explore<double>(0, y, x, n0, n1, n2, c0, co, is_box, chunk, map, device, stream);
 }
 
 extern "C" int ptt_const_stencil_f32(void* y, const void* x, int n0, int n1, int n2, double c0,
-                                     double co, int is_box, int device, void* stream) {
-  return launch_stencil<float>(y, x, n0, n1, n2, c0, co, is_box, device, stream);
+                                     double co, int is_box, int chunk, const void* map, int device,
+                                     void* stream) {
+  return explore<float>(0, y, x, n0, n1, n2, c0, co, is_box, chunk, map, device, stream);
+}
+
+// The tensor map of x (sizeof(CUtensorMap) = 128 bytes into `out`) for the
+// TMA path of design `variant`: 0, a CUresult, or -1 without an encoder.
+extern "C" int ptt_const_stencil_map(void* out, const void* x, int n0, int n1, int n2, int is_f64,
+                                     int variant) {
+  return is_f64 ? with_variant<double>(variant, [&](auto d) {
+    return encode_map<double, decltype(d)>(out, x, n0, n1, n2);
+  })
+                : with_variant<float>(variant, [&](auto d) {
+                    return encode_map<float, decltype(d)>(out, x, n0, n1, n2);
+                  });
+}
+
+// Launch shape of design `variant`: threads per block, blocks per SM (the
+// occupancy calculator), SMs, registers per thread, static shared bytes.
+extern "C" int ptt_const_stencil_config(int is_f64, int is_box, int tma, int variant, int device,
+                                        int* cfg) {
+  return is_f64 ? with_variant<double>(variant, [&](auto d) {
+    return config<double, decltype(d)>(is_box, tma, device, cfg);
+  })
+                : with_variant<float>(variant, [&](auto d) {
+                    return config<float, decltype(d)>(is_box, tma, device, cfg);
+                  });
+}
+
+extern "C" int ptt_const_stencil_explore(void* y, const void* x, int n0, int n1, int n2,
+                                         double c0, double co, int is_box, int chunk,
+                                         const void* map, int is_f64, int variant, int device,
+                                         void* stream) {
+  return is_f64 ? explore<double>(variant, y, x, n0, n1, n2, c0, co, is_box, chunk, map, device,
+                                  stream)
+                : explore<float>(variant, y, x, n0, n1, n2, c0, co, is_box, chunk, map, device,
+                                 stream);
 }

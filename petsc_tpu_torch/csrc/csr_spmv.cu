@@ -69,28 +69,10 @@ struct Ring {
   static constexpr int kBytes = kRingStages * (kVal + kCol);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      "WAIT_%=:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @!p bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
+using ptt::mbar_expect_tx;
+using ptt::mbar_init;
+using ptt::mbar_wait;
+using ptt::smem_u32;
 
 __device__ __forceinline__ uint64_t l2_policy_evict_first() {
   uint64_t p;
@@ -221,7 +203,7 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
     bulk_load(cstage(j), wc.src, wc.bytes, bar, stream_policy);
   };
   if (tid == 0) {
-    for (int s = 0; s < kRingStages; ++s) mbar_init(&full[s]);
+    for (int s = 0; s < kRingStages; ++s) mbar_init(&full[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int s = 0; s < kRingStages && next_copy < e_end; ++s) copy_chunk(s);
   }

@@ -258,6 +258,89 @@ def const_stencil_plain(x, shape, cd, co, is_box):
     return y.reshape(-1)
 
 
+# S1's launch geometry; csrc/const_stencil.cu holds the same constants
+# (the design of variant 0 there: kTY x kTX outputs per block, kStages ring
+# slots), and tests/test_torch_stencil_plan.py checks that they agree
+S1_TILE = (8, 32)          # (i1, i2) outputs per block
+S1_STAGES = 3              # planes of x in the ring
+S1_CHUNK = 16              # i0 planes per block
+S1_THREADS = 8 * 32 + 32   # a thread per output column, and a warp for the halo columns
+_GRID_YZ = 65535           # CUDA's limit on gridDim.y and gridDim.z
+# (device, data pointer, n0, n1, n2, dtype) -> (chunk, the tensor map's
+# 128 bytes or None): the TMA path encodes a map once per buffer and shape
+# (CG multiplies the same p every iteration); the oldest entry goes first
+_S1_MAPS = {}
+_S1_MAPS_MAX = 64
+
+
+def _grid3(shape):
+    """`shape` padded to 3-D with leading unit axes."""
+    if not 1 <= len(shape) <= 3:
+        raise ValueError(f"const_stencil: the kernel takes 1-3 grid axes, got {len(shape)}")
+    return (1,) * (3 - len(shape)) + tuple(int(s) for s in shape)
+
+
+def const_stencil_plan(shape, dtype, data_ptr, device=None):
+    """How S1 runs on grid `shape` for an x of `dtype` at address
+    `data_ptr`. The load path follows from the shape and the alignment
+    alone: "tma" when x starts on a 16-byte edge and a row of the grid
+    (n2 itemsize bytes) is a multiple of 16 bytes, as the TMA unit needs;
+    "cp.async" otherwise. Returns the path, the launch grid (i2 tiles, i1
+    tiles, i0 chunks), the tile, the chunk, the ring's stages, the threads
+    per block and the TMA box (i0, i1, i2 elements); with a CUDA `device`
+    also the blocks per SM, the SMs and the registers per thread that the
+    card reports for the kernel."""
+    n0, n1, n2 = _grid3(shape)
+    isz = torch.empty((), dtype=dtype).element_size()
+    ty, tx = S1_TILE
+    tma = data_ptr % 16 == 0 and n2 * isz % 16 == 0
+    chunk = max(1, min(S1_CHUNK, n0))
+    plan = {"path": "tma" if tma else "cp.async",
+            "grid": (-(-n2 // tx), -(-n1 // ty), -(-n0 // chunk)),
+            "tile": S1_TILE, "chunk": chunk, "stages": S1_STAGES, "threads": S1_THREADS,
+            "box": (1, ty + 2, -(-(tx + 2) * isz // 16) * 16 // isz)}
+    if device is not None:
+        dev = torch.device(device)
+        cfg = (ctypes.c_int * 5)()
+        rc = cuda_build.library().ptt_const_stencil_config(
+            int(dtype == torch.float64), 1, int(tma), 0,
+            dev.index if dev.index is not None else torch.cuda.current_device(),
+            ctypes.addressof(cfg))
+        cuda_build.check("const_stencil", rc)
+        if cfg[0] != S1_THREADS:
+            raise Error(f"const_stencil: the library's kernel has {cfg[0]} threads a block, "
+                        f"the plan {S1_THREADS}")
+        plan.update(blocks_per_sm=cfg[1], sms=cfg[2], registers=cfg[3], static_smem_bytes=cfg[4])
+    return plan
+
+
+def _s1_launch(x, n0, n1, n2):
+    """(chunk, address of the tensor map or None) for x on grid (n0, n1,
+    n2), from the cache; a miss plans the launch and, on the TMA path,
+    encodes the map (raising if the driver refuses it)."""
+    key = (x.get_device(), x.data_ptr(), n0, n1, n2, x.dtype)
+    hit = _S1_MAPS.get(key)
+    if hit is not None:
+        return hit[0], hit[2]
+    plan = const_stencil_plan((n0, n1, n2), x.dtype, x.data_ptr())
+    gx, gy, gz = plan["grid"]
+    if gx >= 2 ** 31 or gy > _GRID_YZ or gz > _GRID_YZ:
+        raise ValueError(f"const_stencil: grid {(n0, n1, n2)} exceeds the kernel's launch grid "
+                         f"{plan['grid']}")
+    buf = None
+    if plan["path"] == "tma":
+        buf = ctypes.create_string_buffer(128)
+        rc = cuda_build.library().ptt_const_stencil_map(
+            buf, x.data_ptr(), n0, n1, n2, int(x.dtype == torch.float64), 0)
+        if rc != 0:
+            raise Error(f"const_stencil: cuTensorMapEncodeTiled refused grid {(n0, n1, n2)} "
+                        f"{x.dtype} at {x.data_ptr():#x} (CUresult {rc}; -1: no driver entry point)")
+    if len(_S1_MAPS) >= _S1_MAPS_MAX:
+        del _S1_MAPS[next(iter(_S1_MAPS))]
+    entry = _S1_MAPS[key] = (plan["chunk"], buf, None if buf is None else ctypes.addressof(buf))
+    return entry[0], entry[2]
+
+
 def const_stencil(x, shape, cd, co, is_box):
     """y = A x for the constant-coefficient box (3^nd-point) or star
     (2 nd + 1-point) stencil on grid `shape` (C order), diagonal `cd`,
@@ -272,19 +355,16 @@ def const_stencil(x, shape, cd, co, is_box):
         raise ValueError(f"const_stencil: x has {x.numel()} entries, grid {shape} has {n}")
     if x.device.type == "cpu":
         return const_stencil_plain(x, shape, cd, co, is_box)
-    if not 1 <= len(shape) <= 3:
-        raise ValueError(f"const_stencil: the kernel takes 1-3 grid axes, got {len(shape)}")
-    n0, n1, n2 = (1,) * (3 - len(shape)) + shape
-    if n0 > 8 * 65535 or n1 > 8 * 65535 or n2 >= 2 ** 31:
-        raise ValueError(f"const_stencil: grid {shape} exceeds the kernel's launch grid")
+    n0, n1, n2 = _grid3(shape)
     y = torch.empty_like(x)
     # the kernel always sums three axes; a grid padded to 3-D with unit
     # axes adds x once per unit axis to the star sum, which the 3-D centre
     # factor cd - 3 co takes back out
     c0 = cd - co if is_box else cd - 3 * co
     if n:
+        chunk, tmap = _s1_launch(x, n0, n1, n2)
         _launch("const_stencil", x, y.data_ptr(), x.data_ptr(), n0, n1, n2,
-                float(c0), float(co), int(bool(is_box)))
+                float(c0), float(co), int(bool(is_box)), chunk, tmap)
     return y
 
 

@@ -166,6 +166,58 @@ def test_stencil_kernel_matches_plain(cuda_device, dtype, shape):
     assert pk.LAUNCHES["const_stencil"] == 2
 
 
+# S1 on both load paths: n0 not a multiple of the chunk, n1 and n2 not
+# multiples of the tile, one plane, and grids 1-2 points wide in i1 or i2,
+# where every TMA box reaches past a face of the grid
+S1_SHAPES = ((128, 128, 128), (37, 20, 64), (19, 11, 36), (1, 24, 40), (5, 1, 64), (5, 2, 64),
+             (6, 40, 4), (6, 40, 2), (7, 2, 1), (1, 1, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", S1_SHAPES)
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_stencil_kernel_equals_plain_on_both_load_paths(cuda_device, dtype, shape):
+    m = int(np.prod(shape))
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    buf = 2 * torch.rand(m + 1, generator=gen, device=cuda_device, dtype=dtype) - 1
+    paths = []
+    pk.reset_launches()
+    # x aligned, then x one element past a 16-byte edge (always cp.async)
+    for x in (buf[:m], buf[1:]):
+        paths.append(pk.const_stencil_plan(shape, dtype, x.data_ptr())["path"])
+        for is_box in (True, False):
+            k = pk.const_stencil(x, shape, 26.0, -1.0, is_box)
+            p = pk.const_stencil_plain(x, shape, 26.0, -1.0, is_box)
+            assert torch.equal(k, p), (paths[-1], is_box)
+    torch.cuda.synchronize()
+    isz = buf.element_size()
+    assert paths == ["tma" if shape[-1] * isz % 16 == 0 else "cp.async", "cp.async"]
+    assert pk.LAUNCHES["const_stencil"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_stencil_kernel_gives_equal_bits_on_reruns(cuda_device, dtype):
+    shape = (128,) * 3
+    m = 128 ** 3
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    buf = torch.rand(m + 1, generator=gen, device=cuda_device, dtype=dtype)
+    for x in (buf[:m], buf[1:]):
+        for is_box in (True, False):
+            p = pk.const_stencil_plain(x, shape, 26.0, -1.0, is_box)
+            runs = [pk.const_stencil(x, shape, 26.0, -1.0, is_box) for _ in range(50)]
+            torch.cuda.synchronize()
+            assert all(torch.equal(r, p) for r in runs)
+
+
+@pytest.mark.cuda
+def test_stencil_plan_on_the_card(cuda_device):
+    x = torch.zeros(128 ** 3, dtype=torch.float64, device=cuda_device)
+    plan = pk.const_stencil_plan((128,) * 3, x.dtype, x.data_ptr(), cuda_device)
+    assert plan["path"] == "tma" and plan["grid"] == (4, 16, 8)
+    assert plan["blocks_per_sm"] >= 1 and plan["sms"] >= 1 and plan["registers"] > 0
+
+
 @pytest.mark.cuda
 def test_cg_runs_through_the_kernels(cuda_device):
     ptt.init(args=["-ksp_type", "cg", "-pc_type", "jacobi", "-ksp_rtol", "1e-8"])
