@@ -9,8 +9,12 @@ Phases, one JSON line each on stdout:
            one-launch probe (K1);
   kernels  holds every kernel against its plain PyTorch version on the
            card (f64 to 1e-12, f32 to 1e-5 relative) at n = 2^24+37 and
-           n = 128^3, the stencil at 128^3 box and star and against a
-           scipy CSR product at 24^3; times each kernel, its plain version
+           n = 128^3, and against a scipy CSR product at 24^3; S1 at 128^3,
+           box and star, f64 and f32, on both of its load paths (x aligned:
+           the TMA ring; x one element past a 16-byte edge: the cp.async
+           ring), each equal to its plain version bit for bit and timed,
+           with its launch plan, design and share of the bound in its
+           row; times each kernel, its plain version
            and, where one exists, the one PyTorch call that computes the
            same function (CUDA events, median of 20 launches, each after
            the clean L2 flush of L2Flush and with the card held 0.1 ms so
@@ -61,8 +65,9 @@ Phases, one JSON line each on stdout:
            version with equal bits on reruns; the host seconds of the two
            assembly calls on a line of their own;
   aij_profile  the profile phase for one warm CSR CG+Jacobi solve.
-Then the kernel table as one JSON line (K2's and K4's rows also name their
-design, launch shape and share of the bound; every row of the path's
+Then the kernel table as one JSON line (K2's, K4's and S1's rows also name
+their design, launch shape and share of the bound, S1's with its cp.async
+path, star and f32 times beside; every row of the path's
 kernels its µs per launch inside each solve), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. With
 no CUDA device, or without the package beside it, it exits non-zero and
@@ -95,7 +100,11 @@ PROBE_GATHER = (524_288, 4_194_304)      # n, m of pallas_gather_probe.py probe_
 DESIGN = {"triad": "registers: one tile of 16-byte packs per block, one pack of b and of c "
                    "per thread, as many blocks as tiles",
           "dot2": "registers: one wave, rounds of 8 packs of x and of y per thread "
-                  "interleaved across the grid, one launch (last-block sum)"}
+                  "interleaved across the grid, one launch (last-block sum)",
+          "const_stencil": "2.5-D march: 8 x 32 (i1 x i2) tiles walking 16-plane chunks of i0, "
+                           "planes through a 3-slot TMA ring (cp.async where TMA cannot take "
+                           "the shape), i0 and i1 sums in registers, the i2 sum from a shared "
+                           "plane"}
 # kernel -> the part of its device function's name that the profiler shows
 IN_SOLVE = {"triad": "triad_kernel", "axpy_normsq": "axpy_normsq_kernel",
             "dot2": "dot2_kernel", "sum_partials": "sum_partials",
@@ -247,19 +256,34 @@ def phase_kernels(pk, sb, flush, triad_Bps):
                     design=DESIGN["dot2"], launch=pk.launch_config("dot2", dtype, n, dev))
             del b, c
 
-    # S1 stencil at 128^3, box and star, with F.conv3d as the library yardstick
+    # S1 stencil at 128^3, box and star, on both load paths: x aligned (the
+    # TMA ring) and x one element past a 16-byte edge (the cp.async ring),
+    # each equal to its plain version bit for bit; F.conv3d is the library
+    # yardstick
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     shape = (N_MAIN,) * 3
     n = N_MAIN ** 3
+    s1 = {}
     for dtype in (torch.float64, torch.float32):
         isz = torch.empty((), dtype=dtype).element_size()
-        x = torch.rand(n, generator=gen, device=dev, dtype=dtype)
+        buf = torch.rand(n + 1, generator=gen, device=dev, dtype=dtype)
         for kind in ("box", "star"):
             is_box = kind == "box"
             cd, co = (26.0, -1.0) if is_box else (6.0, -1.0)
-            k = pk.const_stencil(x, shape, cd, co, is_box)
-            p = pk.const_stencil_plain(x, shape, cd, co, is_box)
+            times = {}
+            for x in (buf[:n], buf[1:]):
+                path = pk.const_stencil_plan(shape, dtype, x.data_ptr())["path"]
+                k = pk.const_stencil(x, shape, cd, co, is_box)
+                p = pk.const_stencil_plain(x, shape, cd, co, is_box)
+                torch.cuda.synchronize()
+                if not torch.equal(k, p):
+                    raise AssertionError(f"const_stencil {kind} {dtype} on the {path} path "
+                                         "differs from its plain version")
+                times[path] = time_ms(lambda: pk.const_stencil(x, shape, cd, co, is_box), flush)
+            if set(times) != {"tma", "cp.async"}:
+                raise AssertionError(f"const_stencil at 128^3 took the paths {sorted(times)}")
+            x = buf[:n]
             w = torch.full((3, 3, 3), co, dtype=dtype, device=dev)
             if not is_box:
                 mask = torch.zeros((3, 3, 3), dtype=torch.bool, device=dev)
@@ -269,14 +293,24 @@ def phase_kernels(pk, sb, flush, triad_Bps):
             w = w.view(1, 1, 3, 3, 3)
             x5 = x.view(1, 1, *shape)
             lib = F.conv3d(x5, w, padding=1).reshape(-1)
-            row = record(f"const_stencil_{kind}", dtype, n, rel_err(k, p),
-                         time_ms(lambda: pk.const_stencil(x, shape, cd, co, is_box), flush),
+            k = pk.const_stencil(x, shape, cd, co, is_box)
+            p = pk.const_stencil_plain(x, shape, cd, co, is_box)
+            row = record(f"const_stencil_{kind}", dtype, n, rel_err(k, p), times["tma"],
                          time_ms(lambda: pk.const_stencil_plain(x, shape, cd, co, is_box), flush),
                          2 * n * isz, (29 if is_box else 11) * n,
                          library_ms=time_ms(lambda: F.conv3d(x5, w, padding=1), flush),
-                         library_rel_err=rel_err(lib, p))
+                         library_rel_err=rel_err(lib, p), bit_equal=True,
+                         cp_async_path_ms=times["cp.async"])
+            s1[(kind, row["dtype"])] = row
             if is_box and dtype == torch.float64:
-                main["const_stencil"] = dict(row, max_abs_err=float((k - p).abs().max()))
+                main["const_stencil"] = dict(
+                    row, max_abs_err=float((k - p).abs().max()), design=DESIGN["const_stencil"],
+                    launch=pk.const_stencil_plan(shape, dtype, x.data_ptr(), dev))
+        del buf
+    main["const_stencil"]["others"] = {
+        f"{kind}_{dn}": {key: r[key] for key in ("ms", "cp_async_path_ms", "plain_ms",
+                                                  "library_ms", "bound_ms")}
+        for (kind, dn), r in s1.items() if (kind, dn) != ("box", "float64")}
 
     # the box kernel against a scipy CSR product at 24^3
     A = sb.poisson3d_27pt(24)
@@ -1029,10 +1063,15 @@ def main():
                       "in_solve_us": {path: p["in_solve"].get(name, {}).get("us_per_launch")
                                       for path, p in (("solve", prof), ("aij", prof_a))}})
     for r in table:
-        if r["name"] in ("triad", "dot2"):
+        if r["name"] in ("triad", "dot2", "const_stencil"):
             r.update(design=main_rows[r["name"]]["design"],
                      launch=main_rows[r["name"]]["launch"],
                      share_of_bound=r["bound_ms"] / r["ms"])
+    # S1's row is the f64 box on the TMA path; the cp.async path, the star
+    # and f32 stand beside it
+    s1_row = next(r for r in table if r["name"] == "const_stencil")
+    s1_row.update(cp_async_path_ms=main_rows["const_stencil"]["cp_async_path_ms"],
+                  others=main_rows["const_stencil"]["others"])
     k4 = next(r for r in table if r["name"] == "dot2")
     k4.update(same_bytes_ms=main_rows["dot2"]["same_bytes_ms"],
               same_bytes_call=main_rows["dot2"]["same_bytes_call"])

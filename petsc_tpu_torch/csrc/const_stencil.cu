@@ -20,12 +20,15 @@
 // one. Two load paths fill the same ring; the wrapper picks one from the
 // shape and the alignment alone (pallas_kernels.const_stencil_plan):
 // - TMA: one thread copies each plane as one box of a 3-D tensor map
-//   (cp.async.bulk.tensor.3d). The box starts at (-1, -1) of the tile, and
-//   the TMA unit fills every element outside the grid with zeros: that
-//   zero fill is the Dirichlet truncation, planes -1 and n0 included. TMA
-//   needs a 16-byte aligned x and a row pitch n2 * itemsize that is a
-//   multiple of 16 bytes; the box row is rounded up to 16 bytes (34
-//   doubles, 36 floats).
+//   (cp.async.bulk.tensor.3d), and the TMA unit fills every element outside
+//   the grid with zeros: that zero fill is the Dirichlet truncation, planes
+//   -1 and n0 (boxes wholly outside the grid) and rows -1 and n1 included.
+//   TMA needs a 16-byte aligned x and a row pitch n2 * itemsize that is a
+//   multiple of 16 bytes. A box must also start on a 16-byte edge along
+//   i2 (on the H100 a start one element before one faults with "illegal
+//   instruction"), so a box row starts 16 bytes before the tile (the halo
+//   element and the one or three before it) or at the grid's first column,
+//   and is 36 doubles or 40 floats long.
 // - cp.async: every thread copies its share of the plane element by
 //   element (4 or 8 bytes; zero-filled outside the grid) and arrives on
 //   the plane's mbarrier when its copies land (cp.async.mbarrier.arrive).
@@ -61,8 +64,11 @@ struct Design {
   static constexpr int kTX = TX, kTY = TY, kStages = STAGES;
   static constexpr bool kShfl = SHFL;
   static constexpr int kFX = kTX + 2, kFY = kTY + 2;   // the footprint: tile + halo
-  // a ring row: the footprint's row rounded up to 16 bytes (TMA's box row)
-  static constexpr int kBoxX = (kFX * (int)sizeof(T) + 15) / 16 * 16 / (int)sizeof(T);
+  // a TMA box row starts on a 16-byte edge: kLead elements before the tile
+  // (the halo element and the ones before it), or at the grid's first
+  // column; it ends past the tile's halo column, rounded up to 16 bytes
+  static constexpr int kLead = 16 / (int)sizeof(T);
+  static constexpr int kBoxX = ((kTX + 1 + kLead) * (int)sizeof(T) + 15) / 16 * 16 / (int)sizeof(T);
   static constexpr int kMain = kTX * kTY;                // one thread per output column
   static constexpr int kHalo = (2 * kTY + 31) / 32 * 32; // the halo columns' threads
   static constexpr int kThreads = kMain + kHalo;
@@ -81,11 +87,14 @@ const_stencil_kernel(T* __restrict__ y, const T* __restrict__ x,
   __shared__ T plane[2][D::kTY][D::kFX];
   __shared__ __align__(8) uint64_t full[D::kStages];
 
-  const CUtensorMap* tmap = &map;
   const int tid = threadIdx.x;
   const int o2 = blockIdx.x * D::kTX, o1 = blockIdx.y * D::kTY, z0 = blockIdx.z * chunk;
   const int z1 = min(z0 + chunk, n0);
   const int nplanes = z1 - z0 + 2;   // planes z0 - 1 .. z1: plane k is z0 - 1 + k
+  // elements of a ring row before the tile's first column: the TMA box
+  // starts kLead elements before it (a 16-byte edge), or at the grid's
+  // first column; the cp.async copies put the halo element first
+  const int lead = kTma ? (o2 == 0 ? 0 : D::kLead) : 1;
   // this thread's output row in the tile and footprint column: a main
   // thread owns column tid % kTX + 1, a halo thread column 0 or kTX + 1
   const bool main_thread = tid < D::kMain;
@@ -93,16 +102,18 @@ const_stencil_kernel(T* __restrict__ y, const T* __restrict__ x,
   const bool active = main_thread || h < 2 * D::kTY;
   const int row = main_thread ? tid / D::kTX : (h >> 1);
   const int col = main_thread ? tid % D::kTX + 1 : ((h & 1) ? D::kTX + 1 : 0);
+  const int scol = col - 1 + lead;   // its ring column; -1 lies before the grid: zero
 
   auto slot = [&](int k) { return reinterpret_cast<T*>(ring + (k % D::kStages) * D::kSlotBytes); };
-  // plane k into its slot: one TMA box, or the block's element copies
+  // plane k into its slot: one TMA box (planes -1 and n0, and rows outside
+  // the grid, arrive as zeros), or the block's element copies
   auto issue = [&](int k) {
     uint64_t* bar = &full[k % D::kStages];
     const int z = z0 - 1 + k;
     if constexpr (kTma) {
       if (tid == 0) {
         ptt::mbar_expect_tx(bar, D::kBoxBytes);
-        ptt::tma_load_3d(slot(k), tmap, o2 - 1, o1 - 1, z, bar);
+        ptt::tma_load_3d(slot(k), &map, o2 - lead, o1 - 1, z, bar);
       }
     } else {
       T* s = slot(k);
@@ -122,13 +133,13 @@ const_stencil_kernel(T* __restrict__ y, const T* __restrict__ x,
     ptt::mbar_wait(&full[k % D::kStages], (uint32_t)((k / D::kStages) & 1));
     const T* s = slot(k);
 #pragma unroll
-    for (int d = 0; d < 3; ++d) v[d] = active ? s[(row + d) * D::kBoxX + col] : T(0);
+    for (int d = 0; d < 3; ++d) v[d] = active && scol >= 0 ? s[(row + d) * D::kBoxX + scol] : T(0);
   };
 
   if (tid == 0) {
     for (int s = 0; s < D::kStages; ++s) ptt::mbar_init(&full[s], kTma ? 1u : (uint32_t)D::kThreads);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if constexpr (kTma) ptt::tma_prefetch_map(tmap);
+    if constexpr (kTma) ptt::tma_prefetch_map(&map);
   }
   __syncthreads();
   for (int k = 0; k < D::kStages && k < nplanes; ++k) issue(k);

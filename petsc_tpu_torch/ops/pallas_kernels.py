@@ -287,7 +287,9 @@ def const_stencil_plan(shape, dtype, data_ptr, device=None):
     (n2 itemsize bytes) is a multiple of 16 bytes, as the TMA unit needs;
     "cp.async" otherwise. Returns the path, the launch grid (i2 tiles, i1
     tiles, i0 chunks), the tile, the chunk, the ring's stages, the threads
-    per block and the TMA box (i0, i1, i2 elements); with a CUDA `device`
+    per block and the TMA box (i0, i1, i2 elements: the tile's rows and
+    their halo; along i2 16 bytes before the tile, which is where a box
+    must start, to past its halo column); with a CUDA `device`
     also the blocks per SM, the SMs and the registers per thread that the
     card reports for the kernel."""
     n0, n1, n2 = _grid3(shape)
@@ -298,7 +300,7 @@ def const_stencil_plan(shape, dtype, data_ptr, device=None):
     plan = {"path": "tma" if tma else "cp.async",
             "grid": (-(-n2 // tx), -(-n1 // ty), -(-n0 // chunk)),
             "tile": S1_TILE, "chunk": chunk, "stages": S1_STAGES, "threads": S1_THREADS,
-            "box": (1, ty + 2, -(-(tx + 2) * isz // 16) * 16 // isz)}
+            "box": (1, ty + 2, -(-(tx + 1 + 16 // isz) * isz // 16) * 16 // isz)}
     if device is not None:
         dev = torch.device(device)
         cfg = (ctypes.c_int * 5)()

@@ -39,11 +39,13 @@ def test_the_load_path_follows_the_tma_rules(shape, dtype):
     assert pk.const_stencil_plan(shape, dtype, 4096 + isz)["path"] == "cp.async"
     assert pk.const_stencil_plan(shape, dtype, 4096 + 16)["path"] == aligned["path"]
     assert aligned["path"] == ("tma" if n2 * isz % 16 == 0 else "cp.async")
-    # the box: the tile and its 1-point halo, one plane, the row rounded to 16 bytes
+    # the box: one plane, the tile's rows and their halo; a row starts 16
+    # bytes before the tile and ends past its halo column, on 16-byte edges
     ty, tx = pk.S1_TILE
-    assert aligned["box"][:2] == (1, ty + 2)
-    assert aligned["box"][2] >= tx + 2 and aligned["box"][2] * isz % 16 == 0
-    assert (aligned["box"][2] - 1) * isz < (tx + 2) * isz + 16 - isz
+    box = aligned["box"]
+    assert box[:2] == (1, ty + 2)
+    assert box[2] * isz % 16 == 0 and box[2] - 16 // isz >= tx + 1
+    assert (box[2] - 16 // isz - tx - 1) * isz < 16
 
 
 def test_the_shapes_that_tma_cannot_take():
@@ -54,8 +56,8 @@ def test_the_shapes_that_tma_cannot_take():
             ((6, 40, 2), f64): "tma", ((7, 2, 1), f64): "cp.async"}
     for (shape, dtype), path in want.items():
         assert pk.const_stencil_plan(shape, dtype, 0)["path"] == path, (shape, dtype)
-    assert pk.const_stencil_plan((128,) * 3, f64, 0)["box"] == (1, 10, 34)
-    assert pk.const_stencil_plan((128,) * 3, f32, 0)["box"] == (1, 10, 36)
+    assert pk.const_stencil_plan((128,) * 3, f64, 0)["box"] == (1, 10, 36)
+    assert pk.const_stencil_plan((128,) * 3, f32, 0)["box"] == (1, 10, 40)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
