@@ -102,7 +102,7 @@ DESIGN = {"triad": "registers: one tile of 16-byte packs per block, one pack of 
           "dot2": "registers: one wave, rounds of 8 packs of x and of y per thread "
                   "interleaved across the grid, one launch (last-block sum)",
           "const_stencil": "2.5-D march: 8 x 32 (i1 x i2) tiles walking 16-plane chunks of i0, "
-                           "planes through a 3-slot TMA ring (cp.async where TMA cannot take "
+                           "planes through a 2-slot TMA ring (cp.async where TMA cannot take "
                            "the shape), i0 and i1 sums in registers, the i2 sum from a shared "
                            "plane"}
 # kernel -> the part of its device function's name that the profiler shows
@@ -771,11 +771,11 @@ def phase_spmv(pt, pk, sb, A, flush):
 
 
 # S1 exploration: variant of const_stencil.cu -> (label, (ty, tx) tile)
-S1_VARIANTS = {0: ("8x32 tile, 3 stages", (8, 32)), 1: ("4x32 tile", (4, 32)),
-               2: ("16x32 tile", (16, 32)), 3: ("8x64 tile", (8, 64)),
-               4: ("8x32, 2 stages", (8, 32)), 5: ("8x32, 4 stages", (8, 32)),
-               6: ("8x32, i2 pass by shuffles", (8, 32))}
-S1_CONFIGS = ([(0, c, "tma") for c in (8, 16, 32, 64, 128)]
+S1_VARIANTS = {0: ("8x32 tile, 2 stages", (8, 32)), 1: ("4x32, 2 stages", (4, 32)),
+               2: ("16x32, 2 stages", (16, 32)), 3: ("8x64, 2 stages", (8, 64)),
+               4: ("8x32, 3 stages", (8, 32)), 5: ("4x32, 3 stages", (4, 32)),
+               6: ("8x32, 2 stages, i2 pass by shuffles", (8, 32))}
+S1_CONFIGS = ([(0, c, "tma") for c in (8, 16, 24, 32)]
               + [(1, 16, "tma"), (1, 32, "tma"), (2, 8, "tma"), (2, 16, "tma"), (3, 8, "tma"),
                  (3, 16, "tma"), (4, 16, "tma"), (5, 16, "tma"), (6, 16, "tma"),
                  (0, 16, "cp.async"), (0, 16, "cp.async, x[1:]")])

@@ -52,7 +52,7 @@
 namespace {
 
 // the launch geometry (ops/pallas_kernels.py S1_TILE, S1_STAGES hold the same)
-constexpr int kTileX = 32, kTileY = 8, kStages = 3;
+constexpr int kTileX = 32, kTileY = 8, kStages = 2;
 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
@@ -244,12 +244,12 @@ template <typename T, typename F>
 int with_variant(int v, F f) {
   switch (v) {
     case 0: return f(Design<T, kTileX, kTileY, kStages, false>{});
-    case 1: return f(Design<T, 32, 4, 3, false>{});
-    case 2: return f(Design<T, 32, 16, 3, false>{});
-    case 3: return f(Design<T, 64, 8, 3, false>{});
-    case 4: return f(Design<T, 32, 8, 2, false>{});
-    case 5: return f(Design<T, 32, 8, 4, false>{});
-    case 6: return f(Design<T, 32, 8, 3, true>{});
+    case 1: return f(Design<T, 32, 4, 2, false>{});
+    case 2: return f(Design<T, 32, 16, 2, false>{});
+    case 3: return f(Design<T, 64, 8, 2, false>{});
+    case 4: return f(Design<T, 32, 8, 3, false>{});
+    case 5: return f(Design<T, 32, 4, 3, false>{});
+    case 6: return f(Design<T, 32, 8, 2, true>{});
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -262,7 +262,7 @@ def const_stencil_plain(x, shape, cd, co, is_box):
 # (the design of variant 0 there: kTY x kTX outputs per block, kStages ring
 # slots), and tests/test_torch_stencil_plan.py checks that they agree
 S1_TILE = (8, 32)          # (i1, i2) outputs per block
-S1_STAGES = 3              # planes of x in the ring
+S1_STAGES = 2              # planes of x in the ring
 S1_CHUNK = 16              # i0 planes per block
 S1_THREADS = 8 * 32 + 32   # a thread per output column, and a warp for the halo columns
 _GRID_YZ = 65535           # CUDA's limit on gridDim.y and gridDim.z
