@@ -770,111 +770,6 @@ def phase_spmv(pt, pk, sb, A, flush):
     return details, main
 
 
-# S1 exploration: variant of const_stencil.cu -> (label, (ty, tx) tile)
-S1_VARIANTS = {0: ("8x32 tile, 2 stages", (8, 32)), 1: ("4x32, 2 stages", (4, 32)),
-               2: ("16x32, 2 stages", (16, 32)), 3: ("8x64, 2 stages", (8, 64)),
-               4: ("8x32, 3 stages", (8, 32)), 5: ("4x32, 3 stages", (4, 32)),
-               6: ("8x32, 2 stages, i2 pass by shuffles", (8, 32))}
-S1_CONFIGS = ([(0, c, "tma") for c in (8, 16, 24, 32)]
-              + [(1, 16, "tma"), (1, 32, "tma"), (2, 8, "tma"), (2, 16, "tma"), (3, 8, "tma"),
-                 (3, 16, "tma"), (4, 16, "tma"), (5, 16, "tma"), (6, 16, "tma"),
-                 (0, 16, "cp.async"), (0, 16, "cp.async, x[1:]")])
-
-
-def explore_s1(rounds=3):
-    """S1's candidate designs at 128^3 in turns: each variant, chunk and
-    load path, f64 and f32, box and star, checked bit for bit against the
-    plain version and timed cold (clean L2 flush) and warm (no flush: x in
-    L2, as inside the solve); median over `rounds` rounds. Then the host
-    µs per wrapper call with the tensor-map cache and with a map encoded on
-    every call."""
-    import ctypes
-    import torch
-    from petsc_tpu_torch.ops import cuda_build
-    from petsc_tpu_torch.ops import pallas_kernels as pk
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    lib = cuda_build.library()
-    log = (cuda_build.library_path().parent / "nvcc.log").read_text()
-    s1_log = log.split("== const_stencil.cu")[1].split("\n== ")[0]
-    emit({"phase": "s1_build", "nvidia_smi": smi, "nvcc_seconds": cuda_build.build_seconds,
-          "ptxas": [ln.strip() for ln in s1_log.splitlines()
-                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln]})
-    dev = torch.device("cuda")
-    flush = L2Flush()
-    shape, n = (N_MAIN,) * 3, N_MAIN ** 3
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    results = {}
-    for dtype in (torch.float64, torch.float32):
-        is_f64 = int(dtype == torch.float64)
-        buf = torch.rand(n + 1, generator=torch.Generator(device=dev).manual_seed(3),
-                         device=dev, dtype=dtype)
-        xa, xu = buf[:n], buf[1:]
-        y = torch.empty_like(xa)
-        maps = {}
-        for v in S1_VARIANTS:
-            b = ctypes.create_string_buffer(128)
-            rc = lib.ptt_const_stencil_map(b, xa.data_ptr(), N_MAIN, N_MAIN, N_MAIN, is_f64, v)
-            if rc:
-                raise AssertionError(f"tensor map of variant {v}: {rc}")
-            maps[v] = b
-        for kind in ("box", "star"):
-            is_box = kind == "box"
-            c0 = 25.0 + 2.0 if is_box else 6.0 + 3.0
-            p = {"a": pk.const_stencil_plain(xa, shape, 26.0 if is_box else 6.0, -1.0, is_box),
-                 "u": pk.const_stencil_plain(xu, shape, 26.0 if is_box else 6.0, -1.0, is_box)}
-            for r in range(rounds):
-                for v, chunk, path in S1_CONFIGS:
-                    x = xu if path.endswith("x[1:]") else xa
-                    mp = ctypes.addressof(maps[v]) if path == "tma" else None
-
-                    def run():
-                        cuda_build.check("explore", lib.ptt_const_stencil_explore(
-                            y.data_ptr(), x.data_ptr(), N_MAIN, N_MAIN, N_MAIN, c0, -1.0,
-                            int(is_box), chunk, mp, is_f64, v, 0, stream))
-                    run()
-                    torch.cuda.synchronize()
-                    if not torch.equal(y, p["u" if x is xu else "a"]):
-                        raise AssertionError(f"S1 variant {v} chunk {chunk} {path} {dtype} {kind}: "
-                                             "differs from the plain version")
-                    key = (v, chunk, path, str(dtype).replace("torch.", ""), kind)
-                    results.setdefault(key, {"cold": [], "warm": []})
-                    results[key]["cold"].append(time_ms(run, flush))
-                    results[key]["warm"].append(time_ms(run, lambda: None))
-        del buf, xa, xu, y
-    rows = []
-    for (v, chunk, path, dn, kind), t in results.items():
-        cfg = (ctypes.c_int * 5)()
-        cuda_build.check("config", lib.ptt_const_stencil_config(
-            int(dn == "float64"), int(kind == "box"), int(path == "tma"), v, 0,
-            ctypes.addressof(cfg)))
-        ty, tx = S1_VARIANTS[v][1]
-        rows.append({"variant": v, "design": S1_VARIANTS[v][0], "chunk": chunk, "path": path,
-                     "dtype": dn, "kind": kind,
-                     "blocks": -(-N_MAIN // tx) * -(-N_MAIN // ty) * -(-N_MAIN // chunk),
-                     "cold_ms": statistics.median(t["cold"]), "warm_ms": statistics.median(t["warm"]),
-                     "cold_all": t["cold"], "threads": cfg[0], "blocks_per_sm": cfg[1],
-                     "registers": cfg[3], "static_smem": cfg[4]})
-    emit({"phase": "s1_designs", "nvidia_smi": smi, "rounds": rounds, "rows": rows})
-
-    # host µs per wrapper call: the tensor-map cache against an encode per call
-    x = torch.rand(n, device=dev, dtype=torch.float64)
-    out = {}
-    for r in range(3):
-        for label in ("cache", "encode_every_call"):
-            pk.const_stencil(x, shape, 26.0, -1.0, True)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(400):
-                if label != "cache":
-                    pk._S1_MAPS.clear()
-                pk.const_stencil(x, shape, 26.0, -1.0, True)
-            t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            out.setdefault(label, []).append((t1 - t0) / 400 * 1e6)
-    emit({"phase": "s1_host_us_per_call", "nvidia_smi": smi, **out})
-
-
 def main():
     import torch
     if not torch.cuda.is_available():

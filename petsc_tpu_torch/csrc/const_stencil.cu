@@ -11,13 +11,18 @@
 // Bound: 2 N itemsize bytes (x read once, y written once) for about 29
 // flops per point (box) or 11 (star): device-memory bandwidth.
 //
-// Design: a 2.5-D march. Each block owns an i1 x i2 tile of kTY x kTX
-// outputs and walks a chunk of consecutive i0 planes; the chunks cut i0
-// so that the grid fills the card (each chunk reads its two end planes a
-// second time). The planes of x, each the tile plus a 1-point i1/i2 halo,
-// arrive through a ring of kStages shared-memory slots that complete on
-// mbarriers, so the loads of later planes overlap the arithmetic on this
-// one. Two load paths fill the same ring; the wrapper picks one from the
+// Design: a 2.5-D march. Each block owns an i1 x i2 tile of kTileY x
+// kTileX = 8 x 32 outputs and walks a chunk of consecutive i0 planes (16,
+// chosen by the wrapper); the chunks cut i0 so that the grid fills the card
+// (128^3: 512 blocks, one wave) and each chunk reads its two end planes a
+// second time. The planes of x, each the tile plus a 1-point i1/i2 halo,
+// arrive through a ring of kStages = 2 shared-memory slots that complete
+// on mbarriers, so the load of the next plane overlaps the arithmetic on
+// this one. The geometry was measured against 4 x 32, 16 x 32 and 8 x 64
+// tiles, chunks of 8 to 128 planes, 3 and 4 slots and an i2 pass by warp
+// shuffles (PERF.md, PR 5): 8 x 32, 2 slots, 16 planes was best or within
+// 5 % in every case. On the H100 it runs at 64 % of the bound in f64 (38
+// registers, 5 blocks per SM, 10 KB of shared memory per block). Two load paths fill the same ring; the wrapper picks one from the
 // shape and the alignment alone (pallas_kernels.const_stencil_plan):
 // - TMA: one thread copies each plane as one box of a 3-D tensor map
 //   (cp.async.bulk.tensor.3d), and the TMA unit fills every element outside
@@ -57,12 +62,11 @@ constexpr int kTileX = 32, kTileY = 8, kStages = 2;
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 
-// A launch geometry: kTY x kTX outputs per block, kStages ring slots, the
-// i2 pass from shared memory or by warp shuffles.
-template <typename T, int TX, int TY, int STAGES, bool SHFL>
+// The block's shapes in elements of T: kTY x kTX outputs, the footprint,
+// the ring's rows and slots.
+template <typename T>
 struct Design {
-  static constexpr int kTX = TX, kTY = TY, kStages = STAGES;
-  static constexpr bool kShfl = SHFL;
+  static constexpr int kTX = kTileX, kTY = kTileY;
   static constexpr int kFX = kTX + 2, kFY = kTY + 2;   // the footprint: tile + halo
   // a TMA box row starts on a 16-byte edge: kLead elements before the tile
   // (the halo element and the ones before it), or at the grid's first
@@ -75,17 +79,17 @@ struct Design {
   static constexpr uint32_t kBoxBytes = kFY * kBoxX * sizeof(T);
   static constexpr int kSlotBytes = ((int)kBoxBytes + 127) / 128 * 128;  // TMA: 128-byte aligned
   static_assert(kTX % 32 == 0, "whole warps along i2");
-  static_assert(kStages >= 2, "the prologue fills two slots before the march");
 };
+static_assert(kStages >= 2, "the prologue fills two slots before the march");
 
-template <typename T, typename D, bool kBox, bool kTma>
+template <typename T, bool kBox, bool kTma, typename D = Design<T>>
 __global__ void __launch_bounds__(D::kThreads)
 const_stencil_kernel(T* __restrict__ y, const T* __restrict__ x,
                      __grid_constant__ const CUtensorMap map, int n0, int n1, int n2, int chunk,
                      T c0, T co) {
-  __shared__ __align__(128) unsigned char ring[D::kStages * D::kSlotBytes];
+  __shared__ __align__(128) unsigned char ring[kStages * D::kSlotBytes];
   __shared__ T plane[2][D::kTY][D::kFX];
-  __shared__ __align__(8) uint64_t full[D::kStages];
+  __shared__ __align__(8) uint64_t full[kStages];
 
   const int tid = threadIdx.x;
   const int o2 = blockIdx.x * D::kTX, o1 = blockIdx.y * D::kTY, z0 = blockIdx.z * chunk;
@@ -104,11 +108,11 @@ const_stencil_kernel(T* __restrict__ y, const T* __restrict__ x,
   const int col = main_thread ? tid % D::kTX + 1 : ((h & 1) ? D::kTX + 1 : 0);
   const int scol = col - 1 + lead;   // its ring column; -1 lies before the grid: zero
 
-  auto slot = [&](int k) { return reinterpret_cast<T*>(ring + (k % D::kStages) * D::kSlotBytes); };
+  auto slot = [&](int k) { return reinterpret_cast<T*>(ring + (k % kStages) * D::kSlotBytes); };
   // plane k into its slot: one TMA box (planes -1 and n0, and rows outside
   // the grid, arrive as zeros), or the block's element copies
   auto issue = [&](int k) {
-    uint64_t* bar = &full[k % D::kStages];
+    uint64_t* bar = &full[k % kStages];
     const int z = z0 - 1 + k;
     if constexpr (kTma) {
       if (tid == 0) {
@@ -130,25 +134,25 @@ const_stencil_kernel(T* __restrict__ y, const T* __restrict__ x,
   };
   // wait for plane k and read this thread's three footprint rows of it
   auto take = [&](int k, T (&v)[3]) {
-    ptt::mbar_wait(&full[k % D::kStages], (uint32_t)((k / D::kStages) & 1));
+    ptt::mbar_wait(&full[k % kStages], (uint32_t)((k / kStages) & 1));
     const T* s = slot(k);
 #pragma unroll
     for (int d = 0; d < 3; ++d) v[d] = active && scol >= 0 ? s[(row + d) * D::kBoxX + scol] : T(0);
   };
 
   if (tid == 0) {
-    for (int s = 0; s < D::kStages; ++s) ptt::mbar_init(&full[s], kTma ? 1u : (uint32_t)D::kThreads);
+    for (int s = 0; s < kStages; ++s) ptt::mbar_init(&full[s], kTma ? 1u : (uint32_t)D::kThreads);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     if constexpr (kTma) ptt::tma_prefetch_map(&map);
   }
   __syncthreads();
-  for (int k = 0; k < D::kStages && k < nplanes; ++k) issue(k);
+  for (int k = 0; k < kStages && k < nplanes; ++k) issue(k);
 
   T pm[3], pc[3], pn[3];   // planes z - 1, z, z + 1 of the three rows
   take(0, pm);
   take(1, pc);
   __syncthreads();         // the slots of planes 0 and 1 are read
-  for (int k = D::kStages; k < D::kStages + 2 && k < nplanes; ++k) issue(k);
+  for (int k = kStages; k < kStages + 2 && k < nplanes; ++k) issue(k);
 
   for (int k = 2; k < nplanes; ++k) {   // output plane z = z0 + k - 2
     take(k, pn);
@@ -164,19 +168,9 @@ const_stencil_kernel(T* __restrict__ y, const T* __restrict__ x,
     T(*pl)[D::kFX] = plane[k & 1];
     if (active) pl[row][col] = v;
     __syncthreads();   // the plane is whole, and every read of plane k's slot is done
-    if (k + D::kStages < nplanes) issue(k + D::kStages);
+    if (k + kStages < nplanes) issue(k + kStages);
     if (main_thread) {
-      T left, right;
-      if constexpr (D::kShfl) {
-        const int lane = tid & 31;
-        left = __shfl_up_sync(0xffffffffu, v, 1);
-        right = __shfl_down_sync(0xffffffffu, v, 1);
-        if (lane == 0) left = pl[row][col - 1];
-        if (lane == 31) right = pl[row][col + 1];
-      } else {
-        left = pl[row][col - 1];
-        right = pl[row][col + 1];
-      }
+      const T left = pl[row][col - 1], right = pl[row][col + 1];
       T s = (left + v) + right;
       if constexpr (!kBox) s = (((pm[1] + pc[1]) + pn[1]) + ((pc[0] + pc[1]) + pc[2])) + s;
       const int g1 = o1 + row, g2 = o2 + col - 1;
@@ -191,19 +185,18 @@ const_stencil_kernel(T* __restrict__ y, const T* __restrict__ x,
   }
 }
 
-template <typename T, typename D>
+template <typename T>
 auto pick(int is_box, bool tma) {
-  return is_box ? (tma ? &const_stencil_kernel<T, D, true, true>
-                       : &const_stencil_kernel<T, D, true, false>)
-                : (tma ? &const_stencil_kernel<T, D, false, true>
-                       : &const_stencil_kernel<T, D, false, false>);
+  return is_box ? (tma ? &const_stencil_kernel<T, true, true> : &const_stencil_kernel<T, true, false>)
+                : (tma ? &const_stencil_kernel<T, false, true> : &const_stencil_kernel<T, false, false>);
 }
 
 // c0 is the centre factor: cd - co for the box, cd - 3 co for the star.
 // `map` is the host copy of x's tensor map (TMA path) or null (cp.async).
-template <typename T, typename D>
+template <typename T>
 int launch_stencil(void* y, const void* x, int n0, int n1, int n2, double c0, double co,
                    int is_box, int chunk, const void* map, int device, void* stream) {
+  using D = Design<T>;
   if (chunk < 1) return (int)cudaErrorInvalidValue;
   PTT_TRY(cudaSetDevice(device));
   alignas(64) CUtensorMap m;
@@ -212,20 +205,16 @@ int launch_stencil(void* y, const void* x, int n0, int n1, int n2, double c0, do
   else
     memset(&m, 0, sizeof m);
   const dim3 grid((n2 + D::kTX - 1) / D::kTX, (n1 + D::kTY - 1) / D::kTY, (n0 + chunk - 1) / chunk);
-  const auto kernel = pick<T, D>(is_box, map != nullptr);
+  const auto kernel = pick<T>(is_box, map != nullptr);
   kernel<<<grid, D::kThreads, 0, (cudaStream_t)stream>>>((T*)y, (const T*)x, m, n0, n1, n2, chunk,
                                                          (T)c0, (T)co);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename D>
-int encode_map(void* out, const void* x, int n0, int n1, int n2) {
-  return ptt::encode_tensor_map_3d(out, x, (int)sizeof(T), n0, n1, n2, D::kBoxX, D::kFY);
-}
-
-template <typename T, typename D>
+template <typename T>
 int config(int is_box, int tma, int device, int* cfg) {
-  const void* k = reinterpret_cast<const void*>(pick<T, D>(is_box, tma != 0));
+  using D = Design<T>;
+  const void* k = reinterpret_cast<const void*>(pick<T>(is_box, tma != 0));
   cudaFuncAttributes a;
   PTT_TRY(cudaFuncGetAttributes(&a, k));
   int sms = 0, per_sm = 0;
@@ -239,74 +228,31 @@ int config(int is_box, int tma, int device, int* cfg) {
   return 0;
 }
 
-// the designs measured by chip_smoke.explore_s1; variant 0 is the default
-template <typename T, typename F>
-int with_variant(int v, F f) {
-  switch (v) {
-    case 0: return f(Design<T, kTileX, kTileY, kStages, false>{});
-    case 1: return f(Design<T, 32, 4, 2, false>{});
-    case 2: return f(Design<T, 32, 16, 2, false>{});
-    case 3: return f(Design<T, 64, 8, 2, false>{});
-    case 4: return f(Design<T, 32, 8, 3, false>{});
-    case 5: return f(Design<T, 32, 4, 3, false>{});
-    case 6: return f(Design<T, 32, 8, 2, true>{});
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-int explore(int v, void* y, const void* x, int n0, int n1, int n2, double c0, double co, int is_box,
-            int chunk, const void* map, int device, void* stream) {
-  return with_variant<T>(v, [&](auto d) {
-    return launch_stencil<T, decltype(d)>(y, x, n0, n1, n2, c0, co, is_box, chunk, map, device,
-                                          stream);
-  });
-}
-
 }  // namespace
 
 extern "C" int ptt_const_stencil_f64(void* y, const void* x, int n0, int n1, int n2, double c0,
                                      double co, int is_box, int chunk, const void* map, int device,
                                      void* stream) {
-  return explore<double>(0, y, x, n0, n1, n2, c0, co, is_box, chunk, map, device, stream);
+  return launch_stencil<double>(y, x, n0, n1, n2, c0, co, is_box, chunk, map, device, stream);
 }
 
 extern "C" int ptt_const_stencil_f32(void* y, const void* x, int n0, int n1, int n2, double c0,
                                      double co, int is_box, int chunk, const void* map, int device,
                                      void* stream) {
-  return explore<float>(0, y, x, n0, n1, n2, c0, co, is_box, chunk, map, device, stream);
+  return launch_stencil<float>(y, x, n0, n1, n2, c0, co, is_box, chunk, map, device, stream);
 }
 
-// The tensor map of x (sizeof(CUtensorMap) = 128 bytes into `out`) for the
-// TMA path of design `variant`: 0, a CUresult, or -1 without an encoder.
-extern "C" int ptt_const_stencil_map(void* out, const void* x, int n0, int n1, int n2, int is_f64,
-                                     int variant) {
-  return is_f64 ? with_variant<double>(variant, [&](auto d) {
-    return encode_map<double, decltype(d)>(out, x, n0, n1, n2);
-  })
-                : with_variant<float>(variant, [&](auto d) {
-                    return encode_map<float, decltype(d)>(out, x, n0, n1, n2);
-                  });
+// The tensor map of x for the TMA path (sizeof(CUtensorMap) = 128 bytes
+// into `out`): 0, the driver's CUresult, or -1 without an encoder.
+extern "C" int ptt_const_stencil_map(void* out, const void* x, int n0, int n1, int n2, int is_f64) {
+  return is_f64 ? ptt::encode_tensor_map_3d(out, x, 8, n0, n1, n2, Design<double>::kBoxX,
+                                            Design<double>::kFY)
+                : ptt::encode_tensor_map_3d(out, x, 4, n0, n1, n2, Design<float>::kBoxX,
+                                            Design<float>::kFY);
 }
 
-// Launch shape of design `variant`: threads per block, blocks per SM (the
-// occupancy calculator), SMs, registers per thread, static shared bytes.
-extern "C" int ptt_const_stencil_config(int is_f64, int is_box, int tma, int variant, int device,
-                                        int* cfg) {
-  return is_f64 ? with_variant<double>(variant, [&](auto d) {
-    return config<double, decltype(d)>(is_box, tma, device, cfg);
-  })
-                : with_variant<float>(variant, [&](auto d) {
-                    return config<float, decltype(d)>(is_box, tma, device, cfg);
-                  });
-}
-
-extern "C" int ptt_const_stencil_explore(void* y, const void* x, int n0, int n1, int n2,
-                                         double c0, double co, int is_box, int chunk,
-                                         const void* map, int is_f64, int variant, int device,
-                                         void* stream) {
-  return is_f64 ? explore<double>(variant, y, x, n0, n1, n2, c0, co, is_box, chunk, map, device,
-                                  stream)
-                : explore<float>(variant, y, x, n0, n1, n2, c0, co, is_box, chunk, map, device,
-                                 stream);
+// The launch shape: threads per block, blocks per SM (the occupancy
+// calculator), SMs, registers per thread, static shared bytes.
+extern "C" int ptt_const_stencil_config(int is_f64, int is_box, int tma, int device, int* cfg) {
+  return is_f64 ? config<double>(is_box, tma, device, cfg) : config<float>(is_box, tma, device, cfg);
 }

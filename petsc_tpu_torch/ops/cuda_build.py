@@ -47,10 +47,8 @@ SIGNATURES = {
     "ptt_dot2_config": (_i32, _i64, _i32, _i32, _vp),
     "ptt_const_stencil_f64": (_vp, _vp, _i32, _i32, _i32, _f64, _f64, _i32, _i32, _vp, _i32, _vp),
     "ptt_const_stencil_f32": (_vp, _vp, _i32, _i32, _i32, _f64, _f64, _i32, _i32, _vp, _i32, _vp),
-    "ptt_const_stencil_map": (_vp, _vp, _i32, _i32, _i32, _i32, _i32),
-    "ptt_const_stencil_config": (_i32, _i32, _i32, _i32, _i32, _vp),
-    "ptt_const_stencil_explore": (_vp, _vp, _i32, _i32, _i32, _f64, _f64, _i32, _i32, _vp,
-                                  _i32, _i32, _i32, _vp),
+    "ptt_const_stencil_map": (_vp, _vp, _i32, _i32, _i32, _i32),
+    "ptt_const_stencil_config": (_i32, _i32, _i32, _i32, _vp),
     "ptt_csr_spmv_f64": (_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i32, _vp),
     "ptt_csr_spmv_f32": (_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i32, _vp),
     "ptt_gather_f64": (_vp, _vp, _vp, _i64, _i32, _vp),

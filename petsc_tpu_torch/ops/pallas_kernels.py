@@ -259,8 +259,8 @@ def const_stencil_plain(x, shape, cd, co, is_box):
 
 
 # S1's launch geometry; csrc/const_stencil.cu holds the same constants
-# (the design of variant 0 there: kTY x kTX outputs per block, kStages ring
-# slots), and tests/test_torch_stencil_plan.py checks that they agree
+# (kTileY x kTileX outputs per block, kStages ring slots), and
+# tests/test_torch_stencil_plan.py checks that they agree
 S1_TILE = (8, 32)          # (i1, i2) outputs per block
 S1_STAGES = 2              # planes of x in the ring
 S1_CHUNK = 16              # i0 planes per block
@@ -305,7 +305,7 @@ def const_stencil_plan(shape, dtype, data_ptr, device=None):
         dev = torch.device(device)
         cfg = (ctypes.c_int * 5)()
         rc = cuda_build.library().ptt_const_stencil_config(
-            int(dtype == torch.float64), 1, int(tma), 0,
+            int(dtype == torch.float64), 1, int(tma),
             dev.index if dev.index is not None else torch.cuda.current_device(),
             ctypes.addressof(cfg))
         cuda_build.check("const_stencil", rc)
@@ -333,7 +333,7 @@ def _s1_launch(x, n0, n1, n2):
     if plan["path"] == "tma":
         buf = ctypes.create_string_buffer(128)
         rc = cuda_build.library().ptt_const_stencil_map(
-            buf, x.data_ptr(), n0, n1, n2, int(x.dtype == torch.float64), 0)
+            buf, x.data_ptr(), n0, n1, n2, int(x.dtype == torch.float64))
         if rc != 0:
             raise Error(f"const_stencil: cuTensorMapEncodeTiled refused grid {(n0, n1, n2)} "
                         f"{x.dtype} at {x.data_ptr():#x} (CUresult {rc}; -1: no driver entry point)")
