@@ -267,8 +267,9 @@ S1_CHUNK = 16              # i0 planes per block
 S1_THREADS = 8 * 32 + 32   # a thread per output column, and a warp for the halo columns
 _GRID_YZ = 65535           # CUDA's limit on gridDim.y and gridDim.z
 # (device, data pointer, n0, n1, n2, dtype) -> (chunk, the tensor map's
-# 128 bytes or None): the TMA path encodes a map once per buffer and shape
-# (CG multiplies the same p every iteration); the oldest entry goes first
+# 128-byte buffer or None, its address): the TMA path encodes a map once per
+# buffer and shape (CG multiplies the same p every iteration); the oldest
+# entry goes first
 _S1_MAPS = {}
 _S1_MAPS_MAX = 64
 
@@ -325,8 +326,8 @@ def _s1_launch(x, n0, n1, n2):
     if hit is not None:
         return hit[0], hit[2]
     plan = const_stencil_plan((n0, n1, n2), x.dtype, x.data_ptr())
-    gx, gy, gz = plan["grid"]
-    if gx >= 2 ** 31 or gy > _GRID_YZ or gz > _GRID_YZ:
+    _, gy, gz = plan["grid"]
+    if max(n0, n1, n2) >= 2 ** 31 or gy > _GRID_YZ or gz > _GRID_YZ:
         raise ValueError(f"const_stencil: grid {(n0, n1, n2)} exceeds the kernel's launch grid "
                          f"{plan['grid']}")
     buf = None

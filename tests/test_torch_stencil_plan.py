@@ -97,13 +97,17 @@ def test_the_plan_matches_the_kernel_source():
     assert pk.S1_THREADS == tx * ty + -(-2 * ty // 32) * 32
 
 
-def test_grids_past_the_launch_limits_are_refused_by_the_plan():
-    # gridDim.y and gridDim.z stop at 65535: i1 tiles and i0 chunks
-    ty = pk.S1_TILE[0]
-    plan = pk.const_stencil_plan((2, 65536 * ty, 2), torch.float64, 0)
-    assert plan["grid"][1] > 65535
-    plan = pk.const_stencil_plan((65536 * pk.S1_CHUNK, 1, 2), torch.float64, 0)
-    assert plan["grid"][2] > 65535
+@pytest.mark.parametrize("grid", ((2, 65536 * pk.S1_TILE[0], 2), (65536 * pk.S1_CHUNK, 1, 2),
+                                  (1, 1, 2 ** 31)))
+def test_grids_past_the_launch_limits_are_refused(grid):
+    # gridDim.y and gridDim.z stop at 65535 (i1 tiles, i0 chunks), and the
+    # kernel takes each axis as a 32-bit int; the refusal comes before any
+    # tensor map is encoded, so it shows on the CPU
+    plan = pk.const_stencil_plan(grid, torch.float64, 0)
+    assert max(plan["grid"][1:]) > 65535 or max(grid) >= 2 ** 31
+    with pytest.raises(ValueError, match="launch grid"):
+        pk._s1_launch(torch.zeros(1, dtype=torch.float64), *grid)
+    assert not pk._S1_MAPS
 
 
 @pytest.mark.parametrize("shape", ((4, 5, 6), (7, 9), (11,)))
