@@ -106,9 +106,29 @@ DESIGN = {"triad": "registers: one tile of 16-byte packs per block, one pack of 
                            "the shape), i0 and i1 sums in registers, the i2 sum from a shared "
                            "plane"}
 # kernel -> the part of its device function's name that the profiler shows
-IN_SOLVE = {"triad": "triad_kernel", "axpy_normsq": "axpy_normsq_kernel",
-            "dot2": "dot2_kernel", "sum_partials": "sum_partials",
-            "const_stencil": "const_stencil_kernel", "csr_spmv": "csr_spmv_kernel"}
+IN_SOLVE = {"triad": ("triad_kernel",), "axpy_normsq": ("axpy_normsq_kernel",),
+            "dot2": ("dot2_kernel",), "sum_partials": ("sum_partials",),
+            "const_stencil": ("const_stencil_kernel",), "csr_spmv": ("csr_spmv_kernel",),
+            "cheby_update": ("cheby_update_kernel",),
+            # torch.linalg.lu_solve: the library's row swaps and triangular solves
+            "lu_solve": ("getrs", "trsm", "trsv", "laswp")}
+# CG+PCMG on the assembled 128^3 box27 (b = 1, x0 = 0, rtol 1e-8) with the Q1
+# Galerkin hierarchy 128 -> 64 -> 32 -> 16 -> 8, Chebyshev(2, 2) with Jacobi
+# inside, bounds from the host Arnoldi through the (0, 0.1, 0, 1.1) transform,
+# a V-cycle and a dense LU on 8^3: the JAX package's own run of this solve on
+# the CPU (JAX 0.9.0, x64, at be556ca; PERF.md section 4, "The PCMG contract").
+MG_GRIDS = (128, 64, 32, 16, 8)
+MG_ITS = 10                      # both cycles, CONVERGED_RTOL
+MG_NNZ = (55_742_968, 6_859_000, 830_584, 97_336, 10_648)   # each Galerkin level
+MG_HIST = {                      # the reference's preconditioned residual norms
+    "f64": (49563.67337386738, 8091.288403778846, 1185.7204581220567, 113.27539284216874,
+            22.048883470060787, 2.9462065578028818, 0.2894169886473891, 0.05336026415492263,
+            0.009852026720010149, 0.0011099129385644395, 0.0001997042114828755),
+    "f32": (49563.65828194131, 8091.287531569806, 1185.720338353673, 113.27537008291125,
+            22.0488852102289, 2.946204261252398, 0.28941681374387046, 0.053360198174700356,
+            0.009852002533776938, 0.0011099121622906909, 0.00019970642467384434)}
+MG_HIST_TOL = {"f64": 1e-6, "f32": 1e-4}
+MG_TRUE_RELRES = {"f64": 3.6660472412399075e-07, "f32": 3.666041979185221e-07}
 DATA = Path(__file__).resolve().parent / "tests" / "data"
 FIXTURES = ("LFAT5.mtx", "m_05_05_crk.mtx", "amesos2_test_mat0.mtx")
 
@@ -421,8 +441,8 @@ def profile_solve(ksp, b, x, warm_ms_best):
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     in_solve = {}
-    for name, key in IN_SOLVE.items():
-        hits = [(n, us) for k, (n, us) in by_name.items() if key in k]
+    for name, keys in IN_SOLVE.items():
+        hits = [(n, us) for k, (n, us) in by_name.items() if any(key in k for key in keys)]
         count = sum(n for n, _ in hits)
         if count:
             in_solve[name] = {"launches": count,
@@ -770,6 +790,213 @@ def phase_spmv(pt, pk, sb, A, flush):
     return details, main
 
 
+def q1_interp(nf):
+    """The 1-D factor-2 vertex interpolation of petsc_tpu/dm/interp.py:21-45
+    as a scipy CSR (nf x nc, nc = (nf + 1) // 2): even fine points inject
+    their coarse point, odd ones average their two coarse neighbours, and
+    for even nf the last odd point takes weight 1 on the last coarse point."""
+    import numpy as np
+    import scipy.sparse as sp
+    nc = (nf + 1) // 2
+    i = np.arange(nf)
+    j = i // 2
+    odd = i % 2 == 1
+    two = odd & (j + 1 < nc)
+    rows = np.concatenate([i, i[two]])
+    cols = np.concatenate([np.where(odd & ~two, nc - 1, j), j[two] + 1])
+    vals = np.concatenate([np.where(two, 0.5, 1.0), np.full(int(two.sum()), 0.5)])
+    return sp.csr_matrix((vals, (rows, cols)), shape=(nf, nc))
+
+
+def q1_hierarchy(n, coarsest=8):
+    """The grids n, n/2, ... down to `coarsest` and, for each but the last,
+    the 3-D interpolation kron(P1, P1, P1) from the next grid (C order)."""
+    import scipy.sparse as sp
+    grids = [n]
+    while grids[-1] > coarsest:
+        grids.append(grids[-1] // 2)
+    Ps = []
+    for nf in grids[:-1]:
+        P1 = q1_interp(nf)
+        Ps.append(sp.kron(P1, sp.kron(P1, P1)).tocsr())
+    return grids, Ps
+
+
+def mg_ksp(pt, A, Ps, operators=()):
+    """CG + PCMG on A through the user's entry points: options, KSP, the
+    PCMG API's levels and interpolations (and coarse operators, where
+    given). Returns the KSP, set up."""
+    ksp = pt.KSP().create()
+    ksp.setOperators(A)
+    ksp.setFromOptions()
+    mg = ksp.getPC()._impl
+    mg.setLevels(len(Ps) + 1)
+    for l, P in enumerate(Ps):
+        mg.setInterpolation(l, pt.MatAIJ.from_scipy(P))
+    for l, Al in operators:
+        mg.setOperator(l, Al)
+    ksp.setUp()
+    return ksp
+
+
+def check_mg_solve(pk, ksp, A, b, x, cycle):
+    import numpy as np
+    import torch
+    its = ksp.getIterationNumber()
+    reason = ksp.getConvergedReason().name
+    relres = ksp.getResidualNorm() / ksp._rnorm0
+    d = A.device_data()
+    Ax = pk.csr_spmv_plain(d["indptr"], d["col"], d["vals"], x.array)
+    true_rel = float(torch.linalg.vector_norm(b.array - Ax) / torch.linalg.vector_norm(b.array))
+    hist, want = ksp.getConvergenceHistory(), np.array(MG_HIST[cycle])
+    hist_rel = (float(np.max(np.abs(hist - want) / want)) if hist.shape == want.shape
+                else math.inf)
+    nnz = [lev.A.nnz() for lev in ksp.getPC()._impl.levels]
+    if its != MG_ITS or reason != "CONVERGED_RTOL" or not relres <= 1e-8 \
+            or not hist_rel <= MG_HIST_TOL[cycle] or tuple(nnz) != MG_NNZ \
+            or not true_rel <= 10 * MG_TRUE_RELRES[cycle]:
+        raise AssertionError(
+            f"128^3 CG+PCMG ({cycle} cycle): its {its} (want {MG_ITS}), {reason}, relres "
+            f"{relres}, history vs the reference {hist_rel} (tol {MG_HIST_TOL[cycle]}), "
+            f"level nnz {nnz} (want {list(MG_NNZ)}), true relres {true_rel} "
+            f"(the reference's {MG_TRUE_RELRES[cycle]})")
+    if not bool(torch.isfinite(x.array).all()):
+        raise AssertionError("CG+PCMG solution has non-finite entries")
+    return {"its": its, "reason": reason, "relres": relres, "true_relres": true_rel,
+            "reference_true_relres": MG_TRUE_RELRES[cycle],
+            "history_rel_diff_vs_reference": hist_rel, "level_nnz": nnz}
+
+
+def mg_launches_needed(its, nlev):
+    """The launches of one CG+PCMG solve with a V-cycle of Chebyshev(2, 2):
+    its + 1 PC applications, each with, on every level but the coarsest,
+    4 C1 (two per smoothing), 7 S2 (A x and A p per smoothing, the
+    residual, the restriction, the prolongation) and 2 K2 (residual and
+    correction); CG adds one S2, two K2, one K3 and two K4 per iteration
+    and one K4 before them."""
+    napply, fine = its + 1, nlev - 1
+    return {"cheby_update": 4 * fine * napply, "csr_spmv": 7 * fine * napply + its,
+            "triad": 2 * fine * napply + 2 * its, "axpy_normsq": its, "dot2": 1 + 2 * its,
+            "const_stencil": 0}
+
+
+def setup_seconds(pt):
+    """The host seconds of the last PCMG setup, from the profiler's events."""
+    out = {}
+    for key, ev in (("download", "PCMGSetUp_download"), ("spgemm", "PCMGSetUp_SpGEMM"),
+                    ("emax", "PCMGSetUp_emax"), ("lu", "PCMGSetUp_LU"),
+                    ("pc_setup_total", "PCSetUp_mg")):
+        e = pt.log().get_event(ev)
+        out[key] = e.time if e is not None else 0.0
+    return out
+
+
+def phase_mg(pt, pk, gk, A, smi, t_start):
+    """CG + PCMG on the assembled 128^3 operator, f64 and f32 cycles, each
+    driven with every launch count set to 0 just before and read just
+    after. Returns (the phase's record, the f64 KSP, b, x, its warm ms,
+    its launches)."""
+    import torch
+    grids, Ps = q1_hierarchy(N_MAIN)
+    if tuple(grids) != MG_GRIDS:
+        raise AssertionError(f"hierarchy grids {grids}, want {MG_GRIDS}")
+    out = {"phase": "mg", "n": N_MAIN, "stencil": "box27", "assembly": "COO", "rtol": 1e-8,
+           "grids": grids, "smoother": "chebyshev(2,2)/jacobi", "coarse": "dense LU",
+           "nvidia_smi": smi}
+    res = {}
+    for cycle in ("f64", "f32"):
+        args = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", "1e-8"]
+        if cycle == "f32":
+            args += ["-pc_mg_dtype", "single"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live0 = torch.cuda.memory_allocated()
+        pk.reset_launches()
+        gk.reset_launches()
+        pt.init(args=args)
+        pt.log().reset()
+        t0 = time.perf_counter()
+        # the f32 cycle reuses the f64 run's Galerkin operators (PCMGSetOperator)
+        ops = () if cycle == "f64" else [(l, lev.A) for l, lev in enumerate(
+            res["f64"][0].getPC()._impl.levels) if l > 0]
+        ksp = mg_ksp(pt, A, Ps, ops)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        b = A.createVecLeft()
+        b.set(1.0)
+        x = A.createVecRight()
+        t1 = time.perf_counter()
+        ksp.solve(b, x)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t1
+        launches = {**pk.LAUNCHES, **gk.LAUNCHES}
+        chk = check_mg_solve(pk, ksp, A, b, x, cycle)
+        need = mg_launches_needed(chk["its"], len(grids))
+        bad = {k: (launches[k], v) for k, v in need.items() if launches[k] != v}
+        if bad:
+            raise AssertionError(f"CG+PCMG ({cycle}) launches (got, want): {bad}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        path = (torch.cuda.max_memory_allocated() - live0) / 2 ** 20
+        warm = warm_ms(ksp, b, x)
+        check_mg_solve(pk, ksp, A, b, x, cycle)
+        res[cycle] = (ksp, b, x, warm, launches)
+        out[cycle] = {**chk, "setup_s": setup_s, "setup_split_s": setup_seconds(pt),
+                      "first_solve_s": first_s, "warm_ms_best_of_3": warm,
+                      "ms_per_it": warm / chk["its"], "launches": launches,
+                      "launches_per_pc_apply": {k: launches[k] / (chk["its"] + 1)
+                                                for k in ("cheby_update", "csr_spmv", "triad")},
+                      "emax": [lev.emax for lev in ksp.getPC()._impl.levels],
+                      "peak_mem_MiB": peak, "path_peak_mem_MiB": path}
+    out["seconds_so_far"] = time.perf_counter() - t_start
+    ksp, b, x, warm, launches = res["f64"]
+    return out, ksp, b, x, warm, launches
+
+
+def phase_cheby(pk, flush):
+    """C1 in both modes against its plain version on the same inputs (f64
+    1e-12, f32 1e-5 relative on each of r, p and x) at n = 128^3 and
+    2^24 + 37, each timed after the clean flush beside the plain version.
+    No single PyTorch call computes C1 (library_ms None). Returns (rows,
+    the f64 step row at 128^3)."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(77)
+    rows, main = [], None
+    for dtype in (torch.float64, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        isz = torch.empty((), dtype=dtype).element_size()
+        for n in (N_MAIN ** 3, (1 << 24) + 37):
+            b, w, dinv, r0, p0, x0 = (torch.rand(n, generator=gen, device=dev, dtype=dtype)
+                                      for _ in range(6))
+            for mode in ("first", "step"):
+                kw = {"b": b} if mode == "first" else {"a": 0.6}
+                k, p = [t.clone() for t in (r0, p0, x0)], [t.clone() for t in (r0, p0, x0)]
+                pk.cheby_update(mode, *k, w, dinv, 0.3, 0.9, **kw)
+                pk.cheby_update_plain(mode, *p, w, dinv, 0.3, 0.9, **kw)
+                torch.cuda.synchronize()
+                err = max(rel_err(a, c) for a, c in zip(k, p))
+                if not err <= TOL[dn]:
+                    raise AssertionError(f"cheby_update {mode} {dn} n={n}: rel err {err}")
+                max_abs = max(float((a - c).abs().max()) for a, c in zip(k, p))
+                nbytes = (7 if mode == "first" else 8) * n * isz
+                b_ms, b_by = bound(nbytes, (4 if mode == "first" else 6) * n, dn)
+                row = {"name": "cheby_update", "mode": mode, "dtype": dn, "n": n,
+                       "rel_err": err, "tol": TOL[dn], "max_abs_err": max_abs,
+                       "ms": time_ms(lambda: pk.cheby_update(mode, *k, w, dinv, 0.3, 0.9, **kw),
+                                     flush),
+                       "plain_ms": time_ms(
+                           lambda: pk.cheby_update_plain(mode, *p, w, dinv, 0.3, 0.9, **kw),
+                           flush),
+                       "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+                row["share_of_bound"] = b_ms / row["ms"]
+                rows.append(row)
+                if (dn, n, mode) == ("float64", N_MAIN ** 3, "step"):
+                    main = row
+            del b, w, dinv, r0, p0, x0, k, p
+    torch.cuda.empty_cache()
+    return rows, main
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -924,6 +1151,15 @@ def main():
     check_aij_solve(pk, ksp_a, A_aij, b_a, x_a, hist_stencil)
     check_one_launch(prof_a, its_a)
 
+    # ---- CG + PCMG on the assembled operator, f64 and f32 cycles ----
+    mg_rec, ksp_m, b_m, x_m, mg_ms, mg_launches = phase_mg(pt, pk, gk, A_aij, smi, t_start)
+    cheby_rows, cheby_main = phase_cheby(pk, flush)
+    mg_rec["cheby_update_checks"] = cheby_rows
+    emit(mg_rec)
+    prof_m = profile_solve(ksp_m, b_m, x_m, mg_ms)
+    emit({"phase": "mg_profile", "solve": "cg+pcmg, f64 cycle", "nvidia_smi": smi, **prof_m})
+    check_mg_solve(pk, ksp_m, A_aij, b_m, x_m, "f64")
+
     # name: (source, replaces, measured row, launches on the path it belongs to)
     rows = {
         "probe": ("probe.cu", "petsc_tpu/ops/pallas_kernels.py:31", main_rows, launches),
@@ -943,6 +1179,8 @@ def main():
                     aij_launches),
         "gather": ("gather.cu", "examples/pallas_gather_probe.py:50",
                    {"gather": coo_rows[0]}, aij_launches),
+        "cheby_update": ("cheby.cu", "petsc_tpu/ksp/cheby.py:40", {"cheby_update": cheby_main},
+                         mg_launches),
     }
     table = []
     for name, (src, replaces, measured, counts) in rows.items():
@@ -954,9 +1192,11 @@ def main():
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                       "dtype": r["dtype"],
                       "launches_by_path": {"solve": launches[name],
-                                           "aij": aij_launches[name]},
+                                           "aij": aij_launches[name],
+                                           "mg": mg_launches[name]},
                       "in_solve_us": {path: p["in_solve"].get(name, {}).get("us_per_launch")
-                                      for path, p in (("solve", prof), ("aij", prof_a))}})
+                                      for path, p in (("solve", prof), ("aij", prof_a),
+                                                      ("mg", prof_m))}})
     for r in table:
         if r["name"] in ("triad", "dot2", "const_stencil"):
             r.update(design=main_rows[r["name"]]["design"],
@@ -985,6 +1225,15 @@ def main():
               float32={k: s2_32[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                              "max_abs_err", "Gnnz_per_s", "share_of_bound",
                                              "tile_entries")})
+    # C1's row is the f64 step mode at 128^3; the first mode, f32 and the
+    # ragged length stand beside it
+    c1 = next(r for r in table if r["name"] == "cheby_update")
+    c1.update(mode="step", also_replaces="petsc_tpu/ksp/cheby.py:73",
+              library="none: no single PyTorch call computes the fused update",
+              share_of_bound=cheby_main["share_of_bound"],
+              others={f"{r['mode']}_{r['dtype']}_{r['n']}": {
+                  k: r[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+                  for r in cheby_rows if r is not cheby_main})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

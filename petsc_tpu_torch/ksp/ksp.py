@@ -16,6 +16,7 @@ import torch
 
 from .. import config
 from ..ops import operator
+from ..ops.esteig import eig_bounds_device
 from ..pc.pc import PC
 from ..sys.error import (Error, KSPConvergedReason as KR, NotConvergedError,
                          ksp_reason_string)
@@ -23,6 +24,7 @@ from ..sys.object import PObject
 from ..vec.vec import Vec
 from . import common
 from . import impls_basic as _b
+from .cheby import solve_chebyshev
 from .common import KSPConfig
 
 # solver registry: name -> {"fn": solve function, "norm": default norm
@@ -261,7 +263,29 @@ def _rich_extras(ksp):
     return (float(ksp._params.get("scale", 1.0)),)
 
 
+def _cheby_extras(ksp):
+    """Chebyshev's bounds: the user's (-ksp_chebyshev_eigenvalues emin,emax)
+    or Ritz bounds of D^-1 A through the esteig transform, by default the
+    multigrid one (0, 0.1; 0, 1.1) (cheby.c:203)."""
+    ev = ksp._params.get("eigenvalues")
+    if ev is None:
+        s = ksp.opt("get_string", "ksp_chebyshev_eigenvalues", None)
+        if s:
+            ev = tuple(float(t) for t in s.split(","))
+    tform = (0.0, 0.1, 0.0, 1.1)
+    s = ksp.opt("get_string", "ksp_chebyshev_esteig", None)
+    if s:
+        vals = [float(t) for t in s.split(",")]
+        tform = tuple(vals + [0.0] * (4 - len(vals)))[:4]
+    if ev is None:
+        A = ksp.mat
+        emin, emax = eig_bounds_device(A.meta, A.device_data(), A.getSize()[0])
+        ev = (tform[0] * emin + tform[1] * emax, tform[2] * emin + tform[3] * emax)
+    return (float(ev[0]), float(ev[1]))
+
+
 register_ksp("preonly", _b.solve_preonly, default_norm=common.NONE)
 register_ksp("none", _b.solve_preonly, default_norm=common.NONE)
 register_ksp("richardson", _b.solve_richardson, extras=_rich_extras)
 register_ksp("cg", _b.solve_cg)
+register_ksp("chebyshev", solve_chebyshev, extras=_cheby_extras)

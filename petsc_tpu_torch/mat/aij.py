@@ -17,6 +17,9 @@ src/mat/impls/aij/seq/aij.c) for one device:
   the K8 gather ``v[perm]``
   (:func:`ops.gather_kernels.gather`), a segmented sum only where the
   pattern has duplicates, and the diagonal refreshed through K8.
+* Sparse products (matMult, transposeMatMult, ptap, rart) run on the
+  host CSRs through the port's native Gustavson kernel
+  (:mod:`petsc_tpu_torch.native`), as in the reference (aij.py:1185-1231).
 
 Every value change bumps the object state, so a cache keyed on it (the
 PC's setup) never applies stale values.
@@ -36,7 +39,7 @@ from itertools import product
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, native
 from ..ops import operator, spmv
 from ..ops.gather_kernels import gather
 from ..ops.pallas_kernels import const_stencil, csr_spmv
@@ -46,7 +49,7 @@ from .mat import Mat
 
 # -mat_spmv_kind values: the TPU's no-gather layouts all give CSR here
 _CSR_KINDS = ("auto", "csr", "ell", "dia", "hyb", "bdia", "perm")
-_GAMG = "the GAMG slice (ROADMAP queue 1 item 5)"
+_GAMG = "the GAMG structured head (ROADMAP queue 1 item 5c)"
 _BAIJ = "the BAIJ part of ROADMAP queue 1 item 7"
 _LATER_KINDS = {"dnd": _GAMG, "dndb": _BAIJ, "bell": _BAIJ}
 _INT32_MAX = 2 ** 31 - 1
@@ -442,24 +445,40 @@ class MatAIJ(Mat):
                 "part of ROADMAP queue 1 item 7")
         raise ValueError(kind)
 
-    def _spgemm(self, name):
-        raise NotImplementedError(
-            f"MatAIJ.{name}: the host SpGEMM (petsc_tpu/native) comes with {_GAMG}")
+    # -------- host SpGEMM (the Galerkin setup; gamg.c RAP) --------
+    # Every product runs on the host CSRs through the port's native OpenMP
+    # Gustavson kernel (petsc_tpu_torch/native) and returns a new MatAIJ
+    # (kind aij_csr, products on S2). A matrix whose values were set on the
+    # device by setValuesCOO (the 128^3 fine operator) downloads them once
+    # here, in to_scipy, per setup.
 
     def matMult(self, B, fill=None):
-        self._spgemm("matMult")
+        """C = A B (MatMatMult, matrix.c:9373)."""
+        return MatAIJ.from_scipy(native.spgemm(self.to_scipy(), B.to_scipy()), comm=self.comm)
 
     def transposeMatMult(self, B, fill=None):
-        self._spgemm("transposeMatMult")
+        """C = A^T B (MatTransposeMatMult)."""
+        At = native.csr_transpose(self.to_scipy())
+        return MatAIJ.from_scipy(native.spgemm(At, B.to_scipy()), comm=self.comm)
 
     def ptap(self, P, fill=None):
-        self._spgemm("ptap")
+        """C = P^T A P (MatPtAP, the Galerkin triple product; the two-product
+        path of mpiptap.c:215)."""
+        Ps = P.to_scipy()
+        C = native.spgemm(native.csr_transpose(Ps), native.spgemm(self.to_scipy(), Ps))
+        return MatAIJ.from_scipy(C, comm=self.comm)
 
     def rart(self, R, fill=None):
-        self._spgemm("rart")
+        """C = R A R^T (MatRARt)."""
+        Rs = R.to_scipy()
+        C = native.spgemm(Rs, native.spgemm(self.to_scipy(), native.csr_transpose(Rs)))
+        return MatAIJ.from_scipy(C, comm=self.comm)
 
     def createSubMatrix(self, isrow, iscol=None):
-        raise NotImplementedError(f"MatAIJ.createSubMatrix comes with {_GAMG}")
+        """MatCreateSubMatrix: the (isrow x iscol) block as a new MatAIJ."""
+        rows = np.asarray(isrow, dtype=np.int64)
+        cols = rows if iscol is None else np.asarray(iscol, dtype=np.int64)
+        return MatAIJ.from_scipy(self.to_scipy()[rows][:, cols].tocsr(), comm=self.comm)
 
 
 # ================= binders =================

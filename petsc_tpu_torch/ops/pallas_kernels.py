@@ -13,6 +13,7 @@ and loaded by :mod:`.cuda_build`):
   dot2           K4  csrc/dot2.cu           pallas_kernels.py:198 dot2
   const_stencil  S1  csrc/const_stencil.cu  mat/aij.py:1346-1379 (separable mult)
   csr_spmv       S2  csrc/csr_spmv.cu       mat/aij.py:1554-1561 _bind_aij_csr mult
+  cheby_update   C1  csrc/cheby.cu          ksp/cheby.py:40-44, 73-78 (Chebyshev step tail)
 
 (The four gather kernels K5-K8 are in :mod:`.gather_kernels`.)
 
@@ -39,7 +40,7 @@ from . import cuda_build, spmv
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"probe": 0, "triad": 0, "axpy_normsq": 0, "dot2": 0, "const_stencil": 0,
-            "csr_spmv": 0}
+            "csr_spmv": 0, "cheby_update": 0}
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 # scratch capacity for the per-block partial sums of the reductions (the
@@ -409,6 +410,50 @@ def csr_spmv(indptr, col, vals, x):
         _launch("csr_spmv", x, y.data_ptr(), indptr.data_ptr(), col.data_ptr(),
                 vals.data_ptr(), x.data_ptr(), m, vals.numel())
     return y
+
+
+# ---------------------------------------------------------------------
+# C1: the fused Chebyshev step tail (ksp/cheby.py cheby_smooth, cheby_smooth4)
+# ---------------------------------------------------------------------
+
+_CHEBY_MODES = {"first": 0, "step": 1}
+
+
+def cheby_update_plain(mode, r, p, x, w, dinv, c, beta=1.0, a=0.0, b=None):
+    """C1's function in PyTorch ops, in place on r, p and x:
+    first: r = b - w; p = c (dinv r); x += beta p;
+    step:  r -= w;    p = a p + c (dinv r); x += beta p."""
+    if mode == "first":
+        torch.sub(b, w, out=r)
+        torch.mul(dinv * r, c, out=p)
+    else:
+        r.sub_(w)
+        p.mul_(a).add_(c * (dinv * r))
+    x.add_(beta * p)
+    return r, p, x
+
+
+def cheby_update(mode, r, p, x, w, dinv, c, beta=1.0, a=0.0, b=None):
+    """One Chebyshev step after its SpMV w, in one pass over the vectors
+    (see cheby_update_plain; `b` only in mode "first", `a` only in mode
+    "step"). Overwrites r, p and x, which must be three distinct buffers:
+    the smoother owns them. `dinv` is a vector; the scalars are host
+    numbers. Returns (r, p, x)."""
+    if mode not in _CHEBY_MODES:
+        raise ValueError(f"cheby_update: mode must be 'first' or 'step', got {mode!r}")
+    if (b is None) != (mode == "step"):
+        raise ValueError("cheby_update: b is given in mode 'first' and only there")
+    vecs = (r, p, x, w, dinv) + ((b,) if b is not None else ())
+    _check_vectors("cheby_update", *vecs)
+    if len({r.data_ptr(), p.data_ptr(), x.data_ptr()}) < 3 and r.numel():
+        raise ValueError("cheby_update: r, p and x must be distinct buffers")
+    if r.device.type == "cpu":
+        return cheby_update_plain(mode, r, p, x, w, dinv, c, beta, a, b)
+    if r.numel():
+        _launch("cheby_update", r, _CHEBY_MODES[mode], r.data_ptr(), p.data_ptr(),
+                x.data_ptr(), 0 if b is None else b.data_ptr(), w.data_ptr(), dinv.data_ptr(),
+                float(a), float(c), float(beta), r.numel())
+    return r, p, x
 
 
 # ---------------------------------------------------------------------

@@ -484,11 +484,14 @@ def test_block_size_unknown_kind_spgemm_and_dense_raise():
     with pytest.raises(ptt.Error, match="sell"):
         ptt.MatAIJ.from_scipy(sp.eye(4, format="csr"))
     ptt.init(device="cpu")
-    M = ptt.MatAIJ.from_scipy(sp.eye(4, format="csr"))
-    for call in (lambda: M.matMult(M), lambda: M.transposeMatMult(M), lambda: M.ptap(M),
-                 lambda: M.rart(M), lambda: M.createSubMatrix([0, 1])):
-        with pytest.raises(NotImplementedError, match="GAMG"):
-            call()
+    # the SpGEMM methods are ported (ROADMAP item 5a): products equal scipy's
+    E = sp.csr_matrix(np.arange(16.0).reshape(4, 4) % 5)
+    M = ptt.MatAIJ.from_scipy(E)
+    for got, want in ((M.matMult(M), E @ E), (M.transposeMatMult(M), E.T @ E),
+                      (M.ptap(M), E.T @ E @ E), (M.rart(M), E @ E @ E.T),
+                      (M.createSubMatrix([0, 1]), E[[0, 1]][:, [0, 1]])):
+        assert got.meta[0] == "aij_csr"
+        np.testing.assert_array_equal(got.to_scipy().toarray(), want.toarray())
     with pytest.raises(NotImplementedError, match="MatDense"):
         M.convert("dense")
 

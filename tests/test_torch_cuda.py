@@ -64,7 +64,7 @@ def test_vector_kernels_match_plain(cuda_device, dtype, n):
     assert _rel(x, want) <= TOL[dtype]
     torch.cuda.synchronize()
     assert pk.LAUNCHES == {"probe": 0, "triad": 3, "axpy_normsq": 1, "dot2": 1,
-                           "const_stencil": 0, "csr_spmv": 0}
+                           "const_stencil": 0, "csr_spmv": 0, "cheby_update": 0}
 
 
 def _edge_lengths(dtype, device):
@@ -392,3 +392,56 @@ def test_cg_on_the_csr_operator_runs_through_the_kernels(cuda_device):
     assert gk.LAUNCHES["gather"] == 2
     r = np.ones(32 ** 3) - stencil_build.poisson3d_27pt(32) @ x.getArray()
     assert np.linalg.norm(r) <= 1e-7 * np.linalg.norm(np.ones(32 ** 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (2 ** 20 + 37, 4096, 3))
+@pytest.mark.parametrize("mode", ("first", "step"))
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_cheby_update_matches_plain(cuda_device, dtype, mode, n):
+    """C1 in place on r, p and x against its plain version on the same
+    inputs, on aligned vectors and on views one element past a 16-byte
+    edge (a scalar head, then the packs)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    pk.reset_launches()
+    for off in (0, 1):
+        b, w, dinv, r, p, x = (torch.rand(n + 1, generator=gen, device=cuda_device,
+                                          dtype=dtype)[off:off + n] for _ in range(6))
+        kw = {"b": b} if mode == "first" else {"a": 0.6}
+        k = [t.clone() for t in (r, p, x)]
+        q = [t.clone() for t in (r, p, x)]
+        if off:
+            k = [torch.cat([t[:1], t])[1:] for t in k]       # one element past the edge
+        pk.cheby_update(mode, *k, w, dinv, 0.3, 0.9, **kw)
+        pk.cheby_update_plain(mode, *q, w, dinv, 0.3, 0.9, **kw)
+        torch.cuda.synchronize()
+        for a, c in zip(k, q):
+            assert _rel(a, c) <= TOL[dtype]
+    assert pk.LAUNCHES["cheby_update"] == 2
+
+
+@pytest.mark.cuda
+def test_cg_pcmg_on_the_card_equals_the_cpu_port(cuda_device):
+    """32^3 box27 CG+PCMG with the Q1 Galerkin hierarchy: its and history
+    on the card equal the CPU port's (1e-6 relative), every step through
+    the kernels."""
+    n = 32
+    grids, Ps = chip_smoke.q1_hierarchy(n)
+    A_sp = stencil_build.poisson3d_27pt(n)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        ptt.init(args=["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", "1e-8"],
+                 device=dev)
+        pk.reset_launches()
+        A = ptt.MatAIJ.from_scipy(A_sp)
+        ksp = chip_smoke.mg_ksp(ptt, A, Ps)
+        b = A.createVecLeft()
+        b.set(1.0)
+        x = ksp.solve(b)
+        res[dev] = (ksp.getIterationNumber(), ksp.getConvergedReason().name,
+                    ksp.getConvergenceHistory(), dict(pk.LAUNCHES))
+    its, reason, hist, launches = res["cuda"]
+    assert its == res["cpu"][0] == 8 and reason == res["cpu"][1] == "CONVERGED_RTOL"
+    np.testing.assert_allclose(hist, res["cpu"][2], rtol=1e-6, atol=0)
+    need = chip_smoke.mg_launches_needed(its, len(grids))
+    assert {k: launches[k] for k in need} == need
