@@ -64,7 +64,22 @@ Phases, one JSON line each on stdout:
            vals/col one element past a 16-byte edge) against its plain
            version with equal bits on reruns; the host seconds of the two
            assembly calls on a line of their own;
-  aij_profile  the profile phase for one warm CSR CG+Jacobi solve.
+  aij_profile  the profile phase for one warm CSR CG+Jacobi solve;
+  mg       CG + PCMG on that assembled matrix through the user's entry
+           points (init with -pc_type mg, KSP, the PCMG API's setLevels and
+           setInterpolation with the Q1 hierarchy 128 -> ... -> 8 built here
+           with scipy), every launch count set to 0 just before init and read
+           just after the solve; asserts the reference's 10 iterations,
+           CONVERGED_RTOL, relres <= 1e-8, its residual history (MG_HIST,
+           1e-6 relative), each Galerkin level's nnz, a true residual no worse
+           than 10x the reference's, and the launches of mg_launches_needed
+           (C1 exactly 4 x (levels - 1) per PC application, const_stencil 0);
+           reports the host set-up seconds by part and the warm solve; then
+           the same with -pc_mg_dtype single (history to 1e-4), and C1 against
+           its plain version in both modes (f64 1e-12, f32 1e-5) at 128^3 and
+           2^24 + 37, timed after the clean flush;
+  mg_profile  the profile phase for one warm CG+PCMG solve (f64 cycle),
+           with the time and µs per launch of S2, C1, K2-K4 and lu_solve.
 Then the kernel table as one JSON line (K2's, K4's and S1's rows also name
 their design, launch shape and share of the bound, S1's with its cp.async
 path, star and f32 times beside; every row of the path's
@@ -445,7 +460,7 @@ def profile_solve(ksp, b, x, warm_ms_best):
         hits = [(n, us) for k, (n, us) in by_name.items() if any(key in k for key in keys)]
         count = sum(n for n, _ in hits)
         if count:
-            in_solve[name] = {"launches": count,
+            in_solve[name] = {"launches": count, "ms": sum(us for _, us in hits) / 1e3,
                               "us_per_launch": sum(us for _, us in hits) / count}
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_share_of_warm": busy_ms / warm_ms_best if by_name else None,
@@ -943,8 +958,12 @@ def phase_mg(pt, pk, gk, A, smi, t_start):
         out[cycle] = {**chk, "setup_s": setup_s, "setup_split_s": setup_seconds(pt),
                       "first_solve_s": first_s, "warm_ms_best_of_3": warm,
                       "ms_per_it": warm / chk["its"], "launches": launches,
-                      "launches_per_pc_apply": {k: launches[k] / (chk["its"] + 1)
-                                                for k in ("cheby_update", "csr_spmv", "triad")},
+                      "launches_needed": need,
+                      # the cycle's own: CG's S2 and K2 launches taken out
+                      "launches_per_pc_apply": {
+                          "cheby_update": launches["cheby_update"] / (chk["its"] + 1),
+                          "csr_spmv": (launches["csr_spmv"] - chk["its"]) / (chk["its"] + 1),
+                          "triad": (launches["triad"] - 2 * chk["its"]) / (chk["its"] + 1)},
                       "emax": [lev.emax for lev in ksp.getPC()._impl.levels],
                       "peak_mem_MiB": peak, "path_peak_mem_MiB": path}
     out["seconds_so_far"] = time.perf_counter() - t_start

@@ -79,7 +79,7 @@ def cheby_smooth4(amult, dinv, b, x, its: int, emax, optimized=False):
 
 def estimate_emax(amult, dinv, n, iters=10, seed=7, dtype=torch.float64, device=None):
     """Largest eigenvalue of D^-1 A by power iteration from numpy's
-    ``default_rng(seed)`` (the reference's host driver, agg.c:1875).
+    ``default_rng(seed)`` (the reference's host estimate, agg.c:1875).
     Returns a Python float."""
     rng = np.random.default_rng(seed)
     v = torch.as_tensor(rng.random(n) - 0.5, dtype=dtype, device=device)

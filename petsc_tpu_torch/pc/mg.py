@@ -59,8 +59,6 @@ class MGLevelSpec:
         self.R = R          # restriction (default P^T)
         self.emax = emax    # Chebyshev bounds (floats)
         self.emin = emin
-        self.agg = None     # nodal aggregates that coarsened this level (item 5b)
-        self.agg_bs = 1
 
 
 def _host_emax(A_sp, dinv, iters=10, seed=7):
@@ -205,10 +203,10 @@ class _PCMG:
             self._build_from_dm(self.pc.pmat._dm)
         if self.levels[0].A is None:
             self.levels[0].A = self.pc.pmat
-        fine = self.levels[0].A
-        if hasattr(fine, "to_scipy"):
+        sync = getattr(self.levels[0].A, "_sync_host_vals", None)
+        if sync is not None:
             # values that setValuesCOO left on the card come to the host once
-            _timed("PCMGSetUp_download", fine.to_scipy)
+            _timed("PCMGSetUp_download", sync)
         for l in range(1, len(self.levels)):
             if self.levels[l].A is None:
                 Pl = self.levels[l - 1].P
@@ -286,8 +284,10 @@ def build_mg_meta_data(levels, cycle="v", smoother="chebyshev", pre=2, post=2,
             # the coarsest: dense LU (the reference's coarse default, gamg.c:887-907)
             lu, piv = _timed("PCMGSetUp_LU", _dense_lu_factor, A.to_scipy())
             lev_metas.append(("coarse_lu", A.getSize()[0]))
-            # scipy's pivots are 0-based row swaps, torch's (LAPACK's) 1-based
-            lev_datas.append({"lu": torch.as_tensor(lu, dtype=rd, device=dev),
+            # scipy's pivots are 0-based row swaps, torch's (LAPACK's) 1-based;
+            # the factor is kept column-major, the layout lu_solve works in
+            # (a row-major one is transposed into a copy on every solve)
+            lev_datas.append({"lu": torch.as_tensor(lu, dtype=rd, device=dev).mT.contiguous().mT,
                               "piv": torch.as_tensor(piv + 1, dtype=torch.int32, device=dev)})
             continue
         P = lev.P
