@@ -284,10 +284,8 @@ def build_mg_meta_data(levels, cycle="v", smoother="chebyshev", pre=2, post=2,
             # the coarsest: dense LU (the reference's coarse default, gamg.c:887-907)
             lu, piv = _timed("PCMGSetUp_LU", _dense_lu_factor, A.to_scipy())
             lev_metas.append(("coarse_lu", A.getSize()[0]))
-            # scipy's pivots are 0-based row swaps, torch's (LAPACK's) 1-based;
-            # the factor is kept column-major, the layout lu_solve works in
-            # (a row-major one is transposed into a copy on every solve)
-            lev_datas.append({"lu": torch.as_tensor(lu, dtype=rd, device=dev).mT.contiguous().mT,
+            # scipy's pivots are 0-based row swaps, torch's (LAPACK's) 1-based
+            lev_datas.append({"lu": torch.as_tensor(lu, dtype=rd, device=dev),
                               "piv": torch.as_tensor(piv + 1, dtype=torch.int32, device=dev)})
             continue
         P = lev.P
