@@ -253,9 +253,7 @@ class MatAIJ(Mat):
 
     def _sync_host_vals(self):
         if self._vals is None:
-            # no second copy; on the CPU the array shares the tensor's memory,
-            # and neither is ever written in place
-            self._vals = np.asarray(self._dev["vals"].cpu().numpy(), dtype=np.float64)
+            self._vals = self._dev["vals"].cpu().numpy().astype(np.float64)
 
     def to_scipy(self):
         import scipy.sparse as sp
