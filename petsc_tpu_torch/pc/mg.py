@@ -198,8 +198,8 @@ class _PCMG:
         PCMGSetUp_SpGEMM, PCMGSetUp_emax."""
         if self.levels is None:
             if getattr(self.pc.pmat, "_dm", None) is None:
-                raise Error("PCMG: call setLevels/setInterpolation, attach "
-                            "a DM, or use -pc_type gamg")
+                raise Error("PCMG: call setLevels and setInterpolation first (a DM "
+                            "comes with ROADMAP item 9, -pc_type gamg with item 5b)")
             self._build_from_dm(self.pc.pmat._dm)
         if self.levels[0].A is None:
             self.levels[0].A = self.pc.pmat
