@@ -6,7 +6,8 @@
 Phases, one JSON line each on stdout:
   device   the card's name and its nvidia-smi name and power limit;
   build    builds the kernels from petsc_tpu_torch/csrc and runs the
-           one-launch probe (K1);
+           one-launch probe (K1), then builds the native host library
+           (graphops.cpp, g++), each with its seconds;
   kernels  holds every kernel against its plain PyTorch version on the
            card (f64 to 1e-12, f32 to 1e-5 relative) at n = 2^24+37 and
            n = 128^3, and against a scipy CSR product at 24^3; S1 at 128^3,
@@ -74,8 +75,11 @@ Phases, one JSON line each on stdout:
            1e-6 relative), each Galerkin level's nnz, a true residual no worse
            than 10x the reference's, and the launches of mg_launches_needed
            (C1 exactly 4 x (levels - 1) per PC application, const_stencil 0);
-           reports the host set-up seconds by part and the warm solve; then
-           the same with -pc_mg_dtype single (history to 1e-4), and C1 against
+           reports the host set-up seconds by part and the warm solve, and
+           holds S2 on each level's A, P and R against its plain version in
+           float64 (1e-12), each timed; then the same with -pc_mg_dtype
+           single and a hierarchy of its own (history to 1e-4, S2 in
+           float32 to 1e-5), and C1 against
            its plain version in both modes (f64 1e-12, f32 1e-5) at 128^3 and
            2^24 + 37, timed after the clean flush;
   mg_profile  the profile phase for one warm CG+PCMG solve (f64 cycle),
@@ -837,10 +841,10 @@ def q1_hierarchy(n, coarsest=8):
     return grids, Ps
 
 
-def mg_ksp(pt, A, Ps, operators=()):
+def mg_ksp(pt, A, Ps):
     """CG + PCMG on A through the user's entry points: options, KSP, the
-    PCMG API's levels and interpolations (and coarse operators, where
-    given). Returns the KSP, set up."""
+    PCMG API's levels and interpolations; the coarse operators come from
+    the PC's own Galerkin set-up. Returns the KSP, set up."""
     ksp = pt.KSP().create()
     ksp.setOperators(A)
     ksp.setFromOptions()
@@ -848,8 +852,6 @@ def mg_ksp(pt, A, Ps, operators=()):
     mg.setLevels(len(Ps) + 1)
     for l, P in enumerate(Ps):
         mg.setInterpolation(l, pt.MatAIJ.from_scipy(P))
-    for l, Al in operators:
-        mg.setOperator(l, Al)
     ksp.setUp()
     return ksp
 
@@ -898,7 +900,8 @@ def mg_launches_needed(its, nlev):
 def setup_seconds(pt):
     """The host seconds of the last PCMG setup, from the profiler's events."""
     out = {}
-    for key, ev in (("download", "PCMGSetUp_download"), ("spgemm", "PCMGSetUp_SpGEMM"),
+    for key, ev in (("download", "PCMGSetUp_download"), ("native_build", "PCMGSetUp_native"),
+                    ("spgemm", "PCMGSetUp_SpGEMM"),
                     ("emax", "PCMGSetUp_emax"), ("lu", "PCMGSetUp_LU"),
                     ("pc_setup_total", "PCSetUp_mg")):
         e = pt.log().get_event(ev)
@@ -906,11 +909,46 @@ def setup_seconds(pt):
     return out
 
 
-def phase_mg(pt, pk, gk, A, smi, t_start):
+def check_mg_spmv(pk, ksp, flush):
+    """S2 against its plain version, computed in float64, on every operator
+    the cycle multiplies by (each level's A, P and R, in the cycle's own
+    type), each timed after the clean flush. Call it after the launch
+    counts were read: these launches are no part of the path's count."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(99)
+    levels = ksp.getPC().device_data()["levels"][:-1]
+    rows = []
+    for l, ld in enumerate(levels):
+        n, nc = ld["A"]["indptr"].numel() - 1, ld["R"]["indptr"].numel() - 1
+        for op, ncols in (("A", n), ("P", nc), ("R", n)):
+            ip, col, vals = ld[op]["indptr"], ld[op]["col"], ld[op]["vals"]
+            dn = str(vals.dtype).replace("torch.", "")
+            x = torch.rand(ncols, generator=gen, device=dev, dtype=vals.dtype)
+            k = pk.csr_spmv(ip, col, vals, x)
+            p = pk.csr_spmv_plain(ip, col, vals.double(), x.double())
+            err = rel_err(k, p)
+            m, nnz = ip.numel() - 1, vals.numel()
+            if not err <= TOL[dn]:
+                raise AssertionError(f"csr_spmv on level {l} {op} ({m} x {ncols}, {dn}): "
+                                     f"rel err {err} > {TOL[dn]}")
+            isz = vals.element_size()
+            nbytes = nnz * (isz + 4) + (m + 1) * 8 + (m + ncols) * isz
+            b_ms, b_by = bound(nbytes, 2 * nnz, dn)
+            rows.append({"level": l, "op": op, "dtype": dn, "rows": m, "cols": ncols,
+                         "nnz": nnz, "rel_err": err, "tol": TOL[dn],
+                         "max_abs_err": float((k.double() - p).abs().max()),
+                         "ms": time_ms(lambda: pk.csr_spmv(ip, col, vals, x), flush),
+                         "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
+def phase_mg(pt, pk, gk, A, smi, t_start, flush):
     """CG + PCMG on the assembled 128^3 operator, f64 and f32 cycles, each
     driven with every launch count set to 0 just before and read just
-    after. Returns (the phase's record, the f64 KSP, b, x, its warm ms,
-    its launches)."""
+    after, each building its own hierarchy; then S2 on each of the cycle's
+    operators against its plain version. Returns (the phase's record, the
+    f64 KSP, b, x, its warm ms, its launches)."""
     import torch
     grids, Ps = q1_hierarchy(N_MAIN)
     if tuple(grids) != MG_GRIDS:
@@ -931,10 +969,7 @@ def phase_mg(pt, pk, gk, A, smi, t_start):
         pt.init(args=args)
         pt.log().reset()
         t0 = time.perf_counter()
-        # the f32 cycle reuses the f64 run's Galerkin operators (PCMGSetOperator)
-        ops = () if cycle == "f64" else [(l, lev.A) for l, lev in enumerate(
-            res["f64"][0].getPC()._impl.levels) if l > 0]
-        ksp = mg_ksp(pt, A, Ps, ops)
+        ksp = mg_ksp(pt, A, Ps)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         b = A.createVecLeft()
@@ -952,6 +987,7 @@ def phase_mg(pt, pk, gk, A, smi, t_start):
             raise AssertionError(f"CG+PCMG ({cycle}) launches (got, want): {bad}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         path = (torch.cuda.max_memory_allocated() - live0) / 2 ** 20
+        spmv_rows = check_mg_spmv(pk, ksp, flush)
         warm = warm_ms(ksp, b, x)
         check_mg_solve(pk, ksp, A, b, x, cycle)
         res[cycle] = (ksp, b, x, warm, launches)
@@ -965,7 +1001,8 @@ def phase_mg(pt, pk, gk, A, smi, t_start):
                           "csr_spmv": (launches["csr_spmv"] - chk["its"]) / (chk["its"] + 1),
                           "triad": (launches["triad"] - 2 * chk["its"]) / (chk["its"] + 1)},
                       "emax": [lev.emax for lev in ksp.getPC()._impl.levels],
-                      "peak_mem_MiB": peak, "path_peak_mem_MiB": path}
+                      "peak_mem_MiB": peak, "path_peak_mem_MiB": path,
+                      "csr_spmv_checks": spmv_rows}
     out["seconds_so_far"] = time.perf_counter() - t_start
     ksp, b, x, warm, launches = res["f64"]
     return out, ksp, b, x, warm, launches
@@ -1023,6 +1060,7 @@ def main():
               file=sys.stderr)
         return 2
     import petsc_tpu_torch as pt
+    from petsc_tpu_torch import native
     from petsc_tpu_torch.ops import cuda_build, stencil_build as sb
     from petsc_tpu_torch.ops import gather_kernels as gk
     from petsc_tpu_torch.ops import pallas_kernels as pk
@@ -1043,8 +1081,12 @@ def main():
     ptxas = ([ln.strip() for ln in log.read_text().splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
              if log.exists() else [])
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": cuda_build.build_seconds, "ptxas": ptxas})
+    nvcc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.lib()
+    emit({"phase": "build", "seconds": nvcc_s, "nvcc_seconds": cuda_build.build_seconds,
+          "ptxas": ptxas, "native_seconds": time.perf_counter() - t0,
+          "native_build_seconds": native.build_seconds, "native_openmp": native.openmp})
 
     triad_Bps = pk.streams_triad_bandwidth(n=1 << 25, dtype=torch.float64, reps=20) * 1e9
     flush = L2Flush()
@@ -1171,7 +1213,8 @@ def main():
     check_one_launch(prof_a, its_a)
 
     # ---- CG + PCMG on the assembled operator, f64 and f32 cycles ----
-    mg_rec, ksp_m, b_m, x_m, mg_ms, mg_launches = phase_mg(pt, pk, gk, A_aij, smi, t_start)
+    mg_rec, ksp_m, b_m, x_m, mg_ms, mg_launches = phase_mg(pt, pk, gk, A_aij, smi, t_start,
+                                                                flush)
     cheby_rows, cheby_main = phase_cheby(pk, flush)
     mg_rec["cheby_update_checks"] = cheby_rows
     emit(mg_rec)

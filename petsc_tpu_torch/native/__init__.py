@@ -7,7 +7,9 @@ refuses the flag) into ``petsc_tpu_torch/_build/native-<hash>/``, keyed
 by the source and flags, so that a changed source never loads a stale
 library. Nothing is built when a module is imported. Unlike the
 reference there is no numpy fallback: a failed build raises with the
-compiler's output.
+compiler's output. A fall-back to the serial build happens only when the
+compiler's own output names the OpenMP flag or its runtime, and is
+announced with a warning and recorded in :data:`openmp`.
 
 This slice binds what the Galerkin setup of PCMG needs: ``spgemm``,
 ``csr_transpose`` and ``csr_matvec_op``.
@@ -20,6 +22,8 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -30,6 +34,13 @@ _SRC = Path(__file__).resolve().parent / "graphops.cpp"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
 _BASE_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 _lib = None
+build_seconds = None      # wall time of this process's build, None if loaded from disk
+openmp = None             # whether the loaded library was built with -fopenmp
+# what gcc or clang prints when it refuses -fopenmp, or lacks the OpenMP
+# header or runtime (a gcc installed without libgomp: "cannot read spec
+# file 'libgomp.spec'")
+_OMP_REFUSED = ("-fopenmp", "omp.h: No such file", "'omp.h' file not found",
+                "libgomp", "-lgomp", "-lomp")
 
 
 def _library_path(flags) -> Path:
@@ -52,24 +63,36 @@ def _compile(flags, dest: Path):
     return res
 
 
+def _failed(what, res):
+    return Error(f"petsc_tpu_torch.native: building graphops.cpp failed {what} "
+                 f"(exit {res.returncode}):\n{res.stdout}{res.stderr}")
+
+
 def lib():
     """The loaded library, built from ``graphops.cpp`` on first use."""
-    global _lib
+    global _lib, build_seconds, openmp
     if _lib is not None:
         return _lib
-    omp = ("-fopenmp",) + _BASE_FLAGS
-    path = _library_path(omp)
-    if not path.exists():
-        res = _compile(omp, path)
+    omp_flags = ("-fopenmp",) + _BASE_FLAGS
+    omp_path, serial_path = _library_path(omp_flags), _library_path(_BASE_FLAGS)
+    refused = "found by an earlier build"
+    # a serial library is only ever built after the compiler refused the flag
+    if not omp_path.exists() and not serial_path.exists():
+        t0 = time.perf_counter()
+        res = _compile(omp_flags, omp_path)
         if res.returncode != 0:
-            # a compiler without OpenMP: the same code runs serially
-            path = _library_path(_BASE_FLAGS)
-            if not path.exists():
-                res2 = _compile(_BASE_FLAGS, path)
-                if res2.returncode != 0:
-                    raise Error("petsc_tpu_torch.native: building graphops.cpp failed\n"
-                                f"with -fopenmp:\n{res.stderr}\nwithout:\n{res2.stderr}")
-    L = ctypes.CDLL(str(path))
+            if not any(k in res.stdout + res.stderr for k in _OMP_REFUSED):
+                raise _failed("with -fopenmp", res)
+            refused = res.stderr.strip()
+            res = _compile(_BASE_FLAGS, serial_path)
+            if res.returncode != 0:
+                raise _failed("without -fopenmp", res)
+        build_seconds = time.perf_counter() - t0
+    with_omp = omp_path.exists()
+    if not with_omp:
+        warnings.warn(f"petsc_tpu_torch.native: the compiler refused -fopenmp ({refused}); "
+                      "graphops.cpp runs serially", stacklevel=2)
+    L = ctypes.CDLL(str(omp_path if with_omp else serial_path))
     i64, i32 = ctypes.c_int64, ctypes.c_int32
     p64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     p32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -88,7 +111,7 @@ def lib():
         fn = getattr(L, name)
         fn.restype = res_t
         fn.argtypes = args
-    _lib = L
+    _lib, openmp = L, with_omp
     return L
 
 

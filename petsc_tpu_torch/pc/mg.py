@@ -195,7 +195,8 @@ class _PCMG:
         """Fill in the level operators by Galerkin RAP where missing, and
         the Chebyshev bounds where not given. Host seconds are logged as
         the events PCMGSetUp_download (the fine values from the card),
-        PCMGSetUp_SpGEMM, PCMGSetUp_emax."""
+        PCMGSetUp_native (the build of graphops.cpp, where this is its
+        first use), PCMGSetUp_SpGEMM, PCMGSetUp_emax."""
         if self.levels is None:
             if getattr(self.pc.pmat, "_dm", None) is None:
                 raise Error("PCMG: call setLevels and setInterpolation first (a DM "
@@ -207,6 +208,7 @@ class _PCMG:
         if sync is not None:
             # values that setValuesCOO left on the card come to the host once
             _timed("PCMGSetUp_download", sync)
+        _timed("PCMGSetUp_native", native.lib)
         for l in range(1, len(self.levels)):
             if self.levels[l].A is None:
                 Pl = self.levels[l - 1].P

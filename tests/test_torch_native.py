@@ -7,6 +7,7 @@ Tolerances: the port's copy of the C++ is the reference's, so results
 equal the reference's bit for bit; against scipy (which sums in another
 order) 1e-12 relative."""
 
+import re
 from pathlib import Path
 
 import numpy as np
@@ -84,21 +85,63 @@ def test_galerkin_product_matches_the_reference():
     _same(C, native_jax.spgemm(native_jax.csr_transpose(P), native_jax.spgemm(A, P)))
 
 
+_DEF = re.compile(r"^(?:template <[^\n]*\n)?(?:static )?(?:void|int64_t) (\w+)\(.*?\n}\n",
+                  re.M | re.S)
+
+
 def test_the_library_is_the_ports_own_build():
     native.lib()
+    assert native.openmp is True
     built = list((REPO / "petsc_tpu_torch" / "_build").glob("native-*/libgraphops.so"))
     assert built
     src = (REPO / "petsc_tpu_torch" / "native" / "graphops.cpp").read_text()
     ref = (REPO / "petsc_tpu" / "native" / "graphops.cpp").read_text()
-    # the same code below the port's own header
-    body = src[src.index("#include <cstdint>"):]
-    assert body == ref[ref.index("#include <cstdint>"):]
+    # the three kernels and their C entry points, each as the reference has it
+    defs = {m.group(1): m.group(0) for m in _DEF.finditer(src)}
+    assert sorted(defs) == sorted(
+        f"{k}{s}" for k in ("csr_transpose", "spgemm_count", "spgemm_fill", "csr_matvec")
+        for s in ("", "_i32", "_t"))
+    for name, body in defs.items():
+        assert body in ref, name
 
 
 def test_a_failed_build_raises_with_the_compilers_output(monkeypatch, tmp_path):
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_BUILD", tmp_path)
     monkeypatch.setenv("CXX", "false")
-    with pytest.raises(Error, match="building graphops.cpp failed"):
+    with pytest.raises(Error, match="building graphops.cpp failed with -fopenmp"):
         native.lib()
     assert native._lib is None
+
+
+@pytest.mark.parametrize("refusal", (
+    "cxx: error: unrecognized command-line option '-fopenmp'",
+    "cxx: fatal error: cannot read spec file 'libgomp.spec': No such file or directory"))
+def test_a_refused_openmp_flag_builds_serially_and_says_so(monkeypatch, tmp_path, refusal):
+    """A compiler that refuses -fopenmp, or has no OpenMP runtime, gets the
+    serial build, with a warning; any other failure raises (the test
+    above)."""
+    cxx = tmp_path / "cxx"
+    cxx.write_text('#!/bin/sh\nfor a in "$@"; do [ "$a" = -fopenmp ] && '
+                   f'{{ echo "{refusal}" >&2; exit 1; }}; done\nexec g++ "$@"\n')
+    cxx.chmod(0o755)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_BUILD", tmp_path / "build")
+    monkeypatch.setattr(native, "openmp", None)
+    monkeypatch.setattr(native, "build_seconds", None)
+    monkeypatch.setenv("CXX", str(cxx))
+    with pytest.warns(UserWarning, match="refused -fopenmp"):
+        L = native.lib()
+    assert native.openmp is False and native.build_seconds > 0
+    assert len(list((tmp_path / "build").glob("native-*/libgraphops.so"))) == 1
+    # a later process takes the serial library without asking the compiler again
+    native._lib = native.build_seconds = None
+    monkeypatch.setenv("CXX", "false")
+    with pytest.warns(UserWarning, match="found by an earlier build"):
+        native.lib()
+    assert native.openmp is False and native.build_seconds is None
+    A, B = _pair(np.int32)
+    n = A.shape[0]
+    Ci = np.empty(n + 1, dtype=np.int64)
+    nnz = L.spgemm_count_i32(n, B.shape[1], A.indptr, A.indices, B.indptr, B.indices, Ci)
+    assert nnz == (A @ B).nnz
