@@ -42,7 +42,8 @@ Phases, one JSON line each on stdout:
            unique per entry, timed on the probes' own values beside the
            plain version and one PyTorch call (take_along_dim,
            index_select, flat indexing, take); the bound counts the
-           indices, the output and the distinct input entries read;
+           indices, the output and the distinct input entries read (K8:
+           the 32-byte sectors of its input read);
   aij      the assembled-matrix path: the same 128^3 box27 operator as COO
            triplets in bench_kspsolve's order (diagonal first, then the 26
            offsets), through MatAIJ setPreallocationCOO/setValuesCOO, then
@@ -83,7 +84,20 @@ Phases, one JSON line each on stdout:
            its plain version in both modes (f64 1e-12, f32 1e-5) at 128^3 and
            2^24 + 37, timed after the clean flush;
   mg_profile  the profile phase for one warm CG+PCMG solve (f64 cycle),
-           with the time and µs per launch of S2, C1, K2-K4 and lu_solve.
+           with the time and µs per launch of S2, C1, K2-K4 and lu_solve;
+  gamg     CG + GAMG (smoothed aggregation, every GAMG option at its
+           default) on that assembled matrix through the user's entry points
+           (init with -pc_type gamg, KSP), every launch count set to 0 just
+           before init and read just after the solve; asserts the reference's
+           9 iterations, CONVERGED_RTOL, relres <= 1e-8, its residual history
+           (GAMG_HIST, 1e-6), the hierarchy (rows, nnz of A and P and the
+           aggregate count per level, the SHA-256 of the level-0 aggregates,
+           each Chebyshev bound to 1e-12), a true residual no worse than 10x
+           the reference's and the launches of mg_launches_needed; reports the
+           host set-up seconds by event and the warm solve, and holds S2 on
+           each level's A, P and R against float64, each timed; then the same
+           with -pc_mg_dtype single (history to 1e-4);
+  gamg_profile  the profile phase for one warm CG+GAMG solve (f64 cycle).
 Then the kernel table as one JSON line (K2's, K4's and S1's rows also name
 their design, launch shape and share of the bound, S1's with its cp.async
 path, star and f32 times beside; every row of the path's
@@ -148,6 +162,27 @@ MG_HIST = {                      # the reference's preconditioned residual norms
             0.009852002533776938, 0.0011099121622906909, 0.00019970642467384434)}
 MG_HIST_TOL = {"f64": 1e-6, "f32": 1e-4}
 MG_TRUE_RELRES = {"f64": 3.6660472412399075e-07, "f32": 3.666041979185221e-07}
+# CG+GAMG on the assembled 128^3 box27 (b = 1, x0 = 0, rtol 1e-8, no grid declared,
+# every GAMG option at its default: MIS-2 with the square fix on level 0 and MIS
+# above, threshold -1, one prolongator smoothing, coarse limit 50, Chebyshev(2, 2)
+# with Jacobi inside, a V-cycle, a dense LU on the coarsest level): the JAX
+# package's own run on the CPU (gamg_contract.py, JAX 0.9.0, x64, at 1ca26ec;
+# PERF.md section 4, "The GAMG contract").
+GAMG_ITS = 9                     # both cycles, CONVERGED_RTOL
+GAMG_ROWS = (2097152, 44998, 2942, 98, 6)
+GAMG_NNZ = (55742968, 1927758, 354992, 6876, 36)
+GAMG_P_NNZ = (8667065, 406117, 28872, 384)
+GAMG_AGGS = (44998, 2942, 98, 6)
+GAMG_AGG0_SHA256 = "06986038dd541b5202b4aacd9d8925a9d0f0d3d53dde52a1cc23892548992d99"
+GAMG_EMAX = (1.4899285139417946, 1.3888911577172938, 2.027590335996151, 1.5482701293031504)
+GAMG_HIST = {                    # the reference's preconditioned residual norms
+    "f64": (43727.41174942675, 2386.273450291819, 188.65595734573688, 32.55989453209206,
+            3.2011965544537127, 0.2665557978119956, 0.03417290666352907, 0.005351413735419906,
+            0.0007329287945115259, 9.111378592584698e-05),
+    "f32": (43727.38821592011, 2386.2726283549273, 188.65609423496133, 32.55989934120367,
+            3.201196543114481, 0.26655607419116567, 0.03417296410690065, 0.005351416084630673,
+            0.0007329280867813135, 9.111379572104851e-05)}
+GAMG_TRUE_RELRES = {"f64": 1.5840455245758786e-07, "f32": 1.5840445034639022e-07}
 DATA = Path(__file__).resolve().parent / "tests" / "data"
 FIXTURES = ("LFAT5.mtx", "m_05_05_crk.mtx", "amesos2_test_mat0.mtx")
 
@@ -490,6 +525,13 @@ def distinct(flat_idx, n):
     return int(seen.sum())
 
 
+def sector_bytes(flat_idx, n, itemsize):
+    """The bytes of the 32-byte sectors of an n-entry array of itemsize
+    bytes that flat_idx touches: the least a gather of those entries moves
+    (K8's bound)."""
+    return 32 * distinct(flat_idx.long() * itemsize // 32, (n * itemsize + 31) // 32)
+
+
 def unique_values(count, dtype, device):
     """count entries of dtype with distinct bit patterns (an integer arange
     viewed as dtype; no NaN or infinity below 2^31): a gather that reads a
@@ -577,14 +619,14 @@ def phase_gather(gk, flush):
                lambda: x2f[128 * q + s], C * W * (8 + isz) + nd * isz, C * W)
         del q, s, x2, x2u, x2f
 
-        # K8 flat gather: o = x[idx], idx viewed (m / 128, 128)
+        # K8 flat gather: o = x[idx], idx viewed (m / 128, 128); the bound
+        # counts the 32-byte sectors of x read
         x = probe_values(n8, 1000)
         xu = unique_values(n8, dtype, dev)
         idx = ints(n8, (m8 // 128, 128))
         idx_l = idx.long()
-        nd = distinct(idx, n8)
         record("gather", (xu, idx), (x, idx), gk.gather, gk.gather_plain,
-               lambda: torch.take(x, idx_l), m8 * (4 + isz) + nd * isz, m8)
+               lambda: torch.take(x, idx_l), m8 * (4 + isz) + sector_bytes(idx, n8, isz), m8)
         del x, xu, idx, idx_l
         torch.cuda.empty_cache()
     return details, main
@@ -596,7 +638,10 @@ def phase_coo_gather(gk, A, cv, flush):
     no repeated entry, so no sum follows) and the diagonal csr_vals[diag_pos]
     (0 where a row has none), and the kernel must equal its plain version
     bit for bit at both shapes on values unique per entry; each is timed
-    on the path's own values. Returns (the v[perm] row, the diagonal row)."""
+    on the path's own values. The bound counts the indices, the output and
+    the 32-byte sectors of the values read: every sector of v for v[perm],
+    one sector per diagonal entry (216 bytes apart) for the refresh.
+    Returns (the v[perm] row, the diagonal row)."""
     import torch
     dev = torch.device("cuda")
     plan, d = A._coo_plan, A.device_data()
@@ -610,19 +655,20 @@ def phase_coo_gather(gk, A, cv, flush):
     if not torch.equal(d["diag"], want) or not bool((d["diag"] == 26.0).all()):
         raise AssertionError("setValuesCOO: the diagonal differs from csr_vals[diag_pos]")
     isz = v.element_size()
-    m, nd = perm.numel(), distinct(perm, v.numel())
+    m, nb = perm.numel(), sector_bytes(perm, v.numel(), isz)
     perm_l = perm.long()
     vals_row = gather_row(
         "gather", v.dtype, (unique_values(v.numel(), v.dtype, dev), perm), (v, perm),
         gk.gather, gk.gather_plain, lambda: torch.take(v, perm_l),
-        m * (4 + isz) + nd * isz, m, flush)
+        m * (4 + isz) + nb, m, flush)
     del perm_l
-    vals, m, nd = d["vals"], dpos_c.numel(), distinct(dpos_c, d["vals"].numel())
+    vals, m = d["vals"], dpos_c.numel()
+    nb = sector_bytes(dpos_c, vals.numel(), isz)
     dpos_l = dpos_c.long()
     diag_row = gather_row(
         "gather", vals.dtype, (unique_values(vals.numel(), vals.dtype, dev), dpos_c),
         (vals, dpos_c), gk.gather, gk.gather_plain, lambda: torch.take(vals, dpos_l),
-        m * (4 + isz) + nd * isz, m, flush)
+        m * (4 + isz) + nb, m, flush)
     del v, dpos_l
     torch.cuda.empty_cache()
     return (dict(vals_row, shape="v[perm]: values (nnz,), perm (nnz,)"),
@@ -885,7 +931,8 @@ def check_mg_solve(pk, ksp, A, b, x, cycle):
 
 
 def mg_launches_needed(its, nlev):
-    """The launches of one CG+PCMG solve with a V-cycle of Chebyshev(2, 2):
+    """The launches of one CG + multigrid solve (PCMG or GAMG: the same cycle)
+    with a V-cycle of Chebyshev(2, 2):
     its + 1 PC applications, each with, on every level but the coarsest,
     4 C1 (two per smoothing), 7 S2 (A x and A p per smoothing, the
     residual, the restriction, the prolongation) and 2 K2 (residual and
@@ -897,13 +944,19 @@ def mg_launches_needed(its, nlev):
             "const_stencil": 0}
 
 
-def setup_seconds(pt):
-    """The host seconds of the last PCMG setup, from the profiler's events."""
+MG_EVENTS = {"download": "PCMGSetUp_download", "native_build": "PCMGSetUp_native",
+             "spgemm": "PCMGSetUp_SpGEMM", "emax": "PCMGSetUp_emax", "lu": "PCMGSetUp_LU",
+             "pc_setup_total": "PCSetUp_mg"}
+GAMG_EVENTS = {k: f"PCGAMGSetUp_{k}" for k in ("download", "native", "graph", "coarsen",
+                                               "prol0", "emax", "smooth_prol", "SpGEMM")}
+GAMG_EVENTS.update(lu="PCMGSetUp_LU", pc_setup_total="PCSetUp_gamg")
+
+
+def setup_seconds(pt, events):
+    """The host seconds of the last set-up, from the profiler's events
+    (name in the record -> event name)."""
     out = {}
-    for key, ev in (("download", "PCMGSetUp_download"), ("native_build", "PCMGSetUp_native"),
-                    ("spgemm", "PCMGSetUp_SpGEMM"),
-                    ("emax", "PCMGSetUp_emax"), ("lu", "PCMGSetUp_LU"),
-                    ("pc_setup_total", "PCSetUp_mg")):
+    for key, ev in events.items():
         e = pt.log().get_event(ev)
         out[key] = e.time if e is not None else 0.0
     return out
@@ -943,13 +996,61 @@ def check_mg_spmv(pk, ksp, flush):
     return rows
 
 
+def run_cycle(pt, pk, gk, A, args, make_ksp, check, events, flush):
+    """One CG + multigrid solve on A through the user's entry points: every
+    launch count set to 0 just before init and read just after the solve,
+    the solve checked (check(ksp, b, x) returns the record or raises), the
+    launches held to mg_launches_needed, S2 held against float64 on every
+    operator of the cycle, the warm solve timed and checked again. Returns
+    (ksp, b, x, warm ms, launches, the record)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live0 = torch.cuda.memory_allocated()
+    pk.reset_launches()
+    gk.reset_launches()
+    pt.init(args=args)
+    pt.log().reset()
+    t0 = time.perf_counter()
+    ksp = make_ksp()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b = A.createVecLeft()
+    b.set(1.0)
+    x = A.createVecRight()
+    t1 = time.perf_counter()
+    ksp.solve(b, x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    launches = {**pk.LAUNCHES, **gk.LAUNCHES}
+    chk = check(ksp, b, x)
+    nlev = len(ksp.getPC()._impl.levels)
+    need = mg_launches_needed(chk["its"], nlev)
+    bad = {k: (launches[k], v) for k, v in need.items() if launches[k] != v}
+    if bad:
+        raise AssertionError(f"{args}: launches (got, want): {bad}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    path = (torch.cuda.max_memory_allocated() - live0) / 2 ** 20
+    spmv_rows = check_mg_spmv(pk, ksp, flush)
+    warm = warm_ms(ksp, b, x)
+    check(ksp, b, x)
+    rec = {**chk, "setup_s": setup_s, "setup_split_s": setup_seconds(pt, events),
+           "first_solve_s": first_s, "warm_ms_best_of_3": warm,
+           "ms_per_it": warm / chk["its"], "launches": launches, "launches_needed": need,
+           # the cycle's own: CG's S2 and K2 launches taken out
+           "launches_per_pc_apply": {
+               "cheby_update": launches["cheby_update"] / (chk["its"] + 1),
+               "csr_spmv": (launches["csr_spmv"] - chk["its"]) / (chk["its"] + 1),
+               "triad": (launches["triad"] - 2 * chk["its"]) / (chk["its"] + 1)},
+           "emax": [lev.emax for lev in ksp.getPC()._impl.levels],
+           "peak_mem_MiB": peak, "path_peak_mem_MiB": path, "csr_spmv_checks": spmv_rows}
+    return ksp, b, x, warm, launches, rec
+
+
 def phase_mg(pt, pk, gk, A, smi, t_start, flush):
     """CG + PCMG on the assembled 128^3 operator, f64 and f32 cycles, each
-    driven with every launch count set to 0 just before and read just
-    after, each building its own hierarchy; then S2 on each of the cycle's
-    operators against its plain version. Returns (the phase's record, the
-    f64 KSP, b, x, its warm ms, its launches)."""
-    import torch
+    building its own hierarchy (run_cycle). Returns (the phase's record,
+    the f64 KSP, b, x, its warm ms, its launches)."""
     grids, Ps = q1_hierarchy(N_MAIN)
     if tuple(grids) != MG_GRIDS:
         raise AssertionError(f"hierarchy grids {grids}, want {MG_GRIDS}")
@@ -961,51 +1062,92 @@ def phase_mg(pt, pk, gk, A, smi, t_start, flush):
         args = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", "1e-8"]
         if cycle == "f32":
             args += ["-pc_mg_dtype", "single"]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        live0 = torch.cuda.memory_allocated()
-        pk.reset_launches()
-        gk.reset_launches()
-        pt.init(args=args)
-        pt.log().reset()
-        t0 = time.perf_counter()
-        ksp = mg_ksp(pt, A, Ps)
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-        b = A.createVecLeft()
-        b.set(1.0)
-        x = A.createVecRight()
-        t1 = time.perf_counter()
-        ksp.solve(b, x)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t1
-        launches = {**pk.LAUNCHES, **gk.LAUNCHES}
-        chk = check_mg_solve(pk, ksp, A, b, x, cycle)
-        need = mg_launches_needed(chk["its"], len(grids))
-        bad = {k: (launches[k], v) for k, v in need.items() if launches[k] != v}
-        if bad:
-            raise AssertionError(f"CG+PCMG ({cycle}) launches (got, want): {bad}")
-        peak = torch.cuda.max_memory_allocated() / 2 ** 20
-        path = (torch.cuda.max_memory_allocated() - live0) / 2 ** 20
-        spmv_rows = check_mg_spmv(pk, ksp, flush)
-        warm = warm_ms(ksp, b, x)
-        check_mg_solve(pk, ksp, A, b, x, cycle)
-        res[cycle] = (ksp, b, x, warm, launches)
-        out[cycle] = {**chk, "setup_s": setup_s, "setup_split_s": setup_seconds(pt),
-                      "first_solve_s": first_s, "warm_ms_best_of_3": warm,
-                      "ms_per_it": warm / chk["its"], "launches": launches,
-                      "launches_needed": need,
-                      # the cycle's own: CG's S2 and K2 launches taken out
-                      "launches_per_pc_apply": {
-                          "cheby_update": launches["cheby_update"] / (chk["its"] + 1),
-                          "csr_spmv": (launches["csr_spmv"] - chk["its"]) / (chk["its"] + 1),
-                          "triad": (launches["triad"] - 2 * chk["its"]) / (chk["its"] + 1)},
-                      "emax": [lev.emax for lev in ksp.getPC()._impl.levels],
-                      "peak_mem_MiB": peak, "path_peak_mem_MiB": path,
-                      "csr_spmv_checks": spmv_rows}
+        *res[cycle], out[cycle] = run_cycle(
+            pt, pk, gk, A, args, lambda: mg_ksp(pt, A, Ps),
+            lambda ksp, b, x, cycle=cycle: check_mg_solve(pk, ksp, A, b, x, cycle),
+            MG_EVENTS, flush)
     out["seconds_so_far"] = time.perf_counter() - t_start
-    ksp, b, x, warm, launches = res["f64"]
-    return out, ksp, b, x, warm, launches
+    return (out, *res["f64"])
+
+
+def gamg_ksp(pt, A):
+    """CG + GAMG on A through the user's entry points (the options of
+    init), set up."""
+    ksp = pt.KSP().create()
+    ksp.setOperators(A)
+    ksp.setFromOptions()
+    ksp.setUp()
+    return ksp
+
+
+def check_gamg_solve(pk, ksp, A, b, x, cycle):
+    """The reference's 128^3 CG+GAMG contract (GAMG_* constants): its,
+    reason, relres, history, the hierarchy (rows, nnz of A and P, aggregate
+    counts, the level-0 aggregates' hash, each Chebyshev bound) and a true
+    residual no worse than 10x the reference's."""
+    import hashlib
+    import numpy as np
+    import torch
+    its = ksp.getIterationNumber()
+    reason = ksp.getConvergedReason().name
+    relres = ksp.getResidualNorm() / ksp._rnorm0
+    d = A.device_data()
+    Ax = pk.csr_spmv_plain(d["indptr"], d["col"], d["vals"], x.array)
+    true_rel = float(torch.linalg.vector_norm(b.array - Ax) / torch.linalg.vector_norm(b.array))
+    hist, want = ksp.getConvergenceHistory(), np.array(GAMG_HIST[cycle])
+    hist_rel = (float(np.max(np.abs(hist - want) / want)) if hist.shape == want.shape
+                else math.inf)
+    levels = ksp.getPC()._impl.levels
+    hier = {"rows": [lev.A.getSize()[0] for lev in levels],
+            "nnz": [lev.A.nnz() for lev in levels],
+            "P_nnz": [int(lev.P.to_scipy().nnz) for lev in levels[:-1]],
+            "aggregates": [int(lev.agg.max()) + 1 for lev in levels[:-1]],
+            "agg0_sha256": hashlib.sha256(np.asarray(levels[0].agg, dtype=np.int64)
+                                          .tobytes()).hexdigest(),
+            "emax": [lev.emax for lev in levels[:-1]]}
+    emax_rel = (max(abs(a - b) / b for a, b in zip(hier["emax"], GAMG_EMAX))
+                if len(hier["emax"]) == len(GAMG_EMAX) else math.inf)
+    want_hier = {"rows": list(GAMG_ROWS), "nnz": list(GAMG_NNZ), "P_nnz": list(GAMG_P_NNZ),
+                 "aggregates": list(GAMG_AGGS), "agg0_sha256": GAMG_AGG0_SHA256}
+    bad_hier = {k: (hier[k], v) for k, v in want_hier.items() if hier[k] != v}
+    if its != GAMG_ITS or reason != "CONVERGED_RTOL" or not relres <= 1e-8 \
+            or not hist_rel <= MG_HIST_TOL[cycle] or bad_hier or not emax_rel <= 1e-12 \
+            or not true_rel <= 10 * GAMG_TRUE_RELRES[cycle]:
+        raise AssertionError(
+            f"128^3 CG+GAMG ({cycle} cycle): its {its} (want {GAMG_ITS}), {reason}, relres "
+            f"{relres}, history vs the reference {hist_rel} (tol {MG_HIST_TOL[cycle]}), "
+            f"hierarchy (got, want) {bad_hier}, emax vs the reference {emax_rel} (tol 1e-12), "
+            f"true relres {true_rel} (the reference's {GAMG_TRUE_RELRES[cycle]})")
+    if not bool(torch.isfinite(x.array).all()):
+        raise AssertionError("CG+GAMG solution has non-finite entries")
+    return {"its": its, "reason": reason, "relres": relres, "true_relres": true_rel,
+            "reference_true_relres": GAMG_TRUE_RELRES[cycle],
+            "history_rel_diff_vs_reference": hist_rel, "emax_rel_diff_vs_reference": emax_rel,
+            "hierarchy": hier}
+
+
+def phase_gamg(pt, pk, gk, A, smi, t_start, flush):
+    """CG + GAMG (smoothed aggregation, every GAMG option at its default) on
+    the assembled 128^3 operator, f64 and f32 cycles, each setting up its
+    own hierarchy (run_cycle). Returns (the phase's record, the f64 KSP, b,
+    x, its warm ms, its launches)."""
+    out = {"phase": "gamg", "n": N_MAIN, "stencil": "box27", "assembly": "COO", "rtol": 1e-8,
+           "coarsening": "MIS-2 + square fix on level 0, MIS above, threshold -1",
+           "smoother": "chebyshev(2,2)/jacobi", "coarse": "dense LU", "nvidia_smi": smi}
+    res = {}
+    for cycle in ("f64", "f32"):
+        args = ["-ksp_type", "cg", "-pc_type", "gamg", "-ksp_rtol", "1e-8"]
+        if cycle == "f32":
+            args += ["-pc_mg_dtype", "single"]
+        *res[cycle], out[cycle] = run_cycle(
+            pt, pk, gk, A, args, lambda: gamg_ksp(pt, A),
+            lambda ksp, b, x, cycle=cycle: check_gamg_solve(pk, ksp, A, b, x, cycle),
+            GAMG_EVENTS, flush)
+        out[cycle]["seconds_so_far"] = time.perf_counter() - t_start
+    from petsc_tpu_torch import native
+    out["native_openmp"] = native.openmp
+    out["seconds_so_far"] = time.perf_counter() - t_start
+    return (out, *res["f64"])
 
 
 def phase_cheby(pk, flush):
@@ -1219,8 +1361,19 @@ def main():
     mg_rec["cheby_update_checks"] = cheby_rows
     emit(mg_rec)
     prof_m = profile_solve(ksp_m, b_m, x_m, mg_ms)
-    emit({"phase": "mg_profile", "solve": "cg+pcmg, f64 cycle", "nvidia_smi": smi, **prof_m})
+    emit({"phase": "mg_profile", "solve": "cg+pcmg, f64 cycle", "nvidia_smi": smi, **prof_m,
+          "seconds_so_far": time.perf_counter() - t_start})
     check_mg_solve(pk, ksp_m, A_aij, b_m, x_m, "f64")
+    del ksp_m, b_m, x_m
+
+    # ---- CG + GAMG on the assembled operator, f64 and f32 cycles ----
+    gamg_rec, ksp_g, b_g, x_g, gamg_ms, gamg_launches = phase_gamg(pt, pk, gk, A_aij, smi,
+                                                                   t_start, flush)
+    emit(gamg_rec)
+    prof_g = profile_solve(ksp_g, b_g, x_g, gamg_ms)
+    emit({"phase": "gamg_profile", "solve": "cg+gamg, f64 cycle", "nvidia_smi": smi, **prof_g,
+          "seconds_so_far": time.perf_counter() - t_start})
+    check_gamg_solve(pk, ksp_g, A_aij, b_g, x_g, "f64")
 
     # name: (source, replaces, measured row, launches on the path it belongs to)
     rows = {
@@ -1255,10 +1408,11 @@ def main():
                       "dtype": r["dtype"],
                       "launches_by_path": {"solve": launches[name],
                                            "aij": aij_launches[name],
-                                           "mg": mg_launches[name]},
+                                           "mg": mg_launches[name],
+                                           "gamg": gamg_launches[name]},
                       "in_solve_us": {path: p["in_solve"].get(name, {}).get("us_per_launch")
                                       for path, p in (("solve", prof), ("aij", prof_a),
-                                                      ("mg", prof_m))}})
+                                                      ("mg", prof_m), ("gamg", prof_g))}})
     for r in table:
         if r["name"] in ("triad", "dot2", "const_stencil"):
             r.update(design=main_rows[r["name"]]["design"],

@@ -4,7 +4,7 @@ A second package beside ``petsc_tpu`` with the same public surface for
 what it ports so far: the options database, Vec, the stencil Mat of the
 3-D Poisson operator, the assembled MatAIJ (setValues, CSR and COO
 assembly, the host matrix operations and sparse products), PC
-none/jacobi/mg and KSP cg/richardson/preonly/chebyshev. It
+none/jacobi/mg/gamg and KSP cg/richardson/preonly/chebyshev. It
 imports torch, numpy and scipy, never jax or petsc_tpu. Objects live on
 the device :func:`init` chooses: ``cuda`` unless ``device="cpu"`` is
 passed. The CG body runs on hand-written Hopper kernels
@@ -37,6 +37,7 @@ from .mat.mat import Mat
 from .mat.aij import MatAIJ  # also registers the aij_csr and aij_dnd binders
 from .pc.pc import PC
 from .pc import mg as _mg  # registers PC mg and the pc_mg binder
+from .pc import gamg as _gamg  # registers PC gamg and hmg
 from .ksp.ksp import KSP
 
 __version__ = "0.1.0"

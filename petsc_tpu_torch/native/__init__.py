@@ -11,8 +11,11 @@ compiler's output. A fall-back to the serial build happens only when the
 compiler's own output names the OpenMP flag or its runtime, and is
 announced with a warning and recorded in :data:`openmp`.
 
-This slice binds what the Galerkin setup of PCMG needs: ``spgemm``,
-``csr_transpose`` and ``csr_matvec_op``.
+Bound here: what the Galerkin setup of PCMG needs (``spgemm``,
+``csr_transpose``, ``csr_matvec_op``) and the coarsening of PCGAMG
+(``strength_sym``, ``mis_aggregate``, ``mis2_aggregate``,
+``fix_aggregates``, ``hem_match``). The ILU, ordering, colouring and
+loose HEM kernels of the reference's file come with ROADMAP items 7-8.
 """
 
 from __future__ import annotations
@@ -93,7 +96,7 @@ def lib():
         warnings.warn(f"petsc_tpu_torch.native: the compiler refused -fopenmp ({refused}); "
                       "graphops.cpp runs serially", stacklevel=2)
     L = ctypes.CDLL(str(omp_path if with_omp else serial_path))
-    i64, i32 = ctypes.c_int64, ctypes.c_int32
+    i64, i32, f8 = ctypes.c_int64, ctypes.c_int32, ctypes.c_double
     p64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     p32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     pf8 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
@@ -106,6 +109,13 @@ def lib():
         "spgemm_fill_i32": (None, [i32, i32, p32, p32, pf8, p32, p32, pf8, p64, p32, pf8]),
         "csr_matvec": (None, [i64, p64, p64, pf8, pf8, pf8]),
         "csr_matvec_i32": (None, [i32, p32, p32, pf8, pf8, pf8]),
+        "strength_sym": (i64, [i64, p64, p64, pf8, f8, p64, p64, pf8]),
+        "strength_sym_i32": (i64, [i32, p32, p32, pf8, f8, p32, p32, pf8]),
+        "mis_aggregate": (i64, [i64, p64, p64, p64, p64, p64]),
+        "mis2_aggregate": (i64, [i64, p64, p64, p64, p64, p64]),
+        "mis2_aggregate_i32": (i64, [i32, p32, p32, p64, p64, p64]),
+        "fix_aggregates": (None, [i64, p64, p64, p64, i64, p64]),
+        "hem_match": (i64, [i64, p64, p64, pf8, i64, f8, p64]),
     }
     for name, (res_t, args) in sigs.items():
         fn = getattr(L, name)
@@ -191,3 +201,71 @@ def csr_matvec_op(A):
         return y
 
     return mv
+
+
+def strength_sym(A, threshold):
+    """The strength graph G = |A| + |A|^T of a square scipy CSR, entries
+    with |g_ij| <= threshold * sqrt(g_ii g_jj) dropped (threshold < 0
+    keeps all; the diagonal always stays), as a scipy CSR with sorted
+    columns (agg.c:752, bs = 1)."""
+    import scipy.sparse as sp
+    L = lib()
+    n = A.shape[0]
+    Ai, Aj, is32 = _idx(A)
+    it = np.int32 if is32 else np.int64
+    Gi = np.empty(n + 1, dtype=it)
+    Gj = np.empty(2 * A.nnz, dtype=it)       # the worst case of |A| + |A|^T
+    Gx = np.empty(2 * A.nnz, dtype=np.float64)
+    nnz = (L.strength_sym_i32 if is32 else L.strength_sym)(
+        n, Ai, Aj, _cf8(A.data), float(threshold), Gi, Gj, Gx)
+    G = sp.csr_matrix((Gx[:nnz], Gj[:nnz], Gi), shape=(n, n))
+    G.has_sorted_indices = True
+    return G
+
+
+def mis_aggregate(indptr, indices, perm):
+    """Greedy MIS aggregation of a graph, vertices visited in `perm`
+    order: (agg, nagg, roots), agg[v] = -1 for a removed singleton."""
+    n = len(indptr) - 1
+    agg = np.empty(n, dtype=np.int64)
+    roots = np.empty(max(n, 1), dtype=np.int64)
+    nagg = lib().mis_aggregate(n, _c64(indptr), _c64(indices), _c64(perm), agg, roots)
+    return agg, int(nagg), roots[:nagg].copy()
+
+
+def mis2_aggregate(indptr, indices, perm):
+    """MIS aggregation on the implicit square of a graph: the greedy
+    semantics of mis_aggregate on G^2 without forming G^2. Returns
+    (agg, nagg, roots)."""
+    L = lib()
+    n = len(indptr) - 1
+    agg = np.empty(n, dtype=np.int64)
+    roots = np.empty(max(n, 1), dtype=np.int64)
+    if indptr.dtype == np.int32 and indices.dtype == np.int32:
+        nagg = L.mis2_aggregate_i32(n, np.ascontiguousarray(indptr),
+                                    np.ascontiguousarray(indices), _c64(perm), agg, roots)
+    else:
+        nagg = L.mis2_aggregate(n, _c64(indptr), _c64(indices), _c64(perm), agg, roots)
+    return agg, int(nagg), roots[:nagg].copy()
+
+
+def fix_aggregates(indptr, indices, roots, agg):
+    """The square fix-up: every root takes its direct non-root neighbours
+    into its aggregate. Returns the new agg (int64; agg itself is updated
+    in place when it is already a contiguous int64 array)."""
+    agg = np.ascontiguousarray(agg, dtype=np.int64)
+    lib().fix_aggregates(len(indptr) - 1, _c64(indptr), _c64(indices), _c64(roots),
+                         len(roots), agg)
+    return agg
+
+
+def hem_match(indptr, indices, weights, rounds, threshold):
+    """Exact serial heavy-edge matching (hem.c) on the SCALED strength
+    graph (unit diagonal): edge-sorted matching with max-edge gating,
+    boundary rows pooled, each round contracted and rescaled. Returns
+    (agg, nagg)."""
+    n = len(indptr) - 1
+    agg = np.empty(n, dtype=np.int64)
+    nagg = lib().hem_match(n, _c64(indptr), _c64(indices), _cf8(weights), int(rounds),
+                           float(threshold), agg)
+    return agg, int(nagg)

@@ -1,12 +1,17 @@
-// Native host kernels of the Galerkin setup for petsc_tpu_torch.
+// Native host kernels of the multigrid setup for petsc_tpu_torch.
 //
-// The port's own copy of the SpGEMM, CSR transpose and CSR matvec of
-// petsc_tpu/native/graphops.cpp (the reference's host "symbolic and
-// numeric phase" of PCSetUp_GAMG / PCSetUp_MG: the scalable PtAP of
-// mpiptap.c:215 as a Gustavson count+fill SpGEMM, the transpose that
-// forms R = P^T, and the row-parallel matvec of the host Arnoldi
-// eigenvalue estimate). The aggregation, ordering and factorization
-// kernels of the reference's file arrive with the slices that call them.
+// The port's own copy of the host kernels of petsc_tpu/native/graphops.cpp
+// that the PCMG and PCGAMG setups call, each as the reference has it:
+// * the Galerkin products: the scalable PtAP of mpiptap.c:215 as a
+//   Gustavson count+fill SpGEMM, the transpose that forms R = P^T, and
+//   the row-parallel matvec of the host Arnoldi eigenvalue estimate;
+// * the smoothed-aggregation coarsening of PCGAMG: the strength graph
+//   |A| + |A|^T with its threshold filter (agg.c:752), greedy MIS
+//   aggregation (mis.c:89-207) on the graph and on its implicit square,
+//   the square fix-up (agg.c:913 fixAggregatesWithSquare) and the exact
+//   serial heavy-edge matching (hem.c).
+// The ILU, ordering, colouring and loose HEM kernels of the reference's
+// file arrive with the slices that call them.
 // Exposed with C linkage for ctypes; petsc_tpu_torch/native/__init__.py
 // builds it at first use. There is no numpy fallback: a failed build
 // raises.
@@ -18,6 +23,8 @@
 // Build: g++ -O2 -fopenmp -shared -fPIC -std=c++17 graphops.cpp -o libgraphops.so
 
 #include <cstdint>
+#include <cmath>
+#include <cstring>
 #include <vector>
 #include <algorithm>
 #ifdef _OPENMP
@@ -112,6 +119,107 @@ static void spgemm_fill_t(I n, I m, const I* Ai, const I* Aj,
   }
 }
 
+// Strength graph G = |A| + |A|^T with threshold filtering (agg.c:752,
+// bs=1): drop |g_ij| <= threshold * sqrt(g_ii g_jj) (threshold < 0 keeps
+// all); the diagonal is never dropped. Single call: caller allocates the
+// worst-case 2*nnz(A) output; returns the actual nnz.
+template <class I>
+static int64_t strength_sym_t(I n, const I* Ai, const I* Aj,
+                              const double* Ax, double threshold, I* Gi,
+                              I* Gj, double* Gx) {
+  I nnz = Ai[n];
+  std::vector<I> Ti(n + 1), Tj(nnz);
+  std::vector<double> Tx(nnz);
+  csr_transpose_t<I>(n, n, Ai, Aj, Ax, Ti.data(), Tj.data(), Tx.data());
+  std::vector<double> dg(n, 0.0);
+  const bool filt = threshold >= 0.0;
+  if (filt) {
+#ifdef _OPENMP
+#pragma omp parallel for schedule(static)
+#endif
+    for (I i = 0; i < n; i++)
+      for (I p = Ai[i]; p < Ai[i + 1]; p++)
+        if (Aj[p] == i) { dg[i] = std::sqrt(2.0 * std::fabs(Ax[p])); break; }
+  }
+  // padded per-row slots sized (rowA + rowT), then compact
+  std::vector<int64_t> off(n + 1), cnt(n);
+  off[0] = 0;
+  for (I i = 0; i < n; i++)
+    off[i + 1] = off[i] + (Ai[i + 1] - Ai[i]) + (Ti[i + 1] - Ti[i]);
+  // off[n] == 2*nnz == caller's allocation; write row i at off[i]
+#ifdef _OPENMP
+#pragma omp parallel for schedule(dynamic, 512)
+#endif
+  for (I i = 0; i < n; i++) {
+    I pa = Ai[i], ea = Ai[i + 1];
+    I pt = Ti[i], et = Ti[i + 1];
+    int64_t w = off[i];
+    while (pa < ea || pt < et) {
+      I ja = pa < ea ? Aj[pa] : n;
+      I jt = pt < et ? Tj[pt] : n;
+      I j;
+      double v;
+      if (ja == jt) { j = ja; v = std::fabs(Ax[pa]) + std::fabs(Tx[pt]);
+                      pa++; pt++; }
+      else if (ja < jt) { j = ja; v = std::fabs(Ax[pa]); pa++; }
+      else { j = jt; v = std::fabs(Tx[pt]); pt++; }
+      if (filt && j != i && v <= threshold * dg[i] * dg[j]) continue;
+      Gj[w] = j; Gx[w] = v; w++;
+    }
+    cnt[i] = w - off[i];
+  }
+  // serial left-compaction (memmove-safe: targets never pass sources)
+  Gi[0] = 0;
+  int64_t pos = 0;
+  for (I i = 0; i < n; i++) {
+    if (pos != off[i] && cnt[i]) {
+      std::memmove(Gj + pos, Gj + off[i], cnt[i] * sizeof(I));
+      std::memmove(Gx + pos, Gx + off[i], cnt[i] * sizeof(double));
+    }
+    pos += cnt[i];
+    Gi[i + 1] = (I)pos;
+  }
+  return pos;
+}
+
+// MIS aggregation on the IMPLICIT squared graph (the aggressive-
+// coarsening path, agg.c:1254 square + mis): identical greedy semantics
+// to mis_aggregate(G^2, perm) — visit in perm order, an undecided vertex
+// roots and captures every undecided vertex within distance <= 2 — but
+// G^2 (~5x the nnz at 27-point) is never materialized. Distance-2
+// expansion only runs for vertices still undecided at visit time
+// (~nagg of them), so this is O(nagg * deg^2) not O(n * deg^2).
+template <class I>
+static int64_t mis2_aggregate_t(I n, const I* indptr, const I* indices,
+                                const int64_t* perm, int64_t* agg,
+                                int64_t* roots_out) {
+  for (I i = 0; i < n; i++) agg[i] = -2;
+  std::vector<I> stamp(n, (I)-1);
+  std::vector<I> nbrs2;
+  nbrs2.reserve(4096);
+  int64_t nagg = 0;
+  for (I kk = 0; kk < n; kk++) {
+    I v = (I)perm[kk];
+    if (agg[v] != -2) continue;
+    nbrs2.clear();
+    for (I p = indptr[v]; p < indptr[v + 1]; p++) {
+      I k = indices[p];
+      for (I q = indptr[k]; q < indptr[k + 1]; q++) {
+        I j = indices[q];
+        if (stamp[j] != v) { stamp[j] = v; nbrs2.push_back(j); }
+      }
+    }
+    if ((int64_t)nbrs2.size() < 2) { agg[v] = -1; continue; }  // singleton
+    agg[v] = nagg;
+    for (I j : nbrs2)
+      if (agg[j] == -2) agg[j] = nagg;
+    roots_out[nagg++] = v;
+  }
+  for (I i = 0; i < n; i++)
+    if (agg[i] == -2) agg[i] = -1;
+  return nagg;
+}
+
 template <class I>
 static void csr_matvec_t(I n, const I* Ai, const I* Aj, const double* Ax,
                          const double* x, double* y) {
@@ -126,6 +234,48 @@ static void csr_matvec_t(I n, const I* Ai, const I* Aj, const double* Ax,
 }
 
 extern "C" {
+
+// Greedy MIS aggregation over `perm` order (mis.c:89-207 serial
+// strict-aggs semantics). agg must be length n; returns nagg. roots_out
+// (length n capacity) receives root vertex of each aggregate.
+int64_t mis_aggregate(int64_t n, const int64_t* indptr,
+                      const int64_t* indices, const int64_t* perm,
+                      int64_t* agg, int64_t* roots_out) {
+  for (int64_t i = 0; i < n; i++) agg[i] = -2;
+  int64_t nagg = 0;
+  for (int64_t k = 0; k < n; k++) {
+    int64_t v = perm[k];
+    if (agg[v] != -2) continue;
+    int64_t lo = indptr[v], hi = indptr[v + 1];
+    if (hi - lo < 2) { agg[v] = -1; continue; }  // singleton: removed
+    agg[v] = nagg;
+    for (int64_t p = lo; p < hi; p++) {
+      int64_t j = indices[p];
+      if (agg[j] == -2) agg[j] = nagg;
+    }
+    roots_out[nagg++] = v;
+  }
+  for (int64_t i = 0; i < n; i++)
+    if (agg[i] == -2) agg[i] = -1;
+  return nagg;
+}
+
+// Post-MIS(G^2) fixup (agg.c:913): every root steals its direct
+// (unsquared-graph) non-root neighbors into its own aggregate.
+void fix_aggregates(int64_t n, const int64_t* indptr,
+                    const int64_t* indices, const int64_t* roots,
+                    int64_t nroots, int64_t* agg) {
+  std::vector<uint8_t> is_root(n, 0);
+  for (int64_t a = 0; a < nroots; a++) is_root[roots[a]] = 1;
+  for (int64_t a = 0; a < nroots; a++) {
+    int64_t r = roots[a];
+    for (int64_t p = indptr[r]; p < indptr[r + 1]; p++) {
+      int64_t j = indices[p];
+      if (!is_root[j]) agg[j] = a;
+    }
+  }
+  for (int64_t a = 0; a < nroots; a++) agg[roots[a]] = a;
+}
 
 void csr_transpose(int64_t n, int64_t ncols, const int64_t* Ai,
                    const int64_t* Aj, const double* Ax, int64_t* Bi,
@@ -162,6 +312,28 @@ void spgemm_fill_i32(int32_t n, int32_t m, const int32_t* Ai,
   spgemm_fill_t<int32_t, int32_t>(n, m, Ai, Aj, Ax, Bi, Bj, Bx, Ci, Cj, Cx);
 }
 
+int64_t strength_sym(int64_t n, const int64_t* Ai, const int64_t* Aj,
+                     const double* Ax, double threshold, int64_t* Gi,
+                     int64_t* Gj, double* Gx) {
+  return strength_sym_t<int64_t>(n, Ai, Aj, Ax, threshold, Gi, Gj, Gx);
+}
+int64_t strength_sym_i32(int32_t n, const int32_t* Ai, const int32_t* Aj,
+                         const double* Ax, double threshold, int32_t* Gi,
+                         int32_t* Gj, double* Gx) {
+  return strength_sym_t<int32_t>(n, Ai, Aj, Ax, threshold, Gi, Gj, Gx);
+}
+
+int64_t mis2_aggregate(int64_t n, const int64_t* indptr,
+                       const int64_t* indices, const int64_t* perm,
+                       int64_t* agg, int64_t* roots_out) {
+  return mis2_aggregate_t<int64_t>(n, indptr, indices, perm, agg, roots_out);
+}
+int64_t mis2_aggregate_i32(int32_t n, const int32_t* indptr,
+                           const int32_t* indices, const int64_t* perm,
+                           int64_t* agg, int64_t* roots_out) {
+  return mis2_aggregate_t<int32_t>(n, indptr, indices, perm, agg, roots_out);
+}
+
 void csr_matvec(int64_t n, const int64_t* Ai, const int64_t* Aj,
                 const double* Ax, const double* x, double* y) {
   csr_matvec_t<int64_t>(n, Ai, Aj, Ax, x, y);
@@ -169,6 +341,170 @@ void csr_matvec(int64_t n, const int64_t* Ai, const int64_t* Aj,
 void csr_matvec_i32(int32_t n, const int32_t* Ai, const int32_t* Aj,
                     const double* Ax, const double* x, double* y) {
   csr_matvec_t<int32_t>(n, Ai, Aj, Ax, x, y);
+}
+
+}  // extern "C"
+
+// ===================================================================
+// Exact serial HEM (hem.c MatCoarsenApply_HEM_private, the size==1
+// specialization), -pc_gamg_mat_coarsen_type hem. Differences from the
+// looser hem_aggregate of the reference's file (not copied): the edge
+// list is stable-sorted descending with +-MY_MEPS-equal ties keeping
+// row-major build order (glibc qsort on the reference side is a stable
+// merge sort); matching sweeps gate each edge on BOTH endpoints'
+// current max edge weight over unmatched neighbors (lid_max_ew logic,
+// hem.c:699-717); boundary rows (max_e <= MY_MEPS at round 0,
+// hem.c:586) pool into one fake aggregate; and each round contracts
+// the graph tMat = P^T cMat P followed by a symmetric rescale to unit
+// diagonal (hem.c:1088-1096).
+// ===================================================================
+
+static const double HEM_MEPS = 2.2204460492503131e-16 * 100.0;  // eps*100
+
+extern "C" {
+
+int64_t hem_match(int64_t n, const int64_t* indptr, const int64_t* indices,
+                  const double* data, int64_t n_iter, double threshold,
+                  int64_t* agg_out) {
+  // working graph
+  std::vector<int64_t> Ci(indptr, indptr + n + 1);
+  std::vector<int64_t> Cj(indices, indices + indptr[n]);
+  std::vector<double> Cx(data, data + indptr[n]);
+  std::vector<std::vector<int64_t>> lists(n);
+  for (int64_t i = 0; i < n; i++) lists[i] = {i};
+  std::vector<int64_t> bc_pool;
+  int64_t bc_agg = -1;
+
+  struct Edge { int64_t i, j; double w; };
+  std::vector<uint8_t> matched(n);
+  std::vector<double> locmax(n);
+  std::vector<int64_t> rootof(n);
+
+  for (int64_t iter = 0; iter < n_iter; iter++) {
+    for (int64_t k = 0; k < n; k++) matched[k] = lists[k].empty() ? 1 : 0;
+    // initial locMax (threshold-filtered, hem.c:553-566) + BC detection
+    for (int64_t i = 0; i < n; i++) {
+      double max_e = 0.0;
+      for (int64_t p = Ci[i]; p < Ci[i + 1]; p++) {
+        int64_t j = Cj[p];
+        double w = Cx[p];
+        if (w > threshold && j != i && w > max_e) max_e = w;
+      }
+      locmax[i] = max_e;
+      if (iter == 0 && max_e <= HEM_MEPS && !matched[i]) {
+        matched[i] = 1;                      // BC fake aggregate
+        if (bc_agg == -1) bc_agg = i;
+        for (int64_t g : lists[i]) bc_pool.push_back(g);
+        lists[i].clear();
+      }
+    }
+    // edge list (i<j, w>threshold), row-major build order
+    std::vector<Edge> edges;
+    for (int64_t i = 0; i < n; i++)
+      for (int64_t p = Ci[i]; p < Ci[i + 1]; p++) {
+        int64_t j = Cj[p];
+        double w = Cx[p];
+        if (w > threshold && j > i) edges.push_back({i, j, w});
+      }
+    std::stable_sort(edges.begin(), edges.end(),
+                     [](const Edge& a, const Edge& b) {
+                       return a.w > b.w + HEM_MEPS;  // eps-equal: keep order
+                     });
+    for (int64_t i = 0; i < n; i++) rootof[i] = i;
+    // matching sweeps (sub_it loop)
+    int64_t old_active = -1;
+    for (;;) {
+      int64_t nactive = 0;
+      for (const Edge& e : edges) {
+        if (matched[e.i] || matched[e.j]) continue;
+        nactive++;
+        if (locmax[e.i] > e.w + HEM_MEPS) continue;
+        if (locmax[e.j] > e.w + HEM_MEPS) continue;
+        // match: j's list appends to i's (PetscCDMoveAppend)
+        lists[e.i].insert(lists[e.i].end(), lists[e.j].begin(),
+                          lists[e.j].end());
+        lists[e.j].clear();
+        matched[e.i] = matched[e.j] = 1;
+        rootof[e.j] = e.i;
+        nactive--;  // counted as active, then resolved
+        nactive++;  // (reference counts it active; keep the count)
+      }
+      // recompute locMax over UNMATCHED neighbors (no threshold filter,
+      // hem.c:987-1001)
+      for (int64_t i = 0; i < n; i++) {
+        double max_e = 0.0;
+        for (int64_t p = Ci[i]; p < Ci[i + 1]; p++) {
+          int64_t j = Cj[p];
+          if (matched[j]) continue;
+          if (j != i && Cx[p] > max_e) max_e = Cx[p];
+        }
+        locmax[i] = max_e;
+      }
+      if (nactive < 1) break;
+      if (nactive == old_active) break;    // stall guard (reference errors)
+      old_active = nactive;
+    }
+    if (iter == n_iter - 1) break;         // last round: skip contraction
+    // contraction: (i,j,w) -> (map[i], map[j]) summed; drop vanished rows
+    std::vector<int64_t> cmap(n);
+    for (int64_t v = 0; v < n; v++) {
+      if (!lists[v].empty()) cmap[v] = v;            // survivor
+      else if (rootof[v] != v) cmap[v] = rootof[v];  // matched away now
+      else cmap[v] = -1;                             // deleted earlier / BC
+    }
+    std::vector<int64_t> Ti(n + 2, 0);
+    std::vector<double> acc(n, 0.0);
+    std::vector<int64_t> mark(n, -1), cols;
+    std::vector<int64_t> Nj;
+    std::vector<double> Nx;
+    Nj.reserve(Cj.size());
+    Nx.reserve(Cx.size());
+    std::vector<std::vector<int64_t>> rowsrc(n);
+    for (int64_t i = 0; i < n; i++)
+      if (cmap[i] >= 0) rowsrc[cmap[i]].push_back(i);
+    std::vector<int64_t> Ni(n + 1, 0);
+    for (int64_t r = 0; r < n; r++) {
+      cols.clear();
+      for (int64_t s : rowsrc[r]) {
+        for (int64_t p = Ci[s]; p < Ci[s + 1]; p++) {
+          int64_t jm = cmap[Cj[p]];
+          if (jm < 0) continue;
+          if (mark[jm] != r) { mark[jm] = r; acc[jm] = Cx[p];
+                               cols.push_back(jm); }
+          else acc[jm] += Cx[p];
+        }
+      }
+      std::sort(cols.begin(), cols.end());
+      for (int64_t j : cols) { Nj.push_back(j); Nx.push_back(acc[j]); }
+      Ni[r + 1] = (int64_t)Nj.size();
+    }
+    Ci = Ni;
+    Cj = Nj;
+    Cx = Nx;
+    // symmetric rescale to unit diagonal (hem.c:1092-1096)
+    std::vector<double> dinv(n, 0.0);
+    for (int64_t i = 0; i < n; i++)
+      for (int64_t p = Ci[i]; p < Ci[i + 1]; p++)
+        if (Cj[p] == i) {
+          double d = std::fabs(Cx[p]);
+          dinv[i] = d > 0 ? 1.0 / std::sqrt(d) : 0.0;
+          break;
+        }
+    for (int64_t i = 0; i < n; i++)
+      for (int64_t p = Ci[i]; p < Ci[i + 1]; p++)
+        Cx[p] *= dinv[i] * dinv[Cj[p]];
+  }
+  // BC pool joins the first BC vertex's aggregate (hem.c:1131-1146)
+  if (bc_agg >= 0)
+    for (int64_t g : bc_pool) lists[bc_agg].push_back(g);
+  int64_t nagg = 0;
+  for (int64_t i = 0; i < n; i++) agg_out[i] = -1;
+  for (int64_t i = 0; i < n; i++) {
+    if (lists[i].empty()) continue;
+    for (int64_t g : lists[i]) agg_out[g] = nagg;
+    nagg++;
+  }
+  return nagg;
 }
 
 }  // extern "C"

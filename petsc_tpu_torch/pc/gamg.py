@@ -1,0 +1,389 @@
+"""PCGAMG: smoothed-aggregation algebraic multigrid, the aggregation tail.
+
+Counterpart of ``petsc_tpu/pc/gamg.py`` (reference src/ksp/pc/impls/gamg/
+gamg.c, PCSetUp_GAMG :538 level loop, coarse_eq_limit 50, Chebyshev with
+Jacobi smoothers and the SA eigenvalue reuse :934-941; agg.c, the strength
+graph :752, MIS aggregation through mat/graphops/coarsen/impls/mis/mis.c
+in a random visit order, the squared-graph coarsening of the first level
+:1311, the tentative prolongator by per-aggregate QR of the near-nullspace
+:592, prolongator smoothing P <- (I - 1.4/emax D^-1 A) P0 :1912-1922).
+
+The whole set-up runs on the host in numpy/scipy and the port's native
+kernels (:mod:`petsc_tpu_torch.native`), once per operator, as in the
+reference: the strength graph, the aggregation, the QR, the prolongator
+smoothing and the Galerkin products. The cycle runs on the card through
+the shared PCMG binder (:mod:`.mg`): every level's A, P and R = P^T on
+the CSR kernel S2, the smoothing on the fused Chebyshev update C1.
+
+This slice is the ``bs == 1``, one-vector aggregation loop with both
+coarsenings (MIS, HEM). Refused, each naming the ROADMAP item that brings
+it: operators that are not a MatAIJ or that declare a grid (the
+structured head, item 5c), ``-pc_gamg_type classical|geo`` (item 8), and
+block systems, a near-nullspace of more than one vector, the strength
+index and PCHMG on a block system (item 7).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .. import native
+from ..mat.aij import MatAIJ
+from .mg import _ITEM_7, MGLevelSpec, _PCMG, _host_emax, _timed
+from .pc import PC
+
+_ITEM_5C = "the GAMG structured head (ROADMAP queue 1 item 5c)"
+_ITEM_8 = "ROADMAP queue 1 item 8 (gamg_classical.py)"
+
+
+# ---------------------------------------------------------------------
+# host-side setup pieces
+# ---------------------------------------------------------------------
+
+def strength_graph(A_sp, bs=1, threshold=-1.0, index=None):
+    """Nodal strength-of-connection graph (agg.c:752 PCGAMGCreateGraph_AGG):
+    |A| + |A|^T, entries with |g_ij| <= threshold * sqrt(|g_ii g_jj|)
+    dropped (threshold < 0 keeps everything, the diagonal always stays),
+    by the native kernel."""
+    if bs > 1 or index is not None:
+        raise NotImplementedError(f"the strength graph of a block system (bs > 1, "
+                                  f"-pc_gamg_mat_coarsen_strength_index) comes with {_ITEM_7}")
+    return native.strength_sym(A_sp.tocsr(), threshold)
+
+
+def _visit_order(n):
+    """The reference's visit order: a random permutation from a fixed seed
+    (PCGAMGCoarsen_AGG agg.c:1279-1303 shuffles; gamg.py:85, :152)."""
+    return np.random.default_rng(2026).permutation(n)
+
+
+def mis_aggregate(G, perm=None):
+    """Greedy MIS aggregation (mis.c:89-207, strict_aggs serial semantics):
+    visit vertices in `perm` order; an undecided vertex becomes an aggregate
+    root and captures its undecided neighbours; isolated vertices (only a
+    diagonal entry) are removed (no aggregate, a zero row in P).
+
+    Returns (agg, nagg, roots): the aggregate of each vertex (-1 for
+    removed), their number and their roots."""
+    perm = _visit_order(G.shape[0]) if perm is None else perm
+    return native.mis_aggregate(G.indptr, G.indices, perm)
+
+
+def fix_aggregates_with_square(G1, agg, roots):
+    """Post-MIS(G^2) fixup (agg.c:913 fixAggregatesWithSquare): every root
+    takes its direct (unsquared-graph) non-root neighbours into its own
+    aggregate, in root order (later roots win)."""
+    return native.fix_aggregates(G1.indptr, G1.indices, roots, agg)
+
+
+def square_graph(G):
+    """The boolean G^2 (distance-2 adjacency, PCGAMGSquareGraph_GAMG). The
+    set-up never forms it (:func:`mis_aggregate_squared`); it is the
+    definition that function is held to."""
+    B = G.copy()
+    B.data = np.ones_like(B.data)
+    G2 = (B @ B).tocsr()
+    G2.data = np.ones_like(G2.data)
+    return G2
+
+
+def mis_aggregate_squared(G, perm=None):
+    """MIS aggregation on the implicit squared graph: the greedy semantics
+    of ``mis_aggregate(square_graph(G), perm)`` without forming G^2."""
+    perm = _visit_order(G.shape[0]) if perm is None else perm
+    return native.mis2_aggregate(G.indptr, G.indices, perm)
+
+
+def _spgemm(A, B):
+    """C = A @ B by the native Gustavson kernel."""
+    return native.spgemm(A.tocsr(), B.tocsr())
+
+
+def _galerkin(cur, P):
+    """Ac = P^T cur P (the MatPtAP numeric phase, mpiptap.c:215 role): the
+    native transpose and two SpGEMMs."""
+    Pc = P.tocsr()
+    Ac = _spgemm(native.csr_transpose(Pc), _spgemm(cur, Pc))
+    Ac.eliminate_zeros()
+    return Ac
+
+
+def _smooth_prol(cur, P, dinv, omega):
+    """P <- (I - omega D^-1 cur) P (agg.c:1811 numeric): the native SpGEMM,
+    the row scaling on the CSR data."""
+    W = _spgemm(cur, P)
+    W.data *= np.repeat(-omega * dinv, np.diff(W.indptr))
+    out = (P + W).tocsr()
+    out.sort_indices()
+    return out
+
+
+def tentative_prolongator(agg, nagg, Bn, bs=1):
+    """P0 and the coarse near-nullspace by per-aggregate QR (formProl0
+    agg.c:592: LAPACK geqrf/orgqr per aggregate; here batched by aggregate
+    size). Bn: (n_fine_dofs, nvec) near-nullspace. agg is NODAL (length
+    n/bs); each node carries bs dofs."""
+    import scipy.sparse as sp
+    nnode = len(agg)
+    nf = nnode * bs
+    nvec = Bn.shape[1]
+    nc = nagg * nvec
+    rows_l, cols_l, vals_l = [], [], []
+    Bc = np.zeros((nc, nvec))
+    order = np.argsort(agg, kind="stable")
+    order = order[agg[order] >= 0]
+    bounds = np.searchsorted(agg[order], np.arange(nagg + 1))
+    sizes = np.diff(bounds)
+    for sz in np.unique(sizes):
+        which = np.nonzero(sizes == sz)[0]
+        # (len(which), sz) node ids per aggregate of this size
+        nodes = order[bounds[which][:, None] + np.arange(sz)[None, :]]
+        dofs = (nodes[:, :, None] * bs + np.arange(bs)[None, None, :]) \
+            .reshape(len(which), sz * bs)
+        blocks = Bn[dofs]                       # (na, sz*bs, nvec)
+        if sz * bs < nvec:                      # undersized aggregate: pad
+            blocks = np.concatenate(
+                [blocks, np.zeros((len(which), nvec - sz * bs, nvec))], axis=1)
+        q, r = np.linalg.qr(blocks)             # batched thin QR
+        q = q[:, :sz * bs, :]
+        # sign fix: R's diagonal positive (deterministic, LAPACK-like)
+        sgn = np.sign(np.einsum("aii->ai", r))
+        sgn[sgn == 0] = 1.0
+        q = q * sgn[:, None, :]
+        r = r * sgn[:, :, None]
+        ii = np.broadcast_to(dofs[:, :, None], q.shape)
+        jj = (which[:, None, None] * nvec
+              + np.broadcast_to(np.arange(nvec)[None, None, :], q.shape))
+        rows_l.append(ii.ravel())
+        cols_l.append(jj.ravel())
+        vals_l.append(q.ravel())
+        Bc[(which[:, None] * nvec + np.arange(nvec)[None, :]).ravel()] = r.reshape(-1, nvec)
+    P0 = sp.csr_matrix((np.concatenate(vals_l),
+                        (np.concatenate(rows_l), np.concatenate(cols_l))),
+                       shape=(nf, nc))
+    P0.eliminate_zeros()
+    return P0, Bc
+
+
+class MatSmoothedProl:
+    """The smoothed prolongator P = (I - omega D^-1 A) P0 of a scalar level,
+    applied ASSEMBLED on the CSR kernel S2 (kind ``aij_csr``).
+
+    The reference keeps P factored (``_bind_prol_sa``: P0 x_c = w x_c[agg]
+    followed by the level operator's product) because the TPU has no
+    hardware gather. Hopper has one, and on it the factored form costs
+    more: each apply would run a product with the fine operator (27
+    entries per row) where the assembled P has about 4 (on the 128^3
+    box27, 0.26 ms against 0.10 ms, both by chip_smoke.py on an NVIDIA
+    H100 80GB HBM3 at 700 W), and its transpose would be a segment sum,
+    in torch an ``index_add_`` with atomics whose sums change from run
+    to run. Restriction is S2 on the explicit R = P^T
+    that the PCMG set-up forms. The two forms are the same matrix, so
+    results agree to rounding.
+
+    The constructor keeps the reference's signature: A_level, agg, w, dinv
+    and omega are the factors, P_scipy their product, the one the card
+    applies. ``to_scipy`` returns it for the host Galerkin product."""
+
+    def __init__(self, A_level, agg, w, dinv, omega, P_scipy, comm):
+        self.comm = comm
+        self._P_scipy = P_scipy
+        self._P = MatAIJ.from_scipy(P_scipy, comm=comm)
+
+    @property
+    def meta(self):
+        return self._P.meta
+
+    def device_data(self):
+        return self._P.device_data()
+
+    def getSize(self):
+        return self._P_scipy.shape
+
+    def to_scipy(self):
+        return self._P_scipy
+
+    def transpose(self):
+        return MatAIJ.from_scipy(self._P_scipy.T.tocsr(), comm=self.comm)
+
+
+def _inv_diag_host(A_sp):
+    d = A_sp.diagonal()
+    return np.where(d != 0, 1.0 / np.where(d == 0, 1.0, d), 1.0)
+
+
+def _hem_graph(cur, threshold, index=None):
+    """The graph HEM matches on (MatCreateGraph with scale=TRUE,
+    mpiaij.c:8070): D^-1/2 (|A| + |A|^T) D^-1/2, so the diagonal is 1,
+    with entries <= the ABSOLUTE threshold dropped (MatFilter) and the
+    diagonal kept."""
+    import scipy.sparse as sp
+    G = strength_graph(cur, threshold=-1.0, index=index).tocsr().copy()
+    dg = G.diagonal()
+    s = np.where(dg != 0, 1.0 / np.sqrt(np.abs(np.where(dg == 0, 1.0, dg))), 1.0)
+    rows = np.repeat(np.arange(G.shape[0]), np.diff(G.indptr))
+    G.data = G.data * s[rows] * s[G.indices]
+    keep = (np.abs(G.data) > threshold) | (G.indices == rows)
+    if not keep.all():
+        G = sp.csr_matrix(
+            (G.data[keep], G.indices[keep],
+             np.concatenate([[0], np.cumsum(np.bincount(rows[keep], minlength=G.shape[0]))])),
+            shape=G.shape)
+    return G
+
+
+class _PCGAMG(_PCMG):
+    """Smoothed-aggregation AMG set-up driving the shared MG machinery."""
+
+    def __init__(self, pc):
+        super().__init__(pc)
+        self.coarse_eq_limit = 50
+        self.max_levels = 10
+        self.threshold = [-1.0]
+        self.nsmooths = 1
+        self.aggressive_levels = 1
+        self.coarsen_type = "mis"      # mis | hem
+        self.hem_rounds = 3
+        self.strength_index = None
+        self.gamg_type = "agg"
+
+    def set_from_options(self):
+        super().set_from_options()
+        o = self.pc.opt
+        n = o("get_int", "pc_gamg_coarse_eq_limit", None)
+        if n:
+            self.coarse_eq_limit = n
+        n = o("get_int", "pc_gamg_aggressive_coarsening", None)
+        if n is not None:
+            self.aggressive_levels = n
+        n = o("get_int", "pc_gamg_agg_nsmooths", None)
+        if n is not None:
+            self.nsmooths = n
+        t = o("get_string", "pc_gamg_threshold", None)
+        if t:
+            self.threshold = [float(x) for x in t.split(",")]
+        n = o("get_int", "pc_mg_levels", None)
+        if n:
+            self.max_levels = n
+        t = o("get_string", "pc_gamg_mat_coarsen_type", None)
+        if t:
+            self.coarsen_type = t
+        n = o("get_int", "pc_gamg_mat_coarsen_max_it", None)
+        if n:
+            self.hem_rounds = n
+        t = o("get_string", "pc_gamg_mat_coarsen_strength_index", None)
+        if t:
+            self.strength_index = [int(x) for x in t.split(",")]
+        t = o("get_string", "pc_gamg_type", None)
+        if t:
+            self.gamg_type = t
+
+    def _threshold(self, level):
+        if level < len(self.threshold):
+            return self.threshold[level]
+        return self.threshold[-1]
+
+    def _near_nullspace(self, A):
+        """The near-nullspace as an (N, nvec) array: the constant vector
+        unless the operator carries one; more than one vector is refused."""
+        N = A.getSize()[0]
+        Bn = getattr(A, "near_nullspace", None)
+        if Bn is None:
+            return np.ones((N, 1))
+        Bn = np.asarray(getattr(Bn, "vectors", Bn), dtype=np.float64).reshape(N, -1)
+        if Bn.shape[1] > 1:
+            raise NotImplementedError(f"GAMG with a near-nullspace of {Bn.shape[1]} vectors "
+                                      f"comes with {_ITEM_7}")
+        return Bn
+
+    def _refuse(self, A):
+        if not isinstance(A, MatAIJ):
+            raise NotImplementedError(f"GAMG on a {type(A).__name__} (a stencil operator) "
+                                      f"takes the structured head, which comes with {_ITEM_5C}")
+        if getattr(A, "_grid_shape", None) is not None:
+            raise NotImplementedError(f"GAMG on a MatAIJ that declares a grid takes the "
+                                      f"structured head, which comes with {_ITEM_5C}")
+        if self.gamg_type != "agg":
+            raise NotImplementedError(f"-pc_gamg_type {self.gamg_type} comes with {_ITEM_8}")
+        if (A.row_layout.bs or 1) > 1:
+            raise NotImplementedError(f"GAMG on a block system (bs {A.row_layout.bs}) comes "
+                                      f"with {_ITEM_7}")
+
+    def _coarsen(self, cur, level):
+        """The aggregates of one level: (agg, nagg)."""
+        thr = self._threshold(level)
+        if self.coarsen_type == "hem":
+            # exact serial HEM (hem.c) on the scaled, filtered graph
+            thr = max(thr, 0.0)
+            G = _timed("PCGAMGSetUp_graph", _hem_graph, cur, thr, self.strength_index)
+            return _timed("PCGAMGSetUp_coarsen", native.hem_match, G.indptr, G.indices,
+                          G.data, self.hem_rounds, thr)
+        G = _timed("PCGAMGSetUp_graph", strength_graph, cur, 1, thr, self.strength_index)
+        if level < self.aggressive_levels:
+            # MIS on the square, then every root takes its direct neighbours
+            agg, nagg, roots = _timed("PCGAMGSetUp_coarsen", mis_aggregate_squared, G)
+            agg = _timed("PCGAMGSetUp_coarsen", fix_aggregates_with_square, G, agg, roots)
+        else:
+            agg, nagg, _ = _timed("PCGAMGSetUp_coarsen", mis_aggregate, G)
+        return agg, nagg
+
+    def build_hierarchy(self):
+        """The reference's serial aggregation loop (gamg.py:658-787) on the
+        host CSR of the operator. Host seconds are logged as the events
+        PCGAMGSetUp_download (the fine values from the card), _native (the
+        build of graphops.cpp, where this is its first use), _graph,
+        _coarsen, _prol0, _emax, _smooth_prol and _SpGEMM (the Galerkin
+        products)."""
+        A = self.pc.pmat
+        self._refuse(A)
+        Bn = self._near_nullspace(A)
+        # values that setValuesCOO left on the card come to the host once
+        _timed("PCGAMGSetUp_download", A._sync_host_vals)
+        _timed("PCGAMGSetUp_native", native.lib)
+        cur = A.to_scipy()
+        levels = [MGLevelSpec(A)]
+        level = 0
+        while cur.shape[0] > self.coarse_eq_limit and level < self.max_levels - 1:
+            agg, nagg = self._coarsen(cur, level)
+            if nagg == 0 or nagg * Bn.shape[1] >= cur.shape[0]:
+                break  # coarsening stalled
+            # the aggregates stay on the level they coarsen: they define the
+            # -pc_gamg_asm_use_agg smoother blocks (item 7)
+            levels[-1].agg = np.asarray(agg)
+            P0, Bc = _timed("PCGAMGSetUp_prol0", tentative_prolongator, agg, nagg, Bn)
+            dinv = _inv_diag_host(cur)
+            emax = _timed("PCGAMGSetUp_emax", _host_emax, cur, dinv)
+            P = P0
+            for _ in range(self.nsmooths):
+                P = _timed("PCGAMGSetUp_smooth_prol", _smooth_prol, cur, P, dinv, 1.4 / emax)
+            # SA eigenvalue reuse for the level smoother (gamg.c:934)
+            levels[-1].emin, levels[-1].emax = self.eig_bounds(emax)
+            Ac = _timed("PCGAMGSetUp_SpGEMM", _galerkin, cur, P)
+            if self.nsmooths <= 1:
+                nf = P0.shape[0]
+                w = np.zeros(nf)
+                w[np.repeat(np.arange(nf), np.diff(P0.indptr))] = P0.data
+                omega = (1.4 / emax) if self.nsmooths == 1 else 0.0
+                levels[-1].P = MatSmoothedProl(levels[-1].A, agg, w, dinv, omega, P, A.comm)
+            else:
+                levels[-1].P = MatAIJ.from_scipy(P, comm=A.comm)
+            levels.append(MGLevelSpec(MatAIJ.from_scipy(Ac, comm=A.comm)))
+            cur, Bn = Ac, Bc
+            level += 1
+        self.levels = levels
+
+
+class _PCHMG(_PCGAMG):
+    """PCHMG (hmg/hmg.c): hybrid multigrid, the coarsening of one field
+    component reused for an interlaced block system. On a scalar operator
+    it is plain GAMG, as in the reference (gamg.py:815-822); the block
+    expansion (P kron I_bs) comes with item 7 with the BAIJ operators."""
+
+    def build_hierarchy(self):
+        if (self.pc.pmat.row_layout.bs or 1) > 1:
+            raise NotImplementedError(f"PCHMG on a block system comes with {_ITEM_7}")
+        super().build_hierarchy()
+
+
+PC.register_impl("gamg", _PCGAMG)
+PC.register_impl("hmg", _PCHMG)

@@ -24,8 +24,9 @@ float64 Krylov method.
 
 The one-device port has no padded layouts, so the reference's ``_fit``
 around the transfers is the identity and is gone. The aggregate-block
-smoother (``-pc_gamg_asm_use_agg``) comes with ROADMAP item 5b, the DM
-path (``_build_from_dm``, ``-pc_mg_levels``) with item 9.
+smoother (``-pc_gamg_asm_use_agg``) comes with ROADMAP item 7, the DM
+path (``_build_from_dm``, ``-pc_mg_levels``) with item 9. PCGAMG
+(:mod:`.gamg`) builds its hierarchy by aggregation and reuses the rest.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from ..ops.pallas_kernels import cheby_update, dot2, triad
 from ..sys.error import Error
 from .pc import PC
 
-_ITEM_5B = "the GAMG aggregation tail (ROADMAP queue 1 item 5b)"
+_ITEM_7 = "the BAIJ part of ROADMAP queue 1 item 7"
 _ITEM_9 = "DMDA (ROADMAP queue 1 item 9)"
 
 
@@ -59,6 +60,8 @@ class MGLevelSpec:
         self.R = R          # restriction (default P^T)
         self.emax = emax    # Chebyshev bounds (floats)
         self.emin = emin
+        self.agg = None     # GAMG: the nodal aggregates that coarsened this level
+        self.agg_bs = 1     # (the -pc_gamg_asm_use_agg smoother blocks, item 7)
 
 
 def _host_emax(A_sp, dinv, iters=10, seed=7):
@@ -200,7 +203,7 @@ class _PCMG:
         if self.levels is None:
             if getattr(self.pc.pmat, "_dm", None) is None:
                 raise Error("PCMG: call setLevels and setInterpolation first (a DM "
-                            "comes with ROADMAP item 9, -pc_type gamg with item 5b)")
+                            "comes with ROADMAP item 9), or use -pc_type gamg")
             self._build_from_dm(self.pc.pmat._dm)
         if self.levels[0].A is None:
             self.levels[0].A = self.pc.pmat
@@ -270,7 +273,7 @@ def build_mg_meta_data(levels, cycle="v", smoother="chebyshev", pre=2, post=2,
     factor is logged as the host event PCMGSetUp_LU."""
     if levels_pc == "asm_agg":
         raise NotImplementedError(f"the aggregate-block smoother (-pc_gamg_asm_use_agg) comes "
-                                  f"with {_ITEM_5B}")
+                                  f"with {_ITEM_7}")
     from ..mat.aij import MatAIJ
     rd = config.real_dtype()
     dev = config.device()

@@ -338,6 +338,24 @@ def test_gather_kernels_match_plain(cuda_device, dtype):
         gk.lane_shuffle(V, torch.full_like(s, 128))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_gather_covers_every_output_of_its_steps(cuda_device, dtype):
+    """K8 gives each thread 8 outputs a block apart (2048 per block and
+    step): lengths around one step, and past one grid's worth of steps (so
+    the grid strides), on values unique per entry, the diagonal refresh's
+    shape among them (every 27th entry)."""
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.arange(1 << 23, dtype=bits, device=cuda_device).view(dtype)
+    for m in (1, 255, 2047, 2048, 2049, 3 * 2048 + 7, 8 * 2048 * 1056 + 3):
+        idx = torch.randint(0, x.numel(), (m,), generator=g, device=cuda_device,
+                            dtype=torch.int32)
+        assert torch.equal(gk.gather(x, idx).view(bits), gk.gather_plain(x, idx).view(bits))
+    idx = torch.arange(0, x.numel(), 27, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(gk.gather(x, idx).view(bits), gk.gather_plain(x, idx).view(bits))
+
+
 def _box27_coo(n, seed):
     """box27 triplets in shuffled order, each diagonal split into two halves."""
     A = stencil_build.poisson3d_27pt(n).tocoo()
@@ -444,4 +462,33 @@ def test_cg_pcmg_on_the_card_equals_the_cpu_port(cuda_device):
     assert its == res["cpu"][0] == 8 and reason == res["cpu"][1] == "CONVERGED_RTOL"
     np.testing.assert_allclose(hist, res["cpu"][2], rtol=1e-6, atol=0)
     need = chip_smoke.mg_launches_needed(its, len(grids))
+    assert {k: launches[k] for k in need} == need
+
+
+@pytest.mark.cuda
+def test_cg_gamg_on_the_card_equals_the_cpu_port(cuda_device):
+    """32^3 box27 CG+GAMG (every GAMG option at its default): the same
+    hierarchy, its and history on the card as in the CPU port (history to
+    1e-10 relative: the set-up is the same host code, only the cycle's
+    sums are taken in another order), every step through the kernels."""
+    A_sp = stencil_build.poisson3d_27pt(32)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        ptt.init(args=["-ksp_type", "cg", "-pc_type", "gamg", "-ksp_rtol", "1e-8"],
+                 device=dev)
+        pk.reset_launches()
+        A = ptt.MatAIJ.from_scipy(A_sp)
+        ksp = chip_smoke.gamg_ksp(ptt, A)
+        b = A.createVecLeft()
+        b.set(1.0)
+        ksp.solve(b)
+        levels = ksp.getPC()._impl.levels
+        res[dev] = (ksp.getIterationNumber(), ksp.getConvergedReason().name,
+                    ksp.getConvergenceHistory(), dict(pk.LAUNCHES),
+                    [lev.A.nnz() for lev in levels], [lev.emax for lev in levels])
+    its, reason, hist, launches, nnz, emax = res["cuda"]
+    assert its == res["cpu"][0] == 8 and reason == res["cpu"][1] == "CONVERGED_RTOL"
+    assert nnz == res["cpu"][4] == [830584, 26996, 3430, 9] and emax == res["cpu"][5]
+    np.testing.assert_allclose(hist, res["cpu"][2], rtol=1e-10, atol=0)
+    need = chip_smoke.mg_launches_needed(its, len(nnz))
     assert {k: launches[k] for k in need} == need

@@ -1,6 +1,8 @@
 """petsc_tpu_torch.native, the port's own build of graphops.cpp: the
 sparse product, transpose and matvec of the Galerkin setup against scipy
-and against the reference's native library, and the loader's refusal to
+and against the reference's native library, the copy's kernels verbatim
+as the reference has them (the GAMG coarsening kernels are held against
+the reference in tests/test_torch_gamg.py), and the loader's refusal to
 run on without a compiler.
 
 Tolerances: the port's copy of the C++ is the reference's, so results
@@ -96,13 +98,16 @@ def test_the_library_is_the_ports_own_build():
     assert built
     src = (REPO / "petsc_tpu_torch" / "native" / "graphops.cpp").read_text()
     ref = (REPO / "petsc_tpu" / "native" / "graphops.cpp").read_text()
-    # the three kernels and their C entry points, each as the reference has it
+    # the kernels and their C entry points, each as the reference has it
     defs = {m.group(1): m.group(0) for m in _DEF.finditer(src)}
     assert sorted(defs) == sorted(
-        f"{k}{s}" for k in ("csr_transpose", "spgemm_count", "spgemm_fill", "csr_matvec")
-        for s in ("", "_i32", "_t"))
+        [f"{k}{s}" for k in ("csr_transpose", "spgemm_count", "spgemm_fill", "csr_matvec",
+                             "strength_sym", "mis2_aggregate")
+         for s in ("", "_i32", "_t")] + ["mis_aggregate", "fix_aggregates", "hem_match"])
     for name, body in defs.items():
         assert body in ref, name
+    meps = [ln for ln in src.splitlines() if ln.startswith("static const double HEM_MEPS")]
+    assert len(meps) == 1 and meps[0] in ref
 
 
 def test_a_failed_build_raises_with_the_compilers_output(monkeypatch, tmp_path):
