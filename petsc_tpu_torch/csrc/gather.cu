@@ -7,49 +7,30 @@
 //      csr_vals[diag_pos] (petsc_tpu/mat/aij.py:208-222, :896-899).
 //   K7 gather2  o[i] = x2[w * q[i] + s[i]]   (x2 is B x w, row-major)
 //      replaces examples/pallas_shuffle_probe.py:125 probe_s3 (a row take
-//      then a lane take_along_axis inside VMEM): a grid-stride loop, one
-//      output per thread per step, the index formed in the kernel.
+//      then a lane take_along_axis inside VMEM). The same device code as K8
+//      with the index formed in the kernel.
 //
 // Bound: the bytes, the index arrays read once, o written once and the
 // 32-byte sectors of x that the indices touch read once (a sector is the
 // least the memory moves: the diagonal refresh reads one 8-byte entry out
-// of every 216 bytes, so each of its reads costs a sector); no arithmetic.
-// Design: idx (or q and s) and o stream coalesced; x is read through the
-// read-only path and, at the probes' sizes (x of 2-4 MB), stays in L2. A
-// gather is latency-bound when each thread waits on one index and then one
-// entry, so K8 gives every thread kGatherIlp outputs, a block's apart (the
-// warp's index loads and stores stay coalesced): all their index loads are
-// issued, then all their entry loads, then all the stores, kGatherIlp
-// independent loads in flight where the grid-stride loop of K7 has one.
-// The wrapper checks the index type (int32), the index width (x holds
-// fewer than 2^31 entries) and, unless the caller built the indices
-// itself, their bounds.
+// of every 216 bytes, a sector each); no arithmetic. Design: a grid-stride
+// loop, one output per thread per step, so idx (or q and s) and o stream
+// coalesced; x is read through the read-only path and, at the probes'
+// sizes (x of 2-4 MB), stays in L2. The grid of 8 blocks of 256 threads
+// per SM already keeps more loads in flight than the memory's latency
+// needs: giving each thread 8 outputs with all their loads issued first
+// measured 1-3 % slower in float64 at each of its three shapes (PERF.md,
+// PR 7). The wrapper checks the index type
+// (int32), the index width (x holds fewer than 2^31 entries) and, unless
+// the caller built the indices itself, their bounds.
 #include "common.cuh"
-
-constexpr int kGatherIlp = 8;   // outputs per thread per step of K8
 
 template <typename T>
 __global__ void __launch_bounds__(ptt::kThreads)
 gather_kernel(T* __restrict__ o, const T* __restrict__ x, const int* __restrict__ idx, long long m) {
-  constexpr long long kSpan = (long long)ptt::kThreads * kGatherIlp;
-  const long long stride = (long long)gridDim.x * kSpan;
-  for (long long base = (long long)blockIdx.x * kSpan + threadIdx.x; base < m; base += stride) {
-    int k[kGatherIlp];
-    T v[kGatherIlp];
-#pragma unroll
-    for (int j = 0; j < kGatherIlp; j++) {
-      const long long i = base + (long long)j * ptt::kThreads;
-      k[j] = i < m ? idx[i] : 0;
-    }
-#pragma unroll
-    for (int j = 0; j < kGatherIlp; j++)
-      if (base + (long long)j * ptt::kThreads < m) v[j] = __ldg(x + k[j]);
-#pragma unroll
-    for (int j = 0; j < kGatherIlp; j++) {
-      const long long i = base + (long long)j * ptt::kThreads;
-      if (i < m) o[i] = v[j];
-    }
-  }
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < m; i += stride)
+    o[i] = __ldg(x + idx[i]);
 }
 
 template <typename T>
@@ -65,9 +46,8 @@ template <typename T>
 static int launch_gather(void* o, const void* x, const void* idx, long long m, int device,
                          void* stream) {
   PTT_TRY(cudaSetDevice(device));
-  const long long steps = (m + kGatherIlp - 1) / kGatherIlp;
-  gather_kernel<T><<<ptt::grid_for(steps, device, 1LL << 30), ptt::kThreads, 0,
-                     (cudaStream_t)stream>>>((T*)o, (const T*)x, (const int*)idx, m);
+  gather_kernel<T><<<ptt::grid_for(m, device, 1LL << 30), ptt::kThreads, 0, (cudaStream_t)stream>>>(
+      (T*)o, (const T*)x, (const int*)idx, m);
   return (int)cudaGetLastError();
 }
 

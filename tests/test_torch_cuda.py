@@ -341,8 +341,8 @@ def test_gather_kernels_match_plain(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
 def test_gather_covers_every_output_of_its_steps(cuda_device, dtype):
-    """K8 gives each thread 8 outputs a block apart (2048 per block and
-    step): lengths around one step, and past one grid's worth of steps (so
+    """K8's grid-stride loop: lengths around a block's 256 and 2048
+    outputs, and past one grid's worth (8 blocks of 256 threads per SM, so
     the grid strides), on values unique per entry, the diagonal refresh's
     shape among them (every 27th entry)."""
     bits = torch.int64 if dtype == torch.float64 else torch.int32
