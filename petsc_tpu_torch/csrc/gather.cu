@@ -16,13 +16,13 @@
 // of every 216 bytes, a sector each); no arithmetic. Design: a grid-stride
 // loop, one output per thread per step, so idx (or q and s) and o stream
 // coalesced; x is read through the read-only path and, at the probes'
-// sizes (x of 2-4 MB), stays in L2. The grid of 8 blocks of 256 threads
-// per SM already keeps more loads in flight than the memory's latency
-// needs: giving each thread 8 outputs with all their loads issued first
-// measured 1-3 % slower in float64 at each of its three shapes (PERF.md,
-// PR 7). The wrapper checks the index type
-// (int32), the index width (x holds fewer than 2^31 entries) and, unless
-// the caller built the indices itself, their bounds.
+// sizes (x of 2-4 MB), stays in L2. The grid (8 blocks of 256 threads
+// per SM) already has about 270 k loads in flight at once; giving each
+// thread 8 outputs with all their loads issued first measured 1-3 %
+// slower in float64 at each of the three shapes (PERF.md, K8). The
+// wrapper checks the index type (int32), the index width (x holds fewer
+// than 2^31 entries) and, unless the caller built the indices itself,
+// their bounds.
 #include "common.cuh"
 
 template <typename T>
