@@ -97,7 +97,25 @@ Phases, one JSON line each on stdout:
            host set-up seconds by event and the warm solve, and holds S2 on
            each level's A, P and R against float64, each timed; then the same
            with -pc_mg_dtype single (history to 1e-4);
-  gamg_profile  the profile phase for one warm CG+GAMG solve (f64 cycle).
+  gamg_profile  the profile phase for one warm CG+GAMG solve (f64 cycle);
+  gamg_grid  CG + GAMG with the structured head on bench.py's solve:
+           build_dnd((128,)*3, "box") + as_mat, rtol 1e-8, max_it 60, every
+           GAMG option at its default, in the f32 cycle (-pc_mg_dtype single,
+           bench's configuration) and the f64 cycle, every launch count set to
+           0 just before init and read just after the solve; asserts the
+           reference's 10 iterations, CONVERGED_RTOL, relres <= 1e-8, its
+           history (GAMG_GRID_HIST, 1e-6; f32 1e-4), rows and A and P kinds
+           per level, each Chebyshev bound (1e-8; f32 1e-4), a true residual
+           no worse than 10x the reference's, and the launches of
+           grid_launches_needed (set-up probes and Lanczos included);
+           reports the set-up seconds by part (head, tail download,
+           aggregation tail), the warm solve and its ratio to CG+Jacobi's;
+           holds V1 (the 64^3 level, 27 planes), Q1P and Q1R (128^3 <-> 64^3
+           and 129^3 <-> 65^3) against their plain versions (f64 1e-13, f32
+           1e-6), each timed beside its plain version and, for Q1P at the odd
+           size, F.interpolate; and the card's probed 32^3 planes against the
+           host Galerkin product of the port's SpGEMM (1e-12);
+  gamg_grid_profile  the profile phase for one warm solve of each cycle.
 Then the kernel table as one JSON line (K2's, K4's and S1's rows also name
 their design, launch shape and share of the bound, S1's with its cp.async
 path, star and f32 times beside; every row of the path's
@@ -142,7 +160,8 @@ DESIGN = {"triad": "registers: one tile of 16-byte packs per block, one pack of 
 IN_SOLVE = {"triad": ("triad_kernel",), "axpy_normsq": ("axpy_normsq_kernel",),
             "dot2": ("dot2_kernel",), "sum_partials": ("sum_partials",),
             "const_stencil": ("const_stencil_kernel",), "csr_spmv": ("csr_spmv_kernel",),
-            "cheby_update": ("cheby_update_kernel",),
+            "cheby_update": ("cheby_update_kernel",), "dnd_stencil": ("dnd_stencil_kernel",),
+            "q1_prolong": ("q1_prolong_kernel",), "q1_restrict": ("q1_restrict_kernel",),
             # torch.linalg.lu_solve: the library's row swaps and triangular solves
             "lu_solve": ("getrs", "trsm", "trsv", "laswp")}
 # CG+PCMG on the assembled 128^3 box27 (b = 1, x0 = 0, rtol 1e-8) with the Q1
@@ -183,8 +202,51 @@ GAMG_HIST = {                    # the reference's preconditioned residual norms
             3.201196543114481, 0.26655607419116567, 0.03417296410690065, 0.005351416084630673,
             0.0007329280867813135, 9.111379572104851e-05)}
 GAMG_TRUE_RELRES = {"f64": 1.5840455245758786e-07, "f32": 1.5840445034639022e-07}
+# CG+GAMG with the structured head on the 128^3 box27 stencil operator of
+# bench.py's solve (build_dnd + as_mat, b = 1, x0 = 0, rtol 1e-8, max_it 60,
+# every GAMG option at its default: Q1 levels probed on the device down to the
+# structured limit of 3000 rows, then smoothed aggregation on the 8^3 tail,
+# Chebyshev(2, 2) with Jacobi, a V-cycle, a dense LU on the coarsest level):
+# the JAX package's own run on the CPU (gamg_contract.py 128 f64|f32 grid,
+# JAX 0.9.0, x64; PERF.md section 4, "The GAMG grid contract"). The f32 cycle
+# probes and stores its head in float32, so its numbers are its own.
+GAMG_GRID_ITS = 10                # both cycles, CONVERGED_RTOL
+GAMG_GRID_ROWS = (2097152, 262144, 32768, 4096, 512, 56, 5)
+GAMG_GRID_A_KINDS = ("aij_dnd",) * 5 + ("aij_csr",) * 2
+GAMG_GRID_P_KINDS = ("interp_q1",) * 4 + ("aij_csr",) * 2
+GAMG_GRID_EMAX = {
+    "f64": (1.4899191587925669, 1.6058632483760877, 1.787887093598119, 2.029256163213922,
+            2.1354329933134957, 2.722619484868784),
+    "f32": (1.4902479887008668, 1.6071424484252932, 1.7866171002388003, 2.0063850522041324,
+            2.1354329941905665, 2.7226194869089815)}
+GAMG_GRID_EMAX_TOL = {"f64": 1e-8, "f32": 1e-4}
+GAMG_GRID_HIST = {              # the reference's preconditioned residual norms
+    "f64": (46860.812329914144, 7488.182148857781, 1096.8634550591057, 111.47676981915953,
+            22.57428172919544, 3.359027910593749, 0.31652433151342046, 0.05881924956690744,
+            0.010350121999600875, 0.0011633350764347042, 0.00020551337644568885),
+    "f32": (46908.5729228788, 7467.259498456695, 1099.135207888274, 111.13731263787366,
+            22.514524331164907, 3.3361238063020826, 0.31329839407697424, 0.05801988656332334,
+            0.010227804382415587, 0.001152828673593543, 0.0002051037246532732)}
+GAMG_GRID_TRUE_RELRES = {"f64": 3.4892518396667014e-07, "f32": 3.464988762724443e-07}
 DATA = Path(__file__).resolve().parent / "tests" / "data"
 FIXTURES = ("LFAT5.mtx", "m_05_05_crk.mtx", "amesos2_test_mat0.mtx")
+
+
+def kernel_modules():
+    """The port's kernel wrapper modules, each with its LAUNCHES counts."""
+    from petsc_tpu_torch.ops import gather_kernels, grid_kernels, pallas_kernels
+    return pallas_kernels, gather_kernels, grid_kernels
+
+
+def reset_launches():
+    """Every kernel's launch count set to 0."""
+    for m in kernel_modules():
+        m.reset_launches()
+
+
+def launch_counts():
+    """Every kernel's launches since the last reset_launches()."""
+    return {k: v for m in kernel_modules() for k, v in m.LAUNCHES.items()}
 
 
 def emit(obj):
@@ -996,7 +1058,7 @@ def check_mg_spmv(pk, ksp, flush):
     return rows
 
 
-def run_cycle(pt, pk, gk, A, args, make_ksp, check, events, flush):
+def run_cycle(pt, pk, A, args, make_ksp, check, events, flush):
     """One CG + multigrid solve on A through the user's entry points: every
     launch count set to 0 just before init and read just after the solve,
     the solve checked (check(ksp, b, x) returns the record or raises), the
@@ -1007,8 +1069,7 @@ def run_cycle(pt, pk, gk, A, args, make_ksp, check, events, flush):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     live0 = torch.cuda.memory_allocated()
-    pk.reset_launches()
-    gk.reset_launches()
+    reset_launches()
     pt.init(args=args)
     pt.log().reset()
     t0 = time.perf_counter()
@@ -1022,7 +1083,7 @@ def run_cycle(pt, pk, gk, A, args, make_ksp, check, events, flush):
     ksp.solve(b, x)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t1
-    launches = {**pk.LAUNCHES, **gk.LAUNCHES}
+    launches = launch_counts()
     chk = check(ksp, b, x)
     nlev = len(ksp.getPC()._impl.levels)
     need = mg_launches_needed(chk["its"], nlev)
@@ -1047,7 +1108,7 @@ def run_cycle(pt, pk, gk, A, args, make_ksp, check, events, flush):
     return ksp, b, x, warm, launches, rec
 
 
-def phase_mg(pt, pk, gk, A, smi, t_start, flush):
+def phase_mg(pt, pk, A, smi, t_start, flush):
     """CG + PCMG on the assembled 128^3 operator, f64 and f32 cycles, each
     building its own hierarchy (run_cycle). Returns (the phase's record,
     the f64 KSP, b, x, its warm ms, its launches)."""
@@ -1063,7 +1124,7 @@ def phase_mg(pt, pk, gk, A, smi, t_start, flush):
         if cycle == "f32":
             args += ["-pc_mg_dtype", "single"]
         *res[cycle], out[cycle] = run_cycle(
-            pt, pk, gk, A, args, lambda: mg_ksp(pt, A, Ps),
+            pt, pk, A, args, lambda: mg_ksp(pt, A, Ps),
             lambda ksp, b, x, cycle=cycle: check_mg_solve(pk, ksp, A, b, x, cycle),
             MG_EVENTS, flush)
     out["seconds_so_far"] = time.perf_counter() - t_start
@@ -1126,7 +1187,7 @@ def check_gamg_solve(pk, ksp, A, b, x, cycle):
             "hierarchy": hier}
 
 
-def phase_gamg(pt, pk, gk, A, smi, t_start, flush):
+def phase_gamg(pt, pk, A, smi, t_start, flush):
     """CG + GAMG (smoothed aggregation, every GAMG option at its default) on
     the assembled 128^3 operator, f64 and f32 cycles, each setting up its
     own hierarchy (run_cycle). Returns (the phase's record, the f64 KSP, b,
@@ -1140,7 +1201,7 @@ def phase_gamg(pt, pk, gk, A, smi, t_start, flush):
         if cycle == "f32":
             args += ["-pc_mg_dtype", "single"]
         *res[cycle], out[cycle] = run_cycle(
-            pt, pk, gk, A, args, lambda: gamg_ksp(pt, A),
+            pt, pk, A, args, lambda: gamg_ksp(pt, A),
             lambda ksp, b, x, cycle=cycle: check_gamg_solve(pk, ksp, A, b, x, cycle),
             GAMG_EVENTS, flush)
         out[cycle]["seconds_so_far"] = time.perf_counter() - t_start
@@ -1148,6 +1209,293 @@ def phase_gamg(pt, pk, gk, A, smi, t_start, flush):
     out["native_openmp"] = native.openmp
     out["seconds_so_far"] = time.perf_counter() - t_start
     return (out, *res["f64"])
+
+
+def product_kernel(meta):
+    """The kernel that applies an operator of this meta: S1 for the
+    constant stencil (build_dnd's folded box), V1 for every other grid
+    stencil, S2 for CSR."""
+    if meta[0] == "aij_csr":
+        return "csr_spmv"
+    if meta[0] == "aij_dnd" and len(meta) > 6 and all(c is not None for c in meta[6]):
+        return "const_stencil"
+    return "dnd_stencil"
+
+
+GRID_KERNELS = ("const_stencil", "dnd_stencil", "csr_spmv", "q1_prolong", "q1_restrict",
+                "cheby_update", "triad", "axpy_normsq", "dot2")
+
+
+def grid_launches_needed(its, levels, probes=27, lanczos=10):
+    """The launches of one CG + GAMG solve with the structured head, set-up
+    included, from the hierarchy's operator and transfer kinds: its + 1 PC
+    applications, each with, on every level but the coarsest, 5 products
+    with the level's A (A x and A p per smoothing, the residual), 4 C1,
+    2 K2, and the transfers (a Q1 P: one Q1P and one Q1R; an aggregation P:
+    two S2, P and R = P^T); CG adds one product with level 0's A, two K2,
+    one K3 and two K4 per iteration and one K4 before them. Each head level
+    (a Q1 P) adds, in the set-up, 27 probes of one Q1P, one product with its
+    A and one Q1R, and 10 Lanczos products with its A."""
+    need = dict.fromkeys(GRID_KERNELS, 0)
+    napply = its + 1
+    for lev in levels[:-1]:
+        a = product_kernel(lev.A.meta)
+        need[a] += 5 * napply
+        need["cheby_update"] += 4 * napply
+        need["triad"] += 2 * napply
+        if lev.P.meta[0] == "interp_q1":
+            need["q1_prolong"] += napply + probes
+            need["q1_restrict"] += napply + probes
+            need[a] += probes + lanczos
+        else:
+            need["csr_spmv"] += 2 * napply
+    need[product_kernel(levels[0].A.meta)] += its
+    need["triad"] += 2 * its
+    need["axpy_normsq"] += its
+    need["dot2"] += 1 + 2 * its
+    return need
+
+
+GAMG_GRID_EVENTS = {k: f"PCGAMGSetUp_{k}" for k in ("head", "tail_download", "native",
+                                                   "graph", "coarsen", "prol0", "emax",
+                                                   "smooth_prol", "SpGEMM")}
+GAMG_GRID_EVENTS.update(lu="PCMGSetUp_LU", pc_setup_total="PCSetUp_gamg")
+_AGG_TAIL = ("graph", "coarsen", "prol0", "emax", "smooth_prol", "SpGEMM")
+
+
+def check_gamg_grid_solve(pk, ksp, b, x, cycle):
+    """The reference's 128^3 CG+GAMG grid contract (GAMG_GRID_* constants):
+    its, reason, relres, history, rows and kinds of A and P per level, each
+    Chebyshev bound, and a true residual no worse than 10x the reference's."""
+    import numpy as np
+    import torch
+    its = ksp.getIterationNumber()
+    reason = ksp.getConvergedReason().name
+    relres = ksp.getResidualNorm() / ksp._rnorm0
+    Ax = pk.const_stencil_plain(x.array, (N_MAIN,) * 3, 26.0, -1.0, True)
+    true_rel = float(torch.linalg.vector_norm(b.array - Ax) / torch.linalg.vector_norm(b.array))
+    hist, want = ksp.getConvergenceHistory(), np.array(GAMG_GRID_HIST[cycle])
+    hist_rel = (float(np.max(np.abs(hist - want) / want)) if hist.shape == want.shape
+                else math.inf)
+    levels = ksp.getPC()._impl.levels
+    hier = {"rows": [lev.A.getSize()[0] for lev in levels],
+            "A_kind": [lev.A.meta[0] for lev in levels],
+            "P_kind": [lev.P.meta[0] for lev in levels[:-1]],
+            "emax": [lev.emax for lev in levels[:-1]]}
+    emax_rel = (max(abs(a - b) / b for a, b in zip(hier["emax"], GAMG_GRID_EMAX[cycle]))
+                if len(hier["emax"]) == len(GAMG_GRID_EMAX[cycle]) else math.inf)
+    want_hier = {"rows": list(GAMG_GRID_ROWS), "A_kind": list(GAMG_GRID_A_KINDS),
+                 "P_kind": list(GAMG_GRID_P_KINDS)}
+    bad_hier = {k: (hier[k], v) for k, v in want_hier.items() if hier[k] != v}
+    if its != GAMG_GRID_ITS or reason != "CONVERGED_RTOL" or not relres <= 1e-8 \
+            or not hist_rel <= MG_HIST_TOL[cycle] or bad_hier \
+            or not emax_rel <= GAMG_GRID_EMAX_TOL[cycle] \
+            or not true_rel <= 10 * GAMG_GRID_TRUE_RELRES[cycle]:
+        raise AssertionError(
+            f"128^3 CG+GAMG grid ({cycle} cycle): its {its} (want {GAMG_GRID_ITS}), {reason}, "
+            f"relres {relres}, history vs the reference {hist_rel} (tol {MG_HIST_TOL[cycle]}), "
+            f"hierarchy (got, want) {bad_hier}, emax vs the reference {emax_rel} (tol "
+            f"{GAMG_GRID_EMAX_TOL[cycle]}), true relres {true_rel} (the reference's "
+            f"{GAMG_GRID_TRUE_RELRES[cycle]})")
+    if not bool(torch.isfinite(x.array).all()):
+        raise AssertionError("CG+GAMG grid solution has non-finite entries")
+    return {"its": its, "reason": reason, "relres": relres, "true_relres": true_rel,
+            "reference_true_relres": GAMG_GRID_TRUE_RELRES[cycle],
+            "history_rel_diff_vs_reference": hist_rel, "emax_rel_diff_vs_reference": emax_rel,
+            "hierarchy": hier}
+
+
+def grid_solve(pt, pk, sb, cycle):
+    """CG + GAMG with the structured head on build_dnd((128,)*3, "box") +
+    as_mat through the user's entry points (bench.py's solve), every launch
+    count set to 0 just before init and read just after the solve, the
+    solve checked and its launches held to grid_launches_needed. Returns
+    (ksp, b, x, the record)."""
+    import torch
+    args = ["-ksp_type", "cg", "-pc_type", "gamg", "-ksp_rtol", "1e-8", "-ksp_max_it", "60"]
+    if cycle == "f32":
+        args += ["-pc_mg_dtype", "single"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live0 = torch.cuda.memory_allocated()
+    reset_launches()
+    pt.init(args=args)
+    pt.log().reset()
+    t0 = time.perf_counter()
+    A = sb.as_mat(*sb.build_dnd((N_MAIN,) * 3, kind="box"))
+    ksp = pt.KSP().create()
+    ksp.setOperators(A)
+    ksp.setFromOptions()
+    ksp.setUp()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    b = A.createVecLeft()
+    b.set(1.0)
+    x = A.createVecRight()
+    t1 = time.perf_counter()
+    ksp.solve(b, x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    launches = launch_counts()
+    chk = check_gamg_grid_solve(pk, ksp, b, x, cycle)
+    need = grid_launches_needed(chk["its"], ksp.getPC()._impl.levels)
+    bad = {k: (launches[k], v) for k, v in need.items() if launches[k] != v}
+    if bad:
+        raise AssertionError(f"{args}: launches (got, want): {bad}")
+    split = setup_seconds(pt, GAMG_GRID_EVENTS)
+    rec = {**chk, "args": args, "setup_s": setup_s, "setup_split_s": split,
+           "setup_parts_s": {"head_probes_and_lanczos": split["head"],
+                             "tail_download": split["tail_download"],
+                             "aggregation_tail": sum(split[k] for k in _AGG_TAIL),
+                             "coarse_lu": split["lu"]},
+           "first_solve_s": first_s, "launches": launches, "launches_needed": need,
+           "peak_mem_MiB": torch.cuda.max_memory_allocated() / 2 ** 20,
+           "path_peak_mem_MiB": (torch.cuda.max_memory_allocated() - live0) / 2 ** 20}
+    return ksp, b, x, rec
+
+
+def grid_kernel_row(name, dtype, fn, plain, library_fn, nbytes, flops, tol, **extra):
+    """One kernel against its plain version on the same inputs, both timed
+    after the clean flush by the caller's time_ms; the bound from the bytes
+    and flops of the function."""
+    import torch
+    k, p = fn(), plain()
+    torch.cuda.synchronize()
+    dn = str(dtype).replace("torch.", "")
+    err = rel_err(k, p)
+    if not err <= tol:
+        raise AssertionError(f"{name} {dn} {extra}: rel err {err} > {tol}")
+    b_ms, b_by = bound(nbytes, flops, dn)
+    return {"name": name, "dtype": dn, "rel_err": err, "tol": tol,
+            "equal_bits": bool(torch.equal(k, p)),
+            "max_abs_err": float((k.double() - p.double()).abs().max()),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, **extra,
+            "_fn": fn, "_plain": plain, "_library": library_fn}
+
+
+def phase_grid_kernels(gridk, gd, interp, gamg, ksps, flush):
+    """V1 at the path's 64^3 level (27 planes), Q1P and Q1R at 128^3 <-> 64^3,
+    f64 and f32 (each cycle's own hierarchy), and at an odd size (129^3 <->
+    65^3, where F.interpolate(trilinear, align_corners=True) computes Q1P
+    and F.conv3d with stride 2 and the [.5, 1, .5]^3 weights computes Q1R),
+    each against its plain version (f64 1e-13, f32 1e-6 relative) and timed
+    after the clean flush beside it; then the card's probed 32^3 planes
+    (from the f64 hierarchy's 64^3 level) against the host Galerkin
+    product of the port's SpGEMM (1e-12 relative). Returns (rows, the f64
+    rows at the path's shapes keyed by kernel)."""
+    import torch
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    tol = {torch.float64: 1e-13, torch.float32: 1e-6}
+    torch.backends.cudnn.allow_tf32 = False       # F.conv3d in the operands' own precision
+    rows, main = [], {}
+    for cycle, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        isz = torch.empty((), dtype=dtype).element_size()
+        lev1 = ksps[cycle].getPC()._impl.levels[1].A
+        m, d = lev1.meta, lev1.device_data()
+        shape, offs = m[1], m[2]
+        n1 = math.prod(shape)
+        cvals = (None,) * len(offs)
+        coef = d["coef"]
+        if coef.dtype != dtype:
+            raise AssertionError(f"level 1 planes are {coef.dtype} in the {cycle} cycle")
+        x = torch.rand(n1, generator=gen, device=dev, dtype=dtype)
+        v1 = gridk.dnd_stencil_fn(shape, offs, cvals, coef)     # planned as the binder plans it
+        rows.append(grid_kernel_row(
+            "dnd_stencil", dtype, lambda v1=v1, x=x: v1(x),
+            lambda x=x, coef=coef: gridk.dnd_stencil_plain(x, shape, offs, cvals, coef), None,
+            (len(offs) + 2) * n1 * isz, 2 * len(offs) * n1, tol[dtype], shape=list(shape),
+            planes=len(offs),
+            library="none: no single PyTorch call applies per-point coefficient planes"))
+        for fshape in ((N_MAIN,) * 3, (N_MAIN + 1,) * 3):
+            cshape = tuple((s + 1) // 2 for s in fshape)
+            nf, nc = math.prod(fshape), math.prod(cshape)
+            xc = torch.rand(nc, generator=gen, device=dev, dtype=dtype)
+            xf = torch.rand(nf, generator=gen, device=dev, dtype=dtype)
+            lib = lib_r = None
+            if fshape[0] % 2:
+                xc5, xf5 = xc.reshape((1, 1) + cshape), xf.reshape((1, 1) + fshape)
+                lib = lambda xc5=xc5, fshape=fshape: F.interpolate(  # noqa: E731
+                    xc5, size=fshape, mode="trilinear", align_corners=True).reshape(-1)
+                if not rel_err(lib(), gridk.q1_prolong_plain(xc, fshape)) <= 1e-6:
+                    raise AssertionError("F.interpolate does not compute Q1P at odd sizes")
+                # per axis c[j] = .5 f[2j-1] + f[2j] + .5 f[2j+1], zeros outside
+                h = torch.tensor([0.5, 1.0, 0.5], dtype=dtype, device=dev)
+                w = (h[:, None, None] * h[None, :, None] * h[None, None, :]).reshape(1, 1, 3, 3, 3)
+                lib_r = lambda xf5=xf5, w=w: F.conv3d(  # noqa: E731
+                    xf5, w, stride=2, padding=1).reshape(-1)
+                if not rel_err(lib_r(), gridk.q1_restrict_plain(xf, fshape)) <= 1e-6:
+                    raise AssertionError("F.conv3d does not compute Q1R at odd sizes")
+            rows.append(grid_kernel_row(
+                "q1_prolong", dtype, lambda xc=xc, fshape=fshape: gridk.q1_prolong(xc, fshape),
+                lambda xc=xc, fshape=fshape: gridk.q1_prolong_plain(xc, fshape), lib,
+                (nf + nc) * isz, 2 * nf, tol[dtype], fine=list(fshape),
+                library="F.interpolate(trilinear, align_corners=True)" if lib else
+                "none at an even size: F.interpolate has no clamp of the last odd point"))
+            rows.append(grid_kernel_row(
+                "q1_restrict", dtype,
+                lambda xf=xf, fshape=fshape: gridk.q1_restrict(xf, fshape),
+                lambda xf=xf, fshape=fshape: gridk.q1_restrict_plain(xf, fshape), lib_r,
+                (nf + nc) * isz, 2 * nf, tol[dtype], fine=list(fshape),
+                library="F.conv3d(stride 2, padding 1, [.5, 1, .5]^3)" if lib_r else
+                "none at an even size: F.conv3d has no clamp of the last odd point"))
+    for r in rows:
+        fn, plain, lib = r.pop("_fn"), r.pop("_plain"), r.pop("_library")
+        r["ms"] = time_ms(fn, flush)
+        r["plain_ms"] = time_ms(plain, flush)
+        r["library_ms"] = time_ms(lib, flush) if lib is not None else None
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        if r["dtype"] == "float64" and r.get("fine", [N_MAIN])[0] == N_MAIN \
+                and r["name"] not in main:
+            main[r["name"]] = r
+    # the probed planes against the host Galerkin product, 64^3 -> 32^3 in f64
+    levels = ksps["f64"].getPC()._impl.levels
+    A1, A2 = levels[1].A, levels[2].A
+    t0 = time.perf_counter()
+    A1_sp = gd.dnd_to_csr(A1.meta, A1.device_data())
+    P = interp.MatInterpQ1(A1.meta[1], A2.meta[1]).to_scipy()
+    host = gamg._galerkin(A1_sp, P)
+    card = gd.dnd_to_csr(A2.meta, A2.device_data())
+    diff = abs(card - host).max() / abs(host).max()
+    if not diff <= 1e-12:
+        raise AssertionError(f"probed 32^3 planes vs the host Galerkin product: {diff}")
+    galerkin = {"fine": list(A1.meta[1]), "coarse": list(A2.meta[1]), "nnz": int(host.nnz),
+                "rel_diff": float(diff), "host_seconds": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+    return rows, main, galerkin
+
+
+def phase_gamg_grid(pt, pk, gridk, sb, smi, t_start, flush, jac_ms):
+    """CG + GAMG with the structured head on the 128^3 box27 stencil
+    operator (bench.py's solve), f32 cycle (bench's -pc_mg_dtype single) and
+    f64 cycle, each checked against the reference's run, timed warm (best of
+    3) and held to its launches. Returns (the record, the f64 KSP, b, x, its
+    warm ms, its launches, the two KSPs)."""
+    from petsc_tpu_torch.dm import interp
+    from petsc_tpu_torch.pc import gamg, gamg_device as gd
+    out = {"phase": "gamg_grid", "n": N_MAIN, "stencil": "box27",
+           "operator": "build_dnd + as_mat (bench.py's solve)", "rtol": 1e-8, "max_it": 60,
+           "head": "structured, device (Q1, probed Galerkin, Lanczos)",
+           "tail": "smoothed aggregation (MIS-2 + square fix, then MIS)",
+           "smoother": "chebyshev(2,2)/jacobi", "coarse": "dense LU", "nvidia_smi": smi}
+    res, ksps = {}, {}
+    for cycle in ("f32", "f64"):
+        ksp, b, x, rec = grid_solve(pt, pk, sb, cycle)
+        rec["warm_ms_best_of_3"] = warm_ms(ksp, b, x)
+        check_gamg_grid_solve(pk, ksp, b, x, cycle)
+        rec["ms_per_it"] = rec["warm_ms_best_of_3"] / rec["its"]
+        rec["cg_jacobi_ratio"] = jac_ms / rec["warm_ms_best_of_3"]
+        rec["seconds_so_far"] = time.perf_counter() - t_start
+        out[cycle] = rec
+        res[cycle] = (ksp, b, x, rec["warm_ms_best_of_3"], rec["launches"])
+        ksps[cycle] = ksp
+    out["cg_jacobi_warm_ms"] = jac_ms
+    rows, main, galerkin = phase_grid_kernels(gridk, gd, interp, gamg, ksps, flush)
+    out["kernel_checks"] = rows
+    out["probed_vs_host_galerkin"] = galerkin
+    out["seconds_so_far"] = time.perf_counter() - t_start
+    return out, main, res
 
 
 def phase_cheby(pk, flush):
@@ -1205,6 +1553,7 @@ def main():
     from petsc_tpu_torch import native
     from petsc_tpu_torch.ops import cuda_build, stencil_build as sb
     from petsc_tpu_torch.ops import gather_kernels as gk
+    from petsc_tpu_torch.ops import grid_kernels as gridk
     from petsc_tpu_torch.ops import pallas_kernels as pk
 
     t_start = time.perf_counter()
@@ -1243,13 +1592,12 @@ def main():
     # ---- the main path, with every launch count set to 0 just before ----
     torch.cuda.reset_peak_memory_stats()
     live0 = torch.cuda.memory_allocated()
-    pk.reset_launches()
-    gk.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     ksp, A, b, x = solve_once(pt, sb, "jacobi")
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {**pk.LAUNCHES, **gk.LAUNCHES}
+    launches = launch_counts()
     its, reason, relres, true_rel = check_solve(pk, ksp, b, x)
     hist_stencil = ksp.getConvergenceHistory()
     need = {"probe": 1, "const_stencil": its, "triad": its, "axpy_normsq": its, "dot2": its}
@@ -1296,8 +1644,7 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     live0 = torch.cuda.memory_allocated()
-    pk.reset_launches()
-    gk.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     A_aij = pt.MatAIJ()
     A_aij.setSizes(N_MAIN ** 3)
@@ -1312,7 +1659,7 @@ def main():
     ksp_a, b_a, x_a = aij_solve(pt, A_aij, "jacobi")
     torch.cuda.synchronize()
     aij_s = time.perf_counter() - t0
-    aij_launches = {**pk.LAUNCHES, **gk.LAUNCHES}
+    aij_launches = launch_counts()
     del ci, cj
     emit({"phase": "aij_host", "coo_generate_s": coo_s, "setPreallocationCOO_s": pre_s,
           "setValuesCOO_s": val_s})
@@ -1355,7 +1702,7 @@ def main():
     check_one_launch(prof_a, its_a)
 
     # ---- CG + PCMG on the assembled operator, f64 and f32 cycles ----
-    mg_rec, ksp_m, b_m, x_m, mg_ms, mg_launches = phase_mg(pt, pk, gk, A_aij, smi, t_start,
+    mg_rec, ksp_m, b_m, x_m, mg_ms, mg_launches = phase_mg(pt, pk, A_aij, smi, t_start,
                                                                 flush)
     cheby_rows, cheby_main = phase_cheby(pk, flush)
     mg_rec["cheby_update_checks"] = cheby_rows
@@ -1367,13 +1714,32 @@ def main():
     del ksp_m, b_m, x_m
 
     # ---- CG + GAMG on the assembled operator, f64 and f32 cycles ----
-    gamg_rec, ksp_g, b_g, x_g, gamg_ms, gamg_launches = phase_gamg(pt, pk, gk, A_aij, smi,
+    gamg_rec, ksp_g, b_g, x_g, gamg_ms, gamg_launches = phase_gamg(pt, pk, A_aij, smi,
                                                                    t_start, flush)
     emit(gamg_rec)
     prof_g = profile_solve(ksp_g, b_g, x_g, gamg_ms)
     emit({"phase": "gamg_profile", "solve": "cg+gamg, f64 cycle", "nvidia_smi": smi, **prof_g,
           "seconds_so_far": time.perf_counter() - t_start})
     check_gamg_solve(pk, ksp_g, A_aij, b_g, x_g, "f64")
+    del ksp_g, b_g, x_g, A_aij
+    torch.cuda.empty_cache()
+
+    # ---- CG + GAMG with the structured head on the stencil operator (bench.py's
+    # solve), f32 and f64 cycles ----
+    grid_rec, grid_main, grid_res = phase_gamg_grid(pt, pk, gridk, sb, smi, t_start, flush,
+                                                    jac_ms)
+    emit(grid_rec)
+    prof_grid = {}
+    for cycle in ("f32", "f64"):
+        ksp_q, b_q, x_q, ms_q, _ = grid_res[cycle]
+        prof_grid[cycle] = profile_solve(ksp_q, b_q, x_q, ms_q)
+        emit({"phase": "gamg_grid_profile", "solve": f"cg+gamg structured, {cycle} cycle",
+              "nvidia_smi": smi, **prof_grid[cycle],
+              "seconds_so_far": time.perf_counter() - t_start})
+        check_gamg_grid_solve(pk, ksp_q, b_q, x_q, cycle)
+    grid_launches = grid_res["f32"][4]
+    grid_launches_f64 = grid_res["f64"][4]
+    del grid_res, ksp_q, b_q, x_q
 
     # name: (source, replaces, measured row, launches on the path it belongs to)
     rows = {
@@ -1396,6 +1762,9 @@ def main():
                    {"gather": coo_rows[0]}, aij_launches),
         "cheby_update": ("cheby.cu", "petsc_tpu/ksp/cheby.py:40", {"cheby_update": cheby_main},
                          mg_launches),
+        "dnd_stencil": ("dnd_stencil.cu", "petsc_tpu/mat/aij.py:1381", grid_main, grid_launches),
+        "q1_prolong": ("q1.cu", "petsc_tpu/dm/interp.py:21", grid_main, grid_launches),
+        "q1_restrict": ("q1.cu", "petsc_tpu/dm/interp.py:49", grid_main, grid_launches),
     }
     table = []
     for name, (src, replaces, measured, counts) in rows.items():
@@ -1409,10 +1778,14 @@ def main():
                       "launches_by_path": {"solve": launches[name],
                                            "aij": aij_launches[name],
                                            "mg": mg_launches[name],
-                                           "gamg": gamg_launches[name]},
+                                           "gamg": gamg_launches[name],
+                                           "gamg_grid": grid_launches[name],
+                                           "gamg_grid_f64": grid_launches_f64[name]},
                       "in_solve_us": {path: p["in_solve"].get(name, {}).get("us_per_launch")
                                       for path, p in (("solve", prof), ("aij", prof_a),
-                                                      ("mg", prof_m), ("gamg", prof_g))}})
+                                                      ("mg", prof_m), ("gamg", prof_g),
+                                                      ("gamg_grid", prof_grid["f32"]),
+                                                      ("gamg_grid_f64", prof_grid["f64"]))}})
     for r in table:
         if r["name"] in ("triad", "dot2", "const_stencil"):
             r.update(design=main_rows[r["name"]]["design"],
@@ -1450,6 +1823,17 @@ def main():
               others={f"{r['mode']}_{r['dtype']}_{r['n']}": {
                   k: r[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
                   for r in cheby_rows if r is not cheby_main})
+    # V1's row is the f64 product at the path's 64^3 level (27 planes), Q1P's
+    # and Q1R's at 128^3 <-> 64^3; f32 and the odd size stand beside them
+    keep = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "equal_bits")
+    for name in ("dnd_stencil", "q1_prolong", "q1_restrict"):
+        r = next(r for r in table if r["name"] == name)
+        m = grid_main[name]
+        r.update(library=m["library"], share_of_bound=m["share_of_bound"],
+                 shape=m.get("shape") or m.get("fine"),
+                 others=[{**{k: o[k] for k in keep}, "dtype": o["dtype"],
+                          "shape": o.get("shape") or o.get("fine")}
+                         for o in grid_rec["kernel_checks"] if o["name"] == name and o is not m])
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -54,12 +54,16 @@ def _csr_of_device_layout(meta, data):
 
 
 def mat_from_meta_data(meta, data_np):
-    """A port Mat from the reference's ``aij_dnd``, ``aij_csr`` or
-    ``aij_ell`` (meta, data). The stencil's data arrays keep their dtype;
-    the assembled layouts become the port's CSR MatAIJ."""
+    """A port Mat from the reference's ``aij_dnd`` (constant, variable or
+    mixed: planes in data["coef"], constants in meta[6]), ``aij_csr``,
+    ``aij_ell`` or ``interp_q1`` (meta, data). The stencil's data arrays
+    keep their dtype; the assembled layouts become the port's CSR MatAIJ."""
     meta = _plain(meta)
     if meta[0] in ("aij_csr", "aij_ell"):
         return mat_from_csr(*_csr_of_device_layout(meta, data_np), shape=meta[1:3])
+    if meta[0] == "interp_q1":
+        from .dm.interp import MatInterpQ1
+        return MatInterpQ1(meta[1], meta[2], dof=meta[3] if len(meta) > 3 else 1)
     if meta[0] != "aij_dnd":
         raise NotImplementedError(f"interop: operator kind '{meta[0]}' is not ported")
     data = {k: torch.tensor(np.asarray(v), device=config.device())

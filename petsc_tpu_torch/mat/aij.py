@@ -5,13 +5,18 @@ src/mat/impls/aij/seq/aij.c) for one device:
 
 * Host ("symbolic") state: a canonical CSR over the rows in numpy/scipy,
   as in the reference: assembly from setValues, CSR or COO triplets, and
-  the host matrix operations.
+  the host matrix operations. ``from_scipy(..., host_only=True)`` keeps a
+  matrix on the host until its device arrays are asked for (a Pmat that
+  only drives a preconditioner's set-up).
 * Device ("numeric") state: CSR arrays (int64 row pointers, int32
   columns, values, the diagonal and its positions). The product is the
   hand kernel S2 (:func:`ops.pallas_kernels.csr_spmv`). The TPU package
   chose among no-gather layouts (DIA, HYB, BDIA, RCM-permuted, ELL);
   Hopper has a hardware gather, so every layout name it accepts gives
-  CSR here, with the same results.
+  CSR here, with the same results. A matrix whose rows are the points of
+  a declared grid (``setStencilGrid``) and whose pattern decomposes into
+  grid offsets takes the ``aij_dnd`` layout instead (one coefficient
+  plane per offset, product on V1), as in the reference.
 * COO assembly (gcreate.c:706): the pattern is sorted on the host once;
   each ``setValuesCOO`` then runs on the device (:func:`ops.spmv.coo_scatter_csr`):
   the K8 gather ``v[perm]``
@@ -24,12 +29,15 @@ src/mat/impls/aij/seq/aij.c) for one device:
 Every value change bumps the object state, so a cache keyed on it (the
 PC's setup) never applies stale values.
 
-The `aij_dnd` binder is the reference's ``_bind_aij_dnd`` limited to its
-separable branch (aij.py:1346-1379): a uniform-coefficient full box or
-star stencil, applied by the hand-written S1 kernel
-(:func:`ops.pallas_kernels.const_stencil`). The slab-blocked and generic
-variable-coefficient mults and the variable-coefficient transpose
-(aij.py:1393-1451) come with the GAMG slice.
+The `aij_dnd` binder is the reference's ``_bind_aij_dnd``: a
+uniform-coefficient full box or star stencil (the separable branch,
+aij.py:1346-1379) is applied by the hand-written S1 kernel
+(:func:`ops.pallas_kernels.const_stencil`); every other stencil (planes,
+planes mixed with constants, constants on other offsets: the slab and
+generic branches, :1381-1436) by V1 (:func:`ops.grid_kernels.dnd_stencil`).
+The TPU's slab chunking is a VMEM device and is not carried over; both
+reference branches give the same y. The variable-coefficient transpose
+(:1438-1451) is PyTorch in gather form, off the V-cycle's path.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 from .. import config, native
 from ..ops import operator, spmv
 from ..ops.gather_kernels import gather
+from ..ops.grid_kernels import dnd_stencil_fn, dnd_stencil_t
 from ..ops.pallas_kernels import const_stencil, csr_spmv
 from ..sys.error import Error
 from ..vec.vec import InsertMode, NormType
@@ -49,9 +58,9 @@ from .mat import Mat
 
 # -mat_spmv_kind values: the TPU's no-gather layouts all give CSR here
 _CSR_KINDS = ("auto", "csr", "ell", "dia", "hyb", "bdia", "perm")
-_GAMG = "the GAMG structured head (ROADMAP queue 1 item 5c)"
 _BAIJ = "the BAIJ part of ROADMAP queue 1 item 7"
-_LATER_KINDS = {"dnd": _GAMG, "dndb": _BAIJ, "bell": _BAIJ}
+_LATER_KINDS = {"dndb": _BAIJ, "bell": _BAIJ}
+_MAX_GRID_OFFSETS = 80      # the reference's limit on a grid pattern's offsets
 _INT32_MAX = 2 ** 31 - 1
 
 
@@ -82,6 +91,9 @@ class MatAIJ(Mat):
         self._coo_plan = None
         self._kind_opt = None
         self._assembled = False
+        self.host_only = False
+        self._grid_shape = None
+        self._grid_off_cache = None
 
     # ================= assembly =================
 
@@ -152,7 +164,7 @@ class MatAIJ(Mat):
             self._indptr = np.zeros(self.row_layout.N + 1, dtype=np.int64)
             self._indices = np.zeros(0, dtype=np.int64)
             self._vals = np.zeros(0, dtype=np.float64)
-        self._build_device()
+        self._refresh_device()
         self._assembled = True
         self.increase_state()
         return self
@@ -223,7 +235,7 @@ class MatAIJ(Mat):
             "n_user": n_user,
             "nnz": len(self._indices),
         }
-        self._build_device()
+        self._refresh_device()
         self._assembled = True
         self.increase_state()
         return self
@@ -253,7 +265,11 @@ class MatAIJ(Mat):
 
     def _sync_host_vals(self):
         if self._vals is None:
-            self._vals = self._dev["vals"].cpu().numpy().astype(np.float64)
+            dev = self._dev
+            # a grid layout keeps its values in the planes only
+            vals = dev["vals"] if "vals" in dev else \
+                dev["coef"].reshape(-1)[dev["dnd_scatter"]]
+            self._vals = vals.cpu().numpy().astype(np.float64)
 
     def to_scipy(self):
         import scipy.sparse as sp
@@ -261,10 +277,21 @@ class MatAIJ(Mat):
         return sp.csr_matrix((self._vals, self._indices, self._indptr), shape=self.getSize())
 
     @classmethod
-    def from_scipy(cls, A, comm=None):
+    def from_scipy(cls, A, comm=None, host_only=False, grid=None):
+        """A MatAIJ holding the scipy matrix A, on the structured grid `grid`
+        when one is given (declared before the one device build).
+        host_only=True keeps it a host object (a Pmat for a preconditioner's
+        set-up) and defers the device build until meta or device_data is
+        asked for. The reference's
+        contract (aij.py:244-256): a host_only Pmat is the numerically
+        identical twin of its Amat, which PCGAMG then applies on the finest
+        level."""
         A = A.tocsr()
         M = cls(comm)
+        M.host_only = bool(host_only)
         M.setSizes(A.shape)
+        if grid is not None:
+            M.setStencilGrid(grid)
         M.setValuesCSR(A.indptr, A.indices, A.data)
         return M.assemble()
 
@@ -283,8 +310,10 @@ class MatAIJ(Mat):
     # ================= device build =================
 
     def _choose_kind(self):
-        """The GPU layout policy: CSR for every single-device matrix with
-        bs == 1 (the reference's -mat_spmv_kind choice, aij.py:307-355)."""
+        """The GPU layout policy for a single-device matrix with bs == 1
+        (the reference's -mat_spmv_kind choice, aij.py:307-355): "dnd" where
+        the pattern decomposes on a declared grid (under auto) or where
+        -mat_spmv_kind dnd asks for it, else "csr"."""
         if self._kind_opt is None:
             self._kind_opt = self.opt("get_string", "mat_spmv_kind", default="auto")
         kind = self._kind_opt
@@ -295,13 +324,63 @@ class MatAIJ(Mat):
         if kind in _LATER_KINDS:
             raise NotImplementedError(
                 f"-mat_spmv_kind {kind} comes with {_LATER_KINDS[kind]}")
+        if kind == "dnd":
+            if self._grid_offsets() is None:
+                raise Error("-mat_spmv_kind dnd: the matrix declares no grid (setStencilGrid) "
+                            "on which its pattern decomposes")
+            return "dnd"
         if kind not in _CSR_KINDS:
             raise Error(f"unknown -mat_spmv_kind '{kind}'")
+        if kind == "auto" and len(self._indices) and self._grid_offsets() is not None:
+            return "dnd"
         return "csr"
+
+    def setStencilGrid(self, shape):
+        """Declare that rows and columns are the points of a structured grid
+        of the given (..., ny, nx) shape, x fastest (DMDA natural order):
+        a pattern that decomposes into grid offsets then takes the aij_dnd
+        layout, and PCGAMG the structured head (aij.py:418-428)."""
+        self._grid_shape = tuple(int(s) for s in shape)
+        self._grid_off_cache = None
+        if self._assembled and self._indptr is not None:
+            self._refresh_device()
+            self.increase_state()
+        return self
+
+    def _grid_offsets(self):
+        """(unique offsets, each entry's offset index, each entry's row) when
+        rows and columns live on a declared grid of two or more axes and the
+        pattern decomposes into at most 80 offsets; else None
+        (aij.py:430-463)."""
+        cache = self._grid_off_cache
+        if cache is not None and cache[0] is self._indices:
+            return cache[1]
+        shape, out = self._grid_shape, None
+        m, n = self.getSize()
+        if (shape is not None and len(shape) >= 2 and m == n == int(np.prod(shape))
+                and len(self._indices)):
+            rows = _row_of_entry(self._indptr)
+            ri = np.stack(np.unravel_index(rows, shape), axis=1)
+            ci = np.stack(np.unravel_index(self._indices, shape), axis=1)
+            d = ci - ri                              # (nnz, ndim) exact offsets
+            if not np.any(np.abs(d).max(axis=0) >= np.asarray(shape)):
+                uniq, inv = np.unique(d, axis=0, return_inverse=True)
+                if len(uniq) <= _MAX_GRID_OFFSETS:
+                    out = (uniq, inv.reshape(-1), rows)
+        self._grid_off_cache = (self._indices, out)
+        return out
+
+    def _refresh_device(self):
+        """Rebuild the device arrays from the host CSR, or drop them on a
+        host_only matrix (rebuilt from the updated CSR when next asked for)."""
+        if self.host_only:
+            self._dev = self._meta = None
+        else:
+            self._build_device()
 
     def _build_device(self):
         m, n = self.getSize()
-        self._choose_kind()
+        kind = self._choose_kind()
         indptr, indices = self._indptr, self._indices
         self._sync_host_vals()
         if len(indices) > _INT32_MAX:
@@ -314,19 +393,43 @@ class MatAIJ(Mat):
         diag = np.bincount(rows[hit], weights=self._vals[hit], minlength=m)
         dev, rd = config.device(), config.real_dtype()
         self._dev = {
-            "indptr": torch.as_tensor(indptr, dtype=torch.int64, device=dev),
-            "col": torch.as_tensor(indices.astype(np.int32), device=dev),
-            "vals": torch.as_tensor(self._vals, dtype=rd, device=dev),
             # diagonal cached for PC jacobi, and its CSR positions so that the
             # COO numeric path refreshes it on the device
             "diag": torch.as_tensor(diag, dtype=rd, device=dev),
             "diag_pos": torch.as_tensor(dpos, device=dev),
         }
+        if kind == "dnd":
+            # one coefficient plane per grid offset (aij.py:652-672), and each
+            # CSR entry's place in the planes for device numeric updates
+            shape = self._grid_shape
+            uniq, inv, rows = self._grid_offsets()
+            K = len(uniq)
+            coef = np.zeros((K,) + shape)
+            coef[(inv,) + np.unravel_index(rows, shape)] = self._vals
+            self._dev["coef"] = torch.as_tensor(coef, dtype=rd, device=dev)
+            self._dev["dnd_scatter"] = torch.as_tensor(inv * int(np.prod(shape)) + rows,
+                                                       device=dev)
+            lpad = tuple(int(max(0, -uniq[:, ax].min())) for ax in range(len(shape)))
+            rpad = tuple(int(max(0, uniq[:, ax].max())) for ax in range(len(shape)))
+            self._meta = ("aij_dnd", shape, tuple(tuple(int(v) for v in o) for o in uniq),
+                          lpad, rpad, n)
+            return
+        self._dev.update(indptr=torch.as_tensor(indptr, dtype=torch.int64, device=dev),
+                         col=torch.as_tensor(indices.astype(np.int32), device=dev),
+                         vals=torch.as_tensor(self._vals, dtype=rd, device=dev))
         self._meta = ("aij_csr", m, n)
 
     def _update_device_values(self, csr_vals):
-        """New CSR values for the same pattern, staying on the device."""
-        self._dev["vals"] = csr_vals
+        """New CSR values for the same pattern, staying on the device (a
+        grid layout scatters them into its planes; each entry has a plane
+        slot of its own, so the writes do not collide)."""
+        if self._meta[0] == "aij_dnd":
+            coef = self._dev["coef"]
+            flat = torch.zeros(coef.numel(), dtype=csr_vals.dtype, device=csr_vals.device)
+            flat[self._dev["dnd_scatter"]] = csr_vals
+            self._dev["coef"] = flat.reshape(coef.shape)
+        else:
+            self._dev["vals"] = csr_vals
         dpos = self._dev["diag_pos"]
         if csr_vals.numel():
             d = gather(csr_vals, dpos.clamp(min=0), check=False)
@@ -337,9 +440,13 @@ class MatAIJ(Mat):
 
     @property
     def meta(self):
+        if self._meta is None and self.host_only and self._indptr is not None:
+            self._build_device()
         return self._meta
 
     def device_data(self):
+        if self._dev is None and self.host_only and self._indptr is not None:
+            self._build_device()
         return self._dev
 
     # ================= algebra on the host CSR =================
@@ -356,7 +463,7 @@ class MatAIJ(Mat):
     def scale(self, alpha):
         self._sync_host_vals()
         self._vals = self._vals * alpha
-        self._build_device()
+        self._refresh_device()
         self.increase_state()
         return self
 
@@ -496,6 +603,8 @@ def _bind_aij_csr(meta, data):
 
 
 def _bind_aij_dnd(meta, data):
+    """The stencil's product: S1 for the separable constant box or star,
+    V1 for every other stencil (aij.py:1292-1453)."""
     _, shape, offs = meta[:3]
     # optional per-offset CONSTANT coefficients (meta[6]); None marks a
     # variable-coefficient plane in data["coef"]
@@ -512,11 +621,10 @@ def _bind_aij_dnd(meta, data):
 
     if not (all_const and center in off_set and len(offdiag) == 1
             and off_set in (box_set, star_set)):
-        raise NotImplementedError(
-            "aij_dnd: only the separable constant-coefficient box/star "
-            "stencil is ported; the slab-blocked and generic variable-"
-            "coefficient mults and their transpose come with the GAMG "
-            "slice (ROADMAP queue 1 item 5)")
+        coef = data["coef"]
+        return operator.Op(mult=dnd_stencil_fn(shape, offs, cvals, coef),
+                           mult_t=lambda x: dnd_stencil_t(x, shape, offs, cvals, coef),
+                           diag=lambda: data["diag"])
     cd = float(cvals[offs.index(center)])
     co = float(next(iter(offdiag)))
     is_box = off_set == box_set

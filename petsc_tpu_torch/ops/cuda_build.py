@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
 SOURCES = ("probe.cu", "triad.cu", "axpy_normsq.cu", "dot2.cu", "const_stencil.cu",
-           "csr_spmv.cu", "gather.cu", "row_gather.cu", "lane_shuffle.cu", "cheby.cu")
+           "csr_spmv.cu", "gather.cu", "row_gather.cu", "lane_shuffle.cu", "cheby.cu",
+           "dnd_stencil.cu", "q1.cu")
 HEADERS = ("common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -61,6 +62,12 @@ SIGNATURES = {
     "ptt_lane_shuffle_f32": (_vp, _vp, _vp, _i64, _i32, _vp),
     "ptt_cheby_update_f64": (_i32, _vp, _vp, _vp, _vp, _vp, _vp, _f64, _f64, _f64, _i64, _i32, _vp),
     "ptt_cheby_update_f32": (_i32, _vp, _vp, _vp, _vp, _vp, _vp, _f64, _f64, _f64, _i64, _i32, _vp),
+    "ptt_dnd_stencil_f64": (_vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp, _vp, _vp, _i32, _vp),
+    "ptt_dnd_stencil_f32": (_vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp, _vp, _vp, _i32, _vp),
+    "ptt_q1_prolong_f64": (_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp),
+    "ptt_q1_prolong_f32": (_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp),
+    "ptt_q1_restrict_f64": (_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp),
+    "ptt_q1_restrict_f32": (_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp),
 }
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 

@@ -1,0 +1,294 @@
+"""Hand-written Hopper kernels of the structured GAMG head, beside their
+plain versions.
+
+The JAX package left these device functions to XLA fusion; eager PyTorch
+fuses nothing, so here they are CUDA C++ kernels for sm_90a (sources in
+``petsc_tpu_torch/csrc``, built and loaded by :mod:`.cuda_build`):
+
+  dnd_stencil  V1   csrc/dnd_stencil.cu  mat/aij.py:1381-1436 (variable-coefficient mult)
+  q1_prolong   Q1P  csrc/q1.cu           dm/interp.py:21-46 _interp_axis, composed at :219-227
+  q1_restrict  Q1R  csrc/q1.cu           dm/interp.py:49-71 _restrict_axis, composed at :229-235
+
+V1 is the product of every ``aij_dnd`` operator but the separable constant
+box and star (S1): the probed coarse levels, a MatAIJ on a declared grid,
+and constant stencils of other offsets. Q1P and Q1R are the structured
+levels' transfers and the probe's P and P^T.
+
+Every wrapper checks device, dtype (float64 or float32), shape and
+contiguity and raises on what its kernel does not take; allocates its
+output with ``torch.empty``; launches on the current stream without
+synchronising; and adds one to ``LAUNCHES[name]`` for each launch. For a
+tensor on the CPU it runs the plain PyTorch version beside it (the CPU
+tests run that path); for a CUDA tensor it launches the kernel or raises.
+There is no fallback from the kernel to the plain version. The kernels
+round each product and sum on their own, in the plain versions' order, so
+the two give equal bits.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_build
+
+# launches of each kernel since the last reset_launches()
+LAUNCHES = {"dnd_stencil": 0, "q1_prolong": 0, "q1_restrict": 0}
+
+_VALUES = (torch.float64, torch.float32)
+_MAX_TAPS = 128            # csrc/dnd_stencil.cu kMaxTaps
+_INT32_MAX = 2 ** 31 - 1
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check_vector(name, x, n):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
+    if x.dtype not in _VALUES:
+        raise TypeError(f"{name}: dtype {x.dtype} is not supported (float64 or float32)")
+    if x.dim() != 1 or x.numel() != n or not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous 1-D tensor of {n} entries, got "
+                         f"{tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if n > _INT32_MAX:
+        raise ValueError(f"{name}: the kernel's int32 indices take fewer than 2^31 points")
+
+
+def _grid3(shape):
+    """`shape` padded to 3-D with leading unit axes."""
+    if not 1 <= len(shape) <= 3:
+        raise ValueError(f"the grid kernels take 1-3 grid axes, got {len(shape)}")
+    return (1,) * (3 - len(shape)) + tuple(int(s) for s in shape)
+
+
+def _numel(shape):
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return n
+
+
+# ---------------------------------------------------------------------
+# V1: the variable-coefficient stencil (mat/aij.py _bind_aij_dnd mult)
+# ---------------------------------------------------------------------
+
+def _pads(offsets, nd):
+    lpad = tuple(max(0, -min(o[ax] for o in offsets)) for ax in range(nd))
+    rpad = tuple(max(0, max(o[ax] for o in offsets)) for ax in range(nd))
+    return lpad, rpad
+
+
+def _pad_grid(v, lpad, rpad):
+    """v zero-padded by lpad before and rpad after each axis."""
+    pads = []
+    for ax in range(v.dim() - 1, -1, -1):     # F.pad lists the last axis first
+        pads += [lpad[ax], rpad[ax]]
+    return F.pad(v, pads)
+
+
+def dnd_stencil_plain(x, shape, offsets, consts, coef):
+    """The generic branch of mat/aij.py:1427-1436: y(i) = sum_k c_k(i)
+    x(i + o_k) over the offsets in their order, x zero outside the grid;
+    c_k is the constant consts[k], or where that is None the next plane
+    of coef (variable planes in offset order)."""
+    nd = len(shape)
+    lpad, rpad = _pads(offsets, nd)
+    vp = _pad_grid(x.reshape(shape), lpad, rpad)
+    acc = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    ci = 0
+    for k, off in enumerate(offsets):
+        if consts[k] is None:
+            c = coef[ci]
+            ci += 1
+        else:
+            c = consts[k]
+        sl = tuple(slice(lpad[ax] + off[ax], lpad[ax] + off[ax] + shape[ax]) for ax in range(nd))
+        acc = acc + c * vp[sl]
+    return acc.reshape(-1)
+
+
+def _dnd_plan(shape, offsets, consts):
+    """V1's plan for one stencil, checked: (grid, points, planes, the launch
+    arguments of the taps: their count and the addresses of the ctypes
+    arrays of offsets padded to 3-D, plane index or -1, constant; the
+    arrays themselves, which the addresses point into)."""
+    shape = tuple(int(s) for s in shape)
+    offsets = tuple(tuple(int(v) for v in o) for o in offsets)
+    consts = tuple(None if c is None else float(c) for c in consts)
+    if len(consts) != len(offsets) or any(len(o) != len(shape) for o in offsets):
+        raise ValueError(f"dnd_stencil: {len(offsets)} offsets, {len(consts)} constants, "
+                         f"grid {shape}")
+    if len(offsets) > _MAX_TAPS:
+        raise ValueError(f"dnd_stencil: the kernel takes at most {_MAX_TAPS} offsets")
+    K = len(offsets)
+    planes, ci = [], 0
+    for c in consts:
+        planes.append(-1 if c is not None else ci)
+        ci += c is None
+    arrays = ((ctypes.c_int * (3 * K))(*[v for o in offsets for v in (0,) * (3 - len(o)) + o]),
+              (ctypes.c_int * K)(*planes),
+              (ctypes.c_double * K)(*[0.0 if c is None else c for c in consts]))
+    taps = (K, *(ctypes.addressof(a) for a in arrays))
+    return shape, _numel(shape), (ci,) + shape, _grid3(shape) + taps, arrays
+
+
+def dnd_stencil_fn(shape, offsets, consts, coef):
+    """x -> A x for the grid stencil with `offsets` on grid `shape` (C order,
+    zeros outside the grid): per offset k the constant consts[k] or, where
+    that is None, the next plane of `coef` (a contiguous (planes, *shape)
+    float64 or float32 tensor). The stencil is checked and its launch
+    planned once here, where a binder binds the operator."""
+    shape, n, coef_shape, args, arrays = _dnd_plan(shape, offsets, consts)
+    if (not isinstance(coef, torch.Tensor) or coef.dtype not in _VALUES
+            or coef.shape != coef_shape or not coef.is_contiguous()):
+        raise ValueError(f"dnd_stencil: coef must be a contiguous {coef_shape} float64 or "
+                         f"float32 tensor, got {getattr(coef, 'shape', coef)}")
+
+    def apply(x):
+        _check_vector("dnd_stencil", x, n)
+        if x.dtype != coef.dtype or x.device != coef.device:
+            raise ValueError(f"dnd_stencil: x is {x.dtype} on {x.device}, the planes "
+                             f"{coef.dtype} on {coef.device}")
+        if x.device.type == "cpu":
+            return dnd_stencil_plain(x, shape, offsets, consts, coef)
+        y = torch.empty_like(x)
+        if n:
+            cuda_build.launch(LAUNCHES, "dnd_stencil", x, y.data_ptr(), x.data_ptr(),
+                              coef.data_ptr(), *args)
+        return y
+
+    apply.taps = arrays          # the ctypes arrays that args point into
+    return apply
+
+
+def dnd_stencil(x, shape, offsets, consts, coef):
+    """y = A x for one stencil (see dnd_stencil_fn)."""
+    return dnd_stencil_fn(shape, offsets, consts, coef)(x)
+
+
+def dnd_stencil_t(x, shape, offsets, consts, coef):
+    """y = A^T x for the same stencil, in gather form (no atomics):
+    y(i) = sum_k c_k(i - o_k) x(i - o_k), each term c_k x shifted by o_k.
+    The reference's scatter form (mat/aij.py:1438-1451) sums the same
+    terms in the same order. In PyTorch ops on either device (off the
+    V-cycle, which restricts with P^T; ROADMAP 2b item 4 keeps its kernel)."""
+    shape = tuple(int(s) for s in shape)
+    nd = len(shape)
+    _check_vector("dnd_stencil_t", x, _numel(shape))
+    # shifting by +o_k reads u at i - o_k: pad by the negated offsets' extent
+    lpad, rpad = _pads([tuple(-v for v in o) for o in offsets], nd)
+    v = x.reshape(shape)
+    acc = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    ci = 0
+    for k, off in enumerate(offsets):
+        if consts[k] is None:
+            u = coef[ci] * v
+            ci += 1
+        else:
+            u = consts[k] * v
+        up = _pad_grid(u, lpad, rpad)
+        sl = tuple(slice(lpad[ax] - off[ax], lpad[ax] - off[ax] + shape[ax]) for ax in range(nd))
+        acc = acc + up[sl]
+    return acc.reshape(-1)
+
+
+# ---------------------------------------------------------------------
+# Q1P / Q1R: the factor-2 vertex Q1 transfers (dm/interp.py)
+# ---------------------------------------------------------------------
+
+def _ax(nd, axis, s):
+    sl = [slice(None)] * nd
+    sl[axis] = s
+    return tuple(sl)
+
+
+def _interp_axis(c, axis, nf):
+    """1-D vertex-subsampled linear prolongation along `axis`:
+    nc = (nf+1)//2 -> nf. Even fine points inject the coarse values; odd
+    points average their two coarse neighbours. Odd nf is the classical
+    vertex-centred Q1 (nf = 2nc-1, dainterp.c); even nf clamps the last
+    odd point to its single in-range neighbour (weight 1)."""
+    nc, nd = c.shape[axis], c.dim()
+    shape = list(c.shape)
+    shape[axis] = nf
+    f = torch.zeros(shape, dtype=c.dtype, device=c.device)
+    f[_ax(nd, axis, slice(0, nf, 2))] = c[_ax(nd, axis, slice(0, (nf + 1) // 2))]
+    nodd = nf // 2
+    if nf % 2:
+        mid = 0.5 * (c[_ax(nd, axis, slice(0, nodd))] + c[_ax(nd, axis, slice(1, nodd + 1))])
+    else:
+        mid = 0.5 * (c + torch.cat([c[_ax(nd, axis, slice(1, nc))],
+                                    c[_ax(nd, axis, slice(nc - 1, nc))]], dim=axis))
+    f[_ax(nd, axis, slice(1, nf, 2))] = mid
+    return f
+
+
+def _restrict_axis(f, axis, nc):
+    """Adjoint of _interp_axis: nf -> nc = (nf+1)//2."""
+    nf, nd = f.shape[axis], f.dim()
+    c = f[_ax(nd, axis, slice(0, nf, 2))].clone()
+    mid = f[_ax(nd, axis, slice(1, nf, 2))]           # the odd fine points
+    nodd = nf // 2
+    if nf % 2:                                         # vertex-centred, nodd = nc - 1
+        c[_ax(nd, axis, slice(0, nc - 1))] += 0.5 * mid
+        c[_ax(nd, axis, slice(1, nc))] += 0.5 * mid
+    else:                                              # even: nodd = nc, the last clamped
+        c = c + 0.5 * mid
+        c[_ax(nd, axis, slice(1, nc))] += 0.5 * mid[_ax(nd, axis, slice(0, nodd - 1))]
+        c[_ax(nd, axis, slice(nc - 1, nc))] += 0.5 * mid[_ax(nd, axis, slice(nodd - 1, nodd))]
+    return c
+
+
+def _coarse_of(fshape):
+    return tuple((int(s) + 1) // 2 for s in fshape)
+
+
+def q1_prolong_plain(x, fshape):
+    """P x: the per-axis composition of mat/interp.py:219-227 (axes 0, 1, ...)."""
+    v = x.reshape(_coarse_of(fshape))
+    for ax in range(len(fshape)):
+        v = _interp_axis(v, ax, int(fshape[ax]))
+    return v.reshape(-1)
+
+
+def q1_restrict_plain(x, fshape):
+    """P^T x: the per-axis composition of mat/interp.py:229-235 (the last axis first)."""
+    cshape = _coarse_of(fshape)
+    v = x.reshape(tuple(int(s) for s in fshape))
+    for ax in range(len(fshape) - 1, -1, -1):
+        v = _restrict_axis(v, ax, cshape[ax])
+    return v.reshape(-1)
+
+
+def _q1(name, plain, x, fshape, prolong):
+    fshape = tuple(int(s) for s in fshape)
+    cshape = _coarse_of(fshape)
+    nf, nc = _numel(fshape), _numel(cshape)
+    nin, nout = (nc, nf) if prolong else (nf, nc)
+    _check_vector(name, x, nin)
+    if x.device.type == "cpu":
+        return plain(x, fshape)
+    y = torch.empty(nout, dtype=x.dtype, device=x.device)
+    if nout:
+        cuda_build.launch(LAUNCHES, name, x, y.data_ptr(), x.data_ptr(),
+                          *_grid3(fshape), *_grid3(cshape))
+    return y
+
+
+def q1_prolong(x, fshape):
+    """The coarse vector x ((nf + 1) // 2 points per axis of the fine grid
+    `fshape`) prolongated to the fine grid."""
+    return _q1("q1_prolong", q1_prolong_plain, x, fshape, True)
+
+
+def q1_restrict(x, fshape):
+    """The fine vector x (grid `fshape`) restricted to the coarse grid by
+    the exact adjoint of q1_prolong."""
+    return _q1("q1_restrict", q1_restrict_plain, x, fshape, False)

@@ -3,7 +3,9 @@
 Counterpart of ``petsc_tpu/ops/stencil_build.py`` (the role of DMDA
 matrix assembly, reference src/dm/impls/da/fdda.c, for the constant-
 coefficient case). A constant stencil is stored as scalars in its meta
-and a scalar diagonal: nothing of size N is built at all.
+and a scalar diagonal: nothing of size N is built at all. With
+``variable=True`` the same operator is stored as boundary-masked
+coefficient planes instead, for the variable-coefficient product V1.
 
 Boundary convention: an offset's coefficient is zero wherever the
 neighbour falls outside the grid (Dirichlet row truncation — the pattern
@@ -36,6 +38,19 @@ def stencil_offsets(ndim: int, kind: str):
     raise ValueError(kind)
 
 
+def _valid_mask(shape, off, dtype, device):
+    """1 where the `off` neighbour of a point lies inside the grid, else 0."""
+    m = torch.ones(shape, dtype=dtype, device=device)
+    for ax, o in enumerate(off):
+        if o:
+            idx = torch.arange(shape[ax], device=device)
+            ok = ((idx + o >= 0) & (idx + o < shape[ax])).to(dtype)
+            view = [1] * len(shape)
+            view[ax] = shape[ax]
+            m = m * ok.reshape(view)
+    return m
+
+
 def build_dnd(shape, offsets=None, diag_coef=None, off_coef=-1.0,
               kind="box", dtype=None, variable=False):
     """(meta, data) for the `aij_dnd` binder, on the device of ``config.init``.
@@ -45,11 +60,13 @@ def build_dnd(shape, offsets=None, diag_coef=None, off_coef=-1.0,
     bench_kspsolve.c (27-point, diag 26) / ex45 (7-point, diag 6).
 
     The meta tuple is the reference's: ("aij_dnd", shape, offsets, lpad,
-    rpad, N, per-offset constant coefficients)."""
-    if variable:
-        raise NotImplementedError(
-            "build_dnd(variable=True): variable-coefficient planes come with "
-            "the GAMG slice (ROADMAP queue 1 item 5)")
+    rpad, N, per-offset constant coefficients).
+
+    variable=True stores the boundary-masked per-offset coefficient
+    PLANES (K, *shape) and a diagonal vector instead, under the
+    reference's 6-field meta with no constants: the same operator through
+    the variable-coefficient product (real variable-coefficient operators
+    arrive through MatAIJ.setStencilGrid)."""
     shape = tuple(int(s) for s in shape)
     dt = dtype or config.real_dtype()
     if offsets is None:
@@ -63,9 +80,17 @@ def build_dnd(shape, offsets=None, diag_coef=None, off_coef=-1.0,
     uniq = np.asarray(offsets)
     lpad = tuple(int(max(0, -uniq[:, ax].min())) for ax in range(len(shape)))
     rpad = tuple(int(max(0, uniq[:, ax].max())) for ax in range(len(shape)))
+    dev = config.device()
+    if variable:
+        planes = torch.stack([
+            (diag_coef if not any(o) else off_coef) * _valid_mask(shape, o, dt, dev)
+            for o in offsets])
+        meta = ("aij_dnd", shape, tuple(offsets), lpad, rpad, int(np.prod(shape)))
+        return meta, {"coef": planes,
+                      "diag": torch.full((int(np.prod(shape)),), float(diag_coef), dtype=dt,
+                                         device=dev)}
     cvals = tuple(float(diag_coef) if not any(o) else float(off_coef)
                   for o in offsets)
-    dev = config.device()
     coef = torch.zeros((0,) + shape, dtype=dt, device=dev)
     meta = ("aij_dnd", shape, tuple(offsets), lpad, rpad,
             int(np.prod(shape)), cvals)
@@ -73,6 +98,46 @@ def build_dnd(shape, offsets=None, diag_coef=None, off_coef=-1.0,
     # Jacobi inverse) broadcast it, and getDiagonal expands on demand
     return meta, {"coef": coef,
                   "diag": torch.tensor(float(diag_coef), dtype=dt, device=dev)}
+
+
+def _host(a):
+    return (a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)) \
+        .astype(np.float64)
+
+
+def dnd_to_csr(meta, data):
+    """A (small) dnd operator as a host CSR in float64 (the reference's
+    pc/gamg_device.py:360-394): the one download of the GAMG device head,
+    which hands the coarse tail to the aggregation loop, and a stencil
+    Mat's to_scipy."""
+    import scipy.sparse as sp
+
+    shape = tuple(int(s) for s in meta[1])
+    offs = [tuple(int(v) for v in o) for o in meta[2]]
+    N = int(np.prod(shape))
+    cvals = meta[6] if len(meta) > 6 else (None,) * len(offs)
+    coef = _host(data["coef"])
+    nd = len(shape)
+    idx = np.indices(shape).reshape(nd, -1)
+    strides = np.array([int(np.prod(shape[d + 1:])) for d in range(nd)])
+    rows_l, cols_l, vals_l = [], [], []
+    ci = 0
+    for k, o in enumerate(offs):
+        tgt = idx + np.asarray(o)[:, None]
+        ok = np.ones(N, dtype=bool)
+        for d in range(nd):
+            ok &= (tgt[d] >= 0) & (tgt[d] < shape[d])
+        if cvals[k] is None:
+            v = coef[ci].reshape(-1)
+            ci += 1
+        else:
+            v = np.full(N, float(cvals[k]))
+        keep = ok & (v != 0)
+        rows_l.append(np.nonzero(keep)[0])
+        cols_l.append((strides @ tgt)[keep])
+        vals_l.append(v[keep])
+    return sp.csr_matrix((np.concatenate(vals_l),
+                          (np.concatenate(rows_l), np.concatenate(cols_l))), shape=(N, N))
 
 
 def as_mat(meta, data, comm=None):
@@ -89,6 +154,11 @@ def as_mat(meta, data, comm=None):
         def nnz(self):
             return nnz_of(self._shape_val, self._offsets_val)
 
+        def to_scipy(self):
+            # the host CSR (a coarsest structured level's LU needs it; the
+            # reference's stencil Mat has none and fails there)
+            return dnd_to_csr(self._meta_val, self._data_val)
+
     M = _StencilMat(comm)
     N = int(meta[5])
     M.setSizes((N, N))
@@ -96,6 +166,8 @@ def as_mat(meta, data, comm=None):
     M._data_val = data
     M._shape_val = meta[1]
     M._offsets_val = meta[2]
+    # the declared grid sends PCGAMG through the structured head
+    M._grid_shape = tuple(int(v) for v in meta[1])
     return M
 
 

@@ -1,4 +1,4 @@
-"""PCGAMG: smoothed-aggregation algebraic multigrid, the aggregation tail.
+"""PCGAMG: smoothed-aggregation algebraic multigrid, with the structured head.
 
 Counterpart of ``petsc_tpu/pc/gamg.py`` (reference src/ksp/pc/impls/gamg/
 gamg.c, PCSetUp_GAMG :538 level loop, coarse_eq_limit 50, Chebyshev with
@@ -8,32 +8,50 @@ in a random visit order, the squared-graph coarsening of the first level
 :1311, the tentative prolongator by per-aggregate QR of the near-nullspace
 :592, prolongator smoothing P <- (I - 1.4/emax D^-1 A) P0 :1912-1922).
 
-The whole set-up runs on the host in numpy/scipy and the port's native
-kernels (:mod:`petsc_tpu_torch.native`), once per operator, as in the
-reference: the strength graph, the aggregation, the QR, the prolongator
-smoothing and the Galerkin products. The cycle runs on the card through
-the shared PCMG binder (:mod:`.mg`): every level's A, P and R = P^T on
-the CSR kernel S2, the smoothing on the fused Chebyshev update C1.
+An operator that declares a grid (a stencil Mat from
+``stencil_build.as_mat``, or a MatAIJ after ``setStencilGrid``) first
+takes the reference's structured head (gamg.py:460-535, a TPU redesign
+with no gamg.c equivalent): geometric levels with the Q1 interpolation
+(:mod:`..dm.interp`) down to ``-pc_gamg_structured_limit`` rows. The
+device head (:mod:`.gamg_device`) computes their Galerkin operators on
+the card by stencil probing and their Chebyshev bounds by Lanczos, and
+brings only the small tail to the host; with
+``-pc_gamg_structured_device 0`` the host head forms them by the native
+SpGEMM instead. ``-pc_gamg_structured_coarsening 0`` turns the head off.
+
+The aggregation then runs on the host in numpy/scipy and the port's
+native kernels (:mod:`petsc_tpu_torch.native`), once per operator, as in
+the reference: the strength graph, the aggregation, the QR, the
+prolongator smoothing and the Galerkin products. The cycle runs on the
+card through the shared PCMG binder (:mod:`.mg`): the grid levels on S1
+and V1 with Q1P and Q1R for their transfers, the aggregation levels'
+A, P and R = P^T on the CSR kernel S2, the smoothing on the fused
+Chebyshev update C1.
 
 This slice is the ``bs == 1``, one-vector aggregation loop with both
-coarsenings (MIS, HEM). Refused, each naming the ROADMAP item that brings
-it: operators that are not a MatAIJ or that declare a grid (the
-structured head, item 5c), ``-pc_gamg_type classical|geo`` (item 8), and
-block systems, a near-nullspace of more than one vector, the strength
-index and PCHMG on a block system (item 7).
+coarsenings (MIS, HEM) on one device. Refused, each naming the ROADMAP
+item that brings it: ``-pc_gamg_type classical|geo`` (item 8), block
+systems, a near-nullspace of more than one vector, the strength index and
+PCHMG on a block system (item 7), and sharded operators (item 12).
 """
 
 from __future__ import annotations
 
-import numpy as np
+import time
 
-from .. import native
+import numpy as np
+import torch
+
+from .. import config, native
+from ..dm.interp import MatInterpQ1
 from ..mat.aij import MatAIJ
+from ..ops import stencil_build
+from . import gamg_device as gd
 from .mg import _ITEM_7, MGLevelSpec, _PCMG, _host_emax, _timed
 from .pc import PC
 
-_ITEM_5C = "the GAMG structured head (ROADMAP queue 1 item 5c)"
 _ITEM_8 = "ROADMAP queue 1 item 8 (gamg_classical.py)"
+_ITEM_12 = "distribution (ROADMAP queue 1 item 12)"
 
 
 # ---------------------------------------------------------------------
@@ -246,6 +264,12 @@ class _PCGAMG(_PCMG):
         self.hem_rounds = 3
         self.strength_index = None
         self.gamg_type = "agg"
+        # the structured head (gamg.py:346-352): operators that declare a
+        # grid get geometric first levels down to structured_limit rows,
+        # their Galerkin operators probed on the device
+        self.structured = True
+        self.structured_limit = 3000
+        self.structured_device = True
 
     def set_from_options(self):
         super().set_from_options()
@@ -277,6 +301,15 @@ class _PCGAMG(_PCMG):
         t = o("get_string", "pc_gamg_type", None)
         if t:
             self.gamg_type = t
+        b = o("get_bool", "pc_gamg_structured_coarsening", None)
+        if b is not None:
+            self.structured = b
+        n = o("get_int", "pc_gamg_structured_limit", None)
+        if n:
+            self.structured_limit = n
+        b = o("get_bool", "pc_gamg_structured_device", None)
+        if b is not None:
+            self.structured_device = b
 
     def _threshold(self, level):
         if level < len(self.threshold):
@@ -297,12 +330,6 @@ class _PCGAMG(_PCMG):
         return Bn
 
     def _refuse(self, A):
-        if not isinstance(A, MatAIJ):
-            raise NotImplementedError(f"GAMG on a {type(A).__name__} (a stencil operator) "
-                                      f"takes the structured head, which comes with {_ITEM_5C}")
-        if getattr(A, "_grid_shape", None) is not None:
-            raise NotImplementedError(f"GAMG on a MatAIJ that declares a grid takes the "
-                                      f"structured head, which comes with {_ITEM_5C}")
         if self.gamg_type != "agg":
             raise NotImplementedError(f"-pc_gamg_type {self.gamg_type} comes with {_ITEM_8}")
         if (A.row_layout.bs or 1) > 1:
@@ -327,22 +354,96 @@ class _PCGAMG(_PCMG):
             agg, nagg, _ = _timed("PCGAMGSetUp_coarsen", mis_aggregate, G)
         return agg, nagg
 
+    def _structured_head(self, A_sp, shape, levels, level):
+        """Geometric first levels on the host (gamg.py:460-493): the Q1
+        interpolation, the Galerkin product by the native SpGEMM, the host
+        Arnoldi bound, each coarse operator a MatAIJ on its grid (the dnd
+        layout, V1). Returns (the tail's host CSR, the level reached)."""
+        cur, cur_shape = A_sp.tocsr(), tuple(shape)
+        limit = max(self.coarse_eq_limit, self.structured_limit)
+        while (int(np.prod(cur_shape)) > limit and min(cur_shape) >= 4
+               and level < self.max_levels - 1):
+            cshape = tuple((s + 1) // 2 for s in cur_shape)
+            Pm = MatInterpQ1(cur_shape, cshape)
+            Ac = _timed("PCGAMGSetUp_SpGEMM", _galerkin, cur, Pm.to_scipy())
+            emax = _timed("PCGAMGSetUp_emax", _host_emax, cur, _inv_diag_host(cur))
+            levels[-1].emin, levels[-1].emax = self.eig_bounds(emax)
+            levels[-1].P = Pm
+            levels.append(MGLevelSpec(MatAIJ.from_scipy(Ac, grid=cshape)))
+            cur, cur_shape = Ac, cshape
+            level += 1
+        return cur, level
+
+    def _structured_head_device(self, Afine, levels):
+        """Geometric first levels on the device (gamg.py:495-535): the
+        Galerkin operators by stencil probing, the bounds by Lanczos, all
+        levels' recurrences fetched in one transfer; the tail comes to the
+        host once as CSR. Under -pc_mg_dtype single the head is probed,
+        bounded and stored in float32. Host seconds: the events
+        PCGAMGSetUp_head (the probes and the Lanczos, which the fetch waits
+        for) and PCGAMGSetUp_tail_download. Returns (the tail's host CSR,
+        the level reached)."""
+        meta, data = Afine.meta, Afine.device_data()
+        cur_shape = tuple(int(s) for s in meta[1])
+        level = len(levels) - 1
+        limit = max(self.coarse_eq_limit, self.structured_limit)
+        hd = torch.float32 if self.dtype == "f32" else None
+        t0 = time.perf_counter()
+        pend = []
+        while (int(np.prod(cur_shape)) > limit and min(cur_shape) >= 4
+               and level < self.max_levels - 1):
+            cshape = tuple((s + 1) // 2 for s in cur_shape)
+            pend.append((levels[-1], gd.lanczos_futures(meta, data, dtype=hd)))
+            levels[-1].P = MatInterpQ1(cur_shape, cshape)
+            meta, data = gd.device_rap_dnd(meta, data, cshape, dtype=hd)
+            levels.append(MGLevelSpec(stencil_build.as_mat(meta, data)))
+            cur_shape = cshape
+            level += 1
+        emaxes = gd.emax_batch([ab for _, ab in pend])
+        config.log().log_event("PCGAMGSetUp_head", time.perf_counter() - t0)
+        for (lev, _), emax in zip(pend, emaxes):
+            lev.emin, lev.emax = self.eig_bounds(emax)
+        return _timed("PCGAMGSetUp_tail_download", stencil_build.dnd_to_csr, meta, data), level
+
     def build_hierarchy(self):
-        """The reference's serial aggregation loop (gamg.py:658-787) on the
-        host CSR of the operator. Host seconds are logged as the events
+        """The reference's hierarchy (gamg.py:597-787): the device
+        structured head on a grid stencil, else the host head on a MatAIJ
+        that declares a grid, then the serial aggregation loop on the host
+        CSR of what is left. Host seconds are logged as the events
+        PCGAMGSetUp_head and _tail_download (the device head),
         PCGAMGSetUp_download (the fine values from the card), _native (the
         build of graphops.cpp, where this is its first use), _graph,
         _coarsen, _prol0, _emax, _smooth_prol and _SpGEMM (the Galerkin
         products)."""
         A = self.pc.pmat
+        if A.comm.nshards > 1:
+            raise NotImplementedError(f"GAMG on a sharded operator comes with {_ITEM_12}")
         self._refuse(A)
         Bn = self._near_nullspace(A)
-        # values that setValuesCOO left on the card come to the host once
-        _timed("PCGAMGSetUp_download", A._sync_host_vals)
         _timed("PCGAMGSetUp_native", native.lib)
-        cur = A.to_scipy()
-        levels = [MGLevelSpec(A)]
+        # level 0 uses the Pmat; only a host_only Pmat (the numerically
+        # identical twin of the Amat) lets the device Amat stand in
+        Afine = self.pc.mat if getattr(A, "host_only", False) and self.pc.mat is not None \
+            else A
+        levels = [MGLevelSpec(Afine)]
         level = 0
+        fm = Afine.meta
+        if (self.structured and self.structured_device and gd.supports_device_rap(fm)
+                and int(np.prod(fm[1])) == A.getSize()[0]):
+            # the device head first: the fine operator never comes to the host
+            cur, level = self._structured_head_device(Afine, levels)
+        else:
+            sync = getattr(A, "_sync_host_vals", None)
+            if sync is not None:
+                # values that setValuesCOO left on the card come to the host once
+                _timed("PCGAMGSetUp_download", sync)
+            cur = A.to_scipy()
+            shape = getattr(A, "_grid_shape", None) or getattr(Afine, "_grid_shape", None)
+            if (self.structured and shape is not None and len(shape) >= 2
+                    and int(np.prod(shape)) == cur.shape[0]):
+                cur, level = self._structured_head(cur, shape, levels, level)
+        if level > 0:
+            Bn = np.ones((cur.shape[0], 1))
         while cur.shape[0] > self.coarse_eq_limit and level < self.max_levels - 1:
             agg, nagg = self._coarsen(cur, level)
             if nagg == 0 or nagg * Bn.shape[1] >= cur.shape[0]:

@@ -11,11 +11,15 @@ native SpGEMM (``MatAIJ.ptap``), Chebyshev bounds by a host Arnoldi,
 the coarse LU by scipy. The cycle runs on the card:
 * smoothing: Chebyshev with Jacobi inside, each step one S2 product and
   one launch of the fused update C1 (:mod:`..ksp.cheby`);
-* residual ``b - A x`` and correction ``x + P x_c``: S2, then K2 triad;
-* restriction: S2 on an explicit host transpose ``R = P^T``
-  (``native.csr_transpose``), not ``P.mult_t``, whose ``index_add_``
-  atomics sum in an order that changes from run to run. The reference's
-  restriction is also ``P^T``, so the two agree to rounding;
+* residual ``b - A x`` and correction ``x + P x_c``: the level's product
+  (S2, or S1 and V1 on grid stencils, Q1P for a Q1 P), then K2 triad;
+* restriction: a Q1 interpolation (``interp_q1``) restricts with its own
+  gather-form transpose, the kernel Q1R, as the reference does
+  (mg.py:359-364); any other P by S2 on an explicit host transpose
+  ``R = P^T`` (``native.csr_transpose``), not ``P.mult_t``, whose
+  ``index_add_`` atomics sum in an order that changes from run to run.
+  The reference's restriction is also ``P^T``, so the two agree to
+  rounding;
 * coarse solve: the dense LU factor of ``scipy.linalg.lu_factor`` (the
   reference's), solved on the card by ``torch.linalg.lu_solve`` (the
   reference solves outside Pallas too, mg.py:487), or Jacobi CG.
@@ -124,6 +128,13 @@ def _dense_lu_factor(A_sp):
 
 def _inv_diag(d):
     return torch.where(d != 0, 1.0 / torch.where(d == 0, 1.0, d), 1.0)
+
+
+def _diag_vector(A):
+    """A's diagonal as a vector: a constant stencil keeps one scalar, which
+    the smoother's fused update (a vector dinv) takes expanded."""
+    d = A.op().diag()
+    return d.expand(A.getSize()[0]) if d.dim() == 0 else d
 
 
 def _timed(name, fn, *args):
@@ -284,7 +295,7 @@ def build_mg_meta_data(levels, cycle="v", smoother="chebyshev", pre=2, post=2,
         if l == nlev - 1:
             if coarse == "cg_jacobi":
                 lev_metas.append(("coarse_cg", A.meta, A.getSize()[0]))
-                lev_datas.append({"A": A.device_data(), "dinv": _inv_diag(A.op().diag()).to(rd)})
+                lev_datas.append({"A": A.device_data(), "dinv": _inv_diag(_diag_vector(A)).to(rd)})
                 continue
             # the coarsest: dense LU (the reference's coarse default, gamg.c:887-907)
             lu, piv = _timed("PCMGSetUp_LU", _dense_lu_factor, A.to_scipy())
@@ -295,16 +306,17 @@ def build_mg_meta_data(levels, cycle="v", smoother="chebyshev", pre=2, post=2,
             continue
         P = lev.P
         R = lev.R
-        if R is None:
+        if R is None and P.meta[0] != "interp_q1":
             R = MatAIJ.from_scipy(native.csr_transpose(P.to_scipy().tocsr()), comm=P.comm)
         emax = lev.emax if lev.emax is not None else 2.0
         emin = lev.emin if lev.emin is not None else 0.2
         if dtype == "f32":
             # the reference keeps the bounds in the level data, cast with it
             emin, emax = float(np.float32(emin)), float(np.float32(emax))
-        lev_metas.append((A.meta, P.meta, R.meta, smoother, pre, post))
-        lev_datas.append({"A": A.device_data(), "P": P.device_data(), "R": R.device_data(),
-                          "dinv": _inv_diag(A.op().diag()).to(rd), "eig": (emin, emax)})
+        lev_metas.append((A.meta, P.meta, None if R is None else R.meta, smoother, pre, post))
+        lev_datas.append({"A": A.device_data(), "P": P.device_data(),
+                          "R": {} if R is None else R.device_data(),
+                          "dinv": _inv_diag(_diag_vector(A)).to(rd), "eig": (emin, emax)})
     if dtype == "f32":
         lev_datas = [_cast_f32(ld) for ld in lev_datas]
     meta = ("pc_mg", cycle, nlev, tuple(lev_metas), dtype)
@@ -373,8 +385,10 @@ def _bind_pc_mg(meta, data):
     def bind_level(l):
         A_meta, P_meta, R_meta, kind, pre, post = lev_metas[l]
         ld = levels[l]
-        return (operator.bind(A_meta, ld["A"]), operator.bind(P_meta, ld["P"]),
-                operator.bind(R_meta, ld["R"]).mult, ld["dinv"], ld["eig"], kind, pre, post)
+        Pop = operator.bind(P_meta, ld["P"])
+        restrict = Pop.mult_t if R_meta is None else operator.bind(R_meta, ld["R"]).mult
+        return (operator.bind(A_meta, ld["A"]), Pop, restrict, ld["dinv"], ld["eig"], kind,
+                pre, post)
 
     bound = [bind_level(l) for l in range(nlev - 1)]
 

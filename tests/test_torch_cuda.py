@@ -492,3 +492,110 @@ def test_cg_gamg_on_the_card_equals_the_cpu_port(cuda_device):
     np.testing.assert_allclose(hist, res["cpu"][2], rtol=1e-10, atol=0)
     need = chip_smoke.mg_launches_needed(its, len(nnz))
     assert {k: launches[k] for k in need} == need
+
+
+def _grid_stencil(shape, kind, dtype, device, seed=0):
+    """(offsets, constants, planes) of a random stencil: every plane
+    variable (box or star), planes mixed with constants, or constants on
+    offsets that are neither box nor star (generic)."""
+    from itertools import product
+    rng = np.random.default_rng(seed)
+    nd = len(shape)
+    if kind == "star":
+        offs = stencil_build.stencil_offsets(nd, "star")
+    elif kind == "generic":
+        offs = [(0,) * nd, (0,) * (nd - 1) + (1,), (1,) * nd, (-1,) + (1,) * (nd - 1)]
+    else:
+        offs = list(product((-1, 0, 1), repeat=nd))
+    consts = tuple(None if kind in ("box", "star") or (kind == "mixed" and k % 2)
+                   else float(rng.standard_normal()) for k in range(len(offs)))
+    nvar = sum(c is None for c in consts)
+    coef = torch.as_tensor(rng.standard_normal((nvar,) + tuple(shape)), dtype=dtype,
+                           device=device)
+    return offs, consts, coef
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kind", (((64, 64, 64), "box"), ((9, 8, 7), "mixed"),
+                                        ((12, 11), "star"), ((7, 9, 5), "generic"),
+                                        ((33,), "box")))
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_dnd_stencil_matches_plain(cuda_device, dtype, shape, kind):
+    """V1 against its plain version on the card (1e-13 in f64, 1e-6 in
+    f32: the kernel rounds each product and sum as the plain version does)."""
+    from petsc_tpu_torch.ops import grid_kernels as gridk
+    offs, consts, coef = _grid_stencil(shape, kind, dtype, cuda_device)
+    x = torch.rand(int(np.prod(shape)), dtype=dtype, device=cuda_device)
+    gridk.reset_launches()
+    k = gridk.dnd_stencil(x, shape, offs, consts, coef)
+    p = gridk.dnd_stencil_plain(x, shape, offs, consts, coef)
+    torch.cuda.synchronize()
+    assert _rel(k, p) <= (1e-13 if dtype == torch.float64 else 1e-6)
+    assert gridk.LAUNCHES == {"dnd_stencil": 1, "q1_prolong": 0, "q1_restrict": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fshape", ((64, 64, 64), (65, 65, 65), (9, 8, 6), (8, 6), (128,),
+                                    (17,)))
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_q1_kernels_match_plain(cuda_device, dtype, fshape):
+    """Q1P and Q1R against their plain versions (the per-axis composition)
+    on the card, even and odd sizes (1e-13 in f64, 1e-6 in f32), and
+    against the assembled P in float64."""
+    from petsc_tpu_torch.dm.interp import MatInterpQ1
+    from petsc_tpu_torch.ops import grid_kernels as gridk
+    cshape = tuple((s + 1) // 2 for s in fshape)
+    xc = torch.rand(int(np.prod(cshape)), dtype=dtype, device=cuda_device)
+    xf = torch.rand(int(np.prod(fshape)), dtype=dtype, device=cuda_device)
+    gridk.reset_launches()
+    kp, kr = gridk.q1_prolong(xc, fshape), gridk.q1_restrict(xf, fshape)
+    pp, pr = gridk.q1_prolong_plain(xc, fshape), gridk.q1_restrict_plain(xf, fshape)
+    torch.cuda.synchronize()
+    tol = 1e-13 if dtype == torch.float64 else 1e-6
+    assert _rel(kp, pp) <= tol and _rel(kr, pr) <= tol
+    P = MatInterpQ1(fshape, cshape).to_scipy()
+    assert _rel(kp.double(), torch.as_tensor(P @ xc.double().cpu().numpy(),
+                                             device=cuda_device)) <= tol
+    assert _rel(kr.double(), torch.as_tensor(P.T @ xf.double().cpu().numpy(),
+                                             device=cuda_device)) <= tol
+    assert gridk.LAUNCHES == {"dnd_stencil": 0, "q1_prolong": 1, "q1_restrict": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cycle", ("f64", "f32"))
+def test_cg_gamg_structured_on_the_card_equals_the_cpu_port(cuda_device, cycle):
+    """32^3 box27 stencil CG+GAMG with the structured device head (bench.py's
+    solve at 32^3): the same hierarchy and its on the card as in the CPU
+    port, the history to 1e-10 relative in f64 (1e-4 in f32, whose head is
+    probed in float32), and every launch, set-up included, as
+    chip_smoke.grid_launches_needed counts them."""
+    from petsc_tpu_torch.ops import gather_kernels as gk2
+    from petsc_tpu_torch.ops import grid_kernels as gridk
+    args = ["-ksp_type", "cg", "-pc_type", "gamg", "-ksp_rtol", "1e-8", "-ksp_max_it", "60"]
+    if cycle == "f32":
+        args += ["-pc_mg_dtype", "single"]
+    res = {}
+    for dev in ("cpu", "cuda"):
+        ptt.init(args=args, device=dev)
+        chip_smoke.reset_launches()
+        A = stencil_build.as_mat(*stencil_build.build_dnd((32,) * 3, kind="box"))
+        ksp = chip_smoke.gamg_ksp(ptt, A)
+        b = A.createVecLeft()
+        b.set(1.0)
+        ksp.solve(b)
+        levels = ksp.getPC()._impl.levels
+        res[dev] = (ksp.getIterationNumber(), ksp.getConvergedReason().name,
+                    ksp.getConvergenceHistory(), chip_smoke.launch_counts(),
+                    [lev.A.getSize()[0] for lev in levels], [lev.A.meta[0] for lev in levels],
+                    [lev.emax for lev in levels[:-1]], levels)
+    its, reason, hist, launches, rows, kinds, emax, levels = res["cuda"]
+    assert its == res["cpu"][0] == 8 and reason == res["cpu"][1] == "CONVERGED_RTOL"
+    assert rows == res["cpu"][4] == [32768, 4096, 512, 56, 5] and kinds == res["cpu"][5]
+    np.testing.assert_allclose(hist, res["cpu"][2], rtol=1e-10 if cycle == "f64" else 1e-4,
+                               atol=0)
+    np.testing.assert_allclose(emax, res["cpu"][6], rtol=1e-10 if cycle == "f64" else 1e-4)
+    need = chip_smoke.grid_launches_needed(its, levels)
+    assert {k: launches[k] for k in need} == need
+    assert need["dnd_stencil"] > 0 and need["q1_prolong"] > 0 and need["q1_restrict"] > 0
+    assert launches["gather"] == 0 and gk2.LAUNCHES["gather"] == 0
+    assert gridk.LAUNCHES["dnd_stencil"] == need["dnd_stencil"]

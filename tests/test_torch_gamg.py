@@ -343,9 +343,6 @@ def _block_layout(A):
 
 
 REFUSALS = {
-    "stencil_mat": (lambda: stencil_build.as_mat(*stencil_build.build_dnd((6,) * 3, kind="box")),
-                    (), "gamg", "item 5c"),
-    "grid_declared": (lambda: _aij(_grid_shape=(8, 8)), (), "gamg", "item 5c"),
     "classical": (_aij, ("-pc_gamg_type", "classical"), "gamg", "item 8"),
     "geo": (_aij, ("-pc_gamg_type", "geo"), "gamg", "item 8"),
     "two_vector_nullspace": (lambda: _aij(near_nullspace=np.ones((64, 2))), (), "gamg",
@@ -364,6 +361,55 @@ def test_what_later_slices_bring_is_refused(name):
     A = make()
     with pytest.raises(NotImplementedError, match=item):
         _refused(A, args, pc_type)
+
+
+def _lifted(pkg, sb, make):
+    """CG+GAMG on make(pkg, sb), as a refused operator once was: (its, reason,
+    history, rows per level, A kinds)."""
+    args = ["-ksp_type", "cg", "-pc_type", "gamg", "-ksp_rtol", "1e-8"]
+    if pkg is ptt:
+        ptt.init(args=args, device="cpu")
+    else:
+        pt_jax.init(args=args)
+    A = make(pkg, sb)
+    ksp = pkg.KSP().create()
+    ksp.setOperators(A)
+    ksp.setFromOptions()
+    b = A.createVecLeft()
+    b.set(1.0)
+    x = A.createVecRight()
+    ksp.solve(b, x)
+    levels = ksp.getPC()._impl.levels
+    return (ksp.getIterationNumber(), ksp.getConvergedReason().name,
+            ksp.getConvergenceHistory(), [lev.A.getSize()[0] for lev in levels],
+            ["aij_dnd" if lev.A.meta[0] == "aij_dnd" else "other" for lev in levels])
+
+
+def _grid_aij(pkg, sb):
+    A = pkg.MatAIJ.from_scipy(poisson2d(8))
+    A.setStencilGrid((8, 8))
+    return A
+
+
+LIFTED = {
+    # once refused naming item 5c (the structured head), now its parity
+    "stencil_mat": lambda pkg, sb: sb.as_mat(*sb.build_dnd((6,) * 3, kind="box")),
+    "grid_declared": _grid_aij,
+}
+
+
+@pytest.mark.parametrize("name", LIFTED)
+def test_what_the_structured_head_brought_matches_the_reference(name):
+    """A stencil Mat and a MatAIJ on a declared grid take the structured
+    head (below its limit of 3000 rows the head makes no level and hands
+    the fine operator to the aggregation as CSR): the reference's its,
+    reason, history and hierarchy."""
+    from petsc_tpu.ops import stencil_build as sb_jax
+    got = _lifted(ptt, stencil_build, LIFTED[name])
+    want = _lifted(pt_jax, sb_jax, LIFTED[name])
+    assert got[0] == want[0] and got[1] == want[1] == "CONVERGED_RTOL"
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-6, atol=0)
+    assert got[3:] == want[3:] and got[4][0] == "aij_dnd"
 
 
 def test_hmg_on_a_scalar_operator_is_gamg():

@@ -1,0 +1,88 @@
+"""petsc_tpu_torch's Q1 grid transfer (dm/interp.py) against petsc_tpu's,
+on the CPU: MatInterpQ1's mult (Q1P's plain version), mult_t (Q1R's) and
+to_scipy on the even and odd grids of tests/test_gamg_structured.py::
+test_interp_even_odd_adjoint, in float64 and float32, and what later
+slices bring.
+
+Tolerances: 1e-14 relative against the reference's binder and its
+assembled P (the per-axis sums are the same; the reference's XLA may fuse
+them); to_scipy is equal; the plain versions equal the fused kernels'
+order of operations bit for bit on the card (tests/test_torch_cuda.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import petsc_tpu_torch as ptt
+from petsc_tpu.dm import interp as interp_jax
+from petsc_tpu.ops import operator as op_jax
+from petsc_tpu_torch import interop
+from petsc_tpu_torch.dm import interp
+from petsc_tpu_torch.ops import grid_kernels, operator
+
+torch.set_num_threads(1)
+
+FSHAPES = ((8, 6), (9, 7), (16, 16, 16), (9, 8, 6), (128,))
+
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    ptt.init(device="cpu")
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
+@pytest.mark.parametrize("fshape", FSHAPES)
+def test_interp_even_odd_adjoint(fshape):
+    rng = np.random.default_rng(3)
+    cshape = tuple((s + 1) // 2 for s in fshape)
+    Mj = interp_jax.MatInterpQ1(fshape, cshape)
+    M = interp.MatInterpQ1(fshape, cshape)
+    assert M.meta == Mj.meta and M.getSize() == Mj.getSize()
+    P = M.to_scipy()
+    assert (P != Mj.to_scipy()).nnz == 0
+    opj = op_jax.bind(Mj.meta, Mj.device_data())
+    op = operator.bind(M.meta, M.device_data())
+    xc = rng.random(int(np.prod(cshape)))
+    xf = rng.random(int(np.prod(fshape)))
+    y, yt = op.mult(torch.from_numpy(xc)), op.mult_t(torch.from_numpy(xf))
+    assert _rel(y.numpy(), np.asarray(opj.mult(jnp.asarray(xc)))) <= 1e-14
+    assert _rel(yt.numpy(), np.asarray(opj.mult_t(jnp.asarray(xf)))) <= 1e-14
+    assert _rel(y.numpy(), P @ xc) <= 1e-14 and _rel(yt.numpy(), P.T @ xf) <= 1e-14
+    # constants are preserved (the SA near-nullspace survives the head)
+    assert torch.equal(op.mult(torch.ones(len(xc), dtype=torch.float64)),
+                       torch.ones(len(xf), dtype=torch.float64))
+    # the interop carries the reference's meta across
+    Mp = interop.mat_from_meta_data(Mj.meta, {})
+    assert Mp.meta == M.meta and isinstance(Mp, interp.MatInterpQ1)
+
+
+@pytest.mark.parametrize("fshape", FSHAPES)
+def test_the_float32_transfers_match_the_reference(fshape):
+    rng = np.random.default_rng(4)
+    cshape = tuple((s + 1) // 2 for s in fshape)
+    opj = op_jax.bind(("interp_q1", fshape, cshape, 1), {})
+    xc = rng.random(int(np.prod(cshape))).astype(np.float32)
+    xf = rng.random(int(np.prod(fshape))).astype(np.float32)
+    y = grid_kernels.q1_prolong(torch.from_numpy(xc), fshape)
+    yt = grid_kernels.q1_restrict(torch.from_numpy(xf), fshape)
+    assert y.dtype == yt.dtype == torch.float32
+    assert _rel(y.numpy(), np.asarray(opj.mult(jnp.asarray(xc)))) <= 1e-6
+    assert _rel(yt.numpy(), np.asarray(opj.mult_t(jnp.asarray(xf)))) <= 1e-6
+
+
+def test_what_later_slices_bring_is_refused():
+    with pytest.raises(NotImplementedError, match="item 9"):
+        interp.MatInterpQ1((8, 8), (4, 4), dof=2)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        operator.bind(("interp_q1", (8, 8), (4, 4), 2), {})
+    with pytest.raises(NotImplementedError, match="item 12"):
+        interp.MatInterpQ1MPI((8, 8), (4, 4), None)
+    with pytest.raises(ValueError, match="coarse grid"):
+        interp.MatInterpQ1((8, 8), (5, 4))
+    with pytest.raises(ValueError, match="entries"):
+        grid_kernels.q1_prolong(torch.zeros(17, dtype=torch.float64), (8, 8))

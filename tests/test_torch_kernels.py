@@ -18,6 +18,7 @@ import torch
 from petsc_tpu.ops import pallas_kernels as pk_jax
 from petsc_tpu_torch.ops import cuda_build
 from petsc_tpu_torch.ops import gather_kernels as gk
+from petsc_tpu_torch.ops import grid_kernels
 from petsc_tpu_torch.ops import pallas_kernels as pk
 from petsc_tpu_torch.sys.error import Error
 
@@ -139,7 +140,7 @@ def test_every_csrc_source_is_built():
     for src in cuda_build.SOURCES:
         defined |= set(re.findall(r'extern "C" int (ptt_\w+)\(', (csrc / src).read_text()))
     assert defined == set(cuda_build.SIGNATURES)
-    kernels = [k for k in (*pk.LAUNCHES, *gk.LAUNCHES) if k != "probe"]
+    kernels = [k for k in (*pk.LAUNCHES, *gk.LAUNCHES, *grid_kernels.LAUNCHES) if k != "probe"]
     called = {"ptt_probe", "ptt_triad_config", "ptt_dot2_config", "ptt_const_stencil_map",
               "ptt_const_stencil_config"} \
         | {f"ptt_{k}_{s}" for k in kernels for s in ("f64", "f32")}

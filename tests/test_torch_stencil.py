@@ -97,14 +97,21 @@ def test_get_diagonal_expands_the_scalar():
     assert x.getSize() == y.getSize() == 120
 
 
-def test_unported_branches_name_the_gamg_slice():
-    # a variable-coefficient operator from the reference (slab branch)
+def test_the_variable_and_generic_branches_match_the_reference():
+    """The branches the first slice refused (now V1's): a variable-
+    coefficient operator from the reference (its slab branch at scale) and a
+    constant stencil whose offsets are neither box nor star (its generic
+    branch), against the reference's product; build_dnd(variable=True)."""
+    x = np.random.default_rng(2).random(216)
     meta, data = sb_jax.build_dnd((6, 6, 6), kind="box", variable=True)
-    with pytest.raises(NotImplementedError, match="GAMG"):
-        _port_op(meta, data)
-    # a constant stencil whose offsets are neither box nor star (generic branch)
-    meta, data = stencil_build.build_dnd((6, 6, 6), offsets=[(0, 0, 1), (0, 0, -1)])
-    with pytest.raises(NotImplementedError, match="GAMG"):
-        operator.bind(meta, data)
-    with pytest.raises(NotImplementedError, match="GAMG"):
-        stencil_build.build_dnd((6, 6, 6), variable=True)
+    _, op = _port_op(meta, data)
+    ref = np.asarray(op_jax.bind(meta, data).mult(jnp.asarray(x)))
+    assert _rel(op.mult(torch.from_numpy(x)).numpy(), ref) <= 1e-13
+    offs = [(0, 0, 1), (0, 0, -1)]
+    meta, data = stencil_build.build_dnd((6, 6, 6), offsets=offs)
+    meta_j, data_j = sb_jax.build_dnd((6, 6, 6), offsets=offs)
+    assert meta == meta_j
+    ref = np.asarray(op_jax.bind(meta_j, data_j).mult(jnp.asarray(x)))
+    assert _rel(operator.bind(meta, data).mult(torch.from_numpy(x)).numpy(), ref) <= 1e-13
+    meta, data = stencil_build.build_dnd((6, 6, 6), variable=True)
+    assert len(meta) == 6 and tuple(data["coef"].shape) == (27, 6, 6, 6)
