@@ -5,9 +5,11 @@
 
 Phases, one JSON line each on stdout:
   device   the card's name and its nvidia-smi name and power limit;
-  build    builds the kernels from petsc_tpu_torch/csrc and runs the
-           one-launch probe (K1), then builds the native host library
-           (graphops.cpp, g++), each with its seconds;
+  build    builds the kernels from petsc_tpu_torch/csrc (and, beside
+           them, the earlier designs of earlier_kernels/ that phase
+           gamg_grid times the new ones against) and runs the one-launch
+           probe (K1), then builds the native host library (graphops.cpp,
+           g++), each with its seconds;
   kernels  holds every kernel against its plain PyTorch version on the
            card (f64 to 1e-12, f32 to 1e-5 relative) at n = 2^24+37 and
            n = 128^3, and against a scipy CSR product at 24^3; S1 at 128^3,
@@ -109,17 +111,26 @@ Phases, one JSON line each on stdout:
            no worse than 10x the reference's, and the launches of
            grid_launches_needed (set-up probes and Lanczos included);
            reports the set-up seconds by part (head, tail download,
-           aggregation tail), the warm solve and its ratio to CG+Jacobi's;
-           holds V1 (the 64^3 level, 27 planes), Q1P and Q1R (128^3 <-> 64^3
-           and 129^3 <-> 65^3) against their plain versions (f64 1e-13, f32
-           1e-6), each timed beside its plain version and, for Q1P at the odd
-           size, F.interpolate; and the card's probed 32^3 planes against the
-           host Galerkin product of the port's SpGEMM (1e-12);
+           aggregation tail), the warm solve and its ratio to CG+Jacobi's,
+           and that every V1 level took the window kernel; holds V1's window
+           kernel (the 64^3, 32^3 and 16^3 levels, 27 planes, and 65^3),
+           V1's generic kernel (offsets reversed; a radius-2 star), Q1P
+           (128^3 <- 64^3, 129^3 <- 65^3, 64^3 <- 32^3) and Q1R (128^3 ->
+           64^3, 129^3 -> 65^3) against their plain versions (f64 1e-13,
+           f32 1e-6; V1 and Q1P bit for bit), each timed beside its plain
+           version and, at the odd size, F.interpolate or F.conv3d; V1's
+           window and Q1P also beside their earlier designs (V1's generic
+           kernel; earlier_kernels/, built by its own nvcc in phase build)
+           in turns, earlier, new, new, earlier; and the card's probed 32^3
+           planes against the host Galerkin product of the port's SpGEMM
+           (1e-12);
   gamg_grid_profile  the profile phase for one warm solve of each cycle.
 Then the kernel table as one JSON line (K2's, K4's and S1's rows also name
 their design, launch shape and share of the bound, S1's with its cp.async
-path, star and f32 times beside; every row of the path's
-kernels its µs per launch inside each solve), the nvidia-smi line, and last
+path, star and f32 times beside; V1's, Q1P's and Q1R's are the f32 cycle's,
+V1's and Q1P's with earlier_ms, the earlier design's time in the same turns;
+every row of the path's kernels its µs per launch inside each solve), the
+nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. With
 no CUDA device, or without the package beside it, it exits non-zero and
 prints no result.
@@ -160,7 +171,8 @@ DESIGN = {"triad": "registers: one tile of 16-byte packs per block, one pack of 
 IN_SOLVE = {"triad": ("triad_kernel",), "axpy_normsq": ("axpy_normsq_kernel",),
             "dot2": ("dot2_kernel",), "sum_partials": ("sum_partials",),
             "const_stencil": ("const_stencil_kernel",), "csr_spmv": ("csr_spmv_kernel",),
-            "cheby_update": ("cheby_update_kernel",), "dnd_stencil": ("dnd_stencil_kernel",),
+            "cheby_update": ("cheby_update_kernel",),
+            "dnd_stencil": ("dnd_stencil_kernel", "dnd_window_kernel"),
             "q1_prolong": ("q1_prolong_kernel",), "q1_restrict": ("q1_restrict_kernel",),
             # torch.linalg.lu_solve: the library's row swaps and triangular solves
             "lu_solve": ("getrs", "trsm", "trsv", "laswp")}
@@ -1338,10 +1350,15 @@ def grid_solve(pt, pk, sb, cycle):
     first_s = time.perf_counter() - t1
     launches = launch_counts()
     chk = check_gamg_grid_solve(pk, ksp, b, x, cycle)
-    need = grid_launches_needed(chk["its"], ksp.getPC()._impl.levels)
+    levels = ksp.getPC()._impl.levels
+    need = grid_launches_needed(chk["its"], levels)
     bad = {k: (launches[k], v) for k, v in need.items() if launches[k] != v}
     if bad:
         raise AssertionError(f"{args}: launches (got, want): {bad}")
+    v1 = {str(lev.A.meta[1]): lev.A.op().mult.kernel for lev in levels
+          if product_kernel(lev.A.meta) == "dnd_stencil"}
+    if set(v1.values()) != {"window"}:
+        raise AssertionError(f"{args}: V1's kernel per level: {v1}")
     split = setup_seconds(pt, GAMG_GRID_EVENTS)
     rec = {**chk, "args": args, "setup_s": setup_s, "setup_split_s": split,
            "setup_parts_s": {"head_probes_and_lanczos": split["head"],
@@ -1349,15 +1366,18 @@ def grid_solve(pt, pk, sb, cycle):
                              "aggregation_tail": sum(split[k] for k in _AGG_TAIL),
                              "coarse_lu": split["lu"]},
            "first_solve_s": first_s, "launches": launches, "launches_needed": need,
+           "v1_kernel_per_level": v1,
            "peak_mem_MiB": torch.cuda.max_memory_allocated() / 2 ** 20,
            "path_peak_mem_MiB": (torch.cuda.max_memory_allocated() - live0) / 2 ** 20}
     return ksp, b, x, rec
 
 
-def grid_kernel_row(name, dtype, fn, plain, library_fn, nbytes, flops, tol, **extra):
-    """One kernel against its plain version on the same inputs, both timed
-    after the clean flush by the caller's time_ms; the bound from the bytes
-    and flops of the function."""
+def grid_kernel_row(name, dtype, fn, plain, library_fn, nbytes, flops, tol, earlier=None,
+                    **extra):
+    """One kernel against its plain version on the same inputs (and the
+    earlier design's kernel, where given, against it too), each timed
+    later after the clean flush by the caller's time_ms; the bound from the
+    bytes and flops of the function."""
     import torch
     k, p = fn(), plain()
     torch.cuda.synchronize()
@@ -1365,24 +1385,124 @@ def grid_kernel_row(name, dtype, fn, plain, library_fn, nbytes, flops, tol, **ex
     err = rel_err(k, p)
     if not err <= tol:
         raise AssertionError(f"{name} {dn} {extra}: rel err {err} > {tol}")
+    if earlier is not None and not rel_err(earlier(), p) <= tol:
+        raise AssertionError(f"{name} {dn} {extra}: the earlier design disagrees")
     b_ms, b_by = bound(nbytes, flops, dn)
     return {"name": name, "dtype": dn, "rel_err": err, "tol": tol,
             "equal_bits": bool(torch.equal(k, p)),
             "max_abs_err": float((k.double() - p.double()).abs().max()),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, **extra,
-            "_fn": fn, "_plain": plain, "_library": library_fn}
+            "_fn": fn, "_plain": plain, "_library": library_fn, "_earlier": earlier}
 
 
-def phase_grid_kernels(gridk, gd, interp, gamg, ksps, flush):
-    """V1 at the path's 64^3 level (27 planes), Q1P and Q1R at 128^3 <-> 64^3,
-    f64 and f32 (each cycle's own hierarchy), and at an odd size (129^3 <->
-    65^3, where F.interpolate(trilinear, align_corners=True) computes Q1P
-    and F.conv3d with stride 2 and the [.5, 1, .5]^3 weights computes Q1R),
-    each against its plain version (f64 1e-13, f32 1e-6 relative) and timed
-    after the clean flush beside it; then the card's probed 32^3 planes
+EARLIER = Path(__file__).resolve().parent / "earlier_kernels"
+EARLIER_SOURCES = ("q1_prolong_per_output.cu",)
+
+
+def start_earlier_build():
+    """Start one nvcc for the earlier designs (earlier_kernels/*.cu, which
+    the package's library does not hold) into a git-ignored library of
+    their own; returns (the process or None when built, the library path,
+    the start time)."""
+    import hashlib
+    from petsc_tpu_torch.ops import cuda_build
+    srcs = [EARLIER / s for s in EARLIER_SOURCES]
+    h = hashlib.sha256(" ".join(cuda_build.FLAGS).encode())
+    for src in srcs:
+        h.update(src.read_bytes())
+    lib = cuda_build.BUILD / f"earlier-{h.hexdigest()[:16]}" / "libearlier.so"
+    if lib.exists():
+        return None, lib, time.perf_counter()
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(".tmp")
+    cmd = [cuda_build._nvcc(), *cuda_build.FLAGS, "-shared", "-o", str(tmp), *map(str, srcs)]
+    return (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            lib, time.perf_counter())
+
+
+def load_earlier(build):
+    """The earlier designs' library, once its build has ended; raises if it
+    failed. Returns (library, seconds the build took, or None)."""
+    import ctypes
+    proc, lib, t0 = build
+    seconds = None
+    if proc is not None:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"nvcc of the earlier designs failed:\n{out}")
+        lib.with_suffix(".tmp").replace(lib)
+        seconds = time.perf_counter() - t0
+    L = ctypes.CDLL(str(lib))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    for sfx in ("f64", "f32"):
+        fn = getattr(L, f"ptt_earlier_q1_prolong_{sfx}")
+        fn.argtypes = [vp, vp] + [i32] * 7 + [vp]
+        fn.restype = ctypes.c_int
+    return L, seconds
+
+
+def earlier_q1_prolong(earlier, xc, fshape):
+    """Q1P by the earlier per-output design (earlier_kernels/), on the same
+    stream; raises on a CUDA error."""
+    import torch
+    from petsc_tpu_torch.ops import cuda_build
+    f3 = (1,) * (3 - len(fshape)) + tuple(fshape)
+    c3 = tuple((s + 1) // 2 for s in f3)
+    y = torch.empty(math.prod(f3), dtype=xc.dtype, device=xc.device)
+    fn = getattr(earlier, "ptt_earlier_q1_prolong_" + ("f64" if xc.dtype == torch.float64
+                                                       else "f32"))
+    cuda_build.check("earlier q1_prolong", fn(y.data_ptr(), xc.data_ptr(), *f3, *c3,
+                                              xc.get_device(),
+                                              torch.cuda.current_stream().cuda_stream))
+    return y
+
+
+def generic_dnd_stencil(gridk, shape, offs, cvals, coef):
+    """x -> A x by V1's generic kernel (the earlier design, one output per
+    thread) for a stencil that its plan gives the window kernel; launches
+    counted in a scratch dict, not in LAUNCHES."""
+    import torch
+    from petsc_tpu_torch.ops import cuda_build
+    _, n, _, args, arrays = gridk._dnd_plan(shape, offs, cvals)
+    scratch = {"dnd_stencil": 0}
+
+    def apply(x):
+        y = torch.empty_like(x)
+        cuda_build.launch(scratch, "dnd_stencil", x, y.data_ptr(), x.data_ptr(),
+                          coef.data_ptr(), *args)
+        return y
+
+    apply.taps = arrays
+    return apply
+
+
+def star2_offsets():
+    """The 3-D radius-2 star: the centre, then +-1 and +-2 along each axis
+    (13 offsets, which V1's window does not take)."""
+    offs = [(0, 0, 0)]
+    for ax in range(3):
+        for d in (-2, -1, 1, 2):
+            offs.append(tuple(d if a == ax else 0 for a in range(3)))
+    return tuple(offs)
+
+
+def phase_grid_kernels(gridk, gd, interp, gamg, ksps, flush, earlier):
+    """Each grid kernel against its plain version, f64 and f32 (each
+    cycle's own hierarchy), with equal bits required of V1 and Q1P:
+    V1's window kernel on the path's probed 64^3, 32^3 and 16^3 levels (27
+    planes) and on an odd 65^3 grid (27 random planes, the scalar variant),
+    each timed beside the earlier design (V1's generic kernel, one output
+    per thread) in turns, earlier, new, new, earlier; V1's generic kernel
+    on the 64^3 level's stencil with its offsets reversed and on a radius-2
+    star at 32^3 (random planes); Q1P at 128^3 <- 64^3, 129^3 <- 65^3 and
+    64^3 <- 32^3, each timed beside the earlier per-output design
+    (earlier_kernels/) in turns; Q1R at 128^3 -> 64^3 and 129^3 -> 65^3 (at
+    the odd size F.interpolate(trilinear, align_corners=True) computes Q1P
+    and F.conv3d with stride 2 and the [.5, 1, .5]^3 weights computes Q1R,
+    each timed as the library call); then the card's probed 32^3 planes
     (from the f64 hierarchy's 64^3 level) against the host Galerkin
-    product of the port's SpGEMM (1e-12 relative). Returns (rows, the f64
-    rows at the path's shapes keyed by kernel)."""
+    product of the port's SpGEMM (1e-12 relative). Returns (rows, the f32
+    rows at the path's shapes keyed by kernel, the Galerkin check)."""
     import torch
     import torch.nn.functional as F
     dev = torch.device("cuda")
@@ -1390,25 +1510,59 @@ def phase_grid_kernels(gridk, gd, interp, gamg, ksps, flush):
     tol = {torch.float64: 1e-13, torch.float32: 1e-6}
     torch.backends.cudnn.allow_tf32 = False       # F.conv3d in the operands' own precision
     rows, main = [], {}
+    no_lib = "none: no single PyTorch call applies per-point coefficient planes"
     for cycle, dtype in (("f64", torch.float64), ("f32", torch.float32)):
         isz = torch.empty((), dtype=dtype).element_size()
-        lev1 = ksps[cycle].getPC()._impl.levels[1].A
-        m, d = lev1.meta, lev1.device_data()
-        shape, offs = m[1], m[2]
-        n1 = math.prod(shape)
-        cvals = (None,) * len(offs)
-        coef = d["coef"]
-        if coef.dtype != dtype:
-            raise AssertionError(f"level 1 planes are {coef.dtype} in the {cycle} cycle")
-        x = torch.rand(n1, generator=gen, device=dev, dtype=dtype)
-        v1 = gridk.dnd_stencil_fn(shape, offs, cvals, coef)     # planned as the binder plans it
-        rows.append(grid_kernel_row(
-            "dnd_stencil", dtype, lambda v1=v1, x=x: v1(x),
-            lambda x=x, coef=coef: gridk.dnd_stencil_plain(x, shape, offs, cvals, coef), None,
-            (len(offs) + 2) * n1 * isz, 2 * len(offs) * n1, tol[dtype], shape=list(shape),
-            planes=len(offs),
-            library="none: no single PyTorch call applies per-point coefficient planes"))
-        for fshape in ((N_MAIN,) * 3, (N_MAIN + 1,) * 3):
+        levels = ksps[cycle].getPC()._impl.levels
+        lev1 = levels[1].A
+        box = lev1.meta[2]
+        v1_cases = [(lev.A.meta[1], lev.A.device_data()["coef"], f"probed level {lev.A.meta[1]}")
+                    for lev in levels[1:4]]
+        v1_cases.append(((65,) * 3, torch.rand((27,) + (65,) * 3, generator=gen, device=dev,
+                                               dtype=dtype), "random planes"))
+        for shape, coef, what in v1_cases:
+            if coef.dtype != dtype:
+                raise AssertionError(f"{what} planes are {coef.dtype} in the {cycle} cycle")
+            n1 = math.prod(shape)
+            cvals = (None,) * len(box)
+            x = torch.rand(n1, generator=gen, device=dev, dtype=dtype)
+            v1 = gridk.dnd_stencil_fn(shape, box, cvals, coef)   # planned as the binder plans it
+            if v1.kernel != "window":
+                raise AssertionError(f"V1 on {shape} took the {v1.kernel} kernel")
+            old = generic_dnd_stencil(gridk, shape, box, cvals, coef)
+            win = v1.window
+            cfg = gridk.dnd_window_config(dtype, win["vector"], True, win["block"], dev)
+            rows.append(grid_kernel_row(
+                "dnd_stencil", dtype, lambda v1=v1, x=x: v1(x),
+                lambda x=x, coef=coef, shape=shape, box=box, cvals=cvals:
+                    gridk.dnd_stencil_plain(x, shape, box, cvals, coef), None,
+                (len(box) + 2) * n1 * isz, 2 * len(box) * n1, tol[dtype],
+                earlier=lambda old=old, x=x: old(x), shape=list(shape), planes=len(box),
+                coef=what, kernel="window", variant="vector" if win["vector"] else "scalar",
+                block=list(win["block"]), chunk=win["chunk"], grid=list(win["grid"]),
+                launch=cfg, library=no_lib))
+        # the generic kernel: the 64^3 stencil in reverse order, a radius-2 star
+        coef1 = lev1.device_data()["coef"]
+        shape1 = lev1.meta[1]
+        for shape, offs, coef, what in (
+                (shape1, box[::-1], coef1.flip(0).contiguous(), "probed level, reversed"),
+                ((32,) * 3, star2_offsets(),
+                 torch.rand((13,) + (32,) * 3, generator=gen, device=dev, dtype=dtype),
+                 "random planes, radius-2 star")):
+            n1 = math.prod(shape)
+            cvals = (None,) * len(offs)
+            x = torch.rand(n1, generator=gen, device=dev, dtype=dtype)
+            v1 = gridk.dnd_stencil_fn(shape, offs, cvals, coef)
+            if v1.kernel != "generic":
+                raise AssertionError(f"V1 on {what} took the {v1.kernel} kernel")
+            rows.append(grid_kernel_row(
+                "dnd_stencil", dtype, lambda v1=v1, x=x: v1(x),
+                lambda x=x, coef=coef, shape=shape, offs=offs, cvals=cvals:
+                    gridk.dnd_stencil_plain(x, shape, offs, cvals, coef), None,
+                (len(offs) + 2) * n1 * isz, 2 * len(offs) * n1, tol[dtype],
+                shape=list(shape), planes=len(offs), coef=what, kernel="generic",
+                library=no_lib))
+        for fshape in ((N_MAIN,) * 3, (N_MAIN + 1,) * 3, (N_MAIN // 2,) * 3):
             cshape = tuple((s + 1) // 2 for s in fshape)
             nf, nc = math.prod(fshape), math.prod(cshape)
             xc = torch.rand(nc, generator=gen, device=dev, dtype=dtype)
@@ -1430,9 +1584,13 @@ def phase_grid_kernels(gridk, gd, interp, gamg, ksps, flush):
             rows.append(grid_kernel_row(
                 "q1_prolong", dtype, lambda xc=xc, fshape=fshape: gridk.q1_prolong(xc, fshape),
                 lambda xc=xc, fshape=fshape: gridk.q1_prolong_plain(xc, fshape), lib,
-                (nf + nc) * isz, 2 * nf, tol[dtype], fine=list(fshape),
+                (nf + nc) * isz, 2 * nf, tol[dtype],
+                earlier=lambda xc=xc, fshape=fshape: earlier_q1_prolong(earlier, xc, fshape),
+                fine=list(fshape), pair_stores=gridk._q1_prolong_plan(fshape)[2],
                 library="F.interpolate(trilinear, align_corners=True)" if lib else
                 "none at an even size: F.interpolate has no clamp of the last odd point"))
+            if fshape[0] < N_MAIN:
+                continue
             rows.append(grid_kernel_row(
                 "q1_restrict", dtype,
                 lambda xf=xf, fshape=fshape: gridk.q1_restrict(xf, fshape),
@@ -1440,14 +1598,27 @@ def phase_grid_kernels(gridk, gd, interp, gamg, ksps, flush):
                 (nf + nc) * isz, 2 * nf, tol[dtype], fine=list(fshape),
                 library="F.conv3d(stride 2, padding 1, [.5, 1, .5]^3)" if lib_r else
                 "none at an even size: F.conv3d has no clamp of the last odd point"))
+    unequal = [(r["name"], r["dtype"], r.get("shape") or r.get("fine")) for r in rows
+               if r["name"] in ("dnd_stencil", "q1_prolong") and not r["equal_bits"]]
+    if unequal:
+        raise AssertionError(f"kernels that differ from their plain versions in bits: {unequal}")
     for r in rows:
-        fn, plain, lib = r.pop("_fn"), r.pop("_plain"), r.pop("_library")
-        r["ms"] = time_ms(fn, flush)
+        fn, plain, lib, old = r.pop("_fn"), r.pop("_plain"), r.pop("_library"), r.pop("_earlier")
+        if old is None:
+            r["ms"] = time_ms(fn, flush)
+        else:   # in turns: earlier, new, new, earlier
+            turns = [time_ms(old, flush), time_ms(fn, flush), time_ms(fn, flush),
+                     time_ms(old, flush)]
+            r["turns_ms"] = turns
+            r["ms"] = (turns[1] + turns[2]) / 2
+            r["earlier_ms"] = (turns[0] + turns[3]) / 2
+            r["earlier_share_of_bound"] = r["bound_ms"] / r["earlier_ms"]
         r["plain_ms"] = time_ms(plain, flush)
         r["library_ms"] = time_ms(lib, flush) if lib is not None else None
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
-        if r["dtype"] == "float64" and r.get("fine", [N_MAIN])[0] == N_MAIN \
-                and r["name"] not in main:
+        path_shape = [N_MAIN // 2] * 3 if r["name"] == "dnd_stencil" else [N_MAIN] * 3
+        if r["dtype"] == "float32" and (r.get("shape") or r.get("fine")) == path_shape \
+                and r.get("kernel") != "generic" and r["name"] not in main:
             main[r["name"]] = r
     # the probed planes against the host Galerkin product, 64^3 -> 32^3 in f64
     levels = ksps["f64"].getPC()._impl.levels
@@ -1466,7 +1637,7 @@ def phase_grid_kernels(gridk, gd, interp, gamg, ksps, flush):
     return rows, main, galerkin
 
 
-def phase_gamg_grid(pt, pk, gridk, sb, smi, t_start, flush, jac_ms):
+def phase_gamg_grid(pt, pk, gridk, sb, smi, t_start, flush, jac_ms, earlier):
     """CG + GAMG with the structured head on the 128^3 box27 stencil
     operator (bench.py's solve), f32 cycle (bench's -pc_mg_dtype single) and
     f64 cycle, each checked against the reference's run, timed warm (best of
@@ -1491,7 +1662,7 @@ def phase_gamg_grid(pt, pk, gridk, sb, smi, t_start, flush, jac_ms):
         res[cycle] = (ksp, b, x, rec["warm_ms_best_of_3"], rec["launches"])
         ksps[cycle] = ksp
     out["cg_jacobi_warm_ms"] = jac_ms
-    rows, main, galerkin = phase_grid_kernels(gridk, gd, interp, gamg, ksps, flush)
+    rows, main, galerkin = phase_grid_kernels(gridk, gd, interp, gamg, ksps, flush, earlier)
     out["kernel_checks"] = rows
     out["probed_vs_host_galerkin"] = galerkin
     out["seconds_so_far"] = time.perf_counter() - t_start
@@ -1565,17 +1736,26 @@ def main():
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    cuda_build.library()
-    pk.kernels_available("cuda")
-    torch.cuda.synchronize()
+    earlier_build = start_earlier_build()     # beside the package's nvcc processes
+    try:
+        cuda_build.library()
+        pk.kernels_available("cuda")
+        torch.cuda.synchronize()
+    except BaseException:
+        if earlier_build[0] is not None:        # leave no nvcc running
+            earlier_build[0].kill()
+            earlier_build[0].wait()
+        raise
     log = (cuda_build.library_path().parent / "nvcc.log")
     ptxas = ([ln.strip() for ln in log.read_text().splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
              if log.exists() else [])
     nvcc_s = time.perf_counter() - t0
+    earlier, earlier_s = load_earlier(earlier_build)
     t0 = time.perf_counter()
     native.lib()
     emit({"phase": "build", "seconds": nvcc_s, "nvcc_seconds": cuda_build.build_seconds,
+          "earlier_designs_seconds": earlier_s,
           "ptxas": ptxas, "native_seconds": time.perf_counter() - t0,
           "native_build_seconds": native.build_seconds, "native_openmp": native.openmp})
 
@@ -1727,7 +1907,7 @@ def main():
     # ---- CG + GAMG with the structured head on the stencil operator (bench.py's
     # solve), f32 and f64 cycles ----
     grid_rec, grid_main, grid_res = phase_gamg_grid(pt, pk, gridk, sb, smi, t_start, flush,
-                                                    jac_ms)
+                                                    jac_ms, earlier)
     emit(grid_rec)
     prof_grid = {}
     for cycle in ("f32", "f64"):
@@ -1823,17 +2003,23 @@ def main():
               others={f"{r['mode']}_{r['dtype']}_{r['n']}": {
                   k: r[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
                   for r in cheby_rows if r is not cheby_main})
-    # V1's row is the f64 product at the path's 64^3 level (27 planes), Q1P's
-    # and Q1R's at 128^3 <-> 64^3; f32 and the odd size stand beside them
-    keep = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "equal_bits")
+    # V1's, Q1P's and Q1R's rows are the f32 cycle's (the main path's) at its
+    # 64^3 level (27 planes) and 128^3 <-> 64^3; f64, the other shapes, the
+    # generic V1 kernel and the odd sizes stand beside them. V1's and Q1P's
+    # earlier_ms is the earlier design's, timed in turns with ms.
+    keep = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "equal_bits",
+            "earlier_ms", "kernel", "variant")
     for name in ("dnd_stencil", "q1_prolong", "q1_restrict"):
         r = next(r for r in table if r["name"] == name)
         m = grid_main[name]
         r.update(library=m["library"], share_of_bound=m["share_of_bound"],
                  shape=m.get("shape") or m.get("fine"),
-                 others=[{**{k: o[k] for k in keep}, "dtype": o["dtype"],
+                 others=[{**{k: o[k] for k in keep if k in o}, "dtype": o["dtype"],
                           "shape": o.get("shape") or o.get("fine")}
                          for o in grid_rec["kernel_checks"] if o["name"] == name and o is not m])
+        if "earlier_ms" in m:
+            r.update(earlier_ms=m["earlier_ms"], turns_ms=m["turns_ms"],
+                     earlier_share_of_bound=m["earlier_share_of_bound"])
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

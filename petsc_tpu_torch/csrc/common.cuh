@@ -218,6 +218,17 @@ __device__ __forceinline__ void cp_async_elem(void* dst, const void* src, bool i
                : "memory");
 }
 
+// Close this thread's open cp.async copies into one group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until every cp.async group this thread committed has landed (its
+// own copies only: a block barrier after it makes the block's visible).
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // The barrier's pending count falls by one when every cp.async this thread
 // issued so far has landed (noinc: the init count includes the arrival).
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {

@@ -64,8 +64,13 @@ SIGNATURES = {
     "ptt_cheby_update_f32": (_i32, _vp, _vp, _vp, _vp, _vp, _vp, _f64, _f64, _f64, _i64, _i32, _vp),
     "ptt_dnd_stencil_f64": (_vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp, _vp, _vp, _i32, _vp),
     "ptt_dnd_stencil_f32": (_vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp, _vp, _vp, _i32, _vp),
-    "ptt_q1_prolong_f64": (_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp),
-    "ptt_q1_prolong_f32": (_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp),
+    "ptt_dnd_window_f64": (_vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _vp, _i32, _i32, _i32,
+                           _i32, _i32, _vp),
+    "ptt_dnd_window_f32": (_vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _vp, _i32, _i32, _i32,
+                           _i32, _i32, _vp),
+    "ptt_dnd_window_config": (_i32, _i32, _i32, _i32, _i32, _i32, _vp),
+    "ptt_q1_prolong_f64": (_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp),
+    "ptt_q1_prolong_f32": (_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp),
     "ptt_q1_restrict_f64": (_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp),
     "ptt_q1_restrict_f32": (_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp),
 }
@@ -156,11 +161,11 @@ def check(name: str, rc: int):
         raise Error(f"{name}: CUDA error {rc} ({msg})")
 
 
-def launch(counts: dict, name: str, like, *args):
-    """Call entry point ``ptt_<name>_<f64|f32>`` (the dtype of tensor
-    `like`) on like's device and current stream, raise on a CUDA error, and
-    add one to ``counts[name]``."""
-    fn = getattr(library(), f"ptt_{name}_{_SUFFIX[like.dtype]}")
+def launch(counts: dict, name: str, like, *args, entry: str | None = None):
+    """Call entry point ``ptt_<entry>_<f64|f32>`` (entry defaults to name;
+    the dtype of tensor `like`) on like's device and current stream, raise
+    on a CUDA error, and add one to ``counts[name]``."""
+    fn = getattr(library(), f"ptt_{entry or name}_{_SUFFIX[like.dtype]}")
     rc = fn(*args, like.get_device(), torch.cuda.current_stream(like.device).cuda_stream)
     check(name, rc)
     counts[name] += 1

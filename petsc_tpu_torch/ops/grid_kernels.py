@@ -11,8 +11,18 @@ fuses nothing, so here they are CUDA C++ kernels for sm_90a (sources in
 
 V1 is the product of every ``aij_dnd`` operator but the separable constant
 box and star (S1): the probed coarse levels, a MatAIJ on a declared grid,
-and constant stencils of other offsets. Q1P and Q1R are the structured
-levels' transfers and the probe's P and P^T.
+and constant stencils of other offsets. It has two kernels, chosen once per
+bound operator by :func:`dnd_stencil_fn` (``_window_plan``): the window
+kernel for a stencil whose offsets, padded to 3-D, lie in {-1,0,1}^3 in the
+lexicographic order of ``product((-1, 0, 1), repeat=3)`` (a subsequence of
+it is fine; every probed level is the whole of it), each tap a plane or a
+constant; the generic kernel for every other stencil. The window kernel's
+16-byte variant needs n2 * itemsize to be a multiple of 16 and aligned
+planes; otherwise it takes its scalar variant. Both count as
+``dnd_stencil``. Q1P and Q1R are the structured levels' transfers and the
+probe's P and P^T; Q1P writes one coarse cell's fine points per thread,
+each row's pair along i2 as one vector store at an even f2
+(``_q1_prolong_plan``).
 
 Every wrapper checks device, dtype (float64 or float32), shape and
 contiguity and raises on what its kernel does not take; allocates its
@@ -28,6 +38,7 @@ the two give equal bits.
 from __future__ import annotations
 
 import ctypes
+from itertools import product
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +51,12 @@ LAUNCHES = {"dnd_stencil": 0, "q1_prolong": 0, "q1_restrict": 0}
 _VALUES = (torch.float64, torch.float32)
 _MAX_TAPS = 128            # csrc/dnd_stencil.cu kMaxTaps
 _INT32_MAX = 2 ** 31 - 1
+# the window kernel's 27 slots, {-1,0,1}^3 in lexicographic order
+_SLOTS = {o: k for k, o in enumerate(product((-1, 0, 1), repeat=3))}
+_WINDOW_THREADS = 128      # threads of a window block
+_WINDOW_BLOCKS_PER_SM = 4  # blocks per SM the chunking of i0 aims at
+_GRID_YZ_MAX = 65535
+_H100_SMS = 132            # the SMs a plan assumes for planes that are not on a card
 
 
 def reset_launches():
@@ -139,17 +156,73 @@ def _dnd_plan(shape, offsets, consts):
     return shape, _numel(shape), (ci,) + shape, _grid3(shape) + taps, arrays
 
 
+def _window_plan(grid, offsets, consts, itemsize, coef_ptr, sms=_H100_SMS):
+    """The window kernel's plan for a stencil on the 3-D `grid`, or None
+    when the stencil takes the generic kernel: its offsets, padded to 3-D,
+    must be slots of {-1,0,1}^3 in increasing order (the sum's order is the
+    offsets' order, so another order keeps the generic kernel).
+
+    Returns a dict: the launch arguments after (n0, n1, n2) (the tap and
+    plane bitmasks, the address of the 27 constants, the 16-byte variant,
+    the block's nx x ny threads, the i0 planes per block), the ctypes array
+    of constants, the variant, the block, the chunk and the grid. Each
+    thread takes 16 / itemsize points along i2; the chunk of i0 is as long
+    as keeps _WINDOW_BLOCKS_PER_SM blocks per SM busy."""
+    off3 = [(0,) * (3 - len(o)) + tuple(o) for o in offsets]
+    slots = [_SLOTS.get(o) for o in off3]
+    if not slots or None in slots or any(b <= a for a, b in zip(slots, slots[1:])):
+        return None
+    n0, n1, n2 = grid
+    w = 16 // itemsize
+    # tiles of at most 32 threads along i2 and _WINDOW_THREADS in all, each
+    # axis cut into tiles of equal size (65 points in f32: one tile of 17
+    # threads, not 32 with 15 idle)
+    threads2 = -(-n2 // w)
+    nx = -(-threads2 // -(-threads2 // 32))
+    rows = max(1, _WINDOW_THREADS // nx)
+    ny = -(-n1 // -(-n1 // rows))
+    tiles = -(-n2 // (nx * w)) * -(-n1 // ny)
+    chunk = max(1, n0 * tiles // (sms * _WINDOW_BLOCKS_PER_SM))
+    launch_grid = (-(-n2 // (nx * w)), -(-n1 // ny), -(-n0 // chunk))
+    if max(launch_grid[1:]) > _GRID_YZ_MAX:
+        return None
+    present = sum(1 << s for s in slots)
+    plane = sum(1 << s for s, c in zip(slots, consts) if c is None)
+    c27 = [0.0] * len(_SLOTS)
+    for s, c in zip(slots, consts):
+        if c is not None:
+            c27[s] = c
+    c27 = (ctypes.c_double * len(_SLOTS))(*c27)
+    vec = (n2 * itemsize) % 16 == 0 and coef_ptr % 16 == 0
+    return {"args": (present, plane, ctypes.addressof(c27), int(vec), nx, ny, chunk),
+            "consts": c27, "vector": vec, "block": (nx, ny), "chunk": chunk,
+            "grid": launch_grid}
+
+
+def _sms(device):
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return _H100_SMS
+
+
 def dnd_stencil_fn(shape, offsets, consts, coef):
     """x -> A x for the grid stencil with `offsets` on grid `shape` (C order,
     zeros outside the grid): per offset k the constant consts[k] or, where
     that is None, the next plane of `coef` (a contiguous (planes, *shape)
     float64 or float32 tensor). The stencil is checked and its launch
-    planned once here, where a binder binds the operator."""
+    planned once here, where a binder binds the operator: the window
+    kernel where _window_plan takes the stencil, else the generic one
+    (``apply.kernel`` says which, ``apply.window`` holds the window's plan)."""
     shape, n, coef_shape, args, arrays = _dnd_plan(shape, offsets, consts)
     if (not isinstance(coef, torch.Tensor) or coef.dtype not in _VALUES
             or coef.shape != coef_shape or not coef.is_contiguous()):
         raise ValueError(f"dnd_stencil: coef must be a contiguous {coef_shape} float64 or "
                          f"float32 tensor, got {getattr(coef, 'shape', coef)}")
+    window = _window_plan(_grid3(shape), offsets, consts, coef.element_size(),
+                          coef.data_ptr(), _sms(coef.device))
+    entry = None
+    if window is not None:
+        entry, args = "dnd_window", _grid3(shape) + window["args"]
 
     def apply(x):
         _check_vector("dnd_stencil", x, n)
@@ -161,11 +234,25 @@ def dnd_stencil_fn(shape, offsets, consts, coef):
         y = torch.empty_like(x)
         if n:
             cuda_build.launch(LAUNCHES, "dnd_stencil", x, y.data_ptr(), x.data_ptr(),
-                              coef.data_ptr(), *args)
+                              coef.data_ptr(), *args, entry=entry)
         return y
 
     apply.taps = arrays          # the ctypes arrays that args point into
+    apply.kernel = "generic" if window is None else "window"
+    apply.window = window
     return apply
+
+
+def dnd_window_config(dtype, vector, full, block, device):
+    """The window kernel's launch shape on `device` for an nx x ny block:
+    threads, blocks per SM, SMs, registers per thread, dynamic shared bytes,
+    local (spill) bytes per thread."""
+    cfg = (ctypes.c_int * 6)()
+    cuda_build.check("dnd_window_config", cuda_build.library().ptt_dnd_window_config(
+        int(dtype == torch.float64), int(vector), int(full), *block,
+        torch.device(device).index or 0, cfg))
+    return dict(zip(("threads", "blocks_per_sm", "sms", "registers", "smem_bytes",
+                     "local_bytes"), cfg))
 
 
 def dnd_stencil(x, shape, offsets, consts, coef):
@@ -267,6 +354,16 @@ def q1_restrict_plain(x, fshape):
     return v.reshape(-1)
 
 
+def _q1_prolong_plan(fshape):
+    """Q1P's launch: the fine and the coarse grid padded to 3-D, and
+    whether each cell's pair (2 j2, 2 j2 + 1) is one vector store (an even
+    f2: every cell has both points and every row starts on an even
+    element; an odd f2 takes scalar stores, the last cell only its even
+    point)."""
+    f3 = _grid3(fshape)
+    return f3, _coarse_of(f3), f3[2] % 2 == 0
+
+
 def _q1(name, plain, x, fshape, prolong):
     fshape = tuple(int(s) for s in fshape)
     cshape = _coarse_of(fshape)
@@ -277,8 +374,12 @@ def _q1(name, plain, x, fshape, prolong):
         return plain(x, fshape)
     y = torch.empty(nout, dtype=x.dtype, device=x.device)
     if nout:
-        cuda_build.launch(LAUNCHES, name, x, y.data_ptr(), x.data_ptr(),
-                          *_grid3(fshape), *_grid3(cshape))
+        if prolong:
+            f3, c3, pair = _q1_prolong_plan(fshape)
+            args = (*f3, *c3, int(pair))
+        else:
+            args = (*_grid3(fshape), *_grid3(cshape))
+        cuda_build.launch(LAUNCHES, name, x, y.data_ptr(), x.data_ptr(), *args)
     return y
 
 

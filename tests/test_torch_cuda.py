@@ -599,3 +599,71 @@ def test_cg_gamg_structured_on_the_card_equals_the_cpu_port(cuda_device, cycle):
     assert need["dnd_stencil"] > 0 and need["q1_prolong"] > 0 and need["q1_restrict"] > 0
     assert launches["gather"] == 0 and gk2.LAUNCHES["gather"] == 0
     assert gridk.LAUNCHES["dnd_stencil"] == need["dnd_stencil"]
+
+
+def _v1_plan_stencil(shape, kind, dtype, device, seed=1):
+    """(offsets, constants, planes) of the stencils that pick V1's kernel:
+    the box in slot order (all planes; planes mixed with constants; planes
+    one element past a 16-byte edge), the 3-D star sorted into slot order,
+    and for the generic kernel the box reversed, the star in build order
+    and a radius-2 star."""
+    from itertools import product
+    rng = np.random.default_rng(seed)
+    nd = len(shape)
+    box = list(product((-1, 0, 1), repeat=nd))
+    star = [tuple(o) for o in stencil_build.stencil_offsets(nd, "star")]
+    offs = {"box": box, "mixed": box, "misaligned": box, "sorted star": sorted(star),
+            "reversed": box[::-1], "star": star,
+            "radius 2": [(0,) * nd] + [tuple(d if a == ax else 0 for a in range(nd))
+                                       for ax in range(nd) for d in (-2, -1, 1, 2)]}[kind]
+    consts = tuple(float(rng.standard_normal()) if kind == "mixed" and k % 2 else None
+                   for k in range(len(offs)))
+    nvar = sum(c is None for c in consts)
+    vals = torch.as_tensor(rng.standard_normal(nvar * int(np.prod(shape)) + 1), dtype=dtype,
+                           device=device)
+    coef = (vals[1:] if kind == "misaligned" else vals[:-1]).view((nvar,) + tuple(shape))
+    return offs, consts, coef
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kind,kernel", (
+    ((64, 64, 64), "box", "window"), ((32, 32, 32), "box", "window"),
+    ((16, 16, 16), "box", "window"), ((65, 65, 65), "box", "window"),
+    ((9, 8, 7), "mixed", "window"), ((12, 11), "box", "window"), ((33,), "box", "window"),
+    ((5, 6, 7), "sorted star", "window"), ((8, 8, 8), "misaligned", "window"),
+    ((9, 8, 7), "reversed", "generic"), ((16, 16, 16), "radius 2", "generic"),
+    ((12, 11), "star", "generic")))
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_v1_kernels_equal_plain_bit_for_bit(cuda_device, dtype, shape, kind, kernel):
+    """Both V1 kernels, as the plan picks them, equal the plain version bit
+    for bit on the card: the window kernel (vector and scalar variants,
+    1-D to 3-D grids, planes and constants) and the generic kernel."""
+    from petsc_tpu_torch.ops import grid_kernels as gridk
+    offs, consts, coef = _v1_plan_stencil(shape, kind, dtype, cuda_device)
+    fn = gridk.dnd_stencil_fn(shape, offs, consts, coef)
+    assert fn.kernel == kernel
+    x = torch.rand(int(np.prod(shape)), dtype=dtype, device=cuda_device)
+    gridk.reset_launches()
+    k = fn(x)
+    p = gridk.dnd_stencil_plain(x, shape, offs, consts, coef)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    assert gridk.LAUNCHES == {"dnd_stencil": 1, "q1_prolong": 0, "q1_restrict": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fshape", ((128, 128, 128), (129, 129, 129), (64, 64, 64), (9, 8, 6),
+                                    (9, 8, 7), (8, 6), (9, 7), (1, 5), (128,), (17,), (1,)))
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_q1_prolong_equals_plain_bit_for_bit(cuda_device, dtype, fshape):
+    """Q1P's per-cell kernel equals the per-axis composition bit for bit on
+    the card, with pair stores (even f2) and scalar ones (odd f2)."""
+    from petsc_tpu_torch.ops import grid_kernels as gridk
+    cshape = tuple((s + 1) // 2 for s in fshape)
+    xc = torch.rand(int(np.prod(cshape)), dtype=dtype, device=cuda_device)
+    gridk.reset_launches()
+    k = gridk.q1_prolong(xc, fshape)
+    p = gridk.q1_prolong_plain(xc, fshape)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    assert gridk.LAUNCHES == {"dnd_stencil": 0, "q1_prolong": 1, "q1_restrict": 0}

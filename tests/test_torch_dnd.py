@@ -282,3 +282,109 @@ def test_v1_launch_plan_pads_grids_to_3d(shape, offs):
     assert list(off3) == [v for o in offs for v in (0,) * pad + o]
     assert list(planes) == [0] + [-1] * (len(offs) - 1)
     assert list(cvals) == [0.0] + [2.5] * (len(offs) - 1)
+
+
+def _shift_sum_by_slots(x, shape, coef, window):
+    """The window kernel's sum rebuilt from its plan alone: over the 27
+    slots of {-1,0,1}^3 in order, each tap's plane (its index counted
+    through the plane bitmask) or constant (from the plan's array) times
+    x shifted by the slot's offset, zeros outside the grid."""
+    grid = (1,) * (3 - len(shape)) + tuple(shape)
+    present, plane = window["args"][:2]
+    xp = torch.nn.functional.pad(x.reshape(grid), (1, 1, 1, 1, 1, 1))
+    acc = torch.zeros(grid, dtype=x.dtype)
+    for k, (d0, d1, d2) in enumerate(product((-1, 0, 1), repeat=3)):
+        if not present >> k & 1:
+            continue
+        if plane >> k & 1:
+            c = coef[bin(plane & ((1 << k) - 1)).count("1")].reshape(grid)
+        else:
+            c = window["consts"][k]
+        acc = acc + c * xp[1 + d0:1 + d0 + grid[0], 1 + d1:1 + d1 + grid[1],
+                           1 + d2:1 + d2 + grid[2]]
+    return acc.reshape(-1)
+
+
+_BOX3 = tuple(product((-1, 0, 1), repeat=3))
+_STAR3 = tuple(tuple(o) for o in stencil_build.stencil_offsets(3, "star"))
+V1_PLANS = (
+    ("window", (6, 5, 4), _BOX3, "planes"),
+    ("window", (6, 5, 4), _BOX3, "mixed"),
+    ("window", (5, 6, 7), tuple(sorted(_STAR3)), "planes"),
+    ("window", (33,), ((-1,), (0,), (1,)), "planes"),
+    ("window", (7, 9), tuple(product((-1, 0, 1), repeat=2)), "mixed"),
+    ("window", (8, 8), ((-1, -1), (0, 0), (1, 0)), "constants"),
+    ("generic", (6, 5, 4), _BOX3[::-1], "planes"),
+    ("generic", (5, 6, 7), _STAR3, "planes"),
+    ("generic", (9, 8, 7), ((0, 0, 0), (0, 0, 2), (0, 0, -2), (2, 0, 0)), "planes"),
+    ("generic", (6, 5, 4), ((0, 0, 0), (0, 0, 0)), "planes"),
+    ("generic", (12, 11), ((0, 0), (1, -1), (-2, 1)), "mixed"),
+)
+
+
+@pytest.mark.parametrize("want,shape,offs,coefs", V1_PLANS)
+def test_v1_takes_the_window_or_the_generic_kernel_at_plan_time(want, shape, offs, coefs):
+    """V1's kernel is chosen once, where the operator is bound: the window
+    kernel for offsets that, padded to 3-D, are slots of {-1,0,1}^3 in
+    increasing order (the whole box, a subsequence, on 1-D and 2-D grids,
+    planes mixed with constants), the generic kernel for another order, a
+    radius of 2 or a repeated offset. The window's bitmasks and constants
+    rebuild the plain version's sum bit for bit."""
+    rng = np.random.default_rng(11)
+    consts = tuple(None if coefs == "planes" or (coefs == "mixed" and k % 2)
+                   else float(rng.standard_normal()) for k in range(len(offs)))
+    nvar = sum(c is None for c in consts)
+    coef = torch.from_numpy(rng.standard_normal((nvar,) + shape))
+    x = torch.from_numpy(rng.random(int(np.prod(shape))))
+    fn = grid_kernels.dnd_stencil_fn(shape, offs, consts, coef)
+    assert fn.kernel == want and (fn.window is None) == (want == "generic")
+    y = fn(x)
+    assert torch.equal(y, grid_kernels.dnd_stencil_plain(x, shape, offs, consts, coef))
+    if want == "window":
+        present, plane = fn.window["args"][:2]
+        slots = [_BOX3.index((0,) * (3 - len(shape)) + o) for o in offs]
+        assert present == sum(1 << s for s in slots)
+        assert plane == sum(1 << s for s, c in zip(slots, consts) if c is None)
+        assert torch.equal(_shift_sum_by_slots(x, shape, coef, fn.window), y)
+
+
+@pytest.mark.parametrize("n2,dtype,vector", ((64, torch.float32, True),
+                                             (65, torch.float32, False),
+                                             (6, torch.float32, False),
+                                             (8, torch.float32, True),
+                                             (2, torch.float64, True),
+                                             (3, torch.float64, False),
+                                             (64, torch.float64, True),
+                                             (65, torch.float64, False)))
+def test_v1_window_variant_follows_n2_and_the_planes_alignment(n2, dtype, vector):
+    """The window kernel loads planes and stores y 16 bytes at a time only
+    where n2 * itemsize is a multiple of 16 and the planes start on a
+    16-byte edge; an odd grid, or planes one element past an edge, take
+    the scalar variant. The launch covers the grid, with at most 128
+    threads and 48 KB of ring per block."""
+    shape = (5, 7, n2)
+    n = int(np.prod(shape))
+    coef = torch.zeros((27,) + shape, dtype=dtype)
+    plan = grid_kernels.dnd_stencil_fn(shape, _BOX3, (None,) * 27, coef).window
+    assert plan["vector"] == vector and plan["args"][3] == int(vector)
+    (nx, ny), chunk, grid = plan["block"], plan["chunk"], plan["grid"]
+    w = 16 // coef.element_size()
+    assert plan["args"][4:] == (nx, ny, chunk) and nx * ny <= 128
+    assert grid[0] * nx * w >= n2 > (grid[0] - 1) * nx * w
+    assert grid[1] * ny >= 7 and grid[2] * chunk >= 5
+    assert 4 * (ny + 2) * (nx * w + 2 * w) * coef.element_size() <= 48 * 1024
+    past_edge = torch.zeros(27 * n + 1, dtype=dtype)[1:].view((27,) + shape)
+    assert not grid_kernels.dnd_stencil_fn(shape, _BOX3, (None,) * 27,
+                                           past_edge).window["vector"]
+
+
+@pytest.mark.parametrize("dtype,block,grid", ((torch.float32, (16, 8), (1, 8, 64)),
+                                              (torch.float64, (32, 4), (1, 16, 64))))
+def test_v1_window_geometry_on_the_path_level(dtype, block, grid):
+    """The probed 64^3 level: 16-byte packs along i2 cover its 64 points
+    with 16 (f32) or 32 (f64) threads, rows fill 128 threads, and one
+    plane per block gives 512 or 1024 blocks on 132 SMs."""
+    coef = torch.zeros((27, 64, 64, 64), dtype=dtype)
+    plan = grid_kernels.dnd_stencil_fn((64,) * 3, _BOX3, (None,) * 27, coef).window
+    assert plan["vector"] and plan["block"] == block and plan["chunk"] == 1
+    assert plan["grid"] == grid

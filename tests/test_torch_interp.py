@@ -86,3 +86,50 @@ def test_what_later_slices_bring_is_refused():
         interp.MatInterpQ1((8, 8), (5, 4))
     with pytest.raises(ValueError, match="entries"):
         grid_kernels.q1_prolong(torch.zeros(17, dtype=torch.float64), (8, 8))
+
+
+def _q1p_by_cells(x, fshape):
+    """Q1P rebuilt from its launch plan the way its kernel computes it: per
+    coarse cell j (every axis), the 2 x 2 x 2 neighbourhood with hi =
+    min(j + 1, nc - 1), axis 0, then 1, then 2 combined, and the fine points
+    2j (every cell) and 2j + 1 (the cells with 2j + 1 < nf) written. Returns
+    (y, how often each fine point was written)."""
+    f3, c3, _ = grid_kernels._q1_prolong_plan(fshape)
+    v = x.reshape(c3)
+    rows = [(torch.arange(c), (torch.arange(c) + 1).clamp(max=c - 1)) for c in c3]
+    V = [[[v.index_select(0, rows[0][a0]).index_select(1, rows[1][a1])
+           .index_select(2, rows[2][a2]) for a2 in (0, 1)] for a1 in (0, 1)] for a0 in (0, 1)]
+    y = torch.zeros(f3, dtype=x.dtype)
+    writes = torch.zeros(f3, dtype=torch.int64)
+    cells = [(c, f // 2) for f, c in zip(f3, c3)]   # cells with an even, an odd point
+    for p0 in (0, 1):
+        A = [[V[0][a1][a2] if p0 == 0 else 0.5 * (V[0][a1][a2] + V[1][a1][a2])
+              for a2 in (0, 1)] for a1 in (0, 1)]
+        for p1 in (0, 1):
+            B = [A[0][a2] if p1 == 0 else 0.5 * (A[0][a2] + A[1][a2]) for a2 in (0, 1)]
+            for p2 in (0, 1):
+                out = B[0] if p2 == 0 else 0.5 * (B[0] + B[1])
+                m = [cells[ax][p] for ax, p in enumerate((p0, p1, p2))]
+                fine = tuple(slice(p, p + 2 * mm - 1, 2) if mm else slice(0, 0)
+                             for p, mm in zip((p0, p1, p2), m))
+                y[fine] = out[:m[0], :m[1], :m[2]]
+                writes[fine] += 1
+    return y.reshape(-1), writes
+
+
+@pytest.mark.parametrize("fshape", FSHAPES + ((9, 8, 7), (17,), (1, 5), (2, 3, 4), (1,)))
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_q1p_cells_cover_the_fine_grid_and_give_the_plain_bits(fshape, dtype):
+    """Q1P's launch plan: the grids padded to 3-D with unit axes, one cell
+    per coarse point, each fine point written by exactly one cell (at an
+    odd nf the last cell writes only its even point), the pair along i2 one
+    vector store exactly when f2 is even; the cells' sums equal the
+    per-axis composition bit for bit."""
+    f3, c3, pair = grid_kernels._q1_prolong_plan(fshape)
+    pad = 3 - len(fshape)
+    assert f3 == (1,) * pad + fshape and c3 == tuple((s + 1) // 2 for s in f3)
+    assert pair == (fshape[-1] % 2 == 0)
+    x = torch.from_numpy(np.random.default_rng(6).random(int(np.prod(c3)))).to(dtype)
+    y, writes = _q1p_by_cells(x, fshape)
+    assert bool((writes == 1).all())
+    assert torch.equal(y, grid_kernels.q1_prolong_plain(x, fshape))
