@@ -116,19 +116,22 @@ Phases, one JSON line each on stdout:
            kernel (the 64^3, 32^3 and 16^3 levels, 27 planes, and 65^3),
            V1's generic kernel (offsets reversed; a radius-2 star), Q1P
            (128^3 <- 64^3, 129^3 <- 65^3, 64^3 <- 32^3) and Q1R (128^3 ->
-           64^3, 129^3 -> 65^3) against their plain versions (f64 1e-13,
-           f32 1e-6; V1 and Q1P bit for bit), each timed beside its plain
-           version and, at the odd size, F.interpolate or F.conv3d; V1's
-           window and Q1P also beside their earlier designs (V1's generic
-           kernel; earlier_kernels/, built by its own nvcc in phase build)
-           in turns, earlier, new, new, earlier; and the card's probed 32^3
-           planes against the host Galerkin product of the port's SpGEMM
-           (1e-12);
-  gamg_grid_profile  the profile phase for one warm solve of each cycle.
+           64^3, 129^3 -> 65^3, 64^3 -> 32^3) against their plain versions
+           (f64 1e-13, f32 1e-6; V1, Q1P and Q1R bit for bit), each timed
+           beside its plain version and, at the odd size, F.interpolate or
+           F.conv3d; V1's window, Q1P and Q1R also beside their earlier
+           designs (V1's generic kernel; earlier_kernels/, built by its own
+           nvcc in phase build) in turns, earlier, new, new, earlier; Q1R's
+           plan (its 16-byte variant) on every Q1 level of the path; and
+           the card's probed 32^3 planes against the host Galerkin product
+           of the port's SpGEMM (1e-12);
+  gamg_grid_profile  the profile phase for one warm solve of each cycle,
+           with Q1R's and Q1P's µs per launch on each Q1 level.
 Then the kernel table as one JSON line (K2's, K4's and S1's rows also name
 their design, launch shape and share of the bound, S1's with its cp.async
 path, star and f32 times beside; V1's, Q1P's and Q1R's are the f32 cycle's,
-V1's and Q1P's with earlier_ms, the earlier design's time in the same turns;
+each with earlier_ms, the earlier design's time in the same turns, Q1R's
+and Q1P's with their µs per launch on each level of both cycles;
 every row of the path's kernels its µs per launch inside each solve), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. With
@@ -547,10 +550,15 @@ def warm_ms(ksp, b, x, reps=3):
     return best
 
 
-def profile_solve(ksp, b, x, warm_ms_best):
+def profile_solve(ksp, b, x, warm_ms_best, q1_levels=None):
     """One warm solve under torch.profiler: device busy time (the sum of
     the card's kernel and copy durations; one stream, so they do not
-    overlap), its share of the unprofiled warm time, and time by kernel."""
+    overlap), its share of the unprofiled warm time, and time by kernel.
+    With q1_levels (the Q1 levels' fine grids, finest first) also Q1R's
+    and Q1P's µs per launch on each level: a V-cycle restricts from the
+    finest level down and prolongates from the coarsest up, one launch per
+    level, so the n-th launch in time order belongs to level n mod levels
+    (Q1P's counted from the coarsest)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -561,11 +569,14 @@ def profile_solve(ksp, b, x, warm_ms_best):
         ksp.solve(b, x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name, q1_events = {}, {"q1_restrict": [], "q1_prolong": []}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             n, us = by_name.get(ev.name, (0, 0.0))
             by_name[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
+            for name in q1_events:
+                if any(key in ev.name for key in IN_SOLVE[name]):
+                    q1_events[name].append((ev.time_range.start, ev.time_range.elapsed_us()))
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     in_solve = {}
@@ -575,8 +586,21 @@ def profile_solve(ksp, b, x, warm_ms_best):
         if count:
             in_solve[name] = {"launches": count, "ms": sum(us for _, us in hits) / 1e3,
                               "us_per_launch": sum(us for _, us in hits) / count}
+    per_level = {}
+    if q1_levels:
+        nlev = len(q1_levels)
+        for name, evs in q1_events.items():
+            if not evs or len(evs) % nlev:
+                raise AssertionError(f"{len(evs)} {name} launches in the solve, not a positive "
+                                     f"multiple of its {nlev} Q1 levels")
+            order = q1_levels if name == "q1_restrict" else q1_levels[::-1]
+            us = [e[1] for e in sorted(evs)]
+            per_level[name] = {"x".join(map(str, order[k])): {
+                "launches": len(us[k::nlev]), "us_per_launch": sum(us[k::nlev]) / len(us[k::nlev])}
+                for k in range(nlev)}
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_share_of_warm": busy_ms / warm_ms_best if by_name else None,
+            "q1_per_level": per_level,
             "device_events": sum(n for n, _ in by_name.values()),
             "in_solve": in_solve,
             "by_kernel": [{"name": k[:90], "count": n, "ms": us / 1e3}
@@ -1396,7 +1420,7 @@ def grid_kernel_row(name, dtype, fn, plain, library_fn, nbytes, flops, tol, earl
 
 
 EARLIER = Path(__file__).resolve().parent / "earlier_kernels"
-EARLIER_SOURCES = ("q1_prolong_per_output.cu",)
+EARLIER_SOURCES = ("q1_prolong_per_output.cu", "q1_restrict_per_output.cu")
 
 
 def start_earlier_build():
@@ -1434,26 +1458,29 @@ def load_earlier(build):
         seconds = time.perf_counter() - t0
     L = ctypes.CDLL(str(lib))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    for sfx in ("f64", "f32"):
-        fn = getattr(L, f"ptt_earlier_q1_prolong_{sfx}")
-        fn.argtypes = [vp, vp] + [i32] * 7 + [vp]
-        fn.restype = ctypes.c_int
+    for name in ("q1_prolong", "q1_restrict"):
+        for sfx in ("f64", "f32"):
+            fn = getattr(L, f"ptt_earlier_{name}_{sfx}")
+            fn.argtypes = [vp, vp] + [i32] * 7 + [vp]
+            fn.restype = ctypes.c_int
     return L, seconds
 
 
-def earlier_q1_prolong(earlier, xc, fshape):
-    """Q1P by the earlier per-output design (earlier_kernels/), on the same
-    stream; raises on a CUDA error."""
+def earlier_q1(earlier, name, x, fshape):
+    """Q1P (name "q1_prolong", x coarse) or Q1R ("q1_restrict", x fine) by
+    the earlier per-output design (earlier_kernels/), on the same stream;
+    raises on a CUDA error."""
     import torch
     from petsc_tpu_torch.ops import cuda_build
     f3 = (1,) * (3 - len(fshape)) + tuple(fshape)
     c3 = tuple((s + 1) // 2 for s in f3)
-    y = torch.empty(math.prod(f3), dtype=xc.dtype, device=xc.device)
-    fn = getattr(earlier, "ptt_earlier_q1_prolong_" + ("f64" if xc.dtype == torch.float64
-                                                       else "f32"))
-    cuda_build.check("earlier q1_prolong", fn(y.data_ptr(), xc.data_ptr(), *f3, *c3,
-                                              xc.get_device(),
-                                              torch.cuda.current_stream().cuda_stream))
+    y = torch.empty(math.prod(f3 if name == "q1_prolong" else c3), dtype=x.dtype,
+                    device=x.device)
+    fn = getattr(earlier, f"ptt_earlier_{name}_" + ("f64" if x.dtype == torch.float64
+                                                    else "f32"))
+    cuda_build.check(f"earlier {name}", fn(y.data_ptr(), x.data_ptr(), *f3, *c3,
+                                           x.get_device(),
+                                           torch.cuda.current_stream().cuda_stream))
     return y
 
 
@@ -1486,9 +1513,14 @@ def star2_offsets():
     return tuple(offs)
 
 
+def q1r_plan(gridk, fshape, itemsize, aligned):
+    """Q1R's launch plan as its wrapper makes it."""
+    return gridk._q1_restrict_plan(tuple(fshape), itemsize, aligned, gridk._Q1R_THREADS)
+
+
 def phase_grid_kernels(gridk, gd, interp, gamg, ksps, flush, earlier):
     """Each grid kernel against its plain version, f64 and f32 (each
-    cycle's own hierarchy), with equal bits required of V1 and Q1P:
+    cycle's own hierarchy), with equal bits required of V1, Q1P and Q1R:
     V1's window kernel on the path's probed 64^3, 32^3 and 16^3 levels (27
     planes) and on an odd 65^3 grid (27 random planes, the scalar variant),
     each timed beside the earlier design (V1's generic kernel, one output
@@ -1496,20 +1528,23 @@ def phase_grid_kernels(gridk, gd, interp, gamg, ksps, flush, earlier):
     on the 64^3 level's stencil with its offsets reversed and on a radius-2
     star at 32^3 (random planes); Q1P at 128^3 <- 64^3, 129^3 <- 65^3 and
     64^3 <- 32^3, each timed beside the earlier per-output design
-    (earlier_kernels/) in turns; Q1R at 128^3 -> 64^3 and 129^3 -> 65^3 (at
-    the odd size F.interpolate(trilinear, align_corners=True) computes Q1P
-    and F.conv3d with stride 2 and the [.5, 1, .5]^3 weights computes Q1R,
-    each timed as the library call); then the card's probed 32^3 planes
-    (from the f64 hierarchy's 64^3 level) against the host Galerkin
-    product of the port's SpGEMM (1e-12 relative). Returns (rows, the f32
-    rows at the path's shapes keyed by kernel, the Galerkin check)."""
+    (earlier_kernels/) in turns; Q1R at the same shapes beside its earlier
+    per-output design likewise (at the odd size
+    F.interpolate(trilinear, align_corners=True) computes Q1P and F.conv3d
+    with stride 2 and the [.5, 1, .5]^3 weights computes Q1R, each timed as
+    the library call); Q1R's plan on each Q1 level of the path, which must
+    take the 16-byte variant; then the card's probed 32^3 planes (from the
+    f64 hierarchy's 64^3 level) against the host Galerkin product of the
+    port's SpGEMM (1e-12 relative). Returns (rows, the f32 rows at the
+    path's shapes keyed by kernel, the Galerkin check, Q1R's plan per
+    level and cycle)."""
     import torch
     import torch.nn.functional as F
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(31)
     tol = {torch.float64: 1e-13, torch.float32: 1e-6}
     torch.backends.cudnn.allow_tf32 = False       # F.conv3d in the operands' own precision
-    rows, main = [], {}
+    rows, main, q1r_path = [], {}, {}
     no_lib = "none: no single PyTorch call applies per-point coefficient planes"
     for cycle, dtype in (("f64", torch.float64), ("f32", torch.float32)):
         isz = torch.empty((), dtype=dtype).element_size()
@@ -1585,21 +1620,31 @@ def phase_grid_kernels(gridk, gd, interp, gamg, ksps, flush, earlier):
                 "q1_prolong", dtype, lambda xc=xc, fshape=fshape: gridk.q1_prolong(xc, fshape),
                 lambda xc=xc, fshape=fshape: gridk.q1_prolong_plain(xc, fshape), lib,
                 (nf + nc) * isz, 2 * nf, tol[dtype],
-                earlier=lambda xc=xc, fshape=fshape: earlier_q1_prolong(earlier, xc, fshape),
+                earlier=lambda xc=xc, fshape=fshape: earlier_q1(earlier, "q1_prolong", xc, fshape),
                 fine=list(fshape), pair_stores=gridk._q1_prolong_plan(fshape)[2],
                 library="F.interpolate(trilinear, align_corners=True)" if lib else
                 "none at an even size: F.interpolate has no clamp of the last odd point"))
-            if fshape[0] < N_MAIN:
-                continue
+            plan = q1r_plan(gridk, fshape, isz, xf.data_ptr() % 16 == 0)
             rows.append(grid_kernel_row(
                 "q1_restrict", dtype,
                 lambda xf=xf, fshape=fshape: gridk.q1_restrict(xf, fshape),
                 lambda xf=xf, fshape=fshape: gridk.q1_restrict_plain(xf, fshape), lib_r,
                 (nf + nc) * isz, 2 * nf, tol[dtype], fine=list(fshape),
+                earlier=lambda xf=xf, fshape=fshape: earlier_q1(earlier, "q1_restrict", xf, fshape),
+                variant="vector" if plan["vector"] else "scalar", block=list(plan["block"]),
+                grid=list(plan["grid"]),
                 library="F.conv3d(stride 2, padding 1, [.5, 1, .5]^3)" if lib_r else
                 "none at an even size: F.conv3d has no clamp of the last odd point"))
+        # Q1R's variant at each of the path's levels (fresh, aligned vectors)
+        q1r_plans = {str(lev.A.meta[1]): q1r_plan(gridk, lev.A.meta[1], isz, True)
+                     for lev in levels[:-1] if lev.P.meta[0] == "interp_q1"}
+        if len(q1r_plans) != 4 or not all(p["vector"] for p in q1r_plans.values()):
+            raise AssertionError(f"Q1R's plan on the path's levels ({cycle}): {q1r_plans}")
+        q1r_path[cycle] = {k: {"vector": p["vector"], "block": list(p["block"]),
+                               "grid": list(p["grid"])} for k, p in q1r_plans.items()}
     unequal = [(r["name"], r["dtype"], r.get("shape") or r.get("fine")) for r in rows
-               if r["name"] in ("dnd_stencil", "q1_prolong") and not r["equal_bits"]]
+               if r["name"] in ("dnd_stencil", "q1_prolong", "q1_restrict")
+               and not r["equal_bits"]]
     if unequal:
         raise AssertionError(f"kernels that differ from their plain versions in bits: {unequal}")
     for r in rows:
@@ -1634,7 +1679,7 @@ def phase_grid_kernels(gridk, gd, interp, gamg, ksps, flush, earlier):
     galerkin = {"fine": list(A1.meta[1]), "coarse": list(A2.meta[1]), "nnz": int(host.nnz),
                 "rel_diff": float(diff), "host_seconds": time.perf_counter() - t0}
     torch.cuda.empty_cache()
-    return rows, main, galerkin
+    return rows, main, galerkin, q1r_path
 
 
 def phase_gamg_grid(pt, pk, gridk, sb, smi, t_start, flush, jac_ms, earlier):
@@ -1662,8 +1707,10 @@ def phase_gamg_grid(pt, pk, gridk, sb, smi, t_start, flush, jac_ms, earlier):
         res[cycle] = (ksp, b, x, rec["warm_ms_best_of_3"], rec["launches"])
         ksps[cycle] = ksp
     out["cg_jacobi_warm_ms"] = jac_ms
-    rows, main, galerkin = phase_grid_kernels(gridk, gd, interp, gamg, ksps, flush, earlier)
+    rows, main, galerkin, q1r_path = phase_grid_kernels(gridk, gd, interp, gamg, ksps, flush,
+                                                        earlier)
     out["kernel_checks"] = rows
+    out["q1_restrict_plan_per_level"] = q1r_path
     out["probed_vs_host_galerkin"] = galerkin
     out["seconds_so_far"] = time.perf_counter() - t_start
     return out, main, res
@@ -1912,7 +1959,9 @@ def main():
     prof_grid = {}
     for cycle in ("f32", "f64"):
         ksp_q, b_q, x_q, ms_q, _ = grid_res[cycle]
-        prof_grid[cycle] = profile_solve(ksp_q, b_q, x_q, ms_q)
+        q1_levels = [lev.A.meta[1] for lev in ksp_q.getPC()._impl.levels[:-1]
+                     if lev.P.meta[0] == "interp_q1"]
+        prof_grid[cycle] = profile_solve(ksp_q, b_q, x_q, ms_q, q1_levels)
         emit({"phase": "gamg_grid_profile", "solve": f"cg+gamg structured, {cycle} cycle",
               "nvidia_smi": smi, **prof_grid[cycle],
               "seconds_so_far": time.perf_counter() - t_start})
@@ -2005,8 +2054,8 @@ def main():
                   for r in cheby_rows if r is not cheby_main})
     # V1's, Q1P's and Q1R's rows are the f32 cycle's (the main path's) at its
     # 64^3 level (27 planes) and 128^3 <-> 64^3; f64, the other shapes, the
-    # generic V1 kernel and the odd sizes stand beside them. V1's and Q1P's
-    # earlier_ms is the earlier design's, timed in turns with ms.
+    # generic V1 kernel and the odd sizes stand beside them. earlier_ms is
+    # the earlier design's, timed in turns with ms.
     keep = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "equal_bits",
             "earlier_ms", "kernel", "variant")
     for name in ("dnd_stencil", "q1_prolong", "q1_restrict"):
@@ -2020,6 +2069,12 @@ def main():
         if "earlier_ms" in m:
             r.update(earlier_ms=m["earlier_ms"], turns_ms=m["turns_ms"],
                      earlier_share_of_bound=m["earlier_share_of_bound"])
+        if name != "dnd_stencil":
+            r["in_solve_us_per_level"] = {c: prof_grid[c]["q1_per_level"][name]
+                                          for c in ("f32", "f64")}
+    q1r = next(r for r in table if r["name"] == "q1_restrict")
+    q1r.update({k: grid_main["q1_restrict"][k] for k in ("variant", "block", "grid")},
+               plan_per_level=grid_rec["q1_restrict_plan_per_level"])
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

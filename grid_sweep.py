@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Time V1's window kernel over its block sizes, beside V1's generic kernel,
-and Q1P's per-cell kernel beside the earlier per-output design, on one
+Q1P's per-cell kernel beside the earlier per-output design, and Q1R's
+kernel over its block sizes beside the earlier per-output design, on one
 NVIDIA GPU.
 
     python3 grid_sweep.py [--threads 64,128] [--blocks-per-sm 4] [--rounds 2]
+                          [--q1r-threads 64,128,256] [--only v1,q1p,q1r]
 
 Builds the package's kernels and the earlier designs (earlier_kernels/),
 then in float32 and float64 on random planes (27, the {-1,0,1}^3 box in
@@ -17,7 +19,13 @@ flushed before each); reports its registers, blocks per SM and spill
 bytes; and times coef.sum(0), one PyTorch call that reads the 27 planes and
 writes one (28 of V1's 29 values per point), as a yardstick of the bytes.
 Then Q1P at 128^3 <- 64^3, 129^3 <- 65^3 and 64^3 <- 32^3 against the
-earlier design the same way. One JSON line per row, the nvidia-smi name
+earlier design the same way; then Q1R at 128^3 -> 64^3, 129^3 -> 65^3 and
+the path's smaller levels 64^3, 32^3 and 16^3 for each block size
+(ops/grid_kernels.py _Q1R_THREADS), each checked for equal bits and
+timed against the earlier design in turns, after the flush and warm (no
+flush, x left in L2 by the launch before, as in the solve), beside
+xf.sum(), one PyTorch call that reads the fine vector once (a yardstick of
+the read, not the same function). One JSON line per row, the nvidia-smi name
 and power limit, and the same lines in chiprun_out/grid_sweep.json. Exits
 non-zero without a CUDA device.
 """
@@ -35,6 +43,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SHAPES = ((64,) * 3, (32,) * 3, (16,) * 3, (65,) * 3)
 Q1_FINE = ((128,) * 3, (129,) * 3, (64,) * 3)
+Q1R_FINE = ((128,) * 3, (129,) * 3, (64,) * 3, (32,) * 3, (16,) * 3)
 
 
 def in_turns(old, new, flush, rounds):
@@ -53,7 +62,10 @@ def main():
     ap.add_argument("--threads", default="64,128")
     ap.add_argument("--blocks-per-sm", default="4")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--q1r-threads", default="64,128,256")
+    ap.add_argument("--only", default="v1,q1p,q1r")
     args = ap.parse_args()
+    only = set(args.only.split(","))
     import torch
     if not torch.cuda.is_available():
         print("grid_sweep: no CUDA device", file=sys.stderr)
@@ -81,7 +93,7 @@ def main():
     for dtype in (torch.float32, torch.float64):
         isz = torch.empty((), dtype=dtype).element_size()
         dn = str(dtype).replace("torch.", "")
-        for shape in SHAPES:
+        for shape in SHAPES if "v1" in only else ():
             n = math.prod(shape)
             coef = torch.rand((27,) + shape, generator=gen, device=dev, dtype=dtype)
             x = torch.rand(n, generator=gen, device=dev, dtype=dtype)
@@ -107,18 +119,48 @@ def main():
                       "share_of_bound": bound_ms / new_ms,
                       "launch": gridk.dnd_window_config(dtype, win["vector"], True,
                                                         win["block"], dev)})
-        for fshape in Q1_FINE:
+        for fshape in Q1_FINE if "q1p" in only else ():
             cshape = tuple((s + 1) // 2 for s in fshape)
             xc = torch.rand(math.prod(cshape), generator=gen, device=dev, dtype=dtype)
             plain = gridk.q1_prolong_plain(xc, fshape)
             equal = bool(torch.equal(gridk.q1_prolong(xc, fshape), plain)) and \
-                bool(torch.equal(cs.earlier_q1_prolong(earlier, xc, fshape), plain))
-            old_ms, new_ms = in_turns(lambda: cs.earlier_q1_prolong(earlier, xc, fshape),
+                bool(torch.equal(cs.earlier_q1(earlier, "q1_prolong", xc, fshape), plain))
+            old_ms, new_ms = in_turns(lambda: cs.earlier_q1(earlier, "q1_prolong", xc, fshape),
                                       lambda: gridk.q1_prolong(xc, fshape), flush, args.rounds)
             bound_ms = (math.prod(fshape) + math.prod(cshape)) * isz / cs.PEAK_BYTES_PER_S * 1e3
             emit({"kernel": "q1_prolong", "dtype": dn, "fine": list(fshape),
                   "equal_bits": equal, "cell_ms": new_ms, "earlier_ms": old_ms,
                   "bound_ms": bound_ms, "share_of_bound": bound_ms / new_ms})
+        for fshape in Q1R_FINE if "q1r" in only else ():
+            cshape = tuple((s + 1) // 2 for s in fshape)
+            xf = torch.rand(math.prod(fshape), generator=gen, device=dev, dtype=dtype)
+            plain = gridk.q1_restrict_plain(xf, fshape)
+            old = lambda: cs.earlier_q1(earlier, "q1_restrict", xf, fshape)  # noqa: E731
+            bound_ms = (math.prod(fshape) + math.prod(cshape)) * isz / cs.PEAK_BYTES_PER_S * 1e3
+            emit({"kernel": "xf.sum()", "dtype": dn, "fine": list(fshape),
+                  "ms": cs.time_ms(lambda: xf.sum(), flush),
+                  "bound_ms": math.prod(fshape) * isz / cs.PEAK_BYTES_PER_S * 1e3,
+                  "equal_bits": True})
+            seen = set()
+            for threads in map(int, args.q1r_threads.split(",")):
+                gridk._Q1R_THREADS = threads
+                plan = gridk._q1_restrict_plan(fshape, isz, True, threads)
+                if plan["args"] in seen:       # another setting that plans the same launch
+                    continue
+                seen.add(plan["args"])
+                equal = bool(torch.equal(gridk.q1_restrict(xf, fshape), plain)) and \
+                    bool(torch.equal(old(), plain))
+                old_ms, new_ms = in_turns(old, lambda: gridk.q1_restrict(xf, fshape), flush,
+                                          args.rounds)
+                # warm: x left in L2 by the launch before, as in the solve
+                old_warm, new_warm = in_turns(old, lambda: gridk.q1_restrict(xf, fshape),
+                                              lambda: None, args.rounds)
+                emit({"kernel": "q1_restrict", "dtype": dn, "fine": list(fshape),
+                      "threads": threads, "vector": plan["vector"],
+                      "block": list(plan["block"]), "grid": list(plan["grid"]),
+                      "equal_bits": equal, "ms": new_ms, "earlier_ms": old_ms,
+                      "warm_ms": new_warm, "earlier_warm_ms": old_warm, "bound_ms": bound_ms,
+                      "share_of_bound": bound_ms / new_ms})
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
     (dest / "grid_sweep.json").write_text("\n".join(json.dumps(r) for r in out) + "\n")

@@ -36,10 +36,25 @@
 // (f32) or 16-byte (f64) store; with an odd f2 the wrapper
 // (ops/grid_kernels.py _q1_prolong_plan) takes the scalar-store variant.
 //
-// Q1R, simple first: one output per thread in a grid-stride loop over the
-// flat index; a thread reads at most 4 x 4 x 4 fine values (27 inside the
-// grid), each also read by the neighbouring coarse points' threads, so the
-// fine vector streams through the L1 and L2 about 3.4 times in all.
+// Q1R: one thread per coarse plane, row and kC coarse points along i2,
+// with no barrier and no shared memory, so that nothing serialises a
+// block: the thread issues all of its loads before its first sum (the
+// kP = 2 kC fine points 2 j2 .. of the 3 x 3 fine rows 2 j1 - 1 .. 2 j1 + 1
+// of planes 2 j0 - 1 .. 2 j0 + 1; 9 loads of 16 bytes in the 16-byte
+// variant), then sums axis 2 of each row, axis 1 of each plane and axis 0
+// in registers and stores its kC points (one 8-byte store in f32). The
+// point 2 j2 - 1 before a thread's first comes from the lane before
+// (__shfl_up_sync), or from one scalar load at the first thread of a tile
+// row or of a warp. Neighbouring threads of a block (along j1) read the
+// shared odd row through L1; neighbouring planes (along j0) share theirs
+// through L2, so each fine value comes from device memory once, and the
+// partials of a shared odd row or plane are formed by both of the threads
+// that read it, each as the same expression (the same bits). The 16-byte
+// variant (kC = 8 / itemsize) needs f2 itemsize to be a multiple of 16
+// and an aligned x; the scalar variant (kC = 1: two scalar loads per row,
+// consecutive lanes on consecutive pairs) takes odd or narrow f2 and views
+// off a 16-byte edge. The wrapper (ops/grid_kernels.py _q1_restrict_plan)
+// picks the variant and the block. There is no division per point.
 #include "common.cuh"
 
 namespace {
@@ -49,23 +64,8 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 
-// The fine points that coarse point j sums along one axis, in the
-// reference's order: the first with weight 1, the others with 0.5.
-__device__ __forceinline__ int restrict_taps(int j, int nf, int nc, int (&t)[4]) {
-  int m = 0;
-  t[m++] = 2 * j;
-  if (nf & 1) {
-    if (j < nc - 1) t[m++] = 2 * j + 1;
-    if (j >= 1) t[m++] = 2 * j - 1;
-  } else {
-    t[m++] = 2 * j + 1;
-    if (j >= 1) t[m++] = 2 * j - 1;
-    if (j == nc - 1) t[m++] = 2 * j + 1;
-  }
-  return m;
-}
-
-// The pair (2 j2, 2 j2 + 1) of one fine row: one 8- or 16-byte store.
+// Two consecutive points of one row (Q1P's fine pair 2 j2, 2 j2 + 1; two
+// of Q1R's coarse points): one 8- or 16-byte store.
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -127,34 +127,115 @@ q1_prolong_kernel(T* __restrict__ y, const T* __restrict__ x, int f0, int f1, in
   }
 }
 
+// 16 bytes of one fine row, by one read-only load.
+__device__ __forceinline__ void load_pack(float (&v)[4], const float* p) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load_pack(double (&v)[2], const double* p) {
+  const double2 q = __ldg(reinterpret_cast<const double2*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+}
+
+// One coarse point of one axis from its three fine values in the
+// reference's order: f[2j] + 0.5 f[2j+1] (2j + 1 < nf) + 0.5 f[2j-1]
+// (j >= 1) + 0.5 f[2j+1] (the clamp: an even nf, j = nc - 1).
 template <typename T>
-__global__ void __launch_bounds__(ptt::kThreads)
+__device__ __forceinline__ T restrict_one(T even, T odd, T before, int j, int nf, int nc) {
+  const T half = T(0.5);
+  T r = even;
+  if (2 * j + 1 < nf) r = add_rn(r, mul_rn(half, odd));
+  if (j >= 1) r = add_rn(r, mul_rn(half, before));
+  if (!(nf & 1) && j == nc - 1) r = add_rn(r, mul_rn(half, odd));
+  return r;
+}
+
+// One thread per kC coarse points (j0, j1, j2 .. j2 + kC - 1): kP = 2 kC
+// fine points 2 j2 .. of each of the 9 fine rows (2 j1 - 1 + a, planes
+// 2 j0 - 1 + b). blockIdx.x / threadIdx.x walk the points along i2,
+// blockIdx.y / threadIdx.y the coarse rows and blockIdx.z the coarse
+// planes (the latter two taking further tiles in turns where the grid is
+// capped, with the same trip count in every thread of a block, so that a
+// warp shuffles as one). The registers are held to 80 in f64 and 64 in
+// f32 (room for 3 or 4 blocks of 256 threads per SM), which measured
+// faster than the compiler's own 104 and 76 (grid_sweep.py, PERF.md).
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(ptt::kThreads, sizeof(T) == 8 ? 3 : 4)
 q1_restrict_kernel(T* __restrict__ y, const T* __restrict__ x, int f0, int f1, int f2, int c0,
                    int c1, int c2) {
-  const int n = c0 * c1 * c2;
-  const int stride = gridDim.x * blockDim.x;
-  const T half = T(0.5);
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n; p += stride) {
-    const int j2 = p % c2;
-    const int q = p / c2;
-    const int j1 = q % c1;
-    const int j0 = q / c1;
-    int t0[4], t1[4], t2[4];
-    const int m0 = restrict_taps(j0, f0, c0, t0);
-    const int m1 = restrict_taps(j1, f1, c1, t1);
-    const int m2 = restrict_taps(j2, f2, c2, t2);
-    T r0 = T(0);
-    for (int a0 = 0; a0 < m0; ++a0) {
-      T r1 = T(0);
-      for (int a1 = 0; a1 < m1; ++a1) {
-        const T* row = x + (t0[a0] * f1 + t1[a1]) * f2;
-        T r2 = __ldg(row + t2[0]);
-        for (int a2 = 1; a2 < m2; ++a2) r2 = add_rn(r2, mul_rn(half, __ldg(row + t2[a2])));
-        r1 = a1 == 0 ? r2 : add_rn(r1, mul_rn(half, r2));
+  constexpr int kP = kVec ? 16 / (int)sizeof(T) : 2, kC = kP / 2;
+  const int nx = blockDim.x, ny = blockDim.y;
+  const int tid = threadIdx.y * nx + threadIdx.x;
+  const int lanes = min(32, nx * ny - (tid & ~31));
+  const unsigned mask = lanes == 32 ? 0xffffffffu : (1u << lanes) - 1u;
+  const int c = (blockIdx.x * nx + threadIdx.x) * kP, j2 = c / 2;
+  // the point c - 1 is the lane before's last, except at a tile's or a
+  // warp's first thread, which loads it
+  const bool load_left = (threadIdx.x == 0 || (tid & 31) == 0) && c >= 1 && c <= f2;
+  const int tiles1 = (c1 + ny - 1) / ny;
+  for (int b1 = blockIdx.y; b1 < tiles1; b1 += gridDim.y) {
+    const int j1 = b1 * ny + threadIdx.y;
+    const bool active = j1 < c1 && c < f2;
+    for (int j0 = blockIdx.z; j0 < c0; j0 += gridDim.z) {
+      // every load of the thread in flight before the first sum (offsets
+      // in 32 bits: the grid holds fewer than 2^31 points)
+      bool plane_in[3], row_in[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        plane_in[k] = active && 2 * j0 - 1 + k >= 0 && 2 * j0 - 1 + k < f0;
+        row_in[k] = 2 * j1 - 1 + k >= 0 && 2 * j1 - 1 + k < f1;
       }
-      r0 = a0 == 0 ? r1 : add_rn(r0, mul_rn(half, r1));
+      T v[3][3][kP], left[3][3];   // [plane 2 j0 - 1 + b][row 2 j1 - 1 + a]
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const bool in = plane_in[b] && row_in[a];
+          const T* row = x + (in ? ((2 * j0 - 1 + b) * f1 + 2 * j1 - 1 + a) * f2 : 0);
+          if constexpr (kVec) {
+            if (in) {
+              load_pack(v[b][a], row + c);
+            } else {
+#pragma unroll
+              for (int u = 0; u < kP; ++u) v[b][a][u] = T(0);
+            }
+          } else {
+#pragma unroll
+            for (int u = 0; u < kP; ++u) v[b][a][u] = in && c + u < f2 ? __ldg(row + c + u) : T(0);
+          }
+          left[b][a] = in && load_left ? __ldg(row + c - 1) : T(0);
+        }
+      T r1[3][kC];   // axis 2, then axis 1, of each of the three planes
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        T r2[3][kC];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const T before = __shfl_up_sync(mask, v[b][a][kP - 1], 1);
+#pragma unroll
+          for (int u = 0; u < kC; ++u)
+            r2[a][u] = restrict_one(v[b][a][2 * u], v[b][a][2 * u + 1],
+                                    u ? v[b][a][2 * u - 1] : (load_left ? left[b][a] : before),
+                                    j2 + u, f2, c2);
+        }
+#pragma unroll
+        for (int u = 0; u < kC; ++u)
+          r1[b][u] = restrict_one(r2[1][u], r2[2][u], r2[0][u], j1, f1, c1);
+      }
+      if (!active) continue;
+      T out[kC];
+#pragma unroll
+      for (int u = 0; u < kC; ++u) out[u] = restrict_one(r1[1][u], r1[2][u], r1[0][u], j0, f0, c0);
+      T* const dst = y + (j0 * c1 + j1) * c2 + j2;
+      if constexpr (kC == 2)
+        store_pair(dst, out[0], out[1]);
+      else
+        dst[0] = out[0];
     }
-    y[p] = r0;
   }
 }
 
@@ -180,11 +261,21 @@ int launch_prolong(void* y, const void* x, int f0, int f1, int f2, int c0, int c
 
 template <typename T>
 int launch_restrict(void* y, const void* x, int f0, int f1, int f2, int c0, int c1, int c2,
-                    int device, void* stream) {
+                    int vec, int nx, int ny, int device, void* stream) {
+  constexpr int kW = 16 / (int)sizeof(T);
+  if (nx < 1 || ny < 1 || nx * ny > ptt::kThreads || (vec && (f2 % kW || !ptt::aligned16(x))))
+    return (int)cudaErrorInvalidValue;
   PTT_TRY(cudaSetDevice(device));
-  const int grid = ptt::grid_for((long long)c0 * c1 * c2, device, 1LL << 30);
-  q1_restrict_kernel<T><<<grid, ptt::kThreads, 0, (cudaStream_t)stream>>>(
-      (T*)y, (const T*)x, f0, f1, f2, c0, c1, c2);
+  const int kp = vec ? kW : 2;
+  const int points = (f2 + kp - 1) / kp;
+  const dim3 grid((points + nx - 1) / nx, min((c1 + ny - 1) / ny, 65535), min(c0, 65535));
+  const dim3 block(nx, ny);
+  if (vec)
+    q1_restrict_kernel<T, true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        (T*)y, (const T*)x, f0, f1, f2, c0, c1, c2);
+  else
+    q1_restrict_kernel<T, false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        (T*)y, (const T*)x, f0, f1, f2, c0, c1, c2);
   return (int)cudaGetLastError();
 }
 
@@ -193,7 +284,9 @@ int launch_restrict(void* y, const void* x, int f0, int f1, int f2, int c0, int 
 // (f0, f1, f2): the fine grid, (c0, c1, c2) = ((f + 1) / 2 per axis): the
 // coarse one; both hold fewer than 2^31 points. prolong: x coarse, y fine,
 // pair: the vector-store variant (an even f2, y 16-byte aligned);
-// restrict: x fine, y coarse.
+// restrict: x fine, y coarse; vec: the 16-byte variant (f2 itemsize a
+// multiple of 16, x 16-byte aligned); an nx x ny block (threads along
+// the points of i2 by coarse rows).
 extern "C" int ptt_q1_prolong_f64(void* y, const void* x, int f0, int f1, int f2, int c0,
                                   int c1, int c2, int pair, int device, void* stream) {
   return launch_prolong<double>(y, x, f0, f1, f2, c0, c1, c2, pair, device, stream);
@@ -205,11 +298,15 @@ extern "C" int ptt_q1_prolong_f32(void* y, const void* x, int f0, int f1, int f2
 }
 
 extern "C" int ptt_q1_restrict_f64(void* y, const void* x, int f0, int f1, int f2, int c0,
-                                   int c1, int c2, int device, void* stream) {
-  return launch_restrict<double>(y, x, f0, f1, f2, c0, c1, c2, device, stream);
+                                   int c1, int c2, int vec, int nx, int ny, int device,
+                                   void* stream) {
+  return launch_restrict<double>(y, x, f0, f1, f2, c0, c1, c2, vec, nx, ny,
+                                 device, stream);
 }
 
 extern "C" int ptt_q1_restrict_f32(void* y, const void* x, int f0, int f1, int f2, int c0,
-                                   int c1, int c2, int device, void* stream) {
-  return launch_restrict<float>(y, x, f0, f1, f2, c0, c1, c2, device, stream);
+                                   int c1, int c2, int vec, int nx, int ny, int device,
+                                   void* stream) {
+  return launch_restrict<float>(y, x, f0, f1, f2, c0, c1, c2, vec, nx, ny,
+                                device, stream);
 }

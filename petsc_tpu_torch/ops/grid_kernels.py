@@ -22,7 +22,11 @@ planes; otherwise it takes its scalar variant. Both count as
 ``dnd_stencil``. Q1P and Q1R are the structured levels' transfers and the
 probe's P and P^T; Q1P writes one coarse cell's fine points per thread,
 each row's pair along i2 as one vector store at an even f2
-(``_q1_prolong_plan``).
+(``_q1_prolong_plan``); Q1R gives each thread the coarse points of one
+plane and row whose fine points along i2 one 16-byte load holds (where
+f2 * itemsize is a multiple of 16 and x is aligned, else one coarse point
+and two scalar loads), all of its 9 fine rows' loads in flight before it
+sums (``_q1_restrict_plan``).
 
 Every wrapper checks device, dtype (float64 or float32), shape and
 contiguity and raises on what its kernel does not take; allocates its
@@ -38,6 +42,7 @@ the two give equal bits.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from itertools import product
 
 import torch
@@ -57,6 +62,7 @@ _WINDOW_THREADS = 128      # threads of a window block
 _WINDOW_BLOCKS_PER_SM = 4  # blocks per SM the chunking of i0 aims at
 _GRID_YZ_MAX = 65535
 _H100_SMS = 132            # the SMs a plan assumes for planes that are not on a card
+_Q1R_THREADS = 128         # threads of a Q1R block at most (csrc/common.cuh kThreads: 256)
 
 
 def reset_launches():
@@ -364,6 +370,27 @@ def _q1_prolong_plan(fshape):
     return f3, _coarse_of(f3), f3[2] % 2 == 0
 
 
+@lru_cache(maxsize=None)
+def _q1_restrict_plan(fshape, itemsize, aligned, threads=_Q1R_THREADS):
+    """Q1R's launch for the fine grid `fshape` (both grids padded to 3-D):
+    the 16-byte variant (a thread's 16 / itemsize fine points along i2,
+    half as many coarse ones) where f2 * itemsize is a multiple of 16 and
+    x is 16-byte `aligned`, else the scalar one (2 fine points, one coarse);
+    a block of nx x ny threads, at most 32 along i2 and `threads` in all,
+    each axis cut into tiles of equal size; the grid (coarse planes along
+    z). Returns a dict; "args" are the launch's arguments after y and x."""
+    f3 = _grid3(fshape)
+    c3 = _coarse_of(f3)
+    vec = (f3[2] * itemsize) % 16 == 0 and aligned
+    points = -(-f3[2] // (16 // itemsize if vec else 2))
+    nx = -(-points // -(-points // 32))
+    ny = max(1, min(threads // nx, c3[1]))
+    ny = -(-c3[1] // -(-c3[1] // ny))
+    grid = (-(-points // nx), min(-(-c3[1] // ny), _GRID_YZ_MAX), min(c3[0], _GRID_YZ_MAX))
+    return {"fine": f3, "coarse": c3, "vector": vec, "block": (nx, ny), "grid": grid,
+            "args": (*f3, *c3, int(vec), nx, ny)}
+
+
 def _q1(name, plain, x, fshape, prolong):
     fshape = tuple(int(s) for s in fshape)
     cshape = _coarse_of(fshape)
@@ -378,7 +405,8 @@ def _q1(name, plain, x, fshape, prolong):
             f3, c3, pair = _q1_prolong_plan(fshape)
             args = (*f3, *c3, int(pair))
         else:
-            args = (*_grid3(fshape), *_grid3(cshape))
+            args = _q1_restrict_plan(fshape, x.element_size(), x.data_ptr() % 16 == 0,
+                                     _Q1R_THREADS)["args"]
         cuda_build.launch(LAUNCHES, name, x, y.data_ptr(), x.data_ptr(), *args)
     return y
 

@@ -536,23 +536,31 @@ def test_dnd_stencil_matches_plain(cuda_device, dtype, shape, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fshape", ((64, 64, 64), (65, 65, 65), (9, 8, 6), (8, 6), (128,),
-                                    (17,)))
+                                    (17,), (128, 128, 128), (129, 129, 129), (2, 2, 2),
+                                    (3, 5, 130)))
+@pytest.mark.parametrize("view", ("fresh", "one element past a 16-byte edge"))
 @pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
-def test_q1_kernels_match_plain(cuda_device, dtype, fshape):
+def test_q1_kernels_match_plain(cuda_device, dtype, view, fshape):
     """Q1P and Q1R against their plain versions (the per-axis composition)
-    on the card, even and odd sizes (1e-13 in f64, 1e-6 in f32), and
-    against the assembled P in float64."""
+    on the card, even and odd sizes: Q1R bit for bit in both of its
+    variants (the fine vector fresh, or a view one element past a 16-byte
+    edge, which takes the scalar variant), Q1P to 1e-13 in f64 and 1e-6 in
+    f32; both against the assembled P in float64."""
     from petsc_tpu_torch.dm.interp import MatInterpQ1
     from petsc_tpu_torch.ops import grid_kernels as gridk
     cshape = tuple((s + 1) // 2 for s in fshape)
     xc = torch.rand(int(np.prod(cshape)), dtype=dtype, device=cuda_device)
-    xf = torch.rand(int(np.prod(fshape)), dtype=dtype, device=cuda_device)
+    nf = int(np.prod(fshape))
+    buf = torch.rand(nf + 1, dtype=dtype, device=cuda_device)
+    xf = buf[:nf] if view == "fresh" else buf[1:]
+    plan = gridk._q1_restrict_plan(fshape, xf.element_size(), xf.data_ptr() % 16 == 0)
+    assert plan["vector"] == (view == "fresh" and fshape[-1] * xf.element_size() % 16 == 0)
     gridk.reset_launches()
     kp, kr = gridk.q1_prolong(xc, fshape), gridk.q1_restrict(xf, fshape)
     pp, pr = gridk.q1_prolong_plain(xc, fshape), gridk.q1_restrict_plain(xf, fshape)
     torch.cuda.synchronize()
     tol = 1e-13 if dtype == torch.float64 else 1e-6
-    assert _rel(kp, pp) <= tol and _rel(kr, pr) <= tol
+    assert _rel(kp, pp) <= tol and torch.equal(kr, pr)
     P = MatInterpQ1(fshape, cshape).to_scipy()
     assert _rel(kp.double(), torch.as_tensor(P @ xc.double().cpu().numpy(),
                                              device=cuda_device)) <= tol

@@ -133,3 +133,136 @@ def test_q1p_cells_cover_the_fine_grid_and_give_the_plain_bits(fshape, dtype):
     y, writes = _q1p_by_cells(x, fshape)
     assert bool((writes == 1).all())
     assert torch.equal(y, grid_kernels.q1_prolong_plain(x, fshape))
+
+
+def _q1r_by_threads(x, plan):
+    """Q1R rebuilt from its launch plan the way its kernel computes it:
+    each block of the grid takes its tiles of coarse rows and its coarse
+    planes in turns; each thread loads its fine points 2 j2 .. (16 /
+    itemsize of them in the 16-byte variant, else 2) of the 9 fine rows
+    around its coarse point, takes the point before them from the lane
+    before in its warp unless it loads that itself, and sums axis 2 of
+    each row, axis 1 of each plane and axis 0, each in the reference's
+    order. Returns (y, how often each coarse point was written)."""
+    f0, f1, f2 = plan["fine"]
+    c0, c1, c2 = plan["coarse"]
+    nx, ny = plan["block"]
+    gx, gy, gz = plan["grid"]
+    v = x.numpy().reshape(plan["fine"])
+    kp = 16 // v.itemsize if plan["vector"] else 2
+    zero, half = v.dtype.type(0), v.dtype.type(0.5)
+    y = np.zeros((c0, c1, c2), v.dtype)
+    writes = np.zeros((c0, c1, c2), np.int64)
+
+    def one(even, odd, before, j, nf, nc):   # one axis in the reference's order
+        r = even
+        if 2 * j + 1 < nf:
+            r = r + half * odd
+        if j >= 1:
+            r = r + half * before
+        if nf % 2 == 0 and j == nc - 1:
+            r = r + half * odd
+        return r
+
+    for bx, by, bz in np.ndindex(gx, gy, gz):
+        for b1 in range(by, -(-c1 // ny), gy):
+            for j0 in range(bz, c0, gz):
+                loads = []
+                for tid in range(nx * ny):
+                    c, j1 = (bx * nx + tid % nx) * kp, b1 * ny + tid // nx
+                    active = j1 < c1 and c < f2
+                    load_left = (tid % nx == 0 or tid % 32 == 0) and 1 <= c <= f2
+                    rows = {}
+                    for b, a in np.ndindex(3, 3):
+                        i0, i1 = 2 * j0 - 1 + b, 2 * j1 - 1 + a
+                        ok = active and 0 <= i0 < f0 and 0 <= i1 < f1
+                        rows[b, a] = ([v[i0, i1, c + u] if ok and c + u < f2 else zero
+                                       for u in range(kp)],
+                                      v[i0, i1, c - 1] if ok and load_left else zero)
+                    loads.append((c, j1, active, load_left, rows))
+                for tid, (c, j1, active, load_left, rows) in enumerate(loads):
+                    if not active:
+                        continue
+                    r1 = []
+                    for b in range(3):
+                        r2 = []
+                        for a in range(3):
+                            pts, left = rows[b, a]
+                            before = loads[tid - 1][4][b, a][0][kp - 1] if tid % 32 else pts[kp - 1]
+                            r2.append([one(pts[2 * u], pts[2 * u + 1],
+                                           pts[2 * u - 1] if u else (left if load_left else before),
+                                           c // 2 + u, f2, c2) for u in range(kp // 2)])
+                        r1.append([one(r2[1][u], r2[2][u], r2[0][u], j1, f1, c1)
+                                   for u in range(kp // 2)])
+                    for u in range(kp // 2):
+                        if c // 2 + u < c2:
+                            y[j0, j1, c // 2 + u] = one(r1[1][u], r1[2][u], r1[0][u], j0, f0, c0)
+                            writes[j0, j1, c // 2 + u] += 1
+    return torch.from_numpy(y.reshape(-1)), writes
+
+
+Q1R_SHAPES = ((9, 8, 6), (16, 16, 16), (17, 6), (2, 2, 2), (3, 5, 130), (128,), (1,),
+              (9, 7), (7, 9, 41))
+
+
+@pytest.mark.parametrize("fshape", Q1R_SHAPES + ((128,) * 3, (129,) * 3, (64,) * 3, (8, 6)))
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_q1r_plan_picks_its_variant_and_block(fshape, dtype):
+    """Q1R's launch plan: both grids padded to 3-D with unit axes; the
+    16-byte variant exactly when f2 * itemsize is a multiple of 16 and x is
+    aligned (a view one element off a 16-byte edge takes the scalar one);
+    at most 32 threads along i2 and 128 in all; a grid that covers every
+    coarse point; at 128^3 one f32 thread row per fine row."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    pad = 3 - len(fshape)
+    for aligned in (True, False):
+        plan = grid_kernels._q1_restrict_plan(fshape, isz, aligned)
+        f3, c3 = plan["fine"], plan["coarse"]
+        assert f3 == (1,) * pad + fshape and c3 == tuple((s + 1) // 2 for s in f3)
+        assert plan["vector"] == (aligned and (fshape[-1] * isz) % 16 == 0)
+        kp = 16 // isz if plan["vector"] else 2
+        nx, ny = plan["block"]
+        assert 1 <= nx <= 32 and nx * ny <= grid_kernels._Q1R_THREADS
+        gx, gy, gz = plan["grid"]
+        assert (gx - 1) * nx * kp < f3[2] <= gx * nx * kp
+        assert gy * ny >= c3[1] and gz == c3[0]
+        assert plan["args"] == (*f3, *c3, int(plan["vector"]), nx, ny)
+    if fshape == (128,) * 3 and dtype == torch.float32:
+        plan = grid_kernels._q1_restrict_plan(fshape, isz, True)
+        assert plan["block"] == (32, 4) and plan["grid"] == (1, 16, 64)
+
+
+@pytest.mark.parametrize("fshape", Q1R_SHAPES)
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+@pytest.mark.parametrize("launch", ("planned", "64-thread blocks", "256-thread blocks",
+                                    "strided grid"))
+@pytest.mark.parametrize("aligned", (True, False))
+def test_q1r_threads_cover_the_coarse_grid_and_give_the_plain_bits(fshape, dtype, launch,
+                                                                     aligned):
+    """Q1R's kernel, rebuilt from its plan (as the wrapper plans it; with
+    blocks of 64 and of 256 threads; with a grid of one block along j1 and
+    two along j0, so that blocks take tiles and planes in turns), in both
+    variants,
+    writes each coarse point exactly once and gives the per-axis
+    composition bit for bit."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    threads = {"64-thread blocks": 64, "256-thread blocks": 256}.get(launch, 128)
+    plan = dict(grid_kernels._q1_restrict_plan(fshape, isz, aligned, threads))
+    if launch == "strided grid":
+        plan["grid"] = (plan["grid"][0], 1, min(2, plan["grid"][2]))
+    x = torch.from_numpy(np.random.default_rng(8).random(int(np.prod(fshape)))).to(dtype)
+    y, writes = _q1r_by_threads(x, plan)
+    assert bool((writes == 1).all())
+    assert torch.equal(y, grid_kernels.q1_restrict_plain(x, fshape))
+
+
+@pytest.mark.parametrize("fshape", ((9, 8, 6), (16, 16, 16), (17, 6), (2, 2, 2), (3, 5, 13)))
+def test_q1r_plain_is_the_transpose_of_p_and_the_references_mult_t(fshape):
+    """Q1R's plain version against the assembled P's transpose and the JAX
+    package's _bind_interp_q1 mult_t (f64, inputs from a seed, 1e-12)."""
+    cshape = tuple((s + 1) // 2 for s in fshape)
+    xf = np.random.default_rng(9).random(int(np.prod(fshape)))
+    y = grid_kernels.q1_restrict_plain(torch.from_numpy(xf), fshape).numpy()
+    assert _rel(y, interp.MatInterpQ1(fshape, cshape).to_scipy().T @ xf) <= 1e-12
+    opj = op_jax.bind(("interp_q1", fshape, cshape, 1), {})
+    assert _rel(y, np.asarray(opj.mult_t(jnp.asarray(xf)))) <= 1e-12
