@@ -34,7 +34,10 @@ Phases, one JSON line each on stdout:
            asserts 184 iterations, CONVERGED_RTOL, relres <= 1e-8 and a
            true residual <= 1e-7, and that every CG step went through the
            kernels; then times warm solves and repeats with -pc_type none;
-  profile  one warm CG+Jacobi solve under torch.profiler: the card's busy
+  profile  one warm CG+Jacobi solve under torch.profiler (between two runs
+           of spin kernels, about 20 ms each, since the profiler drops the
+           card's first events, the more the longer the process has run;
+           a spin must be seen on each side): the card's busy
            time, its share of the warm solve time, time by kernel, and the
            µs per launch of K2, K3, K4, S1 and S2 inside the solve (vectors
            warm in L2); asserts that the only second passes (sum_partials)
@@ -126,12 +129,35 @@ Phases, one JSON line each on stdout:
            the card's probed 32^3 planes against the host Galerkin product
            of the port's SpGEMM (1e-12);
   gamg_grid_profile  the profile phase for one warm solve of each cycle,
-           with Q1R's and Q1P's µs per launch on each Q1 level.
+           with Q1R's and Q1P's µs per launch on each Q1 level;
+  gmres_ilu  BASELINE config 2 through the user's entry points: init with
+           -ksp_rtol 1e-8 -ksp_max_it 400, the atmosmodd-class stencil7 on
+           22 x 239 x 239 (1,256,662 rows, 8,661,360 entries) as a MatAIJ
+           from COO triplets, KSP and PC types left to their defaults,
+           b = A cos(0.01 i), x0 = 0, every launch count set to 0 just
+           before init and read just after the solve; asserts the default
+           types (gmres, ilu with 0 levels), the reference's 11 iterations,
+           CONVERGED_RTOL, its history (GMRES_HIST, 1e-6), a true residual
+           and max |x - cos(0.01 i)| no worse than 10x the reference's, and
+           exact launches (K1 1, K8 2, K3 its, T1 2 (its + 1), S2 its, no
+           other kernel); times warm solves (best of 3); holds T1 against
+           its plain version bit for bit on both sweeps of the path's ILU(0)
+           factors (f64 and f32 vectors) and on small odd shapes (the four
+           sweeps of an ILU(1) plan, a float32 factor, a one-level diagonal
+           wider than T1's grid), each timed beside its plain version and,
+           on the path's sweeps, torch.triangular_solve on the sweep's
+           triangle as a sparse CSR (cuSPARSE); then the same operator at
+           6 x 60 x 60 with -pc_bjacobi_blocks 4, -ksp_type bcgs, -pc_type
+           sor, -ksp_type preonly -pc_type lu and -ksp_pc_side right, each
+           against its contract (GMRES_SMALL);
+  gmres_ilu_profile  the profile phase for one warm solve of config 2, with
+           T1's µs per launch and per level.
 Then the kernel table as one JSON line (K2's, K4's and S1's rows also name
 their design, launch shape and share of the bound, S1's with its cp.async
 path, star and f32 times beside; V1's, Q1P's and Q1R's are the f32 cycle's,
 each with earlier_ms, the earlier design's time in the same turns, Q1R's
-and Q1P's with their µs per launch on each level of both cycles;
+and Q1P's with their µs per launch on each level of both cycles; T1's is
+config 2's forward sweep in f64, with the other sweeps beside it;
 every row of the path's kernels its µs per launch inside each solve), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. With
@@ -159,6 +185,8 @@ ITS_MAIN = 184                  # CG+Jacobi at 128^3 (BENCH_r05.json jacobi_its)
 NNZ_MAIN = 55_742_968           # box27 at 128^3
 REPS = 20
 SLEEP_CYCLES = 200_000          # about 0.1 ms of the card's clock, before each timed launch
+WARMUP_SPINS = 20               # spin kernels on each side of a profiled solve (profile_solve)
+SPIN_CYCLES = 2_000_000         # about 1 ms of the card's clock each
 PROBE_SHUFFLE = (1_048_576, 4096, 128)   # C, B, W of pallas_shuffle_probe.py probe_s1/s2/s3
 PROBE_GATHER = (524_288, 4_194_304)      # n, m of pallas_gather_probe.py probe_g1
 # the designs of K2 and K4 (triad.cu, dot2.cu; the measurements behind them are in PERF.md)
@@ -177,6 +205,9 @@ IN_SOLVE = {"triad": ("triad_kernel",), "axpy_normsq": ("axpy_normsq_kernel",),
             "cheby_update": ("cheby_update_kernel",),
             "dnd_stencil": ("dnd_stencil_kernel", "dnd_window_kernel"),
             "q1_prolong": ("q1_prolong_kernel",), "q1_restrict": ("q1_restrict_kernel",),
+            "trisolve": ("trisolve_kernel",),
+            # the Krylov basis products of GMRES (torch.mv: cuBLAS gemv)
+            "gemv": ("gemv",),
             # torch.linalg.lu_solve: the library's row swaps and triangular solves
             "lu_solve": ("getrs", "trsm", "trsv", "laswp")}
 # CG+PCMG on the assembled 128^3 box27 (b = 1, x0 = 0, rtol 1e-8) with the Q1
@@ -243,14 +274,63 @@ GAMG_GRID_HIST = {              # the reference's preconditioned residual norms
             22.514524331164907, 3.3361238063020826, 0.31329839407697424, 0.05801988656332334,
             0.010227804382415587, 0.001152828673593543, 0.0002051037246532732)}
 GAMG_GRID_TRUE_RELRES = {"f64": 3.4892518396667014e-07, "f32": 3.464988762724443e-07}
+# BASELINE config 2, PETSc's default solver on an assembled MatAIJ: the
+# atmosmodd-class 7-point stencil (examples/bench_spmv.py stencil7, jittered,
+# not symmetric) on 22 x 239 x 239 from COO triplets, KSP and PC types left
+# to their defaults (GMRES(30) with CGS refine_never, ILU(0) in natural
+# order), rtol 1e-8, max_it 400, b = A cos(0.01 i), x0 = 0: the JAX
+# package's own run on the CPU (gmres_contract.py 22 239 239, JAX 0.9.0,
+# x64; PERF.md section 4, "The GMRES contract").
+CONFIG2 = (22, 239, 239)
+CONFIG2_ROWS = 1_256_662
+CONFIG2_NNZ = 8_661_360
+GMRES_ITS = 11
+GMRES_HIST = (848.0979975918227, 7.895284832119265, 1.032136412182085, 0.19610295037731704,
+              0.04244423997918057, 0.009689307039903056, 0.002279009915680267,
+              0.0005746977217869913, 0.00015849109405091514, 4.589452877442304e-05,
+              1.3394245821427273e-05, 3.880759703750617e-06)
+GMRES_TRUE_RELRES = 3.0519833226491575e-09
+GMRES_MAX_ERR = 8.67512024438355e-08     # max |x - cos(0.01 i)|
+GMRES_HIST_TOL = 1e-6
+# the same operator at 6 x 60 x 60 with other solvers (gmres_contract.py 6 60 60
+# OPTIONS): name -> (options, its, reason, history, true relres, max error)
+CONFIG2_SMALL = (6, 60, 60)
+GMRES_SMALL = {
+    "bjacobi4": (("-pc_type", "bjacobi", "-pc_bjacobi_blocks", "4"), 17, "CONVERGED_RTOL",
+                 (106.28751718759791, 17.68367320622351, 4.535544685743181, 1.5637286597504076,
+                  0.5612216228078427, 0.2026781973644178, 0.04052294686542281, 0.018565925872627,
+                  0.0057226491482961625, 0.002338008668111242, 0.0009395712180719411,
+                  0.0003896458391197079, 0.00013500056666024287, 4.99325074361969e-05,
+                  1.7711859385281396e-05, 7.667037465797015e-06, 3.16200117563434e-06,
+                  1.015626605810705e-06),
+                 1.1486029919336165e-08, 5.8683511827695156e-08),
+    "bcgs": (("-ksp_type", "bcgs"), 6, "CONVERGED_RTOL",
+             (101.574250137108, 0.8828324304508245, 0.04137988973394392, 0.0018343039156026144,
+              0.00010057554949629235, 1.1617530038744956e-05, 7.689977775857862e-07),
+             8.258622559317764e-09, 4.014013160746899e-08),
+    "sor": (("-pc_type", "sor"), 12, "CONVERGED_RTOL",
+            (89.46218811089308, 6.07713846256955, 0.857057006866332, 0.2445173008710027,
+             0.032410322281995176, 0.007182738127461455, 0.0015823115226403523,
+             0.00044631966188986305, 0.00011162961388410586, 3.0194427537967532e-05,
+             6.949932811603596e-06, 1.9410068378901434e-06, 4.726394423331406e-07),
+            5.047882158922971e-09, 3.6352386212357146e-08),
+    "preonly_lu": (("-ksp_type", "preonly", "-pc_type", "lu"), 1, "CONVERGED_ITS", (),
+                   4.0553531756387297e-16, 1.1102230246251565e-15),
+    "pc_side_right": (("-ksp_pc_side", "right"), 11, "CONVERGED_RTOL",
+                      (344.9499283438119, 18.276735833538382, 2.0495469087899503,
+                       0.45717716348952614, 0.06963892360757604, 0.011821791758976836,
+                       0.002189962069385343, 0.0004954246590874884, 0.00010629554528836887,
+                       2.5940451926819723e-05, 5.4116419948930926e-06, 1.2920464797450229e-06),
+                      3.745605877367126e-09, 3.9532141560272294e-08),
+}
 DATA = Path(__file__).resolve().parent / "tests" / "data"
 FIXTURES = ("LFAT5.mtx", "m_05_05_crk.mtx", "amesos2_test_mat0.mtx")
 
 
 def kernel_modules():
     """The port's kernel wrapper modules, each with its LAUNCHES counts."""
-    from petsc_tpu_torch.ops import gather_kernels, grid_kernels, pallas_kernels
-    return pallas_kernels, gather_kernels, grid_kernels
+    from petsc_tpu_torch.ops import gather_kernels, grid_kernels, pallas_kernels, trisolve
+    return pallas_kernels, gather_kernels, grid_kernels, trisolve
 
 
 def reset_launches():
@@ -565,18 +645,42 @@ def profile_solve(ksp, b, x, warm_ms_best, q1_levels=None):
     x.set(0.0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the profiler drops the card's first events after it starts, more
+        # of them the longer the process has run (on an H100 in one run of
+        # this script: from none in the first profile to sixteen 0.1 ms
+        # spins in the sixth), as if the card's timestamps drifted against
+        # the host's clock; about
+        # 20 ms of spin kernels on each side of the solve absorb that, are
+        # left out of the counts below, and one seen on each side shows
+        # that none of the solve's events was lost
+        for _ in range(WARMUP_SPINS):
+            torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         ksp.solve(b, x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(WARMUP_SPINS):
+            torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
     by_name, q1_events = {}, {"q1_restrict": [], "q1_prolong": []}
+    spins, span = [], [math.inf, -math.inf]
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        if ev.device_type == DeviceType.CUDA and "spin_kernel" in ev.name:
+            spins.append(ev.time_range.start)
+        elif ev.device_type == DeviceType.CUDA:
+            span = [min(span[0], ev.time_range.start), max(span[1], ev.time_range.end)]
             n, us = by_name.get(ev.name, (0, 0.0))
             by_name[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
             for name in q1_events:
                 if any(key in ev.name for key in IN_SOLVE[name]):
                     q1_events[name].append((ev.time_range.start, ev.time_range.elapsed_us()))
+    lead = sum(1 for t in spins if t < span[0])
+    trail = sum(1 for t in spins if t > span[1])
+    if not lead or not trail:
+        raise AssertionError(f"the profiler kept {lead} of the {WARMUP_SPINS} spin kernels "
+                             f"before the solve and {trail} after it: it may have lost some "
+                             "of the solve's own events")
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     in_solve = {}
@@ -599,6 +703,7 @@ def profile_solve(ksp, b, x, warm_ms_best, q1_levels=None):
                 "launches": len(us[k::nlev]), "us_per_launch": sum(us[k::nlev]) / len(us[k::nlev])}
                 for k in range(nlev)}
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "spins_seen_before_and_after": [lead, trail],
             "busy_share_of_warm": busy_ms / warm_ms_best if by_name else None,
             "q1_per_level": per_level,
             "device_events": sum(n for n, _ in by_name.values()),
@@ -1761,6 +1866,251 @@ def phase_cheby(pk, flush):
     return rows, main
 
 
+def config2_solve(pt, shape, extra=()):
+    """BASELINE config 2 through the user's entry points: init with rtol
+    1e-8 and max_it 400 (and `extra`), the stencil7 operator on `shape` as
+    a MatAIJ from COO triplets (setPreallocationCOO, setValuesCOO: K8 on
+    the card), a KSP with setFromOptions and no type set, b = A cos(0.01 i)
+    (the product taken on the host from the triplets, as bench_spmv.py
+    takes it), x0 = 0. Returns (ksp, A, b, x, the host CSR, cos(0.01 i))."""
+    import numpy as np
+    import scipy.sparse as sp
+    from petsc_tpu_torch.ops.stencil_build import stencil7_coo
+    pt.init(args=["-ksp_rtol", "1e-8", "-ksp_max_it", "400", *extra])
+    i, j, v = stencil7_coo(*shape)
+    n = int(np.prod(shape))
+    A = pt.MatAIJ()
+    A.setSizes(n)
+    A.setPreallocationCOO(i, j)
+    A.setValuesCOO(v)
+    A_sp = sp.csr_matrix((v, (i, j)), shape=(n, n))
+    xs = np.cos(0.01 * np.arange(n))
+    ksp = pt.KSP().create()
+    ksp.setOperators(A)
+    ksp.setFromOptions()
+    b = pt.Vec.from_array(A_sp @ xs)
+    x = A.createVecRight()
+    ksp.solve(b, x)
+    return ksp, A, b, x, A_sp, xs
+
+
+def check_config2(ksp, b, x, A_sp, xs, its, reason, hist, true_relres, max_err,
+                  hist_tol=GMRES_HIST_TOL):
+    """The solve against the reference's: its, reason, the residual history
+    (hist_tol relative), a true relative residual and an error no worse than
+    10x the reference's, finite values of the right shape."""
+    import numpy as np
+    import torch
+    xh = x.array.double().cpu().numpy()
+    bh = b.array.double().cpu().numpy()
+    if xh.shape != xs.shape or not bool(torch.isfinite(x.array).all()):
+        raise AssertionError(f"config 2: solution of shape {xh.shape} or not finite")
+    got = {"its": ksp.getIterationNumber(), "reason": ksp.getConvergedReason().name,
+           "ksp_type": ksp.getType(), "pc_type": ksp.getPC().getType(),
+           "rnorm": ksp.getResidualNorm(),
+           "true_relres": float(np.linalg.norm(bh - A_sp @ xh) / np.linalg.norm(bh)),
+           "max_err": float(np.abs(xh - xs).max())}
+    h = ksp.getConvergenceHistory()
+    got["history_rel_err"] = (float(np.max(np.abs(h - np.asarray(hist)) / np.asarray(hist)))
+                              if len(hist) and len(h) == len(hist) else 0.0)
+    if got["its"] != its or got["reason"] != reason or len(h) != len(hist) \
+            or not got["history_rel_err"] <= hist_tol \
+            or not got["true_relres"] <= 10 * true_relres or not got["max_err"] <= 10 * max_err:
+        raise AssertionError(f"config 2 against the reference: got {got}, want its {its}, "
+                             f"{reason}, history to {hist_tol}, true relres <= 10 x "
+                             f"{true_relres}, error <= 10 x {max_err}")
+    return got
+
+
+def trisolve_operands(sw):
+    """The triangle of a sweep as a CSR on its device, rows in row order,
+    with the diagonal that makes it a triangular solve: 1/scale (or 1) on
+    the diagonal and the factor off it, so that the solve equals the sweep;
+    for torch.triangular_solve, the library's sparse triangular solve."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    rows = sw.rows.cpu().numpy()
+    rl = np.diff(sw.rp.cpu().numpy())
+    r = np.repeat(rows, rl)
+    c = sw.cols.cpu().numpy()
+    vals = sw.vals.double().cpu().numpy()
+    d = np.ones(sw.m) if sw.scale is None else np.empty(sw.m)
+    if sw.scale is not None:
+        d[rows] = 1.0 / sw.scale.double().cpu().numpy()
+    M = (sp.csr_matrix((vals, (r, c)), shape=(sw.m, sw.m)) + sp.diags(d)).tocsr()
+    M.sort_indices()
+    dev = sw.rows.device
+    return torch.sparse_csr_tensor(torch.as_tensor(M.indptr, dtype=torch.int64, device=dev),
+                                   torch.as_tensor(M.indices, dtype=torch.int64, device=dev),
+                                   torch.as_tensor(M.data, device=dev), size=M.shape)
+
+
+def trisolve_row(ts, sw, name, dtype, flush, library=True, plain_reps=3):
+    """T1 on one sweep against its plain version on the same b (values unique
+    per entry), bit for bit; both timed after the clean flush (the plain
+    version, a Python loop over levels, best of `plain_reps`), and, where it
+    takes the operand, torch.triangular_solve on the sweep's triangle as a
+    sparse CSR (cuSPARSE), checked against T1 to 1e-10 first. The bound
+    counts every byte of the factor, its indices and level pointer, b and x
+    once, and 2 flops per entry plus the row's subtraction (and scale)."""
+    import torch
+    dn = str(dtype).replace("torch.", "")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b = (torch.rand(sw.m, generator=gen, device="cuda", dtype=torch.float64) + 0.5).to(dtype)
+    ts.reset_launches()
+    k = ts.trisolve_sweep(sw, b)
+    torch.cuda.synchronize()
+    if ts.LAUNCHES["trisolve"] != 1:
+        raise AssertionError(f"T1 {name}: {ts.LAUNCHES['trisolve']} launches for one sweep")
+    p = ts.trisolve_sweep_plain(sw, b)
+    torch.cuda.synchronize()
+    if not torch.equal(k, p):
+        raise AssertionError(f"T1 {name} {dn}: differs from its plain version by "
+                             f"{rel_err(k, p)} (equal bits required)")
+    if not bool(torch.equal(ts.trisolve_sweep(sw, b), k)):
+        raise AssertionError(f"T1 {name} {dn}: a rerun gave other bits")
+    isz, fsz = b.element_size(), sw.vals.element_size()
+    nbytes = (sw.nnz * (fsz + 4) + (sw.m + 1) * 4 + sw.m * 4 + (sw.nlev + 1) * 4
+              + (sw.m * fsz if sw.scale is not None else 0) + 2 * sw.m * isz)
+    flops = 2 * sw.nnz + sw.m * (2 if sw.scale is not None else 1)
+    b_ms, b_by = bound(nbytes, flops, "float64" if sw.vals.dtype == torch.float64 else dn)
+    ms = time_ms(lambda: ts.trisolve_sweep(sw, b), flush)
+    plain_ms = min(time_ms(lambda: ts.trisolve_sweep_plain(sw, b), flush, reps=1)
+                   for _ in range(plain_reps))
+    lib_ms, lib_note = None, None
+    if library:
+        try:
+            M = trisolve_operands(sw).to(b.dtype)
+            lower = name.split()[0] in ("L", "Ut")
+            sol = torch.triangular_solve(b[:, None], M, upper=not lower).solution[:, 0]
+            torch.cuda.synchronize()
+            lib_err = rel_err(sol, k)
+            if not lib_err <= (1e-10 if dtype == torch.float64 else 1e-4):
+                raise AssertionError(f"differs from T1 by {lib_err}")
+            lib_ms = time_ms(lambda: torch.triangular_solve(b[:, None], M, upper=not lower),
+                             flush)
+            lib_note = (f"torch.triangular_solve(b, A sparse CSR {'lower' if lower else 'upper'}) "
+                        f"(cuSPARSE; its analysis runs in every call), rel err to T1 {lib_err}")
+        except Exception as e:          # the library call is a yardstick, not the port
+            lib_note = f"none: torch.triangular_solve on a sparse CSR operand failed: {e!r}"[:300]
+    return {"name": "trisolve", "sweep": name, "dtype": dn,
+            "factor_dtype": str(sw.vals.dtype).replace("torch.", ""), "rows": sw.m,
+            "entries": sw.nnz, "levels": sw.nlev, "widest_level": sw.width,
+            "equal_bits": True, "max_abs_err": 0.0, "ms": ms,
+            "us_per_level": ms * 1e3 / max(sw.nlev, 1), "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "share_of_bound": b_ms / ms, "library_ms": lib_ms, "library": lib_note,
+            "launch": ts.launch_config(sw, dtype, "cuda")}
+
+
+def phase_trisolve(pt, ksp, flush):
+    """T1 at the path's shape (the ILU(0) factors of config 2: both sweeps,
+    f64 and f32 vectors on the float64 factors) and at odd small shapes
+    (the ILU(1) factors of a 5 x 13 x 17 stencil7, a float32 factor as
+    SOR's under -real_dtype f32, a one-level diagonal triangle wider than
+    the grid), each against its plain version bit for bit. Returns
+    (rows, the main row: the forward sweep in f64)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from petsc_tpu_torch.mat import factor
+    from petsc_tpu_torch.ops import trisolve as ts
+    from petsc_tpu_torch.ops.stencil_build import stencil7_coo
+    data = ksp.getPC().device_data()
+    rows = [trisolve_row(ts, data[key], key, dt, flush, library=True)
+            for key in ("L", "U") for dt in (torch.float64, torch.float32)]
+    shape = (5, 13, 17)
+    i, j, v = stencil7_coo(*shape)
+    n = int(np.prod(shape))
+    A = sp.csr_matrix((v, (i, j)), shape=(n, n))
+    L, U, dinv = factor.iluk(A.indptr, A.indices, A.data, 1)
+    _, small = ts.make_trisolve_plan(L, U, dinv)
+    small.update(ts.make_transpose_tables(L, U, dinv))
+    for key in ("L", "U", "Ut", "Lt"):
+        for dt in (torch.float64, torch.float32):
+            rows.append(trisolve_row(ts, small[key], f"{key} ILU(1) {shape}", dt, flush,
+                                     library=False, plain_reps=1))
+    s32 = ts.make_sweep(*L, lower=True, dtype=torch.float32)
+    rows.append(trisolve_row(ts, s32, "L float32 factor", torch.float32, flush, library=False,
+                             plain_reps=1))
+    m = 300_001
+    diag = ts.make_sweep(np.zeros(m + 1, dtype=np.int64), np.zeros(0, dtype=np.int64),
+                         np.zeros(0), lower=True, scale=np.linspace(0.5, 2.0, m))
+    rows.append(trisolve_row(ts, diag, "diagonal, one level", torch.float64, flush,
+                             library=False, plain_reps=1))
+    return rows, rows[0]
+
+
+def config2_launches_needed(its):
+    """The launches of config 2's init, assembly and solve: K1 once in
+    init, K8 twice in setValuesCOO (v[perm], the diagonal), one S2 and one
+    K3 per iteration, and two T1 sweeps per PC application (its + 1: B b,
+    then one per iteration); nothing else of the port's kernels."""
+    return {"probe": 1, "gather": 2, "axpy_normsq": its, "trisolve": 2 * (its + 1),
+            "csr_spmv": its}
+
+
+def phase_gmres_ilu(pt, smi, t_start, flush):
+    """BASELINE config 2 with PETSc's defaults on the card (see config2_solve),
+    every launch count set to 0 just before init and read just after the
+    solve; then warm solves, T1's checks and times, and the small variants.
+    Returns (the record, (ksp, b, x, the host CSR, the exact solution), warm
+    ms, launches, T1's rows and main row)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live0 = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    ksp, A, b, x, A_sp, xs = config2_solve(pt, CONFIG2)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = launch_counts()
+    if A.getSize()[0] != CONFIG2_ROWS or A.nnz() != CONFIG2_NNZ or A.meta[0] != "aij_csr":
+        raise AssertionError(f"config 2: {A.getSize()[0]} rows, {A.nnz()} entries, "
+                             f"kind {A.meta[0]}")
+    if ksp.getType() != "gmres" or ksp.getPC().getType() != "ilu" \
+            or ksp.getPC()._impl.levels != 0:
+        raise AssertionError(f"config 2's defaults: KSP {ksp.getType()}, PC "
+                             f"{ksp.getPC().getType()}")
+    got = check_config2(ksp, b, x, A_sp, xs, GMRES_ITS, "CONVERGED_RTOL", GMRES_HIST,
+                        GMRES_TRUE_RELRES, GMRES_MAX_ERR)
+    its = got["its"]
+    need = config2_launches_needed(its)
+    wrong = {k: (launches[k], v) for k, v in need.items()
+             if (launches[k] < v if k == "csr_spmv" else launches[k] != v)}
+    others = {k: n for k, n in launches.items() if k not in need and n}
+    if wrong or others:
+        raise AssertionError(f"config 2's launches (got, need): {wrong}; others {others}")
+    peak = (torch.cuda.max_memory_allocated() - live0) / 2 ** 20
+    data = ksp.getPC().device_data()
+    rec = {"phase": "gmres_ilu", "grid": CONFIG2, "rows": CONFIG2_ROWS, "nnz": CONFIG2_NNZ,
+           "operator": "stencil7 (atmosmodd-class, jittered), MatAIJ from COO",
+           "options": "-ksp_rtol 1e-8 -ksp_max_it 400, types left to their defaults",
+           "nvidia_smi": smi, **got, "launches": launches, "launches_needed": need,
+           "first_assembly_setup_and_solve_s": first_s, "path_peak_mem_MiB": peak,
+           "levels": {k: data[k].nlev for k in ("L", "U")},
+           "widest_level": {k: data[k].width for k in ("L", "U")},
+           "pc_setup_s": setup_seconds(pt, {"ilu": "PCSetUp_ilu"})["ilu"]}
+    warm = warm_ms(ksp, b, x)
+    check_config2(ksp, b, x, A_sp, xs, GMRES_ITS, "CONVERGED_RTOL", GMRES_HIST,
+                  GMRES_TRUE_RELRES, GMRES_MAX_ERR)
+    rec.update(warm_ms_best_of_3=warm, ms_per_it=warm / its,
+               seconds_so_far=time.perf_counter() - t_start)
+    t_rows, t_main = phase_trisolve(pt, ksp, flush)
+    rec["trisolve_checks"] = t_rows
+    small = {}
+    for name, (opts, s_its, s_reason, s_hist, s_rel, s_err) in GMRES_SMALL.items():
+        k2, _, b2, x2, A2, xs2 = config2_solve(pt, CONFIG2_SMALL, opts)
+        small[name] = {"options": " ".join(opts),
+                       **check_config2(k2, b2, x2, A2, xs2, s_its, s_reason, s_hist, s_rel,
+                                       s_err)}
+    rec["small"] = {"grid": CONFIG2_SMALL, "solves": small}
+    rec["seconds_so_far"] = time.perf_counter() - t_start
+    return rec, (ksp, b, x, A_sp, xs), warm, launches, t_rows, t_main
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1969,6 +2319,32 @@ def main():
     grid_launches = grid_res["f32"][4]
     grid_launches_f64 = grid_res["f64"][4]
     del grid_res, ksp_q, b_q, x_q
+    torch.cuda.empty_cache()
+
+    # ---- BASELINE config 2: GMRES(30) + ILU(0), PETSc's defaults, on the
+    # assembled 22 x 239 x 239 stencil7 ----
+    gm_rec, gm_solve, gm_ms, gm_launches, t_rows, t_main = phase_gmres_ilu(
+        pt, smi, t_start, flush)
+    emit(gm_rec)
+    ksp_gm, b_gm, x_gm = gm_solve[:3]
+    reset_launches()
+    prof_gm = profile_solve(ksp_gm, b_gm, x_gm, gm_ms)
+    prof_launches = launch_counts()
+    t1_in = prof_gm["in_solve"].get("trisolve", {})
+    nlev = gm_rec["levels"]
+    prof_gm["trisolve_us_per_level"] = (t1_in["us_per_launch"] / ((nlev["L"] + nlev["U"]) / 2)
+                                        if t1_in else None)
+    emit({"phase": "gmres_ilu_profile", "solve": "gmres(30)+ilu(0), config 2",
+          "nvidia_smi": smi, **prof_gm, "launches": prof_launches,
+          "its": ksp_gm.getIterationNumber(),
+          "seconds_so_far": time.perf_counter() - t_start})
+    check_config2(*gm_solve, GMRES_ITS, "CONVERGED_RTOL", GMRES_HIST, GMRES_TRUE_RELRES,
+                  GMRES_MAX_ERR)
+    if not prof_launches["trisolve"] == t1_in.get("launches") == 2 * (GMRES_ITS + 1):
+        raise AssertionError(f"the profiled solve: {prof_launches['trisolve']} T1 sweeps "
+                             f"counted, {t1_in.get('launches')} in the profile, want "
+                             f"{2 * (GMRES_ITS + 1)}")
+    del gm_solve, ksp_gm, b_gm, x_gm
 
     # name: (source, replaces, measured row, launches on the path it belongs to)
     rows = {
@@ -1994,6 +2370,8 @@ def main():
         "dnd_stencil": ("dnd_stencil.cu", "petsc_tpu/mat/aij.py:1381", grid_main, grid_launches),
         "q1_prolong": ("q1.cu", "petsc_tpu/dm/interp.py:21", grid_main, grid_launches),
         "q1_restrict": ("q1.cu", "petsc_tpu/dm/interp.py:49", grid_main, grid_launches),
+        "trisolve": ("trisolve.cu", "petsc_tpu/ops/trisolve.py:94", {"trisolve": t_main},
+                     gm_launches),
     }
     table = []
     for name, (src, replaces, measured, counts) in rows.items():
@@ -2009,12 +2387,14 @@ def main():
                                            "mg": mg_launches[name],
                                            "gamg": gamg_launches[name],
                                            "gamg_grid": grid_launches[name],
-                                           "gamg_grid_f64": grid_launches_f64[name]},
+                                           "gamg_grid_f64": grid_launches_f64[name],
+                                           "gmres_ilu": gm_launches[name]},
                       "in_solve_us": {path: p["in_solve"].get(name, {}).get("us_per_launch")
                                       for path, p in (("solve", prof), ("aij", prof_a),
                                                       ("mg", prof_m), ("gamg", prof_g),
                                                       ("gamg_grid", prof_grid["f32"]),
-                                                      ("gamg_grid_f64", prof_grid["f64"]))}})
+                                                      ("gamg_grid_f64", prof_grid["f64"]),
+                                                      ("gmres_ilu", prof_gm))}})
     for r in table:
         if r["name"] in ("triad", "dot2", "const_stencil"):
             r.update(design=main_rows[r["name"]]["design"],
@@ -2075,6 +2455,18 @@ def main():
     q1r = next(r for r in table if r["name"] == "q1_restrict")
     q1r.update({k: grid_main["q1_restrict"][k] for k in ("variant", "block", "grid")},
                plan_per_level=grid_rec["q1_restrict_plan_per_level"])
+    # T1's row is the forward (unit L) sweep of config 2's ILU(0) in f64;
+    # the backward sweep, f32 vectors and the small shapes stand beside it
+    t1 = next(r for r in table if r["name"] == "trisolve")
+    keep = ("sweep", "dtype", "factor_dtype", "rows", "entries", "levels", "widest_level",
+            "ms", "us_per_level", "plain_ms", "bound_ms", "share_of_bound", "library_ms",
+            "library", "equal_bits")
+    t1.update({k: t_main[k] for k in keep}, launch=t_main["launch"],
+              in_solve_us_per_level=prof_gm["trisolve_us_per_level"],
+              launches_per_solve=gm_launches["trisolve"],
+              design="one cooperative launch per sweep, a grid barrier between levels, "
+                     "rows in level order (CSR in level order, int32)",
+              others=[{k: r[k] for k in keep} for r in t_rows if r is not t_main])
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,7 +4,8 @@ A second package beside ``petsc_tpu`` with the same public surface for
 what it ports so far: the options database, Vec, the stencil Mat of the
 3-D Poisson operator, the assembled MatAIJ (setValues, CSR and COO
 assembly, the host matrix operations and sparse products), PC
-none/jacobi/mg/gamg and KSP cg/richardson/preonly/chebyshev. It
+none/jacobi/mg/gamg/ilu/icc/lu/cholesky/bjacobi/sor and KSP
+cg/richardson/preonly/chebyshev/gmres/fgmres/bcgs/minres. It
 imports torch, numpy and scipy, never jax or petsc_tpu. Objects live on
 the device :func:`init` chooses: ``cuda`` unless ``device="cpu"`` is
 passed. The CG body runs on hand-written Hopper kernels
@@ -23,7 +24,8 @@ Quick start::
 
 or, for an assembled matrix, ``A = pt.MatAIJ(); A.setSizes(N);
 A.setPreallocationCOO(i, j); A.setValuesCOO(v)`` (or ``setValues`` and
-``assemble()``) in place of the stencil Mat.
+``assemble()``) in place of the stencil Mat; with no ``-ksp_type`` and no
+``-pc_type`` it solves with PETSc's defaults, GMRES(30) and ILU(0).
 """
 
 from . import config
@@ -38,6 +40,8 @@ from .mat.aij import MatAIJ  # also registers the aij_csr and aij_dnd binders
 from .pc.pc import PC
 from .pc import mg as _mg  # registers PC mg and the pc_mg binder
 from .pc import gamg as _gamg  # registers PC gamg and hmg
+from .pc import factor_pc as _factor_pc  # registers PC ilu, icc, lu, cholesky, bjacobi
+from .pc import more_pc as _more_pc  # registers PC sor
 from .ksp.ksp import KSP
 
 __version__ = "0.1.0"

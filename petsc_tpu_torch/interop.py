@@ -3,8 +3,9 @@
 The JAX package's operators are ``(meta, data)`` pairs of a plain tuple
 and a dict of arrays, and its MatAIJ gives its host CSR through
 ``getValuesCSR()``; given as numpy arrays, they become the port's objects
-on the device of ``config.init``. The parity tests use this so that both
-packages compute on the same operator and the same vectors.
+on the device of ``config.init``, and so does a trisolve plan of its
+``ops/trisolve.py``. The parity tests use this so that both packages
+compute on the same operator, factors and vectors.
 """
 
 from __future__ import annotations
@@ -69,6 +70,38 @@ def mat_from_meta_data(meta, data_np):
     data = {k: torch.tensor(np.asarray(v), device=config.device())
             for k, v in data_np.items()}
     return as_mat(meta, data)
+
+
+def _sweep_from_ell(D, X, tab, m, scale=None):
+    """The port's Sweep of one factor of the reference's plan: its padded
+    ELL block (D values, X columns; a padding slot holds 0.0) and its
+    level table (rows per level, padded with the sentinel m)."""
+    from .ops.trisolve import sweep_from_levels
+    D, X, tab = np.asarray(D), np.asarray(X), np.asarray(tab)
+    lev = np.empty(m, dtype=np.int64)
+    for lv, row in enumerate(tab):
+        lev[row[row < m]] = lv
+    keep = D[:m] != 0
+    indptr = np.concatenate([[0], np.cumsum(keep.sum(axis=1))])
+    return sweep_from_levels(lev, indptr, X[:m][keep], D[:m][keep], scale)
+
+
+def trisolve_plan_from_jax(tail, data_np):
+    """The port's trisolve plan (``ops.trisolve.make_trisolve_plan``'s
+    (tail, data)) holding the reference's plan: tail (m, nlevL, nlevU)
+    and its data as numpy arrays (Ld/Lx/tabL, Ud/Ux/tabU, dinv, and the
+    transpose's Utd/Utx/tabUt, Ltd/Ltx/tabLt when present). The rows of
+    each level and each row's entries are the reference's (an entry
+    stored as 0.0 is taken for padding: it adds nothing)."""
+    m, nlevL, nlevU = (int(v) for v in tail)
+    d = {k: np.asarray(v) for k, v in data_np.items()}
+    dinv = d["dinv"][:m]
+    data = {"L": _sweep_from_ell(d["Ld"], d["Lx"], d["tabL"], m),
+            "U": _sweep_from_ell(d["Ud"], d["Ux"], d["tabU"], m, dinv)}
+    if "Utd" in d:
+        data["Ut"] = _sweep_from_ell(d["Utd"], d["Utx"], d["tabUt"], m, dinv)
+        data["Lt"] = _sweep_from_ell(d["Ltd"], d["Ltx"], d["tabLt"], m)
+    return (m, nlevL, nlevU), data
 
 
 def vec_from_numpy(arr):

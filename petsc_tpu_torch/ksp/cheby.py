@@ -24,7 +24,8 @@ from ..ops.pallas_kernels import cheby_update
 from ..ops.reduce import fnorm2
 from ..sys.error import KSPConvergedReason as KR
 from .common import (KSPConfig, NONE, SolveResult, check_converged,
-                     empty_history, finalize_reason, initial_residual)
+                     empty_history, finalize_reason, initial_residual, rounder,
+                     tolerances)
 from .impls_basic import _dp
 
 
@@ -101,19 +102,19 @@ def solve_chebyshev(A, B, b, x0, rtol, abstol, divtol, cfg: KSPConfig):
     r0 = initial_residual(A, b, x0, cfg)
     x = x0 if cfg.guess_nonzero else torch.zeros_like(b)
     z = B.mult(r0)
-    dp0 = _dp(cfg.normtype, r0, z)
-    hist = empty_history(cfg)
+    rnd = rounder(b.dtype)
+    dp0 = rnd(_dp(cfg.normtype, r0, z))
+    hist = empty_history(cfg, b.dtype)
     hist[0] = dp0
-    ttol = max(rtol * dp0, abstol)
-    dtol_bound = divtol * dp0
+    ttol, atol, dtol_bound = tolerances(dp0, rtol, abstol, divtol, rnd)
 
     p = z / theta
     x = x + p
     r = r0 - A.mult(p)
     z = B.mult(r)
-    dp = _dp(cfg.normtype, r, z)
+    dp = rnd(_dp(cfg.normtype, r, z))
     hist[1] = dp
-    reason = check_converged(dp, ttol, abstol, dtol_bound) if cfg.normtype != NONE else 0
+    reason = check_converged(dp, ttol, atol, dtol_bound) if cfg.normtype != NONE else 0
     its, rho = 1, 1.0 / sigma1
     while reason == 0 and its < cfg.max_it:
         rho_new = 1.0 / (2.0 * sigma1 - rho)
@@ -121,10 +122,10 @@ def solve_chebyshev(A, B, b, x0, rtol, abstol, divtol, cfg: KSPConfig):
         x = x + p
         r = r - A.mult(p)
         z = B.mult(r)
-        dp = _dp(cfg.normtype, r, z)
+        dp = rnd(_dp(cfg.normtype, r, z))
         its += 1
         hist[its] = dp
-        reason = check_converged(dp, ttol, abstol, dtol_bound) if cfg.normtype != NONE else 0
+        reason = check_converged(dp, ttol, atol, dtol_bound) if cfg.normtype != NONE else 0
         rho = rho_new
     reason = finalize_reason(reason, its, cfg)
     if cfg.normtype == NONE and its >= cfg.max_it:

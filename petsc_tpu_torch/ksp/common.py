@@ -10,6 +10,13 @@ converged when rnorm <= ttol = max(rtol*rnorm0, abstol); diverged when
 rnorm > divtol*rnorm0 or NaN/Inf; reaching max_it is DIVERGED_ITS.
 Convergence is NOT tested at iteration 0, but the iteration-0 norm seeds
 rnorm0 and the monitor history.
+
+The history, the norms it records and the tolerances they are tested
+against take the solve's dtype, as the reference's do (its history and
+scalars live in the solve's dtype, ``petsc_tpu/ksp/common.py:87-88``):
+each norm read back to the host is rounded to that dtype
+(:func:`rounder`), and ttol, abstol and the divergence bound are formed
+in it (:func:`tolerances`). In float64 this changes nothing.
 """
 
 from __future__ import annotations
@@ -75,5 +82,25 @@ def initial_residual(A, b, x0, cfg: KSPConfig):
     return b
 
 
-def empty_history(cfg: KSPConfig):
-    return np.full((cfg.max_it + 1,), np.nan)
+def empty_history(cfg: KSPConfig, dtype=torch.float64):
+    """(max_it + 1) NaNs in the solve's dtype."""
+    return np.full((cfg.max_it + 1,), np.nan,
+                   dtype=np.float32 if dtype == torch.float32 else np.float64)
+
+
+def rounder(dtype):
+    """Rounds a host float to the solve's dtype (a float32 norm formed on
+    the host in float64, such as sqrt of a float32 square, is rounded
+    once more to float32; for sqrt, products and quotients of float32
+    values that equals the float32 operation)."""
+    if dtype == torch.float32:
+        return lambda v: float(np.float32(v))
+    return float
+
+
+def tolerances(dp0, rtol, abstol, divtol, rnd):
+    """(ttol, abstol, dtol_bound) formed in the solve's dtype, as the
+    reference forms max(rtol * rnorm0, abstol) and divtol * rnorm0 with
+    its scalars cast to that dtype first."""
+    atol = rnd(abstol)
+    return max(rnd(rnd(rtol) * dp0), atol), atol, rnd(rnd(divtol) * dp0)

@@ -1,10 +1,11 @@
-"""KSP implementations: preonly, richardson, cg.
+"""KSP implementations: preonly, richardson, cg, minres.
 
 Counterpart of ``petsc_tpu/ksp/impls_basic.py``. Semantics follow the
 reference implementations:
   preonly    src/ksp/ksp/impls/preonly/preonly.c
   richardson src/ksp/ksp/impls/rich/rich.c
   cg         src/ksp/ksp/impls/cg/cg.c:119 (KSPSolve_CG)
+  minres     src/ksp/ksp/impls/minres/minres.c
 The JAX ``lax.while_loop`` becomes a Python loop with one host read of
 the iteration's scalars; on the card, the CG body runs on the kernels of
 ``ops.pallas_kernels``.
@@ -21,7 +22,8 @@ from ..ops.reduce import fdot, fnorm2
 from ..sys.error import KSPConvergedReason as KR
 from .common import (KSPConfig, NATURAL, NONE, PRECONDITIONED,
                      SolveResult, UNPRECONDITIONED, check_converged,
-                     empty_history, finalize_reason, initial_residual)
+                     empty_history, finalize_reason, initial_residual, rounder,
+                     tolerances)
 
 
 def solve_preonly(A, B, b, x0, rtol, abstol, divtol, cfg: KSPConfig):
@@ -32,7 +34,7 @@ def solve_preonly(A, B, b, x0, rtol, abstol, divtol, cfg: KSPConfig):
         x = x.clone()        # an identity PC must not hand back b itself
     if cfg.guess_nonzero:
         x = x0 + x
-    return SolveResult(x, 1, 0.0, int(KR.CONVERGED_ITS), empty_history(cfg), 0.0)
+    return SolveResult(x, 1, 0.0, int(KR.CONVERGED_ITS), empty_history(cfg, b.dtype), 0.0)
 
 
 def _dp(normtype, r, z) -> float:
@@ -61,21 +63,21 @@ def solve_richardson(A, B, b, x0, rtol, abstol, divtol, cfg: KSPConfig):
     r = initial_residual(A, b, x0, cfg)
     x = x0           # updated in place (the reference donates x0's buffer)
     z = B.mult(r)
-    dp0 = _dp(cfg.normtype, r, z)
-    hist = empty_history(cfg)
+    rnd = rounder(b.dtype)
+    dp0 = rnd(_dp(cfg.normtype, r, z))
+    hist = empty_history(cfg, b.dtype)
     hist[0] = dp0
-    ttol = max(rtol * dp0, abstol)
-    dtol_bound = divtol * dp0
+    ttol, atol, dtol_bound = tolerances(dp0, rtol, abstol, divtol, rnd)
     its, rnorm, reason = 0, dp0, 0
     while reason == 0 and its < cfg.max_it:
         x.add_(z, alpha=scale)
         r = b - A.mult(x)
         z = B.mult(r)
-        dp = _dp(cfg.normtype, r, z)
+        dp = rnd(_dp(cfg.normtype, r, z))
         its += 1
         hist[its] = dp
         rnorm = dp
-        reason = check_converged(dp, ttol, abstol, dtol_bound) \
+        reason = check_converged(dp, ttol, atol, dtol_bound) \
             if cfg.normtype != NONE else 0
     reason = finalize_reason(reason, its, cfg)
     return SolveResult(x, its, rnorm, reason, hist, dp0)
@@ -106,11 +108,11 @@ def solve_cg(A, B, b, x0, rtol, abstol, divtol, cfg: KSPConfig):
     else:
         rz, sq = dot2(r, z)
     beta, sq0 = torch.stack([rz, sq]).tolist()
-    dp0 = _dp_host(nt, beta, sq0)
-    hist = empty_history(cfg)
+    rnd = rounder(b.dtype)
+    dp0 = rnd(_dp_host(nt, beta, sq0))
+    hist = empty_history(cfg, b.dtype)
     hist[0] = dp0
-    ttol = max(rtol * dp0, abstol)
-    dtol_bound = divtol * dp0
+    ttol, atol, dtol_bound = tolerances(dp0, rtol, abstol, divtol, rnd)
     p = z.clone()                # p0 = z0; z may be r itself (PC none)
 
     betaold, its, rnorm, reason = 1.0, 0, dp0, 0
@@ -140,11 +142,62 @@ def solve_cg(A, B, b, x0, rtol, abstol, divtol, cfg: KSPConfig):
         if dpi_h <= 0:
             reason = int(KR.DIVERGED_INDEFINITE_MAT)
             break
-        dp = _dp_host(nt, rz_h, sq_h)
-        reason = check_converged(dp, ttol, abstol, dtol_bound) \
+        dp = rnd(_dp_host(nt, rz_h, sq_h))
+        reason = check_converged(dp, ttol, atol, dtol_bound) \
             if nt != NONE else 0
         hist[its] = dp
         rnorm = dp
         beta, betaold = rz_h, beta
     reason = finalize_reason(reason, its, cfg)
     return SolveResult(x, its, rnorm, reason, hist, dp0, r)
+
+
+def solve_minres(A, B, b, x0, rtol, abstol, divtol, cfg: KSPConfig):
+    """MINRES for symmetric (indefinite) systems with an SPD preconditioner
+    (minres.c), the reference's recurrence: the natural norm drives the
+    Lanczos step, the monitored norm is the norm type's, and |eta| is
+    tested. The recurrence's scalars stay on the card as 0-d tensors; the
+    host reads |eta| once per iteration."""
+    r0 = initial_residual(A, b, x0, cfg)
+    x = x0
+    z0 = B.mult(r0)
+    dp0 = torch.sqrt(torch.abs(fdot(z0, r0)))   # the natural norm drives MINRES
+    rnd = rounder(b.dtype)
+    mon0 = rnd(_dp(cfg.normtype, r0, z0))
+    hist = empty_history(cfg, b.dtype)
+    hist[0] = mon0
+    ttol, atol, dtol_bound = tolerances(mon0, rtol, abstol, divtol, rnd)
+
+    one, zero = torch.ones_like(dp0), torch.zeros_like(dp0)
+    v_old, v, z = torch.zeros_like(b), r0, z0
+    w, w_old = torch.zeros_like(b), torch.zeros_like(b)
+    beta, beta_old, c, c_old, s, s_old, eta = dp0, one, one, one, zero, zero, dp0
+    its, rnorm, reason = 0, mon0, 0
+    while reason == 0 and its < cfg.max_it:
+        v_hat = z / beta
+        Av = A.mult(v_hat)
+        alpha = fdot(v_hat, Av)
+        v_new = Av - (alpha / beta) * v - (beta / beta_old) * v_old
+        z_new = B.mult(v_new)
+        beta_new = torch.sqrt(torch.abs(fdot(z_new, v_new)))
+        # the Givens rotation
+        d0 = c * alpha - c_old * s * beta
+        d1 = torch.sqrt(d0 * d0 + beta_new * beta_new)
+        d2 = s * alpha + c_old * c * beta
+        d3 = s_old * beta
+        c_new = d0 / d1
+        s_new = beta_new / d1
+        w_new = (v_hat - d3 * w_old - d2 * w) / d1
+        x = x + c_new * eta * w_new
+        eta = -s_new * eta
+        its += 1
+        dp = rnd(abs(float(eta)))
+        hist[its] = dp
+        rnorm = dp
+        reason = check_converged(dp, ttol, atol, dtol_bound)
+        v_old, v, z = v, v_new, z_new
+        beta_old, beta = beta, beta_new
+        c_old, c, s_old, s = c, c_new, s, s_new
+        w_old, w = w, w_new
+    reason = finalize_reason(reason, its, cfg)
+    return SolveResult(x, its, rnorm, reason, hist, mon0)

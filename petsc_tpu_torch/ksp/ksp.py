@@ -17,15 +17,17 @@ import torch
 from .. import config
 from ..ops import operator
 from ..ops.esteig import eig_bounds_device
-from ..pc.pc import PC
+from ..pc.pc import PC, PCSide
 from ..sys.error import (Error, KSPConvergedReason as KR, NotConvergedError,
                          ksp_reason_string)
 from ..sys.object import PObject
 from ..vec.vec import Vec
 from . import common
 from . import impls_basic as _b
+from .bcgs import solve_bcgs
 from .cheby import solve_chebyshev
 from .common import KSPConfig
+from .gmres import solve_fgmres, solve_gmres
 
 # solver registry: name -> {"fn": solve function, "norm": default norm
 # type, "extras": maker of solver-specific parameters}
@@ -111,8 +113,20 @@ class KSP(PObject):
     def setNormType(self, nt):
         self.normtype = nt
 
+    def setPCSide(self, side):
+        """KSPSetPCSide: "right" turns gmres into fgmres at set-up."""
+        self.getPC().side = side
+
     def setInitialGuessNonzero(self, flag=True):
         self.guess_nonzero = bool(flag)
+
+    def setParam(self, key, value):
+        """A solver-specific parameter (restart, richardson scale, ...)."""
+        self._params[key] = value
+        return self
+
+    def setGMRESRestart(self, r):
+        return self.setParam("restart", int(r))
 
     def setErrorIfNotConverged(self, flag=True):
         self.error_if_not_converged = bool(flag)
@@ -140,15 +154,26 @@ class KSP(PObject):
             self.converged_maxits = True
         if o("get_bool", "ksp_error_if_not_converged", False):
             self.error_if_not_converged = True
+        r = o("get_int", "ksp_gmres_restart", None)
+        if r:
+            self._params["restart"] = r
         s = o("get_real", "ksp_richardson_scale", None)
         if s:
             self._params["scale"] = s
+        side = o("get_string", "ksp_pc_side", None)
+        if side:
+            self.getPC().side = side
         self.getPC().setFromOptions()
         return self
 
     def setUp(self):
         if self._type is None:
             self.setFromOptions()
+        # -ksp_pc_side right with gmres: the flexible (right-preconditioned)
+        # implementation, the same iterates as right-preconditioned GMRES
+        # for a fixed preconditioner (KSPSetPCSide)
+        if self.getPC().side == PCSide.RIGHT and self._type == "gmres":
+            self._type = "fgmres"
         if self.normtype is None:
             self.normtype = _IMPLS[self._type]["norm"]
         self.getPC().setUp()
@@ -263,6 +288,18 @@ def _rich_extras(ksp):
     return (float(ksp._params.get("scale", 1.0)),)
 
 
+_REFINE = {"refine_never": 0, "refine_ifneeded": 1, "refine_always": 2}
+
+
+def _gmres_extras(ksp):
+    """(restart, refine): -ksp_gmres_restart (or setGMRESRestart), 30 by
+    default; -ksp_gmres_cgs_refinement_type, refine_never by default."""
+    restart = int(ksp._params.get("restart", 30))
+    ref = ksp.opt("get_string", "ksp_gmres_cgs_refinement_type", None)
+    refine = _REFINE.get(ref, int(ksp._params.get("refine", 0)))
+    return (restart, refine)
+
+
 def _cheby_extras(ksp):
     """Chebyshev's bounds: the user's (-ksp_chebyshev_eigenvalues emin,emax)
     or Ritz bounds of D^-1 A through the esteig transform, by default the
@@ -288,4 +325,9 @@ register_ksp("preonly", _b.solve_preonly, default_norm=common.NONE)
 register_ksp("none", _b.solve_preonly, default_norm=common.NONE)
 register_ksp("richardson", _b.solve_richardson, extras=_rich_extras)
 register_ksp("cg", _b.solve_cg)
+register_ksp("minres", _b.solve_minres)
+register_ksp("gmres", solve_gmres, extras=_gmres_extras)
+register_ksp("fgmres", solve_fgmres, default_norm=common.UNPRECONDITIONED,
+             extras=_gmres_extras)
+register_ksp("bcgs", solve_bcgs)
 register_ksp("chebyshev", solve_chebyshev, extras=_cheby_extras)

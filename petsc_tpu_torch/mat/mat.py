@@ -3,7 +3,8 @@
 Counterpart of the ``Mat`` base of ``petsc_tpu/mat/mat.py`` (reference
 src/mat/interface/matrix.c — MatMult :2696): the petsc4py-style AIJ
 factories, sizes, the (meta, data) contract bound through
-``ops.operator.bind``, mult, transpose mult, diagonal and vector creation.
+``ops.operator.bind``, mult, transpose mult, diagonal, vector creation
+and ``getFactor``.
 """
 
 from __future__ import annotations
@@ -124,6 +125,12 @@ class Mat(PObject):
         v.setLayout(self.row_layout)
         v.setUp()
         return v
+
+    def getFactor(self, solver_type="petsc", factor_kind="lu"):
+        """MatGetFactor (matrix.c): the built-in backend's lu, ilu,
+        cholesky or icc (host factors, device sweeps)."""
+        from .factorctx import FactorContext
+        return FactorContext(self, solver_type, factor_kind)
 
     def setOption(self, name, flag=True):
         if name in ("symmetric", "spd"):

@@ -12,10 +12,14 @@ compiler's own output names the OpenMP flag or its runtime, and is
 announced with a warning and recorded in :data:`openmp`.
 
 Bound here: what the Galerkin setup of PCMG needs (``spgemm``,
-``csr_transpose``, ``csr_matvec_op``) and the coarsening of PCGAMG
+``csr_transpose``, ``csr_matvec_op``), the coarsening of PCGAMG
 (``strength_sym``, ``mis_aggregate``, ``mis2_aggregate``,
-``fix_aggregates``, ``hem_match``). The ILU, ordering, colouring and
-loose HEM kernels of the reference's file come with ROADMAP items 7-8.
+``fix_aggregates``, ``hem_match``) and the factorizations of PCILU
+(``ilu0_inplace``, ``iluk_symbolic``, ``levels``). Unlike the
+reference's ``ilu0_inplace``, ``levels`` and ``iluk_symbolic``, none
+returns None for a missing library: the build raises instead. The
+ordering, colouring and loose HEM kernels of the reference's file come
+with ROADMAP items 7-8.
 """
 
 from __future__ import annotations
@@ -116,6 +120,9 @@ def lib():
         "mis2_aggregate_i32": (i64, [i32, p32, p32, p64, p64, p64]),
         "fix_aggregates": (None, [i64, p64, p64, p64, i64, p64]),
         "hem_match": (i64, [i64, p64, p64, pf8, i64, f8, p64]),
+        "ilu0": (i64, [i64, p64, p64, pf8]),
+        "levels": (i64, [i64, p64, p64, i64, p64]),
+        "iluk_symbolic": (i64, [i64, p64, p64, i64, ctypes.c_void_p, ctypes.c_void_p]),
     }
     for name, (res_t, args) in sigs.items():
         fn = getattr(L, name)
@@ -269,3 +276,39 @@ def hem_match(indptr, indices, weights, rounds, threshold):
     nagg = lib().hem_match(n, _c64(indptr), _c64(indices), _cf8(weights), int(rounds),
                            float(threshold), agg)
     return agg, int(nagg)
+
+
+def ilu0_inplace(indptr, indices, vals):
+    """The in-pattern ILU(0) factors of a column-sorted CSR with every
+    diagonal present, as a new float64 array of values: L strictly below
+    the diagonal (unit diagonal implied), D + U on and above it. Raises
+    ``Error`` on a zero pivot or a missing diagonal, naming the row."""
+    v = np.array(vals, dtype=np.float64)
+    err = lib().ilu0(len(indptr) - 1, _c64(indptr), _c64(indices), v)
+    if err != 0:
+        raise Error(f"ILU(0): zero pivot in row {-err - 1}")
+    return v
+
+
+def levels(indptr, indices, lower):
+    """Dependency levels of a strictly triangular CSR: (lev, nlevels),
+    lev[i] one more than the deepest level among row i's columns (rows
+    in forward order when `lower`, else backward)."""
+    n = len(indptr) - 1
+    lev = np.zeros(n, dtype=np.int64)
+    nlev = lib().levels(n, _c64(indptr), _c64(indices), 1 if lower else 0, lev)
+    return lev, int(nlev)
+
+
+def iluk_symbolic(indptr, indices, k):
+    """The ILU(k) level-of-fill pattern of a CSR, rows column-sorted and
+    every diagonal present: (indptr, indices), int64."""
+    L = lib()
+    n = len(indptr) - 1
+    ip, ix = _c64(indptr), _c64(indices)
+    nnz = L.iluk_symbolic(n, ip, ix, int(k), None, None)
+    out_ip = np.empty(n + 1, dtype=np.int64)
+    out_ix = np.empty(int(nnz), dtype=np.int64)
+    L.iluk_symbolic(n, ip, ix, int(k), out_ip.ctypes.data_as(ctypes.c_void_p),
+                    out_ix.ctypes.data_as(ctypes.c_void_p))
+    return out_ip, out_ix

@@ -10,8 +10,12 @@
 //   aggregation (mis.c:89-207) on the graph and on its implicit square,
 //   the square fix-up (agg.c:913 fixAggregatesWithSquare) and the exact
 //   serial heavy-edge matching (hem.c).
-// The ILU, ordering, colouring and loose HEM kernels of the reference's
-// file arrive with the slices that call them.
+// * the factorizations of PCILU and the level schedule of its triangular
+//   solves: in-pattern ILU(0) (aijfact.c:216), the ILU(k) level-of-fill
+//   pattern (aijfact.c:1536) and the dependency levels of a triangular
+//   CSR (petsc_tpu_torch/ops/trisolve.py).
+// The ordering, colouring and loose HEM kernels of the reference's file
+// arrive with the slices that call them.
 // Exposed with C linkage for ctypes; petsc_tpu_torch/native/__init__.py
 // builds it at first use. There is no numpy fallback: a failed build
 // raises.
@@ -341,6 +345,132 @@ void csr_matvec(int64_t n, const int64_t* Ai, const int64_t* Aj,
 void csr_matvec_i32(int32_t n, const int32_t* Ai, const int32_t* Aj,
                     const double* Ax, const double* x, double* y) {
   csr_matvec_t<int32_t>(n, Ai, Aj, Ax, x, y);
+}
+
+// In-pattern ILU(0) numeric factorization (aijfact.c:216 algorithm):
+// vals modified in place to hold L (strict lower, unit diag implied) and
+// U (diag + strict upper). Returns -row-1 on zero pivot, 0 on success.
+// Requires column-sorted CSR with present diagonals.
+int64_t ilu0(int64_t n, const int64_t* indptr, const int64_t* indices,
+             double* vals) {
+  std::vector<int64_t> diag(n);
+  std::vector<int64_t> work(n, -1);  // col -> position in current row
+  for (int64_t i = 0; i < n; i++) {
+    diag[i] = -1;
+    for (int64_t p = indptr[i]; p < indptr[i + 1]; p++)
+      if (indices[p] == i) { diag[i] = p; break; }
+    if (diag[i] < 0) return -i - 1;
+  }
+  for (int64_t i = 0; i < n; i++) {
+    int64_t lo = indptr[i], hi = indptr[i + 1];
+    for (int64_t p = lo; p < hi; p++) work[indices[p]] = p;
+    for (int64_t p = lo; p < hi; p++) {
+      int64_t k = indices[p];
+      if (k >= i) break;
+      double akk = vals[diag[k]];
+      if (akk == 0.0) { for (int64_t q=lo;q<hi;q++) work[indices[q]]=-1;
+                        return -k - 1; }
+      double lik = vals[p] / akk;
+      vals[p] = lik;
+      for (int64_t q = diag[k] + 1; q < indptr[k + 1]; q++) {
+        int64_t pj = work[indices[q]];
+        if (pj >= 0) vals[pj] -= lik * vals[q];
+      }
+    }
+    for (int64_t p = lo; p < hi; p++) work[indices[p]] = -1;
+    if (vals[diag[i]] == 0.0) return -i - 1;
+  }
+  return 0;
+}
+
+// Dependency levels of a strictly-triangular CSR (trisolve level
+// scheduling). lower != 0 -> forward order. Returns nlevels.
+int64_t levels(int64_t n, const int64_t* indptr, const int64_t* indices,
+               int64_t lower, int64_t* lev) {
+  int64_t nlev = 0;
+  if (lower) {
+    for (int64_t i = 0; i < n; i++) {
+      int64_t l = 0;
+      for (int64_t p = indptr[i]; p < indptr[i + 1]; p++)
+        l = std::max(l, lev[indices[p]] + 1);
+      lev[i] = l;
+      nlev = std::max(nlev, l + 1);
+    }
+  } else {
+    for (int64_t i = n - 1; i >= 0; i--) {
+      int64_t l = 0;
+      for (int64_t p = indptr[i]; p < indptr[i + 1]; p++)
+        l = std::max(l, lev[indices[p]] + 1);
+      lev[i] = l;
+      nlev = std::max(nlev, l + 1);
+    }
+  }
+  return nlev < 1 ? 1 : nlev;
+}
+
+// ILU(k) symbolic factorization (aijfact.c:1536 MatILUFactorSymbolic
+// role): level-of-fill pattern, k >= 0. Two-call protocol: call with
+// out_indptr/out_indices = nullptr to get the required nnz; then call
+// again with allocated buffers. Rows are emitted column-sorted.
+int64_t iluk_symbolic(int64_t n, const int64_t* indptr,
+                      const int64_t* indices, int64_t k,
+                      int64_t* out_indptr, int64_t* out_indices) {
+  // rowstruct[i] = sorted (col, level) pairs of factored row i
+  std::vector<std::vector<std::pair<int64_t, int64_t>>> rows(n);
+  std::vector<int64_t> lev(n, -1);   // col -> level for current row
+  std::vector<int64_t> touched;
+  int64_t total = 0;
+  for (int64_t i = 0; i < n; i++) {
+    touched.clear();
+    for (int64_t p = indptr[i]; p < indptr[i + 1]; p++) {
+      int64_t c = indices[p];
+      if (lev[c] < 0) touched.push_back(c);
+      lev[c] = 0;
+    }
+    if (lev[i] < 0) { lev[i] = 0; touched.push_back(i); }  // force diag
+    // eliminate with factored rows kk < i present in the pattern
+    // (process kk in ascending order: collect, sort, sweep)
+    std::vector<int64_t> pivots;
+    for (int64_t c : touched)
+      if (c < i) pivots.push_back(c);
+    std::sort(pivots.begin(), pivots.end());
+    for (size_t pi = 0; pi < pivots.size(); pi++) {
+      int64_t kk = pivots[pi];
+      int64_t lkk = lev[kk];
+      if (lkk >= k + 1) continue;  // L entry beyond level limit: unused
+      for (auto& ce : rows[kk]) {
+        int64_t j = ce.first;
+        if (j <= kk) continue;     // U-part of row kk only
+        int64_t nl = lkk + ce.second + 1;
+        if (nl > k) continue;
+        if (lev[j] < 0) {
+          lev[j] = nl;
+          touched.push_back(j);
+          if (j < i && j > kk) {
+            // new pivot discovered; insert keeping order
+            pivots.insert(std::upper_bound(pivots.begin() + pi + 1,
+                                           pivots.end(), j), j);
+          }
+        } else if (nl < lev[j]) {
+          lev[j] = nl;
+        }
+      }
+    }
+    std::sort(touched.begin(), touched.end());
+    rows[i].reserve(touched.size());
+    for (int64_t c : touched) rows[i].emplace_back(c, lev[c]);
+    total += (int64_t)touched.size();
+    for (int64_t c : touched) lev[c] = -1;
+  }
+  if (out_indptr) {
+    int64_t pos = 0;
+    out_indptr[0] = 0;
+    for (int64_t i = 0; i < n; i++) {
+      for (auto& ce : rows[i]) out_indices[pos++] = ce.first;
+      out_indptr[i + 1] = pos;
+    }
+  }
+  return total;
 }
 
 }  // extern "C"

@@ -28,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
 SOURCES = ("probe.cu", "triad.cu", "axpy_normsq.cu", "dot2.cu", "const_stencil.cu",
            "csr_spmv.cu", "gather.cu", "row_gather.cu", "lane_shuffle.cu", "cheby.cu",
-           "dnd_stencil.cu", "q1.cu")
+           "dnd_stencil.cu", "q1.cu", "trisolve.cu")
 HEADERS = ("common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -73,6 +73,9 @@ SIGNATURES = {
     "ptt_q1_prolong_f32": (_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp),
     "ptt_q1_restrict_f64": (_vp, _vp, *(_i32,) * 10, _vp),
     "ptt_q1_restrict_f32": (_vp, _vp, *(_i32,) * 10, _vp),
+    "ptt_trisolve_f64": (_vp, _vp, _vp, _i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _i32, _vp),
+    "ptt_trisolve_f32": (_vp, _vp, _vp, _i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _i32, _vp),
+    "ptt_trisolve_config": (_i32, _i32, _i32, _i32, _vp),
 }
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 

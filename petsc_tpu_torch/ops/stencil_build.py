@@ -205,3 +205,31 @@ def poisson3d_27pt(n):
     return sp.csr_matrix(
         (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
         shape=(N, N))
+
+
+def stencil7_coo(nz, ny, nx, jitter=True):
+    """COO triplets (i, j, v) of the atmosmodd-class operator of BASELINE
+    config 2, the port's copy of ``examples/bench_spmv.py:69-90``
+    ``stencil7``: a 7-point stencil on an nz x ny x nx grid (x fastest),
+    diagonal 6.5 and off-diagonals -1, each scaled by
+    1 + 0.1 ((13 r + dz + dy + dx) mod 7) / 7 when `jitter` (so the
+    operator is not symmetric), neighbours outside the grid dropped. The
+    triplets come offset by offset (the diagonal first), as the
+    reference concatenates them."""
+    n = nz * ny * nx
+    r = np.arange(n, dtype=np.int64)
+    z, rem = r // (ny * nx), r % (ny * nx)
+    yy, xx = rem // nx, rem % nx
+    rows, cols, vals = [], [], []
+    for (dz, dy, dx) in ((0, 0, 0), (0, 0, -1), (0, 0, 1), (0, -1, 0),
+                         (0, 1, 0), (-1, 0, 0), (1, 0, 0)):
+        ok = ((z + dz >= 0) & (z + dz < nz) & (yy + dy >= 0)
+              & (yy + dy < ny) & (xx + dx >= 0) & (xx + dx < nx))
+        c = r + (dz * ny * nx + dy * nx + dx)
+        v = np.full(n, 6.5) if (dz, dy, dx) == (0, 0, 0) else np.full(n, -1.0)
+        if jitter:
+            v = v * (1.0 + 0.1 * ((r * 13 + dz + dy + dx) % 7) / 7.0)
+        rows.append(r[ok])
+        cols.append(c[ok])
+        vals.append(v[ok])
+    return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)

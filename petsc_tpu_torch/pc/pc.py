@@ -2,10 +2,11 @@
 
 Counterpart of ``petsc_tpu/pc/pc.py`` (reference PC interface,
 src/ksp/pc/interface/precon.c — PCApply :523, PCSetUp :1095 with its
-operator-state reuse logic), with the types of this slice: ``none`` and
-``jacobi`` (its ``diagonal`` variant, jacobi.c; zero diagonal entries are
-fixed to 1.0). setup() builds (meta, data); ``ops.operator`` binders
-reconstruct apply(x).
+operator-state reuse logic), with the types ``none`` and ``jacobi`` (its
+``diagonal`` variant, jacobi.c; zero diagonal entries are fixed to 1.0)
+here; ``mg``, ``gamg``, the factorizations (``pc/factor_pc.py``) and
+``sor`` (``pc/more_pc.py``) register themselves. setup() builds (meta,
+data); ``ops.operator`` binders reconstruct apply(x).
 """
 
 from __future__ import annotations
@@ -18,6 +19,12 @@ from .. import config
 from ..ops import operator
 from ..sys.error import Error, PCFailedReason
 from ..sys.object import PObject
+
+
+class PCSide:
+    LEFT = "left"
+    RIGHT = "right"
+    SYMMETRIC = "symmetric"
 
 
 class PC(PObject):
@@ -34,6 +41,7 @@ class PC(PObject):
         self._data = None
         self.failed_reason = PCFailedReason.NOERROR
         self._type = None
+        self.side = PCSide.LEFT
 
     @classmethod
     def register_impl(cls, name, impl):
@@ -79,9 +87,8 @@ class PC(PObject):
         return self
 
     def default_type(self):
-        # PETSc's default for an assembled AIJ matrix on one device is ilu
-        # (not ported yet: setType says so); for a stencil Mat the
-        # reference also defaults to none
+        # PETSc's default for an assembled AIJ matrix on one device is ilu;
+        # for a stencil Mat the reference defaults to none
         from ..mat.aij import MatAIJ
         return "ilu" if isinstance(self.pmat, MatAIJ) else "none"
 
@@ -120,6 +127,16 @@ class PC(PObject):
         if y is None:
             y = x.duplicate()
         y.array = self.op().mult(x.array)
+        return y
+
+    def applyTranspose(self, x, y=None):
+        """y <- B^T x (PCApplyTranspose)."""
+        if y is None:
+            y = x.duplicate()
+        op = self.op()
+        if op.mult_t is None:
+            raise Error(f"PC {self._type} has no transpose apply")
+        y.array = op.mult_t(x.array)
         return y
 
     def view(self, viewer=None):

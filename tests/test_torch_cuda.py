@@ -675,3 +675,96 @@ def test_q1_prolong_equals_plain_bit_for_bit(cuda_device, dtype, fshape):
     torch.cuda.synchronize()
     assert torch.equal(k, p)
     assert gridk.LAUNCHES == {"dnd_stencil": 0, "q1_prolong": 1, "q1_restrict": 0}
+
+
+def _trisolve_plans(case, device):
+    """{name: Sweep} of one case's factors on `device`."""
+    from petsc_tpu_torch.mat import factor
+    from petsc_tpu_torch.ops import trisolve
+    if case == "one level":
+        m = 300_001        # more rows than one wave of T1's grid holds threads
+        return {"diag": trisolve.make_sweep(np.zeros(m + 1, dtype=np.int64),
+                                            np.zeros(0, dtype=np.int64), np.zeros(0),
+                                            lower=True, scale=np.linspace(0.5, 2.0, m),
+                                            device=device)}
+    if case == "ILU(2) random":
+        n = 700
+        R = sp.random(n, n, density=0.01, format="csr", random_state=4)
+        A = (R + sp.diags(np.full(n, 5.0))).tocsr()
+    else:
+        shape = (3, 8, 9) if case == "LU" else (5, 13, 17)
+        i, j, v = stencil_build.stencil7_coo(*shape)
+        n = int(np.prod(shape))
+        A = sp.csr_matrix((v, (i, j)), shape=(n, n))
+    A.sort_indices()
+    if case == "LU":
+        L, U, dinv = factor.splu_factors(A)[:3]
+    else:
+        L, U, dinv = factor.iluk(A.indptr, A.indices, A.data, 2 if "ILU(2)" in case else 0)
+    if case == "float32 factor":      # SOR's sweeps under -real_dtype f32
+        return {"L32": trisolve.make_sweep(*L, lower=True, dtype=torch.float32, device=device)}
+    _, data = trisolve.make_trisolve_plan(L, U, dinv, device=device)
+    data.update(trisolve.make_transpose_tables(L, U, dinv, device=device))
+    return data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("stencil7 ILU(0)", "ILU(2) random", "LU", "one level",
+                                  "float32 factor"))
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_trisolve_kernel_equals_plain(cuda_device, dtype, case):
+    """T1 equals its plain version bit for bit on every sweep of a case
+    (ILU's two, the transpose's two), one launch per sweep, and a rerun
+    gives the same bits."""
+    from petsc_tpu_torch.ops import trisolve
+    for name, sw in _trisolve_plans(case, cuda_device).items():
+        b = torch.rand(sw.m, device=cuda_device, dtype=torch.float64).to(dtype) + 0.5
+        trisolve.reset_launches()
+        k = trisolve.trisolve_sweep(sw, b)
+        torch.cuda.synchronize()
+        assert trisolve.LAUNCHES["trisolve"] == 1
+        p = trisolve.trisolve_sweep_plain(sw, b)
+        assert k.dtype == dtype and torch.equal(k, p), (name, _rel(k.double(), p.double()))
+        for _ in range(5):
+            assert torch.equal(trisolve.trisolve_sweep(sw, b), k)
+
+
+@pytest.mark.cuda
+def test_gmres_ilu_on_the_card_equals_the_cpu_port(cuda_device):
+    """stencil7 6 x 60 x 60 with PETSc's defaults (GMRES(30) + ILU(0)) and the
+    small iterative variants of chip_smoke.GMRES_SMALL: its, reason and
+    history on the card equal the CPU port's (1e-10 relative: the same host
+    set-up, sums in another order), the defaults' launches exact; the
+    direct solve (preonly + lu, thousands of levels: too slow for the CPU's
+    plain sweeps) to 1e-13 of b on the card alone."""
+    import types
+    from petsc_tpu_torch.ops import trisolve
+    small = dict(chip_smoke.GMRES_SMALL)
+    lu_opts = small.pop("preonly_lu")[0]
+    cases = (("default", ((), 11, "CONVERGED_RTOL", 0, 0, 0)), *small.items())
+
+    def port(dev):
+        pt = types.SimpleNamespace(**{k: getattr(ptt, k) for k in dir(ptt)
+                                      if not k.startswith("__")})
+        pt.init = lambda args=None: ptt.init(args=args, device=dev)
+        return pt
+
+    for name, (opts, its, reason, _, _, _) in cases:
+        res = {}
+        for dev in ("cpu", "cuda"):
+            chip_smoke.reset_launches()
+            ksp = chip_smoke.config2_solve(port(dev), chip_smoke.CONFIG2_SMALL, opts)[0]
+            res[dev] = (ksp.getIterationNumber(), ksp.getConvergedReason().name,
+                        ksp.getConvergenceHistory(), chip_smoke.launch_counts())
+        assert res["cuda"][:2] == res["cpu"][:2] == (its, reason), name
+        np.testing.assert_allclose(res["cuda"][2], res["cpu"][2], rtol=1e-10, atol=0)
+        if name == "default":
+            need = chip_smoke.config2_launches_needed(its)
+            assert {k: res["cuda"][3][k] for k in need} == need
+    chip_smoke.reset_launches()
+    ksp, _, b, x, A_sp, _ = chip_smoke.config2_solve(port("cuda"), chip_smoke.CONFIG2_SMALL,
+                                                    lu_opts)
+    bh, xh = b.array.cpu().numpy(), x.array.cpu().numpy()
+    assert ksp.getConvergedReason().name == "CONVERGED_ITS"
+    assert np.linalg.norm(bh - A_sp @ xh) <= 1e-13 * np.linalg.norm(bh)
+    assert trisolve.LAUNCHES["trisolve"] == 2

@@ -20,6 +20,7 @@ from petsc_tpu_torch.ops import cuda_build
 from petsc_tpu_torch.ops import gather_kernels as gk
 from petsc_tpu_torch.ops import grid_kernels
 from petsc_tpu_torch.ops import pallas_kernels as pk
+from petsc_tpu_torch.ops import trisolve
 from petsc_tpu_torch.sys.error import Error
 
 torch.set_num_threads(1)
@@ -141,10 +142,10 @@ def test_every_csrc_source_is_built():
         defined |= set(re.findall(r'extern "C" int (ptt_\w+)\(', (csrc / src).read_text()))
     assert defined == set(cuda_build.SIGNATURES)
     # (V1's window kernel counts its launches as dnd_stencil)
-    kernels = [k for k in (*pk.LAUNCHES, *gk.LAUNCHES, *grid_kernels.LAUNCHES, "dnd_window")
-               if k != "probe"]
+    kernels = [k for k in (*pk.LAUNCHES, *gk.LAUNCHES, *grid_kernels.LAUNCHES,
+                           *trisolve.LAUNCHES, "dnd_window") if k != "probe"]
     called = {"ptt_probe", "ptt_triad_config", "ptt_dot2_config", "ptt_const_stencil_map",
-              "ptt_const_stencil_config", "ptt_dnd_window_config"} \
+              "ptt_const_stencil_config", "ptt_dnd_window_config", "ptt_trisolve_config"} \
         | {f"ptt_{k}_{s}" for k in kernels for s in ("f64", "f32")}
     assert called == defined
 

@@ -103,7 +103,8 @@ def test_the_library_is_the_ports_own_build():
     assert sorted(defs) == sorted(
         [f"{k}{s}" for k in ("csr_transpose", "spgemm_count", "spgemm_fill", "csr_matvec",
                              "strength_sym", "mis2_aggregate")
-         for s in ("", "_i32", "_t")] + ["mis_aggregate", "fix_aggregates", "hem_match"])
+         for s in ("", "_i32", "_t")] + ["mis_aggregate", "fix_aggregates", "hem_match",
+                                          "ilu0", "levels", "iluk_symbolic"])
     for name, body in defs.items():
         assert body in ref, name
     meps = [ln for ln in src.splitlines() if ln.startswith("static const double HEM_MEPS")]
@@ -150,3 +151,45 @@ def test_a_refused_openmp_flag_builds_serially_and_says_so(monkeypatch, tmp_path
     Ci = np.empty(n + 1, dtype=np.int64)
     nnz = L.spgemm_count_i32(n, B.shape[1], A.indptr, A.indices, B.indptr, B.indices, Ci)
     assert nnz == (A @ B).nnz
+
+
+def _ilu_matrix():
+    """A non-symmetric, diagonally dominant CSR with sorted columns."""
+    n = 200
+    R = sp.random(n, n, density=0.03, format="csr", random_state=9)
+    A = (R + sp.diags(np.full(n, 6.0))).tocsr()
+    A.sort_indices()
+    return A
+
+
+def test_ilu0_levels_and_iluk_symbolic_equal_the_reference():
+    A = _ilu_matrix()
+    assert np.array_equal(native.ilu0_inplace(A.indptr, A.indices, A.data),
+                          native_jax.ilu0_inplace(A.indptr, A.indices, A.data))
+    L = sp.tril(A, k=-1).tocsr()
+    U = sp.triu(A, k=1).tocsr()
+    for T, lower in ((L, True), (U, False)):
+        lev, nlev = native.levels(T.indptr, T.indices, lower)
+        lev_r, nlev_r = native_jax.levels(T.indptr, T.indices, lower)
+        assert nlev == nlev_r and np.array_equal(lev, lev_r)
+    for k in (1, 2, 3):
+        for a, b in zip(native.iluk_symbolic(A.indptr, A.indices, k),
+                        native_jax.iluk_symbolic(A.indptr, A.indices, k)):
+            assert np.array_equal(a, b)
+
+
+def test_ilu0_on_a_tridiagonal_matrix_is_its_exact_lu():
+    n = 50
+    T = sp.diags([np.full(n - 1, -1.0), np.full(n, 3.0), np.full(n - 1, -0.5)],
+                 [-1, 0, 1]).tocsr()
+    v = native.ilu0_inplace(T.indptr, T.indices, T.data)
+    F = sp.csr_matrix((v, T.indices, T.indptr), shape=T.shape)
+    Lf = sp.tril(F, k=-1) + sp.eye(n)
+    Uf = sp.triu(F)
+    assert _rel((Lf @ Uf).toarray(), T.toarray()) <= 1e-14
+
+
+def test_a_zero_pivot_in_ilu0_raises_naming_the_row():
+    A = sp.csr_matrix(np.array([[1.0, 1.0, 0.0], [1.0, 1.0, 1.0], [0.0, 1.0, 2.0]]))
+    with pytest.raises(Error, match="zero pivot in row 1"):
+        native.ilu0_inplace(A.indptr, A.indices, A.data)
