@@ -6,10 +6,10 @@
 Phases, one JSON line each on stdout:
   device   the card's name and its nvidia-smi name and power limit;
   build    builds the kernels from petsc_tpu_torch/csrc (and, beside
-           them, the earlier designs of earlier_kernels/ that phase
-           gamg_grid times the new ones against) and runs the one-launch
-           probe (K1), then builds the native host library (graphops.cpp,
-           g++), each with its seconds;
+           them, the earlier designs of earlier_kernels/ that phases
+           gamg_grid and gmres_ilu time the new ones against) and runs
+           the one-launch probe (K1), then builds the native host library
+           (graphops.cpp, g++), each with its seconds;
   kernels  holds every kernel against its plain PyTorch version on the
            card (f64 to 1e-12, f32 to 1e-5 relative) at n = 2^24+37 and
            n = 128^3, and against a scipy CSR product at 24^3; S1 at 128^3,
@@ -142,22 +142,34 @@ Phases, one JSON line each on stdout:
            exact launches (K1 1, K8 2, K3 its, T1 2 (its + 1), S2 its, no
            other kernel); times warm solves (best of 3); holds T1 against
            its plain version bit for bit on both sweeps of the path's ILU(0)
-           factors (f64 and f32 vectors) and on small odd shapes (the four
-           sweeps of an ILU(1) plan, a float32 factor, a one-level diagonal
-           wider than T1's grid), each timed beside its plain version and,
-           on the path's sweeps, torch.triangular_solve on the sweep's
-           triangle as a sparse CSR (cuSPARSE); then the same operator at
+           factors (f64 and f32 vectors; each must take the cluster
+           variant) and on small odd shapes (the four sweeps of an ILU(1)
+           plan, a float32 factor, a one-level diagonal wider than a
+           cluster, which must take the grid variant), each timed beside
+           its plain version and, on the path's sweeps,
+           torch.triangular_solve on the sweep's triangle as a sparse CSR
+           (cuSPARSE); on the path's sweeps also the grid variant and the
+           earlier grid-barrier design (earlier_kernels/, built in phase
+           build), each bit for bit and timed in turns (earlier, grid,
+           new, new, grid, earlier), the same sweeps with every entry
+           removed (the barrier and the row loads alone) in turns, and the
+           cluster's shape (16 or 11 blocks; 2 blocks or 1 on the ILU(1)
+           sweep); each row names its variant, cluster, blocks, threads,
+           rows per thread, registers and blocks per SM; then the same operator at
            6 x 60 x 60 with -pc_bjacobi_blocks 4, -ksp_type bcgs, -pc_type
            sor, -ksp_type preonly -pc_type lu and -ksp_pc_side right, each
            against its contract (GMRES_SMALL);
   gmres_ilu_profile  the profile phase for one warm solve of config 2, with
-           T1's µs per launch and per level.
+           T1's µs per launch and per level (T1 24 launches and nothing
+           else of the port's kernels).
 Then the kernel table as one JSON line (K2's, K4's and S1's rows also name
 their design, launch shape and share of the bound, S1's with its cp.async
 path, star and f32 times beside; V1's, Q1P's and Q1R's are the f32 cycle's,
 each with earlier_ms, the earlier design's time in the same turns, Q1R's
 and Q1P's with their µs per launch on each level of both cycles; T1's is
-config 2's forward sweep in f64, with the other sweeps beside it;
+config 2's forward sweep in f64, with its variant, the grid variant's and
+the earlier design's times from the same turns, the entries-removed sweeps
+and the other sweeps beside it;
 every row of the path's kernels its µs per launch inside each solve), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. With
@@ -1525,7 +1537,8 @@ def grid_kernel_row(name, dtype, fn, plain, library_fn, nbytes, flops, tol, earl
 
 
 EARLIER = Path(__file__).resolve().parent / "earlier_kernels"
-EARLIER_SOURCES = ("q1_prolong_per_output.cu", "q1_restrict_per_output.cu")
+EARLIER_SOURCES = ("q1_prolong_per_output.cu", "q1_restrict_per_output.cu",
+                   "trisolve_grid_barrier.cu")
 
 
 def start_earlier_build():
@@ -1568,6 +1581,10 @@ def load_earlier(build):
             fn = getattr(L, f"ptt_earlier_{name}_{sfx}")
             fn.argtypes = [vp, vp] + [i32] * 7 + [vp]
             fn.restype = ctypes.c_int
+    for sfx in ("f64", "f32"):
+        fn = getattr(L, f"ptt_earlier_trisolve_{sfx}")
+        fn.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, vp, i32, i32, vp, i32, vp]
+        fn.restype = ctypes.c_int
     return L, seconds
 
 
@@ -1946,14 +1963,96 @@ def trisolve_operands(sw):
                                    torch.as_tensor(M.data, device=dev), size=M.shape)
 
 
-def trisolve_row(ts, sw, name, dtype, flush, library=True, plain_reps=3):
+def wide_sweep(width, device, tail=1000, hop=64, seed=12):
+    """A strictly lower sweep whose first level holds `width` rows without
+    entries; then `tail` rows, each reading two rows of the first level and
+    the row `hop` before it (when that is past the first level), so that
+    hop rows form each later level; scaled by a ramp."""
+    import numpy as np
+    from petsc_tpu_torch.ops import trisolve as ts
+    i = np.arange(width, width + tail)
+    cols = [np.sort(np.unique(c)) for c in zip((7 * i) % width, (13 * i + 5) % width)]
+    cols = [np.concatenate([c, [r - hop]]) if r - hop >= width else c
+            for c, r in zip(cols, i)]
+    indptr = np.concatenate([np.zeros(width + 1, dtype=np.int64),
+                             np.cumsum([len(c) for c in cols])])
+    indices = np.concatenate(cols)
+    vals = np.random.default_rng(seed).uniform(-0.4, 0.4, len(indices))
+    m = width + tail
+    return ts.make_sweep(indptr, indices, vals, lower=True, scale=np.linspace(0.5, 2.0, m),
+                         device=device)
+
+
+def empty_sweep(ts, sw):
+    """The sweep `sw` with every entry removed: the same levels, rows and
+    scale, no factor (x = b times the scale). Timed, it is the barrier and
+    the row loads of each level alone."""
+    import numpy as np
+    rows = sw.rows.cpu().numpy()
+    lev = np.empty(sw.m, dtype=np.int64)
+    lev[rows] = np.repeat(np.arange(sw.nlev), np.diff(sw.levels))
+    scale = None
+    if sw.scale is not None:
+        scale = np.empty(sw.m)
+        scale[rows] = sw.scale.double().cpu().numpy()
+    return ts.sweep_from_levels(lev, np.zeros(sw.m + 1, dtype=np.int64),
+                                np.zeros(0, dtype=np.int64), np.zeros(0), scale,
+                                dtype=sw.vals.dtype, device=sw.rows.device)
+
+
+def earlier_trisolve(earlier, sw, b, bar):
+    """One sweep of `sw` on b by T1's earlier grid-barrier design
+    (earlier_kernels/trisolve_grid_barrier.cu) on the current stream, with
+    its own barrier scratch `bar` (two int32 zeros); raises on a CUDA
+    error. Not counted in LAUNCHES."""
+    import torch
+    from petsc_tpu_torch.ops import cuda_build
+    x = torch.empty_like(b)
+    fn = getattr(earlier, "ptt_earlier_trisolve_" + ("f64" if b.dtype == torch.float64
+                                                       else "f32"))
+    scale = 0 if sw.scale is None else sw.scale.data_ptr()
+    cuda_build.check("earlier trisolve", fn(
+        x.data_ptr(), b.data_ptr(), sw.lev_ptr.data_ptr(), sw.nlev, sw.rows.data_ptr(),
+        sw.rp.data_ptr(), sw.cols.data_ptr(), sw.vals.data_ptr(), scale,
+        int(sw.vals.dtype == torch.float64), sw.width, bar.data_ptr(), b.get_device(),
+        torch.cuda.current_stream().cuda_stream))
+    return x
+
+
+def trisolve_variants(ts, sw, earlier):
+    """{name: fn(b) -> x} of T1's designs on `sw`: "new" (the plan's
+    variant, as the path launches it, counted), "grid" (the grid variant,
+    the loads ahead without the cluster barrier) and "earlier" (the
+    earlier grid-barrier kernel, earlier_kernels/); the last two counted in a
+    scratch dict, not in LAUNCHES."""
+    import torch
+    grid_plan = ts.sweep_plan(sw, max_blocks=0)
+    scratch = {"trisolve": 0}
+    bar = torch.zeros(2, dtype=torch.int32, device=sw.rows.device)
+
+    def grid(b):
+        x = torch.empty_like(b)
+        ts._launch(scratch, sw, b, x, grid_plan)
+        return x
+
+    fns = {"new": lambda b: ts.trisolve_sweep(sw, b), "grid": grid}
+    if earlier is not None:
+        fns["earlier"] = lambda b: earlier_trisolve(earlier, sw, b, bar)
+    return fns
+
+
+def trisolve_row(ts, sw, name, dtype, flush, library=True, plain_reps=3, earlier=None):
     """T1 on one sweep against its plain version on the same b (values unique
     per entry), bit for bit; both timed after the clean flush (the plain
     version, a Python loop over levels, best of `plain_reps`), and, where it
     takes the operand, torch.triangular_solve on the sweep's triangle as a
-    sparse CSR (cuSPARSE), checked against T1 to 1e-10 first. The bound
-    counts every byte of the factor, its indices and level pointer, b and x
-    once, and 2 flops per entry plus the row's subtraction (and scale)."""
+    sparse CSR (cuSPARSE), checked against T1 to 1e-10 first. The grid
+    variant and, with `earlier` (the earlier designs' library), the earlier
+    grid-barrier kernel are held to the plain version bit for bit too; with
+    `earlier` the three are timed in turns, earlier, grid, new, new, grid,
+    earlier (ms is the mean of the new design's two). The bound counts every byte
+    of the factor, its indices and level pointer, b and x once, and 2
+    flops per entry plus the row's subtraction (and scale)."""
     import torch
     dn = str(dtype).replace("torch.", "")
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -1968,14 +2067,31 @@ def trisolve_row(ts, sw, name, dtype, flush, library=True, plain_reps=3):
     if not torch.equal(k, p):
         raise AssertionError(f"T1 {name} {dn}: differs from its plain version by "
                              f"{rel_err(k, p)} (equal bits required)")
-    if not bool(torch.equal(ts.trisolve_sweep(sw, b), k)):
-        raise AssertionError(f"T1 {name} {dn}: a rerun gave other bits")
+    fns = trisolve_variants(ts, sw, earlier)
+    for vname, fn in fns.items():
+        if not bool(torch.equal(fn(b), p)):
+            raise AssertionError(f"T1 {name} {dn}: the {vname} design gave other bits")
     isz, fsz = b.element_size(), sw.vals.element_size()
     nbytes = (sw.nnz * (fsz + 4) + (sw.m + 1) * 4 + sw.m * 4 + (sw.nlev + 1) * 4
               + (sw.m * fsz if sw.scale is not None else 0) + 2 * sw.m * isz)
     flops = 2 * sw.nnz + sw.m * (2 if sw.scale is not None else 1)
     b_ms, b_by = bound(nbytes, flops, "float64" if sw.vals.dtype == torch.float64 else dn)
-    ms = time_ms(lambda: ts.trisolve_sweep(sw, b), flush)
+    per_level = 1e3 / max(sw.nlev, 1)
+    row = {"name": "trisolve", "sweep": name, "dtype": dn,
+           "factor_dtype": str(sw.vals.dtype).replace("torch.", ""), "rows": sw.m,
+           "entries": sw.nnz, "levels": sw.nlev, "widest_level": sw.width,
+           "equal_bits": True, "max_abs_err": 0.0}
+    if earlier is not None:
+        order = ("earlier", "grid", "new", "new", "grid", "earlier")
+        turns = [(v, time_ms(lambda f=fns[v]: f(b), flush)) for v in order]
+        mean = {v: statistics.mean(t for u, t in turns if u == v) for v in set(order)}
+        row.update(ms=mean["new"], grid_ms=mean["grid"], earlier_ms=mean["earlier"],
+                   turns_ms=turns, grid_us_per_level=mean["grid"] * per_level,
+                   earlier_us_per_level=mean["earlier"] * per_level,
+                   grid_launch=ts.launch_config(sw, dtype, "cuda",
+                                                ts.sweep_plan(sw, max_blocks=0)))
+    else:
+        row["ms"] = time_ms(lambda: fns["new"](b), flush)
     plain_ms = min(time_ms(lambda: ts.trisolve_sweep_plain(sw, b), flush, reps=1)
                    for _ in range(plain_reps))
     lib_ms, lib_note = None, None
@@ -1994,23 +2110,72 @@ def trisolve_row(ts, sw, name, dtype, flush, library=True, plain_reps=3):
                         f"(cuSPARSE; its analysis runs in every call), rel err to T1 {lib_err}")
         except Exception as e:          # the library call is a yardstick, not the port
             lib_note = f"none: torch.triangular_solve on a sparse CSR operand failed: {e!r}"[:300]
-    return {"name": "trisolve", "sweep": name, "dtype": dn,
-            "factor_dtype": str(sw.vals.dtype).replace("torch.", ""), "rows": sw.m,
-            "entries": sw.nnz, "levels": sw.nlev, "widest_level": sw.width,
-            "equal_bits": True, "max_abs_err": 0.0, "ms": ms,
-            "us_per_level": ms * 1e3 / max(sw.nlev, 1), "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-            "share_of_bound": b_ms / ms, "library_ms": lib_ms, "library": lib_note,
-            "launch": ts.launch_config(sw, dtype, "cuda")}
+    ms = row["ms"]
+    row.update(us_per_level=ms * per_level, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               bytes=nbytes, share_of_bound=b_ms / ms, library_ms=lib_ms, library=lib_note,
+               launch=ts.launch_config(sw, dtype, "cuda"))
+    return row
 
 
-def phase_trisolve(pt, ksp, flush):
+def empty_sweep_row(ts, sw, name, flush, earlier):
+    """The sweep `sw` with every entry removed (empty_sweep): each design
+    equal to the plain version (b times the scale) bit for bit and timed in
+    turns, earlier, grid, new, new, grid, earlier, in f64; what is left of
+    a level is its barrier and its row loads."""
+    import torch
+    e = empty_sweep(ts, sw)
+    b = torch.rand(e.m, generator=torch.Generator(device="cuda").manual_seed(13), device="cuda",
+                   dtype=torch.float64) + 0.5
+    p = ts.trisolve_sweep_plain(e, b)
+    fns = trisolve_variants(ts, e, earlier)
+    for vname, fn in fns.items():
+        if not bool(torch.equal(fn(b), p)):
+            raise AssertionError(f"T1 {name} without entries: the {vname} design gave other bits")
+    order = ("earlier", "grid", "new", "new", "grid", "earlier")
+    turns = [(v, time_ms(lambda f=fns[v]: f(b), flush)) for v in order]
+    per_level = 1e3 / max(e.nlev, 1)
+    mean = {v: statistics.mean(t for u, t in turns if u == v) for v in set(order)}
+    return {"sweep": f"{name} without entries", "dtype": "float64", "levels": e.nlev,
+            "widest_level": e.width, "variant": ts.sweep_plan(e).variant,
+            "ms": mean["new"], "grid_ms": mean["grid"], "earlier_ms": mean["earlier"],
+            "turns_ms": turns, **{f"{v}_us_per_level": mean[v] * per_level for v in mean}}
+
+
+def cluster_shapes(ts, sw, dtype, flush, max_blocks):
+    """The new design's ms on `sw` with its widest level spread over at
+    most each of `max_blocks` blocks (the plan takes the first), in turns
+    (each shape, then the same in reverse), each equal to the plain version
+    bit for bit; keyed by "blocks x threads"."""
+    import torch
+    b = torch.rand(sw.m, generator=torch.Generator(device="cuda").manual_seed(14),
+                   device="cuda", dtype=torch.float64).to(dtype) + 0.5
+    p = ts.trisolve_sweep_plain(sw, b)
+    scratch = {"trisolve": 0}
+    out = {}
+    for mb in (*max_blocks, *max_blocks[::-1]):
+        plan = ts.sweep_plan(sw, max_blocks=mb)
+
+        def fn(plan=plan):
+            x = torch.empty_like(b)
+            ts._launch(scratch, sw, b, x, plan)
+            return x
+        if not bool(torch.equal(fn(), p)):
+            raise AssertionError(f"T1 cluster of {plan.blocks} x {plan.threads}: other bits")
+        out.setdefault(f"{plan.blocks}x{plan.threads}", []).append(time_ms(fn, flush))
+    return {k: statistics.mean(v) for k, v in out.items()}
+
+
+def phase_trisolve(pt, ksp, flush, earlier):
     """T1 at the path's shape (the ILU(0) factors of config 2: both sweeps,
-    f64 and f32 vectors on the float64 factors) and at odd small shapes
-    (the ILU(1) factors of a 5 x 13 x 17 stencil7, a float32 factor as
-    SOR's under -real_dtype f32, a one-level diagonal triangle wider than
-    the grid), each against its plain version bit for bit. Returns
-    (rows, the main row: the forward sweep in f64)."""
+    f64 and f32 vectors on the float64 factors, each in the cluster
+    variant, timed in turns beside the grid variant and the earlier design),
+    the same sweeps with every entry removed (f64), the cluster's shape on
+    the forward sweep, and at odd small shapes (the ILU(1) factors of a
+    5 x 13 x 17 stencil7, a float32 factor as SOR's under -real_dtype f32,
+    a one-level diagonal triangle wider than a cluster, which takes the
+    grid variant), each against its plain version bit for bit. Returns
+    (rows, the main row: the forward sweep in f64, the entries-removed
+    rows, the cluster shapes)."""
     import numpy as np
     import scipy.sparse as sp
     import torch
@@ -2018,8 +2183,12 @@ def phase_trisolve(pt, ksp, flush):
     from petsc_tpu_torch.ops import trisolve as ts
     from petsc_tpu_torch.ops.stencil_build import stencil7_coo
     data = ksp.getPC().device_data()
-    rows = [trisolve_row(ts, data[key], key, dt, flush, library=True)
+    for key in ("L", "U"):
+        if ts.sweep_plan(data[key]).variant != "cluster":
+            raise AssertionError(f"config 2's {key} sweep does not take the cluster variant")
+    rows = [trisolve_row(ts, data[key], key, dt, flush, library=True, earlier=earlier)
             for key in ("L", "U") for dt in (torch.float64, torch.float32)]
+    empty = [empty_sweep_row(ts, data[key], key, flush, earlier) for key in ("L", "U")]
     shape = (5, 13, 17)
     i, j, v = stencil7_coo(*shape)
     n = int(np.prod(shape))
@@ -2027,6 +2196,9 @@ def phase_trisolve(pt, ksp, flush):
     L, U, dinv = factor.iluk(A.indptr, A.indices, A.data, 1)
     _, small = ts.make_trisolve_plan(L, U, dinv)
     small.update(ts.make_transpose_tables(L, U, dinv))
+    shapes = {"config 2 L": cluster_shapes(ts, data["L"], torch.float64, flush, (16, 11)),
+              f"L ILU(1) {shape}": cluster_shapes(ts, small["L"], torch.float64, flush,
+                                                  (16, 1))}
     for key in ("L", "U", "Ut", "Lt"):
         for dt in (torch.float64, torch.float32):
             rows.append(trisolve_row(ts, small[key], f"{key} ILU(1) {shape}", dt, flush,
@@ -2037,9 +2209,11 @@ def phase_trisolve(pt, ksp, flush):
     m = 300_001
     diag = ts.make_sweep(np.zeros(m + 1, dtype=np.int64), np.zeros(0, dtype=np.int64),
                          np.zeros(0), lower=True, scale=np.linspace(0.5, 2.0, m))
+    if ts.sweep_plan(diag).variant != "grid":
+        raise AssertionError("the 300,001-row diagonal does not take the grid variant")
     rows.append(trisolve_row(ts, diag, "diagonal, one level", torch.float64, flush,
                              library=False, plain_reps=1))
-    return rows, rows[0]
+    return rows, rows[0], empty, shapes
 
 
 def config2_launches_needed(its):
@@ -2051,7 +2225,7 @@ def config2_launches_needed(its):
             "csr_spmv": its}
 
 
-def phase_gmres_ilu(pt, smi, t_start, flush):
+def phase_gmres_ilu(pt, smi, t_start, flush, earlier):
     """BASELINE config 2 with PETSc's defaults on the card (see config2_solve),
     every launch count set to 0 just before init and read just after the
     solve; then warm solves, T1's checks and times, and the small variants.
@@ -2098,8 +2272,9 @@ def phase_gmres_ilu(pt, smi, t_start, flush):
                   GMRES_TRUE_RELRES, GMRES_MAX_ERR)
     rec.update(warm_ms_best_of_3=warm, ms_per_it=warm / its,
                seconds_so_far=time.perf_counter() - t_start)
-    t_rows, t_main = phase_trisolve(pt, ksp, flush)
-    rec["trisolve_checks"] = t_rows
+    t_rows, t_main, t_empty, t_shapes = phase_trisolve(pt, ksp, flush, earlier)
+    rec.update(trisolve_checks=t_rows, trisolve_without_entries=t_empty,
+               trisolve_cluster_shapes_ms=t_shapes)
     small = {}
     for name, (opts, s_its, s_reason, s_hist, s_rel, s_err) in GMRES_SMALL.items():
         k2, _, b2, x2, A2, xs2 = config2_solve(pt, CONFIG2_SMALL, opts)
@@ -2324,7 +2499,7 @@ def main():
     # ---- BASELINE config 2: GMRES(30) + ILU(0), PETSc's defaults, on the
     # assembled 22 x 239 x 239 stencil7 ----
     gm_rec, gm_solve, gm_ms, gm_launches, t_rows, t_main = phase_gmres_ilu(
-        pt, smi, t_start, flush)
+        pt, smi, t_start, flush, earlier)
     emit(gm_rec)
     ksp_gm, b_gm, x_gm = gm_solve[:3]
     reset_launches()
@@ -2456,17 +2631,28 @@ def main():
     q1r.update({k: grid_main["q1_restrict"][k] for k in ("variant", "block", "grid")},
                plan_per_level=grid_rec["q1_restrict_plan_per_level"])
     # T1's row is the forward (unit L) sweep of config 2's ILU(0) in f64;
-    # the backward sweep, f32 vectors and the small shapes stand beside it
+    # the backward sweep, f32 vectors and the small shapes stand beside it.
+    # earlier_ms (the earlier grid-barrier kernel) and grid_ms (the grid
+    # variant: the loads ahead, the grid barrier) are timed in turns with ms
     t1 = next(r for r in table if r["name"] == "trisolve")
     keep = ("sweep", "dtype", "factor_dtype", "rows", "entries", "levels", "widest_level",
             "ms", "us_per_level", "plain_ms", "bound_ms", "share_of_bound", "library_ms",
-            "library", "equal_bits")
+            "library", "equal_bits", "grid_ms", "grid_us_per_level", "earlier_ms",
+            "earlier_us_per_level")
     t1.update({k: t_main[k] for k in keep}, launch=t_main["launch"],
+              variant=t_main["launch"]["variant"], turns_ms=t_main["turns_ms"],
+              grid_launch=t_main["grid_launch"],
               in_solve_us_per_level=prof_gm["trisolve_us_per_level"],
               launches_per_solve=gm_launches["trisolve"],
-              design="one cooperative launch per sweep, a grid barrier between levels, "
-                     "rows in level order (CSR in level order, int32)",
-              others=[{k: r[k] for k in keep} for r in t_rows if r is not t_main])
+              design="the plan's variant per sweep: one thread-block cluster (one row of the "
+                     "widest level per thread, the cluster's hardware barrier between levels) "
+                     "or, wider than a cluster, one cooperative grid with a grid barrier; each "
+                     "row's b, scale, first 4 entries and the next level's row pointers "
+                     "loaded a level ahead; rows in level order (CSR in level order, int32)",
+              without_entries=gm_rec["trisolve_without_entries"],
+              cluster_shapes_ms=gm_rec["trisolve_cluster_shapes_ms"],
+              others=[{**{k: r[k] for k in keep if k in r}, "variant": r["launch"]["variant"]}
+                      for r in t_rows if r is not t_main])
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -73,9 +73,11 @@ SIGNATURES = {
     "ptt_q1_prolong_f32": (_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp),
     "ptt_q1_restrict_f64": (_vp, _vp, *(_i32,) * 10, _vp),
     "ptt_q1_restrict_f32": (_vp, _vp, *(_i32,) * 10, _vp),
-    "ptt_trisolve_f64": (_vp, _vp, _vp, _i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _i32, _vp),
-    "ptt_trisolve_f32": (_vp, _vp, _vp, _i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _vp, _i32, _vp),
-    "ptt_trisolve_config": (_i32, _i32, _i32, _i32, _vp),
+    "ptt_trisolve_f64": (_vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32,
+                         _i32, _vp, _i32, _vp),
+    "ptt_trisolve_f32": (_vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32,
+                         _i32, _vp, _i32, _vp),
+    "ptt_trisolve_config": (_i32, _i32, _i32, _i32, _i32, _i32, _vp),
 }
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 

@@ -16,13 +16,20 @@ each row's entries in CSR in that order.
 One sweep computes x[r] = (b[r] - sum_k a[r,k] x[col[r,k]]) * scale[r]
 (no scale: 1) for the rows of each level in turn. ILU's two sweeps, the
 transpose solve's two and SOR's unit sweeps are all such sweeps.
-:func:`trisolve_sweep` launches T1 once per sweep for a CUDA tensor (one
-cooperative launch with a grid barrier between levels; no level loop
-runs on the host) and adds one to ``LAUNCHES["trisolve"]``; for a CPU
-tensor it runs :func:`trisolve_sweep_plain`, a Python loop over levels.
-There is no fallback from the kernel to the plain version. Both round
-each product and sum on their own, summing a row's entries in column
-order, so they give equal bits.
+:func:`trisolve_sweep` launches T1 once per sweep for a CUDA tensor (no
+level loop runs on the host) and adds one to ``LAUNCHES["trisolve"]``;
+for a CPU tensor it runs :func:`trisolve_sweep_plain`, a Python loop over
+levels. T1 has two variants, and :func:`sweep_plan` picks one per sweep
+from its widest level: ``cluster`` (one thread-block cluster, one row of
+the widest level per thread, the cluster's hardware barrier between
+levels) where the widest level fits 16 blocks of 512 threads, else
+``grid`` (one cooperative launch of 256-thread blocks, a grid barrier
+between levels). Both load each row's x-independent operands two levels
+ahead and keep x in level order (``Sweep.pcols``) while they sweep.
+:func:`launch_config` reports the plan and what the card makes of it. There is no fallback from the kernel to the plain version, nor from
+one variant to the other: a cluster the card cannot place raises. Both
+round each product and sum on their own, summing a row's entries in
+column order, so they give equal bits.
 
 A plan made by :func:`make_trisolve_plan` keeps its factors in float64
 whatever the vectors' type, as the reference's does (trisolve.py:84-89);
@@ -34,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -47,9 +55,17 @@ LAUNCHES = {"trisolve": 0}
 
 _VALUES = (torch.float64, torch.float32)
 _INT32_MAX = 2 ** 31 - 1
-# (device index, stream) -> T1's grid barrier: two 32-bit counters zeroed
-# once; every launch leaves the arrival count at 0, so no call needs a memset
+# (device index, stream) -> the grid variant's barrier: two 32-bit counters
+# zeroed once; every launch leaves the arrival count at 0, so no call needs
+# a memset
 _BARRIERS = {}
+# (device index, vector and factor types, blocks, threads) of cluster
+# launches that the card was found to place
+_PLACED = set()
+_GRID_THREADS = 256        # csrc/trisolve.cu kGridThreads
+_CLUSTER_THREADS = 512     # kClusterThreads: threads of a cluster block at most
+_CLUSTER_BLOCKS = 16       # kMaxCluster: blocks of one cluster at most
+_DEPTH = 4                 # kDepth: entries of a row loaded before its level
 
 
 def reset_launches():
@@ -64,15 +80,18 @@ class Sweep:
     ``lev_ptr`` (int32, nlev + 1) bounds each level's run of ``rows``
     (int32, the factor's row of each position); ``rp`` (int32, m + 1)
     bounds each position's entries in ``cols`` (int32) and ``vals``;
-    ``scale`` (or None) is each position's scale. ``levels`` and
-    ``widths`` are the host's copies of the level pointer and of each
-    level's longest row; ``width`` is the most rows of one level."""
+    ``scale`` (or None) is each position's scale. ``pcols`` (int32)
+    holds each entry's column as a position in level order, which is where
+    T1 keeps x while it sweeps. ``levels`` and ``widths`` are the host's
+    copies of the level pointer and of each level's longest row;
+    ``width`` is the most rows of one level."""
     m: int
     nlev: int
     lev_ptr: torch.Tensor
     rows: torch.Tensor
     rp: torch.Tensor
     cols: torch.Tensor
+    pcols: torch.Tensor
     vals: torch.Tensor
     scale: torch.Tensor | None
     levels: tuple
@@ -112,6 +131,9 @@ def sweep_from_levels(lev, indptr, indices, vals, scale=None, dtype=torch.float6
     ent = np.repeat(indptr[:-1][order] - rp[:-1], rl) + np.arange(nnz)
     longest = np.zeros(nlev, dtype=np.int64)
     np.maximum.at(longest, lev[order], rl)
+    pos = np.empty(m, dtype=np.int64)
+    pos[order] = np.arange(m)
+    cols = np.asarray(indices, dtype=np.int64)[ent]
     dev = config.device() if device is None else torch.device(device)
 
     def i32(a):
@@ -121,7 +143,7 @@ def sweep_from_levels(lev, indptr, indices, vals, scale=None, dtype=torch.float6
         return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=dev)
 
     return Sweep(m=m, nlev=nlev, lev_ptr=i32(lev_ptr), rows=i32(order), rp=i32(rp),
-                 cols=i32(np.asarray(indices)[ent]), vals=val(np.asarray(vals)[ent]),
+                 cols=i32(cols), pcols=i32(pos[cols]), vals=val(np.asarray(vals)[ent]),
                  scale=None if scale is None else val(np.asarray(scale)[order]),
                  levels=tuple(int(v) for v in lev_ptr), widths=tuple(int(v) for v in longest),
                  width=int(np.diff(lev_ptr).max()) if nlev else 0)
@@ -165,14 +187,87 @@ def trisolve_sweep_plain(sw: Sweep, b):
     return x
 
 
+@dataclass(frozen=True)
+class SweepPlan:
+    """T1's launch for one sweep. ``variant`` is "cluster" (one cluster of
+    ``blocks`` blocks, one row of the widest level per thread) or "grid"
+    (``blocks`` is what the widest level asks for at one row per thread;
+    the card caps it at what it holds at once, see :func:`launch_config`);
+    ``threads`` per block; ``longest``, the sweep's longest row (a row
+    longer than the _DEPTH entries loaded ahead of its level loads the
+    rest after the barrier)."""
+    variant: str
+    blocks: int
+    threads: int
+    longest: int
+
+
+@lru_cache(maxsize=None)
+def _plan(width, longest, max_blocks):
+    if width <= max_blocks * _CLUSTER_THREADS:
+        share = -(-width // max_blocks)
+        threads = max(32, -(-share // 32) * 32)
+        return SweepPlan("cluster", -(-width // threads), threads, longest)
+    return SweepPlan("grid", -(-width // _GRID_THREADS), _GRID_THREADS, longest)
+
+
+def sweep_plan(sw: Sweep, max_blocks=_CLUSTER_BLOCKS) -> SweepPlan:
+    """T1's variant for `sw`, chosen once per (widest level, longest row):
+    the cluster variant where the widest level fits one cluster of
+    `max_blocks` blocks of _CLUSTER_THREADS threads at one row per thread
+    (spread over as many blocks as the cluster allows, each with the
+    fewest warps that hold its share, so that a level's loads and stores
+    queue on more SMs), else the grid variant (max_blocks=0 forces it).
+    The vector and factor types do not enter: every pair fits the same
+    blocks without spilling."""
+    return _plan(sw.width, max(sw.widths, default=0), max_blocks)
+
+
 def _barrier(dev):
-    """T1's grid barrier on `dev` for the current stream, zeroed when first
-    made (a dict lookup after that: no launch, no allocation)."""
+    """The grid variant's barrier on `dev` for the current stream, zeroed
+    when first made (a dict lookup after that: no launch, no allocation)."""
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
     bar = _BARRIERS.get(key)
     if bar is None:
         bar = _BARRIERS[key] = torch.zeros(2, dtype=torch.int32, device=dev)
     return bar
+
+
+def _card_config(sw: Sweep, plan: SweepPlan, dtype, device):
+    """What the card makes of `plan` (ptt_trisolve_config): blocks,
+    threads, blocks per SM, SMs, registers and spill bytes per thread, and
+    the clusters of the plan's shape it holds at once (0: grid variant)."""
+    cfg = (ctypes.c_int * 7)()
+    cluster = plan.blocks if plan.variant == "cluster" else 0
+    rc = cuda_build.library().ptt_trisolve_config(
+        int(dtype == torch.float64), int(sw.vals.dtype == torch.float64), sw.width, cluster,
+        plan.threads, device.index if device.index is not None else torch.cuda.current_device(),
+        ctypes.addressof(cfg))
+    cuda_build.check("trisolve", rc)
+    return dict(zip(("grid", "threads", "blocks_per_sm", "sms", "registers", "spill_bytes",
+                     "clusters_that_fit"), cfg))
+
+
+def _launch(counts, sw: Sweep, b, x, plan: SweepPlan):
+    """One launch of T1 in `plan`'s variant, x = the sweep of b; adds one
+    to counts["trisolve"]. A cluster the card cannot place raises."""
+    if plan.variant == "cluster":
+        key = (b.device.index, b.dtype, sw.vals.dtype, plan.blocks, plan.threads)
+        if key not in _PLACED:
+            fit = _card_config(sw, plan, b.dtype, b.device)["clusters_that_fit"]
+            if fit < 1:
+                raise Error(f"trisolve: the card cannot place a cluster of {plan.blocks} "
+                            f"blocks of {plan.threads} threads")
+            _PLACED.add(key)
+        cluster, bar = plan.blocks, 0
+    else:
+        cluster, bar = 0, _barrier(b.device).data_ptr()
+    scale = 0 if sw.scale is None else sw.scale.data_ptr()
+    xl = torch.empty_like(b)        # x in level order while the sweep runs
+    cuda_build.launch(counts, "trisolve", b, x.data_ptr(), xl.data_ptr(), b.data_ptr(),
+                      sw.lev_ptr.data_ptr(), sw.nlev, sw.rows.data_ptr(), sw.rp.data_ptr(),
+                      sw.pcols.data_ptr(), sw.vals.data_ptr(), scale,
+                      int(sw.vals.dtype == torch.float64), sw.width, cluster, plan.threads, bar)
 
 
 def trisolve_sweep(sw: Sweep, b):
@@ -190,27 +285,23 @@ def trisolve_sweep(sw: Sweep, b):
         raise ValueError(f"trisolve: unsupported device {b.device}")
     x = torch.empty_like(b)
     if sw.m:
-        scale = 0 if sw.scale is None else sw.scale.data_ptr()
-        cuda_build.launch(LAUNCHES, "trisolve", b, x.data_ptr(), b.data_ptr(),
-                          sw.lev_ptr.data_ptr(), sw.nlev, sw.rows.data_ptr(), sw.rp.data_ptr(),
-                          sw.cols.data_ptr(), sw.vals.data_ptr(), scale,
-                          int(sw.vals.dtype == torch.float64), sw.width,
-                          _barrier(b.device).data_ptr())
+        _launch(LAUNCHES, sw, b, x, sweep_plan(sw))
     return x
 
 
-def launch_config(sw: Sweep, dtype, device):
-    """T1's launch shape for a sweep of `sw` on vectors of `dtype` on CUDA
-    `device`: blocks, threads per block, blocks per SM (occupancy
-    calculator) and the card's SMs."""
-    dev = torch.device(device)
-    cfg = (ctypes.c_int * 4)()
-    rc = cuda_build.library().ptt_trisolve_config(
-        int(dtype == torch.float64), int(sw.vals.dtype == torch.float64), sw.width,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        ctypes.addressof(cfg))
-    cuda_build.check("trisolve", rc)
-    return dict(zip(("grid", "threads", "blocks_per_sm", "sms"), cfg))
+def launch_config(sw: Sweep, dtype, device, plan: SweepPlan | None = None):
+    """T1's launch for a sweep of `sw` on vectors of `dtype` on CUDA
+    `device` (`plan`, or the sweep's own): the plan's variant, cluster
+    size (0 for the grid variant), depth and longest row, and what the
+    card makes of it: blocks, threads per block, rows per thread of the
+    widest level, blocks per SM (occupancy calculator), SMs, registers and
+    spill bytes per thread, clusters of this shape the card holds at once."""
+    plan = plan or sweep_plan(sw)
+    card = _card_config(sw, plan, dtype, torch.device(device))
+    return {"variant": plan.variant,
+            "cluster": plan.blocks if plan.variant == "cluster" else 0,
+            **card, "rows_per_thread": -(-sw.width // (card["grid"] * card["threads"])),
+            "depth": _DEPTH, "longest_row": plan.longest}
 
 
 # ---------------------------------------------------------------------

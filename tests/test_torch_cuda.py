@@ -681,6 +681,9 @@ def _trisolve_plans(case, device):
     """{name: Sweep} of one case's factors on `device`."""
     from petsc_tpu_torch.mat import factor
     from petsc_tpu_torch.ops import trisolve
+    if case in ("cluster capacity", "one row over"):
+        width = trisolve._CLUSTER_BLOCKS * trisolve._CLUSTER_THREADS + (case == "one row over")
+        return {"wide": chip_smoke.wide_sweep(width, device)}
     if case == "one level":
         m = 300_001        # more rows than one wave of T1's grid holds threads
         return {"diag": trisolve.make_sweep(np.zeros(m + 1, dtype=np.int64),
@@ -692,7 +695,7 @@ def _trisolve_plans(case, device):
         R = sp.random(n, n, density=0.01, format="csr", random_state=4)
         A = (R + sp.diags(np.full(n, 5.0))).tocsr()
     else:
-        shape = (3, 8, 9) if case == "LU" else (5, 13, 17)
+        shape = {"LU": (3, 8, 9), "498 levels": (22, 40, 438)}.get(case, (5, 13, 17))
         i, j, v = stencil_build.stencil7_coo(*shape)
         n = int(np.prod(shape))
         A = sp.csr_matrix((v, (i, j)), shape=(n, n))
@@ -708,16 +711,29 @@ def _trisolve_plans(case, device):
     return data
 
 
+# the variant that the plan gives each case's sweeps
+_TRISOLVE_VARIANT = {"stencil7 ILU(0)": "cluster", "ILU(2) random": "cluster", "LU": "cluster",
+                     "one level": "grid", "float32 factor": "cluster",
+                     "cluster capacity": "cluster", "one row over": "grid",
+                     "498 levels": "cluster"}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ("stencil7 ILU(0)", "ILU(2) random", "LU", "one level",
-                                  "float32 factor"))
+@pytest.mark.parametrize("case", tuple(_TRISOLVE_VARIANT))
 @pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
 def test_trisolve_kernel_equals_plain(cuda_device, dtype, case):
     """T1 equals its plain version bit for bit on every sweep of a case
     (ILU's two, the transpose's two), one launch per sweep, and a rerun
-    gives the same bits."""
+    gives the same bits; each sweep takes the case's variant, and the
+    grid variant, where the plan gives the cluster, also equals the plain
+    version with equal bits on reruns. The 498-level case has config 2's
+    depth (22 + 40 + 438 - 2 levels)."""
     from petsc_tpu_torch.ops import trisolve
     for name, sw in _trisolve_plans(case, cuda_device).items():
+        plan = trisolve.sweep_plan(sw)
+        assert plan.variant == _TRISOLVE_VARIANT[case], name
+        if case == "498 levels":
+            assert sw.nlev == 498
         b = torch.rand(sw.m, device=cuda_device, dtype=torch.float64).to(dtype) + 0.5
         trisolve.reset_launches()
         k = trisolve.trisolve_sweep(sw, b)
@@ -727,6 +743,37 @@ def test_trisolve_kernel_equals_plain(cuda_device, dtype, case):
         assert k.dtype == dtype and torch.equal(k, p), (name, _rel(k.double(), p.double()))
         for _ in range(5):
             assert torch.equal(trisolve.trisolve_sweep(sw, b), k)
+        if plan.variant == "cluster":
+            grid = trisolve.sweep_plan(sw, max_blocks=0)
+            scratch = {"trisolve": 0}
+            for _ in range(6):
+                g = torch.empty_like(b)
+                trisolve._launch(scratch, sw, b, g, grid)
+                assert torch.equal(g, p), (name, "grid", _rel(g.double(), p.double()))
+            assert scratch["trisolve"] == 6 and trisolve.LAUNCHES["trisolve"] == 6
+
+
+@pytest.mark.cuda
+def test_trisolve_launch_config_reports_the_plan(cuda_device):
+    """launch_config reports the plan's variant and what the card makes of
+    it: a sweep at the cluster's capacity in one placeable cluster of 16
+    blocks of 512 threads, one row per thread, no spills (config 2's widest
+    level, 5,137 rows, takes 15 blocks of 352); the one-level diagonal in
+    the grid variant, capped at what the card holds at once."""
+    from petsc_tpu_torch.ops import trisolve
+    sw = _trisolve_plans("cluster capacity", cuda_device)["wide"]
+    for dtype in (torch.float64, torch.float32):
+        cfg = trisolve.launch_config(sw, dtype, cuda_device)
+        assert (cfg["variant"], cfg["cluster"], cfg["grid"], cfg["threads"],
+                cfg["rows_per_thread"]) == ("cluster", 16, 16, 512, 1)
+        assert cfg["clusters_that_fit"] >= 1 and cfg["spill_bytes"] == 0
+    plan = trisolve._plan(5137, 3, trisolve._CLUSTER_BLOCKS)
+    assert (plan.variant, plan.blocks, plan.threads) == ("cluster", 15, 352)
+    diag = _trisolve_plans("one level", cuda_device)["diag"]
+    cfg = trisolve.launch_config(diag, torch.float64, cuda_device)
+    assert cfg["variant"] == "grid" and cfg["cluster"] == 0 and cfg["threads"] == 256
+    assert cfg["grid"] <= cfg["sms"] * cfg["blocks_per_sm"]
+    assert cfg["rows_per_thread"] == -(-diag.width // (cfg["grid"] * 256))
 
 
 @pytest.mark.cuda

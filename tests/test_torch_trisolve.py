@@ -20,6 +20,7 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 
+import chip_smoke
 import jax.numpy as jnp
 from petsc_tpu.mat import factor as factor_jax
 from petsc_tpu.ops import trisolve as ts_jax
@@ -179,6 +180,19 @@ def test_the_wrapper_takes_the_plain_version_on_the_cpu_and_checks_its_input():
         trisolve.trisolve_sweep(data["L"], b.to(torch.int64))
 
 
+def test_a_sweep_keeps_its_columns_as_level_positions():
+    """pcols is each entry's column as a position in level order: the
+    position of that row in rows."""
+    A = _matrix("random")
+    L, U, dinv = factor.ilu0(A.indptr, A.indices, A.data)
+    for sw in trisolve.make_trisolve_plan(L, U, dinv)[1].values():
+        rows, cols, pcols = (t.numpy() for t in (sw.rows, sw.cols, sw.pcols))
+        assert sw.pcols.dtype == torch.int32 and np.array_equal(rows[pcols], cols)
+        lev = np.repeat(np.arange(sw.nlev), np.diff(sw.levels))
+        ent = np.repeat(np.arange(sw.m), np.diff(sw.rp.numpy()))
+        assert (lev[pcols] < lev[ent]).all()          # every column from an earlier level
+
+
 def test_more_than_int32_entries_raise(monkeypatch):
     monkeypatch.setattr(trisolve, "_INT32_MAX", 10)
     A = _matrix("random")
@@ -196,3 +210,223 @@ def test_sor_sweeps_keep_the_real_dtype():
     pc.setFromOptions()
     data = pc.device_data()
     assert data["L"].vals.dtype == torch.float32 and data["dinv"].dtype == torch.float32
+
+
+# ---------------------------------------------------------------------
+# T1's plan (which variant a sweep takes) and its level loop in numpy
+# ---------------------------------------------------------------------
+
+def _diag(m):
+    return trisolve.make_sweep(np.zeros(m + 1, dtype=np.int64), np.zeros(0, dtype=np.int64),
+                               np.zeros(0), lower=True, scale=np.linspace(0.5, 2.0, m))
+
+
+def _lu_sweep():
+    """U of SuperLU's factors of a small stencil7: many narrow levels, rows
+    longer than the depth."""
+    i, j, v = stencil7_coo(3, 8, 9)
+    A = sp.csr_matrix((v, (i, j)), shape=(216, 216))
+    A.sort_indices()
+    L, U, dinv = factor.splu_factors(A)[:3]
+    return trisolve.make_sweep(*U, lower=False, scale=dinv)
+
+
+def _cap():
+    return trisolve._CLUSTER_BLOCKS * trisolve._CLUSTER_THREADS
+
+
+@pytest.mark.parametrize("case,variant,blocks,threads", (
+    ("cluster capacity", "cluster", 16, 512),
+    ("one row over", "grid", 33, 256),
+    ("one level, 300,001 rows", "grid", 1172, 256),
+    ("one level, 100 rows", "cluster", 4, 32),
+    ("LU", "cluster", None, None),
+    ("ILU(2)", "cluster", None, None)))
+def test_the_plan_takes_the_cluster_up_to_its_capacity(case, variant, blocks, threads):
+    """The cluster variant wherever the widest level fits 16 blocks of 512
+    threads at one row per thread (spread over as many blocks as that
+    allows, each with the fewest warps that hold its share), the grid
+    variant one row over; rows longer than the depth load the rest after
+    the barrier (the plan's longest)."""
+    if case == "cluster capacity":
+        sw = chip_smoke.wide_sweep(_cap(), "cpu")
+    elif case == "one row over":
+        sw = chip_smoke.wide_sweep(_cap() + 1, "cpu")
+    elif case.startswith("one level"):
+        sw = _diag(300_001 if "300,001" in case else 100)
+    elif case == "LU":
+        sw = _lu_sweep()
+    else:
+        A = _matrix("random")
+        L, U, dinv = factor.iluk(A.indptr, A.indices, A.data, 2)
+        sw = trisolve.make_sweep(*L, lower=True)
+    plan = trisolve.sweep_plan(sw)
+    assert plan.variant == variant
+    assert plan.longest == max(sw.widths)
+    if blocks is not None:
+        assert (plan.blocks, plan.threads) == (blocks, threads)
+    if variant == "cluster":
+        share = -(-sw.width // trisolve._CLUSTER_BLOCKS)
+        assert plan.threads == max(32, -(-share // 32) * 32)
+        assert plan.blocks * plan.threads >= sw.width > (plan.blocks - 1) * plan.threads
+        assert plan.blocks <= trisolve._CLUSTER_BLOCKS
+    assert trisolve.sweep_plan(sw) is plan      # made once per sweep shape
+    if case == "LU":
+        assert sw.nlev > 100 and sw.width < 32 and plan.longest > trisolve._DEPTH
+    if case == "ILU(2)":
+        assert plan.longest > trisolve._DEPTH
+    # a cluster of at most 0 blocks leaves the grid variant
+    assert trisolve.sweep_plan(sw, max_blocks=0).variant == "grid"
+
+
+def test_a_cluster_the_card_cannot_place_raises(monkeypatch):
+    """Where the occupancy calculator holds no cluster of the plan's shape,
+    the launch raises before the kernel is called: no other variant and
+    no plain version takes its place."""
+    sw = _diag(100)
+    plan = trisolve.sweep_plan(sw)
+    assert plan.variant == "cluster"
+    called = []
+    monkeypatch.setattr(trisolve, "_card_config", lambda *a: {"clusters_that_fit": 0})
+    monkeypatch.setattr(trisolve.cuda_build, "launch", lambda *a, **k: called.append(a))
+    monkeypatch.setattr(trisolve, "_PLACED", set())
+    b = torch.ones(sw.m, dtype=torch.float64)
+    with pytest.raises(Error, match="cannot place a cluster of 4 blocks of 32 threads"):
+        trisolve._launch({"trisolve": 0}, sw, b, torch.empty_like(b), plan)
+    assert called == []
+
+
+@pytest.mark.parametrize("key", ("L", "U"))
+def test_the_entries_removed_sweep_keeps_the_levels(key):
+    """chip_smoke's sweep with every entry removed (the barrier and the row
+    loads alone) keeps the source sweep's levels, rows and widest level;
+    its rows have no entries, and its plain version is b times the scale,
+    exactly."""
+    A = _matrix("stencil7")
+    L, U, dinv = factor.ilu0(A.indptr, A.indices, A.data)
+    _, data = trisolve.make_trisolve_plan(L, U, dinv)
+    sw = data[key]
+    e = chip_smoke.empty_sweep(trisolve, sw)
+    assert e.levels == sw.levels and e.width == sw.width and e.nlev == sw.nlev
+    assert torch.equal(e.rows, sw.rows) and e.nnz == 0 and set(e.widths) == {0}
+    assert max(sw.widths) == 3
+    b = torch.tensor(np.random.default_rng(9).standard_normal(sw.m))
+    want = b.clone()
+    if key == "U":
+        want = b * torch.tensor(dinv)
+    assert torch.equal(trisolve.trisolve_sweep(e, b), want)
+
+
+def _kernel_loop(sw, b, nthreads):
+    """csrc/trisolve.cu's trisolve_kernel in numpy, every thread at once:
+    thread t takes position lev_ptr[l] + t of each level l, and + nthreads,
+    ... for a wider level; between the barrier's halves after level l each
+    thread loads b, the scale and the first depth entries of its first
+    row of level l + 2, and the row and row pointers of level l + 3; after
+    the barrier xl (x in level order) at the loaded columns' positions,
+    then the rest of the row; each result is stored in xl at its position
+    and in x at its row. Sums in the promoted type, each product and sum
+    rounded alone. xl starts as NaN and every read of it is checked to
+    come from an earlier level."""
+    depth = trisolve._DEPTH
+    rows, rp, cols = (t.numpy().astype(np.int64) for t in (sw.rows, sw.rp, sw.pcols))
+    vals, bn = sw.vals.numpy(), b.numpy()
+    scale = None if sw.scale is None else sw.scale.numpy()
+    acc = np.float32 if (bn.dtype == np.float32 and vals.dtype == np.float32) else np.float64
+    tid = np.arange(nthreads)
+    xl = np.full(sw.m, np.nan, dtype=bn.dtype)      # x in level order
+    x = np.full(sw.m, np.nan, dtype=bn.dtype)
+    written = np.full(sw.m, sw.nlev)          # the level that wrote each xl
+
+    def at(k):
+        return sw.levels[min(k, sw.nlev)]
+
+    def meta(p0, p1):
+        p = p0 + tid
+        ok = p < p1
+        q = np.where(ok, p, 0)
+        return {"ok": ok, "p": q, "row": np.where(ok, rows[q], 0),
+                "e0": np.where(ok, rp[q], 0), "e1": np.where(ok, rp[np.minimum(q + 1, sw.m)], 0)}
+
+    def ops(m):
+        o = dict(m)
+        o["b"] = np.where(m["ok"], bn[m["row"]], 0)
+        o["sc"] = np.where(m["ok"], scale[m["p"]], 1) if scale is not None else None
+        has = [m["ok"] & (m["e0"] + k < m["e1"]) for k in range(depth)]
+        ent = [np.where(h, m["e0"] + k, 0) for k, h in enumerate(has)]
+        o["col"] = [np.where(h, cols[e] if len(cols) else 0, 0) for h, e in zip(has, ent)]
+        o["val"] = [np.where(h, vals[e] if len(vals) else 0, 0).astype(vals.dtype)
+                    for h, e in zip(has, ent)]
+        o["has"] = has
+        return o
+
+    def read_x(c, lv, has=True):
+        assert (written[c] < lv)[has].all()
+        return np.where(has, xl[c], 0).astype(acc)
+
+    lp = [at(k) for k in range(5)]
+    cur = ops(meta(lp[0], lp[1]))
+    nxt = ops(meta(lp[1], lp[2]))
+    ahead = meta(lp[2], lp[3])
+    for lv in range(sw.nlev):
+        xv = [read_x(c, lv, h) for h, c in zip(cur["has"], cur["col"])]
+        s = np.zeros(nthreads, dtype=acc)
+        for h, v, xk in zip(cur["has"], cur["val"], xv):
+            s = np.where(h, s + v.astype(acc) * xk, s)
+        for t in np.nonzero(cur["ok"] & (cur["e1"] - cur["e0"] > depth))[0]:
+            for e in range(cur["e0"][t] + depth, cur["e1"][t]):
+                s[t] = s[t] + acc(vals[e]) * read_x(np.array([cols[e]]), lv)[0]
+        v = cur["b"].astype(acc) - s
+        if scale is not None:
+            v = v * cur["sc"].astype(acc)
+        ok = cur["ok"]
+        xl[cur["p"][ok]] = v[ok].astype(bn.dtype)
+        written[cur["p"][ok]] = lv
+        x[cur["row"][ok]] = v[ok].astype(bn.dtype)
+        for p in range(lp[0] + nthreads, lp[1]):       # further rows, nothing ahead
+            r = rows[p]
+            s1 = acc(0)
+            for e in range(rp[p], rp[p + 1]):
+                s1 = s1 + acc(vals[e]) * read_x(np.array([cols[e]]), lv)[0]
+            v1 = acc(bn[r]) - s1
+            if scale is not None:
+                v1 = v1 * acc(scale[p])
+            xl[p] = x[r] = v1.astype(bn.dtype)
+            written[p] = lv
+        if lv + 1 == sw.nlev:
+            break
+        # between the barrier's halves: level lv + 2's operands, lv + 3's rows
+        far = ops(ahead)
+        ahead = meta(lp[3], lp[4])
+        cur, nxt = nxt, far
+        lp = lp[1:] + [at(lv + 5)]
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("case", ("stencil7 ILU(0)", "ILU(2) random", "LU", "float32 factor"))
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_the_kernels_level_loop_equals_plain(case, dtype):
+    """The kernel's schedule (loads a level ahead, the rest of a long row
+    after the barrier, further rows of a wide level) rebuilt in numpy
+    equals the plain version bit for bit with a thread per row of the
+    widest level (the cluster variant) and with fewer threads than rows
+    (the grid variant's wide levels), and reads x only from earlier
+    levels."""
+    if case == "LU":
+        sweeps = {"U": _lu_sweep()}
+    else:
+        A = _matrix("random" if "random" in case else "stencil7")
+        L, U, dinv = factor.iluk(A.indptr, A.indices, A.data, 2 if "ILU(2)" in case else 0)
+        if case == "float32 factor":
+            sweeps = {"L": trisolve.make_sweep(*L, lower=True, dtype=torch.float32)}
+        else:
+            _, sweeps = trisolve.make_trisolve_plan(L, U, dinv)
+            sweeps.update(trisolve.make_transpose_tables(L, U, dinv))
+    b = torch.tensor(np.random.default_rng(10).uniform(0.5, 1.5, 400)).to(dtype)
+    for name, sw in sweeps.items():
+        bb = b[:sw.m].contiguous() if sw.m <= 400 else torch.rand(sw.m, dtype=dtype)
+        p = trisolve.trisolve_sweep_plain(sw, bb)
+        plan = trisolve.sweep_plan(sw)
+        for nthreads in (plan.blocks * plan.threads, 7):
+            k = _kernel_loop(sw, bb, nthreads)
+            assert torch.equal(k, p), (name, nthreads)
