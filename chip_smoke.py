@@ -175,6 +175,36 @@ Phases, one JSON line each on stdout:
   gmres_ilu_profile  the profile phase for one warm solve of config 2, with
            T1's µs per launch and per level (T1 24 launches and nothing
            else of the port's kernels);
+  ex56     PETSc's ex56 (3-D Q1 elasticity, block size 3, six rigid-body
+           modes) through the port's entry points (the steps of
+           petsc_tpu_torch/examples/ex56.py): ne 64 at the defaults (CG +
+           GAMG, rtol 1e-4, unpreconditioned norm; 823,875 rows, 64,701,513
+           entries), assembled from 3 x 3 element blocks, from_scipy,
+           setBlockSize(3) (kind aij_bsr, no CSR left on the card),
+           MatNullSpace.createRigidBody, every launch count set to 0 just
+           before the set-up and read just after the solve; asserts the
+           contract of `python ex56_contract.py 64 defaults` (EX56_CONTRACT:
+           its, reason, history to 1e-6, rows and aggregates per level, the
+           level-0 aggregates' hash, a true residual no worse than 10x) and
+           exact launches (ex56_launches_needed: B1 for level 0's products
+           and CG's); the seconds of assembly, from_scipy, setBlockSize, the
+           set-up by event and the first solve; the warm solve (best of 3)
+           and one profiled warm solve; B1 against its plain version on that
+           operator in f64 and f32 (equal bits, else 1e-12 / 1e-5), timed
+           beside its bound, the plain version, cuSPARSE's BSR product and
+           S2 on the same operator as CSR, and on random BSRs of bs 2 and 6
+           with a row of 500 blocks and an empty row; then the knob set of
+           PETSc's ex56 test (HEM, strength index 1,2, the aggregate-block
+           smoother on A1, Chebyshev(1, 1), CG+Jacobi on the coarsest level)
+           at ne 11 (10 its), ne 11 with the transposed modes of ex56.c (15)
+           and ne 24 (13), each against its contract with its launches (A1,
+           C1's z modes and B1 exact), ne 24 timed and profiled; A1 against
+           its plain version (f64 1e-12, f32 1e-5) on every level's tables
+           of ne 24's solve and on the tables of ne 64's operator over the
+           defaults' level-0 aggregates, ne 24's level 0 and ne 64 timed
+           beside the bound, the plain version and torch.bmm on the
+           reference's padded table; C1's z modes against their plain
+           version at ne 24's level-0 length, timed beside their bound;
   bench_gpu  python bench_gpu.py in a process of its own (the kernels built
            above reused): its JSON line, and its contract, BENCH_r05.json's
            solve (10 iterations, relres <= 1e-8, jacobi_its 184), the small-n
@@ -186,7 +216,9 @@ each with earlier_ms, the earlier design's time in the same turns, Q1R's
 and Q1P's with their µs per launch on each level of both cycles; T1's is
 config 2's forward sweep in f64, with its variant, the grid variant's and
 the earlier design's times from the same turns, the entries-removed sweeps
-and the other sweeps beside it;
+and the other sweeps beside it; B1's is ex56 ne 64's operator in f64, A1's
+ex56 ne 24's level-0 tables in f64, C1z's (C1's z modes, counted apart)
+the step_z mode in f64 at that level's length;
 every row of the path's kernels its µs per launch inside each solve, and
 every row its launches in each phase of bench_gpu.py), the nvidia-smi
 line, and last
@@ -233,6 +265,8 @@ IN_SOLVE = {"triad": ("triad_kernel",), "axpy_normsq": ("axpy_normsq_kernel",),
             "dot2": ("dot2_kernel",), "sum_partials": ("sum_partials",),
             "const_stencil": ("const_stencil_kernel",), "csr_spmv": ("csr_spmv_kernel",),
             "cheby_update": ("cheby_update_kernel",),
+            "cheby_update_z": ("cheby_update_z_kernel",),
+            "bsr_spmv": ("bsr_spmv_kernel",), "agg_block_apply": ("agg_block_kernel",),
             "dnd_stencil": ("dnd_stencil_kernel", "dnd_window_kernel"),
             "q1_prolong": ("q1_prolong_kernel",), "q1_restrict": ("q1_restrict_kernel",),
             "trisolve": ("trisolve_kernel",),
@@ -353,14 +387,81 @@ GMRES_SMALL = {
                        2.5940451926819723e-05, 5.4116419948930926e-06, 1.2920464797450229e-06),
                       3.745605877367126e-09, 3.9532141560272294e-08),
 }
+# PETSc's ex56 (3-D Q1 elasticity, bs 3, six rigid-body modes) through the
+# port's example program (petsc_tpu_torch/examples/ex56.py); the contracts come from
+# `python ex56_contract.py NE defaults|knobs|transposed` (the JAX package on
+# the CPU, the modes in createRigidBody's order)
+EX56_DEFAULTS = ["-ksp_type", "cg", "-pc_type", "gamg"]
+EX56_KNOBS = [                   # tests/test_parity_gamg.py EX56_REF_ARGS without -ne
+    "-alpha", "1e-3", "-ksp_type", "cg", "-pc_type", "gamg",
+    "-pc_gamg_agg_nsmooths", "1", "-mg_levels_ksp_max_it", "1",
+    "-mg_levels_ksp_type", "chebyshev", "-mg_levels_ksp_chebyshev_esteig", "0,0.2,0,1.05",
+    "-pc_gamg_asm_use_agg", "-mg_levels_sub_pc_type", "lu", "-mg_levels_pc_asm_overlap", "0",
+    "-pc_gamg_mat_coarsen_type", "hem", "-pc_gamg_mat_coarsen_max_it", "5",
+    "-ksp_rtol", "1e-4", "-pc_gamg_threshold", ".001",
+    "-pc_gamg_mat_coarsen_strength_index", "1,2",
+    "-mg_coarse_pc_type", "jacobi", "-mg_coarse_ksp_type", "cg",
+]
+
+EX56_CONTRACT = {                # (ne, mode): its, history, rows per level, true relres, level-0 aggregate hash
+    (64, 'defaults'): {
+        "its": 17, "rows": (823875, 35934, 2496, 102, 6), "nnz": 64701513,
+        "aggregates": (5989, 416, 17, 1),
+        "true_relres": 7.090744541778965e-05,
+        "agg0_sha256": "a253bda1682b5c15d38204d8581ec6f27d05f7b5c2992bdbb7d0336343e2d1f4",
+        "history": (2.2055607851170898, 36.39986695643594, 18.458182066501582,
+                    9.092853976681585, 5.1094216576697535, 2.0717537453591066,
+                    0.98971278986756, 0.468043976025925, 0.22369644621316187,
+                    0.09840410416633662, 0.03922113495939393, 0.017380507332418485,
+                    0.007362956908980622, 0.003206017562234951, 0.0015611625301389378,
+                    0.0007495055029193579, 0.0003673752327298481, 0.00015639068098924545),
+    },
+    (11, 'knobs'): {
+        "its": 10, "rows": (5184, 330, 18), "nnz": 353736,
+        "aggregates": (55, 3),
+        "true_relres": 3.064775794663372e-05,
+        "agg0_sha256": "5258518809e8ffd17a4bfd2e8467b53db8c6ea3e06430f158d8aa7bd16a19394",
+        "history": (4.969822187252951, 15.465610750138877, 5.388114730111979,
+                    1.661168963886931, 0.42682189288050026, 0.09304276224749512,
+                    0.025781367779802798, 0.007075418438898656, 0.002104150783103763,
+                    0.0005731728594559511, 0.00015231390742273456),
+    },
+    (11, 'transposed'): {
+        "its": 15, "rows": (5184, 330, 18), "nnz": 353736,
+        "aggregates": (55, 3),
+        "true_relres": 5.121387908550248e-05,
+        "agg0_sha256": "5258518809e8ffd17a4bfd2e8467b53db8c6ea3e06430f158d8aa7bd16a19394",
+        "history": (4.969822187252951, 14.193105119238295, 9.216171938038473,
+                    8.48346147862028, 4.880364376040141, 1.717126053439158,
+                    0.6109333778317753, 0.2304596911304935, 0.08335275207102104,
+                    0.02841557349305028, 0.014535998966385636, 0.009960896059464222,
+                    0.005523110723761733, 0.002736781447821494, 0.0008737647211438174,
+                    0.0002545238725878251),
+    },
+    (24, 'knobs'): {
+        "its": 13, "rows": (46875, 3078, 126, 12), "nnz": 3501153,
+        "aggregates": (513, 21, 2),
+        "true_relres": 3.9059616450788913e-05,
+        "agg0_sha256": "b637ff390fd95305156b83c54bd48333bb93237e115517eadb355bf77af794e6",
+        "history": (3.5191019329300275, 22.93589038941649, 9.647222900393079,
+                    4.245925650558096, 1.5241152408262193, 0.5542604479608565,
+                    0.20311392147916044, 0.0783410458382291, 0.026289036028680116,
+                    0.009176103598895601, 0.003560813831643963, 0.0012781451411164862,
+                    0.00042270072243798034, 0.00013745477175739417),
+    },
+}
+EX56_HIST_TOL = 1e-6
+EX56_RTOL = 1e-4
+
 DATA = Path(__file__).resolve().parent / "tests" / "data"
 FIXTURES = ("LFAT5.mtx", "m_05_05_crk.mtx", "amesos2_test_mat0.mtx")
 
 
 def kernel_modules():
     """The port's kernel wrapper modules, each with its LAUNCHES counts."""
-    from petsc_tpu_torch.ops import gather_kernels, grid_kernels, pallas_kernels, trisolve
-    return pallas_kernels, gather_kernels, grid_kernels, trisolve
+    from petsc_tpu_torch.ops import (block_kernels, gather_kernels, grid_kernels,
+                                     pallas_kernels, trisolve)
+    return pallas_kernels, gather_kernels, grid_kernels, trisolve, block_kernels
 
 
 def reset_launches():
@@ -2598,6 +2699,383 @@ def phase_surface(pt, pk, A, hist_jacobi, smi, t_start):
     return out
 
 
+# ---------------------------------------------------------------------
+# ex56: BAIJ and GAMG on block systems
+# ---------------------------------------------------------------------
+
+def ex56_launches_needed(its, nlev, knobs):
+    """The launches of one CG + GAMG solve of ex56, set-up included (the
+    set-up launches none). Defaults: the V-cycle of mg_launches_needed
+    with level 0's five products per application on B1 (A x and A p per
+    smoothing, the residual) and its P and R on S2. Knob set: Chebyshev(1,
+    1) with the aggregate-block smoother on every level but the coarsest,
+    3 products of the level's operator per application (the smoothing's
+    A x twice, the residual; B1 on level 0, S2 above), 2 A1 and 2 of C1's
+    z modes (cheby_update_z), none of its Jacobi modes; the coarse
+    CG+Jacobi's inner steps depend on the data, so S2, K2 and K4 are at
+    least the cycle's."""
+    napply, fine = its + 1, nlev - 1
+    if not knobs:
+        need = mg_launches_needed(its, nlev)
+        need["csr_spmv"] -= 5 * napply + its
+        need.update(bsr_spmv=5 * napply + its, agg_block_apply=0, cheby_update_z=0)
+        return need, {}
+    exact = {"bsr_spmv": 3 * napply + its, "agg_block_apply": 2 * fine * napply,
+             "cheby_update_z": 2 * fine * napply, "cheby_update": 0, "axpy_normsq": its,
+             "const_stencil": 0}
+    at_least = {"csr_spmv": (3 * (fine - 1) + 2 * fine) * napply,
+                "triad": 4 * fine * napply + 2 * its, "dot2": 1 + 2 * its}
+    return exact, at_least
+
+
+def ex56_run(pt, ne, mode):
+    """PETSc's ex56 through the user's entry points (the port's example's
+    steps, petsc_tpu_torch/examples/ex56.py main): assemble, from_scipy,
+    setBlockSize(3) (kind aij_bsr), MatNullSpace.createRigidBody, CG in the
+    unpreconditioned norm to rtol 1e-4; every launch count set to 0 just
+    before the set-up and read just after the solve. Returns (ksp, A_sp,
+    b_np, b, x, launches, seconds)."""
+    import torch
+    from petsc_tpu_torch.examples import ex56
+    secs = {}
+    t0 = time.perf_counter()
+    A_sp, b_np, coords = ex56.assemble(ne)
+    secs["assemble_s"] = time.perf_counter() - t0
+    pt.init(args=["-ne", str(ne)] + (EX56_DEFAULTS if mode == "defaults" else EX56_KNOBS))
+    t0 = time.perf_counter()
+    A = pt.MatAIJ.from_scipy(A_sp)
+    torch.cuda.synchronize()
+    secs["from_scipy_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A.setBlockSize(3)
+    torch.cuda.synchronize()
+    secs["setBlockSize_s"] = time.perf_counter() - t0
+    if A.meta[0] != "aij_bsr" or A.getBlockSize() != 3 or "vals" in A.device_data():
+        raise AssertionError(f"ex56 ne {ne}: kind {A.meta[0]}, bs {A.getBlockSize()}, "
+                             f"device keys {sorted(A.device_data())}")
+    c = coords[:, ::-1].copy() if mode == "transposed" else coords
+    A.setNearNullSpace(pt.MatNullSpace.createRigidBody(c))
+    ksp = pt.KSP().create()
+    ksp.setOperators(A)
+    ksp.setNormType("unpreconditioned")
+    ksp.setTolerances(rtol=EX56_RTOL, max_it=200)
+    ksp.setFromOptions()
+    b = pt.Vec.from_array(b_np)
+    x = A.createVecRight()
+    torch.cuda.synchronize()
+    reset_launches()
+    pt.log().reset()
+    t0 = time.perf_counter()
+    ksp.setUp()
+    torch.cuda.synchronize()
+    secs["setup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ksp.solve(b, x)
+    torch.cuda.synchronize()
+    secs["first_solve_s"] = time.perf_counter() - t0
+    return ksp, A_sp, b_np, b, x, launch_counts(), secs
+
+
+def check_ex56(ksp, A_sp, b_np, x, key):
+    """The contract of `python ex56_contract.py NE MODE` (EX56_CONTRACT):
+    its, reason, history to 1e-6, rows and aggregates per level, the
+    level-0 aggregates' hash, a true residual no worse than 10x the
+    reference's, finite values."""
+    import hashlib
+    import numpy as np
+    import torch
+    want = EX56_CONTRACT[key]
+    its, reason = ksp.getIterationNumber(), ksp.getConvergedReason().name
+    hist, wh = ksp.getConvergenceHistory(), np.array(want["history"])
+    hist_rel = (float(np.max(np.abs(hist - wh) / wh)) if hist.shape == wh.shape else math.inf)
+    levels = ksp.getPC()._impl.levels
+    rows = tuple(lev.A.getSize()[0] for lev in levels)
+    aggs = tuple(int(lev.agg.max()) + 1 for lev in levels[:-1])
+    sha = hashlib.sha256(np.asarray(levels[0].agg, dtype=np.int64).tobytes()).hexdigest()
+    xs = x.array.double().cpu().numpy()
+    true_rel = float(np.linalg.norm(b_np - A_sp @ xs) / np.linalg.norm(b_np))
+    if (its != want["its"] or reason != "CONVERGED_RTOL" or not hist_rel <= EX56_HIST_TOL
+            or rows != want["rows"] or aggs != want["aggregates"] or sha != want["agg0_sha256"]
+            or not true_rel <= 10 * want["true_relres"]
+            or not bool(torch.isfinite(x.array).all())):
+        raise AssertionError(
+            f"ex56 {key}: its {its} (want {want['its']}), {reason}, history vs the reference "
+            f"{hist_rel}, rows {rows} (want {want['rows']}), aggregates {aggs} (want "
+            f"{want['aggregates']}), agg0 hash {sha == want['agg0_sha256']}, true relres "
+            f"{true_rel} (the reference's {want['true_relres']})")
+    return {"its": its, "reason": reason, "history_rel_diff_vs_reference": hist_rel,
+            "rows": rows, "aggregates": aggs, "agg0_sha256_equal": True,
+            "true_relres": true_rel, "reference_true_relres": want["true_relres"],
+            "emax": [lev.emax for lev in levels[:-1]]}
+
+
+def ex56_case(pt, ne, mode, profile=False):
+    """One ex56 run checked against its contract and its launches; with
+    profile, also the warm solve (best of 3) and one profiled warm solve.
+    Returns (the record, ksp, launches, profile or None)."""
+    ksp, A_sp, b_np, b, x, launches, secs = ex56_run(pt, ne, mode)
+    chk = check_ex56(ksp, A_sp, b_np, x, (ne, mode))
+    nlev = len(ksp.getPC()._impl.levels)
+    exact, at_least = ex56_launches_needed(chk["its"], nlev, mode != "defaults")
+    bad = {k: (launches[k], v) for k, v in exact.items() if launches[k] != v}
+    bad.update({k: (launches[k], f">= {v}") for k, v in at_least.items() if launches[k] < v})
+    if bad:
+        raise AssertionError(f"ex56 ne {ne} {mode}: launches (got, want): {bad}")
+    events = {}
+    for name in ("PCGAMGSetUp_native", "PCGAMGSetUp_download", "PCGAMGSetUp_graph",
+                 "PCGAMGSetUp_coarsen", "PCGAMGSetUp_prol0", "PCGAMGSetUp_emax",
+                 "PCGAMGSetUp_smooth_prol", "PCGAMGSetUp_SpGEMM", "PCMGSetUp_agg_blocks",
+                 "PCMGSetUp_emax", "PCMGSetUp_LU"):
+        ev = pt.log().get_event(name)
+        if ev is not None and ev.count:
+            events[name] = ev.time
+    rec = {"ne": ne, "mode": mode, "rows": A_sp.shape[0], "nnz": int(A_sp.nnz), **secs,
+           **chk, "setup_events_s": events, "launches": {k: v for k, v in launches.items() if v},
+           "launches_exact": exact, "launches_at_least": at_least}
+    prof = None
+    if profile:
+        warm = warm_ms(ksp, b, x)
+        check_ex56(ksp, A_sp, b_np, x, (ne, mode))
+        prof = profile_solve(ksp, b, x, warm)
+        check_ex56(ksp, A_sp, b_np, x, (ne, mode))
+        rec.update(warm_ms_best_of_3=warm, ms_per_it=warm / chk["its"],
+                   device_busy_ms=prof["device_busy_ms"],
+                   busy_share=prof["busy_share_of_warm"],
+                   device_events=prof["device_events"])
+    return rec, ksp, launches, prof
+
+
+def _random_bsr(nbr, bs, dtype, seed, long_row=None, empty_row=None):
+    """A random BSR on the card: rows of 1 to 7 blocks, with a row of
+    long_row[1] blocks and an empty row where asked."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 8, nbr)
+    if long_row is not None:
+        lens[long_row[0]] = long_row[1]
+    if empty_row is not None:
+        lens[empty_row] = 0
+    cols = [np.sort(rng.choice(nbr, size=int(L), replace=False)) for L in lens]
+    ptr = np.concatenate([[0], np.cumsum(lens)])
+    t = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device="cuda")  # noqa: E731
+    return (t(ptr, torch.int64), t(np.concatenate(cols).astype(np.int32), torch.int32),
+            t(rng.standard_normal((int(ptr[-1]), bs, bs))), t(rng.standard_normal(nbr * bs)))
+
+
+def b1_rows(bk, pk, A, A_sp, flush):
+    """B1 against its plain version (equal bits; else 1e-12 / 1e-5) on ex56
+    ne 64's operator in f64 and f32, each timed with its bound, the plain
+    version, cuSPARSE's BSR product and S2 on the same matrix as CSR; then
+    bs 2 and 6 with a row of 500 blocks and an empty row."""
+    import numpy as np
+    import torch
+    d = A.device_data()
+    ip, bc = d["bptr"], d["bcol"]
+    g = torch.Generator(device="cuda").manual_seed(56)
+    rows, main = [], None
+    for dt in (torch.float64, torch.float32):
+        name = "float64" if dt == torch.float64 else "float32"
+        v = d["bvals"].to(dt)
+        x = torch.rand(A_sp.shape[1], generator=g, device="cuda", dtype=torch.float64).to(dt)
+        y, yp = bk.bsr_spmv(ip, bc, v, x), bk.bsr_spmv_plain(ip, bc, v, x)
+        err = rel_err(y, yp)
+        equal = bool(torch.equal(y, yp))
+        if not (equal or err <= TOL[name]):
+            raise AssertionError(f"B1 ex56 ne 64 {name}: {err} from its plain version")
+        isz = v.element_size()
+        nbytes = v.numel() * isz + bc.numel() * 4 + ip.numel() * 8 + 2 * x.numel() * isz
+        b_ms, b_by = bound(nbytes, 2 * v.numel(), name)
+        # the library's BSR product (cuSPARSE bsrmv through torch.sparse)
+        lib_ms, lib_note = None, "torch.sparse_bsr_tensor(...) @ x"
+        try:
+            M = torch.sparse_bsr_tensor(ip.to(torch.int32), bc, v, size=tuple(A_sp.shape))
+            yl = (M @ x[:, None])[:, 0]
+            if rel_err(yl, yp) > 10 * TOL[name]:
+                raise AssertionError(f"disagrees: {rel_err(yl, yp)}")
+            lib_ms = time_ms(lambda: M @ x[:, None], flush)
+            del M
+        except Exception as exc:             # noqa: BLE001 - recorded, not hidden
+            lib_note += f": not measured ({type(exc).__name__}: {str(exc)[:200]})"
+        # S2 on the same operator stored as scalar CSR
+        cip = torch.as_tensor(A_sp.indptr.astype(np.int64), device="cuda")
+        ccol = torch.as_tensor(A_sp.indices.astype(np.int32), device="cuda")
+        cval = torch.as_tensor(A_sp.data, dtype=dt, device="cuda")
+        ys2 = pk.csr_spmv(cip, ccol, cval, x)
+        s2_err = rel_err(ys2, yp)
+        if s2_err > 10 * TOL[name]:
+            raise AssertionError(f"S2 on ex56 ne 64's CSR: {s2_err} from B1's plain version")
+        s2_ms = time_ms(lambda: pk.csr_spmv(cip, ccol, cval, x), flush)
+        s2_bytes = cval.numel() * (isz + 4) + cip.numel() * 8 + 2 * x.numel() * isz
+        del cip, ccol, cval
+        ms = time_ms(lambda: bk.bsr_spmv(ip, bc, v, x), flush)
+        r = {"name": "bsr_spmv", "dtype": name, "shape": "ex56 ne 64", "rows": A_sp.shape[0],
+             "blocks": int(bc.numel()), "bs": 3, "equal_bits": equal, "max_abs_err": err,
+             "ms": ms, "plain_ms": time_ms(lambda: bk.bsr_spmv_plain(ip, bc, v, x), flush, 3),
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+             "share_of_bound": b_ms / ms, "library_ms": lib_ms, "library": lib_note,
+             "s2_same_matrix_ms": s2_ms, "s2_bound_ms": bound(s2_bytes, 2 * A_sp.nnz, name)[0],
+             "s2_max_abs_err": s2_err}
+        rows.append(r)
+        main = main or r
+    for bs in (2, 6):
+        for dt in (torch.float64, torch.float32):
+            name = "float64" if dt == torch.float64 else "float32"
+            ip2, bc2, v2, x2 = _random_bsr(4000, bs, dt, bs, long_row=(3, 500), empty_row=9)
+            y, yp = bk.bsr_spmv(ip2, bc2, v2, x2), bk.bsr_spmv_plain(ip2, bc2, v2, x2)
+            err = rel_err(y, yp)
+            if not (torch.equal(y, yp) or err <= TOL[name]) \
+                    or float(y.view(-1, bs)[9].abs().max()) != 0.0:
+                raise AssertionError(f"B1 bs {bs} {name}: {err} from its plain version")
+            rows.append({"name": "bsr_spmv", "dtype": name, "bs": bs,
+                         "shape": "4000 block rows, one of 500 blocks, one empty",
+                         "equal_bits": bool(torch.equal(y, yp)), "max_abs_err": err})
+    return rows, main
+
+
+def a1_rows(bk, cases, flush):
+    """A1 against its plain version (f64 1e-12, f32 1e-5: the warp sums in
+    another order) on each (label, tables, timed) case; a timed case also
+    gets its time with its bound, the plain version and torch.bmm on the
+    reference's padded table (the product alone). Returns the rows."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(24)
+    rows = []
+    for label, tab, timed in cases:
+        n = tab["dofs"].numel()
+        for dt in (torch.float64, torch.float32):
+            name = "float64" if dt == torch.float64 else "float32"
+            t = {**tab, "inv": tab["inv"].to(dt)}
+            r = torch.rand(n, generator=g, device="cuda", dtype=torch.float64).to(dt)
+            z, zp = bk.agg_block_apply(t, r), bk.agg_block_apply_plain(t, r)
+            err = rel_err(z, zp)
+            if err > TOL[name]:
+                raise AssertionError(f"A1 {label} {name}: {err} from its plain version")
+            nblk = t["dptr"].numel() - 1
+            row = {"name": "agg_block_apply", "dtype": name, "shape": label, "dofs": n,
+                   "blocks": nblk, "max_k": t["max_k"], "sum_k2": int(t["inv"].numel()),
+                   "work_items": t["work"].numel() // 3, "max_abs_err": err}
+            rows.append(row)
+            if not timed:
+                continue
+            isz = r.element_size()
+            nbytes = (t["inv"].numel() * isz + n * (2 * isz + 4) + t["work"].numel() * 4
+                      + (t["dptr"].numel() + t["iptr"].numel()) * 8)
+            b_ms, b_by = bound(nbytes, 2 * t["inv"].numel(), name)
+            kmax = t["max_k"]
+            lib_ms, lib_note = None, f"torch.bmm on the padded ({nblk}, {kmax}, {kmax}) table"
+            try:
+                Pd = torch.zeros(nblk, kmax, kmax, dtype=dt, device="cuda")
+                Rd = torch.zeros(nblk, kmax, 1, dtype=dt, device="cuda")
+                a0 = 0
+                for idx, i0, na, k in t["groups"]:
+                    Pd[a0:a0 + na, :k, :k] = t["inv"][i0:i0 + na * k * k].view(na, k, k)
+                    Rd[a0:a0 + na, :k, 0] = r[idx]
+                    a0 += na
+                lib_ms = time_ms(lambda: torch.bmm(Pd, Rd), flush)
+                del Pd, Rd
+            except Exception as exc:             # noqa: BLE001 - recorded, not hidden
+                lib_note += f": not measured ({type(exc).__name__}: {str(exc)[:200]})"
+            torch.cuda.empty_cache()
+            ms = time_ms(lambda: bk.agg_block_apply(t, r), flush)
+            row.update(ms=ms, plain_ms=time_ms(lambda: bk.agg_block_apply_plain(t, r), flush, 3),
+                       bound_ms=b_ms, bound_by=b_by, bytes=nbytes, share_of_bound=b_ms / ms,
+                       library_ms=lib_ms, library=lib_note)
+    return rows
+
+
+def cheby_z_rows(pk, n, flush):
+    """C1's z modes (kernel cheby_update_z) against their plain version on
+    the same inputs (f64 1e-12, f32 1e-5 relative on p and x) at the knob
+    set's level-0 length n, each timed after the clean flush beside the
+    plain version and its bound (first_z reads x and z and writes p and x,
+    step_z also reads p). No single PyTorch call computes the update
+    (library_ms None). Returns (rows, the f64 step_z row)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(78)
+    rows, main = [], None
+    for dtype in (torch.float64, torch.float32):
+        dn = str(dtype).replace("torch.", "")
+        isz = torch.empty((), dtype=dtype).element_size()
+        z, p0, x0 = (torch.rand(n, generator=gen, device="cuda", dtype=dtype) for _ in range(3))
+        for mode in ("first_z", "step_z"):
+            kw = {"a": 0.6} if mode == "step_z" else {}
+            k, q = [p0.clone(), x0.clone()], [p0.clone(), x0.clone()]
+            pk.cheby_update_z(mode, *k, z, 0.3, 0.9, **kw)
+            pk.cheby_update_z_plain(mode, *q, z, 0.3, 0.9, **kw)
+            torch.cuda.synchronize()
+            err = max(rel_err(a, c) for a, c in zip(k, q))
+            if not err <= TOL[dn]:
+                raise AssertionError(f"cheby_update_z {mode} {dn} n={n}: rel err {err}")
+            nbytes = (4 if mode == "first_z" else 5) * n * isz
+            b_ms, b_by = bound(nbytes, (3 if mode == "first_z" else 5) * n, dn)
+            row = {"name": "cheby_update_z", "mode": mode, "dtype": dn, "n": n,
+                   "rel_err": err, "tol": TOL[dn],
+                   "max_abs_err": max(float((a - c).abs().max()) for a, c in zip(k, q)),
+                   "ms": time_ms(lambda: pk.cheby_update_z(mode, *k, z, 0.3, 0.9, **kw), flush),
+                   "plain_ms": time_ms(
+                       lambda: pk.cheby_update_z_plain(mode, *q, z, 0.3, 0.9, **kw), flush),
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+            row["share_of_bound"] = b_ms / row["ms"]
+            rows.append(row)
+            if (dn, mode) == ("float64", "step_z"):
+                main = row
+    return rows, main
+
+
+def phase_ex56(pt, smi, t_start, flush):
+    """PETSc's ex56 on the card: the defaults at full width (ne 64), B1's
+    rows on its operator and A1's on its tables over the defaults' level-0
+    aggregates; the knob set at ne 11, 11 with the transposed modes, and
+    24, A1's rows on every level's tables of ne 24's solve and C1z's at
+    its level-0 length. Returns (the record, B1's, A1's and C1z's rows,
+    the defaults' launches and profile, the knob set's (ne 24) launches
+    and profile)."""
+    import torch
+    from petsc_tpu_torch.ops import block_kernels as bk
+    from petsc_tpu_torch.pc.mg import _agg_blocks_host
+    from petsc_tpu_torch.ops import pallas_kernels as pk
+    t0 = time.perf_counter()
+    out = {"phase": "ex56", "nvidia_smi": smi, "rtol": EX56_RTOL, "norm": "unpreconditioned"}
+    rec, ksp, launches, prof = ex56_case(pt, 64, "defaults", profile=True)
+    out["defaults_ne64"] = rec
+    out["defaults_ne64_profile"] = prof
+    A = ksp.getOperators()[0]
+    A_sp = A.to_scipy()
+    out["bsr_spmv_checks"], b1 = b1_rows(bk, pk, A, A_sp, flush)
+    # A1 at full width: the ragged tables of the aggregate-block smoother
+    # over the defaults' level-0 aggregates on ne 64's operator
+    t1 = time.perf_counter()
+    tab64 = bk.agg_block_tables(*_agg_blocks_host(A_sp, ksp.getPC()._impl.levels[0].agg, 3),
+                                "cuda", torch.float64)
+    out["agg_blocks_ne64_host_s"] = time.perf_counter() - t1
+    a1_checks = a1_rows(bk, [("ex56 ne 64 level 0, the defaults' aggregates", tab64, True)],
+                        flush)
+    del ksp, A, A_sp, tab64
+    torch.cuda.empty_cache()
+    out["defaults_seconds"] = time.perf_counter() - t0
+    for ne, mode in ((11, "knobs"), (11, "transposed")):
+        out[f"{mode}_ne{ne}"] = ex56_case(pt, ne, mode)[0]
+    rec, ksp, k_launches, k_prof = ex56_case(pt, 24, "knobs", profile=True)
+    out["knobs_ne24"] = rec
+    out["knobs_ne24_profile"] = k_prof
+    # A1 on every level's tables of the ne 24 solve, level 0 timed
+    levels = [ld for ld in ksp.getPC()._data["levels"] if "agg" in ld]
+    a1_checks = a1_rows(bk, [(f"ex56 ne 24 level {i}", ld["agg"], i == 0)
+                             for i, ld in enumerate(levels)], flush) + a1_checks
+    if len(levels) != len(ksp.getPC()._impl.levels) - 1:
+        raise AssertionError(f"ex56 ne 24 knobs: {len(levels)} levels with A1's tables")
+    out["agg_block_apply_checks"] = a1_checks
+    a1 = a1_checks[0]
+    n0 = levels[0]["agg"]["dofs"].numel()
+    out["cheby_update_z_checks"], c1z = cheby_z_rows(pk, n0, flush)
+    del ksp, levels
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_so_far"] = time.perf_counter() - t_start
+    return out, b1, a1, c1z, launches, prof, k_launches, k_prof
+
+
 # bench_gpu.py's contract: BENCH_r05.json's solve (the JAX package on the TPU)
 BENCH_SOLVE_ITS = 10
 BENCH_JACOBI_ITS = 184
@@ -2871,6 +3349,12 @@ def main():
     del gm_solve, ksp_gm, b_gm, x_gm
     torch.cuda.empty_cache()
 
+    # ---- PETSc's ex56 (BAIJ, bs 3, GAMG with six rigid-body modes): the
+    # defaults at ne 64, the reference's knob set at ne 11 and 24 ----
+    (ex_rec, b1_main, a1_main, c1z_main, ex_launches, ex_prof, exk_launches,
+     exk_prof) = phase_ex56(pt, smi, t_start, flush)
+    emit(ex_rec)
+
     # ---- bench.py's keys from the card: bench_gpu.py in a process of its own ----
     bench = phase_bench_gpu(smi, t_start)
 
@@ -2900,6 +3384,12 @@ def main():
         "q1_restrict": ("q1.cu", "petsc_tpu/dm/interp.py:49", grid_main, grid_launches),
         "trisolve": ("trisolve.cu", "petsc_tpu/ops/trisolve.py:94", {"trisolve": t_main},
                      gm_launches),
+        "bsr_spmv": ("bsr_spmv.cu", "petsc_tpu/mat/aij.py:1494", {"bsr_spmv": b1_main},
+                     ex_launches),
+        "agg_block_apply": ("agg_block.cu", "petsc_tpu/pc/mg.py:516",
+                            {"agg_block_apply": a1_main}, exk_launches),
+        "cheby_update_z": ("cheby.cu", "petsc_tpu/ksp/cheby.py:42",
+                           {"cheby_update_z": c1z_main}, exk_launches),
     }
     table = []
     for name, (src, replaces, measured, counts) in rows.items():
@@ -2916,13 +3406,17 @@ def main():
                                            "gamg": gamg_launches[name],
                                            "gamg_grid": grid_launches[name],
                                            "gamg_grid_f64": grid_launches_f64[name],
-                                           "gmres_ilu": gm_launches[name]},
+                                           "gmres_ilu": gm_launches[name],
+                                           "ex56": ex_launches[name],
+                                           "ex56_knobs": exk_launches[name]},
                       "in_solve_us": {path: p["in_solve"].get(name, {}).get("us_per_launch")
                                       for path, p in (("solve", prof), ("aij", prof_a),
                                                       ("mg", prof_m), ("gamg", prof_g),
                                                       ("gamg_grid", prof_grid["f32"]),
                                                       ("gamg_grid_f64", prof_grid["f64"]),
-                                                      ("gmres_ilu", prof_gm))},
+                                                      ("gmres_ilu", prof_gm),
+                                                      ("ex56", ex_prof),
+                                                      ("ex56_knobs", exk_prof))},
                       "bench_gpu_launches": {phase: c.get(name, 0)
                                              for phase, c in bench["launches"].items()}})
     for r in table:
@@ -3008,6 +3502,22 @@ def main():
               cluster_shapes_ms=gm_rec["trisolve_cluster_shapes_ms"],
               others=[{**{k: r[k] for k in keep if k in r}, "variant": r["launch"]["variant"]}
                       for r in t_rows if r is not t_main])
+    # B1's row is ex56 ne 64's operator in f64, A1's ex56 ne 24's level-0
+    # tables in f64 (its other levels and ne 64's tables beside it); f32,
+    # cuSPARSE's note and S2 on the same matrix beside them
+    # C1z's is the step_z mode in f64 at the knob set's level-0 length;
+    # first_z and f32 beside it
+    for name, m in (("bsr_spmv", b1_main), ("agg_block_apply", a1_main),
+                    ("cheby_update_z", c1z_main)):
+        r = next(r for r in table if r["name"] == name)
+        r.update({k: m[k] for k in m if k not in r and k != "name"})
+        r["others"] = [{k: o[k] for k in ("dtype", "bs", "mode", "shape", "n", "dofs", "max_k",
+                                          "ms", "plain_ms", "bound_ms", "library_ms",
+                                          "max_abs_err", "equal_bits") if k in o}
+                       for o in ex_rec[f"{name}_checks"] if o is not m]
+    c1z = next(r for r in table if r["name"] == "cheby_update_z")
+    c1z.update(also_replaces="petsc_tpu/ksp/cheby.py:36, :79-80",
+               library="none: no single PyTorch call computes the fused update")
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -38,7 +38,7 @@ from .sys.error import (Error, KSPConvergedReason, SNESConvergedReason,
 from .parallel.layout import Layout
 from .parallel.mesh import Comm, comm_self, comm_world
 from .vec.vec import Vec, NormType, InsertMode, fused_reductions
-from .mat.mat import Mat, MatStructure
+from .mat.mat import Mat, MatNullSpace, MatStructure
 from .mat.aij import MatAIJ  # also registers the aij_csr and aij_dnd binders
 from .pc.pc import PC
 from .pc import mg as _mg  # registers PC mg and the pc_mg binder

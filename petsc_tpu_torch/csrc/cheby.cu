@@ -8,6 +8,12 @@
 //   mode first:  r = b - w;  p = c (dinv r);        x += beta p
 //   mode step:   r -= w;     p = a p + c (dinv r);  x += beta p
 // and overwrites r, p and x in place: the smoother owns those buffers.
+// With a smoothing PC other than Jacobi (the aggregate-block smoother of
+// -pc_gamg_asm_use_agg, kernel A1) the caller forms r and z = M^-1 r first,
+// and the z modes finish the step with z in place of dinv r:
+//   mode first_z:  p = c z;        x += beta p
+//   mode step_z:   p = a p + c z;  x += beta p
+// leaving r alone.
 // The first kind takes beta = 1 and (first) c = 1/theta, (step) a = rho_n
 // rho, c = 2 rho_n / delta; the fourth kind (first) c = 4/(3 rho) and
 // (step) a = (2k-3)/(2k+1), c = (8k-4)/((2k+1) rho), beta = 1 or its
@@ -105,6 +111,24 @@ cheby_update_kernel(T* r, T* p, T* x, const T* b, const T* w, const T* d, T a, T
   }
 }
 
+// The z modes: p and x updated from z, one element per thread and step.
+template <bool kFirst, typename T>
+__global__ void __launch_bounds__(ptt::kThreads)
+cheby_update_z_kernel(T* p, T* x, const T* z, T a, T c, T beta, long long n) {
+  const long long step = (long long)gridDim.x * ptt::kThreads;
+  for (long long i = (long long)blockIdx.x * ptt::kThreads + threadIdx.x; i < n; i += step) {
+    const T zv = z[i];
+    T pv;
+    if constexpr (kFirst) {
+      pv = c * zv;
+    } else {
+      pv = a * p[i] + c * zv;
+    }
+    x[i] = x[i] + beta * pv;
+    p[i] = pv;
+  }
+}
+
 // The shared head of `count` pointers (see ptt::aligned_head), or -1.
 template <typename T>
 long long common_head(long long n, const void* const* ptrs, int count) {
@@ -114,7 +138,8 @@ long long common_head(long long n, const void* const* ptrs, int count) {
   return head;
 }
 
-// mode 0: first (reads b), mode 1: step (b unused, may be null)
+// mode 0: first (reads b), mode 1: step (b unused, may be null); modes 2
+// and 3: first_z and step_z (d holds z; r and b unused)
 template <typename T>
 int launch_cheby(int mode, void* r, void* p, void* x, const void* b, const void* w,
                  const void* d, double a, double c, double beta, long long n, int device,
@@ -123,6 +148,16 @@ int launch_cheby(int mode, void* r, void* p, void* x, const void* b, const void*
   constexpr long long kPerBlock = (long long)ptt::Pack<T>::kWidth * ptt::kThreads;
   long long grid = (n + kPerBlock - 1) / kPerBlock;
   grid = grid < 1 ? 1 : grid > kMaxGrid ? kMaxGrid : grid;
+  if (mode >= 2) {
+    const int zgrid = ptt::grid_for(n, device, kMaxGrid);
+    if (mode == 2)
+      cheby_update_z_kernel<true, T><<<zgrid, ptt::kThreads, 0, (cudaStream_t)stream>>>(
+          (T*)p, (T*)x, (const T*)d, (T)a, (T)c, (T)beta, n);
+    else
+      cheby_update_z_kernel<false, T><<<zgrid, ptt::kThreads, 0, (cudaStream_t)stream>>>(
+          (T*)p, (T*)x, (const T*)d, (T)a, (T)c, (T)beta, n);
+    return (int)cudaGetLastError();
+  }
   const void* ptrs[6] = {r, p, x, w, d, b};
   const long long head = common_head<T>(n, ptrs, mode == 0 ? 6 : 5);
   if (mode == 0)

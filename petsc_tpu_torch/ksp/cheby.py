@@ -9,7 +9,9 @@ The smoothers take the Jacobi inverse diagonal ``dinv`` as a vector
 (the reference takes the product ``pcmult``; PCMG's smoothing PC is
 Jacobi) so that the whole elementwise tail of each step after its SpMV
 is one launch of the hand kernel C1
-(:func:`ops.pallas_kernels.cheby_update`). They own r and p, and update
+(:func:`ops.pallas_kernels.cheby_update`). Another smoothing PC (the
+aggregate-block smoother) comes as the function z = pc(r): r is then
+formed first (K2), and C1's z modes finish the step with z. They own r and p, and update
 x in place. The reference's ``lax.while_loop`` in :func:`solve_chebyshev`
 becomes a Python loop with one host read of the norm per iteration, as
 in ``impls_basic.solve_cg``.
@@ -20,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.pallas_kernels import cheby_update
+from ..ops.pallas_kernels import cheby_update, cheby_update_z, triad
 from ..ops.reduce import fnorm2
 from ..sys.error import KSPConvergedReason as KR
 from .common import (KSPConfig, NONE, SolveResult, check_converged,
@@ -39,6 +41,16 @@ def cheby_smooth(amult, dinv, b, x, its: int, emin, emax):
     sigma1 = theta / delta
     rho = 1.0 / sigma1
     r, p = torch.empty_like(b), torch.empty_like(b)
+    if callable(dinv):
+        minus_one = torch.full((), -1.0, dtype=b.dtype, device=b.device)
+        triad(b, amult(x), minus_one, out=r)
+        cheby_update_z("first_z", p, x, dinv(r), 1.0 / theta)
+        for _ in range(1, its):
+            rho_new = 1.0 / (2.0 * sigma1 - rho)
+            triad(r, amult(p), minus_one, out=r)
+            cheby_update_z("step_z", p, x, dinv(r), 2.0 * rho_new / delta, a=rho_new * rho)
+            rho = rho_new
+        return x
     # r = b - A x; p = z / theta; x += p
     cheby_update("first", r, p, x, amult(x), dinv, 1.0 / theta, b=b)
     for _ in range(1, its):
@@ -68,6 +80,15 @@ def cheby_smooth4(amult, dinv, b, x, its: int, emax, optimized=False):
     rho = float(emax)
     bet = _opt4_betas(its) if optimized else np.ones(its)
     r, d = torch.empty_like(b), torch.empty_like(b)
+    if callable(dinv):
+        minus_one = torch.full((), -1.0, dtype=b.dtype, device=b.device)
+        triad(b, amult(x), minus_one, out=r)
+        cheby_update_z("first_z", d, x, dinv(r), 4.0 / (3.0 * rho), beta=float(bet[0]))
+        for k in range(2, its + 1):
+            triad(r, amult(d), minus_one, out=r)
+            cheby_update_z("step_z", d, x, dinv(r), (8.0 * k - 4.0) / ((2.0 * k + 1.0) * rho),
+                           beta=float(bet[k - 1]), a=(2.0 * k - 3.0) / (2.0 * k + 1.0))
+        return x
     cheby_update("first", r, d, x, amult(x), dinv, 4.0 / (3.0 * rho), beta=float(bet[0]), b=b)
     for k in range(2, its + 1):
         # the reference's r -= A d of the previous step is this launch's w

@@ -29,6 +29,15 @@ src/mat/impls/aij/seq/aij.c) for one device:
 Every value change bumps the object state, so a cache keyed on it (the
 PC's setup) never applies stale values.
 
+A matrix with a block size above 1 (``setSizes(bs=)``, ``setBlockSize``)
+takes the block layout ``aij_bsr``: BSR (int64 block-row pointers, int32
+block columns, values (nblocks, bs, bs) row-major), product on the hand
+kernel B1 (:func:`ops.block_kernels.bsr_spmv`), its transpose on B1 over
+the block transpose built once at the first call. It stands for both of
+the reference's block layouts (block-ELL ``bell`` and the no-gather block
+stencil ``dndb``, aij.py:1456-1515), whose padding and planes serve the
+TPU's lack of a gather; the results are the same.
+
 The `aij_dnd` binder is the reference's ``_bind_aij_dnd``: a
 uniform-coefficient full box or star stencil (the separable branch,
 aij.py:1346-1379) is applied by the hand-written S1 kernel
@@ -49,6 +58,7 @@ import torch
 
 from .. import config, native
 from ..ops import operator, spmv
+from ..ops.block_kernels import bsr_spmv, bsr_transpose
 from ..ops.gather_kernels import gather
 from ..ops.grid_kernels import dnd_stencil_fn, dnd_stencil_t
 from ..ops.pallas_kernels import const_stencil, csr_spmv
@@ -56,10 +66,10 @@ from ..sys.error import Error
 from ..vec.vec import InsertMode, NormType
 from .mat import Mat
 
-# -mat_spmv_kind values: the TPU's no-gather layouts all give CSR here
+# -mat_spmv_kind values: the TPU's no-gather layouts all give CSR here,
+# its two block layouts the BSR layout
 _CSR_KINDS = ("auto", "csr", "ell", "dia", "hyb", "bdia", "perm")
-_BAIJ = "the BAIJ part of ROADMAP queue 1 item 7"
-_LATER_KINDS = {"dndb": _BAIJ, "bell": _BAIJ}
+_BLOCK_KINDS = ("bell", "dndb")
 _MAX_GRID_OFFSETS = 80      # the reference's limit on a grid pattern's offsets
 _INT32_MAX = 2 ** 31 - 1
 
@@ -94,6 +104,7 @@ class MatAIJ(Mat):
         self.host_only = False
         self._grid_shape = None
         self._grid_off_cache = None
+        self._bsr_scatter = None   # host: each CSR entry's slot in the BSR values
 
     # ================= assembly =================
 
@@ -250,8 +261,13 @@ class MatAIJ(Mat):
                             device=config.device()).reshape(-1).contiguous()
         if v.numel() != plan["n_user"]:
             raise Error(f"setValuesCOO: {v.numel()} values for {plan['n_user']} entries")
-        self._update_device_values(
-            spmv.coo_scatter_csr(plan["perm"], plan["seg"], v, plan["nnz"], check=False))
+        if self._meta[0] == "aij_bsr" and plan.get("bsr_perm") is not None:
+            # every block slot holds one entry and no entry repeats: the
+            # BSR values are one K8 gather of the user's values
+            self._set_block_values(gather(v, plan["bsr_perm"], check=False))
+        else:
+            self._update_device_values(
+                spmv.coo_scatter_csr(plan["perm"], plan["seg"], v, plan["nnz"], check=False))
         self._vals = None      # the host copy is fetched when it is asked for
         self._assembled = True
         self.increase_state()
@@ -266,7 +282,12 @@ class MatAIJ(Mat):
     def _sync_host_vals(self):
         if self._vals is None:
             dev = self._dev
-            # a grid layout keeps its values in the planes only
+            # a grid layout keeps its values in the planes only, a block
+            # layout in its blocks
+            if "bvals" in dev:
+                self._vals = dev["bvals"].reshape(-1).cpu().numpy().astype(np.float64)[
+                    self._bsr_scatter]
+                return
             vals = dev["vals"] if "vals" in dev else \
                 dev["coef"].reshape(-1)[dev["dnd_scatter"]]
             self._vals = vals.cpu().numpy().astype(np.float64)
@@ -310,20 +331,21 @@ class MatAIJ(Mat):
     # ================= device build =================
 
     def _choose_kind(self):
-        """The GPU layout policy for a single-device matrix with bs == 1
-        (the reference's -mat_spmv_kind choice, aij.py:307-355): "dnd" where
-        the pattern decomposes on a declared grid (under auto) or where
-        -mat_spmv_kind dnd asks for it, else "csr"."""
+        """The GPU layout policy for a single-device matrix (the reference's
+        -mat_spmv_kind choice, aij.py:307-355): "bsr" for a block size above
+        1 shared by rows and columns (under auto) or where -mat_spmv_kind
+        bell or dndb asks for it; "dnd" where the pattern decomposes on a
+        declared grid (under auto) or where -mat_spmv_kind dnd asks for it;
+        else "csr"."""
         if self._kind_opt is None:
             self._kind_opt = self.opt("get_string", "mat_spmv_kind", default="auto")
         kind = self._kind_opt
-        if self.row_layout.bs > 1 or self.col_layout.bs > 1:
-            raise NotImplementedError(
-                f"MatAIJ: block size {self.row_layout.bs} > 1 (BAIJ layouts) comes "
-                f"with {_BAIJ}")
-        if kind in _LATER_KINDS:
-            raise NotImplementedError(
-                f"-mat_spmv_kind {kind} comes with {_LATER_KINDS[kind]}")
+        bs = self.row_layout.bs
+        if kind in _BLOCK_KINDS or (kind == "auto" and bs > 1 and bs == self.col_layout.bs):
+            if bs != self.col_layout.bs:
+                raise Error(f"-mat_spmv_kind {kind}: row block size {bs} and column block "
+                            f"size {self.col_layout.bs} differ")
+            return "bsr"
         if kind == "dnd":
             if self._grid_offsets() is None:
                 raise Error("-mat_spmv_kind dnd: the matrix declares no grid (setStencilGrid) "
@@ -370,6 +392,15 @@ class MatAIJ(Mat):
         self._grid_off_cache = (self._indices, out)
         return out
 
+    def _relayout(self):
+        """A new block size: the device copy is laid out again, the old one
+        dropped first so that the card never holds both."""
+        if self._assembled and self._indptr is not None:
+            self._sync_host_vals()
+            self._dev = self._meta = None
+            self._refresh_device()
+            self.increase_state()
+
     def _refresh_device(self):
         """Rebuild the device arrays from the host CSR, or drop them on a
         host_only matrix (rebuilt from the updated CSR when next asked for)."""
@@ -414,15 +445,76 @@ class MatAIJ(Mat):
             self._meta = ("aij_dnd", shape, tuple(tuple(int(v) for v in o) for o in uniq),
                           lpad, rpad, n)
             return
+        if kind == "bsr":
+            self._build_bsr(rows, dpos, dev, rd)
+            return
         self._dev.update(indptr=torch.as_tensor(indptr, dtype=torch.int64, device=dev),
                          col=torch.as_tensor(indices.astype(np.int32), device=dev),
                          vals=torch.as_tensor(self._vals, dtype=rd, device=dev))
         self._meta = ("aij_csr", m, n)
 
+    def _build_bsr(self, rows, dpos, dev, rd):
+        """The BSR layout (the reference's bell build, aij.py:675-704, without
+        its padding to Kb blocks per row): the blocks of each block row in
+        column order; the CSR entries' slots kept on the host for value
+        updates and downloads; the diagonal's positions moved to the BSR
+        values; and, for a COO pattern whose entries fill every block slot
+        once, the COO permutation composed into the block order."""
+        m, n = self.getSize()
+        bs = self.row_layout.bs
+        mb, nb = m // bs, n // bs
+        indices = self._indices
+        key = (rows // bs) * nb + indices // bs
+        uk, blk = np.unique(key, return_inverse=True)
+        blk = blk.reshape(-1)
+        bptr = np.concatenate([[0], np.cumsum(np.bincount(uk // nb, minlength=mb))])
+        slot = blk * (bs * bs) + (rows % bs) * bs + indices % bs
+        del key, blk
+        bvals = np.zeros(len(uk) * bs * bs)
+        bvals[slot] = self._vals
+        self._bsr_scatter = slot
+        dslot = np.where(dpos >= 0, slot[np.maximum(dpos, 0)], -1) if len(slot) else dpos
+        self._dev["diag_pos"] = torch.as_tensor(dslot.astype(np.int32), device=dev)
+        self._dev.update(bptr=torch.as_tensor(bptr, dtype=torch.int64, device=dev),
+                         bcol=torch.as_tensor((uk % nb).astype(np.int32), device=dev),
+                         bvals=torch.as_tensor(bvals, dtype=rd, device=dev).view(-1, bs, bs))
+        plan = self._coo_plan
+        if plan is not None:
+            plan["bsr_perm"] = None
+            if plan["seg"] is None and len(slot) == len(bvals):
+                perm = torch.empty(len(slot), dtype=torch.int32, device=dev)
+                perm[torch.as_tensor(slot, device=dev)] = plan["perm"]
+                plan["bsr_perm"] = perm
+        self._meta = ("aij_bsr", m, n, bs)
+
+    def _set_block_values(self, flat):
+        """New BSR values (flat, in block order) for the same pattern, on the
+        device; the diagonal refreshed through K8."""
+        bs = self._meta[3]
+        self._dev["bvals"] = flat.view(-1, bs, bs)
+        self._dev.pop("bsr_t", None)
+        self._refresh_diag(flat)
+
+    def _refresh_diag(self, flat):
+        dpos = self._dev["diag_pos"]
+        if flat.numel():
+            d = gather(flat, dpos.clamp(min=0), check=False)
+            self._dev["diag"] = torch.where(dpos >= 0, d, torch.zeros((), dtype=d.dtype,
+                                                                      device=d.device))
+        else:
+            self._dev["diag"] = torch.zeros_like(self._dev["diag"])
+
     def _update_device_values(self, csr_vals):
         """New CSR values for the same pattern, staying on the device (a
-        grid layout scatters them into its planes; each entry has a plane
-        slot of its own, so the writes do not collide)."""
+        grid layout scatters them into its planes, a block layout into its
+        blocks; each entry has a slot of its own, so the writes do not
+        collide)."""
+        if self._meta[0] == "aij_bsr":
+            flat = torch.zeros(self._dev["bvals"].numel(), dtype=csr_vals.dtype,
+                               device=csr_vals.device)
+            flat[torch.as_tensor(self._bsr_scatter, device=csr_vals.device)] = csr_vals
+            self._set_block_values(flat)
+            return
         if self._meta[0] == "aij_dnd":
             coef = self._dev["coef"]
             flat = torch.zeros(coef.numel(), dtype=csr_vals.dtype, device=csr_vals.device)
@@ -430,13 +522,7 @@ class MatAIJ(Mat):
             self._dev["coef"] = flat.reshape(coef.shape)
         else:
             self._dev["vals"] = csr_vals
-        dpos = self._dev["diag_pos"]
-        if csr_vals.numel():
-            d = gather(csr_vals, dpos.clamp(min=0), check=False)
-            self._dev["diag"] = torch.where(dpos >= 0, d, torch.zeros((), dtype=d.dtype,
-                                                                      device=d.device))
-        else:
-            self._dev["diag"] = torch.zeros_like(self._dev["diag"])
+        self._refresh_diag(csr_vals)
 
     @property
     def meta(self):
@@ -636,5 +722,23 @@ def _bind_aij_dnd(meta, data):
     return operator.Op(mult=mult, mult_t=mult, diag=lambda: data["diag"])
 
 
+def _bind_aij_bsr(meta, data):
+    """The block layout's product on B1 (the reference's _bind_aij_bell,
+    aij.py:1494-1515); the transpose runs B1 on the block transpose, built
+    once at the first call and kept in data until the values change."""
+    nb = meta[2] // meta[3]
+    ip, bc, bv = data["bptr"], data["bcol"], data["bvals"]
+
+    def mult_t(x):
+        t = data.get("bsr_t")
+        if t is None:
+            t = data["bsr_t"] = bsr_transpose(data["bptr"], data["bcol"], data["bvals"], nb)
+        return bsr_spmv(*t, x)
+
+    return operator.Op(mult=lambda x: bsr_spmv(ip, bc, bv, x), mult_t=mult_t,
+                       diag=lambda: data["diag"])
+
+
 operator.register_binder("aij_csr", _bind_aij_csr)
+operator.register_binder("aij_bsr", _bind_aij_bsr)
 operator.register_binder("aij_dnd", _bind_aij_dnd)

@@ -4,14 +4,17 @@ Counterpart of the ``Mat`` base of ``petsc_tpu/mat/mat.py`` (reference
 src/mat/interface/matrix.c — MatMult :2696): the petsc4py-style AIJ
 factories, sizes, the (meta, data) contract bound through
 ``ops.operator.bind``, mult, multAdd, transpose mult, diagonal, vector
-creation, the (near-)nullspace slots GAMG reads and ``getFactor``.
-Block sizes above 1, MatShell, MatDense and MatNullSpace come with
-ROADMAP queue 1 item 7.
+creation, the block size (``setSizes(bs)``, ``setBlockSize``, which
+re-lays an assembled matrix on the device), the (near-)nullspace slots
+GAMG reads, ``getFactor``, and ``MatNullSpace`` with the rigid-body modes
+(mat.py:336-383). MatShell and MatDense come with ROADMAP queue 1 item 7.
 """
 
 from __future__ import annotations
 
 from enum import IntEnum
+
+import numpy as np
 
 from .. import config
 from ..ops import operator
@@ -19,8 +22,6 @@ from ..parallel.layout import Layout
 from ..parallel.mesh import Comm, comm_self
 from ..sys.object import PObject
 from ..vec.vec import Vec
-
-_ITEM_7 = "the BAIJ part of ROADMAP queue 1 item 7"
 
 
 class MatStructure(IntEnum):  # include/petscmat.h MatStructure
@@ -74,11 +75,17 @@ class Mat(PObject):
         return self
 
     def setBlockSize(self, bs: int):
-        """MatSetBlockSize; block sizes above 1 come with item 7."""
-        if int(bs) != 1:
-            raise NotImplementedError(f"Mat.setBlockSize({bs}): block sizes above 1 come "
-                                      f"with {_ITEM_7}")
+        """MatSetBlockSize (mat.py:126-134): the dof blocking of rows and
+        columns; an assembled matrix re-lays its device copy for it (a
+        MatAIJ with bs > 1 takes the block layout)."""
+        self.row_layout = Layout(self.row_layout.N, bs=int(bs), axis=self.comm.axis)
+        self.col_layout = Layout(self.col_layout.N, bs=int(bs), axis=self.comm.axis)
+        self._relayout()
         return self
+
+    def _relayout(self):
+        """Rebuild the device copy after a change of block size (nothing
+        for a Mat without an assembled host copy)."""
 
     def getBlockSize(self):
         return self.row_layout.bs
@@ -171,7 +178,8 @@ class Mat(PObject):
 
     def setNearNullSpace(self, ns):
         """The near-nullspace GAMG's tentative prolongator takes: an (N,) or
-        (N, 1) array, or an object with `.vectors` (one vector until item 7)."""
+        (N, k) array, an object with `.vectors`, or a MatNullSpace (the
+        rigid-body modes of ``MatNullSpace.createRigidBody`` among them)."""
         self.near_nullspace = ns
 
     def getNearNullSpace(self):
@@ -187,4 +195,53 @@ class Mat(PObject):
         print(f"  rows={m}, cols={n}")
 
 
-__all__ = ["Mat", "MatStructure"]
+class MatNullSpace:
+    """A (near-)nullspace (reference src/mat/interface/matnull.c; mat.py:
+    336-383): the vectors GAMG's tentative prolongator takes."""
+
+    def __init__(self, constant=True, vectors=()):
+        self.has_constant = bool(constant)
+        self.vectors = list(vectors)
+        self._dense = None
+
+    def as_dense(self, n):
+        """The vectors as an (n, k) numpy block, the constant column first."""
+        cols = [np.full((n,), 1.0)] if self.has_constant else []
+        cols += [np.asarray(v.getArray() if isinstance(v, Vec) else v, dtype=np.float64)
+                 for v in self.vectors]
+        return np.stack(cols, axis=1) if cols else np.ones((n, 1))
+
+    @staticmethod
+    def createRigidBody(coords):
+        """The rigid-body modes of elasticity (MatNullSpaceCreateRigidBody)
+        over (npoints, dim) coordinates, interlaced by point: 3 modes in
+        2-D (two translations, the rotation), 6 in 3-D (three
+        translations, then the rotations about x, y and z)."""
+        coords = np.asarray(coords, dtype=np.float64)
+        npts, dim = coords.shape
+        if dim == 2:
+            modes = np.zeros((npts * 2, 3))
+            modes[0::2, 0] = 1.0
+            modes[1::2, 1] = 1.0
+            modes[0::2, 2] = -coords[:, 1]
+            modes[1::2, 2] = coords[:, 0]
+        elif dim == 3:
+            modes = np.zeros((npts * 3, 6))
+            for d in range(3):
+                modes[d::3, d] = 1.0
+            x, y, z = coords[:, 0], coords[:, 1], coords[:, 2]
+            modes[1::3, 3], modes[2::3, 3] = -z, y      # about x
+            modes[0::3, 4], modes[2::3, 4] = z, -x      # about y
+            modes[0::3, 5], modes[1::3, 5] = -y, x      # about z
+        else:
+            raise ValueError(f"createRigidBody: {dim}-D coordinates (2 or 3)")
+        ns = MatNullSpace(constant=False)
+        ns._dense = modes
+        return ns
+
+    def dense_or(self, n):
+        """The rigid-body modes where this space holds them, else as_dense(n)."""
+        return self._dense if self._dense is not None else self.as_dense(n)
+
+
+__all__ = ["Mat", "MatStructure", "MatNullSpace"]

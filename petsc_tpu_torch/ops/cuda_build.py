@@ -28,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
 SOURCES = ("probe.cu", "triad.cu", "axpy_normsq.cu", "dot2.cu", "const_stencil.cu",
            "csr_spmv.cu", "gather.cu", "row_gather.cu", "lane_shuffle.cu", "cheby.cu",
-           "dnd_stencil.cu", "q1.cu", "trisolve.cu")
+           "dnd_stencil.cu", "q1.cu", "trisolve.cu", "bsr_spmv.cu", "agg_block.cu")
 HEADERS = ("common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -78,6 +78,10 @@ SIGNATURES = {
     "ptt_trisolve_f32": (_vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32,
                          _i32, _vp, _i32, _vp),
     "ptt_trisolve_config": (_i32, _i32, _i32, _i32, _i32, _i32, _vp),
+    "ptt_bsr_spmv_f64": (_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),
+    "ptt_bsr_spmv_f32": (_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),
+    "ptt_agg_block_apply_f64": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _vp),
+    "ptt_agg_block_apply_f32": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _vp),
 }
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 

@@ -40,7 +40,7 @@ from . import cuda_build, spmv
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"probe": 0, "triad": 0, "axpy_normsq": 0, "dot2": 0, "const_stencil": 0,
-            "csr_spmv": 0, "cheby_update": 0}
+            "csr_spmv": 0, "cheby_update": 0, "cheby_update_z": 0}
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 # scratch capacity for the per-block partial sums of the reductions (the
@@ -454,6 +454,37 @@ def cheby_update(mode, r, p, x, w, dinv, c, beta=1.0, a=0.0, b=None):
                 x.data_ptr(), 0 if b is None else b.data_ptr(), w.data_ptr(), dinv.data_ptr(),
                 float(a), float(c), float(beta), r.numel())
     return r, p, x
+
+
+def cheby_update_z_plain(mode, p, x, z, c, beta=1.0, a=0.0):
+    """C1's z modes in PyTorch ops, in place on p and x:
+    first_z: p = c z; x += beta p;  step_z: p = a p + c z; x += beta p."""
+    if mode == "first_z":
+        torch.mul(z, c, out=p)
+    else:
+        p.mul_(a).add_(c * z)
+    x.add_(beta * p)
+    return p, x
+
+
+def cheby_update_z(mode, p, x, z, c, beta=1.0, a=0.0):
+    """The tail of a Chebyshev step whose smoothing PC gave z = M^-1 r
+    (the aggregate-block smoother; r was formed before it), in one pass
+    (see cheby_update_z_plain; `a` only in mode "step_z"). Overwrites p
+    and x, two distinct buffers. A kernel of C1's library entry point,
+    counted apart as ``cheby_update_z``. Returns (p, x)."""
+    if mode not in ("first_z", "step_z"):
+        raise ValueError(f"cheby_update_z: mode must be 'first_z' or 'step_z', got {mode!r}")
+    _check_vectors("cheby_update_z", p, x, z)
+    if p.data_ptr() == x.data_ptr() and p.numel():
+        raise ValueError("cheby_update_z: p and x must be distinct buffers")
+    if p.device.type == "cpu":
+        return cheby_update_z_plain(mode, p, x, z, c, beta, a)
+    if p.numel():
+        cuda_build.launch(LAUNCHES, "cheby_update_z", p, 2 if mode == "first_z" else 3, 0,
+                          p.data_ptr(), x.data_ptr(), 0, 0, z.data_ptr(), float(a), float(c),
+                          float(beta), p.numel(), entry="cheby_update")
+    return p, x
 
 
 # ---------------------------------------------------------------------

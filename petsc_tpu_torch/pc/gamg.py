@@ -28,11 +28,16 @@ and V1 with Q1P and Q1R for their transfers, the aggregation levels'
 A, P and R = P^T on the CSR kernel S2, the smoothing on the fused
 Chebyshev update C1.
 
-This slice is the ``bs == 1``, one-vector aggregation loop with both
-coarsenings (MIS, HEM) on one device. Refused, each naming the ROADMAP
-item that brings it: ``-pc_gamg_type classical|geo`` (item 8), block
-systems, a near-nullspace of more than one vector, the strength index and
-PCHMG on a block system (item 7), and sharded operators (item 12).
+The aggregation takes block systems (bs > 1: the strength graph collapses
+each bs x bs block to one node, optionally over the components of
+``-pc_gamg_mat_coarsen_strength_index``), a near-nullspace of several
+vectors (the rigid-body modes of elasticity: the tentative prolongator's
+QR per aggregate, then nvec dofs per coarse node), and PCHMG on a block
+system (the inner GAMG on one component, its P expanded as P kron I_bs).
+A block level's P is an assembled MatAIJ on S2, the coarse operators bs 1
+on S2, as in the reference. Refused, each naming the ROADMAP item that
+brings it: ``-pc_gamg_type classical|geo`` (item 8) and sharded operators
+(item 12).
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from ..dm.interp import MatInterpQ1
 from ..mat.aij import MatAIJ
 from ..ops import stencil_build
 from . import gamg_device as gd
-from .mg import _ITEM_7, MGLevelSpec, _PCMG, _host_emax, _timed
+from .mg import MGLevelSpec, _PCMG, _host_emax, _timed
 from .pc import PC
 
 _ITEM_8 = "ROADMAP queue 1 item 8 (gamg_classical.py)"
@@ -61,12 +66,35 @@ _ITEM_12 = "distribution (ROADMAP queue 1 item 12)"
 def strength_graph(A_sp, bs=1, threshold=-1.0, index=None):
     """Nodal strength-of-connection graph (agg.c:752 PCGAMGCreateGraph_AGG):
     |A| + |A|^T, entries with |g_ij| <= threshold * sqrt(|g_ii g_jj|)
-    dropped (threshold < 0 keeps everything, the diagonal always stays),
-    by the native kernel."""
-    if bs > 1 or index is not None:
-        raise NotImplementedError(f"the strength graph of a block system (bs > 1, "
-                                  f"-pc_gamg_mat_coarsen_strength_index) comes with {_ITEM_7}")
-    return native.strength_sym(A_sp.tocsr(), threshold)
+    dropped (threshold < 0 keeps everything, the diagonal always stays).
+    A scalar graph with no strength index comes from the native kernel;
+    otherwise scipy forms it as the reference does (gamg.py:31-70): |A|
+    restricted to the components in `index` (-pc_gamg_mat_coarsen_strength_index),
+    for bs > 1 collapsed to nodes as C^T |A| C with C the block indicator,
+    then symmetrised and filtered."""
+    import scipy.sparse as sp
+    if bs == 1 and index is None:
+        return native.strength_sym(A_sp.tocsr(), threshold)
+    n_dof = A_sp.shape[0]
+    G = abs(A_sp).tocsr()
+    if bs > 1:
+        if index is not None:
+            sel = np.isin(np.arange(n_dof) % bs, np.asarray(index)).astype(np.float64)
+            G = (sp.diags(sel) @ G @ sp.diags(sel)).tocsr()
+        C = sp.csr_matrix((np.ones(n_dof), (np.arange(n_dof), np.arange(n_dof) // bs)),
+                          shape=(n_dof, n_dof // bs))
+        G = (C.T @ G @ C).tocsr()
+    G = (G + G.T).tocsr()
+    if threshold >= 0:
+        d = np.sqrt(np.abs(G.diagonal()))
+        d[d == 0] = 1.0
+        rows = np.repeat(np.arange(G.shape[0]), np.diff(G.indptr))
+        keep = (np.abs(G.data) > threshold * d[rows] * d[G.indices]) | (G.indices == rows)
+        G = sp.csr_matrix((G.data[keep], G.indices[keep],
+                           np.concatenate([[0], np.cumsum(np.bincount(rows[keep],
+                                                                      minlength=G.shape[0]))])),
+                          shape=G.shape)
+    return G
 
 
 def _visit_order(n):
@@ -230,13 +258,13 @@ def _inv_diag_host(A_sp):
     return np.where(d != 0, 1.0 / np.where(d == 0, 1.0, d), 1.0)
 
 
-def _hem_graph(cur, threshold, index=None):
+def _hem_graph(cur, threshold, index=None, bs=1):
     """The graph HEM matches on (MatCreateGraph with scale=TRUE,
-    mpiaij.c:8070): D^-1/2 (|A| + |A|^T) D^-1/2, so the diagonal is 1,
-    with entries <= the ABSOLUTE threshold dropped (MatFilter) and the
-    diagonal kept."""
+    mpiaij.c:8070): D^-1/2 (|A| + |A|^T) D^-1/2 of the nodal graph, so the
+    diagonal is 1, with entries <= the ABSOLUTE threshold dropped
+    (MatFilter) and the diagonal kept."""
     import scipy.sparse as sp
-    G = strength_graph(cur, threshold=-1.0, index=index).tocsr().copy()
+    G = strength_graph(cur, bs=bs, threshold=-1.0, index=index).tocsr().copy()
     dg = G.diagonal()
     s = np.where(dg != 0, 1.0 / np.sqrt(np.abs(np.where(dg == 0, 1.0, dg))), 1.0)
     rows = np.repeat(np.arange(G.shape[0]), np.diff(G.indptr))
@@ -318,34 +346,32 @@ class _PCGAMG(_PCMG):
 
     def _near_nullspace(self, A):
         """The near-nullspace as an (N, nvec) array: the constant vector
-        unless the operator carries one; more than one vector is refused."""
+        unless the operator carries one, given as an array, an object with
+        `.vectors`, or a MatNullSpace (read through ``dense_or``, so the
+        rigid-body modes of ``createRigidBody`` arrive: the reference reads
+        their empty `.vectors` and fails, ROADMAP section 3)."""
         N = A.getSize()[0]
         Bn = getattr(A, "near_nullspace", None)
         if Bn is None:
             return np.ones((N, 1))
-        Bn = np.asarray(getattr(Bn, "vectors", Bn), dtype=np.float64).reshape(N, -1)
-        if Bn.shape[1] > 1:
-            raise NotImplementedError(f"GAMG with a near-nullspace of {Bn.shape[1]} vectors "
-                                      f"comes with {_ITEM_7}")
-        return Bn
+        if hasattr(Bn, "dense_or"):
+            Bn = Bn.dense_or(N)
+        return np.asarray(getattr(Bn, "vectors", Bn), dtype=np.float64).reshape(N, -1)
 
     def _refuse(self, A):
         if self.gamg_type != "agg":
             raise NotImplementedError(f"-pc_gamg_type {self.gamg_type} comes with {_ITEM_8}")
-        if (A.row_layout.bs or 1) > 1:
-            raise NotImplementedError(f"GAMG on a block system (bs {A.row_layout.bs}) comes "
-                                      f"with {_ITEM_7}")
 
-    def _coarsen(self, cur, level):
-        """The aggregates of one level: (agg, nagg)."""
+    def _coarsen(self, cur, level, bs=1):
+        """The aggregates of one level's nodes (bs dofs each): (agg, nagg)."""
         thr = self._threshold(level)
         if self.coarsen_type == "hem":
             # exact serial HEM (hem.c) on the scaled, filtered graph
             thr = max(thr, 0.0)
-            G = _timed("PCGAMGSetUp_graph", _hem_graph, cur, thr, self.strength_index)
+            G = _timed("PCGAMGSetUp_graph", _hem_graph, cur, thr, self.strength_index, bs)
             return _timed("PCGAMGSetUp_coarsen", native.hem_match, G.indptr, G.indices,
                           G.data, self.hem_rounds, thr)
-        G = _timed("PCGAMGSetUp_graph", strength_graph, cur, 1, thr, self.strength_index)
+        G = _timed("PCGAMGSetUp_graph", strength_graph, cur, bs, thr, self.strength_index)
         if level < self.aggressive_levels:
             # MIS on the square, then every root takes its direct neighbours
             agg, nagg, roots = _timed("PCGAMGSetUp_coarsen", mis_aggregate_squared, G)
@@ -420,6 +446,7 @@ class _PCGAMG(_PCMG):
             raise NotImplementedError(f"GAMG on a sharded operator comes with {_ITEM_12}")
         self._refuse(A)
         Bn = self._near_nullspace(A)
+        bs = A.row_layout.bs or 1
         _timed("PCGAMGSetUp_native", native.lib)
         # level 0 uses the Pmat; only a host_only Pmat (the numerically
         # identical twin of the Amat) lets the device Amat stand in
@@ -428,8 +455,10 @@ class _PCGAMG(_PCMG):
         levels = [MGLevelSpec(Afine)]
         level = 0
         fm = Afine.meta
-        if (self.structured and self.structured_device and gd.supports_device_rap(fm)
-                and int(np.prod(fm[1])) == A.getSize()[0]):
+        # the structured head is scalar: bs 1 and one near-null vector
+        scalar = bs == 1 and Bn.shape[1] == 1
+        if (scalar and self.structured and self.structured_device
+                and gd.supports_device_rap(fm) and int(np.prod(fm[1])) == A.getSize()[0]):
             # the device head first: the fine operator never comes to the host
             cur, level = self._structured_head_device(Afine, levels)
         else:
@@ -439,19 +468,21 @@ class _PCGAMG(_PCMG):
                 _timed("PCGAMGSetUp_download", sync)
             cur = A.to_scipy()
             shape = getattr(A, "_grid_shape", None) or getattr(Afine, "_grid_shape", None)
-            if (self.structured and shape is not None and len(shape) >= 2
+            if (scalar and self.structured and shape is not None and len(shape) >= 2
                     and int(np.prod(shape)) == cur.shape[0]):
                 cur, level = self._structured_head(cur, shape, levels, level)
         if level > 0:
             Bn = np.ones((cur.shape[0], 1))
+        cur_bs = bs
         while cur.shape[0] > self.coarse_eq_limit and level < self.max_levels - 1:
-            agg, nagg = self._coarsen(cur, level)
+            agg, nagg = self._coarsen(cur, level, cur_bs)
             if nagg == 0 or nagg * Bn.shape[1] >= cur.shape[0]:
                 break  # coarsening stalled
             # the aggregates stay on the level they coarsen: they define the
-            # -pc_gamg_asm_use_agg smoother blocks (item 7)
+            # -pc_gamg_asm_use_agg smoother blocks
             levels[-1].agg = np.asarray(agg)
-            P0, Bc = _timed("PCGAMGSetUp_prol0", tentative_prolongator, agg, nagg, Bn)
+            levels[-1].agg_bs = cur_bs
+            P0, Bc = _timed("PCGAMGSetUp_prol0", tentative_prolongator, agg, nagg, Bn, cur_bs)
             dinv = _inv_diag_host(cur)
             emax = _timed("PCGAMGSetUp_emax", _host_emax, cur, dinv)
             P = P0
@@ -460,7 +491,7 @@ class _PCGAMG(_PCMG):
             # SA eigenvalue reuse for the level smoother (gamg.c:934)
             levels[-1].emin, levels[-1].emax = self.eig_bounds(emax)
             Ac = _timed("PCGAMGSetUp_SpGEMM", _galerkin, cur, P)
-            if self.nsmooths <= 1:
+            if self.nsmooths <= 1 and Bn.shape[1] == 1 and cur_bs == 1:
                 nf = P0.shape[0]
                 w = np.zeros(nf)
                 w[np.repeat(np.arange(nf), np.diff(P0.indptr))] = P0.data
@@ -470,20 +501,57 @@ class _PCGAMG(_PCMG):
                 levels[-1].P = MatAIJ.from_scipy(P, comm=A.comm)
             levels.append(MGLevelSpec(MatAIJ.from_scipy(Ac, comm=A.comm)))
             cur, Bn = Ac, Bc
+            # the coarse problem has nvec dofs per aggregate (its operator stays bs 1)
+            cur_bs = Bc.shape[1]
             level += 1
         self.levels = levels
 
 
 class _PCHMG(_PCGAMG):
     """PCHMG (hmg/hmg.c): hybrid multigrid, the coarsening of one field
-    component reused for an interlaced block system. On a scalar operator
-    it is plain GAMG, as in the reference (gamg.py:815-822); the block
-    expansion (P kron I_bs) comes with item 7 with the BAIJ operators."""
+    component reused for an interlaced block system (gamg.py:790-849). On a
+    scalar operator it is plain GAMG. On a block system the inner GAMG runs
+    on the component's submatrix (-pc_hmg_component, default 0), each of
+    its prolongators is expanded blockwise as P kron I_bs, and the levels
+    are the Galerkin products of the full operator through them, each
+    level's Chebyshev bounds [0.1, 1.1] times its host Arnoldi estimate."""
+
+    def __init__(self, pc):
+        super().__init__(pc)
+        self.component = 0
+
+    def set_from_options(self):
+        super().set_from_options()
+        c = self.pc.opt("get_int", "pc_hmg_component", None)
+        if c is not None:
+            self.component = c
 
     def build_hierarchy(self):
-        if (self.pc.pmat.row_layout.bs or 1) > 1:
-            raise NotImplementedError(f"PCHMG on a block system comes with {_ITEM_7}")
-        super().build_hierarchy()
+        import scipy.sparse as sp
+        A = self.pc.pmat
+        bs = A.row_layout.bs or 1
+        if bs <= 1:
+            return super().build_hierarchy()
+        S = A.to_scipy().tocsr()
+        comp = np.arange(self.component, S.shape[0], bs)
+        A0 = MatAIJ.from_scipy(S[comp][:, comp].tocsr(), comm=A.comm)
+        inner = PC(options=self.pc._options,
+                   prefix=(self.pc.get_options_prefix() or "") + "hmg_inner_")
+        inner.setOperators(A0, A0)
+        inner.setType("gamg")
+        inner.setFromOptions()
+        inner._impl.build_hierarchy()
+        levels = [MGLevelSpec(A)]
+        cur = S
+        for sl in inner._impl.levels[:-1]:
+            P = sp.kron(sl.P.to_scipy(), sp.eye(bs), format="csr")
+            emax = _timed("PCGAMGSetUp_emax", _host_emax, cur, _inv_diag_host(cur))
+            levels[-1].emax, levels[-1].emin = 1.1 * emax, 0.1 * emax
+            Ac = _timed("PCGAMGSetUp_SpGEMM", _galerkin, cur, P)
+            levels[-1].P = MatAIJ.from_scipy(P, comm=A.comm)
+            levels.append(MGLevelSpec(MatAIJ.from_scipy(Ac, comm=A.comm)))
+            cur = Ac
+        self.levels = levels
 
 
 PC.register_impl("gamg", _PCGAMG)

@@ -26,10 +26,18 @@ the coarse LU by scipy. The cycle runs on the card:
 Under ``-pc_mg_dtype single`` the whole cycle runs in float32 inside the
 float64 Krylov method.
 
+With ``-pc_gamg_asm_use_agg`` a GAMG level smooths with the
+aggregate-block PC in place of Jacobi (PCASM over the aggregates with
+exact sub-solves, mg.py:121-169): the dense inverse of the operator's
+diagonal block over each aggregate's dofs, stored ragged (each inverse at
+an offset in one flat array beside its dof list; the reference pads every
+block to the largest, 425 GiB at ex56 ne 40), applied by the hand kernel
+A1 (:func:`..ops.block_kernels.agg_block_apply`); the level's Chebyshev
+bounds are those of M^-1 A by the host Arnoldi through that PC.
+
 The one-device port has no padded layouts, so the reference's ``_fit``
-around the transfers is the identity and is gone. The aggregate-block
-smoother (``-pc_gamg_asm_use_agg``) comes with ROADMAP item 7, the DM
-path (``_build_from_dm``, ``-pc_mg_levels``) with item 9. PCGAMG
+around the transfers is the identity and is gone. The DM path
+(``_build_from_dm``, ``-pc_mg_levels``) comes with ROADMAP item 9. PCGAMG
 (:mod:`.gamg`) builds its hierarchy by aggregation and reuses the rest.
 """
 
@@ -43,11 +51,12 @@ import torch
 from .. import config, native
 from ..ksp.cheby import cheby_smooth, cheby_smooth4
 from ..ops import operator
-from ..ops.pallas_kernels import cheby_update, dot2, triad
+from ..ops.block_kernels import (agg_block_apply, agg_block_apply_plain, agg_block_tables,
+                                 size_runs)
+from ..ops.pallas_kernels import cheby_update, cheby_update_z, dot2, triad
 from ..sys.error import Error
 from .pc import PC
 
-_ITEM_7 = "the BAIJ part of ROADMAP queue 1 item 7"
 _ITEM_9 = "DMDA (ROADMAP queue 1 item 9)"
 
 
@@ -65,7 +74,7 @@ class MGLevelSpec:
         self.emax = emax    # Chebyshev bounds (floats)
         self.emin = emin
         self.agg = None     # GAMG: the nodal aggregates that coarsened this level
-        self.agg_bs = 1     # (the -pc_gamg_asm_use_agg smoother blocks, item 7)
+        self.agg_bs = 1     # (the -pc_gamg_asm_use_agg smoother blocks)
 
 
 def _host_emax(A_sp, dinv, iters=10, seed=7):
@@ -119,6 +128,55 @@ def _host_eig_bounds(A_sp_mult, dinv, n, iters=10, seed=7):
     ritz = np.linalg.eigvals(H[:m, :m]).real
     ritz = ritz[ritz > 0] if (ritz > 0).any() else np.abs(ritz)
     return max(float(ritz.min()), 1e-12), max(float(ritz.max()), 1e-12)
+
+
+def _agg_blocks_host(A_sp, agg, bs):
+    """The aggregate-block smoother's blocks on the host, ragged (the
+    reference's _agg_block_tables, mg.py:121-160, without the padding): the
+    dofs of each aggregate (node v carries dofs v bs ... v bs + bs - 1),
+    then each dof outside every aggregate as a block of its own; blocks
+    ordered by size (stable), each one's dofs ascending. Returns (the dof
+    lists, the inverses of the operator's diagonal blocks row-major one
+    after the other, np.linalg.inv, or pinv for a singular block)."""
+    n = A_sp.shape[0]
+    agg = np.asarray(agg, dtype=np.int64)
+    nagg = int(agg.max()) + 1 if len(agg) else 0
+    dof_agg = np.repeat(agg, bs)
+    loose = dof_agg < 0
+    blk = np.where(loose, nagg + np.cumsum(loose) - 1, dof_agg)
+    counts = np.bincount(blk, minlength=nagg + int(loose.sum()))
+    used = np.flatnonzero(counts)                 # empty aggregates are dropped
+    border = used[np.argsort(counts[used], kind="stable")]
+    rank = np.full(len(counts), -1, dtype=np.int64)
+    rank[border] = np.arange(len(border))
+    ks = counts[border]
+    dofs = np.argsort(rank[blk], kind="stable")   # dofs ascending within a block
+    dptr = np.concatenate([[0], np.cumsum(ks)])
+    pos = np.empty(n, dtype=np.int64)
+    pos[dofs] = np.arange(n) - np.repeat(dptr[:-1], ks)
+    iptr = np.concatenate([[0], np.cumsum(ks * ks)])
+    A = A_sp.tocsr()
+    rows = np.repeat(np.arange(n), np.diff(A.indptr))
+    rb, cb = rank[blk[rows]], rank[blk[A.indices]]
+    inside = rb == cb
+    inv = np.zeros(int(iptr[-1]))
+    r_in = rows[inside]
+    inv[iptr[rb[inside]] + pos[r_in] * ks[rb[inside]] + pos[A.indices[inside]]] = \
+        A.data[inside]
+    for lo, hi in size_runs(ks):
+        k = int(ks[lo])
+        M = inv[iptr[lo]:iptr[hi]].reshape(hi - lo, k, k)
+        try:
+            M[:] = np.linalg.inv(M)
+        except np.linalg.LinAlgError:
+            for a in range(hi - lo):
+                try:
+                    M[a] = np.linalg.inv(M[a])
+                except np.linalg.LinAlgError:
+                    # a degenerate block (decoupled or zero rows): the
+                    # pseudo-inverse keeps the smoother defined
+                    M[a] = np.linalg.pinv(M[a])
+    return np.split(dofs, dptr[1:-1]), inv
 
 
 def _dense_lu_factor(A_sp):
@@ -282,9 +340,6 @@ def build_mg_meta_data(levels, cycle="v", smoother="chebyshev", pre=2, post=2,
     dtype="f32": every level's data is cast to float32 and the bound
     cycle converts at its boundary (-pc_mg_dtype single). The coarse LU
     factor is logged as the host event PCMGSetUp_LU."""
-    if levels_pc == "asm_agg":
-        raise NotImplementedError(f"the aggregate-block smoother (-pc_gamg_asm_use_agg) comes "
-                                  f"with {_ITEM_7}")
     from ..mat.aij import MatAIJ
     rd = config.real_dtype()
     dev = config.device()
@@ -308,15 +363,38 @@ def build_mg_meta_data(levels, cycle="v", smoother="chebyshev", pre=2, post=2,
         R = lev.R
         if R is None and P.meta[0] != "interp_q1":
             R = MatAIJ.from_scipy(native.csr_transpose(P.to_scipy().tocsr()), comm=P.comm)
-        emax = lev.emax if lev.emax is not None else 2.0
-        emin = lev.emin if lev.emin is not None else 0.2
+        pc_tab = None
+        if levels_pc == "asm_agg" and lev.agg is not None:
+            A_sp = A.to_scipy()
+            dof_lists, inv = _timed("PCMGSetUp_agg_blocks", _agg_blocks_host, A_sp, lev.agg,
+                                    lev.agg_bs)
+            pc_tab = agg_block_tables(dof_lists, inv, dev, rd)
+            # the bounds of M^-1 A for this PC, not D^-1 A (the esteig KSP
+            # runs preconditioned, cheby.c; mg.py:366-390), through A1's
+            # plain version on host copies of the tables
+            n = A_sp.shape[0]
+            host_tab = agg_block_tables(dof_lists, inv, "cpu", torch.float64)
+            emn, emx = _timed(
+                "PCMGSetUp_emax", _host_eig_bounds,
+                lambda v: agg_block_apply_plain(host_tab, torch.from_numpy(A_sp @ v)).numpy(),
+                np.ones(n), n)
+            del host_tab
+            a, b_, c, d_ = esteig_tform
+            emin, emax = a * emn + b_ * emx, c * emn + d_ * emx
+        else:
+            emax = lev.emax if lev.emax is not None else 2.0
+            emin = lev.emin if lev.emin is not None else 0.2
         if dtype == "f32":
             # the reference keeps the bounds in the level data, cast with it
             emin, emax = float(np.float32(emin)), float(np.float32(emax))
         lev_metas.append((A.meta, P.meta, None if R is None else R.meta, smoother, pre, post))
-        lev_datas.append({"A": A.device_data(), "P": P.device_data(),
-                          "R": {} if R is None else R.device_data(),
-                          "dinv": _inv_diag(_diag_vector(A)).to(rd), "eig": (emin, emax)})
+        ld = {"A": A.device_data(), "P": P.device_data(),
+              "R": {} if R is None else R.device_data(), "eig": (emin, emax)}
+        if pc_tab is None:
+            ld["dinv"] = _inv_diag(_diag_vector(A)).to(rd)
+        else:
+            ld["agg"] = pc_tab
+        lev_datas.append(ld)
     if dtype == "f32":
         lev_datas = [_cast_f32(ld) for ld in lev_datas]
     meta = ("pc_mg", cycle, nlev, tuple(lev_metas), dtype)
@@ -328,7 +406,9 @@ def build_mg_meta_data(levels, cycle="v", smoother="chebyshev", pre=2, post=2,
 # ---------------------------------------------------------------------
 
 def _smooth(kind, Aop, dinv, eig, b, x, its):
-    """`its` smoothing steps with Jacobi inside, x updated in place."""
+    """`its` smoothing steps, x updated in place: with Jacobi inside when
+    `dinv` is the inverse diagonal, with the PC z = dinv(r) when it is a
+    function (the aggregate-block smoother)."""
     if kind == "chebyshev":
         return cheby_smooth(Aop.mult, dinv, b, x, its, eig[0], eig[1])
     if kind in ("chebyshev4", "fourth"):
@@ -336,10 +416,15 @@ def _smooth(kind, Aop, dinv, eig, b, x, its):
     if kind in ("opt_fourth", "chebyshev4opt"):
         return cheby_smooth4(Aop.mult, dinv, b, x, its, eig[1], optimized=True)
     if kind == "richardson":
-        # x += dinv (b - A x): C1's first mode with c = beta = 1
+        # x += M^-1 (b - A x): C1's first mode with c = beta = 1
         r, p = torch.empty_like(b), torch.empty_like(b)
         for _ in range(its):
-            cheby_update("first", r, p, x, Aop.mult(x), dinv, 1.0, b=b)
+            if callable(dinv):
+                triad(b, Aop.mult(x), torch.full((), -1.0, dtype=b.dtype, device=b.device),
+                      out=r)
+                cheby_update_z("first_z", p, x, dinv(r), 1.0)
+            else:
+                cheby_update("first", r, p, x, Aop.mult(x), dinv, 1.0, b=b)
         return x
     raise Error(f"PCMG: unknown smoother {kind}")
 
@@ -387,8 +472,12 @@ def _bind_pc_mg(meta, data):
         ld = levels[l]
         Pop = operator.bind(P_meta, ld["P"])
         restrict = Pop.mult_t if R_meta is None else operator.bind(R_meta, ld["R"]).mult
-        return (operator.bind(A_meta, ld["A"]), Pop, restrict, ld["dinv"], ld["eig"], kind,
-                pre, post)
+        if "agg" in ld:
+            tab = ld["agg"]
+            pc = lambda v: agg_block_apply(tab, v)  # noqa: E731
+        else:
+            pc = ld["dinv"]
+        return (operator.bind(A_meta, ld["A"]), Pop, restrict, pc, ld["eig"], kind, pre, post)
 
     bound = [bind_level(l) for l in range(nlev - 1)]
 

@@ -468,9 +468,15 @@ def test_every_accepted_layout_gives_the_same_product(kind):
 
 @pytest.mark.parametrize("kind,slice_name", (("dndb", "BAIJ"), ("bell", "BAIJ")))
 def test_later_layouts_raise_naming_their_slice(kind, slice_name):
+    """The block layouts, once refused naming the BAIJ slice, are ported
+   : both options give the BSR layout, whose product (B1's plain
+    version here) equals scipy's."""
+    A = sp.random(12, 12, density=0.4, random_state=2, format="csr") + sp.eye(12)
+    x = np.random.default_rng(3).random(12)
     ptt.init(args=["-mat_spmv_kind", kind], device="cpu")
-    with pytest.raises(NotImplementedError, match=slice_name):
-        ptt.MatAIJ.from_scipy(sp.eye(4, format="csr"))
+    M = ptt.MatAIJ.from_scipy(A.tocsr())
+    assert M.meta[0] == "aij_bsr" and slice_name == "BAIJ"
+    assert _rel(M.op().mult(torch.from_numpy(x)).numpy(), A @ x) <= 1e-13
 
 
 def test_the_dnd_layout_on_a_declared_grid_matches_the_reference():
@@ -502,8 +508,9 @@ def test_block_size_unknown_kind_spgemm_and_dense_raise():
     ptt.init(device="cpu")
     M = ptt.MatAIJ()
     M.setSizes((8, 8), bs=2)
-    with pytest.raises(NotImplementedError, match="BAIJ"):
-        M.assemble()
+    M.assemble()          # block sizes above 1 are ported: an empty BSR
+    assert M.meta[0] == "aij_bsr" and M.nnz() == 0
+    assert not M.op().mult(torch.ones(8, dtype=torch.float64)).any()
     ptt.init(args=["-mat_spmv_kind", "sell"], device="cpu")
     with pytest.raises(ptt.Error, match="sell"):
         ptt.MatAIJ.from_scipy(sp.eye(4, format="csr"))

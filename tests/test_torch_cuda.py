@@ -64,7 +64,8 @@ def test_vector_kernels_match_plain(cuda_device, dtype, n):
     assert _rel(x, want) <= TOL[dtype]
     torch.cuda.synchronize()
     assert pk.LAUNCHES == {"probe": 0, "triad": 3, "axpy_normsq": 1, "dot2": 1,
-                           "const_stencil": 0, "csr_spmv": 0, "cheby_update": 0}
+                           "const_stencil": 0, "csr_spmv": 0, "cheby_update": 0,
+                           "cheby_update_z": 0}
 
 
 def _edge_lengths(dtype, device):
@@ -815,3 +816,94 @@ def test_gmres_ilu_on_the_card_equals_the_cpu_port(cuda_device):
     assert ksp.getConvergedReason().name == "CONVERGED_ITS"
     assert np.linalg.norm(bh - A_sp @ xh) <= 1e-13 * np.linalg.norm(bh)
     assert trisolve.LAUNCHES["trisolve"] == 2
+
+
+# ------------------------------------------------------------------ block systems
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", (2, 3, 4, 6, 5, 8))
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_bsr_spmv_equals_plain(cuda_device, dtype, bs):
+    """B1 against its plain version: equal bits (both round each step), on
+    a random BSR with a row of 500 blocks and an empty row; the transpose
+    through the block transpose against the dense product (1e-12 / 1e-5)."""
+    from petsc_tpu_torch.ops import block_kernels as bk
+    ip, bc, v, x = chip_smoke._random_bsr(700, bs, dtype, 0, long_row=(3, 500), empty_row=11)
+    bk.reset_launches()
+    y = bk.bsr_spmv(ip, bc, v, x)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["bsr_spmv"] == 1
+    assert torch.equal(y, bk.bsr_spmv_plain(ip, bc, v, x))
+    assert float(y.view(-1, bs)[11].abs().max()) == 0.0
+    tp, tc, tv = bk.bsr_transpose(ip, bc, v, 700)
+    yt = bk.bsr_spmv(tp, tc, tv, x)
+    rows = torch.repeat_interleave(torch.arange(700, device=cuda_device), ip[1:] - ip[:-1])
+    dense = torch.zeros(700, bs, 700, bs, dtype=torch.float64, device=cuda_device)
+    dense[rows, :, bc.long(), :] = v.double()
+    want = dense.reshape(700 * bs, 700 * bs).T @ x.double()
+    assert _rel(yt.double(), want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_agg_block_apply_equals_plain(cuda_device, dtype):
+    """A1 against its plain version (1e-12 / 1e-5: the warp sums in another
+    order than the batched product) on ragged blocks of 1 to 700 dofs,
+    aggregates of a random graph with removed nodes (1 x 1 blocks)."""
+    from petsc_tpu_torch.ops import block_kernels as bk
+    from petsc_tpu_torch.pc.mg import _agg_blocks_host
+    rng = np.random.default_rng(3)
+    nnode, bs = 600, 3
+    agg = rng.integers(-1, 4, nnode)
+    agg[agg >= 0] = rng.integers(0, 40, int((agg >= 0).sum()))
+    agg[:700 // bs] = 40                      # one aggregate of 699 dofs
+    n = nnode * bs
+    A = sp.random(n, n, density=0.02, random_state=4, format="csr")
+    A = (A + A.T + n * sp.eye(n)).tocsr()
+    dof_lists, inv = _agg_blocks_host(A, agg, bs)
+    tab = bk.agg_block_tables(dof_lists, inv, cuda_device, dtype)
+    r = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=cuda_device)
+    bk.reset_launches()
+    z = bk.agg_block_apply(tab, r)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["agg_block_apply"] == 1
+    assert _rel(z, bk.agg_block_apply_plain(tab, r)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_cheby_z_modes_equal_plain(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    n = 65536 + 7
+    p, x, z = (torch.rand(n, generator=gen, device=cuda_device, dtype=dtype) for _ in range(3))
+    pk.reset_launches()
+    for mode, kw in (("first_z", {}), ("step_z", {"a": 0.7})):
+        pk_, xk = p.clone(), x.clone()
+        pp, xp = p.clone(), x.clone()
+        pk.cheby_update_z(mode, pk_, xk, z, 0.3, beta=0.9, **kw)
+        pk.cheby_update_z_plain(mode, pp, xp, z, 0.3, beta=0.9, **kw)
+        assert _rel(pk_, pp) <= TOL[dtype] and _rel(xk, xp) <= TOL[dtype]
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["cheby_update_z"] == 2 and pk.LAUNCHES["cheby_update"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ("defaults", "knobs"))
+def test_ex56_on_the_card_equals_the_cpu_port(cuda_device, mode):
+    """ex56 at ne 6 through the port's example program on the card and on the CPU:
+    the same iterations and history to 1e-10 relative; the block product
+    (and, with the knob set, the aggregate-block smoother) launched."""
+    from petsc_tpu_torch.examples import ex56
+    args = ["-ne", "6"] + (["-ksp_type", "cg", "-pc_type", "gamg"] if mode == "defaults"
+                           else chip_smoke.EX56_KNOBS)
+    out = {}
+    for dev in ("cpu", None):
+        chip_smoke.reset_launches()
+        ksp = ex56.main(list(args), device=dev)
+        out[dev] = (ksp.getIterationNumber(), np.asarray(ksp.getConvergenceHistory()),
+                    chip_smoke.launch_counts())
+    assert out["cpu"][0] == out[None][0]
+    assert np.max(np.abs(out[None][1] - out["cpu"][1]) / out["cpu"][1]) <= 1e-10
+    assert out[None][2]["bsr_spmv"] >= out[None][0]
+    if mode == "knobs":
+        assert out[None][2]["agg_block_apply"] > 0 and out[None][2]["cheby_update_z"] > 0

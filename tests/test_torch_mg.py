@@ -238,8 +238,15 @@ def test_the_f32_cycle_matches_the_reference():
 
 
 def test_what_later_slices_bring_is_refused():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _mg_ksp(ptt, 8, ["-pc_gamg_asm_use_agg"], coarsest=4)
+    # -pc_gamg_asm_use_agg smooths with aggregate blocks
+    # where GAMG made aggregates; PCMG's levels have none, so they keep
+    # Jacobi, as in the reference
+    k_agg, A_agg = _mg_ksp(ptt, 8, ["-pc_gamg_asm_use_agg"], coarsest=4)
+    k_jac, A_jac = _mg_ksp(ptt, 8, [], coarsest=4)
+    _solve(k_agg, A_agg)
+    _solve(k_jac, A_jac)
+    assert k_agg.getIterationNumber() == k_jac.getIterationNumber()
+    assert np.array_equal(k_agg.getConvergenceHistory(), k_jac.getConvergenceHistory())
     # no levels and no DM
     ptt.init(args=["-ksp_type", "cg", "-pc_type", "mg"], device="cpu")
     A = ptt.MatAIJ.from_scipy(stencil_build.poisson3d_27pt(4))
