@@ -190,10 +190,13 @@ Phases, one JSON line each on stdout:
            and CG's); the seconds of assembly, from_scipy, setBlockSize, the
            set-up by event and the first solve; the warm solve (best of 3)
            and one profiled warm solve; B1 against its plain version on that
-           operator in f64 and f32 (equal bits, else 1e-12 / 1e-5), timed
-           beside its bound, the plain version, cuSPARSE's BSR product and
-           S2 on the same operator as CSR, and on random BSRs of bs 2 and 6
-           with a row of 500 blocks and an empty row; then the knob set of
+           operator in f64 and f32 (equal bits), timed beside its bound, the
+           plain version, the earlier per-output design (earlier_kernels/,
+           built in phase build) in turns, earlier, new, new, earlier, S2 and
+           torch.sparse_csr_tensor @ x (the library call) on the same
+           operator as CSR and cuSPARSE's BSR product, and on random BSRs of
+           bs 2, 3, 5 and 6 over 30,000 block rows with a row of 500 blocks
+           and an empty row (equal bits); then the knob set of
            PETSc's ex56 test (HEM, strength index 1,2, the aggregate-block
            smoother on A1, Chebyshev(1, 1), CG+Jacobi on the coarsest level)
            at ne 11 (10 its), ne 11 with the transposed modes of ex56.c (15)
@@ -202,8 +205,9 @@ Phases, one JSON line each on stdout:
            its plain version (f64 1e-12, f32 1e-5) on every level's tables
            of ne 24's solve and on the tables of ne 64's operator over the
            defaults' level-0 aggregates, ne 24's level 0 and ne 64 timed
-           beside the bound, the plain version and torch.bmm on the
-           reference's padded table; C1's z modes against their plain
+           beside the bound, the plain version, the earlier 16-row design
+           (earlier_kernels/) in turns and torch.bmm on the reference's
+           padded table; C1's z modes against their plain
            version at ne 24's level-0 length, timed beside their bound;
   bench_gpu  python bench_gpu.py in a process of its own (the kernels built
            above reused): its JSON line, and its contract, BENCH_r05.json's
@@ -266,7 +270,7 @@ IN_SOLVE = {"triad": ("triad_kernel",), "axpy_normsq": ("axpy_normsq_kernel",),
             "const_stencil": ("const_stencil_kernel",), "csr_spmv": ("csr_spmv_kernel",),
             "cheby_update": ("cheby_update_kernel",),
             "cheby_update_z": ("cheby_update_z_kernel",),
-            "bsr_spmv": ("bsr_spmv_kernel",), "agg_block_apply": ("agg_block_kernel",),
+            "bsr_spmv": ("bsr_chunk_kernel",), "agg_block_apply": ("agg_block_kernel",),
             "dnd_stencil": ("dnd_stencil_kernel", "dnd_window_kernel"),
             "q1_prolong": ("q1_prolong_kernel",), "q1_restrict": ("q1_restrict_kernel",),
             "trisolve": ("trisolve_kernel",),
@@ -1657,7 +1661,7 @@ def grid_kernel_row(name, dtype, fn, plain, library_fn, nbytes, flops, tol, earl
 
 EARLIER = Path(__file__).resolve().parent / "earlier_kernels"
 EARLIER_SOURCES = ("q1_prolong_per_output.cu", "q1_restrict_per_output.cu",
-                   "trisolve_grid_barrier.cu")
+                   "trisolve_grid_barrier.cu", "bsr_spmv_per_output.cu", "agg_block_16rows.cu")
 
 
 def start_earlier_build():
@@ -1703,6 +1707,12 @@ def load_earlier(build):
     for sfx in ("f64", "f32"):
         fn = getattr(L, f"ptt_earlier_trisolve_{sfx}")
         fn.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, vp, i32, i32, vp, i32, vp]
+        fn.restype = ctypes.c_int
+        fn = getattr(L, f"ptt_earlier_bsr_spmv_{sfx}")
+        fn.argtypes = [vp] * 5 + [ctypes.c_longlong, i32, i32, vp]
+        fn.restype = ctypes.c_int
+        fn = getattr(L, f"ptt_earlier_agg_block_apply_{sfx}")
+        fn.argtypes = [vp] * 7 + [i32, i32, i32, vp]
         fn.restype = ctypes.c_int
     return L, seconds
 
@@ -2863,81 +2873,143 @@ def _random_bsr(nbr, bs, dtype, seed, long_row=None, empty_row=None):
             t(rng.standard_normal((int(ptr[-1]), bs, bs))), t(rng.standard_normal(nbr * bs)))
 
 
-def b1_rows(bk, pk, A, A_sp, flush):
-    """B1 against its plain version (equal bits; else 1e-12 / 1e-5) on ex56
-    ne 64's operator in f64 and f32, each timed with its bound, the plain
-    version, cuSPARSE's BSR product and S2 on the same matrix as CSR; then
-    bs 2 and 6 with a row of 500 blocks and an empty row."""
+def earlier_bsr(earlier, ip, bc, v, x):
+    """y = A x by B1's earlier per-output design (earlier_kernels/), on the
+    current stream; raises on a CUDA error."""
+    import torch
+    from petsc_tpu_torch.ops import cuda_build
+    bs = v.shape[1]
+    y = torch.empty((ip.numel() - 1) * bs, dtype=x.dtype, device=x.device)
+    fn = getattr(earlier, "ptt_earlier_bsr_spmv_" + ("f64" if x.dtype == torch.float64
+                                                     else "f32"))
+    cuda_build.check("earlier bsr_spmv", fn(y.data_ptr(), ip.data_ptr(), bc.data_ptr(),
+                                            v.data_ptr(), x.data_ptr(), ip.numel() - 1, bs,
+                                            x.get_device(),
+                                            torch.cuda.current_stream().cuda_stream))
+    return y
+
+
+def earlier_agg(earlier, tab, work, r):
+    """z = M^-1 r by A1's earlier 16-row design (earlier_kernels/) on A1's
+    tables with that design's work list (earlier_agg_work); raises on a
+    CUDA error."""
+    import torch
+    from petsc_tpu_torch.ops import cuda_build
+    z = torch.empty_like(r)
+    fn = getattr(earlier, "ptt_earlier_agg_block_apply_" + ("f64" if r.dtype == torch.float64
+                                                            else "f32"))
+    cuda_build.check("earlier agg_block_apply", fn(
+        z.data_ptr(), r.data_ptr(), tab["dofs"].data_ptr(), tab["dptr"].data_ptr(),
+        tab["inv"].data_ptr(), tab["iptr"].data_ptr(), work.data_ptr(), work.numel() // 3,
+        tab["max_k"], r.get_device(), torch.cuda.current_stream().cuda_stream))
+    return z
+
+
+def b1_rows(bk, pk, A, A_sp, flush, earlier):
+    """B1 against its plain version (equal bits) on ex56 ne 64's operator in
+    f64 and f32, each timed with its bound, the plain version, the earlier
+    per-output design (equal bits too) in turns (earlier, new, new,
+    earlier), then S2 and torch.sparse_csr_tensor @ x (the library call)
+    on the same matrix as CSR and torch.sparse_bsr_tensor @ x (cuSPARSE's
+    BSR product), each checked first (10 x 1e-12 / 1e-5: other orders);
+    then random BSRs of bs 2, 3, 5 and 6 over 30,000 block rows with a row
+    of 500 blocks and an empty row, equal bits."""
     import numpy as np
     import torch
     d = A.device_data()
     ip, bc = d["bptr"], d["bcol"]
     g = torch.Generator(device="cuda").manual_seed(56)
     rows, main = [], None
+    cip = torch.as_tensor(A_sp.indptr.astype(np.int64), device="cuda")
+    ccol = torch.as_tensor(A_sp.indices.astype(np.int32), device="cuda")
     for dt in (torch.float64, torch.float32):
         name = "float64" if dt == torch.float64 else "float32"
         v = d["bvals"].to(dt)
         x = torch.rand(A_sp.shape[1], generator=g, device="cuda", dtype=torch.float64).to(dt)
         y, yp = bk.bsr_spmv(ip, bc, v, x), bk.bsr_spmv_plain(ip, bc, v, x)
         err = rel_err(y, yp)
-        equal = bool(torch.equal(y, yp))
-        if not (equal or err <= TOL[name]):
-            raise AssertionError(f"B1 ex56 ne 64 {name}: {err} from its plain version")
+        if not (torch.equal(y, yp) and torch.equal(earlier_bsr(earlier, ip, bc, v, x), yp)):
+            raise AssertionError(f"B1 ex56 ne 64 {name}: {err} from its plain version "
+                                 "(or the earlier design's bits differ)")
         isz = v.element_size()
         nbytes = v.numel() * isz + bc.numel() * 4 + ip.numel() * 8 + 2 * x.numel() * isz
         b_ms, b_by = bound(nbytes, 2 * v.numel(), name)
+        turns = [time_ms(fn, flush) for fn in (
+            lambda: earlier_bsr(earlier, ip, bc, v, x), lambda: bk.bsr_spmv(ip, bc, v, x),
+            lambda: bk.bsr_spmv(ip, bc, v, x), lambda: earlier_bsr(earlier, ip, bc, v, x))]
+        ms, earlier_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        # S2 and the library's CSR product on the same operator stored as scalar CSR
+        cval = torch.as_tensor(A_sp.data, dtype=dt, device="cuda")
+        M = torch.sparse_csr_tensor(cip.int(), ccol, cval, size=tuple(A_sp.shape))
+        for what, fn in (("S2", lambda: pk.csr_spmv(cip, ccol, cval, x)),
+                         ("torch.sparse_csr_tensor @ x", lambda: M @ x)):
+            e = rel_err(fn(), yp)
+            if not e <= 10 * TOL[name]:
+                raise AssertionError(f"{what} on ex56 ne 64's CSR {name}: {e} from B1's plain "
+                                     "version")
+        s2_ms = time_ms(lambda: pk.csr_spmv(cip, ccol, cval, x), flush)
+        lib_ms = time_ms(lambda: M @ x, flush)
+        s2_bytes = cval.numel() * (isz + 4) + cip.numel() * 8 + 2 * x.numel() * isz
+        del M, cval
         # the library's BSR product (cuSPARSE bsrmv through torch.sparse)
-        lib_ms, lib_note = None, "torch.sparse_bsr_tensor(...) @ x"
+        bsr_ms, bsr_note = None, "torch.sparse_bsr_tensor(...) @ x"
         try:
             M = torch.sparse_bsr_tensor(ip.to(torch.int32), bc, v, size=tuple(A_sp.shape))
-            yl = (M @ x[:, None])[:, 0]
-            if rel_err(yl, yp) > 10 * TOL[name]:
-                raise AssertionError(f"disagrees: {rel_err(yl, yp)}")
-            lib_ms = time_ms(lambda: M @ x[:, None], flush)
+            e = rel_err((M @ x[:, None])[:, 0], yp)
+            if e > 10 * TOL[name]:
+                raise AssertionError(f"disagrees: {e}")
+            bsr_ms = time_ms(lambda: M @ x[:, None], flush)
             del M
         except Exception as exc:             # noqa: BLE001 - recorded, not hidden
-            lib_note += f": not measured ({type(exc).__name__}: {str(exc)[:200]})"
-        # S2 on the same operator stored as scalar CSR
-        cip = torch.as_tensor(A_sp.indptr.astype(np.int64), device="cuda")
-        ccol = torch.as_tensor(A_sp.indices.astype(np.int32), device="cuda")
-        cval = torch.as_tensor(A_sp.data, dtype=dt, device="cuda")
-        ys2 = pk.csr_spmv(cip, ccol, cval, x)
-        s2_err = rel_err(ys2, yp)
-        if s2_err > 10 * TOL[name]:
-            raise AssertionError(f"S2 on ex56 ne 64's CSR: {s2_err} from B1's plain version")
-        s2_ms = time_ms(lambda: pk.csr_spmv(cip, ccol, cval, x), flush)
-        s2_bytes = cval.numel() * (isz + 4) + cip.numel() * 8 + 2 * x.numel() * isz
-        del cip, ccol, cval
-        ms = time_ms(lambda: bk.bsr_spmv(ip, bc, v, x), flush)
+            bsr_note += f": not measured ({type(exc).__name__}: {str(exc)[:200]})"
         r = {"name": "bsr_spmv", "dtype": name, "shape": "ex56 ne 64", "rows": A_sp.shape[0],
-             "blocks": int(bc.numel()), "bs": 3, "equal_bits": equal, "max_abs_err": err,
+             "blocks": int(bc.numel()), "bs": 3, "equal_bits": True, "max_abs_err": err,
              "ms": ms, "plain_ms": time_ms(lambda: bk.bsr_spmv_plain(ip, bc, v, x), flush, 3),
              "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-             "share_of_bound": b_ms / ms, "library_ms": lib_ms, "library": lib_note,
-             "s2_same_matrix_ms": s2_ms, "s2_bound_ms": bound(s2_bytes, 2 * A_sp.nnz, name)[0],
-             "s2_max_abs_err": s2_err}
+             "share_of_bound": b_ms / ms, "earlier_ms": earlier_ms, "turns_ms": turns,
+             "earlier_share_of_bound": b_ms / earlier_ms,
+             "launch": bk.bsr_launch_config(bc.numel(), 3, dt, "cuda"),
+             "library_ms": lib_ms, "library": "torch.sparse_csr_tensor(...) @ x on the CSR",
+             "library_bsr_ms": bsr_ms, "library_bsr": bsr_note,
+             "s2_same_matrix_ms": s2_ms, "s2_bound_ms": bound(s2_bytes, 2 * A_sp.nnz, name)[0]}
         rows.append(r)
         main = main or r
-    for bs in (2, 6):
+    del cip, ccol
+    for bs in (2, 3, 5, 6):
         for dt in (torch.float64, torch.float32):
             name = "float64" if dt == torch.float64 else "float32"
-            ip2, bc2, v2, x2 = _random_bsr(4000, bs, dt, bs, long_row=(3, 500), empty_row=9)
+            ip2, bc2, v2, x2 = _random_bsr(30000, bs, dt, bs, long_row=(3, 500), empty_row=9)
             y, yp = bk.bsr_spmv(ip2, bc2, v2, x2), bk.bsr_spmv_plain(ip2, bc2, v2, x2)
-            err = rel_err(y, yp)
-            if not (torch.equal(y, yp) or err <= TOL[name]) \
-                    or float(y.view(-1, bs)[9].abs().max()) != 0.0:
-                raise AssertionError(f"B1 bs {bs} {name}: {err} from its plain version")
+            if not torch.equal(y, yp) or float(y.view(-1, bs)[9].abs().max()) != 0.0:
+                raise AssertionError(f"B1 bs {bs} {name}: {rel_err(y, yp)} from its plain "
+                                     "version")
             rows.append({"name": "bsr_spmv", "dtype": name, "bs": bs,
-                         "shape": "4000 block rows, one of 500 blocks, one empty",
-                         "equal_bits": bool(torch.equal(y, yp)), "max_abs_err": err})
+                         "shape": "30000 block rows, one of 500 blocks, one empty",
+                         "equal_bits": True, "max_abs_err": 0.0})
     return rows, main
 
 
-def a1_rows(bk, cases, flush):
+def earlier_agg_work(tab):
+    """The work list of A1's earlier 16-row design (earlier_kernels/
+    agg_block_16rows.cu) for A1's tables: one (block, first row, rows)
+    item per 16 rows of each block, on the tables' device."""
+    import numpy as np
+    import torch
+    ks = (tab["dptr"][1:] - tab["dptr"][:-1]).cpu().numpy()
+    per = -(-ks // 16)
+    blk = np.repeat(np.arange(len(ks)), per)
+    first = (np.arange(len(blk)) - np.repeat(np.cumsum(per) - per, per)) * 16
+    work = np.stack([blk, first, np.minimum(16, ks[blk] - first)], axis=1).astype(np.int32)
+    return torch.as_tensor(work.reshape(-1), device=tab["dofs"].device)
+
+
+def a1_rows(bk, cases, flush, earlier):
     """A1 against its plain version (f64 1e-12, f32 1e-5: the warp sums in
     another order) on each (label, tables, timed) case; a timed case also
-    gets its time with its bound, the plain version and torch.bmm on the
-    reference's padded table (the product alone). Returns the rows."""
+    gets its time with its bound, the plain version, the earlier 16-row
+    design in turns (earlier, new, new, earlier; also held to the plain
+    version) and torch.bmm on the reference's padded table (the product
+    alone). Returns the rows."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(24)
     rows = []
@@ -2977,10 +3049,20 @@ def a1_rows(bk, cases, flush):
             except Exception as exc:             # noqa: BLE001 - recorded, not hidden
                 lib_note += f": not measured ({type(exc).__name__}: {str(exc)[:200]})"
             torch.cuda.empty_cache()
-            ms = time_ms(lambda: bk.agg_block_apply(t, r), flush)
+            old_work = earlier_agg_work(t)
+            e_err = rel_err(earlier_agg(earlier, t, old_work, r), zp)
+            if e_err > TOL[name]:
+                raise AssertionError(f"A1's earlier design {label} {name}: {e_err}")
+            turns = [time_ms(fn, flush) for fn in (
+                lambda: earlier_agg(earlier, t, old_work, r), lambda: bk.agg_block_apply(t, r),
+                lambda: bk.agg_block_apply(t, r), lambda: earlier_agg(earlier, t, old_work, r))]
+            ms, earlier_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
             row.update(ms=ms, plain_ms=time_ms(lambda: bk.agg_block_apply_plain(t, r), flush, 3),
                        bound_ms=b_ms, bound_by=b_by, bytes=nbytes, share_of_bound=b_ms / ms,
-                       library_ms=lib_ms, library=lib_note)
+                       earlier_ms=earlier_ms, turns_ms=turns,
+                       earlier_share_of_bound=b_ms / earlier_ms,
+                       earlier_work_items=old_work.numel() // 3, library_ms=lib_ms,
+                       library=lib_note)
     return rows
 
 
@@ -3023,7 +3105,7 @@ def cheby_z_rows(pk, n, flush):
     return rows, main
 
 
-def phase_ex56(pt, smi, t_start, flush):
+def phase_ex56(pt, smi, t_start, flush, earlier):
     """PETSc's ex56 on the card: the defaults at full width (ne 64), B1's
     rows on its operator and A1's on its tables over the defaults' level-0
     aggregates; the knob set at ne 11, 11 with the transposed modes, and
@@ -3042,7 +3124,7 @@ def phase_ex56(pt, smi, t_start, flush):
     out["defaults_ne64_profile"] = prof
     A = ksp.getOperators()[0]
     A_sp = A.to_scipy()
-    out["bsr_spmv_checks"], b1 = b1_rows(bk, pk, A, A_sp, flush)
+    out["bsr_spmv_checks"], b1 = b1_rows(bk, pk, A, A_sp, flush, earlier)
     # A1 at full width: the ragged tables of the aggregate-block smoother
     # over the defaults' level-0 aggregates on ne 64's operator
     t1 = time.perf_counter()
@@ -3050,7 +3132,7 @@ def phase_ex56(pt, smi, t_start, flush):
                                 "cuda", torch.float64)
     out["agg_blocks_ne64_host_s"] = time.perf_counter() - t1
     a1_checks = a1_rows(bk, [("ex56 ne 64 level 0, the defaults' aggregates", tab64, True)],
-                        flush)
+                        flush, earlier)
     del ksp, A, A_sp, tab64
     torch.cuda.empty_cache()
     out["defaults_seconds"] = time.perf_counter() - t0
@@ -3062,7 +3144,7 @@ def phase_ex56(pt, smi, t_start, flush):
     # A1 on every level's tables of the ne 24 solve, level 0 timed
     levels = [ld for ld in ksp.getPC()._data["levels"] if "agg" in ld]
     a1_checks = a1_rows(bk, [(f"ex56 ne 24 level {i}", ld["agg"], i == 0)
-                             for i, ld in enumerate(levels)], flush) + a1_checks
+                             for i, ld in enumerate(levels)], flush, earlier) + a1_checks
     if len(levels) != len(ksp.getPC()._impl.levels) - 1:
         raise AssertionError(f"ex56 ne 24 knobs: {len(levels)} levels with A1's tables")
     out["agg_block_apply_checks"] = a1_checks
@@ -3352,7 +3434,7 @@ def main():
     # ---- PETSc's ex56 (BAIJ, bs 3, GAMG with six rigid-body modes): the
     # defaults at ne 64, the reference's knob set at ne 11 and 24 ----
     (ex_rec, b1_main, a1_main, c1z_main, ex_launches, ex_prof, exk_launches,
-     exk_prof) = phase_ex56(pt, smi, t_start, flush)
+     exk_prof) = phase_ex56(pt, smi, t_start, flush, earlier)
     emit(ex_rec)
 
     # ---- bench.py's keys from the card: bench_gpu.py in a process of its own ----
@@ -3512,7 +3594,8 @@ def main():
         r = next(r for r in table if r["name"] == name)
         r.update({k: m[k] for k in m if k not in r and k != "name"})
         r["others"] = [{k: o[k] for k in ("dtype", "bs", "mode", "shape", "n", "dofs", "max_k",
-                                          "ms", "plain_ms", "bound_ms", "library_ms",
+                                          "ms", "earlier_ms", "plain_ms", "bound_ms",
+                                          "library_ms", "library_bsr_ms", "s2_same_matrix_ms",
                                           "max_abs_err", "equal_bits") if k in o}
                        for o in ex_rec[f"{name}_checks"] if o is not m]
     c1z = next(r for r in table if r["name"] == "cheby_update_z")

@@ -206,6 +206,87 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// ---- 1-D bulk copies (cp.async.bulk) into a shared-memory ring ----
+
+__device__ __forceinline__ uint64_t l2_policy_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
+
+// The 16-byte aligned window of bytes that holds elements [a, b) of p:
+// its start, its length, and the element offset of p + a inside it.
+struct Window {
+  const void* src;
+  uint32_t bytes;
+  int off;
+};
+
+template <typename E>
+__device__ __forceinline__ Window window(const E* p, long long a, long long b) {
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(p + a), hi = reinterpret_cast<uintptr_t>(p + b);
+  const uintptr_t lo16 = lo & ~uintptr_t(15), hi16 = (hi + 15) & ~uintptr_t(15);
+  return {reinterpret_cast<const void*>(lo16), (uint32_t)(hi16 - lo16), (int)((lo - lo16) / sizeof(E))};
+}
+
+// First row r in [0, m] with indptr[r] >= key, for two keys at once, in a
+// block of 2 kProbes threads: the block's lower half searches key0, the upper half key1, each with
+// kProbes probes per step. The first step probes a window of kProbes rows,
+// m / 2^14 apart, centred on `guess`, so that uneven rows (a grid's
+// boundary planes) still fall in it; each later step is a kProbes-ary
+// search of what is left: two steps in all when the guess is near. The
+// loop is block-uniform.
+template <int kProbes>
+__device__ void find_rows(const long long* __restrict__ indptr, long long m, long long key0,
+                          long long key1, long long guess0, long long guess1, long long* r0,
+                          long long* r1) {
+  const int half = threadIdx.x / kProbes, i = threadIdx.x % kProbes;
+  const long long key = half ? key1 : key0, guess = half ? guess1 : guess0;
+  long long lo = 0, hi = m;  // the answer lies in [lo, hi]
+  for (bool first = true;; first = false) {
+    // this step probes [a, a + span), inside [lo, hi]
+    long long a = lo, span = hi - lo;
+    if (first) {
+      const long long w = (long long)kProbes * ((m >> 14) > 1 ? (m >> 14) : 1);
+      a = guess - w / 2;
+      a = a > m - w ? m - w : a;
+      a = a < 0 ? 0 : a;
+      span = a + w < m ? w : m - a;
+    }
+    const bool wide = span >= kProbes;
+    const long long np = wide ? kProbes : span;
+    auto probe = [&](long long j) { return wide ? a + span * j / kProbes : a + j; };
+    const bool pred = i < np && __ldg(indptr + probe(i)) < key;
+    const int c0 = __syncthreads_count(half == 0 && pred);
+    const int c1 = __syncthreads_count(half == 1 && pred);
+    const int c = half ? c1 : c0;
+    if (np > 0) {
+      if (c == 0) {
+        hi = probe(0);
+      } else {
+        lo = probe(c - 1) + 1;
+        if (c < np) hi = probe(c);
+      }
+    }
+    if (!__syncthreads_or(hi > lo)) break;
+  }
+  if (i == 0) *(half ? r1 : r0) = lo;
+  __syncthreads();
+}
+
 // ---- cp.async: element copies that complete on an mbarrier ----
 
 // Copy one element of `bytes` (4 or 8) from global to shared memory; with

@@ -73,90 +73,17 @@ using ptt::mbar_expect_tx;
 using ptt::mbar_init;
 using ptt::mbar_wait;
 using ptt::smem_u32;
-
-__device__ __forceinline__ uint64_t l2_policy_evict_first() {
-  uint64_t p;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
-  return p;
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar,
-                                          uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
-      " [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
-      : "memory");
-}
-
-__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
-}
-
-// The 16-byte aligned window of bytes that holds elements [a, b) of p:
-// its start, its length, and the element offset of p + a inside it.
-struct Window {
-  const void* src;
-  uint32_t bytes;
-  int off;
-};
-
-template <typename E>
-__device__ __forceinline__ Window window(const E* p, long long a, long long b) {
-  const uintptr_t lo = reinterpret_cast<uintptr_t>(p + a), hi = reinterpret_cast<uintptr_t>(p + b);
-  const uintptr_t lo16 = lo & ~uintptr_t(15), hi16 = (hi + 15) & ~uintptr_t(15);
-  return {reinterpret_cast<const void*>(lo16), (uint32_t)(hi16 - lo16), (int)((lo - lo16) / sizeof(E))};
-}
+using ptt::bulk_load;
+using ptt::l2_policy_evict_first;
+using ptt::prefetch_l2;
+using ptt::window;
+using ptt::Window;
 
 // The end of the chunk that starts at entry c0: the next multiple of the
 // tile, or the block's last entry.
 __device__ __forceinline__ long long chunk_end(long long c0, long long e_end) {
   const long long b = (c0 / kTile + 1) * kTile;
   return b < e_end ? b : e_end;
-}
-
-// First row r in [0, m] with indptr[r] >= key, for two keys at once: the
-// block's lower half searches key0, the upper half key1, each with
-// kProbes probes per step. The first step probes a window of kProbes rows,
-// m / 2^14 apart, centred on `guess`, so that uneven rows (a grid's
-// boundary planes) still fall in it; each later step is a kProbes-ary
-// search of what is left: two steps in all when the guess is near. The
-// loop is block-uniform.
-__device__ void find_rows(const long long* __restrict__ indptr, long long m, long long key0,
-                          long long key1, long long guess0, long long guess1, long long* r0,
-                          long long* r1) {
-  const int half = threadIdx.x / kProbes, i = threadIdx.x % kProbes;
-  const long long key = half ? key1 : key0, guess = half ? guess1 : guess0;
-  long long lo = 0, hi = m;  // the answer lies in [lo, hi]
-  for (bool first = true;; first = false) {
-    // this step probes [a, a + span), inside [lo, hi]
-    long long a = lo, span = hi - lo;
-    if (first) {
-      const long long w = (long long)kProbes * ((m >> 14) > 1 ? (m >> 14) : 1);
-      a = guess - w / 2;
-      a = a > m - w ? m - w : a;
-      a = a < 0 ? 0 : a;
-      span = a + w < m ? w : m - a;
-    }
-    const bool wide = span >= kProbes;
-    const long long np = wide ? kProbes : span;
-    auto probe = [&](long long j) { return wide ? a + span * j / kProbes : a + j; };
-    const bool pred = i < np && __ldg(indptr + probe(i)) < key;
-    const int c0 = __syncthreads_count(half == 0 && pred);
-    const int c1 = __syncthreads_count(half == 1 && pred);
-    const int c = half ? c1 : c0;
-    if (np > 0) {
-      if (c == 0) {
-        hi = probe(0);
-      } else {
-        lo = probe(c - 1) + 1;
-        if (c < np) hi = probe(c);
-      }
-    }
-    if (!__syncthreads_or(hi > lo)) break;
-  }
-  if (i == 0) *(half ? r1 : r0) = lo;
-  __syncthreads();
 }
 
 template <typename T>
@@ -177,8 +104,9 @@ csr_spmv_kernel(T* __restrict__ y, const long long* __restrict__ indptr,
   const long long t0 = ntiles * blockIdx.x / gridDim.x;
   const long long t1 = ntiles * (blockIdx.x + 1) / gridDim.x;
   const double rows_per_entry = (double)m / (double)(ntiles * kTile);
-  find_rows(indptr, m, t0 * kTile, t1 * kTile, (long long)(t0 * kTile * rows_per_entry),
-            (long long)(t1 * kTile * rows_per_entry), &rows[0], &rows[1]);
+  ptt::find_rows<kProbes>(indptr, m, t0 * kTile, t1 * kTile,
+                          (long long)(t0 * kTile * rows_per_entry),
+                          (long long)(t1 * kTile * rows_per_entry), &rows[0], &rows[1]);
   const long long r_lo = blockIdx.x == 0 ? 0 : rows[0];
   const long long r_hi = blockIdx.x + 1 == gridDim.x ? m : rows[1];   // trailing empty rows too
   const long long e_start = __ldg(indptr + r_lo), e_end = __ldg(indptr + r_hi);

@@ -17,6 +17,8 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -26,8 +28,14 @@ from . import cuda_build
 LAUNCHES = {"bsr_spmv": 0, "agg_block_apply": 0}
 
 _VALUES = (torch.float64, torch.float32)
-MAX_BS = 8          # B1: block sizes 2, 3, 4 and 6 compiled, others up to 8 at run time
-AGG_ROWS = 16       # A1: rows of one aggregate per work item (4 warps x 4 rows)
+MAX_BS = 8                # B1: block sizes 2, 3, 4 and 6 compiled, others up to 8 at run time
+B1_CHUNK_ELEMS = 1536     # B1: inner sums per chunk (csrc/bsr_spmv.cu kChunkElems)
+B1_STAGE_VALUES = 4608    # B1: values per chunk, at most (kStageValues)
+AGG_ITEM_ENTRIES = 16384  # A1: entries of B per work item, about
+AGG_SMALL_K = 16          # A1: blocks of at most this many dofs read r directly (kSmallK)
+AGG_ROW_STEP = 32         # A1: rows of one pass of the warps (8 warps x kRows)
+AGG_SPLIT_K = 512         # A1: from this many dofs the threads share each row (kSplitK)
+AGG_SPLIT_ROWS = 8        # A1: rows of one pass there (kSplitRows)
 
 
 def reset_launches():
@@ -98,8 +106,51 @@ def bsr_spmv(indptr, bcol, vals, x):
     y = torch.empty(mb * bs, dtype=x.dtype, device=x.device)
     if mb:
         cuda_build.launch(LAUNCHES, "bsr_spmv", x, y.data_ptr(), indptr.data_ptr(),
-                          bcol.data_ptr(), vals.data_ptr(), x.data_ptr(), mb, bs)
+                          bcol.data_ptr(), vals.data_ptr(), x.data_ptr(), mb, vals.shape[0], bs)
     return y
+
+
+def bsr_chunk(bs):
+    """B1's blocks per chunk for blocks of bs x bs."""
+    return min(B1_CHUNK_ELEMS // bs, B1_STAGE_VALUES // (bs * bs))
+
+
+def bsr_plan(indptr, bs, grid):
+    """B1's cuts, as the kernel makes them, for block-row pointers `indptr`
+    (host int64) and a launch of `grid` thread blocks: a dict of chunk
+    (blocks per chunk: the chunk edges are its multiples) and, per thread
+    block, runs ((first, end) chunk), rows ((first, end) block row owned:
+    those whose first block lies in the run; the last block also owns the
+    trailing empty rows) and chunks (the (first, end) block of each chunk
+    it streams, from its first row's first block to its last row's end)."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    mb, nblocks = len(indptr) - 1, int(indptr[-1])
+    C = bsr_chunk(bs)
+    nchunks = -(-nblocks // C) if nblocks else 1
+    first = lambda key: min(int(np.searchsorted(indptr, key, side="left")), mb)  # noqa: E731
+    plan = {"chunk": C, "runs": [], "rows": [], "chunks": []}
+    for b in range(grid):
+        t0, t1 = nchunks * b // grid, nchunks * (b + 1) // grid
+        r_lo = 0 if b == 0 else first(t0 * C)
+        r_hi = mb if b == grid - 1 else first(t1 * C)
+        e0, e1 = int(indptr[r_lo]), int(indptr[r_hi])
+        edges = [e0] + list(range((e0 // C + 1) * C, e1, C)) + [e1] if e1 > e0 else [e0, e0]
+        plan["runs"].append((t0, t1))
+        plan["rows"].append((r_lo, r_hi))
+        plan["chunks"].append(list(zip(edges[:-1], edges[1:])))
+    return plan
+
+
+def bsr_launch_config(nblocks, bs, dtype, device):
+    """B1's launch on a CUDA `device` for nblocks blocks of bs x bs, as the
+    card would make it (without launching): grid, threads, chunk (blocks),
+    stages, shared bytes per thread block, blocks per SM, SMs."""
+    cfg = (ctypes.c_int * 7)()
+    fn = cuda_build.library().ptt_bsr_spmv_config
+    cuda_build.check("bsr_spmv config", fn(int(nblocks), int(bs),
+                                           torch.empty((), dtype=dtype).element_size(),
+                                           torch.device(device).index or 0, cfg))
+    return dict(zip(("grid", "threads", "chunk", "stages", "smem", "per_sm", "sms"), cfg))
 
 
 def bsr_transpose(indptr, bcol, vals, nb):
@@ -124,29 +175,67 @@ def size_runs(ks):
     return list(zip(np.concatenate([[0], bounds]), np.concatenate([bounds, [len(ks)]])))
 
 
+def agg_work(ks, entries=AGG_ITEM_ENTRIES):
+    """A1's work list for blocks of sizes `ks` (grouped by size): one
+    (block, first row, rows) item per thread block, the rows counted from
+    the block's first row along its run of blocks of one size. Where k^2
+    <= entries an item holds m = entries // k^2 whole blocks of the run
+    (first row 0, m k rows); else each block is cut into items of the
+    multiple of the kernel's pass (AGG_SPLIT_ROWS rows from AGG_SPLIT_K
+    dofs on, else AGG_ROW_STEP) nearest entries / k, at least one pass and
+    at most k rows. Returns an (nitems, 3) int32 array."""
+    ks = np.asarray(ks, dtype=np.int64)
+    parts = [np.zeros((0, 3), np.int64)]
+    for lo, hi in size_runs(ks) if len(ks) else ():
+        k = int(ks[lo])
+        if k * k <= entries and k < AGG_SPLIT_K:
+            m = entries // (k * k)
+            first = np.arange(lo, hi, m)
+            parts.append(np.stack([first, np.zeros_like(first),
+                                   np.minimum(m, hi - first) * k], axis=1))
+        else:
+            step = AGG_SPLIT_ROWS if k >= AGG_SPLIT_K else AGG_ROW_STEP
+            nr = min(k, max(1, round(entries / k / step)) * step)
+            i0 = np.arange(0, k, nr)
+            blk = np.repeat(np.arange(lo, hi), len(i0))
+            first = np.tile(i0, hi - lo)
+            parts.append(np.stack([blk, first, np.minimum(nr, k - first)], axis=1))
+    return np.concatenate(parts).astype(np.int32)
+
+
+def agg_stage(ks, work):
+    """The most values of r one of A1's items stages in shared memory: the
+    dofs of the blocks its rows lie in, for items of blocks above
+    AGG_SMALL_K dofs (those of at most AGG_SMALL_K read r directly)."""
+    ks = np.asarray(ks, dtype=np.int64)
+    if not len(work):
+        return 0
+    blk, i0, nr = (np.asarray(work[:, c], dtype=np.int64) for c in range(3))
+    k = ks[blk]
+    n = ((i0 + nr + k - 1) // k - i0 // k) * k
+    return int(np.max(np.where(k > AGG_SMALL_K, n, 0)))
+
+
 def agg_block_tables(dof_lists, inv_flat, device, dtype):
     """The device tables of A1 and of its plain version from the host's
     ragged tables: `dof_lists` (an int64 array per block, in the order of
     the blocks, which come grouped by size) and `inv_flat` (each block's
     k x k inverse, row-major, one after the other). Returns a dict:
-    dofs, dptr, inv, iptr and work (A1's (block, first row, rows) items of
-    at most AGG_ROWS rows), max_k, and groups ((dof index (na, k), first
-    inverse entry, na, k) per size, for the plain version)."""
+    dofs, dptr, inv, iptr and work (A1's items, :func:`agg_work`), max_k,
+    stage (:func:`agg_stage`) and groups ((dof index (na, k), first inverse
+    entry, na, k) per size, for the plain version)."""
     ks = np.array([len(d) for d in dof_lists], dtype=np.int64)
     dptr = np.concatenate([[0], np.cumsum(ks)])
     iptr = np.concatenate([[0], np.cumsum(ks * ks)])
-    per = -(-ks // AGG_ROWS)
-    item_blk = np.repeat(np.arange(len(ks)), per)
-    item_first = (np.arange(len(item_blk)) - np.repeat(np.cumsum(per) - per, per)) * AGG_ROWS
-    item_rows = np.minimum(AGG_ROWS, ks[item_blk] - item_first)
-    work = np.stack([item_blk, item_first, item_rows], axis=1).astype(np.int32)
+    work = agg_work(ks)
     dofs = np.concatenate(dof_lists).astype(np.int64)
     t = {"dofs": torch.as_tensor(dofs.astype(np.int32), device=device),
          "dptr": torch.as_tensor(dptr, device=device),
          "inv": torch.as_tensor(inv_flat, dtype=dtype, device=device),
          "iptr": torch.as_tensor(iptr, device=device),
          "work": torch.as_tensor(work.reshape(-1), device=device),
-         "max_k": int(ks.max()) if len(ks) else 0, "groups": []}
+         "max_k": int(ks.max()) if len(ks) else 0, "stage": agg_stage(ks, work),
+         "groups": []}
     for lo, hi in size_runs(ks):
         k = int(ks[lo])
         idx = dofs[dptr[lo]:dptr[hi]].reshape(hi - lo, k)
@@ -178,13 +267,13 @@ def agg_block_apply(tab, r):
                          f"{r.numel()}")
     if r.device.type == "cpu":
         return agg_block_apply_plain(tab, r)
-    if tab["max_k"] * r.element_size() > 227 * 1024:
-        raise ValueError(f"agg_block_apply: a block of {tab['max_k']} dofs exceeds the "
-                         "shared memory of one thread block")
+    if tab["stage"] * r.element_size() > 227 * 1024:
+        raise ValueError(f"agg_block_apply: an item stages {tab['stage']} values of r, more "
+                         "than the shared memory of one thread block holds")
     z = torch.empty_like(r)
     nitems = tab["work"].numel() // 3
     if nitems:
         cuda_build.launch(LAUNCHES, "agg_block_apply", r, z.data_ptr(), r.data_ptr(),
                           tab["dofs"].data_ptr(), tab["dptr"].data_ptr(), inv.data_ptr(),
-                          tab["iptr"].data_ptr(), tab["work"].data_ptr(), nitems, tab["max_k"])
+                          tab["iptr"].data_ptr(), tab["work"].data_ptr(), nitems, tab["stage"])
     return z

@@ -78,8 +78,9 @@ SIGNATURES = {
     "ptt_trisolve_f32": (_vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32,
                          _i32, _vp, _i32, _vp),
     "ptt_trisolve_config": (_i32, _i32, _i32, _i32, _i32, _i32, _vp),
-    "ptt_bsr_spmv_f64": (_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),
-    "ptt_bsr_spmv_f32": (_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),
+    "ptt_bsr_spmv_f64": (_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i32, _i32, _vp),
+    "ptt_bsr_spmv_f32": (_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i32, _i32, _vp),
+    "ptt_bsr_spmv_config": (_i64, _i32, _i32, _i32, _vp),
     "ptt_agg_block_apply_f64": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _vp),
     "ptt_agg_block_apply_f32": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _vp),
 }

@@ -220,3 +220,80 @@ def test_create_rigid_body_matches_jax(dim):
     plain = ptt.MatNullSpace(constant=True, vectors=[np.arange(4.0)])
     plainj = pt_jax.MatNullSpace(constant=True, vectors=[np.arange(4.0)])
     assert np.array_equal(plain.dense_or(4), plainj.dense_or(4))
+
+
+def _ragged_bsr(nbr, bs, seed, long_row=None, empty_row=None):
+    """A random BSR on the host: rows of 1 to 7 blocks, a row of long_row[1]
+    blocks and an empty row where asked; (indptr, bcol, vals, x)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 8, nbr)
+    if long_row is not None:
+        lens[long_row[0]] = long_row[1]
+    if empty_row is not None:
+        lens[empty_row] = 0
+    bcol = np.concatenate([np.sort(rng.choice(nbr, size=L, replace=False)) for L in lens])
+    ptr = np.concatenate([[0], np.cumsum(lens)])
+    return ptr, bcol.astype(np.int32), rng.standard_normal((len(bcol), bs, bs)), \
+        rng.standard_normal(nbr * bs)
+
+
+@pytest.mark.parametrize("grid", (1, 7, 64))
+@pytest.mark.parametrize("bs", (2, 3, 5))
+def test_bsr_plan_owns_each_row_once(bs, grid):
+    """B1's plan: chunk edges at the multiples of the chunk, every block row
+    owned by one thread block, the rows a block owns starting in its run of
+    chunks (the last also owns the trailing empty rows), its chunks covering
+    its rows' blocks in order; a row of 2,000 blocks crosses chunk edges."""
+    ptr, *_ = _ragged_bsr(3000, bs, bs, long_row=(400, 2000), empty_row=17)
+    ptr = np.concatenate([ptr, [ptr[-1]] * 3])           # trailing empty rows
+    plan = bk.bsr_plan(ptr, bs, grid)
+    C = plan["chunk"]
+    assert C == bk.bsr_chunk(bs)
+    mb = len(ptr) - 1
+    owned = [r for lo, hi in plan["rows"] for r in range(lo, hi)]
+    assert owned == list(range(mb))
+    crossing = 0
+    for (t0, t1), (lo, hi), chunks in zip(plan["runs"], plan["rows"], plan["chunks"]):
+        for r in range(lo, hi):
+            assert t0 * C <= ptr[r] < t1 * C or (hi == mb and ptr[r] == ptr[-1])
+        assert chunks[0][0] == ptr[lo] and chunks[-1][1] == ptr[hi]
+        for (a, b), (c, _) in zip(chunks, chunks[1:]):
+            assert b == c and b % C == 0 and a < b
+        edges = {b for _, b in chunks[:-1]}
+        crossing += sum(ptr[r] < e < ptr[r + 1] for r in range(lo, hi) for e in edges)
+    assert crossing > 0 and sum(ptr[400] < b < ptr[401] for ch in plan["chunks"]
+                                for _, b in ch) >= 2
+
+
+@pytest.mark.parametrize("grid", (1, 7, 64))
+@pytest.mark.parametrize("dtype", (np.float64, np.float32))
+@pytest.mark.parametrize("bs", (2, 3, 5))
+def test_bsr_chunked_order_equals_plain_bits(bs, dtype, grid):
+    """B1's arithmetic along its plan, in numpy: each chunk's inner sums,
+    then each output's running sum carried from chunk to chunk (not a
+    partial sum added to a carry), gives the plain version's bits."""
+    ptr, bcol, vals, x = _ragged_bsr(700, bs, 10 + bs, long_row=(3, 500), empty_row=9)
+    vals, x = vals.astype(dtype), x.astype(dtype)
+    plan = bk.bsr_plan(ptr, bs, grid)
+    y = np.full(len(x), np.nan, dtype=dtype)
+    for (lo, hi), chunks in zip(plan["rows"], plan["chunks"]):
+        acc = {}
+        for a, b in chunks:
+            xs = x.reshape(-1, bs)[bcol[a:b]]                        # (blocks, c)
+            s = vals[a:b, :, 0] * xs[:, None, 0]
+            for c in range(1, bs):
+                s = s + vals[a:b, :, c] * xs[:, None, c]
+            for r in range(lo, hi):
+                k0, k1 = max(ptr[r], a), min(ptr[r + 1], b)
+                if k0 >= k1 and not (ptr[r] == ptr[r + 1] and a <= ptr[r] <= b):
+                    continue
+                run = acc.get(r, np.zeros(bs, dtype=dtype))
+                for k in range(k0, k1):
+                    run = run + s[k - a]
+                acc[r] = run
+                if ptr[r + 1] <= b:
+                    y[r * bs:(r + 1) * bs] = run
+    want = bk.bsr_spmv_plain(torch.as_tensor(ptr), torch.as_tensor(bcol),
+                             torch.as_tensor(vals), torch.as_tensor(x)).numpy()
+    assert np.array_equal(y, want)
+    assert not y[9 * bs:10 * bs].any()

@@ -871,6 +871,53 @@ def test_agg_block_apply_equals_plain(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bs", (2, 3, 4, 5, 6))
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_bsr_spmv_chunk_edges_equal_bits(cuda_device, dtype, bs):
+    """B1 on 30,000 block rows (a full grid of thread blocks): rows of 1
+    to 7 blocks, one of 500 blocks across several chunks, an empty row;
+    equal bits with the plain version, on two launches, one launch counted
+    per call; the card's chunk is the plan's, and rows cross its edges."""
+    from petsc_tpu_torch.ops import block_kernels as bk
+    ip, bc, v, x = chip_smoke._random_bsr(30000, bs, dtype, bs, long_row=(777, 500),
+                                          empty_row=4321)
+    cfg = bk.bsr_launch_config(bc.numel(), bs, dtype, cuda_device)
+    assert cfg["chunk"] == bk.bsr_chunk(bs) and cfg["grid"] > 1
+    plan = bk.bsr_plan(ip.cpu().numpy(), bs, cfg["grid"])
+    edges = {b for ch in plan["chunks"] for _, b in ch}
+    ptr = ip.cpu().numpy()
+    assert any(ptr[i] < e < ptr[i + 1] for e in edges for i in (np.searchsorted(ptr, e) - 1,))
+    bk.reset_launches()
+    y1 = bk.bsr_spmv(ip, bc, v, x)
+    y2 = bk.bsr_spmv(ip, bc, v, x)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["bsr_spmv"] == 2
+    assert torch.equal(y1, bk.bsr_spmv_plain(ip, bc, v, x)) and torch.equal(y1, y2)
+    assert float(y1.view(-1, bs)[4321].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_agg_block_apply_large_and_unit_blocks(cuda_device, dtype):
+    """A1 on blocks of 1 (loose dofs), 3, 17, 300 and 1,900 dofs: one
+    launch per call, within 1e-12 / 1e-5 of its plain version."""
+    from petsc_tpu_torch.ops import block_kernels as bk
+    rng = np.random.default_rng(7)
+    ks = [1] * 50 + [3] * 40 + [17] * 5 + [300] * 2 + [1900]
+    perm = rng.permutation(sum(ks))
+    dptr = np.concatenate([[0], np.cumsum(ks)])
+    dof_lists = [np.sort(perm[a:b]) for a, b in zip(dptr[:-1], dptr[1:])]
+    inv = np.concatenate([rng.standard_normal(k * k) for k in ks])
+    tab = bk.agg_block_tables(dof_lists, inv, cuda_device, dtype)
+    r = torch.as_tensor(rng.standard_normal(sum(ks)), dtype=dtype, device=cuda_device)
+    bk.reset_launches()
+    z = bk.agg_block_apply(tab, r)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["agg_block_apply"] == 1
+    assert _rel(z, bk.agg_block_apply_plain(tab, r)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
 def test_cheby_z_modes_equal_plain(cuda_device, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(2)

@@ -25,6 +25,7 @@ import petsc_tpu_torch as ptt
 from examples import ex56 as ex56_jax
 from petsc_tpu.pc import gamg as gamg_jax
 from petsc_tpu_torch.examples import ex56
+from petsc_tpu_torch.ops import block_kernels as bk
 from petsc_tpu_torch.pc import gamg
 
 torch.set_num_threads(1)
@@ -306,3 +307,66 @@ def test_aggregate_block_smoother_in_every_smoother(smoother):
     options[options.index("-mg_levels_ksp_type") + 1] = smoother
     _assert_same_solve(_port_solve(6, "knobs", options=options),
                        _jax_solve(6, "knobs", _crb_jax, options=options))
+
+
+def _agg_emulated(tab, r):
+    """A1's arithmetic along its work list, in numpy: item (block, first
+    row, rows) covers rows g of the run of equal-size blocks from `block`,
+    row g's entries at inv[iptr[block] + g k], its dofs from dofs[dptr[block]
+    + g - g % k]. Returns (z, how many times each dof was written)."""
+    dofs, dptr, iptr = (tab[k].numpy() for k in ("dofs", "dptr", "iptr"))
+    inv, r = tab["inv"].numpy(), r.numpy()
+    z, hits = np.zeros_like(r), np.zeros(len(r), dtype=np.int64)
+    for blk, i0, nr in tab["work"].numpy().reshape(-1, 3):
+        k = int(dptr[blk + 1] - dptr[blk])
+        for g in range(i0, i0 + nr):
+            row = inv[iptr[blk] + g * k: iptr[blk] + (g + 1) * k]
+            base = dptr[blk] + g - g % k
+            z[dofs[dptr[blk] + g]] = row @ r[dofs[base:base + k]]
+            hits[dofs[dptr[blk] + g]] += 1
+    return z, hits
+
+
+@pytest.mark.parametrize("entries", (64, 4096, bk.AGG_ITEM_ENTRIES))
+def test_agg_work_list_covers_every_row_once(entries):
+    """A1's work list over loose dofs (k = 1), small, medium and large
+    blocks (300, 600 and 1,900 dofs): whole blocks of one size per item
+    where k^2 <= entries (below AGG_SPLIT_K), else rows of one block in
+    multiples of the kernel's pass; every row once; the kernel's row
+    arithmetic along it equals the plain version to 1e-12."""
+    rng = np.random.default_rng(5)
+    ks = [1] * 40 + [3] * 30 + [16] * 4 + [17] * 3 + [300] * 2 + [600, 1900]
+    perm = rng.permutation(sum(ks))
+    dptr = np.concatenate([[0], np.cumsum(ks)])
+    dof_lists = [np.sort(perm[a:b]) for a, b in zip(dptr[:-1], dptr[1:])]
+    inv = np.concatenate([rng.standard_normal(k * k) for k in ks])
+    work = bk.agg_work(ks, entries)
+    for blk, i0, nr in work:
+        k = ks[blk]
+        if k * k <= entries and k < bk.AGG_SPLIT_K:
+            assert i0 == 0 and nr % k == 0 and nr // k <= entries // (k * k)
+            assert set(ks[blk:blk + nr // k]) == {k}
+        else:
+            step = bk.AGG_SPLIT_ROWS if k >= bk.AGG_SPLIT_K else bk.AGG_ROW_STEP
+            assert i0 + nr <= k and (nr % step == 0 or i0 + nr == k)
+    # the shared memory of an item: r over the dofs of the blocks its rows lie in
+    staged = [(-(-(i0 + nr) // ks[blk]) - i0 // ks[blk]) * ks[blk] for blk, i0, nr in work
+              if ks[blk] > bk.AGG_SMALL_K]
+    assert bk.agg_stage(ks, work) == max(staged) >= 1900
+    tab = bk.agg_block_tables(dof_lists, inv, "cpu", torch.float64)
+    r = torch.as_tensor(rng.standard_normal(sum(ks)))
+    z, hits = _agg_emulated({**tab, "work": torch.as_tensor(work.reshape(-1))}, r)
+    assert (hits == 1).all()
+    assert _rel(z, bk.agg_block_apply_plain(tab, r).numpy()) <= 1e-12
+
+
+def test_agg_work_list_on_ex56_tables():
+    """A1's work list on the knob set's level-0 tables of ex56 at ne 4 (the
+    tables pc/mg.py builds): every row once, the kernel's row arithmetic
+    equal to the plain version to 1e-12."""
+    ksp = ex56.main(["-ne", "4", *chip_smoke.EX56_KNOBS], device="cpu")
+    tab = ksp.getPC()._data["levels"][0]["agg"]
+    r = torch.as_tensor(np.random.default_rng(6).standard_normal(tab["dofs"].numel()))
+    z, hits = _agg_emulated(tab, r)
+    assert (hits == 1).all()
+    assert _rel(z, bk.agg_block_apply_plain(tab, r).numpy()) <= 1e-12

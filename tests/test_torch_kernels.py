@@ -148,7 +148,8 @@ def test_every_csrc_source_is_built():
                            *trisolve.LAUNCHES, *block_kernels.LAUNCHES, "dnd_window")
                if k not in ("probe", "cheby_update_z")]
     called = {"ptt_probe", "ptt_triad_config", "ptt_dot2_config", "ptt_const_stencil_map",
-              "ptt_const_stencil_config", "ptt_dnd_window_config", "ptt_trisolve_config"} \
+              "ptt_const_stencil_config", "ptt_dnd_window_config", "ptt_trisolve_config",
+              "ptt_bsr_spmv_config"} \
         | {f"ptt_{k}_{s}" for k in kernels for s in ("f64", "f32")}
     assert called == defined
 
