@@ -271,6 +271,7 @@ IN_SOLVE = {"triad": ("triad_kernel",), "axpy_normsq": ("axpy_normsq_kernel",),
             "cheby_update": ("cheby_update_kernel",),
             "cheby_update_z": ("cheby_update_z_kernel",),
             "bsr_spmv": ("bsr_chunk_kernel",), "agg_block_apply": ("agg_block_kernel",),
+            "agg_block_cheby": ("agg_block_cheby_kernel",),
             "dnd_stencil": ("dnd_stencil_kernel", "dnd_window_kernel"),
             "q1_prolong": ("q1_prolong_kernel",), "q1_restrict": ("q1_restrict_kernel",),
             "trisolve": ("trisolve_kernel",),
@@ -2720,19 +2721,20 @@ def ex56_launches_needed(its, nlev, knobs):
     smoothing, the residual) and its P and R on S2. Knob set: Chebyshev(1,
     1) with the aggregate-block smoother on every level but the coarsest,
     3 products of the level's operator per application (the smoothing's
-    A x twice, the residual; B1 on level 0, S2 above), 2 A1 and 2 of C1's
-    z modes (cheby_update_z), none of its Jacobi modes; the coarse
-    CG+Jacobi's inner steps depend on the data, so S2, K2 and K4 are at
-    least the cycle's."""
+    A x twice, the residual; B1 on level 0, S2 above), 2 of A1's fused
+    Chebyshev steps (agg_block_cheby), no A1 alone, no C1 in any mode;
+    the coarse CG+Jacobi's inner steps depend on the data, so S2, K2 and
+    K4 are at least the cycle's."""
     napply, fine = its + 1, nlev - 1
     if not knobs:
         need = mg_launches_needed(its, nlev)
         need["csr_spmv"] -= 5 * napply + its
-        need.update(bsr_spmv=5 * napply + its, agg_block_apply=0, cheby_update_z=0)
+        need.update(bsr_spmv=5 * napply + its, agg_block_apply=0, agg_block_cheby=0,
+                    cheby_update_z=0)
         return need, {}
-    exact = {"bsr_spmv": 3 * napply + its, "agg_block_apply": 2 * fine * napply,
-             "cheby_update_z": 2 * fine * napply, "cheby_update": 0, "axpy_normsq": its,
-             "const_stencil": 0}
+    exact = {"bsr_spmv": 3 * napply + its, "agg_block_cheby": 2 * fine * napply,
+             "agg_block_apply": 0, "cheby_update_z": 0, "cheby_update": 0,
+             "axpy_normsq": its, "const_stencil": 0}
     at_least = {"csr_spmv": (3 * (fine - 1) + 2 * fine) * napply,
                 "triad": 4 * fine * napply + 2 * its, "dot2": 1 + 2 * its}
     return exact, at_least
@@ -3105,14 +3107,99 @@ def cheby_z_rows(pk, n, flush):
     return rows, main
 
 
+AGG_CHEBY_KW = {"first_z": {"c": 0.3, "beta": 0.9}, "step_z": {"c": 0.3, "beta": 0.9, "a": 0.6}}
+
+
+def ragged_agg_tables(device, dtype, seed=7):
+    """A1's tables over random blocks of 1 (loose dofs), 3, 16, 17, 96, 300
+    and 700 dofs (every mapping of the kernel: lane groups, warps, the
+    whole thread block over several items), the dofs a random permutation,
+    random inverses."""
+    import numpy as np
+    from petsc_tpu_torch.ops import block_kernels as bk
+    rng = np.random.default_rng(seed)
+    ks = [1] * 50 + [3] * 40 + [16] * 4 + [17] * 5 + [96] * 3 + [300] * 2 + [700]
+    perm = rng.permutation(sum(ks))
+    dptr = np.concatenate([[0], np.cumsum(ks)])
+    dof_lists = [np.sort(perm[a:b]) for a, b in zip(dptr[:-1], dptr[1:])]
+    inv = np.concatenate([rng.standard_normal(k * k) for k in ks])
+    return bk.agg_block_tables(dof_lists, inv, device, dtype)
+
+
+def a1_cheby_rows(bk, pk, cases, flush):
+    """A1's fused Chebyshev step (kernel agg_block_cheby) on each (label,
+    tables) case in f64 and f32, modes first_z and step_z: equal bits with
+    A1 followed by C1's z mode (the earlier two-launch design), within A1's
+    tolerance (f64 1e-12, f32 1e-5 relative on p and x) of its plain
+    version, timed in turns with the two launches (two, fused, fused, two)
+    beside the plain version and its bound: A1's bytes without z's store,
+    plus x read and written and p written, and p read in step_z. No single
+    PyTorch call computes it (library_ms None). Returns the rows."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(16)
+    rows = []
+    for label, tab in cases:
+        n = tab["dofs"].numel()
+        for dt in (torch.float64, torch.float32):
+            name = "float64" if dt == torch.float64 else "float32"
+            t = {**tab, "inv": tab["inv"].to(dt)}
+            r, p0, x0 = (torch.rand(n, generator=g, device="cuda", dtype=torch.float64).to(dt)
+                         for _ in range(3))
+            isz = r.element_size()
+            a1_bytes = (t["inv"].numel() * isz + n * (2 * isz + 4) + t["work"].numel() * 4
+                        + (t["dptr"].numel() + t["iptr"].numel()) * 8)
+            for mode, kw in AGG_CHEBY_KW.items():
+                def fused(p, x, mode=mode, kw=kw):
+                    return bk.agg_block_cheby(t, r, mode, p, x, **kw)
+
+                def two(p, x, mode=mode, kw=kw):
+                    return pk.cheby_update_z(mode, p, x, bk.agg_block_apply(t, r), **kw)
+
+                out = {}
+                for what, fn in (("fused", fused), ("two", two),
+                                 ("plain", lambda p, x, mode=mode, kw=kw:
+                                  bk.agg_block_cheby_plain(t, r, mode, p, x, **kw))):
+                    out[what] = (p0.clone(), x0.clone())
+                    fn(*out[what])
+                torch.cuda.synchronize()
+                equal = all(torch.equal(a, b) for a, b in zip(out["fused"], out["two"]))
+                err = max(rel_err(a, b) for a, b in zip(out["fused"], out["plain"]))
+                if not equal or not err <= TOL[name]:
+                    raise AssertionError(f"agg_block_cheby {label} {name} {mode}: equal bits with "
+                                         f"A1 then C1z {equal}, {err} from its plain version")
+                nbytes = a1_bytes - n * isz + (3 if mode == "first_z" else 4) * n * isz
+                b_ms, b_by = bound(nbytes, 2 * t["inv"].numel()
+                                   + (3 if mode == "first_z" else 5) * n, name)
+                pt, xt = p0.clone(), x0.clone()
+                turns = [time_ms(fn, flush) for fn in (
+                    lambda: two(pt, xt), lambda: fused(pt, xt), lambda: fused(pt, xt),
+                    lambda: two(pt, xt))]
+                ms, earlier_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+                rows.append({
+                    "name": "agg_block_cheby", "mode": mode, "dtype": name, "shape": label,
+                    "dofs": n, "blocks": t["dptr"].numel() - 1, "max_k": t["max_k"],
+                    "equal_bits": True, "rel_err": err, "tol": TOL[name],
+                    "max_abs_err": max(float((a - b).abs().max())
+                                       for a, b in zip(out["fused"], out["plain"])),
+                    "ms": ms, "earlier_ms": earlier_ms, "turns_ms": turns,
+                    "earlier": "A1 (agg_block_apply) then C1z (cheby_update_z): two launches",
+                    "plain_ms": time_ms(lambda: bk.agg_block_cheby_plain(
+                        t, r, mode, pt, xt, **kw), flush, 3),
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                    "share_of_bound": b_ms / ms, "earlier_share_of_bound": b_ms / earlier_ms,
+                    "library_ms": None})
+    return rows
+
+
 def phase_ex56(pt, smi, t_start, flush, earlier):
     """PETSc's ex56 on the card: the defaults at full width (ne 64), B1's
     rows on its operator and A1's on its tables over the defaults' level-0
     aggregates; the knob set at ne 11, 11 with the transposed modes, and
     24, A1's rows on every level's tables of ne 24's solve and C1z's at
-    its level-0 length. Returns (the record, B1's, A1's and C1z's rows,
-    the defaults' launches and profile, the knob set's (ne 24) launches
-    and profile)."""
+    its level-0 length, A1's fused step on all those tables and on random
+    ones. Returns (the record, B1's, A1's, C1z's and the fused step's main
+    rows, the defaults' launches and profile, the knob set's (ne 24)
+    launches and profile)."""
     import torch
     from petsc_tpu_torch.ops import block_kernels as bk
     from petsc_tpu_torch.pc.mg import _agg_blocks_host
@@ -3131,8 +3218,9 @@ def phase_ex56(pt, smi, t_start, flush, earlier):
     tab64 = bk.agg_block_tables(*_agg_blocks_host(A_sp, ksp.getPC()._impl.levels[0].agg, 3),
                                 "cuda", torch.float64)
     out["agg_blocks_ne64_host_s"] = time.perf_counter() - t1
-    a1_checks = a1_rows(bk, [("ex56 ne 64 level 0, the defaults' aggregates", tab64, True)],
-                        flush, earlier)
+    label64 = "ex56 ne 64 level 0, the defaults' aggregates"
+    a1_checks = a1_rows(bk, [(label64, tab64, True)], flush, earlier)
+    fused_checks = a1_cheby_rows(bk, pk, [(label64, tab64)], flush)
     del ksp, A, A_sp, tab64
     torch.cuda.empty_cache()
     out["defaults_seconds"] = time.perf_counter() - t0
@@ -3151,11 +3239,18 @@ def phase_ex56(pt, smi, t_start, flush, earlier):
     a1 = a1_checks[0]
     n0 = levels[0]["agg"]["dofs"].numel()
     out["cheby_update_z_checks"], c1z = cheby_z_rows(pk, n0, flush)
+    fused_checks = a1_cheby_rows(
+        bk, pk, [(f"ex56 ne 24 level {i}", ld["agg"]) for i, ld in enumerate(levels)]
+        + [("random blocks of 1 to 700 dofs", ragged_agg_tables("cuda", torch.float64))],
+        flush) + fused_checks
+    out["agg_block_cheby_checks"] = fused_checks
+    a1c = next(r for r in fused_checks if (r["shape"], r["dtype"], r["mode"])
+               == ("ex56 ne 24 level 0", "float64", "step_z"))
     del ksp, levels
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     out["seconds_so_far"] = time.perf_counter() - t_start
-    return out, b1, a1, c1z, launches, prof, k_launches, k_prof
+    return out, b1, a1, c1z, a1c, launches, prof, k_launches, k_prof
 
 
 # bench_gpu.py's contract: BENCH_r05.json's solve (the JAX package on the TPU)
@@ -3433,7 +3528,7 @@ def main():
 
     # ---- PETSc's ex56 (BAIJ, bs 3, GAMG with six rigid-body modes): the
     # defaults at ne 64, the reference's knob set at ne 11 and 24 ----
-    (ex_rec, b1_main, a1_main, c1z_main, ex_launches, ex_prof, exk_launches,
+    (ex_rec, b1_main, a1_main, c1z_main, a1c_main, ex_launches, ex_prof, exk_launches,
      exk_prof) = phase_ex56(pt, smi, t_start, flush, earlier)
     emit(ex_rec)
 
@@ -3472,6 +3567,8 @@ def main():
                             {"agg_block_apply": a1_main}, exk_launches),
         "cheby_update_z": ("cheby.cu", "petsc_tpu/ksp/cheby.py:42",
                            {"cheby_update_z": c1z_main}, exk_launches),
+        "agg_block_cheby": ("agg_block.cu", "petsc_tpu/pc/mg.py:516",
+                            {"agg_block_cheby": a1c_main}, exk_launches),
     }
     table = []
     for name, (src, replaces, measured, counts) in rows.items():
@@ -3588,9 +3685,10 @@ def main():
     # tables in f64 (its other levels and ne 64's tables beside it); f32,
     # cuSPARSE's note and S2 on the same matrix beside them
     # C1z's is the step_z mode in f64 at the knob set's level-0 length;
-    # first_z and f32 beside it
+    # first_z and f32 beside it; the fused step's is step_z in f64 on ne
+    # 24's level-0 tables, the other modes, types and tables beside it
     for name, m in (("bsr_spmv", b1_main), ("agg_block_apply", a1_main),
-                    ("cheby_update_z", c1z_main)):
+                    ("cheby_update_z", c1z_main), ("agg_block_cheby", a1c_main)):
         r = next(r for r in table if r["name"] == name)
         r.update({k: m[k] for k in m if k not in r and k != "name"})
         r["others"] = [{k: o[k] for k in ("dtype", "bs", "mode", "shape", "n", "dofs", "max_k",
@@ -3600,7 +3698,13 @@ def main():
                        for o in ex_rec[f"{name}_checks"] if o is not m]
     c1z = next(r for r in table if r["name"] == "cheby_update_z")
     c1z.update(also_replaces="petsc_tpu/ksp/cheby.py:36, :79-80",
-               library="none: no single PyTorch call computes the fused update")
+               library="none: no single PyTorch call computes the fused update",
+               status="redesigned: fused into A1 (agg_block_cheby); the standalone "
+                      "z modes stay for a smoothing PC without a fused step")
+    a1c = next(r for r in table if r["name"] == "agg_block_cheby")
+    a1c.update(also_replaces="petsc_tpu/ksp/cheby.py:36-37, :42-43, :79-80 (C1z's step "
+                             "tail, as A1's epilogue)",
+               library="none: no single PyTorch call computes the product and the step")
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,10 +9,17 @@
 // every dof (a dof outside all of them is a 1 x 1 block), so
 //   z[d_a] = B_a r[d_a]
 // stores each entry of z once, with no atomics.
+// The Chebyshev smoother (petsc_tpu_torch/ksp/cheby.py) only reads z to
+// finish its step with C1's z mode (cheby.cu), so a second entry point
+// takes that step as the kernel's epilogue: where z[d] would be stored,
+//   first_z:  p[d] = c z;  step_z:  p[d] = a p[d] + c z;  then x[d] += beta p[d]
+// in place, and no z is written or read back: one launch per step, not two.
 //
 // Bound: device-memory bandwidth: sum k_a^2 entries of B read once, plus r
 // gathered, the dof lists and z stored once (about 61 MB in f64 at ex56 ne
-// 24, level 0: 513 aggregates of up to 1,875 dofs).
+// 24, level 0: 513 aggregates of up to 1,875 dofs); with the epilogue x is
+// read and written and p written (first_z) or also read (step_z) in place
+// of z's store.
 // Design for that bound: the blocks come grouped by size, so a run of
 // blocks of one size k is a list of rows of k entries each, row g at
 // inv[iptr[first] + g k], its dofs from dofs[dptr[first] + g - g % k].
@@ -53,6 +60,10 @@ constexpr int kSplitRows = 8;    // rows of one pass at k >= kSplitK
 constexpr int kSplitUnroll = 2;  // column steps of 256 issued together at k >= kSplitK
 constexpr int kStageCols = 4;    // columns per thread of one round of the staging of r
 constexpr int kMinBlocks = 2;    // thread blocks per SM the registers must allow (3 spills)
+// The f32 z-only kernel fits 3 blocks per SM unbounded (80 registers); the
+// fused one is held to that (unbounded it took 86, and 2 blocks per SM)
+template <typename T>
+constexpr int kMinBlocksFused = sizeof(T) == 4 ? 3 : kMinBlocks;
 constexpr int kDefaultSmem = 48 * 1024;
 
 template <typename T>
@@ -83,11 +94,35 @@ __device__ __forceinline__ void stage_r(T* rs, const T* __restrict__ r,
   __syncthreads();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kAggThreads, kMinBlocks)
-agg_block_kernel(T* __restrict__ z, const T* __restrict__ r, const int* __restrict__ dofs,
-                 const long long* __restrict__ dptr, const T* __restrict__ inv,
-                 const long long* __restrict__ iptr, const int* __restrict__ work) {
+// What the kernel does at the store of each entry s = (B_a r[d_a])_i, for
+// its dof d: kStoreZ stores z[d] = s; kFirstZ and kStepZ finish C1's z mode
+// there instead (ptt::cheby_z_update: p[d] = c s, or a p[d] + c s, then
+// x[d] += beta p[d]) and store no z. Each dof is stored once, by one
+// thread, so p and x are read and written in place with no race; the
+// operands p[d] and x[d] are loaded before the row's sum.
+enum Epilogue { kStoreZ, kFirstZ, kStepZ };
+
+template <int kEpi, typename T>
+__device__ __forceinline__ void load_px(const T* pv, const T* xv, int d, T& p, T& x) {
+  x = xv[d];
+  p = kEpi == kStepZ ? pv[d] : T(0);
+}
+
+template <int kEpi, typename T>
+__device__ __forceinline__ void finish_px(T* pv, T* xv, int d, T s, T p, T x, T a, T c,
+                                          T beta) {
+  ptt::cheby_z_update<kEpi == kFirstZ>(p, x, s, a, c, beta);
+  pv[d] = p;
+  xv[d] = x;
+}
+
+// z (kStoreZ) or p and x (the z modes) from r, over the item of this block
+template <int kEpi, typename T>
+__device__ __forceinline__ void agg_block_item(
+    T* __restrict__ z, T* __restrict__ pv, T* __restrict__ xv, T a, T c, T beta,
+    const T* __restrict__ r, const int* __restrict__ dofs, const long long* __restrict__ dptr,
+    const T* __restrict__ inv, const long long* __restrict__ iptr,
+    const int* __restrict__ work) {
   const int blk = __ldg(work + 3 * (long long)blockIdx.x);
   const int i0 = __ldg(work + 3 * (long long)blockIdx.x + 1);
   const int nr = __ldg(work + 3 * (long long)blockIdx.x + 2);
@@ -104,6 +139,15 @@ agg_block_kernel(T* __restrict__ z, const T* __restrict__ r, const int* __restri
     const int* dq = dofs + d0;
     stage_r(rs, r, dq, k);
     for (int p = i0; p < i0 + nr; p += kSplitRows) {
+      // (the z modes) thread t < kSplitRows stores row p + t
+      int d = 0;
+      T pd = T(0), xd = T(0);
+      if constexpr (kEpi != kStoreZ) {
+        if (threadIdx.x < kSplitRows && p + threadIdx.x < i0 + nr) {
+          d = __ldg(dq + p + threadIdx.x);
+          load_px<kEpi>(pv, xv, d, pd, xd);
+        }
+      }
       T acc[kSplitRows];
       const T* row[kSplitRows];
 #pragma unroll
@@ -112,18 +156,18 @@ agg_block_kernel(T* __restrict__ z, const T* __restrict__ r, const int* __restri
         row[u] = B + (long long)(p + u < i0 + nr ? p + u : p) * k;
       }
       for (int j0 = threadIdx.x; j0 < k; j0 += kSplitUnroll * kAggThreads) {
-        T xv[kSplitUnroll], bv[kSplitRows][kSplitUnroll];
+        T rv[kSplitUnroll], bv[kSplitRows][kSplitUnroll];
 #pragma unroll
         for (int s = 0; s < kSplitUnroll; ++s) {
           const int j = j0 + s * kAggThreads;
-          xv[s] = j < k ? rs[j] : T(0);
+          rv[s] = j < k ? rs[j] : T(0);
 #pragma unroll
           for (int u = 0; u < kSplitRows; ++u) bv[u][s] = j < k ? __ldg(row[u] + j) : T(0);
         }
 #pragma unroll
         for (int s = 0; s < kSplitUnroll; ++s)
 #pragma unroll
-          for (int u = 0; u < kSplitRows; ++u) acc[u] += bv[u][s] * xv[s];
+          for (int u = 0; u < kSplitRows; ++u) acc[u] += bv[u][s] * rv[s];
       }
 #pragma unroll
       for (int u = 0; u < kSplitRows; ++u) {
@@ -135,7 +179,10 @@ agg_block_kernel(T* __restrict__ z, const T* __restrict__ r, const int* __restri
         T t = part[0][threadIdx.x];
 #pragma unroll
         for (int w = 1; w < kWarps; ++w) t += part[w][threadIdx.x];
-        z[__ldg(dq + p + threadIdx.x)] = t;
+        if constexpr (kEpi == kStoreZ)
+          z[__ldg(dq + p + threadIdx.x)] = t;
+        else
+          finish_px<kEpi>(pv, xv, d, t, pd, xd, a, c, beta);
       }
       __syncthreads();
     }
@@ -151,6 +198,15 @@ agg_block_kernel(T* __restrict__ z, const T* __restrict__ r, const int* __restri
       const T* rq = rs + (q - q0) * k;
       const T* Bq = B + (long long)q * k * k;
       for (int i = lo + warp * kRows; i < hi; i += kWarps * kRows) {
+        // (the z modes) lane u < kRows stores row i + u
+        int d = 0;
+        T pd = T(0), xd = T(0);
+        if constexpr (kEpi != kStoreZ) {
+          if (lane < kRows && i + lane < hi) {
+            d = __ldg(dq + i + lane);
+            load_px<kEpi>(pv, xv, d, pd, xd);
+          }
+        }
         T acc[kRows];
         const T* row[kRows];
 #pragma unroll
@@ -172,11 +228,18 @@ agg_block_kernel(T* __restrict__ z, const T* __restrict__ r, const int* __restri
 #pragma unroll
             for (int u = 0; u < kRows; ++u) acc[u] += bv[u][s] * rv[s];
         }
+        T own = T(0);
 #pragma unroll
         for (int u = 0; u < kRows; ++u) {
-          const T s = group_sum(acc[u], 32);
-          if (lane == 0 && i + u < hi) z[__ldg(dq + i + u)] = s;
+          const T s = group_sum(acc[u], 32);   // the same bits in every lane
+          if constexpr (kEpi == kStoreZ) {
+            if (lane == 0 && i + u < hi) z[__ldg(dq + i + u)] = s;
+          } else if (lane == u) {
+            own = s;
+          }
         }
+        if constexpr (kEpi != kStoreZ)
+          if (lane < kRows && i + lane < hi) finish_px<kEpi>(pv, xv, d, own, pd, xd, a, c, beta);
       }
     }
   } else {
@@ -186,40 +249,96 @@ agg_block_kernel(T* __restrict__ z, const T* __restrict__ r, const int* __restri
     for (int base = 0; base < nr; base += groups * kRows) {
       T acc[kRows];
       int g[kRows];
+      // (the z modes) each group's lane 0 stores its rows g[u]
+      int d[kRows];
+      T pd[kRows], xd[kRows];
 #pragma unroll
       for (int u = 0; u < kRows; ++u) {
         g[u] = i0 + base + u * groups + grp;
+        if constexpr (kEpi != kStoreZ) {
+          d[u] = 0;
+          pd[u] = xd[u] = T(0);
+          if (gl == 0 && g[u] < i0 + nr) {
+            d[u] = __ldg(dofs + d0 + g[u]);
+            load_px<kEpi>(pv, xv, d[u], pd[u], xd[u]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
         acc[u] = T(0);
         if (gl < k && g[u] < i0 + nr) {
-          const int c = g[u] - g[u] % k + gl;
-          acc[u] = __ldg(B + (long long)g[u] * k + gl) * __ldg(r + __ldg(dofs + d0 + c));
+          const int col = g[u] - g[u] % k + gl;
+          acc[u] = __ldg(B + (long long)g[u] * k + gl) * __ldg(r + __ldg(dofs + d0 + col));
         }
       }
 #pragma unroll
       for (int u = 0; u < kRows; ++u) {
         const T s = group_sum(acc[u], G);
-        if (gl == 0 && g[u] < i0 + nr) z[__ldg(dofs + d0 + g[u])] = s;
+        if (gl == 0 && g[u] < i0 + nr) {
+          if constexpr (kEpi == kStoreZ)
+            z[__ldg(dofs + d0 + g[u])] = s;
+          else
+            finish_px<kEpi>(pv, xv, d[u], s, pd[u], xd[u], a, c, beta);
+        }
       }
     }
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kAggThreads, kMinBlocks)
+agg_block_kernel(T* __restrict__ z, const T* __restrict__ r, const int* __restrict__ dofs,
+                 const long long* __restrict__ dptr, const T* __restrict__ inv,
+                 const long long* __restrict__ iptr, const int* __restrict__ work) {
+  agg_block_item<kStoreZ>(z, (T*)nullptr, (T*)nullptr, T(0), T(0), T(0), r, dofs, dptr, inv,
+                          iptr, work);
+}
+
+// A1 with C1's z mode as its epilogue: one launch per smoothing step
+template <int kEpi, typename T>
+__global__ void __launch_bounds__(kAggThreads, kMinBlocksFused<T>)
+agg_block_cheby_kernel(T* __restrict__ p, T* __restrict__ x, T a, T c, T beta,
+                       const T* __restrict__ r, const int* __restrict__ dofs,
+                       const long long* __restrict__ dptr, const T* __restrict__ inv,
+                       const long long* __restrict__ iptr, const int* __restrict__ work) {
+  agg_block_item<kEpi>((T*)nullptr, p, x, a, c, beta, r, dofs, dptr, inv, iptr, work);
+}
+
 // `stage`: the most values of r that one item stages (the wrapper's
 // agg_stage), the dynamic shared memory of every thread block
-template <typename T>
-int launch_agg(void* z, const void* r, const void* dofs, const void* dptr, const void* inv,
-               const void* iptr, const void* work, int nitems, int stage, int device,
-               void* stream) {
+template <typename T, typename Kernel, typename... Args>
+int launch_items(Kernel kernel, int nitems, int stage, int device, void* stream, Args... args) {
   PTT_TRY(cudaSetDevice(device));
   if (nitems <= 0) return (int)cudaSuccess;
   const size_t smem = (size_t)stage * sizeof(T);
   if (smem > kDefaultSmem)
-    PTT_TRY(cudaFuncSetAttribute(agg_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem));
-  agg_block_kernel<T><<<nitems, kAggThreads, smem, (cudaStream_t)stream>>>(
-      (T*)z, (const T*)r, (const int*)dofs, (const long long*)dptr, (const T*)inv,
-      (const long long*)iptr, (const int*)work);
+    PTT_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  kernel<<<nitems, kAggThreads, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_agg(void* z, const void* r, const void* dofs, const void* dptr, const void* inv,
+               const void* iptr, const void* work, int nitems, int stage, int device,
+               void* stream) {
+  return launch_items<T>(agg_block_kernel<T>, nitems, stage, device, stream, (T*)z,
+                         (const T*)r, (const int*)dofs, (const long long*)dptr, (const T*)inv,
+                         (const long long*)iptr, (const int*)work);
+}
+
+// mode 0: first_z, 1: step_z; a, c and beta rounded to T, as cheby.cu does
+template <typename T>
+int launch_agg_cheby(int mode, void* p, void* x, const void* r, const void* dofs,
+                     const void* dptr, const void* inv, const void* iptr, const void* work,
+                     int nitems, int stage, double a, double c, double beta, int device,
+                     void* stream) {
+  if (mode != 0 && mode != 1) return (int)cudaErrorInvalidValue;
+  return launch_items<T>(mode == 0 ? agg_block_cheby_kernel<kFirstZ, T>
+                                   : agg_block_cheby_kernel<kStepZ, T>,
+                         nitems, stage, device, stream, (T*)p, (T*)x, (T)a, (T)c, (T)beta,
+                         (const T*)r, (const int*)dofs, (const long long*)dptr, (const T*)inv,
+                         (const long long*)iptr, (const int*)work);
 }
 
 }  // namespace
@@ -234,4 +353,22 @@ extern "C" int ptt_agg_block_apply_f32(void* z, const void* r, const void* dofs,
                                        const void* inv, const void* iptr, const void* work,
                                        int nitems, int stage, int device, void* stream) {
   return launch_agg<float>(z, r, dofs, dptr, inv, iptr, work, nitems, stage, device, stream);
+}
+
+extern "C" int ptt_agg_block_cheby_f64(int mode, void* p, void* x, const void* r,
+                                       const void* dofs, const void* dptr, const void* inv,
+                                       const void* iptr, const void* work, int nitems,
+                                       int stage, double a, double c, double beta, int device,
+                                       void* stream) {
+  return launch_agg_cheby<double>(mode, p, x, r, dofs, dptr, inv, iptr, work, nitems, stage, a,
+                                  c, beta, device, stream);
+}
+
+extern "C" int ptt_agg_block_cheby_f32(int mode, void* p, void* x, const void* r,
+                                       const void* dofs, const void* dptr, const void* inv,
+                                       const void* iptr, const void* work, int nitems,
+                                       int stage, double a, double c, double beta, int device,
+                                       void* stream) {
+  return launch_agg_cheby<float>(mode, p, x, r, dofs, dptr, inv, iptr, work, nitems, stage, a,
+                                 c, beta, device, stream);
 }

@@ -13,7 +13,9 @@
 // and the z modes finish the step with z in place of dinv r:
 //   mode first_z:  p = c z;        x += beta p
 //   mode step_z:   p = a p + c z;  x += beta p
-// leaving r alone.
+// leaving r alone. The smoother takes them only for a PC without a fused
+// step: A1 finishes the step itself at its stores (agg_block.cu's
+// epilogue), and writes no z.
 // The first kind takes beta = 1 and (first) c = 1/theta, (step) a = rho_n
 // rho, c = 2 rho_n / delta; the fourth kind (first) c = 4/(3 rho) and
 // (step) a = (2k-3)/(2k+1), c = (8k-4)/((2k+1) rho), beta = 1 or its
@@ -111,20 +113,16 @@ cheby_update_kernel(T* r, T* p, T* x, const T* b, const T* w, const T* d, T a, T
   }
 }
 
-// The z modes: p and x updated from z, one element per thread and step.
+// The z modes: p and x updated from z, one element per thread and step
+// (ptt::cheby_z_update, which A1's fused epilogue calls too).
 template <bool kFirst, typename T>
 __global__ void __launch_bounds__(ptt::kThreads)
 cheby_update_z_kernel(T* p, T* x, const T* z, T a, T c, T beta, long long n) {
   const long long step = (long long)gridDim.x * ptt::kThreads;
   for (long long i = (long long)blockIdx.x * ptt::kThreads + threadIdx.x; i < n; i += step) {
-    const T zv = z[i];
-    T pv;
-    if constexpr (kFirst) {
-      pv = c * zv;
-    } else {
-      pv = a * p[i] + c * zv;
-    }
-    x[i] = x[i] + beta * pv;
+    T pv = kFirst ? T(0) : p[i], xv = x[i];
+    ptt::cheby_z_update<kFirst>(pv, xv, z[i], a, c, beta);
+    x[i] = xv;
     p[i] = pv;
   }
 }

@@ -37,6 +37,19 @@ struct alignas(16) Pack {
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+
+// C1's z modes on one element: p = c z (kFirst) or p = a p + c z, then
+// x += beta p. The standalone z kernel (cheby.cu) and A1's epilogue
+// (agg_block.cu) both call it; the fused multiply-adds are written out, so
+// no contraction the compiler picks can make the two give other bits.
+template <bool kFirst, typename T>
+__device__ __forceinline__ void cheby_z_update(T& p, T& x, T z, T a, T c, T beta) {
+  p = kFirst ? c * z : fma_rn(a, p, c * z);
+  x = fma_rn(beta, p, x);
+}
+
 // Blocks for a grid-stride loop over `work` items: enough to fill every SM,
 // never more than the work needs, never more than `cap`.
 inline int grid_for(long long work, int device, long long cap) {

@@ -11,10 +11,12 @@ Jacobi) so that the whole elementwise tail of each step after its SpMV
 is one launch of the hand kernel C1
 (:func:`ops.pallas_kernels.cheby_update`). Another smoothing PC (the
 aggregate-block smoother) comes as the function z = pc(r): r is then
-formed first (K2), and C1's z modes finish the step with z. They own r and p, and update
-x in place. The reference's ``lax.while_loop`` in :func:`solve_chebyshev`
-becomes a Python loop with one host read of the norm per iteration, as
-in ``impls_basic.solve_cg``.
+formed first (K2), and the step's tail is the PC's fused step where it
+has one (``pc.fused``: the aggregate-block smoother's A1 with C1's z mode
+as its epilogue, one launch), else pc(r) and C1's z mode. They own r and
+p, and update x in place. The reference's ``lax.while_loop`` in
+:func:`solve_chebyshev` becomes a Python loop with one host read of the
+norm per iteration, as in ``impls_basic.solve_cg``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,18 @@ from .common import (KSPConfig, NONE, SolveResult, check_converged,
 from .impls_basic import _dp
 
 
+def pc_step(pc, mode, r, p, x, c, beta=1.0, a=0.0):
+    """A step's tail with the smoothing PC z = pc(r), r formed: p = c z
+    (first_z) or a p + c z (step_z), then x += beta p, in place. One
+    launch of the PC's fused step where it offers one, else pc(r) and C1's
+    z mode."""
+    fused = getattr(pc, "fused", None)
+    if fused is not None:
+        fused(mode, r, p, x, c, beta, a)
+    else:
+        cheby_update_z(mode, p, x, pc(r), c, beta, a)
+
+
 def cheby_smooth(amult, dinv, b, x, its: int, emin, emax):
     """x <- Chebyshev(its) of the first kind applied to A x = b from x,
     with the Jacobi preconditioner dinv (the classical preconditioned
@@ -44,11 +58,11 @@ def cheby_smooth(amult, dinv, b, x, its: int, emin, emax):
     if callable(dinv):
         minus_one = torch.full((), -1.0, dtype=b.dtype, device=b.device)
         triad(b, amult(x), minus_one, out=r)
-        cheby_update_z("first_z", p, x, dinv(r), 1.0 / theta)
+        pc_step(dinv, "first_z", r, p, x, 1.0 / theta)
         for _ in range(1, its):
             rho_new = 1.0 / (2.0 * sigma1 - rho)
             triad(r, amult(p), minus_one, out=r)
-            cheby_update_z("step_z", p, x, dinv(r), 2.0 * rho_new / delta, a=rho_new * rho)
+            pc_step(dinv, "step_z", r, p, x, 2.0 * rho_new / delta, a=rho_new * rho)
             rho = rho_new
         return x
     # r = b - A x; p = z / theta; x += p
@@ -83,11 +97,11 @@ def cheby_smooth4(amult, dinv, b, x, its: int, emax, optimized=False):
     if callable(dinv):
         minus_one = torch.full((), -1.0, dtype=b.dtype, device=b.device)
         triad(b, amult(x), minus_one, out=r)
-        cheby_update_z("first_z", d, x, dinv(r), 4.0 / (3.0 * rho), beta=float(bet[0]))
+        pc_step(dinv, "first_z", r, d, x, 4.0 / (3.0 * rho), beta=float(bet[0]))
         for k in range(2, its + 1):
             triad(r, amult(d), minus_one, out=r)
-            cheby_update_z("step_z", d, x, dinv(r), (8.0 * k - 4.0) / ((2.0 * k + 1.0) * rho),
-                           beta=float(bet[k - 1]), a=(2.0 * k - 3.0) / (2.0 * k + 1.0))
+            pc_step(dinv, "step_z", r, d, x, (8.0 * k - 4.0) / ((2.0 * k + 1.0) * rho),
+                    beta=float(bet[k - 1]), a=(2.0 * k - 3.0) / (2.0 * k + 1.0))
         return x
     cheby_update("first", r, d, x, amult(x), dinv, 4.0 / (3.0 * rho), beta=float(bet[0]), b=b)
     for k in range(2, its + 1):

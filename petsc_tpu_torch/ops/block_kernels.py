@@ -7,6 +7,8 @@ and loaded by :mod:`.cuda_build`):
 
   bsr_spmv         B1  csrc/bsr_spmv.cu   mat/aij.py:1494-1504 _bind_aij_bell mult
   agg_block_apply  A1  csrc/agg_block.cu  pc/mg.py:516-525 (the asm_agg smoother's apply)
+  agg_block_cheby  A1  csrc/agg_block.cu  the same, with C1's z mode as its epilogue
+                                          (ksp/cheby.py:36-37, :42-43, :79-80)
 
 Every wrapper checks device, dtype (float64 or float32), shape and
 contiguity, allocates its output with ``torch.empty``, launches on the
@@ -23,9 +25,10 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from .pallas_kernels import cheby_update_z_plain
 
 # launches of each kernel since the last reset_launches()
-LAUNCHES = {"bsr_spmv": 0, "agg_block_apply": 0}
+LAUNCHES = {"bsr_spmv": 0, "agg_block_apply": 0, "agg_block_cheby": 0}
 
 _VALUES = (torch.float64, torch.float32)
 MAX_BS = 8                # B1: block sizes 2, 3, 4 and 6 compiled, others up to 8 at run time
@@ -219,8 +222,10 @@ def agg_stage(ks, work):
 def agg_block_tables(dof_lists, inv_flat, device, dtype):
     """The device tables of A1 and of its plain version from the host's
     ragged tables: `dof_lists` (an int64 array per block, in the order of
-    the blocks, which come grouped by size) and `inv_flat` (each block's
-    k x k inverse, row-major, one after the other). Returns a dict:
+    the blocks, which come grouped by size; together they hold each of 0,
+    ..., n - 1 once, which A1's single store per dof and its fused step
+    rely on) and `inv_flat` (each block's k x k inverse, row-major, one
+    after the other). Returns a dict:
     dofs, dptr, inv, iptr and work (A1's items, :func:`agg_work`), max_k,
     stage (:func:`agg_stage`) and groups ((dof index (na, k), first inverse
     entry, na, k) per size, for the plain version)."""
@@ -229,6 +234,9 @@ def agg_block_tables(dof_lists, inv_flat, device, dtype):
     iptr = np.concatenate([[0], np.cumsum(ks * ks)])
     work = agg_work(ks)
     dofs = np.concatenate(dof_lists).astype(np.int64)
+    if not np.array_equal(np.sort(dofs), np.arange(len(dofs))):
+        raise ValueError(f"agg_block_tables: the blocks' {len(dofs)} dofs repeat or miss one of "
+                         f"0..{len(dofs) - 1}")
     t = {"dofs": torch.as_tensor(dofs.astype(np.int32), device=device),
          "dptr": torch.as_tensor(dptr, device=device),
          "inv": torch.as_tensor(inv_flat, dtype=dtype, device=device),
@@ -277,3 +285,54 @@ def agg_block_apply(tab, r):
                           tab["dofs"].data_ptr(), tab["dptr"].data_ptr(), inv.data_ptr(),
                           tab["iptr"].data_ptr(), tab["work"].data_ptr(), nitems, tab["stage"])
     return z
+
+
+_AGG_CHEBY_MODES = {"first_z": 0, "step_z": 1}
+
+
+def agg_block_cheby_plain(tab, r, mode, p, x, c, beta=1.0, a=0.0):
+    """agg_block_cheby's function in PyTorch ops: A1's plain version, then
+    C1's z mode's on its z."""
+    return cheby_update_z_plain(mode, p, x, agg_block_apply_plain(tab, r), c, beta, a)
+
+
+def _overlap(s, t):
+    """Whether the memory of two tensors overlaps."""
+    a, b = s.data_ptr(), t.data_ptr()
+    return a < b + t.numel() * t.element_size() and b < a + s.numel() * s.element_size()
+
+
+def agg_block_cheby(tab, r, mode, p, x, c, beta=1.0, a=0.0):
+    """The tail of one Chebyshev smoothing step with the aggregate-block PC
+    in one launch of A1: z = M^-1 r (agg_block_apply) finished at its store
+    by C1's z mode (first_z: p = c z; step_z: p = a p + c z; then x +=
+    beta p), with no z written. p and x are updated in place and must not
+    overlap each other or r (the kernel stages r while it writes them).
+    Returns (p, x)."""
+    if mode not in _AGG_CHEBY_MODES:
+        raise ValueError(f"agg_block_cheby: mode must be 'first_z' or 'step_z', got {mode!r}")
+    for t in (r, p, x):
+        _check("agg_block_cheby", t, _VALUES)
+    _same_device("agg_block_cheby", r, p, x)
+    inv = tab["inv"]
+    if not (inv.dtype == r.dtype == p.dtype == x.dtype) or inv.device != r.device:
+        raise TypeError(f"agg_block_cheby: tables {inv.dtype} on {inv.device}, r {r.dtype}, "
+                        f"p {p.dtype}, x {x.dtype} on {r.device}")
+    if not tab["dofs"].numel() == r.numel() == p.numel() == x.numel():
+        raise ValueError(f"agg_block_cheby: tables for {tab['dofs'].numel()} dofs, r of "
+                         f"{r.numel()}, p of {p.numel()}, x of {x.numel()}")
+    if r.numel() and (_overlap(p, r) or _overlap(x, r) or _overlap(p, x)):
+        raise ValueError("agg_block_cheby: p, x and r must be three separate buffers")
+    if r.device.type == "cpu":
+        return agg_block_cheby_plain(tab, r, mode, p, x, c, beta, a)
+    if tab["stage"] * r.element_size() > 227 * 1024:
+        raise ValueError(f"agg_block_cheby: an item stages {tab['stage']} values of r, more "
+                         "than the shared memory of one thread block holds")
+    nitems = tab["work"].numel() // 3
+    if nitems:
+        cuda_build.launch(LAUNCHES, "agg_block_cheby", r, _AGG_CHEBY_MODES[mode], p.data_ptr(),
+                          x.data_ptr(), r.data_ptr(), tab["dofs"].data_ptr(),
+                          tab["dptr"].data_ptr(), inv.data_ptr(), tab["iptr"].data_ptr(),
+                          tab["work"].data_ptr(), nitems, tab["stage"], float(a), float(c),
+                          float(beta))
+    return p, x

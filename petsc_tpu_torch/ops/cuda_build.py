@@ -83,6 +83,10 @@ SIGNATURES = {
     "ptt_bsr_spmv_config": (_i64, _i32, _i32, _i32, _vp),
     "ptt_agg_block_apply_f64": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _vp),
     "ptt_agg_block_apply_f32": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _vp),
+    "ptt_agg_block_cheby_f64": (_i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32,
+                                _f64, _f64, _f64, _i32, _vp),
+    "ptt_agg_block_cheby_f32": (_i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32,
+                                _f64, _f64, _f64, _i32, _vp),
 }
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 

@@ -32,7 +32,9 @@ exact sub-solves, mg.py:121-169): the dense inverse of the operator's
 diagonal block over each aggregate's dofs, stored ragged (each inverse at
 an offset in one flat array beside its dof list; the reference pads every
 block to the largest, 425 GiB at ex56 ne 40), applied by the hand kernel
-A1 (:func:`..ops.block_kernels.agg_block_apply`); the level's Chebyshev
+A1 (:func:`..ops.block_kernels.agg_block_apply`), whose fused entry
+(:func:`..ops.block_kernels.agg_block_cheby`) finishes each smoothing
+step at its stores, so a step's tail is one launch; the level's Chebyshev
 bounds are those of M^-1 A by the host Arnoldi through that PC.
 
 The one-device port has no padded layouts, so the reference's ``_fit``
@@ -49,11 +51,11 @@ import numpy as np
 import torch
 
 from .. import config, native
-from ..ksp.cheby import cheby_smooth, cheby_smooth4
+from ..ksp.cheby import cheby_smooth, cheby_smooth4, pc_step
 from ..ops import operator
-from ..ops.block_kernels import (agg_block_apply, agg_block_apply_plain, agg_block_tables,
-                                 size_runs)
-from ..ops.pallas_kernels import cheby_update, cheby_update_z, dot2, triad
+from ..ops.block_kernels import (agg_block_apply, agg_block_apply_plain, agg_block_cheby,
+                                 agg_block_tables, size_runs)
+from ..ops.pallas_kernels import cheby_update, dot2, triad
 from ..sys.error import Error
 from .pc import PC
 
@@ -422,11 +424,26 @@ def _smooth(kind, Aop, dinv, eig, b, x, its):
             if callable(dinv):
                 triad(b, Aop.mult(x), torch.full((), -1.0, dtype=b.dtype, device=b.device),
                       out=r)
-                cheby_update_z("first_z", p, x, dinv(r), 1.0)
+                pc_step(dinv, "first_z", r, p, x, 1.0)
             else:
                 cheby_update("first", r, p, x, Aop.mult(x), dinv, 1.0, b=b)
         return x
     raise Error(f"PCMG: unknown smoother {kind}")
+
+
+class AggBlockPC:
+    """The aggregate-block smoother on A1's tables: z = pc(r), and
+    fused(mode, r, p, x, c, beta, a), a smoothing step's tail in one launch
+    (:func:`..ops.block_kernels.agg_block_cheby`)."""
+
+    def __init__(self, tab):
+        self.tab = tab
+
+    def __call__(self, r):
+        return agg_block_apply(self.tab, r)
+
+    def fused(self, mode, r, p, x, c, beta=1.0, a=0.0):
+        return agg_block_cheby(self.tab, r, mode, p, x, c, beta, a)
 
 
 def _bind_pc_mg(meta, data):
@@ -473,8 +490,7 @@ def _bind_pc_mg(meta, data):
         Pop = operator.bind(P_meta, ld["P"])
         restrict = Pop.mult_t if R_meta is None else operator.bind(R_meta, ld["R"]).mult
         if "agg" in ld:
-            tab = ld["agg"]
-            pc = lambda v: agg_block_apply(tab, v)  # noqa: E731
+            pc = AggBlockPC(ld["agg"])
         else:
             pc = ld["dinv"]
         return (operator.bind(A_meta, ld["A"]), Pop, restrict, pc, ld["eig"], kind, pre, post)

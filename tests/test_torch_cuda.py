@@ -935,11 +935,39 @@ def test_cheby_z_modes_equal_plain(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ("first_z", "step_z"))
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_agg_block_cheby_equals_a1_then_c1z(cuda_device, dtype, mode):
+    """A1's fused Chebyshev step on blocks of 1 to 700 dofs (every mapping
+    of the kernel): one launch per call and no other, equal bits with A1
+    followed by C1's z mode, within 1e-12 / 1e-5 of its plain version on
+    p and x."""
+    from petsc_tpu_torch.ops import block_kernels as bk
+    tab = chip_smoke.ragged_agg_tables(cuda_device, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    r, p0, x0 = (torch.rand(tab["dofs"].numel(), generator=gen, device=cuda_device,
+                            dtype=dtype) for _ in range(3))
+    kw = chip_smoke.AGG_CHEBY_KW[mode]
+    p, x = p0.clone(), x0.clone()
+    chip_smoke.reset_launches()
+    bk.agg_block_cheby(tab, r, mode, p, x, **kw)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in chip_smoke.launch_counts().items() if v} == {"agg_block_cheby": 1}
+    p2, x2 = p0.clone(), x0.clone()
+    pk.cheby_update_z(mode, p2, x2, bk.agg_block_apply(tab, r), **kw)
+    assert torch.equal(p, p2) and torch.equal(x, x2)
+    pp, xp = p0.clone(), x0.clone()
+    bk.agg_block_cheby_plain(tab, r, mode, pp, xp, **kw)
+    assert _rel(p, pp) <= TOL[dtype] and _rel(x, xp) <= TOL[dtype]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ("defaults", "knobs"))
 def test_ex56_on_the_card_equals_the_cpu_port(cuda_device, mode):
     """ex56 at ne 6 through the port's example program on the card and on the CPU:
     the same iterations and history to 1e-10 relative; the block product
-    (and, with the knob set, the aggregate-block smoother) launched."""
+    launched and, with the knob set, the aggregate-block smoother's fused
+    step, two per level and application, with no A1 alone and no C1z."""
     from petsc_tpu_torch.examples import ex56
     args = ["-ne", "6"] + (["-ksp_type", "cg", "-pc_type", "gamg"] if mode == "defaults"
                            else chip_smoke.EX56_KNOBS)
@@ -953,4 +981,6 @@ def test_ex56_on_the_card_equals_the_cpu_port(cuda_device, mode):
     assert np.max(np.abs(out[None][1] - out["cpu"][1]) / out["cpu"][1]) <= 1e-10
     assert out[None][2]["bsr_spmv"] >= out[None][0]
     if mode == "knobs":
-        assert out[None][2]["agg_block_apply"] > 0 and out[None][2]["cheby_update_z"] > 0
+        fine = len(ksp.getPC()._impl.levels) - 1
+        assert out[None][2]["agg_block_cheby"] == 2 * fine * (out[None][0] + 1)
+        assert out[None][2]["agg_block_apply"] == out[None][2]["cheby_update_z"] == 0

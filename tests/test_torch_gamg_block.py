@@ -25,6 +25,7 @@ import petsc_tpu_torch as ptt
 from examples import ex56 as ex56_jax
 from petsc_tpu.pc import gamg as gamg_jax
 from petsc_tpu_torch.examples import ex56
+from petsc_tpu_torch.ksp import cheby as cheby_port
 from petsc_tpu_torch.ops import block_kernels as bk
 from petsc_tpu_torch.pc import gamg
 
@@ -144,20 +145,49 @@ def _assert_same_solve(kp, kj):
     assert np.max(np.abs(hp - hj) / hj) <= HIST_RTOL
 
 
+@pytest.fixture
+def fused_steps(monkeypatch):
+    """The modes of the aggregate-block smoother's fused steps (A1 with
+    C1's z mode as its epilogue; its plain version on the CPU), in order;
+    a z-mode step taken apart from A1 fails the test."""
+    modes, plain = [], bk.agg_block_cheby_plain
+
+    def counted(tab, r, mode, *args, **kw):
+        modes.append(mode)
+        return plain(tab, r, mode, *args, **kw)
+
+    def apart(*args, **kw):
+        raise AssertionError("a smoothing step took C1's z mode apart from A1")
+
+    monkeypatch.setattr(bk, "agg_block_cheby_plain", counted)
+    monkeypatch.setattr(cheby_port, "cheby_update_z", apart)
+    return modes
+
+
+def _fused_per_solve(ksp, per_smoothing):
+    """The fused steps of one solve: pre- and post-smoothing on every level
+    but the coarsest, once per PC application (its + 1)."""
+    fine = len(ksp.getPC()._impl.levels) - 1
+    return 2 * per_smoothing * fine * (ksp.getIterationNumber() + 1)
+
+
 EX56_CASES = {   # (ne, mode): the reference's iterations
     (4, "defaults"): 6, (8, "defaults"): 7, (11, "knobs"): 10, (11, "transposed"): 15,
 }
 
 
 @pytest.mark.parametrize("ne,mode", tuple(EX56_CASES))
-def test_ex56_matches_the_reference(ne, mode):
+def test_ex56_matches_the_reference(ne, mode, fused_steps):
     """The port's example (createRigidBody) against the JAX package given
     the same modes as an array (ex56_contract.py): PETSc's ex56 test counts
-    10 with correct modes and 15 with ex56.c's transposed ones."""
+    10 with correct modes and 15 with ex56.c's transposed ones. The knob
+    set smooths through A1's fused step alone, one per Chebyshev(1) step."""
     kp = _port_solve(ne, mode)
     kj = _jax_solve(ne, mode, _crb_jax)
     _assert_same_solve(kp, kj)
     assert kp.getIterationNumber() == EX56_CASES[(ne, mode)]
+    want = 0 if mode == "defaults" else _fused_per_solve(kp, 1)
+    assert fused_steps == ["first_z"] * want
     lp, lj = kp.getPC()._impl.levels, kj.getPC()._impl.levels
     assert [lv.A.getSize()[0] for lv in lp] == [lv.A.getSize()[0] for lv in lj]
     assert kp.getPC().getOperators()[0].meta[0] == "aij_bsr"
@@ -297,16 +327,19 @@ def test_pc_hmg_block_system():
         assert abs(a.emax - b.emax) <= 1e-12 * b.emax and abs(a.emin - b.emin) <= 1e-12 * b.emin
 
 
-@pytest.mark.parametrize("smoother", ("chebyshev", "fourth", "richardson"))
-def test_aggregate_block_smoother_in_every_smoother(smoother):
+@pytest.mark.parametrize("smoother", ("chebyshev", "fourth", "opt_fourth", "richardson"))
+def test_aggregate_block_smoother_in_every_smoother(smoother, fused_steps):
     """The knob set at ne 6 with two smoothing steps of each kind, so the
-    aggregate-block PC runs through C1's step_z mode and the fourth-kind
-    and Richardson paths too."""
+    aggregate-block PC runs through the fused step_z mode and the
+    fourth-kind (also with its optimized beta) and Richardson paths too,
+    every step one fused step."""
     options = list(chip_smoke.EX56_KNOBS)
     options[options.index("-mg_levels_ksp_max_it") + 1] = "2"
     options[options.index("-mg_levels_ksp_type") + 1] = smoother
-    _assert_same_solve(_port_solve(6, "knobs", options=options),
-                       _jax_solve(6, "knobs", _crb_jax, options=options))
+    kp = _port_solve(6, "knobs", options=options)
+    _assert_same_solve(kp, _jax_solve(6, "knobs", _crb_jax, options=options))
+    steps = ("first_z", "first_z") if smoother == "richardson" else ("first_z", "step_z")
+    assert fused_steps == list(steps) * (_fused_per_solve(kp, 2) // 2)
 
 
 def _agg_emulated(tab, r):
