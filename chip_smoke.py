@@ -209,6 +209,29 @@ Phases, one JSON line each on stdout:
            (earlier_kernels/) in turns and torch.bmm on the reference's
            padded table; C1's z modes against their plain
            version at ne 24's level-0 length, timed beside their bound;
+  ex45     PETSc's ex45 (the 3-D Laplacian on a DMDA) through the steps of
+           petsc_tpu_torch/examples/ex45.py at -da_grid_x|y|z 129
+           (2,146,689 rows), CG to rtol 1e-8, under -pc_type mg (PCMG
+           from the DM: 7 levels, each rediscretized by compute_operators,
+           aij_dnd on V1, Q1P/Q1R) and -pc_type gamg (the structured head
+           on the DM's grid, then the host tail), every launch count set to
+           0 just before init and read just after the first solve; asserts
+           the contract of `python ex45_contract.py 129 mg|gamg`
+           (EX45_CONTRACT: its, reason, history to 1e-6, rows, operator and
+           transfer kinds per level, nnz, a true residual no worse than
+           10x) and exact launches (ex45_launches_needed); the host
+           seconds by event (compute_operators on each level, PCSetUp),
+           the warm solve (best of 3) and one profiled warm solve; the host
+           seconds of node_coords and interior_mask at 129^3; V1 on the
+           level-0 operator against its plain version (equal bits), timed
+           beside its bound; the dof-3 form at 65^3 (823,875 rows, aij_bsr
+           on B1, PCMG from the DM with Galerkin coarse levels, against
+           `python ex45_contract.py 65 dof3`, exact launches, warm solve);
+           Q1P and Q1R at dof 2 (1025^2) and dof 3 (65^3), f64 and f32,
+           against their plain versions (1e-12, 1e-5), timed beside the
+           plain version, the bound and F.interpolate / a depthwise
+           F.conv; ex2 (-ksp_monitor) and ex1 (-ksp_view) on the card, their
+           text held to the same runs under init(device="cpu");
   bench_gpu  python bench_gpu.py in a process of its own (the kernels built
            above reused): its JSON line, and its contract, BENCH_r05.json's
            solve (10 iterations, relres <= 1e-8, jacobi_its 184), the small-n
@@ -222,7 +245,9 @@ config 2's forward sweep in f64, with its variant, the grid variant's and
 the earlier design's times from the same turns, the entries-removed sweeps
 and the other sweeps beside it; B1's is ex56 ne 64's operator in f64, A1's
 ex56 ne 24's level-0 tables in f64, C1z's (C1's z modes, counted apart)
-the step_z mode in f64 at that level's length;
+the step_z mode in f64 at that level's length; Q1P's and Q1R's rows
+carry their dof rows and ex45's µs per level, V1's its time on ex45's
+level 0;
 every row of the path's kernels its µs per launch inside each solve, and
 every row its launches in each phase of bench_gpu.py), the nvidia-smi
 line, and last
@@ -456,6 +481,36 @@ EX56_CONTRACT = {                # (ne, mode): its, history, rows per level, tru
     },
 }
 EX56_HIST_TOL = 1e-6
+
+# PETSc's ex45 (the 3-D Laplacian on a DMDA) through the port's example
+# program (petsc_tpu_torch/examples/ex45.py): the contracts come from
+# `python ex45_contract.py 129 mg|gamg` and `python ex45_contract.py 65 dof3`
+# (the JAX package on the CPU, float64)
+EX45_N = 129
+EX45_DOF3_N = 65
+EX45_ARGS = ["-ksp_type", "cg", "-ksp_rtol", "1e-8"]
+EX45_HIST_TOL = 1e-6
+EX45_CONTRACT = {
+    "mg": {"its": 7, "true_relres": 1.2623704591419126e-06, "nnz": 14436987,
+           "rows": (2146689, 274625, 35937, 4913, 729, 125, 27),
+           "kinds": ("aij_dnd",) * 7, "p_kinds": ("interp_q1",) * 6,
+           "history": (63.51895966494416, 0.48806616039006867, 0.05768344353789537,
+                       0.011490918237553601, 0.0008185059891504089, 0.00010376808043257735,
+                       3.770842050486401e-06, 5.951820962599711e-07)},
+    "gamg": {"its": 6, "true_relres": 3.5649278346502423e-07, "nnz": 14436987,
+             "rows": (2146689, 274625, 35937, 4913, 729, 75, 6),
+             "kinds": ("aij_dnd",) * 5 + ("aij_csr",) * 2,
+             "p_kinds": ("interp_q1",) * 4 + ("aij_csr",) * 2,
+             "history": (64.35246620162307, 1.201080875409304, 0.01090981623807066,
+                         0.0003120301684096455, 1.559251239539435e-05, 7.396055187513974e-07,
+                         6.206446032413588e-08)},
+    "dof3": {"its": 6, "true_relres": 2.090866364350586e-07, "nnz": 5324721,
+             "rows": (823875, 107811, 14739, 2187, 375, 81, 24),
+             "kinds": ("aij_bsr",) + ("aij_csr",) * 6, "p_kinds": ("interp_q1",) * 6,
+             "history": (5689681.605855285, 20485.81404821816, 546.0693444084463,
+                         34.85445477039291, 1.5872633912398102, 0.17898562113330754,
+                         0.005464802542686356)},
+}
 EX56_RTOL = 1e-4
 
 DATA = Path(__file__).resolve().parent / "tests" / "data"
@@ -1491,9 +1546,11 @@ def phase_gamg(pt, pk, A, smi, t_start, flush):
 def product_kernel(meta):
     """The kernel that applies an operator of this meta: S1 for the
     constant stencil (build_dnd's folded box), V1 for every other grid
-    stencil, S2 for CSR."""
+    stencil, S2 for CSR, B1 for BSR."""
     if meta[0] == "aij_csr":
         return "csr_spmv"
+    if meta[0] == "aij_bsr":
+        return "bsr_spmv"
     if meta[0] == "aij_dnd" and len(meta) > 6 and all(c is not None for c in meta[6]):
         return "const_stencil"
     return "dnd_stencil"
@@ -3253,6 +3310,358 @@ def phase_ex56(pt, smi, t_start, flush, earlier):
     return out, b1, a1, c1z, a1c, launches, prof, k_launches, k_prof
 
 
+def ex45_launches_needed(its, levels, pc):
+    """The launches of one run of ex45 (PETSc's ex45 or its dof-3 form),
+    from init to the end of the first solve: K1 once (init); K8 twice per
+    setValuesCOO (v[perm] and the diagonal), on every level of PCMG from
+    the DM ("mg": each level rediscretized) and once otherwise ("gamg", and
+    "dof3", whose coarse levels are Galerkin products); and the solve of
+    grid_launches_needed: its + 1 PC applications, each with, on every level
+    but the coarsest, 5 products with the level's A (V1 on a grid level, B1
+    on a block one, S2 above), 4 C1, 2 K2 and the transfers (a Q1 P: one
+    Q1P and one Q1R; an aggregation P: two S2); CG's product with level 0's
+    A, two K2, one K3 and two K4 per iteration and one K4 before them. GAMG's
+    head adds, for each of its levels, 27 probes (a Q1P, a product, a Q1R)
+    and 10 Lanczos products; PCMG's bounds come from the host."""
+    napply = its + 1
+    probes, lanczos = (27, 10) if pc == "gamg" else (0, 0)
+    need = dict.fromkeys(GRID_KERNELS + ("bsr_spmv", "gather", "probe"), 0)
+    for lev in levels[:-1]:
+        a = product_kernel(lev.A.meta)
+        need[a] += 5 * napply
+        need["cheby_update"] += 4 * napply
+        need["triad"] += 2 * napply
+        if lev.P.meta[0] == "interp_q1":
+            need["q1_prolong"] += napply + probes
+            need["q1_restrict"] += napply + probes
+            need[a] += probes + lanczos
+        else:
+            need["csr_spmv"] += 2 * napply
+    need[product_kernel(levels[0].A.meta)] += its
+    need["triad"] += 2 * its
+    need["axpy_normsq"] += its
+    need["dot2"] += 1 + 2 * its
+    need["probe"] = 1
+    need["gather"] = 2 * (len(levels) if pc == "mg" else 1)
+    return need
+
+
+def set_up_events(pt):
+    """Every event of the profiler's main stage with its host seconds."""
+    stage = pt.log()._stages.get("Main Stage")
+    return {k: e.time for k, e in (stage.events.items() if stage else ()) if e.count}
+
+
+def check_ex45(ksp, A_sp, b_np, x, key):
+    """The contract of ex45_contract.py (EX45_CONTRACT[key]): its, reason,
+    history to 1e-6, rows and operator and transfer kinds per level, nnz, a
+    true residual no worse than 10x the reference's, finite values."""
+    import numpy as np
+    import torch
+    want = EX45_CONTRACT[key]
+    its, reason = ksp.getIterationNumber(), ksp.getConvergedReason().name
+    hist, wh = ksp.getConvergenceHistory(), np.array(want["history"])
+    hist_rel = (float(np.max(np.abs(hist - wh) / wh)) if hist.shape == wh.shape else math.inf)
+    levels = ksp.getPC()._impl.levels
+    hier = {"rows": tuple(lev.A.getSize()[0] for lev in levels),
+            "kinds": tuple(lev.A.meta[0] for lev in levels),
+            "p_kinds": tuple(lev.P.meta[0] for lev in levels[:-1])}
+    bad = {k: (v, want[k]) for k, v in hier.items() if v != want[k]}
+    xs = x.array.double().cpu().numpy()
+    true_rel = float(np.linalg.norm(b_np - A_sp @ xs) / np.linalg.norm(b_np))
+    if (its != want["its"] or reason != "CONVERGED_RTOL" or not hist_rel <= EX45_HIST_TOL
+            or bad or A_sp.nnz != want["nnz"] or not true_rel <= 10 * want["true_relres"]
+            or not bool(torch.isfinite(x.array).all())):
+        raise AssertionError(
+            f"ex45 {key}: its {its} (want {want['its']}), {reason}, history vs the reference "
+            f"{hist_rel}, hierarchy (got, want) {bad}, nnz {A_sp.nnz} (want {want['nnz']}), "
+            f"true relres {true_rel} (the reference's {want['true_relres']})")
+    return {"its": its, "reason": reason, "history_rel_diff_vs_reference": hist_rel,
+            **hier, "nnz": int(A_sp.nnz), "true_relres": true_rel,
+            "reference_true_relres": want["true_relres"],
+            "emax": [lev.emax for lev in levels[:-1]]}
+
+
+def ex45_case(pt, pc, profile=True):
+    """PETSc's ex45 at 129^3 through the steps of the port's example
+    (petsc_tpu_torch/examples/ex45.py main): init, DMDA.create and
+    setFromOptions (-da_grid_x|y|z 129), KSP.setDM, setComputeRHS,
+    setComputeOperators, setFromOptions, ksp.solve() with no arguments;
+    every launch count set to 0 just before init and read just after the
+    solve, held to ex45_launches_needed; the contract; the host seconds by
+    event (the COO assembly in compute_operators on each level, PCSetUp);
+    then the warm solve (best of 3) and one profiled warm solve. Returns
+    (the record, launches, profile, the level-0 operator)."""
+    import torch
+    from petsc_tpu_torch.examples import ex45
+    grid = [a for ax in "xyz" for a in (f"-da_grid_{ax}", str(EX45_N))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    pt.init(args=grid + EX45_ARGS + ["-pc_type", pc])
+    pt.log().reset()
+    da = pt.DMDA.create(3, (7, 7, 7), dof=1, stencil_width=1)
+    da.setFromOptions()
+    ksp = pt.KSP().create()
+    ksp.setDM(da)
+    ksp.setComputeRHS(ex45.compute_rhs)
+    ksp.setComputeOperators(ex45.compute_operators)
+    ksp.setFromOptions()
+    x = ksp.solve()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = launch_counts()
+    events = set_up_events(pt)
+    A = ksp.getOperators()[0]
+    b = da.createGlobalVector()
+    ex45.compute_rhs(ksp, b)
+    A_sp = A.to_scipy()
+    b_np = b.array.double().cpu().numpy()
+    chk = check_ex45(ksp, A_sp, b_np, x, pc)
+    levels = ksp.getPC()._impl.levels
+    need = ex45_launches_needed(chk["its"], levels, pc)
+    bad = {k: (launches[k], v) for k, v in need.items() if launches[k] != v}
+    if bad:
+        raise AssertionError(f"ex45 {pc}: launches (got, want): {bad}")
+    v1 = {str(lev.A.meta[1]): lev.A.op().mult.kernel for lev in levels
+          if product_kernel(lev.A.meta) == "dnd_stencil"}
+    if set(v1.values()) != {"window"}:
+        raise AssertionError(f"ex45 {pc}: V1's kernel per level: {v1}")
+    rec = {"pc": pc, "n": EX45_N, "rows": A_sp.shape[0], **chk,
+           "first_solve_s_incl_init_and_setup": first_s, "setup_events_s": events,
+           "compute_operators_s": {"level0": events.get("KSPComputeOperators"),
+                                   "coarse_levels": events.get("PCMGSetUp_compute_operators")},
+           "pc_setup_s": events.get(f"PCSetUp_{pc}"), "ksp_solve_s": events.get("KSPSolve"),
+           "launches": {k: v for k, v in launches.items() if v}, "launches_needed": need,
+           "v1_kernel_per_level": v1,
+           "peak_mem_MiB": torch.cuda.max_memory_allocated() / 2 ** 20}
+    prof = None
+    if profile:
+        xv = A.createVecRight()
+        warm = warm_ms(ksp, b, xv)
+        check_ex45(ksp, A_sp, b_np, xv, pc)
+        q1_levels = [lev.A.meta[1] for lev in levels[:-1] if lev.P.meta[0] == "interp_q1"]
+        prof = profile_solve(ksp, b, xv, warm, q1_levels)
+        check_ex45(ksp, A_sp, b_np, xv, pc)
+        rec.update(warm_ms_best_of_3=warm, ms_per_it=warm / chk["its"],
+                   device_busy_ms=prof["device_busy_ms"], busy_share=prof["busy_share_of_warm"],
+                   device_events=prof["device_events"])
+    return rec, launches, prof, A
+
+
+def ex45_v1_row(A, flush):
+    """V1 on ex45's level-0 operator as its binder planned it (129^3, the 7
+    planes of the star; the odd n2 takes the window kernel's scalar
+    variant) against its plain version in f64 (equal bits), timed after
+    the clean flush beside the plain version and its bound (the planes, x
+    and y moved once)."""
+    import torch
+    from petsc_tpu_torch.ops import grid_kernels as gridk
+    shape, offs = A.meta[1], A.meta[2]
+    coef = A.device_data()["coef"]
+    mult = A.op().mult
+    n = math.prod(shape)
+    x = torch.rand(n, generator=torch.Generator(device="cuda").manual_seed(7), device="cuda",
+                   dtype=coef.dtype)
+    cvals = (None,) * len(offs)
+    r = grid_kernel_row("dnd_stencil", coef.dtype, lambda: mult(x),
+                        lambda: gridk.dnd_stencil_plain(x, shape, offs, cvals, coef), None,
+                        (len(offs) + 2) * n * coef.element_size(), 2 * len(offs) * n,
+                        TOL[str(coef.dtype).replace("torch.", "")], shape=list(shape),
+                        planes=len(offs), kernel=mult.kernel,
+                        variant="vector" if mult.window["vector"] else "scalar",
+                        block=list(mult.window["block"]), grid=list(mult.window["grid"]),
+                        library="none: no single PyTorch call applies per-point coefficient "
+                                "planes")
+    if not r["equal_bits"]:
+        raise AssertionError("V1 on ex45's level 0 differs from its plain version in bits")
+    fn, plain = r.pop("_fn"), r.pop("_plain")
+    for k in ("_library", "_earlier"):
+        r.pop(k)
+    r["ms"] = time_ms(fn, flush)
+    r["plain_ms"] = time_ms(plain, flush)
+    r["library_ms"] = None
+    r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    return r
+
+
+def ex45_dof3_case(pt):
+    """dof 3 on a 65^3 DMDA (823,875 rows, ex56 ne 64's scale): ex45's
+    operator for each component (ex45.component_laplacian) assembled by
+    COO into da.createMatrix() (kind aij_bsr, B1), KSP.setOperators with no
+    callback, so that PCMG from the DM takes Galerkin coarse operators
+    through kron(P, I_3) (Q1P/Q1R at dof 3), b = 1, CG to rtol 1e-8; the
+    launches as ex45_launches_needed counts them, the contract of
+    `python ex45_contract.py 65 dof3`, and the warm solve."""
+    import torch
+    from petsc_tpu_torch.examples import ex45
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    pt.init(args=EX45_ARGS + ["-pc_type", "mg"])
+    pt.log().reset()
+    da = pt.DMDA.create(3, (EX45_DOF3_N,) * 3, dof=3, stencil_width=1)
+    A = da.createMatrix()
+    i, j, v = ex45.component_laplacian(da)
+    t1 = time.perf_counter()
+    A.setPreallocationCOO(i, j)
+    A.setValuesCOO(v)
+    torch.cuda.synchronize()
+    coo_s = time.perf_counter() - t1
+    del i, j, v
+    ksp = pt.KSP().create()
+    ksp.setOperators(A)
+    ksp.setFromOptions()
+    b = A.createVecLeft()
+    b.set(1.0)
+    x = A.createVecRight()
+    ksp.solve(b, x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = launch_counts()
+    events = set_up_events(pt)
+    A_sp = A.to_scipy()
+    b_np = b.array.double().cpu().numpy()
+    chk = check_ex45(ksp, A_sp, b_np, x, "dof3")
+    levels = ksp.getPC()._impl.levels
+    need = ex45_launches_needed(chk["its"], levels, "dof3")
+    bad = {k: (launches[k], v) for k, v in need.items() if launches[k] != v}
+    if bad:
+        raise AssertionError(f"ex45 dof3: launches (got, want): {bad}")
+    warm = warm_ms(ksp, b, x)
+    check_ex45(ksp, A_sp, b_np, x, "dof3")
+    return {"n": EX45_DOF3_N, "dof": 3, **chk, "coo_assembly_s": coo_s,
+            "first_solve_s_incl_init_and_setup": first_s, "setup_events_s": events,
+            "launches": {k: v for k, v in launches.items() if v}, "launches_needed": need,
+            "warm_ms_best_of_3": warm, "ms_per_it": warm / chk["its"]}, launches
+
+
+def q1_dof_rows(gridk, flush):
+    """Q1P and Q1R at dof 2 on a 2-D grid (1025^2 <- 513^2) and dof 3 on a
+    3-D one (65^3 <- 33^3, the dof-3 solve's finest transfer), f64 and f32,
+    each against its plain version (1e-12 relative in f64, 1e-5 in f32;
+    equal bits reported), timed after the clean flush beside the plain
+    version, its bound (the fine and the coarse vector moved once) and the
+    library call (F.interpolate, bilinear or trilinear with align_corners,
+    and the depthwise F.conv2d/conv3d of stride 2 with the [.5, 1, .5]
+    weights, on the components as channels in channels-last layout, which
+    is the DMDA's)."""
+    import torch
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(45)
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    for dtype in (torch.float64, torch.float32):
+        isz = torch.empty((), dtype=dtype).element_size()
+        for fshape, dof in (((1025, 1025), 2), ((EX45_DOF3_N,) * 3, 3)):
+            cshape = tuple((s + 1) // 2 for s in fshape)
+            nf, nc = math.prod(fshape) * dof, math.prod(cshape) * dof
+            xc = torch.rand(nc, generator=gen, device=dev, dtype=dtype)
+            xf = torch.rand(nf, generator=gen, device=dev, dtype=dtype)
+            nd = len(fshape)
+            last = (0, nd + 1) + tuple(range(1, nd + 1))     # (1, *grid, dof) -> (1, dof, *grid)
+            back = (0,) + tuple(range(2, nd + 2)) + (1,)
+            xc_cl = xc.view((1,) + cshape + (dof,)).permute(last)
+            xf_cl = xf.view((1,) + fshape + (dof,)).permute(last)
+            h = torch.tensor([0.5, 1.0, 0.5], dtype=dtype, device=dev)
+            w = h
+            for _ in range(nd - 1):
+                w = w[..., None] * h
+            w = w.expand((dof, 1) + (3,) * nd).contiguous()
+            conv = F.conv3d if nd == 3 else F.conv2d
+            mode = "trilinear" if nd == 3 else "bilinear"
+            lib_p = lambda xc_cl=xc_cl, fshape=fshape, mode=mode: F.interpolate(  # noqa: E731
+                xc_cl, size=fshape, mode=mode, align_corners=True)
+            lib_r = lambda xf_cl=xf_cl, w=w, conv=conv, dof=dof: conv(  # noqa: E731
+                xf_cl, w, stride=2, padding=1, groups=dof)
+            for name, fn, plain, lib, lib_name in (
+                    ("q1_prolong", lambda xc=xc, fshape=fshape, dof=dof:
+                        gridk.q1_prolong(xc, fshape, dof),
+                     lambda xc=xc, fshape=fshape, dof=dof: gridk.q1_prolong_plain(xc, fshape, dof),
+                     lib_p, f"F.interpolate({mode}, align_corners=True), channels last"),
+                    ("q1_restrict", lambda xf=xf, fshape=fshape, dof=dof:
+                        gridk.q1_restrict(xf, fshape, dof),
+                     lambda xf=xf, fshape=fshape, dof=dof: gridk.q1_restrict_plain(xf, fshape, dof),
+                     lib_r, f"F.conv{nd}d(stride 2, padding 1, groups {dof}, [.5, 1, .5]^{nd}), "
+                            "channels last")):
+                r = grid_kernel_row(name, dtype, fn, plain, lib, (nf + nc) * isz, 2 * nf,
+                                    TOL[str(dtype).replace("torch.", "")], fine=list(fshape),
+                                    dof=dof, library=lib_name)
+                r["library_rel_err"] = rel_err(lib().permute(back).reshape(-1), plain())
+                rows.append(r)
+    gridk.reset_launches()
+    for r in rows:
+        fn, plain, lib = r.pop("_fn"), r.pop("_plain"), r.pop("_library")
+        r.pop("_earlier")
+        r["ms"] = time_ms(fn, flush)
+        r["plain_ms"] = time_ms(plain, flush)
+        r["library_ms"] = time_ms(lib, flush)
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    return rows
+
+
+def tutorial_step(pt):
+    """The port's ex2 (GMRES + ILU, -ksp_monitor, its default 8 x 7 grid) and
+    ex1 (-ksp_view) on the card, each one's printed text held to the same
+    run's under init(device="cpu") by the port's diff_output (numbers to
+    1e-6 relative: the card sums in another order)."""
+    from petsc_tpu_torch.examples import ex1, ex2
+    from petsc_tpu_torch.utils.testing import diff_output, run_example
+    out = {}
+    for name, main, args in (("ex2", ex2.main, ["-ksp_monitor"]),
+                             ("ex1", ex1.main, ["-ksp_view"])):
+        card = run_example(main, args)
+        host = run_example(main, args, device="cpu")
+        problems = diff_output(card, host, rtol=1e-6, atol=1e-12)
+        if problems:
+            raise AssertionError(f"{name} {args}: the card's text differs from the CPU's:\n"
+                                 + "\n".join(problems) + "\n--- card ---\n" + card)
+        out[name] = {"args": args, "lines": len(card.splitlines()), "equal_text": card == host,
+                     "last_line": card.strip().splitlines()[-1]}
+    pt.init()     # back on the card
+    return out
+
+
+def phase_ex45(pt, gridk, smi, t_start, flush):
+    """PETSc's ex45 on the card at 129^3 (2,146,689 rows): CG with PCMG from
+    the DM (7 rediscretized aij_dnd levels, Q1P/Q1R) and CG with GAMG (the
+    structured device head on the DM's grid, then the host aggregation
+    tail), each against the reference's contract with exact launches, timed
+    warm and profiled; the host seconds of node_coords and interior_mask at
+    129^3; V1 on the level-0 operator; the dof-3 PCMG solve at 65^3 with
+    Galerkin coarse operators; Q1P/Q1R's dof rows; the tutorials on the
+    card against the CPU. Returns
+    (the record, the Q1 dof rows, launches and profiles by case)."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"phase": "ex45", "nvidia_smi": smi, "args": EX45_ARGS, "n": EX45_N}
+    pt.init(args=[])
+    da = pt.DMDA.create(3, (EX45_N,) * 3)
+    for name in ("node_coords", "interior_mask"):
+        t1 = time.perf_counter()
+        getattr(da, name)()
+        out[f"{name}_s"] = time.perf_counter() - t1
+    launches, profs = {}, {}
+    for pc in ("mg", "gamg"):
+        rec, launches[pc], profs[pc], A = ex45_case(pt, pc)
+        out[pc] = rec
+        out[f"{pc}_profile"] = profs[pc]
+        if pc == "mg":
+            out["v1_level0"] = ex45_v1_row(A, flush)
+        del A
+        torch.cuda.empty_cache()
+    out["dof3"], launches["dof3"] = ex45_dof3_case(pt)
+    torch.cuda.empty_cache()
+    dof_rows = q1_dof_rows(gridk, flush)
+    out["q1_dof_checks"] = dof_rows
+    out["tutorials"] = tutorial_step(pt)
+    out["seconds"] = time.perf_counter() - t0
+    out["seconds_so_far"] = time.perf_counter() - t_start
+    return out, dof_rows, launches, profs
+
+
 # bench_gpu.py's contract: BENCH_r05.json's solve (the JAX package on the TPU)
 BENCH_SOLVE_ITS = 10
 BENCH_JACOBI_ITS = 184
@@ -3532,6 +3941,11 @@ def main():
      exk_prof) = phase_ex56(pt, smi, t_start, flush, earlier)
     emit(ex_rec)
 
+    # ---- PETSc's ex45 (DMDA, KSP.setDM, PCMG from the DM and GAMG) at 129^3,
+    # the dof-3 PCMG at 65^3, Q1P/Q1R at dof 2 and 3, the tutorials ----
+    ex45_rec, q1_dof, ex45_launches, ex45_prof = phase_ex45(pt, gridk, smi, t_start, flush)
+    emit(ex45_rec)
+
     # ---- bench.py's keys from the card: bench_gpu.py in a process of its own ----
     bench = phase_bench_gpu(smi, t_start)
 
@@ -3587,7 +4001,10 @@ def main():
                                            "gamg_grid_f64": grid_launches_f64[name],
                                            "gmres_ilu": gm_launches[name],
                                            "ex56": ex_launches[name],
-                                           "ex56_knobs": exk_launches[name]},
+                                           "ex56_knobs": exk_launches[name],
+                                           "ex45_mg": ex45_launches["mg"][name],
+                                           "ex45_gamg": ex45_launches["gamg"][name],
+                                           "ex45_dof3": ex45_launches["dof3"][name]},
                       "in_solve_us": {path: p["in_solve"].get(name, {}).get("us_per_launch")
                                       for path, p in (("solve", prof), ("aij", prof_a),
                                                       ("mg", prof_m), ("gamg", prof_g),
@@ -3595,7 +4012,9 @@ def main():
                                                       ("gamg_grid_f64", prof_grid["f64"]),
                                                       ("gmres_ilu", prof_gm),
                                                       ("ex56", ex_prof),
-                                                      ("ex56_knobs", exk_prof))},
+                                                      ("ex56_knobs", exk_prof),
+                                                      ("ex45_mg", ex45_prof["mg"]),
+                                                      ("ex45_gamg", ex45_prof["gamg"]))},
                       "bench_gpu_launches": {phase: c.get(name, 0)
                                              for phase, c in bench["launches"].items()}})
     for r in table:
@@ -3655,6 +4074,17 @@ def main():
         if name != "dnd_stencil":
             r["in_solve_us_per_level"] = {c: prof_grid[c]["q1_per_level"][name]
                                           for c in ("f32", "f64")}
+            r["in_solve_us_per_level"].update(
+                {f"ex45_{pc}": ex45_prof[pc]["q1_per_level"][name] for pc in ("mg", "gamg")})
+            r["dof"] = [{k: o[k] for k in ("dtype", "fine", "dof", "ms", "plain_ms", "bound_ms",
+                                           "share_of_bound", "library_ms", "library",
+                                           "library_rel_err", "max_abs_err", "rel_err",
+                                           "equal_bits")}
+                        for o in q1_dof if o["name"] == name]
+    v1 = next(r for r in table if r["name"] == "dnd_stencil")
+    v1["ex45_level0"] = {k: ex45_rec["v1_level0"][k]
+                         for k in ("dtype", "shape", "planes", "variant", "ms", "plain_ms",
+                                   "bound_ms", "share_of_bound", "equal_bits")}
     q1r = next(r for r in table if r["name"] == "q1_restrict")
     q1r.update({k: grid_main["q1_restrict"][k] for k in ("variant", "block", "grid")},
                plan_per_level=grid_rec["q1_restrict_plan_per_level"])

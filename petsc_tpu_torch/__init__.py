@@ -6,8 +6,8 @@ what it ports so far: the options database, Vec, the stencil Mat of the
 assembly, the host matrix operations and sparse products), PC
 none/jacobi/pbjacobi/shell/mg/gamg/ilu/icc/lu/cholesky/bjacobi/sor, KSP
 cg/richardson/preonly/chebyshev/gmres/fgmres/bcgs/minres with matSolve,
-the profiler's stages, events and nested views, and the converged-reason
-enums. It
+the profiler's stages, events and nested views, the converged-reason
+enums, and DM/DMDA with KSP.setDM and PCMG from a DM (PETSc's ex45). It
 imports torch, numpy and scipy, never jax or petsc_tpu. Objects live on
 the device :func:`init` chooses: ``cuda`` unless ``device="cpu"`` is
 passed. The CG body runs on hand-written Hopper kernels
@@ -27,7 +27,16 @@ Quick start::
 or, for an assembled matrix, ``A = pt.MatAIJ(); A.setSizes(N);
 A.setPreallocationCOO(i, j); A.setValuesCOO(v)`` (or ``setValues`` and
 ``assemble()``) in place of the stencil Mat; with no ``-ksp_type`` and no
-``-pc_type`` it solves with PETSc's defaults, GMRES(30) and ILU(0).
+``-pc_type`` it solves with PETSc's defaults, GMRES(30) and ILU(0). On a
+grid, a DMDA builds the operator through callbacks (PETSc's ex45)::
+
+    pt.init(args=["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", "1e-8"])
+    da = pt.DMDA.create(3, (129, 129, 129))
+    ksp = pt.KSP().create(); ksp.setDM(da)
+    ksp.setComputeOperators(fn_A); ksp.setComputeRHS(fn_b); ksp.setFromOptions()
+    x = ksp.solve()
+
+(``petsc_tpu_torch/examples/ex45.py``).
 """
 
 from . import config
@@ -46,5 +55,7 @@ from .pc import gamg as _gamg  # registers PC gamg and hmg
 from .pc import factor_pc as _factor_pc  # registers PC ilu, icc, lu, cholesky, bjacobi
 from .pc import more_pc as _more_pc  # registers PC sor
 from .ksp.ksp import KSP
+from .dm.dm import DM
+from .dm.da import DMDA
 
 __version__ = "0.1.0"

@@ -55,6 +55,22 @@
 // consecutive lanes on consecutive pairs) takes odd or narrow f2 and views
 // off a 16-byte edge. The wrapper (ops/grid_kernels.py _q1_restrict_plan)
 // picks the variant and the block. There is no division per point.
+//
+// Fields of dof > 1 components per node (a DMDA's layout: the components
+// innermost, point (i0, i1, i2) component c at ((i0 f1 + i1) f2 + i2) dof
+// + c) take their own kernels, q1_prolong_dof and q1_restrict_dof: the Q1
+// weights of each axis apply per node, the same to every component, so each
+// output is the dof = 1 expression on one component's values (the
+// reference's per-axis composition with a trailing dof axis, the same bits).
+// Q1P dof: one thread per fine point t = i2 dof + c of a row and coarse
+// cell (j0, j1); it loads its 2 x 2 (even i2) or 2 x 2 x 2 (odd i2) coarse
+// values and writes the up to 4 fine points (2 j0 + p0, 2 j1 + p1, t), so
+// neighbouring threads store neighbouring addresses. Q1R dof: one thread per
+// coarse point t = j2 dof + c of a row, which loads the 27 (at most) fine
+// values of its stencil, component c (stride dof along i2), and sums them in
+// the dof = 1 order; neighbouring threads read neighbouring addresses, and
+// the fine values shared by neighbouring coarse points come through L1. The
+// dof = 1 kernels above are untouched.
 #include "common.cuh"
 
 namespace {
@@ -239,6 +255,121 @@ q1_restrict_kernel(T* __restrict__ y, const T* __restrict__ x, int f0, int f1, i
   }
 }
 
+// dof > 1: one thread per fine point t of a row (t = i2 dof + c) and
+// coarse cell (j0, j1); blockIdx.x / threadIdx.x walk t, blockIdx.y /
+// threadIdx.y j1, blockIdx.z j0 (each striding by its grid).
+template <typename T>
+__global__ void __launch_bounds__(ptt::kThreads)
+q1_prolong_dof_kernel(T* __restrict__ y, const T* __restrict__ x, int f0, int f1, int f2,
+                      int c0, int c1, int c2, int dof) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= f2 * dof) return;
+  const T half = T(0.5);
+  const int i2 = t / dof, c = t - i2 * dof, j2 = i2 >> 1;
+  const bool odd2 = i2 & 1;
+  const int k2[2] = {j2 * dof + c, min(j2 + 1, c2 - 1) * dof + c};
+  const long long row2 = (long long)c2 * dof, frow = (long long)f2 * dof;
+  for (int j1 = blockIdx.y * blockDim.y + threadIdx.y; j1 < c1; j1 += gridDim.y * blockDim.y) {
+    const int r1[2] = {j1, min(j1 + 1, c1 - 1)};
+    for (int j0 = blockIdx.z; j0 < c0; j0 += gridDim.z) {
+      const int r0[2] = {j0, min(j0 + 1, c0 - 1)};
+      T v[2][2][2];   // v[a0][a1][a2]: coarse (r0[a0], r1[a1], j2 or its neighbour), component c
+#pragma unroll
+      for (int a0 = 0; a0 < 2; ++a0)
+#pragma unroll
+        for (int a1 = 0; a1 < 2; ++a1) {
+          const T* row = x + ((long long)r0[a0] * c1 + r1[a1]) * row2;
+          v[a0][a1][0] = __ldg(row + k2[0]);
+          v[a0][a1][1] = odd2 ? __ldg(row + k2[1]) : T(0);
+        }
+#pragma unroll
+      for (int p0 = 0; p0 < 2; ++p0) {
+        if (p0 && 2 * j0 + 1 >= f0) break;
+        T a[2][2];   // axis 0, then axis 1, then axis 2, as in the dof = 1 kernel
+#pragma unroll
+        for (int a1 = 0; a1 < 2; ++a1)
+#pragma unroll
+          for (int a2 = 0; a2 < 2; ++a2)
+            a[a1][a2] = p0 ? mul_rn(half, add_rn(v[0][a1][a2], v[1][a1][a2])) : v[0][a1][a2];
+#pragma unroll
+        for (int p1 = 0; p1 < 2; ++p1) {
+          if (p1 && 2 * j1 + 1 >= f1) break;
+          T b[2];
+#pragma unroll
+          for (int a2 = 0; a2 < 2; ++a2)
+            b[a2] = p1 ? mul_rn(half, add_rn(a[0][a2], a[1][a2])) : a[0][a2];
+          y[((long long)(2 * j0 + p0) * f1 + (2 * j1 + p1)) * frow + t] =
+              odd2 ? mul_rn(half, add_rn(b[0], b[1])) : b[0];
+        }
+      }
+    }
+  }
+}
+
+// dof > 1: one thread per coarse point t of a row (t = j2 dof + c) and
+// coarse (j0, j1); the walk as in q1_prolong_dof_kernel. The 3 x 3 x 3
+// fine values 2 j - 1 .. 2 j + 1 per axis (those inside the grid), summed
+// axis 2 of each row, axis 1 of each plane, then axis 0, by restrict_one.
+template <typename T>
+__global__ void __launch_bounds__(ptt::kThreads)
+q1_restrict_dof_kernel(T* __restrict__ y, const T* __restrict__ x, int f0, int f1, int f2,
+                       int c0, int c1, int c2, int dof) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= c2 * dof) return;
+  const int j2 = t / dof, c = t - j2 * dof;
+  bool col_in[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) col_in[k] = 2 * j2 - 1 + k >= 0 && 2 * j2 - 1 + k < f2;
+  const long long frow = (long long)f2 * dof, crow = (long long)c2 * dof;
+  const int col0 = (2 * j2 - 1) * dof + c;
+  for (int j1 = blockIdx.y * blockDim.y + threadIdx.y; j1 < c1; j1 += gridDim.y * blockDim.y) {
+    for (int j0 = blockIdx.z; j0 < c0; j0 += gridDim.z) {
+      T v[3][3][3];   // [plane 2 j0 - 1 + b][row 2 j1 - 1 + a][point 2 j2 - 1 + k]
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const int i0 = 2 * j0 - 1 + b, i1 = 2 * j1 - 1 + a;
+          const bool in = i0 >= 0 && i0 < f0 && i1 >= 0 && i1 < f1;
+          const T* row = x + (in ? ((long long)i0 * f1 + i1) * frow : 0);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) v[b][a][k] = in && col_in[k] ? __ldg(row + col0 + k * dof) : T(0);
+        }
+      T r1[3];
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        T r2[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) r2[a] = restrict_one(v[b][a][1], v[b][a][2], v[b][a][0], j2, f2, c2);
+        r1[b] = restrict_one(r2[1], r2[2], r2[0], j1, f1, c1);
+      }
+      y[((long long)j0 * c1 + j1) * crow + t] = restrict_one(r1[1], r1[2], r1[0], j0, f0, c0);
+    }
+  }
+}
+
+// The launch of both dof kernels: 256 threads, up to 256 along the row's
+// points (n2 of them), the rest along j1.
+template <typename T, bool kProlong>
+int launch_dof(void* y, const void* x, int f0, int f1, int f2, int c0, int c1, int c2, int dof,
+               int device, void* stream) {
+  if (dof < 2) return (int)cudaErrorInvalidValue;
+  PTT_TRY(cudaSetDevice(device));
+  const int n2 = (kProlong ? f2 : c2) * dof;
+  int bx = 32;
+  while (bx < ptt::kThreads && bx < n2) bx *= 2;
+  const int by = ptt::kThreads / bx;
+  const dim3 block(bx, by);
+  const dim3 grid((n2 + bx - 1) / bx, min((c1 + by - 1) / by, 65535), min(c0, 65535));
+  if (kProlong)
+    q1_prolong_dof_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
+        (T*)y, (const T*)x, f0, f1, f2, c0, c1, c2, dof);
+  else
+    q1_restrict_dof_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
+        (T*)y, (const T*)x, f0, f1, f2, c0, c1, c2, dof);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_prolong(void* y, const void* x, int f0, int f1, int f2, int c0, int c1, int c2,
                    int pair, int device, void* stream) {
@@ -309,4 +440,27 @@ extern "C" int ptt_q1_restrict_f32(void* y, const void* x, int f0, int f1, int f
                                    void* stream) {
   return launch_restrict<float>(y, x, f0, f1, f2, c0, c1, c2, vec, nx, ny,
                                 device, stream);
+}
+
+// dof > 1 components per node, innermost (the DMDA's layout): prolong x
+// coarse -> y fine, restrict x fine -> y coarse; the grids as above, each
+// holding fewer than 2^31 values.
+extern "C" int ptt_q1_prolong_dof_f64(void* y, const void* x, int f0, int f1, int f2, int c0,
+                                      int c1, int c2, int dof, int device, void* stream) {
+  return launch_dof<double, true>(y, x, f0, f1, f2, c0, c1, c2, dof, device, stream);
+}
+
+extern "C" int ptt_q1_prolong_dof_f32(void* y, const void* x, int f0, int f1, int f2, int c0,
+                                      int c1, int c2, int dof, int device, void* stream) {
+  return launch_dof<float, true>(y, x, f0, f1, f2, c0, c1, c2, dof, device, stream);
+}
+
+extern "C" int ptt_q1_restrict_dof_f64(void* y, const void* x, int f0, int f1, int f2, int c0,
+                                       int c1, int c2, int dof, int device, void* stream) {
+  return launch_dof<double, false>(y, x, f0, f1, f2, c0, c1, c2, dof, device, stream);
+}
+
+extern "C" int ptt_q1_restrict_dof_f32(void* y, const void* x, int f0, int f1, int f2, int c0,
+                                       int c1, int c2, int dof, int device, void* stream) {
+  return launch_dof<float, false>(y, x, f0, f1, f2, c0, c1, c2, dof, device, stream);
 }

@@ -9,11 +9,14 @@ composes it like any other interpolation; it is never assembled on the
 card. Its product is the fused hand kernel Q1P and its transpose Q1R
 (:mod:`..ops.grid_kernels`), whose plain versions are the reference's
 per-axis ``_interp_axis`` and ``_restrict_axis``. ``to_scipy`` assembles
-it on the host for the Galerkin product of the host structured head.
+it on the host for the Galerkin product of the host structured head and of
+PCMG's coarse levels.
 
-Fields of more than one component (``dof > 1``) come with DMDA (ROADMAP
-queue 1 item 9), the slab-sharded ``MatInterpQ1MPI`` with distribution
-(item 12).
+A field of ``dof > 1`` components per point (a DMDA's layout, the
+components innermost) interpolates each component alike: P is
+``kron(P_grid, I_dof)`` (interp.py:72-118), its products the kernels' dof
+entries. The slab-sharded ``MatInterpQ1MPI`` comes with distribution
+(ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -24,7 +27,6 @@ from ..mat.mat import Mat
 from ..ops import operator
 from ..ops.grid_kernels import _interp_axis, _restrict_axis, q1_prolong, q1_restrict  # noqa: F401
 
-_ITEM_9 = "DMDA (ROADMAP queue 1 item 9)"
 _ITEM_12 = "distribution (ROADMAP queue 1 item 12)"
 
 
@@ -32,8 +34,8 @@ class MatInterpQ1(Mat):
     """Q1 prolongation coarse -> fine on (..., ny, nx) grids."""
 
     def __init__(self, fine_shape, coarse_shape, comm=None, dof=1, **kw):
-        if int(dof) > 1:
-            raise NotImplementedError(f"MatInterpQ1 with dof {dof} > 1 comes with {_ITEM_9}")
+        if int(dof) < 1:
+            raise ValueError(f"MatInterpQ1: dof {dof} < 1")
         fine_shape = tuple(int(s) for s in fine_shape)
         coarse_shape = tuple(int(s) for s in coarse_shape)
         if coarse_shape != tuple((s + 1) // 2 for s in fine_shape):
@@ -42,8 +44,8 @@ class MatInterpQ1(Mat):
         super().__init__(comm, **kw)
         self.fine_shape = fine_shape
         self.coarse_shape = coarse_shape
-        self.dof = 1
-        self.setSizes((int(np.prod(fine_shape)), int(np.prod(coarse_shape))))
+        self.dof = int(dof)
+        self.setSizes((int(np.prod(fine_shape)) * self.dof, int(np.prod(coarse_shape)) * self.dof))
         self._assembled = True
 
     @property
@@ -59,7 +61,7 @@ class MatInterpQ1(Mat):
 
     def to_scipy(self):
         """P assembled on the host (for the host Galerkin product): the
-        Kronecker product of the 1-D operators."""
+        Kronecker product of the 1-D operators, and of I_dof for dof > 1."""
         import scipy.sparse as sp
         P = None
         for nf, nc in zip(self.fine_shape, self.coarse_shape):
@@ -77,6 +79,8 @@ class MatInterpQ1(Mat):
             p1 = sp.csr_matrix((vals, (rows, cols)), shape=(nf, nc))
             p1.sum_duplicates()
             P = p1 if P is None else sp.kron(P, p1, format="csr")
+        if self.dof > 1:
+            P = sp.kron(P, sp.eye(self.dof), format="csr")
         return P
 
 
@@ -92,13 +96,11 @@ def _bind_interp_q1_mpi(meta, data):
 
 
 def _bind_interp_q1(meta, data):
-    """mult: Q1P, coarse -> fine; mult_t: Q1R, fine -> coarse
-    (interp.py:219-237)."""
+    """mult: Q1P, coarse -> fine; mult_t: Q1R, fine -> coarse, per
+    component for dof > 1 (interp.py:219-237)."""
     _, fshape, cshape, dof = (tuple(meta) + (1,))[:4]
-    if dof > 1:
-        raise NotImplementedError(f"interp_q1 with dof {dof} > 1 comes with {_ITEM_9}")
-    return operator.Op(mult=lambda x: q1_prolong(x, fshape),
-                       mult_t=lambda x: q1_restrict(x, fshape))
+    return operator.Op(mult=lambda x: q1_prolong(x, fshape, dof),
+                       mult_t=lambda x: q1_restrict(x, fshape, dof))
 
 
 operator.register_binder("interp_q1", _bind_interp_q1)

@@ -1,8 +1,10 @@
 """KSP: Krylov solver context.
 
 Counterpart of ``petsc_tpu/ksp/ksp.py`` (reference KSP interface,
-src/ksp/ksp/interface/itfunc.c — KSPSolve :1104, KSPSetUp :330 — and the
-options/monitor/convergence surface of iterativ.c). The residual history
+src/ksp/ksp/interface/itfunc.c — KSPSolve :1104, KSPSetUp :330 — the
+options/monitor/convergence surface of iterativ.c, and the DM hooks of
+dmksp.c: setDM, setComputeOperators, setComputeRHS,
+setComputeInitialGuess, then ``solve()`` with no arguments). The residual history
 is recorded in the loop; monitors print it after the solve, with the
 same text as PETSc's in-loop monitors.
 """
@@ -74,6 +76,43 @@ class KSP(PObject):
             self.comm = A.comm
         self.getPC().setOperators(self.mat, self.pmat)
         return self
+
+    # ---------------- DM integration (dmksp.c) ----------------
+
+    def setDM(self, dm):
+        self.dm = dm
+        return self
+
+    def getDM(self):
+        return getattr(self, "dm", None)
+
+    def setComputeOperators(self, fn):
+        """KSPSetComputeOperators (itfunc.c:3054): fn(ksp, A, B) assembles
+        the operator into the DM-created matrix A."""
+        self.getDM().setKSPComputeOperators(fn)
+        return self
+
+    def setComputeRHS(self, fn):
+        self.getDM().setKSPComputeRHS(fn)
+        return self
+
+    def setComputeInitialGuess(self, fn):
+        """KSPSetComputeInitialGuess: fn(ksp, x) fills the starting vector
+        when solve() builds it from the DM."""
+        self.getDM()._compute_initial_guess = fn
+        return self
+
+    def _assemble_from_dm(self):
+        """The operator from the DM's callback into dm.createMatrix(); its
+        host seconds are logged as the event KSPComputeOperators."""
+        t0 = time.perf_counter()
+        dm = self.getDM()
+        A = dm.createMatrix()
+        dm._compute_operators(self, A, A)
+        if not A._assembled:
+            A.assemble()
+        config.log().log_event("KSPComputeOperators", time.perf_counter() - t0)
+        self.setOperators(A)
 
     def getOperators(self):
         return self.mat, self.pmat
@@ -192,11 +231,24 @@ class KSP(PObject):
                          converged_maxits=self.converged_maxits,
                          extra=make_extra(self) if make_extra is not None else ())
 
-    def solve(self, b: Vec, x: Vec | None = None):
+    def solve(self, b: Vec | None = None, x: Vec | None = None):
         """KSPSolve (itfunc.c:1104): set up, run the solver loop, record
-        history and reason, run monitors and option-driven reporting."""
+        history and reason, run monitors and option-driven reporting. With
+        a DM attached and b or x omitted, its callbacks build them
+        (ksp.py:316-333): the operator first, then b, then x from the
+        initial-guess callback, which makes the guess nonzero."""
+        dm = self.getDM()
+        if self.mat is None and dm is not None:
+            self._assemble_from_dm()
+        if b is None and dm is not None:
+            b = dm.createGlobalVector()
+            dm._compute_rhs(self, b)
         if x is None:
             x = self.mat.createVecRight()
+            ig = getattr(dm, "_compute_initial_guess", None) if dm is not None else None
+            if ig is not None:
+                ig(self, x)
+                self.guess_nonzero = True
         self._solution = x
         self.setUp()
         cfg = self._static_cfg()

@@ -83,6 +83,24 @@ def _row_of_entry(indptr):
     return np.repeat(np.arange(len(indptr) - 1, dtype=np.int64), np.diff(indptr))
 
 
+def _unique_offsets(d, shape):
+    """np.unique(d, axis=0, return_inverse=True) for the (nnz, ndim) grid
+    offsets d (|d| < shape per axis), through one int64 key per entry in
+    mixed radix, the first axis most significant: the same rows in the same
+    (lexicographic) order, from a 1-D sort in place of the row sort (13 of
+    compute_operators' 16 s at 97^3 on the CPU)."""
+    span = 2 * np.asarray(shape, dtype=np.int64) - 1
+    key = np.zeros(len(d), dtype=np.int64)
+    for ax in range(len(shape)):
+        key = key * span[ax] + (d[:, ax] + (shape[ax] - 1))
+    ukey, inv = np.unique(key, return_inverse=True)
+    uniq = np.empty((len(ukey), len(shape)), dtype=d.dtype)
+    for ax in range(len(shape) - 1, -1, -1):
+        uniq[:, ax] = ukey % span[ax] - (shape[ax] - 1)
+        ukey = ukey // span[ax]
+    return uniq, inv.reshape(-1)
+
+
 class MatAIJ(Mat):
     def __init__(self, comm=None, **kw):
         super().__init__(comm, **kw)
@@ -386,9 +404,9 @@ class MatAIJ(Mat):
             ci = np.stack(np.unravel_index(self._indices, shape), axis=1)
             d = ci - ri                              # (nnz, ndim) exact offsets
             if not np.any(np.abs(d).max(axis=0) >= np.asarray(shape)):
-                uniq, inv = np.unique(d, axis=0, return_inverse=True)
+                uniq, inv = _unique_offsets(d, shape)
                 if len(uniq) <= _MAX_GRID_OFFSETS:
-                    out = (uniq, inv.reshape(-1), rows)
+                    out = (uniq, inv, rows)
         self._grid_off_cache = (self._indices, out)
         return out
 

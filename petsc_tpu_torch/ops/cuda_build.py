@@ -73,6 +73,10 @@ SIGNATURES = {
     "ptt_q1_prolong_f32": (_vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp),
     "ptt_q1_restrict_f64": (_vp, _vp, *(_i32,) * 10, _vp),
     "ptt_q1_restrict_f32": (_vp, _vp, *(_i32,) * 10, _vp),
+    "ptt_q1_prolong_dof_f64": (_vp, _vp, *(_i32,) * 8, _vp),
+    "ptt_q1_prolong_dof_f32": (_vp, _vp, *(_i32,) * 8, _vp),
+    "ptt_q1_restrict_dof_f64": (_vp, _vp, *(_i32,) * 8, _vp),
+    "ptt_q1_restrict_dof_f32": (_vp, _vp, *(_i32,) * 8, _vp),
     "ptt_trisolve_f64": (_vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32,
                          _i32, _vp, _i32, _vp),
     "ptt_trisolve_f32": (_vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32,

@@ -26,7 +26,10 @@ each row's pair along i2 as one vector store at an even f2
 plane and row whose fine points along i2 one 16-byte load holds (where
 f2 * itemsize is a multiple of 16 and x is aligned, else one coarse point
 and two scalar loads), all of its 9 fine rows' loads in flight before it
-sums (``_q1_restrict_plan``).
+sums (``_q1_restrict_plan``). A field of ``dof > 1`` components per point
+(a DMDA's, the components innermost) takes the kernels' dof entries
+(``q1_prolong_dof``, ``q1_restrict_dof``: one thread per fine, or coarse,
+point of a row, the same sums per component); they count as Q1P and Q1R.
 
 Every wrapper checks device, dtype (float64 or float32), shape and
 contiguity and raises on what its kernel does not take; allocates its
@@ -343,18 +346,24 @@ def _coarse_of(fshape):
     return tuple((int(s) + 1) // 2 for s in fshape)
 
 
-def q1_prolong_plain(x, fshape):
-    """P x: the per-axis composition of mat/interp.py:219-227 (axes 0, 1, ...)."""
-    v = x.reshape(_coarse_of(fshape))
+def _with_dof(shape, dof):
+    return tuple(int(s) for s in shape) + ((int(dof),) if dof > 1 else ())
+
+
+def q1_prolong_plain(x, fshape, dof=1):
+    """P x: the per-axis composition of mat/interp.py:219-227 (axes 0, 1, ...;
+    dof > 1 components ride along as a trailing axis)."""
+    v = x.reshape(_with_dof(_coarse_of(fshape), dof))
     for ax in range(len(fshape)):
         v = _interp_axis(v, ax, int(fshape[ax]))
     return v.reshape(-1)
 
 
-def q1_restrict_plain(x, fshape):
-    """P^T x: the per-axis composition of mat/interp.py:229-235 (the last axis first)."""
+def q1_restrict_plain(x, fshape, dof=1):
+    """P^T x: the per-axis composition of mat/interp.py:229-235 (the last
+    grid axis first; dof > 1 components ride along as a trailing axis)."""
     cshape = _coarse_of(fshape)
-    v = x.reshape(tuple(int(s) for s in fshape))
+    v = x.reshape(_with_dof(fshape, dof))
     for ax in range(len(fshape) - 1, -1, -1):
         v = _restrict_axis(v, ax, cshape[ax])
     return v.reshape(-1)
@@ -391,16 +400,23 @@ def _q1_restrict_plan(fshape, itemsize, aligned, threads=_Q1R_THREADS):
             "args": (*f3, *c3, int(vec), nx, ny)}
 
 
-def _q1(name, plain, x, fshape, prolong):
+def _q1(name, plain, x, fshape, prolong, dof=1):
     fshape = tuple(int(s) for s in fshape)
     cshape = _coarse_of(fshape)
-    nf, nc = _numel(fshape), _numel(cshape)
+    dof = int(dof)
+    if dof < 1:
+        raise ValueError(f"{name}: dof {dof} < 1")
+    nf, nc = _numel(fshape) * dof, _numel(cshape) * dof
     nin, nout = (nc, nf) if prolong else (nf, nc)
     _check_vector(name, x, nin)
     if x.device.type == "cpu":
-        return plain(x, fshape)
+        return plain(x, fshape, dof)
     y = torch.empty(nout, dtype=x.dtype, device=x.device)
-    if nout:
+    if nout and dof > 1:
+        f3 = _grid3(fshape)
+        cuda_build.launch(LAUNCHES, name, x, y.data_ptr(), x.data_ptr(), *f3, *_coarse_of(f3),
+                          dof, entry=f"{name}_dof")
+    elif nout:
         if prolong:
             f3, c3, pair = _q1_prolong_plan(fshape)
             args = (*f3, *c3, int(pair))
@@ -411,13 +427,15 @@ def _q1(name, plain, x, fshape, prolong):
     return y
 
 
-def q1_prolong(x, fshape):
+def q1_prolong(x, fshape, dof=1):
     """The coarse vector x ((nf + 1) // 2 points per axis of the fine grid
-    `fshape`) prolongated to the fine grid."""
-    return _q1("q1_prolong", q1_prolong_plain, x, fshape, True)
+    `fshape`, `dof` components per point, innermost) prolongated to the
+    fine grid."""
+    return _q1("q1_prolong", q1_prolong_plain, x, fshape, True, dof)
 
 
-def q1_restrict(x, fshape):
-    """The fine vector x (grid `fshape`) restricted to the coarse grid by
-    the exact adjoint of q1_prolong."""
-    return _q1("q1_restrict", q1_restrict_plain, x, fshape, False)
+def q1_restrict(x, fshape, dof=1):
+    """The fine vector x (grid `fshape`, `dof` components per point,
+    innermost) restricted to the coarse grid by the exact adjoint of
+    q1_prolong."""
+    return _q1("q1_restrict", q1_restrict_plain, x, fshape, False, dof)

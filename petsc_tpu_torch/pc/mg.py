@@ -38,9 +38,13 @@ step at its stores, so a step's tail is one launch; the level's Chebyshev
 bounds are those of M^-1 A by the host Arnoldi through that PC.
 
 The one-device port has no padded layouts, so the reference's ``_fit``
-around the transfers is the identity and is gone. The DM path
-(``_build_from_dm``, ``-pc_mg_levels``) comes with ROADMAP item 9. PCGAMG
-(:mod:`.gamg`) builds its hierarchy by aggregation and reuses the rest.
+around the transfers is the identity and is gone. With no levels given
+and an operator from ``DMDA.createMatrix`` (``_build_from_dm``), the
+levels come from the DMDA: ``-pc_mg_levels`` or coarsening down to 50
+rows, each coarse operator rediscretized by the DM's callback or else the
+Galerkin product, the transfers ``MatInterpQ1`` (Q1P/Q1R, per component
+for dof > 1). PCGAMG (:mod:`.gamg`) builds its hierarchy by aggregation
+and reuses the rest.
 """
 
 from __future__ import annotations
@@ -58,8 +62,6 @@ from ..ops.block_kernels import (agg_block_apply, agg_block_apply_plain, agg_blo
 from ..ops.pallas_kernels import cheby_update, dot2, triad
 from ..sys.error import Error
 from .pc import PC
-
-_ITEM_9 = "DMDA (ROADMAP queue 1 item 9)"
 
 
 # ---------------------------------------------------------------------
@@ -273,8 +275,9 @@ class _PCMG:
         first use), PCMGSetUp_SpGEMM, PCMGSetUp_emax."""
         if self.levels is None:
             if getattr(self.pc.pmat, "_dm", None) is None:
-                raise Error("PCMG: call setLevels and setInterpolation first (a DM "
-                            "comes with ROADMAP item 9), or use -pc_type gamg")
+                raise Error("PCMG: call setLevels and setInterpolation, attach a DM "
+                            "(KSP.setDM, or a matrix from DMDA.createMatrix), or use "
+                            "-pc_type gamg")
             self._build_from_dm(self.pc.pmat._dm)
         if self.levels[0].A is None:
             self.levels[0].A = self.pc.pmat
@@ -283,6 +286,11 @@ class _PCMG:
             # values that setValuesCOO left on the card come to the host once
             _timed("PCMGSetUp_download", sync)
         _timed("PCMGSetUp_native", native.lib)
+        for lev in self.levels[1:]:
+            # a rediscretized level's values are on the card too
+            sync = getattr(lev.A, "_sync_host_vals", None)
+            if sync is not None:
+                _timed("PCMGSetUp_download", sync)
         for l in range(1, len(self.levels)):
             if self.levels[l].A is None:
                 Pl = self.levels[l - 1].P
@@ -303,7 +311,42 @@ class _PCMG:
         return (a * emin_est + b * emax_est, c * emin_est + d * emax_est)
 
     def _build_from_dm(self, dm):
-        raise NotImplementedError(f"PCMG from a DM (DMCoarsen, -pc_mg_levels) comes with {_ITEM_9}")
+        """The levels from a DMDA (mg.py:275-298): -pc_mg_levels of them, else
+        coarsen until 10 levels, N <= 50, or a size that does not coarsen;
+        each coarse level rediscretized by the DM's compute_operators
+        callback (called with ksp None, as the reference does) where one is
+        attached, else left to the Galerkin product; the interpolations
+        from DMCreateInterpolation. The callbacks' host seconds are logged
+        as the event PCMGSetUp_compute_operators."""
+        from ..dm.da import DMDA
+        if not isinstance(dm, DMDA):
+            raise Error(f"PCMG: the operator's DM is a {type(dm).__name__}, not a DMDA; "
+                        "PCMG builds levels from a DMDA only (or give them with setLevels "
+                        "and setInterpolation)")
+        nlev_opt = self.pc.opt("get_int", "pc_mg_levels", None)
+        das = [dm]
+        while True:
+            if nlev_opt is not None and len(das) >= nlev_opt:
+                break
+            if nlev_opt is None and (len(das) >= 10 or das[-1].N <= 50):
+                break
+            try:
+                das.append(das[-1].coarsen())
+            except Error:
+                break
+        self.levels = [MGLevelSpec(None) for _ in das]
+        rediscretize = dm._compute_operators is not None
+        for l, da in enumerate(das):
+            if l > 0 and rediscretize:
+                t0 = time.perf_counter()
+                A = da.createMatrix()
+                dm._compute_operators(None, A, A)
+                if not A._assembled:
+                    A.assemble()
+                config.log().log_event("PCMGSetUp_compute_operators", time.perf_counter() - t0)
+                self.levels[l].A = A
+            if l < len(das) - 1:
+                self.levels[l].P = da.createInterpolation(das[l + 1])
 
     def setup(self):
         self.build_hierarchy()

@@ -984,3 +984,76 @@ def test_ex56_on_the_card_equals_the_cpu_port(cuda_device, mode):
         fine = len(ksp.getPC()._impl.levels) - 1
         assert out[None][2]["agg_block_cheby"] == 2 * fine * (out[None][0] + 1)
         assert out[None][2]["agg_block_apply"] == out[None][2]["cheby_update_z"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fshape,dof", (((65, 65, 65), 3), ((9, 8, 6), 3), ((9, 9), 2),
+                                        ((8, 6), 2), ((17,), 2), ((2, 2, 2), 4),
+                                        ((3, 5, 130), 2)))
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_q1_dof_kernels_match_plain(cuda_device, dtype, fshape, dof):
+    """Q1P and Q1R with dof > 1 components per point (the kernels' dof
+    entries) against their plain versions on the card, even and odd sizes
+    (1e-13 in f64, 1e-6 in f32), and against the assembled kron(P, I_dof)
+    in float64; one launch each, counted as Q1P and Q1R."""
+    from petsc_tpu_torch.dm.interp import MatInterpQ1
+    from petsc_tpu_torch.ops import grid_kernels as gridk
+    cshape = tuple((s + 1) // 2 for s in fshape)
+    xc = torch.rand(int(np.prod(cshape)) * dof, dtype=dtype, device=cuda_device)
+    xf = torch.rand(int(np.prod(fshape)) * dof, dtype=dtype, device=cuda_device)
+    gridk.reset_launches()
+    kp, kr = gridk.q1_prolong(xc, fshape, dof), gridk.q1_restrict(xf, fshape, dof)
+    pp, pr = gridk.q1_prolong_plain(xc, fshape, dof), gridk.q1_restrict_plain(xf, fshape, dof)
+    torch.cuda.synchronize()
+    tol = 1e-13 if dtype == torch.float64 else 1e-6
+    assert _rel(kp, pp) <= tol and _rel(kr, pr) <= tol
+    P = MatInterpQ1(fshape, cshape, dof=dof).to_scipy()
+    assert _rel(kp.double(), torch.as_tensor(P @ xc.double().cpu().numpy(),
+                                             device=cuda_device)) <= tol
+    assert _rel(kr.double(), torch.as_tensor(P.T @ xf.double().cpu().numpy(),
+                                             device=cuda_device)) <= tol
+    assert gridk.LAUNCHES == {"dnd_stencil": 0, "q1_prolong": 1, "q1_restrict": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pc", ("mg", "gamg", "dof3"))
+def test_ex45_on_the_card_equals_the_cpu_port(cuda_device, pc):
+    """PETSc's ex45 at 17^3 (mg: PCMG from the DM, rediscretized; gamg: the
+    structured head on the DM's grid) and its dof-3 form at 9^3 (PCMG from
+    the DM, Galerkin): the same its, hierarchy and history (1e-10) on the
+    card as in the CPU port, and every launch as
+    chip_smoke.ex45_launches_needed counts it."""
+    from petsc_tpu_torch.examples import ex45
+    res = {}
+    for dev in ("cpu", "cuda"):
+        chip_smoke.reset_launches()
+        if pc == "dof3":
+            ptt.init(args=["-ksp_type", "cg", "-ksp_rtol", "1e-8", "-pc_type", "mg"], device=dev)
+            da = ptt.DMDA.create(3, (9, 9, 9), dof=3)
+            A = da.createMatrix()
+            i, j, v = ex45.component_laplacian(da)
+            A.setPreallocationCOO(i, j)
+            A.setValuesCOO(v)
+            ksp = ptt.KSP().create()
+            ksp.setOperators(A)
+            ksp.setFromOptions()
+            b = A.createVecLeft()
+            b.set(1.0)
+            ksp.solve(b)
+        else:
+            ksp = ex45.main(["-da_grid_x", "17", "-da_grid_y", "17", "-da_grid_z", "17",
+                             "-ksp_type", "cg", "-ksp_rtol", "1e-8", "-pc_type", pc],
+                            device=dev)
+        levels = ksp.getPC()._impl.levels
+        res[dev] = (ksp.getIterationNumber(), ksp.getConvergedReason().name,
+                    ksp.getConvergenceHistory(), chip_smoke.launch_counts(),
+                    [lev.A.getSize()[0] for lev in levels], [lev.A.meta[0] for lev in levels],
+                    levels)
+    its, reason, hist, launches, rows, kinds, levels = res["cuda"]
+    assert its == res["cpu"][0] and reason == res["cpu"][1] == "CONVERGED_RTOL"
+    assert rows == res["cpu"][4] and kinds == res["cpu"][5]
+    np.testing.assert_allclose(hist, res["cpu"][2], rtol=1e-10, atol=0)
+    need = chip_smoke.ex45_launches_needed(its, levels, pc)
+    if pc != "dof3":
+        need["dnd_stencil"] += 1          # ex45's main: A x for the printed residual
+    assert {k: launches[k] for k in need} == need

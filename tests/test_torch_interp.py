@@ -76,10 +76,18 @@ def test_the_float32_transfers_match_the_reference(fshape):
 
 
 def test_what_later_slices_bring_is_refused():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        interp.MatInterpQ1((8, 8), (4, 4), dof=2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        operator.bind(("interp_q1", (8, 8), (4, 4), 2), {})
+    # dof 2 (the DMDA slice): the port's transfers and P equal the reference's
+    rng = np.random.default_rng(9)
+    M = interp.MatInterpQ1((8, 8), (4, 4), dof=2)
+    assert M.getSize() == (128, 32)
+    opp = operator.bind(M.meta, M.device_data())
+    opj = op_jax.bind(("interp_q1", (8, 8), (4, 4), 2), {})
+    xc, xf = rng.random(32), rng.random(128)
+    assert _rel(opp.mult(torch.from_numpy(xc)).numpy(), np.asarray(opj.mult(jnp.asarray(xc)))) <= 1e-14
+    assert _rel(opp.mult_t(torch.from_numpy(xf)).numpy(),
+                np.asarray(opj.mult_t(jnp.asarray(xf)))) <= 1e-14
+    Pj = interp_jax.MatInterpQ1((8, 8), (4, 4), dof=2).to_scipy()
+    assert (M.to_scipy() != Pj).nnz == 0
     with pytest.raises(NotImplementedError, match="item 12"):
         interp.MatInterpQ1MPI((8, 8), (4, 4), None)
     with pytest.raises(ValueError, match="coarse grid"):

@@ -255,7 +255,24 @@ def test_what_later_slices_bring_is_refused():
     ksp.setFromOptions()
     with pytest.raises(Error, match="setLevels"):
         ksp.setUp()
-    # a DM attached to the operator: the DM path of item 9
+    # a DM attached to the operator that is not a DMDA: a clear refusal
     A._dm = object()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(Error, match="not a DMDA"):
         ksp.setUp()
+    # a DMDA's matrix: the reference's levels (sizes, Galerkin operators)
+    from examples import ex45 as ex45_jax
+    from petsc_tpu_torch.examples import ex45 as ex45_port
+    levels = []
+    for pkg, ex in ((pt_jax, ex45_jax), (ptt, ex45_port)):
+        _init(pkg, ["-ksp_type", "cg", "-pc_type", "mg"])
+        da = pkg.DMDA.create(3, (9, 9, 9))
+        A = da.createMatrix()
+        ex.compute_operators(None, A, A)
+        ksp = pkg.KSP().create()
+        ksp.setOperators(A)
+        ksp.setFromOptions()
+        ksp.setUp()
+        levels.append([lev.A.to_scipy() for lev in ksp.getPC()._impl.levels])
+    assert [L.shape[0] for L in levels[1]] == [L.shape[0] for L in levels[0]] == [729, 125, 27]
+    for Lp, Lj in zip(*levels[::-1]):
+        assert _rel(Lp.toarray(), Lj.toarray()) <= 1e-12
