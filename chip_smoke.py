@@ -116,6 +116,28 @@ Phases, one JSON line each on stdout:
            the same history) and matSolve on three columns (each equal to
            its own solve); log.event(sync=) on a CUDA tensor around a 10 ms
            spin, which must last the spin;
+  maij_kaij  MatMAIJ.create(A, 3) and MatKAIJ on that assembled matrix:
+           mult (M1) and multTranspose (M1 on A's explicit transpose)
+           against their plain versions (1e-12), CG with -pc_type none to
+           rtol 1e-8 on the three-component b of maij_rhs (6,291,456
+           unknowns); one Radau IIA 3-stage stage system I (x) I_3 + A (x)
+           (0.01 A_RadauIIA) by GMRES(30), b = 1; each against `python
+           mat7_contract.py 128 maij|kaij` (MAT7_CONTRACT: its, reason,
+           history to 1e-6, true residual) with exact launches, warm and
+           profiled; then M1 at k = 3 (f64, f32), 1 and 8 and on the
+           explicit transpose against its plain version (1e-12 / 1e-5, equal
+           bits on a rerun), timed beside its bound, the plain version,
+           torch.sparse_csr_tensor @ X and k launches of S2 in turns;
+  mat_shell_dense  CG+Jacobi at 128^3 on the stencil Mat, on a
+           Mat.createShell over its mult and diagonal, and on
+           Mat.createStencil with box27's 27 coefficient planes (aij_dnd,
+           V1's window kernel), each 184 its with exact launches and a
+           history equal to the stencil Mat's to 1e-12, warm and (the last
+           two) profiled; KSP.matSolve with CG + GAMG's structured head (f64
+           cycle) on a MatDense of four columns (matsolve_rhs), which
+           returns a MatDense whose columns equal ksp.solve of each column
+           (1e-12) and `python mat7_contract.py 128 matsolve` (column 0
+           10 its), launches exact;
   gamg_grid  CG + GAMG with the structured head on bench.py's solve:
            build_dnd((128,)*3, "box") + as_mat, rtol 1e-8, max_it 60, every
            GAMG option at its default, in the f32 cycle (-pc_mg_dtype single,
@@ -209,6 +231,12 @@ Phases, one JSON line each on stdout:
            (earlier_kernels/) in turns and torch.bmm on the reference's
            padded table; C1's z modes against their plain
            version at ne 24's level-0 length, timed beside their bound;
+  sbaij    ex56 ne 64's assembled CSR as MatSBAIJ.from_scipy (the upper
+           triangle on the host; bs-1 CSR on the card until setBlockSize(3)):
+           the expanded CSR equal to the upper triangle's nonzeros mirrored
+           (within 1e-15 of the assembled one), then CG + GAMG at the defaults against
+           phase ex56's contract and history, exact launches, warm and
+           profiled;
   ex45     PETSc's ex45 (the 3-D Laplacian on a DMDA) through the steps of
            petsc_tpu_torch/examples/ex45.py at -da_grid_x|y|z 129
            (2,146,689 rows), CG to rtol 1e-8, under -pc_type mg (PCMG
@@ -245,7 +273,9 @@ config 2's forward sweep in f64, with its variant, the grid variant's and
 the earlier design's times from the same turns, the entries-removed sweeps
 and the other sweeps beside it; B1's is ex56 ne 64's operator in f64, A1's
 ex56 ne 24's level-0 tables in f64, C1z's (C1's z modes, counted apart)
-the step_z mode in f64 at that level's length; Q1P's and Q1R's rows
+the step_z mode in f64 at that level's length; M1's the MAIJ product
+(k = 3, f64) on the 128^3 CSR, with S2 per column in the same turns;
+Q1P's and Q1R's rows
 carry their dof rows and ex45's µs per level, V1's its time on ex45's
 level 0;
 every row of the path's kernels its µs per launch inside each solve, and
@@ -299,7 +329,7 @@ IN_SOLVE = {"triad": ("triad_kernel",), "axpy_normsq": ("axpy_normsq_kernel",),
             "agg_block_cheby": ("agg_block_cheby_kernel",),
             "dnd_stencil": ("dnd_stencil_kernel", "dnd_window_kernel"),
             "q1_prolong": ("q1_prolong_kernel",), "q1_restrict": ("q1_restrict_kernel",),
-            "trisolve": ("trisolve_kernel",),
+            "trisolve": ("trisolve_kernel",), "csr_spmm": ("csr_spmm_kernel",),
             # the Krylov basis products of GMRES (torch.mv: cuBLAS gemv)
             "gemv": ("gemv",),
             # torch.linalg.lu_solve: the library's row swaps and triangular solves
@@ -1092,6 +1122,34 @@ def box27_coo(n):
     v = np.full(len(i), -1.0)
     v[:N] = 26.0
     return i, j, v
+
+
+KAIJ_DT = 0.01                   # the Radau IIA stage system's time step
+
+
+def radau_iia3():
+    """The Butcher matrix of the 3-stage Radau IIA method (order 5)."""
+    import numpy as np
+    r = math.sqrt(6.0)
+    return np.array([[(88 - 7 * r) / 360, (296 - 169 * r) / 1800, (-2 + 3 * r) / 225],
+                     [(296 + 169 * r) / 1800, (88 + 7 * r) / 360, (-2 - 3 * r) / 225],
+                     [(16 - r) / 36, (16 + r) / 36, 1 / 9]])
+
+
+def maij_rhs(N):
+    """MAIJ's right-hand side, node-major: at node i the components 1,
+    cos(0.01 i) and sin(0.01 i)."""
+    import numpy as np
+    i = np.arange(N, dtype=np.float64)
+    return np.stack([np.ones(N), np.cos(0.01 * i), np.sin(0.01 * i)], axis=1).reshape(-1)
+
+
+def matsolve_rhs(N, k=4):
+    """matSolve's (N, k) right-hand sides: column 0 is 1, column c > 0 is
+    cos(0.01 (i + c))."""
+    import numpy as np
+    i = np.arange(N, dtype=np.float64)
+    return np.stack([np.ones(N)] + [np.cos(0.01 * (i + c)) for c in range(1, k)], axis=1)
 
 
 def aij_solve(pt, A, pc_type):
@@ -2626,7 +2684,7 @@ def surface_vec_checks(pt):
 def surface_solve(pt, A, args, configure=None, b=None, B=None):
     """CG on the assembled operator with the PC of `args` (or `configure`)
     for b (numpy; 1 by default), or by matSolve for the columns of B:
-    returns the KSP and x (or X)."""
+    returns the KSP and x (or X, the MatDense's array)."""
     import numpy as np
     pt.init(args=["-ksp_type", "cg", "-ksp_rtol", "1e-8", "-ksp_max_it", "3000", *args])
     ksp = pt.KSP().create()
@@ -2635,7 +2693,7 @@ def surface_solve(pt, A, args, configure=None, b=None, B=None):
         configure(ksp.getPC())
     ksp.setFromOptions()
     if B is not None:
-        return ksp, ksp.matSolve(B)
+        return ksp, ksp.matSolve(B).getDenseArray()
     x = A.createVecRight()
     ksp.solve(pt.Vec.from_array(np.ones(A.getSize()[0]) if b is None else b), x)
     return ksp, x
@@ -2803,7 +2861,7 @@ def ex56_run(pt, ne, mode):
     setBlockSize(3) (kind aij_bsr), MatNullSpace.createRigidBody, CG in the
     unpreconditioned norm to rtol 1e-4; every launch count set to 0 just
     before the set-up and read just after the solve. Returns (ksp, A_sp,
-    b_np, b, x, launches, seconds)."""
+    b_np, b, x, launches, seconds, the node coordinates)."""
     import torch
     from petsc_tpu_torch.examples import ex56
     secs = {}
@@ -2842,7 +2900,7 @@ def ex56_run(pt, ne, mode):
     ksp.solve(b, x)
     torch.cuda.synchronize()
     secs["first_solve_s"] = time.perf_counter() - t0
-    return ksp, A_sp, b_np, b, x, launch_counts(), secs
+    return ksp, A_sp, b_np, b, x, launch_counts(), secs, coords
 
 
 def check_ex56(ksp, A_sp, b_np, x, key):
@@ -2881,8 +2939,9 @@ def check_ex56(ksp, A_sp, b_np, x, key):
 def ex56_case(pt, ne, mode, profile=False):
     """One ex56 run checked against its contract and its launches; with
     profile, also the warm solve (best of 3) and one profiled warm solve.
-    Returns (the record, ksp, launches, profile or None)."""
-    ksp, A_sp, b_np, b, x, launches, secs = ex56_run(pt, ne, mode)
+    Returns (the record, ksp, launches, profile or None, the problem
+    (A_sp, b_np, coords))."""
+    ksp, A_sp, b_np, b, x, launches, secs, coords = ex56_run(pt, ne, mode)
     chk = check_ex56(ksp, A_sp, b_np, x, (ne, mode))
     nlev = len(ksp.getPC()._impl.levels)
     exact, at_least = ex56_launches_needed(chk["its"], nlev, mode != "defaults")
@@ -2911,7 +2970,7 @@ def ex56_case(pt, ne, mode, profile=False):
                    device_busy_ms=prof["device_busy_ms"],
                    busy_share=prof["busy_share_of_warm"],
                    device_events=prof["device_events"])
-    return rec, ksp, launches, prof
+    return rec, ksp, launches, prof, (A_sp, b_np, coords)
 
 
 def _random_bsr(nbr, bs, dtype, seed, long_row=None, empty_row=None):
@@ -3256,17 +3315,20 @@ def phase_ex56(pt, smi, t_start, flush, earlier):
     its level-0 length, A1's fused step on all those tables and on random
     ones. Returns (the record, B1's, A1's, C1z's and the fused step's main
     rows, the defaults' launches and profile, the knob set's (ne 24)
-    launches and profile)."""
+    launches and profile, and ne 64's problem for phase sbaij: (A_sp,
+    b_np, coords, the defaults' history, the BSR's block count))."""
     import torch
     from petsc_tpu_torch.ops import block_kernels as bk
     from petsc_tpu_torch.pc.mg import _agg_blocks_host
     from petsc_tpu_torch.ops import pallas_kernels as pk
     t0 = time.perf_counter()
     out = {"phase": "ex56", "nvidia_smi": smi, "rtol": EX56_RTOL, "norm": "unpreconditioned"}
-    rec, ksp, launches, prof = ex56_case(pt, 64, "defaults", profile=True)
+    rec, ksp, launches, prof, (A_asm, b_np, coords) = ex56_case(pt, 64, "defaults",
+                                                                 profile=True)
     out["defaults_ne64"] = rec
     out["defaults_ne64_profile"] = prof
     A = ksp.getOperators()[0]
+    ne64 = (A_asm, b_np, coords, ksp.getConvergenceHistory(), A.device_data()["bcol"].numel())
     A_sp = A.to_scipy()
     out["bsr_spmv_checks"], b1 = b1_rows(bk, pk, A, A_sp, flush, earlier)
     # A1 at full width: the ragged tables of the aggregate-block smoother
@@ -3283,7 +3345,7 @@ def phase_ex56(pt, smi, t_start, flush, earlier):
     out["defaults_seconds"] = time.perf_counter() - t0
     for ne, mode in ((11, "knobs"), (11, "transposed")):
         out[f"{mode}_ne{ne}"] = ex56_case(pt, ne, mode)[0]
-    rec, ksp, k_launches, k_prof = ex56_case(pt, 24, "knobs", profile=True)
+    rec, ksp, k_launches, k_prof, _ = ex56_case(pt, 24, "knobs", profile=True)
     out["knobs_ne24"] = rec
     out["knobs_ne24_profile"] = k_prof
     # A1 on every level's tables of the ne 24 solve, level 0 timed
@@ -3307,7 +3369,7 @@ def phase_ex56(pt, smi, t_start, flush, earlier):
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     out["seconds_so_far"] = time.perf_counter() - t_start
-    return out, b1, a1, c1z, a1c, launches, prof, k_launches, k_prof
+    return out, b1, a1, c1z, a1c, launches, prof, k_launches, k_prof, ne64
 
 
 def ex45_launches_needed(its, levels, pc):
@@ -3695,6 +3757,598 @@ def phase_bench_gpu(smi, t_start):
     return line
 
 
+# ---------------------------------------------------------------------
+# ROADMAP item 7's card paths: MatShell, MatDense (matSolve), MatSBAIJ,
+# MatMAIJ and MatKAIJ (M1)
+# ---------------------------------------------------------------------
+
+# `python mat7_contract.py 128 maij|kaij|matsolve`: the JAX package's run of
+# the maij_kaij and mat_shell_dense solves on the CPU (JAX 0.9.0, x64): its,
+# reason, the residual history and the true relative residual
+MAT7_CONTRACT = {
+    "maij":
+        {"its": 205, "reason": "CONVERGED_RTOL", "true_relres": 9.419034255304139e-09,
+         "history": (
+             2048.0, 1984.0760441725827, 8324.105892863501, 6158.630311383686,
+             5842.825540088709, 6322.58404482812, 5708.758563450306, 5681.617163373634,
+             5571.270987155918, 5320.275260107101, 5252.572374951695, 5041.624759740303,
+             4911.88123063736, 4781.163583167877, 4602.691906830944, 4501.1878365273515,
+             4324.639767827493, 4215.972540637948, 4074.8053010450926, 3934.4403392022173,
+             3829.0864247829854, 3674.81084893084, 3582.222317069271, 3438.7050848928207,
+             3331.0189204041917, 3216.6675298099976, 3090.8731709175636, 2999.4054837406034,
+             2867.553371430277, 2780.8169056423717, 2662.4164441328626, 2565.650539734243,
+             2468.425177891105, 2359.3421854500148, 2278.5515311810673, 2167.950140791154,
+             2089.739673773997, 1989.8327225566018, 1904.3932993667663, 1820.9955309864533,
+             1727.8790187052286, 1656.238453124706, 1562.992288950964, 1493.6341654989772,
+             1409.3928091908733, 1334.9074909505446, 1263.1050295768703, 1183.6848884685812,
+             1120.4354107701308, 1042.017632191351, 980.064670350452, 908.8603629122925,
+             843.6285105026817, 781.3169502831909, 713.5096838698546, 656.6356849568683,
+             590.5424841874878, 534.1795713172718, 473.2770039869761, 415.11563560097187,
+             359.2451155753999, 300.4113247468028, 246.7067957828393, 189.33921608045537,
+             134.9510387827135, 130.56413000582938, 181.46480731272243, 205.2250396185356,
+             159.40309662849575, 132.95153175850353, 129.54429002969164, 116.628864728018,
+             105.77094455306585, 94.56900207082309, 87.54439556514983, 78.08215907693425,
+             70.43830602822666, 64.09690184592667, 57.272508414700546, 51.85395733244499,
+             46.78198399233559, 42.349251077384174, 37.87962780510515, 34.48391842898708,
+             31.205523527987733, 28.323460385576585, 25.894520397673784, 23.525144078399883,
+             21.727569945436972, 19.708250179674977, 18.054932877875174, 16.267276023031837,
+             14.496921598360325, 12.873108452929674, 11.253524387514252, 10.076188322647031,
+             8.920536254484487, 7.9690905466090225, 7.008960307263225, 6.138609541703026,
+             5.435484218087322, 4.71993513949605, 4.154053559152414, 3.5850061857314848,
+             3.120644547255563, 2.6943024140291474, 2.305584418815132, 1.9889570685025326,
+             1.6775827713528013, 1.435410324238521, 1.2034089346144328, 1.0134444789112493,
+             0.8492007322936451, 0.7020524439459827, 0.5882149122883238, 0.4821511104813815,
+             0.4015331209105385, 0.3316928060128065, 0.27574379297407997, 0.23290681225788354,
+             0.19726287785678712, 0.17205774767191168, 0.15021366458215515,
+             0.13452229410786698, 0.1190087268868623, 0.10277089374198023, 0.0870725345535941,
+             0.06988157948215479, 0.054480857582220175, 0.04733530648768199,
+             0.04943847390861938, 0.04387059384796166, 0.036629921501683614,
+             0.03318775870037033, 0.029092020988900888, 0.025112506048430783,
+             0.021605904261302475, 0.018584498030112816, 0.01498441886491926,
+             0.013452237391987944, 0.010818468753284, 0.009507338553758902,
+             0.008067242252398098, 0.007104304584163782, 0.005632782148771388,
+             0.004667766352898343, 0.003828798303455683, 0.003089388564400103,
+             0.002668249840907254, 0.0022110023606347145, 0.0018134921286984407,
+             0.0015290090999557702, 0.0012526154352254805, 0.0010355896112460745,
+             0.0008408016751766166, 0.0006844990506851724, 0.0005773797683978064,
+             0.0004916127391034988, 0.00041900009910300943, 0.00036245760266656433,
+             0.0003196595906896961, 0.0002933655382427386, 0.00027427986351549207,
+             0.00027043755451879666, 0.00027568309035362945, 0.0002868055891692529,
+             0.00030493029493689, 0.00032814209866695635, 0.00035586179115178,
+             0.0003732049978655617, 0.00038313230108821225, 0.00038417836877899334,
+             0.00037666205938809437, 0.0003579154611037853, 0.00033183910475531955,
+             0.00030949633522999674, 0.00028882124791192296, 0.00027077212475351976,
+             0.0002521857412741991, 0.00023460324631114965, 0.00021658669689291417,
+             0.00019345601423783208, 0.00016741964282872108, 0.0001406532414456408,
+             0.00011742902154117469, 9.992655681677637e-05, 8.707449299610162e-05,
+             7.931314062410324e-05, 7.57467629236304e-05, 7.530159696252703e-05,
+             7.589178597135753e-05, 7.24326579424716e-05, 6.99348720613217e-05,
+             7.086409957793976e-05, 7.283681780072272e-05, 6.354396694550259e-05,
+             5.4751615926815225e-05, 4.731007925052623e-05, 4.039096954237928e-05,
+             3.6073869513270696e-05, 3.331689786066158e-05, 3.071335789590893e-05,
+             2.8232671698754692e-05, 2.452569929564169e-05, 2.1038480245285113e-05,
+             1.9290181392516625e-05,)},
+    "kaij":
+        {"its": 6, "reason": "CONVERGED_RTOL", "true_relres": 1.2679360441833712e-09,
+         "history": (
+             2508.277496609974, 33.38799509739107, 1.3562276647146707, 0.04036191784210581,
+             0.0010087362459093902, 3.3847743181674664e-05, 3.1803354297226957e-06,)},
+    "matsolve": (
+        {"its": 10, "reason": "CONVERGED_RTOL", "true_relres": 3.4892518396667014e-07,
+         "history": (
+             46860.812329914144, 7488.182148857781, 1096.8634550591057, 111.47676981915953,
+             22.57428172919544, 3.359027910593749, 0.31652433151342046, 0.05881924956690744,
+             0.010350121999600875, 0.0011633350764347042, 0.00020551337644568885,)},
+        {"its": 10, "reason": "CONVERGED_RTOL", "true_relres": 5.769031498147653e-10,
+         "history": (
+             70.60142826840877, 4.072223963240827, 0.1253446503006587, 0.013192429173115574,
+             0.0027594868944700733, 0.001085617297074456, 0.000273288102871097,
+             4.5207616598144175e-05, 1.0048538133942453e-05, 1.162729709426297e-06,
+             2.3522077744559274e-07,)},
+        {"its": 10, "reason": "CONVERGED_RTOL", "true_relres": 5.75082774855716e-10,
+         "history": (
+             70.60151195943358, 4.072212605525569, 0.12535741416811105, 0.01318962254538879,
+             0.0027575768966439807, 0.0010854889774158652, 0.00027371478996853453,
+             4.49787698654898e-05, 1.0010781521905548e-05, 1.1593881209349045e-06,
+             2.3388606355454114e-07,)},
+        {"its": 10, "reason": "CONVERGED_RTOL", "true_relres": 5.733418275444831e-10,
+         "history": (
+             70.60159504720414, 4.072202025598277, 0.12537031701001286, 0.01318676439133009,
+             0.0027555468683982784, 0.0010852889183831243, 0.0002741365553711851,
+             4.474793010370889e-05, 9.972121111010659e-06, 1.1562036390917102e-06,
+             2.325495275278772e-07,)},
+    ),
+}
+MAT7_HIST_TOL = 1e-6        # the contract's histories, as every other path's
+SHELL_HIST_TOL = 1e-12      # the three operators' CG+Jacobi histories against (a)'s
+
+
+def hist_rel(h, want):
+    """max |h - want| / |want| entrywise; inf where the lengths differ."""
+    import numpy as np
+    h, w = np.asarray(h, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    return float(np.max(np.abs(h - w) / np.abs(w))) if h.shape == w.shape else math.inf
+
+
+def cg_launches_needed(its, product):
+    """The launches of init and one CG solve from x0 = 0 with PC none or
+    jacobi (whose apply is a PyTorch product): K1 once in init; per
+    iteration one product, two K2, one K3 and two K4, and one K4 before
+    them; nothing else of the port's kernels."""
+    return {"probe": 1, product: its, "triad": 2 * its, "axpy_normsq": its,
+            "dot2": 1 + 2 * its}
+
+
+def exact_launches(label, launches, need):
+    """Every kernel's count equal to need's (0 where need names none)."""
+    bad = {k: (v, need.get(k, 0)) for k, v in launches.items() if v != need.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{label}: launches (got, want): {bad}")
+
+
+def box27_stencil_coeffs(n):
+    """The box27 operator as Mat.createStencil's arguments: the 27 offsets
+    (dz, dy, dx) in product order and one coefficient plane each (26 on the
+    centre, -1 elsewhere; couplings that leave the grid are not stored)."""
+    import itertools
+    import numpy as np
+    offs = list(itertools.product((-1, 0, 1), repeat=3))
+    coeffs = np.full((len(offs),) + (n,) * 3, -1.0)
+    coeffs[offs.index((0, 0, 0))] = 26.0
+    return offs, coeffs
+
+
+def jacobi_on(pt, pk, make_op, label):
+    """CG+Jacobi at 128^3 to rtol 1e-8 (b = 1, x0 = 0) on the operator
+    make_op() builds after init, every launch count set to 0 just before
+    init and read just after the solve; checked as the main solve (184
+    iterations, CONVERGED_RTOL, relres and the true residual). Returns
+    (the record, ksp, A, b, x, launches)."""
+    import torch
+    torch.cuda.synchronize()
+    reset_launches()
+    pt.init(args=["-ksp_type", "cg", "-pc_type", "jacobi", "-ksp_rtol", "1e-8",
+                  "-ksp_max_it", "3000"])
+    t0 = time.perf_counter()
+    A = make_op()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ksp = pt.KSP().create()
+    ksp.setOperators(A)
+    ksp.setFromOptions()
+    b = A.createVecLeft()
+    b.set(1.0)
+    x = A.createVecRight()
+    t0 = time.perf_counter()
+    ksp.solve(b, x)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    its, reason, relres, true_rel = check_solve(pk, ksp, b, x)
+    rec = {"operator": label, "kind": A.meta[0], "its": its, "reason": reason,
+           "relres": relres, "true_relres": true_rel, "build_s": build_s,
+           "first_solve_s": solve_s, "launches": {k: v for k, v in launches.items() if v}}
+    return rec, ksp, A, b, x, launches
+
+
+def phase_mat_shell_dense(pt, pk, sb, smi, t_start):
+    """MatShell, Mat.createStencil and MatDense on the main path's 128^3
+    box27: CG+Jacobi on (a) the stencil Mat, (b) a Mat.createShell whose
+    mult is (a)'s operator and whose diag is (a)'s diagonal, (c)
+    Mat.createStencil((128,)*3, box27 offsets, coefficient planes) (kind
+    aij_dnd, V1's window kernel), each against the main solve's contract
+    with exact launches and a history equal to (a)'s to 1e-12, timed warm
+    and (b), (c) profiled; then KSP.matSolve with CG + GAMG's structured
+    head (f64 cycle) on a MatDense B of four columns (matsolve_rhs): a
+    MatDense back, each column equal to ksp.solve of that column (1e-12)
+    and to the contract of `python mat7_contract.py 128 matsolve` (its,
+    reason, history to 1e-6; column 0 GAMG_GRID_ITS), the launches exact
+    (the set-up once, then each column's solve). Returns (the record,
+    {path: launches}, {path: profile})."""
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    out = {"phase": "mat_shell_dense", "nvidia_smi": smi, "n": N_MAIN, "stencil": "box27",
+           "rtol": 1e-8}
+    launches, profs = {}, {}
+
+    def stencil():
+        return sb.as_mat(*sb.build_dnd((N_MAIN,) * 3, kind="box"))
+
+    ra, ksp_a, A, b, x, la = jacobi_on(pt, pk, stencil, "stencil Mat (build_dnd + as_mat)")
+    hist_a = ksp_a.getConvergenceHistory()
+    exact_launches("mat_shell_dense (a)", la, cg_launches_needed(ra["its"], "const_stencil"))
+    ra["warm_ms_best_of_3"] = warm_ms(ksp_a, b, x)
+    check_solve(pk, ksp_a, b, x)
+    out["stencil"] = ra
+    op_a = A.op()
+
+    def shell():
+        return pt.Mat.createShell(A.getSize(), mult=op_a.mult, diag=op_a.diag)
+
+    offs, coeffs = box27_stencil_coeffs(N_MAIN)
+    for key, make, label, product in (
+            ("shell", shell, "Mat.createShell over (a)'s mult and diagonal", "const_stencil"),
+            ("create_stencil", lambda: pt.Mat.createStencil((N_MAIN,) * 3, offs, coeffs),
+             "Mat.createStencil((128,)*3, box27 offsets, coefficient planes)", "dnd_stencil")):
+        rec, ksp, M, bk_, xk, lk = jacobi_on(pt, pk, make, label)
+        rec["history_rel_diff_vs_stencil"] = hist_rel(ksp.getConvergenceHistory(), hist_a)
+        exact_launches(f"mat_shell_dense {key}", lk, cg_launches_needed(rec["its"], product))
+        if key == "create_stencil":
+            kern = M.op().mult.kernel
+            rec["v1_kernel"] = kern
+            if M.meta[0] != "aij_dnd" or len(M.meta[2]) != 27 or kern != "window":
+                raise AssertionError(f"createStencil at 128^3: kind {M.meta[0]}, "
+                                     f"{len(M.meta[2])} offsets, V1 kernel {kern}")
+        if not rec["history_rel_diff_vs_stencil"] <= SHELL_HIST_TOL:
+            raise AssertionError(f"mat_shell_dense {key}: history differs from the stencil "
+                                 f"Mat's by {rec['history_rel_diff_vs_stencil']}")
+        rec["warm_ms_best_of_3"] = warm_ms(ksp, bk_, xk)
+        prof = profile_solve(ksp, bk_, xk, rec["warm_ms_best_of_3"])
+        check_solve(pk, ksp, bk_, xk)
+        rec.update(device_busy_ms=prof["device_busy_ms"], busy_share=prof["busy_share_of_warm"],
+                   device_events=prof["device_events"])
+        out[key], launches[key], profs[key] = rec, lk, prof
+        del ksp, M, bk_, xk
+    del coeffs, ksp_a, A, b, x, op_a
+    torch.cuda.empty_cache()
+
+    # KSP.matSolve on the main path (CG + GAMG's structured head, f64 cycle)
+    N = N_MAIN ** 3
+    Bnp = matsolve_rhs(N)
+    k = Bnp.shape[1]
+    torch.cuda.synchronize()
+    reset_launches()
+    pt.init(args=["-ksp_type", "cg", "-pc_type", "gamg", "-ksp_rtol", "1e-8",
+                  "-ksp_max_it", "60"])
+    A = stencil()
+    ksp = pt.KSP().create()
+    ksp.setOperators(A)
+    ksp.setFromOptions()
+    B = pt.Mat.createDense((N, k), array=Bnp)
+    t0 = time.perf_counter()
+    X = ksp.matSolve(B)
+    torch.cuda.synchronize()
+    ms_s = time.perf_counter() - t0
+    lm = launch_counts()
+    its_all, reason_all = ksp.getIterationNumber(), ksp.getConvergedReason().name
+    if type(X).__name__ != "MatDense" or X.getSize() != (N, k):
+        raise AssertionError(f"matSolve returned {type(X).__name__} {X.getSize()}")
+    Xa = X.getDenseArray()
+    levels = ksp.getPC()._impl.levels
+    need, cols = {}, []
+    for c in range(k):
+        bc = pt.Vec.from_array(Bnp[:, c])
+        xc = A.createVecRight()
+        ksp.solve(bc, xc)
+        its_c, reason_c = ksp.getIterationNumber(), ksp.getConvergedReason().name
+        want = MAT7_CONTRACT["matsolve"][c]
+        xs = xc.array
+        diff = float(np.max(np.abs(Xa[:, c] - xs.cpu().numpy())) / float(xs.abs().max()))
+        Ax = pk.const_stencil_plain(xs, (N_MAIN,) * 3, 26.0, -1.0, True)
+        true_rel = float(torch.linalg.vector_norm(bc.array - Ax)
+                         / torch.linalg.vector_norm(bc.array))
+        col = {"column": c, "its": its_c, "reason": reason_c,
+               "history_rel_diff_vs_reference": hist_rel(ksp.getConvergenceHistory(),
+                                                         want["history"]),
+               "true_relres": true_rel, "reference_true_relres": want["true_relres"],
+               "max_rel_diff_vs_matsolve": diff}
+        cols.append(col)
+        if (its_c != want["its"] or reason_c != want["reason"]
+                or not col["history_rel_diff_vs_reference"] <= MAT7_HIST_TOL
+                or not diff <= SURFACE_RED_RTOL or not true_rel <= 10 * want["true_relres"]
+                or (c == 0 and its_c != GAMG_GRID_ITS)):
+            raise AssertionError(f"matSolve column {c}: {col} (want {want['its']} its)")
+        for kk, v in grid_launches_needed(its_c, levels, probes=27 if c == 0 else 0,
+                                          lanczos=10 if c == 0 else 0).items():
+            need[kk] = need.get(kk, 0) + v
+    need["probe"] = 1
+    exact_launches("matSolve", lm, need)
+    if its_all != max(cl["its"] for cl in cols) or reason_all != "CONVERGED_RTOL":
+        raise AssertionError(f"matSolve: its {its_all}, {reason_all}; columns {cols}")
+    t0 = time.perf_counter()
+    ksp.matSolve(B, X)
+    torch.cuda.synchronize()
+    out["matsolve"] = {"k": k, "B": "MatDense (2097152, 4), 67 MB", "returns": "MatDense",
+                       "its": its_all, "reason": reason_all, "columns": cols,
+                       "first_matsolve_s_incl_setup": ms_s,
+                       "warm_matsolve_s": time.perf_counter() - t0,
+                       "launches": {kk: v for kk, v in lm.items() if v}}
+    launches["matsolve"] = lm
+    del ksp, A, B, X, Xa
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds_so_far"] = time.perf_counter() - t_start
+    return out, launches, profs
+
+
+def phase_sbaij(pt, ne64, smi, t_start):
+    """PETSc's ex56 at ne 64 with its operator built as MatSBAIJ.from_scipy
+    of the CSR that phase ex56 assembled (no second element assembly): the
+    upper triangle on the host, the expanded CSR on the card as kind
+    aij_csr (bs gives no block size) until setBlockSize(3) (aij_bsr);
+    the expanded CSR is the upper triangle's nonzeros mirrored (the
+    assembly's explicit zeros dropped, as in the reference), within 1e-15
+    of the assembled matrix, and the BSR its blocks (no more than phase
+    ex56's); then the
+    rigid-body modes and CG + GAMG at the defaults (rtol 1e-4), every
+    launch count set to 0 just before from_scipy and read just after the
+    solve, against phase ex56's contract (EX56_CONTRACT: its, history,
+    hierarchy, aggregates' hash), its history against phase ex56's run
+    and its launches exact (ex56_launches_needed); warm and profiled.
+    Returns (the record, launches, profile)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    A_asm, b_np, coords, hist_ex56, nblocks = ne64
+    t_phase = time.perf_counter()
+    pt.init(args=["-ne", "64"] + EX56_DEFAULTS)
+    torch.cuda.synchronize()
+    reset_launches()
+    pt.log().reset()
+    secs = {}
+    t0 = time.perf_counter()
+    S = pt.MatSBAIJ.from_scipy(A_asm, bs=3)
+    torch.cuda.synchronize()
+    secs["from_scipy_s"] = time.perf_counter() - t0
+    if S.meta[0] != "aij_csr" or S.getBlockSize() != 1 or S._bs_sym != 3:
+        raise AssertionError(f"MatSBAIJ.from_scipy(bs=3): kind {S.meta[0]}, block size "
+                             f"{S.getBlockSize()} (the reference's bs sets none)")
+    t0 = time.perf_counter()
+    U = sp.triu(A_asm).tocsr()
+    U.eliminate_zeros()
+    want = (U + sp.triu(U, 1).T).tocsr()
+    F = S.to_scipy()
+    ip, ix, v = S.upper_csr()
+    expanded = {"nnz": int(F.nnz), "assembled_nnz": int(A_asm.nnz),
+                "assembled_explicit_zeros": int((A_asm.data == 0).sum()),
+                "upper_nnz": int(len(v)),
+                "equal_to_the_upper_mirror": bool((F != want).nnz == 0),
+                "max_abs_diff_vs_assembled": float(abs(F - A_asm).max()),
+                "max_abs_assembled": float(abs(A_asm).max())}
+    secs["host_checks_s"] = time.perf_counter() - t0
+    del U, want, F
+    if not (expanded["equal_to_the_upper_mirror"]
+            and expanded["max_abs_diff_vs_assembled"] <= 1e-15 * expanded["max_abs_assembled"]):
+        raise AssertionError(f"sbaij: the expanded CSR {expanded}")
+    t0 = time.perf_counter()
+    S.setBlockSize(3)
+    torch.cuda.synchronize()
+    secs["setBlockSize_s"] = time.perf_counter() - t0
+    # the assembly's explicit zeros fill whole 3 x 3 blocks at the bottom
+    # face's decoupled dofs: the expanded CSR drops them, and so its BSR
+    expanded.update(blocks=S.device_data()["bcol"].numel(), ex56_blocks=nblocks)
+    if S.meta[0] != "aij_bsr" or not 0 < expanded["blocks"] <= nblocks:
+        raise AssertionError(f"sbaij after setBlockSize(3): kind {S.meta[0]}, "
+                             f"{expanded['blocks']} blocks (phase ex56: {nblocks})")
+    S.setNearNullSpace(pt.MatNullSpace.createRigidBody(coords))
+    ksp = pt.KSP().create()
+    ksp.setOperators(S)
+    ksp.setNormType("unpreconditioned")
+    ksp.setTolerances(rtol=EX56_RTOL, max_it=200)
+    ksp.setFromOptions()
+    b = pt.Vec.from_array(b_np)
+    x = S.createVecRight()
+    t0 = time.perf_counter()
+    ksp.setUp()
+    torch.cuda.synchronize()
+    secs["setup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ksp.solve(b, x)
+    torch.cuda.synchronize()
+    secs["first_solve_s"] = time.perf_counter() - t0
+    launches = launch_counts()
+    chk = check_ex56(ksp, A_asm, b_np, x, (64, "defaults"))
+    nlev = len(ksp.getPC()._impl.levels)
+    exact, _ = ex56_launches_needed(chk["its"], nlev, False)
+    exact_launches("sbaij", {k: launches[k] for k in exact}, exact)
+    if launches["csr_spmm"]:
+        raise AssertionError(f"sbaij: {launches['csr_spmm']} M1 launches")
+    rec = {"phase": "sbaij", "nvidia_smi": smi, "ne": 64, "unknowns": A_asm.shape[0],
+           "rtol": EX56_RTOL, **secs, "expanded_csr": expanded, **chk,
+           "history_rel_diff_vs_phase_ex56": hist_rel(ksp.getConvergenceHistory(), hist_ex56),
+           "launches": {k: v for k, v in launches.items() if v}, "launches_exact": exact}
+    if not rec["history_rel_diff_vs_phase_ex56"] <= MAT7_HIST_TOL:
+        raise AssertionError(f"sbaij: history against phase ex56's "
+                             f"{rec['history_rel_diff_vs_phase_ex56']}")
+    warm = warm_ms(ksp, b, x)
+    check_ex56(ksp, A_asm, b_np, x, (64, "defaults"))
+    prof = profile_solve(ksp, b, x, warm)
+    check_ex56(ksp, A_asm, b_np, x, (64, "defaults"))
+    rec.update(warm_ms_best_of_3=warm, device_busy_ms=prof["device_busy_ms"],
+               busy_share=prof["busy_share_of_warm"], device_events=prof["device_events"],
+               seconds=time.perf_counter() - t_phase,
+               seconds_so_far=time.perf_counter() - t_start)
+    del ksp, S, b, x
+    torch.cuda.empty_cache()
+    return rec, launches, prof
+
+
+def spmm_bytes(m, n, nnz, k, itemsize):
+    """M1's bytes: vals and col once, indptr once, X read and Y written once."""
+    return nnz * (itemsize + 4) + (m + 1) * 8 + (n + m) * k * itemsize
+
+
+def m1_rows(pk, data, ncols, flush):
+    """M1 against its plain version on the 128^3 box27 CSR (A's device
+    arrays) and on its explicit transpose: k = 3 in f64 (the row of the
+    kernel table) and f32, k = 1 and 8 in f64; f64 to 1e-12 relative, f32
+    against the float64 product to 1e-5; equal bits on a rerun. Each timed
+    beside its bound, the plain version, torch.sparse_csr_tensor @ X
+    (cuSPARSE's SpMM) and k launches of S2 on the columns, in turns (M1,
+    S2 x k, S2 x k, M1)."""
+    import numpy as np
+    import torch
+    from petsc_tpu_torch.mat.aij import csr_transpose_of
+    ip, col, vals64 = data["indptr"], data["col"], data["vals"]
+    m, nnz = ip.numel() - 1, col.numel()
+    rows = []
+    cases = [("A", 3, torch.float64), ("A", 3, torch.float32), ("A", 1, torch.float64),
+             ("A", 8, torch.float64), ("A^T (explicit transpose)", 3, torch.float64)]
+    for which, k, dtype in cases:
+        if which == "A":
+            cip, ccol, cvals = ip, col, vals64.to(dtype)
+        else:
+            cip, ccol, cvals = csr_transpose_of(data, ncols)
+        X = torch.as_tensor(maij_rhs(ncols).reshape(ncols, 3)[:, [c % 3 for c in range(k)]]
+                            * (1.0 + np.arange(k)), device=ip.device)
+        X = X.to(dtype).contiguous()
+        Y = pk.csr_spmm(cip, ccol, cvals, X)
+        Y2 = pk.csr_spmm(cip, ccol, cvals, X)
+        ref = pk.csr_spmm_plain(cip, ccol, cvals.double(), X.double())
+        err = rel_err(Y, ref)
+        tol = TOL["float64" if dtype == torch.float64 else "float32"]
+        equal = bool(torch.equal(Y, Y2))
+        if not err <= tol or not equal or tuple(Y.shape) != (m, k):
+            raise AssertionError(f"M1 on {which}, k {k}, {dtype}: rel err {err} (tol {tol}), "
+                                 f"equal bits on a rerun {equal}")
+        lib = torch.sparse_csr_tensor(cip.int(), ccol, cvals, (m, ncols))
+        lib_err = rel_err(lib @ X, ref)
+        cols = [X[:, c].contiguous() for c in range(k)]
+
+        def m1():
+            return pk.csr_spmm(cip, ccol, cvals, X)
+
+        def s2k():
+            return [pk.csr_spmv(cip, ccol, cvals, c) for c in cols]
+
+        t = [time_ms(m1, flush), time_ms(s2k, flush), time_ms(s2k, flush), time_ms(m1, flush)]
+        t_plain = time_ms(lambda: pk.csr_spmm_plain(cip, ccol, cvals, X), flush, reps=5)
+        t_lib = time_ms(lambda: lib @ X, flush)
+        dname = "float64" if dtype == torch.float64 else "float32"
+        b_ms, b_by = bound(spmm_bytes(m, ncols, nnz, k, X.element_size()), 2 * nnz * k, dname)
+        ms = statistics.median([t[0], t[3]])
+        rows.append({"name": "csr_spmm", "operand": which, "k": k, "dtype": dname,
+                     "shape": f"box27 {N_MAIN}^3 CSR, {nnz} entries, X ({ncols}, {k})",
+                     "max_abs_err": float((Y.double() - ref).abs().max()), "rel_err": err,
+                     "equal_bits_rerun": equal, "ms": ms, "turns_ms": t,
+                     "s2_per_column_ms": statistics.median([t[1], t[2]]),
+                     "plain_ms": t_plain, "bound_ms": b_ms, "bound_by": b_by,
+                     "share_of_bound": b_ms / ms, "library_ms": t_lib,
+                     "library": "torch.sparse_csr_tensor @ X (cuSPARSE SpMM)",
+                     "library_rel_err": lib_err})
+        del lib, X, Y, Y2, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_maij_kaij(pt, pk, A, smi, t_start, flush):
+    """MatMAIJ and MatKAIJ on the assembled 128^3 box27 CSR A (kind
+    aij_csr). (a) MatMAIJ.create(A, 3): mult (M1) and multTranspose (M1 on
+    A's explicit transpose) against their plain versions (1e-12), then CG
+    with -pc_type none to rtol 1e-8 on b = maij_rhs (6,291,456 unknowns);
+    (b) one Radau IIA 3-stage stage system as TSIRK builds it with
+    MatKAIJ, K = I (x) I_3 + A (x) (dt A_RadauIIA), dt = 0.01, its product
+    against the plain one, then GMRES(30) with -pc_type none to rtol 1e-8,
+    b = 1. Each solve through the user's entry points, every launch count
+    set to 0 just before init and read just after the solve, against the
+    contract of `python mat7_contract.py 128 maij|kaij` (its, reason,
+    history to 1e-6, a true residual no worse than 10x the reference's)
+    with exact launches (M1 once per product; CG's K2-K4, GMRES's K3);
+    warm and profiled. Then M1's rows (m1_rows). Returns (the record,
+    {path: launches}, {path: profile}, M1's main row)."""
+    import numpy as np
+    import torch
+    from petsc_tpu_torch.mat.aij import csr_transpose_of
+    from petsc_tpu_torch.mat.extra_formats import MatKAIJ
+    from petsc_tpu_torch.mat.utility import MatMAIJ
+    from petsc_tpu_torch.ops import spmv
+    t_phase = time.perf_counter()
+    N = N_MAIN ** 3
+    data = A.device_data()
+    if A.meta[0] != "aij_csr":
+        raise AssertionError(f"maij_kaij: A's kind {A.meta[0]}")
+    ip, col, vals = data["indptr"], data["col"], data["vals"]
+    out = {"phase": "maij_kaij", "nvidia_smi": smi, "n": N_MAIN, "stencil": "box27",
+           "A": "the assembled CSR of phase aij", "rtol": 1e-8}
+    launches, profs = {}, {}
+    T = KAIJ_DT * radau_iia3()
+    for key in ("maij", "kaij"):
+        want = MAT7_CONTRACT[key]
+        torch.cuda.synchronize()
+        reset_launches()
+        if key == "maij":
+            pt.init(args=["-ksp_type", "cg", "-pc_type", "none", "-ksp_rtol", "1e-8",
+                          "-ksp_max_it", "3000"])
+            M = MatMAIJ.create(A, 3)
+            b_np = maij_rhs(N)
+        else:
+            pt.init(args=["-ksp_type", "gmres", "-pc_type", "none", "-ksp_rtol", "1e-8",
+                          "-ksp_max_it", "3000"])
+            M = MatKAIJ.create(A, np.eye(3), T)
+            b_np = np.ones(3 * N)
+        ksp = pt.KSP().create()
+        ksp.setOperators(M)
+        ksp.setFromOptions()
+        b = pt.Vec.from_array(b_np)
+        x = M.createVecRight()
+        t0 = time.perf_counter()
+        ksp.solve(b, x)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        lk = launch_counts()
+        its, reason = ksp.getIterationNumber(), ksp.getConvergedReason().name
+        X = x.array.reshape(N, 3)
+        AX = spmv.csr_spmm(ip, col, vals, X)
+        r = b.array.reshape(N, 3) - (AX if key == "maij" else
+                                     X + AX @ torch.as_tensor(T.T, device=X.device))
+        true_rel = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b.array))
+        hr = hist_rel(ksp.getConvergenceHistory(), want["history"])
+        rec = {"operator": "MatMAIJ.create(A, 3)" if key == "maij" else
+               "MatKAIJ.create(A, I_3, dt A_RadauIIA), dt 0.01",
+               "unknowns": 3 * N, "ksp": ksp.getType(), "its": its, "reason": reason,
+               "history_rel_diff_vs_reference": hr, "true_relres": true_rel,
+               "reference_true_relres": want["true_relres"], "first_solve_s": first_s,
+               "launches": {k: v for k, v in lk.items() if v}}
+        if (its != want["its"] or reason != want["reason"] or not hr <= MAT7_HIST_TOL
+                or not true_rel <= 10 * want["true_relres"]
+                or not bool(torch.isfinite(x.array).all())):
+            raise AssertionError(f"{key}: {rec} (want {want['its']} its, {want['reason']})")
+        if key == "maij":
+            need = cg_launches_needed(its, "csr_spmm")
+        else:
+            need = {"probe": 1, "csr_spmm": its + (its - 1) // 30, "axpy_normsq": its}
+        exact_launches(key, lk, need)
+        # the products against their plain versions, off the counted run
+        op = M.op()
+        xr = torch.as_tensor(maij_rhs(N), device=vals.device)
+        Xr = xr.reshape(N, 3)
+        plain = spmv.csr_spmm(ip, col, vals, Xr)
+        if key == "maij":
+            rec["mult_rel_err"] = rel_err(op.mult(xr).reshape(N, 3), plain)
+            tp = spmv.csr_spmm(*csr_transpose_of(data, N), Xr)
+            yt = op.mult_t(xr).reshape(N, 3)
+            rec["mult_transpose_rel_err"] = rel_err(yt, tp)
+            rec["mult_transpose_rel_err_vs_scatter_add"] = rel_err(
+                yt, torch.stack([spmv.csr_spmv_t(ip, col, vals, Xr[:, c].contiguous(), N)
+                                 for c in range(3)], dim=1))
+            errs = [rec["mult_rel_err"], rec["mult_transpose_rel_err"],
+                    rec["mult_transpose_rel_err_vs_scatter_add"]]
+        else:
+            Tt = torch.as_tensor(T.T, device=vals.device)
+            rec["mult_rel_err"] = rel_err(op.mult(xr).reshape(N, 3), Xr + plain @ Tt)
+            errs = [rec["mult_rel_err"]]
+        if not max(errs) <= TOL["float64"]:
+            raise AssertionError(f"{key}: products against the plain versions {errs}")
+        rec["warm_ms_best_of_3"] = warm_ms(ksp, b, x)
+        prof = profile_solve(ksp, b, x, rec["warm_ms_best_of_3"])
+        if ksp.getIterationNumber() != its or hist_rel(ksp.getConvergenceHistory(),
+                                                       want["history"]) > MAT7_HIST_TOL:
+            raise AssertionError(f"{key}: the warm solves left the contract")
+        rec.update(ms_per_it=rec["warm_ms_best_of_3"] / its,
+                   device_busy_ms=prof["device_busy_ms"], busy_share=prof["busy_share_of_warm"],
+                   device_events=prof["device_events"],
+                   m1_in_solve=prof["in_solve"].get("csr_spmm"))
+        out[key], launches[key], profs[key] = rec, lk, prof
+        del ksp, M, b, x, X, AX, r, op, xr, Xr, plain
+        torch.cuda.empty_cache()
+    rows = m1_rows(pk, data, N, flush)
+    out["csr_spmm_checks"] = rows
+    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds_so_far"] = time.perf_counter() - t_start
+    return out, launches, profs, rows[0]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3886,8 +4540,16 @@ def main():
 
     # ---- the rest of the core surface on the card, on the assembled operator ----
     emit(phase_surface(pt, pk, A_aij, hist_stencil, smi, t_start))
+
+    # ---- MatMAIJ and MatKAIJ on the assembled operator (M1) ----
+    mk_rec, mk_launches, mk_prof, m1_main = phase_maij_kaij(pt, pk, A_aij, smi, t_start, flush)
+    emit(mk_rec)
     del A_aij
     torch.cuda.empty_cache()
+
+    # ---- MatShell, Mat.createStencil and matSolve's MatDense on the main path ----
+    sd_rec, sd_launches, sd_prof = phase_mat_shell_dense(pt, pk, sb, smi, t_start)
+    emit(sd_rec)
 
     # ---- CG + GAMG with the structured head on the stencil operator (bench.py's
     # solve), f32 and f64 cycles ----
@@ -3938,8 +4600,14 @@ def main():
     # ---- PETSc's ex56 (BAIJ, bs 3, GAMG with six rigid-body modes): the
     # defaults at ne 64, the reference's knob set at ne 11 and 24 ----
     (ex_rec, b1_main, a1_main, c1z_main, a1c_main, ex_launches, ex_prof, exk_launches,
-     exk_prof) = phase_ex56(pt, smi, t_start, flush, earlier)
+     exk_prof, ne64) = phase_ex56(pt, smi, t_start, flush, earlier)
     emit(ex_rec)
+
+    # ---- ex56's ne 64 operator as a MatSBAIJ (its upper triangle), with the
+    # same GAMG solve ----
+    sb_rec, sb_launches, sb_prof = phase_sbaij(pt, ne64, smi, t_start)
+    emit(sb_rec)
+    del ne64
 
     # ---- PETSc's ex45 (DMDA, KSP.setDM, PCMG from the DM and GAMG) at 129^3,
     # the dof-3 PCMG at 65^3, Q1P/Q1R at dof 2 and 3, the tutorials ----
@@ -3983,6 +4651,8 @@ def main():
                            {"cheby_update_z": c1z_main}, exk_launches),
         "agg_block_cheby": ("agg_block.cu", "petsc_tpu/pc/mg.py:516",
                             {"agg_block_cheby": a1c_main}, exk_launches),
+        "csr_spmm": ("csr_spmm.cu", "petsc_tpu/mat/utility.py:356", {"csr_spmm": m1_main},
+                     mk_launches["maij"]),
     }
     table = []
     for name, (src, replaces, measured, counts) in rows.items():
@@ -4004,7 +4674,14 @@ def main():
                                            "ex56_knobs": exk_launches[name],
                                            "ex45_mg": ex45_launches["mg"][name],
                                            "ex45_gamg": ex45_launches["gamg"][name],
-                                           "ex45_dof3": ex45_launches["dof3"][name]},
+                                           "ex45_dof3": ex45_launches["dof3"][name],
+                                           "maij": mk_launches["maij"][name],
+                                           "kaij": mk_launches["kaij"][name],
+                                           "shell": sd_launches["shell"][name],
+                                           "create_stencil":
+                                               sd_launches["create_stencil"][name],
+                                           "matsolve": sd_launches["matsolve"][name],
+                                           "sbaij": sb_launches[name]},
                       "in_solve_us": {path: p["in_solve"].get(name, {}).get("us_per_launch")
                                       for path, p in (("solve", prof), ("aij", prof_a),
                                                       ("mg", prof_m), ("gamg", prof_g),
@@ -4014,7 +4691,13 @@ def main():
                                                       ("ex56", ex_prof),
                                                       ("ex56_knobs", exk_prof),
                                                       ("ex45_mg", ex45_prof["mg"]),
-                                                      ("ex45_gamg", ex45_prof["gamg"]))},
+                                                      ("ex45_gamg", ex45_prof["gamg"]),
+                                                      ("maij", mk_prof["maij"]),
+                                                      ("kaij", mk_prof["kaij"]),
+                                                      ("shell", sd_prof["shell"]),
+                                                      ("create_stencil",
+                                                       sd_prof["create_stencil"]),
+                                                      ("sbaij", sb_prof))},
                       "bench_gpu_launches": {phase: c.get(name, 0)
                                              for phase, c in bench["launches"].items()}})
     for r in table:
@@ -4131,6 +4814,19 @@ def main():
                library="none: no single PyTorch call computes the fused update",
                status="redesigned: fused into A1 (agg_block_cheby); the standalone "
                       "z modes stay for a smoothing PC without a fused step")
+    # M1's row is the MAIJ product on the 128^3 box27 CSR at k = 3 in f64; f32,
+    # k = 1 and 8 and the explicit transpose beside it, each with k launches
+    # of S2 on the columns timed in the same turns
+    m1 = next(r for r in table if r["name"] == "csr_spmm")
+    m1.update({k: m1_main[k] for k in ("operand", "k", "shape", "rel_err", "equal_bits_rerun",
+                                       "turns_ms", "s2_per_column_ms", "share_of_bound",
+                                       "library", "library_rel_err")},
+              also_replaces="petsc_tpu/mat/extra_formats.py:59 (MatKAIJ's A X), "
+                            "petsc_tpu/ops/spmv.py:40 (ell_spmm)",
+              others=[{k: o[k] for k in ("operand", "k", "dtype", "ms", "s2_per_column_ms",
+                                         "plain_ms", "bound_ms", "share_of_bound",
+                                         "library_ms", "rel_err", "equal_bits_rerun")}
+                      for o in mk_rec["csr_spmm_checks"] if o is not m1_main])
     a1c = next(r for r in table if r["name"] == "agg_block_cheby")
     a1c.update(also_replaces="petsc_tpu/ksp/cheby.py:36-37, :42-43, :79-80 (C1z's step "
                              "tail, as A1's epilogue)",

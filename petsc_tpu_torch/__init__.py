@@ -3,7 +3,11 @@
 A second package beside ``petsc_tpu`` with the same public surface for
 what it ports so far: the options database, Vec, the stencil Mat of the
 3-D Poisson operator, the assembled MatAIJ (setValues, CSR and COO
-assembly, the host matrix operations and sparse products), PC
+assembly, the host matrix operations and sparse products), MatSBAIJ,
+MatShell, MatDense, the wrapper Mats (MatTranspose, MatNormal,
+MatDiagonal, MatComposite, MatLRC, MatNest, MatSchurComplement, MatMAIJ,
+MatIS, and MatKAIJ and MatFFT in ``mat.extra_formats``), orderings,
+colourings, MatFDColoring and MatPartitioning, PC
 none/jacobi/pbjacobi/shell/mg/gamg/ilu/icc/lu/cholesky/bjacobi/sor, KSP
 cg/richardson/preonly/chebyshev/gmres/fgmres/bcgs/minres with matSolve,
 the profiler's stages, events and nested views, the converged-reason
@@ -47,8 +51,12 @@ from .sys.error import (Error, KSPConvergedReason, SNESConvergedReason,
 from .parallel.layout import Layout
 from .parallel.mesh import Comm, comm_self, comm_world
 from .vec.vec import Vec, NormType, InsertMode, fused_reductions
-from .mat.mat import Mat, MatNullSpace, MatStructure
+from .mat.mat import Mat, MatShell, MatDense, MatNullSpace, MatStructure
 from .mat.aij import MatAIJ  # also registers the aij_csr and aij_dnd binders
+from .mat.sbaij import MatSBAIJ
+from .mat.utility import (MatComposite, MatDiagonal, MatIS, MatLRC, MatMAIJ, MatNormal,
+                          MatSchurComplement, MatTranspose)
+from .mat import extra_formats as _extra_formats  # registers mat_fft and mat_kaij
 from .pc.pc import PC
 from .pc import mg as _mg  # registers PC mg and the pc_mg binder
 from .pc import gamg as _gamg  # registers PC gamg and hmg
@@ -59,3 +67,14 @@ from .dm.dm import DM
 from .dm.da import DMDA
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # the reference's lazy exports (petsc_tpu/__init__.py:48-53)
+    if name == "MatColoring":
+        from .mat.coloring import MatColoring
+        return MatColoring
+    if name == "MatFDColoring":
+        from .mat.fdcoloring import MatFDColoring
+        return MatFDColoring
+    raise AttributeError(name)

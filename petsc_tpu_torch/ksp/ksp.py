@@ -284,8 +284,9 @@ class KSP(PObject):
         object with getDenseArray), each from a zero guess and on its own,
         as the reference's vmapped solve does: one solve per column through
         the same solver. The iteration count is the largest over the
-        columns and the reason the smallest. Returns the (n, k) solution,
-        or X after X.setDenseArray when X is given."""
+        columns and the reason the smallest. Returns X after
+        X.setDenseArray: a new MatDense when X is None (ksp.py:482-520),
+        else the given X; the (n, k) array when X has no setDenseArray."""
         self.setUp()
         cfg = self._static_cfg()
         fn = _IMPLS[self._type]["fn"]
@@ -308,7 +309,10 @@ class KSP(PObject):
         nnz = self.mat.nnz() if hasattr(self.mat, "nnz") else 0
         config.log().log_event("KSPMatSolve", dt,
                                flops=2.0 * nnz * max(self._its, 1) * barr.shape[1])
-        if X is not None and hasattr(X, "setDenseArray"):
+        if X is None:
+            from ..mat.mat import MatDense
+            X = MatDense(self.comm).setSizes(Xarr.shape)
+        if hasattr(X, "setDenseArray"):
             X.setDenseArray(Xarr)
             return X
         return Xarr

@@ -174,6 +174,15 @@ class MatAIJ(Mat):
     def assemble(self, *a):
         """Merge staged triplets into the canonical CSR and rebuild the
         device arrays (MatAssemblyBegin/End, matrix.c:6255/6318)."""
+        self._merge_staged()
+        self._refresh_device()
+        self._assembled = True
+        self.increase_state()
+        return self
+
+    def _merge_staged(self):
+        """The staged triplets merged into the host CSR (an empty CSR when
+        there is none), the device copy left as it is."""
         if self._sti:
             i = np.concatenate(self._sti)
             j = np.concatenate(self._stj)
@@ -193,10 +202,6 @@ class MatAIJ(Mat):
             self._indptr = np.zeros(self.row_layout.N + 1, dtype=np.int64)
             self._indices = np.zeros(0, dtype=np.int64)
             self._vals = np.zeros(0, dtype=np.float64)
-        self._refresh_device()
-        self._assembled = True
-        self.increase_state()
-        return self
 
     def _check_bounds(self, i, j):
         m, n = self.getSize()
@@ -540,6 +545,7 @@ class MatAIJ(Mat):
             self._dev["coef"] = flat.reshape(coef.shape)
         else:
             self._dev["vals"] = csr_vals
+            self._dev.pop("csr_t_vals", None)     # the transpose's values are stale
         self._refresh_diag(csr_vals)
 
     @property
@@ -650,10 +656,11 @@ class MatAIJ(Mat):
         raise ValueError(norm_type)
 
     def convert(self, kind):
+        """MatConvert to "dense": a MatDense of the same values."""
         if kind == "dense":
-            raise NotImplementedError(
-                "MatAIJ.convert('dense'): MatDense comes with the MatShell/MatDense "
-                "part of ROADMAP queue 1 item 7")
+            from .mat import MatDense
+            return MatDense(self.comm).setSizes(self.getSize()).setDenseArray(
+                self.to_scipy().toarray())
         raise ValueError(kind)
 
     # -------- host SpGEMM (the Galerkin setup; gamg.c RAP) --------
@@ -694,16 +701,39 @@ class MatAIJ(Mat):
 
 # ================= binders =================
 
+def csr_transpose_of(data, ncols):
+    """The CSR of A^T for the ``aij_csr`` data of A with ncols columns, as
+    (indptr, col, vals) for S2 or M1. Its pattern (row pointers, columns,
+    and each entry's position in A's values) is built once on A's device,
+    at the first call, by a stable sort of A's columns; its values are one
+    K8 gather of A's values, kept in ``data`` until the values change
+    (``_update_device_values`` drops them on every value change)."""
+    pat = data.get("csr_t")
+    vals = data["vals"]
+    if pat is None:
+        ip, col = data["indptr"], data["col"]
+        order = torch.argsort(col, stable=True)
+        rows = spmv.row_ids(ip)[order]
+        tptr = torch.zeros(ncols + 1, dtype=torch.int64, device=ip.device)
+        tptr[1:] = torch.cumsum(torch.bincount(col.long(), minlength=ncols), 0)
+        pat = data["csr_t"] = (tptr, rows.to(torch.int32), order.to(torch.int32))
+    tv = data.get("csr_t_vals")
+    if tv is None:
+        tv = data["csr_t_vals"] = gather(vals, pat[2], check=False)
+    return pat[0], pat[1], tv
+
+
 def _bind_aij_csr(meta, data):
-    _, m, n = meta
+    n = meta[2]
     ip, col, vals = data["indptr"], data["col"], data["vals"]
-    return operator.Op(
-        mult=lambda x: csr_spmv(ip, col, vals, x),
-        # off the CG path, in library torch (index_add_), as the reference
-        # left it to XLA's scatter (spmv.py:50)
-        mult_t=lambda x: spmv.csr_spmv_t(ip, col, vals, x, n),
-        diag=lambda: data["diag"],
-    )
+
+    def mult_t(x):
+        # S2 on the explicit transpose (the reference's csr_seg_spmv_t,
+        # spmv.py:50, is a scatter-add; a gather product needs no atomics)
+        return csr_spmv(*csr_transpose_of(data, n), x)
+
+    return operator.Op(mult=lambda x: csr_spmv(ip, col, vals, x), mult_t=mult_t,
+                       diag=lambda: data["diag"])
 
 
 def _bind_aij_dnd(meta, data):

@@ -7,7 +7,9 @@ factories, sizes, the (meta, data) contract bound through
 creation, the block size (``setSizes(bs)``, ``setBlockSize``, which
 re-lays an assembled matrix on the device), the (near-)nullspace slots
 GAMG reads, ``getFactor``, and ``MatNullSpace`` with the rigid-body modes
-(mat.py:336-383). MatShell and MatDense come with ROADMAP queue 1 item 7.
+(mat.py:336-383); the matrix-free ``MatShell`` and the ``MatDense`` of
+mat.py:252-335, with the ``createDense``, ``createShell`` and
+``createStencil`` factories (mat.py:69-116).
 """
 
 from __future__ import annotations
@@ -15,13 +17,14 @@ from __future__ import annotations
 from enum import IntEnum
 
 import numpy as np
+import torch
 
 from .. import config
 from ..ops import operator
 from ..parallel.layout import Layout
 from ..parallel.mesh import Comm, comm_self
 from ..sys.object import PObject
-from ..vec.vec import Vec
+from ..vec.vec import NormType, Vec
 
 
 class MatStructure(IntEnum):  # include/petscmat.h MatStructure
@@ -65,6 +68,53 @@ class Mat(PObject):
     @staticmethod
     def createAIJWithArrays(size, csr, comm=None):
         return Mat.createAIJ(size, csr=csr, comm=comm)
+
+    @staticmethod
+    def createDense(size, array=None, comm=None):
+        A = MatDense(comm)
+        A.setSizes(size)
+        if array is not None:
+            A.setDenseArray(array)
+        return A
+
+    @staticmethod
+    def createShell(size, mult, mult_transpose=None, diag=None, context=None, comm=None):
+        """A matrix-free operator: ``mult(x)`` on tensors, or ``mult(context,
+        x)`` when a context is given; ``diag()`` gives the diagonal."""
+        A = MatShell(comm)
+        A.setSizes(size)
+        A.setShellOperations(mult, mult_transpose, diag, context)
+        return A
+
+    @staticmethod
+    def createStencil(grid, offsets, coeffs, comm=None):
+        """A grid-stencil matrix from per-offset coefficient arrays (DMDA's
+        fdda.c matrices): grid = (..., ny, nx), offsets = [(dz, dy, dx), ...],
+        coeffs of shape (K,) + grid, x fastest. Couplings that leave the
+        grid must already be zero in coeffs; zero coefficients are not
+        stored. The grid is declared before the one device build, so a
+        pattern that decomposes into the offsets takes ``aij_dnd``."""
+        import scipy.sparse as sp
+        from .aij import MatAIJ
+        grid = tuple(int(g) for g in grid)
+        N = int(np.prod(grid))
+        idx = np.arange(N)
+        multi = np.stack(np.unravel_index(idx, grid), axis=1)
+        rows_l, cols_l, vals_l = [], [], []
+        for k, off in enumerate(offsets):
+            nb = multi + np.asarray(off)
+            ok = np.ones(N, dtype=bool)
+            for ax in range(len(grid)):
+                ok &= (nb[:, ax] >= 0) & (nb[:, ax] < grid[ax])
+            cols = np.ravel_multi_index(tuple(nb[ok].T), grid)
+            vals = np.asarray(coeffs[k], dtype=np.float64).reshape(-1)[ok]
+            nz = vals != 0
+            rows_l.append(idx[ok][nz])
+            cols_l.append(cols[nz])
+            vals_l.append(vals[nz])
+        A_sp = sp.csr_matrix((np.concatenate(vals_l),
+                              (np.concatenate(rows_l), np.concatenate(cols_l))), shape=(N, N))
+        return MatAIJ.from_scipy(A_sp, comm=comm, grid=grid)
 
     # ---------------- sizes ----------------
 
@@ -195,6 +245,82 @@ class Mat(PObject):
         print(f"  rows={m}, cols={n}")
 
 
+class MatShell(Mat):
+    """A matrix-free operator (MATSHELL, src/mat/impls/shell; mat.py:
+    252-282): callables on tensors registered with
+    ``operator.register_shell``; ``meta`` carries the handle and the
+    context travels as the device data, so the binder calls ``mult(ctx,
+    x)`` only when a context was given."""
+
+    def __init__(self, comm=None, **kw):
+        super().__init__(comm, **kw)
+        self._handle = None
+        self._context = None
+
+    def setShellOperations(self, mult, mult_transpose=None, diag=None, context=None):
+        self._handle = operator.register_shell(
+            {"mult": mult, "mult_t": mult_transpose, "diag": diag})
+        self._context = context
+        self._assembled = True
+        return self
+
+    @property
+    def meta(self):
+        return ("shell", self._handle)
+
+    def device_data(self):
+        return self._context
+
+
+class MatDense(Mat):
+    """A dense matrix (MATDENSE, src/mat/impls/dense; mat.py:285-325), on
+    the device of ``config.init`` in the real dtype; its products are
+    ``torch.mv`` (the reference leaves ``a @ x`` to XLA)."""
+
+    def __init__(self, comm=None, **kw):
+        super().__init__(comm, **kw)
+        self._a = None
+
+    def setDenseArray(self, a):
+        a = np.asarray(a)
+        m, n = self.getSize()
+        ap = np.zeros((m, n), dtype=np.float64)
+        ap[: a.shape[0], : a.shape[1]] = a
+        self._a = torch.as_tensor(ap, dtype=config.real_dtype(), device=config.device())
+        self._assembled = True
+        self.increase_state()
+        return self
+
+    def getDenseArray(self):
+        return self._a.cpu().numpy()
+
+    @property
+    def meta(self):
+        return ("dense", self.row_layout.Npad, self.col_layout.Npad)
+
+    def device_data(self):
+        return {"a": self._a}
+
+    def norm(self, norm_type=NormType.NORM_FROBENIUS):
+        a = self.getDenseArray().astype(np.float64)
+        if norm_type == NormType.NORM_FROBENIUS:
+            return float(np.linalg.norm(a))
+        if norm_type == NormType.NORM_1:
+            return float(np.abs(a).sum(axis=0).max())
+        if norm_type == NormType.NORM_INFINITY:
+            return float(np.abs(a).sum(axis=1).max())
+        raise ValueError(norm_type)
+
+
+def _bind_dense(meta, data):
+    a = data["a"]
+    return operator.Op(mult=lambda x: torch.mv(a, x), mult_t=lambda x: torch.mv(a.T, x),
+                       diag=lambda: torch.diagonal(a))
+
+
+operator.register_binder("dense", _bind_dense)
+
+
 class MatNullSpace:
     """A (near-)nullspace (reference src/mat/interface/matnull.c; mat.py:
     336-383): the vectors GAMG's tentative prolongator takes."""
@@ -244,4 +370,4 @@ class MatNullSpace:
         return self._dense if self._dense is not None else self.as_dense(n)
 
 
-__all__ = ["Mat", "MatStructure", "MatNullSpace"]
+__all__ = ["Mat", "MatShell", "MatDense", "MatNullSpace", "MatStructure"]

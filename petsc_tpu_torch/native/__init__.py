@@ -14,12 +14,12 @@ announced with a warning and recorded in :data:`openmp`.
 Bound here: what the Galerkin setup of PCMG needs (``spgemm``,
 ``csr_transpose``, ``csr_matvec_op``), the coarsening of PCGAMG
 (``strength_sym``, ``mis_aggregate``, ``mis2_aggregate``,
-``fix_aggregates``, ``hem_match``) and the factorizations of PCILU
-(``ilu0_inplace``, ``iluk_symbolic``, ``levels``). Unlike the
-reference's ``ilu0_inplace``, ``levels`` and ``iluk_symbolic``, none
-returns None for a missing library: the build raises instead. The
-ordering, colouring and loose HEM kernels of the reference's file come
-with ROADMAP items 7-8.
+``fix_aggregates``, ``hem_match``), the factorizations of PCILU
+(``ilu0_inplace``, ``iluk_symbolic``, ``levels``), and the Mat graph
+operations (``rcm`` for MatGetOrdering, ``greedy_color`` for
+MatFDColoring, the loose ``hem_aggregate``). Unlike the reference's
+bindings, none returns None for a missing library: the build raises
+instead.
 """
 
 from __future__ import annotations
@@ -123,6 +123,9 @@ def lib():
         "ilu0": (i64, [i64, p64, p64, pf8]),
         "levels": (i64, [i64, p64, p64, i64, p64]),
         "iluk_symbolic": (i64, [i64, p64, p64, i64, ctypes.c_void_p, ctypes.c_void_p]),
+        "rcm": (None, [i64, p64, p64, p64]),
+        "greedy_color": (i64, [i64, p64, p64, p64]),
+        "hem_aggregate": (i64, [i64, p64, p64, ctypes.c_void_p, i64, p64]),
     }
     for name, (res_t, args) in sigs.items():
         fn = getattr(L, name)
@@ -312,3 +315,33 @@ def iluk_symbolic(indptr, indices, k):
     L.iluk_symbolic(n, ip, ix, int(k), out_ip.ctypes.data_as(ctypes.c_void_p),
                     out_ix.ctypes.data_as(ctypes.c_void_p))
     return out_ip, out_ix
+
+
+def rcm(indptr, indices):
+    """The reverse Cuthill-McKee ordering of a graph's CSR pattern:
+    perm[new] = old (genrcm.c's role)."""
+    n = len(indptr) - 1
+    perm = np.empty(n, dtype=np.int64)
+    lib().rcm(n, _c64(indptr), _c64(indices), perm)
+    return perm
+
+
+def greedy_color(indptr, indices):
+    """Greedy distance-1 colouring of an adjacency CSR in vertex order."""
+    n = len(indptr) - 1
+    colors = np.empty(n, dtype=np.int64)
+    lib().greedy_color(n, _c64(indptr), _c64(indices), colors)
+    return colors
+
+
+def hem_aggregate(indptr, indices, weights, rounds):
+    """Heavy-edge-matching aggregation, `rounds` rounds of matching on the
+    contracted graph (|weights|, or 1 per edge when weights is None):
+    (agg, nagg)."""
+    n = len(indptr) - 1
+    agg = np.empty(n, dtype=np.int64)
+    w = None if weights is None else _cf8(weights)
+    nagg = lib().hem_aggregate(n, _c64(indptr), _c64(indices),
+                               w.ctypes.data_as(ctypes.c_void_p) if w is not None else None,
+                               int(rounds), agg)
+    return agg, int(nagg)

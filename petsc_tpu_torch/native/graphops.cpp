@@ -14,8 +14,9 @@
 //   solves: in-pattern ILU(0) (aijfact.c:216), the ILU(k) level-of-fill
 //   pattern (aijfact.c:1536) and the dependency levels of a triangular
 //   CSR (petsc_tpu_torch/ops/trisolve.py).
-// The ordering, colouring and loose HEM kernels of the reference's file
-// arrive with the slices that call them.
+// * the orderings and colourings of the Mat graph operations: reverse
+//   Cuthill-McKee (genrcm.c), the greedy colouring of MatFDColoring and
+//   the loose heavy-edge-matching aggregation.
 // Exposed with C linkage for ctypes; petsc_tpu_torch/native/__init__.py
 // builds it at first use. There is no numpy fallback: a failed build
 // raises.
@@ -30,6 +31,7 @@
 #include <cmath>
 #include <cstring>
 #include <vector>
+#include <queue>
 #include <algorithm>
 #ifdef _OPENMP
 #include <omp.h>
@@ -634,6 +636,133 @@ int64_t hem_match(int64_t n, const int64_t* indptr, const int64_t* indices,
     for (int64_t g : lists[i]) agg_out[g] = nagg;
     nagg++;
   }
+  return nagg;
+}
+
+// The ordering, colouring and loose heavy-edge-matching kernels of
+// petsc_tpu/native/graphops.cpp:126-252, verbatim: MatGetOrdering's rcm,
+// MatFDColoring's greedy colouring and hem_aggregate.
+// Reverse Cuthill-McKee ordering (genrcm.c role): BFS from a
+// pseudo-peripheral vertex of each component, neighbors by increasing
+// degree, then reverse. perm[newidx] = oldidx.
+void rcm(int64_t n, const int64_t* indptr, const int64_t* indices,
+         int64_t* perm) {
+  std::vector<int64_t> deg(n);
+  for (int64_t i = 0; i < n; i++) deg[i] = indptr[i + 1] - indptr[i];
+  std::vector<uint8_t> visited(n, 0);
+  std::vector<int64_t> order;
+  order.reserve(n);
+  std::vector<int64_t> nbrs;
+  for (int64_t start = 0; start < n; start++) {
+    if (visited[start]) continue;
+    // pseudo-peripheral: min-degree unvisited in this sweep start
+    int64_t root = start;
+    for (int64_t i = start; i < n; i++)
+      if (!visited[i] && deg[i] < deg[root]) root = i;
+    // (cheap variant of the GPS root finder)
+    std::queue<int64_t> q;
+    q.push(root);
+    visited[root] = 1;
+    while (!q.empty()) {
+      int64_t v = q.front(); q.pop();
+      order.push_back(v);
+      nbrs.clear();
+      for (int64_t p = indptr[v]; p < indptr[v + 1]; p++) {
+        int64_t j = indices[p];
+        if (!visited[j]) { visited[j] = 1; nbrs.push_back(j); }
+      }
+      std::sort(nbrs.begin(), nbrs.end(),
+                [&](int64_t a, int64_t b) { return deg[a] < deg[b]; });
+      for (int64_t j : nbrs) q.push(j);
+    }
+  }
+  for (int64_t i = 0; i < n; i++) perm[i] = order[n - 1 - i];
+}
+
+// Greedy distance-1 coloring of an adjacency CSR (columns of a conflict
+// graph; impls/color/greedy role). Returns number of colors.
+int64_t greedy_color(int64_t n, const int64_t* indptr,
+                     const int64_t* indices, int64_t* colors) {
+  for (int64_t i = 0; i < n; i++) colors[i] = -1;
+  std::vector<int64_t> mark(n + 1, -1);
+  int64_t ncolor = 0;
+  for (int64_t v = 0; v < n; v++) {
+    for (int64_t p = indptr[v]; p < indptr[v + 1]; p++) {
+      int64_t c = colors[indices[p]];
+      if (c >= 0) mark[c] = v;
+    }
+    int64_t c = 0;
+    while (mark[c] == v) c++;
+    colors[v] = c;
+    if (c + 1 > ncolor) ncolor = c + 1;
+  }
+  return ncolor;
+}
+
+// Heavy-edge matching coarsening (mat/graphops/coarsen/impls/hem role):
+// greedily match each vertex with its heaviest unmatched neighbor,
+// repeated `rounds` times on the contracted graph. Returns nagg; agg[i]
+// receives the final aggregate id of vertex i.
+int64_t hem_aggregate(int64_t n, const int64_t* indptr,
+                      const int64_t* indices, const double* weights,
+                      int64_t rounds, int64_t* agg) {
+  std::vector<int64_t> label(n);
+  for (int64_t i = 0; i < n; i++) label[i] = i;
+  // edge list view is re-derived per round through the labels
+  for (int64_t r = 0; r < rounds; r++) {
+    // order vertices by heaviest incident edge (desc) for greedy matching
+    std::vector<int64_t> reps;
+    reps.reserve(n);
+    std::vector<uint8_t> matched(n, 0);
+    std::vector<double> best(n, -1.0);
+    for (int64_t i = 0; i < n; i++)
+      if (label[i] == label[label[i]])  ;  // no-op, labels are flat
+    // flatten labels
+    for (int64_t i = 0; i < n; i++) {
+      int64_t l = label[i];
+      while (l != label[l]) l = label[l];
+      label[i] = l;
+    }
+    // accumulate inter-aggregate weights on the fly: for each vertex pick
+    // the heaviest edge to a different aggregate
+    std::vector<int64_t> heavy_to(n, -1);
+    std::vector<double> heavy_w(n, 0.0);
+    for (int64_t i = 0; i < n; i++) {
+      int64_t li = label[i];
+      for (int64_t p = indptr[i]; p < indptr[i + 1]; p++) {
+        int64_t j = indices[p];
+        int64_t lj = label[j];
+        if (lj == li) continue;
+        double w = weights ? std::abs(weights[p]) : 1.0;
+        if (w > heavy_w[li]) { heavy_w[li] = w; heavy_to[li] = lj; }
+      }
+    }
+    // greedy symmetric-ish matching over aggregate representatives
+    std::vector<int64_t> order;
+    for (int64_t i = 0; i < n; i++)
+      if (label[i] == i) order.push_back(i);
+    std::sort(order.begin(), order.end(), [&](int64_t a, int64_t b) {
+      return heavy_w[a] > heavy_w[b];
+    });
+    for (int64_t a : order) {
+      if (matched[a] || heavy_to[a] < 0) continue;
+      int64_t b = heavy_to[a];
+      if (matched[b]) continue;
+      matched[a] = matched[b] = 1;
+      label[b] = a;
+    }
+  }
+  // final flatten + compact ids
+  std::vector<int64_t> id(n, -1);
+  int64_t nagg = 0;
+  for (int64_t i = 0; i < n; i++) {
+    int64_t l = label[i];
+    while (l != label[l]) l = label[l];
+    label[i] = l;
+  }
+  for (int64_t i = 0; i < n; i++)
+    if (label[i] == i) id[i] = nagg++;
+  for (int64_t i = 0; i < n; i++) agg[i] = id[label[i]];
   return nagg;
 }
 

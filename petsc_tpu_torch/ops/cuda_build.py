@@ -28,7 +28,8 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
 SOURCES = ("probe.cu", "triad.cu", "axpy_normsq.cu", "dot2.cu", "const_stencil.cu",
            "csr_spmv.cu", "gather.cu", "row_gather.cu", "lane_shuffle.cu", "cheby.cu",
-           "dnd_stencil.cu", "q1.cu", "trisolve.cu", "bsr_spmv.cu", "agg_block.cu")
+           "dnd_stencil.cu", "q1.cu", "trisolve.cu", "bsr_spmv.cu", "agg_block.cu",
+           "csr_spmm.cu")
 HEADERS = ("common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -52,6 +53,8 @@ SIGNATURES = {
     "ptt_const_stencil_config": (_i32, _i32, _i32, _i32, _vp),
     "ptt_csr_spmv_f64": (_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i32, _vp),
     "ptt_csr_spmv_f32": (_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i32, _vp),
+    "ptt_csr_spmm_f64": (_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp),
+    "ptt_csr_spmm_f32": (_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp),
     "ptt_gather_f64": (_vp, _vp, _vp, _i64, _i32, _vp),
     "ptt_gather_f32": (_vp, _vp, _vp, _i64, _i32, _vp),
     "ptt_gather2_f64": (_vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),

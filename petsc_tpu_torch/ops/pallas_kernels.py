@@ -13,6 +13,8 @@ and loaded by :mod:`.cuda_build`):
   dot2           K4  csrc/dot2.cu           pallas_kernels.py:198 dot2
   const_stencil  S1  csrc/const_stencil.cu  mat/aij.py:1346-1379 (separable mult)
   csr_spmv       S2  csrc/csr_spmv.cu       mat/aij.py:1554-1561 _bind_aij_csr mult
+  csr_spmm       M1  csrc/csr_spmm.cu       mat/utility.py:356-372, extra_formats.py:59-70
+                                            (A times a node-major block; ops/spmv.py:40)
   cheby_update   C1  csrc/cheby.cu          ksp/cheby.py:40-44, 73-78 (Chebyshev step tail)
 
 (The four gather kernels K5-K8 are in :mod:`.gather_kernels`.)
@@ -40,7 +42,7 @@ from . import cuda_build, spmv
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"probe": 0, "triad": 0, "axpy_normsq": 0, "dot2": 0, "const_stencil": 0,
-            "csr_spmv": 0, "cheby_update": 0, "cheby_update_z": 0}
+            "csr_spmv": 0, "csr_spmm": 0, "cheby_update": 0, "cheby_update_z": 0}
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 # scratch capacity for the per-block partial sums of the reductions (the
@@ -410,6 +412,49 @@ def csr_spmv(indptr, col, vals, x):
         _launch("csr_spmv", x, y.data_ptr(), indptr.data_ptr(), col.data_ptr(),
                 vals.data_ptr(), x.data_ptr(), m, vals.numel())
     return y
+
+
+# ---------------------------------------------------------------------
+# M1: CSR times a row-major block (MatMAIJ's and MatKAIJ's A X)
+# ---------------------------------------------------------------------
+
+csr_spmm_plain = spmv.csr_spmm
+SPMM_TILE = 8          # columns per launch; a wider X takes one launch per tile
+
+
+def csr_spmm(indptr, col, vals, X):
+    """Y = A X for A in CSR form (as :func:`csr_spmv` takes it) and X an
+    (n, k) row-major block, k >= 1: Y[i, c] = sum over row i's entries of
+    vals[p] X[col[p], c], shape (m, k). One launch per tile of up to
+    SPMM_TILE columns (one for MatMAIJ's dof <= 8). X and Y are contiguous;
+    each launch adds one to ``LAUNCHES["csr_spmm"]``."""
+    for t, dt, nm in ((indptr, torch.int64, "indptr"), (col, torch.int32, "col")):
+        if not isinstance(t, torch.Tensor) or t.dtype != dt or t.dim() != 1 \
+                or not t.is_contiguous():
+            raise TypeError(f"csr_spmm: {nm} must be a contiguous 1-D {dt} tensor")
+    _check_vectors("csr_spmm", vals)
+    if not isinstance(X, torch.Tensor) or X.dim() != 2 or not X.is_contiguous() \
+            or X.shape[1] < 1:
+        raise ValueError("csr_spmm: X must be a contiguous (n, k) tensor with k >= 1")
+    if X.dtype != vals.dtype:
+        raise TypeError(f"csr_spmm: vals are {vals.dtype}, X is {X.dtype}")
+    if not (indptr.device == col.device == vals.device == X.device):
+        raise ValueError("csr_spmm: the CSR arrays and X lie on different devices")
+    if indptr.numel() < 1 or col.numel() != vals.numel():
+        raise ValueError(f"csr_spmm: {indptr.numel()} row pointers, {col.numel()} "
+                         f"columns and {vals.numel()} values")
+    if X.shape[0] >= 2 ** 31:
+        raise ValueError("csr_spmm: the kernel's int32 columns take fewer than 2^31 rows of X")
+    if X.device.type == "cpu":
+        return csr_spmm_plain(indptr, col, vals, X)
+    m, k = indptr.numel() - 1, X.shape[1]
+    Y = torch.empty((m, k), dtype=X.dtype, device=X.device)
+    if m:
+        step = Y.element_size()
+        for c0 in range(0, k, SPMM_TILE):
+            _launch("csr_spmm", X, Y.data_ptr() + c0 * step, indptr.data_ptr(), col.data_ptr(),
+                    vals.data_ptr(), X.data_ptr() + c0 * step, m, k, min(SPMM_TILE, k - c0))
+    return Y
 
 
 # ---------------------------------------------------------------------

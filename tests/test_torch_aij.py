@@ -523,8 +523,10 @@ def test_block_size_unknown_kind_spgemm_and_dense_raise():
                       (M.createSubMatrix([0, 1]), E[[0, 1]][:, [0, 1]])):
         assert got.meta[0] == "aij_csr"
         np.testing.assert_array_equal(got.to_scipy().toarray(), want.toarray())
-    with pytest.raises(NotImplementedError, match="MatDense"):
-        M.convert("dense")
+    # convert("dense") is ported with MatDense (ROADMAP item 7)
+    D = M.convert("dense")
+    assert type(D).__name__ == "MatDense"
+    np.testing.assert_array_equal(D.getDenseArray(), E.toarray())
 
 
 # ------------------------------------------------------------------ files and interop

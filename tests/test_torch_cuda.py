@@ -64,7 +64,7 @@ def test_vector_kernels_match_plain(cuda_device, dtype, n):
     assert _rel(x, want) <= TOL[dtype]
     torch.cuda.synchronize()
     assert pk.LAUNCHES == {"probe": 0, "triad": 3, "axpy_normsq": 1, "dot2": 1,
-                           "const_stencil": 0, "csr_spmv": 0, "cheby_update": 0,
+                           "const_stencil": 0, "csr_spmv": 0, "csr_spmm": 0, "cheby_update": 0,
                            "cheby_update_z": 0}
 
 
@@ -1057,3 +1057,83 @@ def test_ex45_on_the_card_equals_the_cpu_port(cuda_device, pc):
     if pc != "dof3":
         need["dnd_stencil"] += 1          # ex45's main: A x for the printed residual
     assert {k: launches[k] for k in need} == need
+
+
+def _spmm_csr(m, n, seed, dtype, device):
+    """A random m x n CSR, row 1 longer than a warp (100 entries), rows 2
+    and m - 1 empty, on the card."""
+    A = sp.random(m, n, density=min(1.0, 7.0 / n), random_state=seed, format="lil")
+    rng = np.random.default_rng(seed)
+    A[1, :] = 0
+    A[1, rng.choice(n, min(100, n), replace=False)] = 1.0
+    A[2, :] = 0
+    A[m - 1, :] = 0
+    A = A.tocsr()
+    A.sort_indices()
+    A.data = rng.standard_normal(A.nnz)
+    return A, (torch.as_tensor(A.indptr.astype(np.int64), device=device),
+               torch.as_tensor(A.indices.astype(np.int32), device=device),
+               torch.as_tensor(A.data, dtype=dtype, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", (1, 3, 8, 11))
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_csr_spmm_matches_plain(cuda_device, dtype, k):
+    """M1 against its plain version in float64 on the same inputs (f64 to
+    1e-12, f32 to 1e-5), scipy in f64, equal bits on a rerun; one launch
+    per tile of 8 columns."""
+    A, (ip, col, vals) = _spmm_csr(3001, 2003, k, dtype, cuda_device)
+    X_np = np.random.default_rng(k).standard_normal((2003, k))
+    X = torch.as_tensor(X_np, dtype=dtype, device=cuda_device)
+    pk.reset_launches()
+    Y = pk.csr_spmm(ip, col, vals, X)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["csr_spmm"] == -(-k // pk.SPMM_TILE)
+    assert Y.shape == (3001, k) and Y.dtype == dtype
+    p = pk.csr_spmm_plain(ip, col, vals.double(), X.double())
+    assert _rel(Y.double(), p) <= TOL[dtype]
+    if dtype == torch.float64:
+        assert _rel(Y.cpu(), torch.as_tensor(A @ X_np)) <= 1e-12
+    assert torch.count_nonzero(Y[2]) == 0 and torch.count_nonzero(Y[-1]) == 0
+    assert torch.equal(Y, pk.csr_spmm(ip, col, vals, X))
+
+
+@pytest.mark.cuda
+def test_csr_mult_transpose_runs_s2_on_the_explicit_transpose(cuda_device):
+    """The CSR transpose product on the card is S2 on A^T (its pattern
+    built once, its values one K8 gather refreshed after setValuesCOO),
+    never index_add_; MatMAIJ's transpose is M1 on the same arrays."""
+    ptt.init(device="cuda")
+    A_sp, _ = _spmm_csr(500, 300, 4, torch.float64, "cpu")
+    coo = A_sp.tocoo()
+    A = ptt.MatAIJ()
+    A.setSizes((500, 300))
+    A.setPreallocationCOO(coo.row, coo.col)
+    A.setValuesCOO(coo.data)
+    x = np.random.default_rng(2).standard_normal(500)
+    y = A.createVecRight()
+    pk.reset_launches()
+    gk.reset_launches()
+    A.multTranspose(ptt.Vec.from_array(x), y)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["csr_spmv"] == 1 and gk.LAUNCHES["gather"] == 1
+    assert _rel(y.array.cpu(), torch.as_tensor(A_sp.T @ x)) <= 1e-12
+    A.multTranspose(ptt.Vec.from_array(x), y)
+    assert gk.LAUNCHES["gather"] == 1          # the transposed values are kept
+    v2 = np.random.default_rng(3).standard_normal(coo.nnz)
+    A.setValuesCOO(v2)
+    gk.reset_launches()
+    A.multTranspose(ptt.Vec.from_array(x), y)
+    B = sp.csr_matrix((v2, (coo.row, coo.col)), shape=(500, 300))
+    assert gk.LAUNCHES["gather"] == 1
+    assert _rel(y.array.cpu(), torch.as_tensor(B.T @ x)) <= 1e-12
+    from petsc_tpu_torch.mat.utility import MatMAIJ
+    M = MatMAIJ.create(A, 3)
+    xm = np.random.default_rng(5).standard_normal(1500)
+    ym = M.createVecRight()
+    pk.reset_launches()
+    M.multTranspose(ptt.Vec.from_array(xm), ym)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["csr_spmm"] == 1 and pk.LAUNCHES["csr_spmv"] == 0
+    assert _rel(ym.array.cpu(), torch.as_tensor((B.T @ xm.reshape(500, 3)).reshape(-1))) <= 1e-12

@@ -104,7 +104,8 @@ def test_the_library_is_the_ports_own_build():
         [f"{k}{s}" for k in ("csr_transpose", "spgemm_count", "spgemm_fill", "csr_matvec",
                              "strength_sym", "mis2_aggregate")
          for s in ("", "_i32", "_t")] + ["mis_aggregate", "fix_aggregates", "hem_match",
-                                          "ilu0", "levels", "iluk_symbolic"])
+                                          "ilu0", "levels", "iluk_symbolic", "rcm",
+                                          "greedy_color", "hem_aggregate"])
     for name, body in defs.items():
         assert body in ref, name
     meps = [ln for ln in src.splitlines() if ln.startswith("static const double HEM_MEPS")]
