@@ -124,10 +124,15 @@ Phases, one JSON line each on stdout:
            (0.01 A_RadauIIA) by GMRES(30), b = 1; each against `python
            mat7_contract.py 128 maij|kaij` (MAT7_CONTRACT: its, reason,
            history to 1e-6, true residual) with exact launches, warm and
-           profiled; then M1 at k = 3 (f64, f32), 1 and 8 and on the
-           explicit transpose against its plain version (1e-12 / 1e-5, equal
-           bits on a rerun), timed beside its bound, the plain version,
-           torch.sparse_csr_tensor @ X and k launches of S2 in turns;
+           profiled; then M1 on its chunk-edge cases (m1_edge_cases, k =
+           1, 2, 3, 4, 5, 8, 9 and 16, f64 and f32, vals and col also one
+           element past a 16-byte edge, X one and in f32 two) and on the 128^3 CSR at k = 3 (f64,
+           f32), 1, 2, 4 and 8 (f64), 1 and 8 (f32) and on the explicit
+           transpose, against its plain version (1e-12 / 1e-5, equal bits
+           on a rerun), timed beside its bound, the plain version,
+           torch.sparse_csr_tensor @ X, k launches of S2 and the earlier
+           warp-per-row design (earlier_kernels/) in turns (earlier, S2,
+           new, new, S2, earlier);
   mat_shell_dense  CG+Jacobi at 128^3 on the stencil Mat, on a
            Mat.createShell over its mult and diagonal, and on
            Mat.createStencil with box27's 27 coefficient planes (aij_dnd,
@@ -274,7 +279,8 @@ the earlier design's times from the same turns, the entries-removed sweeps
 and the other sweeps beside it; B1's is ex56 ne 64's operator in f64, A1's
 ex56 ne 24's level-0 tables in f64, C1z's (C1's z modes, counted apart)
 the step_z mode in f64 at that level's length; M1's the MAIJ product
-(k = 3, f64) on the 128^3 CSR, with S2 per column in the same turns;
+(k = 3, f64) on the 128^3 CSR, with S2 per column and the earlier design
+in the same turns;
 Q1P's and Q1R's rows
 carry their dof rows and ex45's µs per level, V1's its time on ex45's
 level 0;
@@ -308,6 +314,7 @@ REPS = 20
 SLEEP_CYCLES = 200_000          # about 0.1 ms of the card's clock, before each timed launch
 WARMUP_SPINS = 20               # spin kernels on each side of a profiled solve (profile_solve)
 SPIN_CYCLES = 2_000_000         # about 1 ms of the card's clock each
+_SPINS = [WARMUP_SPINS]         # leading spins of the next profile (profile_solve)
 PROBE_SHUFFLE = (1_048_576, 4096, 128)   # C, B, W of pallas_shuffle_probe.py probe_s1/s2/s3
 PROBE_GATHER = (524_288, 4_194_304)      # n, m of pallas_gather_probe.py probe_g1
 # the designs of K2 and K4 (triad.cu, dot2.cu; the measurements behind them are in PERF.md)
@@ -863,45 +870,53 @@ def profile_solve(ksp, b, x, warm_ms_best, q1_levels=None):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    x.set(0.0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # the profiler drops the card's first events after it starts, more
-        # of them the longer the process has run (on an H100 in one run of
-        # this script: from none in the first profile to sixteen 0.1 ms
-        # spins in the sixth), as if the card's timestamps drifted against
-        # the host's clock; about
-        # 20 ms of spin kernels on each side of the solve absorb that, are
-        # left out of the counts below, and one seen on each side shows
-        # that none of the solve's events was lost
-        for _ in range(WARMUP_SPINS):
-            torch.cuda._sleep(SPIN_CYCLES)
+    # the profiler drops the card's first events after it starts, more of
+    # them the longer the process has run (on an H100 in one run of this
+    # script: none of twenty 1 ms spins lost in the first profile, sixteen
+    # in the ninth, all twenty in a later one), as if the card's timestamps
+    # drifted against the host's clock. Spin kernels on each side of the
+    # solve absorb that and are left out of the counts below; one seen on
+    # each side shows that none of the solve's events was lost. Where a
+    # profile keeps fewer than half its leading spins, the later ones take
+    # twice as many; where it keeps none, the solve is profiled again with
+    # the larger count (at most twice more).
+    for _attempt in range(3):
+        spins_each_side = _SPINS[0]
+        x.set(0.0)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ksp.solve(b, x)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        for _ in range(WARMUP_SPINS):
-            torch.cuda._sleep(SPIN_CYCLES)
-        torch.cuda.synchronize()
-    by_name, q1_events = {}, {"q1_restrict": [], "q1_prolong": []}
-    spins, span = [], [math.inf, -math.inf]
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA and "spin_kernel" in ev.name:
-            spins.append(ev.time_range.start)
-        elif ev.device_type == DeviceType.CUDA:
-            span = [min(span[0], ev.time_range.start), max(span[1], ev.time_range.end)]
-            n, us = by_name.get(ev.name, (0, 0.0))
-            by_name[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
-            for name in q1_events:
-                if any(key in ev.name for key in IN_SOLVE[name]):
-                    q1_events[name].append((ev.time_range.start, ev.time_range.elapsed_us()))
-    lead = sum(1 for t in spins if t < span[0])
-    trail = sum(1 for t in spins if t > span[1])
-    if not lead or not trail:
-        raise AssertionError(f"the profiler kept {lead} of the {WARMUP_SPINS} spin kernels "
-                             f"before the solve and {trail} after it: it may have lost some "
-                             "of the solve's own events")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(spins_each_side):
+                torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ksp.solve(b, x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            for _ in range(WARMUP_SPINS):
+                torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+        by_name, q1_events = {}, {"q1_restrict": [], "q1_prolong": []}
+        spins, span = [], [math.inf, -math.inf]
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA and "spin_kernel" in ev.name:
+                spins.append(ev.time_range.start)
+            elif ev.device_type == DeviceType.CUDA:
+                span = [min(span[0], ev.time_range.start), max(span[1], ev.time_range.end)]
+                n, us = by_name.get(ev.name, (0, 0.0))
+                by_name[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
+                for name in q1_events:
+                    if any(key in ev.name for key in IN_SOLVE[name]):
+                        q1_events[name].append((ev.time_range.start, ev.time_range.elapsed_us()))
+        lead = sum(1 for t in spins if t < span[0])
+        trail = sum(1 for t in spins if t > span[1])
+        if 2 * lead < spins_each_side:
+            _SPINS[0] = 2 * spins_each_side
+        if lead and trail:
+            break
+    else:
+        raise AssertionError(f"the profiler kept {lead} of the {spins_each_side} spin kernels "
+                             f"before the solve and {trail} of {WARMUP_SPINS} after it: it may "
+                             "have lost some of the solve's own events")
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     in_solve = {}
@@ -924,7 +939,7 @@ def profile_solve(ksp, b, x, warm_ms_best, q1_levels=None):
                 "launches": len(us[k::nlev]), "us_per_launch": sum(us[k::nlev]) / len(us[k::nlev])}
                 for k in range(nlev)}
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "spins_seen_before_and_after": [lead, trail],
+            "spins_seen_before_and_after": [lead, trail], "spins_before": spins_each_side,
             "busy_share_of_warm": busy_ms / warm_ms_best if by_name else None,
             "q1_per_level": per_level,
             "device_events": sum(n for n, _ in by_name.values()),
@@ -1777,7 +1792,8 @@ def grid_kernel_row(name, dtype, fn, plain, library_fn, nbytes, flops, tol, earl
 
 EARLIER = Path(__file__).resolve().parent / "earlier_kernels"
 EARLIER_SOURCES = ("q1_prolong_per_output.cu", "q1_restrict_per_output.cu",
-                   "trisolve_grid_barrier.cu", "bsr_spmv_per_output.cu", "agg_block_16rows.cu")
+                   "trisolve_grid_barrier.cu", "bsr_spmv_per_output.cu", "agg_block_16rows.cu",
+                   "csr_spmm_warp_per_row.cu")
 
 
 def start_earlier_build():
@@ -1829,6 +1845,9 @@ def load_earlier(build):
         fn.restype = ctypes.c_int
         fn = getattr(L, f"ptt_earlier_agg_block_apply_{sfx}")
         fn.argtypes = [vp] * 7 + [i32, i32, i32, vp]
+        fn.restype = ctypes.c_int
+        fn = getattr(L, f"ptt_earlier_csr_spmm_{sfx}")
+        fn.argtypes = [vp] * 5 + [ctypes.c_longlong, i32, i32, i32, vp]
         fn.restype = ctypes.c_int
     return L, seconds
 
@@ -4169,23 +4188,148 @@ def spmm_bytes(m, n, nnz, k, itemsize):
     return nnz * (itemsize + 4) + (m + 1) * 8 + (n + m) * k * itemsize
 
 
-def m1_rows(pk, data, ncols, flush):
+def m1_chunk(k, itemsize):
+    """M1's entries per chunk for a tile of k columns of `itemsize`-byte
+    values (at k = 1 S2's tile, csr_tile: M1 on one column is S2's product;
+    else kChunkBytes / itemsize in csr_spmm.cu; a wider X is tiled by 8
+    columns, so its first tile's)."""
+    import re
+    if k == 1:
+        return csr_tile()
+    src = (Path(__file__).resolve().parent / "petsc_tpu_torch" / "csrc" / "csr_spmm.cu").read_text()
+    return int(re.search(r"constexpr int kChunkBytes = (\d+);", src).group(1)) // itemsize
+
+
+M1_EDGE_KS = (1, 2, 3, 4, 5, 8, 9, 16)
+
+
+def m1_edge_cases(k, itemsize):
+    """M1's edge cases for k columns of `itemsize`-byte values: S2's
+    tile-edge cases (tile_edge_cases) cut at M1's chunk (m1_chunk: rows of
+    C - 1, C and C + 1 entries across
+    chunk edges, a row of 50 C, runs of empty rows, entries that end on a
+    chunk edge before empty rows, 5000 empty rows), a random CSR with
+    about 7 entries a row, one row of 100 and empty rows, and m = 0."""
+    cases = tile_edge_cases(m1_chunk(k, itemsize))
+    rng = __import__("numpy").random.default_rng(k)
+    lengths = [int(v) for v in rng.poisson(7, 3001)]
+    lengths[1], lengths[2], lengths[-1] = 100, 0, 0
+    cases["random_3001_rows"] = (lengths, -0.5)
+    cases["no_rows"] = ([], -0.5)
+    return cases
+
+
+def m1_edge_operands(lengths, low, k, dtype, device, seed=11, n=3000):
+    """(indptr, col, vals, X) on `device` for rows of the given lengths:
+    uniform columns in [0, n), values uniform in [low, low + 1), X (n, k)
+    uniform in [0, 1), all from `seed`."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    indptr = np.r_[0, np.cumsum(lengths, dtype=np.int64)].astype(np.int64)
+    nnz = int(indptr[-1])
+    return (torch.as_tensor(indptr, device=device),
+            torch.as_tensor(rng.integers(0, n, nnz).astype(np.int32), device=device),
+            torch.as_tensor(rng.random(nnz) + low, dtype=dtype, device=device),
+            torch.as_tensor(rng.random((n, k)), dtype=dtype, device=device))
+
+
+def past_an_edge(t):
+    """A copy of the 1-D tensor t that starts one element past a 16-byte
+    edge (a view of a longer buffer)."""
+    import torch
+    return torch.cat([t[:1], t])[1:] if t.numel() else t
+
+
+def shifted_block(X, s):
+    """A copy of the contiguous block X, a view that starts s elements past
+    the start of a longer buffer (so one element past a 16-byte edge at
+    s = 1, and on an 8-byte edge that is no 16-byte edge at s = 2 in f32)."""
+    import torch
+    flat = X.reshape(-1)
+    return torch.cat([flat[:s], flat])[s:].view(X.shape)
+
+
+def m1_edge_check(pk, name, k, dtype, device="cuda"):
+    """M1 on one edge case (m1_edge_cases(k, itemsize)[name]) against its plain
+    version run in float64 on the same inputs (f64 1e-12, f32 1e-5
+    relative), for equal bits on a rerun and with vals and col one element
+    past a 16-byte edge, and one launch per tile of 8 columns. Also with X
+    one element past a 16-byte edge (one value a load) and, in f32, two
+    (8-byte loads where 16-byte ones would serve an aligned X): each to the
+    same tolerance and equal bits on its own rerun. Raises; returns the
+    record."""
+    import torch
+    lengths, low = m1_edge_cases(k, dtype.itemsize)[name]
+    ip, col, vals, X = m1_edge_operands(lengths, low, k, dtype, device)
+    dn = str(dtype).replace("torch.", "")
+    pk.reset_launches()
+    Y = pk.csr_spmm(ip, col, vals, X)
+    launches = pk.LAUNCHES["csr_spmm"]
+    p = pk.csr_spmm_plain(ip, col, vals.double(), X.double())
+    same = torch.equal(Y, pk.csr_spmm(ip, col, vals, X)) and \
+        torch.equal(Y, pk.csr_spmm(ip, past_an_edge(col), past_an_edge(vals), X))
+    shifted = [pk.csr_spmm(ip, col, vals, shifted_block(X, s))
+               for s in ((1, 2) if dtype.itemsize == 4 else (1,))]
+    same = same and all(torch.equal(Ys, pk.csr_spmm(ip, col, vals, shifted_block(X, s)))
+                        for s, Ys in enumerate(shifted, 1))
+    torch.cuda.synchronize()
+    err = max(rel_err(Yo, p) if Yo.numel() and col.numel() else
+              float(Yo.abs().max()) if Yo.numel() else 0.0 for Yo in [Y, *shifted])
+    need = -(-k // pk.SPMM_TILE) if len(lengths) else 0
+    if not err <= TOL[dn] or not same or launches != need or tuple(Y.shape) != (len(lengths), k):
+        raise AssertionError(f"csr_spmm {name}, k {k}, {dn}: rel err {err} (tol {TOL[dn]}), "
+                             f"equal bits on reruns {same}, launches {launches} (want {need}), "
+                             f"shape {tuple(Y.shape)}")
+    return {"name": f"csr_spmm_{name}", "k": k, "dtype": dn, "rows": len(lengths),
+            "nnz": col.numel(), "rel_err": err, "bit_equal_rerun_and_offset": same,
+            "x_offsets": [1, 2] if dtype.itemsize == 4 else [1],
+            "launches": launches}
+
+
+def earlier_spmm(earlier, ip, col, vals, X):
+    """Y = A X by M1's earlier warp-per-row design (earlier_kernels/), one
+    launch per tile of 8 columns on the current stream; raises on a CUDA
+    error."""
+    import torch
+    from petsc_tpu_torch.ops import cuda_build
+    m, k = ip.numel() - 1, X.shape[1]
+    Y = torch.empty((m, k), dtype=X.dtype, device=X.device)
+    fn = getattr(earlier, "ptt_earlier_csr_spmm_" + ("f64" if X.dtype == torch.float64
+                                                     else "f32"))
+    step = X.element_size()
+    for c0 in range(0, k, 8):
+        cuda_build.check("earlier csr_spmm", fn(
+            Y.data_ptr() + c0 * step, ip.data_ptr(), col.data_ptr(), vals.data_ptr(),
+            X.data_ptr() + c0 * step, m, k, min(8, k - c0), X.device.index or 0,
+            torch.cuda.current_stream().cuda_stream))
+    return Y
+
+
+# M1 on the 128^3 box27 CSR: (operand, k, dtype name); the first is the
+# kernel table's row, the MAIJ product
+M1_CASES = (("A", 3, "float64"), ("A", 3, "float32"), ("A", 1, "float64"), ("A", 2, "float64"),
+            ("A", 4, "float64"), ("A", 8, "float64"), ("A", 1, "float32"), ("A", 8, "float32"),
+            ("A^T (explicit transpose)", 3, "float64"))
+
+
+def m1_rows(pk, data, ncols, flush, earlier):
     """M1 against its plain version on the 128^3 box27 CSR (A's device
-    arrays) and on its explicit transpose: k = 3 in f64 (the row of the
-    kernel table) and f32, k = 1 and 8 in f64; f64 to 1e-12 relative, f32
-    against the float64 product to 1e-5; equal bits on a rerun. Each timed
-    beside its bound, the plain version, torch.sparse_csr_tensor @ X
-    (cuSPARSE's SpMM) and k launches of S2 on the columns, in turns (M1,
-    S2 x k, S2 x k, M1)."""
+    arrays) and on its explicit transpose, at M1_CASES; f64 to 1e-12
+    relative, f32 against the float64 product to 1e-5; equal bits on a
+    rerun; the earlier warp-per-row design held to the same. Each timed
+    beside its bound, the plain version and torch.sparse_csr_tensor @ X
+    (cuSPARSE's SpMM), and in turns with the earlier design and k launches
+    of S2 on the columns (earlier, S2 x k, M1, M1, S2 x k, earlier; ms is
+    the mean of M1's two, earlier_ms and s2_per_column_ms of theirs)."""
     import numpy as np
     import torch
     from petsc_tpu_torch.mat.aij import csr_transpose_of
     ip, col, vals64 = data["indptr"], data["col"], data["vals"]
     m, nnz = ip.numel() - 1, col.numel()
     rows = []
-    cases = [("A", 3, torch.float64), ("A", 3, torch.float32), ("A", 1, torch.float64),
-             ("A", 8, torch.float64), ("A^T (explicit transpose)", 3, torch.float64)]
-    for which, k, dtype in cases:
+    for which, k, dname in M1_CASES:
+        dtype = getattr(torch, dname)
         if which == "A":
             cip, ccol, cvals = ip, col, vals64.to(dtype)
         else:
@@ -4197,34 +4341,35 @@ def m1_rows(pk, data, ncols, flush):
         Y2 = pk.csr_spmm(cip, ccol, cvals, X)
         ref = pk.csr_spmm_plain(cip, ccol, cvals.double(), X.double())
         err = rel_err(Y, ref)
-        tol = TOL["float64" if dtype == torch.float64 else "float32"]
+        e_err = rel_err(earlier_spmm(earlier, cip, ccol, cvals, X), ref)
+        tol = TOL[dname]
         equal = bool(torch.equal(Y, Y2))
-        if not err <= tol or not equal or tuple(Y.shape) != (m, k):
-            raise AssertionError(f"M1 on {which}, k {k}, {dtype}: rel err {err} (tol {tol}), "
-                                 f"equal bits on a rerun {equal}")
+        if not err <= tol or not equal or tuple(Y.shape) != (m, k) or not e_err <= tol:
+            raise AssertionError(f"M1 on {which}, k {k}, {dname}: rel err {err} (tol {tol}), "
+                                 f"equal bits on a rerun {equal}, earlier design {e_err}")
         lib = torch.sparse_csr_tensor(cip.int(), ccol, cvals, (m, ncols))
         lib_err = rel_err(lib @ X, ref)
         cols = [X[:, c].contiguous() for c in range(k)]
-
-        def m1():
-            return pk.csr_spmm(cip, ccol, cvals, X)
-
-        def s2k():
-            return [pk.csr_spmv(cip, ccol, cvals, c) for c in cols]
-
-        t = [time_ms(m1, flush), time_ms(s2k, flush), time_ms(s2k, flush), time_ms(m1, flush)]
+        fns = {"earlier": lambda: earlier_spmm(earlier, cip, ccol, cvals, X),
+               "s2": lambda: [pk.csr_spmv(cip, ccol, cvals, c) for c in cols],
+               "new": lambda: pk.csr_spmm(cip, ccol, cvals, X)}
+        order = ("earlier", "s2", "new", "new", "s2", "earlier")
+        t = [time_ms(fns[o], flush) for o in order]
+        mean = {o: statistics.mean(v for oo, v in zip(order, t) if oo == o) for o in fns}
         t_plain = time_ms(lambda: pk.csr_spmm_plain(cip, ccol, cvals, X), flush, reps=5)
         t_lib = time_ms(lambda: lib @ X, flush)
-        dname = "float64" if dtype == torch.float64 else "float32"
         b_ms, b_by = bound(spmm_bytes(m, ncols, nnz, k, X.element_size()), 2 * nnz * k, dname)
-        ms = statistics.median([t[0], t[3]])
+        ms = mean["new"]
         rows.append({"name": "csr_spmm", "operand": which, "k": k, "dtype": dname,
                      "shape": f"box27 {N_MAIN}^3 CSR, {nnz} entries, X ({ncols}, {k})",
                      "max_abs_err": float((Y.double() - ref).abs().max()), "rel_err": err,
-                     "equal_bits_rerun": equal, "ms": ms, "turns_ms": t,
-                     "s2_per_column_ms": statistics.median([t[1], t[2]]),
+                     "equal_bits_rerun": equal, "ms": ms, "turns": order, "turns_ms": t,
+                     "earlier_ms": mean["earlier"], "earlier_rel_err": e_err,
+                     "earlier": "earlier_kernels/csr_spmm_warp_per_row.cu (one warp per row)",
+                     "s2_per_column_ms": mean["s2"],
                      "plain_ms": t_plain, "bound_ms": b_ms, "bound_by": b_by,
-                     "share_of_bound": b_ms / ms, "library_ms": t_lib,
+                     "share_of_bound": b_ms / ms, "earlier_share_of_bound": b_ms / mean["earlier"],
+                     "library_ms": t_lib,
                      "library": "torch.sparse_csr_tensor @ X (cuSPARSE SpMM)",
                      "library_rel_err": lib_err})
         del lib, X, Y, Y2, ref
@@ -4232,7 +4377,7 @@ def m1_rows(pk, data, ncols, flush):
     return rows
 
 
-def phase_maij_kaij(pt, pk, A, smi, t_start, flush):
+def phase_maij_kaij(pt, pk, A, smi, t_start, flush, earlier):
     """MatMAIJ and MatKAIJ on the assembled 128^3 box27 CSR A (kind
     aij_csr). (a) MatMAIJ.create(A, 3): mult (M1) and multTranspose (M1 on
     A's explicit transpose) against their plain versions (1e-12), then CG
@@ -4245,7 +4390,8 @@ def phase_maij_kaij(pt, pk, A, smi, t_start, flush):
     contract of `python mat7_contract.py 128 maij|kaij` (its, reason,
     history to 1e-6, a true residual no worse than 10x the reference's)
     with exact launches (M1 once per product; CG's K2-K4, GMRES's K3);
-    warm and profiled. Then M1's rows (m1_rows). Returns (the record,
+    warm and profiled. Then M1's edge cases (m1_edge_check) and its rows
+    (m1_rows, beside the earlier design in `earlier`). Returns (the record,
     {path: launches}, {path: profile}, M1's main row)."""
     import numpy as np
     import torch
@@ -4342,7 +4488,10 @@ def phase_maij_kaij(pt, pk, A, smi, t_start, flush):
         out[key], launches[key], profs[key] = rec, lk, prof
         del ksp, M, b, x, X, AX, r, op, xr, Xr, plain
         torch.cuda.empty_cache()
-    rows = m1_rows(pk, data, N, flush)
+    out["csr_spmm_edges"] = [m1_edge_check(pk, name, k, dt) for k in M1_EDGE_KS
+                             for dt in (torch.float64, torch.float32)
+                             for name in m1_edge_cases(k, dt.itemsize)]
+    rows = m1_rows(pk, data, N, flush, earlier)
     out["csr_spmm_checks"] = rows
     out["seconds"] = time.perf_counter() - t_phase
     out["seconds_so_far"] = time.perf_counter() - t_start
@@ -4542,7 +4691,8 @@ def main():
     emit(phase_surface(pt, pk, A_aij, hist_stencil, smi, t_start))
 
     # ---- MatMAIJ and MatKAIJ on the assembled operator (M1) ----
-    mk_rec, mk_launches, mk_prof, m1_main = phase_maij_kaij(pt, pk, A_aij, smi, t_start, flush)
+    mk_rec, mk_launches, mk_prof, m1_main = phase_maij_kaij(pt, pk, A_aij, smi, t_start,
+                                                            flush, earlier)
     emit(mk_rec)
     del A_aij
     torch.cuda.empty_cache()
@@ -4814,18 +4964,20 @@ def main():
                library="none: no single PyTorch call computes the fused update",
                status="redesigned: fused into A1 (agg_block_cheby); the standalone "
                       "z modes stay for a smoothing PC without a fused step")
-    # M1's row is the MAIJ product on the 128^3 box27 CSR at k = 3 in f64; f32,
-    # k = 1 and 8 and the explicit transpose beside it, each with k launches
-    # of S2 on the columns timed in the same turns
+    # M1's row is the MAIJ product on the 128^3 box27 CSR at k = 3 in f64; the
+    # other k, f32 and the explicit transpose beside it, each with the earlier
+    # design and k launches of S2 on the columns timed in the same turns
     m1 = next(r for r in table if r["name"] == "csr_spmm")
     m1.update({k: m1_main[k] for k in ("operand", "k", "shape", "rel_err", "equal_bits_rerun",
-                                       "turns_ms", "s2_per_column_ms", "share_of_bound",
-                                       "library", "library_rel_err")},
+                                       "turns", "turns_ms", "earlier", "earlier_ms",
+                                       "earlier_share_of_bound", "s2_per_column_ms",
+                                       "share_of_bound", "library", "library_rel_err")},
               also_replaces="petsc_tpu/mat/extra_formats.py:59 (MatKAIJ's A X), "
                             "petsc_tpu/ops/spmv.py:40 (ell_spmm)",
-              others=[{k: o[k] for k in ("operand", "k", "dtype", "ms", "s2_per_column_ms",
-                                         "plain_ms", "bound_ms", "share_of_bound",
-                                         "library_ms", "rel_err", "equal_bits_rerun")}
+              others=[{k: o[k] for k in ("operand", "k", "dtype", "ms", "earlier_ms",
+                                         "s2_per_column_ms", "plain_ms", "bound_ms",
+                                         "share_of_bound", "library_ms", "rel_err",
+                                         "equal_bits_rerun")}
                       for o in mk_rec["csr_spmm_checks"] if o is not m1_main])
     a1c = next(r for r in table if r["name"] == "agg_block_cheby")
     a1c.update(also_replaces="petsc_tpu/ksp/cheby.py:36-37, :42-43, :79-80 (C1z's step "

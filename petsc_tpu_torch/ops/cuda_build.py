@@ -53,8 +53,8 @@ SIGNATURES = {
     "ptt_const_stencil_config": (_i32, _i32, _i32, _i32, _vp),
     "ptt_csr_spmv_f64": (_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i32, _vp),
     "ptt_csr_spmv_f32": (_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i32, _vp),
-    "ptt_csr_spmm_f64": (_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp),
-    "ptt_csr_spmm_f32": (_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp),
+    "ptt_csr_spmm_f64": (_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i32, _i32, _i32, _vp),
+    "ptt_csr_spmm_f32": (_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i32, _i32, _i32, _vp),
     "ptt_gather_f64": (_vp, _vp, _vp, _i64, _i32, _vp),
     "ptt_gather_f32": (_vp, _vp, _vp, _i64, _i32, _vp),
     "ptt_gather2_f64": (_vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp),

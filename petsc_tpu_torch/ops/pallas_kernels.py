@@ -427,7 +427,8 @@ def csr_spmm(indptr, col, vals, X):
     (n, k) row-major block, k >= 1: Y[i, c] = sum over row i's entries of
     vals[p] X[col[p], c], shape (m, k). One launch per tile of up to
     SPMM_TILE columns (one for MatMAIJ's dof <= 8). X and Y are contiguous;
-    each launch adds one to ``LAUNCHES["csr_spmm"]``."""
+    vals and col may start at any element (as :func:`csr_spmv`'s). Each
+    launch adds one to ``LAUNCHES["csr_spmm"]``."""
     for t, dt, nm in ((indptr, torch.int64, "indptr"), (col, torch.int32, "col")):
         if not isinstance(t, torch.Tensor) or t.dtype != dt or t.dim() != 1 \
                 or not t.is_contiguous():
@@ -453,7 +454,8 @@ def csr_spmm(indptr, col, vals, X):
         step = Y.element_size()
         for c0 in range(0, k, SPMM_TILE):
             _launch("csr_spmm", X, Y.data_ptr() + c0 * step, indptr.data_ptr(), col.data_ptr(),
-                    vals.data_ptr(), X.data_ptr() + c0 * step, m, k, min(SPMM_TILE, k - c0))
+                    vals.data_ptr(), X.data_ptr() + c0 * step, m, vals.numel(), k,
+                    min(SPMM_TILE, k - c0))
     return Y
 
 

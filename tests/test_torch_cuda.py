@@ -1077,7 +1077,7 @@ def _spmm_csr(m, n, seed, dtype, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", (1, 3, 8, 11))
+@pytest.mark.parametrize("k", (1, 2, 3, 4, 5, 8, 9, 11, 16))
 @pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
 def test_csr_spmm_matches_plain(cuda_device, dtype, k):
     """M1 against its plain version in float64 on the same inputs (f64 to
@@ -1097,6 +1097,43 @@ def test_csr_spmm_matches_plain(cuda_device, dtype, k):
         assert _rel(Y.cpu(), torch.as_tensor(A @ X_np)) <= 1e-12
     assert torch.count_nonzero(Y[2]) == 0 and torch.count_nonzero(Y[-1]) == 0
     assert torch.equal(Y, pk.csr_spmm(ip, col, vals, X))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", chip_smoke.M1_EDGE_KS)
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_csr_spmm_at_its_chunk_edges(cuda_device, dtype, k):
+    """M1 on chip_smoke.m1_edge_cases: rows across several chunk edges,
+    a row of 50 chunks, empty rows at a chunk edge and in runs, entries that
+    end on an edge, nnz = 0 and m = 0; each against the plain version in
+    float64 (f64 1e-12, f32 1e-5), with equal bits on a rerun and with vals
+    and col one element past a 16-byte edge, one launch per tile of 8
+    columns (none for m = 0); and with X one element (f32: also two) past a
+    16-byte edge, the one-value and 8-byte loads."""
+    for name in chip_smoke.m1_edge_cases(k, dtype.itemsize):
+        chip_smoke.m1_edge_check(pk, name, k, dtype, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", (1, 3, 4, 8))
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32))
+def test_csr_spmm_on_the_explicit_transpose(cuda_device, dtype, k):
+    """M1 on the explicit transpose of csr_transpose_of (columns from a
+    device sort, values one K8 gather) against scipy's A^T X and the plain
+    version in float64, equal bits on a rerun, one launch."""
+    from petsc_tpu_torch.mat.aij import csr_transpose_of
+    A, (ip, col, vals) = _spmm_csr(3001, 2003, 7 + k, dtype, cuda_device)
+    tip, tcol, tvals = csr_transpose_of({"indptr": ip, "col": col, "vals": vals}, 2003)
+    X_np = np.random.default_rng(k).standard_normal((3001, k))
+    X = torch.as_tensor(X_np, dtype=dtype, device=cuda_device)
+    pk.reset_launches()
+    Y = pk.csr_spmm(tip, tcol, tvals, X)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["csr_spmm"] == 1 and Y.shape == (2003, k)
+    assert _rel(Y.double(), pk.csr_spmm_plain(tip, tcol, tvals.double(), X.double())) <= TOL[dtype]
+    if dtype == torch.float64:
+        assert _rel(Y.cpu(), torch.as_tensor(A.T @ X_np)) <= 1e-12
+    assert torch.equal(Y, pk.csr_spmm(tip, tcol, tvals, X))
 
 
 @pytest.mark.cuda
