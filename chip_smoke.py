@@ -265,6 +265,25 @@ Phases, one JSON line each on stdout:
            plain version, the bound and F.interpolate / a depthwise
            F.conv; ex2 (-ksp_monitor) and ex1 (-ksp_view) on the card, their
            text held to the same runs under init(device="cpu");
+  krylov   the Krylov types of item 8 (KRYLOV_CASES), each case's first
+           solve held to `python krylov_contract.py` (tests/data/
+           krylov_contract.json: its, reason, history to 1e-6, pipecg's
+           plus 1e-11 of the initial norm; the mixed case's first
+           refinement pass to the reference's its, each later one within
+           one, its outer norms after the first within 10x; a true
+           residual no worse than 10x) with every launch count set to 0 just before
+           and exact launches after (krylov_launches_needed): config 2
+           (1,256,662 rows) assembled from COO with ILU(0) and
+           -pc_factor_transpose_solve, one PC set-up shared by cgs, tfqmr,
+           bcgsl, ibcgs, idr, lgmres, dgmres (restart 4), gcr, tcqmr,
+           qmrcgs and bicg (T1 on the transpose tables); the same operator
+           on its grid (aij_dnd: V1, and V1T for A^T) with bicg + jacobi,
+           cgls and lsqr; -ksp_mixed_precision (f64 refinement around
+           GMRES(30) + ILU(0) in f32); the 128^3 box27 stencil (S1) with
+           jacobi for cr, fcg, pipecg, symmlq and stcg (setRadius); each
+           case's warm solve (best of 3) and one profiled solve (busy ms,
+           share); V1T against its plain version (equal bits) and timed
+           beside it, its bound and V1;
   bench_gpu  python bench_gpu.py in a process of its own (the kernels built
            above reused): its JSON line, and its contract, BENCH_r05.json's
            solve (10 iterations, relres <= 1e-8, jacobi_its 184), the small-n
@@ -280,7 +299,7 @@ and the other sweeps beside it; B1's is ex56 ne 64's operator in f64, A1's
 ex56 ne 24's level-0 tables in f64, C1z's (C1's z modes, counted apart)
 the step_z mode in f64 at that level's length; M1's the MAIJ product
 (k = 3, f64) on the 128^3 CSR, with S2 per column and the earlier design
-in the same turns;
+in the same turns; V1T's config 2's grid transpose in f64;
 Q1P's and Q1R's rows
 carry their dof rows and ex45's µs per level, V1's its time on ex45's
 level 0;
@@ -454,6 +473,42 @@ GMRES_SMALL = {
                        2.5940451926819723e-05, 5.4116419948930926e-06, 1.2920464797450229e-06),
                       3.745605877367126e-09, 3.9532141560272294e-08),
 }
+# Phase krylov: the Krylov types beyond the main path's, each held to the
+# reference's run of the same case (krylov_contract.py, the JAX package on
+# the CPU in f64). Config 2's operator (CONFIG2, b = A cos(0.01 i), x0 = 0,
+# rtol 1e-8, max_it 400) assembled (ILU(0) with -pc_factor_transpose_solve:
+# one PC set-up serves every type, the transpose sweeps are bicg's and
+# ibcgs's Bᵀ), on its grid (setStencilGrid: V1 and V1ᵀ) and under
+# -ksp_mixed_precision (IR around GMRES(30) + ILU(0)); the main path's 128³
+# box27 stencil operator (S1, b = 1, rtol 1e-8, max_it 3000) with jacobi.
+KRYLOV_CSR_TYPES = ("cgs", "tfqmr", "bcgsl", "ibcgs", "idr", "lgmres", "dgmres", "gcr",
+                    "tcqmr", "qmrcgs", "bicg")
+KRYLOV_CSR_ARGS = ("-ksp_rtol", "1e-8", "-ksp_max_it", "400", "-pc_factor_transpose_solve")
+# dgmres restarts every 4 steps, so that its deflation runs and its history
+# (one entry per cycle) stays above the rounding level; a 30-step cycle
+# ends at a norm of 2.6e-12 that no two summation orders share
+KRYLOV_CSR_EXTRA = {"dgmres": ("-ksp_gmres_restart", "4")}
+KRYLOV_GRID_PCS = {"bicg": "jacobi", "cgls": "none", "lsqr": "none"}
+KRYLOV_MIXED_ARGS = ("-ksp_rtol", "1e-8", "-ksp_max_it", "400", "-ksp_mixed_precision")
+KRYLOV_BOX_ARGS = ("-pc_type", "jacobi", "-ksp_rtol", "1e-8")
+# type -> max_it: fcg takes PETSc's default, 10000, since the reference's
+# fcg loop tests ||r|| (not its) against max_it (impls_more.py:486) and at
+# 3000 stops after one step, where ||r|| passes 3000 (ROADMAP section 3)
+KRYLOV_BOX_MAX_IT = {"cr": 3000, "fcg": 10000, "pipecg": 3000, "symmlq": 3000, "stcg": 3000}
+KRYLOV_STCG_RADIUS = 3e5        # stcg's trust region (setRadius)
+KRYLOV_BOX_N = 128
+# the histories: 1e-6 relative to each entry; pipecg also 1e-11 of the
+# initial norm (the rounding-level rule of tests/test_torch_gmres.py): its
+# recursive residual on the 128^3 box27 ends 1.5e-8 below its start, where
+# the port on the CPU differs from the reference by 8.5e-6 of the entry,
+# 1.3e-13 of the initial norm
+KRYLOV_HIST_TOL = 1e-6
+KRYLOV_HIST_ATOL = {"box_pipecg": 1e-11}
+# the mixed case: its initial norm to KRYLOV_HIST_TOL; each later entry, a
+# true residual norm after an f32 inner solve, within this factor of the
+# reference's, as the true relres is (the f32 solve's rounding sets it:
+# `python krylov_contract.py 22 239 239 passes`)
+KRYLOV_IR_FACTOR = 10.0
 # PETSc's ex56 (3-D Q1 elasticity, bs 3, six rigid-body modes) through the
 # port's example program (petsc_tpu_torch/examples/ex56.py); the contracts come from
 # `python ex56_contract.py NE defaults|knobs|transposed` (the JAX package on
@@ -4498,6 +4553,386 @@ def phase_maij_kaij(pt, pk, A, smi, t_start, flush, earlier):
     return out, launches, profs, rows[0]
 
 
+# ---------------------------------------------------------------------
+# phase krylov: the Krylov types of item 8 held to their contracts
+# ---------------------------------------------------------------------
+
+def krylov_contract():
+    """The reference's runs of phase krylov's cases (krylov_contract.py),
+    case -> its, reason, history, true relres, ..."""
+    return json.loads((DATA / "krylov_contract.json").read_text())
+
+
+def krylov_launches_needed(case, its, hist_len, first=True):
+    """The launches of one solve of a phase krylov case, derived from each
+    method's products, PC applications and vector kernels per iteration
+    (petsc_tpu_torch/ksp/*.py), for the case's own settings: ILU(0) is two
+    T1 sweeps per application (and its transpose two more), jacobi and none
+    launch nothing; dot2 is each inner product or norm, triad each
+    y + alpha x. `hist_len` is the history's length (dgmres: one entry per
+    cycle; mixed: one per refinement pass); `first` adds the K8 gather that
+    builds the explicit transpose's values at a CSR operator's first A^T
+    product. Returns {kernel: launches}."""
+    group, ksp_type = ("mixed", "mixed") if case == "mixed" else case.split("_", 1)
+    n = {}
+
+    def add(k, v):
+        if v:
+            n[k] = n.get(k, 0) + v
+
+    prod = {"csr": "csr_spmv", "mixed": "csr_spmv", "grid": "dnd_stencil",
+            "box": "const_stencil"}[group]
+    I = its
+    if group in ("csr", "mixed"):
+        def pc(k):                       # k ILU(0) applications
+            add("trisolve", 2 * k)
+    else:
+        def pc(k):
+            pass
+    if case == "mixed":
+        # each pass: one GMRES(30) cycle in f32 (S2, two T1 sweeps and K3
+        # per step, B r first), then x += s dx, r = b - A x and ||r||
+        N = hist_len - 1
+        add(prod, I + N)
+        pc(I + N)
+        add("axpy_normsq", I)
+        add("dot2", 1 + N)
+        add("triad", 2 * N)
+        return n
+    per = {   # type: (products, PC applications, dot2, triad) per iteration
+        "cgs": (2, 2, 3, 7), "tfqmr": (3, 3, 4, 10), "bcgsl": (4, 4, 5, 11),
+        "ibcgs": (2, 2, 7, 9), "idr": (5, 5, 9, 30), "gcr": (1, 1, 3, 2),
+        "tcqmr": (3, 3, 4, 10), "qmrcgs": (2, 2, 6, 8), "cr": (1, 0, 3, 4),
+        "fcg": (1, 0, 3, 2), "pipecg": (1, 0, 3, 8), "symmlq": (1, 0, 2, 7),
+        "stcg": (1, 0, 3, 3)}
+    if ksp_type in per:
+        p, b_, d, t = per[ksp_type]
+        add(prod, p * I)
+        pc(b_ * I)
+        add("dot2", d * I)
+        add("triad", t * I)
+    # the set-up before the loop, and what differs from the per-iteration sums
+    if ksp_type == "cgs":
+        pc(1)
+        add("dot2", 1)
+        add("triad", -3)                 # no u, p recurrence in the first step
+    elif ksp_type == "tfqmr":
+        add(prod, 1)
+        pc(2)
+        add("dot2", 2)
+    elif ksp_type == "bcgsl":
+        pc(1)
+        add("dot2", 1)
+    elif ksp_type == "ibcgs":
+        add(prod, 2)                     # B A r0 and A^T on f0
+        pc(3)                            # B r0, B A r0 and B^T r0
+        add("dot2", 3)
+        add("gather", int(first))
+    elif ksp_type == "idr":
+        add("dot2", 1)
+    elif ksp_type == "lgmres":
+        # one cycle (its <= restart): B b, then per step B A v and K3; the
+        # update x += U^T y and ||z|| of the stored correction
+        add(prod, I)
+        pc(I + 1)
+        add("axpy_normsq", I)
+        add("dot2", 2)
+        add("triad", 1)
+    elif ksp_type == "dgmres":
+        # restart 4: B(b - A x) (a triad) and ||r||; per cycle ||r||, 4
+        # Arnoldi steps (the deflation's triad, B A, CGS2's two passes: a
+        # triad and K3), x's update (the deflation's triad and x's), its
+        # B(b - A x) and ||r||; after each cycle but the last, the deflation
+        # basis: U + Y V (a triad), kpad = 10 rows by modified Gram-Schmidt
+        # (a dot2 and a triad per pair of rows), each ||u|| and B A u
+        c, m, kpad = hist_len - 1, 4, 10
+        pairs = kpad * (kpad - 1) // 2
+        add(prod, 1 + c * (m + 1) + kpad * (c - 1))
+        pc(1 + c * (m + 1) + kpad * (c - 1))
+        add("dot2", 1 + 2 * c + (kpad + pairs) * (c - 1))
+        add("axpy_normsq", c * m)
+        add("triad", 1 + c * (2 * m + 3) + (1 + pairs) * (c - 1))
+    elif ksp_type == "gcr":
+        # the two projections (A- and search direction) at every step of
+        # a restart-30 cycle but its first
+        add("dot2", 1)
+        add("triad", 2 * (I - -(-I // 30)))
+    elif ksp_type == "tcqmr":
+        pc(1)
+        add("dot2", 1)
+    elif ksp_type == "qmrcgs":
+        pc(1)
+        add("dot2", 1)
+    elif ksp_type == "bicg":
+        # per iteration A p, A^T pt, B r, B^T rt, three dot2, five triads
+        tr = "dnd_stencil_t" if group == "grid" else prod
+        add(prod, I)
+        add(tr, I)
+        pc(2 * I + 2)
+        add("dot2", 3 * I + 2)
+        add("triad", 5 * I)
+        if group == "csr":
+            add("gather", int(first))
+    elif ksp_type == "cgls":
+        add(prod, I)
+        add("dnd_stencil_t", I + 1)
+        add("dot2", 3 * I + 2)
+        add("triad", 3 * I)
+    elif ksp_type == "lsqr":
+        add(prod, I)
+        add("dnd_stencil_t", I + 1)
+        add("dot2", 2 * I + 2)
+        add("triad", 4 * I)
+    elif ksp_type == "cr":
+        add(prod, 1)
+        add("dot2", 2)
+    elif ksp_type == "fcg":
+        add("dot2", 1)
+        add("triad", I - 1)              # the projection against the stored directions
+    elif ksp_type == "pipecg":
+        add(prod, 1)
+        add("dot2", 1)
+    elif ksp_type == "symmlq":
+        add("dot2", 2)
+        add("triad", -2)                 # no w, wbar, x step first; the CG point at the end
+    elif ksp_type == "stcg":
+        add("dot2", 2)
+    return n
+
+
+def krylov_operators(pt, device=None):
+    """Phase krylov's operators through the user's entry points: config 2's
+    stencil7 from COO triplets (the assembled CSR) and the same on its grid
+    (setStencilGrid: V1, V1T), b = A cos(0.01 i); the 128^3 box27 stencil
+    Mat, b = 1. Returns {group: (A, b as numpy, the host CSR, the exact
+    solution or None)}."""
+    import numpy as np
+    import scipy.sparse as sp
+    from petsc_tpu_torch.ops import stencil_build as sb
+    kw = {} if device is None else {"device": device}
+    pt.init(args=list(KRYLOV_CSR_ARGS), **kw)
+    i, j, v = sb.stencil7_coo(*CONFIG2)
+    n = int(np.prod(CONFIG2))
+    A_sp = sp.csr_matrix((v, (i, j)), shape=(n, n))
+    xs = np.cos(0.01 * np.arange(n))
+    b2 = A_sp @ xs
+    out = {}
+    for group in ("csr", "grid"):
+        A = pt.MatAIJ()
+        A.setSizes(n)
+        if group == "grid":
+            A.setStencilGrid(CONFIG2)
+        A.setPreallocationCOO(i, j)
+        A.setValuesCOO(v)
+        out[group] = (A, b2, A_sp, xs)
+    N = KRYLOV_BOX_N
+    bi, bj, bv = box27_coo(N)
+    B_sp = sp.csr_matrix((bv, (bi, bj)), shape=(N ** 3, N ** 3))
+    out["box"] = (sb.as_mat(*sb.build_dnd((N,) * 3, kind="box")), np.ones(N ** 3), B_sp, None)
+    return out
+
+
+def krylov_ksp(pt, group, ksp_type, A, shared_pc=None, device=None):
+    """A KSP for one case with the case's options: the CSR cases share one
+    PC (ILU(0) with -pc_factor_transpose_solve, set up once), the grid cases
+    take their own PC, the box cases jacobi and their max_it, stcg its
+    radius, the mixed case setMixedPrecision(). Each case starts with an
+    init() of its own options (K1 once, before its launches are counted)."""
+    if group == "box":
+        args = (*KRYLOV_BOX_ARGS, "-ksp_max_it", str(KRYLOV_BOX_MAX_IT[ksp_type]))
+    elif group == "grid":
+        args = ("-ksp_rtol", "1e-8", "-ksp_max_it", "400", "-pc_type",
+                KRYLOV_GRID_PCS[ksp_type])
+    else:
+        args = (*KRYLOV_CSR_ARGS, *KRYLOV_CSR_EXTRA.get(ksp_type, ()))
+    pt.init(args=list(args), **({} if device is None else {"device": device}))
+    ksp = pt.KSP().create()
+    ksp.setOperators(A)
+    if shared_pc is not None:
+        ksp.setPC(shared_pc)
+    if ksp_type != "mixed":
+        ksp.setType(ksp_type)
+    ksp.setFromOptions()
+    if ksp_type == "stcg":
+        ksp.setRadius(KRYLOV_STCG_RADIUS)
+    if ksp_type == "mixed":
+        ksp.setMixedPrecision()
+    return ksp
+
+
+KRYLOV_CASES = (tuple(f"csr_{t}" for t in KRYLOV_CSR_TYPES)
+                + tuple(f"grid_{t}" for t in KRYLOV_GRID_PCS) + ("mixed",)
+                + tuple(f"box_{t}" for t in KRYLOV_BOX_MAX_IT))
+
+
+def krylov_solve(pt, case, ops, shared, device=None):
+    """One case's first solve, every launch count set to 0 just before it
+    and read just after: returns (ksp, b, x, launches, whether the solve
+    found no explicit transpose's values yet). `shared` keeps the CSR
+    cases' PC, set up by the first of them."""
+    import torch
+    group, ksp_type = ("mixed", "mixed") if case == "mixed" else case.split("_", 1)
+    A = ops["csr" if group == "mixed" else group][0]
+    ksp = krylov_ksp(pt, group, ksp_type, A,
+                     shared.get("pc") if group in ("csr", "mixed") else None, device)
+    if group in ("csr", "mixed"):
+        shared["pc"] = ksp.getPC()
+    b = pt.Vec.from_array(ops["csr" if group == "mixed" else group][1])
+    x = A.createVecRight()
+    if device is None:
+        torch.cuda.synchronize()
+    fresh_t = "csr_t_vals" not in A.device_data()
+    reset_launches()
+    ksp.solve(b, x)
+    if device is None:
+        torch.cuda.synchronize()
+    return ksp, b, x, launch_counts(), fresh_t
+
+
+def check_krylov(case, ksp, b, x, ops, contract):
+    """The solve against the reference's run of the case: its and reason,
+    the history (KRYLOV_HIST_TOL relative, plus KRYLOV_HIST_ATOL of the
+    initial norm where the case has one), a true relative residual <= 10x
+    the reference's, finite values of the right shape. The mixed case:
+    the first refinement pass takes the reference's its (both solve the
+    same f32 right-hand side); every later pass solves for the residual
+    the f32 solve before it left, which is rounding, and may take one
+    iteration more or fewer (the reference's own inner solve takes the
+    port's count on the port's right-hand side); the outer norms after the
+    first within KRYLOV_IR_FACTOR of the reference's."""
+    import numpy as np
+    import torch
+    group = "csr" if case == "mixed" else case.split("_", 1)[0]
+    A_sp = ops[group][2]
+    xh = x.array.double().cpu().numpy()
+    bh = b.array.double().cpu().numpy()
+    if xh.shape != bh.shape or not bool(torch.isfinite(x.array).all()):
+        raise AssertionError(f"krylov {case}: solution of shape {xh.shape} or not finite")
+    want = contract[case]
+    h, hw = ksp.getConvergenceHistory(), np.asarray(want["history"])
+    got = {"its": ksp.getIterationNumber(), "reason": ksp.getConvergedReason().name,
+           "ksp_type": ksp.getType(), "pc_type": ksp.getPC().getType(),
+           "true_relres": float(np.linalg.norm(bh - A_sp @ xh) / np.linalg.norm(bh)),
+           "history_len": len(h)}
+    tol, atol = KRYLOV_HIST_TOL, KRYLOV_HIST_ATOL.get(case, 0.0) * hw[0]
+    ok_its = got["its"] == want["its"]
+    if len(h) != len(hw):
+        ok_hist = False
+    elif case == "mixed":
+        got["pass_its"] = list(ksp._pass_its)
+        got["history_ratio"] = [float(v) for v in h[1:] / hw[1:]]
+        ok_hist = bool(abs(h[0] - hw[0]) <= tol * hw[0]
+                       and np.all(np.abs(np.log(h[1:] / hw[1:])) <= np.log(KRYLOV_IR_FACTOR)))
+        want_p = want["pass_its"]
+        ok_its = (len(got["pass_its"]) == len(want_p) and got["pass_its"][0] == want_p[0]
+                  and all(abs(g - w) <= 1 for g, w in zip(got["pass_its"], want_p)))
+    else:
+        got["history_rel_err"] = float(np.max(np.abs(h - hw) / np.abs(hw)))
+        got["history_err_of_initial"] = float(np.max(np.abs(h - hw)) / hw[0])
+        ok_hist = bool(np.all(np.abs(h - hw) <= tol * np.abs(hw) + atol))
+    if not ok_its or got["reason"] != want["reason"] or not ok_hist \
+            or not got["true_relres"] <= 10 * want["true_relres"]:
+        raise AssertionError(f"krylov {case} against the reference: got {got}, want its "
+                             f"{want['its']} ({want.get('pass_its')}), {want['reason']}, "
+                             f"history to {tol} (+{atol}), true relres <= 10 x "
+                             f"{want['true_relres']}")
+    return got
+
+
+def exact_krylov_launches(case, launches, its, hist_len, first=True):
+    need = krylov_launches_needed(case, its, hist_len, first)
+    wrong = {k: (launches.get(k, 0), v) for k, v in need.items() if launches.get(k, 0) != v}
+    others = {k: v for k, v in launches.items() if v and k not in need}
+    if wrong or others:
+        raise AssertionError(f"krylov {case}: launches (got, need) {wrong}; others {others}")
+    return need
+
+
+def v1t_row(A, flush):
+    """V1T (dnd_stencil_t) on config 2's grid operator, f64, 7 planes:
+    equal bits with its plain version (the gather form) on the card, and
+    timed after the clean flush beside it and beside V1 (the forward
+    product, its window kernel's scalar variant on the odd grid); the bound
+    is x and the planes read once and y written once, the same for both."""
+    import torch
+    from petsc_tpu_torch.ops import grid_kernels as gridk
+    op = A.op()
+    meta, data = A.meta, A.device_data()
+    shape, offs = meta[1], meta[2]
+    cvals = meta[6] if len(meta) > 6 else (None,) * len(offs)
+    n = int(A.getSize()[0])
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.rand(n, dtype=torch.float64, device="cuda", generator=g) - 0.5
+    y = op.mult_t(x)
+    yp = gridk.dnd_stencil_t(x, shape, offs, cvals, data["coef"])
+    planes = int(data["coef"].shape[0])
+    nbytes = (2 + planes) * n * 8
+    flops = 2 * len(offs) * n
+    ms = time_ms(lambda: op.mult_t(x), flush)
+    plain_ms = time_ms(lambda: gridk.dnd_stencil_t(x, shape, offs, cvals, data["coef"]),
+                       flush, reps=5)
+    bms, by = bound(nbytes, flops, "float64")
+    fwd_ms = time_ms(lambda: op.mult(x), flush)
+    return {"name": "dnd_stencil_t", "dtype": "float64", "shape": list(shape),
+            "planes": planes, "kernel": "generic (V1's, transposed stencil)",
+            "equal_bits": bool(torch.equal(y, yp)), "max_abs_err": float((y - yp).abs().max()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "share_of_bound": bms / ms, "library_ms": None,
+            "library": "none: no single PyTorch call computes the stencil's transpose product",
+            "forward_v1_ms": fwd_ms, "forward_v1_share_of_bound": bms / fwd_ms,
+            "forward_v1_kernel": op.mult.kernel,
+            "planes_MB": data["coef"].numel() * 8 / 2 ** 20}
+
+
+def phase_krylov(pt, smi, t_start, flush):
+    """Phase krylov: each case of KRYLOV_CASES through the user's entry
+    points, its first solve held to the reference's contract with its
+    launches counted exactly; then the warm time (best of 3) and one
+    profiled solve (busy ms and share); V1T's row. Returns (the record,
+    V1T's row, the launches summed over the cases' first solves, the grid
+    bicg case's launches)."""
+    import torch
+    contract = krylov_contract()
+    t0 = time.perf_counter()
+    ops = krylov_operators(pt)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    shared, cases, total, grid_launches = {}, {}, {}, None
+    for case in KRYLOV_CASES:
+        t1 = time.perf_counter()
+        ksp, b, x, launches, fresh_t = krylov_solve(pt, case, ops, shared)
+        first_s = time.perf_counter() - t1
+        got = check_krylov(case, ksp, b, x, ops, contract)
+        need = exact_krylov_launches(case, launches, got["its"], got["history_len"], fresh_t)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if case == "grid_bicg":
+            grid_launches = launches
+        ms = warm_ms(ksp, b, x)
+        prof = profile_solve(ksp, b, x, ms)
+        check_krylov(case, ksp, b, x, ops, contract)
+        cases[case] = {**got, "first_solve_s": first_s, "warm_ms_best_of_3": ms,
+                       "ms_per_it": ms / max(got["its"], 1),
+                       "device_busy_ms": prof["device_busy_ms"],
+                       "busy_share": prof["busy_share_of_warm"],
+                       "device_events": prof["device_events"],
+                       "spins_seen_before_and_after": prof["spins_seen_before_and_after"],
+                       "launches": {k: v for k, v in need.items()},
+                       "by_kernel": prof["by_kernel"][:6]}
+        del ksp, b, x
+    row = v1t_row(ops["grid"][0], flush)
+    if not row["equal_bits"]:
+        raise AssertionError(f"V1T differs from its plain version: {row['max_abs_err']}")
+    rec = {"phase": "krylov", "nvidia_smi": smi, "operators_setup_s": setup_s,
+           "config2": list(CONFIG2), "box_n": KRYLOV_BOX_N,
+           "kinds": {g: ops[g][0].meta[0] for g in ("csr", "grid", "box")},
+           "cases": cases, "dnd_stencil_t": row,
+           "seconds_so_far": time.perf_counter() - t_start}
+    if rec["kinds"] != {"csr": "aij_csr", "grid": "aij_dnd", "box": "aij_dnd"}:
+        raise AssertionError(f"krylov operators: {rec['kinds']}")
+    return rec, row, total, grid_launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4764,6 +5199,13 @@ def main():
     ex45_rec, q1_dof, ex45_launches, ex45_prof = phase_ex45(pt, gridk, smi, t_start, flush)
     emit(ex45_rec)
 
+    # ---- the Krylov types of item 8 against their contracts: config 2
+    # assembled (ILU(0)), on its grid (V1, V1T) and under mixed precision;
+    # the 128^3 box27 stencil (S1) ----
+    kr_rec, v1t_main, kr_launches, kr_grid_launches = phase_krylov(pt, smi, t_start, flush)
+    emit(kr_rec)
+    torch.cuda.empty_cache()
+
     # ---- bench.py's keys from the card: bench_gpu.py in a process of its own ----
     bench = phase_bench_gpu(smi, t_start)
 
@@ -4803,6 +5245,8 @@ def main():
                             {"agg_block_cheby": a1c_main}, exk_launches),
         "csr_spmm": ("csr_spmm.cu", "petsc_tpu/mat/utility.py:356", {"csr_spmm": m1_main},
                      mk_launches["maij"]),
+        "dnd_stencil_t": ("dnd_stencil.cu", "petsc_tpu/mat/aij.py:1438",
+                          {"dnd_stencil_t": v1t_main}, kr_grid_launches),
     }
     table = []
     for name, (src, replaces, measured, counts) in rows.items():
@@ -4831,7 +5275,8 @@ def main():
                                            "create_stencil":
                                                sd_launches["create_stencil"][name],
                                            "matsolve": sd_launches["matsolve"][name],
-                                           "sbaij": sb_launches[name]},
+                                           "sbaij": sb_launches[name],
+                                           "krylov": kr_launches.get(name, 0)},
                       "in_solve_us": {path: p["in_solve"].get(name, {}).get("us_per_launch")
                                       for path, p in (("solve", prof), ("aij", prof_a),
                                                       ("mg", prof_m), ("gamg", prof_g),

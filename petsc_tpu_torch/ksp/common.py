@@ -28,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.pallas_kernels import dot2, triad
 from ..sys.error import KSPConvergedReason as KR
 
 PRECONDITIONED = "preconditioned"
@@ -44,6 +45,7 @@ class SolveResult(NamedTuple):
     history: np.ndarray     # (max_it+1,) residual norms, NaN where unset
     rnorm0: float
     r: torch.Tensor | None = None   # final recursive residual, when carried
+    pass_its: tuple = ()            # iterative refinement: each inner solve's its
 
 
 @dataclass(frozen=True)
@@ -75,10 +77,10 @@ def finalize_reason(reason, its, cfg: KSPConfig) -> int:
 
 
 def initial_residual(A, b, x0, cfg: KSPConfig):
-    """r0 = b - A x0, skipping the matvec for a zero initial guess (then
-    r0 is b itself)."""
+    """r0 = b - A x0 (on K2), skipping the matvec for a zero initial guess
+    (then r0 is b itself)."""
     if cfg.guess_nonzero:
-        return b - A.mult(x0)
+        return residual(A, b, x0)
     return b
 
 
@@ -104,3 +106,57 @@ def tolerances(dp0, rtol, abstol, divtol, rnd):
     its scalars cast to that dtype first."""
     atol = rnd(abstol)
     return max(rnd(rnd(rtol) * dp0), atol), atol, rnd(rnd(divtol) * dp0)
+
+
+# ---------------------------------------------------------------------
+# vector steps of the Krylov loops on the hand kernels (K2 triad, K4
+# dot2); on CPU tensors each runs its plain version
+# ---------------------------------------------------------------------
+
+def dot(a, b):
+    """<a, b> as a 0-d tensor: the first of K4's two sums."""
+    return dot2(a, b)[0]
+
+
+def norm(a):
+    """||a|| as a 0-d tensor (K4's second sum, then its square root)."""
+    return torch.sqrt(dot2(a, a)[1])
+
+
+def axpy(y, alpha, x):
+    """y + alpha x on K2 (alpha a 0-d tensor on the vectors' device)."""
+    return triad(y, x, alpha)
+
+
+def residual(A, b, x):
+    """b - A x, the subtraction on K2."""
+    return triad(b, A.mult(x), scalar(-1.0, b))
+
+
+def nz(v):
+    """v with 0 replaced by 1: the guarded divisor of the reference's
+    jnp.where(v == 0, 1.0, v)."""
+    return torch.where(v == 0, torch.ones_like(v), v)
+
+
+def scalar(v, like):
+    """The host number v as a 0-d tensor of like's dtype and device."""
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+
+def dp_of(normtype, r, z):
+    """The norm that the norm type selects, as a 0-d tensor: ||z||
+    (preconditioned), ||r|| (unpreconditioned), sqrt|<z, r>| (natural),
+    else 0."""
+    if normtype == PRECONDITIONED:
+        return norm(z)
+    if normtype == UNPRECONDITIONED:
+        return norm(r)
+    if normtype == NATURAL:
+        return torch.sqrt(torch.abs(dot(z, r)))
+    return torch.zeros((), dtype=r.dtype, device=r.device)
+
+
+def host(*vals):
+    """The 0-d tensors vals read to the host in one transfer, as floats."""
+    return torch.stack([v.reshape(()) for v in vals]).tolist()

@@ -26,18 +26,31 @@ from ..sys.object import PObject
 from ..vec.vec import Vec
 from . import common
 from . import impls_basic as _b
-from .bcgs import solve_bcgs
+from . import impls_more as _m
+from . import impls_tr as _tr
+from .bcgs import solve_bcgs, solve_ibcgs
 from .cheby import solve_chebyshev
 from .common import KSPConfig
+from .dgmres import solve_dgmres_host
+from .gltr import solve_gltr
 from .gmres import solve_fgmres, solve_gmres
+from .idr import solve_idr
+from .impls_r3 import solve_bicg, solve_cgls, solve_qmrcgs
+from .lgmres import solve_lgmres
+from .tcqmr import solve_tcqmr
+from .tsirm import solve_tsirm
 
 # solver registry: name -> {"fn": solve function, "norm": default norm
 # type, "extras": maker of solver-specific parameters}
 _IMPLS: dict[str, dict] = {}
 
 
-def register_ksp(name, fn, default_norm=common.PRECONDITIONED, extras=None):
-    _IMPLS[name] = {"fn": fn, "norm": default_norm, "extras": extras}
+def register_ksp(name, fn, default_norm=common.PRECONDITIONED, extras=None,
+                 supports_right=False, host_driven=False):
+    """`host_driven`: fn(ksp, A, B, b, x0) -> (x, its, rnorm, reason,
+    history, rnorm0), the loop's control on the host (dgmres)."""
+    _IMPLS[name] = {"fn": fn, "norm": default_norm, "extras": extras,
+                    "right": supports_right, "host_driven": host_driven}
 
 
 class KSP(PObject):
@@ -170,6 +183,23 @@ class KSP(PObject):
     def setGMRESRestart(self, r):
         return self.setParam("restart", int(r))
 
+    def setRadius(self, delta):
+        """KSPCGSetRadius: the trust-region bound of stcg, nash, qcg, gltr."""
+        return self.setParam("radius", float(delta))
+
+    def setMixedPrecision(self, flag=True, inner_rtol=1e-6, max_outer=30):
+        """An f32 inner solve of this type inside an f64 outer iterative
+        refinement (ksp/ir.py); -ksp_mixed_precision sets the defaults."""
+        self._mixed = (bool(flag), float(inner_rtol), int(max_outer))
+        return self
+
+    def setGuessType(self, kind="fischer", size=10):
+        """Attach a KSPGuess (Fischer or POD, ksp/guess.py) that predicts x0
+        from the earlier solves with this operator."""
+        from .guess import KSPGuess
+        self._guess = KSPGuess(self, kind, size)
+        return self._guess
+
     def setErrorIfNotConverged(self, flag=True):
         self.error_if_not_converged = bool(flag)
 
@@ -251,24 +281,45 @@ class KSP(PObject):
                 self.guess_nonzero = True
         self._solution = x
         self.setUp()
+        guess = getattr(self, "_guess", None)
+        saved_nonzero = self.guess_nonzero
+        if guess is not None and not self.guess_nonzero:
+            g = guess.formGuess(b.array)
+            if g is not None:
+                x.array = g
+                self.guess_nonzero = True
         cfg = self._static_cfg()
+        mixed = getattr(self, "_mixed", None)
+        if mixed is None and self.opt("get_bool", "ksp_mixed_precision", False):
+            mixed = self._mixed = (True, 1e-6, 30)
         A = operator.bind(self.mat.meta, self.mat.device_data())
         B = operator.bind(self.pc.meta, self.pc.device_data())
         x0 = x.array if self.guess_nonzero else torch.zeros_like(b.array)
         t0 = time.perf_counter()
-        res = _IMPLS[self._type]["fn"](A, B, b.array, x0, self.rtol,
-                                       self.abstol, self.divtol, cfg)
+        impl = _IMPLS[self._type]
+        if impl["host_driven"]:
+            xr, its, rnorm, reason, hist, rnorm0 = impl["fn"](self, A, B, b.array, x0)
+            res = common.SolveResult(xr, its, rnorm, reason, np.asarray(hist), rnorm0)
+        elif mixed and mixed[0]:
+            res = self._solve_ir(cfg, mixed, A, b.array, x0)
+        else:
+            res = impl["fn"](A, B, b.array, x0, self.rtol, self.abstol, self.divtol, cfg)
         if res.x.is_cuda:
             torch.cuda.synchronize(res.x.device)
-        # the KSPSolve time is taken before anything is fetched after the solve
+        # the KSPSolve time is taken before anything is fetched after the
+        # solve, and before the guess's update
         dt = time.perf_counter() - t0
+        self.guess_nonzero = saved_nonzero
         x.array = res.x
         self._its = int(res.its)
+        self._pass_its = res.pass_its      # per refinement pass, under setMixedPrecision
         self._rnorm = float(res.rnorm)
         self._rnorm0 = float(res.rnorm0)
         self._reason = KR(int(res.reason))
         hist = res.history
         self._history = hist[~np.isnan(hist)]
+        if guess is not None and int(self._reason) > 0:
+            guess.update(res.x, b.array)
         nnz = self.mat.nnz() if hasattr(self.mat, "nnz") else 0
         config.log().log_event("KSPSolve", dt,
                                flops=2.0 * nnz * max(self._its, 1))
@@ -278,6 +329,27 @@ class KSP(PObject):
                 f"KSPSolve has not converged, reason "
                 f"{ksp_reason_string(self._reason)}")
         return x
+
+    def _solve_ir(self, cfg, mixed, A64, b, x0):
+        """The mixed-precision refinement (ksp/ir.py): the operator and the PC
+        bound again on float32 copies of their device data, kept while
+        neither changes."""
+        from .ir import solve_ir, to_f32
+        _, inner_rtol, max_outer = mixed
+        key = (id(self.mat.device_data()), getattr(self.mat, "state", None),
+               id(self.pc.device_data()))
+        cached = getattr(self, "_ir_ops", None)
+        if cached is None or cached[0] != key:
+            cached = self._ir_ops = (
+                key, operator.bind(self.mat.meta, to_f32(self.mat.device_data())),
+                operator.bind(self.pc.meta, to_f32(self.pc.device_data())))
+        inner_cfg = KSPConfig(max_it=min(cfg.max_it, 1000), normtype=cfg.normtype,
+                              converged_maxits=True, extra=cfg.extra)
+        outer_cfg = KSPConfig(max_it=max_outer, normtype=cfg.normtype,
+                              guess_nonzero=cfg.guess_nonzero,
+                              extra=(max_outer, inner_rtol))
+        return solve_ir(_IMPLS[self._type]["fn"], inner_cfg, A64, cached[1], cached[2], b,
+                        x0, self.rtol, self.abstol, self.divtol, outer_cfg)
 
     def matSolve(self, B, X=None):
         """KSPMatSolve: solve for each column of B, an (n, k) array (or an
@@ -414,6 +486,39 @@ def _cheby_extras(ksp):
     return (float(ev[0]), float(ev[1]))
 
 
+def _stcg_extras(ksp):
+    return (("radius", float(ksp._params.get("radius", 0.0))),)
+
+
+def _bcgsl_extras(ksp):
+    ell = ksp.opt("get_int", "ksp_bcgsl_ell", None) or int(ksp._params.get("ell", 2))
+    return (("ell", int(ell)),)
+
+
+def _idr_extras(ksp):
+    s = ksp.opt("get_int", "ksp_idr_s", None) or int(ksp._params.get("s", 4))
+    return (("s", int(s)),)
+
+
+def _lcd_extras(ksp):
+    return (("restart", int(ksp._params.get("restart", 30))),)
+
+
+def _lgmres_extras(ksp):
+    restart, refine = _gmres_extras(ksp)
+    aug = ksp.opt("get_int", "ksp_lgmres_augment", None)
+    if aug is None:
+        aug = int(ksp._params.get("aug_dim", 2))
+    return (restart, refine, int(aug))
+
+
+# The names, default norms, extras, right-PC support and host driving of
+# the reference's registry (petsc_tpu/ksp/ksp.py:607-821), fetidp aside (it
+# needs BDDC). The aliases are the reference's: the pipelined variants
+# (pipecg2, pipecgrr, pipelcg, pipeprcg, groppcg, pipecr, pipefcg,
+# pipebcgs, pipegcr, pgmres, pipefgmres) take their base method's
+# recurrence; fbcgs and fbcgsr are bcgs (the same iterates for a fixed
+# PC); nash and qcg are stcg; agmres is dgmres.
 register_ksp("preonly", _b.solve_preonly, default_norm=common.NONE)
 register_ksp("none", _b.solve_preonly, default_norm=common.NONE)
 register_ksp("richardson", _b.solve_richardson, extras=_rich_extras)
@@ -421,6 +526,47 @@ register_ksp("cg", _b.solve_cg)
 register_ksp("minres", _b.solve_minres)
 register_ksp("gmres", solve_gmres, extras=_gmres_extras)
 register_ksp("fgmres", solve_fgmres, default_norm=common.UNPRECONDITIONED,
-             extras=_gmres_extras)
+             extras=_gmres_extras, supports_right=True)
 register_ksp("bcgs", solve_bcgs)
 register_ksp("chebyshev", solve_chebyshev, extras=_cheby_extras)
+register_ksp("cgs", _m.solve_cgs)
+register_ksp("tfqmr", _m.solve_tfqmr)
+register_ksp("cr", _m.solve_cr)
+register_ksp("pipegcr", _m.solve_gcr, default_norm=common.UNPRECONDITIONED,
+             supports_right=True)
+register_ksp("gcr", _m.solve_gcr, default_norm=common.UNPRECONDITIONED,
+             extras=_gmres_extras, supports_right=True)
+register_ksp("lsqr", _m.solve_lsqr, default_norm=common.UNPRECONDITIONED)
+register_ksp("pipecg", _m.solve_pipecg)
+register_ksp("pipecg2", _m.solve_pipecg)
+register_ksp("pipecgrr", _m.solve_pipecg)
+register_ksp("pipelcg", _m.solve_pipecg)
+register_ksp("pipeprcg", _m.solve_pipecg)
+register_ksp("symmlq", _m.solve_symmlq)
+register_ksp("idr", solve_idr, extras=_idr_extras)
+register_ksp("lcd", _tr.solve_lcd, extras=_lcd_extras)
+register_ksp("tcqmr", solve_tcqmr)
+register_ksp("tsirm", solve_tsirm)
+register_ksp("dgmres", solve_dgmres_host, host_driven=True)
+register_ksp("agmres", solve_dgmres_host, host_driven=True)
+register_ksp("stcg", _tr.solve_stcg, extras=_stcg_extras)
+register_ksp("nash", _tr.solve_stcg, extras=_stcg_extras)
+register_ksp("qcg", _tr.solve_stcg, extras=_stcg_extras)
+register_ksp("gltr", solve_gltr, extras=_stcg_extras)
+register_ksp("bcgsl", _tr.solve_bcgsl, extras=_bcgsl_extras)
+register_ksp("pgmres", solve_gmres, extras=_gmres_extras)
+register_ksp("pipefgmres", solve_fgmres, default_norm=common.UNPRECONDITIONED,
+             extras=_gmres_extras, supports_right=True)
+register_ksp("ibcgs", solve_ibcgs)
+register_ksp("fbcgs", solve_bcgs)
+register_ksp("fbcgsr", solve_bcgs)
+register_ksp("lgmres", solve_lgmres, extras=_lgmres_extras)
+register_ksp("cgne", _m.solve_cgne)
+register_ksp("fcg", _m.solve_fcg, extras=_gmres_extras)
+register_ksp("groppcg", _m.solve_pipecg)
+register_ksp("bicg", solve_bicg)
+register_ksp("cgls", solve_cgls, default_norm=common.UNPRECONDITIONED)
+register_ksp("qmrcgs", solve_qmrcgs)
+register_ksp("pipecr", _m.solve_cr)
+register_ksp("pipefcg", _m.solve_fcg, extras=_gmres_extras)
+register_ksp("pipebcgs", solve_bcgs)

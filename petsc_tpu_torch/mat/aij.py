@@ -46,7 +46,9 @@ planes mixed with constants, constants on other offsets: the slab and
 generic branches, :1381-1436) by V1 (:func:`ops.grid_kernels.dnd_stencil`).
 The TPU's slab chunking is a VMEM device and is not carried over; both
 reference branches give the same y. The variable-coefficient transpose
-(:1438-1451) is PyTorch in gather form, off the V-cycle's path.
+(:1438-1451) is V1T (:func:`ops.grid_kernels.dnd_stencil_t_fn`: V1's generic
+kernel on shifted planes, one copy of the planes on the card, kept in the
+data as ``dnd_t`` until the values change).
 """
 
 from __future__ import annotations
@@ -60,8 +62,8 @@ from .. import config, native
 from ..ops import operator, spmv
 from ..ops.block_kernels import bsr_spmv, bsr_transpose
 from ..ops.gather_kernels import gather
-from ..ops.grid_kernels import dnd_stencil_fn, dnd_stencil_t
-from ..ops.pallas_kernels import const_stencil, csr_spmv
+from ..ops.grid_kernels import dnd_stencil_fn, dnd_stencil_t_fn
+from ..ops.pallas_kernels import const_stencil, csr_spmm, csr_spmv
 from ..sys.error import Error
 from ..vec.vec import InsertMode, NormType
 from .mat import Mat
@@ -543,6 +545,7 @@ class MatAIJ(Mat):
             flat = torch.zeros(coef.numel(), dtype=csr_vals.dtype, device=csr_vals.device)
             flat[self._dev["dnd_scatter"]] = csr_vals
             self._dev["coef"] = flat.reshape(coef.shape)
+            self._dev.pop("dnd_t", None)          # V1T's planes are stale
         else:
             self._dev["vals"] = csr_vals
             self._dev.pop("csr_t_vals", None)     # the transpose's values are stale
@@ -733,7 +736,8 @@ def _bind_aij_csr(meta, data):
         return csr_spmv(*csr_transpose_of(data, n), x)
 
     return operator.Op(mult=lambda x: csr_spmv(ip, col, vals, x), mult_t=mult_t,
-                       diag=lambda: data["diag"])
+                       diag=lambda: data["diag"],
+                       mult_mat=lambda X: csr_spmm(ip, col, vals, X))
 
 
 def _bind_aij_dnd(meta, data):
@@ -756,8 +760,12 @@ def _bind_aij_dnd(meta, data):
     if not (all_const and center in off_set and len(offdiag) == 1
             and off_set in (box_set, star_set)):
         coef = data["coef"]
-        return operator.Op(mult=dnd_stencil_fn(shape, offs, cvals, coef),
-                           mult_t=lambda x: dnd_stencil_t(x, shape, offs, cvals, coef),
+        # V1T's shifted planes are built at its first product on the card and
+        # kept in data until the values change (_update_device_values drops them)
+        mult_t = data.get("dnd_t")
+        if mult_t is None:
+            mult_t = data["dnd_t"] = dnd_stencil_t_fn(shape, offs, cvals, coef)
+        return operator.Op(mult=dnd_stencil_fn(shape, offs, cvals, coef), mult_t=mult_t,
                            diag=lambda: data["diag"])
     cd = float(cvals[offs.index(center)])
     co = float(next(iter(offdiag)))

@@ -6,6 +6,8 @@ fuses nothing, so here they are CUDA C++ kernels for sm_90a (sources in
 ``petsc_tpu_torch/csrc``, built and loaded by :mod:`.cuda_build`):
 
   dnd_stencil  V1   csrc/dnd_stencil.cu  mat/aij.py:1381-1436 (variable-coefficient mult)
+  dnd_stencil_t V1T csrc/dnd_stencil.cu  mat/aij.py:1438-1451 (its mult_t: V1 on the
+                                         transposed stencil)
   q1_prolong   Q1P  csrc/q1.cu           dm/interp.py:21-46 _interp_axis, composed at :219-227
   q1_restrict  Q1R  csrc/q1.cu           dm/interp.py:49-71 _restrict_axis, composed at :229-235
 
@@ -40,6 +42,16 @@ tests run that path); for a CUDA tensor it launches the kernel or raises.
 There is no fallback from the kernel to the plain version. The kernels
 round each product and sum on their own, in the plain versions' order, so
 the two give equal bits.
+
+V1T is the transpose's product, y(i) = sum_k c_k(i - o_k) x(i - o_k): V1's
+generic kernel on the transposed stencil, offsets -o_k in the same order
+and planes c_k shifted by o_k (zero where i - o_k leaves the grid; a
+constant tap stays constant, since x is zero outside the grid). The
+shifted planes are built on the card at the first product
+(:func:`dnd_stencil_t_fn`), as many as the stencil has planes. The sum runs
+over k in the reference's order (its scatter form adds the terms in the
+offsets' order), so V1T equals its plain version, the gather form
+:func:`dnd_stencil_t`, bit for bit. It counts as ``dnd_stencil_t``.
 """
 
 from __future__ import annotations
@@ -54,7 +66,7 @@ import torch.nn.functional as F
 from . import cuda_build
 
 # launches of each kernel since the last reset_launches()
-LAUNCHES = {"dnd_stencil": 0, "q1_prolong": 0, "q1_restrict": 0}
+LAUNCHES = {"dnd_stencil": 0, "dnd_stencil_t": 0, "q1_prolong": 0, "q1_restrict": 0}
 
 _VALUES = (torch.float64, torch.float32)
 _MAX_TAPS = 128            # csrc/dnd_stencil.cu kMaxTaps
@@ -214,14 +226,15 @@ def _sms(device):
     return _H100_SMS
 
 
-def dnd_stencil_fn(shape, offsets, consts, coef):
+def dnd_stencil_fn(shape, offsets, consts, coef, counter="dnd_stencil"):
     """x -> A x for the grid stencil with `offsets` on grid `shape` (C order,
     zeros outside the grid): per offset k the constant consts[k] or, where
     that is None, the next plane of `coef` (a contiguous (planes, *shape)
     float64 or float32 tensor). The stencil is checked and its launch
     planned once here, where a binder binds the operator: the window
     kernel where _window_plan takes the stencil, else the generic one
-    (``apply.kernel`` says which, ``apply.window`` holds the window's plan)."""
+    (``apply.kernel`` says which, ``apply.window`` holds the window's plan).
+    Each launch adds one to ``LAUNCHES[counter]``."""
     shape, n, coef_shape, args, arrays = _dnd_plan(shape, offsets, consts)
     if (not isinstance(coef, torch.Tensor) or coef.dtype not in _VALUES
             or coef.shape != coef_shape or not coef.is_contiguous()):
@@ -229,7 +242,7 @@ def dnd_stencil_fn(shape, offsets, consts, coef):
                          f"float32 tensor, got {getattr(coef, 'shape', coef)}")
     window = _window_plan(_grid3(shape), offsets, consts, coef.element_size(),
                           coef.data_ptr(), _sms(coef.device))
-    entry = None
+    entry = "dnd_stencil"
     if window is not None:
         entry, args = "dnd_window", _grid3(shape) + window["args"]
 
@@ -242,7 +255,7 @@ def dnd_stencil_fn(shape, offsets, consts, coef):
             return dnd_stencil_plain(x, shape, offsets, consts, coef)
         y = torch.empty_like(x)
         if n:
-            cuda_build.launch(LAUNCHES, "dnd_stencil", x, y.data_ptr(), x.data_ptr(),
+            cuda_build.launch(LAUNCHES, counter, x, y.data_ptr(), x.data_ptr(),
                               coef.data_ptr(), *args, entry=entry)
         return y
 
@@ -270,11 +283,10 @@ def dnd_stencil(x, shape, offsets, consts, coef):
 
 
 def dnd_stencil_t(x, shape, offsets, consts, coef):
-    """y = A^T x for the same stencil, in gather form (no atomics):
-    y(i) = sum_k c_k(i - o_k) x(i - o_k), each term c_k x shifted by o_k.
-    The reference's scatter form (mat/aij.py:1438-1451) sums the same
-    terms in the same order. In PyTorch ops on either device (off the
-    V-cycle, which restricts with P^T; ROADMAP 2b item 4 keeps its kernel)."""
+    """V1T's plain version: y = A^T x for the same stencil, in gather form
+    (no atomics): y(i) = sum_k c_k(i - o_k) x(i - o_k), each term c_k x
+    shifted by o_k. The reference's scatter form (mat/aij.py:1438-1451)
+    sums the same terms in the same order."""
     shape = tuple(int(s) for s in shape)
     nd = len(shape)
     _check_vector("dnd_stencil_t", x, _numel(shape))
@@ -293,6 +305,46 @@ def dnd_stencil_t(x, shape, offsets, consts, coef):
         sl = tuple(slice(lpad[ax] - off[ax], lpad[ax] - off[ax] + shape[ax]) for ax in range(nd))
         acc = acc + up[sl]
     return acc.reshape(-1)
+
+
+def transposed_stencil(shape, offsets, consts, coef):
+    """(offsets, planes) of A^T's stencil: -o_k in the same order, and each
+    plane c_k shifted by o_k, c_k(i - o_k) where i - o_k is in the grid and
+    0 elsewhere (one new tensor of coef's shape, dtype and device)."""
+    shape = tuple(int(s) for s in shape)
+    nd = len(shape)
+    planes = torch.zeros_like(coef)
+    ci = 0
+    for k, off in enumerate(offsets):
+        if consts[k] is not None:
+            continue
+        dst = tuple(slice(max(0, off[ax]), shape[ax] + min(0, off[ax])) for ax in range(nd))
+        src = tuple(slice(max(0, -off[ax]), shape[ax] - max(0, off[ax])) for ax in range(nd))
+        planes[ci][dst] = coef[ci][src]
+        ci += 1
+    return tuple(tuple(-int(v) for v in o) for o in offsets), planes
+
+
+def dnd_stencil_t_fn(shape, offsets, consts, coef):
+    """x -> A^T x for the stencil of dnd_stencil_fn: on a CPU tensor its
+    plain version dnd_stencil_t; on a CUDA tensor V1T, V1's generic kernel on
+    transposed_stencil's planes, built at the first call on the card and
+    kept in the closure. The negated offsets are in decreasing order, so the window kernel
+    (increasing order only) never takes a stencil of two taps or more."""
+    shape = tuple(int(s) for s in shape)
+    state = {}
+
+    def apply(x):
+        if x.device.type == "cpu":
+            return dnd_stencil_t(x, shape, offsets, consts, coef)
+        fn = state.get("fn")
+        if fn is None:
+            offs_t, planes = transposed_stencil(shape, offsets, consts, coef)
+            fn = state["fn"] = dnd_stencil_fn(shape, offs_t, consts, planes,
+                                              counter="dnd_stencil_t")
+        return fn(x)
+
+    return apply
 
 
 # ---------------------------------------------------------------------

@@ -28,6 +28,7 @@ class Op:
     mult_t: Callable | None = None    # x -> A^T x
     diag: Callable | None = None      # () -> diagonal of A
     meta: tuple | None = None
+    mult_mat: Callable | None = None  # X (n, k) -> A X, where the kind has a block product
 
     def __call__(self, x):
         return self.mult(x)

@@ -532,7 +532,53 @@ def test_dnd_stencil_matches_plain(cuda_device, dtype, shape, kind):
     p = gridk.dnd_stencil_plain(x, shape, offs, consts, coef)
     torch.cuda.synchronize()
     assert _rel(k, p) <= (1e-13 if dtype == torch.float64 else 1e-6)
-    assert gridk.LAUNCHES == {"dnd_stencil": 1, "q1_prolong": 0, "q1_restrict": 0}
+    assert gridk.LAUNCHES == {"dnd_stencil": 1, "dnd_stencil_t": 0, "q1_prolong": 0, "q1_restrict": 0}
+
+
+def _random_grid_csr(shape, box, seed):
+    """A random-coefficient star7 or box27 stencil on `shape` as a scipy CSR
+    (neighbours outside the grid dropped)."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    idx = np.arange(n).reshape(shape)
+    rows, cols = [], []
+    for o in [(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1)
+              if box or abs(a) + abs(b) + abs(c) <= 1]:
+        rows.append(idx[tuple(slice(max(0, -d), m - max(0, d)) for d, m in zip(o, shape))].ravel())
+        cols.append(idx[tuple(slice(max(0, d), m - max(0, -d)) for d, m in zip(o, shape))].ravel())
+    r, c = np.concatenate(rows), np.concatenate(cols)
+    return sp.csr_matrix((rng.standard_normal(len(r)), (r, c)), shape=(n, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ((22, 33, 39), (5, 6, 7)))
+@pytest.mark.parametrize("box", (False, True), ids=("star7", "box27"))
+@pytest.mark.parametrize("real", ("f64", "f32"))
+def test_dnd_stencil_t_matches_plain(cuda_device, real, box, shape):
+    """V1T (a grid operator's mult_t on the card: V1's generic kernel on the
+    transposed stencil's planes) equals its plain version, the gather form,
+    bit for bit; in float64 it is A^T x of the assembled matrix to 1e-12.
+    One launch, counted as dnd_stencil_t."""
+    from petsc_tpu_torch.ops import grid_kernels as gridk
+    A_sp = _random_grid_csr(shape, box, seed=4)
+    ptt.init(args=["-real_dtype", real])
+    A = ptt.MatAIJ.from_scipy(A_sp)
+    A.setStencilGrid(shape)
+    assert A.meta[0] == "aij_dnd"
+    meta, data = A.meta, A.device_data()
+    consts = meta[6] if len(meta) > 6 else (None,) * len(meta[2])
+    dtype = torch.float64 if real == "f64" else torch.float32
+    x = torch.rand(A_sp.shape[0], dtype=dtype, device=cuda_device) - 0.5
+    op = A.op()
+    gridk.reset_launches()
+    y = op.mult_t(x)
+    torch.cuda.synchronize()
+    assert gridk.LAUNCHES == {"dnd_stencil": 0, "dnd_stencil_t": 1, "q1_prolong": 0,
+                              "q1_restrict": 0}
+    assert torch.equal(y, gridk.dnd_stencil_t(x, meta[1], meta[2], consts, data["coef"]))
+    if dtype == torch.float64:
+        want = A_sp.T @ x.cpu().numpy()
+        assert np.abs(y.cpu().numpy() - want).max() <= 1e-12 * np.abs(want).max()
 
 
 @pytest.mark.cuda
@@ -567,7 +613,7 @@ def test_q1_kernels_match_plain(cuda_device, dtype, view, fshape):
                                              device=cuda_device)) <= tol
     assert _rel(kr.double(), torch.as_tensor(P.T @ xf.double().cpu().numpy(),
                                              device=cuda_device)) <= tol
-    assert gridk.LAUNCHES == {"dnd_stencil": 0, "q1_prolong": 1, "q1_restrict": 1}
+    assert gridk.LAUNCHES == {"dnd_stencil": 0, "dnd_stencil_t": 0, "q1_prolong": 1, "q1_restrict": 1}
 
 
 @pytest.mark.cuda
@@ -657,7 +703,7 @@ def test_v1_kernels_equal_plain_bit_for_bit(cuda_device, dtype, shape, kind, ker
     p = gridk.dnd_stencil_plain(x, shape, offs, consts, coef)
     torch.cuda.synchronize()
     assert torch.equal(k, p)
-    assert gridk.LAUNCHES == {"dnd_stencil": 1, "q1_prolong": 0, "q1_restrict": 0}
+    assert gridk.LAUNCHES == {"dnd_stencil": 1, "dnd_stencil_t": 0, "q1_prolong": 0, "q1_restrict": 0}
 
 
 @pytest.mark.cuda
@@ -675,7 +721,7 @@ def test_q1_prolong_equals_plain_bit_for_bit(cuda_device, dtype, fshape):
     p = gridk.q1_prolong_plain(xc, fshape)
     torch.cuda.synchronize()
     assert torch.equal(k, p)
-    assert gridk.LAUNCHES == {"dnd_stencil": 0, "q1_prolong": 1, "q1_restrict": 0}
+    assert gridk.LAUNCHES == {"dnd_stencil": 0, "dnd_stencil_t": 0, "q1_prolong": 1, "q1_restrict": 0}
 
 
 def _trisolve_plans(case, device):
@@ -1012,7 +1058,7 @@ def test_q1_dof_kernels_match_plain(cuda_device, dtype, fshape, dof):
                                              device=cuda_device)) <= tol
     assert _rel(kr.double(), torch.as_tensor(P.T @ xf.double().cpu().numpy(),
                                              device=cuda_device)) <= tol
-    assert gridk.LAUNCHES == {"dnd_stencil": 0, "q1_prolong": 1, "q1_restrict": 1}
+    assert gridk.LAUNCHES == {"dnd_stencil": 0, "dnd_stencil_t": 0, "q1_prolong": 1, "q1_restrict": 1}
 
 
 @pytest.mark.cuda
@@ -1174,3 +1220,47 @@ def test_csr_mult_transpose_runs_s2_on_the_explicit_transpose(cuda_device):
     torch.cuda.synchronize()
     assert pk.LAUNCHES["csr_spmm"] == 1 and pk.LAUNCHES["csr_spmv"] == 0
     assert _rel(ym.array.cpu(), torch.as_tensor((B.T @ xm.reshape(500, 3)).reshape(-1))) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ("fischer", "pod"))
+def test_guess_on_the_card_equals_the_cpu_port(cuda_device, kind):
+    """KSPGuess over five solves (the guess keeps two, so the oldest is
+    dropped) on the card and on the CPU: the same iterations, histories to
+    1e-10 relative; the stored vectors stay on the card, and an update
+    launches one product and, for Fischer with n stored pairs, n + 2 dot2
+    and 2 n triads (POD: its Gram rows on torch.mv)."""
+    i, j, v = stencil_build.stencil7_coo(4, 10, 10)
+    n = 400
+    A_sp = sp.csr_matrix((v, (i, j)), shape=(n, n))
+    k = np.arange(n)
+    rhs = [A_sp @ (np.cos(0.01 * k) + 0.01 * np.sin(0.05 * s * k)) for s in range(5)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ptt.init(args=["-ksp_type", "gmres", "-pc_type", "jacobi", "-ksp_rtol", "1e-8"],
+                 device=dev)
+        A = ptt.MatAIJ()
+        A.setSizes(n)
+        A.setPreallocationCOO(i, j)
+        A.setValuesCOO(v)
+        ksp = ptt.KSP().create()
+        ksp.setOperators(A)
+        ksp.setFromOptions()
+        guess = ksp.setGuessType(kind, 2)
+        runs = []
+        for b in rhs:
+            x = A.createVecRight()
+            ksp.solve(ptt.Vec.from_array(b), x)
+            runs.append((ksp.getIterationNumber(), np.asarray(ksp.getConvergenceHistory())))
+        out[dev] = runs
+    for (ic, hc), (ig, hg) in zip(out["cpu"], out["cuda"]):
+        assert ic == ig
+        assert np.max(np.abs(hg - hc) / hc) <= 1e-10
+    blocks = (guess._S, guess._AS) if kind == "pod" else (guess._Q, guess._X)
+    assert all(blk.is_cuda for blk in blocks) and guess._n == 2
+    chip_smoke.reset_launches()
+    guess.update(x.array, ptt.Vec.from_array(rhs[-1]).array)
+    torch.cuda.synchronize()
+    counts = {key: c for key, c in chip_smoke.launch_counts().items() if c}
+    want = {"csr_spmv": 1} if kind == "pod" else {"csr_spmv": 1, "dot2": 4, "triad": 4}
+    assert counts == want

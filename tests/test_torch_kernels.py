@@ -144,11 +144,12 @@ def test_every_csrc_source_is_built():
     assert defined == set(cuda_build.SIGNATURES)
     # (V1's window kernel counts its launches as dnd_stencil, Q1P's and Q1R's
     # dof entries as q1_prolong and q1_restrict; C1's z modes launch through
-    # C1's entry point and count apart, as cheby_update_z)
+    # C1's entry point and count apart, as cheby_update_z; V1T launches V1's
+    # generic entry and counts apart, as dnd_stencil_t)
     kernels = [k for k in (*pk.LAUNCHES, *gk.LAUNCHES, *grid_kernels.LAUNCHES,
                            *trisolve.LAUNCHES, *block_kernels.LAUNCHES, "dnd_window",
                            "q1_prolong_dof", "q1_restrict_dof")
-               if k not in ("probe", "cheby_update_z")]
+               if k not in ("probe", "cheby_update_z", "dnd_stencil_t")]
     called = {"ptt_probe", "ptt_triad_config", "ptt_dot2_config", "ptt_const_stencil_map",
               "ptt_const_stencil_config", "ptt_dnd_window_config", "ptt_trisolve_config",
               "ptt_bsr_spmv_config"} \
