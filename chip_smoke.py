@@ -356,6 +356,9 @@ IN_SOLVE = {"triad": ("triad_kernel",), "axpy_normsq": ("axpy_normsq_kernel",),
             "dnd_stencil": ("dnd_stencil_kernel", "dnd_window_kernel"),
             "q1_prolong": ("q1_prolong_kernel",), "q1_restrict": ("q1_restrict_kernel",),
             "trisolve": ("trisolve_kernel",), "csr_spmm": ("csr_spmm_kernel",),
+            "dst_scatter": ("dst_scatter_kernel",),
+            "subdomain_apply": ("subdomain_kernel", "subdomain_t_kernel"),
+            "neumann_step": ("neumann_step_kernel",),
             # the Krylov basis products of GMRES (torch.mv: cuBLAS gemv)
             "gemv": ("gemv",),
             # torch.linalg.lu_solve: the library's row swaps and triangular solves
@@ -605,6 +608,66 @@ EX45_CONTRACT = {
 }
 EX56_RTOL = 1e-4
 
+# Phase pc: the PC types of item 8 held to the reference's runs of the same
+# cases (pc_contract.py, the JAX package on the CPU in f64). Each case: the
+# operator group and the options. config2: BASELINE config 2 assembled from
+# COO (b = A cos(0.01 i), max_it 400); config2_grid: the same on its grid
+# (setStencilGrid, aij_dnd); box: the 128^3 box27 assembled as CSR (b = 1);
+# ex56: PETSc's ex56 at ne 64 (BAIJ bs 3, CG in the unpreconditioned norm,
+# max_it 200); matis: the ex59-class Q1 Poisson MatIS (PC_MATIS, b from
+# PC_MATIS_SEED); matis_nn: the same at PC_MATIS_NN (8 x 8 subdomains of the
+# same size: the reference's NN set-up, a pseudo-inverse per subdomain and
+# one MatIS product per subdomain for its coarse matrix, takes too long at
+# 16 x 16 on the contract machine).
+PC_CASES = {
+    "c2_asm": ("config2", ("-ksp_type", "gmres", "-pc_type", "asm")),
+    "c2_asm_basic8": ("config2", ("-ksp_type", "gmres", "-pc_type", "asm", "-pc_asm_blocks",
+                                  "8", "-pc_asm_type", "basic")),
+    "c2_neumann": ("config2_grid", ("-ksp_type", "gmres", "-pc_type", "ilu",
+                                    "-pc_factor_trisolve", "neumann")),
+    "c2_bjacobi_subksp": ("config2", ("-ksp_type", "fgmres", "-pc_type", "bjacobi",
+                                      "-pc_bjacobi_blocks", "4", "-sub_ksp_type", "gmres",
+                                      "-sub_pc_type", "ilu")),
+    "box_composite": ("box", ("-ksp_type", "cg", "-pc_type", "composite",
+                              "-pc_composite_type", "additive", "-pc_composite_pcs",
+                              "jacobi,sor")),
+    "box_pcksp": ("box", ("-ksp_type", "fgmres", "-pc_type", "ksp", "-ksp_ksp_type", "cg",
+                          "-ksp_pc_type", "jacobi", "-ksp_ksp_rtol", "1e-2",
+                          "-ksp_ksp_max_it", "20")),
+    "box_classical": ("box", ("-ksp_type", "cg", "-pc_type", "gamg", "-pc_gamg_type",
+                              "classical")),
+    "ex56_fieldsplit": ("ex56", ("-ksp_type", "cg", "-pc_type", "fieldsplit",
+                                 "-pc_fieldsplit_type", "additive",
+                                 "-fieldsplit_0_pc_type", "gamg", "-fieldsplit_1_pc_type",
+                                 "gamg", "-fieldsplit_2_pc_type", "gamg")),
+    "matis_bddc": ("matis", ("-ksp_type", "cg", "-pc_type", "bddc")),
+    "matis_fetidp": ("matis", ("-ksp_type", "fetidp",)),
+    "matis_nn": ("matis_nn", ("-ksp_type", "cg", "-pc_type", "nn")),
+}
+PC_RTOL = {"config2": 1e-8, "config2_grid": 1e-8, "box": 1e-8, "ex56": 1e-4, "matis": 1e-8,
+           "matis_nn": 1e-8}
+PC_MAX_IT = {"config2": 400, "config2_grid": 400, "box": 3000, "ex56": 200, "matis": 400,
+             "matis_nn": 400}
+PC_MATIS = (512, 16)           # ne, subdomains per side: 261,121 dofs, 256 of <= 1,089
+PC_MATIS_NN = (256, 8)         # 66,049 dofs, 64 subdomains of <= 1,089
+PC_MATIS_SEED = 21
+PC_HIST_TOL = 1e-6
+# NN's 143 CG steps at rtol 1e-8 are rounding-chaotic past about 45: the
+# port on the CPU holds the reference's history to 7.6e-11 over the first
+# 40 entries and drifts 2.4e-3 by the 50th (summation order; the count,
+# the reason and the true relres still agree). Its history is held over
+# those 40 entries, as ex2's GMRES(5) case holds its first 50 lines.
+PC_HIST_PREFIX = {"matis_nn": 40}
+
+
+def pc_rhs_matis(n):
+    """The MatIS cases' right-hand side: uniform on [0, 1) from PC_MATIS_SEED
+    (b = 1 is symmetric on a symmetric partition, where fetidp's dual
+    residual starts at rounding)."""
+    import numpy as np
+    return np.random.default_rng(PC_MATIS_SEED).random(n)
+
+
 DATA = Path(__file__).resolve().parent / "tests" / "data"
 FIXTURES = ("LFAT5.mtx", "m_05_05_crk.mtx", "amesos2_test_mat0.mtx")
 
@@ -612,8 +675,8 @@ FIXTURES = ("LFAT5.mtx", "m_05_05_crk.mtx", "amesos2_test_mat0.mtx")
 def kernel_modules():
     """The port's kernel wrapper modules, each with its LAUNCHES counts."""
     from petsc_tpu_torch.ops import (block_kernels, gather_kernels, grid_kernels,
-                                     pallas_kernels, trisolve)
-    return pallas_kernels, gather_kernels, grid_kernels, trisolve, block_kernels
+                                     pallas_kernels, pc_kernels, trisolve)
+    return pallas_kernels, gather_kernels, grid_kernels, trisolve, block_kernels, pc_kernels
 
 
 def reset_launches():
@@ -4932,6 +4995,413 @@ def phase_krylov(pt, smi, t_start, flush):
         raise AssertionError(f"krylov operators: {rec['kinds']}")
     return rec, row, total, grid_launches
 
+# ---------------------------------------------------------------------
+# phase pc: the PC types of item 8 held to their contracts, and the three
+# kernels of the domain-decomposition PCs (X1, D1, N1)
+# ---------------------------------------------------------------------
+
+def pc_contract():
+    """The reference's runs of phase pc's cases (pc_contract.py), case ->
+    its, reason, history, true relres, ..."""
+    return json.loads((DATA / "pc_contract.json").read_text())
+
+
+def pc_operator(pt, group, ex56_op=None):
+    """One operator group of PC_CASES through the user's entry points:
+    config 2 from COO triplets (on its grid for config2_grid), the 128^3
+    box27 by MatAIJ.from_scipy (aij_csr, S2), ex56's ne 64 CSR (phase ex56's
+    assembly, `ex56_op` = (CSR, b)) with setBlockSize(3), the ex59-class
+    MatIS from stencil_build.matis_poisson. Returns (Mat, b as numpy, the
+    host CSR of the operator)."""
+    import numpy as np
+    import scipy.sparse as sp
+    from petsc_tpu_torch.ops import stencil_build as sb
+    if group.startswith("config2"):
+        i, j, v = sb.stencil7_coo(*CONFIG2)
+        n = int(np.prod(CONFIG2))
+        A_sp = sp.csr_matrix((v, (i, j)), shape=(n, n))
+        A = pt.MatAIJ()
+        A.setSizes(n)
+        if group == "config2_grid":
+            A.setStencilGrid(CONFIG2)
+        A.setPreallocationCOO(i, j)
+        A.setValuesCOO(v)
+        return A, A_sp @ np.cos(0.01 * np.arange(n)), A_sp
+    if group == "box":
+        N = KRYLOV_BOX_N
+        bi, bj, bv = box27_coo(N)
+        A_sp = sp.csr_matrix((bv, (bi, bj)), shape=(N ** 3, N ** 3))
+        return pt.MatAIJ.from_scipy(A_sp), np.ones(N ** 3), A_sp
+    if group == "ex56":
+        A_sp, b_np = ex56_op
+        A = pt.MatAIJ.from_scipy(A_sp)
+        A.setBlockSize(3)
+        return A, b_np, A_sp
+    ne, nsub = PC_MATIS if group == "matis" else PC_MATIS_NN
+    mats, maps, n = sb.matis_poisson(ne, nsub)
+    M = pt.MatIS.create(n, mats, maps)
+    rows, cols, vals = [], [], []
+    for Ai, gi in zip(mats, maps):
+        c = sp.coo_matrix(Ai)
+        rows.append(gi[c.row])
+        cols.append(gi[c.col])
+        vals.append(c.data)
+    A_sp = sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+                         shape=(n, n))
+    return M, pc_rhs_matis(n), A_sp
+
+
+def pc_ksp(pt, case, A, device=None):
+    """The case's KSP: init() with its options, rtol and max_it, the
+    operator, ex56's unpreconditioned norm, setFromOptions."""
+    group, args = PC_CASES[case]
+    pt.init(args=[*args, "-ksp_rtol", str(PC_RTOL[group]), "-ksp_max_it", str(PC_MAX_IT[group])],
+            **({} if device is None else {"device": device}))
+    ksp = pt.KSP().create()
+    ksp.setOperators(A)
+    if group == "ex56":
+        ksp.setNormType("unpreconditioned")
+    ksp.setFromOptions()
+    return ksp
+
+
+def pc_solve(pt, case, op, device=None):
+    """One case's set-up (timed on the host) and first solve, every launch
+    count set to 0 just before the solve and read just after: returns
+    (ksp, b, x, launches, set-up seconds)."""
+    import torch
+    cuda = device is None
+    A, b_np, _ = op
+    ksp = pc_ksp(pt, case, A, device)
+    b = pt.Vec.from_array(b_np)
+    x = A.createVecRight()
+    t0 = time.perf_counter()
+    ksp.setUp()
+    if ksp.getType() == "fetidp":      # its set-up comes with the first solve
+        from petsc_tpu_torch.ksp import fetidp
+        fetidp.tables_for(ksp, b.array)
+    if cuda:
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    ksp.solve(b, x)
+    if cuda:
+        torch.cuda.synchronize()
+    return ksp, b, x, launch_counts(), setup_s
+
+
+def _mg_apply_launches(nlev, product0="csr_spmv"):
+    """One V-cycle of Chebyshev(2, 2) on nlev levels (mg_launches_needed's
+    per-application part): 4 C1, 7 products (level 0's on product0, its P
+    and R on S2) and 2 K2 on each level but the coarsest."""
+    fine = nlev - 1
+    n = {"cheby_update": 4 * fine, "csr_spmv": 7 * fine, "triad": 2 * fine}
+    if product0 != "csr_spmv" and fine:
+        n["csr_spmv"] -= 5
+        n[product0] = 5
+    return n
+
+
+def pc_launches_needed(case, its, reason, detail):
+    """The launches of one solve of a phase pc case, derived from the
+    Krylov method's products and PC applications per iteration and each
+    PC's kernels per application (petsc_tpu_torch/pc/*.py, ksp/*.py).
+    `detail`: the case's data-dependent counts (the PCKSP inner its per
+    application, the GAMG levels of each sub-PC). Returns {kernel: n}."""
+    import math
+    group, _ = PC_CASES[case]
+    n = {}
+
+    def add(k, v, times=1):
+        if v * times:
+            n[k] = n.get(k, 0) + v * times
+
+    def add_all(d, times=1):
+        for k, v in d.items():
+            add(k, v, times)
+
+    prod = {"config2": "csr_spmv", "config2_grid": "dnd_stencil", "box": "csr_spmv",
+            "ex56": "bsr_spmv"}.get(group)
+    per_pc = {
+        "c2_asm": {"gather": 1, "trisolve": 2, "dst_scatter": 1},
+        "c2_asm_basic8": {"gather": 1, "trisolve": 2, "dst_scatter": 1},
+        "c2_neumann": {"dnd_stencil": 12, "triad": 6, "neumann_step": 7},
+        "c2_bjacobi_subksp": {"trisolve": 2},
+        "box_composite": {"trisolve": 2, "triad": 1},
+        "matis_bddc": {"subdomain_apply": 3, "dst_scatter": 2},
+        "matis_nn": {"subdomain_apply": 2, "dst_scatter": 2, "triad": 1},
+    }
+    if case == "matis_fetidp":
+        conv = reason.startswith("CONVERGED")
+        if its == 0:
+            return {"dst_scatter": 7, "subdomain_apply": 7, "dot2": 2, "triad": 1}
+        return {"subdomain_apply": 7 + 4 * its, "dst_scatter": 8 + 5 * its,
+                "dot2": 2 + 3 * its, "triad": 2 * its + (its - 1 if conv else its) + 1}
+    if group.startswith("config2"):
+        # GMRES(30) / FGMRES: one product, one PC and one K3 per step; a new
+        # cycle's b - A x; GMRES's B r at each cycle's start
+        cycles = max(1, math.ceil(its / 30))
+        add(prod, its + cycles - 1)
+        add("axpy_normsq", its)
+        napply = its + (cycles if PC_CASES[case][1][1] == "gmres" else 0)
+        add_all(per_pc[case], napply)
+        return n
+    # CG: one product, two K2, one K3 and two K4 per iteration, one K4 first
+    cg = {"triad": 2 * its, "axpy_normsq": its, "dot2": 1 + 2 * its}
+    if case == "box_pcksp":
+        # FGMRES (one product and K3 per step, no PC at a cycle's start) around
+        # an inner CG + jacobi (CG's launches per its inner iterations)
+        cycles = max(1, math.ceil(its / 30))
+        add("csr_spmv", its + cycles - 1)
+        add("axpy_normsq", its)
+        for k in detail["inner_its"]:
+            add_all({"csr_spmv": k, "triad": 2 * k, "axpy_normsq": k, "dot2": 1 + 2 * k})
+        return n
+    add_all(cg)
+    napply = its + 1
+    if group in ("matis", "matis_nn"):
+        add_all({"subdomain_apply": 1, "dst_scatter": 1}, its)
+        add_all(per_pc[case], napply)
+    elif case == "box_classical":
+        add("csr_spmv", its)
+        add_all(_mg_apply_launches(detail["levels"][0]), napply)
+    elif case == "ex56_fieldsplit":
+        add("bsr_spmv", its)
+        add_all({"gather": 3, "dst_scatter": 3}, napply)
+        for nlev in detail["levels"]:
+            add_all(_mg_apply_launches(nlev), napply)
+    else:
+        add(prod, its)
+        add_all(per_pc[case], napply)
+    return n
+
+
+def pc_detail(case, ksp):
+    """The counts pc_launches_needed takes from the solved case."""
+    impl = ksp.getPC()._impl
+    if case == "box_pcksp":
+        return {"inner_its": list(ksp.getPC().device_data()["inner_its"])}
+    if case == "box_classical":
+        return {"levels": [len(impl.levels)]}
+    if case == "ex56_fieldsplit":
+        return {"levels": [len(p._impl.levels) for p in impl.sub_pcs]}
+    return {}
+
+
+def check_pc(case, ksp, b, x, A_sp, contract):
+    """The solve against the reference's run of the case: its and reason,
+    the history to PC_HIST_TOL relative where an entry lies above the
+    rounding level (1e-11 of the initial norm: below it, 1e-11 of the
+    initial norm absolute; NN over its first PC_HIST_PREFIX entries), a
+    true relative residual <= 10x the reference's, finite values of the
+    right shape."""
+    import numpy as np
+    import torch
+    xh = x.array.double().cpu().numpy()
+    bh = b.array.double().cpu().numpy()
+    if xh.shape != bh.shape or not bool(torch.isfinite(x.array).all()):
+        raise AssertionError(f"pc {case}: solution of shape {xh.shape} or not finite")
+    want = contract[case]
+    h, hw = ksp.getConvergenceHistory(), np.asarray(want["history"])
+    got = {"its": ksp.getIterationNumber(), "reason": ksp.getConvergedReason().name,
+           "ksp_type": ksp.getType(), "pc_type": ksp.getPC().getType(),
+           "true_relres": float(np.linalg.norm(bh - A_sp @ xh) / np.linalg.norm(bh)),
+           "history_len": len(h)}
+    ok_hist = len(h) == len(hw)
+    if ok_hist:
+        k = PC_HIST_PREFIX.get(case, len(hw))
+        got["history_rel_err"] = float(np.max(np.abs(h[:k] - hw[:k]) / np.abs(hw[:k])))
+        got["history_err_of_initial"] = float(np.max(np.abs(h[:k] - hw[:k])) / hw[0])
+        got["history_entries_held"] = k
+        ok_hist = bool(np.all(np.abs(h[:k] - hw[:k]) <= PC_HIST_TOL * np.abs(hw[:k])
+                              + 1e-11 * hw[0]))
+    if got["its"] != want["its"] or got["reason"] != want["reason"] or not ok_hist \
+            or not got["true_relres"] <= 10 * want["true_relres"]:
+        raise AssertionError(f"pc {case} against the reference: got {got}, want its "
+                             f"{want['its']}, {want['reason']}, history to {PC_HIST_TOL}, "
+                             f"true relres <= 10 x {want['true_relres']}")
+    return got
+
+
+def exact_pc_launches(case, launches, its, reason, detail):
+    need = pc_launches_needed(case, its, reason, detail)
+    wrong = {k: (launches.get(k, 0), v) for k, v in need.items() if launches.get(k, 0) != v}
+    others = {k: v for k, v in launches.items() if v and k not in need}
+    if wrong or others:
+        raise AssertionError(f"pc {case}: launches (got, need) {wrong}; others {others}")
+    return need
+
+
+def pc_kernel_row(name, dtype, fn, plain, library_fn, nbytes, flops, flush, exact, library):
+    """One kernel's row: its result against its plain version on the same
+    inputs (equal bits where `exact`, else 1e-12 / 1e-5 relative), and the
+    kernel, the plain version and the library call timed after the clean
+    flush."""
+    import torch
+    y = fn()
+    yp = plain()
+    torch.cuda.synchronize()
+    err = float((y.double() - yp.double()).abs().max())
+    rel = rel_err(y, yp)
+    if (exact and not torch.equal(y, yp)) or (not exact and rel > TOL[dtype]):
+        raise AssertionError(f"{name}: differs from its plain version ({err}, {rel})")
+    ms = time_ms(fn, flush)
+    plain_ms = time_ms(plain, flush, reps=5)
+    library_ms = time_ms(library_fn, flush) if library_fn is not None else None
+    bms, by = bound(nbytes, flops, dtype)
+    return {"name": name, "dtype": dtype, "equal_bits": bool(torch.equal(y, yp)),
+            "max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": library, "bound_ms": bms, "bound_by": by,
+            "share_of_bound": bms / ms, "bytes": nbytes}
+
+
+def x1_bytes(tab, itemsize):
+    """X1's bytes: ptr, sel (and w) read once, y written once, the 32-byte
+    sectors of src that sel touches read once."""
+    import torch
+    sectors = torch.unique(tab.sel.long() * itemsize // 32).numel()
+    return ((tab.n + 1) * 4 + tab.entries * 4 + (tab.entries * itemsize if tab.w is not None
+                                                 else 0) + tab.n * itemsize + sectors * 32)
+
+
+def pc_kernel_rows(flush, tabs):
+    """X1 in its three modes, D1 in both forms and N1 at the path's shapes,
+    f64: X1 add on the ex59-class MatIS's scatter (the local buffer of
+    256 x 1,089 to 261,121 rows), set on config 2's ASM restrict scatter,
+    signed on fetidp's jump rows (B); D1 plain on the MatIS's Ab (the
+    2.43 GB table), transposed on BDDC's Phi^T restriction; N1 at config
+    2's length. Library calls: X1 index_add_ (atomic), D1 torch.bmm on the
+    same padded tables, N1 none."""
+    import torch
+    from petsc_tpu_torch.ops import pc_kernels as pck
+    g = torch.Generator(device="cuda").manual_seed(21)
+    rows = {}
+
+    def rnd(n):
+        return torch.rand(n, dtype=torch.float64, device="cuda", generator=g) - 0.5
+
+    for label, tab in (("add", tabs["x1_add"]), ("set", tabs["x1_set"]),
+                       ("signed", tabs["x1_signed"])):
+        src = rnd(tab.nsrc)
+        out = torch.zeros(tab.n, dtype=torch.float64, device="cuda") if label == "set" else None
+        dst = torch.repeat_interleave(torch.arange(tab.n, device="cuda"),
+                                      (tab.ptr[1:] - tab.ptr[:-1]).long())
+        sel = tab.sel.long()
+
+        def kern(tab=tab, src=src, out=out):
+            return pck.dst_scatter(tab, src, out=None if out is None else out.clone())
+
+        def plain(tab=tab, src=src, out=out):
+            return pck.dst_scatter_plain(tab, src, None if out is None else out.clone())
+
+        def lib(tab=tab, src=src, dst=dst, sel=sel):
+            v = src[sel] if tab.w is None else tab.w * src[sel]
+            return torch.zeros(tab.n, dtype=src.dtype, device="cuda").index_add_(0, dst, v)
+
+        r = pc_kernel_row("dst_scatter", "float64", kern, plain, lib, x1_bytes(tab, 8),
+                          tab.entries * (2 if tab.w is not None else 1), flush, True,
+                          "index_add_ (atomic) after the gather")
+        r.update(mode=label, entries=tab.entries, rows=tab.n)
+        rows[f"dst_scatter_{label}"] = r
+    for label, (M, tab, transposed) in (("plain", tabs["d1_plain"]),
+                                        ("transposed", tabs["d1_t"])):
+        x = rnd(int(tab.G.max()) + 1)
+        ns, R, C = M.shape
+        nr = tab.nr.long() if tab.nr is not None else torch.full((ns,), R, device="cuda")
+        nc = tab.nc.long() if tab.nc is not None else torch.full((ns,), C, device="cuda")
+        real = int((nr * nc).sum())
+        nbytes = real * 8 + 2 * tab.G.numel() * 4 + tab.G.numel() * 8 + ns * (C if transposed
+                                                                              else R) * 8
+
+        def kern(M=M, tab=tab, x=x, t=transposed):
+            return pck.subdomain_apply(M, tab, x, transposed=t)
+
+        def plain(M=M, tab=tab, x=x, t=transposed):
+            return pck.subdomain_apply_plain(M, tab, x, t)
+
+        def lib(M=M, tab=tab, x=x, t=transposed):
+            tv = x[tab.G.long()] if tab.w is None else tab.w * x[tab.G.long()]
+            return torch.bmm(M.transpose(1, 2) if t else M, tv.unsqueeze(-1))
+
+        r = pc_kernel_row("subdomain_apply", "float64", kern, plain, lib, nbytes, 2 * real,
+                          flush, False, "torch.bmm on the same padded tables, after the gather")
+        r.update(form=label, shape=list(M.shape), real_entries=real)
+        rows[f"subdomain_apply_{label}"] = r
+    n = tabs["n1"]
+    d, y, w = rnd(n), rnd(n), rnd(n)
+    r = pc_kernel_row("neumann_step", "float64", lambda: pck.neumann_step(d, y, w),
+                      lambda: pck.neumann_step_plain(d, y, w), None, 4 * n * 8, 2 * n, flush,
+                      True, "none: no single PyTorch call computes dinv * (y - w)")
+    r.update(n=n)
+    rows["neumann_step"] = r
+    return rows
+
+
+def phase_pc(pt, smi, t_start, flush, ex56_op, gmres_ilu_ms):
+    """Phase pc: each case of PC_CASES through the user's entry points, its
+    first solve held to the reference's contract with its launches counted
+    exactly; the warm time (best of 3), one profiled solve (busy ms and
+    share) and the host set-up seconds; then the rows of X1, D1 and N1 on
+    the path's tables. Returns (the record, the kernel rows, the launches
+    summed over the cases' first solves, the per-case launches)."""
+    import torch
+    contract = pc_contract()
+    cases, total, per_case, tabs = {}, {}, {}, {}
+    groups = {}
+    for case, (group, _) in PC_CASES.items():
+        groups.setdefault(group, []).append(case)
+    for group, names in groups.items():
+        t0 = time.perf_counter()
+        op = pc_operator(pt, group, ex56_op)
+        torch.cuda.synchronize()
+        op_s = time.perf_counter() - t0
+        for case in names:
+            ksp, b, x, launches, setup_s = pc_solve(pt, case, op)
+            got = check_pc(case, ksp, b, x, op[2], contract)
+            detail = pc_detail(case, ksp)
+            need = exact_pc_launches(case, launches, got["its"], got["reason"], detail)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            per_case[case] = launches
+            ms = warm_ms(ksp, b, x)
+            prof = profile_solve(ksp, b, x, ms)
+            check_pc(case, ksp, b, x, op[2], contract)
+            cases[case] = {**got, "operator_s": op_s, "host_setup_s": setup_s,
+                           "warm_ms_best_of_3": ms, "ms_per_it": ms / max(got["its"], 1),
+                           "device_busy_ms": prof["device_busy_ms"],
+                           "busy_share": prof["busy_share_of_warm"],
+                           "spins_seen_before_and_after": prof["spins_seen_before_and_after"],
+                           "launches": need, "detail": detail,
+                           "by_kernel": prof["by_kernel"][:6],
+                           "pc_meta_kind": ksp.getPC().meta[0]}
+            if case == "c2_asm":
+                tabs["x1_set"] = ksp.getPC().device_data()["scatter"]
+            if case == "c2_neumann":
+                tabs["n1"] = int(op[2].shape[0])
+                cases[case]["gmres_ilu_t1_warm_ms_this_run"] = gmres_ilu_ms
+                cases[case]["factor_kinds"] = [ksp.getPC().meta[1][0], ksp.getPC().meta[2][0]]
+            if case == "matis_bddc":
+                d = ksp.getPC().device_data()
+                tabs["d1_t"] = (d["Phi"], d["restrict"], True)
+            if case == "matis_fetidp":
+                tabs["x1_signed"] = ksp._fetidp[1]["B"]
+            if group == "matis" and "d1_plain" not in tabs:
+                md = op[0].device_data()
+                tabs["d1_plain"] = (md["Ab"], md["d1"], False)
+                tabs["x1_add"] = md["x1"]
+            del ksp, b, x
+            torch.cuda.empty_cache()
+        if group == "matis":
+            rows = pc_kernel_rows(flush, tabs)
+        del op
+        torch.cuda.empty_cache()
+    rec = {"phase": "pc", "nvidia_smi": smi, "cases": cases, "kernel_checks": rows,
+           "matis": {"ne_nsub": list(PC_MATIS), "nn_ne_nsub": list(PC_MATIS_NN),
+                     "table_GB_each": 256 * 1089 * 1089 * 8 / 1e9},
+           "seconds_so_far": time.perf_counter() - t_start}
+    return rec, rows, total, per_case
+
+
 
 def main():
     import torch
@@ -5192,6 +5662,7 @@ def main():
     # same GAMG solve ----
     sb_rec, sb_launches, sb_prof = phase_sbaij(pt, ne64, smi, t_start)
     emit(sb_rec)
+    ex56_op = ne64[:2]           # the CSR and b, for phase pc's fieldsplit case
     del ne64
 
     # ---- PETSc's ex45 (DMDA, KSP.setDM, PCMG from the DM and GAMG) at 129^3,
@@ -5204,6 +5675,16 @@ def main():
     # the 128^3 box27 stencil (S1) ----
     kr_rec, v1t_main, kr_launches, kr_grid_launches = phase_krylov(pt, smi, t_start, flush)
     emit(kr_rec)
+    torch.cuda.empty_cache()
+
+    # ---- the PC types of item 8 against their contracts: config 2 (ASM,
+    # the Neumann trisolve, bjacobi), the 128^3 box27 CSR (composite, PCKSP,
+    # classical GAMG), ex56 ne 64 (fieldsplit), the ex59-class MatIS (BDDC,
+    # fetidp, NN); X1, D1 and N1 on the path's tables ----
+    pc_rec, pc_rows, pc_launches, pc_case_launches = phase_pc(pt, smi, t_start, flush, ex56_op,
+                                                              gm_ms)
+    emit(pc_rec)
+    del ex56_op
     torch.cuda.empty_cache()
 
     # ---- bench.py's keys from the card: bench_gpu.py in a process of its own ----
@@ -5247,6 +5728,13 @@ def main():
                      mk_launches["maij"]),
         "dnd_stencil_t": ("dnd_stencil.cu", "petsc_tpu/mat/aij.py:1438",
                           {"dnd_stencil_t": v1t_main}, kr_grid_launches),
+        "dst_scatter": ("dst_scatter.cu", "petsc_tpu/pc/bddc.py:138",
+                        {"dst_scatter": pc_rows["dst_scatter_add"]}, pc_launches),
+        "subdomain_apply": ("subdomain.cu", "petsc_tpu/pc/bddc.py:127",
+                            {"subdomain_apply": pc_rows["subdomain_apply_plain"]}, pc_launches),
+        "neumann_step": ("neumann_step.cu", "petsc_tpu/pc/factor_pc.py:333",
+                         {"neumann_step": pc_rows["neumann_step"]},
+                         pc_case_launches["c2_neumann"]),
     }
     table = []
     for name, (src, replaces, measured, counts) in rows.items():
@@ -5276,7 +5764,8 @@ def main():
                                                sd_launches["create_stencil"][name],
                                            "matsolve": sd_launches["matsolve"][name],
                                            "sbaij": sb_launches[name],
-                                           "krylov": kr_launches.get(name, 0)},
+                                           "krylov": kr_launches.get(name, 0),
+                                           "pc": pc_launches.get(name, 0)},
                       "in_solve_us": {path: p["in_solve"].get(name, {}).get("us_per_launch")
                                       for path, p in (("solve", prof), ("aij", prof_a),
                                                       ("mg", prof_m), ("gamg", prof_g),
@@ -5428,6 +5917,18 @@ def main():
     a1c.update(also_replaces="petsc_tpu/ksp/cheby.py:36-37, :42-43, :79-80 (C1z's step "
                              "tail, as A1's epilogue)",
                library="none: no single PyTorch call computes the product and the step")
+    # X1's row is the add mode on the ex59-class MatIS's scatter, D1's the
+    # plain form on its Ab; the other modes and forms stand beside them,
+    # and the launches of each phase pc case
+    for name, main_key, other_keys in (
+            ("dst_scatter", "dst_scatter_add", ("dst_scatter_set", "dst_scatter_signed")),
+            ("subdomain_apply", "subdomain_apply_plain", ("subdomain_apply_transposed",)),
+            ("neumann_step", "neumann_step", ())):
+        r = next(r for r in table if r["name"] == name)
+        m = pc_rows[main_key]
+        r.update({k: m[k] for k in m if k not in r and k != "name"})
+        r["others"] = [pc_rows[k] for k in other_keys]
+        r["launches_by_pc_case"] = {c: v.get(name, 0) for c, v in pc_case_launches.items()}
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -61,7 +61,10 @@ from .pc.pc import PC
 from .pc import mg as _mg  # registers PC mg and the pc_mg binder
 from .pc import gamg as _gamg  # registers PC gamg and hmg
 from .pc import factor_pc as _factor_pc  # registers PC ilu, icc, lu, cholesky, bjacobi
-from .pc import more_pc as _more_pc  # registers PC sor
+from .pc import more_pc as _more_pc  # registers PC sor, asm, composite, ksp, fieldsplit
+from .pc import extras_pc as _extras_pc  # registers the other PCs of extras_pc.py
+from .pc import r3_pc as _r3_pc  # registers PC qr, spai, nn
+from .pc import bddc as _bddc  # registers PC bddc
 from .ksp.ksp import KSP
 from .dm.dm import DM
 from .dm.da import DMDA

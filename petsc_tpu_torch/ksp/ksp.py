@@ -32,6 +32,7 @@ from .bcgs import solve_bcgs, solve_ibcgs
 from .cheby import solve_chebyshev
 from .common import KSPConfig
 from .dgmres import solve_dgmres_host
+from .fetidp import solve_fetidp_host
 from .gltr import solve_gltr
 from .gmres import solve_fgmres, solve_gmres
 from .idr import solve_idr
@@ -302,6 +303,14 @@ class KSP(PObject):
             res = common.SolveResult(xr, its, rnorm, reason, np.asarray(hist), rnorm0)
         elif mixed and mixed[0]:
             res = self._solve_ir(cfg, mixed, A, b.array, x0)
+        elif hasattr(self.pc._impl, "presolve"):
+            # PCPreSolve/PCPostSolve (the Eisenstat trick): iterate on the
+            # transformed operator, recover x afterwards
+            pci = self.pc._impl
+            At = operator.bind(*pci.operator_meta_data())
+            res = impl["fn"](At, B, pci.presolve(b.array), x0, self.rtol, self.abstol,
+                             self.divtol, cfg)
+            res = res._replace(x=pci.postsolve(res.x))
         else:
             res = impl["fn"](A, B, b.array, x0, self.rtol, self.abstol, self.divtol, cfg)
         if res.x.is_cuda:
@@ -513,8 +522,7 @@ def _lgmres_extras(ksp):
 
 
 # The names, default norms, extras, right-PC support and host driving of
-# the reference's registry (petsc_tpu/ksp/ksp.py:607-821), fetidp aside (it
-# needs BDDC). The aliases are the reference's: the pipelined variants
+# the reference's registry (petsc_tpu/ksp/ksp.py:607-821). The aliases are the reference's: the pipelined variants
 # (pipecg2, pipecgrr, pipelcg, pipeprcg, groppcg, pipecr, pipefcg,
 # pipebcgs, pipegcr, pgmres, pipefgmres) take their base method's
 # recurrence; fbcgs and fbcgsr are bcgs (the same iterates for a fixed
@@ -549,6 +557,7 @@ register_ksp("tcqmr", solve_tcqmr)
 register_ksp("tsirm", solve_tsirm)
 register_ksp("dgmres", solve_dgmres_host, host_driven=True)
 register_ksp("agmres", solve_dgmres_host, host_driven=True)
+register_ksp("fetidp", solve_fetidp_host, host_driven=True)
 register_ksp("stcg", _tr.solve_stcg, extras=_stcg_extras)
 register_ksp("nash", _tr.solve_stcg, extras=_stcg_extras)
 register_ksp("qcg", _tr.solve_stcg, extras=_stcg_extras)

@@ -15,8 +15,11 @@ in how they run on the card:
   A is applied component by component through its own binder.
 * MatSchurComplement's inner solve is the port's KSP loop (one solve per
   product), where the reference nests a compiled Krylov loop.
-MATIS's apply stays a gather, a batched product and an ``index_add_``
-scatter: no card path calls it yet (BDDC, ROADMAP item 8, will).
+* MATIS's apply on the card is the hand kernels D1 (the batched local
+  products on the padded tables, :func:`ops.pc_kernels.subdomain_apply`)
+  and X1 (the scatter-add by destination, no atomics,
+  :func:`ops.pc_kernels.dst_scatter`); the gather, ``einsum`` and
+  ``index_add_`` stay as its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from .. import config
 from ..ops import operator
+from ..ops import pc_kernels
 from ..ops.pallas_kernels import csr_spmm
 from ..sys.error import Error
 from ..vec.vec import InsertMode, Vec
@@ -444,29 +448,34 @@ class MatPreallocator(_WrapperMat):
 class MatIS(_WrapperMat):
     """MATIS (impls/is/matis.c): the unassembled domain-decomposition
     format A = sum_i R_i^T A_i R_i. The subdomain matrices are padded to
-    one size and stacked dense (nsub, nl, nl); the apply is a gather, one
-    batched product and an ``index_add_`` scatter (the reference's scatter-
-    add; ROADMAP item 8 keeps it for BDDC)."""
+    one size and stacked dense (nsub, nl, nl), as the reference lays them
+    out; the apply is D1 (each subdomain's product on its own rows and
+    columns, into an (nsub, nl) local buffer) and X1 (the scatter-add of the
+    local buffer by global row). The tables of both are built here, once."""
 
     @classmethod
     def create(cls, size, local_mats, l2g_maps, comm=None):
         M = cls(comm)
         M.setSizes((size, size) if np.isscalar(size) else size)
         nsub = len(local_mats)
-        nl = max(len(g) for g in l2g_maps)
+        ks = np.asarray([len(g) for g in l2g_maps], dtype=np.int64)
+        nl = int(ks.max())
         Ab = np.zeros((nsub, nl, nl))
         G = np.zeros((nsub, nl), dtype=np.int64)
-        valid = np.zeros((nsub, nl))
         for i, (Ai, gi) in enumerate(zip(local_mats, l2g_maps)):
             Ai = Ai.toarray() if hasattr(Ai, "toarray") else np.asarray(Ai)
             k = len(gi)
             Ab[i, :k, :k] = Ai
             G[i, :k] = np.asarray(gi, dtype=np.int64)
-            valid[i, :k] = 1.0
-        dev = config.device()
+        valid = np.arange(nl)[None, :] < ks[:, None]
+        dev, rd = config.device(), config.real_dtype()
         M._meta_v = ("mat_is", nsub, nl, M.row_layout.Npad)
         M._data_v = {"Ab": _tensor(Ab), "G": torch.as_tensor(G, device=dev),
-                     "valid": _tensor(valid)}
+                     "valid": _tensor(valid.astype(np.float64)),
+                     "d1": pc_kernels.subdomain_table(G, nr=ks, nc=ks, device=dev, dtype=rd),
+                     "x1": pc_kernels.scatter_table(G[valid], np.flatnonzero(valid),
+                                                    M.row_layout.Npad, nsub * nl,
+                                                    device=dev, dtype=rd)}
         M._locals = (local_mats, l2g_maps)
         return M
 
@@ -497,15 +506,21 @@ class MatIS(_WrapperMat):
         return cnt
 
 
-def _bind_mat_is(meta, data):
-    _, nsub, nl, npad = meta
+def mat_is_plain(data, x):
+    """The reference's apply: gather, batched product, scatter-add."""
     Ab, G, valid = data["Ab"], data["G"], data["valid"]
+    xl = x[G] * valid
+    yl = torch.einsum("sij,sj->si", Ab, xl)
+    y = torch.zeros(data["x1"].n, dtype=x.dtype, device=x.device)
+    return y.index_add_(0, G.reshape(-1), (yl * valid).reshape(-1))
 
+
+def _bind_mat_is(meta, data):
     def mult(x):
-        xl = x[G] * valid
-        yl = torch.einsum("sij,sj->si", Ab, xl)
-        y = torch.zeros(npad, dtype=x.dtype, device=x.device)
-        return y.index_add_(0, G.reshape(-1), (yl * valid).reshape(-1))
+        if x.device.type == "cpu":
+            return mat_is_plain(data, x)
+        yl = pc_kernels.subdomain_apply(data["Ab"], data["d1"], x)
+        return pc_kernels.dst_scatter(data["x1"], yl.view(-1))
 
     return operator.Op(mult=mult)
 

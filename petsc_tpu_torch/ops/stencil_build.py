@@ -234,3 +234,51 @@ def stencil7_coo(nz, ny, nx, jitter=True):
         cols.append(c[ok])
         vals.append(v[ok])
     return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
+
+
+# Q1 bilinear element Laplacian on a unit square element, nodes (SW, SE, NW, NE)
+Q1_KE = np.array([[4.0, -1.0, -1.0, -2.0],
+                  [-1.0, 4.0, -2.0, -1.0],
+                  [-1.0, -2.0, 4.0, -1.0],
+                  [-2.0, -1.0, -1.0, 4.0]]) / 6.0
+
+
+def matis_poisson(ne, nsub):
+    """Q1 Poisson on ne x ne elements of the unit square, the Dirichlet
+    boundary eliminated, cut into nsub x nsub subdomains of (ne / nsub)^2
+    elements with their local Neumann matrices: the unassembled MATIS input
+    of PETSc's src/ksp/ksp/tutorials/ex59.c class. Each subdomain's dofs are
+    numbered in order of first appearance over its elements (row by row)
+    and their nodes (SW, SE, NW, NE), as the reference's test function
+    numbers them. Returns (local matrices, local-to-global maps, global
+    size), numpy arrays."""
+    nn = ne + 1
+    inner = np.full(nn * nn, -1, dtype=np.int64)
+    ii, jj = np.meshgrid(np.arange(1, ne), np.arange(1, ne), indexing="xy")
+    inner[(jj * nn + ii).ravel()] = np.arange((ne - 1) ** 2)
+    e = ne // nsub
+    ei, ej = np.meshgrid(np.arange(e), np.arange(e), indexing="xy")
+    ei, ej = ei.ravel(), ej.ravel()
+    mats, maps = [], []
+    for sy in range(nsub):
+        for sx in range(nsub):
+            x0, y0 = sx * e + ei, sy * e + ej
+            nodes = np.stack([y0 * nn + x0, y0 * nn + x0 + 1, (y0 + 1) * nn + x0,
+                              (y0 + 1) * nn + x0 + 1], axis=1)       # (elements, 4)
+            glob = inner[nodes]
+            flat = glob.ravel()
+            keep = flat >= 0
+            uniq, first = np.unique(flat[keep], return_index=True)
+            order = uniq[np.argsort(first)]                          # first appearance
+            loc = np.full((ne - 1) ** 2, -1, dtype=np.int64)
+            loc[order] = np.arange(len(order))
+            lg = np.where(glob >= 0, loc[np.maximum(glob, 0)], -1)
+            a = np.repeat(lg, 4, axis=1).ravel()
+            b = np.tile(lg, (1, 4)).ravel()
+            v = np.tile(Q1_KE.ravel(), len(ei))
+            ok = (a >= 0) & (b >= 0)
+            k = len(order)
+            A = np.bincount(a[ok] * k + b[ok], weights=v[ok], minlength=k * k).reshape(k, k)
+            mats.append(A)
+            maps.append(order)
+    return mats, maps, (ne - 1) ** 2

@@ -11,14 +11,18 @@ on one device:
   ``-pc_factor_transpose_solve`` adds the transpose's sweeps.
 * lu/cholesky: SuperLU's factors with fill, applied by the same sweeps
   between the row and column permutations (the K8 gather on the card).
+* ``-pc_factor_trisolve neumann`` (``-pc_factor_trisolve_sweeps s``,
+  default 6): the truncated Neumann series of the strict triangular
+  factors, L and U as MatAIJs (on the pmat's grid when it has one: V1 on
+  the factors' planes; else S2), y <- b - L y on K2 and
+  z <- dinv (y - U z) on N1.
 * bjacobi: dropping every entry outside the diagonal blocks and factoring
   what is left gives PETSc's bjacobi with its sub-PC; the level schedule
   then solves the blocks together. Sub-PCs ilu, icc, lu, cholesky and
-  jacobi.
-
-Not ported yet (ROADMAP item 8): ``-pc_factor_trisolve neumann`` and
-bjacobi with an iterative ``-sub_ksp_type``; the distributed bjacobi is
-item 12.
+  jacobi; with ``-sub_ksp_type`` and another sub-PC, an inner KSP (prefix
+  ``sub_``) on the block-diagonal matrix, its max_it above 1000 cut to 50.
+  As in the reference, ilu, icc, lu and cholesky take precedence over
+  ``-sub_ksp_type`` (ROADMAP section 3). The distributed bjacobi is item 12.
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ import torch
 
 from .. import config
 from ..mat import factor
-from ..ops import operator, trisolve
+from ..ops import operator, pc_kernels, trisolve
 from ..ops.gather_kernels import gather
+from ..ops.pallas_kernels import triad
 from ..sys.error import Error
 from .pc import PC
 
@@ -86,11 +91,10 @@ class _PCILU(_PCFactorBase):
             L, U, dinv, perm_r, perm_c = factor.spilu_factors(
                 self.pc.pmat.to_scipy(), self.drop_tol, self.fill_factor)
             return self._plan(L, U, dinv, (perm_r, perm_c))
-        if self.pc.opt("get_string", "pc_factor_trisolve", default="levels") == "neumann":
-            raise NotImplementedError("-pc_factor_trisolve neumann is not ported to "
-                                      "petsc_tpu_torch (ROADMAP item 8)")
         indptr, indices, vals = self.pc.pmat.getValuesCSR()
         L, U, dinv = factor.iluk(indptr, indices, vals, self.levels)
+        if self.pc.opt("get_string", "pc_factor_trisolve", default="levels") == "neumann":
+            return _neumann_plan(self.pc, L, U, dinv)
         return self._plan(L, U, dinv)
 
 
@@ -123,9 +127,6 @@ class _PCBJacobi:
             self.sub_ksp_type = kt
 
     def setup(self):
-        if self.sub_ksp_type:
-            raise NotImplementedError(f"bjacobi with -sub_ksp_type {self.sub_ksp_type} is not "
-                                      "ported to petsc_tpu_torch (ROADMAP item 8)")
         A = self.pc.pmat
         m = A.row_layout.N
         nb = self.nblocks or 1
@@ -148,6 +149,8 @@ class _PCBJacobi:
             L, U, dinv, pr, pc_ = factor.splu_factors(sp.csr_matrix((bv, bj, bi), shape=(m, m)))
             tail, data = trisolve.make_trisolve_plan(L, U, dinv)
             return _with_perm(tail, data, (pr, pc_), npad)
+        if self.sub_ksp_type:
+            return self._sub_ksp(bi, bj, bv, m)
         if self.sub_type == "jacobi":
             d = np.zeros(m)
             hit = bj == rows[keep]
@@ -156,6 +159,77 @@ class _PCBJacobi:
             return ("pc_jacobi",), {"inv": torch.as_tensor(inv, dtype=config.real_dtype(),
                                                            device=config.device())}
         raise Error(f"bjacobi: unsupported sub_pc_type {self.sub_type}")
+
+    def _sub_ksp(self, bi, bj, bv, m):
+        """The inner KSP (prefix ``sub_``) on the block-diagonal matrix."""
+        import scipy.sparse as sp
+        from ..ksp.ksp import KSP
+        from ..mat.aij import MatAIJ
+        from .more_pc import inner_ksp_op
+        Abd = MatAIJ.from_scipy(sp.csr_matrix((bv, bj, bi), shape=(m, m)))
+        inner = KSP(options=self.pc._options, prefix=(self.pc.get_options_prefix() or "") + "sub_")
+        inner.create(self.pc.comm)
+        inner.setOperators(Abd, Abd)
+        inner.setType(self.sub_ksp_type)
+        inner.getPC().setType(self.sub_type)
+        inner.setFromOptions()
+        if inner.max_it > 1000:
+            inner.max_it = 50
+        inner.setUp()
+        self.sub_ksp = inner
+        return inner_ksp_op(inner)
+
+
+def _neumann_plan(pc, L, U, dinv):
+    """The truncated Neumann solves (the reference's factor_pc.py:285-315):
+    the strict factors are nilpotent, so (I + L)^-1 b = sum_j (-L)^j b ends
+    at the level depth, and s sweeps give a fixed linear preconditioner
+    whose apply is 2 s products."""
+    import scipy.sparse as sp
+    from ..mat.aij import MatAIJ
+    s = pc.opt("get_int", "pc_factor_trisolve_sweeps", default=6)
+    m = len(dinv)
+    gs = getattr(pc.pmat, "_grid_shape", None)
+    grid = gs if gs is not None and int(np.prod(gs)) == m else None
+    mL, mU = (MatAIJ.from_scipy(sp.csr_matrix((v, ix, ip), shape=(m, m)), grid=grid)
+              for ip, ix, v in (L, U))
+    rd, dev = config.real_dtype(), config.device()
+    data = {"L": mL.device_data(), "U": mU.device_data(),
+            "dinv": torch.as_tensor(dinv, dtype=rd, device=dev)}
+    return ("pc_trisolve_neumann", mL.meta, mU.meta, int(s), m), data
+
+
+def _bind_trisolve_neumann(meta, data):
+    _, metaL, metaU, s, m = meta
+    Lop = operator.bind(metaL, data["L"])
+    Uop = operator.bind(metaU, data["U"])
+    dinv = data["dinv"]
+
+    def minus(x):
+        return torch.full((), -1.0, dtype=x.dtype, device=x.device)
+
+    def mult(b):
+        # y = (I + L)^-1 b by y <- b - L y (exact at s >= the depth)
+        y = b
+        for _ in range(s):
+            y = triad(b, Lop.mult(y), minus(b))
+        # z = (D + U)^-1 y by z <- dinv (y - U z), from z = dinv y
+        z = pc_kernels.neumann_step(dinv, y, torch.zeros_like(y))
+        for _ in range(s):
+            z = pc_kernels.neumann_step(dinv, y, Uop.mult(z))
+        return z
+
+    def mult_t(b):
+        # (D + U)^-T = (D + U^T)^-1, then (I + L)^-T = (I + L^T)^-1
+        y = pc_kernels.neumann_step(dinv, b, torch.zeros_like(b))
+        for _ in range(s):
+            y = pc_kernels.neumann_step(dinv, b, Uop.mult_t(y))
+        z = y
+        for _ in range(s):
+            z = triad(y, Lop.mult_t(z), minus(y))
+        return z
+
+    return operator.Op(mult=mult, mult_t=mult_t if (Lop.mult_t and Uop.mult_t) else None)
 
 
 def _bind_trisolve(meta, data):
@@ -193,3 +267,4 @@ PC.register_impl("cholesky", _PCLU)
 PC.register_impl("bjacobi", _PCBJacobi)
 operator.register_binder("pc_trisolve", _bind_trisolve)
 operator.register_binder("pc_trisolve_perm", _bind_trisolve_perm)
+operator.register_binder("pc_trisolve_neumann", _bind_trisolve_neumann)

@@ -35,9 +35,13 @@ vectors (the rigid-body modes of elasticity: the tentative prolongator's
 QR per aggregate, then nvec dofs per coarse node), and PCHMG on a block
 system (the inner GAMG on one component, its P expanded as P kron I_bs).
 A block level's P is an assembled MatAIJ on S2, the coarse operators bs 1
-on S2, as in the reference. Refused, each naming the ROADMAP item that
-brings it: ``-pc_gamg_type classical|geo`` (item 8) and sharded operators
-(item 12).
+on S2, as in the reference. ``-pc_gamg_type classical`` (Ruge-Stüben:
+classical strength, MIS coarse points, direct or standard interpolation by
+``-pc_gamg_classical_type``, ``-pc_gamg_classical_nsmooths`` Jacobi
+smoothings) and ``geo`` (linearly exact interpolation from
+PCSetCoordinates) build their levels on the host (:mod:`.gamg_classical`),
+as the reference does; the cycle is the same. Sharded operators are
+refused (ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -55,7 +59,6 @@ from . import gamg_device as gd
 from .mg import MGLevelSpec, _PCMG, _host_emax, _timed
 from .pc import PC
 
-_ITEM_8 = "ROADMAP queue 1 item 8 (gamg_classical.py)"
 _ITEM_12 = "distribution (ROADMAP queue 1 item 12)"
 
 
@@ -291,7 +294,9 @@ class _PCGAMG(_PCMG):
         self.coarsen_type = "mis"      # mis | hem
         self.hem_rounds = 3
         self.strength_index = None
-        self.gamg_type = "agg"
+        self.gamg_type = "agg"         # agg | classical | geo
+        self.classical_type = "direct"  # direct | standard
+        self.classical_nsmooths = 0
         # the structured head (gamg.py:346-352): operators that declare a
         # grid get geometric first levels down to structured_limit rows,
         # their Galerkin operators probed on the device
@@ -329,6 +334,12 @@ class _PCGAMG(_PCMG):
         t = o("get_string", "pc_gamg_type", None)
         if t:
             self.gamg_type = t
+        t = o("get_string", "pc_gamg_classical_type", None)
+        if t:
+            self.classical_type = t
+        n = o("get_int", "pc_gamg_classical_nsmooths", None)
+        if n is not None:
+            self.classical_nsmooths = n
         b = o("get_bool", "pc_gamg_structured_coarsening", None)
         if b is not None:
             self.structured = b
@@ -358,9 +369,42 @@ class _PCGAMG(_PCMG):
             Bn = Bn.dense_or(N)
         return np.asarray(getattr(Bn, "vectors", Bn), dtype=np.float64).reshape(N, -1)
 
-    def _refuse(self, A):
-        if self.gamg_type != "agg":
-            raise NotImplementedError(f"-pc_gamg_type {self.gamg_type} comes with {_ITEM_8}")
+    def _classical_level(self, cur, level, levels):
+        """One Ruge-Stüben level (the reference's gamg.py:660-703): classical
+        strength, MIS coarse points, the direct, standard or geometric P,
+        classical_nsmooths Jacobi smoothings. Returns the coarse operator, or
+        None where coarsening stalls."""
+        from .gamg_classical import (classical_direct_prolongator, classical_standard_prolongator,
+                                     classical_strength, geometric_prolongator)
+        from ..sys.error import Error
+        if self.gamg_type == "geo" and level == 0:
+            self._geo_coords = getattr(self.pc, "_coords", None)
+            if self._geo_coords is None:
+                raise Error("gamg geo needs PCSetCoordinates (PCGAMGGeo contract, geo.c)")
+        theta = max(self._threshold(level), 0.0)
+        G = _timed("PCGAMGSetUp_graph", classical_strength, cur, theta)
+        agg, nagg, roots = _timed("PCGAMGSetUp_coarsen", mis_aggregate, G)
+        if nagg == 0 or len(roots) >= cur.shape[0]:
+            return None
+        if self.gamg_type == "geo":
+            P = _timed("PCGAMGSetUp_prol0", geometric_prolongator, cur, roots,
+                       self._geo_coords, theta)
+            self._geo_coords = self._geo_coords[roots]
+        else:
+            mk = (classical_standard_prolongator if self.classical_type == "standard"
+                  else classical_direct_prolongator)
+            P = _timed("PCGAMGSetUp_prol0", mk, cur, roots, theta)
+        dinv = _inv_diag_host(cur)
+        emax = _timed("PCGAMGSetUp_emax", _host_emax, cur, dinv)
+        for _ in range(self.classical_nsmooths):
+            P = _timed("PCGAMGSetUp_smooth_prol", _smooth_prol, cur, P, dinv, 1.4 / emax)
+        levels[-1].emin, levels[-1].emax = self.eig_bounds(emax)
+        levels[-1].agg = np.asarray(agg)
+        levels[-1].agg_bs = 1
+        levels[-1].P = MatAIJ.from_scipy(P, comm=self.pc.pmat.comm)
+        Ac = _timed("PCGAMGSetUp_SpGEMM", _galerkin, cur, P)
+        levels.append(MGLevelSpec(MatAIJ.from_scipy(Ac, comm=self.pc.pmat.comm)))
+        return Ac
 
     def _coarsen(self, cur, level, bs=1):
         """The aggregates of one level's nodes (bs dofs each): (agg, nagg)."""
@@ -444,7 +488,6 @@ class _PCGAMG(_PCMG):
         A = self.pc.pmat
         if A.comm.nshards > 1:
             raise NotImplementedError(f"GAMG on a sharded operator comes with {_ITEM_12}")
-        self._refuse(A)
         Bn = self._near_nullspace(A)
         bs = A.row_layout.bs or 1
         _timed("PCGAMGSetUp_native", native.lib)
@@ -456,7 +499,7 @@ class _PCGAMG(_PCMG):
         level = 0
         fm = Afine.meta
         # the structured head is scalar: bs 1 and one near-null vector
-        scalar = bs == 1 and Bn.shape[1] == 1
+        scalar = bs == 1 and Bn.shape[1] == 1 and self.gamg_type == "agg"
         if (scalar and self.structured and self.structured_device
                 and gd.supports_device_rap(fm) and int(np.prod(fm[1])) == A.getSize()[0]):
             # the device head first: the fine operator never comes to the host
@@ -475,6 +518,13 @@ class _PCGAMG(_PCMG):
             Bn = np.ones((cur.shape[0], 1))
         cur_bs = bs
         while cur.shape[0] > self.coarse_eq_limit and level < self.max_levels - 1:
+            if self.gamg_type in ("classical", "geo"):
+                Ac = self._classical_level(cur, level, levels)
+                if Ac is None:
+                    break
+                cur = Ac
+                level += 1
+                continue
             agg, nagg = self._coarsen(cur, level, cur_bs)
             if nagg == 0 or nagg * Bn.shape[1] >= cur.shape[0]:
                 break  # coarsening stalled

@@ -1264,3 +1264,92 @@ def test_guess_on_the_card_equals_the_cpu_port(cuda_device, kind):
     counts = {key: c for key, c in chip_smoke.launch_counts().items() if c}
     want = {"csr_spmv": 1} if kind == "pod" else {"csr_spmv": 1, "dot2": 4, "triad": 4}
     assert counts == want
+
+
+# ---- X1, D1 and N1 (the domain-decomposition PCs' kernels) ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["add", "set", "signed"])
+def test_dst_scatter_equals_its_plain_version_bit_for_bit(cuda_device, mode):
+    from petsc_tpu_torch.ops import pc_kernels as pck
+    rng = np.random.default_rng(31)
+    n, nsrc, k = 5000, 7000, 20000
+    if mode == "set":
+        dst, sel, w = rng.permutation(n)[:3000], rng.integers(0, nsrc, 3000), None
+    else:
+        dst, sel = rng.integers(0, n, k), rng.integers(0, nsrc, k)
+        w = rng.choice([-1.0, 1.0], k) if mode == "signed" else None
+    for dtype in (torch.float64, torch.float32):
+        tab = pck.scatter_table(dst, sel, n, nsrc, w, device=cuda_device, dtype=dtype)
+        src = torch.as_tensor(rng.random(nsrc) - 0.5, dtype=dtype, device=cuda_device)
+        out = torch.as_tensor(rng.random(n), dtype=dtype, device=cuda_device) \
+            if mode == "set" else None
+        pck.reset_launches()
+        y = pck.dst_scatter(tab, src, None if out is None else out.clone())
+        yp = pck.dst_scatter_plain(tab, src, None if out is None else out.clone())
+        assert pck.LAUNCHES["dst_scatter"] == 1
+        assert torch.equal(y, yp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_subdomain_apply_matches_its_plain_version(cuda_device, transposed, dtype):
+    from petsc_tpu_torch.ops import pc_kernels as pck
+    rng = np.random.default_rng(32)
+    ns, R, C, nx = 37, 1089, 70 if transposed else 1089, 30000
+    M = torch.as_tensor(rng.random((ns, R, C)) - 0.5, dtype=dtype, device=cuda_device)
+    K = R if transposed else C
+    G = rng.integers(0, nx, (ns, K))
+    nr = rng.integers(R // 2, R + 1, ns)
+    nc = rng.integers(C // 2, C + 1, ns)
+    Mh = M.cpu().numpy()
+    for s in range(ns):                 # padding is zero, as the tables lay it out
+        Mh[s, nr[s]:, :] = 0
+        Mh[s, :, nc[s]:] = 0
+    M = torch.as_tensor(Mh, device=cuda_device)
+    tab = pck.subdomain_table(G, rng.random((ns, K)), nr=nr, nc=nc, device=cuda_device,
+                              dtype=dtype)
+    x = torch.as_tensor(rng.random(nx), dtype=dtype, device=cuda_device)
+    y = pck.subdomain_apply(M, tab, x, transposed)
+    yp = pck.subdomain_apply_plain(M, tab, x, transposed)
+    assert _rel(y, yp) <= TOL[dtype]
+    if not transposed:                  # an output map, accumulated into a buffer
+        out = np.stack([rng.permutation(R + 5)[:R] for _ in range(ns)])
+        out[:, ::7] = -1
+        tab = pck.subdomain_table(G, None, out=out, nr=nr, nc=nc, device=cuda_device,
+                                  dtype=dtype)
+        base = torch.as_tensor(rng.random((ns, R + 5)), dtype=dtype, device=cuda_device)
+        y = pck.subdomain_apply(M, tab, x, y=base.clone(), accumulate=True)
+        yp = pck.subdomain_apply_plain(M, tab, x, y=base.clone(), accumulate=True)
+        assert _rel(y, yp) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_neumann_step_equals_its_plain_version_bit_for_bit(cuda_device):
+    from petsc_tpu_torch.ops import pc_kernels as pck
+    rng = np.random.default_rng(33)
+    for dtype in (torch.float64, torch.float32):
+        d, y, w = (torch.as_tensor(rng.random(100003), dtype=dtype, device=cuda_device)
+                   for _ in range(3))
+        assert torch.equal(pck.neumann_step(d, y, w), pck.neumann_step_plain(d, y, w))
+
+
+@pytest.mark.cuda
+def test_matis_on_the_card_equals_the_cpu_port(cuda_device):
+    """One MatIS product on the card (D1 then X1, nothing else) against the
+    port's run on the CPU (gather, einsum, index_add_)."""
+    mats, maps, n = stencil_build.matis_poisson(64, 4)
+    x = np.random.default_rng(34).random(n)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ptt.init(device=dev)
+        M = ptt.MatIS.create(n, mats, maps)
+        xt = torch.as_tensor(x, device=dev)
+        chip_smoke.reset_launches()
+        out[dev] = M.op().mult(xt).cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = {k: c for k, c in chip_smoke.launch_counts().items() if c}
+            assert counts == {"subdomain_apply": 1, "dst_scatter": 1}
+    assert _rel(out["cuda"], out["cpu"]) <= 1e-12

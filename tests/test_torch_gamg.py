@@ -346,8 +346,11 @@ def _block_layout(A):
 # None where a later slice has ported it: then the port solves as the
 # reference does)
 REFUSALS = {
-    "classical": (_aij, ("-pc_gamg_type", "classical"), "gamg", "item 8"),
-    "geo": (_aij, ("-pc_gamg_type", "geo"), "gamg", "item 8"),
+    "classical": (_aij, ("-pc_gamg_type", "classical"), "gamg", None),
+    # geo reads the PC's coordinates (PCSetCoordinates): the 8 x 8 grid's
+    "geo": (lambda pkg: _aij(pkg, _pc_coords=np.stack(np.meshgrid(
+        np.arange(8.0), np.arange(8.0), indexing="ij"), axis=-1).reshape(-1, 2)),
+        ("-pc_gamg_type", "geo"), "gamg", None),
     "two_vector_nullspace": (lambda pkg: _aij(pkg, near_nullspace=np.ones((64, 2))), (),
                              "gamg", None),
     "block_size_2": (lambda pkg: _block_layout(_aij(pkg)), (), "gamg", None),
@@ -366,6 +369,8 @@ def _solve_as(pkg, make, args, pc_type):
     A = make(pkg)
     ksp = pkg.KSP().create()
     ksp.setOperators(A)
+    if hasattr(A, "_pc_coords"):
+        ksp.getPC().setCoordinates(A._pc_coords)
     ksp.setFromOptions()
     b = A.createVecLeft()
     b.set(1.0)

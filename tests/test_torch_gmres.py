@@ -304,19 +304,31 @@ def test_the_default_and_ported_types_set_without_raising():
 
 
 def test_what_this_slice_leaves_out_raises_naming_the_roadmap():
-    ptt.init(args=["-pc_type", "ilu", "-pc_factor_trisolve", "neumann"], device="cpu")
-    A = ptt.MatAIJ.from_scipy(_stencil7((2, 3, 4)))
-    pc = ptt.PC().create()
-    pc.setOperators(A)
-    pc.setFromOptions()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        pc.setUp()
-    ptt.init(args=["-pc_type", "bjacobi", "-sub_ksp_type", "gmres"], device="cpu")
-    pc = ptt.PC().create()
-    pc.setOperators(A)
-    pc.setFromOptions()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        pc.setUp()
+    """What this slice once refused, -pc_factor_trisolve neumann and bjacobi
+    with an iterative -sub_ksp_type, now solves as the JAX package does
+    (the same its, reason and history to 1e-6); nothing names the ROADMAP."""
+    A_sp = _stencil7((2, 3, 4))
+    b = A_sp @ np.cos(0.01 * np.arange(A_sp.shape[0]))
+    for args in (["-pc_type", "ilu", "-pc_factor_trisolve", "neumann"],
+                 ["-ksp_type", "fgmres", "-pc_type", "bjacobi", "-pc_bjacobi_blocks", "2",
+                  "-sub_ksp_type", "gmres", "-sub_pc_type", "jacobi"]):
+        out = []
+        for pkg in (ptt, pt_jax):
+            if pkg is ptt:
+                ptt.init(args=args + ["-ksp_rtol", "1e-8"], device="cpu")
+            else:
+                pt_jax.init(args=args + ["-ksp_rtol", "1e-8"])
+            A = pkg.MatAIJ.from_scipy(A_sp)
+            ksp = pkg.KSP().create()
+            ksp.setOperators(A)
+            ksp.setFromOptions()
+            x = A.createVecRight()
+            ksp.solve(pkg.Vec.from_array(b), x)
+            out.append((ksp.getIterationNumber(), ksp.getConvergedReason().name,
+                        np.asarray(ksp.getConvergenceHistory())))
+        (its, reason, h), (its_j, reason_j, h_j) = out
+        assert (its, reason) == (its_j, reason_j) and reason == "CONVERGED_RTOL"
+        assert np.all(np.abs(h - h_j) <= 1e-6 * h_j + 1e-11 * h_j[0])
 
 
 def test_a_plan_carried_from_the_reference_applies_as_the_ports_pc():

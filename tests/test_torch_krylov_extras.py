@@ -1,6 +1,6 @@
 """The KSP surface around the Krylov types, against the JAX package: the
-registry (every name of the reference's but fetidp, with its default norm
-and flags), KSPGuess (Fischer and POD) over two solves, mixed-precision
+registry (every name of the reference's, with its default norm and
+flags), KSPGuess (Fischer and POD) over two solves, mixed-precision
 iterative refinement (setMixedPrecision and -ksp_mixed_precision), and
 the options -ksp_bcgsl_ell, -ksp_idr_s and -ksp_lgmres_augment.
 
@@ -35,12 +35,11 @@ def stencil7(shape):
 
 
 def test_every_reference_type_but_fetidp_is_registered_alike():
+    """Every KSP type of the reference, fetidp now among them, with its
+    default norm and flags."""
     ref, port = ksp_jax._IMPLS, ksp_torch._IMPLS
-    assert set(ref) - set(port) == {"fetidp"}
-    assert set(port) <= set(ref)
+    assert set(ref) == set(port)
     for name, r in ref.items():
-        if name == "fetidp":
-            continue
         p = port[name]
         assert (p["norm"], p["right"], p["host_driven"]) == \
             (r["norm"], r["right"], r["host_driven"]), name

@@ -201,10 +201,12 @@ def test_jacobi_keeps_a_scalar_diagonal_and_unported_types_raise():
     pc.setType("jacobi")
     inv = pc.device_data()["inv"]
     assert inv.dim() == 0 and float(inv) == 1.0 / 26.0
-    with pytest.raises(ptt.Error, match="fetidp"):
-        ksp.setType("fetidp")          # the one KSP type not ported (it needs BDDC)
-    with pytest.raises(ptt.Error, match="asm"):
-        pc.setType("asm")
+    ksp.setType("fetidp")              # every KSP and PC type of the reference is ported
+    assert ksp.getType() == "fetidp"
+    pc.setType("asm")
+    assert pc.getType() == "asm"
+    with pytest.raises(ptt.Error, match="no_such_type"):
+        pc.setType("no_such_type")
 
 
 def _box27_coo(n, seed):
