@@ -7,7 +7,8 @@ Phases, one JSON line each on stdout:
   device   the card's name and its nvidia-smi name and power limit;
   build    builds the kernels from petsc_tpu_torch/csrc (and, beside
            them, the earlier designs of earlier_kernels/ that phases
-           gamg_grid and gmres_ilu time the new ones against) and runs
+           gamg_grid, gmres_ilu, ex56, maij_kaij and pc time the new ones
+           against) and runs
            the one-launch probe (K1), then builds the native host library
            (graphops.cpp, g++), each with its seconds;
   kernels  holds every kernel against its plain PyTorch version on the
@@ -284,6 +285,18 @@ Phases, one JSON line each on stdout:
            case's warm solve (best of 3) and one profiled solve (busy ms,
            share); V1T against its plain version (equal bits) and timed
            beside it, its bound and V1;
+  pc       the PC types of item 8 (PC_CASES) through the user's entry
+           points, each case's first solve held to `python pc_contract.py`
+           (tests/data/pc_contract.json) with exact launches
+           (pc_launches_needed), its warm solve (best of 3) and one
+           profiled solve; then X1 (add on the ex59-class MatIS, set on
+           config 2's ASM, signed on fetidp's B, and NN's W r as long
+           runs), D1 (the MatIS's Ab, BDDC's K_qq^-1 through its output
+           map with accumulate, Phi, Phi^T) and N1 on the path's tables,
+           each against its plain version (X1 and N1 bit for bit) and
+           timed in turns with its earlier design (earlier_kernels/),
+           beside its bound, plain version, library call and K1's launch
+           probe in the same phase;
   bench_gpu  python bench_gpu.py in a process of its own (the kernels built
            above reused): its JSON line, and its contract, BENCH_r05.json's
            solve (10 iterations, relres <= 1e-8, jacobi_its 184), the small-n
@@ -357,7 +370,8 @@ IN_SOLVE = {"triad": ("triad_kernel",), "axpy_normsq": ("axpy_normsq_kernel",),
             "q1_prolong": ("q1_prolong_kernel",), "q1_restrict": ("q1_restrict_kernel",),
             "trisolve": ("trisolve_kernel",), "csr_spmm": ("csr_spmm_kernel",),
             "dst_scatter": ("dst_scatter_kernel",),
-            "subdomain_apply": ("subdomain_kernel", "subdomain_t_kernel"),
+            "subdomain_apply": ("subdomain_rows_kernel", "subdomain_narrow_kernel",
+                                "subdomain_narrow_t_kernel", "subdomain_t_kernel"),
             "neumann_step": ("neumann_step_kernel",),
             # the Krylov basis products of GMRES (torch.mv: cuBLAS gemv)
             "gemv": ("gemv",),
@@ -1911,14 +1925,16 @@ def grid_kernel_row(name, dtype, fn, plain, library_fn, nbytes, flops, tol, earl
 EARLIER = Path(__file__).resolve().parent / "earlier_kernels"
 EARLIER_SOURCES = ("q1_prolong_per_output.cu", "q1_restrict_per_output.cu",
                    "trisolve_grid_barrier.cu", "bsr_spmv_per_output.cu", "agg_block_16rows.cu",
-                   "csr_spmm_warp_per_row.cu")
+                   "csr_spmm_warp_per_row.cu", "subdomain_warp_per_row.cu",
+                   "dst_scatter_thread_per_dst.cu")
 
 
 def start_earlier_build():
-    """Start one nvcc for the earlier designs (earlier_kernels/*.cu, which
+    """Start the build of the earlier designs (earlier_kernels/*.cu, which
     the package's library does not hold) into a git-ignored library of
-    their own; returns (the process or None when built, the library path,
-    the start time)."""
+    their own, one nvcc per source, all started together; returns (the
+    [(object, process)] or None when built, the library path, the start
+    time)."""
     import hashlib
     from petsc_tpu_torch.ops import cuda_build
     srcs = [EARLIER / s for s in EARLIER_SOURCES]
@@ -1929,23 +1945,43 @@ def start_earlier_build():
     if lib.exists():
         return None, lib, time.perf_counter()
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(".tmp")
-    cmd = [cuda_build._nvcc(), *cuda_build.FLAGS, "-shared", "-o", str(tmp), *map(str, srcs)]
-    return (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            lib, time.perf_counter())
+    procs = []
+    for src in srcs:
+        obj = lib.parent / f"{src.name}.o"
+        cmd = [cuda_build._nvcc(), *cuda_build.FLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    return procs, lib, time.perf_counter()
+
+
+def stop_earlier_build(build):
+    """Kill the earlier designs' nvcc processes that still run."""
+    for _, p in build[0] or ():
+        p.kill()
+        p.wait()
 
 
 def load_earlier(build):
-    """The earlier designs' library, once its build has ended; raises if it
-    failed. Returns (library, seconds the build took, or None)."""
+    """The earlier designs' library, once its build has ended (its objects
+    linked); raises if it failed. Returns (library, seconds the build took,
+    or None)."""
     import ctypes
-    proc, lib, t0 = build
+    from petsc_tpu_torch.ops import cuda_build
+    procs, lib, t0 = build
     seconds = None
-    if proc is not None:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise AssertionError(f"nvcc of the earlier designs failed:\n{out}")
-        lib.with_suffix(".tmp").replace(lib)
+    if procs is not None:
+        for obj, p in procs:
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                stop_earlier_build(build)
+                raise AssertionError(f"nvcc of the earlier design {obj.stem} failed:\n{out}")
+        tmp = lib.with_suffix(".tmp")
+        link = subprocess.run([cuda_build._nvcc(), "-shared", "-o", str(tmp),
+                               *[str(o) for o, _ in procs]], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise AssertionError(f"linking the earlier designs failed:\n{link.stdout}"
+                                 f"{link.stderr}")
+        tmp.replace(lib)
         seconds = time.perf_counter() - t0
     L = ctypes.CDLL(str(lib))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
@@ -1966,6 +2002,12 @@ def load_earlier(build):
         fn.restype = ctypes.c_int
         fn = getattr(L, f"ptt_earlier_csr_spmm_{sfx}")
         fn.argtypes = [vp] * 5 + [ctypes.c_longlong, i32, i32, i32, vp]
+        fn.restype = ctypes.c_int
+        fn = getattr(L, f"ptt_earlier_subdomain_apply_{sfx}")
+        fn.argtypes = [i32] + [vp] * 8 + [i32] * 6 + [vp]
+        fn.restype = ctypes.c_int
+        fn = getattr(L, f"ptt_earlier_dst_scatter_{sfx}")
+        fn.argtypes = [vp] * 5 + [ctypes.c_longlong, i32, i32, vp]
         fn.restype = ctypes.c_int
     return L, seconds
 
@@ -5232,103 +5274,418 @@ def exact_pc_launches(case, launches, its, reason, detail):
     return need
 
 
-def pc_kernel_row(name, dtype, fn, plain, library_fn, nbytes, flops, flush, exact, library):
+# ---- X1 and D1: their edge cases, another library's entry points, the rows ----
+
+# D1's edge cases: name -> (subdomains, R, C, transposed, weighted, an output
+# map with accumulate, M one element past a 16-byte edge). Every case has
+# real counts nr < R and nc < C in most subdomains (one full, one empty
+# where there are four or more), its padding NaN. Rows of 1,089 are 8 mod 16
+# bytes in f64 and 4 mod 16 in f32; R C odd puts every other subdomain's
+# base off a 16-byte edge; R = 65 is a run of 64 rows and a one-row tail.
+D1_EDGES = {
+    "rows_1089": (3, 70, 1089, False, True, False, False),
+    "one_row_tail": (4, 65, 1089, False, False, False, False),
+    "one_row": (9, 1, 1089, False, True, False, False),
+    "c1": (5, 1089, 1, False, True, False, False),
+    "c4": (5, 1089, 4, False, True, False, False),
+    "c16": (5, 1089, 16, False, False, False, False),
+    "c17": (5, 1089, 17, False, True, False, False),
+    "c33": (5, 1089, 33, False, True, False, False),
+    "t_c1": (5, 1089, 1, True, True, False, False),
+    "t_c4": (5, 1089, 4, True, True, False, False),
+    "t_c16": (5, 1089, 16, True, False, False, False),
+    "t_c17": (5, 1089, 17, True, True, False, False),
+    "t_c33": (5, 1089, 33, True, True, False, False),
+    "t_c70": (4, 1089, 70, True, True, False, False),
+    "offset_rows": (3, 65, 1089, False, True, False, True),
+    "offset_c4": (5, 1089, 4, False, True, False, True),
+    "offset_t_c4": (5, 1089, 4, True, True, False, True),
+    "out_accumulate": (4, 65, 1089, False, True, True, False),
+    "out_accumulate_c4": (5, 1089, 4, False, True, True, False),
+    "t_out_accumulate_c4": (5, 1089, 4, True, False, True, False),
+}
+
+
+def d1_edge_operands(name, dtype, device, seed=41, extra=0):
+    """(M, table, x, transposed, y0 or None) of D1_EDGES[name] on `device`,
+    from `seed`; with `extra` more subdomains after the case's own (the
+    same first ones, for another grid)."""
+    import numpy as np
+    import torch
+    from petsc_tpu_torch.ops import pc_kernels as pck
+    ns, R, C, transposed, weighted, with_out, offset = D1_EDGES[name]
+    rng = np.random.default_rng(seed)
+    nx = 3000
+    K, R_out = (R, C) if transposed else (C, R)
+    nr = rng.integers(R // 2, R + 1, ns)
+    nc = rng.integers(C // 2, C + 1, ns)
+    nr[0], nc[0] = R, C
+    if ns >= 4:
+        nr[1] = 0
+    Mh = rng.random((ns, R, C)) - 0.5
+    Mh[(np.arange(R)[None, :, None] >= nr[:, None, None])
+       | (np.arange(C)[None, None, :] >= nc[:, None, None])] = np.nan
+    G = rng.integers(0, nx, (ns, K))
+    w = rng.random((ns, K)) + 0.5 if weighted else None
+    ld = R_out + 5
+    out = None
+    if with_out:
+        out = np.stack([rng.permutation(ld)[:R_out] for _ in range(ns)])
+        out[:, ::7] = -1
+    y0 = rng.random((ns, ld)) if with_out else None
+    xh = rng.random(nx) - 0.5
+    if extra:
+        e = rng.integers(0, ns, extra)
+        Mh, G, nr, nc = (np.concatenate([a, a[e]]) for a in (Mh, G, nr, nc))
+        w = None if w is None else np.concatenate([w, w[e]])
+        out = None if out is None else np.concatenate([out, out[e]])
+        y0 = None if y0 is None else np.concatenate([y0, y0[e]])
+    M = torch.as_tensor(Mh, dtype=dtype, device=device)
+    if offset:
+        M = shifted_block(M, 1)
+    tab = pck.subdomain_table(G, w, out=out, nr=nr, nc=nc, device=device, dtype=dtype)
+    return (M, tab, torch.as_tensor(xh, dtype=dtype, device=device), transposed,
+            None if y0 is None else torch.as_tensor(y0, dtype=dtype, device=device))
+
+
+def zero_padding(M, tab):
+    """A copy of D1's table M with its padding (rows at or past nr[s],
+    columns at or past nc[s]) set to 0: the plain version's input where the
+    padding the kernel is given holds NaN."""
+    import torch
+    ns, R, C = M.shape
+    keep = torch.ones((ns, R, C), dtype=torch.bool, device=M.device)
+    if tab.nr is not None:
+        keep &= torch.arange(R, device=M.device)[None, :, None] < tab.nr.long()[:, None, None]
+    if tab.nc is not None:
+        keep &= torch.arange(C, device=M.device)[None, None, :] < tab.nc.long()[:, None, None]
+    return torch.where(keep, M, torch.zeros((), dtype=M.dtype, device=M.device))
+
+
+def d1_edge_check(pck, name, dtype, device="cuda"):
+    """D1 on one edge case against its plain version run in float64 on the
+    same inputs with the padding zeroed (f64 1e-12, f32 1e-5 relative; the
+    NaN padding the kernel is given must not reach the result), in one
+    launch, with equal bits on a rerun and for the case's subdomains when
+    five more follow them (another grid). Raises; returns the record."""
+    import torch
+    M, tab, x, transposed, y0 = d1_edge_operands(name, dtype, device)
+    acc = y0 is not None
+
+    def run(M, tab, x, y0):
+        return pck.subdomain_apply(M, tab, x, transposed, y=None if y0 is None else y0.clone(),
+                                   accumulate=acc)
+
+    pck.reset_launches()
+    y = run(M, tab, x, y0)
+    launches = pck.LAUNCHES["subdomain_apply"]
+    tab64 = pck.SubdomainTable(tab.G, None if tab.w is None else tab.w.double(), tab.out,
+                               tab.nr, tab.nc)
+    ref = pck.subdomain_apply_plain(zero_padding(M.double(), tab), tab64, x.double(),
+                                    transposed, None if y0 is None else y0.double().clone(),
+                                    acc)
+    M2, tab2, x2, _, y02 = d1_edge_operands(name, dtype, device, extra=5)
+    y2 = run(M2, tab2, x2, y02)
+    same = bool(torch.equal(y, run(M, tab, x, y0)) and torch.equal(y, y2[:M.shape[0]]))
+    torch.cuda.synchronize()
+    dn = str(dtype).replace("torch.", "")
+    err = rel_err(y, ref)
+    if not err <= TOL[dn] or not same or launches != 1:
+        raise AssertionError(f"subdomain_apply {name} {dn}: rel err {err} (tol {TOL[dn]}), "
+                             f"equal bits on a rerun and another grid {same}, "
+                             f"launches {launches}")
+    return {"name": f"subdomain_apply_{name}", "dtype": dn, "shape": list(M.shape),
+            "transposed": transposed, "rel_err": err, "equal_bits_rerun_and_grid": same}
+
+
+# X1's edge cases (5,000 destinations, a source of 7,000): name -> mode
+X1_EDGES = {"random_add": "add", "random_set": "set", "random_signed": "signed",
+            "run_5000": "add", "run_5000_weighted": "weighted", "runs_at_long_run": "weighted",
+            "runs_1_to_40": "add", "empty_rows_set": "set"}
+
+
+def x1_edge_operands(name, dtype, device, seed=42, pad=0, n=5000, nsrc=7000):
+    """(table, src, out or None) of X1_EDGES[name] on `device` from `seed`:
+    random entries; a destination of 5,000 entries among random ones
+    (entries interleaved, so their order is the input's); runs of
+    LONG_RUN - 1 to 2 LONG_RUN + 3 entries; destination d with d mod 41
+    entries; set mode with half the destinations reached and a long one.
+    With `pad`, the table has pad more destinations after the n, which no
+    entry reaches."""
+    import numpy as np
+    import torch
+    from petsc_tpu_torch.ops import pc_kernels as pck
+    rng = np.random.default_rng(seed)
+    mode = X1_EDGES[name]
+    L = pck.LONG_RUN
+    if name == "random_set":
+        dst = rng.permutation(n)[:3000]
+    elif name.startswith("run_5000"):
+        dst = rng.permutation(np.r_[np.full(5000, 17), rng.integers(0, n, 3000)])
+    elif name == "runs_at_long_run":
+        lens = np.resize([L - 1, L, L + 1, 2 * L + 3, 1, 0], n)
+        dst = rng.permutation(np.repeat(np.arange(n), lens))
+    elif name == "runs_1_to_40":
+        dst = np.repeat(np.arange(n), np.arange(n) % 41)
+    elif name == "empty_rows_set":
+        dst = rng.permutation(np.r_[rng.permutation(n)[:2500], np.full(300, 11)])
+    else:
+        dst = rng.integers(0, n, 20000)
+    sel = rng.integers(0, nsrc, len(dst))
+    w = {"signed": rng.choice([-1.0, 1.0], len(dst)),
+         "weighted": rng.random(len(dst)) - 0.5}.get(mode)
+    tab = pck.scatter_table(dst, sel, n + pad, nsrc, w, device=device, dtype=dtype)
+    src = torch.as_tensor(rng.random(nsrc) - 0.5, dtype=dtype, device=device)
+    out = torch.as_tensor(rng.random(n + pad), dtype=dtype, device=device) \
+        if mode == "set" else None
+    return tab, src, out
+
+
+def x1_edge_check(pck, name, dtype, device="cuda"):
+    """X1 on one edge case: equal bits with its plain version, on a rerun
+    and for the case's destinations when 3 x 1024 empty ones follow them
+    (another grid), in one launch. Raises; returns the record."""
+    import torch
+    tab, src, out = x1_edge_operands(name, dtype, device)
+
+    def run(tab, out):
+        return pck.dst_scatter(tab, src, None if out is None else out.clone())
+
+    pck.reset_launches()
+    y = run(tab, out)
+    launches = pck.LAUNCHES["dst_scatter"]
+    yp = pck.dst_scatter_plain(tab, src, None if out is None else out.clone())
+    tab2, _, out2 = x1_edge_operands(name, dtype, device, pad=3 * 1024)
+    same = bool(torch.equal(y, run(tab, out)) and torch.equal(y, run(tab2, out2)[:tab.n]))
+    torch.cuda.synchronize()
+    if not torch.equal(y, yp) or not same or launches != 1:
+        raise AssertionError(f"dst_scatter {name} {dtype}: equal bits with the plain version "
+                             f"{torch.equal(y, yp)}, on a rerun and another grid {same}, "
+                             f"launches {launches}")
+    return {"name": f"dst_scatter_{name}", "dtype": str(dtype).replace("torch.", ""),
+            "entries": tab.entries, "long_destinations": tab.nlong, "equal_bits": True}
+
+
+def d1_call(fn, M, tab, x, transposed=False, y=None, accumulate=False):
+    """D1 through the earlier design's entry point fn, with the arguments
+    pc_kernels.subdomain_apply gives its own, on the current stream; raises
+    on a CUDA error."""
+    import torch
+    from petsc_tpu_torch.ops import cuda_build
+    ns, R, C = M.shape
+    if y is None:
+        y = torch.empty((ns, C if transposed else R), dtype=M.dtype, device=M.device)
+
+    def p(t):
+        return None if t is None else t.data_ptr()
+
+    cuda_build.check("d1_call", fn(int(transposed), y.data_ptr(), M.data_ptr(), x.data_ptr(),
+                                   tab.G.data_ptr(), p(tab.w), p(tab.out), p(tab.nr), p(tab.nc),
+                                   ns, R, C, y.shape[1], int(accumulate), M.get_device(),
+                                   torch.cuda.current_stream().cuda_stream))
+    return y
+
+
+def x1_call(fn, tab, src, out=None):
+    """X1 through the earlier design's entry point fn, with the arguments
+    pc_kernels.dst_scatter gives its own but the list of long destinations,
+    which it does not take; raises on a CUDA error."""
+    import torch
+    from petsc_tpu_torch.ops import cuda_build
+    y = torch.empty(tab.n, dtype=src.dtype, device=src.device) if out is None else out
+    w = None if tab.w is None else tab.w.data_ptr()
+    cuda_build.check("x1_call", fn(y.data_ptr(), src.data_ptr(), tab.ptr.data_ptr(),
+                                   tab.sel.data_ptr(), w, tab.n, int(out is not None),
+                                   src.get_device(), torch.cuda.current_stream().cuda_stream))
+    return y
+
+
+def earlier_entry(earlier, name, dtype):
+    """The earlier design's entry point ptt_earlier_<name>_<f64|f32>."""
+    import torch
+    return getattr(earlier, f"ptt_earlier_{name}_" + ("f64" if dtype == torch.float64 else "f32"))
+
+
+def pc_kernel_row(name, dtype, fn, plain, library_fn, nbytes, flops, flush, exact, library,
+                  earlier=None, timed=None):
     """One kernel's row: its result against its plain version on the same
-    inputs (equal bits where `exact`, else 1e-12 / 1e-5 relative), and the
-    kernel, the plain version and the library call timed after the clean
-    flush."""
+    inputs (equal bits where `exact`, else 1e-12 / 1e-5 relative) and on a
+    rerun (equal bits), the earlier design's held to the same; the kernel
+    and the earlier design timed in turns (earlier, new, new, earlier: each
+    the mean of its two), the plain version and the library call after the
+    clean flush. `timed` = (kernel, plain, earlier, library) to time where
+    the checked calls copy their output buffer first."""
     import torch
     y = fn()
     yp = plain()
+    ye = earlier() if earlier is not None else None
+    rerun = bool(torch.equal(y, fn()))
     torch.cuda.synchronize()
     err = float((y.double() - yp.double()).abs().max())
     rel = rel_err(y, yp)
-    if (exact and not torch.equal(y, yp)) or (not exact and rel > TOL[dtype]):
-        raise AssertionError(f"{name}: differs from its plain version ({err}, {rel})")
-    ms = time_ms(fn, flush)
-    plain_ms = time_ms(plain, flush, reps=5)
-    library_ms = time_ms(library_fn, flush) if library_fn is not None else None
+    e_ok = ye is None or (torch.equal(ye, yp) if exact else rel_err(ye, yp) <= TOL[dtype])
+    if (exact and not torch.equal(y, yp)) or (not exact and not rel <= TOL[dtype]) \
+            or not rerun or not e_ok:
+        raise AssertionError(f"{name}: differs from its plain version ({err}, {rel}), "
+                             f"equal bits on a rerun {rerun}, the earlier design agrees {e_ok}")
+    t_fn, t_plain, t_earlier, t_lib = timed or (fn, plain, earlier, library_fn)
     bms, by = bound(nbytes, flops, dtype)
-    return {"name": name, "dtype": dtype, "equal_bits": bool(torch.equal(y, yp)),
-            "max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library": library, "bound_ms": bms, "bound_by": by,
-            "share_of_bound": bms / ms, "bytes": nbytes}
+    row = {"name": name, "dtype": dtype, "equal_bits": bool(torch.equal(y, yp)),
+           "equal_bits_rerun": rerun, "max_abs_err": err, "rel_err": rel}
+    if earlier is not None:
+        fns = {"earlier": t_earlier, "new": t_fn}
+        order = ("earlier", "new", "new", "earlier")
+        t = [time_ms(fns[o], flush) for o in order]
+        mean = {o: statistics.mean(v for oo, v in zip(order, t) if oo == o) for o in fns}
+        ms = mean["new"]
+        row.update(earlier_ms=mean["earlier"], turns=order, turns_ms=t,
+                   earlier_share_of_bound=bms / mean["earlier"])
+    else:
+        ms = time_ms(t_fn, flush)
+    row.update(ms=ms, plain_ms=time_ms(t_plain, flush, reps=5),
+               library_ms=time_ms(t_lib, flush) if t_lib is not None else None,
+               library=library, bound_ms=bms, bound_by=by, share_of_bound=bms / ms,
+               bytes=nbytes)
+    return row
 
 
 def x1_bytes(tab, itemsize):
-    """X1's bytes: ptr, sel (and w) read once, y written once, the 32-byte
-    sectors of src that sel touches read once."""
+    """X1's bytes: ptr, sel (and w) and the long list read once, y written
+    once, the 32-byte sectors of src that sel touches read once."""
     import torch
     sectors = torch.unique(tab.sel.long() * itemsize // 32).numel()
     return ((tab.n + 1) * 4 + tab.entries * 4 + (tab.entries * itemsize if tab.w is not None
-                                                 else 0) + tab.n * itemsize + sectors * 32)
+                                                 else 0) + tab.n * itemsize + sectors * 32
+            + tab.nlong * 12)
 
 
-def pc_kernel_rows(flush, tabs):
-    """X1 in its three modes, D1 in both forms and N1 at the path's shapes,
-    f64: X1 add on the ex59-class MatIS's scatter (the local buffer of
-    256 x 1,089 to 261,121 rows), set on config 2's ASM restrict scatter,
-    signed on fetidp's jump rows (B); D1 plain on the MatIS's Ab (the
-    2.43 GB table), transposed on BDDC's Phi^T restriction; N1 at config
-    2's length. Library calls: X1 index_add_ (atomic), D1 torch.bmm on the
-    same padded tables, N1 none."""
+def d1_bytes(M, tab, transposed, accumulate):
+    """D1's bytes: the real entries of M read once, the gather's real
+    entries (G and w, where there is one, read once each; x as the distinct
+    entries they gather) and the output written once (read too with
+    accumulate, its map read once)."""
+    import torch
+    ns, R, C = M.shape
+    isz = M.element_size()
+    nr = tab.nr.long() if tab.nr is not None else torch.full((ns,), R, device=M.device)
+    nc = tab.nc.long() if tab.nc is not None else torch.full((ns,), C, device=M.device)
+    real = int((nr * nc).sum())
+    K = tab.G.shape[1]
+    used = torch.arange(K, device=tab.G.device)[None, :] < (nr if transposed else nc)[:, None]
+    g = int(used.sum())
+    distinct = torch.unique(tab.G[used]).numel()
+    nout = ns * (C if transposed else R)
+    return (real * isz + g * 4 + distinct * isz + (g * isz if tab.w is not None else 0)
+            + nout * isz * (2 if accumulate else 1) + (nout * 4 if tab.out is not None else 0)), real
+
+
+def x1_row(label, tab, flush, earlier, gen):
+    """X1's row on `tab` (f64) in its mode: against its plain version bit
+    for bit, the earlier thread-per-destination design in turns, and
+    index_add_ after the gather (atomic) as the library call."""
+    import torch
+    from petsc_tpu_torch.ops import pc_kernels as pck
+    src = torch.rand(tab.nsrc, dtype=torch.float64, device="cuda", generator=gen) - 0.5
+    out = torch.zeros(tab.n, dtype=torch.float64, device="cuda") if label == "set" else None
+    dst = torch.repeat_interleave(torch.arange(tab.n, device="cuda"),
+                                  (tab.ptr[1:] - tab.ptr[:-1]).long())
+    sel = tab.sel.long()
+    old = earlier_entry(earlier, "dst_scatter", torch.float64)
+
+    def kern():
+        return pck.dst_scatter(tab, src, out=None if out is None else out.clone())
+
+    def plain():
+        return pck.dst_scatter_plain(tab, src, None if out is None else out.clone())
+
+    def prev():
+        return x1_call(old, tab, src, None if out is None else out.clone())
+
+    def lib():
+        v = src[sel] if tab.w is None else tab.w * src[sel]
+        return torch.zeros(tab.n, dtype=src.dtype, device="cuda").index_add_(0, dst, v)
+
+    # timed in place: set mode writes the same rows of one scratch copy of out
+    scratch = None if out is None else out.clone()
+    timed = (lambda: pck.dst_scatter(tab, src, out=scratch),
+             lambda: pck.dst_scatter_plain(tab, src, scratch),
+             lambda: x1_call(old, tab, src, scratch), lib)
+    r = pc_kernel_row("dst_scatter", "float64", kern, plain, lib, x1_bytes(tab, 8),
+                      tab.entries * (2 if tab.w is not None else 1), flush, True,
+                      "index_add_ (atomic) after the gather", earlier=prev, timed=timed)
+    r.update(mode=label, entries=tab.entries, rows=tab.n, long_destinations=tab.nlong,
+             longest_run=int((tab.ptr[1:] - tab.ptr[:-1]).max()),
+             earlier="earlier_kernels/dst_scatter_thread_per_dst.cu (a thread per "
+                     "destination, grid-stride over one wave)")
+    return r
+
+
+def d1_row(label, M, tab, flush, earlier, gen, transposed=False, ybuf=None):
+    """D1's row on the table M (f64) with the gather `tab`, into a new
+    buffer or accumulated into a copy of ybuf (timed in place on one
+    scratch copy): against its plain version to 1e-12, the earlier
+    warp-per-row design in turns, torch.bmm on the same padded table after
+    the gather as the library call."""
+    import torch
+    from petsc_tpu_torch.ops import pc_kernels as pck
+    x = torch.rand(int(tab.G.max()) + 1, dtype=torch.float64, device="cuda", generator=gen) - 0.5
+    acc = ybuf is not None
+    old = earlier_entry(earlier, "subdomain_apply", torch.float64)
+    scratch = None if ybuf is None else ybuf.clone()
+
+    def calls(fresh):
+        def y():
+            return None if ybuf is None else (ybuf.clone() if fresh else scratch)
+        return (lambda: pck.subdomain_apply(M, tab, x, transposed, y=y(), accumulate=acc),
+                lambda: pck.subdomain_apply_plain(M, tab, x, transposed, y(), acc),
+                lambda: d1_call(old, M, tab, x, transposed, y(), acc))
+
+    def lib():
+        tv = x[tab.G.long()] if tab.w is None else tab.w * x[tab.G.long()]
+        return torch.bmm(M.transpose(1, 2) if transposed else M, tv.unsqueeze(-1))
+
+    kern, plain, prev = calls(True)
+    k_t, p_t, e_t = calls(False)
+    nbytes, real = d1_bytes(M, tab, transposed, acc)
+    r = pc_kernel_row("subdomain_apply", "float64", kern, plain, lib, nbytes, 2 * real, flush,
+                      False, "torch.bmm on the same padded table, after the gather",
+                      earlier=prev, timed=(k_t, p_t, e_t, lib))
+    r.update(form="transposed" if transposed else "plain", table=label, shape=list(M.shape),
+             real_entries=real, output_map=tab.out is not None, accumulate=acc,
+             weighted=tab.w is not None,
+             earlier="earlier_kernels/subdomain_warp_per_row.cu (a block per (subdomain, "
+                     "64 rows), a warp per row; transposed 32 columns x 8 row groups)")
+    return r
+
+
+def pc_kernel_rows(flush, tabs, earlier):
+    """X1 in its three modes, D1 on its four tables and N1 at the path's
+    shapes, f64, each beside its earlier design in turns: X1 add on the
+    ex59-class MatIS's scatter (the local buffer of 256 x 1,089 to 261,121
+    rows), set on config 2's ASM restrict scatter, signed on fetidp's jump
+    rows (B); D1 plain on the MatIS's Ab (the 2.43 GB table), on BDDC's
+    K_qq^-1 (its output map Qidx, accumulated into Phi xc), on Phi
+    (interpolation, C = 4) and transposed on Phi^T (restriction); N1 at
+    config 2's length. Library calls: X1 index_add_ (atomic), D1 torch.bmm
+    on the same padded tables, N1 none."""
     import torch
     from petsc_tpu_torch.ops import pc_kernels as pck
     g = torch.Generator(device="cuda").manual_seed(21)
     rows = {}
-
-    def rnd(n):
-        return torch.rand(n, dtype=torch.float64, device="cuda", generator=g) - 0.5
-
-    for label, tab in (("add", tabs["x1_add"]), ("set", tabs["x1_set"]),
-                       ("signed", tabs["x1_signed"])):
-        src = rnd(tab.nsrc)
-        out = torch.zeros(tab.n, dtype=torch.float64, device="cuda") if label == "set" else None
-        dst = torch.repeat_interleave(torch.arange(tab.n, device="cuda"),
-                                      (tab.ptr[1:] - tab.ptr[:-1]).long())
-        sel = tab.sel.long()
-
-        def kern(tab=tab, src=src, out=out):
-            return pck.dst_scatter(tab, src, out=None if out is None else out.clone())
-
-        def plain(tab=tab, src=src, out=out):
-            return pck.dst_scatter_plain(tab, src, None if out is None else out.clone())
-
-        def lib(tab=tab, src=src, dst=dst, sel=sel):
-            v = src[sel] if tab.w is None else tab.w * src[sel]
-            return torch.zeros(tab.n, dtype=src.dtype, device="cuda").index_add_(0, dst, v)
-
-        r = pc_kernel_row("dst_scatter", "float64", kern, plain, lib, x1_bytes(tab, 8),
-                          tab.entries * (2 if tab.w is not None else 1), flush, True,
-                          "index_add_ (atomic) after the gather")
-        r.update(mode=label, entries=tab.entries, rows=tab.n)
-        rows[f"dst_scatter_{label}"] = r
-    for label, (M, tab, transposed) in (("plain", tabs["d1_plain"]),
-                                        ("transposed", tabs["d1_t"])):
-        x = rnd(int(tab.G.max()) + 1)
-        ns, R, C = M.shape
-        nr = tab.nr.long() if tab.nr is not None else torch.full((ns,), R, device="cuda")
-        nc = tab.nc.long() if tab.nc is not None else torch.full((ns,), C, device="cuda")
-        real = int((nr * nc).sum())
-        nbytes = real * 8 + 2 * tab.G.numel() * 4 + tab.G.numel() * 8 + ns * (C if transposed
-                                                                              else R) * 8
-
-        def kern(M=M, tab=tab, x=x, t=transposed):
-            return pck.subdomain_apply(M, tab, x, transposed=t)
-
-        def plain(M=M, tab=tab, x=x, t=transposed):
-            return pck.subdomain_apply_plain(M, tab, x, t)
-
-        def lib(M=M, tab=tab, x=x, t=transposed):
-            tv = x[tab.G.long()] if tab.w is None else tab.w * x[tab.G.long()]
-            return torch.bmm(M.transpose(1, 2) if t else M, tv.unsqueeze(-1))
-
-        r = pc_kernel_row("subdomain_apply", "float64", kern, plain, lib, nbytes, 2 * real,
-                          flush, False, "torch.bmm on the same padded tables, after the gather")
-        r.update(form=label, shape=list(M.shape), real_entries=real)
-        rows[f"subdomain_apply_{label}"] = r
+    for label in ("add", "set", "signed"):
+        rows[f"dst_scatter_{label}"] = x1_row(label, tabs[f"x1_{label}"], flush, earlier, g)
+    M, tab = tabs["d1_ab"]
+    rows["subdomain_apply_plain"] = d1_row("Ab", M, tab, flush, earlier, g)
+    M, tab, zl = tabs["d1_kqq"]
+    rows["subdomain_apply_kqq"] = d1_row("K_qq^-1", M, tab, flush, earlier, g, ybuf=zl)
+    M, tab = tabs["d1_phi"]
+    rows["subdomain_apply_phi"] = d1_row("Phi", M, tab, flush, earlier, g)
+    M, tab = tabs["d1_phi_t"]
+    rows["subdomain_apply_transposed"] = d1_row("Phi^T", M, tab, flush, earlier, g,
+                                                transposed=True)
     n = tabs["n1"]
-    d, y, w = rnd(n), rnd(n), rnd(n)
+    d, y, w = (torch.rand(n, dtype=torch.float64, device="cuda", generator=g) - 0.5
+               for _ in range(3))
     r = pc_kernel_row("neumann_step", "float64", lambda: pck.neumann_step(d, y, w),
                       lambda: pck.neumann_step_plain(d, y, w), None, 4 * n * 8, 2 * n, flush,
                       True, "none: no single PyTorch call computes dinv * (y - w)")
@@ -5337,16 +5694,32 @@ def pc_kernel_rows(flush, tabs):
     return rows
 
 
-def phase_pc(pt, smi, t_start, flush, ex56_op, gmres_ilu_ms):
+def nn_long_table(ksp, npad):
+    """X1's table of NN's W r (r -> one sum per subdomain, each over its
+    1,089 weighted dofs): the long-run shape, from the NN PC's coarse
+    restriction table."""
+    import numpy as np
+    from petsc_tpu_torch.ops import pc_kernels as pck
+    ct = ksp.getPC().device_data()["coarse_r"]
+    G, D, ks = (t.cpu().numpy() for t in (ct.G, ct.w.double(), ct.nc))
+    valid = np.arange(G.shape[1])[None, :] < ks[:, None]
+    return pck.scatter_table(np.repeat(np.arange(len(ks)), ks), G[valid], len(ks), npad,
+                             D[valid], device="cuda")
+
+
+def phase_pc(pt, smi, t_start, flush, ex56_op, gmres_ilu_ms, earlier):
     """Phase pc: each case of PC_CASES through the user's entry points, its
     first solve held to the reference's contract with its launches counted
     exactly; the warm time (best of 3), one profiled solve (busy ms and
     share) and the host set-up seconds; then the rows of X1, D1 and N1 on
-    the path's tables. Returns (the record, the kernel rows, the launches
-    summed over the cases' first solves, the per-case launches)."""
+    the path's tables (pc_kernel_rows, after the MatIS group) and X1's on
+    NN's long runs (after NN), each beside the earlier design (`earlier`,
+    the earlier designs' library) in turns. Returns (the record, the kernel
+    rows, the launches summed over the cases' first solves, the per-case
+    launches)."""
     import torch
     contract = pc_contract()
-    cases, total, per_case, tabs = {}, {}, {}, {}
+    cases, total, per_case, tabs, rows = {}, {}, {}, {}, {}
     groups = {}
     for case, (group, _) in PC_CASES.items():
         groups.setdefault(group, []).append(case)
@@ -5382,19 +5755,33 @@ def phase_pc(pt, smi, t_start, flush, ex56_op, gmres_ilu_ms):
                 cases[case]["factor_kinds"] = [ksp.getPC().meta[1][0], ksp.getPC().meta[2][0]]
             if case == "matis_bddc":
                 d = ksp.getPC().device_data()
-                tabs["d1_t"] = (d["Phi"], d["restrict"], True)
+                tabs["d1_phi_t"] = (d["Phi"], d["restrict"])
+                tabs["d1_phi"] = (d["Phi"], d["interp"])
+                tabs["d1_kqq"] = (d["Kqq_inv"], d["dual"],
+                                  torch.zeros(d["Kqq_inv"].shape[:2], dtype=torch.float64,
+                                              device="cuda"))
             if case == "matis_fetidp":
                 tabs["x1_signed"] = ksp._fetidp[1]["B"]
-            if group == "matis" and "d1_plain" not in tabs:
+            if group == "matis" and "d1_ab" not in tabs:
                 md = op[0].device_data()
-                tabs["d1_plain"] = (md["Ab"], md["d1"], False)
+                tabs["d1_ab"] = (md["Ab"], md["d1"])
                 tabs["x1_add"] = md["x1"]
+            if case == "matis_nn":
+                rows["dst_scatter_long"] = x1_row(
+                    "long", nn_long_table(ksp, op[0].row_layout.Npad), flush, earlier,
+                    torch.Generator(device="cuda").manual_seed(22))
             del ksp, b, x
             torch.cuda.empty_cache()
         if group == "matis":
-            rows = pc_kernel_rows(flush, tabs)
+            rows.update(pc_kernel_rows(flush, tabs, earlier))
+            tabs.clear()
         del op
         torch.cuda.empty_cache()
+    xp = torch.rand((16, 128), dtype=torch.float32, device="cuda")
+    from petsc_tpu_torch.ops import pallas_kernels as pk
+    probe_ms = time_ms(lambda: pk.probe(xp), flush)     # the launch floor, this phase
+    for r in rows.values():
+        r["k1_launch_probe_ms"] = probe_ms
     rec = {"phase": "pc", "nvidia_smi": smi, "cases": cases, "kernel_checks": rows,
            "matis": {"ne_nsub": list(PC_MATIS), "nn_ne_nsub": list(PC_MATIS_NN),
                      "table_GB_each": 256 * 1089 * 1089 * 8 / 1e9},
@@ -5431,9 +5818,7 @@ def main():
         pk.kernels_available("cuda")
         torch.cuda.synchronize()
     except BaseException:
-        if earlier_build[0] is not None:        # leave no nvcc running
-            earlier_build[0].kill()
-            earlier_build[0].wait()
+        stop_earlier_build(earlier_build)       # leave no nvcc running
         raise
     log = (cuda_build.library_path().parent / "nvcc.log")
     ptxas = ([ln.strip() for ln in log.read_text().splitlines()
@@ -5682,7 +6067,7 @@ def main():
     # classical GAMG), ex56 ne 64 (fieldsplit), the ex59-class MatIS (BDDC,
     # fetidp, NN); X1, D1 and N1 on the path's tables ----
     pc_rec, pc_rows, pc_launches, pc_case_launches = phase_pc(pt, smi, t_start, flush, ex56_op,
-                                                              gm_ms)
+                                                              gm_ms, earlier)
     emit(pc_rec)
     del ex56_op
     torch.cuda.empty_cache()
@@ -5921,8 +6306,11 @@ def main():
     # plain form on its Ab; the other modes and forms stand beside them,
     # and the launches of each phase pc case
     for name, main_key, other_keys in (
-            ("dst_scatter", "dst_scatter_add", ("dst_scatter_set", "dst_scatter_signed")),
-            ("subdomain_apply", "subdomain_apply_plain", ("subdomain_apply_transposed",)),
+            ("dst_scatter", "dst_scatter_add", ("dst_scatter_set", "dst_scatter_signed",
+                                                "dst_scatter_long")),
+            ("subdomain_apply", "subdomain_apply_plain", ("subdomain_apply_kqq",
+                                                          "subdomain_apply_phi",
+                                                          "subdomain_apply_transposed")),
             ("neumann_step", "neumann_step", ())):
         r = next(r for r in table if r["name"] == name)
         m = pc_rows[main_key]

@@ -96,7 +96,8 @@ SIGNATURES = {
                                 _f64, _f64, _f64, _i32, _vp),
 }
 for _t in ("f64", "f32"):
-    SIGNATURES[f"ptt_dst_scatter_{_t}"] = (_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp)
+    SIGNATURES[f"ptt_dst_scatter_{_t}"] = (_vp, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32,
+                                           _i32, _vp)
     SIGNATURES[f"ptt_subdomain_apply_{_t}"] = (_i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                                                *(_i32,) * 5, _i32, _vp)
     SIGNATURES[f"ptt_neumann_step_{_t}"] = (_vp, _vp, _vp, _vp, _i64, _i32, _vp)

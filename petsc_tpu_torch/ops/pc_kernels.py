@@ -63,21 +63,34 @@ def _ptr(t):
 # X1: the deterministic scatter by destination
 # ---------------------------------------------------------------------
 
+# destinations with more entries than this are summed by a warp each (the
+# table's long list); the others by a thread each. The kernel holds the
+# same number as kLongRun (csrc/dst_scatter.cu).
+LONG_RUN = 32
+
+
 @dataclass
 class ScatterTable:
     """Entries sorted by destination (stably): ptr (n + 1), sel and w of
     each entry, int32 on the device; `steps` the plain version's schedule
-    (the rows with more than j entries and their j-th entry, j = 0, 1, ...)."""
+    (the rows with more than j entries and their j-th entry, j = 0, 1, ...);
+    `longs` the destinations with more than LONG_RUN entries as rows
+    (destination, first entry, end), int32, or None when there are none."""
     n: int
     ptr: torch.Tensor
     sel: torch.Tensor
     w: torch.Tensor | None
     steps: list
     nsrc: int
+    longs: torch.Tensor | None = None
 
     @property
     def entries(self):
         return int(self.sel.numel())
+
+    @property
+    def nlong(self):
+        return 0 if self.longs is None else int(self.longs.shape[0])
 
 
 def scatter_table(dst, sel, n, nsrc, w=None, device=None, dtype=torch.float64):
@@ -102,9 +115,12 @@ def scatter_table(dst, sel, n, nsrc, w=None, device=None, dtype=torch.float64):
                       torch.as_tensor(ptr[rows] + j, device=device)))
     wt = None if w is None else torch.as_tensor(
         np.asarray(w, dtype=np.float64).ravel()[order], dtype=dtype, device=device)
+    long_d = np.flatnonzero(cnt > LONG_RUN)
+    longs = None if not len(long_d) else torch.as_tensor(
+        np.stack([long_d, ptr[long_d], ptr[long_d + 1]], 1).astype(np.int32), device=device)
     return ScatterTable(n, torch.as_tensor(ptr.astype(np.int32), device=device),
                         torch.as_tensor(sel[order].astype(np.int32), device=device), wt,
-                        steps, int(nsrc))
+                        steps, int(nsrc), longs)
 
 
 def dst_scatter_plain(tab: ScatterTable, src, out=None):
@@ -144,8 +160,8 @@ def dst_scatter(tab: ScatterTable, src, out=None):
     y = torch.empty(tab.n, dtype=src.dtype, device=src.device) if out is None else out
     if tab.n:
         cuda_build.launch(LAUNCHES, "dst_scatter", src, y.data_ptr(), src.data_ptr(),
-                          tab.ptr.data_ptr(), tab.sel.data_ptr(), _ptr(tab.w), tab.n,
-                          int(out is not None))
+                          tab.ptr.data_ptr(), tab.sel.data_ptr(), _ptr(tab.w), _ptr(tab.longs),
+                          tab.n, tab.nlong, int(out is not None))
     return y
 
 

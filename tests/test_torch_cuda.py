@@ -1326,6 +1326,33 @@ def test_subdomain_apply_matches_its_plain_version(cuda_device, transposed, dtyp
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", list(chip_smoke.D1_EDGES))
+def test_subdomain_apply_at_the_shapes_where_its_design_breaks(cuda_device, name, dtype):
+    """D1 on chip_smoke.D1_EDGES: rows of 1,089 (8 mod 16 bytes in f64, 4
+    in f32), subdomain bases and M off a 16-byte edge, a one-row tail, one
+    row, C = 1, 4, 16, 17, 33 and 70 in both forms, nr < R and nc < C with
+    NaN padding, an output map with -1 slots and accumulate; to 1e-12 /
+    1e-5 of the plain version in float64, one launch, equal bits on a
+    rerun and under another grid."""
+    from petsc_tpu_torch.ops import pc_kernels as pck
+    chip_smoke.d1_edge_check(pck, name, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", list(chip_smoke.X1_EDGES))
+def test_dst_scatter_at_the_shapes_where_its_design_breaks(cuda_device, name, dtype):
+    """X1 on chip_smoke.X1_EDGES: random entries in each mode, a
+    destination of 5,000 entries (a warp of the long part), runs at the
+    long-run threshold, runs of 0 to 40, destinations that no entry reaches
+    in set mode; equal bits with the plain version, one launch, equal bits
+    on a rerun and under another grid."""
+    from petsc_tpu_torch.ops import pc_kernels as pck
+    chip_smoke.x1_edge_check(pck, name, dtype)
+
+
+@pytest.mark.cuda
 def test_neumann_step_equals_its_plain_version_bit_for_bit(cuda_device):
     from petsc_tpu_torch.ops import pc_kernels as pck
     rng = np.random.default_rng(33)
