@@ -297,6 +297,23 @@ Phases, one JSON line each on stdout:
            timed in turns with its earlier design (earlier_kernels/),
            beside its bound, plain version, library call and K1's launch
            probe in the same phase;
+  nonlinear  SNES, TS and Tao (item 10) through the user's entry points
+           (NONLINEAR_CASES): PETSc's ex5 (Newton LS, the COO Jacobian into
+           the DMDA's aij_dnd matrix, CG + GAMG's structured head) at 257^2
+           and 1025^2, ex19 (JFNK with the FD-colouring pmat, GMRES(30) +
+           ILU(0)) at -da_refine 3 and 6, Crank-Nicolson heat steps with the
+           device-loop JFNK at 129^2 and 1025^2, an rk 3bs adjoint at
+           257^2, Tao lmvm and nls on the chained Rosenbrock at n = 2^20;
+           each case's first run held to `python snes_contract.py`
+           (tests/data/snes_contract.json: its, reason, histories to 1e-6
+           relative, entries below 1e-6 of the first to 1e-12 of the first;
+           vectors' norm and 16 samples to 1e-10) and to SNES_TS_r05.json
+           (ex5 257^2's history, the 129^2 CN step's t_end and error), its
+           launches exact (nonlinear_launches_needed), its host set-up split
+           (Jacobian assembly with each setPreallocationCOO and
+           setValuesCOO, PCSetUp, colouring), its warm run (best of 2; one
+           where a run takes over 5 s) and one profiled run (the card's
+           activity alone: busy ms, share);
   bench_gpu  python bench_gpu.py in a process of its own (the kernels built
            above reused): its JSON line, and its contract, BENCH_r05.json's
            solve (10 iterations, relres <= 1e-8, jacobi_its 184), the small-n
@@ -5790,6 +5807,536 @@ def phase_pc(pt, smi, t_start, flush, ex56_op, gmres_ilu_ms, earlier):
 
 
 
+# ---------------------------------------------------------------------
+# phase nonlinear: SNES, TS and Tao (item 10)
+# ---------------------------------------------------------------------
+
+NONLINEAR_CASES = ("ex5_257", "ex5_1025", "ex19_r3", "ex19_r6", "heat_cn_129", "heat_cn_1025",
+                   "heat_rk_adjoint", "tao_lmvm", "tao_nls")
+NL_HIST_RTOL = 1e-6        # histories, relative
+NL_HIST_FLOOR = 1e-6       # an entry below this fraction of the first ...
+NL_HIST_ABS = 1e-12        # ... is held to this fraction of the first
+NL_VEC_RTOL = 1e-10        # a vector's 2-norm and its 16 samples
+NL_R05 = Path(__file__).resolve().parent / "SNES_TS_r05.json"
+EX19_R3_LINE = "  0 SNES Function norm 0.0406612"   # PETSc's ex19_1.out, -da_refine 3
+NL_WARM_REPS = 2
+NL_ONE_WARM_MS = 5000.0     # a warm run longer than this is not repeated
+
+
+def nl_profile(run, warm_ms):
+    """One run under torch.profiler recording the card's activity alone,
+    between spin kernels as profile_solve puts them (its spin count,
+    doubled for later profiles, and its re-profile where no spin is seen
+    on each side): the card's busy ms (kernels and copies: one stream, no
+    overlap), its share of the warm time, and time by kernel, read from
+    the raw trace (a long loop's hundreds of thousands of events would
+    take minutes through the profiler's own event list)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _attempt in range(3):
+        spins_each_side = _SPINS[0]
+        nl_sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(spins_each_side):
+                torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            for _ in range(WARMUP_SPINS):
+                torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+        spins, span, by_name = [], [math.inf, -math.inf], {}
+        for ev in prof.profiler.kineto_results.events():
+            if ev.device_type() != DeviceType.CUDA:
+                continue
+            name, start, dur = ev.name(), ev.start_ns(), ev.duration_ns()
+            if "spin_kernel" in name:
+                spins.append(start)
+                continue
+            span = [min(span[0], start), max(span[1], start + dur)]
+            n, d = by_name.get(name, (0, 0))
+            by_name[name] = (n + 1, d + dur)
+        lead = sum(1 for t in spins if t < span[0])
+        trail = sum(1 for t in spins if t > span[1])
+        if 2 * lead < spins_each_side:
+            _SPINS[0] = 2 * spins_each_side
+        if lead and trail:
+            break
+    else:
+        raise AssertionError(f"the profiler kept {lead} of the {spins_each_side} spin kernels "
+                             f"before the run and {trail} of {WARMUP_SPINS} after it: it may "
+                             "have lost some of the run's own events")
+    busy_ms = sum(d for _, d in by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "busy_share_of_warm": busy_ms / warm_ms if by_name else None,
+            "spins_seen_before_and_after": [lead, trail], "spins_before": spins_each_side,
+            "device_events": sum(n for n, _ in by_name.values()),
+            "by_kernel": [{"name": k[:90], "count": n, "ms": d / 1e6} for k, (n, d) in top]}
+
+
+def snes_contract():
+    return json.loads((DATA / "snes_contract.json").read_text())
+
+
+def r05_records():
+    """SNES_TS_r05.json's lines by artifact (the reference's counts and
+    norms; its times are the TPU's and are not used)."""
+    out = {}
+    for line in NL_R05.read_text().splitlines():
+        if line.strip():
+            r = json.loads(line)
+            out[r["artifact"]] = r
+    return out
+
+
+def nl_hist_check(label, got, want):
+    """Lengths equal; each entry to NL_HIST_RTOL relative, one below
+    NL_HIST_FLOOR of the first to NL_HIST_ABS of the first. Returns the
+    largest relative error of the entries held relatively."""
+    got, want = [float(v) for v in got], [float(v) for v in want]
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} entries, want {len(want)}: {got} vs {want}")
+    scale = abs(want[0]) if want else 1.0
+    worst = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        if abs(w) < NL_HIST_FLOOR * scale:
+            ok = abs(g - w) <= NL_HIST_ABS * scale
+        else:
+            ok = abs(g - w) <= NL_HIST_RTOL * abs(w)
+            worst = max(worst, abs(g - w) / abs(w))
+        if not ok:
+            raise AssertionError(f"{label}: entry {k} is {g!r}, want {w!r}")
+    return worst
+
+
+def nl_vec_check(label, v, want):
+    """A vector's 2-norm and its samples (the contract's sample_idx) to
+    NL_VEC_RTOL relative of the contract's."""
+    import numpy as np
+    v = v.detach().double().cpu().numpy()
+    norm = float(np.linalg.norm(v))
+    ws = np.asarray(want["sample"])
+    nerr = abs(norm - want["norm2"]) / abs(want["norm2"])
+    serr = float(np.abs(v[np.asarray(want["sample_idx"])] - ws).max()
+                 / max(float(np.abs(ws).max()), 1e-300))
+    if not (nerr <= NL_VEC_RTOL and serr <= NL_VEC_RTOL):
+        raise AssertionError(f"{label}: 2-norm {norm!r} (want {want['norm2']!r}, rel err "
+                             f"{nerr:.3g}), samples' rel err {serr:.3g}, limit {NL_VEC_RTOL}")
+    return {"norm2": norm, "norm_rel_err": nerr, "samples_rel_err": serr}
+
+
+def nonlinear_launches_needed(kind, r):
+    """The launches of one run of a phase nonlinear case, from what the
+    run reports it did (r: the case's result). The loops' vector steps:
+
+    - newtonls with the bt line search (ex5, ex19): ||F(x0)|| (one K4);
+      each line-search trial x - lam y (K2) and its residual's norm (K4),
+      r["ls_its"] the trials of each Newton step; then ||y|| and ||x|| (two
+      K4) a step.
+    - heat_cn: each time step one JFNK stage solve (snes/compiled.py):
+      ||F(x0)||; a Newton step one GMRES(m) cycle, ||b|| and V0 = b / ||b||
+      (K4, K2) and two fused Gram-Schmidt updates a Krylov vector (2m K3),
+      then each backtracking trial x - lam s and its norm (K2, K4);
+      r["snes_its"] and r["ls_its"] sum them over the steps.
+    - heat_rk_adjoint: each step of the tableau, one K2 a nonzero of A's
+      strictly lower part, of b and of b - bhat (the error estimate); the
+      adjoint replay is autograd over plain arithmetic.
+    - tao: each Wolfe search (r["ls_its"]: a descent direction, trials,
+      curvature tests) <g, d> (K4), then a trial point x + t d a trial and
+      the accepted (or last) point (K2), a curvature test <g_t, d> (K4);
+      lmvm: each direction the two-loop recursion over p pairs (3p K4 and
+      2p K2, with the scaling's two K4 and one K2 where p > 0) and <d, g>;
+      each accepted step s, y (two K2), <s, y> and ||g|| (two K4); ||g0||.
+      nls: each Newton-CG solve (r["cg_its"]: Hessian products h, ended by
+      negative curvature e) ||r0||^2, h curvatures <p, Hp> and, for each
+      product not ending it, three K2 and one K4; then <d, g>; ||g|| a step
+      and ||g0||.
+
+    The linear solves add, per Newton step: ex5, setValuesCOO's two K8
+    (v[perm] and the diagonal) and grid_launches_needed(its, levels), CG +
+    GAMG with the structured head, set-up included (the pmat's values
+    change every step, so GAMG sets up again); ex19, the FD pmat's
+    setValuesCOO (two K8) and GMRES(30) + ILU(0) on the matrix-free
+    Jacobian (a jvp: no kernel): one K3 a Krylov vector and two T1 sweeps
+    per PC application (its + cycles). User functions and autograd are
+    PyTorch and launch none of the port's kernels."""
+    need = {}
+
+    def add(k, v):
+        if v:
+            need[k] = need.get(k, 0) + v
+
+    if kind in ("ex5", "ex19"):
+        trials = sum(r["ls_its"])
+        add("triad", trials)
+        add("dot2", 1 + trials + 2 * r["its"])
+        for its in r["ksp_its"]:
+            add("gather", 2)
+            if kind == "ex5":
+                for k, v in grid_launches_needed(its, r["_levels"], probes=9).items():
+                    add(k, v)
+            else:
+                add("axpy_normsq", its)
+                add("trisolve", 2 * (its + max(1, math.ceil(its / 30))))
+    elif kind == "heat_cn":
+        from petsc_tpu_torch.snes.compiled import GMRES_M
+        its, trials = r["snes_its"], sum(r["ls_its"])
+        add("dot2", r["steps"] + its + trials)
+        add("triad", its + trials)
+        add("axpy_normsq", 2 * GMRES_M * its)
+    elif kind == "heat_rk_adjoint":
+        A, b, bhat = r["tableau"]
+        per_step = (sum(A[i][j] != 0.0 for i in range(len(b)) for j in range(i))
+                    + sum(bi != 0.0 for bi in b)
+                    + (sum(bi - bh != 0.0 for bi, bh in zip(b, bhat)) if bhat else 0))
+        add("triad", r["steps"] * per_step)
+    elif kind == "tao":
+        for descent, trials, tests in r["ls_its"]:
+            add("dot2", 1 + tests)
+            if descent:
+                add("triad", trials + 1)
+        for p in r["lbfgs_pairs"]:
+            add("dot2", 3 * p + 2 * (p > 0) + 1)
+            add("triad", 2 * p + (p > 0))
+        for h, negative in r["cg_its"]:
+            add("dot2", 1 + 2 * h - negative + 1)
+            add("triad", 3 * (h - negative))
+        add("dot2", 1 + r["its"] * (2 if r["type"] == "lmvm" else 1))
+        if r["type"] == "lmvm":
+            add("triad", 2 * r["its"])
+    return need
+
+
+def nl_ex5(pt, c):
+    """PETSc's ex5 through petsc_tpu_torch/examples/ex5.py's residual,
+    Jacobian callback and initial guess, as snes_contract.py runs the
+    reference's (examples/snes_ts_probe.py's bratu_block): CG + GAMG,
+    KSP rtol 1e-5, max_it 200."""
+    import torch
+    from petsc_tpu_torch.examples import ex5
+    n, lam = c["n"], c["par"]
+    da = pt.DMDA.create(2, (n, n), dof=1, stencil_width=1)
+    snes = pt.SNES().create()
+    snes.setDM(da)
+    snes.setFunction(ex5.make_residual(da, lam))
+    J = da.createMatrix()
+    snes.setJacobian(ex5.make_jacobian(da, lam), J=J)
+    ksp = snes.getKSP()
+    ksp.setType("cg")
+    ksp.getPC().setType("gamg")
+    ksp.setTolerances(rtol=c["ksp_rtol"], max_it=c["ksp_max_it"])
+    coo = {"setPreallocationCOO": [], "setValuesCOO": []}
+    for name in coo:
+        def timed(*a, _f=getattr(J, name), _k=name):
+            nl_sync()
+            t0 = time.perf_counter()
+            r = _f(*a)
+            nl_sync()
+            coo[_k].append(time.perf_counter() - t0)
+            return r
+        setattr(J, name, timed)
+    guess = torch.as_tensor(ex5.initial_guess(da, lam), dtype=torch.float64,
+                            device=pt.config.device())
+
+    def run():
+        x = da.createGlobalVector()
+        x.array = guess.clone()
+        snes.solve(None, x)
+        return x
+
+    def result(x):
+        levels = ksp.getPC()._impl.levels
+        return {"its": snes.getIterationNumber(), "reason": int(snes.getConvergedReason()),
+                "history": [float(h) for h in snes.getConvergenceHistory()],
+                "ksp_its": list(snes._ksp_its), "ls_its": list(snes._ls_its),
+                "gamg_levels": [int(lev.A.getSize()[0]) for lev in levels],
+                "level_kinds": [lev.A.meta[0] for lev in levels],
+                "x": x.array, "_levels": levels}
+    return run, result, coo
+
+
+def nl_ex19(pt, c):
+    """PETSc's ex19 through petsc_tpu_torch/examples/ex19.py's residual and
+    initial guess, set up as its main() does: a 4 x 4 dof-4 DMDA refined
+    c["refine"] times, setUseMF, the SNES's own defaults (GMRES(30) +
+    ILU(0) on the FD-colouring pmat)."""
+    import torch
+    from petsc_tpu_torch.examples import ex19
+    da = pt.DMDA.create(dim=2, sizes=(4, 4), dof=4, stencil_type="star")
+    for _ in range(c["refine"]):
+        da = da.refine()
+    mx, my = da.sizes
+    snes = pt.SNES().create()
+    snes.setDM(da)
+    snes.setFunction(ex19.make_residual(mx, my, 1.0 / (mx * my), 1.0, 1.0))
+    snes.setUseMF(True)
+    snes.setFromOptions()
+    guess = torch.as_tensor(ex19.initial_guess(mx, my, 1.0), dtype=torch.float64,
+                            device=pt.config.device())
+
+    def run():
+        x = pt.Vec.from_array(guess)
+        snes.solve(None, x)
+        return x
+
+    def result(x):
+        P = snes._fd_coloring["mat"]
+        return {"mx": mx, "my": my, "its": snes.getIterationNumber(),
+                "reason": int(snes.getConvergedReason()),
+                "history": [float(h) for h in snes.getConvergenceHistory()],
+                "monitor_line": f"{0:3d} SNES Function norm {snes.getConvergenceHistory()[0]:g}",
+                "ksp_its": list(snes._ksp_its), "ls_its": list(snes._ls_its),
+                "ncolors": snes._fd_coloring["ncolors"],
+                "pmat_kind": P.meta[0], "pmat_nnz": P.nnz(), "x": x.array}
+    return run, result, None
+
+
+def nl_heat_u0(n):
+    """sin(pi x) sin(pi y) on the n x n grid, x fastest (snes_contract.py's
+    heat_u0: x = i hx)."""
+    import numpy as np
+    yi, xi = np.divmod(np.arange(n * n), n)
+    h = 1.0 / (n - 1)
+    return np.sin(np.pi * xi * h) * np.sin(np.pi * yi * h)
+
+
+def nl_heat(pt, c, adjoint):
+    """The heat equation through petsc_tpu_torch/examples/heat.py's RHS:
+    Crank-Nicolson with the device-loop JFNK stage solve
+    (ts.use_compiled_snes), dt = hx^2 (examples/snes_ts_probe.py's
+    ts_heat_block), or rk 3bs at dt = 0.2 hx^2 with a saved trajectory and
+    adjointSolve(dJdu = u_T)."""
+    import torch
+    from petsc_tpu_torch.examples import heat
+    n = c["n"]
+    da = pt.DMDA.create(2, (n, n), dof=1, stencil_width=1)
+    hx = 1.0 / (n - 1)
+    ts = pt.TS().create()
+    if adjoint:
+        ts.setType("rk")
+        ts.setRKType(c["rk_type"])
+        ts.adapt.kind = "none"
+        dt = c["dt_factor"] * hx * hx
+    else:
+        ts.setType("cn")
+        ts.use_compiled_snes = True
+        dt = hx * hx
+    ts.setRHSFunction(heat.make_rhs(da))
+    ts.setTimeStep(dt)
+    ts.setMaxSteps(c["steps"])
+    ts.setMaxTime(1e9)
+    u0_np = nl_heat_u0(n)
+    u0 = torch.as_tensor(u0_np, dtype=torch.float64, device=pt.config.device())
+
+    def run():
+        ts.setTime(0.0)
+        if adjoint:
+            ts.setSaveTrajectory()
+        u = pt.Vec.from_array(u0)
+        ts.solve(u)
+        lam = ts.adjointSolve(u.array, u0).array if adjoint else None
+        return u, lam
+
+    def result(out):
+        u, lam = out
+        uT = u.array
+        tend = ts.getTime()
+        err = float((uT - u0 * math.exp(-2 * math.pi ** 2 * tend)).abs().max())
+        rec = {"dt": dt, "steps": ts.getStepNumber(), "reason": int(ts.getConvergedReason()),
+               "t_end": tend, "max_err_vs_analytic": err, "u": uT, "lambda0": lam,
+               "snes_its": ts.getSNESIterations(), "ls_its": list(ts._ls_its)}
+        if adjoint:
+            from petsc_tpu_torch.ts.ts import _RK_TABLES
+            rec["tableau"] = _RK_TABLES[c["rk_type"]][:3]
+        return rec
+    return run, result, None
+
+
+def nl_rosenbrock(x):
+    import torch
+    return torch.sum(100.0 * (x[1::2] - x[0::2] ** 2) ** 2 + (1.0 - x[0::2]) ** 2)
+
+
+def nl_tao(pt, c):
+    """Tao lmvm or nls on the chained Rosenbrock of tests/test_tao.py
+    (rosenbrock1.c's form) at n = 2^log2n from x = 0."""
+    import torch
+    n = 2 ** c["log2n"]
+    tao = pt.Tao().create()
+    tao.setType(c["type"])
+    tao.setObjective(nl_rosenbrock)
+
+    def run():
+        x = pt.Vec.from_array(torch.zeros(n, dtype=torch.float64, device=pt.config.device()))
+        tao.solve(x)
+        return x
+
+    def result(x):
+        return {"its": tao.getIterationNumber(), "reason": int(tao.getConvergedReason()),
+                "type": c["type"], "ls_its": [tuple(e) for e in tao._ls_its],
+                "lbfgs_pairs": list(tao._lbfgs_pairs), "cg_its": list(tao._cg_its),
+                "f_history": [f for f, _ in tao._history],
+                "g_history": [g for _, g in tao._history], "x": x.array}
+    return run, result, None
+
+
+def nl_check(case, c, r, r05):
+    """The first run against the contract (and SNES_TS_r05.json); returns
+    the record's check entries."""
+    kind = c["kind"]
+    out = {}
+    if kind in ("ex5", "ex19", "tao"):
+        if (r["its"], r["reason"]) != (c["its"], c["reason"]):
+            raise AssertionError(f"{case}: its {r['its']}, reason {r['reason']}; the contract "
+                                 f"{c['its']}, {c['reason']}")
+    if kind in ("ex5", "ex19"):
+        out["history_worst_rel"] = nl_hist_check(case, r["history"], c["history"])
+    if kind == "ex5":
+        if r["gamg_levels"] != c["gamg_levels"]:
+            raise AssertionError(f"{case}: GAMG levels {r['gamg_levels']}, the reference's "
+                                 f"{c['gamg_levels']}")
+        if case == "ex5_257":
+            ref = r05["snes_bratu_ex5"]
+            if (r["its"], r["reason"]) != (ref["newton_its"], ref["reason"]):
+                raise AssertionError(f"{case}: not SNES_TS_r05.json's its and reason")
+            out["r05_history_worst_rel"] = nl_hist_check(f"{case} vs r05", r["history"],
+                                                         ref["fnorm_history"])
+    if kind == "ex19" and case == "ex19_r3" and r["monitor_line"] != EX19_R3_LINE:
+        raise AssertionError(f"{case}: monitor line {r['monitor_line']!r}, want "
+                             f"{EX19_R3_LINE!r}")
+    if kind == "tao":
+        out["f_history_worst_rel"] = nl_hist_check(f"{case} f", r["f_history"],
+                                                   c["f_history"])
+        out["g_history_worst_rel"] = nl_hist_check(f"{case} |g|", r["g_history"],
+                                                   c["g_history"])
+    if kind in ("heat_cn", "heat_rk_adjoint"):
+        if r["steps"] != c["steps_taken"] or r["t_end"] != c["t_end"]:
+            raise AssertionError(f"{case}: {r['steps']} steps to t = {r['t_end']!r}; the "
+                                 f"contract {c['steps_taken']} to {c['t_end']!r}")
+        out["u"] = nl_vec_check(f"{case} u", r["u"], c["u"])
+    if kind == "heat_cn":
+        out["max_err_rel"] = nl_hist_check(f"{case} max error", [r["max_err_vs_analytic"]],
+                                           [c["max_err_vs_analytic"]])
+        if case == "heat_cn_129":
+            ref = r05["ts_heat_cn"]
+            if r["t_end"] != ref["t_end"]:
+                raise AssertionError(f"{case}: t_end {r['t_end']!r}, r05 {ref['t_end']!r}")
+            out["r05_max_err_rel"] = nl_hist_check(f"{case} vs r05", [r["max_err_vs_analytic"]],
+                                                   [ref["max_err_vs_analytic"]])
+    if kind == "heat_rk_adjoint":
+        out["lambda0"] = nl_vec_check(f"{case} lambda0", r["lambda0"], c["lambda0"])
+    return out
+
+
+def nl_sync():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def nl_build(pt, case, c):
+    """(run, result, coo) of a case (nl_ex5, nl_ex19, nl_heat, nl_tao), after
+    init() on the package's device (the card unless the caller's init chose
+    the CPU)."""
+    kind = c["kind"]
+    if kind == "ex5":
+        return nl_ex5(pt, c)
+    if kind == "ex19":
+        return nl_ex19(pt, c)
+    if kind == "tao":
+        return nl_tao(pt, c)
+    return nl_heat(pt, c, adjoint=kind == "heat_rk_adjoint")
+
+
+def nl_first(pt, case, c, run, result):
+    """The case's first run with every launch count set to 0 just before
+    and read just after, held exactly to nonlinear_launches_needed:
+    (result, launches, the profiler's events, seconds)."""
+    nl_sync()
+    pt.log().reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    nl_sync()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    events = set_up_events(pt)
+    r = result(out)
+    need = nonlinear_launches_needed(c["kind"], r)
+    if launches != need:
+        bad = {k: (launches.get(k, 0), need.get(k, 0)) for k in set(launches) | set(need)
+               if launches.get(k, 0) != need.get(k, 0)}
+        raise AssertionError(f"{case}: launches (got, want): {bad}")
+    return r, launches, events, seconds
+
+
+def nl_case(pt, case, c, r05):
+    """One case: its first run (nl_first) checked against the contract;
+    the host set-up split from the profiler's events; the best of
+    NL_WARM_REPS warm runs (one where it takes over NL_ONE_WARM_MS); one
+    profiled run (nl_profile)."""
+    pt.init(args=[])
+    run, result, coo = nl_build(pt, case, c)
+    r, launches, events, first_s = nl_first(pt, case, c, run, result)
+    checks = nl_check(case, c, r, r05)
+    warm = math.inf
+    for _ in range(NL_WARM_REPS):
+        nl_sync()
+        t0 = time.perf_counter()
+        run()
+        nl_sync()
+        warm = min(warm, (time.perf_counter() - t0) * 1e3)
+        if warm > NL_ONE_WARM_MS:
+            break
+    prof = nl_profile(run, warm)
+    rec = {"case": case, "kind": c["kind"], "first_s": first_s, "warm_ms": warm,
+           "busy_ms": prof["device_busy_ms"], "busy_share": prof["busy_share_of_warm"],
+           "device_events": prof["device_events"], "profiled_wall_ms": prof["profiled_wall_ms"],
+           "spins_seen_before_and_after": prof["spins_seen_before_and_after"],
+           "by_kernel": prof["by_kernel"], "launches": launches,
+           "checks": checks,
+           "setup_s": {"jacobian": events.get("SNESJacobianEval", 0.0),
+                       "pcsetup": sum(v for k, v in events.items() if k.startswith("PCSetUp")),
+                       "coloring": events.get("SNESFDColorSetUp", 0.0),
+                       "ksp_solve": events.get("KSPSolve", 0.0),
+                       "snes_solve": events.get("SNESSolve", 0.0),
+                       "ts_solve": events.get("TSSolve", 0.0)},
+           "events": events}
+    for k in ("its", "reason", "ksp_its", "gamg_levels", "level_kinds", "ncolors", "pmat_kind",
+              "pmat_nnz", "steps", "t_end", "max_err_vs_analytic", "dt", "mx", "my",
+              "monitor_line", "history", "f_history", "g_history", "snes_its", "ls_its",
+              "lbfgs_pairs", "cg_its"):
+        if k in r:
+            rec[k] = r[k]
+    if c["kind"] == "ex5":
+        rec["contract_ksp_its"] = c["ksp_its"]
+    if coo is not None:
+        rec["coo_s"] = coo
+    return rec, launches
+
+
+def phase_nonlinear(pt, smi, t_start):
+    """Every case of NONLINEAR_CASES (nl_case); returns (the phase's record,
+    {case: launches})."""
+    import torch
+    contract = snes_contract()
+    r05 = r05_records()
+    cases, by_case = [], {}
+    for case in NONLINEAR_CASES:
+        t0 = time.perf_counter()
+        rec, launches = nl_case(pt, case, contract[case], r05)
+        rec["seconds"] = time.perf_counter() - t0
+        cases.append(rec)
+        by_case[case] = launches
+        torch.cuda.empty_cache()
+    return {"phase": "nonlinear", "nvidia_smi": smi, "cases": cases,
+            "elapsed_s": time.perf_counter() - t_start}, by_case
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6072,6 +6619,11 @@ def main():
     del ex56_op
     torch.cuda.empty_cache()
 
+    # ---- SNES, TS and Tao (item 10): each case with every launch count set
+    # to 0 just before its first run and read just after ----
+    nl_rec, nl_launches = phase_nonlinear(pt, smi, t_start)
+    emit(nl_rec)
+
     # ---- bench.py's keys from the card: bench_gpu.py in a process of its own ----
     bench = phase_bench_gpu(smi, t_start)
 
@@ -6150,7 +6702,9 @@ def main():
                                            "matsolve": sd_launches["matsolve"][name],
                                            "sbaij": sb_launches[name],
                                            "krylov": kr_launches.get(name, 0),
-                                           "pc": pc_launches.get(name, 0)},
+                                           "pc": pc_launches.get(name, 0),
+                                           **{f"nonlinear_{c}": v.get(name, 0)
+                                              for c, v in nl_launches.items()}},
                       "in_solve_us": {path: p["in_solve"].get(name, {}).get("us_per_launch")
                                       for path, p in (("solve", prof), ("aij", prof_a),
                                                       ("mg", prof_m), ("gamg", prof_g),

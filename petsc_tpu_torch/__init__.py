@@ -11,7 +11,9 @@ colourings, MatFDColoring and MatPartitioning, PC
 none/jacobi/pbjacobi/shell/mg/gamg/ilu/icc/lu/cholesky/bjacobi/sor, KSP
 cg/richardson/preonly/chebyshev/gmres/fgmres/bcgs/minres with matSolve,
 the profiler's stages, events and nested views, the converged-reason
-enums, and DM/DMDA with KSP.setDM and PCMG from a DM (PETSc's ex45). It
+enums, DM/DMDA with KSP.setDM and PCMG from a DM (PETSc's ex45), and the
+nonlinear layer: SNES (with its line searches, JFNK and FD-colouring
+Jacobians), TS (with events, trajectories and adjoints) and Tao. It
 imports torch, numpy and scipy, never jax or petsc_tpu. Objects live on
 the device :func:`init` chooses: ``cuda`` unless ``device="cpu"`` is
 passed. The CG body runs on hand-written Hopper kernels
@@ -68,6 +70,9 @@ from .pc import bddc as _bddc  # registers PC bddc
 from .ksp.ksp import KSP
 from .dm.dm import DM
 from .dm.da import DMDA
+from .snes import SNES  # also registers the SNES types of snes/impls_more.py
+from .ts import TS, TSAdapt  # also registers the TS types of ts/impls_more.py
+from .tao import Tao  # also registers the Tao types of tao/impls_more.py
 
 __version__ = "0.1.0"
 

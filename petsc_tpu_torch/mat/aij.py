@@ -243,7 +243,16 @@ class MatAIJ(Mat):
         j = np.asarray(coo_j, dtype=np.int64).reshape(-1)
         if len(i) != len(j):
             raise Error(f"setPreallocationCOO: {len(i)} rows and {len(j)} columns")
+        src = self._coo_plan.get("src") if self._coo_plan is not None else None
+        if src is not None and np.array_equal(src[0], i) and np.array_equal(src[1], j):
+            # the same (i, j) again (a Newton step's Jacobian callback): the
+            # plan and the device layout stand, and the values are zero as
+            # after a fresh preallocation
+            self._zero_values()
+            self.increase_state()
+            return self
         n_user = len(i)
+        i_user, j_user = i.copy(), j.copy()
         if n_user > _INT32_MAX:
             raise Error("setPreallocationCOO: the device plan's int32 gather takes "
                         "fewer than 2^31 entries")
@@ -270,6 +279,7 @@ class MatAIJ(Mat):
             torch.as_tensor(np.cumsum(new) - 1, dtype=torch.int64, device=dev),
             "n_user": n_user,
             "nnz": len(self._indices),
+            "src": (i_user, j_user),
         }
         self._refresh_device()
         self._assembled = True
@@ -528,6 +538,17 @@ class MatAIJ(Mat):
                                                                       device=d.device))
         else:
             self._dev["diag"] = torch.zeros_like(self._dev["diag"])
+
+    def _zero_values(self):
+        """Every stored value zero, on the host and the device, with the
+        pattern and the device layout kept (no kernel launch)."""
+        self._vals = np.zeros(len(self._indices))
+        if self._dev is not None:
+            for key in ("vals", "coef", "bvals", "diag"):
+                if key in self._dev:
+                    self._dev[key] = torch.zeros_like(self._dev[key])
+            for key in ("csr_t_vals", "dnd_t", "bsr_t"):
+                self._dev.pop(key, None)
 
     def _update_device_values(self, csr_vals):
         """New CSR values for the same pattern, staying on the device (a
