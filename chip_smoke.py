@@ -314,6 +314,23 @@ Phases, one JSON line each on stdout:
            setValuesCOO, PCSetUp, colouring), its warm run (best of 2; one
            where a run takes over 5 s) and one profiled run (the card's
            activity alone: busy ms, share);
+  plex     DMPlex, PetscFE/DS and FV on Plex (item 11, first half) through
+           the user's entry points (PLEX_CASES): PETSc's SNES ex12 (P2,
+           petsc_tpu_torch/examples/ex12.py) at 256^2 faces (263,169 dofs,
+           GMRES + GAMG) and 64^2 (PETSc's defaults), CG + PCMG from a
+           createBoxMesh((64, 64)) refined 4 times (1,050,625 rows, 5
+           levels), second-order FVPlex advection (upwind, Barth-Jespersen,
+           SSP-RK2) on 724^2 x 2 triangles; each case's first run held to
+           `python plex_contract.py` (tests/data/plex_contract.json: its,
+           reasons and inner its equal, histories to 1e-6 relative, ex12's
+           u, nodal error and the MG solution to 1e-8, FV's u to 1e-10 of
+           max|u|), its launches exact (plex_launches_needed), its host
+           seconds by part (mesh, refine, dof layout, face geometry,
+           residual, Jacobian, COO, PC set-up), its warm run (best of 2; one
+           where a run takes over 5 s) and one profiled run; then X1's add
+           (the DS residual), signed (the FV fluxes) and min (the limiter)
+           modes on those tables, each against its plain version bit for
+           bit and timed;
   bench_gpu  python bench_gpu.py in a process of its own (the kernels built
            above reused): its JSON line, and its contract, BENCH_r05.json's
            solve (10 iterations, relres <= 1e-8, jacobi_its 184), the small-n
@@ -350,6 +367,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # HBM3 bandwidth, and dense non-tensor-core rates for each type
@@ -5418,7 +5436,8 @@ def d1_edge_check(pck, name, dtype, device="cuda"):
 # X1's edge cases (5,000 destinations, a source of 7,000): name -> mode
 X1_EDGES = {"random_add": "add", "random_set": "set", "random_signed": "signed",
             "run_5000": "add", "run_5000_weighted": "weighted", "runs_at_long_run": "weighted",
-            "runs_1_to_40": "add", "empty_rows_set": "set"}
+            "runs_1_to_40": "add", "empty_rows_set": "set", "random_min": "min",
+            "run_5000_min": "min", "runs_at_long_run_min": "min"}
 
 
 def x1_edge_operands(name, dtype, device, seed=42, pad=0, n=5000, nsrc=7000):
@@ -5439,7 +5458,7 @@ def x1_edge_operands(name, dtype, device, seed=42, pad=0, n=5000, nsrc=7000):
         dst = rng.permutation(n)[:3000]
     elif name.startswith("run_5000"):
         dst = rng.permutation(np.r_[np.full(5000, 17), rng.integers(0, n, 3000)])
-    elif name == "runs_at_long_run":
+    elif name.startswith("runs_at_long_run"):
         lens = np.resize([L - 1, L, L + 1, 2 * L + 3, 1, 0], n)
         dst = rng.permutation(np.repeat(np.arange(n), lens))
     elif name == "runs_1_to_40":
@@ -5454,7 +5473,7 @@ def x1_edge_operands(name, dtype, device, seed=42, pad=0, n=5000, nsrc=7000):
     tab = pck.scatter_table(dst, sel, n + pad, nsrc, w, device=device, dtype=dtype)
     src = torch.as_tensor(rng.random(nsrc) - 0.5, dtype=dtype, device=device)
     out = torch.as_tensor(rng.random(n + pad), dtype=dtype, device=device) \
-        if mode == "set" else None
+        if mode in ("set", "min") else None
     return tab, src, out
 
 
@@ -5464,14 +5483,15 @@ def x1_edge_check(pck, name, dtype, device="cuda"):
     (another grid), in one launch. Raises; returns the record."""
     import torch
     tab, src, out = x1_edge_operands(name, dtype, device)
+    mode = "min" if X1_EDGES[name] == "min" else None
 
     def run(tab, out):
-        return pck.dst_scatter(tab, src, None if out is None else out.clone())
+        return pck.dst_scatter(tab, src, None if out is None else out.clone(), mode=mode)
 
     pck.reset_launches()
     y = run(tab, out)
     launches = pck.LAUNCHES["dst_scatter"]
-    yp = pck.dst_scatter_plain(tab, src, None if out is None else out.clone())
+    yp = pck.dst_scatter_plain(tab, src, None if out is None else out.clone(), mode)
     tab2, _, out2 = x1_edge_operands(name, dtype, device, pad=3 * 1024)
     same = bool(torch.equal(y, run(tab, out)) and torch.equal(y, run(tab2, out2)[:tab.n]))
     torch.cuda.synchronize()
@@ -5597,43 +5617,53 @@ def d1_bytes(M, tab, transposed, accumulate):
 
 
 def x1_row(label, tab, flush, earlier, gen):
-    """X1's row on `tab` (f64) in its mode: against its plain version bit
-    for bit, the earlier thread-per-destination design in turns, and
-    index_add_ after the gather (atomic) as the library call."""
+    """X1's row on `tab` (f64) in its mode (add, set, signed or min):
+    against its plain version bit for bit, the earlier thread-per-
+    destination design in turns (it has no min mode), and as the library
+    call index_add_ after the gather (atomic), or scatter_reduce's amin in
+    min mode."""
     import torch
     from petsc_tpu_torch.ops import pc_kernels as pck
     src = torch.rand(tab.nsrc, dtype=torch.float64, device="cuda", generator=gen) - 0.5
-    out = torch.zeros(tab.n, dtype=torch.float64, device="cuda") if label == "set" else None
+    mode = "min" if label == "min" else None
+    out = torch.zeros(tab.n, dtype=torch.float64, device="cuda") if label == "set" else \
+        torch.rand(tab.n, dtype=torch.float64, device="cuda", generator=gen) if mode else None
     dst = torch.repeat_interleave(torch.arange(tab.n, device="cuda"),
                                   (tab.ptr[1:] - tab.ptr[:-1]).long())
     sel = tab.sel.long()
-    old = earlier_entry(earlier, "dst_scatter", torch.float64)
+    old = earlier_entry(earlier, "dst_scatter", torch.float64) if mode is None else None
 
     def kern():
-        return pck.dst_scatter(tab, src, out=None if out is None else out.clone())
+        return pck.dst_scatter(tab, src, out=None if out is None else out.clone(), mode=mode)
 
     def plain():
-        return pck.dst_scatter_plain(tab, src, None if out is None else out.clone())
+        return pck.dst_scatter_plain(tab, src, None if out is None else out.clone(), mode)
 
     def prev():
         return x1_call(old, tab, src, None if out is None else out.clone())
 
     def lib():
         v = src[sel] if tab.w is None else tab.w * src[sel]
+        if mode == "min":
+            return out.scatter_reduce(0, dst, v, reduce="amin")
         return torch.zeros(tab.n, dtype=src.dtype, device="cuda").index_add_(0, dst, v)
 
-    # timed in place: set mode writes the same rows of one scratch copy of out
+    # timed in place: set and min modes write the same rows of one scratch
+    # copy of out (min: the first call's minimum, the same work after)
     scratch = None if out is None else out.clone()
-    timed = (lambda: pck.dst_scatter(tab, src, out=scratch),
-             lambda: pck.dst_scatter_plain(tab, src, scratch),
-             lambda: x1_call(old, tab, src, scratch), lib)
+    timed = (lambda: pck.dst_scatter(tab, src, out=scratch, mode=mode),
+             lambda: pck.dst_scatter_plain(tab, src, scratch, mode),
+             None if old is None else (lambda: x1_call(old, tab, src, scratch)), lib)
     r = pc_kernel_row("dst_scatter", "float64", kern, plain, lib, x1_bytes(tab, 8),
                       tab.entries * (2 if tab.w is not None else 1), flush, True,
-                      "index_add_ (atomic) after the gather", earlier=prev, timed=timed)
+                      "scatter_reduce amin after the gather" if mode else
+                      "index_add_ (atomic) after the gather",
+                      earlier=None if old is None else prev, timed=timed)
     r.update(mode=label, entries=tab.entries, rows=tab.n, long_destinations=tab.nlong,
-             longest_run=int((tab.ptr[1:] - tab.ptr[:-1]).max()),
-             earlier="earlier_kernels/dst_scatter_thread_per_dst.cu (a thread per "
-                     "destination, grid-stride over one wave)")
+             longest_run=int((tab.ptr[1:] - tab.ptr[:-1]).max()))
+    if old is not None:
+        r["earlier"] = ("earlier_kernels/dst_scatter_thread_per_dst.cu (a thread per "
+                        "destination, grid-stride over one wave)")
     return r
 
 
@@ -6252,10 +6282,11 @@ def nl_build(pt, case, c):
     return nl_heat(pt, c, adjoint=kind == "heat_rk_adjoint")
 
 
-def nl_first(pt, case, c, run, result):
+def nl_first(pt, case, c, run, result, needed=None):
     """The case's first run with every launch count set to 0 just before
-    and read just after, held exactly to nonlinear_launches_needed:
-    (result, launches, the profiler's events, seconds)."""
+    and read just after, held exactly to needed(kind, result)
+    (nonlinear_launches_needed by default): (result, launches, the
+    profiler's events, seconds)."""
     nl_sync()
     pt.log().reset()
     reset_launches()
@@ -6266,7 +6297,7 @@ def nl_first(pt, case, c, run, result):
     launches = {k: v for k, v in launch_counts().items() if v}
     events = set_up_events(pt)
     r = result(out)
-    need = nonlinear_launches_needed(c["kind"], r)
+    need = (needed or nonlinear_launches_needed)(c["kind"], r)
     if launches != need:
         bad = {k: (launches.get(k, 0), need.get(k, 0)) for k in set(launches) | set(need)
                if launches.get(k, 0) != need.get(k, 0)}
@@ -6335,6 +6366,388 @@ def phase_nonlinear(pt, smi, t_start):
         torch.cuda.empty_cache()
     return {"phase": "nonlinear", "nvidia_smi": smi, "cases": cases,
             "elapsed_s": time.perf_counter() - t_start}, by_case
+
+
+# ---------------------------------------------------------------------
+# phase plex: DMPlex, PetscFE/DS and FV on Plex (item 11, first half)
+# ---------------------------------------------------------------------
+
+PLEX_CASES = ("ex12_p2_256", "ex12_p2_64", "plex_mg_1025", "fvplex_advect_724")
+PLEX_U_RTOL = 1e-8         # ex12's u and nodal error, the MG solution: relative
+PLEX_FV_TOL = 1e-10        # FV's u: of max|u|
+# phase plex's X1 rows: the DS residual's add table (ex12_p2_256), the FV
+# face fluxes' signed table and the limiter's min table (fvplex_advect_724)
+PLEX_X1_TABLES = (("ex12_p2_256", "add"), ("fvplex_advect_724", "signed"),
+                  ("fvplex_advect_724", "min"))
+
+
+def plex_contract():
+    return json.loads((DATA / "plex_contract.json").read_text())
+
+
+def plex_vec_check(label, v, want, tol, of_max=False):
+    """A vector's 2-norm to `tol` relative, and its samples (the contract's
+    sample_idx) to `tol` relative of their largest, or with of_max each
+    sample and the min and max to `tol` of the contract's max|u| (an
+    entrywise bound: the norm, a sum over a million entries, is held
+    relative to itself)."""
+    import numpy as np
+    v = v.detach().double().cpu().numpy()
+    ws = np.asarray(want["sample"])
+    scale = max(abs(want["max"]), abs(want["min"])) if of_max else None
+    got = {"norm2": float(np.linalg.norm(v)), "min": float(v.min()), "max": float(v.max())}
+    errs = {"norm2": abs(got["norm2"] - want["norm2"]) / abs(want["norm2"]),
+            "samples": float(np.abs(v[np.asarray(want["sample_idx"])] - ws).max()
+                             / (scale or max(float(np.abs(ws).max()), 1e-300)))}
+    if of_max:
+        errs.update(min=abs(got["min"] - want["min"]) / scale,
+                    max=abs(got["max"] - want["max"]) / scale)
+    bad = {k: e for k, e in errs.items() if not e <= tol}
+    if bad:
+        raise AssertionError(f"{label}: {got} against {want['norm2']!r} / {want['min']!r} / "
+                             f"{want['max']!r}: errors {bad} above {tol}")
+    return {**got, "errors": errs}
+
+
+def plex_ex12(pt, c):
+    """PETSc's ex12 through petsc_tpu_torch/examples/ex12.py's Ex12 (the
+    box mesh, the P2 DS, the SNES with its callbacks), with the case's
+    options; run() is Newton from zero."""
+    from petsc_tpu_torch.examples import ex12
+    pt.init(args=["-fe_order", str(c["order"]), "-faces", str(c["faces"]), *c["args"]])
+    prob = ex12.Ex12(c["order"], c["faces"])
+    snes = prob.snes
+
+    def result(x):
+        ksp = snes.getKSP()
+        impl = ksp.getPC()._impl
+        levels = getattr(impl, "levels", None)
+        return {"its": snes.getIterationNumber(), "reason": int(snes.getConvergedReason()),
+                "history": [float(h) for h in snes.getConvergenceHistory()],
+                "ksp_its": list(snes._ksp_its), "ls_its": list(snes._ls_its),
+                "ksp_type": ksp.getType(), "pc_type": ksp.getPC().getType(),
+                "max_err": prob.nodal_error(x), "ndof": prob.n, "x": x.array,
+                "gamg_levels": [int(lev.A.getSize()[0]) for lev in levels] if levels else None,
+                "_nlev": len(levels) if levels else None}
+    return prob.solve, result, prob
+
+
+def plex_mg(pt, c):
+    """assemblePoissonP1 on createBoxMesh((faces, faces)) refined c["refine"]
+    times, CG + PCMG with -pc_mg_levels from the plex's refinement chain
+    (Galerkin coarse operators, the recorded interpolations); run() solves
+    from zero."""
+    pt.init(args=["-pc_mg_levels", str(c["levels"])])
+    secs = {}
+    t = time.perf_counter()
+    plex = pt.DMPlex.createBoxMesh((c["faces"], c["faces"]), simplex=True)
+    secs["mesh"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for _ in range(c["refine"]):
+        plex = plex.refine()
+    secs["refine"] = time.perf_counter() - t
+    t = time.perf_counter()
+    A, b = plex.assemblePoissonP1(f=1.0)
+    nl_sync()
+    secs["assemble"] = time.perf_counter() - t
+    ksp = pt.KSP().create()
+    ksp.setOperators(A)
+    ksp.setType("cg")
+    ksp.getPC().setType("mg")
+    ksp.getPC().setFromOptions()
+    ksp.setTolerances(rtol=c["rtol"], max_it=c["max_it"])
+
+    def run():
+        x = A.createVecRight()
+        ksp.solve(b, x)
+        return x
+
+    def result(x):
+        levels = ksp.getPC()._impl.levels
+        return {"its": ksp.getIterationNumber(), "reason": int(ksp.getConvergedReason()),
+                "history": [float(h) for h in ksp.getConvergenceHistory()],
+                "mg_levels": [int(lev.A.getSize()[0]) for lev in levels],
+                "_nlev": len(levels), "x": x.array}
+    return run, result, SimpleNamespace(A=A, b=b, seconds=secs)
+
+
+def plex_fv(pt, c):
+    """FVPlex (upwind, order 2, Barth-Jespersen) on createBoxMesh((faces,
+    faces)); run() advects plex_contract.py's bump (tests/test_fv_plex.py's
+    _advect) by SSP-RK2 to T."""
+    import numpy as np
+    import torch
+    from petsc_tpu_torch.dm.fv_plex import FVPlex, face_geometry
+    pt.init(args=[])
+    secs = {}
+    t = time.perf_counter()
+    mesh = pt.DMPlex.createBoxMesh((c["faces"], c["faces"]), simplex=True)
+    secs["mesh"] = time.perf_counter() - t
+    t = time.perf_counter()
+    face_geometry(mesh)
+    secs["face_geometry"] = time.perf_counter() - t
+    vx, vy = c["vel"]
+
+    def flux(u):
+        return (vx * u, vy * u)
+
+    def wavespeed(uL, uR, n):
+        return vx * n[:, 0] + vy * n[:, 1]
+
+    t = time.perf_counter()
+    fv = FVPlex(mesh, flux, wavespeed, riemann="upwind", bc="outflow", order=c["order"],
+                limiter=c["limiter"])
+    secs["fvplex_init"] = time.perf_counter() - t
+    secs["ls_tables"] = secs["fvplex_init"] - secs["face_geometry"]
+    rhs = fv.makeRHS()
+    g = fv.geom
+    cc = g["ccent"]
+    u0 = torch.as_tensor(np.exp(-((cc[:, 0] - 0.3) ** 2 + (cc[:, 1] - 0.3) ** 2) / 0.02),
+                         dtype=torch.float64, device=pt.config.device())
+    h = float(np.sqrt(g["vol"].min()))
+    nst = int(np.ceil(c["T"] / (c["cfl"] * h / np.hypot(vx, vy))))
+    dt = c["T"] / nst
+
+    def run():
+        u = u0.clone()
+        for _ in range(nst):
+            u1 = u + dt * rhs(0.0, u)
+            u = 0.5 * (u + u1 + dt * rhs(0.0, u1))
+        return u
+
+    def result(u):
+        return {"steps": nst, "dt": dt, "ncells": mesh.ncells, "nfaces": len(g["cL"]),
+                "x": u}
+    return run, result, SimpleNamespace(fv=fv, seconds=secs)
+
+
+def plex_launches_needed(kind, r):
+    """The launches of one run of a phase plex case, from what the run
+    reports it did (r: the case's result).
+
+    - ex12: each residual (F(x0), then each line-search trial) one K8 (u[conn])
+      and one X1 add (the element residuals into F); each Jacobian (one a
+      Newton step) one K8 (u[conn]), one X1 add (the element Jacobians and the
+      identity's 1.0 into the CSR slots) and setValuesCOO's two K8 (v[perm],
+      the diagonal); the Newton loop's K2/K4 as ex5's (one K4 for ||F(x0)||,
+      a K2 and a K4 a trial, two K4 a step). Each linear solve, GMRES(30)
+      from zero with k iterations in c = ceil(k / 30) cycles: one S2 a step
+      and at each later cycle's start, one K3 a step, and k + c PC
+      applications: ILU(0) two T1 sweeps each; GAMG one V-cycle each
+      (_mg_apply_launches; its set-up, again each Newton step, is host work
+      on the downloaded values and launches nothing).
+    - plex_mg: mg_launches_needed(its, levels), the set-up's device work
+      being host Galerkin products and host eigen bounds (no launch).
+    - fvplex: each SSP-RK2 step two right-hand sides, each eleven K8 (u at
+      the left and right cells, the least-squares stencil u[nb], the
+      gradient at each side, the envelope's min and max at each side, the
+      limiter at each side) and two X1 (the limiter's min, the fluxes'
+      signed scatter)."""
+    need = {}
+
+    def add(k, v):
+        if v:
+            need[k] = need.get(k, 0) + v
+
+    if kind == "ex12":
+        trials = sum(r["ls_its"])
+        its = r["its"]
+        add("gather", 1 + trials + 3 * its)
+        add("dst_scatter", 1 + trials + its)
+        add("triad", trials)
+        add("dot2", 1 + trials + 2 * its)
+        for k in r["ksp_its"]:
+            cycles = max(1, math.ceil(k / 30))
+            add("csr_spmv", k + cycles - 1)
+            add("axpy_normsq", k)
+            if r["pc_type"] == "ilu":
+                add("trisolve", 2 * (k + cycles))
+            else:
+                for kk, v in _mg_apply_launches(r["_nlev"]).items():
+                    add(kk, v * (k + cycles))
+    elif kind == "plex_mg":
+        for k, v in mg_launches_needed(r["its"], r["_nlev"]).items():
+            add(k, v)
+    elif kind == "fvplex":
+        add("gather", 22 * r["steps"])
+        add("dst_scatter", 4 * r["steps"])
+    return need
+
+
+def plex_check(case, c, r):
+    """The first run against the contract; returns the record's check entries."""
+    out = {}
+    kind = c["kind"]
+    if kind in ("ex12", "plex_mg"):
+        if (r["its"], r["reason"]) != (c["its"], c["reason"]):
+            raise AssertionError(f"{case}: its {r['its']}, reason {r['reason']}; the contract "
+                                 f"{c['its']}, {c['reason']}")
+        if "spread" in c:
+            out.update(plex_spread_check(case, r, c))
+        else:
+            out["history_worst_rel"] = nl_hist_check(case, r["history"], c["history"])
+    if kind == "ex12":
+        if "spread" not in c and r["ksp_its"] != c["ksp_its"]:
+            raise AssertionError(f"{case}: inner its {r['ksp_its']}, the contract's "
+                                 f"{c['ksp_its']}")
+        if (r["ksp_type"], r["pc_type"]) != (c["ksp_type"], c["pc_type"]):
+            raise AssertionError(f"{case}: {r['ksp_type']} + {r['pc_type']}, the contract's "
+                                 f"{c['ksp_type']} + {c['pc_type']}")
+        err_rel = abs(r["max_err"] - c["max_err"]) / abs(c["max_err"])
+        # a spread the reference's own runs show is held to twice its size
+        tol = max([PLEX_U_RTOL] + [2 * abs(e - c["max_err"]) / abs(c["max_err"])
+                                   for e in c.get("spread", {}).get("max_err", [])])
+        if not err_rel <= tol:
+            raise AssertionError(f"{case}: max nodal error {r['max_err']!r}, the contract's "
+                                 f"{c['max_err']!r} (rel {err_rel:.3g}, limit {tol:.3g})")
+        out["max_err_rel"] = err_rel
+        out["max_err_held_within_rel"] = tol
+        out["u"] = plex_vec_check(f"{case} u", r["x"], c["u"], PLEX_U_RTOL)
+    if kind == "plex_mg":
+        if r["mg_levels"] != c["mg_levels"]:
+            raise AssertionError(f"{case}: levels {r['mg_levels']}, the contract's "
+                                 f"{c['mg_levels']}")
+        out["x"] = plex_vec_check(f"{case} x", r["x"], c["x"], PLEX_U_RTOL)
+    if kind == "fvplex":
+        if r["steps"] != c["steps"] or r["dt"] != c["dt"]:
+            raise AssertionError(f"{case}: {r['steps']} steps of {r['dt']!r}, the contract's "
+                                 f"{c['steps']} of {c['dt']!r}")
+        out["u"] = plex_vec_check(f"{case} u", r["x"], c["u"], PLEX_FV_TOL, of_max=True)
+    return out
+
+
+def plex_spread_check(case, r, c):
+    """A case whose reference parts from itself under rounding (the
+    contract's "spread": its runs with the residual or the Jacobian
+    perturbed at rounding level, plex_contract.py --spread): each inner
+    count and history entry on which those runs agree with the contract is
+    held as nl_hist_check holds it (counts equal); one on which they part,
+    to twice their largest distance from the contract (plex_check holds
+    the nodal error so too). Returns the check entries."""
+    sp = c["spread"]
+    if len(r["ksp_its"]) != len(c["ksp_its"]):
+        raise AssertionError(f"{case}: {len(r['ksp_its'])} linear solves, the contract's "
+                             f"{len(c['ksp_its'])}")
+    held = []
+    for k, (g, w) in enumerate(zip(r["ksp_its"], c["ksp_its"])):
+        d = max(abs(run[k] - w) for run in sp["ksp_its"])
+        if abs(g - w) > 2 * d:
+            raise AssertionError(f"{case}: inner its {r['ksp_its']}, the contract's "
+                                 f"{c['ksp_its']}; step {k} may differ by {2 * d}")
+        held.append(2 * d)
+    got, want = [float(v) for v in r["history"]], [float(v) for v in c["history"]]
+    if len(got) != len(want):
+        raise AssertionError(f"{case}: {len(got)} history entries, want {len(want)}")
+    scale = abs(want[0])
+    tols = []
+    for k, (g, w) in enumerate(zip(got, want)):
+        d = max(abs(run[k] - w) for run in sp["history"])
+        tol = max(NL_HIST_ABS * scale if abs(w) < NL_HIST_FLOOR * scale
+                  else NL_HIST_RTOL * abs(w), 2 * d)
+        if not abs(g - w) <= tol:
+            raise AssertionError(f"{case}: history entry {k} is {g!r}, want {w!r} within "
+                                 f"{tol!r} (twice the reference's spread {d!r})")
+        tols.append(tol)
+    return {"ksp_its_held_within": held, "history_held_within": tols,
+            "history_rel": [abs(g - w) / abs(w) for g, w in zip(got, want)]}
+
+
+def plex_first(pt, case, c, run, result):
+    """nl_first held to plex_launches_needed."""
+    return nl_first(pt, case, c, run, result, needed=plex_launches_needed)
+
+
+def plex_build(pt, c):
+    return {"ex12": plex_ex12, "plex_mg": plex_mg, "fvplex": plex_fv}[c["kind"]](pt, c)
+
+
+def plex_true_relres(ctx, x):
+    """||b - A x|| / ||b|| in scipy on the host (after the counted run)."""
+    import numpy as np
+    A = ctx.A.to_scipy()
+    xv = x.getArray()[: A.shape[0]]
+    bv = ctx.b.getArray()[: A.shape[0]]
+    return float(np.linalg.norm(A @ xv - bv) / np.linalg.norm(bv))
+
+
+def plex_case(pt, case, c, flush):
+    """One case: its first run (plex_first) checked against the contract;
+    the host seconds by part; the best of NL_WARM_REPS warm runs (one where
+    a run takes over NL_ONE_WARM_MS); one profiled run (nl_profile). Returns
+    (record, launches, X1 tables of the case for plex_x1_rows)."""
+    t0 = time.perf_counter()
+    run, result, ctx = plex_build(pt, c)
+    build_s = time.perf_counter() - t0
+    r, launches, events, first_s = plex_first(pt, case, c, run, result)
+    checks = plex_check(case, c, r)
+    rec = {"case": case, "kind": c["kind"], "build_s": build_s, "first_s": first_s}
+    if c["kind"] == "plex_mg":
+        x = pt.Vec.from_array(r["x"])
+        rel = plex_true_relres(ctx, x)
+        if not rel <= 10 * c["true_relres"]:
+            raise AssertionError(f"{case}: true relres {rel!r}, the contract's "
+                                 f"{c['true_relres']!r}")
+        checks["true_relres"] = rel
+    warm = math.inf
+    for _ in range(NL_WARM_REPS):
+        nl_sync()
+        t1 = time.perf_counter()
+        run()
+        nl_sync()
+        warm = min(warm, (time.perf_counter() - t1) * 1e3)
+        if warm > NL_ONE_WARM_MS:
+            break
+    prof = nl_profile(run, warm)
+    host = dict(ctx.seconds)
+    # PCSetUp_<type> holds its parts (PCMGSetUp_*, PCGAMGSetUp_*: in the record's events)
+    host["pcsetup"] = sum(v for k, v in events.items() if k.startswith("PCSetUp"))
+    rec.update(warm_ms=warm, busy_ms=prof["device_busy_ms"],
+               busy_share=prof["busy_share_of_warm"], device_events=prof["device_events"],
+               profiled_wall_ms=prof["profiled_wall_ms"],
+               spins_seen_before_and_after=prof["spins_seen_before_and_after"],
+               by_kernel=prof["by_kernel"], launches=launches, checks=checks,
+               host_seconds=host, events=events)
+    for k in ("its", "reason", "ksp_its", "ls_its", "ksp_type", "pc_type", "max_err", "ndof",
+              "gamg_levels", "mg_levels", "history", "steps", "dt", "ncells", "nfaces"):
+        if k in r and r[k] is not None:
+            rec[k] = r[k]
+    tabs = {}
+    if case == "ex12_p2_256":
+        tabs["add"] = ctx.ds._tables()["scatter"]
+    if c["kind"] == "fvplex":
+        t = ctx.fv._tables()
+        tabs.update(signed=t["flux_scatter"], min=t["lim_scatter"])
+    return rec, launches, tabs
+
+
+def plex_x1_rows(tabs, flush, earlier):
+    """X1 on phase plex's tables (PLEX_X1_TABLES), each mode against its
+    plain version bit for bit and timed (x1_row)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    return {f"dst_scatter_{mode}_{case}": x1_row(mode, tabs[(case, mode)], flush, earlier, gen)
+            for case, mode in PLEX_X1_TABLES}
+
+
+def phase_plex(pt, smi, t_start, flush, earlier):
+    """Every case of PLEX_CASES (plex_case), then X1's rows on their tables;
+    returns (the phase's record, {case: launches}, the X1 rows)."""
+    import torch
+    contract = plex_contract()
+    cases, by_case, tabs = [], {}, {}
+    for case in PLEX_CASES:
+        t0 = time.perf_counter()
+        rec, launches, t = plex_case(pt, case, contract[case], flush)
+        rec["seconds"] = time.perf_counter() - t0
+        cases.append(rec)
+        by_case[case] = launches
+        tabs.update({(case, m): v for m, v in t.items()})
+        torch.cuda.empty_cache()
+    rows = plex_x1_rows(tabs, flush, earlier)
+    del tabs
+    torch.cuda.empty_cache()
+    return {"phase": "plex", "nvidia_smi": smi, "cases": cases, "x1_rows": rows,
+            "elapsed_s": time.perf_counter() - t_start}, by_case, rows
 
 
 def main():
@@ -6624,6 +7037,13 @@ def main():
     nl_rec, nl_launches = phase_nonlinear(pt, smi, t_start)
     emit(nl_rec)
 
+    # ---- DMPlex, PetscFE/DS and FV on Plex (item 11, first half): PETSc's
+    # SNES ex12, PCMG on a refined plex, second-order FV advection; each
+    # case with every launch count set to 0 just before its first run and
+    # read just after; X1's add, signed and min modes on their tables ----
+    plex_rec, plex_launches, plex_x1 = phase_plex(pt, smi, t_start, flush, earlier)
+    emit(plex_rec)
+
     # ---- bench.py's keys from the card: bench_gpu.py in a process of its own ----
     bench = phase_bench_gpu(smi, t_start)
 
@@ -6704,7 +7124,9 @@ def main():
                                            "krylov": kr_launches.get(name, 0),
                                            "pc": pc_launches.get(name, 0),
                                            **{f"nonlinear_{c}": v.get(name, 0)
-                                              for c, v in nl_launches.items()}},
+                                              for c, v in nl_launches.items()},
+                                           **{f"plex_{c}": v.get(name, 0)
+                                              for c, v in plex_launches.items()}},
                       "in_solve_us": {path: p["in_solve"].get(name, {}).get("us_per_launch")
                                       for path, p in (("solve", prof), ("aij", prof_a),
                                                       ("mg", prof_m), ("gamg", prof_g),
@@ -6871,6 +7293,13 @@ def main():
         r.update({k: m[k] for k in m if k not in r and k != "name"})
         r["others"] = [pc_rows[k] for k in other_keys]
         r["launches_by_pc_case"] = {c: v.get(name, 0) for c, v in pc_case_launches.items()}
+        if name == "dst_scatter":
+            # phase plex's tables: the DS residual's add, FVPlex's signed
+            # fluxes and its limiter's min mode
+            r["plex_rows"] = list(plex_x1.values())
+            r["also_replaces"] = ("petsc_tpu/dm/fe.py:1403 (add), "
+                                  "petsc_tpu/dm/fv_plex.py:245-246 (signed), "
+                                  "petsc_tpu/dm/fv_plex.py:225-227 (min)")
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,9 +11,12 @@ colourings, MatFDColoring and MatPartitioning, PC
 none/jacobi/pbjacobi/shell/mg/gamg/ilu/icc/lu/cholesky/bjacobi/sor, KSP
 cg/richardson/preonly/chebyshev/gmres/fgmres/bcgs/minres with matSolve,
 the profiler's stages, events and nested views, the converged-reason
-enums, DM/DMDA with KSP.setDM and PCMG from a DM (PETSc's ex45), and the
+enums, DM/DMDA with KSP.setDM and PCMG from a DM (PETSc's ex45), the
 nonlinear layer: SNES (with its line searches, JFNK and FD-colouring
-Jacobians), TS (with events, trajectories and adjoints) and Tao. It
+Jacobians), TS (with events, trajectories and adjoints) and Tao, and
+DMPlex with its transforms and Exodus I/O, PetscFE/PetscDS weak-form
+assembly (``dm/fe.py``, ``dm/multids.py``) and finite volumes
+(``dm/fv.py``, ``dm/fv_plex.py``; PETSc's SNES ex12). It
 imports torch, numpy and scipy, never jax or petsc_tpu. Objects live on
 the device :func:`init` chooses: ``cuda`` unless ``device="cpu"`` is
 passed. The CG body runs on hand-written Hopper kernels
@@ -85,4 +88,7 @@ def __getattr__(name):
     if name == "MatFDColoring":
         from .mat.fdcoloring import MatFDColoring
         return MatFDColoring
+    if name == "DMPlex":
+        from .dm.plex import DMPlex
+        return DMPlex
     raise AttributeError(name)

@@ -9,8 +9,11 @@
 // (petsc_tpu/pc/more_pc.py:323-327), PCPatch and PCGASM
 // (petsc_tpu/pc/extras_pc.py:859-870), PCNN (petsc_tpu/pc/r3_pc.py:241-249),
 // BDDC's coarse scatter and final add (petsc_tpu/pc/bddc.py:129-138),
-// fieldsplit's scatter-set (petsc_tpu/pc/more_pc.py:595-596) and fetidp's
-// jump operator B and its transpose (petsc_tpu/ksp/fetidp.py:114-131).
+// fieldsplit's scatter-set (petsc_tpu/pc/more_pc.py:595-596), fetidp's
+// jump operator B and its transpose (petsc_tpu/ksp/fetidp.py:114-131), the
+// DS residual's scatter-add (petsc_tpu/dm/fe.py:1403), and FVPlex's face
+// flux scatter and its limiter's two scatter-mins
+// (petsc_tpu/dm/fv_plex.py:225-227, 245-246).
 //
 // Tables, built once at set-up (ops/pc_kernels.py scatter_table): the
 // entries sorted by destination, stably, as CSR row pointers ptr (n + 1),
@@ -22,8 +25,9 @@
 // sums are rounded one by one (__dmul_rn, __dadd_rn: no contraction to an
 // FMA), so the result equals the plain version's bit for bit. Modes: add
 // (every destination written, 0 where no entry lands), set (a destination
-// with no entry keeps its value: skip_empty), signed (add with w = +-1, or
-// +-scale).
+// with no entry keeps its value), signed (add with w = +-1, or +-scale),
+// min (y[d] = min(y[d], w_k src[sel_k] over its entries), NaN propagating
+// as torch.minimum does; order-free, so also equal bits).
 //
 // Bound: device-memory bandwidth: ptr, sel, w and the long list read once,
 // y written once and the 32-byte sectors of src that sel touches read
@@ -60,14 +64,20 @@ constexpr int kChunk = 4;          // entries a lane loads per chunk of a long r
 constexpr int kMinBlocks = 6;      // blocks an SM holds: the short part alone (40 registers)
 constexpr int kMinBlocksLong = 4;  // with the long part (64 registers)
 constexpr int kWarps = ptt::kThreads / 32;
+constexpr int kModeAdd = 0, kModeSet = 1, kModeMin = 2;   // pc_kernels.X1_MODES
 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+// torch.minimum's min: a NaN on either side wins
+template <typename T>
+__device__ __forceinline__ T min_nan(T acc, T v) { return (v != v || v < acc) ? v : acc; }
+template <bool kMin, typename T>
+__device__ __forceinline__ T combine(T acc, T v) { return kMin ? min_nan(acc, v) : add_rn(acc, v); }
 
 // kJ destinations from `first`, kThreads apart, one thread.
-template <bool kWeighted, int kJ, typename T>
+template <bool kWeighted, bool kMin, int kJ, typename T>
 __device__ __forceinline__ void short_part(T* __restrict__ y, const T* __restrict__ src,
                                            const int* __restrict__ ptr,
                                            const int* __restrict__ sel,
@@ -83,7 +93,7 @@ __device__ __forceinline__ void short_part(T* __restrict__ y, const T* __restric
       s[j] = __ldg(ptr + d);
       e[j] = __ldg(ptr + d + 1);
     }
-    acc[j] = T(0);
+    acc[j] = kMin && d < n ? y[d] : T(0);
   }
   bool mine[kJ];                       // a long run is the long part's
 #pragma unroll
@@ -113,7 +123,8 @@ __device__ __forceinline__ void short_part(T* __restrict__ y, const T* __restric
     for (int j = 0; j < kJ; ++j) {
 #pragma unroll
       for (int m = 0; m < kBatch; ++m) {
-        if (sl[j][m] >= 0) acc[j] = add_rn(acc[j], kWeighted ? mul_rn(wv[j][m], v[j][m]) : v[j][m]);
+        if (sl[j][m] >= 0)
+          acc[j] = combine<kMin>(acc[j], kWeighted ? mul_rn(wv[j][m], v[j][m]) : v[j][m]);
       }
     }
   }
@@ -126,7 +137,7 @@ __device__ __forceinline__ void short_part(T* __restrict__ y, const T* __restric
 
 // One long destination per warp: longs[3 li .. 3 li + 2] = (d, e0, e1).
 // lbuf holds the warp's products of one chunk for lane 0's in-order sum.
-template <bool kWeighted, typename T>
+template <bool kWeighted, bool kMin, typename T>
 __device__ __forceinline__ void long_part(T* __restrict__ y, const T* __restrict__ src,
                                           const int* __restrict__ sel, const T* __restrict__ w,
                                           const int* __restrict__ longs, int nlong, T* lbuf) {
@@ -158,7 +169,7 @@ __device__ __forceinline__ void long_part(T* __restrict__ y, const T* __restrict
   load_sel(e0);
   load_vals(e0);
   load_sel(e0 + kSpan);
-  T acc = T(0);
+  T acc = kMin ? y[d] : T(0);
   for (int c0 = e0; c0 < e1; c0 += kSpan) {
 #pragma unroll
     for (int u = 0; u < kChunk; ++u) lbuf[32 * u + lane] = kWeighted ? mul_rn(wn[u], vn[u]) : vn[u];
@@ -179,15 +190,15 @@ __device__ __forceinline__ void long_part(T* __restrict__ y, const T* __restrict
 #pragma unroll
           for (int i = 0; i < 8; ++i) q[i] = lbuf[k + 8 + i];
 #pragma unroll
-          for (int i = 0; i < 8; ++i) acc = add_rn(acc, r[i]);
+          for (int i = 0; i < 8; ++i) acc = combine<kMin>(acc, r[i]);
 #pragma unroll
           for (int i = 0; i < 8; ++i) r[i] = q[i];
         }
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc = add_rn(acc, r[i]);
+        for (int i = 0; i < 8; ++i) acc = combine<kMin>(acc, r[i]);
         k += 8;
       }
-      for (; k < cnt; ++k) acc = add_rn(acc, lbuf[k]);
+      for (; k < cnt; ++k) acc = combine<kMin>(acc, lbuf[k]);
     }
     __syncwarp();
   }
@@ -197,7 +208,7 @@ __device__ __forceinline__ void long_part(T* __restrict__ y, const T* __restrict
 // kLong: the table has long destinations, whose warps take the first
 // long_blocks blocks; without them the kernel is the short part alone, with
 // its own (lower) register count.
-template <bool kWeighted, bool kLong, int kJ, typename T>
+template <bool kWeighted, bool kMin, bool kLong, int kJ, typename T>
 __global__ void __launch_bounds__(ptt::kThreads, kLong ? kMinBlocksLong : kMinBlocks)
 dst_scatter_kernel(T* __restrict__ y, const T* __restrict__ src, const int* __restrict__ ptr,
                    const int* __restrict__ sel, const T* __restrict__ w,
@@ -205,23 +216,27 @@ dst_scatter_kernel(T* __restrict__ y, const T* __restrict__ src, const int* __re
                    int skip_empty) {
   if (kLong && (int)blockIdx.x < long_blocks) {
     __shared__ T lbuf[kWarps][32 * kChunk];
-    long_part<kWeighted>(y, src, sel, w, longs, nlong, lbuf[threadIdx.x >> 5]);
+    long_part<kWeighted, kMin>(y, src, sel, w, longs, nlong, lbuf[threadIdx.x >> 5]);
     return;
   }
-  short_part<kWeighted, kJ>(y, src, ptr, sel, w, n, skip_empty,
+  short_part<kWeighted, kMin, kJ>(y, src, ptr, sel, w, n, skip_empty,
                             (long long)(blockIdx.x - long_blocks) * kJ * blockDim.x);
 }
 
 template <bool kLong, int kJ, typename T>
 int launch_kernel(bool weighted, void* y, const void* src, const void* ptr, const void* sel,
-                  const void* w, const void* longs, long long n, int nlong, int skip_empty,
+                  const void* w, const void* longs, long long n, int nlong, int mode,
                   void* stream) {
   const long long per_block = (long long)kJ * ptt::kThreads;
   const long long long_blocks = (nlong + kWarps - 1) / kWarps;
   const long long grid = (n + per_block - 1) / per_block + long_blocks;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto k = weighted ? dst_scatter_kernel<true, kLong, kJ, T>
-                    : dst_scatter_kernel<false, kLong, kJ, T>;
+  const bool mn = mode == kModeMin;
+  auto k = weighted ? (mn ? dst_scatter_kernel<true, true, kLong, kJ, T>
+                          : dst_scatter_kernel<true, false, kLong, kJ, T>)
+                    : (mn ? dst_scatter_kernel<false, true, kLong, kJ, T>
+                          : dst_scatter_kernel<false, false, kLong, kJ, T>);
+  const int skip_empty = mode != kModeAdd;   // set and min keep an empty row
   k<<<(int)grid, ptt::kThreads, 0, (cudaStream_t)stream>>>(
       (T*)y, (const T*)src, (const int*)ptr, (const int*)sel, (const T*)w, (const int*)longs, n,
       nlong, (int)long_blocks, skip_empty);
@@ -234,35 +249,34 @@ int launch_kernel(bool weighted, void* y, const void* src, const void* ptr, cons
 // fetidp's 14,880 jump rows), else two (two chains a thread).
 template <typename T>
 int launch(void* y, const void* src, const void* ptr, const void* sel, const void* w,
-           const void* longs, long long n, int nlong, int skip_empty, int device, void* stream) {
+           const void* longs, long long n, int nlong, int mode, int device, void* stream) {
   static_assert(ptt::kThreads % 32 == 0, "whole warps");
   static std::atomic<int> cache[ptt::kMaxDevices][2];
   PTT_TRY(cudaSetDevice(device));
   if (!longs) nlong = 0;
   if (n == 0 && nlong == 0) return 0;
+  if (mode < kModeAdd || mode > kModeMin) return (int)cudaErrorInvalidValue;
   const bool weighted = w != nullptr;
   if (nlong > 0)
-    return launch_kernel<true, 2, T>(weighted, y, src, ptr, sel, w, longs, n, nlong, skip_empty,
+    return launch_kernel<true, 2, T>(weighted, y, src, ptr, sel, w, longs, n, nlong, mode,
                                      stream);
   ptt::Wave wv;
-  PTT_TRY(ptt::wave_of(dst_scatter_kernel<true, false, 1, T>, 0, device, cache, &wv));
+  PTT_TRY(ptt::wave_of(dst_scatter_kernel<true, false, false, 1, T>, 0, device, cache, &wv));
   if (n <= (long long)wv.sms * wv.per_sm * ptt::kThreads)
-    return launch_kernel<false, 1, T>(weighted, y, src, ptr, sel, w, longs, n, 0, skip_empty,
-                                      stream);
-  return launch_kernel<false, 2, T>(weighted, y, src, ptr, sel, w, longs, n, 0, skip_empty,
-                                    stream);
+    return launch_kernel<false, 1, T>(weighted, y, src, ptr, sel, w, longs, n, 0, mode, stream);
+  return launch_kernel<false, 2, T>(weighted, y, src, ptr, sel, w, longs, n, 0, mode, stream);
 }
 
 }  // namespace
 
 extern "C" int ptt_dst_scatter_f64(void* y, const void* src, const void* ptr, const void* sel,
                                    const void* w, const void* longs, long long n, int nlong,
-                                   int skip_empty, int device, void* stream) {
-  return launch<double>(y, src, ptr, sel, w, longs, n, nlong, skip_empty, device, stream);
+                                   int mode, int device, void* stream) {
+  return launch<double>(y, src, ptr, sel, w, longs, n, nlong, mode, device, stream);
 }
 
 extern "C" int ptt_dst_scatter_f32(void* y, const void* src, const void* ptr, const void* sel,
                                    const void* w, const void* longs, long long n, int nlong,
-                                   int skip_empty, int device, void* stream) {
-  return launch<float>(y, src, ptr, sel, w, longs, n, nlong, skip_empty, device, stream);
+                                   int mode, int device, void* stream) {
+  return launch<float>(y, src, ptr, sel, w, longs, n, nlong, mode, device, stream);
 }

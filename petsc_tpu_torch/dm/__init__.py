@@ -1,0 +1,3 @@
+from .dm import DM
+from .da import DMDA
+from .plex import DMPlex, Section

@@ -9,7 +9,10 @@ for sm_90a (sources in ``petsc_tpu_torch/csrc``, built and loaded by
 
   dst_scatter      X1  csrc/dst_scatter.cu  y[d] = sum_{dst_k = d} w_k src[sel_k]
                                             (MatIS, ASM, patch, gasm, NN, BDDC,
-                                            fieldsplit, fetidp's B and B^T)
+                                            fieldsplit, fetidp's B and B^T, the
+                                            DS residual, FVPlex's face fluxes),
+                                            or min(y[d], min_k w_k src[sel_k])
+                                            (FVPlex's limiter)
   subdomain_apply  D1  csrc/subdomain.cu    Y[s] = M[s] (w * x[G[s]]), or M[s]^T
                                             (MatIS, NN, BDDC, fetidp)
   neumann_step     N1  csrc/neumann_step.cu z = dinv * (y - w)
@@ -123,8 +126,22 @@ def scatter_table(dst, sel, n, nsrc, w=None, device=None, dtype=torch.float64):
                         steps, int(nsrc), longs)
 
 
-def dst_scatter_plain(tab: ScatterTable, src, out=None):
-    """The same segment sum: y[d] = ((0 + v_1) + v_2) + ... in entry order."""
+# the kernel's modes (kModeAdd, kModeSet, kModeMin in csrc/dst_scatter.cu)
+X1_MODES = {"add": 0, "set": 1, "min": 2}
+
+
+def dst_scatter_plain(tab: ScatterTable, src, out=None, mode=None):
+    """The same segment sum: y[d] = ((0 + v_1) + v_2) + ... in entry order;
+    in min mode y[d] = min(out[d], v_1, v_2, ...) (torch.minimum, as
+    ``.at[].min``), out updated in place and returned."""
+    if mode == "min":
+        sel = tab.sel.long()
+        for rows, ent in tab.steps:
+            v = src[sel[ent]]
+            if tab.w is not None:
+                v = tab.w[ent] * v
+            out[rows] = torch.minimum(out[rows], v)
+        return out
     y = torch.zeros(tab.n, dtype=src.dtype, device=src.device)
     sel = tab.sel.long()
     for rows, ent in tab.steps:
@@ -140,10 +157,15 @@ def dst_scatter_plain(tab: ScatterTable, src, out=None):
     return out
 
 
-def dst_scatter(tab: ScatterTable, src, out=None):
+def dst_scatter(tab: ScatterTable, src, out=None, mode=None):
     """y over tab's destinations. With `out` (set mode) a destination that
     no entry reaches keeps out's value and out is returned; without it every
-    destination is written (add mode; signed where the weights are +-1)."""
+    destination is written (add mode; signed where the weights are +-1).
+    mode="min" (out required) takes out[d] = min(out[d], its entries)."""
+    if mode not in (None, "min"):
+        raise ValueError(f"dst_scatter: mode {mode!r} (None or 'min')")
+    if mode == "min" and out is None:
+        raise ValueError("dst_scatter: the min mode updates out, which is required")
     _check("dst_scatter", src, 1)
     if src.numel() != tab.nsrc:
         raise ValueError(f"dst_scatter: source of {src.numel()} entries, table for {tab.nsrc}")
@@ -154,14 +176,15 @@ def dst_scatter(tab: ScatterTable, src, out=None):
         if out.numel() != tab.n or out.dtype != src.dtype or out.device != src.device:
             raise ValueError("dst_scatter: out does not match the table and the source")
     if src.device.type == "cpu":
-        return dst_scatter_plain(tab, src, out)
+        return dst_scatter_plain(tab, src, out, mode)
     if tab.ptr.device != src.device:
         raise ValueError(f"dst_scatter: table on {tab.ptr.device}, source on {src.device}")
     y = torch.empty(tab.n, dtype=src.dtype, device=src.device) if out is None else out
     if tab.n:
         cuda_build.launch(LAUNCHES, "dst_scatter", src, y.data_ptr(), src.data_ptr(),
                           tab.ptr.data_ptr(), tab.sel.data_ptr(), _ptr(tab.w), _ptr(tab.longs),
-                          tab.n, tab.nlong, int(out is not None))
+                          tab.n, tab.nlong,
+                          X1_MODES["min" if mode == "min" else "add" if out is None else "set"])
     return y
 
 

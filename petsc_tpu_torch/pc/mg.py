@@ -43,8 +43,10 @@ and an operator from ``DMDA.createMatrix`` (``_build_from_dm``), the
 levels come from the DMDA: ``-pc_mg_levels`` or coarsening down to 50
 rows, each coarse operator rediscretized by the DM's callback or else the
 Galerkin product, the transfers ``MatInterpQ1`` (Q1P/Q1R, per component
-for dof > 1). PCGAMG (:mod:`.gamg`) builds its hierarchy by aggregation
-and reuses the rest.
+for dof > 1). A refined DMPlex behind the operator (``assemblePoissonP1``)
+gives its refinement chain the same way, with the interpolations
+``refine()`` recorded (MatAIJ, S2) and Galerkin coarse operators. PCGAMG
+(:mod:`.gamg`) builds its hierarchy by aggregation and reuses the rest.
 """
 
 from __future__ import annotations
@@ -311,7 +313,9 @@ class _PCMG:
         return (a * emin_est + b * emax_est, c * emin_est + d * emax_est)
 
     def _build_from_dm(self, dm):
-        """The levels from a DMDA (mg.py:275-298): -pc_mg_levels of them, else
+        """The levels from a DM (mg.py:275-298), a DMDA or a refined DMPlex
+        (whose coarsen() is its refinement parent and whose interpolation
+        is the one refine() recorded): -pc_mg_levels of them, else
         coarsen until 10 levels, N <= 50, or a size that does not coarsen;
         each coarse level rediscretized by the DM's compute_operators
         callback (called with ksp None, as the reference does) where one is
@@ -319,10 +323,11 @@ class _PCMG:
         from DMCreateInterpolation. The callbacks' host seconds are logged
         as the event PCMGSetUp_compute_operators."""
         from ..dm.da import DMDA
-        if not isinstance(dm, DMDA):
-            raise Error(f"PCMG: the operator's DM is a {type(dm).__name__}, not a DMDA; "
-                        "PCMG builds levels from a DMDA only (or give them with setLevels "
-                        "and setInterpolation)")
+        from ..dm.plex import DMPlex
+        if not isinstance(dm, (DMDA, DMPlex)):
+            raise Error(f"PCMG: the operator's DM is a {type(dm).__name__}, not a DMDA or "
+                        "a DMPlex; PCMG builds levels from those only (or give them with "
+                        "setLevels and setInterpolation)")
         nlev_opt = self.pc.opt("get_int", "pc_mg_levels", None)
         das = [dm]
         while True:

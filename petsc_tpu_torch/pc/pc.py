@@ -83,6 +83,37 @@ class PC(PObject):
         self._coords = np.asarray(coords, dtype=np.float64)
         return self
 
+    # -------- fieldsplit public surface (petsc4py PC naming, pc.py:100-131) --------
+
+    def _fieldsplit(self):
+        if self._impl is None or self._type != "fieldsplit":
+            self.setType("fieldsplit")
+        return self._impl
+
+    def setFieldSplitIS(self, *fields):
+        """PCFieldSplitSetIS (fieldsplit.c): each field a (name, indices) pair."""
+        impl = self._fieldsplit()
+        for name, iset in fields:
+            impl.setIS(name, iset)
+        return self
+
+    def setFieldSplitFields(self, bs, *fields):
+        """PCFieldSplitSetFields: strided component splits of block size bs
+        (each field a component index or tuple of components)."""
+        self._fieldsplit().setFields(bs, *fields)
+        return self
+
+    def setFieldSplitType(self, ftype):
+        """PCFieldSplitSetType: additive | multiplicative |
+        symmetric_multiplicative | schur."""
+        self._fieldsplit().ftype = ftype
+        return self
+
+    def setFieldSplitSchurPreType(self, pre):
+        """PCFieldSplitSetSchurPre: a11 | selfp."""
+        self._fieldsplit().schur_pre = pre
+        return self
+
     def setShellApply(self, apply, apply_transpose=None, context=None):
         """PCShellSetApply: the type becomes ``shell``; apply(x), or
         apply(context, x) when a context is given, maps a tensor to a tensor."""

@@ -1380,3 +1380,85 @@ def test_matis_on_the_card_equals_the_cpu_port(cuda_device):
             counts = {k: c for k, c in chip_smoke.launch_counts().items() if c}
             assert counts == {"subdomain_apply": 1, "dst_scatter": 1}
     assert _rel(out["cuda"], out["cpu"]) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dst_scatter_min_mode_equals_its_plain_version_bit_for_bit(cuda_device, dtype):
+    """X1's min mode (FVPlex's limiter): out[d] = min(out[d], its entries)
+    in one launch, equal bits with the plain version, on random entries,
+    a destination of 5,000 entries (the long part), NaN sources and
+    destinations no entry reaches (they keep out)."""
+    from petsc_tpu_torch.ops import pc_kernels as pck
+    rng = np.random.default_rng(35)
+    n, nsrc = 5000, 7000
+    dst = rng.permutation(np.r_[np.full(5000, 17), rng.integers(0, n // 2, 20000)])
+    sel = rng.integers(0, nsrc, len(dst))
+    for w in (None, rng.random(len(dst)) - 0.5):
+        tab = pck.scatter_table(dst, sel, n, nsrc, w, device=cuda_device, dtype=dtype)
+        src = torch.as_tensor(rng.random(nsrc) - 0.5, dtype=dtype, device=cuda_device)
+        src[::997] = float("nan")
+        out = torch.as_tensor(rng.random(n), dtype=dtype, device=cuda_device)
+        pck.reset_launches()
+        y = pck.dst_scatter(tab, src, out.clone(), mode="min")
+        yp = pck.dst_scatter_plain(tab, src, out.clone(), "min")
+        assert pck.LAUNCHES["dst_scatter"] == 1
+        assert torch.equal(torch.nan_to_num(y, nan=7.0), torch.nan_to_num(yp, nan=7.0))
+        assert torch.equal(y[n // 2:], out[n // 2:])      # reached by no entry
+
+
+@pytest.mark.cuda
+def test_ds_assembly_on_the_card_equals_the_cpu_port(cuda_device):
+    """The DS's residual (K8, the batched element kernel, X1 add), element
+    Jacobians and COO Jacobian (ex12's route: K8, X1, setValuesCOO) on the
+    card against the port on the CPU, 1e-12 relative; the residual's
+    launches one K8 and one X1."""
+    from petsc_tpu_torch.dm.fe import DS, lagrange_fe
+    from petsc_tpu_torch.dm.plex import DMPlex
+    from petsc_tpu_torch.examples import ex12
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ptt.init(device=dev)
+        ds = DS(DMPlex.createBoxMesh((16, 16)), lagrange_fe(2, 2))
+        ds.setResidual(f0=lambda u, gu, x: -ex12.forcing(x),
+                       f1=lambda u, gu, x: (1.0 + u * u) * gu)
+        u = torch.as_tensor(np.random.default_rng(36).standard_normal(ds.ndof), device=dev)
+        chip_smoke.reset_launches()
+        F = ds.assembleResidual(u)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert {k: c for k, c in chip_smoke.launch_counts().items() if c} == \
+                {"gather": 1, "dst_scatter": 1}
+        P = ptt.MatAIJ()
+        P.setSizes((ds.ndof, ds.ndof))
+        bnd = ds.boundary_dofs(lambda x: x.min() < 1e-9 or x.max() > 1 - 1e-9)
+        ds.assembleJacobianCOO(u, P, bnd)
+        out[dev] = (F.cpu(), ds.elementJacobians(u).cpu(), P.to_scipy())
+    assert _rel(out["cuda"][0], out["cpu"][0]) <= 1e-12
+    assert _rel(out["cuda"][1], out["cpu"][1]) <= 1e-12
+    d = (out["cuda"][2] - out["cpu"][2]).tocsr()
+    assert abs(d).max() <= 1e-12 * abs(out["cpu"][2]).max()
+    assert out["cuda"][2].nnz == out["cpu"][2].nnz
+
+
+@pytest.mark.cuda
+def test_fvplex_rhs_on_the_card_equals_the_cpu_port(cuda_device):
+    """FVPlex's second-order right-hand side (eleven K8, X1 min and signed)
+    on the card against the port on the CPU: 1e-12 of max|du|."""
+    from petsc_tpu_torch.dm.fv_plex import FVPlex
+    from petsc_tpu_torch.dm.plex import DMPlex
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ptt.init(device=dev)
+        fv = FVPlex(DMPlex.createBoxMesh((40, 30)), lambda u: (u, 0.5 * u),
+                    lambda uL, uR, n: n[:, 0] + 0.5 * n[:, 1], riemann="upwind", order=2)
+        u = torch.as_tensor(np.random.default_rng(37).random(2400), device=dev)
+        rhs = fv.makeRHS()
+        rhs(0.0, u)
+        chip_smoke.reset_launches()
+        out[dev] = rhs(0.0, u).cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert {k: c for k, c in chip_smoke.launch_counts().items() if c} == \
+                {"gather": 11, "dst_scatter": 2}
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-12 * float(out["cpu"].abs().max())

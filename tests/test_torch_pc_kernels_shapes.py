@@ -131,13 +131,23 @@ def _in_order(dst, sel, w, src, n):
 def test_x1_card_edge_cases_agree_with_the_reference_on_the_cpu(name):
     """The card tests' X1 cases (chip_smoke.X1_EDGES) through the plain
     version: equal bits with an in-order loop over the entries, and the
-    reference's .at[].add / .at[].set to 1e-12."""
+    reference's .at[].add / .at[].set to 1e-12 (.at[].min, the min cases,
+    bit for bit)."""
     tab, src, out = chip_smoke.x1_edge_operands(name, torch.float64, "cpu")
     n = tab.n
     ptr, sel = tab.ptr.numpy(), tab.sel.numpy()
     dst = np.repeat(np.arange(n), np.diff(ptr))
     w = np.ones(len(sel)) if tab.w is None else tab.w.numpy()
     s = src.numpy()
+    if chip_smoke.X1_EDGES[name] == "min":
+        y = pck.dst_scatter(tab, src, out.clone(), mode="min").numpy()
+        want = out.numpy().copy()
+        for d, s_, ww in zip(dst, sel, w):
+            want[d] = min(want[d], ww * s[s_])
+        assert np.array_equal(y, want)
+        ref = jnp.asarray(out.numpy()).at[jnp.asarray(dst)].min(jnp.asarray(w * s[sel]))
+        assert np.array_equal(y, np.asarray(ref))
+        return
     y = pck.dst_scatter(tab, src, None if out is None else out.clone()).numpy()
     if out is None:
         assert np.array_equal(y, _in_order(dst, sel, w, s, n))
