@@ -331,6 +331,28 @@ Phases, one JSON line each on stdout:
            (the DS residual), signed (the FV fluxes) and min (the limiter)
            modes on those tables, each against its plain version bit for
            bit and timed;
+  dm_more  the rest of DM and item 13 through the user's entry points
+           (DM_MORE_CASES): examples/stokes_stag.py's MAC Stokes on a DMStag
+           (FGMRES + fieldsplit Schur full/selfp, ILU(0) and Jacobi blocks)
+           at n = 64 and 512 (787,456 unknowns), its CSR's hash the
+           reference's; DMSwarm on a 1025^2 DMDA (ppcell 4) and a 129^3 one
+           (ppcell 2), 16,777,216 particles each, permuted, depositSum,
+           projectFields, interpolateToParticles (W1, W2) and migrate;
+           DMNetwork on the 512 x 512 grid graph (createMatrix's pattern,
+           the KCL Laplacian from incidence(), CG + GAMG); the LETKF
+           (16,384 points, 32 members, 2,048 observations, Gaspari-Cohn);
+           PetscRegressor OLS (KSP lsqr), ridge and lasso on a 131,072 x 64
+           design; PF "x*x + 1" and Random.getValues on 2^24 entries; config
+           2's matrix in PETSc binary and ex45's 129^3 right-hand side as
+           .vti from card tensors; each case's first run held to `python
+           dm_contract.py` (tests/data/dm_contract.json: its, reasons,
+           histories to 1e-6 or twice the reference's own spread, vectors'
+           norms and samples, equal hashes and files) with exact launches
+           (dm_more_launches_needed), its host seconds, warm run and one
+           profiled run; then W1 and W2 on the swarms' shapes, against
+           their plain versions (W1 to 1e-13 of sum |w f| per node, W2 bit
+           for bit) and timed; HDF5 is left out (no h5py on the card's
+           machine);
   bench_gpu  python bench_gpu.py in a process of its own (the kernels built
            above reused): its JSON line, and its contract, BENCH_r05.json's
            solve (10 iterations, relres <= 1e-8, jacobi_its 184), the small-n
@@ -724,8 +746,9 @@ FIXTURES = ("LFAT5.mtx", "m_05_05_crk.mtx", "amesos2_test_mat0.mtx")
 def kernel_modules():
     """The port's kernel wrapper modules, each with its LAUNCHES counts."""
     from petsc_tpu_torch.ops import (block_kernels, gather_kernels, grid_kernels,
-                                     pallas_kernels, pc_kernels, trisolve)
-    return pallas_kernels, gather_kernels, grid_kernels, trisolve, block_kernels, pc_kernels
+                                     pallas_kernels, particle_kernels, pc_kernels, trisolve)
+    return (pallas_kernels, gather_kernels, grid_kernels, trisolve, block_kernels, pc_kernels,
+            particle_kernels)
 
 
 def reset_launches():
@@ -946,6 +969,8 @@ def phase_kernels(pk, sb, flush, triad_Bps):
     if not err <= 1e-12:
         raise AssertionError(f"const_stencil vs scipy CSR at 24^3: rel err {err}")
     details.append({"name": "const_stencil_box_vs_scipy_csr", "n": 24 ** 3, "rel_err": err})
+    # W1 and W2 on their edge cases (clamps, cell edges, every dim, six fields)
+    details.extend(cic_edge_checks())
     return details, main
 
 
@@ -6750,6 +6775,800 @@ def phase_plex(pt, smi, t_start, flush, earlier):
             "elapsed_s": time.perf_counter() - t_start}, by_case, rows
 
 
+# ---------------------------------------------------------------------
+# phase dm_more: the rest of DM (item 11b) and item 13 (I/O, PF, Random,
+# ML); the inputs here are dm_contract.py's too
+# ---------------------------------------------------------------------
+
+DM_MORE_CASES = ("stokes_64", "stokes_512", "swarm_2d", "swarm_3d", "network_kcl", "letkf",
+                 "regressor", "pf", "random", "io")
+DM_STOKES_N = {"stokes_64": 64, "stokes_512": 512}
+DM_SWARM = {"swarm_2d": (2, 1025, 4), "swarm_3d": (3, 129, 2)}   # dim, nodes per axis, ppcell
+DM_SWARM_SEED = 25
+DM_NETWORK_SIDE = 512          # 262,144 vertices, 523,264 edges
+DM_LETKF = (16384, 32, 2048, 16.0)   # state points n, members k, observations m, GC radius
+DM_LETKF_SEED = 26
+# rows, columns, ridge weight, lasso weight, lasso's rows: the reference's
+# lasso takes ||X||_2 by a full SVD (U is rows x rows: 137 GB at 131,072),
+# so lasso fits the first 16,384 rows
+DM_REGRESSOR = (131072, 64, 10.0, 819.2, 16384)
+DM_REGRESSOR_SEED = 27
+DM_PF = (1 << 24, "x*x + 1", 28)
+DM_RANDOM = (1 << 24, (-1.0, 3.0), 1000)    # values, then an interval and a second draw
+DM_IO_CONFIG2 = (22, 239, 239)
+DM_IO_EX45 = 129
+DM_HIST_RTOL = 1e-6
+
+
+def swarm_grid(case):
+    """(dim, nodes per axis, ppcell, particles, nodes) of a swarm case."""
+    dim, nn, ppc = DM_SWARM[case]
+    return dim, nn, ppc, ((nn - 1) * ppc) ** dim, nn ** dim
+
+
+def swarm_inputs(case):
+    """The case's seeded inputs: a permutation of the particles that
+    insertPointsUsingCellDM placed, the particle fields w (in [0, 1)) and
+    q (normal), and a nodal field (normal)."""
+    import numpy as np
+    _, _, _, npart, nnodes = swarm_grid(case)
+    rng = np.random.default_rng(DM_SWARM_SEED + DM_SWARM[case][0])
+    return (rng.permutation(npart), rng.random(npart), rng.standard_normal(npart),
+            rng.standard_normal(nnodes))
+
+
+def network_edges(side=None):
+    """The side x side grid graph's edges (DM_NETWORK_SIDE by default),
+    vertex r * side + c: every (v, v + 1) along rows, then every
+    (v, v + side) along columns."""
+    import numpy as np
+    side = side or DM_NETWORK_SIDE
+    v = np.arange(side * side, dtype=np.int64).reshape(side, side)
+    return np.concatenate([np.stack([v[:, :-1].ravel(), v[:, 1:].ravel()], 1),
+                           np.stack([v[:-1, :].ravel(), v[1:, :].ravel()], 1)])
+
+
+def letkf_inputs():
+    """(Xf (n, k), yo (m,), H (m, n) dense, R_diag (m,), localization (n, m)):
+    a periodic line of n points observed every n / m points, Gaspari-Cohn
+    weights of the periodic distance over the radius (gc: the package's
+    gaspari_cohn)."""
+    import numpy as np
+    n, k, m, radius = DM_LETKF
+    rng = np.random.default_rng(DM_LETKF_SEED)
+    x = np.arange(n)
+    truth = np.sin(2 * np.pi * x / n * 4) + 0.3 * np.cos(2 * np.pi * x / n * 17)
+    Xf = truth[:, None] + 0.2 + 0.5 * rng.standard_normal((n, k))
+    obs_at = np.arange(0, n, n // m)[:m]
+    H = np.zeros((m, n))
+    H[np.arange(m), obs_at] = 1.0
+    R_diag = np.full(m, 0.25)
+    yo = truth[obs_at] + 0.5 * rng.standard_normal(m)
+    d = np.abs(x[:, None] - obs_at[None, :])
+    dist = np.minimum(d, n - d) / radius
+    return Xf, yo, H, R_diag, dist
+
+
+def regressor_inputs():
+    """(X, y): a seeded normal design, half of the true coefficients 0, an
+    intercept of 3 and noise of 0.1."""
+    import numpy as np
+    rows, cols = DM_REGRESSOR[:2]
+    rng = np.random.default_rng(DM_REGRESSOR_SEED)
+    X = rng.standard_normal((rows, cols))
+    coef = rng.standard_normal(cols) * (np.arange(cols) % 2)
+    return X, X @ coef + 3.0 + 0.1 * rng.standard_normal(rows)
+
+
+def pf_input():
+    import numpy as np
+    n, _, seed = DM_PF
+    return np.random.default_rng(seed).standard_normal(n)
+
+
+def sample_indices(n, k=16, seed=24):
+    """k sorted distinct indices of 0..n-1, from a seeded generator."""
+    import numpy as np
+    return np.sort(np.random.default_rng(seed).choice(n, size=k, replace=False))
+
+
+def vector_record(v):
+    """A vector's 2-norm, sum, min, max and 16 seeded samples."""
+    import numpy as np
+    v = np.asarray(v, dtype=np.float64).ravel()
+    idx = sample_indices(len(v))
+    return {"n": len(v), "norm2": float(np.linalg.norm(v)), "sum": float(v.sum()),
+            "min": float(v.min()), "max": float(v.max()),
+            "sample_idx": idx.tolist(), "sample": [float(a) for a in v[idx]]}
+
+
+def sha256(arr):
+    import hashlib
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+
+def dm_contract():
+    return json.loads((DATA / "dm_contract.json").read_text())
+
+
+def dm_stokes_launches(its):
+    """One FGMRES(30) solve of the MAC Stokes system from zero: one S2 (A)
+    and one K3 a step and one S2 at each later cycle's start; one PC
+    application a step, fieldsplit Schur full: two K8 gathers (the fields),
+    ILU(0) on the velocity block twice (2 T1 each), A10 and A01 (S2), two
+    K2 subtractions, the Jacobi block on the host's library torch, and two
+    X1 set scatters back."""
+    cycles = max(1, math.ceil(its / 30))
+    return {"gather": 2 * its, "trisolve": 4 * its, "csr_spmv": 3 * its + cycles - 1,
+            "triad": 2 * its, "dst_scatter": 2 * its, "axpy_normsq": its}
+
+
+def dm_lsqr_launches(its):
+    """KSP lsqr from x0 = 0 on a MatDense (torch.mv products): b - A x0 on
+    K2, two K4 norms first; a step four K2 and two K4."""
+    return {"triad": 1 + 4 * its, "dot2": 2 + 2 * its}
+
+
+def dm_more_launches_needed(kind, r):
+    """The launches of one run of a phase dm_more case, from what it reports
+    it did (r: the case's result)."""
+    if kind == "stokes":
+        return dm_stokes_launches(r["its"])
+    if kind == "swarm":
+        # depositSum one W1; projectFields (two fields and the weight sum)
+        # one W1; interpolateToParticles one W2; migrate a device sort
+        return {"cic_deposit": 2, "cic_interp": 1}
+    if kind == "network":
+        return {k: v for k, v in mg_launches_needed(r["its"], r["_nlev"]).items() if v}
+    if kind == "regressor":
+        return dm_lsqr_launches(r["lsqr_its"])
+    if kind == "io":
+        return {"gather": 2}          # setValuesCOO: v[perm] and the diagonal
+    return {}                          # letkf, pf, random: library torch alone
+
+
+def _spread_tol(c, key, want_k, k=None):
+    """Twice the largest distance of the contract's perturbed runs
+    (dm_contract.py --spread: b or A moved at rounding level) from the
+    contract, for `key` (entry k of it; runs shorter than k + 1 entries
+    left out); 0 without a spread."""
+    sp = c.get("spread")
+    runs = [] if not sp else sp[key] if k is None else [r[k] for r in sp[key] if len(r) > k]
+    return 2 * max((abs(v - want_k) for v in runs), default=0.0)
+
+
+def dm_stokes(pt, c, case):
+    """examples/stokes_stag.py's steps at n: the vectorised MAC assembly
+    (held to the contract's CSR hash), then from_scipy and the fieldsplit
+    Schur FGMRES of stokes_stag.setup; run() solves from zero."""
+    from petsc_tpu_torch.examples import stokes_stag
+    n = DM_STOKES_N[case]
+    secs = {}
+    t = time.perf_counter()
+    _, A_sp, b_np, offs = stokes_stag.assemble(n)
+    secs["assemble"] = time.perf_counter() - t
+    got = sha256(A_sp.indptr.astype("int64")) + sha256(A_sp.indices.astype("int64")) + \
+        sha256(A_sp.data)
+    if got != c["csr_sha256"]:
+        raise AssertionError(f"{case}: the assembled CSR's hash differs from the reference's")
+    pt.init(args=[])
+    t = time.perf_counter()
+    ksp, A, b = stokes_stag.setup(A_sp, b_np, offs[2])
+    nl_sync()
+    secs["from_scipy"] = time.perf_counter() - t
+
+    def run():
+        x = A.createVecRight()
+        ksp.solve(b, x)
+        return x
+
+    def result(x):
+        u_err, div = stokes_stag.errors(x.getArray(), n, offs[0], offs[1])
+        return {"its": ksp.getIterationNumber(), "reason": int(ksp.getConvergedReason()),
+                "history": [float(h) for h in ksp.getConvergenceHistory()], "u_err": u_err,
+                "div": div, "x": x.array, "rows": A_sp.shape[0], "nnz": int(A_sp.nnz)}
+    return run, result, SimpleNamespace(seconds=secs)
+
+
+def dm_stokes_check(case, c, r):
+    """Iterations within twice the reference's own spread (equal where its
+    perturbed runs agree) and the reason equal; each history entry the two
+    runs share to DM_HIST_RTOL (one at rounding level, below NL_HIST_FLOOR
+    of the first, to NL_HIST_ABS of the first), or to twice the reference's
+    own spread where that is larger; u_err, max|div u| and the solution's
+    norm likewise (1e-8 relative, max|div u| 1e-9 absolute)."""
+    its_tol = _spread_tol(c, "its", c["its"])
+    if abs(r["its"] - c["its"]) > its_tol or r["reason"] != c["reason"]:
+        raise AssertionError(f"{case}: its {r['its']}, reason {r['reason']}; the contract "
+                             f"{c['its']} (within {its_tol}), {c['reason']}")
+    got, want = r["history"], c["history"]
+    if len(got) != r["its"] + 1:
+        raise AssertionError(f"{case}: {len(got)} history entries for {r['its']} its")
+    scale, worst, spread_held = abs(want[0]), 0.0, 0
+    for k, (g, w) in enumerate(zip(got, want)):
+        base = NL_HIST_ABS * scale if abs(w) < NL_HIST_FLOOR * scale else DM_HIST_RTOL * abs(w)
+        tol = max(base, _spread_tol(c, "history", w, k))
+        if not abs(g - w) <= tol:
+            raise AssertionError(f"{case}: history entry {k} is {g!r}, want {w!r} within "
+                                 f"{tol!r}")
+        spread_held += abs(g - w) > base
+        worst = max(worst, abs(g - w) / abs(w))
+    out = {"its_held_within": its_tol, "history_worst_rel": worst,
+           "history_entries_held_by_the_spread": spread_held}
+    x_norm = float(r["x"].double().norm())
+    for key, got_v, want_v, base in (("u_err", r["u_err"], c["u_err"], 1e-8 * c["u_err"]),
+                                     ("div", r["div"], c["div"], 1e-9),
+                                     ("x_norm2", x_norm, c["x"]["norm2"],
+                                      1e-8 * c["x"]["norm2"])):
+        tol = max(base, _spread_tol(c, key, want_v))
+        if not abs(got_v - want_v) <= tol:
+            raise AssertionError(f"{case}: {key} {got_v!r}, the contract's {want_v!r} "
+                                 f"(limit {tol!r})")
+        out[key] = {"got": got_v, "want": want_v, "held_within": tol}
+    return out
+
+
+def dm_swarm(pt, c, case):
+    """A DMSwarm on the case's DMDA: insertPointsUsingCellDM, the seeded
+    permutation, fields w and q, a nodal field (swarm_inputs); run()
+    restores that state (the permuted coordinates and fields, on the
+    device), then depositSum(w), projectFields([w, q]),
+    interpolateToParticlesTensor and migrate."""
+    import torch
+    dim, nn, ppc, _, nnodes = swarm_grid(case)
+    secs = {}
+    t = time.perf_counter()
+    perm, w, q, nodal = swarm_inputs(case)
+    secs["inputs_host"] = time.perf_counter() - t
+    pt.init(args=[])
+    t = time.perf_counter()
+    da = pt.DMDA.create(dim, (nn,) * dim)
+    sw = pt.DMSwarm.create()
+    sw.setCellDM(da)
+    sw.insertPointsUsingCellDM(ppcell=ppc)
+    dev = pt.config.device()
+    X0 = sw.getFieldTensor("DMSwarmPIC_coor")[torch.as_tensor(perm, device=dev)]
+    sw.setPointCoordinates(X0)
+    sw.registerField("w", 1)
+    sw.registerField("q", 1)
+    w0 = torch.as_tensor(w, device=dev).reshape(-1, 1)
+    q0 = torch.as_tensor(q, device=dev).reshape(-1, 1)
+    nodal_v = pt.Vec.from_array(nodal)
+    nl_sync()
+    secs["setup"] = time.perf_counter() - t
+
+    def run():
+        sw.setPointCoordinates(X0)
+        sw.restoreField("w", w0)
+        sw.restoreField("q", q0)
+        dep = sw.depositSum("w")
+        proj = sw.projectFields(["w", "q"])
+        interp = sw.interpolateToParticlesTensor(nodal_v)
+        sw.migrate()
+        return dep, proj, interp
+
+    def result(out):
+        dep, proj, interp = out
+        return {"deposit": dep.array, "project_w": proj[0].array, "project_q": proj[1].array,
+                "interpolate": interp, "cells": sw.binToCells(),
+                "migrated_w": sw.getFieldTensor("w")}
+    ctx = SimpleNamespace(seconds=secs, X=X0, w=w0[:, 0], q=q0[:, 0], nodal=nodal_v.array,
+                          grid=sw._grid(), weight_sum=float(w.sum()))
+    return run, result, ctx
+
+
+def dm_swarm_check(case, c, r, ctx):
+    """Each deposit's and the interpolation's norm, sum and samples to the
+    contract (1e-12 relative; the interpolation 1e-13), the deposit's sum
+    to the particle weights' (1e-12), the migrated order and cell ids
+    equal in bits (their SHA-256)."""
+    out = {}
+    for key, tol in (("deposit", 1e-12), ("project_w", 1e-12), ("project_q", 1e-12),
+                     ("interpolate", 1e-13)):
+        v = r[key]
+        out[key] = plex_vec_check(f"{case} {key}", v, c[key], tol)
+        s = float(v.double().sum())
+        rel = abs(s - c[key]["sum"]) / max(abs(c[key]["sum"]), 1e-300)
+        if key != "project_q" and not rel <= tol:
+            raise AssertionError(f"{case} {key}: sum {s!r}, the contract's {c[key]['sum']!r}")
+        out[key]["sum_rel"] = rel
+    tot = float(r["deposit"].double().sum())
+    if not abs(tot - ctx.weight_sum) <= 1e-12 * ctx.weight_sum:
+        raise AssertionError(f"{case}: deposit sums to {tot!r}, the weights to {ctx.weight_sum!r}")
+    for key, want in (("migrated_w", "migrated_w_sha256"), ("cells", "migrated_cells_sha256")):
+        if sha256(r[key].cpu().numpy()) != c[want]:
+            raise AssertionError(f"{case}: {key} after migrate differ from the contract's")
+    out["deposit_sum_rel_to_weights"] = abs(tot - ctx.weight_sum) / ctx.weight_sum
+    return out
+
+
+def dm_network(pt, c, case):
+    """DMNetwork on the grid graph (network_edges), one 1-dof component a
+    vertex; createMatrix's pattern; the Laplacian from incidence(),
+    zeroRowsColumns at the first and last vertex (1 V at the first); CG +
+    GAMG to rtol 1e-8; run() solves from zero."""
+    import numpy as np
+    import scipy.sparse as sp
+    secs = {}
+    edges = network_edges()
+    nv = DM_NETWORK_SIDE ** 2
+    pt.init(args=["-ksp_type", "cg", "-pc_type", "gamg", "-ksp_rtol", "1e-8"])
+    t = time.perf_counter()
+    net = pt.DMNetwork.create()
+    net.addSubnetwork("grid", edges)
+    net.layoutSetUp()
+    key = net.registerComponent("bus")
+    for v in range(nv):
+        net.addComponent(v, key, 1)
+    net.setUp()
+    secs["layout"] = time.perf_counter() - t
+    t = time.perf_counter()
+    S = net.createMatrix().to_scipy()
+    secs["createMatrix"] = time.perf_counter() - t
+    got = sha256(S.indptr.astype("int64")) + sha256(S.indices.astype("int64"))
+    if (int(S.nnz), got) != (c["nnz"], c["pattern_sha256"]):
+        raise AssertionError(f"{case}: createMatrix's pattern ({S.nnz} entries) differs from "
+                             f"the contract's ({c['nnz']})")
+    src, dst = net.incidence()
+    G = np.ones(len(src))
+    L = sp.csr_matrix((np.concatenate([G, G, -G, -G]),
+                       (np.concatenate([src, dst, src, dst]),
+                        np.concatenate([src, dst, dst, src]))), shape=(nv, nv))
+    t = time.perf_counter()
+    A = pt.MatAIJ.from_scipy(L)
+    xv = np.zeros(nv)
+    xv[0] = 1.0
+    b = pt.Vec.from_array(np.zeros(nv))
+    A.zeroRowsColumns([0, nv - 1], diag=1.0, x=pt.Vec.from_array(xv), b=b)
+    secs["laplacian"] = time.perf_counter() - t
+    plex_vec_check(f"{case} b", b.array, c["b"], 1e-15)
+    ksp = pt.KSP().create()
+    ksp.setOperators(A)
+    ksp.setFromOptions()
+
+    def run():
+        x = A.createVecRight()
+        ksp.solve(b, x)
+        return x
+
+    def result(x):
+        return {"its": ksp.getIterationNumber(), "reason": int(ksp.getConvergedReason()),
+                "history": [float(h) for h in ksp.getConvergenceHistory()],
+                "_nlev": len(ksp.getPC()._impl.levels), "x": x.array}
+    return run, result, SimpleNamespace(seconds=secs, nnz=int(S.nnz), edges=len(edges))
+
+
+def dm_letkf(pt, c, case):
+    """letkf_analysis on letkf_inputs with Gaspari-Cohn localization, the
+    inputs on the card; run() is one analysis."""
+    import torch
+    from petsc_tpu_torch.ml import gaspari_cohn, letkf_analysis
+    secs = {}
+    t = time.perf_counter()
+    Xf, yo, H, R, dist = letkf_inputs()
+    rho = gaspari_cohn(dist)
+    secs["inputs_host"] = time.perf_counter() - t
+    plex_vec_check(f"{case} rho", torch.as_tensor(rho).reshape(-1), c["rho"], 1e-15)
+    pt.init(args=[])
+    Xf, yo, H, R, rho = (torch.as_tensor(a, device=pt.config.device())
+                         for a in (Xf, yo, H, R, rho))
+
+    def run():
+        return letkf_analysis(Xf, yo, H, R, localization=rho)
+
+    def result(Xa):
+        return {"Xa": Xa, "Xa_mean": Xa.mean(dim=1)}
+    return run, result, SimpleNamespace(seconds=secs)
+
+
+def dm_regressor(pt, c, case):
+    """Regressor OLS (KSP lsqr), ridge and lasso (on the first lasso rows)
+    on regressor_inputs, the design on the card; run() fits all three."""
+    import torch
+    X, y = regressor_inputs()
+    _, _, ridge_w, lasso_w, lasso_rows = DM_REGRESSOR
+    pt.init(args=[])
+    X, y = (torch.as_tensor(a, device=pt.config.device()) for a in (X, y))
+    fits = {}
+
+    def run():
+        for lt, wgt, m in (("ols", None, len(y)), ("ridge", ridge_w, len(y)),
+                           ("lasso", lasso_w, lasso_rows)):
+            r = pt.Regressor().create().setLinearType(lt)
+            if wgt is not None:
+                r.setRegularizerWeight(wgt)
+            fits[lt] = r.fit(X[:m], y[:m])
+        return fits
+
+    def result(f):
+        return {lt: {"coef": f[lt]._coef.cpu().numpy(), "intercept": f[lt].getIntercept()}
+                for lt in f} | {"lsqr_its": f["ols"].lsqr_its}
+    return run, result, SimpleNamespace(seconds={})
+
+
+def dm_regressor_check(case, c, r):
+    import numpy as np
+    out = {}
+    for lt in ("ols", "ridge", "lasso"):
+        want = np.asarray(c[lt]["coef"])
+        err = float(np.abs(r[lt]["coef"] - want).max() / np.abs(want).max())
+        ierr = abs(r[lt]["intercept"] - c[lt]["intercept"]) / abs(c[lt]["intercept"])
+        if not (err <= 1e-10 and ierr <= 1e-10):
+            raise AssertionError(f"{case} {lt}: coefficients {err:.3g}, intercept {ierr:.3g} "
+                                 "relative from the contract's (limit 1e-10)")
+        out[lt] = {"coef_rel": err, "intercept_rel": ierr,
+                   "zeros": int((r[lt]["coef"] == 0).sum())}
+    return out
+
+
+def dm_pf(pt, c, case):
+    """PF "x*x + 1" (string) on pf_input's 2^24 entries, from a Vec on the
+    card into a Vec."""
+    from petsc_tpu_torch.sys.pf import PF
+    x = pf_input()
+    pt.init(args=[])
+    v = pt.Vec.from_array(x)
+    y = v.duplicate()
+    pf = PF.create().setType("string", DM_PF[1])
+
+    def run():
+        return pf.apply(v, y)
+
+    def result(yv):
+        return {"y": yv.array, "x": x}
+    return run, result, SimpleNamespace(seconds={})
+
+
+def dm_pf_check(case, c, r):
+    """Equal in bits to numpy's x*x + 1 (each operation rounded alone); the
+    reference's jitted map contracts to a fused multiply-add, so its
+    entries may be one rounding away: norm2 and sum to 1e-15, samples to
+    2.3e-16 relative (ROADMAP section 3)."""
+    import numpy as np
+    y = r["y"].cpu().numpy()
+    x = r["x"]
+    if not np.array_equal(y.view(np.int64), (x * x + 1).view(np.int64)):
+        raise AssertionError(f"{case}: differs from numpy's x*x + 1")
+    rec = vector_record(y)
+    for key, tol in (("norm2", 1e-15), ("sum", 1e-15)):
+        if not abs(rec[key] - c["y"][key]) <= tol * abs(c["y"][key]):
+            raise AssertionError(f"{case}: {key} {rec[key]!r}, the contract's {c['y'][key]!r}")
+    s, ws = np.asarray(rec["sample"]), np.asarray(c["y"]["sample"])
+    if not np.all(np.abs(s - ws) <= 2.3e-16 * np.abs(ws)):
+        raise AssertionError(f"{case}: samples {s} against {ws}")
+    return {"equal_bits_with_the_contract": sha256(y) == c["sha256"],
+            "samples_equal": int((s == ws).sum()), "norm2_rel": abs(rec["norm2"] - c["y"]["norm2"])
+            / c["y"]["norm2"]}
+
+
+def dm_random(pt, c, case):
+    """Random().getValues(2^24) on the card, then setInterval and a second
+    draw; the contract's SHA-256 of each, bit for bit."""
+    n, interval, n2 = DM_RANDOM
+    pt.init(args=[])
+
+    def run():
+        r = pt.Random()
+        v = r.getValues(n)
+        r.setInterval(interval)
+        return v, r.getValues(n2)
+
+    def result(out):
+        return {"v": out[0], "v2": out[1]}
+    return run, result, SimpleNamespace(seconds={})
+
+
+def dm_io(pt, c, case):
+    """Config 2's matrix assembled from COO on the card and written in PETSc
+    binary; ex45's 129^3 right-hand side (compute_rhs into a card Vec)
+    written as .vti; the files' SHA-256 against the contract's."""
+    import hashlib
+    import tempfile
+    from petsc_tpu_torch.examples import ex45
+    from petsc_tpu_torch.ops.stencil_build import stencil7_coo
+    from petsc_tpu_torch.sys.viewer import mat_save
+    from petsc_tpu_torch.sys.vtk import write_vtu
+    i, j, v = stencil7_coo(*DM_IO_CONFIG2)
+    n = DM_IO_EX45
+    pt.init(args=[])
+    secs = {}
+
+    def run():
+        t = time.perf_counter()
+        A = pt.MatAIJ()
+        A.setSizes(int(math.prod(DM_IO_CONFIG2)))
+        A.setPreallocationCOO(i, j)
+        A.setValuesCOO(v)
+        da = pt.DMDA.create(3, (n, n, n), dof=1, stencil_width=1)
+        b = da.createGlobalVector()
+        ex45.compute_rhs(None, b)
+        nl_sync()
+        secs["build"] = time.perf_counter() - t
+        out = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for f, write in (("config2.bin", lambda p: mat_save(p, A)),
+                             ("ex45_rhs.vti", lambda p: write_vtu(da, p,
+                                                                  point_data={"rhs": b}))):
+                t = time.perf_counter()
+                write(f"{tmp}/{f}")
+                secs[f"write_{f}"] = time.perf_counter() - t
+                data = Path(f"{tmp}/{f}").read_bytes()
+                out[f] = {"bytes": len(data), "sha256": hashlib.sha256(data).hexdigest()}
+        return out
+
+    def result(out):
+        return out
+    return run, result, SimpleNamespace(seconds=secs)
+
+
+DM_BUILD = {"stokes": dm_stokes, "swarm": dm_swarm, "network": dm_network, "letkf": dm_letkf,
+            "regressor": dm_regressor, "pf": dm_pf, "random": dm_random, "io": dm_io}
+
+
+def dm_kind(case):
+    """stokes, swarm, network, letkf, regressor, pf, random or io."""
+    return case.split("_")[0]
+
+
+def dm_check(case, c, r, ctx):
+    """The first run against the contract; returns the record's check entries."""
+    kind = dm_kind(case)
+    if kind == "stokes":
+        return dm_stokes_check(case, c, r)
+    if kind == "swarm":
+        return dm_swarm_check(case, c, r, ctx)
+    if kind == "network":
+        if (r["its"], r["reason"]) != (c["its"], c["reason"]):
+            raise AssertionError(f"{case}: its {r['its']}, reason {r['reason']}; the contract "
+                                 f"{c['its']}, {c['reason']}")
+        return {"history_worst_rel": nl_hist_check(case, r["history"], c["history"]),
+                "x": plex_vec_check(f"{case} x", r["x"], c["x"], 1e-8)}
+    if kind == "letkf":
+        return {k: plex_vec_check(f"{case} {k}", r[k].reshape(-1), c[k], 1e-10)
+                for k in ("Xa", "Xa_mean")}
+    if kind == "regressor":
+        return dm_regressor_check(case, c, r)
+    if kind == "pf":
+        return dm_pf_check(case, c, r)
+    if kind == "random":
+        got = (sha256(r["v"].cpu().numpy()), sha256(r["v2"].cpu().numpy()))
+        if got != (c["sha256"], c["interval_sha256"]):
+            raise AssertionError(f"{case}: the values differ from JAX's draw (SHA-256)")
+        return {"equal_bits": True}
+    if kind == "io":
+        for f in ("config2.bin", "ex45_rhs.vti"):
+            if r[f] != c[f]:
+                raise AssertionError(f"{case}: {f} {r[f]} differs from the contract's {c[f]}")
+        return {"equal_bytes": True, **r}
+    raise KeyError(kind)
+
+
+def dm_case(pt, case, c):
+    """One case: its first run with every launch count set to 0 just before
+    and read just after (nl_first, held exactly to dm_more_launches_needed),
+    checked against the contract; the best of NL_WARM_REPS warm runs (one
+    where a run takes over NL_ONE_WARM_MS); one profiled run. Returns
+    (record, launches, context)."""
+    kind = dm_kind(case)
+    t0 = time.perf_counter()
+    run, result, ctx = DM_BUILD[kind](pt, c, case)
+    build_s = time.perf_counter() - t0
+    r, launches, events, first_s = nl_first(pt, case, {"kind": kind}, run, result,
+                                            needed=dm_more_launches_needed)
+    checks = dm_check(case, c, r, ctx)
+    warm = math.inf
+    for _ in range(NL_WARM_REPS):
+        nl_sync()
+        t1 = time.perf_counter()
+        run()
+        nl_sync()
+        warm = min(warm, (time.perf_counter() - t1) * 1e3)
+        if warm > NL_ONE_WARM_MS:
+            break
+    prof = nl_profile(run, warm)
+    host = dict(ctx.seconds)
+    host["pcsetup"] = sum(v for k, v in events.items() if k.startswith("PCSetUp"))
+    rec = {"case": case, "kind": kind, "build_s": build_s, "first_s": first_s, "warm_ms": warm,
+           "busy_ms": prof["device_busy_ms"], "busy_share": prof["busy_share_of_warm"],
+           "device_events": prof["device_events"], "profiled_wall_ms": prof["profiled_wall_ms"],
+           "spins_seen_before_and_after": prof["spins_seen_before_and_after"],
+           "by_kernel": prof["by_kernel"], "launches": launches, "checks": checks,
+           "host_seconds": host, "events": events}
+    if kind == "stokes":
+        t1 = sum(k["ms"] for k in prof["by_kernel"] if "trisolve" in k["name"])
+        rec.update(its=r["its"], reason=r["reason"], rows=r["rows"], nnz=r["nnz"],
+                   u_err=r["u_err"], div=r["div"], t1_busy_ms=t1,
+                   t1_share_of_busy=t1 / prof["device_busy_ms"] if prof["device_busy_ms"] else None)
+    if kind == "network":
+        rec.update(its=r["its"], reason=r["reason"], gamg_levels=r["_nlev"], nnz=ctx.nnz,
+                   edges=ctx.edges)
+    if kind == "regressor":
+        rec["lsqr_its"] = r["lsqr_its"]
+    return rec, launches, ctx
+
+
+def w1_check(X, grid, fields, wsum=False):
+    """W1 against its plain version: |W1 - plain| <= 1e-13 sum |w f| per
+    node in f64 (1e-5 in f32; the weight sum's row against the weight
+    sum). Returns (W1's table, max |W1 - plain|, the largest ratio of the
+    difference to that scale)."""
+    import torch
+    from petsc_tpu_torch.ops import particle_kernels as ppk
+    got = ppk.cic_deposit(X, grid, fields, wsum)
+    plain = ppk.cic_deposit_plain(X, grid, fields, wsum)
+    scale = torch.zeros_like(plain)     # sum |w f| per node (|w| outside the box)
+    for nid, w in ppk.corners(X, grid):
+        for k, f in enumerate(fields + ([torch.ones_like(X[:, 0])] if wsum else [])):
+            scale[k].index_add_(0, nid, (w * f).abs())
+    tol = 1e-13 if X.dtype == torch.float64 else 1e-5
+    diff = (got - plain).abs()
+    if bool((diff > tol * scale).any()):
+        raise AssertionError(f"W1: |W1 - plain| above {tol} sum|w f| at "
+                             f"{int((diff > tol * scale).sum())} nodes")
+    if not diff.numel():
+        return got, 0.0, 0.0
+    return got, float(diff.max()), float((diff.double() / scale.double().clamp_min(1e-300)).max())
+
+
+def w2_check(X, grid, v):
+    """W2 equal to its plain version in bits. Returns (out, max |W2 - plain|)."""
+    import torch
+    from petsc_tpu_torch.ops import particle_kernels as ppk
+    got, plain = ppk.cic_interp(X, grid, v), ppk.cic_interp_plain(X, grid, v)
+    if not torch.equal(got, plain):
+        raise AssertionError(f"W2: {int((got != plain).sum())} entries differ from the plain "
+                             "version")
+    return got, 0.0
+
+
+def cic_edge_cases(device, dtype):
+    """W1/W2 operands that reach the clamps and the chunking: particles on
+    cell edges, at x = 1 and beyond the box (clipped to the last cell),
+    below 0 (the first), every dim, six fields (two W1 launches), n = 1."""
+    import numpy as np
+    import torch
+    from petsc_tpu_torch.ops import particle_kernels as ppk
+    rng = np.random.default_rng(52)
+    out = []
+    for dim, sizes in ((1, (33,)), (2, (17, 9)), (3, (5, 7, 6))):
+        grid = ppk.Grid(sizes)
+        n = 3001
+        X = rng.random((n, dim)) * 1.2 - 0.1
+        X[:40] = np.round(X[:40] * grid.ncell) / grid.ncell      # on cell edges
+        X[40:45] = 1.0
+        X = torch.as_tensor(X, dtype=dtype, device=device)
+        fields = [torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=device)
+                  for _ in range(6)]
+        v = torch.as_tensor(rng.standard_normal(grid.nnodes), dtype=dtype, device=device)
+        out.append((f"{dim}d", X, grid, fields, v))
+    grid = ppk.Grid((4, 4))
+    X = torch.full((1, 2), 0.3, dtype=dtype, device=device)
+    one = [torch.ones(1, dtype=dtype, device=device)]
+    out.append(("one_particle", X, grid, one, torch.ones(16, dtype=dtype, device=device)))
+    return out
+
+
+def cic_edge_checks(device="cuda"):
+    """W1 (one field; six fields with the weight sum) and W2 on
+    cic_edge_cases, f64 and f32: the rows of phase kernels' checks."""
+    import torch
+    rows = []
+    for dtype in (torch.float64, torch.float32):
+        for label, X, grid, fields, v in cic_edge_cases(device, dtype):
+            _, e1, q1 = w1_check(X, grid, fields[:1])
+            _, e6, q6 = w1_check(X, grid, fields, wsum=True)
+            _, e2 = w2_check(X, grid, v)
+            rows.append({"name": "cic", "case": label, "dtype": str(dtype)[6:],
+                         "w1_max_abs_err": max(e1, e6), "w1_ratio_to_scale": max(q1, q6),
+                         "w2_equal_bits": e2 == 0.0})
+    return rows
+
+
+def cic_grid_sample(X, grid, v):
+    """interpolateToParticles as one PyTorch call, W2's library yardstick:
+    grid_sample's bilinear interpolation (trilinear on a 5-D input) with
+    align_corners=True is cloud-in-cell on the unit box's nodes, its grid
+    the coordinates mapped to [-1, 1] with the last axis first. Returns
+    (the call, a check of it against cic_interp_plain: max |diff|, held
+    to 1e-14 of max |v|)."""
+    import torch.nn.functional as F
+    from petsc_tpu_torch.ops import particle_kernels as ppk
+    n, dim = X.shape
+    g = (2 * X - 1).flip(-1).reshape(1, *([1] * (dim - 1)), n, dim)
+    vv = v[: grid.nnodes].view(1, 1, *grid.sizes)
+
+    def call():
+        return F.grid_sample(vv, g, mode="bilinear", align_corners=True)
+
+    err = float((call().reshape(n) - ppk.cic_interp_plain(X, grid, v)).abs().max())
+    tol = 1e-14 * max(1.0, float(v.abs().max()))
+    if not err <= tol:
+        raise AssertionError(f"grid_sample: {err!r} from W2's plain version (limit {tol!r})")
+    return call, err
+
+
+def cic_rows(ctxs, flush):
+    """W1 (depositSum's one field; projectFields' two fields and the weight
+    sum) and W2 at each swarm case's shapes: checked (w1_check, w2_check)
+    and timed beside the plain version, the bound and the library call:
+    index_add_ of the precomputed corner entries for W1, grid_sample for
+    W2 (cic_grid_sample)."""
+    import torch
+    from petsc_tpu_torch.ops import particle_kernels as ppk
+    rows = {}
+    for case, ctx in ctxs.items():
+        X, grid, nodal = ctx.X, ctx.grid, ctx.nodal
+        n, dim, nn = X.shape[0], grid.dim, grid.nnodes
+        corners = ppk.corners(X, grid)
+        nid = torch.cat([c[0] for c in corners])
+        for label, fields, wsum in (("deposit", [ctx.w], False),
+                                    ("project", [ctx.w, ctx.q], True)):
+            _, err, ratio = w1_check(X, grid, fields, wsum)
+            nout = len(fields) + int(wsum)
+            ms = time_ms(lambda: ppk.cic_deposit(X, grid, fields, wsum), flush)
+            plain_ms = time_ms(lambda: ppk.cic_deposit_plain(X, grid, fields, wsum), flush,
+                               reps=3)
+            vals = torch.cat([torch.cat([w * f for _, w in corners]) for f in fields]
+                             + ([torch.cat([w for _, w in corners])] if wsum else []))
+            idx = torch.cat([nid + k * nn for k in range(nout)])
+            acc = torch.zeros(nout * nn, dtype=X.dtype, device=X.device)
+            lib_ms = time_ms(lambda: acc.zero_().index_add_(0, idx, vals), flush)
+            del vals, idx, acc
+            nbytes = 8 * (n * dim + n * len(fields) + nout * nn)
+            flops = n * (3 * dim + (1 << dim) * (2 * dim + nout))
+            b_ms, b_by = bound(nbytes, flops, "float64")
+            rows[f"cic_deposit_{label}_{case}"] = {
+                "name": "cic_deposit", "case": case, "mode": label, "dtype": "float64",
+                "particles": n, "nodes": nn, "fields": len(fields), "wsum": wsum,
+                "max_abs_err": err, "ratio_to_sum_abs_wf": ratio, "tol_ratio": 1e-13,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library": "index_add_ of the precomputed corner entries", "bytes": nbytes,
+                "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms}
+        _, err = w2_check(X, grid, nodal)
+        ms = time_ms(lambda: ppk.cic_interp(X, grid, nodal), flush)
+        plain_ms = time_ms(lambda: ppk.cic_interp_plain(X, grid, nodal), flush, reps=3)
+        lib, lib_err = cic_grid_sample(X, grid, nodal)
+        lib_ms = time_ms(lib, flush)
+        del lib
+        nbytes = 8 * (n * dim + nn + n)
+        b_ms, b_by = bound(nbytes, n * (3 * dim + (1 << dim) * (2 * dim + 2)), "float64")
+        rows[f"cic_interp_{case}"] = {
+            "name": "cic_interp", "case": case, "dtype": "float64", "particles": n, "nodes": nn,
+            "max_abs_err": err, "equal_bits": True, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library": "grid_sample (bilinear, align_corners) on the "
+            "mapped coordinates", "library_max_abs_diff": lib_err, "bytes": nbytes,
+            "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms}
+        del corners, nid
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_dm_more(pt, smi, t_start, flush):
+    """Every case of DM_MORE_CASES (dm_case), then W1's and W2's rows on the
+    swarm cases' shapes; returns (the phase's record, {case: launches}, the
+    rows)."""
+    import torch
+    contract = dm_contract()
+    cases, by_case, swarms = [], {}, {}
+    for case in DM_MORE_CASES:
+        t0 = time.perf_counter()
+        rec, launches, ctx = dm_case(pt, case, contract[case])
+        rec["seconds"] = time.perf_counter() - t0
+        cases.append(rec)
+        by_case[case] = launches
+        if dm_kind(case) == "swarm":
+            swarms[case] = ctx
+        torch.cuda.empty_cache()
+    rows = cic_rows(swarms, flush)
+    del swarms
+    torch.cuda.empty_cache()
+    return {"phase": "dm_more", "nvidia_smi": smi, "cases": cases, "cic_rows": rows,
+            "left_out": "HDF5 (Plex viewHDF5/createFromHDF5, ViewerHDF5): the card's machine "
+                        "has no h5py; the CPU tests hold it",
+            "elapsed_s": time.perf_counter() - t_start}, by_case, rows
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7044,6 +7863,14 @@ def main():
     plex_rec, plex_launches, plex_x1 = phase_plex(pt, smi, t_start, flush, earlier)
     emit(plex_rec)
 
+    # ---- the rest of DM and item 13 (I/O, PF, Random, ML): the MAC Stokes
+    # system at 64 and 512, the 2-D and 3-D swarms (W1, W2), the network
+    # KCL, the LETKF, the regressor, PF, Random, binary and VTK files; each
+    # case with every launch count set to 0 just before its first run and
+    # read just after; W1 and W2 on the swarms' shapes ----
+    dm_rec, dm_launches, cic = phase_dm_more(pt, smi, t_start, flush)
+    emit(dm_rec)
+
     # ---- bench.py's keys from the card: bench_gpu.py in a process of its own ----
     bench = phase_bench_gpu(smi, t_start)
 
@@ -7092,6 +7919,11 @@ def main():
         "neumann_step": ("neumann_step.cu", "petsc_tpu/pc/factor_pc.py:333",
                          {"neumann_step": pc_rows["neumann_step"]},
                          pc_case_launches["c2_neumann"]),
+        "cic_deposit": ("swarm_cic.cu", "petsc_tpu/dm/swarm.py:210",
+                        {"cic_deposit": cic["cic_deposit_deposit_swarm_2d"]},
+                        dm_launches["swarm_2d"]),
+        "cic_interp": ("swarm_cic.cu", "petsc_tpu/dm/swarm.py:233",
+                       {"cic_interp": cic["cic_interp_swarm_2d"]}, dm_launches["swarm_2d"]),
     }
     table = []
     for name, (src, replaces, measured, counts) in rows.items():
@@ -7126,7 +7958,9 @@ def main():
                                            **{f"nonlinear_{c}": v.get(name, 0)
                                               for c, v in nl_launches.items()},
                                            **{f"plex_{c}": v.get(name, 0)
-                                              for c, v in plex_launches.items()}},
+                                              for c, v in plex_launches.items()},
+                                           **{f"dm_more_{c}": v.get(name, 0)
+                                              for c, v in dm_launches.items()}},
                       "in_solve_us": {path: p["in_solve"].get(name, {}).get("us_per_launch")
                                       for path, p in (("solve", prof), ("aij", prof_a),
                                                       ("mg", prof_m), ("gamg", prof_g),
@@ -7300,6 +8134,17 @@ def main():
             r["also_replaces"] = ("petsc_tpu/dm/fe.py:1403 (add), "
                                   "petsc_tpu/dm/fv_plex.py:245-246 (signed), "
                                   "petsc_tpu/dm/fv_plex.py:225-227 (min)")
+    # W1's row is depositSum on the 2-D swarm (16,777,216 particles, 1025^2
+    # nodes), W2's interpolateToParticles there; projectFields' launch and
+    # the 3-D swarm stand beside them
+    for name, main_key in (("cic_deposit", "cic_deposit_deposit_swarm_2d"),
+                           ("cic_interp", "cic_interp_swarm_2d")):
+        r = next(r for r in table if r["name"] == name)
+        m = cic[main_key]
+        r.update({k: m[k] for k in m if k not in r and k != "name"})
+        r["others"] = [v for k, v in cic.items() if v["name"] == name and k != main_key]
+        r["also_replaces"] = ("petsc_tpu/dm/swarm.py:166-208 (projectFields)"
+                              if name == "cic_deposit" else "")
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -809,26 +809,26 @@ class DMPlex(DM):
         return plex_view_exodus(self, path, title=title)
 
     def viewHDF5(self, path, name="plex", mode="w"):
-        """DMView to HDF5 (plexhdf5.c): ROADMAP queue 1 item 11b."""
-        raise _hdf5_later("viewHDF5")
+        """DMView to HDF5 (plexhdf5.c; the reference's layout, plex_io.py)."""
+        from .plex_io import plex_view_hdf5
+        return plex_view_hdf5(self, path, name=name, mode=mode)
 
     @classmethod
     def createFromHDF5(cls, path, name=None, comm=None):
-        """DMLoad / DMPlexCreateFromFile(.h5): ROADMAP queue 1 item 11b."""
-        raise _hdf5_later("createFromHDF5")
+        """DMLoad / DMPlexCreateFromFile(.h5)."""
+        from .plex_io import plex_load_hdf5
+        return plex_load_hdf5(path, name=name, comm=comm)
 
     def vecViewHDF5(self, path, vname, vec, name="plex"):
-        """VecView of a section vector to HDF5: ROADMAP queue 1 item 11b."""
-        raise _hdf5_later("vecViewHDF5")
+        """VecView of a section vector to HDF5 under the mesh's group."""
+        from .plex_io import plex_vec_view_hdf5
+        return plex_vec_view_hdf5(self, path, vname, vec, name=name)
 
     def vecLoadHDF5(self, path, vname, name="plex"):
-        """VecLoad of a section vector from HDF5: ROADMAP queue 1 item 11b."""
-        raise _hdf5_later("vecLoadHDF5")
-
-
-def _hdf5_later(what):
-    return Error(f"DMPlex.{what}: the HDF5 mesh I/O (plex_io.py) comes with ROADMAP "
-                 "queue 1 item 11b, with item 13's sys/hdf5.py (it needs h5py)")
+        """VecLoad of a section vector from HDF5 (a host numpy array, as
+        the reference's)."""
+        from .plex_io import plex_vec_load_hdf5
+        return plex_vec_load_hdf5(self, path, vname, name=name)
 
 
 def _p1_cell_gradients(coords, cells, dim):

@@ -419,6 +419,31 @@ class KSP(PObject):
                 print(f"Linear solve did not converge due to {rs} iterations {self._its}")
         if o("get_bool", "ksp_view", False):
             self.view()
+        vs = o("get_string", "ksp_view_solution", None)
+        if vs:
+            self._view_solution(vs)
+
+    def _view_solution(self, spec):
+        """-ksp_view_solution vtk:sol.vtu|sol.vtk|sol.vti (PETSCVIEWERVTK,
+        plexvtu.c), binary:path, or a bare path (vtk by its suffix, else
+        PETSc binary), as the reference's ksp.py:458-480."""
+        kind, _, path = spec.partition(":")
+        if not path:
+            kind, path = ("vtk", kind) if kind.endswith((".vtu", ".vtk", ".vti")) \
+                else ("binary", kind)
+        x = self._solution
+        if kind == "vtk":
+            from ..sys.vtk import write_vtk, write_vtu
+            dm = self.getDM() or getattr(self.mat, "_dm", None) \
+                or getattr(self.mat, "_grid_shape", None)
+            if dm is None:
+                raise Error("-ksp_view_solution vtk: needs a DM or grid shape on the operator")
+            n = self.mat.getSize()[0]
+            w = write_vtk if path.endswith(".vtk") else write_vtu
+            w(dm, path, point_data={"solution": x.getArray()[:n]})
+        else:
+            from ..sys.viewer import vec_save
+            vec_save(path, x)
 
     # ---------------- results ----------------
 

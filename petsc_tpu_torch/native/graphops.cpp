@@ -645,6 +645,10 @@ int64_t hem_match(int64_t n, const int64_t* indptr, const int64_t* indices,
 // Reverse Cuthill-McKee ordering (genrcm.c role): BFS from a
 // pseudo-peripheral vertex of each component, neighbors by increasing
 // degree, then reverse. perm[newidx] = oldidx.
+// The reference's loop skips a `start` whose BFS root lies in another
+// component, so it can leave vertices unvisited (and then read past the
+// end of `order`); a second pass starts a BFS from each vertex still
+// unvisited, which changes nothing where the first pass visits them all.
 void rcm(int64_t n, const int64_t* indptr, const int64_t* indices,
          int64_t* perm) {
   std::vector<int64_t> deg(n);
@@ -653,13 +657,7 @@ void rcm(int64_t n, const int64_t* indptr, const int64_t* indices,
   std::vector<int64_t> order;
   order.reserve(n);
   std::vector<int64_t> nbrs;
-  for (int64_t start = 0; start < n; start++) {
-    if (visited[start]) continue;
-    // pseudo-peripheral: min-degree unvisited in this sweep start
-    int64_t root = start;
-    for (int64_t i = start; i < n; i++)
-      if (!visited[i] && deg[i] < deg[root]) root = i;
-    // (cheap variant of the GPS root finder)
+  auto bfs = [&](int64_t root) {
     std::queue<int64_t> q;
     q.push(root);
     visited[root] = 1;
@@ -675,7 +673,18 @@ void rcm(int64_t n, const int64_t* indptr, const int64_t* indices,
                 [&](int64_t a, int64_t b) { return deg[a] < deg[b]; });
       for (int64_t j : nbrs) q.push(j);
     }
+  };
+  for (int64_t start = 0; start < n; start++) {
+    if (visited[start]) continue;
+    // pseudo-peripheral: min-degree unvisited in this sweep start
+    int64_t root = start;
+    for (int64_t i = start; i < n; i++)
+      if (!visited[i] && deg[i] < deg[root]) root = i;
+    // (cheap variant of the GPS root finder)
+    bfs(root);
   }
+  for (int64_t v = 0; v < n; v++)
+    if (!visited[v]) bfs(v);
   for (int64_t i = 0; i < n; i++) perm[i] = order[n - 1 - i];
 }
 

@@ -29,7 +29,8 @@ BUILD = _PKG / "_build"
 SOURCES = ("probe.cu", "triad.cu", "axpy_normsq.cu", "dot2.cu", "const_stencil.cu",
            "csr_spmv.cu", "gather.cu", "row_gather.cu", "lane_shuffle.cu", "cheby.cu",
            "dnd_stencil.cu", "q1.cu", "trisolve.cu", "bsr_spmv.cu", "agg_block.cu",
-           "csr_spmm.cu", "dst_scatter.cu", "subdomain.cu", "neumann_step.cu")
+           "csr_spmm.cu", "dst_scatter.cu", "subdomain.cu", "neumann_step.cu",
+           "swarm_cic.cu")
 HEADERS = ("common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -101,6 +102,10 @@ for _t in ("f64", "f32"):
     SIGNATURES[f"ptt_subdomain_apply_{_t}"] = (_i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                                                *(_i32,) * 5, _i32, _vp)
     SIGNATURES[f"ptt_neumann_step_{_t}"] = (_vp, _vp, _vp, _vp, _i64, _i32, _vp)
+    SIGNATURES[f"ptt_cic_deposit_{_t}"] = (_vp, _i64, _i32, _vp, _vp, _vp, _vp, _i32, _i32, _vp,
+                                           _i64, _f64, _f64, _f64, *(_i32,) * 6, _i32, _vp)
+    SIGNATURES[f"ptt_cic_interp_{_t}"] = (_vp, _i64, _i32, _vp, _vp, _f64, _f64, _f64,
+                                          *(_i32,) * 6, _i32, _vp)
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 _lib = None

@@ -9,7 +9,7 @@ Hessenberg eigenproblem runs on the host.
 
 The start vector is the reference's: ``jax.random.uniform(PRNGKey(seed),
 (n,), dtype) - 0.5``. Torch has no threefry, so :func:`uniform` repeats
-JAX's generator in numpy bit for bit: threefry2x32 (Salmon et al. 2011,
+JAX's generator bit for bit: threefry2x32 (Salmon et al. 2011,
 20 rounds) over the 64-bit counter split into two 32-bit words, as JAX
 draws with ``jax_threefry_partitionable`` on (its default), and JAX's
 mapping of random bits to floats in [0, 1) (the mantissa bits under an
@@ -24,45 +24,47 @@ import torch
 from . import operator
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
-def _rotl(v, d):
-    return (v << np.uint32(d)) | (v >> np.uint32(32 - d))
+_M32 = 0xFFFFFFFF
 
 
 def threefry2x32(k1, k2, x1, x2):
-    """The Threefry-2x32 hash of the counter pairs (x1, x2) (uint32 arrays)
-    under the key (k1, k2): JAX's ``threefry2x32_p``."""
-    k1, k2 = np.uint32(k1), np.uint32(k2)
-    ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
-    x0 = np.asarray(x1, dtype=np.uint32) + ks[0]
-    x1 = np.asarray(x2, dtype=np.uint32) + ks[1]
+    """The Threefry-2x32 hash of the counter pairs (x1, x2) under the key
+    (k1, k2) (ints): JAX's ``threefry2x32_p``. x1 and x2 are int64 tensors
+    holding 32-bit words, on any device; so are the two words returned."""
+    k1, k2 = int(k1) & _M32, int(k2) & _M32
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0, x1 = (x1 + ks[0]) & _M32, (x2 + ks[1]) & _M32
     for i in range(5):
         for rot in _ROTATIONS[i % 2]:
-            x0 = x0 + x1
-            x1 = _rotl(x1, rot) ^ x0
-        x0 = x0 + ks[(i + 1) % 3]
-        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+            x0.add_(x1).bitwise_and_(_M32)
+            x1 = (x1 << rot).bitwise_or_(x1 >> (32 - rot)).bitwise_and_(_M32).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_M32)
+        x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(_M32)
     return x0, x1
+
+
+def counter_bits(key, n, device="cpu"):
+    """The two 32-bit words (int64 tensors on `device`) of threefry over
+    the counters 0 .. n-1 under `key`, each counter split into its high and
+    low words, as ``jax.random.bits`` draws with
+    ``jax_threefry_partitionable`` on."""
+    count = torch.arange(n, dtype=torch.int64, device=device)
+    return threefry2x32(key[0], key[1], count >> 32, count & _M32)
 
 
 def random_bits(seed, n, bit_width):
     """n random words of `bit_width` (32 or 64) bits from
     ``jax.random.PRNGKey(seed)``, as ``jax.random.bits`` gives them with
-    ``jax_threefry_partitionable`` on."""
+    ``jax_threefry_partitionable`` on (numpy uint64 or uint32)."""
     seed = int(seed)
     if seed < 0:
         raise ValueError("random_bits: the seed must be non-negative")
-    k1, k2 = (seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF
-    count = np.arange(n, dtype=np.uint64)
-    with np.errstate(over="ignore"):
-        b1, b2 = threefry2x32(k1, k2, (count >> np.uint64(32)).astype(np.uint32),
-                              (count & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    if bit_width not in (32, 64):
+        raise ValueError(f"random_bits: bit_width 32 or 64, got {bit_width}")
+    b1, b2 = counter_bits(((seed >> 32) & _M32, seed & _M32), n)
     if bit_width == 64:
-        return (b1.astype(np.uint64) << np.uint64(32)) | b2.astype(np.uint64)
-    if bit_width == 32:
-        return b1 ^ b2
-    raise ValueError(f"random_bits: bit_width 32 or 64, got {bit_width}")
+        return ((b1 << 32) | b2).numpy().view(np.uint64)
+    return (b1 ^ b2).numpy().astype(np.uint32)
 
 
 def uniform(seed, n, dtype=np.float64):

@@ -509,6 +509,9 @@ class _PCGAMG(_PCMG):
             if sync is not None:
                 # values that setValuesCOO left on the card come to the host once
                 _timed("PCGAMGSetUp_download", sync)
+            from ..sys.info import warn_full_gather
+            warn_full_gather(A, "PCGAMG(serial setup on sharded operator: "
+                                "bs>1/nullspace/non-MIS)")
             cur = A.to_scipy()
             shape = getattr(A, "_grid_shape", None) or getattr(Afine, "_grid_shape", None)
             if (scalar and self.structured and shape is not None and len(shape) >= 2

@@ -193,6 +193,8 @@ class _PCASM:
                 for b in range(nb)]
 
     def domains(self):
+        from ..sys.info import warn_full_gather
+        warn_full_gather(self.pc.pmat, "PCASM(nblocks != nshards)")
         S = self.pc.pmat.to_scipy().tocsr()
         return S, self._default_domains(S, S.shape[0])
 
@@ -420,6 +422,8 @@ class _PCFieldSplit:
         A = self.pc.pmat
         isets = [idx for _, idx in self.fields]
         nf = len(isets)
+        from ..sys.info import warn_full_gather
+        warn_full_gather(A, "PCFieldSplit(serial split path)")
         S = A.to_scipy().tocsr()
         rows = [S[ix] for ix in isets]
         # the additive type reads only the diagonal blocks

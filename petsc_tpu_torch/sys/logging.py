@@ -228,6 +228,31 @@ def _synchronize(sync):
         torch.cuda.synchronize(t.device)
 
 
+@contextmanager
+def torch_trace(dirname=None):
+    """The counterpart of the reference's ``jax_trace`` (sys/logging.py:
+    226), a bridge to the framework's profiler: records the block under
+    ``torch.profiler`` (the host, and the card's kernels where CUDA is
+    available) and writes a Chrome trace, ``trace.json``, into `dirname`
+    (by default ``petsc_tpu_torch_trace`` in the temporary directory).
+    Yields the directory."""
+    import os
+    import tempfile
+    dirname = dirname or os.path.join(tempfile.gettempdir(), "petsc_tpu_torch_trace")
+    os.makedirs(dirname, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield dirname
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(dirname, "trace.json"))
+
+
+jax_trace = torch_trace   # the reference's name, for scripts written against it
+
+
 # ---------------- verbose info (-info, reference src/sys/info/verboseinfo.c)
 
 _info_enabled = False

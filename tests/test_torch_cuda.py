@@ -1462,3 +1462,69 @@ def test_fvplex_rhs_on_the_card_equals_the_cpu_port(cuda_device):
             assert {k: c for k, c in chip_smoke.launch_counts().items() if c} == \
                 {"gather": 11, "dst_scatter": 2}
     assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-12 * float(out["cpu"].abs().max())
+
+
+@pytest.mark.cuda
+def test_cic_deposit_within_its_bound_of_the_plain_version(cuda_device):
+    """W1 on chip_smoke's edge cases (cell edges, particles outside the box
+    clipped to the boundary cells, 1-D to 3-D, six fields in two launches
+    with the weight sum, one particle), f64 and f32: within 1e-13 (f32
+    1e-5) of sum |w f| per node of its plain version; one launch per four
+    fields."""
+    from petsc_tpu_torch.ops import particle_kernels as ppk
+    for dtype in (torch.float64, torch.float32):
+        for label, X, grid, fields, v in chip_smoke.cic_edge_cases(cuda_device, dtype):
+            ppk.reset_launches()
+            got, _, ratio = chip_smoke.w1_check(X, grid, fields, wsum=True)
+            assert ppk.LAUNCHES["cic_deposit"] == (len(fields) + 3) // 4, label
+            assert got.shape == (len(fields) + 1, grid.nnodes)
+            got1, _, _ = chip_smoke.w1_check(X, grid, fields[:1])
+            tot = float(got1[0].double().sum())
+            assert abs(tot - float(fields[0].double().sum())) <= (
+                1e-12 if dtype == torch.float64 else 1e-4) * float(fields[0].double().abs().sum())
+
+
+@pytest.mark.cuda
+def test_cic_interp_equals_its_plain_version_bit_for_bit(cuda_device):
+    """W2 on chip_smoke's edge cases, f64 and f32: equal bits with its plain
+    version (the reference's corner loop, each step rounded alone), one
+    launch."""
+    from petsc_tpu_torch.ops import particle_kernels as ppk
+    for dtype in (torch.float64, torch.float32):
+        for label, X, grid, fields, v in chip_smoke.cic_edge_cases(cuda_device, dtype):
+            ppk.reset_launches()
+            out, err = chip_smoke.w2_check(X, grid, v)
+            assert err == 0.0 and ppk.LAUNCHES["cic_interp"] == 1, label
+
+
+@pytest.mark.cuda
+def test_swarm_on_the_card_equals_the_cpu_port(cuda_device):
+    """A permuted 2-D swarm through depositSum, projectFields,
+    interpolateToParticles and migrate on the card (W1 twice, W2 once,
+    nothing else) against the port's run on the CPU."""
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ptt.init(device=dev)
+        da = ptt.DMDA.create(2, (65, 65))
+        sw = ptt.DMSwarm.create()
+        sw.setCellDM(da)
+        sw.insertPointsUsingCellDM(ppcell=3)
+        n = sw.getLocalSize()
+        rng = np.random.default_rng(53)
+        sw.setPointCoordinates(sw.getField("DMSwarmPIC_coor")[rng.permutation(n)])
+        sw.registerField("w", 1)
+        sw.restoreField("w", rng.random(n))
+        chip_smoke.reset_launches()
+        dep = sw.depositSum("w").getArray()
+        proj = sw.projectFields(["w"])[0].getArray()
+        it = sw.interpolateToParticles(ptt.Vec.from_array(rng.standard_normal(65 * 65)))
+        sw.migrate()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert {k: c for k, c in chip_smoke.launch_counts().items() if c} == \
+                {"cic_deposit": 2, "cic_interp": 1}
+        out[dev] = (dep, proj, it, sw.getField("w"))
+    for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
+        assert np.max(np.abs(a - b)) <= 1e-12 * np.max(np.abs(b))
+    assert np.array_equal(out["cuda"][2], out["cpu"][2])
+    assert np.array_equal(out["cuda"][3], out["cpu"][3])

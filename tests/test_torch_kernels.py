@@ -20,6 +20,7 @@ from petsc_tpu_torch.ops import block_kernels
 from petsc_tpu_torch.ops import cuda_build
 from petsc_tpu_torch.ops import gather_kernels as gk
 from petsc_tpu_torch.ops import grid_kernels
+from petsc_tpu_torch.ops import particle_kernels
 from petsc_tpu_torch.ops import pallas_kernels as pk
 from petsc_tpu_torch.ops import pc_kernels
 from petsc_tpu_torch.ops import trisolve
@@ -149,7 +150,7 @@ def test_every_csrc_source_is_built():
     # generic entry and counts apart, as dnd_stencil_t)
     kernels = [k for k in (*pk.LAUNCHES, *gk.LAUNCHES, *grid_kernels.LAUNCHES,
                            *trisolve.LAUNCHES, *block_kernels.LAUNCHES, *pc_kernels.LAUNCHES,
-                           "dnd_window",
+                           *particle_kernels.LAUNCHES, "dnd_window",
                            "q1_prolong_dof", "q1_restrict_dof")
                if k not in ("probe", "cheby_update_z", "dnd_stencil_t")]
     called = {"ptt_probe", "ptt_triad_config", "ptt_dot2_config", "ptt_const_stencil_map",
