@@ -341,7 +341,7 @@ Phases, one JSON line each on stdout:
            DMNetwork on the 512 x 512 grid graph (createMatrix's pattern,
            the KCL Laplacian from incidence(), CG + GAMG); the LETKF
            (16,384 points, 32 members, 2,048 observations, Gaspari-Cohn);
-           PetscRegressor OLS (KSP lsqr), ridge and lasso on a 131,072 x 64
+           PetscRegressor OLS (thin SVD), ridge and lasso on a 131,072 x 64
            design; PF "x*x + 1" and Random.getValues on 2^24 entries; config
            2's matrix in PETSc binary and ex45's 129^3 right-hand side as
            .vti from card tensors; each case's first run held to `python
@@ -349,10 +349,16 @@ Phases, one JSON line each on stdout:
            histories to 1e-6 or twice the reference's own spread, vectors'
            norms and samples, equal hashes and files) with exact launches
            (dm_more_launches_needed), its host seconds, warm run and one
-           profiled run; then W1 and W2 on the swarms' shapes, against
-           their plain versions (W1 to 1e-13 of sum |w f| per node, W2 bit
-           for bit) and timed; HDF5 is left out (no h5py on the card's
-           machine);
+           profiled run; then W1 and W2 on the swarms' shapes, each equal
+           in bits to its plain version (W1's run on the host's CPU, f64
+           and f32, given the cell order, bare and with every tile dense)
+           and timed: W1 with its order given in turns with the
+           earlier atomic design, cell_order alone, the bare call,
+           index_add_, the plain version and the bound with its bytes, on
+           the uniform swarms and on a Gaussian cluster of as many
+           particles; W2 beside its earlier launch shapes, the shapes
+           without the division (timing only) and grid_sample; HDF5 is
+           left out (no h5py on the card's machine);
   bench_gpu  python bench_gpu.py in a process of its own (the kernels built
            above reused): its JSON line, and its contract, BENCH_r05.json's
            solve (10 iterations, relres <= 1e-8, jacobi_its 184), the small-n
@@ -1986,7 +1992,8 @@ EARLIER = Path(__file__).resolve().parent / "earlier_kernels"
 EARLIER_SOURCES = ("q1_prolong_per_output.cu", "q1_restrict_per_output.cu",
                    "trisolve_grid_barrier.cu", "bsr_spmv_per_output.cu", "agg_block_16rows.cu",
                    "csr_spmm_warp_per_row.cu", "subdomain_warp_per_row.cu",
-                   "dst_scatter_thread_per_dst.cu")
+                   "dst_scatter_thread_per_dst.cu", "swarm_cic_atomic.cu",
+                   "swarm_cic_interp_shapes.cu")
 
 
 def start_earlier_build():
@@ -2043,8 +2050,17 @@ def load_earlier(build):
                                  f"{link.stderr}")
         tmp.replace(lib)
         seconds = time.perf_counter() - t0
+    vp, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
     L = ctypes.CDLL(str(lib))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    for sfx in ("f64", "f32"):
+        for name, args in (("cic_deposit", [vp, i64, i32] + [vp] * 4 + [i32, i32, vp, i64]
+                            + [f64] * 3 + [i32] * 7 + [vp]),
+                           ("cic_interp", [vp, i64, i32, vp, vp, vp] + [f64] * 3 + [i32] * 10
+                            + [vp]),
+                           ("cic_pairs", [vp, vp, i64, i32, vp])):
+            fn = getattr(L, f"ptt_earlier_{name}_{sfx}")
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
     for name in ("q1_prolong", "q1_restrict"):
         for sfx in ("f64", "f32"):
             fn = getattr(L, f"ptt_earlier_{name}_{sfx}")
@@ -6905,12 +6921,6 @@ def dm_stokes_launches(its):
             "triad": 2 * its, "dst_scatter": 2 * its, "axpy_normsq": its}
 
 
-def dm_lsqr_launches(its):
-    """KSP lsqr from x0 = 0 on a MatDense (torch.mv products): b - A x0 on
-    K2, two K4 norms first; a step four K2 and two K4."""
-    return {"triad": 1 + 4 * its, "dot2": 2 + 2 * its}
-
-
 def dm_more_launches_needed(kind, r):
     """The launches of one run of a phase dm_more case, from what it reports
     it did (r: the case's result)."""
@@ -6918,15 +6928,17 @@ def dm_more_launches_needed(kind, r):
         return dm_stokes_launches(r["its"])
     if kind == "swarm":
         # depositSum one W1; projectFields (two fields and the weight sum)
-        # one W1; interpolateToParticles one W2; migrate a device sort
+        # one W1; interpolateToParticles one W2; the cell order (built once
+        # for the three, applied by migrate) is library torch. A count is a
+        # wrapper's launch: a W1 is three device launches (the staged
+        # tiles, the dense tiles' list, the dense tiles) and a 2-D W2 two
+        # (the corner-pair table, the interpolation)
         return {"cic_deposit": 2, "cic_interp": 1}
     if kind == "network":
         return {k: v for k, v in mg_launches_needed(r["its"], r["_nlev"]).items() if v}
-    if kind == "regressor":
-        return dm_lsqr_launches(r["lsqr_its"])
     if kind == "io":
         return {"gather": 2}          # setValuesCOO: v[perm] and the diagonal
-    return {}                          # letkf, pf, random: library torch alone
+    return {}       # letkf, regressor (OLS by thin SVD), pf, random: library torch alone
 
 
 def _spread_tol(c, key, want_k, k=None):
@@ -7164,7 +7176,7 @@ def dm_letkf(pt, c, case):
 
 
 def dm_regressor(pt, c, case):
-    """Regressor OLS (KSP lsqr), ridge and lasso (on the first lasso rows)
+    """Regressor OLS (thin-SVD least squares), ridge and lasso (on the first lasso rows)
     on regressor_inputs, the design on the card; run() fits all three."""
     import torch
     X, y = regressor_inputs()
@@ -7184,7 +7196,7 @@ def dm_regressor(pt, c, case):
 
     def result(f):
         return {lt: {"coef": f[lt]._coef.cpu().numpy(), "intercept": f[lt].getIntercept()}
-                for lt in f} | {"lsqr_its": f["ols"].lsqr_its}
+                for lt in f}
     return run, result, SimpleNamespace(seconds={})
 
 
@@ -7384,40 +7396,57 @@ def dm_case(pt, case, c):
     if kind == "network":
         rec.update(its=r["its"], reason=r["reason"], gamg_levels=r["_nlev"], nnz=ctx.nnz,
                    edges=ctx.edges)
-    if kind == "regressor":
-        rec["lsqr_its"] = r["lsqr_its"]
     return rec, launches, ctx
 
 
-def w1_check(X, grid, fields, wsum=False):
-    """W1 against its plain version: |W1 - plain| <= 1e-13 sum |w f| per
-    node in f64 (1e-5 in f32; the weight sum's row against the weight
-    sum). Returns (W1's table, max |W1 - plain|, the largest ratio of the
-    difference to that scale)."""
+def same_bits(a, b):
+    """a and b equal bit for bit (so -0 and +0 differ, and a NaN equals
+    itself), on the host."""
     import torch
+    a, b = a.cpu().contiguous(), b.cpu().contiguous()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return torch.equal(a.view(view), b.view(view))
+
+
+def w1_check(X, grid, fields, wsum=False, order=None, capacity=-1):
+    """W1 equal in bits to its plain version run on the host's CPU (serial
+    index_add_ a corner after another: the reference's order; CUDA's
+    index_add_ adds with atomics and has no fixed bits), in f64 and f32;
+    `capacity` is cic_deposit's _capacity (0: every tile with a particle
+    left to the dense kernel).
+    Returns (W1's table, max |W1 - plain|: 0.0 when it passes)."""
     from petsc_tpu_torch.ops import particle_kernels as ppk
-    got = ppk.cic_deposit(X, grid, fields, wsum)
-    plain = ppk.cic_deposit_plain(X, grid, fields, wsum)
-    scale = torch.zeros_like(plain)     # sum |w f| per node (|w| outside the box)
-    for nid, w in ppk.corners(X, grid):
-        for k, f in enumerate(fields + ([torch.ones_like(X[:, 0])] if wsum else [])):
-            scale[k].index_add_(0, nid, (w * f).abs())
-    tol = 1e-13 if X.dtype == torch.float64 else 1e-5
-    diff = (got - plain).abs()
-    if bool((diff > tol * scale).any()):
-        raise AssertionError(f"W1: |W1 - plain| above {tol} sum|w f| at "
-                             f"{int((diff > tol * scale).sum())} nodes")
-    if not diff.numel():
-        return got, 0.0, 0.0
-    return got, float(diff.max()), float((diff.double() / scale.double().clamp_min(1e-300)).max())
+    got = ppk.cic_deposit(X, grid, fields, wsum, order=order, _capacity=capacity)
+    plain = ppk.cic_deposit_plain(X.cpu(), grid, [f.cpu() for f in fields], wsum)
+    if not same_bits(got, plain):
+        raise AssertionError(f"W1: {int((got.cpu() != plain).sum())} entries differ from the "
+                             "plain version on the host's CPU")
+    return got, 0.0
+
+
+def w2_variants(dim):
+    """W2's launch shapes timed against each other (particles a thread,
+    flags; earlier_kernels/swarm_cic_interp_shapes.cu): the one-wave
+    grid-stride loop; 1, 2 and 4 a thread, each plain, with the aligned
+    corner pairs in one load (flag 2) and with the corner-pair table (flag
+    4); in 2-D 1 and 2 a thread with 16-byte coordinate loads (flag 1) and
+    each of the others."""
+    out = [(0, 0)] + [(ppt, fl) for fl in (0, 2, 4) for ppt in (1, 2, 4)]
+    return out + ([(ppt, fl) for fl in (1, 3, 5) for ppt in (1, 2)] if dim == 2 else [])
+
+
+# the shape among w2_variants that the package's W2 launches, per dimension
+W2_SHIPPED = {1: (1, 2), 2: (1, 4), 3: (1, 2)}
 
 
 def w2_check(X, grid, v):
-    """W2 equal to its plain version in bits. Returns (out, max |W2 - plain|)."""
-    import torch
+    """W2 equal to its plain version in bits. Returns (out, max |W2 -
+    plain|)."""
     from petsc_tpu_torch.ops import particle_kernels as ppk
     got, plain = ppk.cic_interp(X, grid, v), ppk.cic_interp_plain(X, grid, v)
-    if not torch.equal(got, plain):
+    if not same_bits(got, plain):
         raise AssertionError(f"W2: {int((got != plain).sum())} entries differ from the plain "
                              "version")
     return got, 0.0
@@ -7451,18 +7480,30 @@ def cic_edge_cases(device, dtype):
 
 
 def cic_edge_checks(device="cuda"):
-    """W1 (one field; six fields with the weight sum) and W2 on
-    cic_edge_cases, f64 and f32: the rows of phase kernels' checks."""
+    """W1 (one field; six fields with the weight sum, given its cell order
+    and not; every tile with a particle left to the dense kernel, a
+    particle a node a round, and the denser tiles, 66 a round; the
+    particles put in cell order) and W2 on cic_edge_cases,
+    f64 and f32, each equal in bits to its plain version on the host's CPU:
+    the rows of phase kernels' checks."""
     import torch
+    from petsc_tpu_torch.ops import particle_kernels as ppk
     rows = []
     for dtype in (torch.float64, torch.float32):
         for label, X, grid, fields, v in cic_edge_cases(device, dtype):
-            _, e1, q1 = w1_check(X, grid, fields[:1])
-            _, e6, q6 = w1_check(X, grid, fields, wsum=True)
+            _, e1 = w1_check(X, grid, fields[:1])
+            _, e6 = w1_check(X, grid, fields, wsum=True)
+            _, eo = w1_check(X, grid, fields, wsum=True, order=ppk.cell_order(X, grid))
+            _, es = w1_check(X, grid, fields, wsum=True, capacity=0)
+            w1_check(X, grid, fields, wsum=True, capacity=600)
+            # the swarm put in cell order (as migrate leaves it): the identity order
+            o = ppk.cell_order(X, grid)
+            w1_check(o.Xs, grid, [f.index_select(0, o.perm) for f in fields], wsum=True,
+                     order=ppk.identity_order(o, o.Xs))
             _, e2 = w2_check(X, grid, v)
             rows.append({"name": "cic", "case": label, "dtype": str(dtype)[6:],
-                         "w1_max_abs_err": max(e1, e6), "w1_ratio_to_scale": max(q1, q6),
-                         "w2_equal_bits": e2 == 0.0})
+                         "w1_max_abs_err": max(e1, e6, eo, es), "w1_equal_bits": True,
+                         "w1_dense_equal_bits": True, "w2_equal_bits": e2 == 0.0})
     return rows
 
 
@@ -7489,63 +7530,229 @@ def cic_grid_sample(X, grid, v):
     return call, err
 
 
-def cic_rows(ctxs, flush):
+def earlier_cic_deposit(earlier, X, grid, fields, wsum):
+    """W1's earlier atomic design (earlier_kernels/swarm_cic_atomic.cu): one
+    launch of up to four fields and the weight sum into a zeroed table, on
+    the current stream."""
+    import torch
+    from petsc_tpu_torch.ops import cuda_build
+    acc = torch.zeros((len(fields) + int(wsum), grid.nnodes), dtype=X.dtype, device=X.device)
+    fn = getattr(earlier, "ptt_earlier_cic_deposit_" + ("f64" if X.dtype == torch.float64
+                                                        else "f32"))
+    ptrs = [f.data_ptr() for f in fields] + [None] * (4 - len(fields))
+    cuda_build.check("earlier cic_deposit", fn(
+        X.data_ptr(), X.shape[0], grid.dim, *ptrs, len(fields), int(wsum), acc.data_ptr(),
+        grid.nnodes, *grid.args(), X.get_device(), torch.cuda.current_stream().cuda_stream))
+    return acc
+
+
+def earlier_cic_pairs(earlier, v, pairs):
+    """The corner-pair table (v[i], v[i + 1]) into `pairs`, as W2's 2-D
+    launch fills it first (earlier_kernels/swarm_cic_interp_shapes.cu)."""
+    import torch
+    from petsc_tpu_torch.ops import cuda_build
+    fn = getattr(earlier, "ptt_earlier_cic_pairs_" + ("f64" if v.dtype == torch.float64
+                                                      else "f32"))
+    cuda_build.check("earlier cic_pairs", fn(
+        v.data_ptr(), pairs.data_ptr(), pairs.shape[0], v.get_device(),
+        torch.cuda.current_stream().cuda_stream))
+
+
+def earlier_cic_interp(earlier, X, grid, v, variant, nodiv=False):
+    """W2 in launch shape `variant` (w2_variants) from
+    earlier_kernels/swarm_cic_interp_shapes.cu, the pair table filled first
+    where the shape reads it; with `nodiv` its divisions by h are products
+    with 1 / h (timing only: other bits)."""
+    import torch
+    from petsc_tpu_torch.ops import cuda_build
+    out = torch.empty(X.shape[0], dtype=X.dtype, device=X.device)
+    pairs = torch.empty((grid.nnodes, 2), dtype=X.dtype, device=X.device)
+    if variant[1] & 4:
+        earlier_cic_pairs(earlier, v, pairs)
+    fn = getattr(earlier, "ptt_earlier_cic_interp_" + ("f64" if X.dtype == torch.float64
+                                                       else "f32"))
+    cuda_build.check("earlier cic_interp", fn(
+        X.data_ptr(), X.shape[0], grid.dim, v.data_ptr(), pairs.data_ptr(), out.data_ptr(),
+        *grid.args(), *variant, int(nodiv), X.get_device(),
+        torch.cuda.current_stream().cuda_stream))
+    return out
+
+
+# W1's clustered swarm: every particle drawn from one Gaussian (centre,
+# standard deviation per axis, seed), as a beam or a sheath gathers them
+CIC_CLUSTER = (0.5, 0.05, 61)
+
+
+def clustered_coordinates(n, dim, device):
+    """n particles of a seeded Gaussian cluster (CIC_CLUSTER) in the unit
+    box, in random order; the few beyond the box fall in its boundary
+    cells, as the reference's clip puts them."""
+    import numpy as np
+    import torch
+    centre, sd, seed = CIC_CLUSTER
+    X = np.random.default_rng(seed).normal(centre, sd, size=(n, dim))
+    return torch.as_tensor(X, device=device)
+
+
+def cic_rows(ctxs, flush, earlier):
     """W1 (depositSum's one field; projectFields' two fields and the weight
-    sum) and W2 at each swarm case's shapes: checked (w1_check, w2_check)
-    and timed beside the plain version, the bound and the library call:
-    index_add_ of the precomputed corner entries for W1, grid_sample for
-    W2 (cic_grid_sample)."""
+    sum) and W2 at each swarm case's shapes. W1: equal in bits to its plain
+    version on the host's CPU, f64 and f32, given its cell order, bare and
+    with every tile left to the dense kernel; timed with its order given in turns with the
+    earlier atomic design (earlier, new, new, earlier), cell_order alone,
+    the bare call (the order built inside), index_add_ of the precomputed
+    corner entries and the plain version, beside the bound with its bytes
+    (the coordinates, the fields and the table moved once; the order's
+    permutation and offsets reported beside it as the order's overhead);
+    then the same particle count in a Gaussian cluster
+    (clustered_coordinates: in bits against the host, f64, and timed
+    against the atomic design and index_add_); each swarm also put in cell
+    order (the identity order, as migrate leaves it). W2: its time beside each
+    launch shape of w2_variants (each equal in bits to the plain version),
+    the shapes without the division (timing only), the pair table's fill
+    alone (2-D) and grid_sample (cic_grid_sample)."""
+    import numpy as np
     import torch
     from petsc_tpu_torch.ops import particle_kernels as ppk
     rows = {}
     for case, ctx in ctxs.items():
         X, grid, nodal = ctx.X, ctx.grid, ctx.nodal
         n, dim, nn = X.shape[0], grid.dim, grid.nnodes
-        corners = ppk.corners(X, grid)
-        nid = torch.cat([c[0] for c in corners])
-        for label, fields, wsum in (("deposit", [ctx.w], False),
-                                    ("project", [ctx.w, ctx.q], True)):
-            _, err, ratio = w1_check(X, grid, fields, wsum)
-            nout = len(fields) + int(wsum)
-            ms = time_ms(lambda: ppk.cic_deposit(X, grid, fields, wsum), flush)
-            plain_ms = time_ms(lambda: ppk.cic_deposit_plain(X, grid, fields, wsum), flush,
-                               reps=3)
-            vals = torch.cat([torch.cat([w * f for _, w in corners]) for f in fields]
-                             + ([torch.cat([w for _, w in corners])] if wsum else []))
-            idx = torch.cat([nid + k * nn for k in range(nout)])
-            acc = torch.zeros(nout * nn, dtype=X.dtype, device=X.device)
-            lib_ms = time_ms(lambda: acc.zero_().index_add_(0, idx, vals), flush)
-            del vals, idx, acc
-            nbytes = 8 * (n * dim + n * len(fields) + nout * nn)
-            flops = n * (3 * dim + (1 << dim) * (2 * dim + nout))
-            b_ms, b_by = bound(nbytes, flops, "float64")
-            rows[f"cic_deposit_{label}_{case}"] = {
-                "name": "cic_deposit", "case": case, "mode": label, "dtype": "float64",
-                "particles": n, "nodes": nn, "fields": len(fields), "wsum": wsum,
-                "max_abs_err": err, "ratio_to_sum_abs_wf": ratio, "tol_ratio": 1e-13,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "library": "index_add_ of the precomputed corner entries", "bytes": nbytes,
-                "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms}
+        ncells = int(np.prod(grid.ncell))
+        for swarm in ("uniform", "clustered"):
+            if swarm == "clustered":
+                X = clustered_coordinates(n, dim, ctx.X.device)
+            order = ppk.cell_order(X, grid)
+            most = int((order.offsets[1:] - order.offsets[:-1]).max())
+            corners = ppk.corners(X, grid)
+            nid = torch.cat([c[0] for c in corners])
+            for label, fields, wsum in (("deposit", [ctx.w], False),
+                                        ("project", [ctx.w, ctx.q], True)):
+                got, err = w1_check(X, grid, fields, wsum, order=order)
+                if swarm == "uniform":
+                    X32 = X.float()
+                    w1_check(X32, grid, [f.float() for f in fields], wsum,
+                             order=ppk.cell_order(X32, grid))
+                    del X32
+                dense = ppk.cic_deposit(X, grid, fields, wsum, order=order, _capacity=0)
+                if not (same_bits(dense, got)
+                        and same_bits(ppk.cic_deposit(X, grid, fields, wsum), got)):
+                    raise AssertionError(f"W1 {case} {swarm} {label}: the bare call or every "
+                                         "tile dense differs in bits")
+                del dense
+                nout = len(fields) + int(wsum)
+
+                def new():
+                    return ppk.cic_deposit(X, grid, fields, wsum, order=order)
+
+                def old():
+                    return earlier_cic_deposit(earlier, X, grid, fields, wsum)
+                turns = [time_ms(old, flush), time_ms(new, flush), time_ms(new, flush),
+                         time_ms(old, flush)]
+                ms, earlier_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+                order_ms = time_ms(lambda: ppk.cell_order(X, grid), flush)
+                bare_ms = time_ms(lambda: ppk.cic_deposit(X, grid, fields, wsum), flush)
+                vals = torch.cat([torch.cat([w * f for _, w in corners]) for f in fields]
+                                 + ([torch.cat([w for _, w in corners])] if wsum else []))
+                idx = torch.cat([nid + k * nn for k in range(nout)])
+                acc = torch.zeros(nout * nn, dtype=X.dtype, device=X.device)
+                lib_ms = time_ms(lambda: acc.zero_().index_add_(0, idx, vals), flush)
+                del vals, idx, acc
+                flops = n * (3 * dim + (1 << dim) * (2 * dim + nout))
+                # the function's bytes: the coordinates, the fields and the
+                # table once; the order's permutation and offsets beside them
+                nbytes = 8 * (n * dim + n * len(fields) + nout * nn)
+                order_bytes = 4 * n + 4 * (ncells + 1)
+                b_ms, b_by = bound(nbytes, flops, "float64")
+                row = {
+                    "name": "cic_deposit", "case": case, "swarm": swarm, "mode": label,
+                    "dtype": "float64", "particles": n, "nodes": nn,
+                    "most_particles_in_a_cell": most, "fields": len(fields), "wsum": wsum,
+                    "max_abs_err": err,
+                    "equal_bits_host_plain": ["float64", "float32"] if swarm == "uniform"
+                    else ["float64"],
+                    "equal_bits_bare_and_all_dense": True, "ms": ms, "turns_ms": turns,
+                    "earlier": "the atomic design, a thread a particle "
+                               "(earlier_kernels/swarm_cic_atomic.cu)",
+                    "earlier_ms": earlier_ms, "cell_order_ms": order_ms, "bare_ms": bare_ms,
+                    "library_ms": lib_ms,
+                    "library": "index_add_ of the precomputed corner entries",
+                    "bytes": nbytes, "order_overhead_bytes": order_bytes, "bound_ms": b_ms,
+                    "bound_by": b_by, "share_of_bound": b_ms / ms,
+                    "aim_faster_than_library": ms < lib_ms,
+                    "aim_quarter_of_bound": b_ms / ms >= 0.25,
+                    "aim_bare_faster_than_library": bare_ms < lib_ms}
+                # the swarm in cell order (as migrate leaves it): the identity
+                # order, the fields read in order; the same bits
+                sfields = [f.index_select(0, order.perm) for f in fields]
+                ident = ppk.identity_order(order, order.Xs)
+                if not same_bits(ppk.cic_deposit(order.Xs, grid, sfields, wsum, order=ident),
+                                 got):
+                    raise AssertionError(f"W1 {case} {swarm} {label}: the swarm in cell "
+                                         "order differs in bits")
+                row["in_cell_order_ms"] = time_ms(
+                    lambda: ppk.cic_deposit(order.Xs, grid, sfields, wsum, order=ident), flush)
+                row["in_cell_order_share_of_bound"] = b_ms / row["in_cell_order_ms"]
+                del sfields, ident
+                if swarm == "uniform":
+                    row["plain_ms"] = time_ms(
+                        lambda: ppk.cic_deposit_plain(X, grid, fields, wsum), flush, reps=3)
+                    rows[f"cic_deposit_{label}_{case}"] = row
+                else:
+                    rows[f"cic_deposit_{label}_{case}_clustered"] = row
+                del got
+            del corners, nid, order
+            torch.cuda.empty_cache()
+        X = ctx.X
+        order = ppk.cell_order(X, grid)
         _, err = w2_check(X, grid, nodal)
         ms = time_ms(lambda: ppk.cic_interp(X, grid, nodal), flush)
+        variants = {}
+        for variant in w2_variants(dim):
+            out = earlier_cic_interp(earlier, X, grid, nodal, variant)
+            if not same_bits(out, ppk.cic_interp_plain(X, grid, nodal)):
+                raise AssertionError(f"W2 {case}: launch shape {variant} differs in bits")
+            variants[f"ppt{variant[0]}_flags{variant[1]}"] = time_ms(
+                lambda variant=variant: earlier_cic_interp(earlier, X, grid, nodal, variant),
+                flush)
+        del out
+        nodiv = {f"ppt1_flags{fl}": time_ms(
+            lambda fl=fl: earlier_cic_interp(earlier, X, grid, nodal, (1, fl), nodiv=True),
+            flush) for fl in sorted({0, 2, W2_SHIPPED[dim][1]})}
+        pair_fill_ms = None
+        if dim == 2:
+            pairs = torch.empty((nn, 2), dtype=X.dtype, device=X.device)
+            pair_fill_ms = time_ms(lambda: earlier_cic_pairs(earlier, nodal, pairs), flush)
+            del pairs
         plain_ms = time_ms(lambda: ppk.cic_interp_plain(X, grid, nodal), flush, reps=3)
         lib, lib_err = cic_grid_sample(X, grid, nodal)
         lib_ms = time_ms(lib, flush)
-        del lib
+        # the swarm in cell order: W2 and grid_sample on the sorted coordinates
+        w2_check(order.Xs, grid, nodal)
+        sorted_ms = time_ms(lambda: ppk.cic_interp(order.Xs, grid, nodal), flush)
+        lib_sorted = cic_grid_sample(order.Xs, grid, nodal)[0]
+        lib_sorted_ms = time_ms(lib_sorted, flush)
+        del lib, lib_sorted
         nbytes = 8 * (n * dim + nn + n)
         b_ms, b_by = bound(nbytes, n * (3 * dim + (1 << dim) * (2 * dim + 2)), "float64")
         rows[f"cic_interp_{case}"] = {
             "name": "cic_interp", "case": case, "dtype": "float64", "particles": n, "nodes": nn,
-            "max_abs_err": err, "equal_bits": True, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "library": "grid_sample (bilinear, align_corners) on the "
-            "mapped coordinates", "library_max_abs_diff": lib_err, "bytes": nbytes,
-            "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms}
-        del corners, nid
+            "max_abs_err": err, "equal_bits": True, "ms": ms,
+            "shape": "ppt{}_flags{}".format(*W2_SHIPPED[dim]),
+            "device_launches": 2 if dim == 2 else 1, "pair_fill_ms": pair_fill_ms,
+            "variants_ms": variants, "variants_equal_bits": True,
+            "nodiv_timing_only_ms": nodiv, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": "grid_sample (bilinear, align_corners) on the mapped coordinates",
+            "library_max_abs_diff": lib_err, "bytes": nbytes, "bound_ms": b_ms,
+            "bound_by": b_by, "share_of_bound": b_ms / ms,
+            "aim_faster_than_library": ms < lib_ms,
+            "in_cell_order_ms": sorted_ms, "in_cell_order_library_ms": lib_sorted_ms}
+        del order
         torch.cuda.empty_cache()
     return rows
 
 
-def phase_dm_more(pt, smi, t_start, flush):
+def phase_dm_more(pt, smi, t_start, flush, earlier):
     """Every case of DM_MORE_CASES (dm_case), then W1's and W2's rows on the
     swarm cases' shapes; returns (the phase's record, {case: launches}, the
     rows)."""
@@ -7561,7 +7768,7 @@ def phase_dm_more(pt, smi, t_start, flush):
         if dm_kind(case) == "swarm":
             swarms[case] = ctx
         torch.cuda.empty_cache()
-    rows = cic_rows(swarms, flush)
+    rows = cic_rows(swarms, flush, earlier)
     del swarms
     torch.cuda.empty_cache()
     return {"phase": "dm_more", "nvidia_smi": smi, "cases": cases, "cic_rows": rows,
@@ -7868,7 +8075,7 @@ def main():
     # KCL, the LETKF, the regressor, PF, Random, binary and VTK files; each
     # case with every launch count set to 0 just before its first run and
     # read just after; W1 and W2 on the swarms' shapes ----
-    dm_rec, dm_launches, cic = phase_dm_more(pt, smi, t_start, flush)
+    dm_rec, dm_launches, cic = phase_dm_more(pt, smi, t_start, flush, earlier)
     emit(dm_rec)
 
     # ---- bench.py's keys from the card: bench_gpu.py in a process of its own ----

@@ -12,6 +12,18 @@ field on the device, so every PIC operation is a vectorised map:
   - migration on one device is a stable sort by cell id (``torch.sort``,
     stable), as the reference's ``np.argsort(kind="stable")``.
 
+The swarm keeps its particles' cell order (``particle_kernels.cell_order``:
+the stable permutation by cell, each cell's offsets and the coordinates in
+that order; PETSc's DMSwarmSortGetAccess) with its coordinates: W1 sums
+each node in the reference's order from it, and ``migrate`` applies it
+instead of sorting again (after which the order is the identity). Like
+PETSc's sort context it goes stale with the coordinates: every change of
+them or of the cell DM drops it (``setPointCoordinates``, even of the same
+tensor, ``restoreField`` of the coordinates, ``addNPoints``,
+``removePoints``, ``setLocalSizes``, ``setCellDM``), and an in-place write
+through ``getFieldTensor`` shows in the coordinate tensor's version
+counter, which the cached order is keyed on with its storage.
+
 ``getField`` gives a host numpy copy of a field and ``restoreField`` writes
 it (or the array given) back, PETSc's DMSwarmGetField/RestoreField
 contract; the reference hands out its own numpy array, so there a change
@@ -44,6 +56,7 @@ class DMSwarm(DM):
         self._data: dict[str, torch.Tensor] = {}
         self._borrowed: dict[str, np.ndarray] = {}
         self._n = 0
+        self._order = None        # the coordinates' cell order, or None
         self.cell_dm = None
         self.swarm_type = "basic"              # basic | pic
 
@@ -64,12 +77,15 @@ class DMSwarm(DM):
 
     def setCellDM(self, dm):
         self.cell_dm = dm
+        self._order = None
         if _COOR in self._fields:
             self._fields[_COOR] = dm.dim
         return self
 
     def registerField(self, name, bs, dtype=np.float64):
         self._fields[name] = int(bs)
+        if name == _COOR:
+            self._order = None
         if self._n and bs:
             self._data[name] = torch.zeros((self._n, bs), dtype=_torch_dtype(dtype),
                                            device=self._device())
@@ -80,6 +96,7 @@ class DMSwarm(DM):
 
     def setLocalSizes(self, n, buffer=-1):
         self._n = int(n)
+        self._order = None
         for name, bs in self._fields.items():
             if bs:
                 self._data[name] = torch.zeros((self._n, bs), dtype=torch.float64,
@@ -117,6 +134,8 @@ class DMSwarm(DM):
                 return self
         else:
             self._borrowed.pop(name, None)
+        if name == _COOR:
+            self._order = None
         dt = self._data[name].dtype if name in self._data else torch.float64
         self._data[name] = torch.as_tensor(arr, dtype=dt).to(self._device()).reshape(
             self._n, -1).contiguous()
@@ -129,6 +148,7 @@ class DMSwarm(DM):
             self.setLocalSizes(len(coords))
         self._fields[_COOR] = coords.shape[1]
         self._data[_COOR] = coords
+        self._order = None        # PETSc: restoring the coordinates makes the sort stale
         return self
 
     def insertPointsUsingCellDM(self, ppcell=1, layout="regular"):
@@ -154,6 +174,7 @@ class DMSwarm(DM):
         old = self._data.get(_COOR, torch.zeros((0, coords.shape[1]), dtype=torch.float64,
                                                 device=self._device()))
         self._n += len(coords)
+        self._order = None
         for name, bs in self._fields.items():
             if name == _COOR:
                 self._data[name] = torch.cat([old, coords])
@@ -171,6 +192,7 @@ class DMSwarm(DM):
         for name in list(self._data):
             self._data[name] = self._data[name][keep]
         self._n = int(keep.sum())
+        self._order = None
         return self
 
     # ---- PIC coupling ----
@@ -192,21 +214,29 @@ class DMSwarm(DM):
         replacement for DMSwarmMigrate's point location walk), a device
         int64 tensor."""
         grid = self._grid()
-        X = self._data[_COOR]
-        hi = torch.as_tensor(grid.ncell - 1, device=X.device)
-        ij = torch.clamp((X / torch.as_tensor(grid.h, dtype=X.dtype, device=X.device)).long(),
-                         torch.zeros_like(hi), hi)
-        cid = ij[:, 0]
-        for ax in range(1, X.shape[1]):
-            cid = cid * int(grid.ncell[ax]) + ij[:, ax]
-        return cid
+        return pk.cell_ids(self._coords(grid), grid)
+
+    def cellOrder(self):
+        """The particles' cell order (particle_kernels.CellOrder), built at
+        first need and kept until the coordinates or the cell DM change."""
+        grid = self._grid()
+        X = self._coords(grid)
+        o = self._order
+        if o is None or o.key != pk.coords_key(X) or tuple(o.sizes) != grid.sizes:
+            o = self._order = pk.cell_order(X, grid)
+        return o
 
     def migrate(self, remove_sent_points=True):
         """Stable sort by owning cell: re-establishes locality (the
-        single-device analog of DMSwarmMigrate's rank exchange)."""
-        order = torch.sort(self.binToCells(), stable=True).indices
-        for name in list(self._data):
-            self._data[name] = self._data[name][order]
+        single-device analog of DMSwarmMigrate's rank exchange), by the
+        kept cell order; the order is the identity after."""
+        order = self.cellOrder()
+        if order.perm is not None:
+            for name in list(self._data):
+                # the coordinates in cell order are the order's own copy
+                self._data[name] = order.Xs if name == _COOR else self._data[name].index_select(
+                    0, order.perm)
+            self._order = pk.identity_order(order, self._data[_COOR])
         return self
 
     def _vec(self, t):
@@ -225,7 +255,7 @@ class DMSwarm(DM):
         X = self._coords(grid)
         names_l = [names] if isinstance(names, str) else list(names)
         acc = pk.cic_deposit(X, grid, [self._data[nm][:, 0].contiguous() for nm in names_l],
-                             wsum=True)
+                             wsum=True, order=self.cellOrder())
         wsum = acc[-1]
         wsafe = torch.where(wsum == 0, torch.ones_like(wsum), wsum)
         outs = [self._vec(acc[k] / wsafe) for k in range(len(names_l))]
@@ -236,7 +266,8 @@ class DMSwarm(DM):
         charge-deposition step needs; the total is conserved), on W1."""
         grid = self._grid()
         X = self._coords(grid)
-        acc = pk.cic_deposit(X, grid, [self._data[name][:, 0].contiguous()])
+        acc = pk.cic_deposit(X, grid, [self._data[name][:, 0].contiguous()],
+                             order=self.cellOrder())
         return self._vec(acc[0])
 
     def interpolateToParticles(self, vec):

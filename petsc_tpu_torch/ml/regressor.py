@@ -3,11 +3,12 @@
 Counterpart of ``petsc_tpu/ml/regressor.py`` (reference src/ml/regressor:
 PetscRegressorCreate/Fit/Predict, impls/linear: OLS by KSPLSQR on the
 design matrix, ridge by the shifted normal equations, lasso by TaoBRGN with
-an L1 regularizer). The design matrix is centred on the device; OLS runs
-the port's KSP lsqr on it as a MatDense (as many steps as columns, where
-LSQR reaches the least-squares solution in exact arithmetic), ridge solves
-the normal equations with ``torch.linalg.solve``, and lasso takes the
-reference's 500 ISTA proximal-gradient steps on the device.
+an L1 regularizer). The design matrix is centred on the device; OLS is the
+reference's least-squares solve by thin SVD (``jnp.linalg.lstsq``: singular
+values below eps * max(m, n) * s_max count as zero, so a rank-deficient
+design gets the minimum-norm solution), ridge solves the normal equations
+with ``torch.linalg.solve``, and lasso takes the reference's 500 ISTA
+proximal-gradient steps on the device.
 """
 
 from __future__ import annotations
@@ -49,7 +50,6 @@ class Regressor(PObject):
         self.regularizer_weight = 1.0
         self._coef = None
         self._intercept = 0.0
-        self.lsqr_its = None        # OLS: the LSQR steps taken
 
     def create(self, comm=None):
         self.comm = comm or self.comm
@@ -97,7 +97,7 @@ class Regressor(PObject):
             Xc, yc = X, y
         lt = self.linear_type
         if lt == "ols":
-            coef = self._lsqr(Xc, yc)
+            coef = _lstsq(Xc, yc)
         elif lt == "ridge":
             lam = self.regularizer_weight
             G = Xc.T @ Xc + lam * torch.eye(Xc.shape[1], dtype=Xc.dtype, device=Xc.device)
@@ -109,27 +109,6 @@ class Regressor(PObject):
         self._coef = coef
         self._intercept = float(ym - torch.dot(xm, coef)) if self.fit_intercept else 0.0
         return self
-
-    def _lsqr(self, Xc, yc):
-        """min ||Xc w - yc|| by the port's KSP lsqr on a MatDense."""
-        from ..ksp.ksp import KSP
-        from ..mat.mat import MatDense
-        m, n = Xc.shape
-        D = MatDense(self.comm)
-        D.setSizes((m, n))
-        D._a = Xc.contiguous()
-        D._assembled = True
-        ksp = KSP().create()
-        ksp.setOperators(D)
-        ksp.setType("lsqr")
-        ksp.getPC().setType("none")
-        ksp.setTolerances(rtol=0.0, atol=0.0, max_it=n)
-        ksp.setInitialGuessNonzero(True)    # x0 = 0 of the column length (A is m x n)
-        b = Vec.from_array(yc)
-        x = D.createVecRight()
-        ksp.solve(b, x)
-        self.lsqr_its = ksp.getIterationNumber()
-        return x.array.clone()
 
     def predict(self, X, y=None):
         out = _dev(X) @ self._coef + self._intercept
@@ -143,6 +122,18 @@ class Regressor(PObject):
 
     def getIntercept(self):
         return self._intercept
+
+
+def _lstsq(A, b):
+    """min ||A x - b|| by thin SVD, as jnp.linalg.lstsq with its default
+    cutoff: singular values below eps * max(m, n) * s_max (or 0) are dropped,
+    which gives the minimum-norm solution of a rank-deficient A."""
+    m, n = A.shape
+    U, s, Vh = torch.linalg.svd(A, full_matrices=False)
+    keep = (s > 0) & (s >= torch.finfo(A.dtype).eps * max(m, n) * s[0])
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)),
+                        torch.zeros_like(s))
+    return Vh.T @ (s_inv * (U.T @ b))
 
 
 def _ista_lasso(X, y, lam, iters=500):

@@ -102,9 +102,10 @@ for _t in ("f64", "f32"):
     SIGNATURES[f"ptt_subdomain_apply_{_t}"] = (_i32, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                                                *(_i32,) * 5, _i32, _vp)
     SIGNATURES[f"ptt_neumann_step_{_t}"] = (_vp, _vp, _vp, _vp, _i64, _i32, _vp)
-    SIGNATURES[f"ptt_cic_deposit_{_t}"] = (_vp, _i64, _i32, _vp, _vp, _vp, _vp, _i32, _i32, _vp,
-                                           _i64, _f64, _f64, _f64, *(_i32,) * 6, _i32, _vp)
-    SIGNATURES[f"ptt_cic_interp_{_t}"] = (_vp, _i64, _i32, _vp, _vp, _f64, _f64, _f64,
+    SIGNATURES[f"ptt_cic_deposit_{_t}"] = (_vp, _vp, _vp, _i64, _i32, _vp, _vp, _vp, _vp, _i32,
+                                           _i32, _vp, _i64, _f64, _f64, _f64, *(_i32,) * 7,
+                                           _vp, _i32, _vp)
+    SIGNATURES[f"ptt_cic_interp_{_t}"] = (_vp, _i64, _i32, _vp, _vp, _vp, _f64, _f64, _f64,
                                           *(_i32,) * 6, _i32, _vp)
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 

@@ -7,18 +7,21 @@ adjoint gather for the interpolation. Here each is a CUDA C++ kernel for
 sm_90a (``petsc_tpu_torch/csrc/swarm_cic.cu``, built and loaded by
 :mod:`.cuda_build`):
 
-  cic_deposit  W1  acc[k][nid] += w * f_k[p], and acc[nf][nid] += w with
-                   ``wsum`` (depositSum, projectFields), one launch for up
-                   to four fields
+  cic_deposit  W1  acc[k][nid] = sum of w * f_k[p], and acc[nf][nid] = sum
+                   of w with ``wsum`` (depositSum, projectFields), one
+                   launch for up to four fields
   cic_interp   W2  out[p] = sum_c w_c * v[nid_c] (interpolateToParticles)
 
 For particle p: its cell i0 = clip(floor(x / h), 0, ncell - 1) and
 fractions t = x / h - i0 per axis; for each of the 2^dim corners c (the
 last axis fastest) the weight prod_ax (c_ax ? t_ax : 1 - t_ax) in axis
 order and the node (...((i0_0 + c_0) * sizes_1 + i0_1 + c_1) ...), the
-reference's numbering. W1 adds with atomics, so it sums in another order
-than its plain version (the reference's corner loop with ``index_add_``)
-and is held to it at 1e-13 of sum |w f| per node in f64 (1e-5 in f32);
+reference's numbering. The plain deposit (the reference's corner loop with
+``index_add_``) adds in a fixed order on the CPU: for each node, corner 0's
+particles in ascending index, then corner 1's, and so on. W1 sums each
+node in that same order, with no atomics, from the particles' cell order
+(:func:`cell_order`: a stable sort by cell, PETSc's DMSwarmSortGetAccess),
+so it equals the plain version run on the CPU bit for bit, in f64 and f32;
 W2 rounds each step as the plain version does and equals it bit for bit.
 Every wrapper checks its operands, launches on the current stream without
 synchronising and adds one to ``LAUNCHES[name]``. A tensor on the CPU
@@ -26,6 +29,8 @@ takes the plain version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,6 +42,9 @@ LAUNCHES = {"cic_deposit": 0, "cic_interp": 0}
 
 MAX_FIELDS = 4          # fields one W1 launch deposits (kMaxFields in swarm_cic.cu)
 MAX_NODES = 2**31 - 1   # the kernels and the plain versions number nodes in int32
+# W1's tile of nodes a block per dimension (swarm_cic.cu tile_ext): for a
+# permuted swarm, and for one in cell order
+W1_TILES = {1: ((256,), (128,)), 2: ((8, 32), (8, 16)), 3: ((4, 8, 8), (4, 4, 8))}
 _VALUES = (torch.float64, torch.float32)
 
 
@@ -87,6 +95,87 @@ def _check(name, X, grid, vals, per_particle):
         raise ValueError(f"{name}: unsupported device {X.device}")
 
 
+def cell_ids(X, grid, dtype=torch.int64):
+    """Each particle's cell: floor(x / h) clamped to [0, ncell - 1] per axis
+    (as the kernels' locate and the plain versions take it; the
+    reference's binToCells truncates, which agrees after the clamp for
+    finite x), numbered (...(i_0 * ncell_1 + i_1) * ncell_2 ...) in
+    `dtype`. The numbering runs in f64, exact for integers below 2^53."""
+    g = X / torch.as_tensor(grid.h, dtype=X.dtype, device=X.device)
+    g.floor_().clamp_(min=torch.zeros(grid.dim, dtype=X.dtype, device=X.device),
+                      max=torch.as_tensor(grid.ncell - 1, dtype=X.dtype, device=X.device))
+    g = g.double()
+    cid = g[:, 0]
+    for ax in range(1, grid.dim):
+        cid = torch.add(g[:, ax], cid, alpha=int(grid.ncell[ax]))
+    return cid.to(dtype)
+
+
+class CellOrder(NamedTuple):
+    """The particles in cell order (PETSc's DMSwarmSortGetAccess): `perm`
+    the stable permutation by cell (int32; None for the identity, a swarm
+    already in cell order), `offsets` each cell's first position in it and
+    the end (int32, ncell + 1), `Xs` the coordinates in that order, `sizes`
+    the grid's node counts and `key` what the order was built from (see
+    coords_key)."""
+    perm: torch.Tensor | None
+    offsets: torch.Tensor
+    Xs: torch.Tensor
+    sizes: tuple
+    key: tuple
+
+
+def coords_key(X):
+    """What identifies a coordinate tensor's contents for a cached order:
+    its storage, shape, strides, dtype, device and version counter (bumped
+    by every in-place write)."""
+    return (X.data_ptr(), tuple(X.shape), X.stride(), X.dtype, X.device, X._version)
+
+
+def cell_order(X, grid):
+    """The stable order of the particles by cell (:func:`cell_ids`):
+    library torch on X's device, a stable sort of int32 keys and each
+    cell's first position by a binary search of the sorted keys."""
+    keys, perm = torch.sort(cell_ids(X, grid, torch.int32), stable=True)
+    ncells = int(np.prod(grid.ncell))
+    offsets = torch.searchsorted(keys, torch.arange(ncells + 1, dtype=torch.int32,
+                                                    device=X.device), out_int32=True)
+    return CellOrder(perm.to(torch.int32), offsets, take_rows(X, perm), grid.sizes,
+                     coords_key(X))
+
+
+def take_rows(X, idx):
+    """X[idx] for (n, dim) coordinates. A two-column tensor goes as one
+    complex number a row where its storage offset allows that view:
+    index_select on (n, 2) ran at a tenth of its rate on (n, 3) on the H100
+    (PERF.md)."""
+    if (X.dim() == 2 and X.shape[1] == 2 and X.is_contiguous() and X.storage_offset() % 2 == 0
+            and X.device.type == "cuda"):
+        return torch.view_as_real(torch.view_as_complex(X).index_select(0, idx))
+    return X.index_select(0, idx)
+
+
+def identity_order(order, X):
+    """The order of a swarm that was just put in `order`'s sequence: the
+    identity permutation, the same offsets, X (the coordinates already in
+    that order) itself."""
+    return CellOrder(None, order.offsets, X, order.sizes, coords_key(X))
+
+
+def _check_order(order, X, grid):
+    ncells = int(np.prod(grid.ncell))
+    if (not isinstance(order, CellOrder) or tuple(order.sizes) != grid.sizes
+            or order.key != coords_key(X) or order.offsets.numel() != ncells + 1
+            or order.offsets.dtype != torch.int32 or order.offsets.device != X.device
+            or order.Xs.shape != X.shape or order.Xs.dtype != X.dtype
+            or order.Xs.device != X.device or not order.Xs.is_contiguous()
+            or (order.perm is not None and (order.perm.shape != (X.shape[0],)
+                                            or order.perm.dtype != torch.int32
+                                            or order.perm.device != X.device))):
+        raise ValueError("cic_deposit: the cell order was not built from these coordinates "
+                         "on this grid (cell_order(X, grid))")
+
+
 def corners(X, grid):
     """[(nid, w)] per corner, in the reference's order and rounding (the
     plain versions' shared part)."""
@@ -117,27 +206,48 @@ def cic_deposit_plain(X, grid, fields, wsum=False):
     return acc
 
 
-def cic_deposit(X, grid, fields, wsum=False):
+def cic_deposit(X, grid, fields, wsum=False, order=None, _capacity=-1):
     """W1: the nodal sums of w * f for each field of `fields` (1-D, one
     entry a particle) and with `wsum` the weights' sum, as the rows of one
     (len(fields) + wsum, nnodes) tensor; one launch for up to MAX_FIELDS
-    fields."""
+    fields. `order` is X's cell_order on this grid (a DMSwarm keeps it with
+    its coordinates); without it a CUDA call builds it first. A launch is
+    three device launches (the staged tiles, the dense tiles' list, the
+    dense tiles: csrc/swarm_cic.cu), one count. `_capacity` (for tests)
+    caps the particles a block stages and a dense round holds: a tile whose
+    cells hold more is a dense one (0: every tile with a particle, streamed
+    a particle a node a round); -1 leaves both to the kernel."""
     fields = list(fields)
     _check("cic_deposit", X, grid, fields, per_particle=True)
+    if order is not None:
+        _check_order(order, X, grid)
     if X.device.type == "cpu":
         return cic_deposit_plain(X, grid, fields, wsum)
-    acc = torch.zeros((len(fields) + int(wsum), grid.nnodes), dtype=X.dtype, device=X.device)
     n = X.shape[0]
+    if not n:
+        return torch.zeros((len(fields) + int(wsum), grid.nnodes), dtype=X.dtype,
+                           device=X.device)
+    if n > 2**31 - 1:
+        raise ValueError(f"cic_deposit: {n} particles; the cell order's positions are int32")
+    if order is None:
+        order = cell_order(X, grid)
+    # every node is written by the kernel (0 where no particle lands)
+    acc = torch.empty((len(fields) + int(wsum), grid.nnodes), dtype=X.dtype, device=X.device)
+    perm = order.perm.data_ptr() if order.perm is not None else None
+    tile = W1_TILES[grid.dim][order.perm is None]
+    tiles = int(np.prod([-(-s // e) for s, e in zip(grid.sizes, tile)]))
+    scratch = torch.empty(2 * tiles + 1, dtype=torch.int32, device=X.device)
     for a in range(0, max(len(fields), 1), MAX_FIELDS):
         chunk = fields[a:a + MAX_FIELDS]
         last = a + MAX_FIELDS >= len(fields)
         # the chunk's rows, then (in the last chunk) the weight sum's
         rows = acc[a:a + len(chunk) + int(wsum and last)] if last else acc[a:a + len(chunk)]
-        if n:
-            ptrs = [f.data_ptr() for f in chunk] + [None] * (MAX_FIELDS - len(chunk))
-            cuda_build.launch(LAUNCHES, "cic_deposit", X, X.data_ptr(), n, grid.dim, *ptrs,
-                              len(chunk), int(wsum and last), rows.data_ptr(), grid.nnodes,
-                              *grid.args())
+        ptrs = [f.data_ptr() for f in chunk] + [None] * (MAX_FIELDS - len(chunk))
+        ws = int(wsum and last)
+        cuda_build.launch(LAUNCHES, "cic_deposit", X, order.Xs.data_ptr(), perm,
+                          order.offsets.data_ptr(), n, grid.dim, *ptrs, len(chunk), ws,
+                          rows.data_ptr(), grid.nnodes, *grid.args(), int(_capacity),
+                          scratch.data_ptr())
     return acc
 
 
@@ -150,7 +260,10 @@ def cic_interp_plain(X, grid, v):
 
 def cic_interp(X, grid, v):
     """W2: out[p] = sum over p's corners of w * v[nid], in the reference's
-    corner order."""
+    corner order. In 2-D the launch first fills a table of corner pairs
+    (v[i], v[i + 1]) (nnodes x 2 entries of scratch) from which the
+    interpolation reads each pair in one load: two device launches, one
+    count."""
     _check("cic_interp", X, grid, [v], per_particle=False)
     if v.numel() < grid.nnodes:
         raise ValueError(f"cic_interp: {v.numel()} nodal values for {grid.nnodes} nodes")
@@ -158,6 +271,9 @@ def cic_interp(X, grid, v):
         return cic_interp_plain(X, grid, v)
     out = torch.empty(X.shape[0], dtype=X.dtype, device=X.device)
     if X.shape[0]:
+        pairs = (torch.empty((grid.nnodes, 2), dtype=X.dtype, device=X.device)
+                 if grid.dim == 2 else None)
         cuda_build.launch(LAUNCHES, "cic_interp", X, X.data_ptr(), X.shape[0], grid.dim,
-                          v.data_ptr(), out.data_ptr(), *grid.args())
+                          v.data_ptr(), None if pairs is None else pairs.data_ptr(),
+                          out.data_ptr(), *grid.args())
     return out

@@ -1468,40 +1468,66 @@ def test_fvplex_rhs_on_the_card_equals_the_cpu_port(cuda_device):
 def test_cic_deposit_within_its_bound_of_the_plain_version(cuda_device):
     """W1 on chip_smoke's edge cases (cell edges, particles outside the box
     clipped to the boundary cells, 1-D to 3-D, six fields in two launches
-    with the weight sum, one particle), f64 and f32: within 1e-13 (f32
-    1e-5) of sum |w f| per node of its plain version; one launch per four
-    fields."""
+    with the weight sum, one particle), f64 and f32: equal in bits to its
+    plain version run on the host's CPU (the reference's order), given the
+    cell order or building it, and with the tiles left to the dense kernel
+    (every tile, a particle a node a round; the denser tiles, 66 a round);
+    one launch per four fields."""
     from petsc_tpu_torch.ops import particle_kernels as ppk
     for dtype in (torch.float64, torch.float32):
         for label, X, grid, fields, v in chip_smoke.cic_edge_cases(cuda_device, dtype):
             ppk.reset_launches()
-            got, _, ratio = chip_smoke.w1_check(X, grid, fields, wsum=True)
+            got, err = chip_smoke.w1_check(X, grid, fields, wsum=True)
             assert ppk.LAUNCHES["cic_deposit"] == (len(fields) + 3) // 4, label
-            assert got.shape == (len(fields) + 1, grid.nnodes)
-            got1, _, _ = chip_smoke.w1_check(X, grid, fields[:1])
-            tot = float(got1[0].double().sum())
-            assert abs(tot - float(fields[0].double().sum())) <= (
-                1e-12 if dtype == torch.float64 else 1e-4) * float(fields[0].double().abs().sum())
+            assert got.shape == (len(fields) + 1, grid.nnodes) and err == 0.0
+            order = ppk.cell_order(X, grid)
+            chip_smoke.w1_check(X, grid, fields[:1], order=order)
+            for capacity in (0, 600):
+                chip_smoke.w1_check(X, grid, fields, wsum=True, order=order, capacity=capacity)
+            with pytest.raises(ValueError, match="cell order"):
+                ppk.cic_deposit(X, grid, fields[:1], order=ppk.cell_order(X.clone(), grid))
 
 
 @pytest.mark.cuda
 def test_cic_interp_equals_its_plain_version_bit_for_bit(cuda_device):
-    """W2 on chip_smoke's edge cases, f64 and f32: equal bits with its plain
-    version (the reference's corner loop, each step rounded alone), one
-    launch."""
+    """W2 on chip_smoke's edge cases, f64 and f32, in each shape it ships
+    (the corner-pair table in 2-D, the aligned pairs in 1-D and 3-D, also
+    with nodal values that are not 16-byte aligned): equal bits with its
+    plain version (the reference's corner loop, each step rounded alone),
+    one launch each."""
     from petsc_tpu_torch.ops import particle_kernels as ppk
     for dtype in (torch.float64, torch.float32):
         for label, X, grid, fields, v in chip_smoke.cic_edge_cases(cuda_device, dtype):
-            ppk.reset_launches()
-            out, err = chip_smoke.w2_check(X, grid, v)
-            assert err == 0.0 and ppk.LAUNCHES["cic_interp"] == 1, label
+            shifted = torch.cat([v[:1], v])[1:]          # one element past a 16-byte edge
+            for vals in (v, shifted):
+                ppk.reset_launches()
+                out, err = chip_smoke.w2_check(X, grid, vals)
+                assert err == 0.0 and ppk.LAUNCHES["cic_interp"] == 1, label
+
+
+@pytest.mark.cuda
+def test_cell_order_of_a_view_at_an_odd_offset(cuda_device):
+    """Two-column coordinates that are a contiguous view at an odd storage
+    offset (which cannot be viewed as complex numbers) give the same cell
+    order and deposit as a fresh copy."""
+    from petsc_tpu_torch.ops import particle_kernels as ppk
+    label, X, grid, fields, v = chip_smoke.cic_edge_cases(cuda_device, torch.float64)[1]
+    buf = torch.empty(X.numel() + 1, dtype=X.dtype, device=X.device)
+    view = buf[1:].view(X.shape)
+    view.copy_(X)
+    assert view.is_contiguous() and view.storage_offset() == 1
+    got, want = ppk.cell_order(view, grid), ppk.cell_order(X, grid)
+    assert torch.equal(got.perm, want.perm) and torch.equal(got.offsets, want.offsets)
+    assert chip_smoke.same_bits(got.Xs, want.Xs)
+    chip_smoke.w1_check(view, grid, fields, wsum=True, order=got)
 
 
 @pytest.mark.cuda
 def test_swarm_on_the_card_equals_the_cpu_port(cuda_device):
     """A permuted 2-D swarm through depositSum, projectFields,
     interpolateToParticles and migrate on the card (W1 twice, W2 once,
-    nothing else) against the port's run on the CPU."""
+    nothing else: the cell order is library torch) against the port's run
+    on the CPU, every output equal in bits."""
     out = {}
     for dev in ("cpu", "cuda"):
         ptt.init(device=dev)
@@ -1525,6 +1551,6 @@ def test_swarm_on_the_card_equals_the_cpu_port(cuda_device):
                 {"cic_deposit": 2, "cic_interp": 1}
         out[dev] = (dep, proj, it, sw.getField("w"))
     for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
-        assert np.max(np.abs(a - b)) <= 1e-12 * np.max(np.abs(b))
+        assert chip_smoke.same_bits(torch.as_tensor(a), torch.as_tensor(b))
     assert np.array_equal(out["cuda"][2], out["cpu"][2])
     assert np.array_equal(out["cuda"][3], out["cpu"][3])

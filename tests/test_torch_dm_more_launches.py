@@ -161,7 +161,7 @@ def test_dm_more_case_launches_match_the_formulas_and_checks(counted, case):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_cic_edge_cases_pass_their_checks(dtype):
     for label, X, grid, fields, v in chip_smoke.cic_edge_cases("cpu", dtype):
-        got, err, ratio = chip_smoke.w1_check(X, grid, fields, wsum=True)
+        got, err = chip_smoke.w1_check(X, grid, fields, wsum=True)
         assert got.shape == (len(fields) + 1, grid.nnodes) and err == 0.0
         out, e2 = chip_smoke.w2_check(X, grid, v)
         assert out.shape == (X.shape[0],) and e2 == 0.0

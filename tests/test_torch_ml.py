@@ -2,8 +2,13 @@
 petsc_tpu, on the CPU, after tests/test_ml.py.
 
 Tolerances: coefficients, intercepts and predictions to 1e-10 relative
-(OLS: the port's KSP lsqr against the reference's SVD lstsq; ridge and
-lasso the same arithmetic in other orders); the LETKF's analysis ensemble
+(OLS: both packages solve by thin SVD, in other libraries; ridge and lasso
+the same arithmetic in other orders); on the ill-conditioned OLS designs
+the residual norm to 1e-12 relative, evaluated in np.longdouble (in f64 the
+product with columns of 1e6 rounds the residual at about 1e-11 by itself),
+and the coefficients to 1e-7 relative (the scaled design's condition
+number, 9.9e5, times eps is 2.2e-10; the near-collinear pair's part of the
+solution moves by 1e-8 in either SVD); the LETKF's analysis ensemble
 to 1e-10 relative (batched products and eigendecompositions against the
 reference's vmapped ones)."""
 
@@ -56,6 +61,51 @@ def test_regressor_equals_the_reference(lt, weight, noise, intercept):
     assert _rel(pp, pr) <= 1e-10
     if lt == "ols" and noise == 0.0:
         assert np.allclose(cp, w, atol=1e-8) and abs(ip - 2.0) < 1e-8
+
+
+def _ill_conditioned(kind):
+    """A 200 x 10 standard normal design (seed 5) with y = X b + 0.1 noise:
+    its columns scaled by logspace(0, 6, 10) (condition 9.9e5 after
+    centring), or two columns nearly collinear (x9 = x8 + 1e-7 noise), or
+    rank-deficient (x9 = x1 + x2 exactly, x5 = 0)."""
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((200, 10))
+    if kind == "scaled":
+        X = X * np.logspace(0, 6, 10)
+    elif kind == "collinear":
+        X[:, 9] = X[:, 8] + 1e-7 * rng.standard_normal(200)
+    else:
+        X[:, 9] = X[:, 1] + X[:, 2]
+        X[:, 5] = 0.0
+    beta = rng.standard_normal(10)
+    return X, X @ beta + 0.1 * rng.standard_normal(200)
+
+
+@pytest.mark.parametrize("intercept", [True, False])
+@pytest.mark.parametrize("kind", ["scaled", "collinear", "rank_deficient"])
+def test_ols_on_ill_conditioned_designs_equals_the_reference(kind, intercept):
+    """OLS by the reference's thin-SVD least squares (no LSQR steps that
+    stop short): the residual norm (in extended precision) to 1e-12 and
+    the coefficients to 1e-7 relative of the reference's; a rank-deficient
+    design gives the minimum-norm solution (numpy's pinv)."""
+    _init()
+    X, y = _ill_conditioned(kind)
+    fits = []
+    for R in (RRegressor, Regressor):
+        r = R().create().setLinearType("ols")
+        r.setFitIntercept(intercept)
+        r.fit(X, y)
+        coef = np.asarray(r.getCoefficients().getArray())[:10]
+        e = (X.astype(np.longdouble) @ coef.astype(np.longdouble)
+             + np.longdouble(r.getIntercept()) - y.astype(np.longdouble))
+        resid = float(np.sqrt(np.sum(e * e)))
+        fits.append((coef, r.getIntercept(), resid))
+    (cr, ir, rr), (cp, ip, rp) = fits
+    assert abs(rp - rr) <= 1e-12 * rr
+    assert _rel(cp, cr) <= 1e-7 and abs(ip - ir) <= 1e-7 * max(abs(ir), 1.0)
+    if kind == "rank_deficient":
+        Xc, yc = (X - X.mean(0), y - y.mean()) if intercept else (X, y)
+        assert _rel(cp, np.linalg.pinv(Xc) @ yc) <= 1e-10 and abs(cp[5]) <= 1e-12
 
 
 def test_regressor_options_and_predict_into_a_vec():
