@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of petsc_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # every phase below
+    python3 chip_smoke.py --phase dist   # the build, then phase dist alone
 
 Phases, one JSON line each on stdout:
   device   the card's name and its nvidia-smi name and power limit;
@@ -362,7 +363,20 @@ Phases, one JSON line each on stdout:
   bench_gpu  python bench_gpu.py in a process of its own (the kernels built
            above reused): its JSON line, and its contract, BENCH_r05.json's
            solve (10 iterations, relres <= 1e-8, jacobi_its 184), the small-n
-           check passed, every quality "measured", pct_stencil_roofline <= 100.
+           check passed, every quality "measured", pct_stencil_roofline <= 100;
+  dist     distribution over ranks: 4 spawned gloo ranks (one process each,
+           sharing the card; a file store, a 300 s group timeout) run
+           DIST_CASES (the main path sharded, dnd_mpi with the sharded head,
+           at 128^3 in f64 and f32 cycles; CG+Jacobi on the 128^3 box27 as
+           mpiaij; distributed aggregation GAMG and bjacobi at 64^3;
+           fieldsplit-Schur at 16^3), each rank holding its its, reason,
+           history (1e-6; f32 1e-4), levels and true relres (<= 10x) to
+           tests/data/dist_contract.json and its launches exactly to
+           dist_launches_needed, with warm ms, busy share, bytes an
+           iteration, host seconds and the slab copy's time; which gloo
+           collectives take CUDA tensors; then a one-rank NCCL group runs
+           the collectives on CUDA tensors and checks them; the parent
+           joins every rank and fails on any exit code but 0.
 Then the kernel table as one JSON line (K2's, K4's and S1's rows also name
 their design, launch shape and share of the bound, S1's with its cp.async
 path, star and f32 times beside; V1's, Q1P's and Q1R's are the f32 cycle's,
@@ -7776,12 +7790,540 @@ def phase_dm_more(pt, smi, t_start, flush, earlier):
                         "has no h5py; the CPU tests hold it",
             "elapsed_s": time.perf_counter() - t_start}, by_case, rows
 
-def main():
+# ---------------------------------------------------------------------
+# phase dist: distribution over ranks (ROADMAP queue 1 item 12, the
+# linear-algebra half): DIST_RANKS gloo ranks, one process each, sharing
+# the one card; a one-rank NCCL group for the collectives on CUDA tensors
+# ---------------------------------------------------------------------
+
+DIST_RANKS = 4
+DIST_GROUP_TIMEOUT_S = 300      # the gloo group's timeout: a stuck rank fails its phase
+DIST_WALL_S = 900               # the parent's wait for every rank
+# case: (grid n, operator, options); dist_contract.py runs the same on the JAX
+# package and writes tests/data/dist_contract.json
+DIST_CASES = {
+    "main_f64": (128, "grid", ("-ksp_type", "cg", "-pc_type", "gamg", "-ksp_max_it", "100")),
+    "main_f32": (128, "grid", ("-ksp_type", "cg", "-pc_type", "gamg", "-ksp_max_it", "100",
+                               "-pc_mg_dtype", "single")),
+    "jacobi_128": (128, "aij", ("-ksp_type", "cg", "-pc_type", "jacobi", "-ksp_max_it", "3000")),
+    "gamg_dist_64": (64, "aij", ("-ksp_type", "cg", "-pc_type", "gamg", "-ksp_max_it", "100")),
+    "bjacobi_64": (64, "aij", ("-ksp_type", "cg", "-pc_type", "bjacobi", "-ksp_max_it", "400")),
+    "fieldsplit_16": (16, "fieldsplit", ("-ksp_type", "fgmres", "-pc_type", "fieldsplit",
+                                         "-pc_fieldsplit_type", "schur",
+                                         "-pc_fieldsplit_schur_precondition", "selfp",
+                                         "-ksp_max_it", "200")),
+}
+DIST_HIST_TOL = {"f64": 1e-6, "f32": 1e-4}   # sums over the ranks in another order; f32's cycle
+DIST_RELRES_FACTOR = 10.0
+DIST_KERNELS = ("csr_spmv", "dnd_stencil", "q1_prolong", "q1_restrict", "cheby_update",
+                "triad", "axpy_normsq", "dot2", "trisolve", "gather", "dst_scatter")
+
+
+def dist_contract():
+    return json.loads((DATA / "dist_contract.json").read_text())
+
+
+def dist_operator(n, kind):
+    """(host CSR, b) of a phase dist case (dist_contract.py's operator)."""
+    import numpy as np
+    import scipy.sparse as sp
+    if kind == "fieldsplit":
+        I = sp.eye(n)
+        T = sp.diags([2.0 * np.ones(n), -np.ones(n - 1), -np.ones(n - 1)], [0, 1, -1])
+        A = ((sp.kron(sp.kron(T, I), I) + sp.kron(sp.kron(I, T), I)
+              + sp.kron(sp.kron(I, I), T)).tocsr() + sp.eye(n ** 3) * 0.5).tocsr()
+        return A, A @ np.ones(n ** 3)
+    i, j, v = box27_coo(n)
+    return sp.csr_matrix((v, (i, j)), shape=(n ** 3, n ** 3)), np.ones(n ** 3)
+
+
+def _add(total, part, times=1):
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + times * v
+    return total
+
+
+def dist_bcast_launches(plan, device):
+    """One ExchangePlan.bcast on this rank: K8 for the pack where the rank
+    sends, X1 for the unpack where it receives (the all-gather lowering:
+    K8 where it has leaves)."""
+    tab = plan._tables(device)
+    if plan.use_allgather:
+        return {"gather": int(tab["n"] > 0)}
+    return {"gather": int(len(tab["send_idx"]) > 0), "dst_scatter": int(tab["rcnt"].sum() > 0)}
+
+
+def dist_op_launches(meta, data, transpose=False):
+    """The launches of one product (or, with transpose, one transposed
+    product) of an operator on this rank, from its meta and data."""
+    kind = meta[0]
+    if kind in ("aij_csr", "p_row_block"):
+        return {"csr_spmv": 1}
+    if kind in ("aij_dnd", "dnd_mpi"):
+        return {product_kernel(meta) if kind == "aij_dnd" else "dnd_stencil": 1}
+    if kind in ("interp_q1", "interp_q1_mpi"):
+        return {"q1_restrict" if transpose else "q1_prolong": 1}
+    if kind == "mpiaij":
+        has_off = bool(meta[6])
+        return _add({"csr_spmv": 1 + has_off, "triad": int(has_off)},
+                    dist_bcast_launches(data["sf"], data["diag"].device))
+    raise ValueError(f"dist_op_launches: {kind}")
+
+
+def dist_pc_launches(meta, data):
+    """One application of a PC on this rank: Jacobi none (a torch product),
+    ILU's two T1 sweeps, the V-cycle (each level but the coarsest: 5
+    products with A, 4 C1 and 2 K2, its P and its restriction; the
+    coarsest a dense LU solve), fieldsplit-Schur's full factorisation
+    (two takes, B0 twice, B1, A10, A01, two K2, two puts)."""
+    kind = meta[0]
+    if kind == "pc_jacobi":
+        return {}
+    if kind == "pc_trisolve":
+        return {"trisolve": 2}
+    if kind == "pc_mg":
+        _, cycle, nlev, lev_metas, _ = meta
+        if cycle != "v":
+            raise ValueError(cycle)
+        need = {}
+        for lm, ld in zip(lev_metas[:-1], data["levels"][:-1]):
+            A_meta, P_meta, R_meta, smoother, pre, post = lm
+            if smoother != "chebyshev" or (pre, post) != (2, 2):
+                raise ValueError(lm)
+            _add(need, dist_op_launches(A_meta, ld["A"]), 5)
+            _add(need, {"cheby_update": 4, "triad": 2})
+            _add(need, dist_op_launches(P_meta, ld["P"]))
+            _add(need, dist_op_launches(P_meta, ld["P"], transpose=True) if R_meta is None
+                 else dist_op_launches(R_meta, ld["R"]))
+        return need
+    if kind == "pc_fieldsplit":
+        _, ftype, sfact, _, sub_metas, bmetas = meta
+        if (ftype, sfact) != ("schur", "full"):
+            raise ValueError(meta[:3])
+        need = {}
+        b0, b1 = (dist_pc_launches(m, d) for m, d in zip(sub_metas, data["subs"]))
+        _add(need, b0, 2)
+        _add(need, b1)
+        for k, bm in bmetas:
+            _add(need, dist_op_launches(bm, data["blocks"][k]))
+        _add(need, {"triad": 2})
+        for mv in data["moves"]:
+            dev = data["blocks"][(0, 1)]["diag"].device
+            _add(need, dist_bcast_launches(mv.take_plan, dev))
+            _add(need, dist_bcast_launches(mv.put_plan, dev))
+            _add(need, {"dst_scatter": 1})
+        return need
+    raise ValueError(f"dist_pc_launches: {kind}")
+
+
+def dist_head_setup_launches(levels, probes=27, lanczos=10):
+    """The sharded structured head's set-up on this rank: per head level
+    (a slab Q1 P), 10 Lanczos products with its A and 27 probes of one
+    Q1P, one product and one Q1R."""
+    need = {}
+    for lev in levels[:-1]:
+        if lev.P.meta[0] == "interp_q1_mpi":
+            _add(need, {"dnd_stencil": probes + lanczos, "q1_prolong": probes,
+                        "q1_restrict": probes})
+    return need
+
+
+def dist_launches_needed(ksp):
+    """Every launch of one distributed solve on this rank, set-up included,
+    from what the solve reports (its, the bound operator and PC): CG's
+    its products, 2 K2, one K3 and 2 K4 an iteration, one K4 and its + 1
+    PC applications; FGMRES's its products and PC applications, one K3 an
+    iteration (a zero guess: the first cycle has no residual product)."""
+    its = ksp.getIterationNumber()
+    A = ksp.getOperators()[0]
+    pc = ksp.getPC()
+    a = dist_op_launches(A.meta, A.device_data())
+    p = dist_pc_launches(pc.meta, pc.device_data())
+    need = {}
+    if ksp.getType() == "cg":
+        _add(need, a, its)
+        _add(need, p, its + 1)
+        _add(need, {"triad": 2 * its, "axpy_normsq": its, "dot2": 1 + 2 * its})
+    elif ksp.getType() == "fgmres":
+        restart = 30
+        _add(need, a, its + (its - 1) // restart)
+        _add(need, p, its)
+        _add(need, {"axpy_normsq": its})
+    else:
+        raise ValueError(ksp.getType())
+    levels = getattr(pc._impl, "levels", None)
+    if levels:
+        _add(need, dist_head_setup_launches(levels))
+    return {k: v for k, v in need.items() if v}
+
+
+def dist_levels(ksp):
+    """[(A kind, rows)] of a multigrid PC's levels, the replicated tail's
+    kinds as the reference names its layouts' family (aij)."""
+    levels = getattr(ksp.getPC()._impl, "levels", None) or []
+    return [(lev.A.meta[0], lev.A.getSize()[0]) for lev in levels]
+
+
+def _profile_busy_ms(fn):
+    """Device kernel milliseconds of fn() by torch.profiler (None where the
+    profiler sees no device time), and fn's wall milliseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    us = 0.0
+    for e in prof.key_averages():
+        us += float(getattr(e, "self_device_time_total", 0.0)
+                    or getattr(e, "self_cuda_time_total", 0.0) or 0.0)
+    return (us / 1e3 if us > 0 else None), wall
+
+
+def dist_case(pt, name, n, kind, opts, device=None, cache=None, timing=True):
+    """One phase dist case on this rank: assemble the operator on the
+    ranks, set up, solve (the launches counted from the assembly on), and,
+    with timing, time a warm solve and profile another. Returns the
+    record and the (ksp, A, b, x, host CSR, b host)."""
+    import numpy as np
+    import torch
+    from petsc_tpu_torch.parallel.mesh import make_comm
+    pt.init(args=["-ksp_rtol", "1e-8", *opts], device=device)
+    comm = make_comm(DIST_RANKS)
+    cache = {} if cache is None else cache
+    key = (n, kind == "fieldsplit")
+    if key not in cache:
+        cache.clear()          # one host operator at a time (0.9 GB at 128^3)
+        cache[key] = dist_operator(n, kind)
+    A_sp, b_np = cache[key]
+    cuda = torch.cuda.is_available() and device != "cpu"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    reset_launches()
+    t0 = time.perf_counter()
+    if (n, kind) not in cache:
+        # the f64 and f32 cycles' cases share the distributed operator (its
+        # assembly launches no kernel)
+        A = pt.MatAIJ.from_scipy(A_sp, comm=comm)
+        if kind == "grid":
+            A.setStencilGrid((n,) * 3)
+        cache[n, kind] = A
+    A = cache[n, kind]
+    ksp = pt.KSP().create()
+    ksp.setOperators(A)
+    ksp.setFromOptions()
+    if kind == "fieldsplit":
+        N = A_sp.shape[0]
+        ksp.getPC().setFieldSplitIS(("0", np.arange(0, N, 2)), ("1", np.arange(1, N, 2)))
+    b = A.createVecLeft()
+    b.setArray(b_np)
+    x = A.createVecRight()
+    sync()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ksp.setUp()
+    sync()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ksp.solve(b, x)
+    sync()
+    solve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    its = ksp.getIterationNumber()
+    xs = x.getArray()
+    rec = {"case": name, "rank": comm.rank, "ranks": comm.size, "backend": comm.backend,
+           "n": n, "A_kind": A.meta[0], "its": its,
+           "reason": ksp.getConvergedReason().name,
+           "history": [float(h) for h in ksp.getConvergenceHistory()],
+           "true_relres": float(np.linalg.norm(b_np - A_sp @ xs) / np.linalg.norm(b_np)),
+           "levels": dist_levels(ksp), "assembly_s": build_s, "setup_s": setup_s,
+           "first_solve_s": solve_s, "launches": {k: launches.get(k, 0) for k in DIST_KERNELS},
+           "launches_needed": dist_launches_needed(ksp)}
+    if timing:
+        comm = A.comm          # the shared operator's (the exchanges count there)
+        best, sent0 = None, comm.bytes_sent
+        for _ in range(2):
+            x2 = A.createVecRight()
+            sync()
+            t0 = time.perf_counter()
+            ksp.solve(b, x2)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            best = ms if best is None else min(best, ms)
+        rec["warm_ms_best_of_2"] = best
+        rec["bytes_per_it"] = (comm.bytes_sent - sent0) / (2 * max(its, 1))
+        if cuda:
+            busy, wall = _profile_busy_ms(lambda: ksp.solve(b, A.createVecRight()))
+            rec.update(busy_ms=busy, profiled_wall_ms=wall,
+                       busy_share=None if busy is None else busy / wall)
+            if kind == "grid":
+                rec["slab_copy"] = slab_copy_row(A.meta, b.array.dtype)
+    return rec, (ksp, A, b, x)
+
+
+def slab_copy_row(meta, dtype, reps=50):
+    """The dnd_mpi product's copy of the rank's slab into its buffer with
+    halo planes (mat/aij.py _bind_dnd_mpi), alone: ms a copy by CUDA
+    events over `reps` copies, against its bound (the slab read and
+    written once at the card's memory rate), in f64 and f32."""
+    import torch
+    _, P, nzl, shape, _, s = meta
+    plane = int(math.prod(shape[1:]))
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        x = torch.rand(nzl * plane, dtype=dt, device="cuda")
+        buf = torch.empty((nzl + 2 * s) * plane, dtype=dt, device="cuda")
+        buf[s * plane:(s + nzl) * plane] = x
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        ev0.record()
+        for _ in range(reps):
+            buf[s * plane:(s + nzl) * plane] = x
+        ev1.record()
+        torch.cuda.synchronize()
+        nbytes = 2 * x.numel() * x.element_size()
+        out[str(dt).split(".")[1]] = {"ms": ev0.elapsed_time(ev1) / reps, "bytes": nbytes,
+                                      "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                                      "slab_planes": nzl, "plane": list(shape[1:])}
+    return out
+
+
+def dist_check(rec, want, cycle):
+    """The contract of a phase dist case on one rank: its and reason equal,
+    the history to DIST_HIST_TOL, the levels' rows and sharded kinds
+    equal, the true relres at most DIST_RELRES_FACTOR times the
+    reference's, the launches exactly the formula's."""
+    import numpy as np
+    name = rec["case"]
+    if (rec["its"], rec["reason"]) != (want["its"], want["reason"]):
+        raise AssertionError(f"dist {name} rank {rec['rank']}: its/reason {rec['its']} "
+                             f"{rec['reason']}, the reference {want['its']} {want['reason']}")
+    h, hj = np.asarray(rec["history"]), np.asarray(want["history"])
+    tol = DIST_HIST_TOL[cycle]
+    if h.shape != hj.shape or not np.all(np.abs(h - hj) <= tol * np.maximum(hj, 1e-6 * hj[0])):
+        raise AssertionError(f"dist {name} rank {rec['rank']}: history off the reference's "
+                             f"by {np.max(np.abs(h - hj) / hj)} (tol {tol})")
+    lv, lvj = rec["levels"], [tuple(l) for l in want["levels"]]
+    if [r for _, r in lv] != [r for _, r in lvj] or any(
+            k != kj for (k, _), (kj, _) in zip(lv, lvj) if kj in ("mpiaij", "dnd_mpi")):
+        raise AssertionError(f"dist {name} rank {rec['rank']}: levels {lv}, the reference {lvj}")
+    if rec["A_kind"] != want["A_kind"]:
+        raise AssertionError(f"dist {name}: layout {rec['A_kind']}, the reference's "
+                             f"{want['A_kind']}")
+    if not rec["true_relres"] <= DIST_RELRES_FACTOR * want["true_relres"]:
+        raise AssertionError(f"dist {name} rank {rec['rank']}: true relres "
+                             f"{rec['true_relres']} > {DIST_RELRES_FACTOR} x "
+                             f"{want['true_relres']}")
+    need = rec["launches_needed"]
+    got = {k: v for k, v in rec["launches"].items() if v}
+    if got != need:
+        raise AssertionError(f"dist {name} rank {rec['rank']}: launches {got}, need {need}")
+
+
+def gloo_cuda_probe():
+    """Which gloo collectives take CUDA tensors themselves in this PyTorch build
+    (each tried once on every rank): the port's transport hands them CUDA
+    tensors as they are (parallel/mesh.py), so each must."""
+    import torch
+    import torch.distributed as dist
+    P = dist.get_world_size()
+    t = torch.ones(4, dtype=torch.float64, device="cuda")
+    tries = {
+        "all_reduce": lambda: dist.all_reduce(t.clone()),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(t) for _ in range(P)], t),
+        "all_to_all_single": lambda: dist.all_to_all_single(torch.empty(P, dtype=t.dtype,
+                                                                        device=t.device),
+                                                            torch.ones(P, dtype=t.dtype,
+                                                                       device=t.device)),
+        "broadcast": lambda: dist.broadcast(t.clone(), 0),
+    }
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "takes CUDA tensors"
+        except (RuntimeError, TypeError, ValueError) as e:   # a probe: the answer is the message
+            out[name] = f"refused: {str(e).splitlines()[0][:160]}"
+        dist.barrier()
+    return out
+
+
+def _dist_rank(rank, size, store, results):
+    """One rank of phase dist: a gloo group over the file store, the probe,
+    then every DIST_CASES case against the contract; its records go to the
+    parent. An error ends the process with a non-zero code (no try)."""
+    import datetime
+    import os
+    import torch
+    import torch.distributed as dist
+    os.environ["RANK"] = os.environ["LOCAL_RANK"] = str(rank)
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=size,
+                            timeout=datetime.timedelta(seconds=DIST_GROUP_TIMEOUT_S))
+    import petsc_tpu_torch as pt
+    out = {"rank": rank, "gloo_cuda": gloo_cuda_probe(), "cases": {}}
+    contract, cache = dist_contract(), {}
+    for name, (n, kind, opts) in DIST_CASES.items():
+        rec, _ = dist_case(pt, name, n, kind, opts, cache=cache)
+        dist_check(rec, contract[name], "f32" if name.endswith("f32") else "f64")
+        out["cases"][name] = rec
+    cache.clear()
+    results.put(out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _nccl_one_rank(store, results):
+    """A one-rank NCCL group: each collective of the port's exchange and
+    reductions on CUDA tensors at the main path's shapes and types
+    (all_reduce of dot2's pair and of a coarse vector, all_to_all_single of
+    a 128^2 halo plane, all_gather of a coarse level's planes), checked."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=DIST_GROUP_TIMEOUT_S))
+    torch.cuda.set_device(0)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = {"backend": str(dist.get_backend())}
+    for dt in (torch.float64, torch.float32):
+        pair = torch.rand(2, generator=g, device="cuda", dtype=torch.float64).to(dt)
+        red = pair.clone()
+        dist.all_reduce(red)
+        plane = torch.rand(128 * 128, generator=g, device="cuda", dtype=torch.float64).to(dt)
+        recv = torch.empty_like(plane)
+        dist.all_to_all_single(recv, plane, [plane.numel()], [plane.numel()])
+        planes = torch.rand(27 * 2 * 8 * 8, generator=g, device="cuda",
+                            dtype=torch.float64).to(dt)
+        parts = [torch.empty_like(planes)]
+        dist.all_gather(parts, planes)
+        coarse = torch.rand(56, generator=g, device="cuda", dtype=torch.float64).to(dt)
+        cred = coarse.clone()
+        dist.all_reduce(cred)
+        torch.cuda.synchronize()
+        ok = {"all_reduce_pair": bool(torch.equal(red, pair)),
+              "all_to_all_single_plane": bool(torch.equal(recv, plane)),
+              "all_gather_planes": bool(torch.equal(parts[0], planes)),
+              "all_reduce_coarse": bool(torch.equal(cred, coarse))}
+        if not all(ok.values()):
+            raise AssertionError(f"one-rank NCCL collectives ({dt}): {ok}")
+        out[str(dt).split(".")[1]] = ok
+    results.put(out)
+    dist.destroy_process_group()
+
+
+def _run_ranks(target, nprocs, args, wall_s):
+    """Start nprocs spawned processes on target(rank, *args, queue) (or, for
+    one process, target(*args, queue)), collect one result each, join every
+    process and check its exit code; a rank that dies or a wait past wall_s
+    stops the others and fails the phase."""
+    import queue as _queue
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=((r,) if nprocs > 1 else ()) + args + (q,))
+             for r in range(nprocs)]
+    for p in procs:
+        p.start()
+    got, t_end = [], time.perf_counter() + wall_s
+    try:
+        while len(got) < nprocs:
+            try:
+                got.append(q.get(timeout=5))
+            except _queue.Empty:
+                bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if bad or time.perf_counter() > t_end:
+                    raise AssertionError(f"phase dist: a rank failed (exit codes "
+                                         f"{[p.exitcode for p in procs]}) or the wait "
+                                         f"passed {wall_s} s")
+        for p in procs:
+            p.join(timeout=120)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        raise AssertionError(f"phase dist: exit codes {codes}")
+    return got
+
+
+def phase_dist(smi, t_start):
+    """DIST_RANKS gloo ranks on the one card run DIST_CASES against the
+    contract (each rank checks its its, reason, history, levels, true
+    relres and exact launches); then a one-rank NCCL group runs the
+    collectives on CUDA tensors."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ptt_dist_") as d:
+        ranks = _run_ranks(_dist_rank, DIST_RANKS, (DIST_RANKS, f"{d}/gloo"), DIST_WALL_S)
+        nccl = _run_ranks(_nccl_one_rank, 1, (f"{d}/nccl",), 300)[0]
+    ranks.sort(key=lambda o: o["rank"])
+    refused = {k: v for k, v in ranks[0]["gloo_cuda"].items() if v != "takes CUDA tensors"}
+    if refused:
+        raise AssertionError(f"phase dist: gloo refuses CUDA tensors in {refused}")
+    contract = dist_contract()
+    cases = {}
+    for name in DIST_CASES:
+        recs = [o["cases"][name] for o in ranks]
+        if len({r["its"] for r in recs}) != 1:
+            raise AssertionError(f"dist {name}: the ranks' its differ: {[r['its'] for r in recs]}")
+        cases[name] = {
+            "its": recs[0]["its"], "reason": recs[0]["reason"], "A_kind": recs[0]["A_kind"],
+            "levels": recs[0]["levels"], "contract_its": contract[name]["its"],
+            "contract_seconds_cpu_jax": contract[name]["seconds"],
+            "true_relres": recs[0]["true_relres"],
+            "contract_true_relres": contract[name]["true_relres"],
+            "per_rank": [{k: r.get(k) for k in ("rank", "backend", "assembly_s", "setup_s",
+                                                   "first_solve_s", "warm_ms_best_of_2",
+                                                   "busy_ms", "profiled_wall_ms", "busy_share",
+                                                   "bytes_per_it", "slab_copy",
+                                                   "launches")} for r in recs]}
+    return {"phase": "dist", "ranks": DIST_RANKS, "backend": "gloo",
+            "note": f"{DIST_RANKS} ranks (processes) share one card: {smi}",
+            "nvidia_smi": smi, "gloo_cuda_collectives": ranks[0]["gloo_cuda"],
+            "nccl_one_rank": nccl, "cases": cases, "seconds": time.perf_counter() - t0,
+            "seconds_so_far": time.perf_counter() - t_start}, \
+        {name: [o["cases"][name]["launches"] for o in ranks] for name in DIST_CASES}
+
+
+def main_dist_only():
+    """``--phase dist``: the build, then phase dist alone (about 5 minutes
+    on one H100), its record as the last line, the card's name and power
+    limit before it."""
+    from petsc_tpu_torch import native
+    from petsc_tpu_torch.ops import cuda_build, pallas_kernels
+    t0 = time.perf_counter()
+    cuda_build.library()
+    pallas_kernels.kernels_available("cuda")
+    native.lib()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()[0]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    rec, _ = phase_dist(smi, t0)
+    print(smi, flush=True)
+    emit(rec)
+    return 0
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of petsc_tpu_torch on one GPU.")
+    ap.add_argument("--phase", choices=("all", "dist"), default="all",
+                    help="all: every phase and the contract's last line (the default); "
+                         "dist: the build and phase dist alone")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing was run",
               file=sys.stderr)
         return 2
+    if args.phase == "dist":
+        return main_dist_only()
     import petsc_tpu_torch as pt
     from petsc_tpu_torch import native
     from petsc_tpu_torch.ops import cuda_build, stencil_build as sb
@@ -8081,6 +8623,13 @@ def main():
     # ---- bench.py's keys from the card: bench_gpu.py in a process of its own ----
     bench = phase_bench_gpu(smi, t_start)
 
+    # ---- distribution over ranks (item 12's linear-algebra half): 4 gloo
+    # ranks sharing the card, each case with every launch count set to 0
+    # just before its assembly and read after its first solve; a one-rank
+    # NCCL group for the collectives on CUDA tensors ----
+    dist_rec, dist_launches = phase_dist(smi, t_start)
+    emit(dist_rec)
+
     # name: (source, replaces, measured row, launches on the path it belongs to)
     rows = {
         "probe": ("probe.cu", "petsc_tpu/ops/pallas_kernels.py:31", main_rows, launches),
@@ -8167,7 +8716,9 @@ def main():
                                            **{f"plex_{c}": v.get(name, 0)
                                               for c, v in plex_launches.items()},
                                            **{f"dm_more_{c}": v.get(name, 0)
-                                              for c, v in dm_launches.items()}},
+                                              for c, v in dm_launches.items()},
+                                           **{f"dist_{c}_rank0": v[0].get(name, 0)
+                                              for c, v in dist_launches.items()}},
                       "in_solve_us": {path: p["in_solve"].get(name, {}).get("us_per_launch")
                                       for path, p in (("solve", prof), ("aij", prof_a),
                                                       ("mg", prof_m), ("gamg", prof_g),

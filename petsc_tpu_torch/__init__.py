@@ -59,7 +59,7 @@ from .sys.error import (Error, KSPConvergedReason, SNESConvergedReason,
                         TSConvergedReason, TaoConvergedReason, PCFailedReason,
                         NotConvergedError)
 from .parallel.layout import Layout
-from .parallel.mesh import Comm, comm_self, comm_world
+from .parallel.mesh import Comm, comm_self, comm_world, make_comm, make_comm2
 from .vec.vec import Vec, NormType, InsertMode, fused_reductions
 from .mat.mat import Mat, MatShell, MatDense, MatNullSpace, MatStructure
 from .mat.aij import MatAIJ  # also registers the aij_csr and aij_dnd binders
@@ -120,7 +120,10 @@ def __getattr__(name):
     if name == "viewer":
         from .sys import viewer
         return viewer
-    if name in ("VecGhost", "VecNest"):
-        raise Error(f"{name}: ghosted and nested vectors come with ROADMAP queue 1 item 12 "
-                    "(distribution)")
+    if name == "VecGhost":
+        from .vec.ghost import VecGhost
+        return VecGhost
+    if name == "VecNest":
+        from .vec.nest import VecNest
+        return VecNest
     raise AttributeError(name)

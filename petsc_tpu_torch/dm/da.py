@@ -319,8 +319,13 @@ class DMDA(DM):
                 and all(self.sizes[ax] == 2 * coarse.sizes[ax] - 1
                         for ax in range(self.dim))):
             from .interp import MatInterpQ1
-            return MatInterpQ1(tuple(self.sizes[::-1]), tuple(coarse.sizes[::-1]),
-                               comm=self.comm, dof=self.dof)
+            Pq = MatInterpQ1(tuple(self.sizes[::-1]), tuple(coarse.sizes[::-1]),
+                             comm=self.comm, dof=self.dof)
+            if Pq.comm.nshards == 1:
+                return Pq
+            # over several ranks the vertex-centred grids do not split into
+            # slabs (nf0 = 2 nc0 - 1): the assembled Q1, distributed
+            return MatAIJ.from_scipy(Pq.to_scipy(), comm=self.comm)
         import scipy.sparse as sp
         P = None
         # the slowest axis first: z, y, x

@@ -15,19 +15,29 @@ PCMG's coarse levels.
 A field of ``dof > 1`` components per point (a DMDA's layout, the
 components innermost) interpolates each component alike: P is
 ``kron(P_grid, I_dof)`` (interp.py:72-118), its products the kernels' dof
-entries. The slab-sharded ``MatInterpQ1MPI`` comes with distribution
-(ROADMAP queue 1 item 12).
+entries.
+
+``MatInterpQ1MPI`` is the slab-sharded transfer (interp.py:120-216): the
+leading axis is split over the ranks (nf0 = 2 nc0, both dividing), and
+each rank runs Q1P and Q1R on its slab with a halo plane. Prolongation
+takes the next rank's first coarse plane (the last rank its own last
+plane, the clamp of an even axis), runs Q1P on the nc0 / P + 1 planes and
+keeps the first 2 nc0 / P fine planes. Restriction takes the previous
+rank's last fine plane (zero on the first rank) and runs Q1R on the slab
+behind two leading planes (a zero and that plane) and, but on the last
+rank, one zero plane after it, so that the slab's coarse planes are
+interior points of the buffer's grid (the last rank's end clamps as the
+global grid's does); it keeps the coarse planes 1 .. nc0 / P.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..mat.mat import Mat
 from ..ops import operator
 from ..ops.grid_kernels import _interp_axis, _restrict_axis, q1_prolong, q1_restrict  # noqa: F401
-
-_ITEM_12 = "distribution (ROADMAP queue 1 item 12)"
 
 
 class MatInterpQ1(Mat):
@@ -87,12 +97,76 @@ class MatInterpQ1(Mat):
 class MatInterpQ1MPI(MatInterpQ1):
     """The slab-sharded Q1 prolongation (interp.py:120-146)."""
 
-    def __init__(self, *a, **kw):
-        raise NotImplementedError(f"MatInterpQ1MPI comes with {_ITEM_12}")
+    def __init__(self, fine_shape, coarse_shape, comm, **kw):
+        super().__init__(fine_shape, coarse_shape, comm=comm, **kw)
+        P = comm.nshards
+        if (fine_shape[0] % (2 * P) or coarse_shape[0] % P
+                or fine_shape[0] != 2 * coarse_shape[0]):
+            raise ValueError("MatInterpQ1MPI slab contract: nf0 = 2 nc0, both dividing "
+                             "over the ranks")
+
+    @property
+    def meta(self):
+        return ("interp_q1_mpi", self.fine_shape, self.coarse_shape, self.comm.nshards)
+
+    def device_data(self):
+        return {"comm": self.comm}
+
+
+def _send_plane(comm, plane, to_next):
+    """Send `plane` to the next rank (to_next) or the previous one; returns
+    a wait() that gives the plane received from the other side, or None at
+    the end of the ranks."""
+    P, r = comm.nshards, comm.rank
+    dst, src = (r + 1, r - 1) if to_next else (r - 1, r + 1)
+    scnt, rcnt = [0] * P, [0] * P
+    send = plane.reshape(-1)
+    if 0 <= dst < P:
+        scnt[dst] = send.numel()
+    else:
+        send = send[:0]
+    has_src = 0 <= src < P
+    if has_src:
+        rcnt[src] = plane.numel()
+    h = comm.alltoallv_start(send, scnt, rcnt)
+
+    def wait():
+        recv = h.wait()
+        return recv if has_src else None
+
+    return wait
 
 
 def _bind_interp_q1_mpi(meta, data):
-    raise NotImplementedError(f"the interp_q1_mpi binder comes with {_ITEM_12}")
+    """mult: Q1P on the rank's coarse slab and the next rank's first plane;
+    mult_t: Q1R on the fine slab behind the previous rank's last plane."""
+    _, fshape, cshape, P = meta
+    comm = data["comm"]
+    nzc, nzf = cshape[0] // P, fshape[0] // P
+    ctail, ftail = tuple(cshape[1:]), tuple(fshape[1:])
+    pc = int(np.prod(ctail)) if ctail else 1
+    pf = int(np.prod(ftail)) if ftail else 1
+    last = comm.rank == P - 1
+
+    def mult(x):
+        wait = _send_plane(comm, x[:pc], to_next=False)
+        buf = torch.empty((nzc + 1) * pc, dtype=x.dtype, device=x.device)
+        buf[: nzc * pc] = x
+        nxt = wait()
+        buf[nzc * pc:] = x[(nzc - 1) * pc:] if last else nxt
+        return q1_prolong(buf, (2 * nzc + 1,) + ftail)[: nzf * pf]
+
+    def mult_t(x):
+        wait = _send_plane(comm, x[(nzf - 1) * pf:], to_next=True)
+        nb = nzf + 2 + (0 if last else 1)
+        buf = torch.zeros(nb * pf, dtype=x.dtype, device=x.device)
+        buf[2 * pf:(2 + nzf) * pf] = x
+        prev = wait()
+        if prev is not None:
+            buf[pf:2 * pf] = prev
+        return q1_restrict(buf, (nb,) + ftail)[pc:(nzc + 1) * pc]
+
+    return operator.Op(mult=mult, mult_t=mult_t)
 
 
 def _bind_interp_q1(meta, data):

@@ -9,6 +9,12 @@ on the device of ``config.init``, and so does a trisolve plan of its
 MatSchurComplement and the wrappers whose data are arrays) into the port.
 The parity tests use this so that both packages compute on the same
 operator, factors and vectors.
+
+With a multi-rank ``comm`` (one process per rank), a reference Vec or
+MatAIJ on a sharded comm, and the reference's ``mpiaij`` and ``dnd_mpi``
+(meta, data) pairs, become the port's object on each rank: built from the
+same global numpy arrays, holding the rank's block, in the same layout
+(a declared grid is declared again).
 """
 
 from __future__ import annotations
@@ -31,12 +37,53 @@ def _plain(v):
     return v
 
 
-def mat_from_csr(indptr, indices, vals, shape):
-    """A port MatAIJ holding a CSR (the reference's ``getValuesCSR()``)."""
-    A = MatAIJ()
+def mat_from_csr(indptr, indices, vals, shape, comm=None, grid=None):
+    """A port MatAIJ holding a CSR (the reference's ``getValuesCSR()``), on
+    `comm` and on the declared grid `grid` where given."""
+    A = MatAIJ(comm)
     A.setSizes(tuple(int(s) for s in shape))
+    if grid is not None:
+        A.setStencilGrid(grid)
     A.setValuesCSR(indptr, indices, vals)
     return A.assemble()
+
+
+def _mpiaij_csr(meta, d):
+    """The global CSR of the reference's mpiaij data: the stacked ELL blocks
+    (dd/di, od/oi), the halo's global columns recovered from the plan's
+    tables (the all-gather lowering's gidx, or each offset's pack and
+    unpack), the spill segments. Zero values (ELL padding) are dropped."""
+    Pn, blk, cb, H, sf_meta = meta[1], meta[2], meta[3], meta[6], meta[7]
+    a = {k: np.asarray(v) for k, v in d.items() if k not in ("sp", "sf")}
+    sf = {k: np.asarray(v) for k, v in d["sf"].items()}
+    spl = {k: np.asarray(v) for k, v in d.get("sp", {}).items()}
+    garray = np.zeros((Pn, H + 1), dtype=np.int64)
+    if sf_meta[0] == "sf_allgather":
+        garray[:, :H] = sf["sf_gidx"]
+    else:
+        for dd in sf_meta[3]:
+            pk, up = sf[f"sf_pack_{dd}"], sf[f"sf_unpack_{dd}"]
+            for j in range(Pn):
+                s_ = (j - dd) % Pn
+                garray[s_, up[s_]] = j * cb + pk[j]
+    rows, cols, vals = [], [], []
+    for s_ in range(Pn):
+        r = np.repeat(np.arange(blk), a["dd"].shape[2]) + s_ * blk
+        rows += [r, np.repeat(np.arange(blk), a["od"].shape[2]) + s_ * blk]
+        cols += [a["di"][s_].reshape(-1) + s_ * cb, garray[s_, a["oi"][s_].reshape(-1)]]
+        vals += [a["dd"][s_].reshape(-1), a["od"][s_].reshape(-1)]
+        for pre in ("d", "o"):
+            if pre + "sv" in spl:
+                rows.append(spl[pre + "sr"][s_] + s_ * blk)
+                c = spl[pre + "sc"][s_]
+                cols.append(c + s_ * cb if pre == "d" else garray[s_, c])
+                vals.append(spl[pre + "sv"][s_])
+    import scipy.sparse as sp
+    r, c, v = np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
+    keep = v != 0
+    N = Pn * blk
+    A = sp.csr_matrix((v[keep], (r[keep], c[keep])), shape=(N, Pn * cb))
+    return A
 
 
 def _csr_of_device_layout(meta, data):
@@ -57,11 +104,28 @@ def _csr_of_device_layout(meta, data):
     return indptr, cols, vals
 
 
-def mat_from_meta_data(meta, data_np):
+def mat_from_meta_data(meta, data_np, comm=None, size=None):
     """A port Mat from the reference's ``aij_dnd`` (constant, variable or
     mixed: planes in data["coef"], constants in meta[6]), ``aij_csr``,
     ``aij_ell`` or ``interp_q1`` (meta, data). The stencil's data arrays
-    keep their dtype; the assembled layouts become the port's CSR MatAIJ."""
+    keep their dtype; the assembled layouts become the port's CSR MatAIJ.
+    The sharded ``mpiaij`` and ``dnd_mpi`` pairs become a MatAIJ on `comm`
+    (of the logical `size` (m, n) where the padded layout is larger), the
+    latter on its grid."""
+    if meta[0] in ("mpiaij", "dnd_mpi"):
+        from .ops.stencil_build import dnd_to_csr
+        if meta[0] == "dnd_mpi":
+            shape = tuple(int(v) for v in meta[3])
+            offs = _plain(meta[4])
+            coef = np.asarray(data_np["coef"], dtype=np.float64)
+            planes = np.moveaxis(coef, 0, 1).reshape((len(offs),) + shape)
+            A = dnd_to_csr(("aij_dnd", shape, offs, None, None, int(np.prod(shape))),
+                           {"coef": planes})
+            return mat_from_csr(A.indptr, A.indices, A.data, A.shape, comm, grid=shape)
+        A = _mpiaij_csr(_plain(meta[:8]), data_np)
+        m, n = size if size is not None else A.shape
+        A = A[:m, :n].tocsr()
+        return mat_from_csr(A.indptr, A.indices, A.data, A.shape, comm)
     meta = _plain(meta)
     if meta[0] == "dense" or meta[0].startswith("mat_"):
         return _wrapper_from_meta_data(meta, data_np)
@@ -109,9 +173,10 @@ def trisolve_plan_from_jax(tail, data_np):
     return (m, nlevL, nlevU), data
 
 
-def vec_from_numpy(arr):
-    """A port Vec holding the values of a numpy array (in the real dtype)."""
-    return Vec.from_array(np.asarray(arr))
+def vec_from_numpy(arr, comm=None):
+    """A port Vec holding the values of a numpy array (in the real dtype);
+    on a multi-rank comm, the rank's block of it."""
+    return Vec.from_array(np.asarray(arr), comm=comm)
 
 
 def _wrapper_from_meta_data(meta, data):
@@ -153,12 +218,14 @@ def _wrapper_from_meta_data(meta, data):
     raise NotImplementedError(f"interop: operator kind '{kind}' is not ported")
 
 
-def mat_from_jax(M):
+def mat_from_jax(M, comm=None):
     """A port Mat holding the same operator as the reference Mat M: a
     MatAIJ from its CSR, a MatSBAIJ from its upper triangle (as a MatSBAIJ,
     block size and ``_bs_sym`` kept), a MatDense from its array, a MatMAIJ
     or MatSchurComplement from its sub-matrices, and the other wrappers
-    (and a MatDense) from their (meta, data)."""
+    (and a MatDense) from their (meta, data). A MatAIJ goes onto `comm`,
+    its declared grid declared again (a sharded reference MatAIJ in the
+    dnd_mpi layout becomes the port's dnd_mpi on a multi-rank comm)."""
     from .mat import utility as ut
     from .mat.sbaij import MatSBAIJ
     name = type(M).__name__
@@ -172,7 +239,9 @@ def mat_from_jax(M):
             P.setBlockSize(M.getBlockSize())
         return P
     if name == "MatAIJ":
-        P = mat_from_csr(*M.getValuesCSR(), shape=M.getSize())
+        sharded = comm is not None and comm.size > 1
+        P = mat_from_csr(*M.getValuesCSR(), shape=M.getSize(), comm=comm,
+                         grid=getattr(M, "_grid_shape", None) if sharded else None)
         if M.getBlockSize() > 1:
             P.setBlockSize(M.getBlockSize())
         return P

@@ -26,6 +26,11 @@ operator's product, the preconditioner, two products with the basis
 w <- w - V^T h with ||w||^2 (gmres.py:47 and :79), written straight into
 the basis row that w becomes.
 
+On a distributed solve (parallel/mesh.py ``reducing``) the basis holds
+each rank's block: the projections V w are each rank's partials, summed
+over the ranks (one all-reduce of the k + 1 scalars), and the norms of the
+full vectors likewise; the Hessenberg work is then the same on every rank.
+
 cfg.extra = (restart, refine), refine 0 never, 1 ifneeded, 2 always.
 """
 
@@ -38,11 +43,19 @@ import torch
 
 from ..ops.pallas_kernels import axpy_normsq
 from ..ops.reduce import fnorm2
+from ..parallel.mesh import active_comm, allreduce_active_
 from ..sys.error import KSPConvergedReason as KR
 from .common import (KSPConfig, NONE, SolveResult, check_converged, empty_history,
                      finalize_reason, rounder, tolerances)
 
 HAPTOL = 1e-10  # gmres->haptol default
+
+
+def _vnorm(z):
+    """||z|| of a full (possibly distributed) vector."""
+    if active_comm() is None:
+        return fnorm2(z)
+    return torch.sqrt(allreduce_active_(torch.sum(z * z)))
 
 
 class _Arnoldi:
@@ -93,10 +106,10 @@ def _orthogonalize(V, k, w, refine, neg_one):
     V[k+1]; returns (h, ||V[k+1]||^2) as tensors."""
     Vk = V[:k + 1]
     out = V[k + 1]
-    h = torch.mv(Vk, w)
+    h = allreduce_active_(torch.mv(Vk, w))
     _, nsq = axpy_normsq(neg_one, torch.mv(Vk.t(), h), w, out=out)
     if refine:
-        h2 = torch.mv(Vk, out)
+        h2 = allreduce_active_(torch.mv(Vk, out))
         if refine == 2:
             _, nsq = axpy_normsq(neg_one, torch.mv(Vk.t(), h2), out, out=out)
             h = h + h2
@@ -127,7 +140,7 @@ def _gmres(A, B, b, x0, rtol, abstol, divtol, cfg: KSPConfig, flexible):
         return r if flexible else B.mult(r)
 
     z = start(True)
-    dp0 = rnd(float(fnorm2(z)))
+    dp0 = rnd(float(_vnorm(z)))
     hist = empty_history(cfg, dt)
     hist[0] = dp0
     ttol, atol, dtol_bound = tolerances(dp0, rtol, abstol, divtol, rnd)
@@ -136,7 +149,7 @@ def _gmres(A, B, b, x0, rtol, abstol, divtol, cfg: KSPConfig, flexible):
     while first or (reason == 0 and its < cfg.max_it):
         if not first:
             z = start(False)
-        res0 = float(fnorm2(z)) if not first else dp0
+        res0 = float(_vnorm(z)) if not first else dp0
         torch.div(z, res0 if res0 != 0 else 1.0, out=V[0])
         cyc = _Arnoldi(m, res0)
         k = 0

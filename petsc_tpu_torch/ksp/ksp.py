@@ -19,6 +19,7 @@ import torch
 from .. import config
 from ..ops import operator
 from ..ops.esteig import eig_bounds_device
+from ..parallel.mesh import reducing
 from ..pc.pc import PC, PCSide
 from ..sys.error import (Error, KSPConvergedReason as KR, NotConvergedError,
                          ksp_reason_string)
@@ -297,22 +298,10 @@ class KSP(PObject):
         B = operator.bind(self.pc.meta, self.pc.device_data())
         x0 = x.array if self.guess_nonzero else torch.zeros_like(b.array)
         t0 = time.perf_counter()
-        impl = _IMPLS[self._type]
-        if impl["host_driven"]:
-            xr, its, rnorm, reason, hist, rnorm0 = impl["fn"](self, A, B, b.array, x0)
-            res = common.SolveResult(xr, its, rnorm, reason, np.asarray(hist), rnorm0)
-        elif mixed and mixed[0]:
-            res = self._solve_ir(cfg, mixed, A, b.array, x0)
-        elif hasattr(self.pc._impl, "presolve"):
-            # PCPreSolve/PCPostSolve (the Eisenstat trick): iterate on the
-            # transformed operator, recover x afterwards
-            pci = self.pc._impl
-            At = operator.bind(*pci.operator_meta_data())
-            res = impl["fn"](At, B, pci.presolve(b.array), x0, self.rtol, self.abstol,
-                             self.divtol, cfg)
-            res = res._replace(x=pci.postsolve(res.x))
-        else:
-            res = impl["fn"](A, B, b.array, x0, self.rtol, self.abstol, self.divtol, cfg)
+        # on a distributed operator every inner product of the loop sums over
+        # the ranks (parallel/mesh.py reducing)
+        with reducing(self.mat.comm):
+            res = self._run(A, B, b, x0, cfg, mixed)
         if res.x.is_cuda:
             torch.cuda.synchronize(res.x.device)
         # the KSPSolve time is taken before anything is fetched after the
@@ -338,6 +327,26 @@ class KSP(PObject):
                 f"KSPSolve has not converged, reason "
                 f"{ksp_reason_string(self._reason)}")
         return x
+
+    def _run(self, A, B, b, x0, cfg, mixed):
+        """The solver loop on the bound operator and PC."""
+        impl = _IMPLS[self._type]
+        if impl["host_driven"]:
+            xr, its, rnorm, reason, hist, rnorm0 = impl["fn"](self, A, B, b.array, x0)
+            res = common.SolveResult(xr, its, rnorm, reason, np.asarray(hist), rnorm0)
+        elif mixed and mixed[0]:
+            res = self._solve_ir(cfg, mixed, A, b.array, x0)
+        elif hasattr(self.pc._impl, "presolve"):
+            # PCPreSolve/PCPostSolve (the Eisenstat trick): iterate on the
+            # transformed operator, recover x afterwards
+            pci = self.pc._impl
+            At = operator.bind(*pci.operator_meta_data())
+            res = impl["fn"](At, B, pci.presolve(b.array), x0, self.rtol, self.abstol,
+                             self.divtol, cfg)
+            res = res._replace(x=pci.postsolve(res.x))
+        else:
+            res = impl["fn"](A, B, b.array, x0, self.rtol, self.abstol, self.divtol, cfg)
+        return res
 
     def _solve_ir(self, cfg, mixed, A64, b, x0):
         """The mixed-precision refinement (ksp/ir.py): the operator and the PC

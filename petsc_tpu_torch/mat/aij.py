@@ -29,6 +29,39 @@ src/mat/impls/aij/seq/aij.c) for one device:
 Every value change bumps the object state, so a cache keyed on it (the
 PC's setup) never applies stale values.
 
+On a multi-rank comm (:mod:`..parallel.mesh`, one process per rank) every
+rank holds the global host CSR (host set-up runs the same on every rank)
+and puts only its own rows on its device, in one of the reference's two
+distributed layouts (aij.py:916-1110, :1589-1740):
+
+* ``mpiaij`` (MPIAIJHEADER, mpiaij.h:40-74): the rank's diagonal block and
+  its off-diagonal block (columns compacted to the halo, garray) as CSR on
+  S2, the halo moved by an :class:`..parallel.sf.ExchangePlan` over the
+  column layout. ``mult`` keeps MatMult_MPIAIJ's order (mpiaij.c:1052):
+  the exchange issued, the diagonal product, the wait, the off-diagonal
+  product on the halo, the two summed by K2. ``mult_t`` runs S2 on the
+  explicit local transposes and sends the halo rows' contributions back by
+  the plan's ``reduce_add``.
+* ``dnd_mpi`` (a grid declared by ``setStencilGrid`` whose slowest axis
+  divides over the ranks, with each rank's ``nzl`` planes at least the
+  stencil's reach s): the rank's coefficient planes of its slab. ``mult``
+  sends s boundary planes to each neighbour (the end ranks receive zeros,
+  as ``ppermute`` gives them), copies the slab once into a buffer with s
+  halo planes on each side (the reference concatenates, aij.py:1611) and
+  runs V1 on it; its planes carry zero coefficients on the halo rows, so
+  the slab's rows are the product and the halo rows are dropped.
+  ``mult_t`` runs V1T on the buffer with zero halos and sends the halo
+  rows back to be added by K2.
+
+``setValuesCOO`` stays on the device there too: each rank keeps the COO
+plan of its own rows' entries, sums them (K8, and the segmented sum where
+entries repeat) into its run of CSR values, and moves that run into its
+layout, mpiaij's two blocks by K8 gathers, a slab's planes by one scatter;
+the host CSR's values come back (one all-gather) only when asked for.
+
+``from_sharded`` binds a :class:`.shardcsr.ShardedCSR` (the distributed
+GAMG set-up's levels) without a global CSR; ``to_scipy`` then collapses it.
+
 A matrix with a block size above 1 (``setSizes(bs=)``, ``setBlockSize``)
 takes the block layout ``aij_bsr``: BSR (int64 block-row pointers, int32
 block columns, values (nblocks, bs, bs) row-major), product on the hand
@@ -63,7 +96,8 @@ from ..ops import operator, spmv
 from ..ops.block_kernels import bsr_spmv, bsr_transpose
 from ..ops.gather_kernels import gather
 from ..ops.grid_kernels import dnd_stencil_fn, dnd_stencil_t_fn
-from ..ops.pallas_kernels import const_stencil, csr_spmm, csr_spmv
+from ..ops.pallas_kernels import const_stencil, csr_spmm, csr_spmv, triad
+from ..parallel.layout import Layout
 from ..sys.error import Error
 from ..vec.vec import InsertMode, NormType
 from .mat import Mat
@@ -79,6 +113,14 @@ _INT32_MAX = 2 ** 31 - 1
 def _sort_key(i, j, ncols):
     """int64 key whose stable order is (row, column) order."""
     return i * np.int64(max(ncols, 1)) + j
+
+
+def _coo_positions(rows, hit, blk, dev):
+    """The position of each local row's diagonal entry in the rank's run of
+    CSR values (-1 where it has none), for the diagonal's refresh."""
+    dpos = np.full(blk, -1, dtype=np.int32)
+    dpos[rows[hit]] = np.nonzero(hit)[0]
+    return {"diag_pos": torch.as_tensor(dpos, device=dev)}
 
 
 def _row_of_entry(indptr):
@@ -272,13 +314,23 @@ class MatAIJ(Mat):
         self._vals = np.zeros(len(self._indices))
         dev = config.device()
         perm = order if kept is None else kept[order]
+        # CSR slot of each sorted entry; only needed where entries repeat
+        slot = None if new.all() else np.cumsum(new) - 1
+        nnz = len(self._indices)
+        if self.comm.nshards > 1:
+            # a rank keeps the plan of its own rows' entries (a run of the
+            # sorted order), their slots counted from its first
+            lo, hi = self.row_layout.range(self.comm.rank)
+            p0, p1 = int(self._indptr[lo]), int(self._indptr[hi])
+            q0, q1 = (p0, p1) if slot is None else np.searchsorted(slot, [p0, p1])
+            perm, nnz = perm[q0:q1], p1 - p0
+            slot = None if slot is None else slot[q0:q1] - p0
         self._coo_plan = {
             "perm": torch.as_tensor(perm.astype(np.int32), device=dev),
-            # CSR slot of each sorted entry; only needed where entries repeat
-            "seg": None if new.all() else
-            torch.as_tensor(np.cumsum(new) - 1, dtype=torch.int64, device=dev),
+            "seg": None if slot is None else torch.as_tensor(slot, dtype=torch.int64,
+                                                             device=dev),
             "n_user": n_user,
-            "nnz": len(self._indices),
+            "nnz": nnz,
             "src": (i_user, j_user),
         }
         self._refresh_device()
@@ -287,7 +339,9 @@ class MatAIJ(Mat):
         return self
 
     def setValuesCOO(self, values):
-        """Numeric phase, on the device: csr_vals = segment sum of v[perm]."""
+        """Numeric phase, on the device: csr_vals = segment sum of v[perm].
+        On a multi-rank comm every rank takes all the values and sums its
+        own rows' into its blocks (``_update_device_values``)."""
         plan = self._coo_plan
         if plan is None:
             raise Error("call setPreallocationCOO first (a later assembly that "
@@ -311,12 +365,18 @@ class MatAIJ(Mat):
     # ================= host CSR access =================
 
     def getValuesCSR(self):
+        if self._indptr is None and getattr(self, "_sharded_src", None) is not None:
+            A = self.to_scipy()
+            return A.indptr.astype(np.int64), A.indices.astype(np.int64), A.data.copy()
         self._sync_host_vals()
         return self._indptr.copy(), self._indices.copy(), self._vals.copy()
 
     def _sync_host_vals(self):
         if self._vals is None:
             dev = self._dev
+            if self.comm.nshards > 1:
+                self._vals = self._gather_rank_vals()
+                return
             # a grid layout keeps its values in the planes only, a block
             # layout in its blocks
             if "bvals" in dev:
@@ -327,8 +387,32 @@ class MatAIJ(Mat):
                 dev["coef"].reshape(-1)[dev["dnd_scatter"]]
             self._vals = vals.cpu().numpy().astype(np.float64)
 
+    def _gather_rank_vals(self):
+        """The global CSR values from every rank's device blocks, after a
+        setValuesCOO on a multi-rank comm: each rank's run of them read
+        back through its COO positions, then one all-gather (a collective,
+        which every rank makes)."""
+        dev, rl, P = self._dev, self.row_layout, self.comm.nshards
+        if self._meta[0] == "mpiaij":
+            d, o = dev["d"]["vals"], dev["o"]["vals"]
+            lv = torch.empty(d.numel() + o.numel(), dtype=d.dtype, device=d.device)
+            lv[dev["d_src"].long()] = d
+            lv[dev["o_src"].long()] = o
+        else:
+            lv = dev["coef"].reshape(-1)[dev["dnd_scatter"]]
+        counts = np.diff([int(self._indptr[rl.range(s)[0]]) for s in range(P)]
+                         + [int(self._indptr[-1])])
+        width = max(int(counts.max()), 1)
+        buf = torch.zeros(width, dtype=lv.dtype, device=lv.device)
+        buf[: lv.numel()] = lv
+        every = self.comm.allgather(buf).cpu().numpy().reshape(P, width)
+        return np.concatenate([every[s, : counts[s]] for s in range(P)]).astype(np.float64)
+
     def to_scipy(self):
         import scipy.sparse as sp
+        src = getattr(self, "_sharded_src", None)
+        if src is not None and self._indptr is None:
+            return src.to_global_csr()[:, : self.col_layout.N].tocsr()
         self._sync_host_vals()
         return sp.csr_matrix((self._vals, self._indices, self._indptr), shape=self.getSize())
 
@@ -352,7 +436,10 @@ class MatAIJ(Mat):
         return M.assemble()
 
     def nnz(self):
-        return int(self._indptr[-1]) if self._indptr is not None else 0
+        if self._indptr is not None:
+            return int(self._indptr[-1])
+        src = getattr(self, "_sharded_src", None)
+        return src.nnz() if src is not None else 0
 
     def getRow(self, row):
         self._sync_host_vals()
@@ -445,6 +532,9 @@ class MatAIJ(Mat):
             self._build_device()
 
     def _build_device(self):
+        if self.comm.nshards > 1:
+            self._build_device_mpi()
+            return
         m, n = self.getSize()
         kind = self._choose_kind()
         indptr, indices = self._indptr, self._indices
@@ -547,6 +637,10 @@ class MatAIJ(Mat):
             for key in ("vals", "coef", "bvals", "diag"):
                 if key in self._dev:
                     self._dev[key] = torch.zeros_like(self._dev[key])
+            for key in ("d", "o"):          # the mpiaij blocks
+                if key in self._dev:
+                    self._dev[key]["vals"] = torch.zeros_like(self._dev[key]["vals"])
+                    self._dev[key].pop("csr_t_vals", None)
             for key in ("csr_t_vals", "dnd_t", "bsr_t"):
                 self._dev.pop(key, None)
 
@@ -554,14 +648,23 @@ class MatAIJ(Mat):
         """New CSR values for the same pattern, staying on the device (a
         grid layout scatters them into its planes, a block layout into its
         blocks; each entry has a slot of its own, so the writes do not
-        collide)."""
+        collide). On a multi-rank comm `csr_vals` are the rank's run of
+        them: an mpiaij layout takes its two blocks' values by K8 gathers,
+        a slab its planes (halo planes left zero)."""
+        if self._meta[0] == "mpiaij":
+            for key in ("d", "o"):
+                blk = self._dev[key]
+                blk["vals"] = gather(csr_vals, self._dev[key + "_src"], check=False)
+                blk.pop("csr_t_vals", None)       # the transpose's values are stale
+            self._refresh_diag(csr_vals)
+            return
         if self._meta[0] == "aij_bsr":
             flat = torch.zeros(self._dev["bvals"].numel(), dtype=csr_vals.dtype,
                                device=csr_vals.device)
             flat[torch.as_tensor(self._bsr_scatter, device=csr_vals.device)] = csr_vals
             self._set_block_values(flat)
             return
-        if self._meta[0] == "aij_dnd":
+        if self._meta[0] in ("aij_dnd", "dnd_mpi"):
             coef = self._dev["coef"]
             flat = torch.zeros(coef.numel(), dtype=csr_vals.dtype, device=csr_vals.device)
             flat[self._dev["dnd_scatter"]] = csr_vals
@@ -582,6 +685,151 @@ class MatAIJ(Mat):
         if self._dev is None and self.host_only and self._indptr is not None:
             self._build_device()
         return self._dev
+
+    # ================= distributed build (one process per rank) =================
+
+    def shardcsr(self):
+        """The per-rank row-block representation for distributed set-up
+        (ShardedCSR, aij.py:267-294); columns stay in the global padded
+        space."""
+        import scipy.sparse as sp
+        from .shardcsr import ShardedCSR
+        src = getattr(self, "_sharded_src", None)
+        if src is not None:
+            return src
+        self._sync_host_vals()
+        rl, cl = self.row_layout, self.col_layout
+        blocks = []
+        for s in range(rl.nshards):
+            lo, hi = rl.range(s)
+            p0, p1 = self._indptr[lo], self._indptr[hi]
+            ip = (self._indptr[lo:hi + 1] - p0).astype(np.int64)
+            if hi - lo < rl.block:
+                ip = np.concatenate([ip, np.full(rl.block - (hi - lo), ip[-1], dtype=np.int64)])
+            blocks.append(sp.csr_matrix((self._vals[p0:p1], self._indices[p0:p1], ip),
+                                        shape=(rl.block, cl.Npad)))
+        return ShardedCSR(blocks, Layout(rl.N, nshards=rl.nshards),
+                          Layout(cl.N, nshards=cl.nshards))
+
+    def _build_device_mpi(self):
+        """The rank's rows in the dnd_mpi slab layout where the grid allows
+        it, else in the mpiaij layout (aij.py:916-933)."""
+        self._sync_host_vals()
+        if self._build_device_dnd_mpi():
+            return
+        rl = self.row_layout
+        indptr, indices, vals = self._indptr, self._indices, self._vals
+        per_shard = []
+        for s in range(rl.nshards):
+            lo, hi = rl.range(s)
+            p0, p1 = indptr[lo], indptr[hi]
+            rows = np.repeat(np.arange(hi - lo), np.diff(indptr[lo:hi + 1]))
+            per_shard.append((rows, indices[p0:p1], vals[p0:p1]))
+        self._finish_build_mpi(per_shard, coo_positions=self._coo_plan is not None)
+
+    def _finish_build_mpi(self, per_shard_coo, coo_positions=False):
+        """The mpiaij layout from every rank's (local rows, global columns,
+        values) triples (aij.py:990-1095): each rank's garray (its distinct
+        off-diagonal columns) makes the plan's leaves, and this rank's two
+        blocks go to its device as CSR. With `coo_positions` (triples in
+        the order of a canonical CSR, as a COO pattern gives them) each
+        block entry's position in the rank's run of CSR values is kept too,
+        for setValuesCOO: a block keeps the run's order, so its positions
+        are those of the entries it takes."""
+        import scipy.sparse as sp
+        from ..parallel.sf import ExchangePlan
+        comm, rl, cl = self.comm, self.row_layout, self.col_layout
+        r, blk, cb = comm.rank, rl.block, cl.block
+        garrays = [np.unique(c[(c // cb) != s]) for s, (_, c, _) in enumerate(per_shard_coo)]
+        plan = ExchangePlan(cl, garrays, axis=comm.axis, comm=comm)
+        rows, cols, v = per_shard_coo[r]
+        dg = (cols // cb) == r
+        ga = garrays[r]
+        dev, rd = config.device(), config.real_dtype()
+
+        def block(sel, c, ncols):
+            A = sp.csr_matrix((v[sel], (rows[sel], c)), shape=(blk, ncols))
+            A.sum_duplicates()
+            return {"indptr": torch.as_tensor(A.indptr.astype(np.int64), device=dev),
+                    "col": torch.as_tensor(A.indices.astype(np.int32), device=dev),
+                    "vals": torch.as_tensor(A.data, dtype=rd, device=dev)}, A.nnz
+
+        d, dnnz = block(dg, cols[dg] - r * cb, cb)
+        o, onnz = block(~dg, np.searchsorted(ga, cols[~dg]), plan.H)
+        hit = dg & (cols - r * cb == rows)
+        diag = np.bincount(rows[hit], weights=v[hit], minlength=blk)
+        self._dev = {"d": d, "o": o, "sf": plan,
+                     "diag": torch.as_tensor(diag, dtype=rd, device=dev)}
+        if coo_positions:
+            if dnnz + onnz != len(cols):
+                raise Error("MatAIJ: a COO pattern's CSR repeats an entry")
+            self._dev.update(_coo_positions(rows, hit, blk, dev),
+                             d_src=torch.as_tensor(np.nonzero(dg)[0].astype(np.int32), device=dev),
+                             o_src=torch.as_tensor(np.nonzero(~dg)[0].astype(np.int32),
+                                                   device=dev))
+        self._meta = ("mpiaij", comm.nshards, blk, cb, plan.H, plan.meta(), onnz > 0)
+
+    def _build_device_dnd_mpi(self):
+        """The slab layout (aij.py:935-976), or False where it does not
+        apply: the grid's slowest axis divides over the ranks, each rank
+        keeps at least the stencil's reach s in planes, and the layout has
+        no padding. The rank's planes carry s zero halo rows on each side."""
+        out = self._grid_offsets()
+        if out is None:
+            return False
+        uniq, inv, _ = out
+        shape = self._grid_shape
+        P, r = self.comm.nshards, self.comm.rank
+        if shape[0] % P:
+            return False
+        nzl = shape[0] // P
+        s = int(np.abs(uniq[:, 0]).max())
+        if s > nzl or self.row_layout.pad != 0:
+            return False
+        K = len(uniq)
+        tail = tuple(shape[1:])
+        blk = self.row_layout.block
+        p0, p1 = self._indptr[r * blk], self._indptr[(r + 1) * blk]
+        rows = _row_of_entry(self._indptr[r * blk:(r + 1) * blk + 1]).astype(np.int64)
+        coef = np.zeros((K, nzl + 2 * s) + tail)
+        idx = np.unravel_index(rows, (nzl,) + tail)
+        coef[(inv[p0:p1], idx[0] + s) + idx[1:]] = self._vals[p0:p1]
+        cols = self._indices[p0:p1]
+        hit = cols == rows + r * blk
+        diag = np.bincount(rows[hit], weights=self._vals[p0:p1][hit], minlength=blk)
+        dev, rd = config.device(), config.real_dtype()
+        self._dev = {"coef": torch.as_tensor(coef, dtype=rd, device=dev),
+                     "diag": torch.as_tensor(diag, dtype=rd, device=dev),
+                     "comm": self.comm}
+        if self._coo_plan is not None:
+            # each of the rank's CSR entries' place in its planes, for setValuesCOO
+            ext = (nzl + 2 * s,) + tail
+            flat = np.ravel_multi_index((idx[0] + s,) + idx[1:], ext)
+            self._dev.update(_coo_positions(rows, hit, blk, dev),
+                             dnd_scatter=torch.as_tensor(inv[p0:p1] * int(np.prod(ext)) + flat,
+                                                         device=dev))
+        self._meta = ("dnd_mpi", P, nzl, tuple(shape),
+                      tuple(tuple(int(c) for c in o) for o in uniq), s)
+        return True
+
+    @classmethod
+    def from_sharded(cls, S, comm):
+        """Bind a ShardedCSR (the distributed set-up's per-rank blocks) as a
+        distributed MatAIJ without forming a global CSR (aij.py:1097-1117)."""
+        M = cls(comm)
+        rl, cl = S.row_layout, S.col_layout
+        M.row_layout = Layout(rl.N, rl.nshards, axis=comm.axis)
+        M.col_layout = Layout(cl.N, cl.nshards, axis=comm.axis)
+        if M.row_layout.block != rl.block or M.col_layout.block != cl.block:
+            raise Error(f"from_sharded: layouts {rl}, {cl} do not split as the comm's")
+        per_shard = []
+        for b in S.blocks:
+            rows = np.repeat(np.arange(b.shape[0]), np.diff(b.indptr))
+            per_shard.append((rows, b.indices.astype(np.int64), b.data))
+        M._finish_build_mpi(per_shard)
+        M._sharded_src = S
+        M._assembled = True
+        return M
 
     # ================= algebra on the host CSR =================
 
@@ -816,6 +1064,109 @@ def _bind_aij_bsr(meta, data):
                        diag=lambda: data["diag"])
 
 
+def _bind_mpiaij(meta, data):
+    """MatMult_MPIAIJ's order (mpiaij.c:1052-1065): the halo exchange
+    issued, the diagonal block's product (S2), the wait, the off-diagonal
+    block's product on the halo (S2), the sum (K2); mult_t: S2 on the two
+    local transposes, the halo rows' contributions sent back to their
+    owners by reduce_add (X1), the sum (K2)."""
+    _, P, blk, cb, H, sf_meta, has_off = meta
+    d, o, plan = data["d"], data["o"], data["sf"]
+
+    def mult(x):
+        h = plan.begin(x)
+        y = csr_spmv(d["indptr"], d["col"], d["vals"], x)
+        halo = plan.finish(h)
+        if not has_off:
+            return y
+        one = torch.ones((), dtype=y.dtype, device=y.device)
+        return triad(y, csr_spmv(o["indptr"], o["col"], o["vals"], halo), one, out=y)
+
+    def mult_t(x):
+        yd = csr_spmv(*csr_transpose_of(d, cb), x)
+        contrib = csr_spmv(*csr_transpose_of(o, H), x) if has_off else \
+            torch.zeros(H, dtype=x.dtype, device=x.device)
+        back = plan.reduce_add(contrib)
+        one = torch.ones((), dtype=yd.dtype, device=yd.device)
+        return triad(yd, back, one, out=yd)
+
+    return operator.Op(mult=mult, mult_t=mult_t, diag=lambda: data["diag"])
+
+
+def _plane_exchange(comm, low, high):
+    """Send `low` (this rank's first planes) to the previous rank and `high`
+    (its last planes) to the next; returns a handle whose wait() gives
+    (from the previous rank, from the next), zeros at the ends."""
+    P, r = comm.nshards, comm.rank
+    n = low.numel()
+    scnt = [0] * P
+    parts = []
+    if r > 0:
+        scnt[r - 1] = n
+        parts.append(low.reshape(-1))
+    if r < P - 1:
+        scnt[r + 1] = n
+        parts.append(high.reshape(-1))
+    send = torch.cat(parts) if parts else low.reshape(-1)[:0]
+    h = comm.alltoallv_start(send, scnt, scnt)
+
+    def wait():
+        recv = h.wait()
+        z = torch.zeros(n, dtype=low.dtype, device=low.device)
+        prev = recv[:n] if r > 0 else z
+        nxt = recv[n * (r > 0):] if r < P - 1 else z
+        return prev, nxt
+
+    return wait
+
+
+def _bind_dnd_mpi(meta, data):
+    """The slab stencil (aij.py:1589-1672) on V1 and V1T over the slab's
+    buffer with s halo planes a side."""
+    _, P, nzl, shape, offs, s = meta
+    comm, coef = data["comm"], data["coef"]
+    tail = tuple(shape[1:])
+    plane = int(np.prod(tail)) if tail else 1
+    ext = (nzl + 2 * s,) + tail
+    consts = (None,) * len(offs)
+    v1 = dnd_stencil_fn(ext, offs, consts, coef)
+    lo, hi = s * plane, (s + nzl) * plane
+
+    def mult(x):
+        buf = torch.empty(ext[0] * plane, dtype=x.dtype, device=x.device)
+        if s:
+            wait = _plane_exchange(comm, x[:lo], x[-lo:])
+        buf[lo:hi] = x
+        if s:
+            prev, nxt = wait()
+            buf[:lo] = prev
+            buf[hi:] = nxt
+        return v1(buf)[lo:hi]
+
+    def mult_t(x):
+        v1t = data.get("dnd_t")
+        if v1t is None:
+            v1t = data["dnd_t"] = dnd_stencil_t_fn(ext, offs, consts, coef)
+        buf = torch.zeros(ext[0] * plane, dtype=x.dtype, device=x.device)
+        buf[lo:hi] = x
+        y = v1t(buf)
+        core = y[lo:hi].clone()
+        if s:
+            prev, nxt = _plane_exchange(comm, y[:lo].contiguous(), y[hi:].contiguous())()
+            one = torch.ones((), dtype=x.dtype, device=x.device)
+            # the reference adds the next rank's low rows first, then the
+            # previous rank's high rows (aij.py:1661-1662)
+            top = core[nzl * plane - lo:]
+            triad(top, nxt, one, out=top)
+            bot = core[:lo]
+            triad(bot, prev, one, out=bot)
+        return core
+
+    return operator.Op(mult=mult, mult_t=mult_t, diag=lambda: data["diag"])
+
+
 operator.register_binder("aij_csr", _bind_aij_csr)
+operator.register_binder("mpiaij", _bind_mpiaij)
+operator.register_binder("dnd_mpi", _bind_dnd_mpi)
 operator.register_binder("aij_bsr", _bind_aij_bsr)
 operator.register_binder("aij_dnd", _bind_aij_dnd)

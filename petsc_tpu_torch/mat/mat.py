@@ -120,16 +120,18 @@ class Mat(PObject):
 
     def setSizes(self, size, bs: int = 1):
         m, n = size if isinstance(size, tuple) else (size, size)
-        self.row_layout = Layout(int(m), bs=bs, axis=self.comm.axis)
-        self.col_layout = Layout(int(n), bs=bs, axis=self.comm.axis)
+        P = self.comm.nshards
+        self.row_layout = Layout(int(m), P, bs=bs, axis=self.comm.axis)
+        self.col_layout = Layout(int(n), P, bs=bs, axis=self.comm.axis)
         return self
 
     def setBlockSize(self, bs: int):
         """MatSetBlockSize (mat.py:126-134): the dof blocking of rows and
         columns; an assembled matrix re-lays its device copy for it (a
         MatAIJ with bs > 1 takes the block layout)."""
-        self.row_layout = Layout(self.row_layout.N, bs=int(bs), axis=self.comm.axis)
-        self.col_layout = Layout(self.col_layout.N, bs=int(bs), axis=self.comm.axis)
+        P = self.comm.nshards
+        self.row_layout = Layout(self.row_layout.N, P, bs=int(bs), axis=self.comm.axis)
+        self.col_layout = Layout(self.col_layout.N, P, bs=int(bs), axis=self.comm.axis)
         self._relayout()
         return self
 
@@ -150,7 +152,7 @@ class Mat(PObject):
         return (self.row_layout.block, self.col_layout.block)
 
     def getOwnershipRange(self):
-        return (0, self.row_layout.N)
+        return self.row_layout.range(self.comm.rank)
 
     @property
     def shape(self):

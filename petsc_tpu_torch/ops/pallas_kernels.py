@@ -28,6 +28,10 @@ the kernel reads on the card; and adds one to ``LAUNCHES[name]`` for each
 launch. For a tensor on the CPU it runs the plain PyTorch version beside
 it (the CPU tests run that path); for a CUDA tensor it launches the
 kernel or raises. There is no fallback from the kernel to the plain version.
+
+Inside a distributed solve (``parallel.mesh.reducing``), dot2's and
+axpy_normsq's sums are this rank's partials: the wrappers all-reduce them
+over the ranks after the kernel (one collective each, outside the kernel).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import active_comm
 from ..sys.error import Error
 from . import cuda_build, spmv
 
@@ -166,7 +171,16 @@ def axpy_normsq_plain(alpha, x, y, out=None):
 
 def axpy_normsq(alpha, x, y, out=None):
     """(y + alpha x, ||y + alpha x||^2) in one pass; the norm is a 0-d
-    tensor. `out` may be y (y is then updated in place)."""
+    tensor, summed over the ranks of a distributed solve. `out` may be y
+    (y is then updated in place)."""
+    v, nsq = _axpy_normsq_local(alpha, x, y, out)
+    comm = active_comm()
+    if comm is not None:
+        comm.allreduce_(nsq)
+    return v, nsq
+
+
+def _axpy_normsq_local(alpha, x, y, out=None):
     _check_vectors("axpy_normsq", x, y, *(() if out is None else (out,)))
     _check_scalar("axpy_normsq", alpha, x)
     if x.device.type == "cpu":
@@ -190,7 +204,17 @@ def dot2_plain(x, y):
 
 
 def dot2(x, y):
-    """(<x, y>, <y, y>) in one pass, as two 0-d tensors."""
+    """(<x, y>, <y, y>) in one pass, as two 0-d tensors, summed over the
+    ranks of a distributed solve (one all-reduce of both)."""
+    d, n2 = _dot2_local(x, y)
+    comm = active_comm()
+    if comm is None:
+        return d, n2
+    res = comm.allreduce_(torch.stack([d, n2]))
+    return res[0], res[1]
+
+
+def _dot2_local(x, y):
     _check_vectors("dot2", x, y)
     if x.device.type == "cpu":
         return dot2_plain(x, y)

@@ -22,7 +22,11 @@ on one device:
   jacobi; with ``-sub_ksp_type`` and another sub-PC, an inner KSP (prefix
   ``sub_``) on the block-diagonal matrix, its max_it above 1000 cut to 50.
   As in the reference, ilu, icc, lu and cholesky take precedence over
-  ``-sub_ksp_type`` (ROADMAP section 3). The distributed bjacobi is item 12.
+  ``-sub_ksp_type`` (ROADMAP section 3). On a multi-rank operator with one
+  block a rank and sub-PC ilu or icc, the distributed bjacobi
+  (factor_pc.py:196-275): each rank factors the diagonal block of its own
+  rows (ILU(0), identity on the layout's padding rows) and sweeps it with
+  T1 on its block.
 """
 
 from __future__ import annotations
@@ -128,6 +132,10 @@ class _PCBJacobi:
 
     def setup(self):
         A = self.pc.pmat
+        nsh = A.comm.nshards
+        if (nsh > 1 and self.nblocks in (None, nsh) and self.sub_type in ("ilu", "icc")
+                and not self.sub_ksp_type and hasattr(A, "shardcsr")):
+            return self._setup_dist(A)
         m = A.row_layout.N
         nb = self.nblocks or 1
         # contiguous near-equal blocks (PetscLayout's split)
@@ -159,6 +167,26 @@ class _PCBJacobi:
             return ("pc_jacobi",), {"inv": torch.as_tensor(inv, dtype=config.real_dtype(),
                                                            device=config.device())}
         raise Error(f"bjacobi: unsupported sub_pc_type {self.sub_type}")
+
+    def _setup_dist(self, A):
+        """One block a rank, factored from the rank's own diagonal block of
+        the ShardedCSR (no gather; bjacobi.c's per-rank data path); the
+        sweeps run on the rank's block."""
+        import scipy.sparse as sp
+        S = A.shardcsr()
+        rl = S.row_layout
+        r, blk = A.comm.rank, rl.block
+        lo = r * blk
+        sub = S.blocks[r][:, lo:lo + blk].tocsr()
+        nvalid = rl.local_size(r)
+        if nvalid < blk:          # identity on the layout's padding rows
+            padd = np.zeros(blk)
+            padd[nvalid:] = 1.0
+            sub = (sub + sp.diags(padd)).tocsr()
+        L, U, dinv = factor.ilu0(sub.indptr.astype(np.int64), sub.indices.astype(np.int64),
+                                 sub.data)
+        tail, data = trisolve.make_trisolve_plan(L, U, dinv)
+        return _with_perm(tail, data, None, blk)
 
     def _sub_ksp(self, bi, bj, bv, m):
         """The inner KSP (prefix ``sub_``) on the block-diagonal matrix."""

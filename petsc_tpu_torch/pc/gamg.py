@@ -40,8 +40,21 @@ classical strength, MIS coarse points, direct or standard interpolation by
 ``-pc_gamg_classical_type``, ``-pc_gamg_classical_nsmooths`` Jacobi
 smoothings) and ``geo`` (linearly exact interpolation from
 PCSetCoordinates) build their levels on the host (:mod:`.gamg_classical`),
-as the reference does; the cycle is the same. Sharded operators are
-refused (ROADMAP item 12).
+as the reference does; the cycle is the same.
+
+On a multi-rank operator (:mod:`..parallel.mesh`, one process per rank;
+host set-up the same on every rank) the hierarchy keeps its first levels
+sharded (gamg.py:405-575): a ``dnd_mpi`` grid stencil takes the sharded
+structured head (``_structured_head_mpi``: probed ``dnd_mpi`` levels with
+the slab Q1 transfer while the slab contract holds), an ``mpiaij``
+operator the distributed aggregation (``_dist_levels``, :mod:`.gamg_dist`
+on per-rank blocks, its levels bound by ``MatAIJ.from_sharded``). Once the
+problem is small, it is collapsed once to a replicated host CSR that every
+rank holds (the telescope pattern, gamg.c:155-201), and the serial
+aggregation continues on it; the last sharded level's interpolation
+becomes a :class:`MatRowBlockP` (the rank's rows of P; its transpose sums
+the ranks' partials), the cycle's one step between sharded and replicated
+vectors.
 """
 
 from __future__ import annotations
@@ -52,14 +65,16 @@ import numpy as np
 import torch
 
 from .. import config, native
-from ..dm.interp import MatInterpQ1
+from ..dm.interp import MatInterpQ1, MatInterpQ1MPI
 from ..mat.aij import MatAIJ
 from ..ops import stencil_build
 from . import gamg_device as gd
+from ..ops import operator
+from ..ops.pallas_kernels import csr_spmv
+from ..parallel.mesh import comm_self
+from ..sys.error import Error
 from .mg import MGLevelSpec, _PCMG, _host_emax, _timed
 from .pc import PC
-
-_ITEM_12 = "distribution (ROADMAP queue 1 item 12)"
 
 
 # ---------------------------------------------------------------------
@@ -254,6 +269,51 @@ class MatSmoothedProl:
 
     def transpose(self):
         return MatAIJ.from_scipy(self._P_scipy.T.tocsr(), comm=self.comm)
+
+
+class MatRowBlockP:
+    """The interpolation from a replicated coarse level onto a sharded fine
+    level: each rank holds its rows of the host P (padded to its block) on
+    S2. mult takes the replicated coarse vector and gives the rank's fine
+    block; mult_t gives the rank's partial of P^T r (S2 on the explicit
+    local transpose) summed over the ranks, the replicated coarse vector
+    (the reference's GSPMD reshard at the telescope boundary)."""
+
+    def __init__(self, P_scipy, row_layout, comm):
+        import scipy.sparse as sp
+        self.comm = comm
+        self._P_scipy = P_scipy.tocsr()
+        lo, hi = row_layout.range(comm.rank)
+        Pl = self._P_scipy[lo:hi]
+        if hi - lo < row_layout.block:
+            Pl = sp.vstack([Pl, sp.csr_matrix((row_layout.block - (hi - lo), Pl.shape[1]))])
+        self._local = MatAIJ.from_scipy(Pl.tocsr())
+        self._local_t = MatAIJ.from_scipy(native.csr_transpose(Pl.tocsr()))
+
+    @property
+    def meta(self):
+        return ("p_row_block", self._local.meta, self._local_t.meta)
+
+    def device_data(self):
+        return {"P": self._local.device_data(), "R": self._local_t.device_data(),
+                "comm": self.comm}
+
+    def getSize(self):
+        return self._P_scipy.shape
+
+    def to_scipy(self):
+        return self._P_scipy
+
+
+def _bind_p_row_block(meta, data):
+    _, pm, rm = meta
+    P, R, comm = data["P"], data["R"], data["comm"]
+    return operator.Op(
+        mult=lambda xc: csr_spmv(P["indptr"], P["col"], P["vals"], xc),
+        mult_t=lambda r: comm.allreduce_(csr_spmv(R["indptr"], R["col"], R["vals"], r)))
+
+
+operator.register_binder("p_row_block", _bind_p_row_block)
 
 
 def _inv_diag_host(A_sp):
@@ -479,15 +539,14 @@ class _PCGAMG(_PCMG):
         """The reference's hierarchy (gamg.py:597-787): the device
         structured head on a grid stencil, else the host head on a MatAIJ
         that declares a grid, then the serial aggregation loop on the host
-        CSR of what is left. Host seconds are logged as the events
-        PCGAMGSetUp_head and _tail_download (the device head),
-        PCGAMGSetUp_download (the fine values from the card), _native (the
-        build of graphops.cpp, where this is its first use), _graph,
+        CSR of what is left; on a multi-rank operator the sharded head or
+        the distributed aggregation first (_build_dist). Host seconds are
+        logged as the events PCGAMGSetUp_head and _tail_download (the device
+        head), PCGAMGSetUp_download (the fine values from the card), _native
+        (the build of graphops.cpp, where this is its first use), _graph,
         _coarsen, _prol0, _emax, _smooth_prol and _SpGEMM (the Galerkin
         products)."""
         A = self.pc.pmat
-        if A.comm.nshards > 1:
-            raise NotImplementedError(f"GAMG on a sharded operator comes with {_ITEM_12}")
         Bn = self._near_nullspace(A)
         bs = A.row_layout.bs or 1
         _timed("PCGAMGSetUp_native", native.lib)
@@ -497,9 +556,12 @@ class _PCGAMG(_PCMG):
             else A
         levels = [MGLevelSpec(Afine)]
         level = 0
-        fm = Afine.meta
         # the structured head is scalar: bs 1 and one near-null vector
         scalar = bs == 1 and Bn.shape[1] == 1 and self.gamg_type == "agg"
+        if A.comm.nshards > 1:
+            self.levels = self._build_dist(A, Afine, levels, scalar)
+            return
+        fm = Afine.meta
         if (scalar and self.structured and self.structured_device
                 and gd.supports_device_rap(fm) and int(np.prod(fm[1])) == A.getSize()[0]):
             # the device head first: the fine operator never comes to the host
@@ -509,9 +571,6 @@ class _PCGAMG(_PCMG):
             if sync is not None:
                 # values that setValuesCOO left on the card come to the host once
                 _timed("PCGAMGSetUp_download", sync)
-            from ..sys.info import warn_full_gather
-            warn_full_gather(A, "PCGAMG(serial setup on sharded operator: "
-                                "bs>1/nullspace/non-MIS)")
             cur = A.to_scipy()
             shape = getattr(A, "_grid_shape", None) or getattr(Afine, "_grid_shape", None)
             if (scalar and self.structured and shape is not None and len(shape) >= 2
@@ -519,6 +578,12 @@ class _PCGAMG(_PCMG):
                 cur, level = self._structured_head(cur, shape, levels, level)
         if level > 0:
             Bn = np.ones((cur.shape[0], 1))
+        self._aggregate(cur, Bn, bs, level, levels, A.comm)
+        self.levels = levels
+
+    def _aggregate(self, cur, Bn, bs, level, levels, comm):
+        """The serial aggregation loop on the host CSR `cur` from `level` on
+        (gamg.py:704-787), each new level's P and A on `comm`."""
         cur_bs = bs
         while cur.shape[0] > self.coarse_eq_limit and level < self.max_levels - 1:
             if self.gamg_type in ("classical", "geo"):
@@ -549,15 +614,116 @@ class _PCGAMG(_PCMG):
                 w = np.zeros(nf)
                 w[np.repeat(np.arange(nf), np.diff(P0.indptr))] = P0.data
                 omega = (1.4 / emax) if self.nsmooths == 1 else 0.0
-                levels[-1].P = MatSmoothedProl(levels[-1].A, agg, w, dinv, omega, P, A.comm)
+                levels[-1].P = MatSmoothedProl(levels[-1].A, agg, w, dinv, omega, P, comm)
             else:
-                levels[-1].P = MatAIJ.from_scipy(P, comm=A.comm)
-            levels.append(MGLevelSpec(MatAIJ.from_scipy(Ac, comm=A.comm)))
+                levels[-1].P = MatAIJ.from_scipy(P, comm=comm)
+            levels.append(MGLevelSpec(MatAIJ.from_scipy(Ac, comm=comm)))
             cur, Bn = Ac, Bc
             # the coarse problem has nvec dofs per aggregate (its operator stays bs 1)
             cur_bs = Bc.shape[1]
             level += 1
-        self.levels = levels
+
+    # ---------------- the sharded first levels ----------------
+
+    def _build_dist(self, A, Afine, levels, scalar):
+        """The hierarchy of a multi-rank operator (gamg.py:611-633): the
+        sharded structured head on a dnd_mpi stencil, else the distributed
+        aggregation on an mpiaij operator; then the serial aggregation on
+        the replicated tail, and the telescope step at the last sharded
+        level."""
+        from ..sys.info import warn_full_gather
+        if (scalar and self.structured
+                and gd.supports_device_rap(Afine.meta, kinds=("dnd_mpi",))):
+            cur, level = self._structured_head_mpi(Afine, levels)
+            Bn = np.ones((cur.shape[0], 1))
+        elif scalar and self.coarsen_type == "mis":
+            cur, Bn, level = self._dist_levels(A, levels)
+        else:
+            warn_full_gather(A, "PCGAMG(serial setup on sharded operator: "
+                                "bs>1/nullspace/non-MIS)")
+            raise Error("PCGAMG on a sharded operator takes a scalar operator (bs 1, one "
+                        "near-null vector), smoothed aggregation and MIS coarsening; "
+                        f"this one has bs {A.row_layout.bs}, type {self.gamg_type}, "
+                        f"coarsening {self.coarsen_type}")
+        self._aggregate(cur, Bn, 1, level, levels, comm_self())
+        # the telescope step: the P onto the last sharded level from the
+        # first replicated one
+        k = max(i for i, lev in enumerate(levels) if lev.A.comm.size > 1)
+        if k < len(levels) - 1:
+            levels[k].P = MatRowBlockP(levels[k].P.to_scipy(), levels[k].A.row_layout, A.comm)
+        return levels
+
+    def _dist_levels(self, A, levels):
+        """Distributed aggregation (gamg.py:405-440): every phase on per-rank
+        row blocks (gamg_dist), each level bound by from_sharded, until the
+        problem is small; then one collapse to the replicated tail, whose
+        gap rows (the padded coarse numbering's) become identity rows.
+        Returns (tail CSR, tail near-nullspace, level reached)."""
+        import scipy.sparse as sp
+        from .gamg_dist import build_level
+        S = A.shardcsr()
+        bvec = S.row_layout.valid_mask_np.astype(np.float64)
+        Bn = getattr(A, "near_nullspace", None)
+        if Bn is not None:
+            v = self._near_nullspace(A)
+            bvec = np.zeros(S.row_layout.Npad)
+            bvec[:A.row_layout.N] = v.reshape(-1)[:A.row_layout.N]
+        collapse = max(self.coarse_eq_limit,
+                       self.pc.opt("get_int", "pc_gamg_dist_coarse_limit", None) or 2000)
+        nreal = A.row_layout.N
+        cur, level = S, 0
+        while nreal > collapse and level < self.max_levels - 1:
+            aggressive = level < self.aggressive_levels
+            P, Ac, Bc, emax, nagg = _timed("PCGAMGSetUp_dist_level", build_level, cur, bvec,
+                                           self._threshold(level), aggressive, self.nsmooths)
+            if nagg == 0 or nagg >= nreal:
+                break
+            levels[-1].emin, levels[-1].emax = self.eig_bounds(emax)
+            levels[-1].P = MatAIJ.from_sharded(P, A.comm)
+            levels.append(MGLevelSpec(MatAIJ.from_sharded(Ac, A.comm)))
+            cur, bvec, nreal = Ac, Bc, nagg
+            level += 1
+        Ag = cur.to_global_csr().tocsr()
+        n = Ag.shape[0]
+        if Ag.shape[1] != n:
+            Ag = sp.csr_matrix(Ag[:, :n])
+        gaps = np.diff(Ag.indptr) == 0
+        if gaps.any():
+            Ag = (Ag + sp.diags(gaps.astype(np.float64))).tocsr()
+        if level > 0:
+            levels[-1].A = MatAIJ.from_scipy(Ag, comm=comm_self())
+        return Ag, bvec.reshape(-1, 1), level
+
+    def _structured_head_mpi(self, Afine, levels):
+        """The sharded geometric first levels (gamg.py:537-575): the same
+        probing as the device head on the dnd_mpi operator, the slab Q1
+        transfers, Lanczos bounds summed over the ranks; coarsening stops
+        where the slab contract or the structured limit breaks, and the tail
+        is gathered once as host CSR. Host seconds: PCGAMGSetUp_head and
+        _tail_download. Returns (tail CSR, level reached)."""
+        meta, data = Afine.meta, Afine.device_data()
+        cur_shape = tuple(int(s) for s in meta[3])
+        Pn = int(meta[1])
+        comm = Afine.comm
+        level = len(levels) - 1
+        limit = max(self.coarse_eq_limit, self.structured_limit)
+        hd = torch.float32 if self.dtype == "f32" else None
+        t0 = time.perf_counter()
+        while (int(np.prod(cur_shape)) > limit and min(cur_shape) >= 4
+               and level < self.max_levels - 1):
+            cshape = tuple((s + 1) // 2 for s in cur_shape)
+            # the slab contract: the coarse planes divide over the ranks
+            if cshape[0] % Pn or cur_shape[0] != 2 * cshape[0]:
+                break
+            emax = gd.device_emax(meta, data, dtype=hd)
+            levels[-1].emin, levels[-1].emax = self.eig_bounds(emax)
+            levels[-1].P = MatInterpQ1MPI(cur_shape, cshape, comm)
+            meta, data = gd.device_rap_dnd_mpi(meta, data, cshape, comm, dtype=hd)
+            levels.append(MGLevelSpec(gd.as_mat_mpi(meta, data, comm)))
+            cur_shape = cshape
+            level += 1
+        config.log().log_event("PCGAMGSetUp_head", time.perf_counter() - t0)
+        return _timed("PCGAMGSetUp_tail_download", gd.mpi_to_csr, meta, data), level
 
 
 class _PCHMG(_PCGAMG):

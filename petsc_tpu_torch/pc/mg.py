@@ -62,6 +62,7 @@ from ..ops import operator
 from ..ops.block_kernels import (agg_block_apply, agg_block_apply_plain, agg_block_cheby,
                                  agg_block_tables, size_runs)
 from ..ops.pallas_kernels import cheby_update, dot2, triad
+from ..parallel.mesh import reducing
 from ..sys.error import Error
 from .pc import PC
 
@@ -408,10 +409,16 @@ def build_mg_meta_data(levels, cycle="v", smoother="chebyshev", pre=2, post=2,
             # scipy's pivots are 0-based row swaps, torch's (LAPACK's) 1-based
             lev_datas.append({"lu": torch.as_tensor(lu, dtype=rd, device=dev),
                               "piv": torch.as_tensor(piv + 1, dtype=torch.int32, device=dev)})
+            if A.comm.size > 1:
+                # a sharded coarsest level: every rank solves the gathered
+                # right-hand side and keeps its block
+                lev_datas[-1].update(comm=A.comm, layout=A.row_layout)
             continue
         P = lev.P
         R = lev.R
-        if R is None and P.meta[0] != "interp_q1":
+        # a Q1 transfer restricts by its own transpose (Q1R), and so does the
+        # telescope step of a sharded hierarchy (gamg.MatRowBlockP)
+        if R is None and P.meta[0] not in ("interp_q1", "interp_q1_mpi", "p_row_block"):
             R = MatAIJ.from_scipy(native.csr_transpose(P.to_scipy().tocsr()), comm=P.comm)
         pc_tab = None
         if levels_pc == "asm_agg" and lev.agg is not None:
@@ -510,27 +517,40 @@ def _bind_pc_mg(meta, data):
     def coarse_solve(b):
         cm, cd = lev_metas[-1], last
         if cm[0] == "coarse_cg":
-            # Jacobi CG until |<r, z>| <= 1e-10 |<r0, z0>| or 200 steps (the
-            # reference's -mg_coarse_ksp_type cg -mg_coarse_pc_type jacobi),
-            # one host read per step
-            Aop, dinv = operator.bind(cm[1], cd["A"]), cd["dinv"]
-            x, r = torch.zeros_like(b), b.clone()
-            z = dinv * r
-            p = z.clone()
-            rz = dot2(z, r)[0]
-            rz_h = float(rz)
-            atol2, it = 1e-10 * abs(rz_h), 0
-            while abs(rz_h) > atol2 and it < 200:
-                Ap = Aop.mult(p)
-                alpha = rz / dot2(Ap, p)[0]
-                triad(x, p, alpha, out=x)
-                triad(r, Ap, -alpha, out=r)
-                z = dinv * r
-                rz2 = dot2(z, r)[0]
-                triad(z, p, rz2 / rz, out=p)
-                rz, rz_h, it = rz2, float(rz2), it + 1
+            # every rank holds the replicated coarsest level: its sums stay local
+            with reducing(None):
+                return coarse_cg(cm, cd, b)
+        if "comm" in cd:
+            comm, lay = cd["comm"], cd["layout"]
+            xg = torch.linalg.lu_solve(cd["lu"], cd["piv"],
+                                       comm.allgather(b)[: lay.N, None])[:, 0]
+            lo, hi = lay.range(comm.rank)
+            x = torch.zeros_like(b)
+            x[: hi - lo] = xg[lo:hi]
             return x
         return torch.linalg.lu_solve(cd["lu"], cd["piv"], b[:, None])[:, 0]
+
+    def coarse_cg(cm, cd, b):
+        # Jacobi CG until |<r, z>| <= 1e-10 |<r0, z0>| or 200 steps (the
+        # reference's -mg_coarse_ksp_type cg -mg_coarse_pc_type jacobi),
+        # one host read per step
+        Aop, dinv = operator.bind(cm[1], cd["A"]), cd["dinv"]
+        x, r = torch.zeros_like(b), b.clone()
+        z = dinv * r
+        p = z.clone()
+        rz = dot2(z, r)[0]
+        rz_h = float(rz)
+        atol2, it = 1e-10 * abs(rz_h), 0
+        while abs(rz_h) > atol2 and it < 200:
+            Ap = Aop.mult(p)
+            alpha = rz / dot2(Ap, p)[0]
+            triad(x, p, alpha, out=x)
+            triad(r, Ap, -alpha, out=r)
+            z = dinv * r
+            rz2 = dot2(z, r)[0]
+            triad(z, p, rz2 / rz, out=p)
+            rz, rz_h, it = rz2, float(rz2), it + 1
+        return x
 
     def bind_level(l):
         A_meta, P_meta, R_meta, kind, pre, post = lev_metas[l]

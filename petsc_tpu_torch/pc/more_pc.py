@@ -200,6 +200,10 @@ class _PCASM:
 
     def setup(self):
         A = self.pc.pmat
+        nsh = A.comm.nshards
+        if nsh > 1 and self.nblocks in (None, nsh) and hasattr(A, "shardcsr") \
+                and self._kind == "pc_asm":
+            return self._setup_dist(A)
         m = A.row_layout.N
         S, doms = self.domains()
         big, off = domain_block_diag(S, [d for _, d in doms])
@@ -233,9 +237,71 @@ class _PCASM:
 
     _kind = "pc_asm"
 
+    def _setup_dist(self, A):
+        """Distributed restricted ASM (more_pc.py:207-277): one subdomain a
+        rank, its rows grown by `overlap` rounds of pattern adjacency with
+        the overlap rows fetched by owner (ShardedCSR.fetch_rows); the ghost
+        values come by ExchangePlan.bcast, the domain's ILU(0) is swept by T1
+        on the rank, the owned part kept (restrict) and for basic the
+        overlap part sent back by reduce_add."""
+        from ..parallel.sf import ExchangePlan
+        S = A.shardcsr()
+        rl, comm = S.row_layout, A.comm
+        blk, nsh, r = rl.block, rl.nshards, comm.rank
+        doms, ghosts = [], []
+        for s in range(nsh):
+            lo, hi = rl.range(s)
+            dom = np.arange(lo, hi)
+            for _ in range(self.overlap):
+                cols = np.unique(S.fetch_rows(dom).indices)
+                dom = np.union1d(dom, cols[cols < rl.N])
+            doms.append(dom)
+            ghosts.append(dom[(dom < lo) | (dom >= hi)])
+        plan = ExchangePlan(rl, ghosts, axis=comm.axis, comm=comm)
+        lo, hi = rl.range(r)
+        dom, gh = doms[r], ghosts[r]
+        sub = S.fetch_rows(dom)[:, dom].tocsr()
+        L, U, dinv = factor.ilu0(sub.indptr.astype(np.int64), sub.indices.astype(np.int64),
+                                 sub.data)
+        tail, data = trisolve.make_trisolve_plan(L, U, dinv)
+        # the domain's right-hand side from [x_local | halo]
+        own = (dom >= lo) & (dom < hi)
+        gi = np.empty(len(dom), dtype=np.int64)
+        gi[own] = dom[own] - lo
+        gi[~own] = blk + np.searchsorted(gh, dom[~own])
+        dev, rd = config.device(), config.real_dtype()
+        data["gidx"] = torch.as_tensor(gi.astype(np.int32), device=dev)
+        data["own_pos"] = torch.as_tensor(np.searchsorted(dom, np.arange(lo, hi))
+                                          .astype(np.int32), device=dev)
+        data["ghost_pos"] = torch.as_tensor(np.searchsorted(dom, gh).astype(np.int32),
+                                            device=dev)
+        data["sf"] = plan
+        return ("pc_asm_dist", blk, hi - lo, plan.H, self.asm_type), data
+
     def _weights(self, gat, m):
         """Weights on both sides of the domain solves (none for ASM)."""
         return None
+
+
+def _bind_pc_asm_dist(meta, data):
+    _, blk, nown, H, asm_type = meta
+    plan = data["sf"]
+
+    def mult(x):
+        buf = torch.cat([x, plan.bcast(x)])
+        sol = trisolve.trisolve_apply(data, gather(buf, data["gidx"], check=False))
+        y = torch.zeros_like(x)
+        y[:nown] = gather(sol, data["own_pos"], check=False)
+        if asm_type == "basic":
+            contrib = torch.zeros(H, dtype=x.dtype, device=x.device)
+            ng = data["ghost_pos"].numel()
+            contrib[:ng] = gather(sol, data["ghost_pos"], check=False)
+            back = plan.reduce_add(contrib)
+            back[nown:] = 0
+            y = add_vec(y, back)
+        return y
+
+    return operator.Op(mult=mult)
 
 
 def _bind_pc_asm(meta, data):
@@ -422,15 +488,26 @@ class _PCFieldSplit:
         A = self.pc.pmat
         isets = [idx for _, idx in self.fields]
         nf = len(isets)
-        from ..sys.info import warn_full_gather
-        warn_full_gather(A, "PCFieldSplit(serial split path)")
-        S = A.to_scipy().tocsr()
-        rows = [S[ix] for ix in isets]
         # the additive type reads only the diagonal blocks
         need = [(i, j) for i in range(nf) for j in range(nf)
                 if i == j or self.ftype != "additive"]
-        blocks = {(i, j): rows[i][:, isets[j]].tocsr() for i, j in need}
-        Ms = {k: MatAIJ.from_scipy(v, comm=A.comm) for k, v in blocks.items()}
+        dist = A.comm.nshards > 1 and hasattr(A, "shardcsr")
+        if dist:
+            # the distributed split (more_pc.py:509-520): each sub-block from
+            # the ShardedCSR's row fetch (MatCreateSubMatrix_MPIAIJ), bound
+            # by from_sharded; no gather of the whole operator
+            Ssh = A.shardcsr()
+            bsh = {(i, j): Ssh.submatrix(isets[i], isets[j]) for i, j in need}
+            Ms = {k: MatAIJ.from_sharded(v, A.comm) for k, v in bsh.items()}
+            blocks = {k: v.to_global_csr()[: len(isets[k[0]]), : len(isets[k[1]])].tocsr()
+                      for k, v in bsh.items()} if self.ftype == "schur" else {}
+        else:
+            from ..sys.info import warn_full_gather
+            warn_full_gather(A, "PCFieldSplit(serial split path)")
+            S = A.to_scipy().tocsr()
+            rows = [S[ix] for ix in isets]
+            blocks = {(i, j): rows[i][:, isets[j]].tocsr() for i, j in need}
+            Ms = {k: MatAIJ.from_scipy(v, comm=A.comm) for k, v in blocks.items()}
         sub_pcs = []
         for i in range(nf):
             p = PC(options=self.pc._options,
@@ -438,7 +515,16 @@ class _PCFieldSplit:
             Mi = Ms[i, i]
             if self.ftype == "schur" and i == 1:
                 p._schur_ctx = (blocks[0, 0], blocks[0, 1], blocks[1, 0], blocks[1, 1])
-                if self.schur_pre == "selfp":
+                if self.schur_pre == "selfp" and dist:
+                    # Sp = A11 - A10 D0^-1 A01 on the per-rank blocks
+                    rl0 = bsh[0, 0].row_layout
+                    d0 = np.concatenate(bsh[0, 0].diag_shards())
+                    d0 = np.where(d0 == 0, 1.0, d0)
+                    vals = [1.0 / d0[s * rl0.block:(s + 1) * rl0.block]
+                            for s in range(A.comm.nshards)]
+                    A01s = bsh[0, 1].scale_rows(vals)
+                    Mi = MatAIJ.from_sharded(bsh[1, 1].add(bsh[1, 0].spmm(A01s) * -1.0), A.comm)
+                elif self.schur_pre == "selfp":
                     d0 = blocks[0, 0].diagonal()
                     d0 = np.where(d0 == 0, 1.0, d0)
                     Sp = (blocks[1, 1] - blocks[1, 0] @ sp.diags(1.0 / d0) @ blocks[0, 1]).tocsr()
@@ -450,6 +536,13 @@ class _PCFieldSplit:
             sub_pcs.append(p)
         self.sub_pcs = sub_pcs
         dev, rd, npad = config.device(), config.real_dtype(), A.row_layout.Npad
+        if dist:
+            data = {"moves": tuple(_FieldMove(A.row_layout, ix, A.comm) for ix in isets),
+                    "subs": tuple(p.device_data() for p in sub_pcs),
+                    "blocks": {k: Ms[k].device_data() for k in Ms if k[0] != k[1]}}
+            bmetas = tuple((k, Ms[k].meta) for k in Ms if k[0] != k[1])
+            return ("pc_fieldsplit", self.ftype, self.schur_fact, npad,
+                    tuple(p.meta for p in sub_pcs), bmetas), data
         data = {
             "isets": tuple(torch.as_tensor(ix.astype(np.int32), device=dev) for ix in isets),
             "scatters": tuple(pc_kernels.scatter_table(ix, np.arange(len(ix)), npad, len(ix),
@@ -463,15 +556,56 @@ class _PCFieldSplit:
         return meta, data
 
 
+class _FieldMove:
+    """A field's moves between a distributed vector's blocks and the field's
+    sub-vector's blocks (Layout(len(iset), P)): take (the rank's block of
+    x[iset], an ExchangePlan over the full layout whose leaves are each
+    rank's slice of iset) and put (y[iset] = the field's values for the
+    rows this rank owns, a plan over the field layout whose leaves are the
+    field positions of those rows, written by X1's set)."""
+
+    def __init__(self, layout, iset, comm):
+        from ..parallel.layout import Layout
+        from ..parallel.sf import ExchangePlan
+        P, r = comm.nshards, comm.rank
+        fl = Layout(len(iset), P)
+        self.fblk = fl.block
+        self.take_plan = ExchangePlan(layout, [iset[slice(*fl.range(s))] for s in range(P)],
+                                      comm=comm)
+        pos = []
+        for s in range(P):
+            lo, hi = layout.range(s)
+            pos.append(np.nonzero((iset >= lo) & (iset < hi))[0])
+        self.put_plan = ExchangePlan(fl, pos, comm=comm)
+        lo, _ = layout.range(r)
+        n = len(pos[r])
+        self.n_take = fl.local_size(r)
+        self.put = pc_kernels.scatter_table(iset[pos[r]] - lo, np.arange(n), layout.block,
+                                            self.put_plan.H, device=config.device(),
+                                            dtype=config.real_dtype())
+
+    def take(self, x):
+        halo = self.take_plan.bcast(x)
+        out = torch.zeros(self.fblk, dtype=x.dtype, device=x.device)
+        out[: self.n_take] = halo[: self.n_take]
+        return out
+
+    def put_into(self, y, v):
+        return pc_kernels.dst_scatter(self.put, self.put_plan.bcast(v), out=y)
+
+
 def _bind_pc_fieldsplit(meta, data):
     _, ftype, sfact, npad, sub_metas, bmetas = meta
     nf = len(sub_metas)
-    isets, scat = data["isets"], data["scatters"]
+    moves = data.get("moves")
     subs = [operator.bind(m_, d_) for m_, d_ in zip(sub_metas, data["subs"])]
     Bop = {k: operator.bind(bm, data["blocks"][k]) for k, bm in bmetas}
+    if moves is None:
+        isets, scat = data["isets"], data["scatters"]
 
     def mult(x):
-        xs = [gather(x, ix, check=False) for ix in isets]
+        xs = [mv.take(x) for mv in moves] if moves is not None else \
+            [gather(x, ix, check=False) for ix in isets]
         y = torch.zeros_like(x)
         if ftype == "additive":
             ys = [subs[i].mult(xs[i]) for i in range(nf)]
@@ -507,7 +641,8 @@ def _bind_pc_fieldsplit(meta, data):
         else:
             raise Error(f"fieldsplit type {ftype}")
         for i in range(nf):
-            y = pc_kernels.dst_scatter(scat[i], ys[i], out=y)
+            y = moves[i].put_into(y, ys[i]) if moves is not None else \
+                pc_kernels.dst_scatter(scat[i], ys[i], out=y)
         return y
 
     return operator.Op(mult=mult)
@@ -520,6 +655,7 @@ PC.register_impl("ksp", _PCKSP)
 PC.register_impl("fieldsplit", _PCFieldSplit)
 operator.register_binder("pc_sor", _bind_pc_sor)
 operator.register_binder("pc_asm", _bind_pc_asm)
+operator.register_binder("pc_asm_dist", _bind_pc_asm_dist)
 operator.register_binder("pc_composite", _bind_pc_composite)
 operator.register_binder("pc_ksp", _bind_pc_ksp)
 operator.register_binder("pc_fieldsplit", _bind_pc_fieldsplit)

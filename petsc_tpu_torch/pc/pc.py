@@ -132,8 +132,11 @@ class PC(PObject):
         return self
 
     def default_type(self):
-        # PETSc's default for an assembled AIJ matrix on one device is ilu;
-        # for a stencil Mat the reference defaults to none
+        # PETSc's defaults: ilu for an assembled AIJ matrix on one rank,
+        # block Jacobi on several; for a stencil Mat the reference defaults
+        # to none
+        if self.pmat is not None and getattr(self.pmat.comm, "nshards", 1) > 1:
+            return "bjacobi"
         from ..mat.aij import MatAIJ
         return "ilu" if isinstance(self.pmat, MatAIJ) else "none"
 

@@ -2,8 +2,18 @@
 
 Counterpart of ``petsc_tpu/vec/vec.py`` (reference _VecOps vtable,
 include/petsc/private/vecimpl.h:18-113; BLAS-1 in
-src/vec/vec/interface/rvector.c). One device, so storage is the (N,)
-tensor with no padding. The petsc4py method names are kept.
+src/vec/vec/interface/rvector.c). The petsc4py method names are kept.
+
+On a one-rank comm the storage is the (N,) tensor with no padding. On a
+multi-rank comm (:mod:`..parallel.mesh`) each rank holds its block of the
+layout, ``layout.block`` entries, the last rank's tail zero padding as in
+the reference's sharded arrays (vec.py:8, :72, :97-107). Dots and norms
+are the rank's partial followed by one all-reduce (in float64 where the
+Vec is float64); an accessor whose reference returns the global array
+returns it here too, gathered from every rank: ``getArray``, ``view``,
+``max``, ``min``, ``getSubVector``, ``strideGather``. ``setArray`` and
+``from_array`` take the global array and keep the rank's block;
+``setValues`` applies the indices the rank owns.
 """
 
 from __future__ import annotations
@@ -18,7 +28,7 @@ from ..ops.esteig import uniform
 from ..ops.pallas_kernels import dot2
 from ..ops.reduce import fdot, fnorm2
 from ..parallel.layout import Layout
-from ..parallel.mesh import Comm, comm_self
+from ..parallel.mesh import Comm, comm_self, reducing
 from ..sys.object import PObject
 
 
@@ -55,7 +65,7 @@ class Vec(PObject):
         return cls(comm)
 
     def setSizes(self, N: int, bs: int = 1):
-        self.layout = Layout(int(N), bs=bs, axis=self.comm.axis)
+        self.layout = Layout(int(N), self.comm.nshards, bs=bs, axis=self.comm.axis)
         return self
 
     def setLayout(self, layout: Layout):
@@ -76,19 +86,57 @@ class Vec(PObject):
         return self
 
     def _zeros(self):
-        return torch.zeros(self.layout.Npad, dtype=config.real_dtype(),
+        return torch.zeros(self.layout.block, dtype=config.real_dtype(),
                            device=config.device())
+
+    @property
+    def _sharded(self):
+        return self.comm.size > 1
+
+    def _own(self):
+        """[lo, hi) of the global indices this rank holds."""
+        return self.layout.range(self.comm.rank)
+
+    def _block_of(self, t):
+        """The rank's zero-padded block of a global 1-D tensor."""
+        lo, hi = self._own()
+        out = torch.zeros(self.layout.block, dtype=t.dtype, device=t.device)
+        out[: hi - lo] = t[lo:hi]
+        return out
+
+    def _global(self, a=None):
+        """The global (N,) tensor, gathered from every rank."""
+        a = self.array if a is None else a
+        if not self._sharded:
+            return a
+        return self.comm.allgather(a)[: self.layout.N]
+
+    def _zero_tail(self, a):
+        """`a` with the last rank's padding set back to zero, which the
+        reductions sum over (vec.py:171)."""
+        lo, hi = self._own()
+        if hi - lo < a.shape[0]:
+            a[hi - lo:] = 0
+        return a
+
+    def _reduce(self, t, op="sum"):
+        if self._sharded:
+            (self.comm.allreduce_ if op == "sum" else self.comm.allreduce_max_)(t)
+        return t
 
     @classmethod
     def from_array(cls, arr, comm=None, layout=None):
-        """Create from a dense global array (numpy or tensor) of length N."""
+        """Create from a dense global array (numpy or tensor) of length N;
+        on a multi-rank comm the Vec keeps its rank's block."""
         v = cls(comm)
         if isinstance(arr, torch.Tensor):
             t = arr.to(device=config.device(), dtype=config.real_dtype(), copy=True)
         else:
             t = torch.tensor(np.asarray(arr), dtype=config.real_dtype(),
                              device=config.device())
-        v.layout = layout or Layout(t.shape[0], axis=v.comm.axis)
+        v.layout = layout or Layout(t.shape[0], v.comm.nshards, axis=v.comm.axis)
+        if v._sharded and t.shape[0] != v.layout.block:
+            t = v._block_of(t)
         v._array = t.contiguous()
         v._setup_called = True
         return v
@@ -121,25 +169,26 @@ class Vec(PObject):
         self.increase_state()
 
     def getArray(self, readonly=True):
-        """Values as numpy (VecGetArray borrow analog)."""
-        return self.array.detach().cpu().numpy()
+        """Values as numpy (VecGetArray borrow analog); the global array,
+        gathered, on a multi-rank comm."""
+        return self._global().detach().cpu().numpy()
 
     def setArray(self, values):
         values = np.asarray(values)
         if values.shape[0] != self.layout.N:
             raise ValueError(f"setArray: {values.shape[0]} values for a Vec of size {self.layout.N}")
-        self._array = torch.tensor(values, dtype=self.array.dtype,
-                                   device=self.array.device)
+        t = torch.tensor(values, dtype=self.array.dtype, device=self.array.device)
+        self._array = self._block_of(t) if self._sharded else t
         self.increase_state()
 
     def getSize(self):
         return self.layout.N
 
     def getLocalSize(self):
-        return self.layout.block
+        return self.layout.local_size(self.comm.rank)
 
     def getOwnershipRange(self):
-        return (0, self.layout.N)
+        return self._own()
 
     def getBlockSize(self):
         return self.layout.bs
@@ -155,7 +204,8 @@ class Vec(PObject):
     # ---------------- setting values ----------------
 
     def set(self, alpha):
-        self.array.fill_(alpha)
+        lo, hi = self._own()
+        self.array[: hi - lo].fill_(alpha)      # the padding stays zero
         self.increase_state()
         return self
 
@@ -165,8 +215,13 @@ class Vec(PObject):
     def setValues(self, idx, values, addv=InsertMode.INSERT_VALUES):
         """VecSetValues: INSERT or ADD (repeated indices accumulate) at
         global indices; no stash, so assembly is a no-op."""
-        idx = self._index(np.ravel(idx))
-        values = self._like(np.ravel(np.asarray(values)))
+        idx, values = np.ravel(idx), np.ravel(np.asarray(values))
+        if self._sharded:
+            lo, hi = self._own()
+            mine = (idx >= lo) & (idx < hi)
+            idx, values = idx[mine] - lo, values[mine]
+        idx = self._index(idx)
+        values = self._like(values)
         self.array.index_put_((idx,), values, accumulate=addv == InsertMode.ADD_VALUES)
         self.increase_state()
 
@@ -189,7 +244,8 @@ class Vec(PObject):
         dt = np.float64 if a.dtype == torch.float64 else np.float32
         lo, hi = dt(interval[0]), dt(interval[1])
         u = uniform(0 if key is None else key, self.layout.N, dt)
-        self.array = self._like(np.maximum(lo, u * (hi - lo) + lo))
+        vals = self._like(np.maximum(lo, u * (hi - lo) + lo))
+        self.array = self._block_of(vals) if self._sharded else vals
         return self
 
     # ---------------- BLAS-1 ----------------
@@ -236,7 +292,10 @@ class Vec(PObject):
         return self
 
     def shift(self, alpha):
-        self.array = self.array + alpha
+        lo, hi = self._own()
+        a = self.array.clone()
+        a[: hi - lo] += alpha
+        self.array = a
         return self
 
     def swap(self, other: "Vec"):
@@ -247,28 +306,34 @@ class Vec(PObject):
     def dot(self, y: "Vec"):
         """x'y (VecDot)."""
         config.log().log_flops("VecDot", 2 * self.layout.N)
-        return float(fdot(self.array, y.array))
+        return float(self._reduce(fdot(self.array, y.array)))
+
+    def _norm2(self, a):
+        if not self._sharded:
+            return fnorm2(a)
+        return torch.sqrt(self._reduce(torch.sum(a * a)))
 
     def norm(self, norm_type=NormType.NORM_2):
         a = self.array
         if norm_type == NormType.NORM_2 or norm_type == NormType.NORM_FROBENIUS:
             config.log().log_flops("VecNorm", 2 * self.layout.N)
-            return float(fnorm2(a))
+            return float(self._norm2(a))
         if norm_type == NormType.NORM_1:
-            return float(torch.sum(torch.abs(a)))
+            return float(self._reduce(torch.sum(torch.abs(a))))
         if norm_type == NormType.NORM_INFINITY:
-            return float(torch.max(torch.abs(a)))
+            return float(self._reduce(torch.max(torch.abs(a)), "max"))
         if norm_type == NormType.NORM_1_AND_2:
-            return (float(torch.sum(torch.abs(a))), float(fnorm2(a)))
+            return (float(self._reduce(torch.sum(torch.abs(a)))), float(self._norm2(a)))
         raise ValueError(norm_type)
 
     def dotNorm2(self, other: "Vec"):
         """VecDotNorm2: (self . other, ||other||^2) in one pass (the dot2 kernel)."""
-        d, n2 = dot2(self.array, other.array)
+        with reducing(self.comm):
+            d, n2 = dot2(self.array, other.array)
         return float(d), float(n2)
 
     def tDot(self, y: "Vec"):
-        return float(fdot(self.array, y.array))
+        return self.dot(y)
 
     def normalize(self):
         n = self.norm()
@@ -277,23 +342,26 @@ class Vec(PObject):
         return n
 
     def sum(self):
-        return float(torch.sum(self.array))
+        return float(self._reduce(torch.sum(self.array)))
 
     def mean(self):
         return self.sum() / self.layout.N
 
     def max(self):
         """(index, value) of the largest entry, the first index on ties."""
-        i = int(torch.argmax(self.array))
-        return i, float(self.array[i])
+        a = self._global()
+        i = int(torch.argmax(a))
+        return i, float(a[i])
 
     def min(self):
-        i = int(torch.argmin(self.array))
-        return i, float(self.array[i])
+        a = self._global()
+        i = int(torch.argmin(a))
+        return i, float(a[i])
 
     def equal(self, other: "Vec"):
         """Exact comparison, entry by entry."""
-        return bool(torch.all(self.array == other.array))
+        differ = (self.array != other.array).any().to(torch.float64)
+        return float(self._reduce(differ)) == 0
 
     # ---------------- pointwise ----------------
 
@@ -302,7 +370,7 @@ class Vec(PObject):
         return self
 
     def pointwiseDivide(self, x: "Vec", y: "Vec"):
-        self.array = x.array / y.array
+        self.array = self._zero_tail(x.array / y.array)
         return self
 
     def pointwiseMax(self, x: "Vec", y: "Vec"):
@@ -316,7 +384,8 @@ class Vec(PObject):
     def maxPointwiseDivide(self, y: "Vec"):
         """max_i |x_i| / |y_i|, with |y_i| taken as 1 where y_i is 0."""
         b = torch.abs(y.array)
-        return float(torch.max(torch.abs(self.array) / torch.where(b == 0, 1.0, b)))
+        return float(self._reduce(torch.max(torch.abs(self.array) / torch.where(b == 0, 1.0, b)),
+                                  "max"))
 
     def reciprocal(self):
         """x_i <- 1/x_i, leaving zero entries zero (PETSc semantics)."""
@@ -333,13 +402,13 @@ class Vec(PObject):
         return self
 
     def exp(self):
-        self.array = torch.exp(self.array)
+        self.array = self._zero_tail(torch.exp(self.array))
         return self
 
     def log(self):
         """log x_i, with entries <= 0 taken as 1 (so they give 0)."""
         a = self.array
-        self.array = torch.log(torch.where(a <= 0, 1.0, a))
+        self.array = self._zero_tail(torch.log(torch.where(a <= 0, 1.0, a)))
         return self
 
     # ---------------- sub-vectors and strides ----------------
@@ -352,7 +421,7 @@ class Vec(PObject):
         """VecGetSubVector: a copy of the entries at the index set (an index
         array or an object with `.indices`); this Vec changes only when
         restoreSubVector writes the copy back."""
-        return Vec.from_array(self.array[self._index(self._indices(iset))], comm=self.comm)
+        return Vec.from_array(self._global()[self._index(self._indices(iset))], comm=self.comm)
 
     def restoreSubVector(self, iset, sub: "Vec"):
         idx = self._indices(iset)
@@ -363,7 +432,7 @@ class Vec(PObject):
     def strideGather(self, field, bs=None):
         """VecStrideGather: component `field` of a bs-interlaced vector."""
         bs = bs or self.getBlockSize() or 1
-        return Vec.from_array(self.array[field::bs], comm=self.comm)
+        return Vec.from_array(self._global()[field::bs], comm=self.comm)
 
     def strideScatter(self, field, sub: "Vec", bs=None):
         bs = bs or self.getBlockSize() or 1
@@ -403,7 +472,8 @@ class Vec(PObject):
     # ---------------- viewing ----------------
 
     def view(self, viewer=None):
-        print("Vec Object: 1 MPI process")
+        n = self.comm.size
+        print(f"Vec Object: {n} MPI process{'es' if n > 1 else ''}")
         print("  type: petsc_tpu")
         for v in self.getArray():
             print(f"{v:g}")
@@ -416,7 +486,9 @@ def fused_reductions(pairs):
     """Split-phase reduction batching (reference src/vec/vec/utils/comb.c:9):
     several dots/norms with ONE device-to-host copy. `pairs` is a list of
     ("dot", x, y) / ("norm2", x) / ("norm1", x) / ("norminf", x) tuples;
-    returns a list of floats in order."""
+    returns a list of floats in order. On a multi-rank comm (the Vecs'
+    own, as for ``Vec.dot``) the ranks' partials are summed, the max
+    norm's maximised, over the ranks."""
     parts = []
     for p in pairs:
         kind = p[0]
@@ -430,6 +502,12 @@ def fused_reductions(pairs):
             parts.append(torch.max(torch.abs(p[1].array)))
         else:
             raise ValueError(kind)
-    out = torch.stack(parts).cpu().numpy()
+    out = torch.stack(parts)
+    comm = pairs[0][1].comm if pairs else None
+    if comm is not None and comm.size > 1:
+        # every kind sums over the ranks but the max norm
+        mx = torch.tensor([p[0] == "norminf" for p in pairs], device=out.device)
+        out = torch.where(mx, comm.allreduce_max_(out.clone()), comm.allreduce_(out.clone()))
+    out = out.cpu().numpy()
     return [float(np.sqrt(v)) if p[0] == "norm2" else float(v)
             for p, v in zip(pairs, out)]

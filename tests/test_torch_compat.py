@@ -92,15 +92,30 @@ def test_compat_extended_namespace():
 
 def test_top_level_names():
     """The reference's petsc_tpu/__init__.py:34-35 and :43-100 names; VecGhost
-    and VecNest come with distribution (ROADMAP item 12) and raise."""
+    and VecNest (which came with distribution) on one rank equal the
+    reference's (four ranks: tests/test_torch_dist_sf.py)."""
     for name in ("DMSwarm", "DMNetwork", "IS", "DMStag", "DMComposite", "Regressor", "AO",
                  "Random", "viewer", "KSP", "DMDA", "DMPlex", "MatColoring"):
         assert getattr(ptt, name).__module__.startswith("petsc_tpu_torch") \
             if not isinstance(getattr(ptt, name), type(np)) else True, name
         assert hasattr(pt_jax, name)
-    for name in ("VecGhost", "VecNest"):
-        with pytest.raises(ptt.Error, match="item 12"):
-            getattr(ptt, name)
+    ptt.init(device="cpu")
+    x = np.arange(10.0)
+    g, rg = ptt.VecGhost.createGhost(10, [7, 2]), pt_jax.VecGhost.createGhost(10, [7, 2])
+    g.setArray(x)
+    rg.setArray(x)
+    g.ghostUpdate()
+    rg.ghostUpdate()
+    assert np.array_equal(g.getLocalForm().numpy(), np.asarray(rg.getLocalForm()))
+    g.setLocalForm(np.arange(12.0))
+    rg.setLocalForm(np.arange(12.0))
+    g.ghostUpdate(ptt.InsertMode.ADD_VALUES, "reverse")
+    rg.ghostUpdate(pt_jax.InsertMode.ADD_VALUES, "reverse")
+    assert np.array_equal(g.getArray(), np.asarray(rg.getArray()))
+    nv = ptt.VecNest.create([ptt.Vec.from_array(x[:4]), ptt.Vec.from_array(x[4:])])
+    rn = pt_jax.VecNest.create([pt_jax.Vec.from_array(x[:4]), pt_jax.Vec.from_array(x[4:])])
+    assert nv.getNestSize() == rn.getNestSize() == 2
+    assert np.array_equal(nv.getArray(), np.asarray(rn.getArray()))
 
 
 def test_index_sets_equal_the_reference():

@@ -328,10 +328,21 @@ def test_the_head_events_are_logged():
 
 
 def test_what_later_slices_bring_is_refused():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        gd.device_rap_dnd_mpi(None, None, (4, 4), None)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        gd.mpi_to_csr(None, None)
+    """The sharded head came with distribution: a slab level's planes (one
+    rank here; tests/test_torch_dist_mat.py holds four) gather to the same
+    host CSR as the one-device level's, and the head takes dnd_mpi
+    stencils where asked to."""
+    from petsc_tpu_torch.parallel.mesh import comm_self
+    ptt.init(device="cpu")
+    meta, data = stencil_build.build_dnd((6, 5, 4), kind="box")
+    coef = torch.as_tensor(np.random.default_rng(4).random((27, 6, 5, 4)))
+    smeta = ("aij_dnd", (6, 5, 4), tuple(product((-1, 0, 1), repeat=3)), (1,) * 3, (1,) * 3, 120)
+    ext = torch.zeros((27, 8, 5, 4), dtype=coef.dtype)
+    ext[:, 1:7] = coef
+    mmeta = ("dnd_mpi", 1, 6, (6, 5, 4), smeta[2], 1)
+    mpi = gd.mpi_to_csr(mmeta, {"coef": ext, "diag": coef[13].reshape(-1), "comm": comm_self()})
+    assert (mpi != stencil_build.dnd_to_csr(smeta, {"coef": coef})).nnz == 0
+    assert gd.supports_device_rap(mmeta, kinds=("dnd_mpi",)) and not gd.supports_device_rap(mmeta)
     # the head probes {-1,0,1}^d stencils only
     assert not gd.supports_device_rap(("aij_dnd", (8, 8), ((0, 0), (0, 2)), (0, 0), (0, 2), 64))
     assert not gd.supports_device_rap(MatInterpQ1((8, 8), (4, 4)).meta)

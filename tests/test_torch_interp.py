@@ -88,8 +88,16 @@ def test_what_later_slices_bring_is_refused():
                 np.asarray(opj.mult_t(jnp.asarray(xf)))) <= 1e-14
     Pj = interp_jax.MatInterpQ1((8, 8), (4, 4), dof=2).to_scipy()
     assert (M.to_scipy() != Pj).nnz == 0
-    with pytest.raises(NotImplementedError, match="item 12"):
-        interp.MatInterpQ1MPI((8, 8), (4, 4), None)
+    # the slab-sharded transfer came with distribution: on one rank it is
+    # the same operator, bit for bit (four ranks: test_torch_dist_mat.py)
+    from petsc_tpu_torch.parallel.mesh import comm_self
+    Mm = interp.MatInterpQ1MPI((8, 8), (4, 4), comm_self())
+    opm, ops = operator.bind(Mm.meta, Mm.device_data()), operator.bind(
+        *(lambda M1: (M1.meta, M1.device_data()))(interp.MatInterpQ1((8, 8), (4, 4))))
+    xc, xf = torch.from_numpy(rng.random(16)), torch.from_numpy(rng.random(64))
+    assert torch.equal(opm.mult(xc), ops.mult(xc)) and torch.equal(opm.mult_t(xf), ops.mult_t(xf))
+    with pytest.raises(ValueError, match="slab contract"):
+        interp.MatInterpQ1MPI((9, 8), (5, 4), comm_self())
     with pytest.raises(ValueError, match="coarse grid"):
         interp.MatInterpQ1((8, 8), (5, 4))
     with pytest.raises(ValueError, match="entries"):
